@@ -1,0 +1,75 @@
+"""Weights across the frameworks: the JAX package's parameter pytree ->
+this package's `TransformerLM` state dict.
+
+The JAX tree arrives as numpy arrays (`jax.tree.map(np.asarray, ...)`);
+leaves keep their layouts and stay f32, so a converted model computes
+the same function. Only per-layer dense-attention trees convert:
+scan-stacked, MoE and SSD trees raise.
+"""
+import typing as tp
+
+import numpy as np
+import torch
+
+from .transformer import TODO_DECODE_VARIANTS, TransformerConfig
+
+# Per-block leaves: (path in the flax tree, name in the state dict,
+# expected shape from the config).
+_BLOCK_LEAVES = (
+    (("norm1", "scale"), "norm1.scale", lambda c: (c.dim,)),
+    (("attn", "qkv", "kernel"), "attn.qkv.kernel",
+     lambda c: (c.dim, 3, c.num_heads, c.head_dim)),
+    (("attn", "out", "kernel"), "attn.out.kernel",
+     lambda c: (c.num_heads, c.head_dim, c.dim)),
+    (("norm2", "scale"), "norm2.scale", lambda c: (c.dim,)),
+    (("mlp", "up", "kernel"), "mlp.up.kernel",
+     lambda c: (c.dim, 2 * c.dim * c.mlp_ratio)),
+    (("mlp", "down", "kernel"), "mlp.down.kernel",
+     lambda c: (c.dim * c.mlp_ratio, c.dim)),
+)
+
+
+def _leaf(tree: tp.Mapping, path: tp.Sequence[str], shape: tp.Tuple[int, ...],
+          where: str) -> torch.Tensor:
+    node: tp.Any = tree
+    for key in path:
+        if not isinstance(node, tp.Mapping) or key not in node:
+            raise KeyError(f"JAX params have no leaf {where}/"
+                           f"{'/'.join(path)}")
+        node = node[key]
+    array = np.asarray(node)
+    if array.shape != shape:
+        raise ValueError(f"leaf {where}/{'/'.join(path)} has shape "
+                         f"{array.shape}, expected {shape}")
+    return torch.from_numpy(np.array(array, dtype=np.float32))
+
+
+def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
+                    ) -> tp.Dict[str, torch.Tensor]:
+    """JAX `TransformerLM` params (numpy leaves) -> port state dict.
+
+    Accepts the variables dict (`{"params": ...}`) or the inner tree.
+    Every leaf is checked against the shape `cfg` implies; unknown
+    layouts raise rather than load half a model.
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    if "blocks" in tree:
+        raise NotImplementedError(
+            f"scan-stacked parameter trees are not ported yet: "
+            f"{TODO_DECODE_VARIANTS}")
+    state = {"embed": _leaf(tree, ("embed",), (cfg.vocab_size, cfg.dim), ""),
+             "norm_f.scale": _leaf(tree, ("norm_f", "scale"), (cfg.dim,), "")}
+    for i in range(cfg.num_layers):
+        name = f"block_{i}"
+        block = tree.get(name)
+        if not isinstance(block, tp.Mapping):
+            raise KeyError(f"JAX params have no {name}")
+        extra = set(block) - {"norm1", "attn", "norm2", "mlp"}
+        if extra:
+            raise NotImplementedError(
+                f"{name} holds {sorted(extra)}: MoE / SSD blocks are not "
+                f"ported yet: {TODO_DECODE_VARIANTS}")
+        for path, key, shape in _BLOCK_LEAVES:
+            state[f"{name}.{key}"] = _leaf(block, path, shape(cfg), name)
+    return state

@@ -1,0 +1,238 @@
+"""KV-cache decoding for the port's TransformerLM (port of
+flashy_tpu/models/decoding.py, dense per-layer models only).
+
+`generate` is the oracle the paged serving engine is held to, on the
+CPU and on the card: it reads its dense `[B, max_len, H, Dh]` cache with
+plain einsums, no kernel. PyTorch runs eagerly, so the JAX package's
+`lax.scan` token loop becomes a Python loop, and cache writes update
+the cache tensors in place instead of returning fresh arrays (one cache
+allocation per call instead of one per step).
+
+The step functions read a nested parameter dict shaped like the JAX
+tree (`decode_params`), with the matmul kernels already cast to the
+compute dtype — bitwise the same as the JAX package's cast at use.
+"""
+import typing as tp
+
+import numpy as np
+import torch
+
+from ..ops.attention import score_scale
+from ..utils import check_same_device, resolve_device
+from .transformer import (TransformerConfig, TransformerLM, _rotary,
+                          check_supported, rmsnorm as _rmsnorm)
+
+
+def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
+    """The model's weights as a JAX-shaped dict, cast once for decoding.
+
+    Matmul kernels are cast to `config.dtype`; the embedding is rounded
+    to `config.dtype` values but kept f32, so the row lookup
+    (`embed[tokens].to(dtype)`) and the f32-accumulated tied head see
+    exactly the operands the JAX package's cast-at-use gives them. Norm
+    scales stay f32 (rmsnorm multiplies in f32).
+    """
+    cfg = model.config
+    check_supported(cfg)
+    dtype = cfg.dtype
+
+    def kernel(module):
+        return {"kernel": module.kernel.detach().to(dtype)}
+
+    with torch.no_grad():
+        p: tp.Dict[str, tp.Any] = {
+            "embed": model.embed.detach().to(dtype).float(),
+            "norm_f": {"scale": model.norm_f.scale.detach()}}
+        for i in range(cfg.num_layers):
+            block = getattr(model, f"block_{i}")
+            p[f"block_{i}"] = {
+                "norm1": {"scale": block.norm1.scale.detach()},
+                "attn": {"qkv": kernel(block.attn.qkv),
+                         "out": kernel(block.attn.out)},
+                "norm2": {"scale": block.norm2.scale.detach()},
+                "mlp": {"up": kernel(block.mlp.up),
+                        "down": kernel(block.mlp.down)}}
+    return p
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device: tp.Any) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
+    """Zeroed dense cache: one {'k', 'v'} [B, max_len, H, Dh] slab pair
+    per attention layer, in the compute dtype."""
+    check_supported(cfg)
+    shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+    return {f"block_{i}": {"k": torch.zeros(shape, dtype=cfg.dtype,
+                                            device=device),
+                           "v": torch.zeros(shape, dtype=cfg.dtype,
+                                            device=device)}
+            for i in range(cfg.num_layers)}
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor,
+                 cache_index: tp.Union[int, torch.Tensor]) -> torch.Tensor:
+    """Write `new` [B, S, H, Dh] into `cache` at `cache_index`, in place.
+
+    An int writes the same offset for every row; a [B] tensor writes
+    each row at its own offset, and rows that fall past the cache (a
+    parked slot at max_len) are dropped, not clamped.
+    """
+    if not torch.is_tensor(cache_index):
+        cache[:, cache_index:cache_index + new.shape[1]] = new
+        return cache
+    batch, seq = new.shape[:2]
+    rows = torch.arange(batch, device=cache.device)[:, None].expand(batch, seq)
+    cols = cache_index[:, None] + torch.arange(seq, device=cache.device)
+    keep = cols < cache.shape[1]
+    cache[rows[keep], cols[keep]] = new[keep]
+    return cache
+
+
+def _cached_self_attention(cfg: TransformerConfig, bp: tp.Dict,
+                           x: torch.Tensor, positions: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           cache_index: tp.Union[int, torch.Tensor]):
+    """Pre-norm causal self-attention against the K/V cache.
+
+    Returns (x + attn_out, k_cache, v_cache); the mask derives from
+    `positions`, so rows at different lengths attend their own prefix.
+    """
+    normed = _rmsnorm(x, bp["norm1"]["scale"], cfg.dtype)
+    qkv = torch.einsum("btd,dchk->btchk", normed, bp["attn"]["qkv"]["kernel"])
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    q = _rotary(q, positions)
+    k = _rotary(k, positions)
+    k_cache = _cache_write(k_cache, k.to(cfg.dtype), cache_index)
+    v_cache = _cache_write(v_cache, v.to(cfg.dtype), cache_index)
+
+    max_len = k_cache.shape[1]
+    scale = score_scale(cfg.head_dim)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k_cache.float()) * scale
+    key_pos = torch.arange(max_len, device=x.device)
+    mask = key_pos[None, None, :] <= positions[:, :, None]   # [B, S, L]
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v_cache)
+    attn_out = torch.einsum("bqhd,hdD->bqD", attn,
+                            bp["attn"]["out"]["kernel"])
+    return x + attn_out, k_cache, v_cache
+
+
+def _gated_mlp(bp_mlp: tp.Dict, normed: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """SwiGLU MLP on pre-normed input."""
+    gate, value = (normed @ bp_mlp["up"]["kernel"]).chunk(2, dim=-1)
+    return (torch.nn.functional.silu(gate) * value) \
+        @ bp_mlp["down"]["kernel"]
+
+
+def _layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
+                   positions: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor,
+                   cache_index: tp.Union[int, torch.Tensor]):
+    """One block against cached K/V: returns (x, k_cache, v_cache)."""
+    x, k_cache, v_cache = _cached_self_attention(
+        cfg, bp, x, positions, k_cache, v_cache, cache_index)
+    normed = _rmsnorm(x, bp["norm2"]["scale"], cfg.dtype)
+    return x + _gated_mlp(bp["mlp"], normed, cfg.dtype), k_cache, v_cache
+
+
+def _embed_tokens(p: tp.Dict, tokens: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Token ids [B, S] -> embeddings [B, S, D] in `dtype`."""
+    return p["embed"][tokens.long()].to(dtype)
+
+
+def _head_logits(p: tp.Dict, x: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Final norm + tied head: [B, S, D] -> f32 logits [B, S, V].
+
+    `p["embed"]` holds compute-dtype values in f32 (`decode_params`),
+    so the f32 product is the compute-dtype head with f32 accumulation.
+    """
+    x = _rmsnorm(x, p["norm_f"]["scale"], cfg.dtype)
+    return x.float() @ p["embed"].t()
+
+
+def _apply_step(params: tp.Dict, cfg: TransformerConfig,
+                tokens: torch.Tensor, positions: torch.Tensor,
+                cache: tp.Dict, cache_index: tp.Union[int, torch.Tensor]):
+    """Forward `tokens` [B, S] at `positions` [B, S], reading and writing
+    the dense cache in place; returns (f32 logits [B, S, V], cache)."""
+    x = _embed_tokens(params, tokens, cfg.dtype)
+    for layer in range(cfg.num_layers):
+        name = f"block_{layer}"
+        x, k_cache, v_cache = _layer_forward(
+            cfg, params[name], x, positions, cache[name]["k"],
+            cache[name]["v"], cache_index)
+        cache[name] = {"k": k_cache, "v": v_cache}
+    return _head_logits(params, x, cfg), cache
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+    """[B, V] logits -> [B] next tokens: argmax at temperature 0, else a
+    categorical draw from softmax(logits / temperature) on `generator`."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
+             temperature: float = 0.0, eos_token: tp.Optional[int] = None,
+             generator: tp.Optional[torch.Generator] = None,
+             device: tp.Any = None) -> torch.Tensor:
+    """Autoregressive generation with a dense KV cache.
+
+    Args:
+        model: a TransformerLM living on `device`.
+        prompt: [B, P] int tokens (numpy or tensor).
+        max_new_tokens: tokens to append.
+        temperature: 0 -> greedy; > 0 -> sampling on `generator`.
+        eos_token: a row that emits it is done; later tokens of that row
+            are pinned to `eos_token` (the loop still runs every step).
+        generator: the `torch.Generator` sampling draws from (on
+            `device`); required when temperature > 0.
+        device: `cuda` by default; the CPU only when asked for.
+
+    Returns [B, P + max_new_tokens] tokens on `device`.
+    """
+    device = resolve_device(device)
+    check_same_device("model", model.embed, device)
+    cfg = model.config
+    if not cfg.causal:
+        raise ValueError("generate() implements causal KV-cache decoding; "
+                         "a config.causal=False model has no decode")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("generate(temperature>0) samples and needs an "
+                         "explicit torch.Generator (greedy needs none)")
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
+                             else prompt, device=device)
+    batch, prompt_len = prompt.shape
+    total = prompt_len + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt + new tokens {total} > max_seq_len "
+                         f"{cfg.max_seq_len}")
+    params = decode_params(model)
+    cache = init_cache(cfg, batch, total, device)
+    positions = torch.arange(prompt_len, device=device).expand(batch,
+                                                               prompt_len)
+    logits, cache = _apply_step(params, cfg, prompt, positions, cache, 0)
+    last_logits = logits[:, -1]
+    done = torch.zeros(batch, dtype=torch.bool, device=device)
+    out = [prompt]
+    for t in range(max_new_tokens):
+        token = sample_tokens(last_logits, temperature, generator)
+        if eos_token is not None:
+            token = torch.where(done, torch.full_like(token, eos_token),
+                                token)
+            done = done | (token == eos_token)
+        token = token.to(prompt.dtype)[:, None]
+        out.append(token)
+        position = torch.full((batch, 1), prompt_len + t, device=device)
+        logits, cache = _apply_step(params, cfg, token, position, cache,
+                                    prompt_len + t)
+        last_logits = logits[:, -1]
+    return torch.cat(out, dim=1)

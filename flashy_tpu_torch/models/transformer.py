@@ -1,0 +1,242 @@
+"""TransformerLM in PyTorch: the port of flashy_tpu/models/transformer.py.
+
+Parameters keep the JAX package's layouts and f32 storage so weights
+cross over leaf for leaf (`models.convert.params_from_jax`):
+
+    embed                  [V, D]          f32 (also the tied head)
+    block_i.norm1.scale    [D]
+    block_i.attn.qkv.kernel [D, 3, H, Dh]
+    block_i.attn.out.kernel [H, Dh, D]
+    block_i.norm2.scale    [D]
+    block_i.mlp.up.kernel  [D, 2F]
+    block_i.mlp.down.kernel [F, D]
+    norm_f.scale           [D]
+
+Activations run in `config.dtype`; kernels are cast to it at use, norms
+accumulate in f32 and the tied head accumulates in f32.
+"""
+import dataclasses
+import math
+import typing as tp
+
+import torch
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from ..utils import resolve_device
+
+# Where each part the port does not have yet is scheduled (ROADMAP.md).
+TODO_TRAINING = "ROADMAP.md queue A item 2 (the training slice)"
+TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (MoE / SSD / "
+                        "scan-stacked decode)")
+TODO_RING = "ROADMAP.md queue B row 8 (ring attention, multi-GPU)"
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    dim: int = 512
+    num_layers: int = 8
+    num_heads: int = 8
+    mlp_ratio: int = 4
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    attention: str = "flash"     # 'flash' | 'dense' | 'ring' | 'ring_fused'
+    causal: bool = True
+    # layouts the JAX package has and the port does not yet: setting
+    # them raises NotImplementedError (check_supported); their other
+    # fields (moe_top_k, ssd_state_dim, ...) arrive with them
+    moe_experts: int = 0
+    scan_layers: bool = False
+    mixer: str = "attention"
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+
+def mixer_pattern(cfg: TransformerConfig) -> tp.Tuple[str, ...]:
+    """Resolve cfg.mixer into one mixer name per layer ('attention' or
+    'ssd'; a comma-separated pattern is cycled over the depth)."""
+    names = tuple(part.strip() for part in cfg.mixer.split(","))
+    bad = [n for n in names if n not in ("attention", "ssd")]
+    if bad:
+        raise ValueError(
+            f"config.mixer entries must be 'attention' or 'ssd', got "
+            f"{bad[0]!r} in {cfg.mixer!r}")
+    return tuple(names[i % len(names)] for i in range(cfg.num_layers))
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise NotImplementedError for layouts the port cannot hold yet."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            f"moe_experts > 0 is not ported yet: {TODO_DECODE_VARIANTS}")
+    if "ssd" in mixer_pattern(cfg):
+        raise NotImplementedError(
+            f"SSD mixer layers are not ported yet: {TODO_DECODE_VARIANTS}")
+    if cfg.scan_layers:
+        raise NotImplementedError(
+            f"scan_layers=True is not ported yet: {TODO_DECODE_VARIANTS}")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """RMSNorm with f32 accumulation and eps 1e-6, cast to `dtype`."""
+    h = x.float()
+    h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + 1e-6)
+    return (h * scale.float()).to(dtype)
+
+
+def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rotary embeddings on [B, T, H, D] at [B, T] positions: f32 angles,
+    result cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                            device=x.device) / half))
+    angles = positions[:, :, None].float() * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin,
+                      x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _param(shape: tp.Sequence[int], std: float, generator: torch.Generator,
+           device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.randn(*shape, generator=generator,
+                                    device=device) * std)
+
+
+class _Kernel(nn.Module):
+    """Holder of one matmul kernel leaf (`<name>.kernel`), f32."""
+
+    def __init__(self, shape: tp.Sequence[int], fan_in: int,
+                 generator: torch.Generator, device: torch.device):
+        super().__init__()
+        self.kernel = _param(shape, 1.0 / math.sqrt(fan_in), generator,
+                             device)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale, self.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.config = cfg
+        h, dh = cfg.num_heads, cfg.head_dim
+        self.qkv = _Kernel((cfg.dim, 3, h, dh), cfg.dim, generator, device)
+        self.out = _Kernel((h, dh, cfg.dim), h * dh, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        cfg = self.config
+        qkv = torch.einsum("btd,dchk->btchk", x.to(cfg.dtype),
+                           self.qkv.kernel.to(cfg.dtype))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q = _rotary(q, positions)
+        k = _rotary(k, positions)
+        if cfg.attention in ("ring", "ring_fused"):
+            raise NotImplementedError(
+                f"attention={cfg.attention!r} is not ported yet: {TODO_RING}")
+        if cfg.attention == "flash":
+            raise NotImplementedError(
+                "attention='flash' needs the flash kernels of "
+                f"{TODO_TRAINING}; use attention='dense' (serving never "
+                "reads cfg.attention)")
+        if cfg.attention != "dense":
+            raise ValueError(f"unknown attention {cfg.attention!r}")
+        out = dot_product_attention(q, k, v, causal=cfg.causal)
+        return torch.einsum("bqhd,hdD->bqD", out,
+                            self.out.kernel.to(cfg.dtype))
+
+
+class MLPBlock(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.config = cfg
+        hidden = cfg.dim * cfg.mlp_ratio
+        self.up = _Kernel((cfg.dim, 2 * hidden), cfg.dim, generator, device)
+        self.down = _Kernel((hidden, cfg.dim), hidden, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.config.dtype
+        gate, value = (x.to(dtype) @ self.up.kernel.to(dtype)).chunk(2, -1)
+        return (nn.functional.silu(gate) * value) @ self.down.kernel.to(dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
+        self.attn = Attention(cfg, generator, device)
+        self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
+        self.mlp = MLPBlock(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), positions)
+        return x + self.mlp(self.norm2(x))
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM: tokens [B, T] int -> f32 logits [B, T, vocab].
+
+    Args:
+        config: the model configuration (widths, depth, dtype).
+        device: where the parameters live; `cuda` by default, the CPU
+            only when asked for explicitly.
+        seed: seeds the random init (a `torch.Generator` on `device`).
+            Weights from the JAX package load with `load_state_dict(
+            params_from_jax(...))` instead.
+    """
+
+    def __init__(self, config: TransformerConfig, *,
+                 device: tp.Any = None, seed: int = 0):
+        super().__init__()
+        check_supported(config)
+        device = resolve_device(device)
+        self.config = config
+        generator = torch.Generator(device=device).manual_seed(seed)
+        self.embed = _param((config.vocab_size, config.dim), 0.02,
+                            generator, device)
+        for i in range(config.num_layers):
+            setattr(self, f"block_{i}", Block(config, generator, device))
+        self.norm_f = RMSNorm(config.dim, config.dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor,
+                positions: tp.Optional[torch.Tensor] = None,
+                segment_ids: tp.Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        cfg = self.config
+        if segment_ids is not None:
+            raise NotImplementedError(
+                f"segment_ids (packed batches) are not ported yet: "
+                f"{TODO_TRAINING}")
+        if tokens.shape[1] > cfg.max_seq_len:
+            raise ValueError(
+                f"sequence length {tokens.shape[1]} exceeds "
+                f"config.max_seq_len={cfg.max_seq_len}")
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     ).expand(tokens.shape)
+        x = self.embed[tokens].to(cfg.dtype)
+        for i in range(cfg.num_layers):
+            x = getattr(self, f"block_{i}")(x, positions)
+        x = self.norm_f(x)
+        return x.float() @ self.embed.to(cfg.dtype).float().t()
