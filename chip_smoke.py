@@ -8,11 +8,14 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile every kernel of the serving path from
-             flashy_tpu_torch/csrc (one nvcc per source, in parallel);
-  2. kernel  each kernel against its plain PyTorch version on random
+  1. build   compile the serving path's kernel from
+             flashy_tpu_torch/csrc with nvcc;
+  2. kernel  the kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
-             sentinel-padded, all-sentinel and parked slots);
+             sentinel-padded, all-sentinel and parked slots), and in
+             bf16 against the entry-by-entry reference that rounds
+             where the TPU kernel does: one bf16 ulp apart at most,
+             and bit-equal almost everywhere;
   3. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
              stream token-exact against the port's dense-cache
@@ -44,6 +47,11 @@ ROOT = Path(__file__).resolve().parent
 NEAR_TIE = 1e-5
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8/float32": 1e-5,
        "int8/bfloat16": 2e-2}
+# bf16 kernel vs the entry-by-entry reference: within one bf16 ulp of
+# |want| (a floor of 2^-10 near zero), and at most this share of the
+# outputs not bit-equal (a rounding point moved by a tile of four
+# entries makes ~15% of them differ)
+PLACEMENT_RTOL, PLACEMENT_ATOL, PLACEMENT_SHARE = 2 ** -7, 2 ** -10, 0.01
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
@@ -119,32 +127,46 @@ def random_case(torch, device, *, q_dtype, kv, T, B=8, H=16, Dh=64, bs=16,
 
 
 def check_kernels(torch, device, card=""):
-    """Kernel vs plain on the card; returns {variant: max_abs_err}."""
+    """Kernel vs plain on the card (and, in bf16, vs the entry-by-entry
+    reference); returns {variant: max_abs_err against plain}."""
     from flashy_tpu_torch.ops.paged_attention import paged_attention
-    from flashy_tpu_torch.ops.paged_decode import fused_paged_attention
+    from flashy_tpu_torch.ops.paged_decode import (entrywise_paged_attention,
+                                                   fused_paged_attention)
     errors = {}
     for q_dtype, kv in ((torch.float32, "model"), (torch.bfloat16, "model"),
                         (torch.float32, "int8"), (torch.bfloat16, "int8")):
         name = str(q_dtype).split(".")[1]
         label = name if kv == "model" else f"int8/{name}"
-        worst = 0.0
+        worst = share = 0.0
         for T in (1, 4, 16, 64):
             q, entry, table, positions, live = random_case(
                 torch, device, q_dtype=q_dtype, kv=kv, T=T, seed=T)
-            got = fused_paged_attention(q, entry, table, positions,
-                                        head_dim=q.shape[-1], dtype=q_dtype)
-            want = paged_attention(q, entry, table, positions,
-                                   head_dim=q.shape[-1], dtype=q_dtype)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            err = (got.float() - want.float())[live].abs().max().item()
+            args = (q, entry, table, positions)
+            kw = {"head_dim": q.shape[-1], "dtype": q_dtype}
+            got = fused_paged_attention(*args, **kw)[live].float()
+            want = paged_attention(*args, **kw)[live].float()
+            err = (got - want).abs().max().item()
             if not math.isfinite(err) or err > TOL[label]:
                 fail(f"kernel {label} T={T}: max abs err {err} > "
                      f"{TOL[label]}")
             worst = max(worst, err)
+            if q_dtype == torch.bfloat16:
+                ref = entrywise_paged_attention(*args, **kw)[live].float()
+                excess = ((got - ref).abs() - PLACEMENT_RTOL * ref.abs()
+                          ).max().item()
+                share_t = (got != ref).float().mean().item()
+                if excess > PLACEMENT_ATOL or share_t > PLACEMENT_SHARE:
+                    fail(f"kernel {label} T={T}: against the entry-by-entry "
+                         f"reference {excess:.3e} over one ulp (limit "
+                         f"{PLACEMENT_ATOL}), {share_t:.4f} of outputs "
+                         f"differ (limit {PLACEMENT_SHARE})")
+                share = max(share, share_t)
         errors[label] = worst
+        placement = (f"; vs entry-by-entry reference: {share:.4f} of outputs "
+                     f"differ (limit {PLACEMENT_SHARE}), each within one ulp"
+                     if q_dtype == torch.bfloat16 else "")
         print(f"kernel {label}: T in (1, 4, 16, 64) max_abs_err={worst:.3e} "
-              f"(tolerance {TOL[label]}) [{card}]", flush=True)
+              f"(tolerance {TOL[label]}){placement} [{card}]", flush=True)
     return errors
 
 
@@ -206,16 +228,12 @@ def serve(torch, engine, prompts, max_new):
     return scheduler, requests, counts, seconds
 
 
-def phase_exact(torch, device, card="", *, small=False):
+def phase_exact(torch, device, card=""):
     import numpy as np
     from flashy_tpu_torch.models.decoding import generate
     from flashy_tpu_torch.models.transformer import TransformerLM
     from flashy_tpu_torch.serve.engine import DecodeEngine
     cfg = model_config(torch, torch.float32, 512)
-    if small:
-        import dataclasses
-        cfg = dataclasses.replace(cfg, vocab_size=256, dim=64, num_layers=2,
-                                  num_heads=4)
     model = TransformerLM(cfg, device=device, seed=0)
     engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=512,
                           cache_layout="paged", device=device)
@@ -428,14 +446,13 @@ def main() -> None:
     card = card_line()
 
     t0 = time.perf_counter()
-    built = _build.build(["paged_decode"])
-    for name, (seconds, log) in _build.build_info.items():
-        print(f"build {name}: {seconds:.1f}s", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {line.strip()}")
-    print(f"build: {sorted(built) or 'cached'} in "
-          f"{time.perf_counter() - t0:.1f}s on [{card}]", flush=True)
+    _build.build("paged_decode")
+    for line in _build.build_info.get("paged_decode", (0, ""))[1].splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"  {line.strip()}")
+    built = "built" if "paged_decode" in _build.build_info else "cached"
+    print(f"build: paged_decode {built} in {time.perf_counter() - t0:.1f}s "
+          f"on [{card}]", flush=True)
 
     errors = check_kernels(torch, device, card)
 

@@ -31,10 +31,15 @@
 // last = min((base+T-1)/bs, E-1), so a short slot in a long table pays
 // for its live blocks only (the TPU kernel's index-map clamp and
 // `pl.when` skip). The TPU grid's sequential entry axis becomes this
-// loop; consecutive entries are taken a tile of up to kTileKeys keys at
-// a time to amortize the block-wide barriers. Tensor cores, TMA and a
-// split-K (flash-decoding) pass for T=1 are later work; this version is
-// plain FMA arithmetic from shared memory.
+// loop. Consecutive entries are loaded and scored a tile of up to
+// kTileKeys keys at a time to amortize the block-wide barriers, but the
+// online softmax still steps ENTRY BY ENTRY inside the tile (one warp
+// per query row, lanes over the entry's keys): the running max, the
+// rounding of P and the rescale of the accumulator happen at the same
+// points as in `_fused_body`, so bf16 results match it, not merely come
+// close. Tensor cores, TMA and a split-K (flash-decoding) pass for T=1
+// are later work; this version is plain FMA arithmetic from shared
+// memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +48,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kTileKeys = 64;        // keys per tile when blocks are small
 constexpr int kMaxQueries = 64;      // T bound (decode, verify k+1, chunk)
 constexpr size_t kMaxSmem = 232448;  // bytes a block may use on sm_90
@@ -98,8 +104,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   float* acc = p_s + T * tile;    // [T][Dh]
   float* m_s = acc + T * Dh;      // [T] running max
   float* l_s = m_s + T;           // [T] normalizer
-  float* a_s = l_s + T;           // [T] this tile's rescale factor
-  float* ks_s = a_s + T;          // [tile] K scales
+  float* a_s = l_s + T;           // [T][tile_entries] per-entry rescale
+  float* ks_s = a_s + T * tile_entries;  // [tile] K scales
   float* vs_s = ks_s + tile;      // [tile] V scales
 
   const int base = base_pos[b];
@@ -150,33 +156,54 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     }
     __syncthreads();
 
-    // online-softmax row statistics; probs overwrite the scores
-    for (int t = tid; t < T; t += kThreads) {
+    // online softmax, entry by entry as `_fused_body` steps it: one warp
+    // per query row, lanes over the entry's keys; probs overwrite the
+    // scores, each entry's rescale factor goes to a_s
+    const int lane = tid & 31;
+    for (int t = tid >> 5; t < T; t += kWarps) {
       float* p_row = p_s + t * tile;
-      float row_max = kNegInf;
-      for (int j = 0; j < keys; ++j) row_max = fmaxf(row_max, p_row[j]);
-      const float m_prev = m_s[t];
-      const float m_new = fmaxf(m_prev, row_max);
-      const bool live = m_new > kNegInf * 0.5f;
-      float sum = 0.f;
-      for (int j = 0; j < keys; ++j) {
-        const float p = live ? expf(p_row[j] - m_new) : 0.f;
-        sum += p;
-        p_row[j] = round_to<QT>(QUANT ? p * vs_s[j] : p);
+      float m_prev = m_s[t];
+      float l = l_s[t];
+      for (int ei = 0; ei < n_entries; ++ei) {
+        float* p_blk = p_row + ei * bs;
+        float blk_max = kNegInf;
+        for (int j = lane; j < bs; j += 32) blk_max = fmaxf(blk_max, p_blk[j]);
+        for (int o = 16; o > 0; o >>= 1)
+          blk_max = fmaxf(blk_max, __shfl_xor_sync(0xffffffffu, blk_max, o));
+        const float m_new = fmaxf(m_prev, blk_max);
+        const bool live = m_new > kNegInf * 0.5f;
+        float sum = 0.f;
+        for (int j = lane; j < bs; j += 32) {
+          const float p = live ? expf(p_blk[j] - m_new) : 0.f;
+          sum += p;
+          p_blk[j] = round_to<QT>(QUANT ? p * vs_s[ei * bs + j] : p);
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float alpha = expf(m_prev - m_new);
+        l = l * alpha + sum;
+        m_prev = m_new;
+        if (lane == 0) a_s[t * tile_entries + ei] = alpha;
       }
-      const float alpha = expf(m_prev - m_new);
-      l_s[t] = l_s[t] * alpha + sum;
-      m_s[t] = m_new;
-      a_s[t] = alpha;
+      if (lane == 0) {
+        m_s[t] = m_prev;
+        l_s[t] = l;
+      }
     }
     __syncthreads();
 
     for (int i = tid; i < T * Dh; i += kThreads) {
       const int t = i / Dh, d = i - t * Dh;
       const float* p_row = p_s + t * tile;
-      float pv = 0.f;
-      for (int j = 0; j < keys; ++j) pv = fmaf(p_row[j], v_s[j * ld + d], pv);
-      acc[i] = acc[i] * a_s[t] + pv;
+      const float* alpha = a_s + t * tile_entries;
+      float a = acc[i];
+      for (int ei = 0; ei < n_entries; ++ei) {
+        float pv = 0.f;
+        for (int j = ei * bs; j < (ei + 1) * bs; ++j)
+          pv = fmaf(p_row[j], v_s[j * ld + d], pv);
+        a = a * alpha[ei] + pv;
+      }
+      acc[i] = a;
     }
     __syncthreads();
   }
@@ -200,7 +227,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int ld = Dh + 1;
   const size_t floats = static_cast<size_t>(T) * ld + 2 * tile * ld +
                         static_cast<size_t>(T) * tile +
-                        static_cast<size_t>(T) * Dh + 3 * T + 2 * tile;
+                        static_cast<size_t>(T) * Dh + 2 * T +
+                        static_cast<size_t>(T) * tile_entries + 2 * tile;
   const size_t smem = floats * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = paged_decode_kernel<QT, KVT, QUANT>;

@@ -48,35 +48,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: tp.Iterable[str]) -> tp.Dict[str, float]:
-    """Compile every named kernel that is not built yet, one `nvcc` per
-    source, all started together; returns seconds per name built."""
+def build(name: str) -> None:
+    """Compile `csrc/<name>.cu` unless it is built already; records the
+    compile time and the compiler's output in `build_info`."""
+    target = library_path(name)
+    if target.exists():
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started: tp.Dict[str, tp.Tuple[subprocess.Popen, Path, Path, float]] = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists() or name in started:
-            continue
-        partial = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(partial),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, partial, target, time.perf_counter())
-    seconds: tp.Dict[str, float] = {}
-    failures = []
-    for name, (proc, partial, target, t0) in started.items():
-        output, _ = proc.communicate()
-        elapsed = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"{name} (exit {proc.returncode}):\n{output}")
-            continue
-        os.replace(partial, target)
-        seconds[name] = elapsed
-        build_info[name] = (elapsed, output)
-    if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return seconds
+    partial = target.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    result = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(partial), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if result.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit "
+                           f"{result.returncode}):\n{result.stdout}")
+    os.replace(partial, target)
+    build_info[name] = (time.perf_counter() - t0, result.stdout)
 
 
 def load(name: str, functions: tp.Mapping[str, tp.Tuple[tp.Any, tp.Sequence]]
@@ -85,7 +73,7 @@ def load(name: str, functions: tp.Mapping[str, tp.Tuple[tp.Any, tp.Sequence]]
     (restype, argtypes)}) on the library."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         for symbol, (restype, argtypes) in functions.items():
             fn = getattr(lib, symbol)

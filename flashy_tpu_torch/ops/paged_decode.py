@@ -6,6 +6,9 @@ share one contract: T query rows at CONSECUTIVE positions
 `base..base+T-1` per slot (decode T = 1, speculative verify T = k+1,
 chunked prefill T = chunk). The kernel is `csrc/paged_decode.cu`; its
 plain version is `ops.paged_attention.paged_attention`.
+`entrywise_paged_attention` spells the kernel's body in plain PyTorch,
+with its rounding points, so that bf16 results can be held to it
+closely where the plain version rounds P at other points.
 
 The wrapper takes the plain version only for tensors that lie on the
 CPU. For CUDA tensors it launches the kernel or raises: there is no
@@ -17,7 +20,7 @@ import typing as tp
 import torch
 
 from . import _build
-from .attention import score_scale
+from .attention import NEG_INF, _guarded_probs, score_scale
 from .paged_attention import block_bytes, paged_attention
 
 MAX_QUERIES = 64  # T bound of the kernel (kMaxQueries in the source)
@@ -132,6 +135,65 @@ def fused_paged_attention(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
                          f"got {q.device}")
     return _launch(q.to(dtype).contiguous(), entry, table, positions,
                    head_dim)
+
+
+def entrywise_paged_attention(q: torch.Tensor,
+                              entry: tp.Dict[str, torch.Tensor],
+                              table: torch.Tensor, positions: torch.Tensor, *,
+                              head_dim: int, dtype: torch.dtype
+                              ) -> torch.Tensor:
+    """The kernel's body in plain PyTorch, one table entry at a time.
+
+    `fused_paged_attention`'s contract and result, computed the way the
+    TPU kernel's `_fused_body` steps it: per entry, masked f32 scores
+    (K scale folded in), the running max, guarded probabilities, P
+    rounded to V's dtype (int8: P*v_scale rounded to q's dtype), and the
+    accumulator rescaled, up to each slot's last live entry. Its bf16
+    results therefore round where the kernel's do; the gather version
+    normalizes over the whole row first and rounds elsewhere. Products
+    are taken elementwise in f32 (no TF32 matmul). For checks only.
+    """
+    q = q.to(dtype)
+    batch, queries, heads, dim = q.shape
+    quant = "k_scale" in entry
+    bs = entry["k"].shape[1]
+    device = q.device
+    base = positions[:, 0].long()
+    last = ((base + queries - 1).clamp_min(0) // bs).clamp_max(
+        table.shape[1] - 1)
+    q_pos = base[:, None] + torch.arange(queries, device=device)
+    qf = q.float().permute(0, 2, 1, 3)[:, :, :, None, :]  # [B,H,T,1,Dh]
+    m = torch.full((batch, heads, queries, 1), NEG_INF, device=device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((batch, heads, queries, dim), device=device)
+    for e in range(int(last.max()) + 1):
+        blk = table[:, e].long()
+        k = entry["k"][blk].to(dtype).float().permute(0, 2, 1, 3)
+        scores = (qf * k[:, :, None]).sum(-1) * score_scale(head_dim)
+        if quant:
+            scores = scores * entry["k_scale"][blk].permute(0, 2, 1)[:, :,
+                                                                    None]
+        k_pos = e * bs + torch.arange(bs, device=device)
+        visible = k_pos[None, None, :] <= q_pos[:, :, None]   # [B,T,bs]
+        scores = scores.masked_fill(~visible[:, None], NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        probs = _guarded_probs(scores, m_new)
+        l_new = l * alpha + probs.sum(-1, keepdim=True)
+        v = entry["v"][blk].permute(0, 2, 1, 3)                # [B,H,bs,Dh]
+        if quant:
+            probs = probs * entry["v_scale"][blk].permute(0, 2, 1)[:, :,
+                                                                   None]
+            probs, v = probs.to(dtype), v.to(dtype)
+        else:
+            probs = probs.to(v.dtype)
+        pv = (probs.float()[..., None] * v.float()[:, :, None]).sum(-2)
+        on = (e <= last)[:, None, None, None]
+        m = torch.where(on, m_new, m)
+        l = torch.where(on, l_new, l)
+        acc = torch.where(on, acc * alpha + pv, acc)
+    out = (acc / l.clamp_min(1e-30)).to(dtype)
+    return out.permute(0, 2, 1, 3).contiguous()
 
 
 def fused_speculative_verify(q: torch.Tensor,

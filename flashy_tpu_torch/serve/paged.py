@@ -535,14 +535,10 @@ def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
     return _head_logits(params, x, cfg), cache
 
 
-def copy_block_fn(scan_layers: bool = False) -> tp.Callable:
+def copy_block_fn() -> tp.Callable:
     """Build the COW device copy: `(cache, src, dst) -> cache` with
     block `src`'s rows duplicated onto block `dst` in place, across
     every layer and leaf (int8 payloads and their scales)."""
-    if scan_layers:
-        from ..models.transformer import TODO_DECODE_VARIANTS
-        raise NotImplementedError(f"scan-stacked pools are not ported "
-                                  f"yet: {TODO_DECODE_VARIANTS}")
 
     def copy(cache, src: int, dst: int):
         for entry in cache.values():

@@ -1,9 +1,11 @@
 # The port's paged read (flashy_tpu_torch/ops/paged_attention.py, the
 # plain version of the Hopper kernel, and ops/paged_decode.py, the
-# kernel's wrapper) held against the JAX package's gather path and its
-# Pallas kernel in interpret mode, on identical f32 pools. Tolerance
-# 1e-5: f32 reduction order only (the JAX package holds its own
-# gather/fused pair to the same order of agreement).
+# kernel's wrapper and its entry-by-entry reference) held against the
+# JAX package's gather path and its Pallas kernel in interpret mode, on
+# identical f32 pools. Tolerance 1e-5: f32 reduction order only (the
+# JAX package holds its own gather/fused pair to the same order of
+# agreement). In bf16 the entry-by-entry reference is held to the
+# Pallas kernel's rounding points.
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +49,7 @@ def test_plain_paged_attention_matches_jax_gather_and_kernel(kv_dtype,
     from flashy_tpu.ops.paged_attention import paged_attention as jax_gather
     from flashy_tpu.ops.paged_decode import fused_paged_attention as jax_fused
     from flashy_tpu_torch.ops.paged_attention import paged_attention
+    from flashy_tpu_torch.ops.paged_decode import entrywise_paged_attention
 
     q, pools, positions = _case(kv_dtype, queries)
     jentry = {n: jnp.asarray(a) for n, a in pools.items()}
@@ -63,6 +66,80 @@ def test_plain_paged_attention_matches_jax_gather_and_kernel(kv_dtype,
         head_dim=DH, dtype=torch.float32).numpy()
     np.testing.assert_allclose(got, want_gather, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, want_kernel, rtol=1e-5, atol=1e-5)
+    entrywise = entrywise_paged_attention(
+        torch.from_numpy(q), {n: torch.from_numpy(a) for n, a in
+                              pools.items()},
+        torch.from_numpy(TABLE), torch.from_numpy(positions),
+        head_dim=DH, dtype=torch.float32).numpy()
+    np.testing.assert_allclose(entrywise, want_kernel, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_case(kv_dtype, queries, seed=5):
+    """A wider bf16 case (16-entry tables, ragged slots) for rounding
+    placement: numpy pools, the JAX entry and the port's entry."""
+    from flashy_tpu.models.quantize import quantize_kv
+    rng = np.random.default_rng(seed)
+    batch, heads, dim, entries = 4, 4, 32, 16
+    n = 1 + batch * entries
+    k, v = (rng.normal(size=(n, BS, heads, dim)).astype(np.float32)
+            for _ in range(2))
+    if kv_dtype == "model":
+        jentry = {"k": jnp.asarray(k, jnp.bfloat16),
+                  "v": jnp.asarray(v, jnp.bfloat16)}
+        entry = {n_: torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16) for n_, a in jentry.items()}
+    else:
+        (kq, ks), (vq, vs) = quantize_kv(jnp.asarray(k)), quantize_kv(
+            jnp.asarray(v))
+        jentry = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        entry = {n_: torch.from_numpy(np.array(a)) for n_, a in
+                 jentry.items()}
+    base = np.array([58, 13, 33, 2])
+    table = np.zeros((batch, entries), np.int32)
+    blocks = rng.permutation(n - 1) + 1
+    for b in range(batch):
+        live = (base[b] + queries - 1) // BS + 1
+        table[b, :live] = blocks[b * entries:b * entries + live]
+    positions = (base[:, None] + np.arange(queries)).astype(np.int32)
+    q = rng.normal(size=(batch, queries, heads, dim)).astype(np.float32)
+    return q, jentry, entry, table, positions
+
+
+def _mismatch_share(got, want):
+    """Share of output elements that are not bit-equal."""
+    return float((got != want).mean())
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+@pytest.mark.parametrize("queries", [1, 5])
+def test_entrywise_reference_rounds_where_the_jax_kernel_does(kv_dtype,
+                                                              queries):
+    # bf16: the entry-by-entry reference (what the CUDA kernel is held
+    # to on the card) against the Pallas kernel in interpret mode. The
+    # gather version, which rounds P after normalizing the whole row,
+    # is the control: the mismatch share tells the two placements apart.
+    from flashy_tpu.ops.paged_decode import fused_paged_attention as jax_fused
+    from flashy_tpu_torch.ops.paged_attention import paged_attention
+    from flashy_tpu_torch.ops.paged_decode import entrywise_paged_attention
+    q, jentry, entry, table, positions = _bf16_case(kv_dtype, queries)
+    dim = q.shape[-1]
+    want = np.asarray(jax_fused(
+        jnp.asarray(q, jnp.bfloat16), jentry, jnp.asarray(table),
+        jnp.asarray(positions), head_dim=dim, dtype=jnp.bfloat16,
+        interpret=True).astype(jnp.float32))
+    args = (torch.from_numpy(q), entry, torch.from_numpy(table),
+            torch.from_numpy(positions))
+    got = entrywise_paged_attention(*args, head_dim=dim,
+                                    dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    # at most one bf16 ulp of |want| apart (2^-10 floor near zero), and
+    # almost everywhere bit-equal: f32 summation order may flip the
+    # rounding of a rare P element, a shifted rounding point flips many
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -10)
+    assert _mismatch_share(got, want) <= 0.01
+    gather = paged_attention(*args, head_dim=dim, dtype=torch.bfloat16)
+    assert _mismatch_share(gather.float().numpy(), want) > 0.05
 
 
 def test_quantize_kv_bit_equal_to_jax():
