@@ -8,29 +8,50 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile the serving path's kernel from
-             flashy_tpu_torch/csrc with nvcc;
-  2. kernel  the kernel against its plain PyTorch version on random
+  1. build   compile both kernel sources from flashy_tpu_torch/csrc
+             with nvcc, one process per source, started together;
+  2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
              sentinel-padded, all-sentinel and parked slots), and in
              bf16 against the entry-by-entry reference that rounds
              where the TPU kernel does: one bf16 ulp apart at most,
              and bit-equal almost everywhere;
-  3. exact   the 235M TransformerLM in f32 (TF32 off) served through the
+  3. flash   the four flash-attention kernels at head_dim 64 against
+             their plain versions (f32 and bf16; causal and not; t_k
+             equal to, above and below t_q, the last with empty rows;
+             ragged T): forward against the dense path and, in bf16,
+             within one ulp of the blockwise reference at the kernel's
+             tile; split and fused backward against their plain
+             versions; fused bit-equal to split on dQ, dK and dV;
+  4. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
              stream token-exact against the port's dense-cache
              `generate` (a near tie, top-2 margin < 1e-5, is reported,
              not failed), the pool conserved, and the kernel launched
              exactly num_layers x (decode steps + prefill chunks) times;
-  4. serve   the same layout in bf16 at the decode leg's shapes
+  5. serve   the serving layout in bf16 at the decode leg's shapes
              (8 slots, 16 requests, prompt 128, 128 new): tokens/s,
              decode-step ms, and the kernel's time at T=1 (decode) and
              T=16 (a prefill chunk) beside its bandwidth bound, its
              plain version and one library call; then a profiled
              serving window: the device's idle share and the kernels
              that take its time;
-  5. int8    a short bf16 run with int8 K/V pools through the int8
-             kernel: pool conserved, kernel launched, kernel timed.
+  6. int8    a short bf16 run with int8 K/V pools through the int8
+             kernel: pool conserved, kernel launched, kernel timed;
+  7. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
+             and gradients with attention='flash' through the fused
+             backward and through the split pair (bit-equal), and
+             against attention='dense';
+  8. train   the 235M model in bf16 at batch 16, seq 1024 through the
+             LM solver's `main` entry point in a fresh XP: 2 epochs of
+             8 steps and 2 valid steps, the loss finite and falling,
+             the forward kernel launched 12 x (train + valid steps)
+             times and the fused backward 12 x train steps; a second
+             call with 3 epochs restores and continues; tokens/s and
+             step ms; then a profiled training window (idle share, top
+             device kernels) and each flash kernel's time at these
+             shapes beside its bound, its plain version and PyTorch's
+             scaled_dot_product_attention.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -40,7 +61,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -70,14 +93,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def model_config(torch, dtype, max_seq_len):
+def model_config(torch, dtype, max_seq_len, attention="dense"):
     """The decode leg's 235M layout: vocab 32768, dim 1024, 12 layers,
     16 heads (head_dim 64), mlp_ratio 4."""
     from flashy_tpu_torch.models.transformer import TransformerConfig
     return TransformerConfig(vocab_size=32768, dim=1024, num_layers=12,
                              num_heads=16, mlp_ratio=4,
                              max_seq_len=max_seq_len, dtype=dtype,
-                             attention="dense")
+                             attention=attention)
 
 
 # ----------------------------------------------------------------------
@@ -171,7 +194,7 @@ def check_kernels(torch, device, card=""):
 
 
 # ----------------------------------------------------------------------
-# phase 3: token-exact serving in f32
+# phase 4: token-exact serving in f32
 # ----------------------------------------------------------------------
 def exact_workload(rng, vocab):
     """12 prompts straddling 16-token block boundaries; the last six
@@ -280,7 +303,7 @@ def phase_exact(torch, device, card=""):
 
 
 # ----------------------------------------------------------------------
-# phases 4-5: bf16 serving and timing
+# phases 5-6: bf16 serving and timing
 # ----------------------------------------------------------------------
 def time_ms(torch, fn, iters=50):
     """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
@@ -346,6 +369,20 @@ def time_kernel(torch, engine, context, queries=1):
             "bytes": nbytes}
 
 
+def device_rows(torch, prof):
+    """(device ms, launches, name) per CUDA kernel of a profile, largest
+    first."""
+    rows = []
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops: their kernels are listed on their own
+        us = event.self_device_time_total
+        if us > 0:
+            rows.append((us / 1e3, event.count, event.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
                   card):
     """Where the serving time goes: serve the same shape of work twice
@@ -364,14 +401,7 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         serve(torch, engine, prompts(), max_new)
-    rows = []
-    for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host ops: their kernels are listed on their own
-        us = event.self_device_time_total
-        if us > 0:
-            rows.append((us / 1e3, event.count, event.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, prof)
     busy_ms = sum(ms for ms, _, _ in rows)
     wall_ms = wall_s * 1e3
     top = "; ".join(f"{key[:40]} {ms:.1f} ms x{n}" for ms, n, key in rows[:6])
@@ -429,6 +459,376 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
     return counts[name], timing
 
 
+# ----------------------------------------------------------------------
+# phase 3: flash kernels against plain versions
+# ----------------------------------------------------------------------
+FLASH_SOURCE = "flashy_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "flashy_tpu/ops/attention.py:113",
+                  "flash_bwd_dq": "flashy_tpu/ops/attention.py:182",
+                  "flash_bwd_dkv": "flashy_tpu/ops/attention.py:230",
+                  "flash_bwd_fused": "flashy_tpu/ops/attention.py:279"}
+# (B, H, t_q, t_k, causal): square, t_k above t_q, t_k below t_q (the
+# first 192 query rows see no key), ragged T
+FLASH_CASES = ((2, 4, 256, 256, True), (2, 4, 256, 256, False),
+               (2, 4, 128, 320, True), (2, 4, 320, 128, True),
+               (1, 4, 200, 200, True), (1, 4, 100, 164, False))
+# forward against its plain version: max abs error; backward against the
+# plain versions: max abs error over the largest |value| (bf16 grads and
+# the bf16 roundings of P and dS inside move by an ulp where the f32
+# sums in front of them are ordered differently)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+LSE_TOL = 1e-4                 # f32 logsumexp, either dtype's inputs
+STEP_REL_TOL = 1e-4            # f32 step: flash vs dense, per leaf
+
+
+def flash_inputs(torch, device, dtype, B, H, t_q, t_k, D=64, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(t):
+        return torch.randn((B, t, H, D), generator=g, device=device
+                           ).to(dtype)
+
+    return draw(t_q), draw(t_k), draw(t_k), draw(t_q)
+
+
+def rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max().item()
+            / max(want.abs().max().item(), 1e-30))
+
+
+def check_flash_kernels(torch, device, card):
+    """The four flash kernels against their plain versions; returns
+    {dtype: {kernel: max abs error against plain}}."""
+    from flashy_tpu_torch.ops import attention as A
+    errors = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        worst = {key: 0.0 for key in FLASH_REPLACES}
+        dense_err = share = 0.0
+        for seed, (B, H, t_q, t_k, causal) in enumerate(FLASH_CASES):
+            label = f"flash {name} B={B} H={H} t_q={t_q} t_k={t_k} " \
+                    f"causal={causal}"
+            q, k, v, do = flash_inputs(torch, device, dtype, B, H, t_q, t_k,
+                                       seed=seed)
+            out, lse = A.flash_forward(q, k, v, causal)
+            ref, ref_lse = A.flash_forward_blockwise(q, k, v, causal)
+            dense = A.dot_product_attention(q, k, v, causal=causal).float()
+            blk_err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not math.isfinite(blk_err) or blk_err > tol \
+                    or lse_err > LSE_TOL:
+                fail(f"{label}: forward max abs err {blk_err} (limit "
+                     f"{tol}), lse {lse_err} (limit {LSE_TOL})")
+            # the dense path rounds the normalized P over the whole row
+            err = (out.float() - dense).abs().max().item()
+            if not math.isfinite(err) or err > tol:
+                fail(f"{label}: forward vs dense max abs err {err} > {tol}")
+            dense_err = max(dense_err, err)
+            if dtype == torch.bfloat16:
+                excess = ((out.float() - ref.float()).abs()
+                          - PLACEMENT_RTOL * ref.float().abs()).max().item()
+                share_c = (out != ref).float().mean().item()
+                if excess > PLACEMENT_ATOL or share_c > PLACEMENT_SHARE:
+                    fail(f"{label}: against the blockwise reference "
+                         f"{excess:.3e} over one ulp, {share_c:.4f} of "
+                         f"outputs differ (limit {PLACEMENT_SHARE})")
+                share = max(share, share_c)
+            worst["flash_fwd"] = max(worst["flash_fwd"], blk_err)
+
+            delta = A.flash_delta(do, out)
+            args = (q, k, v, do, lse, delta, causal)
+            dq, dk, dv = A.flash_backward_split(*args)
+            fk, fv, part = A.flash_backward_fused(*args)
+            fq = A.fold_dq_partials(part, q.dtype)
+            if not (torch.equal(fq, dq) and torch.equal(fk, dk)
+                    and torch.equal(fv, dv)):
+                fail(f"{label}: fused backward not bit-equal to split "
+                     f"(dq {torch.equal(fq, dq)}, dk {torch.equal(fk, dk)}, "
+                     f"dv {torch.equal(fv, dv)})")
+            want_dq = A.flash_backward_dq_blockwise(*args)
+            want_dk, want_dv = A.flash_backward_dkv_blockwise(*args)
+            _, _, want_part = A.flash_backward_fused_blockwise(*args)
+            rels = {"flash_bwd_dq": rel_err(dq, want_dq),
+                    "flash_bwd_dkv": max(rel_err(dk, want_dk),
+                                         rel_err(dv, want_dv)),
+                    "flash_bwd_fused": rel_err(part, want_part)}
+            for key, rel in rels.items():
+                if not math.isfinite(rel) or rel > tol:
+                    fail(f"{label}: {key} relative err {rel} > {tol}")
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], (
+                dq.float() - want_dq.float()).abs().max().item())
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], (
+                dk.float() - want_dk.float()).abs().max().item(), (
+                dv.float() - want_dv.float()).abs().max().item())
+            worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"], (
+                part - want_part).abs().max().item())
+            if causal and t_k < t_q:
+                empty = t_q - t_k
+                if out[:, :empty].abs().max().item() != 0 or \
+                        dq[:, :empty].abs().max().item() != 0:
+                    fail(f"{label}: rows with no visible key are not zero")
+        errors[name] = worst
+        placement = (f"; vs blockwise reference: {share:.4f} of outputs "
+                     f"differ (limit {PLACEMENT_SHARE}), each within one ulp"
+                     if dtype == torch.bfloat16 else "")
+        print(f"flash {name}: {len(FLASH_CASES)} cases, tolerance {tol}: "
+              f"forward vs dense max_abs_err={dense_err:.3e}{placement}; "
+              f"max abs err vs plain: " + ", ".join(
+                  f"{key}={value:.3e}" for key, value in worst.items())
+              + f"; fused == split bitwise [{card}]", flush=True)
+    return errors
+
+
+# ----------------------------------------------------------------------
+# phase 7: one f32 training step, flash (fused, split) against dense
+# ----------------------------------------------------------------------
+def phase_step(torch, device, card):
+    """Loss and grads of the full-width model at batch 2, seq 256 in f32
+    through the fused backward, the split pair and the dense path.
+    Returns the split run's launch counts (the split kernels' path)."""
+    import functools
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models import transformer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    tokens = torch.from_numpy(synthetic_token_stream(32768)(2, 256, 0)
+                              ).long().to(device)
+    results, counts = {}, {}
+    flash = transformer.flash_attention
+    for label, kind in (("fused", "flash"), ("split", "flash"),
+                        ("dense", "dense")):
+        model = transformer.TransformerLM(
+            model_config(torch, torch.float32, 256, kind), device=device,
+            seed=3)
+        if label == "split":
+            transformer.flash_attention = functools.partial(
+                flash, fused_backward=False)
+        attention.reset_launch_counts()
+        # the embedding's scatter-add in a fixed order, so that fused and
+        # split can be held bit-equal on every gradient
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = lm_next_token_loss(model, tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            transformer.flash_attention = flash
+            torch.use_deterministic_algorithms(False)
+        counts[label] = dict(attention.launch_counts)
+        results[label] = (loss.item(), {name: p.grad for name, p in
+                                        model.named_parameters()})
+        del model
+    layers = 12
+    want = {"fused": {"flash_fwd": layers, "flash_bwd_fused": layers},
+            "split": {"flash_fwd": layers, "flash_bwd_dq": layers,
+                      "flash_bwd_dkv": layers}}
+    for label, expected in want.items():
+        got = {key: value for key, value in counts[label].items() if value}
+        if got != expected:
+            fail(f"step {label}: launches {got}, expected {expected}")
+    fused, split, dense = (results[k] for k in ("fused", "split", "dense"))
+    unequal = [name for name, grad in fused[1].items()
+               if not torch.equal(grad, split[1][name])]
+    if fused[0] != split[0] or unequal:
+        fail(f"step: fused and split differ (loss {fused[0]} vs "
+             f"{split[0]}; grads {unequal[:4]})")
+    worst = max(rel_err(grad, dense[1][name])
+                for name, grad in fused[1].items())
+    loss_err = abs(fused[0] - dense[0]) / abs(dense[0])
+    if not math.isfinite(worst) or worst > STEP_REL_TOL or loss_err > 1e-5:
+        fail(f"step: flash vs dense grads rel err {worst} (limit "
+             f"{STEP_REL_TOL}), loss rel err {loss_err}")
+    print(f"step: 235M f32 b2 t256 loss {fused[0]:.6f}, fused == split "
+          f"bitwise (loss and all {len(fused[1])} grads), "
+          f"flash vs dense: loss rel err {loss_err:.2e}, grads max rel err "
+          f"{worst:.2e} (limit {STEP_REL_TOL}); launches fused "
+          f"{want['fused']}, split {want['split']} [{card}]", flush=True)
+    return counts["split"]
+
+
+# ----------------------------------------------------------------------
+# phase 8: training through the LM solver, profile, kernel times
+# ----------------------------------------------------------------------
+TRAIN_ARGS = ["model.vocab_size=32768", "model.dim=1024",
+              "model.num_layers=12", "model.num_heads=16",
+              "model.mlp_ratio=4", "seq_len=1024", "batch_size=16",
+              "steps_per_epoch=8", "valid_steps=2"]
+
+
+def phase_train(torch, card, folder):
+    """The 235M model through `main` in a fresh XP under `folder`;
+    returns (launch counts of the first call, the resumed solver)."""
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    args = TRAIN_ARGS + [f"dora.dir={folder}"]
+    attention.reset_launch_counts()
+    solver = lm_main(args + ["epochs=2"])
+    torch.cuda.synchronize()
+    counts = dict(attention.launch_counts)
+    cfg = solver.cfg
+    train_steps = cfg.epochs * cfg.steps_per_epoch
+    valid_steps = cfg.epochs * cfg.valid_steps
+    layers = cfg.model.num_layers
+    want = {"flash_fwd": layers * (train_steps + valid_steps),
+            "flash_bwd_fused": layers * train_steps}
+    got = {key: value for key, value in counts.items() if value}
+    if got != want:
+        fail(f"train: launches {got}, expected {want}")
+    losses = [entry["train"]["loss"] for entry in solver.history]
+    if not all(math.isfinite(x) for x in losses) or losses[1] >= losses[0]:
+        fail(f"train: epoch losses {losses} not finite and falling")
+    seconds = solver.step_seconds[2:]
+    tokens = cfg.batch_size * cfg.seq_len
+    tok_s = tokens * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = [dict(entry) for entry in solver.history]
+    del solver
+    resumed = lm_main(args + ["epochs=3"])
+    if not resumed.restored or len(resumed.history) != 3 \
+            or resumed.history[:2] != history \
+            or resumed.state["step"] != 3 * cfg.steps_per_epoch:
+        fail(f"train: the second call did not resume (restored "
+             f"{resumed.restored}, {len(resumed.history)} epochs, step "
+             f"{resumed.state['step']})")
+    print(f"train: 235M bf16 b16 t1024, {train_steps} steps + "
+          f"{valid_steps} valid, epoch losses {losses[0]:.4f} -> "
+          f"{losses[1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
+          f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; "
+          f"launches {got}; resumed: Restored: True, epoch 3 loss "
+          f"{resumed.history[2]['train']['loss']:.4f} [{card}]", flush=True)
+    return counts, resumed
+
+
+def profile_train(torch, solver, card, steps=4):
+    """Where the training time goes: `steps` train steps plainly for the
+    wall time, the next `steps` under torch.profiler for the device time
+    by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from flashy_tpu_torch.examples.lm.solver import train_step
+
+    def run(first):
+        t0 = time.perf_counter()
+        for i in range(steps):
+            metrics = train_step(solver.model, solver.optimizer,
+                                 solver.schedule, solver.state["step"],
+                                 solver.batch_at(first + i),
+                                 lambda model, tokens: solver.loss(tokens))
+            solver.state["step"] += 1
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall_ms = run(1000) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(2000)
+    rows = device_rows(torch, prof)
+    busy_ms = sum(ms for ms, _, _ in rows)
+    top = "; ".join(f"{key[:48]} {ms:.1f} ms x{n}" for ms, n, key in rows[:8])
+    print(f"profile train: {steps} steps, plain wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}); top: {top} [{card}]", flush=True)
+
+
+def flash_bounds(B, H, T, D, elem):
+    """{kernel: (bound ms, 'bytes' | 'operations')} at causal t_q = t_k =
+    T: operations over the bf16 peak for the visible q.k pairs, bytes
+    (each input read once, each output written once) over 3.35 TB/s."""
+    pairs = B * H * T * (T + 1) // 2
+    row = B * T * H * D * elem          # one [B, T, H, D] tensor
+    stat = B * H * T * 4                # lse or D, f32
+    partials = -(-T // 64) * B * T * H * D * 4
+    spec = {"flash_fwd": (4, 4 * row + stat),
+            "flash_bwd_dq": (6, 5 * row + 2 * stat),
+            "flash_bwd_dkv": (8, 6 * row + 2 * stat),
+            "flash_bwd_fused": (10, 6 * row + 2 * stat + partials)}
+    out = {}
+    for name, (flops_per_pair, nbytes) in spec.items():
+        flop_ms = flops_per_pair * D * pairs / BF16_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(flop_ms, byte_ms),
+                     "bytes" if byte_ms >= flop_ms else "operations")
+    return out
+
+
+def time_flash(torch, device, card):
+    """Each flash kernel at the training shapes (B 16, H 16, T 1024, D
+    64, causal, bf16) beside its bound, its plain version and PyTorch's
+    scaled_dot_product_attention (forward; its autograd backward for the
+    backward kernels)."""
+    import torch.nn.functional as F
+    from flashy_tpu_torch.ops import attention as A
+    B, H, T, D = 16, 16, 1024, 64
+    q, k, v, do = flash_inputs(torch, device, torch.bfloat16, B, H, T, T,
+                               seed=7)
+    out, lse = A.flash_forward(q, k, v, True)
+    delta = A.flash_delta(do, out)
+    args = (q, k, v, do, lse, delta, True)
+    _, _, partials = A.flash_backward_fused(*args)
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qh, kh, vh), doh, retain_graph=True))
+    kernels = {
+        "flash_fwd": (lambda: A.flash_forward(q, k, v, True),
+                      lambda: A.flash_forward_blockwise(q, k, v, True),
+                      sdpa_fwd),
+        "flash_bwd_dq": (
+            lambda: A._launch_backward(A._BWD_DQ, *args),
+            lambda: A.flash_backward_dq_blockwise(*args), sdpa_bwd),
+        "flash_bwd_dkv": (
+            lambda: A._launch_backward(A._BWD_DKV, *args),
+            lambda: A.flash_backward_dkv_blockwise(*args), sdpa_bwd),
+        "flash_bwd_fused": (
+            lambda: A.flash_backward_fused(*args),
+            lambda: A.flash_backward_fused_blockwise(*args), sdpa_bwd)}
+    bounds = flash_bounds(B, H, T, D, q.element_size())
+    times = {}
+    for name, (kernel, plain, library) in kernels.items():
+        bound, bound_by = bounds[name]
+        times[name] = {"ms": time_ms(torch, kernel, iters=20),
+                       "plain_ms": time_ms(torch, plain, iters=5),
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": library}
+    fold_ms = time_ms(torch, lambda: A.fold_dq_partials(partials, q.dtype),
+                      iters=20)
+    print("flash times (B16 H16 T1024 D64 causal bf16): " + "; ".join(
+        f"{name} ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+        f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
+        f"library_ms={t['library_ms']:.4f}" for name, t in times.items())
+        + f"; dQ fold of the fused partials ms={fold_ms:.4f} "
+        f"(library: F.scaled_dot_product_attention forward, its autograd "
+        f"backward for the backward kernels) [{card}]", flush=True)
+    return times
+
+
+def build_all():
+    """nvcc for every kernel source at once; prints each build's
+    register and spill lines."""
+    from flashy_tpu_torch.ops import _build
+    names = ("paged_decode", "flash_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        for future in [pool.submit(_build.build, name) for name in names]:
+            future.result()
+    for name in names:
+        info = _build.build_info.get(name)
+        for line in (info[1] if info else "").splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name}: {line.strip()}")
+        built = f"built in {info[0]:.1f}s" if info else "cached"
+        print(f"build: {name} {built}", flush=True)
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     try:
         import torch
@@ -441,23 +841,17 @@ def main() -> None:
         fail(f"{ROOT} holds no flashy_tpu_torch package: run from the root "
              f"of a checkout")
     sys.path.insert(0, str(ROOT))
-    from flashy_tpu_torch.ops import _build
     device = torch.device("cuda")
     card = card_line()
 
-    t0 = time.perf_counter()
-    _build.build("paged_decode")
-    for line in _build.build_info.get("paged_decode", (0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  {line.strip()}")
-    built = "built" if "paged_decode" in _build.build_info else "cached"
-    print(f"build: paged_decode {built} in {time.perf_counter() - t0:.1f}s "
-          f"on [{card}]", flush=True)
+    seconds = build_all()
+    print(f"build: both sources in {seconds:.1f}s on [{card}]", flush=True)
 
     errors = check_kernels(torch, device, card)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    flash_errors = check_flash_kernels(torch, device, card)
     phase_exact(torch, device, card)
 
     launches, timing = phase_serve(torch, device, card, kv_dtype="model",
@@ -466,8 +860,20 @@ def main() -> None:
     launches8, timing8 = phase_serve(torch, device, card, kv_dtype="int8",
                                      requests_n=8, prompt_len=64,
                                      max_new=32, label="int8 bf16")
+    split_counts = phase_step(torch, device, card)
+    with tempfile.TemporaryDirectory() as folder:
+        train_counts, solver = phase_train(torch, card, folder)
+        profile_train(torch, solver, card)
+        del solver
+    flash_times = time_flash(torch, device, card)
+    # the split pair is the oracle: its path is the split run of phase 7
+    flash_launches = {**train_counts,
+                      "flash_bwd_dq": split_counts["flash_bwd_dq"],
+                      "flash_bwd_dkv": split_counts["flash_bwd_dkv"]}
     print(f"kernels: paged_decode={launches}, "
-          f"paged_decode_int8={launches8}", flush=True)
+          f"paged_decode_int8={launches8}, " + ", ".join(
+              f"{name}={flash_launches[name]}" for name in FLASH_REPLACES),
+          flush=True)
     source = "flashy_tpu_torch/csrc/paged_decode.cu"
     kernels = [
         {"name": "paged_decode", "route": "cuda", "source": source,
@@ -483,6 +889,12 @@ def main() -> None:
          "bound_ms": timing8["bound_ms"], "bound_by": timing8["bound_by"],
          "library_ms": timing8["library_ms"]},
     ]
+    for name, replaces in FLASH_REPLACES.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": FLASH_SOURCE, "replaces": replaces,
+                        "launches": flash_launches[name],
+                        "max_abs_err": flash_errors["bfloat16"][name],
+                        **flash_times[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,24 @@
-"""flashy_tpu_torch: the PyTorch/CUDA port of flashy_tpu's serving path.
+"""flashy_tpu_torch: the PyTorch/CUDA port of flashy_tpu.
 
-Serves the TransformerLM through a paged KV cache and a continuous-
-batching scheduler; every paged-attention read on a CUDA tensor goes
-through the hand-written Hopper kernel in `csrc/paged_decode.cu`
-(`ops.paged_decode`). Entry points run on `cuda` unless the caller
-passes `device="cpu"`; the package imports torch and numpy only.
+Two slices of the JAX package run here, on an NVIDIA H100:
+
+* training: the solver harness (`BaseSolver`, XP folders and
+  signatures, single-file checkpoints, logging) and the TransformerLM
+  trained by `examples.lm.solver`, whose attention runs the hand-written
+  Hopper flash kernels of `csrc/flash_attention.cu` (`ops.attention`);
+* serving: the TransformerLM behind a paged KV cache and a continuous-
+  batching scheduler, every paged-attention read through the kernel of
+  `csrc/paged_decode.cu` (`ops.paged_decode`).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; the
+package imports torch, numpy and yaml, never JAX or the JAX package.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+from . import distrib  # noqa: F401
+from .formatter import Formatter  # noqa: F401
+from .logging import LogProgressBar, ResultLogger, bold, setup_logging  # noqa: F401
+from .solver import BaseSolver  # noqa: F401
+from .utils import averager  # noqa: F401
+from .xp import get_xp, main  # noqa: F401

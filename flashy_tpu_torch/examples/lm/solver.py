@@ -1,0 +1,304 @@
+"""LM solver: decoder-only language-model training on one card (the port
+of examples/lm/solver.py).
+
+    python -m flashy_tpu_torch.examples.lm.solver [key=value ...]
+
+Trains the TransformerLM on a synthetic Markov token stream through the
+port's harness (`BaseSolver`, XP folders, single-file checkpoints). With
+`model.attention=flash` (the default) every attention call runs the
+Hopper flash kernels, forward on every step and the fused backward on
+every training step. It runs on the card; `device=cpu` runs it on the
+host, and nothing else does.
+
+The optimizer is the JAX package's optax chain, written out so a test
+can drive it on any model: `clip_by_global_norm(1.0)` (no epsilon, the
+norm taken before clipping is the logged `grad_norm`), then AdamW (eps
+1e-8, betas (0.9, 0.999), decay `lr_t * wd * p` on every parameter)
+under `warmup_cosine_decay_schedule(0, lr, warmup, total)`, read at the
+step count before the update, so the first update has lr 0.
+"""
+import math
+import time
+import typing as tp
+
+import numpy as np
+import torch
+from torch import nn
+
+from ... import distrib
+from ...formatter import Formatter
+from ...logging import setup_logging
+from ...models.decoding import generate as lm_generate
+from ...models.transformer import TransformerConfig, TransformerLM
+from ...ops.losses import lm_next_token_loss
+from ...solver import BaseSolver
+from ...utils import averager, resolve_device
+from ...xp import main as xp_main
+
+TODO_EMA = "ROADMAP.md queue A item 2, T3 (parameter EMA)"
+TODO_DATA_PARALLEL = "ROADMAP.md queue A item 5 (data parallelism)"
+TODO_MESH = "ROADMAP.md queue A item 8 (parallelism beyond data)"
+
+
+def synthetic_token_stream(vocab_size: int, seed: int = 0):
+    """Deterministic Markov-ish token generator: next-token structure a
+    model can actually learn, so loss curves are meaningful without a
+    real corpus (zero-egress environments).
+
+    `subset` namespaces independent sample streams over the SAME token
+    distribution (the Markov transition table depends only on `seed`):
+    train draws subset 0, eval subset 1. The streams are separated by
+    feeding (seed, subset, step) to numpy's SeedSequence — proper
+    entropy hashing, unlike an arithmetic step offset, which collides
+    once training steps walk into the offset range."""
+    rng = np.random.default_rng(seed)
+    mixing = rng.integers(1, vocab_size - 1, size=257)
+
+    def batch(batch_size: int, seq_len: int, step: int,
+              subset: int = 0) -> np.ndarray:
+        gen = np.random.default_rng([seed, subset, step])
+        tokens = np.empty((batch_size, seq_len), np.int64)
+        tokens[:, 0] = gen.integers(0, vocab_size, batch_size)
+        noise = gen.random((batch_size, seq_len)) < 0.15
+        jumps = gen.integers(0, vocab_size, (batch_size, seq_len))
+        for t in range(1, seq_len):
+            follow = (tokens[:, t - 1] * 31 + mixing[tokens[:, t - 1] % 257]) % vocab_size
+            tokens[:, t] = np.where(noise[:, t], jumps[:, t], follow)
+        return tokens.astype(np.int32)
+
+    return batch
+
+
+def lr_schedule(peak: float, warmup: int, total: int
+                ) -> tp.Callable[[int], float]:
+    """optax `warmup_cosine_decay_schedule(0, peak, warmup, total)`:
+    linear from 0 over `warmup` steps, then a cosine to 0 at `total`."""
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return peak * count / warmup
+        decay = total - warmup
+        t = min(count - warmup, decay)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
+
+    return schedule
+
+
+def build_optimizer(model: nn.Module, cfg: tp.Mapping
+                    ) -> tp.Tuple[torch.optim.AdamW, tp.Callable]:
+    """AdamW over every parameter and its schedule, sized as the JAX
+    solver sizes it: total = max(epochs * steps_per_epoch, 2) steps,
+    warmup = min(warmup_steps, total // 2)."""
+    total = max(cfg["epochs"] * cfg["steps_per_epoch"], 2)
+    warmup = min(cfg["warmup_steps"], total // 2)
+    schedule = lr_schedule(cfg["lr"], warmup, total)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(0),
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=cfg["weight_decay"])
+    return optimizer, schedule
+
+
+def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
+                   tokens: torch.Tensor, accumulate: int = 1
+                   ) -> torch.Tensor:
+    """The loss, with the gradients left in each parameter's `.grad`.
+
+    With `accumulate` > 1 the batch is split into that many microbatches
+    run in sequence (peak activation memory divided by `accumulate`):
+    the f32 gradients and losses are summed, then scaled by
+    1/accumulate, as `with_grad_accumulation` does.
+    """
+    model.zero_grad(set_to_none=True)
+    if tokens.shape[0] % accumulate:
+        raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                         f"{accumulate} microbatches")
+    total = None
+    for micro in tokens.split(tokens.shape[0] // accumulate):
+        loss = loss_fn(model, micro)
+        loss.backward()
+        loss = loss.detach().float()
+        total = loss if total is None else total + loss
+    if accumulate > 1:
+        scale = 1.0 / accumulate
+        for param in model.parameters():
+            if param.grad is not None:
+                param.grad.mul_(scale)
+        total = total * scale
+    return total
+
+
+def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+               schedule: tp.Callable[[int], float], step: int,
+               tokens: torch.Tensor, loss_fn: tp.Callable,
+               accumulate: int = 1, max_norm: float = 1.0
+               ) -> tp.Dict[str, torch.Tensor]:
+    """One update at step count `step` (before the increment): loss and
+    grads, the global norm, optax's clip (`g / norm * max_norm` once the
+    norm reaches `max_norm`, no epsilon), AdamW at `schedule(step)`.
+    Returns the loss and the unclipped `grad_norm` as device scalars."""
+    loss = value_and_grad(model, loss_fn, tokens, accumulate)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    for grad in grads:
+        grad.copy_(torch.where(norm < max_norm, grad,
+                               grad / norm * max_norm))
+    for group in optimizer.param_groups:
+        group["lr"] = schedule(step)
+    optimizer.step()
+    return {"loss": loss, "grad_norm": norm}
+
+
+def check_mesh(mesh: tp.Mapping) -> None:
+    """One card: `data: -1` resolves to 1; any axis above 1 raises."""
+    for axis, size in mesh.items():
+        size = int(size)
+        if size == 1 or (axis == "data" and size == -1):
+            continue
+        todo = TODO_DATA_PARALLEL if axis == "data" else TODO_MESH
+        raise NotImplementedError(f"mesh.{axis}={size} is not ported yet: "
+                                  f"{todo}")
+
+
+class LMSolver(BaseSolver):
+    """The LM solver on one device (`cuda` unless `device` says so)."""
+
+    def __init__(self, cfg, device: tp.Any = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        check_mesh(cfg.mesh)
+        if float(cfg.get("ema_decay", 0.0)) > 0.0:
+            raise NotImplementedError(f"ema_decay > 0 is not ported yet: "
+                                      f"{TODO_EMA}")
+        model_cfg = TransformerConfig(
+            vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
+            num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
+            mlp_ratio=cfg.model.mlp_ratio, attention=cfg.model.attention,
+            remat=cfg.model.get("remat", False),
+            remat_policy=cfg.model.get("remat_policy", "full"),
+            scan_layers=cfg.model.get("scan_layers", False),
+            moe_experts=cfg.model.get("moe_experts", 0))
+        self.model = TransformerLM(model_cfg, device=self.device, seed=0)
+        self.optimizer, self.schedule = build_optimizer(self.model, cfg)
+        # the update count: the schedule reads it, so it is checkpointed
+        self.state = {"step": 0}
+        self.register_stateful("model", "optimizer", "state")
+        self._stream = synthetic_token_stream(cfg.model.vocab_size)
+        self.restored = False
+        # host seconds of each train step this process ran
+        self.step_seconds: tp.List[float] = []
+
+    def loss(self, tokens: torch.Tensor) -> torch.Tensor:
+        return lm_next_token_loss(self.model, tokens,
+                                  mode=self.cfg.get("loss", "dense"),
+                                  chunk_size=int(self.cfg.get("loss_chunk",
+                                                              256)))
+
+    def get_formatter(self, stage_name):
+        return Formatter({"loss": ".4f", "ppl": ".1f", "grad_norm": ".2f",
+                          "tokens_per_sec": ".0f"})
+
+    def batch_at(self, step: int, eval_set: bool = False) -> torch.Tensor:
+        # held-out data: an independently seeded subset of the same
+        # distribution (see synthetic_token_stream)
+        host = self._stream(self.cfg.batch_size, self.cfg.seq_len, step,
+                            subset=1 if eval_set else 0)
+        return torch.from_numpy(host).long().to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self):
+        cfg = self.cfg
+        average = averager()
+        progress = self.log_progress("train", range(cfg.steps_per_epoch),
+                                     updates=5)
+        metrics: tp.Dict[str, float] = {}
+        begin = time.time()
+        tokens_seen = 0
+        for index in progress:
+            global_step = (self.epoch - 1) * cfg.steps_per_epoch + index
+            t0 = time.perf_counter()
+            step_metrics = train_step(
+                self.model, self.optimizer, self.schedule,
+                self.state["step"], self.batch_at(global_step),
+                lambda model, tokens: self.loss(tokens),
+                accumulate=int(cfg.get("accumulate", 1)))
+            self.state["step"] += 1
+            # reading the metrics to the host waits for the whole step
+            metrics = average(step_metrics)
+            self.step_seconds.append(time.perf_counter() - t0)
+            tokens_seen += cfg.batch_size * cfg.seq_len
+            progress.update(**metrics)
+        self._sync()
+        metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
+        metrics["tokens_per_sec"] = tokens_seen / (time.time() - begin)
+        return metrics
+
+    def valid(self):
+        """Held-out loss: the same loss function, no update."""
+        average = averager()
+        steps = range(self.cfg.get("valid_steps", 4))
+        progress = self.log_progress("valid", steps, updates=2)
+        metrics: tp.Dict[str, float] = {}
+        with torch.no_grad():
+            for index in progress:
+                loss = self.loss(self.batch_at(index, eval_set=True))
+                metrics = average({"loss": loss})
+                progress.update(**metrics)
+        metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
+        return metrics
+
+    def generate(self):
+        """Sample a continuation with the KV-cache decoder and log it."""
+        prompt = self._stream(2, 16, step=0)[:, :16]
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.epoch)
+        begin = time.time()
+        out = lm_generate(self.model, prompt, max_new_tokens=32,
+                          temperature=1.0, generator=generator,
+                          device=self.device).cpu().numpy()
+        self.log_text("generate", "sample",
+                      " ".join(str(int(t)) for t in out[0]))
+        return {"gen_tokens_per_sec":
+                out.shape[0] * 32 / (time.time() - begin)}
+
+    def _reconcile_ema(self) -> None:
+        """Align the restored state with this run's EMA config. The port
+        has no EMA (ema_decay > 0 raises at construction), so a restored
+        shadow is dropped loudly."""
+        if "ema" in self.state:
+            self.logger.warning(
+                "ema_decay=0 but the checkpoint carries an EMA shadow: "
+                "dropping it (eval will use the live params)")
+            del self.state["ema"]
+
+    def run(self):
+        self.restored = self.restore()
+        if self.restored:
+            self._reconcile_ema()
+        self.logger.info("Restored: %s; starting at epoch %d", self.restored,
+                         self.epoch)
+        want_generate = bool(self.cfg.get("generate_every"))
+        for epoch in range(self.epoch, self.cfg.epochs + 1):
+            self.run_stage("train", self.train)
+            if self.cfg.get("valid_steps", 4):
+                self.run_stage("valid", self.valid)
+            if want_generate and epoch % self.cfg.generate_every == 0:
+                self.run_stage("generate", self.generate)
+            self.commit()
+
+
+@xp_main(config_path="config")
+def main(cfg):
+    """Train the TransformerLM; returns the solver."""
+    setup_logging()
+    distrib.init()
+    solver = LMSolver(cfg, device=cfg.get("device"))
+    solver.run()
+    return solver
+
+
+if __name__ == "__main__":
+    main()

@@ -13,20 +13,25 @@ cross over leaf for leaf (`models.convert.params_from_jax`):
     norm_f.scale           [D]
 
 Activations run in `config.dtype`; kernels are cast to it at use, norms
-accumulate in f32 and the tied head accumulates in f32.
+accumulate in f32 and the tied head accumulates in f32. With
+`attention='flash'` every attention call on a CUDA tensor runs the
+Hopper flash kernels (`ops.attention.flash_attention`); `segment_ids`
+(packed batches) take the dense masked path, as in the JAX package.
 """
 import dataclasses
 import math
 import typing as tp
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, flash_attention
 from ..utils import resolve_device
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_TRAINING = "ROADMAP.md queue A item 2 (the training slice)"
+TODO_REMAT_POLICY = "ROADMAP.md queue A item 2, T1 (remat 'dots' policies)"
+TODO_DROPOUT = "ROADMAP.md queue A item 2, T2 (dropout)"
 TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (MoE / SSD / "
                         "scan-stacked decode)")
 TODO_RING = "ROADMAP.md queue B row 8 (ring attention, multi-GPU)"
@@ -43,6 +48,9 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     attention: str = "flash"     # 'flash' | 'dense' | 'ring' | 'ring_fused'
     causal: bool = True
+    remat: bool = False          # recompute each block in the backward
+    remat_policy: str = "full"   # what remat saves: 'full' = nothing
+    dropout: float = 0.0         # > 0 is not ported (check_supported)
     # layouts the JAX package has and the port does not yet: setting
     # them raises NotImplementedError (check_supported); their other
     # fields (moe_top_k, ssd_state_dim, ...) arrive with them
@@ -78,6 +86,17 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.scan_layers:
         raise NotImplementedError(
             f"scan_layers=True is not ported yet: {TODO_DECODE_VARIANTS}")
+    if cfg.dropout > 0.0:
+        raise NotImplementedError(
+            f"dropout > 0 is not ported yet: {TODO_DROPOUT}")
+    if cfg.remat_policy in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet: "
+            f"{TODO_REMAT_POLICY}")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy must be one of ['dots', "
+                         f"'dots_no_batch', 'full'], got "
+                         f"{cfg.remat_policy!r}")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -137,7 +156,8 @@ class Attention(nn.Module):
         self.qkv = _Kernel((cfg.dim, 3, h, dh), cfg.dim, generator, device)
         self.out = _Kernel((h, dh, cfg.dim), h * dh, generator, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         cfg = self.config
         qkv = torch.einsum("btd,dchk->btchk", x.to(cfg.dtype),
@@ -145,17 +165,29 @@ class Attention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         q = _rotary(q, positions)
         k = _rotary(k, positions)
-        if cfg.attention in ("ring", "ring_fused"):
+        if cfg.attention not in ("flash", "dense", "ring", "ring_fused"):
+            raise ValueError(f"unknown attention {cfg.attention!r}")
+        if segment_ids is not None:
+            # packed batches: tokens attend within their own segment, on
+            # the dense masked path (the flash kernels take no mask)
+            if cfg.attention in ("ring", "ring_fused"):
+                raise ValueError(
+                    f"segment_ids is not supported with attention="
+                    f"{cfg.attention!r}: segment-aware masking uses the "
+                    "dense O(T^2) path, which cannot shard the sequence "
+                    "axis; use attention='dense' (or 'flash', which falls "
+                    "back to dense under a mask) for packed batches.")
+            segment_mask = (segment_ids[:, :, None]
+                            == segment_ids[:, None, :])[:, None]
+            out = dot_product_attention(q, k, v, causal=cfg.causal,
+                                        mask=segment_mask)
+        elif cfg.attention in ("ring", "ring_fused"):
             raise NotImplementedError(
                 f"attention={cfg.attention!r} is not ported yet: {TODO_RING}")
-        if cfg.attention == "flash":
-            raise NotImplementedError(
-                "attention='flash' needs the flash kernels of "
-                f"{TODO_TRAINING}; use attention='dense' (serving never "
-                "reads cfg.attention)")
-        if cfg.attention != "dense":
-            raise ValueError(f"unknown attention {cfg.attention!r}")
-        out = dot_product_attention(q, k, v, causal=cfg.causal)
+        elif cfg.attention == "flash":
+            out = flash_attention(q, k, v, causal=cfg.causal)
+        else:
+            out = dot_product_attention(q, k, v, causal=cfg.causal)
         return torch.einsum("bqhd,hdD->bqD", out,
                             self.out.kernel.to(cfg.dtype))
 
@@ -184,9 +216,10 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
         self.mlp = MLPBlock(cfg, generator, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), positions)
+        x = x + self.attn(self.norm1(x), positions, segment_ids)
         return x + self.mlp(self.norm2(x))
 
 
@@ -221,13 +254,14 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: tp.Optional[torch.Tensor] = None,
-                segment_ids: tp.Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                segment_ids: tp.Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> tp.Any:
+        """Logits [B, T, vocab] f32, or with `return_hidden` the final
+        hidden states and the tied embedding (for a chunked loss that
+        never materializes the logits). `segment_ids` ([B, T], 0 =
+        padding) makes attention segment-aware for packed batches; pass
+        the packer's per-segment `positions` with them."""
         cfg = self.config
-        if segment_ids is not None:
-            raise NotImplementedError(
-                f"segment_ids (packed batches) are not ported yet: "
-                f"{TODO_TRAINING}")
         if tokens.shape[1] > cfg.max_seq_len:
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
@@ -237,6 +271,13 @@ class TransformerLM(nn.Module):
                                      ).expand(tokens.shape)
         x = self.embed[tokens].to(cfg.dtype)
         for i in range(cfg.num_layers):
-            x = getattr(self, f"block_{i}")(x, positions)
+            block = getattr(self, f"block_{i}")
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, positions, segment_ids, use_reentrant=False)
+            else:
+                x = block(x, positions, segment_ids)
         x = self.norm_f(x)
+        if return_hidden:
+            return x, self.embed
         return x.float() @ self.embed.to(cfg.dtype).float().t()

@@ -1,7 +1,52 @@
-"""Small host-side helpers shared across the port."""
+"""Small host-side helpers shared across the port: metric averaging,
+atomic file writes, percentiles and device resolution (the port's own
+copy of what it needs from flashy_tpu/utils.py)."""
+import os
 import typing as tp
+from collections import defaultdict
+from contextlib import contextmanager
+from pathlib import Path
 
 import torch
+
+AnyPath = tp.Union[Path, str]
+
+
+def averager(beta: float = 1.0) -> tp.Callable[..., tp.Dict[str, float]]:
+    """Exponential moving average over dicts of metrics.
+
+    Returns `update(metrics, weight=1)`, which folds the metrics into the
+    running average and returns the averaged dict; `beta=1` is a plain
+    weighted mean. Values may be Python numbers or one-element tensors
+    (read to the host here, once per metric).
+    """
+    num: tp.Dict[str, float] = defaultdict(float)
+    den: tp.Dict[str, float] = defaultdict(float)
+
+    def _update(metrics: tp.Dict[str, tp.Any],
+                weight: float = 1.0) -> tp.Dict[str, float]:
+        for key, value in metrics.items():
+            num[key] = num[key] * beta + weight * float(value)
+            den[key] = den[key] * beta + weight
+        return {key: value / den[key] for key, value in num.items()}
+
+    return _update
+
+
+@contextmanager
+def write_and_rename(path: AnyPath, mode: str = "wb", suffix: str = ".tmp",
+                     pid: bool = False):
+    """Write to a temporary file, then rename it over `path`.
+
+    The rename is atomic on POSIX filesystems, so a process killed
+    mid-write never leaves a truncated file at `path`.
+    """
+    tmp_path = str(path) + suffix
+    if pid:
+        tmp_path += f".{os.getpid()}"
+    with open(tmp_path, mode) as f:
+        yield f
+    os.rename(tmp_path, path)
 
 
 def percentile(samples: tp.Sequence[float], q: float) -> float:

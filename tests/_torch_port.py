@@ -11,17 +11,18 @@ TINY = dict(vocab_size=256, dim=32, num_layers=2, num_heads=4,
 
 
 def tiny_pair(seed: int = 0, **overrides):
-    """(jax_model, jax_params, port_model) with identical f32 weights."""
+    """(jax_model, jax_params, port_model) with identical f32 weights
+    (dense attention unless `attention=` says otherwise)."""
     from flashy_tpu.models import TransformerConfig as JaxConfig
     from flashy_tpu.models import TransformerLM as JaxLM
     from flashy_tpu_torch.models.convert import params_from_jax
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
                                                      TransformerLM)
-    kw = {**TINY, **overrides}
-    jax_model = JaxLM(JaxConfig(**kw, attention="dense", dtype=jnp.float32))
+    kw = {**TINY, "attention": "dense", **overrides}
+    jax_model = JaxLM(JaxConfig(**kw, dtype=jnp.float32))
     params = jax.jit(jax_model.init)(jax.random.PRNGKey(seed),
                                      jnp.zeros((1, 8), jnp.int32))
-    cfg = TransformerConfig(**kw, attention="dense", dtype=torch.float32)
+    cfg = TransformerConfig(**kw, dtype=torch.float32)
     model = TransformerLM(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
                                           cfg))

@@ -1,0 +1,173 @@
+# The port's flash attention (flashy_tpu_torch/ops/attention.py: the
+# plain versions of the four Hopper kernels, and the autograd wrapper
+# that takes them on the CPU) held against the JAX package's Pallas
+# kernels in interpret mode on identical inputs. f32 tolerance 1e-5:
+# reduction order only. The port's fused backward must be bit-equal to
+# its split pair, as the JAX package pins for its own kernels. In bf16
+# the blockwise forward is held to the Pallas kernel's rounding points.
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(shape_q, shape_k, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(shape_q).astype(dtype)
+    k = rng.standard_normal(shape_k).astype(dtype)
+    v = rng.standard_normal(shape_k).astype(dtype)
+    do = rng.standard_normal(shape_q).astype(dtype)
+    return q, k, v, do
+
+
+def _np_lse(q, k, causal):
+    """Reference logsumexp [B, H, Tq] of the masked f32 scores (rows
+    with no visible key at the forward's clamp floor)."""
+    scores = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                       k.astype(np.float64)) / np.sqrt(q.shape[-1])
+    if causal:
+        t_q, t_k = q.shape[1], k.shape[1]
+        visible = np.tril(np.ones((t_q, t_k), bool), t_k - t_q)
+        scores = np.where(visible, scores, -np.inf)
+    m = scores.max(-1, keepdims=True)
+    m = np.where(np.isfinite(m), m, 0.0)
+    total = np.exp(scores - m).sum(-1)
+    return np.where(total > 0, m[..., 0] + np.log(np.maximum(total, 1e-300)),
+                    -1e30)
+
+
+# (t_q, t_k, causal, block): square, t_k > t_q, t_k < t_q with empty
+# rows (whole skipped q-block at block 16, a mixed one at 32), and a T
+# the blocks do not divide (JAX's reference there is its dense fallback)
+CASES = [(64, 64, True, 32), (64, 64, False, 32), (32, 64, True, 16),
+         (32, 16, True, 16), (32, 16, True, 32), (48, 48, True, 32),
+         (40, 56, False, 32)]
+
+
+@pytest.mark.parametrize("t_q,t_k,causal,block", CASES)
+def test_blockwise_forward_matches_jax_flash(t_q, t_k, causal, block):
+    from flashy_tpu.ops.attention import _flash_forward
+    from flashy_tpu.ops.attention import flash_attention as jax_flash
+    from flashy_tpu_torch.ops.attention import flash_forward_blockwise
+    q, k, v, _ = _inputs((2, t_q, 2, 16), (2, t_k, 2, 16), seed=t_q + t_k)
+    out, lse = flash_forward_blockwise(*map(torch.from_numpy, (q, k, v)),
+                                       causal, block_k=block)
+    want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                     block_q=block, block_k=block)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    if t_q % block == 0 and t_k % block == 0:
+        _, jax_lse = _flash_forward(*map(jnp.asarray, (q, k, v)),
+                                    causal=causal, block_q=block,
+                                    block_k=block, interpret=True)
+        want_lse = np.asarray(jax_lse)[:, :, 0].reshape(lse.shape)
+        np.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+    np.testing.assert_allclose(lse.numpy(), _np_lse(q, k, causal), **TOL)
+    if causal and t_k < t_q:
+        np.testing.assert_array_equal(out.numpy()[:, :t_q - t_k], 0.0)
+
+
+def _port_grads(q, k, v, do, causal, block):
+    from flashy_tpu_torch.ops.attention import (
+        flash_backward_dkv_blockwise, flash_backward_dq_blockwise,
+        flash_backward_fused_blockwise, flash_delta, flash_forward_blockwise,
+        fold_dq_partials)
+    q, k, v, do = map(torch.from_numpy, (q, k, v, do))
+    out, lse = flash_forward_blockwise(q, k, v, causal, block_k=block)
+    delta = flash_delta(do, out)
+    split = (flash_backward_dq_blockwise(q, k, v, do, lse, delta, causal,
+                                         block_k=block),
+             *flash_backward_dkv_blockwise(q, k, v, do, lse, delta, causal,
+                                           block_q=block))
+    dk, dv, partials = flash_backward_fused_blockwise(
+        q, k, v, do, lse, delta, causal, block_q=block, block_k=block)
+    return split, (fold_dq_partials(partials, q.dtype), dk, dv)
+
+
+@pytest.mark.parametrize("t_q,t_k,causal,block", CASES)
+def test_blockwise_backward_matches_jax_and_fused_equals_split(
+        t_q, t_k, causal, block):
+    from flashy_tpu.ops.attention import flash_attention as jax_flash
+    q, k, v, do = _inputs((1, t_q, 2, 16), (1, t_k, 2, 16), seed=7)
+    split, fused = _port_grads(q, k, v, do, causal, block)
+    for a, b in zip(fused, split):
+        assert torch.equal(a, b)
+    for jax_fused in (True, False):
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+            q, k, v, causal=causal, block_q=block, block_k=block,
+            fused_backward=jax_fused), *map(jnp.asarray, (q, k, v)))
+        for got, want in zip(split, vjp(jnp.asarray(do))):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if causal and t_k < t_q:
+        np.testing.assert_array_equal(split[0].numpy()[:, :t_q - t_k], 0.0)
+
+
+def _placement_misses(got, want):
+    """(largest excess over one bf16 ulp of |want|, share not bit-equal)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    excess = np.abs(got - want) - 2.0 ** -7 * np.abs(want)
+    return float(excess.max()), float((got != want).mean())
+
+
+def test_bf16_forward_rounds_where_the_pallas_kernel_does():
+    # The kernel rounds the unnormalized P to bf16 once per k-block; the
+    # blockwise forward must round at the same points (at most 1% of
+    # outputs not bit-equal, each within one bf16 ulp), which the dense
+    # path, rounding the normalized P over the whole row, does not.
+    from flashy_tpu.ops.attention import flash_attention as jax_flash
+    from flashy_tpu_torch.ops.attention import (dot_product_attention,
+                                                flash_forward_blockwise)
+    q, k, v, _ = _inputs((2, 128, 2, 32), (2, 128, 2, 32), seed=3)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=32,
+                                block_k=32).astype(jnp.float32))
+    got, _ = flash_forward_blockwise(tq, tk, tv, True, block_k=32)
+    excess, share = _placement_misses(got.float().numpy(), want)
+    assert excess <= 2.0 ** -10 and share <= 0.01, (excess, share)
+    dense = dot_product_attention(tq, tk, tv, causal=True)
+    _, dense_share = _placement_misses(dense.float().numpy(), want)
+    assert dense_share > 0.01, dense_share
+
+
+def test_wrapper_on_cpu_runs_the_plain_versions_at_the_kernel_tile():
+    from flashy_tpu_torch.ops.attention import (FLASH_BLOCK, flash_attention,
+                                                launch_counts)
+    q, k, v, do = _inputs((1, 96, 2, 16), (1, 96, 2, 16), seed=11)
+    before = dict(launch_counts)
+    grads = {}
+    for fused in (None, False):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, causal=True, fused_backward=fused)
+        out.backward(torch.from_numpy(do))
+        grads[fused] = [x.grad for x in leaves]
+    assert launch_counts == before  # no kernel on the CPU
+    split, fused = _port_grads(q, k, v, do, True, FLASH_BLOCK)
+    for a, b, c in zip(grads[None], grads[False], split):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_kernel_path_refuses_what_the_kernels_do_not_take():
+    from flashy_tpu_torch.ops import attention
+    meta = dict(device="meta")
+    q = torch.empty((1, 8, 2, 32), **meta)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        attention._check_kernel_inputs(q, q, q)
+    q = torch.empty((1, 8, 2, 64), dtype=torch.float16, **meta)
+    with pytest.raises(ValueError, match="dtypes"):
+        attention._check_kernel_inputs(q, q, q)
+    q = torch.empty((1, 8, 2, 64), **meta)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        attention._check_kernel_inputs(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.flash_attention(q, q, q)
+    stat = torch.empty((1, 2, 8), **meta)
+    attention._check_backward_inputs(q, q, stat, stat)
+    with pytest.raises(ValueError, match="dO"):
+        attention._check_backward_inputs(q, q[:, :4], stat, stat)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        attention._check_backward_inputs(q, q, stat[:, :, :4], stat)
+    with pytest.raises(ValueError, match="D must be float32"):
+        attention._check_backward_inputs(q, q, stat, stat.bfloat16())

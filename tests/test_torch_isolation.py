@@ -46,6 +46,8 @@ def test_package_imports_with_jax_unimportable():
         "    sys.modules[name] = None\n"
         "import flashy_tpu_torch.serve.scheduler, "
         "flashy_tpu_torch.models.convert, flashy_tpu_torch.ops.paged_decode\n"
+        "import flashy_tpu_torch.examples.lm.solver, "
+        "flashy_tpu_torch.ops.losses, flashy_tpu_torch.checkpoint\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")
@@ -70,6 +72,19 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         generate(model, np.zeros((1, 2), np.int32), max_new_tokens=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecodeEngine(model, slots=1, block_size=4)
+
+
+def test_lm_solver_without_device_raises_when_cuda_is_absent(monkeypatch):
+    import yaml
+    from flashy_tpu_torch.examples.lm.solver import LMSolver
+    from flashy_tpu_torch.xp import Config, temporary_xp
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = PORT / "examples" / "lm" / "config" / "config.yaml"
+    cfg = Config(yaml.safe_load(config.read_text()))
+    assert cfg.device is None
+    with temporary_xp(cfg):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LMSolver(cfg)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

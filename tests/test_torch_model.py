@@ -54,19 +54,16 @@ def test_unported_paths_raise_not_implemented():
                                                      TransformerLM)
     base = dict(TINY, dtype=torch.float32)
     for bad in (dict(moe_experts=2), dict(mixer="ssd,attention"),
-                dict(scan_layers=True)):
+                dict(scan_layers=True), dict(dropout=0.1),
+                dict(remat=True, remat_policy="dots")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(**base, **bad), device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    for attention in ("flash", "ring", "ring_fused"):
+    for attention in ("ring", "ring_fused"):
         model = TransformerLM(TransformerConfig(**base, attention=attention),
                               device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model(tokens)
-    model = TransformerLM(TransformerConfig(**base, attention="dense"),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(tokens, segment_ids=torch.ones_like(tokens))
 
 
 def test_apply_step_logits_match_jax():
