@@ -32,9 +32,10 @@
 //
 // Fused and split backward are bit-identical: every (q-block, k-block)
 // pair computes S, P, dP and dS with the same device code, each block
-// product starts from zero and runs its contraction in ascending order
-// with explicit fmaf, and the accumulators add whole block products with
-// non-contracted adds (__fadd_rn). The split dQ kernel adds the block
+// product starts from zero and runs the same instruction sequence
+// (explicit fmaf in ascending order, or the same mma.sync steps), and
+// the accumulators add whole block products with non-contracted adds
+// (__fadd_rn). The split dQ kernel adds the block
 // products dS.K in k order; the fused kernel writes the same block
 // products (exact zeros for causally skipped pairs), and the caller's
 // left fold in k order performs the same additions. No atomics.
@@ -43,30 +44,41 @@
 // (B*H = 256, T = 1024, D = 64, causal) a forward does ~34 GFLOP against
 // ~135 MB of inputs and outputs, a backward ~86 GFLOP against ~236 MB,
 // far above the ~295 flops per byte where the H100 leaves the memory
-// bound. This first version does not reach the tensor cores: it runs f32
-// FMAs from shared memory, each thread a 4x4 register tile of a 64x64
-// block product (strided rows and columns, padded rows, so reads are
-// conflict-free or broadcast). The T x T score matrix never reaches
-// device memory: S, P and dS live in shared memory one 64x64 tile at a
-// time, as the TPU kernels keep them in VMEM. The TPU grid's sequential
-// innermost axis, carried in VMEM scratch, becomes a loop inside one
-// thread block with the running statistics and accumulators in shared
-// memory and registers. mma.sync / wgmma on bf16 tiles, TMA and a
-// pipelined K/V ring are later work.
+// bound, so the block products belong on the tensor cores. Each 64x64
+// block product is split over the eight warps in the m16n8k16 fragment
+// layout of `mma.sync` (a warp owns 16 rows and 32 columns). In bf16
+// every operand tile is bf16-exact (Q, K, V and dO as loaded, P and dS
+// after their rounding), so the bf16 kernels run the products as
+// `mma.sync` with f32 accumulation, exactly the bf16-operand,
+// f32-accumulate products of the Pallas bodies. The f32 kernels keep
+// f32 FMAs in the same layout, contracting in ascending order. The T x
+// T score matrix never reaches device memory: S, P and dS live in shared
+// memory one 64x64 f32 tile at a time (padded rows), as the TPU kernels
+// keep them in VMEM. The TPU grid's sequential innermost axis, carried
+// in VMEM scratch, becomes a loop inside one thread block with the
+// running statistics in shared memory and the accumulators in
+// registers. wgmma, TMA, bf16 tiles in shared memory and a pipelined
+// K/V ring are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBlock = 64;             // q and k tile (FLASH_BLOCK)
 constexpr int kDim = 64;               // head_dim compiled (FLASH_HEAD_DIMS)
-constexpr int kThreads = 256;          // 16 x 16 threads, 4x4 outputs each
+constexpr int kThreads = 256;          // 8 warps, 16 x 32 outputs each
 constexpr int kWarps = kThreads / 32;
-constexpr int kLd = kBlock + 1;        // padded row of a [64][64] f32 tile
+// padded row of a [64][64] f32 tile: a multiple of 4 floats for 16-byte
+// stores, and 8 (mod 32) so that a warp's fragment reads along a row,
+// 8 bytes a lane, hit 16 distinct bank pairs per half-warp
+constexpr int kLd = kBlock + 8;
 constexpr int kTile = kBlock * kLd;    // floats per tile
-static_assert(kBlock == kDim, "the 4x4 thread tiles assume square tiles");
+static_assert(kBlock == kDim && kThreads == 256,
+              "the warp tiling assumes 64x64 tiles over 8 warps");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -100,15 +112,36 @@ __device__ __forceinline__ size_t row_at(int b, int t, int h, int T, int H) {
 }
 
 // rows row0..row0+63 of head (b, h) into a padded f32 tile; rows past T
-// are zero
+// are zero. 16-byte loads (the wrapper aligns the tensors), all of a
+// thread's issued before any is stored, so their latencies overlap.
 template <typename T>
 __device__ void load_rows(float* dst, const T* __restrict__ src, int b,
                           int h, int row0, int rows, int H) {
-  for (int i = threadIdx.x; i < kBlock * kDim; i += kThreads) {
-    const int r = i / kDim, d = i - r * kDim;
-    const int t = row0 + r;
-    dst[r * kLd + d] = t < rows ? to_float(src[row_at(b, t, h, rows, H) + d])
-                                : 0.f;
+  constexpr int kVec = 16 / sizeof(T);                // elements per load
+  constexpr int kRowChunks = kDim / kVec;
+  constexpr int kPer = kBlock * kRowChunks / kThreads;  // loads a thread
+  uint4 raw[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int chunk = threadIdx.x + i * kThreads;
+    const int t = row0 + chunk / kRowChunks;
+    raw[i] = t < rows
+                 ? *reinterpret_cast<const uint4*>(
+                       src + row_at(b, t, h, rows, H) +
+                       (chunk % kRowChunks) * kVec)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int chunk = threadIdx.x + i * kThreads;
+    float* out =
+        dst + (chunk / kRowChunks) * kLd + (chunk % kRowChunks) * kVec;
+    const T* values = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+    for (int v = 0; v < kVec; v += 4)
+      *reinterpret_cast<float4*>(out + v) =
+          make_float4(to_float(values[v]), to_float(values[v + 1]),
+                      to_float(values[v + 2]), to_float(values[v + 3]));
   }
 }
 
@@ -121,74 +154,110 @@ __device__ void load_stat(float* dst, const float* __restrict__ src, int bh,
   }
 }
 
-// Thread (ty, tx) owns rows ty + 16i and columns tx + 16j of a 64x64
-// product. Each product starts from zero and contracts in ascending
-// order with fmaf: its result does not depend on which kernel runs it.
+// A 64x64 block product in the m16n8k16 fragment layout: warp w owns
+// rows 16*(w % 4) .. +15 and columns 32*(w / 4) .. +31, as four 16x8
+// tiles; element e of tile j of a thread sits at (tile_row(e),
+// tile_col(j, e)).
+__device__ __forceinline__ int tile_row(int e) {
+  const int lane = threadIdx.x & 31;
+  return 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int tile_col(int j, int e) {
+  const int lane = threadIdx.x & 31;
+  return 32 * (threadIdx.x >> 7) + 8 * j + 2 * (lane & 3) + (e & 1);
+}
 
-// f[i][j] = sum_d a[row i][d] * b[row j][d]   (A B^T)
+// two bf16-exact f32 values as one bf16x2 register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x[0] and x[stride]: one 8-byte load when they are adjacent
+template <int kStride>
+__device__ __forceinline__ float2 pair_at(const float* x) {
+  if constexpr (kStride == 1) return *reinterpret_cast<const float2*>(x);
+  return make_float2(x[0], x[kStride]);
+}
+
+// f = A B from zero, contracting over 64: A(m, k) = a[m*AM + k*AK],
+// B(k, n) = b[k*BK + n*BN], both f32 tiles in shared memory. T = float:
+// fmaf in ascending k. T = bf16: the operands are bf16-exact, and the
+// product runs as four mma.sync k-steps. Either way the result does not
+// depend on which kernel runs it.
+template <typename T, int AM, int AK, int BK, int BN>
+__device__ __forceinline__ void product(const float* a, const float* b,
+                                        float f[4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g, r1 = r0 + 8;
+  const int n0 = 32 * (threadIdx.x >> 7);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll 4
+    for (int k = 0; k < kBlock; ++k) {
+      const float a0 = a[r0 * AM + k * AK], a1 = a[r1 * AM + k * AK];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        const float b0 = b[k * BK + c * BN], b1 = b[k * BK + (c + 1) * BN];
+        f[j][0] = fmaf(a0, b0, f[j][0]);
+        f[j][1] = fmaf(a0, b1, f[j][1]);
+        f[j][2] = fmaf(a1, b0, f[j][2]);
+        f[j][3] = fmaf(a1, b1, f[j][3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < kBlock; k0 += 16) {
+      const int k = k0 + 2 * t;
+      uint32_t af[4];
+      float2 x = pair_at<AK>(a + r0 * AM + k * AK);
+      af[0] = pack_bf16(x.x, x.y);
+      x = pair_at<AK>(a + r1 * AM + k * AK);
+      af[1] = pack_bf16(x.x, x.y);
+      x = pair_at<AK>(a + r0 * AM + (k + 8) * AK);
+      af[2] = pack_bf16(x.x, x.y);
+      x = pair_at<AK>(a + r1 * AM + (k + 8) * AK);
+      af[3] = pack_bf16(x.x, x.y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + 8 * j + g;
+        const float2 y0 = pair_at<BK>(b + k * BK + n * BN);
+        const float2 y1 = pair_at<BK>(b + (k + 8) * BK + n * BN);
+        mma_bf16(f[j], af, pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
+      }
+    }
+  }
+}
+
+// A B^T, A B and A^T B of padded [64][kLd] tiles
+template <typename T>
 __device__ __forceinline__ void product_abt(const float* a, const float* b,
                                             float f[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kDim; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[i][j] = fmaf(av[i], bv[j], f[i][j]);
-  }
+  product<T, kLd, 1, 1, kLd>(a, b, f);
 }
-
-// f[i][j] = sum_c a[row i][c] * b[c][col j]   (A B)
+template <typename T>
 __device__ __forceinline__ void product_ab(const float* a, const float* b,
                                            float f[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < kBlock; ++c) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kLd + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[c * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[i][j] = fmaf(av[i], bv[j], f[i][j]);
-  }
+  product<T, kLd, 1, kLd, 1>(a, b, f);
 }
-
-// f[i][j] = sum_r a[r][col i] * b[r][col j]   (A^T B)
+template <typename T>
 __device__ __forceinline__ void product_atb(const float* a, const float* b,
                                             float f[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f[i][j] = 0.f;
-#pragma unroll 4
-  for (int r = 0; r < kBlock; ++r) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[r * kLd + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[r * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[i][j] = fmaf(av[i], bv[j], f[i][j]);
-  }
+  product<T, 1, kLd, kLd, 1>(a, b, f);
 }
 
 // whether key k_pos exists and query q_pos may see it
@@ -221,27 +290,24 @@ __device__ void probs_and_ds(const float* q_s, const float* k_s,
                              const float* lse_s, const float* delta_s,
                              float* p_s, float* ds_s, int q0, int k0,
                              const Geometry& g) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float s[4][4], dp[4][4];
-  product_abt(q_s, k_s, s);
-  product_abt(do_s, v_s, dp);
+  product_abt<T>(q_s, k_s, s);
+  product_abt<T>(do_s, v_s, dp);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float lse = lse_s[r], delta = delta_s[r];
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
+    for (int e = 0; e < 4; ++e) {
+      const int r = tile_row(e), c = tile_col(j, e);
+      const float lse = lse_s[r];
       const float score = visible(q0 + r, k0 + c, g)
-                              ? __fmul_rn(s[i][j], g.scale) : kNegInf;
+                              ? __fmul_rn(s[j][e], g.scale) : kNegInf;
       const float p = lse > kNegInf * 0.5f ? expf(__fsub_rn(score, lse))
                                            : 0.f;
       const float ds =
-          __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], delta)), g.scale);
+          __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j][e], delta_s[r])), g.scale);
       p_s[r * kLd + c] = round_to<T>(p);
       ds_s[r * kLd + c] = round_to<T>(ds);
     }
-  }
 }
 
 // Forward: one block per (b*h, q-block); loops over the k-blocks up to
@@ -255,8 +321,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, qi = blockIdx.y;
   const int b = bh / g.H, h = bh - b * g.H;
   const int q0 = qi * kBlock;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -287,14 +352,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float s[4][4];
-    product_abt(q_s, k_s, s);
+    product_abt<T>(q_s, k_s, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
+      for (int e = 0; e < 4; ++e) {
+        const int r = tile_row(e), c = tile_col(j, e);
         p_s[r * kLd + c] = visible(q0 + r, k0 + c, g)
-                               ? __fmul_rn(s[i][j], g.scale) : kNegInf;
+                               ? __fmul_rn(s[j][e], g.scale) : kNegInf;
       }
     __syncthreads();
 
@@ -326,27 +391,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float pv[4][4];
-    product_ab(p_s, v_s, pv);
+    product_ab<T>(p_s, v_s, pv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha), pv[i][j]);
-    }
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], a_s[tile_row(e)]),
+                              pv[j][e]);
   }
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
-    if (t >= g.Tq) continue;
-    const float denom = fmaxf(l_s[r], 1e-30f);
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[row_at(b, t, h, g.Tq, g.H) + tx + 16 * j] =
-          from_float<T>(__fdiv_rn(acc[i][j], denom));
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int r = tile_row(e), t = q0 + r;
+      if (t < g.Tq)
+        out[row_at(b, t, h, g.Tq, g.H) + tile_col(j, e)] =
+            from_float<T>(__fdiv_rn(acc[j][e], fmaxf(l_s[r], 1e-30f)));
+    }
   for (int r = tid; r < kBlock; r += kThreads) {
     const int t = q0 + r;
     if (t < g.Tq)
@@ -368,7 +431,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, qi = blockIdx.y;
   const int b = bh / g.H, h = bh - b * g.H;
   const int q0 = qi * kBlock;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -401,21 +463,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     g);
     __syncthreads();
     float blk[4][4];
-    product_ab(ds_s, k_s, blk);
+    product_ab<T>(ds_s, k_s, blk);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], blk[i][j]);
+      for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], blk[j][e]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= g.Tq) continue;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dq[row_at(b, t, h, g.Tq, g.H) + tx + 16 * j] = from_float<T>(acc[i][j]);
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int t = q0 + tile_row(e);
+      if (t < g.Tq)
+        dq[row_at(b, t, h, g.Tq, g.H) + tile_col(j, e)] =
+            from_float<T>(acc[j][e]);
+    }
 }
 
 // Backward dK/dV (split, FUSED = false) or the one-pass backward (FUSED =
@@ -434,7 +497,6 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, ki = blockIdx.y;
   const int b = bh / g.H, h = bh - b * g.H;
   const int k0 = ki * kBlock;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int nq = (g.Tq + kBlock - 1) / kBlock;
 
   extern __shared__ float smem[];
@@ -460,13 +522,14 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!block_visible(qi, ki, g)) {
       if (FUSED) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = q0 + ty + 16 * i;
-          if (t >= g.Tq) continue;
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            dqp[row_at(ki * g.B + b, t, h, g.Tq, g.H) + tx + 16 * j] = 0.f;
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int t = q0 + tile_row(e);
+            if (t < g.Tq)
+              dqp[row_at(ki * g.B + b, t, h, g.Tq, g.H) + tile_col(j, e)] =
+                  0.f;
+          }
       }
       continue;
     }
@@ -480,43 +543,43 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     g);
     __syncthreads();
     float blk[4][4];
-    product_atb(p_s, do_s, blk);
+    product_atb<T>(p_s, do_s, blk);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dv_acc[i][j] = __fadd_rn(dv_acc[i][j], blk[i][j]);
-    product_atb(ds_s, q_s, blk);
+      for (int e = 0; e < 4; ++e)
+        dv_acc[j][e] = __fadd_rn(dv_acc[j][e], blk[j][e]);
+    product_atb<T>(ds_s, q_s, blk);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dk_acc[i][j] = __fadd_rn(dk_acc[i][j], blk[i][j]);
+      for (int e = 0; e < 4; ++e)
+        dk_acc[j][e] = __fadd_rn(dk_acc[j][e], blk[j][e]);
     if (FUSED) {
-      product_ab(ds_s, k_s, blk);
+      product_ab<T>(ds_s, k_s, blk);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = q0 + ty + 16 * i;
-        if (t >= g.Tq) continue;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dqp[row_at(ki * g.B + b, t, h, g.Tq, g.H) + tx + 16 * j] =
-              blk[i][j];
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int t = q0 + tile_row(e);
+          if (t < g.Tq)
+            dqp[row_at(ki * g.B + b, t, h, g.Tq, g.H) + tile_col(j, e)] =
+                blk[j][e];
+        }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= g.Tk) continue;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t at = row_at(b, t, h, g.Tk, g.H) + tx + 16 * j;
-      dk[at] = from_float<T>(dk_acc[i][j]);
-      dv[at] = from_float<T>(dv_acc[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const int t = k0 + tile_row(e);
+      if (t < g.Tk) {
+        const size_t at = row_at(b, t, h, g.Tk, g.H) + tile_col(j, e);
+        dk[at] = from_float<T>(dk_acc[j][e]);
+        dv[at] = from_float<T>(dv_acc[j][e]);
+      }
     }
-  }
 }
 
 constexpr size_t kFwdSmem = (4 * kTile + 3 * kBlock) * sizeof(float);

@@ -323,6 +323,13 @@ def _call(symbol: str, *args) -> None:
                            f"({symbol}): cudaError {err}")
 
 
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte aligned address (the kernels read rows
+    with 16-byte loads): a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool):
     batch, t_q, heads, dim = q.shape
     return (batch, heads, t_q, k.shape[1], dim, int(causal),
@@ -331,7 +338,7 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool):
 
 def _launch_forward(q, k, v, causal):
     _check_kernel_inputs(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = map(_kernel_operand, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
@@ -346,8 +353,8 @@ def _launch_forward(q, k, v, causal):
 def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
     _check_kernel_inputs(q, k, v)
     _check_backward_inputs(q, grad_out, lse, delta)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    grad_out = grad_out.to(q.dtype).contiguous()
+    q, k, v = map(_kernel_operand, (q, k, v))
+    grad_out = _kernel_operand(grad_out.to(q.dtype))
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = dk = dv = partials = None
     if kind == _BWD_DQ:
