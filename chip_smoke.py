@@ -49,8 +49,9 @@ failure with a non-zero exit:
              times and the fused backward 12 x train steps; a second
              call with 3 epochs restores and continues; tokens/s and
              step ms; then a profiled training window (idle share, top
-             device kernels) and each flash kernel's time at these
-             shapes beside its bound, its plain version and PyTorch's
+             device kernels); then each flash kernel at these shapes,
+             held against its plain version as in phase 3 and timed
+             beside its bound, its plain version and PyTorch's
              scaled_dot_product_attention.
 
 The last two lines of standard output are the kernels' JSON record and
@@ -498,9 +499,69 @@ def rel_err(got, want):
             / max(want.abs().max().item(), 1e-30))
 
 
+def compare_flash(torch, q, k, v, do, causal, label):
+    """The four flash kernels against their plain versions on one input:
+    the forward within the dtype's tolerance (and, in bf16, within one
+    ulp of the blockwise reference with at most PLACEMENT_SHARE of the
+    outputs not bit-equal), the backward kernels within it relative to
+    the largest |value|, and the fused backward bit-equal to the split
+    pair. Fails on any miss; returns ({kernel: max abs error against
+    plain}, the share of forward outputs not bit-equal, out, dq)."""
+    from flashy_tpu_torch.ops import attention as A
+    tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    out, lse = A.flash_forward(q, k, v, causal)
+    ref, ref_lse = A.flash_forward_blockwise(q, k, v, causal)
+    blk_err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not math.isfinite(blk_err) or blk_err > tol or lse_err > LSE_TOL:
+        fail(f"{label}: forward max abs err {blk_err} (limit {tol}), lse "
+             f"{lse_err} (limit {LSE_TOL})")
+    share = 0.0
+    if q.dtype == torch.bfloat16:
+        excess = ((out.float() - ref.float()).abs()
+                  - PLACEMENT_RTOL * ref.float().abs()).max().item()
+        share = (out != ref).float().mean().item()
+        if excess > PLACEMENT_ATOL or share > PLACEMENT_SHARE:
+            fail(f"{label}: against the blockwise reference {excess:.3e} "
+                 f"over one ulp, {share:.4f} of outputs differ (limit "
+                 f"{PLACEMENT_SHARE})")
+    del ref, ref_lse
+
+    delta = A.flash_delta(do, out)
+    args = (q, k, v, do, lse, delta, causal)
+    dq, dk, dv = A.flash_backward_split(*args)
+    fk, fv, part = A.flash_backward_fused(*args)
+    fq = A.fold_dq_partials(part, q.dtype)
+    if not (torch.equal(fq, dq) and torch.equal(fk, dk)
+            and torch.equal(fv, dv)):
+        fail(f"{label}: fused backward not bit-equal to split (dq "
+             f"{torch.equal(fq, dq)}, dk {torch.equal(fk, dk)}, dv "
+             f"{torch.equal(fv, dv)})")
+    del fq, fk, fv
+    want_dq = A.flash_backward_dq_blockwise(*args)
+    want_dk, want_dv = A.flash_backward_dkv_blockwise(*args)
+    rels = {"flash_bwd_dq": rel_err(dq, want_dq),
+            "flash_bwd_dkv": max(rel_err(dk, want_dk), rel_err(dv, want_dv))}
+    errors = {
+        "flash_fwd": blk_err,
+        "flash_bwd_dq": (dq.float() - want_dq.float()).abs().max().item(),
+        "flash_bwd_dkv": max(
+            (dk.float() - want_dk.float()).abs().max().item(),
+            (dv.float() - want_dv.float()).abs().max().item())}
+    del want_dq, want_dk, want_dv
+    want_part = A.flash_backward_fused_blockwise(*args)[2]
+    rels["flash_bwd_fused"] = rel_err(part, want_part)
+    errors["flash_bwd_fused"] = (part - want_part).abs().max().item()
+    del part, want_part
+    for key, rel in rels.items():
+        if not math.isfinite(rel) or rel > tol:
+            fail(f"{label}: {key} relative err {rel} > {tol}")
+    return errors, share, out, dq
+
+
 def check_flash_kernels(torch, device, card):
-    """The four flash kernels against their plain versions; returns
-    {dtype: {kernel: max abs error against plain}}."""
+    """The four flash kernels against their plain versions on small
+    cases; returns {dtype: {kernel: max abs error against plain}}."""
     from flashy_tpu_torch.ops import attention as A
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -513,58 +574,16 @@ def check_flash_kernels(torch, device, card):
                     f"causal={causal}"
             q, k, v, do = flash_inputs(torch, device, dtype, B, H, t_q, t_k,
                                        seed=seed)
-            out, lse = A.flash_forward(q, k, v, causal)
-            ref, ref_lse = A.flash_forward_blockwise(q, k, v, causal)
-            dense = A.dot_product_attention(q, k, v, causal=causal).float()
-            blk_err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            if not math.isfinite(blk_err) or blk_err > tol \
-                    or lse_err > LSE_TOL:
-                fail(f"{label}: forward max abs err {blk_err} (limit "
-                     f"{tol}), lse {lse_err} (limit {LSE_TOL})")
+            case, share_c, out, dq = compare_flash(torch, q, k, v, do, causal,
+                                                   label)
+            worst = {key: max(worst[key], case[key]) for key in worst}
+            share = max(share, share_c)
             # the dense path rounds the normalized P over the whole row
+            dense = A.dot_product_attention(q, k, v, causal=causal).float()
             err = (out.float() - dense).abs().max().item()
             if not math.isfinite(err) or err > tol:
                 fail(f"{label}: forward vs dense max abs err {err} > {tol}")
             dense_err = max(dense_err, err)
-            if dtype == torch.bfloat16:
-                excess = ((out.float() - ref.float()).abs()
-                          - PLACEMENT_RTOL * ref.float().abs()).max().item()
-                share_c = (out != ref).float().mean().item()
-                if excess > PLACEMENT_ATOL or share_c > PLACEMENT_SHARE:
-                    fail(f"{label}: against the blockwise reference "
-                         f"{excess:.3e} over one ulp, {share_c:.4f} of "
-                         f"outputs differ (limit {PLACEMENT_SHARE})")
-                share = max(share, share_c)
-            worst["flash_fwd"] = max(worst["flash_fwd"], blk_err)
-
-            delta = A.flash_delta(do, out)
-            args = (q, k, v, do, lse, delta, causal)
-            dq, dk, dv = A.flash_backward_split(*args)
-            fk, fv, part = A.flash_backward_fused(*args)
-            fq = A.fold_dq_partials(part, q.dtype)
-            if not (torch.equal(fq, dq) and torch.equal(fk, dk)
-                    and torch.equal(fv, dv)):
-                fail(f"{label}: fused backward not bit-equal to split "
-                     f"(dq {torch.equal(fq, dq)}, dk {torch.equal(fk, dk)}, "
-                     f"dv {torch.equal(fv, dv)})")
-            want_dq = A.flash_backward_dq_blockwise(*args)
-            want_dk, want_dv = A.flash_backward_dkv_blockwise(*args)
-            _, _, want_part = A.flash_backward_fused_blockwise(*args)
-            rels = {"flash_bwd_dq": rel_err(dq, want_dq),
-                    "flash_bwd_dkv": max(rel_err(dk, want_dk),
-                                         rel_err(dv, want_dv)),
-                    "flash_bwd_fused": rel_err(part, want_part)}
-            for key, rel in rels.items():
-                if not math.isfinite(rel) or rel > tol:
-                    fail(f"{label}: {key} relative err {rel} > {tol}")
-            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], (
-                dq.float() - want_dq.float()).abs().max().item())
-            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], (
-                dk.float() - want_dk.float()).abs().max().item(), (
-                dv.float() - want_dv.float()).abs().max().item())
-            worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"], (
-                part - want_part).abs().max().item())
             if causal and t_k < t_q:
                 empty = t_q - t_k
                 if out[:, :empty].abs().max().item() != 0 or \
@@ -738,7 +757,11 @@ def profile_train(torch, solver, card, steps=4):
 def flash_bounds(B, H, T, D, elem):
     """{kernel: (bound ms, 'bytes' | 'operations')} at causal t_q = t_k =
     T: operations over the bf16 peak for the visible q.k pairs, bytes
-    (each input read once, each output written once) over 3.35 TB/s."""
+    (each input read once, each output written once) over 3.35 TB/s.
+    'gradient' is the whole backward as a function (q, k, v, dO, lse, D
+    in; dQ, dK, dV out): the bound of the fused kernel and its dQ fold
+    together, whose f32 partials are this design's cost, not the
+    function's."""
     pairs = B * H * T * (T + 1) // 2
     row = B * T * H * D * elem          # one [B, T, H, D] tensor
     stat = B * H * T * 4                # lse or D, f32
@@ -746,7 +769,8 @@ def flash_bounds(B, H, T, D, elem):
     spec = {"flash_fwd": (4, 4 * row + stat),
             "flash_bwd_dq": (6, 5 * row + 2 * stat),
             "flash_bwd_dkv": (8, 6 * row + 2 * stat),
-            "flash_bwd_fused": (10, 6 * row + 2 * stat + partials)}
+            "flash_bwd_fused": (10, 6 * row + 2 * stat + partials),
+            "gradient": (10, 7 * row + 2 * stat)}
     out = {}
     for name, (flops_per_pair, nbytes) in spec.items():
         flop_ms = flops_per_pair * D * pairs / BF16_FLOPS * 1e3
@@ -758,14 +782,25 @@ def flash_bounds(B, H, T, D, elem):
 
 def time_flash(torch, device, card):
     """Each flash kernel at the training shapes (B 16, H 16, T 1024, D
-    64, causal, bf16) beside its bound, its plain version and PyTorch's
-    scaled_dot_product_attention (forward; its autograd backward for the
-    backward kernels)."""
+    64, causal, bf16), first held against its plain version there (as
+    `compare_flash` does), then timed beside its bound, its plain version
+    and PyTorch's scaled_dot_product_attention (forward; its autograd
+    backward for the backward kernels). Returns ({kernel: times},
+    {kernel: max abs error against plain at these shapes})."""
     import torch.nn.functional as F
     from flashy_tpu_torch.ops import attention as A
     B, H, T, D = 16, 16, 1024, 64
     q, k, v, do = flash_inputs(torch, device, torch.bfloat16, B, H, T, T,
                                seed=7)
+    errors, share, out, _ = compare_flash(
+        torch, q, k, v, do, True, "flash bfloat16 at the training shapes")
+    print(f"flash bfloat16 B={B} H={H} T={T} causal: max abs err vs plain "
+          + ", ".join(f"{key}={value:.3e}" for key, value in errors.items())
+          + f" (tolerance {FLASH_TOL['bfloat16']}, backward relative); vs "
+          f"blockwise reference {share:.4f} of outputs differ (limit "
+          f"{PLACEMENT_SHARE}), each within one ulp; fused == split "
+          f"bitwise [{card}]", flush=True)
+    del out
     out, lse = A.flash_forward(q, k, v, True)
     delta = A.flash_delta(do, out)
     args = (q, k, v, do, lse, delta, True)
@@ -800,14 +835,17 @@ def time_flash(torch, device, card):
                        "library_ms": library}
     fold_ms = time_ms(torch, lambda: A.fold_dq_partials(partials, q.dtype),
                       iters=20)
+    grad_bound, grad_by = bounds["gradient"]
     print("flash times (B16 H16 T1024 D64 causal bf16): " + "; ".join(
         f"{name} ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
         f"library_ms={t['library_ms']:.4f}" for name, t in times.items())
-        + f"; dQ fold of the fused partials ms={fold_ms:.4f} "
+        + f"; dQ fold of the fused partials ms={fold_ms:.4f}; fused + fold "
+        f"ms={times['flash_bwd_fused']['ms'] + fold_ms:.4f} against the "
+        f"gradient's bound_ms={grad_bound:.4f} ({grad_by}) "
         f"(library: F.scaled_dot_product_attention forward, its autograd "
         f"backward for the backward kernels) [{card}]", flush=True)
-    return times
+    return times, errors
 
 
 def build_all():
@@ -865,7 +903,7 @@ def main() -> None:
         train_counts, solver = phase_train(torch, card, folder)
         profile_train(torch, solver, card)
         del solver
-    flash_times = time_flash(torch, device, card)
+    flash_times, main_errors = time_flash(torch, device, card)
     # the split pair is the oracle: its path is the split run of phase 7
     flash_launches = {**train_counts,
                       "flash_bwd_dq": split_counts["flash_bwd_dq"],
@@ -889,11 +927,14 @@ def main() -> None:
          "bound_ms": timing8["bound_ms"], "bound_by": timing8["bound_by"],
          "library_ms": timing8["library_ms"]},
     ]
+    # bf16, the main path's dtype: the worst of the small cases and of the
+    # training shapes
     for name, replaces in FLASH_REPLACES.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": FLASH_SOURCE, "replaces": replaces,
                         "launches": flash_launches[name],
-                        "max_abs_err": flash_errors["bfloat16"][name],
+                        "max_abs_err": max(flash_errors["bfloat16"][name],
+                                           main_errors[name]),
                         **flash_times[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,6 @@ import logging
 import sys
 import time
 import typing as tp
-from argparse import Namespace
 from collections.abc import Iterable, Sized
 from pathlib import Path
 
@@ -178,7 +177,7 @@ class ResultLogger:
         self._level = level
         self._delimiter = delimiter
         self._experiment_loggers: tp.Dict[str, tp.Any] = {
-            "local": LocalFSLogger.from_xp(with_media_logging=True)}
+            "local": LocalFSLogger.from_xp()}
 
     def init_tensorboard(self, **kwargs: tp.Any) -> None:
         raise NotImplementedError(
@@ -191,11 +190,6 @@ class ResultLogger:
     def _fanout(self, method: str, *args: tp.Any, **kwargs: tp.Any) -> None:
         for backend in self._experiment_loggers.values():
             getattr(backend, method)(*args, **kwargs)
-
-    def log_hyperparams(self, params: tp.Union[tp.Dict[str, tp.Any],
-                                               Namespace],
-                        metrics: tp.Optional[dict] = None) -> None:
-        self._fanout("log_hyperparams", params, metrics)
 
     def get_log_progress_bar(self, stage: str, iterable: Iterable,
                              updates: int = 5,
@@ -223,16 +217,6 @@ class ResultLogger:
         self._logger.log(self._level,
                          bold(f" {self._delimiter} ".join(parts)))
         self._fanout("log_metrics", stage, metrics, step)
-
-    def log_audio(self, stage: str, key: str, audio: tp.Any,
-                  sample_rate: int, step: tp.Optional[int] = None,
-                  **kwargs: tp.Any) -> None:
-        self._fanout("log_audio", stage, key, audio, sample_rate, step,
-                     **kwargs)
-
-    def log_image(self, stage: str, key: str, image: tp.Any,
-                  step: tp.Optional[int] = None, **kwargs: tp.Any) -> None:
-        self._fanout("log_image", stage, key, image, step, **kwargs)
 
     def log_text(self, stage: str, key: str, text: str,
                  step: tp.Optional[int] = None, **kwargs: tp.Any) -> None:

@@ -100,10 +100,6 @@ class BaseSolver:
             step=self.epoch, step_name="epoch", formatter=self.formatter,
             **kwargs)
 
-    def log_hyperparams(self, params: dict,
-                        metrics: tp.Optional[dict] = None) -> None:
-        self.result_logger.log_hyperparams(params, metrics)
-
     def log_metrics(self, stage_name: str, metrics: dict,
                     formatter: tp.Optional[Formatter] = None) -> None:
         """Log metrics for a stage of the current epoch (once per stage
@@ -118,16 +114,6 @@ class BaseSolver:
             formatter = self.formatter
         self.result_logger.log_metrics(stage_name, metrics, step=self.epoch,
                                        step_name="epoch", formatter=formatter)
-
-    def log_audio(self, stage_name: str, key: str, audio: tp.Any,
-                  sample_rate: int, **kwargs: tp.Any) -> None:
-        self.result_logger.log_audio(stage_name, key, audio, sample_rate,
-                                     self.epoch, **kwargs)
-
-    def log_image(self, stage_name: str, key: str, image: tp.Any,
-                  **kwargs: tp.Any) -> None:
-        self.result_logger.log_image(stage_name, key, image, self.epoch,
-                                     **kwargs)
 
     def log_text(self, stage_name: str, key: str, text: str,
                  **kwargs: tp.Any) -> None:
