@@ -8,7 +8,7 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile both kernel sources from flashy_tpu_torch/csrc
+  1. build   compile the three kernel sources from flashy_tpu_torch/csrc
              with nvcc, one process per source, started together;
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
@@ -23,26 +23,41 @@ failure with a non-zero exit:
              within one ulp of the blockwise reference at the kernel's
              tile; split and fused backward against their plain
              versions; fused bit-equal to split on dQ, dK and dV;
-  4. exact   the 235M TransformerLM in f32 (TF32 off) served through the
+  4. ssd kernel  the SSD chunked-scan kernel against its plain version
+             at the serving widths (H 16, Dh 64, N 16; chunks 16, 64,
+             256 and tails; T of 1, 7, 100 and 1024; a random carried
+             state and a padded row): f32 within 1e-5 of max |plain|,
+             bf16 y within one bf16 ulp; a SSD_LOG_RESET segment equal
+             to the segment alone; chaining and right-padding bit-equal;
+  5. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
              stream token-exact against the port's dense-cache
              `generate` (a near tie, top-2 margin < 1e-5, is reported,
              not failed), the pool conserved, and the kernel launched
              exactly num_layers x (decode steps + prefill chunks) times;
-  5. serve   the serving layout in bf16 at the decode leg's shapes
+  6. ssd exact  the same layout with every mixer an SSD layer, in f32,
+             through `cache_layout='ssd'` with a 256 ceiling: 8 streams
+             of mixed prompt lengths past the ceiling, token-exact
+             against `generate` (the same near-tie rule), the SSD kernel
+             launched num_layers x prefill slices times;
+  7. serve   the serving layout in bf16 at the decode leg's shapes
              (8 slots, 16 requests, prompt 128, 128 new): tokens/s,
              decode-step ms, and the kernel's time at T=1 (decode) and
              T=16 (a prefill chunk) beside its bandwidth bound, its
              plain version and one library call; then a profiled
              serving window: the device's idle share and the kernels
              that take its time;
-  6. int8    a short bf16 run with int8 K/V pools through the int8
+  8. int8    a short bf16 run with int8 K/V pools through the int8
              kernel: pool conserved, kernel launched, kernel timed;
-  7. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
+  9. ssd serve  the pure-SSD model in bf16 at the same shapes: tokens/s,
+             decode-step ms, a profiled window, and the SSD kernel's
+             time at a prefill slice [1, 64] and at [8, 1024] beside its
+             bound and its plain version (no library call computes it);
+ 10. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
              and gradients with attention='flash' through the fused
              backward and through the split pair (bit-equal), and
              against attention='dense';
-  8. train   the 235M model in bf16 at batch 16, seq 1024 through the
+ 11. train   the 235M model in bf16 at batch 16, seq 1024 through the
              LM solver's `main` entry point in a fresh XP: 2 epochs of
              8 steps and 2 valid steps, the loss finite and falling,
              the forward kernel launched 12 x (train + valid steps)
@@ -94,14 +109,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def model_config(torch, dtype, max_seq_len, attention="dense"):
+def model_config(torch, dtype, max_seq_len, attention="dense", **kw):
     """The decode leg's 235M layout: vocab 32768, dim 1024, 12 layers,
     16 heads (head_dim 64), mlp_ratio 4."""
     from flashy_tpu_torch.models.transformer import TransformerConfig
     return TransformerConfig(vocab_size=32768, dim=1024, num_layers=12,
                              num_heads=16, mlp_ratio=4,
                              max_seq_len=max_seq_len, dtype=dtype,
-                             attention=attention)
+                             attention=attention, **kw)
+
+
+def ssd_model_config(torch, dtype, max_seq_len):
+    """The same layout with every mixer an SSD layer (state dim 16), its
+    chunk pinned to the engine's prefill slice of 64 tokens: the
+    equality that makes chunked prefill bit-equal to `generate`'s."""
+    return model_config(torch, dtype, max_seq_len, mixer="ssd",
+                        ssd_state_dim=16, ssd_chunk=SSD_CHUNK)
 
 
 # ----------------------------------------------------------------------
@@ -236,25 +259,55 @@ def top2_margin(torch, model, stream):
 
 
 def serve(torch, engine, prompts, max_new):
-    from flashy_tpu_torch.ops import paged_decode
+    """Serve `prompts` through the scheduler with every launch count set
+    to 0 just before; returns (scheduler, requests, the launch counts of
+    this run, seconds)."""
+    from flashy_tpu_torch.ops import paged_decode, ssd_scan
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
     scheduler = ContinuousBatchingScheduler(engine)
     requests = [scheduler.submit(p, max_new) for p in prompts]
     engine.step_counts = {"decode": 0, "prefill_chunk": 0}
     paged_decode.reset_launch_counts()
+    ssd_scan.reset_launch_counts()
     t0 = time.perf_counter()
     scheduler.run()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(paged_decode.launch_counts)
-    engine.pool.check()
+    counts = {**paged_decode.launch_counts, **ssd_scan.launch_counts}
+    if engine.pool is not None:
+        engine.pool.check()
     return scheduler, requests, counts, seconds
+
+
+def check_streams(torch, model, prompts, requests, max_new, device, label):
+    """Every request's output against the port's `generate`, token-exact
+    up to near ties (top-2 f32 margin < NEAR_TIE at the first divergence,
+    reported); returns the near ties."""
+    import numpy as np
+    from flashy_tpu_torch.models.decoding import generate
+    ties = []
+    for prompt, request in zip(prompts, requests):
+        ref = generate(model, prompt[None], max_new_tokens=max_new,
+                       device=device)[0].cpu().numpy()
+        got = request.output
+        if got.shape != ref.shape:
+            fail(f"{label}: request {request.uid} output shape {got.shape} "
+                 f"!= {ref.shape}")
+        diff = np.nonzero(got != ref)[0]
+        if diff.size:
+            first = int(diff[0])
+            margin = top2_margin(torch, model, ref[:first])
+            if margin >= NEAR_TIE:
+                fail(f"{label}: request {request.uid} (prompt {len(prompt)}) "
+                     f"diverges at position {first} with top-2 margin "
+                     f"{margin:.3e} >= {NEAR_TIE}")
+            ties.append((request.uid, first, margin))
+    return ties
 
 
 def phase_exact(torch, device, card=""):
     import numpy as np
-    from flashy_tpu_torch.models.decoding import generate
     from flashy_tpu_torch.models.transformer import TransformerLM
     from flashy_tpu_torch.serve.engine import DecodeEngine
     cfg = model_config(torch, torch.float32, 512)
@@ -274,23 +327,8 @@ def phase_exact(torch, device, card=""):
     if engine.kernel == "fused" and launched != reads:
         fail(f"exact: kernel launched {launched} times, engine made "
              f"{reads} attention reads")
-    ties = []
-    for prompt, request in zip(prompts, requests):
-        ref = generate(model, prompt[None], max_new_tokens=max_new,
-                       device=device)[0].cpu().numpy()
-        got = request.output
-        if got.shape != ref.shape:
-            fail(f"exact: request {request.uid} output shape {got.shape} "
-                 f"!= {ref.shape}")
-        diff = np.nonzero(got != ref)[0]
-        if diff.size:
-            first = int(diff[0])
-            margin = top2_margin(torch, model, ref[:first])
-            if margin >= NEAR_TIE:
-                fail(f"exact: request {request.uid} (prompt {len(prompt)}) "
-                     f"diverges at position {first} with top-2 margin "
-                     f"{margin:.3e} >= {NEAR_TIE}")
-            ties.append((request.uid, first, margin))
+    ties = check_streams(torch, model, prompts, requests, max_new, device,
+                         "exact")
     stats = engine.pool_stats()
     if stats["cow_forks"] < 1 or stats["prefix_hit_rate"] <= 0:
         fail(f"exact: workload made no prefix hit / COW fork: {stats}")
@@ -406,12 +444,16 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
     busy_ms = sum(ms for ms, _, _ in rows)
     wall_ms = wall_s * 1e3
     top = "; ".join(f"{key[:40]} {ms:.1f} ms x{n}" for ms, n, key in rows[:6])
+    ours = "; ".join(f"{name} {ms:.2f} ms x{n} ({ms / busy_ms:.3f} of "
+                     f"busy)" for ms, n, key in rows
+                     for name in ("paged_decode_kernel", "ssd_scan_kernel")
+                     if name in key)
     print(f"profile: {n_requests} requests x prompt {prompt_len} x "
           f"{max_new} new, plain wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
           f"decode steps {engine.step_counts['decode']}, prefill chunks "
-          f"{engine.step_counts['prefill_chunk']}; top: {top} [{card}]",
-          flush=True)
+          f"{engine.step_counts['prefill_chunk']}; top: {top}; the path's "
+          f"own kernels: {ours} [{card}]", flush=True)
 
 
 def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
@@ -847,12 +889,290 @@ def time_flash(torch, device, card):
         f"backward for the backward kernels) [{card}]", flush=True)
     return times, errors
 
+# ----------------------------------------------------------------------
+# ssd phases: the SSD scan kernel, pure-SSD serving
+# ----------------------------------------------------------------------
+SSD_SOURCE = "flashy_tpu_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "flashy_tpu/ops/ssd_scan.py:190"
+SSD_CHUNK = 64                 # engine prefill slice == model ssd_chunk
+SSD_STATE_RTOL = 1e-5          # f32 y and state, relative to max |plain|
+# (B, T, chunk): chunks 16, 64 and 256, tails of every length class, T
+# of 1, 7, 100 and 1024 (chunk is clipped to T, as the scan clips it)
+SSD_CASES = ((2, 1, 64), (2, 7, 16), (2, 100, 16), (2, 100, 64),
+             (1, 300, 256), (2, 1024, 64), (1, 1024, 256))
+
+
+def ssd_inputs(torch, device, dtype, B, T, H=16, Dh=64, N=16, seed=0):
+    """Random scan inputs at the serving widths: c, b, v [B, T, H, *] in
+    `dtype`, f32 log-decays, a random f32 carried state, and a token mask
+    whose last row pads its final T // 8 tokens."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    c, b = draw(B, T, H, N).to(dtype), draw(B, T, H, N).to(dtype)
+    v = draw(B, T, H, Dh).to(dtype)
+    log_a = -torch.nn.functional.softplus(draw(B, T, H))
+    state = draw(B, H, Dh, N)
+    mask = torch.ones((B, T), dtype=torch.bool, device=device)
+    mask[-1, T - T // 8:] = False
+    return c, b, v, log_a, state, mask
+
+
+def check_ssd_kernel(torch, device, card):
+    """The SSD scan kernel against its plain version on the card: f32 y
+    and state within SSD_STATE_RTOL of max |plain| (TF32 off); bf16 y
+    within one bf16 ulp of the plain version's (PLACEMENT_RTOL, with the
+    PLACEMENT_ATOL floor near zero), the state within SSD_STATE_RTOL.
+    Then, in f32: a SSD_LOG_RESET position whose segment's outputs match
+    the segment run alone; chaining (split at a chunk multiple) and
+    right-padding (masked tail against the unpadded prefix) bit-equal.
+    Returns {dtype: max abs err of y against plain}."""
+    from flashy_tpu_torch.ops.ssd_scan import SSD_LOG_RESET, ssd_chunked_scan
+    errors = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst_y = worst_rel = worst_state = 0.0
+        for seed, (B, T, chunk) in enumerate(SSD_CASES):
+            c, b, v, log_a, state, mask = ssd_inputs(torch, device, dtype,
+                                                     B, T, seed=seed)
+            kw = {"state": state, "chunk": chunk, "token_mask": mask}
+            y, s = ssd_chunked_scan(c, b, v, log_a, kernel="fused", **kw)
+            y_ref, s_ref = ssd_chunked_scan(c, b, v, log_a, kernel="gather",
+                                            **kw)
+            y, y_ref = y.float(), y_ref.float()
+            real = mask[:, :, None, None].expand_as(y)
+            err = (y - y_ref).abs()[real].max().item()
+            scale = max(y_ref.abs()[real].max().item(), 1e-30)
+            s_rel = rel_err(s, s_ref)
+            label = f"ssd {name} B={B} T={T} chunk={chunk}"
+            if dtype == torch.float32:
+                bad = err / scale > SSD_STATE_RTOL
+            else:
+                bad = ((y - y_ref).abs() - PLACEMENT_RTOL * y_ref.abs()
+                       )[real].max().item() > PLACEMENT_ATOL
+            if not math.isfinite(err) or bad or not math.isfinite(s_rel) \
+                    or s_rel > SSD_STATE_RTOL:
+                fail(f"{label}: y max abs err {err:.3e} (max |y| "
+                     f"{scale:.3e}), state rel err {s_rel:.3e}")
+            worst_y, worst_rel = max(worst_y, err), max(worst_rel,
+                                                        err / scale)
+            worst_state = max(worst_state, s_rel)
+        errors[name] = worst_y
+        bar = (f"relative {SSD_STATE_RTOL}" if dtype == torch.float32
+               else "one bf16 ulp")
+        print(f"ssd kernel {name}: {len(SSD_CASES)} cases (B, T, chunk) "
+              f"{SSD_CASES}, carried state, padded row: y max abs err "
+              f"{worst_y:.3e} ({worst_rel:.3e} of max |y|; bar {bar}), "
+              f"state max rel err {worst_state:.3e} (bar {SSD_STATE_RTOL}) "
+              f"[{card}]", flush=True)
+
+    # reset, chaining and padding, in f32 at the path's chunk
+    c, b, v, log_a, state, _ = ssd_inputs(torch, device, torch.float32, 2,
+                                          1024, seed=11)
+    cut = 37
+    reset = log_a.clone()
+    reset[:, cut] = SSD_LOG_RESET
+    y, _ = ssd_chunked_scan(c, b, v, reset, state=state, chunk=SSD_CHUNK,
+                            kernel="fused")
+    y_alone, _ = ssd_chunked_scan(c[:, cut:], b[:, cut:], v[:, cut:],
+                                  reset[:, cut:], chunk=SSD_CHUNK,
+                                  kernel="fused")
+    reset_err = rel_err(y[:, cut:], y_alone)
+    if not torch.isfinite(y).all() or reset_err > SSD_STATE_RTOL:
+        fail(f"ssd reset: the segment after SSD_LOG_RESET differs from the "
+             f"segment alone by {reset_err:.3e} relative")
+    y_all, s_all = ssd_chunked_scan(c, b, v, log_a, state=state,
+                                    chunk=SSD_CHUNK, kernel="fused")
+    split = 4 * SSD_CHUNK
+    y_a, s_a = ssd_chunked_scan(c[:, :split], b[:, :split], v[:, :split],
+                                log_a[:, :split], state=state,
+                                chunk=SSD_CHUNK, kernel="fused")
+    y_b, s_b = ssd_chunked_scan(c[:, split:], b[:, split:], v[:, split:],
+                                log_a[:, split:], state=s_a,
+                                chunk=SSD_CHUNK, kernel="fused")
+    if not (torch.equal(torch.cat([y_a, y_b], 1), y_all)
+            and torch.equal(s_b, s_all)):
+        fail("ssd chaining: the kernel split at a chunk multiple is not "
+             "bit-equal to one call")
+    used = 100
+    mask = torch.zeros((2, 2 * SSD_CHUNK), dtype=torch.bool, device=device)
+    mask[:, :used] = True
+    pad = slice(0, 2 * SSD_CHUNK)
+    y_pad, s_pad = ssd_chunked_scan(c[:, pad], b[:, pad], v[:, pad],
+                                    log_a[:, pad], state=state,
+                                    chunk=SSD_CHUNK, token_mask=mask,
+                                    kernel="fused")
+    y_cut, s_cut = ssd_chunked_scan(c[:, :used], b[:, :used], v[:, :used],
+                                    log_a[:, :used], state=state,
+                                    chunk=SSD_CHUNK, kernel="fused")
+    if not (torch.equal(y_pad[:, :used], y_cut) and torch.equal(s_pad,
+                                                                s_cut)):
+        fail("ssd padding: a right-padded chunk is not bit-equal to the "
+             "unpadded tail")
+    print(f"ssd kernel f32: segment after SSD_LOG_RESET vs alone rel err "
+          f"{reset_err:.3e}; split at {split} of 1024 bit-equal to one call; "
+          f"{2 * SSD_CHUNK - used} padded tokens bit-equal to the unpadded "
+          f"tail [{card}]", flush=True)
+    return errors
+
+
+def ssd_bound(B, H, T, N, Dh, chunk, elem):
+    """(bound ms, 'bytes' | 'operations', the peak named) of one scan:
+    bytes (c, b, v, la and the state in, y and the state out, each once)
+    over 3.35 TB/s against operations over the peak for their type: the
+    four products (the causal halves of c.b^T and of scores.v, c.S^T,
+    v^T.(b exp(suffix))) at the input dtype's peak, the C^2 decay sums
+    at the f32 peak."""
+    pairs = sum(min(chunk, T - lo) * (min(chunk, T - lo) + 1) // 2
+                for lo in range(0, T, chunk))
+    rows = B * H
+    nbytes = (rows * T * ((2 * N + 2 * Dh) * elem + 4)
+              + 2 * rows * Dh * N * 4)
+    products = rows * (2 * pairs * (N + Dh) + 4 * T * N * Dh)
+    peak = BF16_FLOPS if elem == 2 else F32_FLOPS
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = (products / peak + rows * pairs / F32_FLOPS) * 1e3
+    peak_name = ("bf16 tensor-core peak for the products, f32 for the "
+                 "decay sums" if elem == 2 else "f32 peak")
+    return (max(byte_ms, op_ms),
+            "bytes" if byte_ms >= op_ms else "operations", peak_name)
+
+
+def time_ssd(torch, device, B, T, chunk, dtype=None):
+    """The kernel's ms per launch on heads-first inputs of [B, T] tokens
+    at the serving widths, beside its bound and its plain version."""
+    from flashy_tpu_torch.ops.ssd_scan import (_chunked_reference,
+                                               fused_ssd_chunks)
+    dtype = dtype or torch.bfloat16
+    c, b, v, log_a, state, _ = ssd_inputs(torch, device, dtype, B, T,
+                                          seed=5)
+    args = tuple(t.transpose(1, 2).contiguous()
+                 for t in (c, b, v, log_a)) + (state, chunk)
+    H, N, Dh = c.shape[2], c.shape[3], v.shape[3]
+    bound, bound_by, peak = ssd_bound(B, H, T, N, Dh, chunk,
+                                      c.element_size())
+    return {"ms": time_ms(torch, lambda: fused_ssd_chunks(*args)),
+            "device_ms": device_ms(torch, lambda: fused_ssd_chunks(*args),
+                                   "ssd_scan_kernel"),
+            "plain_ms": time_ms(torch, lambda: _chunked_reference(*args),
+                                iters=5),
+            "bound_ms": bound, "bound_by": bound_by, "peak": peak,
+            "library_ms": None}
+
+
+def device_ms(torch, fn, name, iters=20):
+    """Device time per launch of the kernels named `name` over `iters`
+    calls of `fn`, from torch.profiler (no host time in it)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ms, n) for ms, n, key in device_rows(torch, prof) if name in key]
+    launches = sum(n for _, n in rows)
+    return sum(ms for ms, _ in rows) / launches if launches else math.nan
+
+
+def ssd_workload(rng, vocab):
+    """8 prompts of mixed lengths (tails of every size against the 64
+    slice, one shorter than a slice, one a multiple of it); max_new puts
+    every final position past the 256 ceiling."""
+    lengths = (5, 64, 70, 100, 131, 150, 200, 255)
+    return [rng.integers(1, vocab, n) for n in lengths], 290
+
+
+def phase_ssd_exact(torch, device, card):
+    """The pure-SSD model in f32 through `cache_layout='ssd'`: streams past
+    the 256 ceiling token-exact against `generate`, one kernel launch per
+    layer per prefill slice."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = ssd_model_config(torch, torch.float32, 256)
+    model = TransformerLM(cfg, device=device, seed=4)
+    engine = DecodeEngine(model, slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                          cache_layout="ssd", device=device)
+    if not engine.unbounded or engine.tail_bucket < 2:
+        fail(f"ssd exact: engine unbounded={engine.unbounded}, tail bucket "
+             f"{engine.tail_bucket}")
+    engine.warmup()
+    prompts, max_new = ssd_workload(np.random.default_rng(4), cfg.vocab_size)
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    slices = engine.step_counts["prefill_chunk"]
+    launched = counts["ssd_scan"]
+    if launched != cfg.num_layers * slices:
+        fail(f"ssd exact: kernel launched {launched} times for {slices} "
+             f"multi-token prefill slices x {cfg.num_layers} layers")
+    if min(len(p) for p in prompts) + max_new <= engine.max_seq_len:
+        fail("ssd exact: a stream ends under the ceiling")
+    ties = check_streams(torch, model, prompts, requests, max_new, device,
+                         "ssd exact")
+    print(f"ssd exact: {len(requests)} requests (prompts "
+          f"{[len(p) for p in prompts]}, {max_new} new, ceiling "
+          f"{engine.max_seq_len}) token-exact vs generate (near ties "
+          f"{ties}), launches={launched} == {cfg.num_layers} x {slices} "
+          f"prefill slices, decode steps={engine.step_counts['decode']}, "
+          f"state bytes/slot={engine.state_bytes_per_slot()}, "
+          f"{seconds:.2f}s [{card}]", flush=True)
+
+
+def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
+                    max_new=128):
+    """The pure-SSD model in bf16 at the decode leg's shapes: tokens/s,
+    decode-step ms, a profiled window, and the kernel at a prefill slice
+    [1, 64] and at [8, 1024]. Returns (launches, the [1, 64] timing)."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = ssd_model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=5)
+    engine = DecodeEngine(model, slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                          cache_layout="ssd", device=device)
+    engine.warmup()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    launched = counts["ssd_scan"]
+    want = cfg.num_layers * engine.step_counts["prefill_chunk"]
+    if launched != want or launched < 1:
+        fail(f"ssd serve: kernel launched {launched} times, expected {want}")
+    for request in requests:
+        out = request.output
+        if out.shape != (prompt_len + max_new,) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            fail(f"ssd serve: request {request.uid} output malformed")
+    summary = scheduler.metrics.summary()
+    print(f"ssd serve bf16: {requests_n} requests x prompt {prompt_len} x "
+          f"{max_new} new, tokens/s={summary['tokens_per_sec']:.1f}, decode "
+          f"step p50={summary['itl_ms_p50']:.3f} ms, ttft p50="
+          f"{summary['ttft_ms_p50']:.1f} ms, {seconds:.2f}s, launches="
+          f"{launched} [{card}]", flush=True)
+    profile_serve(torch, engine, cfg.vocab_size, 8, prompt_len, 32, card)
+    timings = {}
+    for B, T in ((1, SSD_CHUNK), (8, 1024)):
+        t = time_ssd(torch, device, B, T, SSD_CHUNK)
+        timings[(B, T)] = t
+        print(f"ssd kernel bf16 [{B}, {T}] chunk {SSD_CHUNK}: ms="
+              f"{t['ms']:.4f} (device only {t['device_ms']:.4f}) bound_ms="
+              f"{t['bound_ms']:.6f} ({t['bound_by']}; "
+              f"{t['peak']}) plain_ms={t['plain_ms']:.4f} library: none (no "
+              f"single PyTorch call computes the chunked scan) [{card}]",
+              flush=True)
+    return launched, timings[(1, SSD_CHUNK)]
+
 
 def build_all():
     """nvcc for every kernel source at once; prints each build's
     register and spill lines."""
     from flashy_tpu_torch.ops import _build
-    names = ("paged_decode", "flash_attention")
+    names = ("paged_decode", "flash_attention", "ssd_scan")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(_build.build, name) for name in names]:
@@ -883,14 +1203,16 @@ def main() -> None:
     card = card_line()
 
     seconds = build_all()
-    print(f"build: both sources in {seconds:.1f}s on [{card}]", flush=True)
+    print(f"build: all sources in {seconds:.1f}s on [{card}]", flush=True)
 
     errors = check_kernels(torch, device, card)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash_errors = check_flash_kernels(torch, device, card)
+    ssd_errors = check_ssd_kernel(torch, device, card)
     phase_exact(torch, device, card)
+    phase_ssd_exact(torch, device, card)
 
     launches, timing = phase_serve(torch, device, card, kv_dtype="model",
                                    requests_n=16, prompt_len=128,
@@ -898,6 +1220,7 @@ def main() -> None:
     launches8, timing8 = phase_serve(torch, device, card, kv_dtype="int8",
                                      requests_n=8, prompt_len=64,
                                      max_new=32, label="int8 bf16")
+    ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
     split_counts = phase_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver = phase_train(torch, card, folder)
@@ -910,8 +1233,8 @@ def main() -> None:
                       "flash_bwd_dkv": split_counts["flash_bwd_dkv"]}
     print(f"kernels: paged_decode={launches}, "
           f"paged_decode_int8={launches8}, " + ", ".join(
-              f"{name}={flash_launches[name]}" for name in FLASH_REPLACES),
-          flush=True)
+              f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
+          + f", ssd_scan={ssd_launches}", flush=True)
     source = "flashy_tpu_torch/csrc/paged_decode.cu"
     kernels = [
         {"name": "paged_decode", "route": "cuda", "source": source,
@@ -936,6 +1259,13 @@ def main() -> None:
                         "max_abs_err": max(flash_errors["bfloat16"][name],
                                            main_errors[name]),
                         **flash_times[name]})
+    kernels.append({"name": "ssd_scan", "route": "cuda",
+                    "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+                    "launches": ssd_launches,
+                    "max_abs_err": ssd_errors["bfloat16"],
+                    **{key: ssd_timing[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

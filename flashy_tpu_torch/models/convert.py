@@ -3,24 +3,36 @@ this package's `TransformerLM` state dict.
 
 The JAX tree arrives as numpy arrays (`jax.tree.map(np.asarray, ...)`);
 leaves keep their layouts and stay f32, so a converted model computes
-the same function. Only per-layer dense-attention trees convert:
-scan-stacked, MoE and SSD trees raise.
+the same function. Per-layer trees convert, attention, SSD and hybrid
+stacks alike (each block's mixer from `mixer_pattern`); scan-stacked and
+MoE trees raise.
 """
 import typing as tp
 
 import numpy as np
 import torch
 
-from .transformer import TODO_DECODE_VARIANTS, TransformerConfig
+from .transformer import (TODO_DECODE_VARIANTS, TransformerConfig,
+                          mixer_pattern)
 
 # Per-block leaves: (path in the flax tree, name in the state dict,
-# expected shape from the config).
+# expected shape from the config), by the block's mixer.
+_MIXER_LEAVES = {
+    "attention": (
+        (("attn", "qkv", "kernel"), "attn.qkv.kernel",
+         lambda c: (c.dim, 3, c.num_heads, c.head_dim)),
+        (("attn", "out", "kernel"), "attn.out.kernel",
+         lambda c: (c.num_heads, c.head_dim, c.dim))),
+    "ssd": (
+        (("ssd", "cbv", "kernel"), "ssd.cbv.kernel",
+         lambda c: (c.dim, c.num_heads, 2 * c.ssd_state_dim + c.head_dim
+                    + 1)),
+        (("ssd", "dt_bias"), "ssd.dt_bias", lambda c: (c.num_heads,)),
+        (("ssd", "out", "kernel"), "ssd.out.kernel",
+         lambda c: (c.num_heads, c.head_dim, c.dim))),
+}
 _BLOCK_LEAVES = (
     (("norm1", "scale"), "norm1.scale", lambda c: (c.dim,)),
-    (("attn", "qkv", "kernel"), "attn.qkv.kernel",
-     lambda c: (c.dim, 3, c.num_heads, c.head_dim)),
-    (("attn", "out", "kernel"), "attn.out.kernel",
-     lambda c: (c.num_heads, c.head_dim, c.dim)),
     (("norm2", "scale"), "norm2.scale", lambda c: (c.dim,)),
     (("mlp", "up", "kernel"), "mlp.up.kernel",
      lambda c: (c.dim, 2 * c.dim * c.mlp_ratio)),
@@ -60,16 +72,20 @@ def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
             f"{TODO_DECODE_VARIANTS}")
     state = {"embed": _leaf(tree, ("embed",), (cfg.vocab_size, cfg.dim), ""),
              "norm_f.scale": _leaf(tree, ("norm_f", "scale"), (cfg.dim,), "")}
-    for i in range(cfg.num_layers):
+    for i, mixer in enumerate(mixer_pattern(cfg)):
         name = f"block_{i}"
         block = tree.get(name)
         if not isinstance(block, tp.Mapping):
             raise KeyError(f"JAX params have no {name}")
-        extra = set(block) - {"norm1", "attn", "norm2", "mlp"}
-        if extra:
+        if "moe" in block:
             raise NotImplementedError(
-                f"{name} holds {sorted(extra)}: MoE / SSD blocks are not "
-                f"ported yet: {TODO_DECODE_VARIANTS}")
-        for path, key, shape in _BLOCK_LEAVES:
+                f"{name} holds an MoE block, which is not ported yet: "
+                f"{TODO_DECODE_VARIANTS}")
+        leaves = _BLOCK_LEAVES + _MIXER_LEAVES[mixer]
+        extra = set(block) - {path[0] for path, _, _ in leaves}
+        if extra:
+            raise ValueError(f"{name} holds {sorted(extra)}, which a "
+                             f"{mixer!r} block of this config does not")
+        for path, key, shape in leaves:
             state[f"{name}.{key}"] = _leaf(block, path, shape(cfg), name)
     return state

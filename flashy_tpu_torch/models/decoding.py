@@ -1,12 +1,16 @@
 """KV-cache decoding for the port's TransformerLM (port of
-flashy_tpu/models/decoding.py, dense per-layer models only).
+flashy_tpu/models/decoding.py, per-layer models: attention, SSD and
+hybrid stacks).
 
 `generate` is the oracle the paged serving engine is held to, on the
 CPU and on the card: it reads its dense `[B, max_len, H, Dh]` cache with
 plain einsums, no kernel. PyTorch runs eagerly, so the JAX package's
 `lax.scan` token loop becomes a Python loop, and cache writes update
 the cache tensors in place instead of returning fresh arrays (one cache
-allocation per call instead of one per step).
+allocation per call instead of one per step). SSD layers keep one
+[B, H, Dh, N] f32 state instead of K/V slabs: a multi-token call runs
+the chunked scan (the Hopper SSD kernel on CUDA), a one-token call the
+recurrence.
 
 The step functions read a nested parameter dict shaped like the JAX
 tree (`decode_params`), with the matmul kernels already cast to the
@@ -18,9 +22,12 @@ import numpy as np
 import torch
 
 from ..ops.attention import score_scale
+from ..ops.ssd_scan import ssd_chunked_scan, ssd_recurrent_scan
 from ..utils import check_same_device, resolve_device
+from .ssd import ssd_projections
 from .transformer import (TransformerConfig, TransformerLM, _rotary,
-                          check_supported, rmsnorm as _rmsnorm)
+                          check_supported, mixer_pattern,
+                          rmsnorm as _rmsnorm)
 
 
 def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
@@ -47,25 +54,38 @@ def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
             block = getattr(model, f"block_{i}")
             p[f"block_{i}"] = {
                 "norm1": {"scale": block.norm1.scale.detach()},
-                "attn": {"qkv": kernel(block.attn.qkv),
-                         "out": kernel(block.attn.out)},
                 "norm2": {"scale": block.norm2.scale.detach()},
                 "mlp": {"up": kernel(block.mlp.up),
                         "down": kernel(block.mlp.down)}}
+            if block.mixer == "ssd":
+                p[f"block_{i}"]["ssd"] = {
+                    "cbv": kernel(block.ssd.cbv),
+                    "dt_bias": block.ssd.dt_bias.detach(),
+                    "out": kernel(block.ssd.out)}
+            else:
+                p[f"block_{i}"]["attn"] = {"qkv": kernel(block.attn.qkv),
+                                           "out": kernel(block.attn.out)}
     return p
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device: tp.Any) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
     """Zeroed dense cache: one {'k', 'v'} [B, max_len, H, Dh] slab pair
-    per attention layer, in the compute dtype."""
+    per attention layer, in the compute dtype, and one {'ssd'} f32
+    state [B, H, Dh, N] per SSD layer (no max_len dimension)."""
     check_supported(cfg)
     shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
-    return {f"block_{i}": {"k": torch.zeros(shape, dtype=cfg.dtype,
-                                            device=device),
-                           "v": torch.zeros(shape, dtype=cfg.dtype,
-                                            device=device)}
-            for i in range(cfg.num_layers)}
+    sshape = (batch, cfg.num_heads, cfg.head_dim, cfg.ssd_state_dim)
+
+    def entry(mixer):
+        if mixer == "ssd":
+            return {"ssd": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)}
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    return {f"block_{i}": entry(mixer)
+            for i, mixer in enumerate(mixer_pattern(cfg))}
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
@@ -126,6 +146,46 @@ def _gated_mlp(bp_mlp: tp.Dict, normed: torch.Tensor,
         @ bp_mlp["down"]["kernel"]
 
 
+def _ssd_mixer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
+                       state: torch.Tensor,
+                       token_mask: tp.Optional[torch.Tensor],
+                       state_mask: tp.Optional[torch.Tensor]):
+    """Pre-norm SSD mixer against the resident [B, H, Dh, N] f32 state.
+
+    Returns (x + mixer_out, new_state). A one-token call (a decode tick)
+    advances the recurrence; a multi-token call (a prefill slice) runs
+    the chunked form, whose fixed chunk tiling makes any chunk-aligned
+    split of a stream bit-identical to one call. `token_mask` [B, S]
+    keeps right-padded tokens out of the state; `state_mask` [B] False
+    freezes a row's state (the engine's inactive slots).
+    """
+    normed = _rmsnorm(x, bp["norm1"]["scale"], cfg.dtype)
+    c, b, v, log_a = ssd_projections(cfg, normed, bp["ssd"]["cbv"]["kernel"],
+                                     bp["ssd"]["dt_bias"])
+    if x.shape[1] == 1:
+        y, new_state = ssd_recurrent_scan(c, b, v, log_a, state)
+    else:
+        y, new_state = ssd_chunked_scan(
+            c, b, v, log_a, state=state, chunk=cfg.ssd_chunk or None,
+            token_mask=token_mask, kernel=cfg.ssd_kernel)
+    if state_mask is not None:
+        new_state = torch.where(state_mask[:, None, None, None], new_state,
+                                state)
+    out = torch.einsum("bthd,hdD->btD", y, bp["ssd"]["out"]["kernel"])
+    return x + out, new_state
+
+
+def _ssd_layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
+                       state: torch.Tensor,
+                       token_mask: tp.Optional[torch.Tensor] = None,
+                       state_mask: tp.Optional[torch.Tensor] = None):
+    """One SSD block against the resident state: returns (x, state)."""
+    x, state = _ssd_mixer_forward(cfg, bp, x, state, token_mask,
+                                  state_mask)
+    normed = _rmsnorm(x, bp["norm2"]["scale"], cfg.dtype)
+    return x + _gated_mlp(bp["mlp"], normed, cfg.dtype), state
+
+
 def _layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
                    positions: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor,
@@ -156,15 +216,31 @@ def _head_logits(p: tp.Dict, x: torch.Tensor,
 
 def _apply_step(params: tp.Dict, cfg: TransformerConfig,
                 tokens: torch.Tensor, positions: torch.Tensor,
-                cache: tp.Dict, cache_index: tp.Union[int, torch.Tensor]):
+                cache: tp.Dict, cache_index: tp.Union[int, torch.Tensor], *,
+                token_mask: tp.Optional[torch.Tensor] = None,
+                state_mask: tp.Optional[torch.Tensor] = None):
     """Forward `tokens` [B, S] at `positions` [B, S], reading and writing
-    the dense cache in place; returns (f32 logits [B, S, V], cache)."""
+    the cache in place; returns (f32 logits [B, S, V], cache).
+
+    SSD layers, recognized by their {'ssd'} cache entry, advance their
+    state instead (`_ssd_mixer_forward`); the new state is copied into
+    the entry's tensor, so a cache of views into a larger one (the
+    engine's slot rows) is updated where it lies. `token_mask` and
+    `state_mask` apply to SSD layers only: attention layers ignore
+    padded and parked rows through their positions.
+    """
     x = _embed_tokens(params, tokens, cfg.dtype)
     for layer in range(cfg.num_layers):
         name = f"block_{layer}"
+        entry = cache[name]
+        if "ssd" in entry:
+            x, state = _ssd_layer_forward(cfg, params[name], x, entry["ssd"],
+                                          token_mask, state_mask)
+            entry["ssd"].copy_(state)
+            continue
         x, k_cache, v_cache = _layer_forward(
-            cfg, params[name], x, positions, cache[name]["k"],
-            cache[name]["v"], cache_index)
+            cfg, params[name], x, positions, entry["k"], entry["v"],
+            cache_index)
         cache[name] = {"k": k_cache, "v": v_cache}
     return _head_logits(params, x, cfg), cache
 
@@ -184,7 +260,9 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
              temperature: float = 0.0, eos_token: tp.Optional[int] = None,
              generator: tp.Optional[torch.Generator] = None,
              device: tp.Any = None) -> torch.Tensor:
-    """Autoregressive generation with a dense KV cache.
+    """Autoregressive generation with a dense KV cache (and SSD states).
+    A pure-SSD stack may run past `config.max_seq_len`: none of its
+    state grows with the context.
 
     Args:
         model: a TransformerLM living on `device`.
@@ -212,7 +290,8 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
                              else prompt, device=device)
     batch, prompt_len = prompt.shape
     total = prompt_len + max_new_tokens
-    if total > cfg.max_seq_len:
+    if total > cfg.max_seq_len and "attention" in mixer_pattern(cfg):
+        # a pure-SSD stack has no length-dependent state: nothing caps T
         raise ValueError(f"prompt + new tokens {total} > max_seq_len "
                          f"{cfg.max_seq_len}")
     params = decode_params(model)

@@ -5,8 +5,11 @@ cross over leaf for leaf (`models.convert.params_from_jax`):
 
     embed                  [V, D]          f32 (also the tied head)
     block_i.norm1.scale    [D]
-    block_i.attn.qkv.kernel [D, 3, H, Dh]
+    block_i.attn.qkv.kernel [D, 3, H, Dh]   (attention layers)
     block_i.attn.out.kernel [H, Dh, D]
+    block_i.ssd.cbv.kernel [D, H, 2N+Dh+1]  (SSD layers, `models.ssd`)
+    block_i.ssd.dt_bias    [H]
+    block_i.ssd.out.kernel [H, Dh, D]
     block_i.norm2.scale    [D]
     block_i.mlp.up.kernel  [D, 2F]
     block_i.mlp.down.kernel [F, D]
@@ -17,6 +20,9 @@ accumulate in f32 and the tied head accumulates in f32. With
 `attention='flash'` every attention call on a CUDA tensor runs the
 Hopper flash kernels (`ops.attention.flash_attention`); `segment_ids`
 (packed batches) take the dense masked path, as in the JAX package.
+`mixer` picks each layer's sequence mixer ('attention', 'ssd' or a
+comma-separated pattern cycled over the depth); SSD layers run the
+chunked scan, on CUDA through the Hopper SSD kernel.
 """
 import dataclasses
 import math
@@ -32,7 +38,7 @@ from ..utils import resolve_device
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
 TODO_REMAT_POLICY = "ROADMAP.md queue A item 2, T1 (remat 'dots' policies)"
 TODO_DROPOUT = "ROADMAP.md queue A item 2, T2 (dropout)"
-TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (MoE / SSD / "
+TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (MoE / "
                         "scan-stacked decode)")
 TODO_RING = "ROADMAP.md queue B row 8 (ring attention, multi-GPU)"
 
@@ -53,10 +59,14 @@ class TransformerConfig:
     dropout: float = 0.0         # > 0 is not ported (check_supported)
     # layouts the JAX package has and the port does not yet: setting
     # them raises NotImplementedError (check_supported); their other
-    # fields (moe_top_k, ssd_state_dim, ...) arrive with them
+    # fields (moe_top_k, ...) arrive with them
     moe_experts: int = 0
     scan_layers: bool = False
-    mixer: str = "attention"
+    mixer: str = "attention"     # 'attention', 'ssd' or a pattern such
+                                 # as 'ssd,attention' (mixer_pattern)
+    ssd_state_dim: int = 16      # Dstate of SSD layers ([H, Dh, Dstate])
+    ssd_chunk: int = 0           # chunked-form chunk; 0 = default_chunk
+    ssd_kernel: str = "auto"     # 'auto' | 'gather' | 'fused'
 
     @property
     def head_dim(self) -> int:
@@ -80,9 +90,7 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             f"moe_experts > 0 is not ported yet: {TODO_DECODE_VARIANTS}")
-    if "ssd" in mixer_pattern(cfg):
-        raise NotImplementedError(
-            f"SSD mixer layers are not ported yet: {TODO_DECODE_VARIANTS}")
+    mixer_pattern(cfg)  # raises on an unknown mixer name
     if cfg.scan_layers:
         raise NotImplementedError(
             f"scan_layers=True is not ported yet: {TODO_DECODE_VARIANTS}")
@@ -208,18 +216,27 @@ class MLPBlock(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm block; its mixer submodule is `ssd` or `attn`, as in the
+    flax tree."""
+
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, mixer: str = "attention"):
         super().__init__()
+        self.mixer = mixer
         self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
-        self.attn = Attention(cfg, generator, device)
+        if mixer == "ssd":
+            from .ssd import SSDMixer
+            self.ssd = SSDMixer(cfg, generator, device)
+        else:
+            self.attn = Attention(cfg, generator, device)
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
         self.mlp = MLPBlock(cfg, generator, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), positions, segment_ids)
+        mix = self.ssd if self.mixer == "ssd" else self.attn
+        x = x + mix(self.norm1(x), positions, segment_ids)
         return x + self.mlp(self.norm2(x))
 
 
@@ -244,8 +261,9 @@ class TransformerLM(nn.Module):
         generator = torch.Generator(device=device).manual_seed(seed)
         self.embed = _param((config.vocab_size, config.dim), 0.02,
                             generator, device)
-        for i in range(config.num_layers):
-            setattr(self, f"block_{i}", Block(config, generator, device))
+        for i, mixer in enumerate(mixer_pattern(config)):
+            setattr(self, f"block_{i}", Block(config, generator, device,
+                                              mixer))
         self.norm_f = RMSNorm(config.dim, config.dtype, device)
 
     @property
@@ -262,7 +280,9 @@ class TransformerLM(nn.Module):
         padding) makes attention segment-aware for packed batches; pass
         the packer's per-segment `positions` with them."""
         cfg = self.config
-        if tokens.shape[1] > cfg.max_seq_len:
+        if tokens.shape[1] > cfg.max_seq_len \
+                and "attention" in mixer_pattern(cfg):
+            # nothing in a pure-SSD stack caps T
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
                 f"config.max_seq_len={cfg.max_seq_len}")

@@ -1,5 +1,6 @@
-"""Slot-based decode engine over a paged KV pool (port of
-flashy_tpu/serve/engine.py, `cache_layout='paged'`).
+"""Slot-based decode engine over a paged KV pool or resident SSD states
+(port of flashy_tpu/serve/engine.py, `cache_layout='paged'` and, for
+pure-SSD stacks, `'ssd'`).
 
 S slots share one block pool; ONE decode step of shape [S, 1] advances
 every live slot together, an active mask (not a shape) expressing
@@ -7,7 +8,10 @@ liveness. Prompts prefill in fixed `[1, chunk]` slices that the
 scheduler interleaves with decode steps, and attend earlier (possibly
 prefix-shared) blocks through the slot's table row. Every paged read
 goes through `serve.paged.paged_apply_step`, which on CUDA launches the
-Hopper paged-decode kernel (`kernel='fused'`, the default there).
+Hopper paged-decode kernel (`kernel='fused'`, the default there). On the
+ssd layout each slot holds one [H, Dh, N] f32 state per layer: prefill
+slices run the chunked scan (on CUDA the Hopper SSD kernel), decode the
+recurrence, and sessions may stream past `max_seq_len`.
 
 PyTorch runs eagerly, so the JAX package's compiled-step cache has no
 counterpart yet (CUDA graphs: ROADMAP.md queue A item 3, L3); the
@@ -19,17 +23,20 @@ import typing as tp
 import numpy as np
 import torch
 
-from ..models.decoding import decode_params, sample_tokens
-from ..models.transformer import check_supported
+from ..models.decoding import (_apply_step, decode_params, init_cache,
+                               sample_tokens)
+from ..models.transformer import check_supported, mixer_pattern
 from ..ops.paged_attention import block_bytes, init_pool
 from ..ops.paged_decode import default_kernel
+from ..ops.ssd_scan import ssd_state_bytes
 from ..utils import check_same_device, resolve_device
 from .compile_cache import bucket_length
 from .paged import BlockPool, CacheBox, copy_block_fn, paged_apply_step
 
 logger = logging.getLogger(__name__)
 
-TODO_LAYOUTS = "ROADMAP.md queue A item 3, L1 (dense / ssd layouts)"
+TODO_LAYOUTS = ("ROADMAP.md queue A item 3, L1 (the dense layout, and "
+                "hybrid ssd serving on its per-slot slabs)")
 TODO_SPECULATIVE = ("ROADMAP.md queue A item 3, L2 (speculative decode + "
                     "serve/draft.py)")
 
@@ -39,11 +46,14 @@ def state_bytes_per_slot(cfg: tp.Any, max_seq_len: int, cache_layout: str,
                          block_size: int = 16) -> int:
     """Decode-state bytes ONE slot reserves at `max_seq_len` (host
     arithmetic): the dense layout's per-layer [max_seq_len, H, Dh] K+V
-    slabs, or the paged layout's full block budget at `block_bytes`
-    (int8 pools count payload + scales)."""
+    slabs; the paged layout's full block budget at `block_bytes` (int8
+    pools count payload + scales); the ssd layout's fixed [H, Dh, N] f32
+    state per SSD layer, with no max_seq_len term, plus a dense slab per
+    attention layer of a hybrid stack."""
+    kv_slab = (2 * max_seq_len * cfg.num_heads * cfg.head_dim
+               * cfg.dtype.itemsize)
     if cache_layout == "dense":
-        return (2 * max_seq_len * cfg.num_heads * cfg.head_dim
-                * cfg.dtype.itemsize * cfg.num_layers)
+        return kv_slab * cfg.num_layers
     if cache_layout == "paged":
         if max_seq_len % block_size:
             raise ValueError(f"block_size {block_size} must divide "
@@ -51,7 +61,10 @@ def state_bytes_per_slot(cfg: tp.Any, max_seq_len: int, cache_layout: str,
         return (max_seq_len // block_size) * block_bytes(cfg, block_size,
                                                          kv_dtype)
     if cache_layout == "ssd":
-        raise NotImplementedError(f"the ssd layout: {TODO_LAYOUTS}")
+        state = ssd_state_bytes(cfg.num_heads, cfg.head_dim,
+                                cfg.ssd_state_dim)
+        return sum(state if m == "ssd" else kv_slab
+                   for m in mixer_pattern(cfg))
     raise ValueError(f"unknown cache_layout {cache_layout!r}")
 
 
@@ -96,7 +109,8 @@ class SlotAllocator:
 
 
 class DecodeEngine:
-    """S-slot paged KV pool + the prefill-chunk and decode steps over it.
+    """S slots over a paged KV pool (or resident SSD states) + the
+    prefill-chunk and decode steps over them.
 
     Args:
         model: a port `TransformerLM`; its weights are cast once to the
@@ -113,8 +127,13 @@ class DecodeEngine:
             `max_seq_len`.
         tail_bucket: the smaller slice used when the remaining prompt
             fits it; <= chunk.
-        spec_k: speculative decoding — not ported yet (raises).
-        cache_layout: 'paged' ('dense' / 'ssd' are not ported yet).
+        spec_k: speculative decoding — not ported yet (raises; on the
+            ssd layout a ValueError: a cumulative state has no rollback).
+        cache_layout: 'paged' for attention stacks, 'ssd' (required) for
+            pure-SSD stacks: per slot one [H, Dh, N] f32 state per
+            layer, `self.unbounded`, sessions may stream past
+            `max_seq_len`, which then only sizes chunking. 'dense' and
+            hybrid stacks are not ported yet (raise).
         block_size: tokens per pool block; must divide `max_seq_len`.
         num_blocks: pool size including the sentinel; defaults to every
             slot at `max_seq_len`.
@@ -122,8 +141,10 @@ class DecodeEngine:
             payloads + f32 scales).
         kernel: the paged READ: 'fused' (the Hopper kernel; CUDA only),
             'gather' (its plain version) or 'auto' ('fused' on CUDA,
-            'gather' on the CPU).
-        prefix_cache: enable cross-request prefix sharing.
+            'gather' on the CPU). The ssd layout has no paged read
+            ('auto' reads 'gather'); its scan kernel follows
+            `config.ssd_kernel`.
+        prefix_cache: enable cross-request prefix sharing (paged).
         device: `cuda` by default; the CPU only when asked for.
     """
 
@@ -147,12 +168,45 @@ class DecodeEngine:
         check_same_device("model", model.embed, self.device)
         self._cfg = cfg = model.config
         check_supported(cfg)
-        if cache_layout in ("dense", "ssd"):
-            raise NotImplementedError(
-                f"cache_layout={cache_layout!r}: {TODO_LAYOUTS}")
-        if cache_layout != "paged":
+        if cache_layout not in ("dense", "paged", "ssd"):
             raise ValueError(f"cache_layout must be 'dense', 'paged' or "
                              f"'ssd', got {cache_layout!r}")
+        pattern = mixer_pattern(cfg)
+        if "ssd" in pattern and cache_layout != "ssd":
+            raise ValueError(
+                f"the model's mixer pattern {pattern} contains SSD layers, "
+                f"whose decode state is a resident per-slot tensor, not "
+                f"positioned K/V rows: serve it with cache_layout='ssd' "
+                f"(got {cache_layout!r})")
+        if cache_layout == "ssd":
+            if "ssd" not in pattern:
+                raise ValueError(
+                    f"cache_layout='ssd' needs at least one SSD layer in "
+                    f"the model's mixer pattern, got {pattern}")
+            if spec_k is not None:
+                raise ValueError(
+                    "speculative decoding is not supported with SSD layers: "
+                    "the recurrence state is cumulative, so rejected draft "
+                    "tokens cannot be rolled back")
+            if "attention" in pattern:
+                raise NotImplementedError(
+                    f"a hybrid stack {pattern} on cache_layout='ssd' keeps "
+                    f"dense per-slot K/V slabs beside its states: "
+                    f"{TODO_LAYOUTS}")
+            if kv_dtype != "model":
+                raise ValueError("kv_dtype='int8' requires the paged cache "
+                                 "layout")
+            if kernel == "fused":
+                raise ValueError("kernel='fused' is the paged pool read; "
+                                 "the ssd layout has none (its scan kernel "
+                                 "follows config.ssd_kernel)")
+        if cache_layout == "dense":
+            raise NotImplementedError(
+                f"cache_layout='dense': {TODO_LAYOUTS}")
+        # a pure-SSD stack (the only one the ssd layout takes here) holds
+        # nothing per slot that grows with the context: sessions may
+        # stream past max_seq_len
+        self.unbounded = cache_layout == "ssd"
         if spec_k is not None:
             raise NotImplementedError(f"spec_k: {TODO_SPECULATIVE}")
         if kv_dtype not in ("model", "int8"):
@@ -168,8 +222,10 @@ class DecodeEngine:
                 f"kernel='fused' cannot run here: the paged decode kernel "
                 f"is CUDA-only and the engine's device is {self.device}; "
                 f"use kernel='gather' (or 'auto')")
-        self.kernel = default_kernel(self.device) if kernel == "auto" \
-            else kernel
+        if kernel == "auto":
+            kernel = default_kernel(self.device) if cache_layout == "paged" \
+                else "gather"
+        self.kernel = kernel
         self.slots = slots
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
                                cfg.max_seq_len)
@@ -194,23 +250,32 @@ class DecodeEngine:
             raise ValueError(f"tail_bucket must be in [1, chunk], got "
                              f"{self.tail_bucket} (chunk {self.chunk})")
         self.allocator = SlotAllocator(slots)
-        if num_blocks is None:
-            num_blocks = 1 + slots * (self.max_seq_len // self.block_size)
-        self.num_blocks = int(num_blocks)
-        self._pool = BlockPool(num_blocks=self.num_blocks,
-                               block_size=self.block_size,
-                               max_seq_len=self.max_seq_len,
-                               prefix_cache=prefix_cache)
         self._params = decode_params(model)
-        self._cache_box = CacheBox(init_pool(
-            cfg, self.num_blocks, self.block_size, kv_dtype,
-            device=self.device))
-        self._copy = copy_block_fn()
-        self._block_bytes = block_bytes(cfg, self.block_size, kv_dtype)
-        self._table_host = np.zeros((slots, self._pool.max_blocks), np.int32)
-        self._table_dev = torch.from_numpy(self._table_host).to(self.device)
-        self._table_dirty = False
-        # attention reads made, by step kind (each runs num_layers reads)
+        self._pool: tp.Optional[BlockPool] = None
+        if cache_layout == "ssd":
+            self._cache_box = CacheBox(init_cache(cfg, slots, 0,
+                                                  self.device))
+        else:
+            if num_blocks is None:
+                num_blocks = 1 + slots * (self.max_seq_len
+                                          // self.block_size)
+            self.num_blocks = int(num_blocks)
+            self._pool = BlockPool(num_blocks=self.num_blocks,
+                                   block_size=self.block_size,
+                                   max_seq_len=self.max_seq_len,
+                                   prefix_cache=prefix_cache)
+            self._cache_box = CacheBox(init_pool(
+                cfg, self.num_blocks, self.block_size, kv_dtype,
+                device=self.device))
+            self._copy = copy_block_fn()
+            self._block_bytes = block_bytes(cfg, self.block_size, kv_dtype)
+            self._table_host = np.zeros((slots, self._pool.max_blocks),
+                                        np.int32)
+            self._table_dev = torch.from_numpy(self._table_host).to(
+                self.device)
+            self._table_dirty = False
+        # steps made, by kind (each runs num_layers paged reads or, on
+        # the ssd layout, num_layers SSD layers)
         self.step_counts = {"decode": 0, "prefill_chunk": 0}
         self._reset_slot_state()
 
@@ -233,7 +298,8 @@ class DecodeEngine:
         return self._cache_box.value
 
     @property
-    def pool(self) -> BlockPool:
+    def pool(self) -> tp.Optional[BlockPool]:
+        """The block pool (None on the ssd layout)."""
         return self._pool
 
     @property
@@ -266,10 +332,18 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _decode_step(self) -> torch.Tensor:
-        logits, _ = paged_apply_step(
-            self._params, self._cfg, self._tokens[:, None],
-            self._positions[:, None], self._cache, self._table(),
-            kernel=self.kernel)
+        if self._pool is None:
+            # `active` freezes the state of every slot that is not live:
+            # free, or mid-prefill with its state half built
+            logits, _ = _apply_step(
+                self._params, self._cfg, self._tokens[:, None],
+                self._positions[:, None], self._cache, self._positions,
+                state_mask=self._active)
+        else:
+            logits, _ = paged_apply_step(
+                self._params, self._cfg, self._tokens[:, None],
+                self._positions[:, None], self._cache, self._table(),
+                kernel=self.kernel)
         nxt = sample_tokens(logits[:, -1], self.temperature,
                             self._generator)
         return torch.where(self._active, nxt,
@@ -278,7 +352,8 @@ class DecodeEngine:
     def warmup(self) -> None:
         """Build the paged-decode kernel (on CUDA) and run one decode over
         all-sentinel tables: every slot is parked, so the step's writes
-        land in the sentinel block. Call before admitting requests."""
+        land in the sentinel block (on the ssd layout, every state is
+        frozen). Call before admitting requests."""
         if self.allocator.live_count:
             raise ValueError("warmup() runs before any slot is live")
         self._decode_step()
@@ -293,7 +368,10 @@ class DecodeEngine:
 
     def can_admit(self, prompt: np.ndarray, max_new_tokens: int) -> bool:
         """Whether the pool can reserve this request's whole budget now
-        (net of its prefix-cache credit)."""
+        (net of its prefix-cache credit); always on the ssd layout, where
+        the slot is the reservation."""
+        if self._pool is None:
+            return True
         return self._pool.can_admit(np.asarray(prompt, np.int32),
                                     max_new_tokens)
 
@@ -305,10 +383,13 @@ class DecodeEngine:
         device block copy for a copy-on-write fork), fills the slot's
         table row, and returns the prompt tokens served from the cache
         (always < len(prompt)). Raises PoolExhausted, with nothing
-        changed, when the pool lacks headroom.
+        changed, when the pool lacks headroom. On the ssd layout there
+        is nothing to reserve: prefill starts at 0.
         """
         if slot not in self.allocator.live:
             raise ValueError(f"slot {slot} was not acquired")
+        if self._pool is None:
+            return 0
         prompt = np.asarray(prompt, np.int32)
         plan = self._pool.plan(prompt, max_new_tokens)
         row, start, cow = self._pool.commit(plan, slot)
@@ -318,9 +399,11 @@ class DecodeEngine:
             self._copy(self._cache, *cow)
         return start
 
-    def pool_stats(self) -> tp.Dict[str, float]:
+    def pool_stats(self) -> tp.Optional[tp.Dict[str, float]]:
         """Block-pool counters plus `kv_bytes_per_token`, the pool bytes
-        reserved per live token."""
+        reserved per live token (None on the ssd layout)."""
+        if self._pool is None:
+            return None
         stats = self._pool.stats()
         live_tokens = int(sum(self._positions_host[self._active_host]))
         stats["kv_bytes_per_token"] = (
@@ -342,7 +425,9 @@ class DecodeEngine:
 
         Returns `(next_start, first_token)`; `first_token` is None until
         the final slice, when the slot goes live. Pad rows past the
-        prompt write at positions past every causal horizon.
+        prompt write at positions past every causal horizon; on the ssd
+        layout a token mask keeps them out of the state, and the slice
+        at `start == 0` zeroes the slot's states first (a fresh request).
         """
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
@@ -351,7 +436,7 @@ class DecodeEngine:
         if slot not in self.allocator.live:
             raise ValueError(f"slot {slot} was not acquired")
         length = int(prompt.size)
-        if length > self.max_seq_len:
+        if length > self.max_seq_len and not self.unbounded:
             raise ValueError(f"prompt length {length} exceeds "
                              f"max_seq_len {self.max_seq_len}")
         if not 0 <= start < length:
@@ -366,19 +451,39 @@ class DecodeEngine:
         padded[0, :used] = prompt[start:start + used]
         tokens = torch.from_numpy(padded).to(self.device)
         positions = (start + torch.arange(size, device=self.device))[None]
-        row = self._table()[slot:slot + 1]
-        logits, _ = paged_apply_step(self._params, self._cfg, tokens,
-                                     positions, self._cache, row,
-                                     kernel=self.kernel)
+        if self._pool is None:
+            logits = self._ssd_prefill(slot, tokens, positions, start, used)
+        else:
+            row = self._table()[slot:slot + 1]
+            logits, _ = paged_apply_step(self._params, self._cfg, tokens,
+                                         positions, self._cache, row,
+                                         kernel=self.kernel)
         self.step_counts["prefill_chunk"] += 1
         if not final:
             return start + used, None
         first = int(sample_tokens(logits[0, used - 1:used], self.temperature,
                                   self._generator)[0])
-        # prompt fully written: index its full blocks for sharing
-        self._pool.on_live(slot)
+        if self._pool is not None:
+            # prompt fully written: index its full blocks for sharing
+            self._pool.on_live(slot)
         self._set_slot(slot, first, length, True)
         return start + used, first
+
+    def _ssd_prefill(self, slot: int, tokens: torch.Tensor,
+                     positions: torch.Tensor, start: int,
+                     used: int) -> torch.Tensor:
+        """One prefill slice against the slot's rows of the resident
+        states, updated in place through views; returns the logits."""
+        mini = {name: {"ssd": entry["ssd"][slot:slot + 1]}
+                for name, entry in self._cache.items()}
+        if start == 0:
+            for entry in mini.values():
+                entry["ssd"].zero_()
+        mask = (torch.arange(tokens.shape[1], device=self.device)
+                < used)[None]
+        logits, _ = _apply_step(self._params, self._cfg, tokens, positions,
+                                mini, start, token_mask=mask)
+        return logits
 
     def decode(self) -> np.ndarray:
         """One [S, 1] decode step over every slot; returns the [S] next
@@ -399,7 +504,7 @@ class DecodeEngine:
         drop its block refcounts; prompt blocks the prefix index caches
         stay resident for later admissions."""
         self._park(slot)
-        if self._pool.holds(slot):
+        if self._pool is not None and self._pool.holds(slot):
             self._pool.release(slot)
             self._table_host[slot] = 0
             self._table_dirty = True
@@ -412,7 +517,7 @@ class DecodeEngine:
         if slot not in self.allocator.live:
             raise ValueError(f"slot {slot} is not live")
         self._park(slot)
-        if self._pool.holds(slot):
+        if self._pool is not None and self._pool.holds(slot):
             self._pool.evict_slot(slot)
             self._table_host[slot] = 0
             self._table_dirty = True

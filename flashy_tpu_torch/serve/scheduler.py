@@ -7,8 +7,9 @@ first, FIFO among equals, under a hard queue-depth cap (`QueueFull` is
 the backpressure signal). On the paged engine admission also waits for
 block-pool headroom; a blocked higher-priority request preempts a
 strictly-lower running one, which re-queues with its tokens kept and
-resumes token-exact. Prompts prefill in fixed slices interleaved with
-decode steps.
+resumes token-exact. The ssd layout has no pool, and an unbounded
+(pure-SSD) engine no length ceiling at the door. Prompts prefill in
+fixed slices interleaved with decode steps.
 
 Left out for later slices (ROADMAP.md queue A item 3): speculative
 drafts (L2), request tracing (L5), the chaos fault point (L6), and the
@@ -146,7 +147,8 @@ class ContinuousBatchingScheduler:
 
         Raises QueueFull at the depth cap and ValueError for a request
         that could never fit (`prompt + max_new_tokens` beyond
-        `max_seq_len`), so it fails at the door. `ttl` (seconds) bounds
+        `max_seq_len`; an unbounded pure-SSD engine has no such ceiling),
+        so it fails at the door. `ttl` (seconds) bounds
         the queue wait; `priority` picks the admission class (higher
         first, may preempt strictly-lower running requests).
         """
@@ -163,7 +165,7 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
         total = prompt.size + max_new_tokens
-        if total > self.engine.max_seq_len:
+        if not self.engine.unbounded and total > self.engine.max_seq_len:
             raise ValueError(
                 f"prompt + max_new_tokens = {total} exceeds the "
                 f"engine's max_seq_len {self.engine.max_seq_len}")
@@ -292,7 +294,8 @@ class ContinuousBatchingScheduler:
                 self.engine.allocator.release(slot)
                 self._queue.appendleft(request)
                 break
-            self.metrics.on_prefix(start, int(prompt.size))
+            if self.engine.cache_layout == "paged":
+                self.metrics.on_prefix(start, int(prompt.size))
             request.slot = slot
             request.admitted_at = time.perf_counter()
             self.metrics.on_queue_wait(
@@ -354,8 +357,9 @@ class ContinuousBatchingScheduler:
                                live=self.engine.live_count,
                                capacity=self.engine.slots)
         pool = self.engine.pool_stats()
-        self.metrics.on_pool(occupancy=pool["occupancy"],
-                             bytes_per_token=pool["kv_bytes_per_token"])
+        if pool is not None:
+            self.metrics.on_pool(occupancy=pool["occupancy"],
+                                 bytes_per_token=pool["kv_bytes_per_token"])
         if not self._running:
             return 0
         step_start = time.perf_counter()

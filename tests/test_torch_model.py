@@ -52,12 +52,17 @@ def test_uncached_logits_match_jax():
 def test_unported_paths_raise_not_implemented():
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
                                                      TransformerLM)
+    from flashy_tpu_torch.serve.engine import DecodeEngine
     base = dict(TINY, dtype=torch.float32)
-    for bad in (dict(moe_experts=2), dict(mixer="ssd,attention"),
-                dict(scan_layers=True), dict(dropout=0.1),
-                dict(remat=True, remat_policy="dots")):
+    for bad in (dict(moe_experts=2), dict(scan_layers=True),
+                dict(dropout=0.1), dict(remat=True, remat_policy="dots")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(**base, **bad), device="cpu")
+    # a hybrid stack runs uncached; serving it needs the dense slabs (L1)
+    hybrid = TransformerLM(TransformerConfig(**base, mixer="ssd,attention"),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for attention in ("ring", "ring_fused"):
         model = TransformerLM(TransformerConfig(**base, attention=attention),

@@ -123,9 +123,10 @@ def test_engine_and_scheduler_guards():
     from flashy_tpu_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                                   QueueFull)
     _, _, model = tiny_pair()
-    for layout in ("dense", "ssd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecodeEngine(model, slots=2, cache_layout=layout, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(model, slots=2, cache_layout="dense", device="cpu")
+    with pytest.raises(ValueError, match="SSD layer"):
+        DecodeEngine(model, slots=2, cache_layout="ssd", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(model, slots=2, spec_k=2, device="cpu")
     with pytest.raises(ValueError, match="Generator"):

@@ -1,0 +1,373 @@
+# The port's SSD serving slice (flashy_tpu_torch: ops/ssd_scan.py,
+# models/ssd.py, the SSD decode path and DecodeEngine(cache_layout='ssd'))
+# held against the JAX package on the same numpy inputs and converted
+# weights, in f32 on the CPU, where the scan runs the kernel's plain
+# version. Tolerances: the chunked scan 1e-5 against both JAX paths
+# (the JAX gather path and its Pallas kernel in interpret mode differ
+# from each other by ~4e-7), the recurrence 1e-5, the port's two forms
+# against each other 1e-4, logits 1e-4; chaining and padding bitwise;
+# greedy streams token-exact. Every chunk is pinned on both sides.
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ._torch_port import TINY, jax_generate, tiny_pair
+
+SSD = dict(mixer="ssd", ssd_state_dim=8, ssd_chunk=8)
+HYBRID = dict(SSD, mixer="ssd,attention")
+VOCAB = 256
+
+
+def _inputs(batch=2, seq=29, heads=2, head_dim=8, dstate=4, seed=0):
+    """c, b, v [B, T, H, *] and f32 log-decays <= 0, as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    log_a = -np.logaddexp(draw(batch, seq, heads), 0).astype(np.float32)
+    return (draw(batch, seq, heads, dstate), draw(batch, seq, heads, dstate),
+            draw(batch, seq, heads, head_dim), log_a)
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+def _jax(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _scan_case(seed=0):
+    """Ragged T (29), a carried state, a reset sentinel at t=13 of row 0
+    and the last five tokens of row 1 padded."""
+    from flashy_tpu.ops.ssd_scan import SSD_LOG_RESET
+    c, b, v, log_a = _inputs(seed=seed)
+    log_a[0, 13] = SSD_LOG_RESET
+    state = np.random.default_rng(seed + 1).standard_normal(
+        (2, 2, 8, 4)).astype(np.float32)
+    mask = np.ones((2, 29), bool)
+    mask[1, -5:] = False
+    return c, b, v, log_a, state, mask
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 16, 32])
+def test_chunked_scan_matches_jax_gather_and_fused(chunk):
+    from flashy_tpu.ops.ssd_scan import ssd_chunked_scan as jax_scan
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a, state, mask = _scan_case(seed=chunk)
+    y, s = ssd_chunked_scan(*_torch(c, b, v, log_a), state=_torch(state)[0],
+                            chunk=chunk, token_mask=_torch(mask)[0])
+    real = mask[:, :, None, None]
+    for kw in ({"kernel": "gather"}, {"kernel": "fused", "interpret": True}):
+        scan = jax.jit(functools.partial(jax_scan, chunk=chunk, **kw))
+        y_j, s_j = scan(*_jax(c, b, v, log_a), state=jnp.asarray(state),
+                        token_mask=jnp.asarray(mask))
+        np.testing.assert_allclose(np.where(real, y.numpy(), 0),
+                                   np.where(real, np.asarray(y_j), 0),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_recurrent_scan_matches_jax():
+    from flashy_tpu.ops.ssd_scan import ssd_recurrent_scan as jax_rec
+    from flashy_tpu_torch.ops.ssd_scan import ssd_recurrent_scan
+    c, b, v, log_a, state, _ = _scan_case(seed=2)
+    y, s = ssd_recurrent_scan(*_torch(c, b, v, log_a, state))
+    y_j, s_j = jax.jit(jax_rec)(*_jax(c, b, v, log_a, state))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_dual_form_parity(chunk):
+    # chunked == recurrent: the same polynomial in another order
+    from flashy_tpu_torch.ops.ssd_scan import (ssd_chunked_scan,
+                                               ssd_recurrent_scan)
+    c, b, v, log_a = _torch(*_inputs(seed=3))
+    state = torch.zeros((2, 2, 8, 4))
+    y_rec, s_rec = ssd_recurrent_scan(c, b, v, log_a, state)
+    y, s = ssd_chunked_scan(c, b, v, log_a, state=state, chunk=chunk)
+    torch.testing.assert_close(y, y_rec, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_rec, atol=1e-4, rtol=1e-4)
+
+
+def test_chunk_chaining_is_bit_exact():
+    # a stream split at a chunk multiple, the state passed between the
+    # calls, is bit-equal to one call: why chunked prefill matches
+    # generate's single prefill
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a = _torch(*_inputs(seq=37, seed=4))
+    y, s = ssd_chunked_scan(c, b, v, log_a, chunk=8)
+    y_a, s_a = ssd_chunked_scan(c[:, :16], b[:, :16], v[:, :16],
+                                log_a[:, :16], chunk=8)
+    y_b, s_b = ssd_chunked_scan(c[:, 16:], b[:, 16:], v[:, 16:],
+                                log_a[:, 16:], state=s_a, chunk=8)
+    assert torch.equal(torch.cat([y_a, y_b], dim=1), y)
+    assert torch.equal(s_b, s)
+
+
+def test_token_mask_padding_is_exact():
+    # padded tokens zero b and log_a: a right-padded call carries exactly
+    # the state of the unpadded one (its real outputs are bit-equal too on
+    # the kernel, chip_smoke.py; here matmul blocking may differ by an ulp)
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a = _torch(*_inputs(seq=16, seed=5))
+    mask = (torch.arange(16) < 11)[None].expand(2, 16)
+    y_pad, s_pad = ssd_chunked_scan(c, b, v, log_a, chunk=8,
+                                    token_mask=mask)
+    y, s = ssd_chunked_scan(c[:, :11], b[:, :11], v[:, :11], log_a[:, :11],
+                            chunk=8)
+    assert torch.equal(s_pad, s)
+    torch.testing.assert_close(y_pad[:, :11], y, atol=1e-6, rtol=1e-6)
+
+
+def test_segment_reset_severs_state():
+    # SSD_LOG_RESET at t=6: the second segment equals itself run alone
+    # (exp of a direct sum holding -1e30 is exactly 0)
+    from flashy_tpu_torch.ops.ssd_scan import SSD_LOG_RESET, ssd_chunked_scan
+    c, b, v, log_a = _torch(*_inputs(seq=12, seed=6))
+    log_a[:, 6] = SSD_LOG_RESET
+    state = torch.randn((2, 2, 8, 4), generator=torch.Generator().manual_seed(0))
+    y, _ = ssd_chunked_scan(c, b, v, log_a, state=state, chunk=4)
+    y_alone, _ = ssd_chunked_scan(c[:, 6:], b[:, 6:], v[:, 6:],
+                                  log_a[:, 6:], chunk=4)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y[:, 6:], y_alone, atol=1e-5, rtol=1e-5)
+
+
+def test_default_chunk_and_state_bytes_match_jax():
+    from flashy_tpu.ops import ssd_scan as ref
+    from flashy_tpu_torch.ops import ssd_scan
+    assert ssd_scan.SSD_LOG_RESET == ref.SSD_LOG_RESET
+    assert ssd_scan.CHUNK_CANDIDATES == ref.CHUNK_CANDIDATES
+    for seq in (1, 7, 15, 16, 48, 64, 100, 256, 300, 1024, 1030):
+        assert ssd_scan.default_chunk(seq) == ref.default_chunk(seq)
+    assert ssd_scan.ssd_state_bytes(16, 64, 16) == ref.ssd_state_bytes(
+        16, 64, 16)
+
+
+def test_ssd_log_decay_matches_jax_above_softplus_threshold():
+    # torch's softplus turns into the identity above 20, jax's does not
+    from flashy_tpu.models.ssd import ssd_log_decay as jax_decay
+    from flashy_tpu_torch.models.ssd import ssd_log_decay
+    dt = np.array([[-30.0, -3.0, 0.0, 3.0, 19.5, 20.5, 25.0, 40.0]],
+                  np.float32)
+    bias = np.full(8, 1.5, np.float32)
+    got = ssd_log_decay(*_torch(dt, bias)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_decay(*_jax(dt, bias))),
+                               rtol=1e-6, atol=0)
+
+
+def test_fused_kernel_seam_on_the_cpu():
+    from flashy_tpu_torch.ops import ssd_scan
+    c, b, v, log_a = _torch(*_inputs(seed=7))
+    assert ssd_scan.default_ssd_kernel(c.device) == "gather"
+    with pytest.raises(ValueError, match="CUDA-only"):
+        ssd_scan.ssd_chunked_scan(c, b, v, log_a, chunk=8, kernel="fused")
+    # forward-only, as the TPU kernel is: no silent plain path for grads
+    with pytest.raises(NotImplementedError, match="T9"):
+        ssd_scan.ssd_chunked_scan(c.requires_grad_(), b, v, log_a, chunk=8,
+                                  kernel="fused")
+    # the wrapper takes the plain version for CPU tensors, no launch
+    ssd_scan.reset_launch_counts()
+    heads = [x.detach().transpose(1, 2).contiguous()
+             for x in (c, b, v, log_a)]
+    state = torch.zeros((2, 2, 8, 4))
+    got = ssd_scan.fused_ssd_chunks(*heads, state, 8)
+    want = ssd_scan._chunked_reference(*heads, state, 8)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ssd_scan.launch_counts["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("overrides", [SSD, HYBRID], ids=["ssd", "hybrid"])
+def test_converter_covers_ssd_and_hybrid_trees(overrides):
+    from flashy_tpu_torch.models.convert import params_from_jax
+    _, params, model = tiny_pair(seed=1, **overrides)
+    tree = jax.tree.map(np.asarray, params)["params"]
+    state = model.state_dict()
+    assert set(state) == set(params_from_jax(tree, model.config))
+    np.testing.assert_array_equal(state["block_0.ssd.cbv.kernel"].numpy(),
+                                  tree["block_0"]["ssd"]["cbv"]["kernel"])
+    np.testing.assert_array_equal(state["block_0.ssd.dt_bias"].numpy(),
+                                  tree["block_0"]["ssd"]["dt_bias"])
+    assert state["block_0.ssd.out.kernel"].shape == (4, 8, 32)
+    mixer = "attn" if "attention" in overrides["mixer"] else "ssd"
+    assert f"block_1.{mixer}.out.kernel" in state
+    wrong = jax.tree.map(lambda a: a, tree)
+    wrong["block_0"]["ssd"]["dt_bias"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(wrong, model.config)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+@pytest.mark.parametrize("overrides", [SSD, HYBRID], ids=["ssd", "hybrid"])
+def test_uncached_logits_match_jax(overrides, packed):
+    jax_model, params, model = tiny_pair(seed=2, **overrides)
+    tokens = np.random.default_rng(8).integers(0, VOCAB, (2, 24)).astype(
+        np.int32)
+    kw = {}
+    if packed:
+        # two documents and padding per row; positions restart per document
+        segments = np.array([[1] * 9 + [2] * 11 + [0] * 4,
+                             [1] * 17 + [2] * 7], np.int32)
+        positions = np.stack([
+            np.concatenate([np.arange(9), np.arange(11), np.arange(4)]),
+            np.concatenate([np.arange(17), np.arange(7)])]).astype(np.int32)
+        kw = {"segment_ids": segments, "positions": positions}
+    want = np.asarray(jax.jit(jax_model.apply)(
+        params, jnp.asarray(tokens), **{k: jnp.asarray(a)
+                                        for k, a in kw.items()}))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens),
+                    **{k: torch.from_numpy(a) for k, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_pure_ssd_generate_streams_past_max_seq_len_token_exact():
+    # nothing caps a pure-SSD stack: 6 + 30 > max_seq_len 16
+    jax_model, params, model = tiny_pair(seed=3, **SSD, max_seq_len=16)
+    from flashy_tpu_torch.models.decoding import generate
+    prompt = np.random.default_rng(9).integers(0, VOCAB, (2, 6)).astype(
+        np.int32)
+    got = generate(model, prompt, max_new_tokens=30, device="cpu").numpy()
+    assert got.shape == (2, 36)
+    with torch.no_grad():  # the uncached forward is not capped either
+        assert torch.isfinite(model(torch.from_numpy(got))).all()
+    np.testing.assert_array_equal(
+        got, jax_generate(jax_model, params, prompt, max_new_tokens=30))
+
+
+def test_hybrid_generate_token_exact_and_capped():
+    jax_model, params, model = tiny_pair(seed=4, **HYBRID)
+    from flashy_tpu_torch.models.decoding import generate
+    prompt = np.random.default_rng(10).integers(0, VOCAB, (2, 13)).astype(
+        np.int32)
+    got = generate(model, prompt, max_new_tokens=12, device="cpu").numpy()
+    np.testing.assert_array_equal(
+        got, jax_generate(jax_model, params, prompt, max_new_tokens=12))
+    with pytest.raises(ValueError, match="max_seq_len"):
+        generate(model, prompt, max_new_tokens=60, device="cpu")
+
+
+def _port_model(seed=0, **overrides):
+    """A port model alone (no JAX side), tiny and f32, on the CPU."""
+    from flashy_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerLM)
+    cfg = TransformerConfig(**{**TINY, "attention": "dense", **overrides},
+                            dtype=torch.float32)
+    return TransformerLM(cfg, device="cpu", seed=seed)
+
+
+def _ssd_engine(model, **kw):
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    engine = DecodeEngine(model, **{"slots": 2, "max_seq_len": 64,
+                                    "chunk": 8, "cache_layout": "ssd",
+                                    "device": "cpu", **kw})
+    engine.warmup()
+    return engine
+
+
+def test_engine_ssd_streams_token_exact_past_ceiling():
+    # chunked prefill + recurrent decode through a ceiling-64 engine, every
+    # stream ending past the ceiling: token-exact against the port's and
+    # the JAX package's generate (ssd_chunk == the engine chunk)
+    from flashy_tpu_torch.models.decoding import generate
+    from flashy_tpu_torch.ops.ssd_scan import ssd_state_bytes
+    from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    jax_model, params, model = tiny_pair(seed=5, **SSD, max_seq_len=4096)
+    engine = _ssd_engine(model)
+    assert engine.unbounded and engine.pool is None
+    assert engine.state_bytes_per_slot() == 2 * ssd_state_bytes(4, 8, 8)
+    scheduler = ContinuousBatchingScheduler(engine)
+    rng = np.random.default_rng(11)
+    workload = [(rng.integers(0, VOCAB, 11), 70),
+                (rng.integers(0, VOCAB, 23), 60),
+                (rng.integers(0, VOCAB, 7), 80)]
+    requests = [scheduler.submit(p, n) for p, n in workload]
+    scheduler.run()
+    for request, (prompt, max_new) in zip(requests, workload):
+        assert request.done and len(prompt) + max_new > engine.max_seq_len
+        want = generate(model, prompt[None], max_new_tokens=max_new,
+                        device="cpu")[0].numpy()
+        np.testing.assert_array_equal(request.output, want)
+        np.testing.assert_array_equal(request.output, jax_generate(
+            jax_model, params, prompt[None], max_new_tokens=max_new)[0])
+
+
+def test_engine_ssd_retire_and_readmit_resets_state():
+    # slot reuse: the slice at start == 0 zeroes the slot's states, so a
+    # readmitted request does not see its predecessor's
+    from flashy_tpu_torch.models.decoding import generate
+    from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    model = _port_model(seed=6, **SSD, max_seq_len=256)
+    engine = _ssd_engine(model, slots=1)
+    scheduler = ContinuousBatchingScheduler(engine)
+    rng = np.random.default_rng(12)
+    first = scheduler.submit(rng.integers(0, VOCAB, 20), 8)
+    scheduler.run()
+    assert first.done
+    prompt = rng.integers(0, VOCAB, 13)
+    second = scheduler.submit(prompt, 8)
+    scheduler.run()
+    want = generate(model, prompt[None], max_new_tokens=8,
+                    device="cpu")[0].numpy()
+    np.testing.assert_array_equal(second.output, want)
+
+
+def test_engine_layout_validation():
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    model, attn, hybrid = (_port_model(**kw) for kw in (SSD, {}, HYBRID))
+    for layout in ("paged", "dense"):
+        with pytest.raises(ValueError, match="cache_layout='ssd'"):
+            DecodeEngine(model, slots=2, cache_layout=layout, device="cpu")
+    with pytest.raises(ValueError, match="SSD layer"):
+        DecodeEngine(attn, slots=2, cache_layout="ssd", device="cpu")
+    with pytest.raises(ValueError, match="speculative"):
+        DecodeEngine(model, slots=2, cache_layout="ssd", spec_k=2,
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="L1"):
+        DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        DecodeEngine(model, slots=2, cache_layout="ssd", kv_dtype="int8",
+                     device="cpu")
+
+
+def test_state_bytes_per_slot_matches_jax_and_is_constant():
+    from flashy_tpu.models import TransformerConfig as JaxConfig
+    from flashy_tpu.serve.engine import state_bytes_per_slot as jax_bytes
+    from flashy_tpu_torch.models.transformer import TransformerConfig
+    from flashy_tpu_torch.serve.engine import state_bytes_per_slot
+    kw = dict(vocab_size=32768, dim=1024, num_layers=12, num_heads=16,
+              ssd_state_dim=16)
+    lens = (1024, 8192, 65536)
+    for mixer in ("ssd", "ssd,attention"):
+        cfg = TransformerConfig(**kw, mixer=mixer, dtype=torch.bfloat16)
+        jcfg = JaxConfig(**kw, mixer=mixer, dtype=jnp.bfloat16)
+        got = [state_bytes_per_slot(cfg, n, "ssd") for n in lens]
+        assert got == [jax_bytes(jcfg, n, "ssd") for n in lens]
+    ssd = TransformerConfig(**kw, mixer="ssd", dtype=torch.bfloat16)
+    assert {state_bytes_per_slot(ssd, n, "ssd") for n in lens} == {
+        12 * 16 * 64 * 16 * 4}
+
+
+def test_scheduler_records_the_ssd_layout():
+    from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    engine = _ssd_engine(_port_model(seed=8, **SSD), max_seq_len=16)
+    scheduler = ContinuousBatchingScheduler(engine)
+    info = scheduler.metrics.static_info
+    assert info["cache_layout"] == "ssd"
+    assert info["state_bytes_per_slot"] == engine.state_bytes_per_slot()
+    assert engine.pool_stats() is None and engine.can_admit([1, 2], 99)
+    request = scheduler.submit(np.arange(1, 12), 20)  # past the ceiling
+    scheduler.run()
+    assert request.done and len(request.output) == 31
+    summary = scheduler.metrics.summary()
+    assert summary["completed"] == 1 and "pool_occupancy_p50" not in summary
