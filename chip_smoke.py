@@ -8,7 +8,7 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile the three kernel sources from flashy_tpu_torch/csrc
+  1. build   compile the four kernel sources from flashy_tpu_torch/csrc
              with nvcc, one process per source, started together;
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
@@ -29,6 +29,14 @@ failure with a non-zero exit:
              state and a padded row): f32 within 1e-5 of max |plain|,
              bf16 y within one bf16 ulp; a SSD_LOG_RESET segment equal
              to the segment alone; chaining and right-padding bit-equal;
+  4b. gmm kernels  the grouped-GEMM kernels (gmm, gmm_t, tgmm) against
+             their plain versions (TF32 off): E in {1, 4, 8}, M in {1,
+             100, 4133}, K and N in {64, 1024, 4096}, empty first, last
+             and middle groups, a one-row group, all rows in one group,
+             sum(group_sizes) < M; bf16 x bf16 -> f32, f32 x f32 -> f32
+             and both mixed forms -> bf16: f32 within 1e-5 of max
+             |plain|, bf16 within one ulp, rows past the groups and
+             empty tgmm groups exactly zero;
   5. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
              stream token-exact against the port's dense-cache
@@ -57,6 +65,14 @@ failure with a non-zero exit:
              and gradients with attention='flash' through the fused
              backward and through the split pair (bit-equal), and
              against attention='dense';
+ 10b. moe step  the same layout with every MLP 8 top-2 experts (889M
+             parameters) in f32 at batch 2, seq 256 (a batch whose
+             routing has no top-3 gap under 1e-6): loss and every
+             gradient through the grouped-GEMM kernels ('dropless')
+             against their plain versions (1e-5) and against 'einsum'
+             at capacity factor 8.0, where nothing drops (1e-4 on the
+             loss and each gradient's norm); launches 12 x 2 of each
+             kernel;
  11. train   the 235M model in bf16 at batch 16, seq 1024 through the
              LM solver's `main` entry point in a fresh XP: 2 epochs of
              8 steps and 2 valid steps, the loss finite and falling,
@@ -67,7 +83,16 @@ failure with a non-zero exit:
              device kernels); then each flash kernel at these shapes,
              held against its plain version as in phase 3 and timed
              beside its bound, its plain version and PyTorch's
-             scaled_dot_product_attention.
+             scaled_dot_product_attention;
+ 12. moe train  the MoE layout in bf16 at batch 16, seq 1024 through
+             `main` with moe_dispatch=dropless in a fresh XP: 6 steps
+             and 2 valid steps, the step loss finite and falling, the
+             aux loss finite, gmm launched 12 x 2 x (train + valid
+             steps) and gmm_t, tgmm 12 x 2 x train steps; tokens/s, step
+             ms, peak memory; a profiled window of 3 steps; then each
+             grouped kernel's two launches of a layer at the training
+             shapes, held against the plain version and timed beside
+             the bound, the plain version and torch._grouped_mm.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -765,7 +790,7 @@ def phase_train(torch, card, folder):
     return counts, resumed
 
 
-def profile_train(torch, solver, card, steps=4):
+def profile_train(torch, solver, card, steps=4, label="profile train"):
     """Where the training time goes: `steps` train steps plainly for the
     wall time, the next `steps` under torch.profiler for the device time
     by kernel."""
@@ -791,7 +816,7 @@ def profile_train(torch, solver, card, steps=4):
     rows = device_rows(torch, prof)
     busy_ms = sum(ms for ms, _, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.1f} ms x{n}" for ms, n, key in rows[:8])
-    print(f"profile train: {steps} steps, plain wall {wall_ms:.1f} ms, "
+    print(f"{label}: {steps} steps, plain wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f}); top: {top} [{card}]", flush=True)
 
@@ -1168,11 +1193,407 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
     return launched, timings[(1, SSD_CHUNK)]
 
 
+# ----------------------------------------------------------------------
+# moe phases: the grouped-GEMM kernels, a dropless MoE step, MoE training
+# ----------------------------------------------------------------------
+GMM_SOURCE = "flashy_tpu_torch/csrc/grouped_matmul.cu"
+# megablox lives in the installed JAX, not in the repo (`gmm` :314, its
+# pallas_call :526, also run with transpose_rhs=True; `tgmm` :573,
+# :763), reached from flashy_tpu/parallel/moe_ep.py:73-78 and
+# megablox/ops.py `_gmm_bwd`
+MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
+GMM_REPLACES = {"gmm": f"{MEGABLOX}:314", "gmm_t": f"{MEGABLOX}:314",
+                "tgmm": f"{MEGABLOX}:573"}
+GMM_RTOL = 1e-5          # f32 outputs, relative to max |plain|
+BF16_ULP = 2 ** -7       # one bf16 ulp, relative (>= the ulp of |value|)
+# (E, M, K, N, group sizes): one row; empty first and last groups, a
+# one-row group and sum < M; ragged groups at M = 4096 + 37; all rows in
+# one group; an empty middle group and sum < M
+GMM_CASES = ((1, 1, 64, 64, (1,)),
+             (4, 100, 1024, 64, (0, 1, 60, 0)),
+             (8, 4133, 64, 4096, (0, 700, 1, 1200, 0, 900, 1332, 0)),
+             (8, 4133, 4096, 1024, (0, 0, 0, 4133, 0, 0, 0, 0)),
+             (4, 4133, 1024, 1024, (1000, 0, 2000, 1000)),
+             (1, 100, 4096, 64, (100,)))
+MOE_ARGS = ["model.moe_experts=8", "model.moe_top_k=2",
+            "model.moe_dispatch=dropless"]
+MOE_STEP_TOL = 1e-4      # dropless vs einsum: loss and each grad's norm
+MOE_PLAIN_TOL = 1e-5     # kernels vs plain grouped matmuls, per leaf
+# smallest top-3 probability gap a `moe step` batch may route at: the
+# three runs' router inputs differ by f32 reordering upstream (~1e-7
+# relative, ~1e-8 in a probability), so a 1e-6 gap cannot flip; over 12
+# layers x 512 tokens a gap under 1e-5 is common (min 6e-6 seen)
+MOE_TIE_GAP = 1e-6
+
+
+def gmm_dtypes(torch):
+    """(lhs, rhs, out) dtype combinations: both bf16 (the tensor cores),
+    both f32, and each mixed form with a bf16 output (the f32 route of
+    the backward)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return ((bf, bf, f32), (f32, f32, f32), (f32, bf, bf), (bf, f32, bf))
+
+
+def gmm_check(torch, got, want, label):
+    """Max abs error of `got` against the plain `want`; fails past the
+    bar: f32 within GMM_RTOL of max |want|; bf16 within one bf16 ulp of
+    each value (BF16_ULP of |want|), with a floor of GMM_RTOL of max
+    |want| where the f32 sum cancels to near zero."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    if not want.numel():
+        return 0.0
+    scale = max(want.abs().max().item(), 1e-30)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    excess = ((diff - BF16_ULP * want.abs()).max().item() if bf16
+              else err)
+    if not math.isfinite(err) or excess > GMM_RTOL * scale:
+        fail(f"{label}: max abs err {err:.3e} (max |plain| {scale:.3e}; "
+             f"bar {'one bf16 ulp' if bf16 else 'relative'} "
+             f"{GMM_RTOL})")
+    return err
+
+
+def check_gmm_kernels(torch, device, card):
+    """gmm, gmm_t and tgmm against their plain versions on GMM_CASES in
+    every dtype combination (TF32 off); rows of gmm past the groups and
+    empty tgmm groups exactly zero. Returns {kernel: max abs err}."""
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    worst = {name: 0.0 for name in GMM_REPLACES}
+    for seed, (E, M, K, N, sizes) in enumerate(GMM_CASES):
+        g = torch.Generator(device=device).manual_seed(seed)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=g, device=device)
+
+        gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+        total = sum(sizes)
+        base = (draw(M, K), draw(E, K, N), draw(E, N, K), draw(M, N))
+        for a_t, b_t, o_t in gmm_dtypes(torch):
+            lhs, rhs, rhs_t, dy = (base[0].to(a_t), base[1].to(b_t),
+                                   base[2].to(b_t), base[3].to(b_t))
+            tag = (f"E={E} M={M} K={K} N={N} sizes={sizes} "
+                   f"{str(a_t)[6:]}x{str(b_t)[6:]}->{str(o_t)[6:]}")
+            runs = {
+                "gmm": (G.gmm(lhs, rhs, gs, o_t),
+                        G._gmm_reference(lhs, rhs, gs, o_t)),
+                "gmm_t": (G.gmm(lhs, rhs_t, gs, o_t, transpose_rhs=True),
+                          G._gmm_reference(lhs, rhs_t, gs, o_t, True)),
+                "tgmm": (G.tgmm(lhs, dy, gs, o_t),
+                         G._tgmm_reference(lhs, dy, gs, o_t))}
+            torch.cuda.synchronize()
+            for name, (got, want) in runs.items():
+                worst[name] = max(worst[name], gmm_check(
+                    torch, got, want, f"{name} {tag}"))
+                if name != "tgmm" and total < M \
+                        and got[total:].abs().max().item() != 0:
+                    fail(f"{name} {tag}: rows past the groups not zero")
+            empty = [i for i, n in enumerate(sizes) if n == 0]
+            if empty and runs["tgmm"][0][empty].abs().max().item() != 0:
+                fail(f"tgmm {tag}: empty groups {empty} not exactly zero")
+    print(f"gmm kernels: {len(GMM_CASES)} cases x "
+          f"{len(gmm_dtypes(torch))} dtype combinations (bf16 x bf16 -> "
+          f"f32, f32 x f32 -> f32, f32 x bf16 -> bf16, bf16 x f32 -> bf16),"
+          f" empty first/last/middle groups, a one-row group, all rows in "
+          f"one group, sum < M: max abs err vs plain " + ", ".join(
+              f"{k}={v:.3e}" for k, v in worst.items())
+          + f" (bars: f32 {GMM_RTOL} of max |plain|, bf16 one ulp); rows "
+          f"past the groups and empty tgmm groups exactly zero [{card}]",
+          flush=True)
+    return worst
+
+
+def router_margin(torch, model, tokens):
+    """The smallest f32 top-3 probability gap (p1 - p2 or p2 - p3) any
+    MoE layer of `model` sees on `tokens`: the routing decision closest
+    to flipping."""
+    from flashy_tpu_torch.models.moe import MoEMLP
+    gaps = []
+
+    def hook(module, args):
+        x = args[0].reshape(-1, args[0].shape[-1]).float()
+        top = torch.topk(torch.softmax(x @ module.router.kernel, -1), 3).values
+        gaps.append(torch.minimum(top[:, 0] - top[:, 1],
+                                  top[:, 1] - top[:, 2]).min())
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, MoEMLP)]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return min(gap.item() for gap in gaps)
+
+
+def phase_moe_step(torch, device, card):
+    """The full-width MoE model (8 experts, top-2, every block) in f32 at
+    batch 2, seq 256: loss and every gradient through the grouped-matmul
+    kernels ('dropless'), through their plain versions (the reference
+    functions called directly), and through 'einsum' at capacity factor
+    8.0, where nothing drops. The batch is the first of the synthetic
+    stream's whose routing has no top-3 gap under MOE_TIE_GAP."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.parallel import moe_ep
+
+    def config(dispatch):
+        return model_config(torch, torch.float32, 256, "flash",
+                            moe_experts=8, moe_top_k=2,
+                            moe_capacity_factor=8.0, moe_dispatch=dispatch)
+
+    stream = synthetic_token_stream(32768)
+    model = TransformerLM(config("dropless"), device=device, seed=3)
+    for step in range(32):
+        tokens = torch.from_numpy(stream(2, 256, step)).long().to(device)
+        margin = router_margin(torch, model, tokens)
+        if margin > MOE_TIE_GAP:
+            break
+    else:
+        fail(f"moe step: every candidate batch routes a token at a near "
+             f"tie (last margin {margin:.2e})")
+    del model
+    results, counts = {}, {}
+    reference = (moe_ep.gmm, moe_ep.tgmm)
+    for label, dispatch in (("dropless", "dropless"), ("plain", "dropless"),
+                            ("einsum", "einsum")):
+        model = TransformerLM(config(dispatch), device=device, seed=3)
+        if label == "plain":
+            moe_ep.gmm, moe_ep.tgmm = G._gmm_reference, G._tgmm_reference
+        G.reset_launch_counts()
+        try:
+            # the LM solver's MoE loss, at its default aux weight
+            loss = lm_next_token_loss(model, tokens, aux_weight=0.01)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            moe_ep.gmm, moe_ep.tgmm = reference
+        counts[label] = dict(G.launch_counts)
+        results[label] = (loss.item(), {name: p.grad for name, p in
+                                        model.named_parameters()})
+        kern_params = sum(p.numel() for p in model.parameters())
+        del model
+    layers = 12
+    want = {"gmm": 2 * layers, "gmm_t": 2 * layers, "tgmm": 2 * layers}
+    if counts["dropless"] != want or any(counts["plain"].values()) \
+            or any(counts["einsum"].values()):
+        fail(f"moe step: launches {counts}, expected {want} in the "
+             f"dropless run only")
+    kern, plain, einsum = (results[k] for k in ("dropless", "plain",
+                                                 "einsum"))
+    plain_loss = abs(kern[0] - plain[0]) / abs(plain[0])
+    plain_worst = max(rel_err(grad, plain[1][name])
+                      for name, grad in kern[1].items())
+    if not math.isfinite(plain_worst) or plain_worst > MOE_PLAIN_TOL \
+            or plain_loss > MOE_PLAIN_TOL:
+        fail(f"moe step: kernels vs plain grouped matmuls: loss rel err "
+             f"{plain_loss:.2e}, grads max rel err {plain_worst:.2e} "
+             f"(limit {MOE_PLAIN_TOL})")
+    ein_loss = abs(kern[0] - einsum[0]) / abs(einsum[0])
+    ein_worst = max(abs(grad.norm().item() - einsum[1][name].norm().item())
+                    / max(einsum[1][name].norm().item(), 1e-30)
+                    for name, grad in kern[1].items())
+    if not math.isfinite(ein_worst) or ein_worst > MOE_STEP_TOL \
+            or ein_loss > MOE_STEP_TOL:
+        fail(f"moe step: dropless vs einsum: loss rel err {ein_loss:.2e}, "
+             f"grad norms max rel err {ein_worst:.2e} (limit "
+             f"{MOE_STEP_TOL})")
+    print(f"moe step: {kern_params / 1e6:.0f}M MoE (8 experts, top-2) "
+          f"f32 b2 t256, batch "
+          f"{step} of the stream (min routing gap {margin:.2e}), loss "
+          f"{kern[0]:.6f}; kernels vs plain grouped matmuls: loss rel err "
+          f"{plain_loss:.2e}, grads max rel err {plain_worst:.2e} (limit "
+          f"{MOE_PLAIN_TOL}); dropless vs einsum (capacity 8.0): loss rel "
+          f"err {ein_loss:.2e}, {len(kern[1])} grad norms max rel err "
+          f"{ein_worst:.2e} (limit {MOE_STEP_TOL}); launches {want} "
+          f"[{card}]", flush=True)
+
+
+def phase_moe_train(torch, card, folder):
+    """The 235M layout with every MLP 8 top-2 dropless experts, bf16, batch
+    16, seq 1024, through `main` in a fresh XP: 1 epoch of 6 steps and 2
+    valid steps. Returns (grouped-matmul launch counts, the solver)."""
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.models.moe import moe_aux_loss
+    from flashy_tpu_torch.ops import attention, grouped_matmul
+    from flashy_tpu_torch.utils import percentile
+    args = [a for a in TRAIN_ARGS if not a.startswith(("steps_per_epoch",
+                                                       "valid_steps"))]
+    args += MOE_ARGS + ["steps_per_epoch=6", "valid_steps=2", "epochs=1",
+                        f"dora.dir={folder}"]
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    grouped_matmul.reset_launch_counts()
+    solver = lm_main(args)
+    torch.cuda.synchronize()
+    counts = dict(grouped_matmul.launch_counts)
+    flash = {k: v for k, v in attention.launch_counts.items() if v}
+    cfg = solver.cfg
+    train_steps, valid_steps = cfg.steps_per_epoch, cfg.valid_steps
+    layers = cfg.model.num_layers
+    want = {"gmm": 2 * layers * (train_steps + valid_steps),
+            "gmm_t": 2 * layers * train_steps,
+            "tgmm": 2 * layers * train_steps}
+    want_flash = {"flash_fwd": layers * (train_steps + valid_steps),
+                  "flash_bwd_fused": layers * train_steps}
+    if counts != want or flash != want_flash:
+        fail(f"moe train: launches {counts} and {flash}, expected {want} "
+             f"and {want_flash}")
+    losses = solver.step_losses
+    aux = moe_aux_loss(solver.model).item()
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0] \
+            or not math.isfinite(aux):
+        fail(f"moe train: step losses {losses} not finite and falling, or "
+             f"aux {aux} not finite")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(p.numel() for p in solver.model.parameters())
+    print(f"moe train: {params / 1e6:.0f}M MoE (8 dropless experts, top-2)"
+          f" {str(solver.model.config.dtype)[6:]} b{cfg.batch_size} "
+          f"t{cfg.seq_len}, {train_steps} steps + {valid_steps} valid, "
+          f"step losses {losses[0]:.4f} -> {losses[-1]:.4f}, last aux "
+          f"{aux:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms (steps "
+          f"3..{train_steps}), peak memory {peak:.1f} GiB; launches "
+          f"{counts}, {flash} [{card}]", flush=True)
+    return counts, solver
+
+
+def gmm_bound(M, K, N, E, a_elem, b_elem, o_elem, bf16, tgmm):
+    """(bound ms, 'bytes' | 'operations') of one grouped product over M
+    routed rows: 2 M K N operations at the bf16 tensor-core peak (two
+    bf16 operands) or the f32 peak, against each input read once and the
+    output written once over 3.35 TB/s."""
+    rhs = M * N * b_elem if tgmm else E * K * N * b_elem
+    out = E * K * N * o_elem if tgmm else M * N * o_elem
+    nbytes = M * K * a_elem + rhs + out + 4 * E
+    op_ms = 2 * M * K * N / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def library_ms(torch, fn):
+    """CUDA-event ms of one PyTorch call, or (None, why) where this
+    card's torch has no call that takes these operands."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError, TypeError, ValueError) as err:
+        return None, str(err).splitlines()[0][:80]
+    return time_ms(torch, fn, iters=20), ""
+
+
+def time_gmm(torch, device, card):
+    """Each grouped kernel at the training shapes (32768 routed rows = 16
+    x 1024 tokens x top-2, dim 1024, hidden 4096, 8 experts, group sizes
+    of a seeded multinomial draw), both of each kernel's launches in a
+    layer, first held against the plain version there (as
+    `check_gmm_kernels` does), then timed (CUDA events after warm-up)
+    beside the bound, the plain version and torch._grouped_mm where it
+    takes the operands. Returns ({kernel: per-launch means},
+    {kernel: max abs err})."""
+    import numpy as np
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    bf, f32 = torch.bfloat16, torch.float32
+    E, D, F = 8, 1024, 4096
+    sizes = np.random.default_rng(0).multinomial(32768, [1 / E] * E)
+    M = int(sizes.sum())
+    gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def draw(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    x, h = draw(M, D), draw(M, F)
+    dh, dy = draw(M, F), draw(M, D, dtype=f32)
+    w_up, w_down = draw(E, D, F) * 0.02, draw(E, F, D) * 0.02
+    grouped = getattr(torch, "_grouped_mm", None)
+
+    def lib(fn):
+        return None if grouped is None else fn
+
+    # (kernel, launch, kernel call, plain call, library call, M K N,
+    # operand elements, tgmm?)
+    launches = (
+        ("gmm", "up X.W_up bf16xbf16->f32",
+         lambda: G.gmm(x, w_up, gs, f32),
+         lambda: G._gmm_reference(x, w_up, gs, f32),
+         lib(lambda: grouped(x, w_up, offs=offs)), (M, D, F), (2, 2, 4)),
+        ("gmm", "down H.W_down bf16xbf16->f32",
+         lambda: G.gmm(h, w_down, gs, f32),
+         lambda: G._gmm_reference(h, w_down, gs, f32),
+         lib(lambda: grouped(h, w_down, offs=offs)), (M, F, D), (2, 2, 4)),
+        ("gmm_t", "dH dY.W_down^T f32xbf16->bf16",
+         lambda: G.gmm(dy, w_down, gs, bf, transpose_rhs=True),
+         lambda: G._gmm_reference(dy, w_down, gs, bf, True), None,
+         (M, D, F), (4, 2, 2)),
+        ("gmm_t", "dX dH.W_up^T bf16xbf16->bf16",
+         lambda: G.gmm(dh, w_up, gs, bf, transpose_rhs=True),
+         lambda: G._gmm_reference(dh, w_up, gs, bf, True),
+         lib(lambda: grouped(dh, w_up.transpose(-2, -1), offs=offs)),
+         (M, F, D), (2, 2, 2)),
+        ("tgmm", "dW_down H^T.dY bf16xf32->bf16",
+         lambda: G.tgmm(h, dy, gs, bf),
+         lambda: G._tgmm_reference(h, dy, gs, bf), None, (M, F, D),
+         (2, 4, 2)),
+        ("tgmm", "dW_up X^T.dH bf16xbf16->bf16",
+         lambda: G.tgmm(x, dh, gs, bf),
+         lambda: G._tgmm_reference(x, dh, gs, bf),
+         lib(lambda: grouped(x.t(), dh, offs=offs)), (M, D, F), (2, 2, 2)))
+    rows, errors = [], {name: 0.0 for name in GMM_REPLACES}
+    for name, label, kernel, plain, library, (m, k, n), elems in launches:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        errors[name] = max(errors[name],
+                           gmm_check(torch, got, want, f"{name} {label}"))
+        del got, want
+        bound, bound_by = gmm_bound(m, k, n, E, *elems,
+                                    bf16=elems[:2] == (2, 2),
+                                    tgmm=name == "tgmm")
+        lib_ms, why = (library_ms(torch, library) if library
+                       else (None, "no library call takes an f32 operand"
+                             if grouped else "torch._grouped_mm absent"))
+        rows.append((name, label, time_ms(torch, kernel, iters=10),
+                     time_ms(torch, plain, iters=3), bound, bound_by,
+                     lib_ms, why))
+    dense = time_ms(torch, lambda: torch.matmul(x, w_up[0]), iters=20)
+    print(f"gmm times ({M} routed rows, D {D}, F {F}, {E} experts, "
+          f"sizes {sizes.tolist()}): " + "; ".join(
+              f"{name} {label} ms={ms:.4f} bound_ms={bound:.4f} "
+              f"({bound_by}) plain_ms={plain_ms:.4f} library_ms="
+              + (f"{lib_ms:.4f}" if lib_ms is not None else f"none ({why})")
+              for name, label, ms, plain_ms, bound, bound_by, lib_ms, why
+              in rows)
+          + f"; reference point, not the same function: dense "
+          f"torch.matmul [{M}, {D}] x [{D}, {F}] bf16 ms={dense:.4f}; max "
+          f"abs err vs plain " + ", ".join(
+              f"{k}={v:.3e}" for k, v in errors.items()) + f" [{card}]",
+          flush=True)
+    times = {}
+    for name in GMM_REPLACES:
+        mine = [r for r in rows if r[0] == name]
+        libs = [r[6] for r in mine]
+        times[name] = {
+            "ms": sum(r[2] for r in mine) / len(mine),
+            "plain_ms": sum(r[3] for r in mine) / len(mine),
+            "bound_ms": sum(r[4] for r in mine) / len(mine),
+            "bound_by": max(mine, key=lambda r: r[4])[5],
+            "library_ms": (None if None in libs
+                           else sum(libs) / len(libs))}
+    return times, errors
+
+
 def build_all():
     """nvcc for every kernel source at once; prints each build's
     register and spill lines."""
     from flashy_tpu_torch.ops import _build
-    names = ("paged_decode", "flash_attention", "ssd_scan")
+    names = ("paged_decode", "flash_attention", "ssd_scan", "grouped_matmul")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(_build.build, name) for name in names]:
@@ -1211,6 +1632,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     flash_errors = check_flash_kernels(torch, device, card)
     ssd_errors = check_ssd_kernel(torch, device, card)
+    check_gmm_kernels(torch, device, card)
     phase_exact(torch, device, card)
     phase_ssd_exact(torch, device, card)
 
@@ -1222,11 +1644,18 @@ def main() -> None:
                                      max_new=32, label="int8 bf16")
     ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
     split_counts = phase_step(torch, device, card)
+    phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver = phase_train(torch, card, folder)
         profile_train(torch, solver, card)
         del solver
     flash_times, main_errors = time_flash(torch, device, card)
+    with tempfile.TemporaryDirectory() as folder:
+        gmm_launches, solver = phase_moe_train(torch, card, folder)
+        profile_train(torch, solver, card, steps=3,
+                      label="profile moe train")
+        del solver
+    gmm_times, gmm_main_errors = time_gmm(torch, device, card)
     # the split pair is the oracle: its path is the split run of phase 7
     flash_launches = {**train_counts,
                       "flash_bwd_dq": split_counts["flash_bwd_dq"],
@@ -1234,7 +1663,9 @@ def main() -> None:
     print(f"kernels: paged_decode={launches}, "
           f"paged_decode_int8={launches8}, " + ", ".join(
               f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
-          + f", ssd_scan={ssd_launches}", flush=True)
+          + f", ssd_scan={ssd_launches}, " + ", ".join(
+              f"{name}={gmm_launches[name]}" for name in GMM_REPLACES),
+          flush=True)
     source = "flashy_tpu_torch/csrc/paged_decode.cu"
     kernels = [
         {"name": "paged_decode", "route": "cuda", "source": source,
@@ -1266,6 +1697,14 @@ def main() -> None:
                     **{key: ssd_timing[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}})
+    # the main path's launches at its shapes and dtypes (the small cases'
+    # errors, in every dtype form, are on the `gmm kernels` line)
+    for name, replaces in GMM_REPLACES.items():
+        kernels.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
+                        "replaces": replaces,
+                        "launches": gmm_launches[name],
+                        "max_abs_err": gmm_main_errors[name],
+                        **gmm_times[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """flashy_tpu_torch: the PyTorch/CUDA port of flashy_tpu.
 
-Two slices of the JAX package run here, on an NVIDIA H100:
+These slices of the JAX package run here, on an NVIDIA H100:
 
 * training: the solver harness (`BaseSolver`, XP folders and
   signatures, single-file checkpoints, logging) and the TransformerLM
   trained by `examples.lm.solver`, whose attention runs the hand-written
-  Hopper flash kernels of `csrc/flash_attention.cu` (`ops.attention`);
+  Hopper flash kernels of `csrc/flash_attention.cu` (`ops.attention`),
+  and whose dropless MoE experts (`models.MoEMLP`) run the grouped-GEMM
+  kernels of `csrc/grouped_matmul.cu` (`ops.grouped_matmul`);
 * serving: the TransformerLM behind a paged KV cache and a continuous-
   batching scheduler, every paged-attention read through the kernel of
   `csrc/paged_decode.cu` (`ops.paged_decode`).

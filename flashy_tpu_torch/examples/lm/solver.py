@@ -7,8 +7,11 @@ Trains the TransformerLM on a synthetic Markov token stream through the
 port's harness (`BaseSolver`, XP folders, single-file checkpoints). With
 `model.attention=flash` (the default) every attention call runs the
 Hopper flash kernels, forward on every step and the fused backward on
-every training step. It runs on the card; `device=cpu` runs it on the
-host, and nothing else does.
+every training step. With `model.moe_experts > 0` every MLP is a routed
+MoE and the loss adds `model.moe_aux_weight` times the load-balancing
+loss; `model.moe_dispatch=dropless` runs the expert projections through
+the Hopper grouped-GEMM kernels, forward and backward. It runs on the
+card; `device=cpu` runs it on the host, and nothing else does.
 
 The optimizer is the JAX package's optax chain, written out so a test
 can drive it on any model: `clip_by_global_norm(1.0)` (no epsilon, the
@@ -177,7 +180,17 @@ class LMSolver(BaseSolver):
             remat=cfg.model.get("remat", False),
             remat_policy=cfg.model.get("remat_policy", "full"),
             scan_layers=cfg.model.get("scan_layers", False),
-            moe_experts=cfg.model.get("moe_experts", 0))
+            moe_experts=cfg.model.get("moe_experts", 0),
+            moe_top_k=cfg.model.get("moe_top_k", 1),
+            moe_capacity_factor=cfg.model.get("moe_capacity_factor", 1.25),
+            moe_dispatch=cfg.model.get("moe_dispatch", "einsum"))
+        self.moe = model_cfg.moe_experts > 0
+        self.aux_weight = float(cfg.model.get("moe_aux_weight", 0.01))
+        if cfg.get("loss", "dense") == "chunked" and self.moe:
+            raise ValueError(
+                "loss=chunked is not supported with MoE or pipeline "
+                "parallelism (those paths need logits + aux losses); "
+                "use loss=dense.")
         self.model = TransformerLM(model_cfg, device=self.device, seed=0)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         # the update count: the schedule reads it, so it is checkpointed
@@ -185,11 +198,16 @@ class LMSolver(BaseSolver):
         self.register_stateful("model", "optimizer", "state")
         self._stream = synthetic_token_stream(cfg.model.vocab_size)
         self.restored = False
-        # host seconds of each train step this process ran
+        # host seconds and loss of each train step this process ran
         self.step_seconds: tp.List[float] = []
+        self.step_losses: tp.List[float] = []
 
     def loss(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Mean next-token CE, plus `moe_aux_weight` times the MoE layers'
+        load-balancing loss for an MoE model."""
         return lm_next_token_loss(self.model, tokens,
+                                  aux_weight=self.aux_weight if self.moe
+                                  else None,
                                   mode=self.cfg.get("loss", "dense"),
                                   chunk_size=int(self.cfg.get("loss_chunk",
                                                               256)))
@@ -229,6 +247,7 @@ class LMSolver(BaseSolver):
             # reading the metrics to the host waits for the whole step
             metrics = average(step_metrics)
             self.step_seconds.append(time.perf_counter() - t0)
+            self.step_losses.append(float(step_metrics["loss"]))
             tokens_seen += cfg.batch_size * cfg.seq_len
             progress.update(**metrics)
         self._sync()

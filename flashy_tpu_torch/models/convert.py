@@ -4,8 +4,8 @@ this package's `TransformerLM` state dict.
 The JAX tree arrives as numpy arrays (`jax.tree.map(np.asarray, ...)`);
 leaves keep their layouts and stay f32, so a converted model computes
 the same function. Per-layer trees convert, attention, SSD and hybrid
-stacks alike (each block's mixer from `mixer_pattern`); scan-stacked and
-MoE trees raise.
+stacks alike (each block's mixer from `mixer_pattern`), with a dense or
+an MoE MLP (`moe_experts > 0`); scan-stacked trees raise.
 """
 import typing as tp
 
@@ -34,11 +34,22 @@ _MIXER_LEAVES = {
 _BLOCK_LEAVES = (
     (("norm1", "scale"), "norm1.scale", lambda c: (c.dim,)),
     (("norm2", "scale"), "norm2.scale", lambda c: (c.dim,)),
-    (("mlp", "up", "kernel"), "mlp.up.kernel",
-     lambda c: (c.dim, 2 * c.dim * c.mlp_ratio)),
-    (("mlp", "down", "kernel"), "mlp.down.kernel",
-     lambda c: (c.dim * c.mlp_ratio, c.dim)),
 )
+# The block's MLP: dense, or routed experts when moe_experts > 0.
+_MLP_LEAVES = {
+    False: (
+        (("mlp", "up", "kernel"), "mlp.up.kernel",
+         lambda c: (c.dim, 2 * c.dim * c.mlp_ratio)),
+        (("mlp", "down", "kernel"), "mlp.down.kernel",
+         lambda c: (c.dim * c.mlp_ratio, c.dim))),
+    True: (
+        (("moe", "router", "kernel"), "moe.router.kernel",
+         lambda c: (c.dim, c.moe_experts)),
+        (("moe", "w_up"), "moe.w_up",
+         lambda c: (c.moe_experts, c.dim, c.dim * c.mlp_ratio)),
+        (("moe", "w_down"), "moe.w_down",
+         lambda c: (c.moe_experts, c.dim * c.mlp_ratio, c.dim))),
+}
 
 
 def _leaf(tree: tp.Mapping, path: tp.Sequence[str], shape: tp.Tuple[int, ...],
@@ -60,12 +71,13 @@ def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
                     ) -> tp.Dict[str, torch.Tensor]:
     """JAX `TransformerLM` params (numpy leaves) -> port state dict.
 
-    Accepts the variables dict (`{"params": ...}`) or the inner tree.
+    Accepts the variables dict (`{"params": ...}`, other collections
+    such as an MoE init's sown `losses` ignored) or the inner tree.
     Every leaf is checked against the shape `cfg` implies; unknown
     layouts raise rather than load half a model.
     """
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    if "params" in tree:
+        tree = tree["params"]   # a variables dict, maybe with MoE losses
     if "blocks" in tree:
         raise NotImplementedError(
             f"scan-stacked parameter trees are not ported yet: "
@@ -77,11 +89,8 @@ def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
         block = tree.get(name)
         if not isinstance(block, tp.Mapping):
             raise KeyError(f"JAX params have no {name}")
-        if "moe" in block:
-            raise NotImplementedError(
-                f"{name} holds an MoE block, which is not ported yet: "
-                f"{TODO_DECODE_VARIANTS}")
-        leaves = _BLOCK_LEAVES + _MIXER_LEAVES[mixer]
+        leaves = (_BLOCK_LEAVES + _MLP_LEAVES[cfg.moe_experts > 0]
+                  + _MIXER_LEAVES[mixer])
         extra = set(block) - {path[0] for path, _, _ in leaves}
         if extra:
             raise ValueError(f"{name} holds {sorted(extra)}, which a "

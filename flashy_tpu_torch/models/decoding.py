@@ -1,6 +1,6 @@
 """KV-cache decoding for the port's TransformerLM (port of
 flashy_tpu/models/decoding.py, per-layer models: attention, SSD and
-hybrid stacks).
+hybrid stacks, with dense or MoE MLPs).
 
 `generate` is the oracle the paged serving engine is held to, on the
 CPU and on the card: it reads its dense `[B, max_len, H, Dh]` cache with
@@ -10,7 +10,8 @@ the cache tensors in place instead of returning fresh arrays (one cache
 allocation per call instead of one per step). SSD layers keep one
 [B, H, Dh, N] f32 state instead of K/V slabs: a multi-token call runs
 the chunked scan (the Hopper SSD kernel on CUDA), a one-token call the
-recurrence.
+recurrence. MoE blocks decode dropless (`_moe_forward`, plain PyTorch:
+the JAX package has no kernel there).
 
 The step functions read a nested parameter dict shaped like the JAX
 tree (`decode_params`), with the matmul kernels already cast to the
@@ -23,6 +24,7 @@ import torch
 
 from ..ops.attention import score_scale
 from ..ops.ssd_scan import ssd_chunked_scan, ssd_recurrent_scan
+from ..parallel.moe_ep import _gelu
 from ..utils import check_same_device, resolve_device
 from .ssd import ssd_projections
 from .transformer import (TransformerConfig, TransformerLM, _rotary,
@@ -54,9 +56,16 @@ def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
             block = getattr(model, f"block_{i}")
             p[f"block_{i}"] = {
                 "norm1": {"scale": block.norm1.scale.detach()},
-                "norm2": {"scale": block.norm2.scale.detach()},
-                "mlp": {"up": kernel(block.mlp.up),
-                        "down": kernel(block.mlp.down)}}
+                "norm2": {"scale": block.norm2.scale.detach()}}
+            if hasattr(block, "moe"):
+                # the router multiplies in f32; expert slabs are cast
+                p[f"block_{i}"]["moe"] = {
+                    "router": {"kernel": block.moe.router.kernel.detach()},
+                    "w_up": block.moe.w_up.detach().to(dtype),
+                    "w_down": block.moe.w_down.detach().to(dtype)}
+            else:
+                p[f"block_{i}"]["mlp"] = {"up": kernel(block.mlp.up),
+                                          "down": kernel(block.mlp.down)}
             if block.mixer == "ssd":
                 p[f"block_{i}"]["ssd"] = {
                     "cbv": kernel(block.ssd.cbv),
@@ -146,6 +155,61 @@ def _gated_mlp(bp_mlp: tp.Dict, normed: torch.Tensor,
         @ bp_mlp["down"]["kernel"]
 
 
+# Above this many tokens, per-token expert-weight gathers ([N, D, F]
+# buffers) dominate memory; switch to streaming over experts instead.
+_MOE_GATHER_MAX_TOKENS = 64
+
+
+def _moe_forward(cfg: TransformerConfig, mp: tp.Dict,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Dropless routed MoE for decoding: [B, S, D] -> [B, S, D].
+
+    MoEMLP's routing (f32 softmax router, raw-probability gates,
+    sequential top-k argmax) without capacity buffers, in one of two
+    equivalent evaluation orders: up to `_MOE_GATHER_MAX_TOKENS` tokens
+    (decode steps) gather each token's expert slabs; more (a prefill)
+    stream over the experts, every token against one expert at a time,
+    weighted by its combine gate (zero for unrouted pairs).
+    """
+    batch, seq, dim = x.shape
+    n_tokens = batch * seq
+    x_flat = x.reshape(n_tokens, dim)
+    probs = torch.softmax(x_flat.float() @ mp["router"]["kernel"].float(),
+                          dim=-1)                                  # [N, E]
+    num_experts = probs.shape[-1]
+    experts = torch.arange(num_experts, device=x.device)
+    x_c = x_flat.to(cfg.dtype)
+    out = torch.zeros((n_tokens, dim), dtype=torch.float32, device=x.device)
+    combine = torch.zeros_like(probs)
+    remaining = probs
+    for _ in range(cfg.moe_top_k):
+        expert_index = torch.argmax(remaining, dim=-1)
+        gate = torch.gather(remaining, -1, expert_index[:, None])[:, 0]
+        onehot = (expert_index[:, None] == experts).to(probs.dtype)
+        if n_tokens <= _MOE_GATHER_MAX_TOKENS:
+            up = mp["w_up"][expert_index]                        # [N, D, F]
+            down = mp["w_down"][expert_index]                    # [N, F, D]
+            h = _gelu(torch.einsum("nd,ndf->nf", x_c, up))
+            y = torch.einsum("nf,nfd->nd", h, down)
+            out = out + gate[:, None] * y.float()
+        combine = combine + gate[:, None] * onehot
+        remaining = remaining * (1.0 - onehot)
+    if n_tokens > _MOE_GATHER_MAX_TOKENS:
+        for e in range(num_experts):
+            h = _gelu(x_c @ mp["w_up"][e])
+            y = h @ mp["w_down"][e]
+            out = out + combine[:, e:e + 1] * y.float()
+    return out.reshape(batch, seq, dim).to(cfg.dtype)
+
+
+def _mlp_forward(cfg: TransformerConfig, bp: tp.Dict,
+                 normed: torch.Tensor) -> torch.Tensor:
+    """The block's MLP on pre-normed input: routed experts or SwiGLU."""
+    if "moe" in bp:
+        return _moe_forward(cfg, bp["moe"], normed)
+    return _gated_mlp(bp["mlp"], normed, cfg.dtype)
+
+
 def _ssd_mixer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
                        state: torch.Tensor,
                        token_mask: tp.Optional[torch.Tensor],
@@ -183,7 +247,7 @@ def _ssd_layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
     x, state = _ssd_mixer_forward(cfg, bp, x, state, token_mask,
                                   state_mask)
     normed = _rmsnorm(x, bp["norm2"]["scale"], cfg.dtype)
-    return x + _gated_mlp(bp["mlp"], normed, cfg.dtype), state
+    return x + _mlp_forward(cfg, bp, normed), state
 
 
 def _layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
@@ -194,7 +258,7 @@ def _layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
     x, k_cache, v_cache = _cached_self_attention(
         cfg, bp, x, positions, k_cache, v_cache, cache_index)
     normed = _rmsnorm(x, bp["norm2"]["scale"], cfg.dtype)
-    return x + _gated_mlp(bp["mlp"], normed, cfg.dtype), k_cache, v_cache
+    return x + _mlp_forward(cfg, bp, normed), k_cache, v_cache
 
 
 def _embed_tokens(p: tp.Dict, tokens: torch.Tensor,

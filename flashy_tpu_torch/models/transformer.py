@@ -13,6 +13,9 @@ cross over leaf for leaf (`models.convert.params_from_jax`):
     block_i.norm2.scale    [D]
     block_i.mlp.up.kernel  [D, 2F]
     block_i.mlp.down.kernel [F, D]
+    block_i.moe.router.kernel [D, E]       (MoE layers, `models.moe`)
+    block_i.moe.w_up       [E, D, F]
+    block_i.moe.w_down     [E, F, D]
     norm_f.scale           [D]
 
 Activations run in `config.dtype`; kernels are cast to it at use, norms
@@ -22,7 +25,12 @@ Hopper flash kernels (`ops.attention.flash_attention`); `segment_ids`
 (packed batches) take the dense masked path, as in the JAX package.
 `mixer` picks each layer's sequence mixer ('attention', 'ssd' or a
 comma-separated pattern cycled over the depth); SSD layers run the
-chunked scan, on CUDA through the Hopper SSD kernel.
+chunked scan, on CUDA through the Hopper SSD kernel. With
+`moe_experts > 0` every block's MLP is a routed `MoEMLP` (gelu experts
+of width `dim * mlp_ratio`); its `moe_dispatch='dropless'` runs the
+expert projections as grouped matmuls, on CUDA through the Hopper
+grouped-GEMM kernels, and `forward(..., return_aux=True)` also returns
+the summed load-balancing loss.
 """
 import dataclasses
 import math
@@ -33,13 +41,15 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention, flash_attention
+from ..parallel.moe_ep import TODO_EXPERT_PARALLEL
 from ..utils import resolve_device
+from .moe import MoEMLP, moe_aux_loss
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
 TODO_REMAT_POLICY = "ROADMAP.md queue A item 2, T1 (remat 'dots' policies)"
 TODO_DROPOUT = "ROADMAP.md queue A item 2, T2 (dropout)"
-TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (MoE / "
-                        "scan-stacked decode)")
+TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (scan-stacked "
+                        "layouts; MoE in the serving engine)")
 TODO_RING = "ROADMAP.md queue B row 8 (ring attention, multi-GPU)"
 
 
@@ -57,11 +67,13 @@ class TransformerConfig:
     remat: bool = False          # recompute each block in the backward
     remat_policy: str = "full"   # what remat saves: 'full' = nothing
     dropout: float = 0.0         # > 0 is not ported (check_supported)
-    # layouts the JAX package has and the port does not yet: setting
-    # them raises NotImplementedError (check_supported); their other
-    # fields (moe_top_k, ...) arrive with them
-    moe_experts: int = 0
-    scan_layers: bool = False
+    moe_experts: int = 0         # > 0 replaces the MLP with a routed MoE
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"  # einsum | sorted | dropless (the Hopper
+                                  # grouped-GEMM kernels); dropless_ep is
+                                  # not ported (check_supported)
+    scan_layers: bool = False    # True is not ported (check_supported)
     mixer: str = "attention"     # 'attention', 'ssd' or a pattern such
                                  # as 'ssd,attention' (mixer_pattern)
     ssd_state_dim: int = 16      # Dstate of SSD layers ([H, Dh, Dstate])
@@ -87,9 +99,10 @@ def mixer_pattern(cfg: TransformerConfig) -> tp.Tuple[str, ...]:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for layouts the port cannot hold yet."""
-    if cfg.moe_experts > 0:
+    if cfg.moe_experts > 0 and cfg.moe_dispatch == "dropless_ep":
         raise NotImplementedError(
-            f"moe_experts > 0 is not ported yet: {TODO_DECODE_VARIANTS}")
+            f"moe_dispatch='dropless_ep' is not ported yet: "
+            f"{TODO_EXPERT_PARALLEL}")
     mixer_pattern(cfg)  # raises on an unknown mixer name
     if cfg.scan_layers:
         raise NotImplementedError(
@@ -230,14 +243,22 @@ class Block(nn.Module):
         else:
             self.attn = Attention(cfg, generator, device)
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
-        self.mlp = MLPBlock(cfg, generator, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(cfg.dim, cfg.dim * cfg.mlp_ratio,
+                              cfg.moe_experts, cfg.moe_top_k,
+                              cfg.moe_capacity_factor, cfg.dtype,
+                              cfg.moe_dispatch, generator=generator,
+                              device=device)
+        else:
+            self.mlp = MLPBlock(cfg, generator, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         mix = self.ssd if self.mixer == "ssd" else self.attn
         x = x + mix(self.norm1(x), positions, segment_ids)
-        return x + self.mlp(self.norm2(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.norm2(x))
 
 
 class TransformerLM(nn.Module):
@@ -273,13 +294,19 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: tp.Optional[torch.Tensor] = None,
                 segment_ids: tp.Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> tp.Any:
+                return_hidden: bool = False,
+                return_aux: bool = False) -> tp.Any:
         """Logits [B, T, vocab] f32, or with `return_hidden` the final
         hidden states and the tied embedding (for a chunked loss that
-        never materializes the logits). `segment_ids` ([B, T], 0 =
+        never materializes the logits), or with `return_aux` the logits
+        and the MoE layers' summed load-balancing loss of this forward
+        (`models.moe.moe_aux_loss`). `segment_ids` ([B, T], 0 =
         padding) makes attention segment-aware for packed batches; pass
         the packer's per-segment `positions` with them."""
         cfg = self.config
+        if return_hidden and return_aux:
+            raise ValueError("return_hidden and return_aux exclude each "
+                             "other (the chunked loss takes no MoE aux)")
         if tokens.shape[1] > cfg.max_seq_len \
                 and "attention" in mixer_pattern(cfg):
             # nothing in a pure-SSD stack caps T
@@ -300,4 +327,7 @@ class TransformerLM(nn.Module):
         x = self.norm_f(x)
         if return_hidden:
             return x, self.embed
-        return x.float() @ self.embed.to(cfg.dtype).float().t()
+        logits = x.float() @ self.embed.to(cfg.dtype).float().t()
+        if return_aux:
+            return logits, moe_aux_loss(self)
+        return logits

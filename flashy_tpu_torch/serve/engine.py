@@ -39,6 +39,7 @@ TODO_LAYOUTS = ("ROADMAP.md queue A item 3, L1 (the dense layout, and "
                 "hybrid ssd serving on its per-slot slabs)")
 TODO_SPECULATIVE = ("ROADMAP.md queue A item 3, L2 (speculative decode + "
                     "serve/draft.py)")
+TODO_MOE_SERVING = "ROADMAP.md queue A item 3, L7 (MoE in the serving engine)"
 
 
 def state_bytes_per_slot(cfg: tp.Any, max_seq_len: int, cache_layout: str,
@@ -168,6 +169,10 @@ class DecodeEngine:
         check_same_device("model", model.embed, self.device)
         self._cfg = cfg = model.config
         check_supported(cfg)
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                f"serving an MoE model through the engine is not ported "
+                f"yet (`generate` decodes it): {TODO_MOE_SERVING}")
         if cache_layout not in ("dense", "paged", "ssd"):
             raise ValueError(f"cache_layout must be 'dense', 'paged' or "
                              f"'ssd', got {cache_layout!r}")

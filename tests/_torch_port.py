@@ -20,8 +20,10 @@ def tiny_pair(seed: int = 0, **overrides):
                                                      TransformerLM)
     kw = {**TINY, "attention": "dense", **overrides}
     jax_model = JaxLM(JaxConfig(**kw, dtype=jnp.float32))
-    params = jax.jit(jax_model.init)(jax.random.PRNGKey(seed),
-                                     jnp.zeros((1, 8), jnp.int32))
+    # only the parameters: an MoE model's init also returns the losses
+    # its layers sow, which `apply(..., mutable=["losses"])` would extend
+    params = {"params": jax.jit(jax_model.init)(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]}
     cfg = TransformerConfig(**kw, dtype=torch.float32)
     model = TransformerLM(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),

@@ -47,6 +47,8 @@ def test_package_imports_with_jax_unimportable():
         "import flashy_tpu_torch.serve.scheduler, "
         "flashy_tpu_torch.models.convert, flashy_tpu_torch.ops.paged_decode\n"
         "import flashy_tpu_torch.models.ssd, flashy_tpu_torch.ops.ssd_scan\n"
+        "import flashy_tpu_torch.models.moe, flashy_tpu_torch.parallel.moe_ep, "
+        "flashy_tpu_torch.ops.grouped_matmul\n"
         "import flashy_tpu_torch.examples.lm.solver, "
         "flashy_tpu_torch.ops.losses, flashy_tpu_torch.checkpoint\n"
         "import chip_smoke\n"

@@ -54,7 +54,8 @@ def test_unported_paths_raise_not_implemented():
                                                      TransformerLM)
     from flashy_tpu_torch.serve.engine import DecodeEngine
     base = dict(TINY, dtype=torch.float32)
-    for bad in (dict(moe_experts=2), dict(scan_layers=True),
+    for bad in (dict(moe_experts=2, moe_dispatch="dropless_ep"),
+                dict(scan_layers=True),
                 dict(dropout=0.1), dict(remat=True, remat_policy="dots")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(**base, **bad), device="cpu")

@@ -98,7 +98,8 @@ def test_remat_gives_bit_equal_grads():
      "ROADMAP.md queue A item 2, T1"),
     ({"remat_policy": "bogus"}, ValueError, "remat_policy"),
     ({"dropout": 0.1}, NotImplementedError, "ROADMAP.md queue A item 2, T2"),
-    ({"moe_experts": 4}, NotImplementedError, "ROADMAP.md"),
+    ({"moe_experts": 4, "moe_dispatch": "dropless_ep"}, NotImplementedError,
+     "ROADMAP.md"),
     ({"scan_layers": True}, NotImplementedError, "ROADMAP.md"),
 ])
 def test_layouts_the_port_lacks_raise(overrides, error, match):
