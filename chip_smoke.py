@@ -8,7 +8,7 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile the four kernel sources from flashy_tpu_torch/csrc
+  1. build   compile the five kernel sources from flashy_tpu_torch/csrc
              with nvcc, one process per source, started together;
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
@@ -37,6 +37,14 @@ failure with a non-zero exit:
              and both mixed forms -> bf16: f32 within 1e-5 of max
              |plain|, bf16 within one ulp, rows past the groups and
              empty tgmm groups exactly zero;
+  4c. ring kernel  the ring-attention kernel, one launch per rank, against
+             its plain version (TF32 off): n in {1, 2, 4, 8} ranks of t
+             in {64, 100 (ragged), 512} rows, B 2, H 16, D 64, causal and
+             not, f32 and bf16: f32 out and lse within 1e-5 of max
+             |plain|, bf16 out within one ulp with at most 1% not
+             bit-equal, lse within 1e-5 relative; the global output
+             against the scan ring and dense attention at the flash bars;
+             one rank bit-equal to the flash forward;
   5. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
              stream token-exact against the port's dense-cache
@@ -92,7 +100,25 @@ failure with a non-zero exit:
              ms, peak memory; a profiled window of 3 steps; then each
              grouped kernel's two launches of a layer at the training
              shapes, held against the plain version and timed beside
-             the bound, the plain version and torch._grouped_mm.
+             the bound, the plain version and torch._grouped_mm;
+ 13. ring step  the 235M model in f32 (TF32 off) at batch 2, seq 256 on a
+             4-rank ring: loss and every gradient with attention=
+             'ring_fused' against 'ring' (1e-5 of max |value|: the same
+             backward) and both against 'flash' (1e-4); launches: ring
+             forward 12 x 4, split dQ and dK/dV 12 x 10 each (the
+             visible (rank, step) pairs), the scan ring's flash forward
+             12 x 10;
+ 14. ring train  the 235M model in bf16 with attention=ring_fused,
+             mesh.seq=4, batch 8, seq 2048 (16384 tokens a step) through
+             `main` in a fresh XP: 6 steps and 2 valid steps, the step
+             loss finite and falling, the ring kernel launched 12 x 4 x
+             (train + valid steps) times, the split pair 12 x 10 x train
+             steps each, no other flash kernel; tokens/s, step ms, peak
+             memory; a profiled window of 3 steps; then the ring kernel
+             at these shapes (4 ranks of [8, 512, 16, 64], causal), held
+             against its plain version and timed per rank and for the
+             four together beside the bound, the plain version and one
+             scaled_dot_product_attention call over the 2048 tokens.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -673,8 +699,7 @@ def check_flash_kernels(torch, device, card):
 # ----------------------------------------------------------------------
 def phase_step(torch, device, card):
     """Loss and grads of the full-width model at batch 2, seq 256 in f32
-    through the fused backward, the split pair and the dense path.
-    Returns the split run's launch counts (the split kernels' path)."""
+    through the fused backward, the split pair and the dense path."""
     import functools
     from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
     from flashy_tpu_torch.models import transformer
@@ -732,7 +757,6 @@ def phase_step(torch, device, card):
           f"flash vs dense: loss rel err {loss_err:.2e}, grads max rel err "
           f"{worst:.2e} (limit {STEP_REL_TOL}); launches fused "
           f"{want['fused']}, split {want['split']} [{card}]", flush=True)
-    return counts["split"]
 
 
 # ----------------------------------------------------------------------
@@ -1589,11 +1613,291 @@ def time_gmm(torch, device, card):
     return times, errors
 
 
+# ----------------------------------------------------------------------
+# ring phases: the ring-attention kernel, the ring step, ring training
+# ----------------------------------------------------------------------
+RING_SOURCE = "flashy_tpu_torch/csrc/ring_attention.cu"
+RING_REPLACES = "flashy_tpu/parallel/ring_fused.py:78"
+RING_RTOL = 1e-5               # f32 out and lse, relative to max |plain|
+RING_CASES = tuple((n, t, causal) for n in (1, 2, 4, 8)
+                   for t in (64, 100, 512) for causal in (True, False))
+RING_ARGS = ["model.attention=ring_fused", "mesh.seq=4", "seq_len=2048",
+             "batch_size=8"]
+
+
+def ring_inputs(torch, device, dtype, n, t, B=2, H=16, D=64, seed=0):
+    """Global q, k, v [B, n t, H, D] in `dtype` and each one's n
+    contiguous rank blocks."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    full = [torch.randn((B, n * t, H, D), generator=g, device=device
+                        ).to(dtype) for _ in range(3)]
+    return full, [[x.contiguous() for x in y.split(t, dim=1)] for y in full]
+
+
+def compare_ring(torch, qs, ks, vs, causal, label):
+    """Each rank's kernel launch against the plain version on the same
+    blocks: f32 out and lse within RING_RTOL of max |plain|; bf16 out
+    within one ulp with at most PLACEMENT_SHARE of the outputs not
+    bit-equal, lse within RING_RTOL relative. Fails on a miss; returns
+    (max abs err of out, the largest share not bit-equal, the global
+    output of the kernel)."""
+    from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
+                                                      ring_forward_plain)
+    err = share = 0.0
+    outs = []
+    for rank, q in enumerate(qs):
+        out, lse = ring_forward(q, ks, vs, rank, causal)
+        want, want_lse = ring_forward_plain(q, ks, vs, rank, causal)
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        lse_rel = rel_err(lse, want_lse)
+        if q.dtype == torch.float32:
+            bad = rel_err(out, want) > RING_RTOL
+        else:
+            excess = (diff - PLACEMENT_RTOL * want.float().abs()).max().item()
+            share = max(share, (out != want).float().mean().item())
+            bad = excess > PLACEMENT_ATOL or share > PLACEMENT_SHARE
+        if bad or lse_rel > RING_RTOL or not math.isfinite(diff.max().item()):
+            fail(f"{label} rank {rank}: out max abs err {diff.max().item()}, "
+                 f"{share:.4f} not bit-equal, lse rel err {lse_rel}")
+        err = max(err, diff.max().item())
+        outs.append(out)
+    return err, share, torch.cat(outs, dim=1)
+
+
+def check_ring_kernel(torch, device, card):
+    """The ring kernel against its plain version on RING_CASES (n ranks of
+    t rows, B 2, H 16, D 64, causal and not) in f32 and bf16, and its
+    global output against the scan ring and dense attention over the
+    gathered sequence at the flash bars; one rank is bit-equal to the
+    flash forward (the same tile code). Returns {dtype: max abs err}."""
+    from flashy_tpu_torch.ops import attention as A
+    from flashy_tpu_torch.parallel import make_mesh, ring_self_attention
+    from flashy_tpu_torch.parallel.ring_fused import ring_forward
+    errors = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        worst = share = scan_err = dense_err = 0.0
+        for seed, (n, t, causal) in enumerate(RING_CASES):
+            label = f"ring {name} n={n} t={t} causal={causal}"
+            (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, dtype, n, t,
+                                                  seed=seed)
+            err, share_c, out = compare_ring(torch, qs, ks, vs, causal, label)
+            worst, share = max(worst, err), max(share, share_c)
+            scan = ring_self_attention(q, k, v, mesh=make_mesh({"seq": n}),
+                                       causal=causal, impl="scan")
+            dense = A.dot_product_attention(q, k, v, causal=causal)
+            e_scan = (out.float() - scan.float()).abs().max().item()
+            e_dense = (out.float() - dense.float()).abs().max().item()
+            if not e_scan <= tol or not e_dense <= tol:
+                fail(f"{label}: vs scan ring {e_scan}, vs dense {e_dense} "
+                     f"(limit {tol})")
+            scan_err, dense_err = max(scan_err, e_scan), max(dense_err,
+                                                             e_dense)
+            if n == 1:
+                got = ring_forward(qs[0], ks, vs, 0, causal)
+                want = A.flash_forward(q, k, v, causal)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    fail(f"{label}: one rank not bit-equal to the flash "
+                         f"forward")
+            del q, k, v, qs, ks, vs, out, scan, dense
+        errors[name] = worst
+        placement = (f", {share:.4f} of outputs not bit-equal (limit "
+                     f"{PLACEMENT_SHARE}), each within one ulp"
+                     if dtype == torch.bfloat16 else
+                     f" (limit {RING_RTOL} of max |plain|)")
+        print(f"ring kernel {name}: {len(RING_CASES)} cases (n 1/2/4/8, t "
+              f"64/100/512, causal and not), vs plain max abs err "
+              f"{worst:.3e}{placement}; vs scan ring {scan_err:.3e}, vs "
+              f"dense {dense_err:.3e} (limit {tol}); one rank == flash "
+              f"forward bitwise [{card}]", flush=True)
+    return errors
+
+
+def phase_ring_step(torch, device, card):
+    """Loss and grads of the full-width model in f32 at batch 2, seq 256
+    on a 4-rank ring: 'ring_fused' against 'ring' (the same backward:
+    within RING_RTOL) and both against 'flash' (STEP_REL_TOL per leaf),
+    each run's launches counted."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.parallel import make_mesh, ring_fused
+    tokens = torch.from_numpy(synthetic_token_stream(32768)(2, 256, 0)
+                              ).long().to(device)
+    results, counts = {}, {}
+    mesh = make_mesh({"seq": 4}, devices=[device] * 4)
+    for kind in ("ring_fused", "ring", "flash"):
+        model = TransformerLM(model_config(torch, torch.float32, 256, kind),
+                              device=device, seed=3, mesh=mesh)
+        attention.reset_launch_counts()
+        ring_fused.reset_launch_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = lm_next_token_loss(model, tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts[kind] = {key: value for key, value in
+                        {**attention.launch_counts,
+                         **ring_fused.launch_counts}.items() if value}
+        results[kind] = (loss.item(), {name: p.grad for name, p in
+                                       model.named_parameters()})
+        del model
+    layers, pairs = 12, 10                   # visible (rank, step) pairs
+    want = {"ring_fused": {"ring_fwd": layers * 4,
+                           "flash_bwd_dq": layers * pairs,
+                           "flash_bwd_dkv": layers * pairs},
+            "ring": {"flash_fwd": layers * pairs,
+                     "flash_bwd_dq": layers * pairs,
+                     "flash_bwd_dkv": layers * pairs},
+            "flash": {"flash_fwd": layers, "flash_bwd_fused": layers}}
+    if counts != want:
+        fail(f"ring step: launches {counts}, expected {want}")
+    fused, scan, flash = (results[k] for k in ("ring_fused", "ring",
+                                                "flash"))
+
+    def worst(a, b):
+        return max(abs(a[0] - b[0]) / abs(b[0]),
+                   max(rel_err(grad, b[1][name])
+                       for name, grad in a[1].items()))
+
+    fused_scan, scan_flash, fused_flash = (worst(fused, scan),
+                                           worst(scan, flash),
+                                           worst(fused, flash))
+    if not fused_scan <= RING_RTOL or not max(scan_flash, fused_flash) \
+            <= STEP_REL_TOL:
+        fail(f"ring step: ring_fused vs ring {fused_scan:.2e} (limit "
+             f"{RING_RTOL}); ring vs flash {scan_flash:.2e}, ring_fused vs "
+             f"flash {fused_flash:.2e} (limit {STEP_REL_TOL})")
+    print(f"ring step: 235M f32 b2 t256 on 4 ring ranks, loss "
+          f"{fused[0]:.6f}; loss and all {len(fused[1])} grads, max rel "
+          f"err: ring_fused vs ring {fused_scan:.2e} (limit {RING_RTOL}), "
+          f"ring vs flash {scan_flash:.2e}, ring_fused vs flash "
+          f"{fused_flash:.2e} (limit {STEP_REL_TOL}); launches {counts} "
+          f"[{card}]", flush=True)
+
+
+def phase_ring_train(torch, card, folder):
+    """The 235M layout in bf16 with attention='ring_fused' on a 4-rank
+    ring (batch 8, seq 2048: 16384 tokens a step, as `train`) through
+    `main` in a fresh XP: 1 epoch of 6 steps and 2 valid steps. Returns
+    (launch counts, the solver)."""
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.parallel import ring_fused
+    from flashy_tpu_torch.utils import percentile
+    args = [a for a in TRAIN_ARGS if not a.startswith(
+        ("steps_per_epoch", "valid_steps", "seq_len", "batch_size"))]
+    args += RING_ARGS + ["steps_per_epoch=6", "valid_steps=2", "epochs=1",
+                         f"dora.dir={folder}"]
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    ring_fused.reset_launch_counts()
+    solver = lm_main(args)
+    torch.cuda.synchronize()
+    counts = {**attention.launch_counts, **ring_fused.launch_counts}
+    cfg = solver.cfg
+    train_steps, valid_steps = cfg.steps_per_epoch, cfg.valid_steps
+    layers, ranks, pairs = cfg.model.num_layers, cfg.mesh.seq, 10
+    want = {"ring_fwd": layers * ranks * (train_steps + valid_steps),
+            "flash_bwd_dq": layers * pairs * train_steps,
+            "flash_bwd_dkv": layers * pairs * train_steps,
+            "flash_fwd": 0, "flash_bwd_fused": 0}
+    if counts != want:
+        fail(f"ring train: launches {counts}, expected {want}")
+    losses = solver.step_losses
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"ring train: step losses {losses} not finite and falling")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"ring train: 235M bf16 b{cfg.batch_size} t{cfg.seq_len} on "
+          f"{ranks} ring ranks (attention=ring_fused), {train_steps} steps "
+          f"+ {valid_steps} valid, step losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
+          f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]", flush=True)
+    return counts, solver
+
+
+def ring_bound(B, H, t, D, ranks, elem):
+    """(bound ms, 'bytes' | 'operations') of the causal ring forward of
+    `ranks` (each rank's visible blocks: r full and its own triangle):
+    4 D operations per visible (query, key) pair at the bf16 peak against
+    q, out and the visible K and V blocks in `elem` bytes and the f32
+    lse, each once. For every rank of the ring together the K and V
+    inputs are the whole sequence's."""
+    pairs = sum(r * t * t + t * (t + 1) // 2 for r in ranks)
+    block = B * t * H * D * elem
+    k_v = 2 * (max(ranks) + 1) * block   # owners 0..max(ranks) are visible
+    nbytes = 2 * len(ranks) * block + k_v + len(ranks) * B * H * t * 4
+    op_ms = 4 * D * B * H * pairs / BF16_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def time_ring(torch, device, card):
+    """The ring kernel at the training shapes (4 ranks of [8, 512, 16, 64],
+    bf16, causal), held against its plain version as in `ring kernel`,
+    then timed with CUDA events per rank's launch and for the four
+    together, beside the bound, the plain version and one
+    F.scaled_dot_product_attention(is_causal=True) call over the whole
+    2048-token sequence. Returns (the four launches' times, max abs err)."""
+    import torch.nn.functional as F
+    from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
+                                                      ring_forward_plain)
+    B, H, t, D, n = 8, 16, 512, 64, 4
+    (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, torch.bfloat16, n,
+                                          t, B=B, H=H, D=D, seed=11)
+    err, share, _ = compare_ring(torch, qs, ks, vs, True,
+                                 "ring bfloat16 at the training shapes")
+    rows = []
+    for rank in range(n):
+        bound, by = ring_bound(B, H, t, D, [rank], 2)
+        rows.append((rank, time_ms(torch, lambda: ring_forward(
+            qs[rank], ks, vs, rank, True), iters=20), bound, by,
+            time_ms(torch, lambda: ring_forward_plain(
+                qs[rank], ks, vs, rank, True), iters=3)))
+
+    def all_ranks():
+        for rank in range(n):
+            ring_forward(qs[rank], ks, vs, rank, True)
+
+    def all_plain():
+        for rank in range(n):
+            ring_forward_plain(qs[rank], ks, vs, rank, True)
+
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound, by = ring_bound(B, H, t, D, list(range(n)), 2)
+    times = {"ms": time_ms(torch, all_ranks, iters=20),
+             "plain_ms": time_ms(torch, all_plain, iters=3),
+             "bound_ms": bound, "bound_by": by,
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, is_causal=True), iters=20)}
+    print(f"ring times ({n} ranks of B{B} H{H} t{t} D{D}, causal, bf16; vs "
+          f"plain max abs err {err:.3e}, {share:.4f} not bit-equal): "
+          + "; ".join(f"rank {r} ms={ms:.4f} bound_ms={b:.4f} ({by_}) "
+                      f"plain_ms={p:.4f}" for r, ms, b, by_, p in rows)
+          + f"; the four launches ms={times['ms']:.4f} bound_ms="
+          f"{times['bound_ms']:.4f} ({times['bound_by']}) plain_ms="
+          f"{times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+          f"(F.scaled_dot_product_attention, is_causal, T 2048) [{card}]",
+          flush=True)
+    return times, err
+
+
 def build_all():
     """nvcc for every kernel source at once; prints each build's
     register and spill lines."""
     from flashy_tpu_torch.ops import _build
-    names = ("paged_decode", "flash_attention", "ssd_scan", "grouped_matmul")
+    names = ("paged_decode", "flash_attention", "ssd_scan", "grouped_matmul",
+             "ring_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(_build.build, name) for name in names]:
@@ -1633,6 +1937,7 @@ def main() -> None:
     flash_errors = check_flash_kernels(torch, device, card)
     ssd_errors = check_ssd_kernel(torch, device, card)
     check_gmm_kernels(torch, device, card)
+    ring_errors = check_ring_kernel(torch, device, card)
     phase_exact(torch, device, card)
     phase_ssd_exact(torch, device, card)
 
@@ -1643,7 +1948,7 @@ def main() -> None:
                                      requests_n=8, prompt_len=64,
                                      max_new=32, label="int8 bf16")
     ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
-    split_counts = phase_step(torch, device, card)
+    phase_step(torch, device, card)
     phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver = phase_train(torch, card, folder)
@@ -1656,16 +1961,24 @@ def main() -> None:
                       label="profile moe train")
         del solver
     gmm_times, gmm_main_errors = time_gmm(torch, device, card)
-    # the split pair is the oracle: its path is the split run of phase 7
+    phase_ring_step(torch, device, card)
+    with tempfile.TemporaryDirectory() as folder:
+        ring_counts, solver = phase_ring_train(torch, card, folder)
+        profile_train(torch, solver, card, steps=3,
+                      label="profile ring train")
+        del solver
+    ring_times, ring_main_error = time_ring(torch, device, card)
+    # the split pair runs every ring backward: its main path is `ring
+    # train` (the split run of `step` and `ring step` check it too)
     flash_launches = {**train_counts,
-                      "flash_bwd_dq": split_counts["flash_bwd_dq"],
-                      "flash_bwd_dkv": split_counts["flash_bwd_dkv"]}
+                      "flash_bwd_dq": ring_counts["flash_bwd_dq"],
+                      "flash_bwd_dkv": ring_counts["flash_bwd_dkv"]}
     print(f"kernels: paged_decode={launches}, "
           f"paged_decode_int8={launches8}, " + ", ".join(
               f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
           + f", ssd_scan={ssd_launches}, " + ", ".join(
-              f"{name}={gmm_launches[name]}" for name in GMM_REPLACES),
-          flush=True)
+              f"{name}={gmm_launches[name]}" for name in GMM_REPLACES)
+          + f", ring_attention={ring_counts['ring_fwd']}", flush=True)
     source = "flashy_tpu_torch/csrc/paged_decode.cu"
     kernels = [
         {"name": "paged_decode", "route": "cuda", "source": source,
@@ -1705,6 +2018,14 @@ def main() -> None:
                         "launches": gmm_launches[name],
                         "max_abs_err": gmm_main_errors[name],
                         **gmm_times[name]})
+    # ms, plain_ms, bound_ms and library_ms: the four ranks' launches of
+    # one layer at the training shapes together (per rank on its line)
+    kernels.append({"name": "ring_attention", "route": "cuda",
+                    "source": RING_SOURCE, "replaces": RING_REPLACES,
+                    "launches": ring_counts["ring_fwd"],
+                    "max_abs_err": max(ring_errors["bfloat16"],
+                                       ring_main_error),
+                    **ring_times})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

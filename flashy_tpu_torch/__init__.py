@@ -6,8 +6,11 @@ These slices of the JAX package run here, on an NVIDIA H100:
   signatures, single-file checkpoints, logging) and the TransformerLM
   trained by `examples.lm.solver`, whose attention runs the hand-written
   Hopper flash kernels of `csrc/flash_attention.cu` (`ops.attention`),
-  and whose dropless MoE experts (`models.MoEMLP`) run the grouped-GEMM
-  kernels of `csrc/grouped_matmul.cu` (`ops.grouped_matmul`);
+  whose dropless MoE experts (`models.MoEMLP`) run the grouped-GEMM
+  kernels of `csrc/grouped_matmul.cu` (`ops.grouped_matmul`), and whose
+  sequence-parallel attention (`attention='ring_fused'`, `mesh.seq > 1`)
+  runs the ring kernel of `csrc/ring_attention.cu` (`parallel.ring_fused`)
+  over ranks that share one card;
 * serving: the TransformerLM behind a paged KV cache and a continuous-
   batching scheduler, every paged-attention read through the kernel of
   `csrc/paged_decode.cu` (`ops.paged_decode`).

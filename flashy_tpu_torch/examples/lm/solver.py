@@ -7,7 +7,12 @@ Trains the TransformerLM on a synthetic Markov token stream through the
 port's harness (`BaseSolver`, XP folders, single-file checkpoints). With
 `model.attention=flash` (the default) every attention call runs the
 Hopper flash kernels, forward on every step and the fused backward on
-every training step. With `model.moe_experts > 0` every MLP is a routed
+every training step. With `model.attention=ring_fused` (or `ring`) and
+`mesh.seq > 1` the sequence is cut over `mesh.seq` ring ranks that share
+the card: every forward runs the Hopper ring-attention kernel once per
+rank (`ring` the flash forward per block instead), every backward the
+split flash kernels once per visible (rank, ring step) pair. With
+`model.moe_experts > 0` every MLP is a routed
 MoE and the loss adds `model.moe_aux_weight` times the load-balancing
 loss; `model.moe_dispatch=dropless` runs the expert projections through
 the Hopper grouped-GEMM kernels, forward and backward. It runs on the
@@ -34,13 +39,12 @@ from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
 from ...models.transformer import TransformerConfig, TransformerLM
 from ...ops.losses import lm_next_token_loss
+from ...parallel.mesh import Mesh, make_mesh
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
 
 TODO_EMA = "ROADMAP.md queue A item 2, T3 (parameter EMA)"
-TODO_DATA_PARALLEL = "ROADMAP.md queue A item 5 (data parallelism)"
-TODO_MESH = "ROADMAP.md queue A item 8 (parallelism beyond data)"
 
 
 def synthetic_token_stream(vocab_size: int, seed: int = 0):
@@ -151,15 +155,18 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return {"loss": loss, "grad_norm": norm}
 
 
-def check_mesh(mesh: tp.Mapping) -> None:
-    """One card: `data: -1` resolves to 1; any axis above 1 raises."""
-    for axis, size in mesh.items():
-        size = int(size)
-        if size == 1 or (axis == "data" and size == -1):
-            continue
-        todo = TODO_DATA_PARALLEL if axis == "data" else TODO_MESH
-        raise NotImplementedError(f"mesh.{axis}={size} is not ported yet: "
-                                  f"{todo}")
+def check_mesh(mesh: tp.Mapping, attention: str) -> Mesh:
+    """The run's mesh, its ranks on the model's card: `data: -1`
+    resolves to 1, `seq` above 1 is a ring and needs `attention` 'ring'
+    or 'ring_fused' (with any other attention a `seq` axis would do
+    nothing on one card), and any other axis above 1 raises
+    NotImplementedError naming its ROADMAP item (`make_mesh`)."""
+    built = make_mesh({axis: int(size) for axis, size in mesh.items()})
+    if built.shape["seq"] > 1 and attention not in ("ring", "ring_fused"):
+        raise ValueError(f"mesh.seq={built.shape['seq']} cuts the sequence "
+                         f"over a ring, which needs model.attention=ring or "
+                         f"ring_fused, got {attention!r}")
+    return built
 
 
 class LMSolver(BaseSolver):
@@ -169,7 +176,7 @@ class LMSolver(BaseSolver):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_mesh(cfg.mesh)
+        self.mesh = check_mesh(cfg.mesh, cfg.model.attention)
         if float(cfg.get("ema_decay", 0.0)) > 0.0:
             raise NotImplementedError(f"ema_decay > 0 is not ported yet: "
                                       f"{TODO_EMA}")
@@ -191,7 +198,8 @@ class LMSolver(BaseSolver):
                 "loss=chunked is not supported with MoE or pipeline "
                 "parallelism (those paths need logits + aux losses); "
                 "use loss=dense.")
-        self.model = TransformerLM(model_cfg, device=self.device, seed=0)
+        self.model = TransformerLM(model_cfg, device=self.device, seed=0,
+                                   mesh=self.mesh)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         # the update count: the schedule reads it, so it is checkpointed
         self.state = {"step": 0}

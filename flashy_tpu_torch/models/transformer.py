@@ -23,6 +23,10 @@ accumulate in f32 and the tied head accumulates in f32. With
 `attention='flash'` every attention call on a CUDA tensor runs the
 Hopper flash kernels (`ops.attention.flash_attention`); `segment_ids`
 (packed batches) take the dense masked path, as in the JAX package.
+`attention='ring'` and `'ring_fused'` run sequence-parallel ring
+attention over the `seq` axis of the model's mesh
+(`parallel.ring_self_attention`): the flash kernels per block, or one
+Hopper ring kernel per rank (`csrc/ring_attention.cu`).
 `mixer` picks each layer's sequence mixer ('attention', 'ssd' or a
 comma-separated pattern cycled over the depth); SSD layers run the
 chunked scan, on CUDA through the Hopper SSD kernel. With
@@ -41,7 +45,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention, flash_attention
+from ..parallel.mesh import Mesh
 from ..parallel.moe_ep import TODO_EXPERT_PARALLEL
+from ..parallel.ring import ring_self_attention
 from ..utils import resolve_device
 from .moe import MoEMLP, moe_aux_loss
 
@@ -50,7 +56,6 @@ TODO_REMAT_POLICY = "ROADMAP.md queue A item 2, T1 (remat 'dots' policies)"
 TODO_DROPOUT = "ROADMAP.md queue A item 2, T2 (dropout)"
 TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (scan-stacked "
                         "layouts; MoE in the serving engine)")
-TODO_RING = "ROADMAP.md queue B row 8 (ring attention, multi-GPU)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,9 +175,10 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, mesh: tp.Optional[Mesh] = None):
         super().__init__()
         self.config = cfg
+        self.mesh = mesh
         h, dh = cfg.num_heads, cfg.head_dim
         self.qkv = _Kernel((cfg.dim, 3, h, dh), cfg.dim, generator, device)
         self.out = _Kernel((h, dh, cfg.dim), h * dh, generator, device)
@@ -203,8 +209,9 @@ class Attention(nn.Module):
             out = dot_product_attention(q, k, v, causal=cfg.causal,
                                         mask=segment_mask)
         elif cfg.attention in ("ring", "ring_fused"):
-            raise NotImplementedError(
-                f"attention={cfg.attention!r} is not ported yet: {TODO_RING}")
+            out = ring_self_attention(
+                q, k, v, mesh=self.mesh, causal=cfg.causal,
+                impl="fused" if cfg.attention == "ring_fused" else "scan")
         elif cfg.attention == "flash":
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
@@ -233,7 +240,8 @@ class Block(nn.Module):
     flax tree."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device, mixer: str = "attention"):
+                 device: torch.device, mixer: str = "attention",
+                 mesh: tp.Optional[Mesh] = None):
         super().__init__()
         self.mixer = mixer
         self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
@@ -241,7 +249,7 @@ class Block(nn.Module):
             from .ssd import SSDMixer
             self.ssd = SSDMixer(cfg, generator, device)
         else:
-            self.attn = Attention(cfg, generator, device)
+            self.attn = Attention(cfg, generator, device, mesh)
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
         if cfg.moe_experts > 0:
             self.moe = MoEMLP(cfg.dim, cfg.dim * cfg.mlp_ratio,
@@ -271,10 +279,14 @@ class TransformerLM(nn.Module):
         seed: seeds the random init (a `torch.Generator` on `device`).
             Weights from the JAX package load with `load_state_dict(
             params_from_jax(...))` instead.
+        mesh: the mesh whose `seq` axis ring attention runs over
+            (`parallel.make_mesh`); None takes `parallel.default_mesh()`
+            at call time, as the JAX package does.
     """
 
     def __init__(self, config: TransformerConfig, *,
-                 device: tp.Any = None, seed: int = 0):
+                 device: tp.Any = None, seed: int = 0,
+                 mesh: tp.Optional[Mesh] = None):
         super().__init__()
         check_supported(config)
         device = resolve_device(device)
@@ -284,7 +296,7 @@ class TransformerLM(nn.Module):
                             generator, device)
         for i, mixer in enumerate(mixer_pattern(config)):
             setattr(self, f"block_{i}", Block(config, generator, device,
-                                              mixer))
+                                              mixer, mesh))
         self.norm_f = RMSNorm(config.dim, config.dtype, device)
 
     @property

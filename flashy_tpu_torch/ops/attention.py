@@ -152,24 +152,42 @@ def flash_forward_blockwise(q: torch.Tensor, k: torch.Tensor,
     last block. Returns out [B, Tq, H, D] in q's dtype and the f32
     logsumexp [B, H, Tq].
     """
-    t_q, t_k, dim = q.shape[1], k.shape[1], q.shape[3]
-    scale, offset = flash_scale(dim), t_k - t_q
-    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    return online_softmax_blockwise(q, ((k, v, causal),), block_k=block_k)
+
+
+def online_softmax_blockwise(q: torch.Tensor, blocks: tp.Iterable[
+        tp.Tuple[torch.Tensor, torch.Tensor, bool]], *,
+                             block_k: int = FLASH_BLOCK
+                             ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """One online softmax over a sequence of (k, v, causal) key blocks,
+    visited in order, each in `block_k`-key steps: the loop of the flash
+    forward kernel (one block) and of the ring kernel (the ring's visible
+    blocks, `parallel.ring_fused.ring_forward_plain`). Each block's
+    causal mask aligns bottom-right against q. Returns (out in q's
+    dtype, f32 logsumexp [B, H, Tq])."""
+    t_q, dim = q.shape[1], q.shape[3]
+    scale = flash_scale(dim)
+    qh = _heads(q)
     m = torch.full(qh.shape[:3] + (1,), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qh)
-    for k0 in range(0, t_k, block_k):
-        if causal and k0 > t_q - 1 + offset:
-            break  # no query row sees these keys
-        scores = _scores(qh, kh[:, :, k0:k0 + block_k], 0, k0, scale=scale,
-                         causal=causal, offset=offset)
-        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        probs = _guarded_probs(scores, m_new)
-        l = l * alpha + probs.sum(-1, keepdim=True)
-        pv = torch.matmul(probs.to(v.dtype).float(), vh[:, :, k0:k0 + block_k])
-        acc = acc * alpha + pv
-        m = m_new
+    for k, v, causal in blocks:
+        t_k = k.shape[1]
+        offset = t_k - t_q
+        kh, vh = _heads(k), _heads(v)
+        for k0 in range(0, t_k, block_k):
+            if causal and k0 > t_q - 1 + offset:
+                break  # no query row sees these keys
+            scores = _scores(qh, kh[:, :, k0:k0 + block_k], 0, k0,
+                             scale=scale, causal=causal, offset=offset)
+            m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            probs = _guarded_probs(scores, m_new)
+            l = l * alpha + probs.sum(-1, keepdim=True)
+            pv = torch.matmul(probs.to(v.dtype).float(),
+                              vh[:, :, k0:k0 + block_k])
+            acc = acc * alpha + pv
+            m = m_new
     out = (acc / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
     return out.contiguous(), lse.contiguous()

@@ -1,0 +1,137 @@
+"""Single-kernel ring attention: the port of flashy_tpu/parallel/ring_fused.py.
+
+The whole ring-attention forward of one rank is one launch of the
+hand-written Hopper kernel `csrc/ring_attention.cu` (which replaces the
+Pallas TPU kernel `_fused_kernel`): for rank r it runs the flash online
+softmax across the ring steps s = 0, 1, ... over the K/V blocks of owners
+(r - s) mod n, skipping the steps s > r under `causal` and masking step 0
+in-block. The kernel pulls every visiting block through a table of the
+ranks' K and V pointers; the TPU kernel's RDMA slots, comm-driver sweep
+and semaphores have no counterpart (see the kernel's source note). The
+backward is the scan ring's (`ring._ring_backward_pass`), as the JAX
+custom VJP `_fused_bwd` has it.
+
+`ring_forward_plain` is the kernel's plain version: the same loop in
+PyTorch at the kernel's 64-key tile and in the same order, so in f32 it
+is the same function and in bf16 it rounds P where the kernel does. The
+wrapper `ring_forward` takes it only for tensors on the CPU; on CUDA it
+launches the kernel or raises.
+"""
+import ctypes
+import typing as tp
+
+import torch
+
+from ..ops import _build
+from ..ops.attention import (_FLASH_DTYPES, FLASH_HEAD_DIMS, _kernel_operand,
+                             _on_cpu, flash_scale, online_softmax_blockwise)
+from .ring import owner, run_ring, visible_steps
+
+# Launches of the ring kernel, one per rank and forward: a plain integer
+# bumped where the kernel is launched and nowhere else.
+launch_counts: tp.Dict[str, int] = {"ring_fwd": 0}
+
+_POINTERS = ctypes.POINTER(ctypes.c_void_p)
+_FUNCTIONS = {
+    "flashy_ring_forward": (ctypes.c_int, (
+        ctypes.c_int, ctypes.c_void_p,                       # dtype, q
+        _POINTERS, _POINTERS, ctypes.c_int, ctypes.c_int,    # k, v, n, rank
+        ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, T
+        ctypes.c_int, ctypes.c_int,                          # D, causal
+        ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def ring_forward_plain(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
+                       vs: tp.Sequence[torch.Tensor], rank: int,
+                       causal: bool = False
+                       ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in plain PyTorch for rank `rank`: one
+    online softmax over the visible steps' blocks in ring order, 64 keys
+    at a time. Returns (out [B, T, H, D] in q's dtype, lse [B, H, T])."""
+    n = len(ks)
+    blocks = [(ks[owner(rank, s, n)], vs[owner(rank, s, n)],
+               causal and s == 0) for s in visible_steps(rank, n, causal)]
+    return online_softmax_blockwise(q, blocks)
+
+
+def _check_kernel_inputs(q, ks, vs, rank):
+    def check(cond, message):
+        if not cond:
+            raise ValueError(f"ring attention kernel: {message}")
+
+    check(len(ks) == len(vs) >= 1 and 0 <= rank < len(ks),
+          f"{len(ks)} k and {len(vs)} v blocks for rank {rank}")
+    check(q.dim() == 4 and all(x.shape == q.shape for x in (*ks, *vs)),
+          f"every block must be [B, T, H, D] like q {tuple(q.shape)}")
+    check(all(x.dtype == q.dtype for x in (*ks, *vs))
+          and q.dtype in _FLASH_DTYPES,
+          f"dtypes must all be float32 or all bfloat16, q is {q.dtype}")
+    check(q.shape[3] in FLASH_HEAD_DIMS,
+          f"head_dim {q.shape[3]} not built (built: {FLASH_HEAD_DIMS})")
+    check(q.device.type == "cuda", f"runs on CUDA tensors, got {q.device}")
+    check(all(x.device == q.device for x in (*ks, *vs)),
+          "the ranks' blocks span devices")
+
+
+def _launch(q, ks, vs, rank, causal):
+    _check_kernel_inputs(q, ks, vs, rank)
+    q = _kernel_operand(q)
+    # contiguous, 16-byte aligned blocks; these references keep any copy
+    # alive until the launch is enqueued, and the stream orders its reuse
+    ks, vs = [_kernel_operand(x) for x in ks], [_kernel_operand(x) for x in vs]
+    n = len(ks)
+    k_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in ks))
+    v_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in vs))
+    batch, t, heads, dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((batch, heads, t), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load("ring_attention", _FUNCTIONS)
+    with torch.cuda.device(q.device):
+        err = lib.flashy_ring_forward(
+            _FLASH_DTYPES[q.dtype], q.data_ptr(), k_table, v_table, n, rank,
+            out.data_ptr(), lse.data_ptr(), batch, heads, t, dim,
+            int(causal), flash_scale(dim),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring attention kernel launch failed: "
+                           f"cudaError {err}")
+    launch_counts["ring_fwd"] += 1
+    return out, lse
+
+
+def ring_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
+                 vs: tp.Sequence[torch.Tensor], rank: int,
+                 causal: bool = False
+                 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Rank `rank`'s ring forward (out, lse [B, H, T]): the kernel on
+    CUDA (float32 or bfloat16, head dims in FLASH_HEAD_DIMS; anything
+    else raises), its plain version on the CPU."""
+    if _on_cpu(q):
+        return ring_forward_plain(q, ks, vs, rank, causal)
+    return _launch(q, ks, vs, rank, causal)
+
+
+def _fused_forward_pass(qs, ks, vs, causal: bool):
+    """Per-rank (outs, lses): one ring kernel launch per rank."""
+    results = [ring_forward(q, ks, vs, rank, causal)
+               for rank, q in enumerate(qs)]
+    return [out for out, _ in results], [lse for _, lse in results]
+
+
+def fused_ring_attention(qs: tp.Sequence[torch.Tensor],
+                         ks: tp.Sequence[torch.Tensor],
+                         vs: tp.Sequence[torch.Tensor],
+                         causal: bool = False) -> tp.List[torch.Tensor]:
+    """`ring.ring_attention`'s contract (the ranks' [B, T_local, H, D]
+    blocks in ring order in, their output blocks out), with the forward
+    one ring kernel per rank and the backward the scan ring's rotation
+    pass."""
+    return run_ring(_fused_forward_pass, qs, ks, vs, causal)

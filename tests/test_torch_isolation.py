@@ -51,6 +51,8 @@ def test_package_imports_with_jax_unimportable():
         "flashy_tpu_torch.ops.grouped_matmul\n"
         "import flashy_tpu_torch.examples.lm.solver, "
         "flashy_tpu_torch.ops.losses, flashy_tpu_torch.checkpoint\n"
+        "import flashy_tpu_torch.parallel.mesh, "
+        "flashy_tpu_torch.parallel.ring, flashy_tpu_torch.parallel.ring_fused\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")

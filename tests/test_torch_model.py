@@ -64,12 +64,6 @@ def test_unported_paths_raise_not_implemented():
                            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for attention in ("ring", "ring_fused"):
-        model = TransformerLM(TransformerConfig(**base, attention=attention),
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(tokens)
 
 
 def test_apply_step_logits_match_jax():
