@@ -845,15 +845,16 @@ def profile_train(torch, solver, card, steps=4, label="profile train"):
           f"{1 - busy_ms / wall_ms:.3f}); top: {top} [{card}]", flush=True)
 
 
-def flash_bounds(B, H, T, D, elem):
-    """{kernel: (bound ms, 'bytes' | 'operations')} at causal t_q = t_k =
-    T: operations over the bf16 peak for the visible q.k pairs, bytes
+def flash_bounds(B, H, T, D, elem, causal=True):
+    """{kernel: (bound ms, 'bytes' | 'operations')} at t_q = t_k = T,
+    causal or not: operations over the bf16 peak for the visible q.k
+    pairs, bytes
     (each input read once, each output written once) over 3.35 TB/s.
     'gradient' is the whole backward as a function (q, k, v, dO, lse, D
     in; dQ, dK, dV out): the bound of the fused kernel and its dQ fold
     together, whose f32 partials are this design's cost, not the
     function's."""
-    pairs = B * H * T * (T + 1) // 2
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     row = B * T * H * D * elem          # one [B, T, H, D] tensor
     stat = B * H * T * 4                # lse or D, f32
     partials = -(-T // 64) * B * T * H * D * 4
@@ -1796,6 +1797,7 @@ def phase_ring_train(torch, card, folder):
     args += RING_ARGS + ["steps_per_epoch=6", "valid_steps=2", "epochs=1",
                          f"dora.dir={folder}"]
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     attention.reset_launch_counts()
     ring_fused.reset_launch_counts()
     solver = lm_main(args)
@@ -1816,12 +1818,13 @@ def phase_ring_train(torch, card, folder):
     seconds = solver.step_seconds[2:]
     tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
     p50 = percentile(seconds, 50) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     print(f"ring train: 235M bf16 b{cfg.batch_size} t{cfg.seq_len} on "
           f"{ranks} ring ranks (attention=ring_fused), {train_steps} steps "
           f"+ {valid_steps} valid, step losses {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
-          f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; launches "
+          f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB above the "
+          f"{held / 2 ** 30:.1f} GiB held before the phase; launches "
           f"{ {k: v for k, v in counts.items() if v} } [{card}]", flush=True)
     return counts, solver
 
@@ -1848,7 +1851,9 @@ def time_ring(torch, device, card):
     then timed with CUDA events per rank's launch and for the four
     together, beside the bound, the plain version and one
     F.scaled_dot_product_attention(is_causal=True) call over the whole
-    2048-token sequence. Returns (the four launches' times, max abs err)."""
+    2048-token sequence; then the split backward pair on the same blocks
+    (`time_ring_backward`). Returns (the four launches' times, max abs
+    err, the split pair's times and errors)."""
     import torch.nn.functional as F
     from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
                                                       ring_forward_plain)
@@ -1889,7 +1894,132 @@ def time_ring(torch, device, card):
           f"{times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
           f"(F.scaled_dot_product_attention, is_causal, T 2048) [{card}]",
           flush=True)
-    return times, err
+    pair_times, pair_errors = time_ring_backward(torch, qs, ks, vs, card)
+    return times, err, pair_times, pair_errors
+
+
+def flash_library_backward(torch, q, k, v, do, out, lse, causal, scale):
+    """aten's flash-attention backward (the kernel behind
+    F.scaled_dot_product_attention's backward) on one block pair, handed
+    the pair's GLOBAL out and lse: (dq, dk, dv) of the same function as
+    the split pair's, in one call. Returns that call."""
+    aten = torch.ops.aten
+    qh, kh, vh, doh, oh = (x.transpose(1, 2) for x in (q, k, v, do, out))
+    aux = aten._scaled_dot_product_flash_attention(
+        qh, kh, vh, 0.0, causal, False, scale=scale)[2:8]
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        doh, qh, kh, vh, oh, lse, *aux[:4], 0.0, causal, *aux[4:],
+        scale=scale)
+
+
+def time_ring_backward(torch, qs, ks, vs, card):
+    """The split backward pair on what `ring train`'s backward feeds it:
+    every visible (rank, step) pair of the causal ring of `qs`, `ks`,
+    `vs` with each rank's GLOBAL out and lse from the ring kernel and D =
+    rowsum(dO.O). Each pair's dQ, dK and dV are held against the
+    blockwise plain versions on the same arguments at FLASH_TOL relative
+    to max |plain|, diagonal (causal) and off-diagonal pairs both. Then
+    one pair of each kind is timed (CUDA events) beside its bound, the
+    plain versions and aten's flash-attention backward handed the same
+    out and lse (its time only where it agrees at FLASH_TOL). Returns
+    ({kernel: mean per launch over the ring's pairs}, {kernel: max abs
+    err against plain})."""
+    from flashy_tpu_torch.ops import attention as A
+    from flashy_tpu_torch.parallel.ring import owner, visible_steps
+    from flashy_tpu_torch.parallel.ring_fused import ring_forward
+    n, (B, t, H, D) = len(qs), qs[0].shape
+    tol = FLASH_TOL[str(qs[0].dtype).split(".")[1]]
+    g = torch.Generator(device=qs[0].device).manual_seed(13)
+    dos = [torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+           for q in qs]
+    stats = [ring_forward(q, ks, vs, rank, True) for rank, q in enumerate(qs)]
+    deltas = [A.flash_delta(do, out) for do, (out, _) in zip(dos, stats)]
+    errors = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    kinds = {}                 # diag -> (pair count, rank, args, dq, dk, dv)
+    for rank in range(n):
+        for step in visible_steps(rank, n, True):
+            j = owner(rank, step, n)
+            args = (qs[rank], ks[j], vs[j], dos[rank], stats[rank][1],
+                    deltas[rank], step == 0)
+            dq, dk, dv = A.flash_backward_split(*args)
+            want_dq = A.flash_backward_dq_blockwise(*args)
+            want_dk, want_dv = A.flash_backward_dkv_blockwise(*args)
+            rels = {"flash_bwd_dq": rel_err(dq, want_dq),
+                    "flash_bwd_dkv": max(rel_err(dk, want_dk),
+                                         rel_err(dv, want_dv))}
+            for key, rel in rels.items():
+                if not math.isfinite(rel) or rel > tol:
+                    fail(f"ring backward rank {rank} step {step} (owner "
+                         f"{j}): {key} relative err {rel} > {tol}")
+            errors["flash_bwd_dq"] = max(
+                errors["flash_bwd_dq"],
+                (dq.float() - want_dq.float()).abs().max().item())
+            errors["flash_bwd_dkv"] = max(
+                errors["flash_bwd_dkv"],
+                (dk.float() - want_dk.float()).abs().max().item(),
+                (dv.float() - want_dv.float()).abs().max().item())
+            count = kinds.get(step == 0, (0,))[0] + 1
+            kinds[step == 0] = (count, rank, args, dq, dk, dv)
+            del want_dq, want_dk, want_dv
+    rows = {}
+    for diag, (count, rank, args, dq, dk, dv) in kinds.items():
+        bounds = flash_bounds(B, H, t, D, qs[0].element_size(), causal=diag)
+        try:
+            call = flash_library_backward(torch, *args[:4], stats[rank][0],
+                                          args[4], diag, A.flash_scale(D))
+            got = call()
+            lib_rel = max(rel_err(a.transpose(1, 2), b)
+                          for a, b in zip(got[:3], (dq, dk, dv)))
+            lib_ms = time_ms(torch, call, iters=20) if lib_rel <= tol \
+                else None
+            why = "" if lib_ms is not None else \
+                f"disagrees: rel err {lib_rel:.2e}"
+        except (AttributeError, RuntimeError, TypeError, ValueError) as err:
+            lib_ms, why = None, str(err).splitlines()[0][:80]
+        rows[diag] = (count, {
+            "flash_bwd_dq": (
+                time_ms(torch, lambda: A._launch_backward(A._BWD_DQ, *args),
+                        iters=20),
+                time_ms(torch, lambda: A.flash_backward_dq_blockwise(*args),
+                        iters=3), *bounds["flash_bwd_dq"]),
+            "flash_bwd_dkv": (
+                time_ms(torch, lambda: A._launch_backward(A._BWD_DKV, *args),
+                        iters=20),
+                time_ms(torch, lambda: A.flash_backward_dkv_blockwise(*args),
+                        iters=3), *bounds["flash_bwd_dkv"])}, lib_ms, why)
+    total = sum(count for count, _, _, _ in rows.values())
+    times = {}
+    for name in errors:
+        def mean(i):
+            return sum(count * per[name][i]
+                       for count, per, _, _ in rows.values()) / total
+        libs = [lib for _, _, lib, _ in rows.values()]
+        times[name] = {
+            "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
+            "bound_by": max((per[name] for _, per, _, _ in rows.values()),
+                            key=lambda r: r[2])[3],
+            "library_ms": (None if None in libs else sum(
+                count * lib for count, _, lib, _ in rows.values()) / total)}
+    print(f"ring backward ({n} ranks of B{B} H{H} t{t} D{D}, causal, bf16, "
+          f"the ring kernel's global out and lse): {total} visible pairs vs "
+          f"plain max abs err " + ", ".join(
+              f"{k}={v:.3e}" for k, v in errors.items())
+          + f" (tolerance {tol} relative); " + "; ".join(
+              f"{'diagonal' if diag else 'off-diagonal'} pair (x{count}): "
+              + ", ".join(f"{name} ms={ms:.4f} bound_ms={bound:.4f} ({by}) "
+                          f"plain_ms={plain:.4f}"
+                          for name, (ms, plain, bound, by) in per.items())
+              + " library_ms=" + (f"{lib:.4f}" if lib is not None
+                                  else f"none ({why})")
+              for diag, (count, per, lib, why) in rows.items())
+          + "; mean per launch over the pairs: " + "; ".join(
+              f"{name} ms={t_['ms']:.4f} bound_ms={t_['bound_ms']:.4f} "
+              f"plain_ms={t_['plain_ms']:.4f} library_ms="
+              + (f"{t_['library_ms']:.4f}" if t_["library_ms"] is not None
+                 else "none") for name, t_ in times.items())
+          + f" (library: aten flash-attention backward with the same out "
+          f"and lse, dq, dk and dv in one call) [{card}]", flush=True)
+    return times, errors
 
 
 def build_all():
@@ -1967,12 +2097,16 @@ def main() -> None:
         profile_train(torch, solver, card, steps=3,
                       label="profile ring train")
         del solver
-    ring_times, ring_main_error = time_ring(torch, device, card)
+    ring_times, ring_main_error, pair_times, pair_errors = time_ring(
+        torch, device, card)
     # the split pair runs every ring backward: its main path is `ring
-    # train` (the split run of `step` and `ring step` check it too)
+    # train`, so its rows take the launches, times and errors of the
+    # ring's pairs (the split run of `step` and `ring step` check it too)
+    split = ("flash_bwd_dq", "flash_bwd_dkv")
     flash_launches = {**train_counts,
-                      "flash_bwd_dq": ring_counts["flash_bwd_dq"],
-                      "flash_bwd_dkv": ring_counts["flash_bwd_dkv"]}
+                      **{name: ring_counts[name] for name in split}}
+    flash_times.update({name: pair_times[name] for name in split})
+    main_errors.update({name: pair_errors[name] for name in split})
     print(f"kernels: paged_decode={launches}, "
           f"paged_decode_int8={launches8}, " + ", ".join(
               f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
@@ -1995,7 +2129,7 @@ def main() -> None:
          "library_ms": timing8["library_ms"]},
     ]
     # bf16, the main path's dtype: the worst of the small cases and of the
-    # training shapes
+    # main path's shapes
     for name, replaces in FLASH_REPLACES.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": FLASH_SOURCE, "replaces": replaces,

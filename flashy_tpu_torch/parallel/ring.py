@@ -173,8 +173,9 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     construction: 'scan' (the flash kernels per block, `ring_attention`)
     or 'fused' (one ring kernel per rank, `ring_fused`). `batch_axes`
     name the axes the JAX package shards the batch over; they are all of
-    size 1 on a port mesh (`make_mesh`). The tensors must lie on the
-    mesh's device.
+    size 1 on a port mesh (`make_mesh`), so the argument is accepted for
+    the JAX signature's sake: its names are checked and it changes
+    nothing that runs. The tensors must lie on the mesh's device.
     """
     mesh = mesh or default_mesh()
     for name in (axis, *batch_axes):
