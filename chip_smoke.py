@@ -16,7 +16,8 @@ failure with a non-zero exit:
              bf16 against the entry-by-entry reference that rounds
              where the TPU kernel does: one bf16 ulp apart at most,
              and bit-equal almost everywhere;
-  3. flash   the four flash-attention kernels at head_dim 64 against
+  3. flash   the four flash-attention kernels at head_dim 64 (the bf16
+             forward the Hopper wgmma/TMA step) against
              their plain versions (f32 and bf16; causal and not; t_k
              equal to, above and below t_q, the last with empty rows;
              ragged T): forward against the dense path and, in bf16,
@@ -88,10 +89,11 @@ failure with a non-zero exit:
              times and the fused backward 12 x train steps; a second
              call with 3 epochs restores and continues; tokens/s and
              step ms; then a profiled training window (idle share, top
-             device kernels); then each flash kernel at these shapes,
-             held against its plain version as in phase 3 and timed
-             beside its bound, its plain version and PyTorch's
-             scaled_dot_product_attention;
+             device kernels, the forward kernel's device ms a step);
+             then each flash kernel at these shapes, held against its
+             plain version as in phase 3 and timed three times (median
+             and spread) beside its bound, its plain version and
+             PyTorch's scaled_dot_product_attention;
  12. moe train  the MoE layout in bf16 at batch 16, seq 1024 through
              `main` with moe_dispatch=dropless in a fresh XP: 6 steps
              and 2 valid steps, the step loss finite and falling, the
@@ -114,11 +116,13 @@ failure with a non-zero exit:
              loss finite and falling, the ring kernel launched 12 x 4 x
              (train + valid steps) times, the split pair 12 x 10 x train
              steps each, no other flash kernel; tokens/s, step ms, peak
-             memory; a profiled window of 3 steps; then the ring kernel
-             at these shapes (4 ranks of [8, 512, 16, 64], causal), held
-             against its plain version and timed per rank and for the
-             four together beside the bound, the plain version and one
-             scaled_dot_product_attention call over the 2048 tokens.
+             memory; a profiled window of 3 steps (the ring kernel's
+             device ms a step); then the ring kernel at these shapes (4
+             ranks of [8, 512, 16, 64], causal), held against its plain
+             version and timed three times per rank and for the four
+             together beside the bound, the plain version and one
+             scaled_dot_product_attention call over the 2048 tokens,
+             with the host cost of a launch's tensor maps.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -395,19 +399,41 @@ def phase_exact(torch, device, card=""):
 # ----------------------------------------------------------------------
 # phases 5-6: bf16 serving and timing
 # ----------------------------------------------------------------------
-def time_ms(torch, fn, iters=50):
-    """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
+def time_ms(torch, fn, iters=50, device_only=False):
+    """Mean ms per call over `iters` calls, CUDA events, after warm-up.
+    With `device_only` a ~10 ms device sleep goes first, so the host
+    enqueues the timed calls while the card sleeps and the events
+    bracket their device time, however slow the wrapper's host side."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if device_only:
+        torch.cuda._sleep(20_000_000)     # clock cycles
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_runs(torch, fn, iters, runs=3):
+    """`runs` device-time timings of `time_ms` in this call: {"ms": their
+    median, "ms_runs": each, "spread": (max - min) / median}."""
+    got = sorted(time_ms(torch, fn, iters=iters, device_only=True)
+                 for _ in range(runs))
+    median = got[len(got) // 2]
+    return {"ms": median, "ms_runs": got,
+            "spread": (got[-1] - got[0]) / median}
+
+
+def spread_text(t):
+    """'ms=... (runs a/b/c, spread x%)' of a `time_runs` result."""
+    return (f"ms={t['ms']:.4f} (runs " + "/".join(
+        f"{x:.4f}" for x in t["ms_runs"]) + f", spread "
+        f"{100 * t['spread']:.1f}%)")
 
 
 def time_kernel(torch, engine, context, queries=1):
@@ -814,10 +840,12 @@ def phase_train(torch, card, folder):
     return counts, resumed
 
 
-def profile_train(torch, solver, card, steps=4, label="profile train"):
+def profile_train(torch, solver, card, steps=4, label="profile train",
+                  watch=()):
     """Where the training time goes: `steps` train steps plainly for the
     wall time, the next `steps` under torch.profiler for the device time
-    by kernel."""
+    by kernel; each kernel named in `watch` gets its device ms a step
+    and launches."""
     from torch.profiler import ProfilerActivity, profile
     from flashy_tpu_torch.examples.lm.solver import train_step
 
@@ -840,9 +868,14 @@ def profile_train(torch, solver, card, steps=4, label="profile train"):
     rows = device_rows(torch, prof)
     busy_ms = sum(ms for ms, _, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.1f} ms x{n}" for ms, n, key in rows[:8])
+    named = "".join(
+        f"; {name}: {sum(ms for ms, _, key in rows if name in key) / steps:.2f}"
+        f" ms a step ({sum(n for _, n, key in rows if name in key)} "
+        f"launches)" for name in watch)
     print(f"{label}: {steps} steps, plain wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms (idle share "
-          f"{1 - busy_ms / wall_ms:.3f}); top: {top} [{card}]", flush=True)
+          f"{1 - busy_ms / wall_ms:.3f}); top: {top}{named} [{card}]",
+          flush=True)
 
 
 def flash_bounds(B, H, T, D, elem, causal=True):
@@ -921,7 +954,7 @@ def time_flash(torch, device, card):
     times = {}
     for name, (kernel, plain, library) in kernels.items():
         bound, bound_by = bounds[name]
-        times[name] = {"ms": time_ms(torch, kernel, iters=20),
+        times[name] = {**time_runs(torch, kernel, iters=20),
                        "plain_ms": time_ms(torch, plain, iters=5),
                        "bound_ms": bound, "bound_by": bound_by,
                        "library_ms": library}
@@ -929,7 +962,7 @@ def time_flash(torch, device, card):
                       iters=20)
     grad_bound, grad_by = bounds["gradient"]
     print("flash times (B16 H16 T1024 D64 causal bf16): " + "; ".join(
-        f"{name} ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+        f"{name} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
         f"library_ms={t['library_ms']:.4f}" for name, t in times.items())
         + f"; dQ fold of the fused partials ms={fold_ms:.4f}; fused + fold "
@@ -1856,7 +1889,8 @@ def time_ring(torch, device, card):
     err, the split pair's times and errors)."""
     import torch.nn.functional as F
     from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
-                                                      ring_forward_plain)
+                                                      ring_forward_plain,
+                                                      tensor_map_us)
     B, H, t, D, n = 8, 16, 512, 64, 4
     (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, torch.bfloat16, n,
                                           t, B=B, H=H, D=D, seed=11)
@@ -1865,7 +1899,7 @@ def time_ring(torch, device, card):
     rows = []
     for rank in range(n):
         bound, by = ring_bound(B, H, t, D, [rank], 2)
-        rows.append((rank, time_ms(torch, lambda: ring_forward(
+        rows.append((rank, time_runs(torch, lambda: ring_forward(
             qs[rank], ks, vs, rank, True), iters=20), bound, by,
             time_ms(torch, lambda: ring_forward_plain(
                 qs[rank], ks, vs, rank, True), iters=3)))
@@ -1878,21 +1912,33 @@ def time_ring(torch, device, card):
         for rank in range(n):
             ring_forward_plain(qs[rank], ks, vs, rank, True)
 
+    # host cost of a launch: the tensor maps it encodes, and the whole
+    # wrapper call as enqueued (no synchronize inside the loop)
+    map_us = tensor_map_us(qs[0])
+    all_ranks()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(25):
+        all_ranks()
+    host_us = (time.perf_counter() - t0) / (25 * n) * 1e6
+    torch.cuda.synchronize()
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     bound, by = ring_bound(B, H, t, D, list(range(n)), 2)
-    times = {"ms": time_ms(torch, all_ranks, iters=20),
+    times = {**time_runs(torch, all_ranks, iters=20),
              "plain_ms": time_ms(torch, all_plain, iters=3),
              "bound_ms": bound, "bound_by": by,
              "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                  qh, kh, vh, is_causal=True), iters=20)}
     print(f"ring times ({n} ranks of B{B} H{H} t{t} D{D}, causal, bf16; vs "
           f"plain max abs err {err:.3e}, {share:.4f} not bit-equal): "
-          + "; ".join(f"rank {r} ms={ms:.4f} bound_ms={b:.4f} ({by_}) "
+          + "; ".join(f"rank {r} {spread_text(ms)} bound_ms={b:.4f} ({by_}) "
                       f"plain_ms={p:.4f}" for r, ms, b, by_, p in rows)
-          + f"; the four launches ms={times['ms']:.4f} bound_ms="
+          + f"; the four launches {spread_text(times)} bound_ms="
           f"{times['bound_ms']:.4f} ({times['bound_by']}) plain_ms="
           f"{times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
-          f"(F.scaled_dot_product_attention, is_causal, T 2048) [{card}]",
+          f"(F.scaled_dot_product_attention, is_causal, T 2048); host: "
+          f"{map_us:.2f} us to encode a tensor map, {1 + 2 * n} a launch, "
+          f"{host_us:.1f} us a wrapper call as enqueued [{card}]",
           flush=True)
     pair_times, pair_errors = time_ring_backward(torch, qs, ks, vs, card)
     return times, err, pair_times, pair_errors
@@ -2082,7 +2128,7 @@ def main() -> None:
     phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver = phase_train(torch, card, folder)
-        profile_train(torch, solver, card)
+        profile_train(torch, solver, card, watch=("flash_fwd_kernel",))
         del solver
     flash_times, main_errors = time_flash(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
@@ -2095,7 +2141,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as folder:
         ring_counts, solver = phase_ring_train(torch, card, folder)
         profile_train(torch, solver, card, steps=3,
-                      label="profile ring train")
+                      label="profile ring train", watch=("ring_fwd_kernel",))
         del solver
     ring_times, ring_main_error, pair_times, pair_errors = time_ring(
         torch, device, card)

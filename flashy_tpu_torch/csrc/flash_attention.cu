@@ -44,22 +44,27 @@
 // (B*H = 256, T = 1024, D = 64, causal) a forward does ~34 GFLOP against
 // ~135 MB of inputs and outputs, a backward ~86 GFLOP against ~236 MB,
 // far above the ~295 flops per byte where the H100 leaves the memory
-// bound, so the block products belong on the tensor cores. Each 64x64
-// block product is split over the eight warps in the m16n8k16 fragment
-// layout of `mma.sync` (a warp owns 16 rows and 32 columns). In bf16
-// every operand tile is bf16-exact (Q, K, V and dO as loaded, P and dS
-// after their rounding), so the bf16 kernels run the products as
-// `mma.sync` with f32 accumulation, exactly the bf16-operand,
-// f32-accumulate products of the Pallas bodies. The f32 kernels keep
-// f32 FMAs in the same layout, contracting in ascending order. The T x
-// T score matrix never reaches device memory: S, P and dS live in shared
-// memory one 64x64 f32 tile at a time (padded rows), as the TPU kernels
-// keep them in VMEM. The TPU grid's sequential innermost axis, carried
-// in VMEM scratch, becomes a loop inside one thread block with the
-// running statistics in shared memory and the accumulators in
-// registers. wgmma, TMA, bf16 tiles in shared memory and a pipelined
-// K/V ring are later work. The tile code and the forward's 64-key step
-// live in flash_tile.cuh, which the ring-attention kernel shares.
+// bound, so the block products belong on the tensor cores. The T x T
+// score matrix never reaches device memory, as the TPU kernels keep it in
+// VMEM; the TPU grid's sequential innermost axis, carried in VMEM
+// scratch, becomes a loop inside one thread block.
+//
+// The bf16 forward (`flash_fwd_kernel`) is Hopper-native: a persistent
+// grid over the (b*h, 192 query rows) tiles, q-tiles heaviest (last)
+// first; TMA loads Q once and K/V into a 4-stage ring of swizzled bf16
+// tiles, three consumer warpgroups run Q K^T and P V as pipelined wgmma
+// with the online softmax in registers (`hopper_forward`,
+// flash_tile.cuh, which also says what bounds it and what is left). The f32 forward (`flash_fwd_f32_kernel`)
+// and the backward kernels keep 64x64 f32 tiles in shared memory (padded
+// rows), split over eight warps in the m16n8k16 fragment layout (a warp
+// owns 16 rows and 32 columns): bf16 backward products as `mma.sync`
+// with f32 accumulation on bf16-exact operands (Q, K, V and dO as
+// loaded, P and dS after their rounding), f32 products as FMAs in
+// ascending order; S, P and dS one f32 tile at a time in shared memory,
+// the running statistics in shared memory and the accumulators in
+// registers. The backward's wgmma/TMA redesign is later work. The f32
+// forward's 64-key step (`forward_tile`) and the bf16 forward live in
+// flash_tile.cuh, which the ring-attention kernel shares.
 #include "flash_tile.cuh"
 
 namespace {
@@ -129,14 +134,13 @@ __device__ void probs_and_ds(const float* q_s, const float* k_s,
     }
 }
 
-// Forward: one block per (b*h, q-block); loops over the k-blocks up to
-// the last causally visible one. Layouts: q, out [B, Tq, H, D]; k, v
+// f32 forward: one block per (b*h, q-block); loops over the k-blocks up
+// to the last causally visible one. Layouts: q, out [B, Tq, H, D]; k, v
 // [B, Tk, H, D]; lse [B, H, Tq] f32.
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, Geometry g) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, Geometry g) {
   const int bh = blockIdx.x, qi = blockIdx.y;
   const int b = bh / g.H, h = bh - b * g.H;
   const int q0 = qi * kBlock;
@@ -148,11 +152,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last = last_kblock(qi, g);
   for (int ki = 0; ki <= last; ++ki) {
     const int k0 = ki * kBlock;
-    forward_tile<T>(
+    forward_tile<float>(
         s, k, v, b, h, k0, g.Tk, g.H, g.scale,
         [&](int r, int c) { return visible(q0 + r, k0 + c, g); }, acc);
   }
   forward_end(s, out, lse, b, h, q0, g.Tq, g.H, acc);
+}
+
+// bf16 forward on Hopper: a persistent grid over the (b*h, 192 query
+// rows) tiles (`hopper::hopper_forward`). The same layouts, through
+// tensor maps of q, k and v.
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 const Geometry g) {
+  extern __shared__ unsigned char hopper_smem[];
+  const hopper::Segment seg{&k_map, &v_map, g.Tk, g.offset, g.causal};
+  hopper::hopper_forward(
+      hopper_smem, &q_map, 1, [seg](int) { return seg; }, out, lse,
+      g.B * g.H, g.H, g.Tq, g.scale);
 }
 
 // Split backward dQ: one block per (b*h, q-block), k-blocks innermost;
@@ -328,16 +348,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-cudaError_t forward(const void* q, const void* k, const void* v, void* out,
-                    float* lse, const Geometry& g, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T>;
-  cudaError_t err = allow_smem(kernel, kFwdSmem);
+cudaError_t forward_f32(const void* q, const void* k, const void* v,
+                        void* out, float* lse, const Geometry& g,
+                        cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel, kFwdSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(g.B * g.H, (g.Tq + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, g);
+  flash_fwd_f32_kernel<<<grid, kThreads, kFwdSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, g);
+  return cudaGetLastError();
+}
+
+// a cudaError_t, or hopper::kTensorMapError + a CUresult
+int forward_bf16(const void* q, const void* k, const void* v, void* out,
+                 float* lse, const Geometry& g, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  int err = hopper::encode_rows(&q_map, q, g.B, g.Tq, g.H);
+  if (err == 0) err = hopper::encode_rows(&k_map, k, g.B, g.Tk, g.H);
+  if (err == 0) err = hopper::encode_rows(&v_map, v, g.B, g.Tk, g.H);
+  if (err != 0) return err;
+  err = allow_smem(flash_fwd_kernel, hopper::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int blocks =
+      hopper::persistent_blocks(g.B * g.H * hopper::q_tiles(g.Tq));
+  flash_fwd_kernel<<<blocks, hopper::kThreads, hopper::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, g);
   return cudaGetLastError();
 }
 
@@ -372,14 +408,16 @@ cudaError_t backward(int kind, const void* q, const void* k, const void* v,
 bool valid(int dtype, int B, int H, int Tq, int Tk, int D) {
   return (dtype == 0 || dtype == 1) && B >= 1 && H >= 1 && Tq >= 1 &&
          Tk >= 1 && D == kDim &&
-         static_cast<long long>(B) * H <= 0x7fffffffLL &&
+         static_cast<long long>(B) * H * hopper::q_tiles(Tq) <=
+             0x7fffffffLL &&
          (Tq + kBlock - 1) / kBlock <= 65535 &&
          (Tk + kBlock - 1) / kBlock <= 65535;
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16. Returns a cudaError_t (0 = launched).
+// dtype: 0 f32, 1 bf16. Returns a cudaError_t (0 = launched), or for a
+// refused tensor map hopper::kTensorMapError + its CUresult.
 extern "C" int flashy_flash_forward(int dtype, const void* q, const void* k,
                                     const void* v, void* out, float* lse,
                                     int B, int H, int Tq, int Tk, int D,
@@ -388,9 +426,8 @@ extern "C" int flashy_flash_forward(int dtype, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g{B, H, Tq, Tk, Tk - Tq, causal ? 1 : 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dtype == 0 ? forward<float>(q, k, v, out, lse, g, s)
-                 : forward<__nv_bfloat16>(q, k, v, out, lse, g, s));
+  return dtype == 0 ? static_cast<int>(forward_f32(q, k, v, out, lse, g, s))
+                    : forward_bf16(q, k, v, out, lse, g, s);
 }
 
 // kind: 0 split dQ (writes dq), 1 split dK/dV (dk, dv), 2 fused (dk, dv

@@ -1,10 +1,68 @@
 // Tile code shared by the flash-attention kernels (flash_attention.cu) and
-// the ring-attention kernel (ring_attention.cu): the 64x64 f32 tiles in
-// shared memory, the m16n8k16 block products (mma.sync for bf16, ordered
-// FMAs for f32), and one 64-key step of the forward's online softmax.
-// Both forwards run the same step, so they round where each other rounds:
-// a one-rank ring is bit-equal to the flash forward over the same keys.
+// the ring-attention kernel (ring_attention.cu), in two parts.
+//
+// 1. 64x64 f32 tiles in shared memory with m16n8k16 block products
+//    (mma.sync for bf16, ordered FMAs for f32): the backward kernels'
+//    code in both dtypes, and the f32 forward's 64-key step
+//    (`forward_begin`, `forward_tile`, `forward_end`).
+// 2. The bf16 forward on Hopper (`hopper_forward`, namespace `hopper`),
+//    which both bf16 forwards run. A persistent grid, one block an SM,
+//    walks the work tiles (192 query rows of one (b, h); heads fastest,
+//    the q-tiles last first). A block is three consumer warpgroups of
+//    64 rows and one producer warpgroup. The producer's one thread loads a
+//    tile's Q once and K/V 64 keys at a time with TMA
+//    (`cp.async.bulk.tensor`, tensor maps over the [B, T, H, 64] layout,
+//    64x64 boxes, 128-byte swizzle, rows past T zero-filled) into a ring
+//    of kStages bf16 K/V tiles guarded by mbarrier full/empty pairs, and
+//    goes on to the next tile's Q and K/V while the consumers finish the
+//    current one. Each consumer warpgroup runs S = Q K^T as four
+//    wgmma.m64n64k16 with both operands in shared memory, the online
+//    softmax in the accumulator layout (a thread holds 2 rows x 16 keys;
+//    a row's max and sum take two quad shuffles; m and l stay in
+//    registers; no shared memory and no block barrier per step; the mask
+//    only on a diagonal or ragged tile), then P V as four wgmma with P
+//    packed from the S accumulators into bf16 A fragments in registers
+//    and V read as an MN-major operand (no transpose copy). The loop is
+//    software-pipelined: Q K^T of tile j and P V of tile j-1 are on the
+//    tensor cores while the warpgroup runs the softmax of tile j.
+//
+// Both forwards run the same step in each dtype, so they round where
+// each other rounds: a one-rank ring is bit-equal to the flash forward
+// over the same keys, in f32 and in bf16. The bf16 step computes the f32
+// step's function: the online softmax steps once per 64 keys, scores
+// are q.k * scale with __fmul_rn, the running max moves past NEG_INF/2
+// only (the guarded exp, expf of an __fsub_rn), P is rounded to bf16
+// once before P.V, and P.V is a block product from zero that the
+// accumulator takes as acc * alpha + pv with non-contracted f32
+// arithmetic (accumulating P V in place, inside the wgmma, moved more
+// outputs off the reference and was slower). Only the order of the sums
+// inside a row differs (wgmma's against mma.sync's), as it differs from
+// the plain version's.
+//
+// What bounds the bf16 step on this card: at the bound, operations (4 D
+// flops per visible (query, key) pair at the tensor cores' bf16 rate;
+// the training shapes' forward is ~4x above the ~295 flops a byte where
+// the H100 leaves the memory bound). In fact the rate at which the
+// schedulers dispatch the softmax: ~15 f32 instructions an element (expf alone ~8: the accurate
+// expf that torch.exp matches, not an exp2 shortcut), ~560 a warp and a
+// 64-key tile, with
+// three consumer warps sharing each scheduler; the tensor cores idle
+// most of the time. Budget (ptxas -v, sm_90a): 512 threads a block under
+// __launch_bounds__(512, 1), 128 registers at launch, 0 bytes spilled;
+// setmaxnreg gives the producer warpgroup 32 registers a thread and the
+// three consumers 160, the whole register file; shared memory 24 KB of
+// Q and kStages x 16 KB of K/V (4 stages: 88 KB and the barriers), so
+// one block per SM. A 192-row tile leaves a third of its last q-tile
+// idle at T = 1024 and 512, and still beats 128 rows there. No branch
+// around a wgmma may look divergent to ptxas, or it serializes every
+// wgmma (C7520): the warpgroup index is broadcast with __shfl_sync and
+// the mbarrier spin loop is one PTX block. Still left: overlap of one
+// warpgroup's softmax with another's products that pays (a ping-pong on
+// mbarrier turns was slower), TMA stores of the output, and one grid
+// for all ranks of a ring.
 #pragma once
+#include <cuda.h>  // CUtensorMap and its enums; no -lcuda (see
+                   // `tensor_map_encoder`)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -212,7 +270,8 @@ __device__ __forceinline__ ForwardSmem forward_smem(float* smem) {
 }
 
 // Q rows q0.. of head (b, h) into shared memory (rows past Tq zero), the
-// running statistics and the accumulator to their empty state.
+// running statistics and the accumulator to their empty state. The f32
+// forward's step; the bf16 forwards run `hopper_forward` below.
 template <typename T>
 __device__ __forceinline__ void forward_begin(const ForwardSmem& s,
                                               const T* __restrict__ q, int b,
@@ -321,5 +380,546 @@ __device__ __forceinline__ void forward_end(const ForwardSmem& s,
           __fadd_rn(s.m[r], logf(fmaxf(s.l[r], 1e-30f)));
   }
 }
+
+// ---------------------------------------------------------------------
+// The bf16 forward on Hopper: TMA, mbarriers, wgmma, register softmax.
+// ---------------------------------------------------------------------
+namespace hopper {
+
+using bf16 = __nv_bfloat16;
+
+// Compile-time choices, measured on the H100 at the training shapes (root
+// PERF.md, Findings): three consumer warpgroups (192-row tiles) beat two by
+// ~5% and one (64 rows, two blocks an SM) by more; four K/V stages beat
+// three by ~2% and two by ~20%.
+constexpr int kRows = 64;                   // query rows of a warpgroup
+constexpr int kConsumers = 3;               // consumer warpgroups a block
+constexpr int kQTile = kRows * kConsumers;  // query rows a block
+constexpr int kStages = 4;                  // K/V tiles in flight
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kProducerRegs = 32, kConsumerRegs = 160;
+constexpr uint32_t kTileBytes = kBlock * kDim * sizeof(bf16);  // 8 KB
+static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <=
+                  65536,
+              "the warpgroups' registers must fit one SM");
+
+// Every tile 1024-byte aligned: the 128-byte swizzle repeats every 8 rows
+// of 128 bytes, and TMA and the wgmma descriptors agree on it only from
+// such a base.
+struct alignas(1024) Smem {
+  bf16 q[kConsumers][kBlock * kDim];
+  bf16 k[kStages][kBlock * kDim];
+  bf16 v[kStages][kBlock * kDim];
+  uint64_t q_full, q_empty;
+  uint64_t k_full[kStages], v_full[kStages], empty[kStages];
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+
+// Returned by the C entry points for a tensor map that
+// cuTensorMapEncodeTiled refused: kTensorMapError + its CUresult (cudaError_t values stay below it).
+constexpr int kTensorMapError = 1000000;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// Until the phase of parity `parity` has completed. The spin loop is one
+// PTX block, so the compiler does not see a divergent C++ loop in front
+// of every wgmma (it then serializes them, ptxas C7520). A phase that
+// never completes is a bug of the kernel: after ~10 s of clock the
+// thread traps, which the caller sees as a launch failure, instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p, late;\n.reg .s64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.s64 t1, t1, t0;\n"
+      "setp.gt.s64 late, t1, 20000000000;\n"
+      "@late trap;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one 64x64 box, rows t.. of head (b, h), into `dst`; completes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int t,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(t), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a 64x64 bf16 tile as TMA wrote it: 128-byte rows,
+// 128-byte swizzle (layout type 1), 8-row groups 1024 bytes apart. That
+// stride is the SBO of the K-major operands (Q, K: rows along M or N) and
+// of the MN-major V (rows along K); the LBO, which the K-major form does
+// not read and the MN-major form reads only past one 64-column swizzle
+// atom, is set to the same.
+__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return (static_cast<uint64_t>(smem_u32(tile)) >> 4) | (kGroup << 16) |
+         (kGroup << 32) | (uint64_t{1} << 62);
+}
+// descriptor offsets (16-byte units) of the k-th 16-deep slice: 32 bytes
+// along a K-major row, 16 rows of 128 bytes down the MN-major V
+constexpr uint64_t kKMajorStep = 32 >> 4, kMNMajorStep = 2048 >> 4;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of `r` across a wgmma's wait
+__device__ __forceinline__ void hold(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B, m64n64k16, A in registers (bf16 fragments), B in shared
+// memory MN-major (the transpose flag)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// One key segment of the online softmax: a [B, Tk, H, kDim] K/V pair
+// (tensor maps `k`, `v`) visited 64 keys at a time from key 0. Key
+// k_pos is hidden from query q_pos where k_pos >= Tk or, under causal,
+// q_pos + offset < k_pos. The flash forward has one segment; the ring
+// one per visible ring step.
+struct Segment {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int Tk, offset, causal;
+
+  // the last tile that query rows up to `row` see; -1 for none
+  __device__ __forceinline__ int last_tile(int row) const {
+    const int last = (Tk - 1) / kBlock;
+    if (!causal) return last;
+    const int reach = row + offset;
+    return reach < 0 ? -1 : min(last, reach / kBlock);
+  }
+};
+
+// S = Q K^T of one 64-key tile: four k16 slices, started, not waited
+__device__ __forceinline__ void start_qk(float (&sc)[32], uint64_t q_desc,
+                                         uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(sc, q_desc + kk * kKMajorStep, k_desc + kk * kKMajorStep, kk);
+}
+
+// P V from zero: P in bf16 A fragments, four k16 slices of V, started,
+// not waited
+__device__ __forceinline__ void start_pv(float (&pv)[32],
+                                         const uint32_t (&p)[16],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(pv, p + 4 * kk, v_desc + kk * kMNMajorStep, kk);
+}
+
+// acc = acc * alpha + pv, per row, non-contracted
+__device__ __forceinline__ void accumulate(float (&acc)[32],
+                                           const float (&pv)[32],
+                                           const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), pv[i]);
+}
+
+// One 64-key step of the online softmax on S in the accumulator layout
+// (element i at row r0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) + c0 +
+// (i & 1)): scale, mask where EDGE (some key of the tile is hidden from
+// some row of the warpgroup), the running max m, alpha = exp(m_old -
+// m_new), P = the guarded exp in place of S (f32), l = l alpha + sum P.
+// A row whose max is still <= NEG_INF/2 subtracts +inf instead of its
+// max, so its P is exactly 0, as the guard's select would make it.
+template <bool EDGE>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2],
+                                             const Segment& seg, int r0,
+                                             int k0, int c0, float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    bool shown = true;
+    if (EDGE) {
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int col = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      shown = col < seg.Tk && (!seg.causal || row + seg.offset >= col);
+    }
+    sc[i] = shown ? __fmul_rn(sc[i], scale) : kNegInf;
+  }
+  float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    mx[(i >> 1) & 1][i & 1] = fmaxf(mx[(i >> 1) & 1][i & 1], sc[i]);
+  float sub[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(mx[r][0], mx[r][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x);
+    alpha[r] = expf(__fsub_rn(m[r], m_new));
+    m[r] = m_new;
+    sub[r] = m_new > kNegInf * 0.5f ? m_new : __int_as_float(0x7f800000);
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = expf(__fsub_rn(sc[i], sub[(i >> 1) & 1]));
+    sum[(i >> 1) & 1][i & 1] = __fadd_rn(sum[(i >> 1) & 1][i & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = __fadd_rn(sum[r][0], sum[r][1]);
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), x);
+  }
+}
+
+// query tiles of a block each over T rows
+__host__ __device__ __forceinline__ int q_tiles(int T) {
+  return (T + kQTile - 1) / kQTile;
+}
+
+// One work tile of the persistent grid: query rows q0..q0+kQTile-1 of
+// head (b, h).
+struct Tile {
+  int b, h, q0;
+};
+
+// Tile i of the heads x q_tiles(T) tiles: heads fastest and the q-tiles
+// last first, so that under causal the heaviest tiles come first and the
+// launch's tail is short. (Walking one head's q-tiles side by side reads
+// its K/V from device memory once instead of once a q-tile, but puts the
+// heavy tiles of the last heads last; on the H100 it was no faster, see
+// root PERF.md.)
+__device__ __forceinline__ Tile tile_at(int i, int heads, int H, int T) {
+  const int bh = i % heads, qi = q_tiles(T) - 1 - i / heads;
+  return Tile{bh / H, bh % H, qi * kQTile};
+}
+
+// The bf16 forward of a [B, Tq, H, kDim] tensor (tensor map `q_map`, heads
+// = B*H) over the segments(0..n_seg-1) in order: for every query row one
+// online softmax across all of them, out [B, Tq, H, kDim] in bf16 and lse
+// [B*H, Tq] f32. A persistent grid: block j takes tiles j, j + gridDim.x,
+// ... (`tile_at`), and its producer loads the next tile's Q and K/V while
+// the consumers finish the current one. `raw` is the block's dynamic
+// shared memory, kSmemBytes of it; the block has kThreads threads.
+template <typename Segments>
+__device__ __forceinline__ void hopper_forward(
+    unsigned char* raw, const CUtensorMap* q_map, int n_seg,
+    Segments segment, bf16* __restrict__ out, float* __restrict__ lse,
+    int heads, int H, int Tq, float scale) {
+  Smem& s = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+  // the warpgroup, broadcast from lane 0 so that the compiler knows every
+  // branch on it is warp-uniform (wgmma in a branch it cannot prove
+  // uniform is serialized)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int n_tiles = heads * q_tiles(Tq);
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+    mbar_init(&s.q_empty, 128 * kConsumers);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.k_full[i], 1);
+      mbar_init(&s.v_full[i], 1);
+      mbar_init(&s.empty[i], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread starts every load; `it` counts K/V tiles and
+    // `round` this block's work tiles, over the whole launch
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x != 128 * kConsumers) return;
+    int it = 0, round = 0;
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x, ++round) {
+      const Tile tile = tile_at(i, heads, H, Tq);
+      const int q_hi = min(tile.q0 + kQTile, Tq) - 1;  // the tile's last row
+      // Q once every S of the previous tile is done
+      mbar_wait(&s.q_empty, (round & 1) ^ 1);
+      const int halves = (q_hi - tile.q0) / kRows + 1;  // boxes holding a row
+      mbar_expect_tx(&s.q_full, halves * kTileBytes);
+      for (int j = 0; j < halves; ++j)
+        tma_load(s.q[j], q_map, &s.q_full, tile.h, tile.q0 + j * kRows,
+                 tile.b);
+      for (int sg = 0; sg < n_seg; ++sg) {
+        const Segment seg = segment(sg);
+        const int last = seg.last_tile(q_hi);
+        for (int ki = 0; ki <= last; ++ki, ++it) {
+          const int st = it % kStages;
+          mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&s.k_full[st], kTileBytes);
+          tma_load(s.k[st], seg.k, &s.k_full[st], tile.h, ki * kBlock,
+                   tile.b);
+          mbar_expect_tx(&s.v_full[st], kTileBytes);
+          tma_load(s.v[st], seg.v, &s.v_full[st], tile.h, ki * kBlock,
+                   tile.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg .. + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int t = threadIdx.x & 127, lane = t & 31;
+  // this thread's rows r0 and r0 + 8, and its columns c0, c0 + 1 of each
+  // 8-column block of a 64x64 accumulator: element i sits at row
+  // r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + c0 + (i & 1)
+  const int c0 = 2 * (lane & 3);
+  const uint64_t q_desc = tile_desc(s.q[wg]);
+  // Software pipeline over the warpgroup's K/V tiles: the iteration of
+  // tile j starts Q K_j^T and the P V of the tile before it (`pend`), runs
+  // the softmax of tile j while both are on the tensor cores, then folds
+  // the earlier P V into acc and releases that tile's stage. P of tile j
+  // waits in `p` for the next iteration (or the drain).
+  float acc[32], sc[32], pv[32], m[2], l[2], pend_alpha[2];
+  uint32_t p[16];
+  int pend = -1;  // stage of the tile whose P V is still to do; -1 none
+  const auto drain = [&] {
+    if (pend < 0) return;
+    wgmma_fence();
+    start_pv(pv, p, tile_desc(s.v[pend]));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(pv);
+    accumulate(acc, pv, pend_alpha);
+    mbar_arrive(&s.empty[pend]);
+    pend = -1;
+  };
+  int it = 0, round = 0;
+  for (int i = blockIdx.x; i < n_tiles; i += gridDim.x, ++round) {
+    const Tile tile = tile_at(i, heads, H, Tq);
+    const int q_hi = min(tile.q0 + kQTile, Tq) - 1;
+    const int q0w = tile.q0 + wg * kRows;
+    const int row_hi = min(q0w + kRows, Tq) - 1;  // < q0w: no row here
+    const int r0 = q0w + 16 * (t >> 5) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+    if (row_hi >= q0w) mbar_wait(&s.q_full, round & 1);
+
+    for (int sg = 0; sg < n_seg; ++sg) {
+      const Segment seg = segment(sg);
+      const int last = seg.last_tile(q_hi);
+      const int mine = row_hi >= q0w ? seg.last_tile(row_hi) : -1;
+      for (int ki = 0; ki <= last; ++ki, ++it) {
+        const int st = it % kStages;
+        const uint32_t parity = (it / kStages) & 1;
+        if (ki > mine) {
+          // a tile only the other warpgroup sees: finish the pipeline (so
+          // that stages go back in order), let this one go once it landed
+          drain();
+          mbar_wait(&s.k_full[st], parity);
+          mbar_wait(&s.v_full[st], parity);
+          mbar_arrive(&s.empty[st]);
+          continue;
+        }
+        mbar_wait(&s.k_full[st], parity);
+        wgmma_fence();
+        start_qk(sc, q_desc, tile_desc(s.k[st]));
+        wgmma_commit();
+        if (pend >= 0) {
+          start_pv(pv, p, tile_desc(s.v[pend]));
+          wgmma_commit();
+          wgmma_wait<1>();  // Q K_j^T done; P V may still run
+        } else {
+          wgmma_wait<0>();
+        }
+        hold(sc);
+        const int k0 = ki * kBlock;
+        float alpha[2];
+        if (k0 + kBlock > seg.Tk ||
+            (seg.causal && k0 + kBlock - 1 > q0w + seg.offset))
+          softmax_tile<true>(sc, m, l, alpha, seg, r0, k0, c0, scale);
+        else
+          softmax_tile<false>(sc, m, l, alpha, seg, r0, k0, c0, scale);
+        if (pend >= 0) {
+          wgmma_wait<0>();
+          hold(pv);
+          accumulate(acc, pv, pend_alpha);
+          mbar_arrive(&s.empty[pend]);
+        }
+        // P rounded to bf16 straight into the A fragments of P V: the k16
+        // slice kk is accumulator columns 16 kk.. (elements 8 kk.. 8 kk +
+        // 7), which is the m64k16 A layout, register for register
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+        pend_alpha[0] = alpha[0];
+        pend_alpha[1] = alpha[1];
+        mbar_wait(&s.v_full[st], parity);
+        pend = st;
+      }
+    }
+    // every Q K^T of this tile is done: the producer may load the next Q
+    mbar_arrive(&s.q_empty);
+    drain();
+
+    // out = acc / max(l, 1e-30) in bf16, lse = m + log(max(l, 1e-30))
+    const int bh = tile.b * H + tile.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= Tq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      bf16* dst = out + row_at(tile.b, row, tile.h, Tq, H) + c0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * r], denom),
+                                  __fdiv_rn(acc[4 * j + 2 * r + 1], denom));
+      if ((lane & 3) == 0)
+        lse[static_cast<size_t>(bh) * Tq + row] =
+            __fadd_rn(m[r], logf(denom));
+    }
+  }
+}
+
+// ---- host: tensor maps ------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point
+// lookup so that the library links against nothing beyond the CUDA
+// runtime; null where it is missing.
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Blocks of a persistent launch over `tiles` work tiles: one an SM of the
+// current device (kSmemBytes and the registers hold an SM to one).
+inline int persistent_blocks(int tiles) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess || sms < 1)
+    sms = 1;
+  return tiles < sms ? tiles : sms;
+}
+
+// The tensor map of a contiguous [B, T, H, kDim] bf16 tensor at `base`
+// (16-byte aligned) in 64x64 boxes, 64 rows of T at one (b, h), with the
+// 128-byte swizzle; rows past T read as zeros. Returns 0, or
+// kTensorMapError + the CUresult of cuTensorMapEncodeTiled.
+inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
+                       int H) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t row = kDim * sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kDim),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {row, row * H, row * H * T};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kDim), 1,
+                             static_cast<cuuint32_t>(kBlock), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+}  // namespace hopper
 
 }  // namespace

@@ -22,6 +22,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flashy_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# csrc/flash_tile.cuh `hopper::kTensorMapError`: an entry point returns it
+# plus the CUresult of cuTensorMapEncodeTiled when it cannot encode a TMA
+# tensor map
+TENSOR_MAP_ERROR = 1_000_000
+
 # name -> loaded library, and name -> (seconds, compiler output) of the
 # build this process ran (empty when the library was already built)
 _loaded: tp.Dict[str, ctypes.CDLL] = {}
@@ -81,3 +86,13 @@ def load(name: str, functions: tp.Mapping[str, tp.Tuple[tp.Any, tp.Sequence]]
             fn.argtypes = list(argtypes)
         _loaded[name] = lib
     return lib
+
+
+def launch_error(what: str, err: int) -> RuntimeError:
+    """The error for an entry point's non-zero return `err`: a
+    cudaError_t, or TENSOR_MAP_ERROR + the CUresult of a refused tensor
+    map."""
+    if err >= TENSOR_MAP_ERROR:
+        return RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                            f"tensor map (CUresult {err - TENSOR_MAP_ERROR})")
+    return RuntimeError(f"{what}: cudaError {err}")

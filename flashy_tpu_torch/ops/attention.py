@@ -315,6 +315,10 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     check(q.device.type == "cuda", f"runs on CUDA tensors, got {q.device}")
     check(k.device == q.device and v.device == q.device,
           "tensors span devices")
+    # the bf16 forward's tensor maps need contiguous rows at 16-byte
+    # aligned addresses: `_kernel_operand` makes both, and a map that
+    # cuTensorMapEncodeTiled refuses is raised (`_build.launch_error`),
+    # never bypassed
 
 
 def _check_backward_inputs(q: torch.Tensor, grad_out: torch.Tensor,
@@ -337,13 +341,14 @@ def _call(symbol: str, *args) -> None:
     lib = _build.load("flash_attention", _FUNCTIONS)
     err = getattr(lib, symbol)(*args)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed "
-                           f"({symbol}): cudaError {err}")
+        raise _build.launch_error(
+            f"flash attention kernel launch failed ({symbol})", err)
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, at a 16-byte aligned address (the kernels read rows
-    with 16-byte loads): a view at an odd offset is copied."""
+    """Contiguous, at a 16-byte aligned address: the f32 and backward
+    kernels read rows with 16-byte loads, and the bf16 forwards read
+    through TMA tensor maps, whose base must be 16-byte aligned. A view at an odd offset is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -6,10 +6,11 @@ Pallas TPU kernel `_fused_kernel`): for rank r it runs the flash online
 softmax across the ring steps s = 0, 1, ... over the K/V blocks of owners
 (r - s) mod n, skipping the steps s > r under `causal` and masking step 0
 in-block. The kernel pulls every visiting block through a table of the
-ranks' K and V pointers; the TPU kernel's RDMA slots, comm-driver sweep
-and semaphores have no counterpart (see the kernel's source note). The
-backward is the scan ring's (`ring._ring_backward_pass`), as the JAX
-custom VJP `_fused_bwd` has it.
+ranks' K and V tensor maps (TMA, bf16; the flash forward's Hopper step)
+or base pointers (f32); the TPU kernel's RDMA slots, its communication
+sweep and semaphores have no counterpart (see the kernel's source
+note). The backward is the scan ring's (`ring._ring_backward_pass`), as
+the JAX custom VJP `_fused_bwd` has it.
 
 `ring_forward_plain` is the kernel's plain version: the same loop in
 PyTorch at the kernel's 64-key tile and in the same order, so in f32 it
@@ -40,6 +41,9 @@ _FUNCTIONS = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, T
         ctypes.c_int, ctypes.c_int,                          # D, causal
         ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
+    "flashy_tensor_map_us": (ctypes.c_double, (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # base, B, T
+        ctypes.c_int, ctypes.c_int)),                        # H, reps
 }
 
 
@@ -101,8 +105,7 @@ def _launch(q, ks, vs, rank, causal):
             int(causal), flash_scale(dim),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ring attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise _build.launch_error("ring attention kernel launch failed", err)
     launch_counts["ring_fwd"] += 1
     return out, lse
 
@@ -117,6 +120,19 @@ def ring_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
     if _on_cpu(q):
         return ring_forward_plain(q, ks, vs, rank, causal)
     return _launch(q, ks, vs, rank, causal)
+
+
+def tensor_map_us(x: torch.Tensor, reps: int = 1000) -> float:
+    """Host microseconds to encode one TMA tensor map of the bf16 [B, T,
+    H, D] CUDA tensor `x` (the mean over `reps`): a bf16 launch encodes
+    1 + 2n of them. Raises where the map is refused."""
+    x = _kernel_operand(x)
+    lib = _build.load("ring_attention", _FUNCTIONS)
+    batch, t, heads, _ = x.shape
+    us = lib.flashy_tensor_map_us(x.data_ptr(), batch, t, heads, reps)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused a TMA tensor map")
+    return us
 
 
 def _fused_forward_pass(qs, ks, vs, causal: bool):

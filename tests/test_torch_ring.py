@@ -97,6 +97,24 @@ def test_fused_plain_is_the_kernel_loop_per_rank():
         assert lse.shape == (2, 3, t) and torch.isfinite(lse).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [100, 192])
+def test_one_rank_ring_plain_is_the_flash_forward_plain(dtype, causal, t):
+    # The contract the ring kernel and the flash forward share (they run
+    # one forward step, so one rank is bit-equal to flash on the card),
+    # held here on their plain versions: out and lse bit for bit. T = 100
+    # and 192 half fill the kernels' last 128-row query tile.
+    from flashy_tpu_torch.ops.attention import flash_forward_blockwise
+    from flashy_tpu_torch.parallel.ring_fused import ring_forward_plain
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _inputs((2, t, 3, 64), seed=t + causal))
+    out, lse = ring_forward_plain(q, [k], [v], 0, causal)
+    want, want_lse = flash_forward_blockwise(q, k, v, causal)
+    assert out.dtype == dtype and lse.shape == (2, 3, t)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+
+
 @pytest.mark.parametrize("shape,n,causal", [
     ((2, 16, 2, 8), 4, True),      # t_local 4: the JAX XLA block path
     ((2, 16, 2, 8), 4, False),
