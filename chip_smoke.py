@@ -9,21 +9,25 @@ or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
   1. build   compile the five kernel sources from flashy_tpu_torch/csrc
-             with nvcc, one process per source, started together;
+             with nvcc, one process per source, started together; then
+             `cuobjdump -sass` of the flash library: every bf16 flash
+             kernel issues HGMMA (wgmma) and ptxas did not serialize it
+             (fewer WARPGROUP.DEPBAR than HGMMA);
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
              sentinel-padded, all-sentinel and parked slots), and in
              bf16 against the entry-by-entry reference that rounds
              where the TPU kernel does: one bf16 ulp apart at most,
              and bit-equal almost everywhere;
-  3. flash   the four flash-attention kernels at head_dim 64 (the bf16
-             forward the Hopper wgmma/TMA step) against
-             their plain versions (f32 and bf16; causal and not; t_k
-             equal to, above and below t_q, the last with empty rows;
+  3. flash   the four flash-attention kernels at head_dim 64 (in bf16
+             the Hopper wgmma/TMA forward step and backward pair step)
+             against their plain versions (f32 and bf16; causal and not;
+             t_k equal to, above and below t_q, the last with empty rows;
              ragged T): forward against the dense path and, in bf16,
              within one ulp of the blockwise reference at the kernel's
-             tile; split and fused backward against their plain
-             versions; fused bit-equal to split on dQ, dK and dV;
+             tile; split and fused backward against their plain versions
+             (the fused dQ against the plain partials folded in k order);
+             fused bit-equal to split on dQ, dK and dV;
   4. ssd kernel  the SSD chunked-scan kernel against its plain version
              at the serving widths (H 16, Dh 64, N 16; chunks 16, 64,
              256 and tails; T of 1, 7, 100 and 1024; a random carried
@@ -91,9 +95,11 @@ failure with a non-zero exit:
              step ms; then a profiled training window (idle share, top
              device kernels, the forward kernel's device ms a step);
              then each flash kernel at these shapes, held against its
-             plain version as in phase 3 and timed three times (median
-             and spread) beside its bound, its plain version and
-             PyTorch's scaled_dot_product_attention;
+             plain version as in phase 3, two fused launches bit-equal
+             (its ordered dQ chain) and a fused call's device memory,
+             then timed three times (median and spread; the fused time
+             is the whole gradient) beside its bound, its plain version
+             and PyTorch's scaled_dot_product_attention;
  12. moe train  the MoE layout in bf16 at batch 16, seq 1024 through
              `main` with moe_dispatch=dropless in a fresh XP: 6 steps
              and 2 valid steps, the step loss finite and falling, the
@@ -623,9 +629,11 @@ def compare_flash(torch, q, k, v, do, causal, label):
     the forward within the dtype's tolerance (and, in bf16, within one
     ulp of the blockwise reference with at most PLACEMENT_SHARE of the
     outputs not bit-equal), the backward kernels within it relative to
-    the largest |value|, and the fused backward bit-equal to the split
-    pair. Fails on any miss; returns ({kernel: max abs error against
-    plain}, the share of forward outputs not bit-equal, out, dq)."""
+    the largest |value| (the fused kernel's dQ against the plain fused
+    version's partials folded in k order), and the fused backward
+    bit-equal to the split pair on dQ, dK and dV. Fails on any miss;
+    returns ({kernel: max abs error against plain}, the share of forward
+    outputs not bit-equal, out, dq)."""
     from flashy_tpu_torch.ops import attention as A
     tol = FLASH_TOL[str(q.dtype).split(".")[1]]
     out, lse = A.flash_forward(q, k, v, causal)
@@ -649,14 +657,13 @@ def compare_flash(torch, q, k, v, do, causal, label):
     delta = A.flash_delta(do, out)
     args = (q, k, v, do, lse, delta, causal)
     dq, dk, dv = A.flash_backward_split(*args)
-    fk, fv, part = A.flash_backward_fused(*args)
-    fq = A.fold_dq_partials(part, q.dtype)
+    fq, fk, fv = A.flash_backward_fused(*args)
     if not (torch.equal(fq, dq) and torch.equal(fk, dk)
             and torch.equal(fv, dv)):
         fail(f"{label}: fused backward not bit-equal to split (dq "
              f"{torch.equal(fq, dq)}, dk {torch.equal(fk, dk)}, dv "
              f"{torch.equal(fv, dv)})")
-    del fq, fk, fv
+    del fk, fv
     want_dq = A.flash_backward_dq_blockwise(*args)
     want_dk, want_dv = A.flash_backward_dkv_blockwise(*args)
     rels = {"flash_bwd_dq": rel_err(dq, want_dq),
@@ -668,10 +675,12 @@ def compare_flash(torch, q, k, v, do, causal, label):
             (dk.float() - want_dk.float()).abs().max().item(),
             (dv.float() - want_dv.float()).abs().max().item())}
     del want_dq, want_dk, want_dv
-    want_part = A.flash_backward_fused_blockwise(*args)[2]
-    rels["flash_bwd_fused"] = rel_err(part, want_part)
-    errors["flash_bwd_fused"] = (part - want_part).abs().max().item()
-    del part, want_part
+    want_fq = A.fold_dq_partials(A.flash_backward_fused_blockwise(*args)[2],
+                                 q.dtype)
+    rels["flash_bwd_fused"] = rel_err(fq, want_fq)
+    errors["flash_bwd_fused"] = (fq.float() - want_fq.float()).abs().max(
+        ).item()
+    del fq, want_fq
     for key, rel in rels.items():
         if not math.isfinite(rel) or rel > tol:
             fail(f"{label}: {key} relative err {rel} > {tol}")
@@ -883,19 +892,16 @@ def flash_bounds(B, H, T, D, elem, causal=True):
     causal or not: operations over the bf16 peak for the visible q.k
     pairs, bytes
     (each input read once, each output written once) over 3.35 TB/s.
-    'gradient' is the whole backward as a function (q, k, v, dO, lse, D
-    in; dQ, dK, dV out): the bound of the fused kernel and its dQ fold
-    together, whose f32 partials are this design's cost, not the
-    function's."""
+    The fused kernel is the whole backward as a function (q, k, v, dO,
+    lse, D in; dQ, dK, dV out): in bf16 it folds dQ itself (the f32
+    kernel's partials, not timed here, would add their bytes)."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     row = B * T * H * D * elem          # one [B, T, H, D] tensor
     stat = B * H * T * 4                # lse or D, f32
-    partials = -(-T // 64) * B * T * H * D * 4
     spec = {"flash_fwd": (4, 4 * row + stat),
             "flash_bwd_dq": (6, 5 * row + 2 * stat),
             "flash_bwd_dkv": (8, 6 * row + 2 * stat),
-            "flash_bwd_fused": (10, 6 * row + 2 * stat + partials),
-            "gradient": (10, 7 * row + 2 * stat)}
+            "flash_bwd_fused": (10, 7 * row + 2 * stat)}
     out = {}
     for name, (flops_per_pair, nbytes) in spec.items():
         flop_ms = flops_per_pair * D * pairs / BF16_FLOPS * 1e3
@@ -908,10 +914,13 @@ def flash_bounds(B, H, T, D, elem, causal=True):
 def time_flash(torch, device, card):
     """Each flash kernel at the training shapes (B 16, H 16, T 1024, D
     64, causal, bf16), first held against its plain version there (as
-    `compare_flash` does), then timed beside its bound, its plain version
-    and PyTorch's scaled_dot_product_attention (forward; its autograd
-    backward for the backward kernels). Returns ({kernel: times},
-    {kernel: max abs error against plain at these shapes})."""
+    `compare_flash` does), the fused kernel's two launches bit-equal (a
+    race in its ordered dQ chain would show) and its device memory
+    beyond its outputs measured; then each timed beside its bound, its
+    plain version and PyTorch's scaled_dot_product_attention (forward;
+    its autograd backward for the backward kernels); the fused time is
+    the whole gradient, dQ included. Returns ({kernel: times}, {kernel:
+    max abs error against plain at these shapes})."""
     import torch.nn.functional as F
     from flashy_tpu_torch.ops import attention as A
     B, H, T, D = 16, 16, 1024, 64
@@ -929,7 +938,29 @@ def time_flash(torch, device, card):
     out, lse = A.flash_forward(q, k, v, True)
     delta = A.flash_delta(do, out)
     args = (q, k, v, do, lse, delta, True)
-    _, _, partials = A.flash_backward_fused(*args)
+    first = A.flash_backward_fused(*args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    second = A.flash_backward_fused(*args)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    if not all(same):
+        fail(f"flash bfloat16 fused: two launches differ (dq, dk, dv bit-"
+             f"equal: {same})")
+    partials_mib = -(-T // 64) * q.numel() * 4 / 2 ** 20
+    print(f"flash bfloat16 fused B={B} H={H} T={T}: two launches bit-equal "
+          f"on dq, dk and dv; device memory of a call {extra:.1f} MiB, "
+          f"its three outputs {3 * q.numel() * q.element_size() / 2 ** 20:.1f}"
+          f" (f32 dQ partials would take {partials_mib:.1f}) [{card}]",
+          flush=True)
+    del first, second
+
+    def plain_fused():
+        dk, dv, partials = A.flash_backward_fused_blockwise(*args)
+        return A.fold_dq_partials(partials, q.dtype), dk, dv
+
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous().requires_grad_()
                        for t in (q, k, v, do))
     sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
@@ -948,8 +979,7 @@ def time_flash(torch, device, card):
             lambda: A._launch_backward(A._BWD_DKV, *args),
             lambda: A.flash_backward_dkv_blockwise(*args), sdpa_bwd),
         "flash_bwd_fused": (
-            lambda: A.flash_backward_fused(*args),
-            lambda: A.flash_backward_fused_blockwise(*args), sdpa_bwd)}
+            lambda: A.flash_backward_fused(*args), plain_fused, sdpa_bwd)}
     bounds = flash_bounds(B, H, T, D, q.element_size())
     times = {}
     for name, (kernel, plain, library) in kernels.items():
@@ -958,17 +988,12 @@ def time_flash(torch, device, card):
                        "plain_ms": time_ms(torch, plain, iters=5),
                        "bound_ms": bound, "bound_by": bound_by,
                        "library_ms": library}
-    fold_ms = time_ms(torch, lambda: A.fold_dq_partials(partials, q.dtype),
-                      iters=20)
-    grad_bound, grad_by = bounds["gradient"]
     print("flash times (B16 H16 T1024 D64 causal bf16): " + "; ".join(
         f"{name} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
         f"library_ms={t['library_ms']:.4f}" for name, t in times.items())
-        + f"; dQ fold of the fused partials ms={fold_ms:.4f}; fused + fold "
-        f"ms={times['flash_bwd_fused']['ms'] + fold_ms:.4f} against the "
-        f"gradient's bound_ms={grad_bound:.4f} ({grad_by}) "
-        f"(library: F.scaled_dot_product_attention forward, its autograd "
+        + " (flash_bwd_fused: the whole gradient, dQ folded in the kernel; "
+        "library: F.scaled_dot_product_attention forward, its autograd "
         f"backward for the backward kernels) [{card}]", flush=True)
     return times, errors
 
@@ -1965,7 +1990,8 @@ def time_ring_backward(torch, qs, ks, vs, card):
     rowsum(dO.O). Each pair's dQ, dK and dV are held against the
     blockwise plain versions on the same arguments at FLASH_TOL relative
     to max |plain|, diagonal (causal) and off-diagonal pairs both. Then
-    one pair of each kind is timed (CUDA events) beside its bound, the
+    one pair of each kind is timed (CUDA events, device time only: the
+    wrapper's host side can take longer than a pair) beside its bound, the
     plain versions and aten's flash-attention backward handed the same
     out and lse (its time only where it agrees at FLASH_TOL). Returns
     ({kernel: mean per launch over the ring's pairs}, {kernel: max abs
@@ -2016,8 +2042,8 @@ def time_ring_backward(torch, qs, ks, vs, card):
             got = call()
             lib_rel = max(rel_err(a.transpose(1, 2), b)
                           for a, b in zip(got[:3], (dq, dk, dv)))
-            lib_ms = time_ms(torch, call, iters=20) if lib_rel <= tol \
-                else None
+            lib_ms = time_ms(torch, call, iters=20, device_only=True) \
+                if lib_rel <= tol else None
             why = "" if lib_ms is not None else \
                 f"disagrees: rel err {lib_rel:.2e}"
         except (AttributeError, RuntimeError, TypeError, ValueError) as err:
@@ -2025,12 +2051,12 @@ def time_ring_backward(torch, qs, ks, vs, card):
         rows[diag] = (count, {
             "flash_bwd_dq": (
                 time_ms(torch, lambda: A._launch_backward(A._BWD_DQ, *args),
-                        iters=20),
+                        iters=20, device_only=True),
                 time_ms(torch, lambda: A.flash_backward_dq_blockwise(*args),
                         iters=3), *bounds["flash_bwd_dq"]),
             "flash_bwd_dkv": (
                 time_ms(torch, lambda: A._launch_backward(A._BWD_DKV, *args),
-                        iters=20),
+                        iters=20, device_only=True),
                 time_ms(torch, lambda: A.flash_backward_dkv_blockwise(*args),
                         iters=3), *bounds["flash_bwd_dkv"])}, lib_ms, why)
     total = sum(count for count, _, _, _ in rows.values())
@@ -2081,11 +2107,60 @@ def build_all():
     for name in names:
         info = _build.build_info.get(name)
         for line in (info[1] if info else "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(word in line for word in ("registers", "spill", "error",
+                                              "wgmma")):
                 print(f"  {name}: {line.strip()}")
         built = f"built in {info[0]:.1f}s" if info else "cached"
         print(f"build: {name} {built}", flush=True)
     return time.perf_counter() - t0
+
+
+# the flash kernels whose SASS `check_sass` reads, by the mangled name's
+# template argument of `flash_bwd_hopper_kernel<MODE>`
+SASS_KERNELS = {"flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_hopper_kernelILi0E",
+                "flash_bwd_dkv": "flash_bwd_hopper_kernelILi1E",
+                "flash_bwd_fused": "flash_bwd_hopper_kernelILi2E"}
+
+
+def check_sass(card):
+    """The bf16 flash kernels on the tensor cores' wgmma, not serialized:
+    per kernel the HGMMA and WARPGROUP.DEPBAR instructions in `cuobjdump
+    -sass` of the built library. ptxas serializes every wgmma behind a
+    branch it cannot prove warp-uniform (info C7520): a DEPBAR then
+    follows each HGMMA. Fails if a kernel has no HGMMA or as many
+    DEPBARs as HGMMAs; says so and goes on where cuobjdump is missing."""
+    import shutil
+    from flashy_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: cuobjdump not found, not checked", flush=True)
+        return
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path("flash_attention"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None and "HGMMA" in line:
+            counts[name][0] += 1
+        elif name is not None and "WARPGROUP.DEPBAR" in line:
+            counts[name][1] += 1
+    found = {}
+    for label, key in SASS_KERNELS.items():
+        hits = [c for n, c in counts.items() if key in n]
+        if len(hits) != 1:
+            fail(f"sass: {len(hits)} functions named like {key}")
+        hgmma, depbar = found[label] = hits[0]
+        if hgmma == 0 or depbar >= hgmma:
+            fail(f"sass: {label} has {hgmma} HGMMA and {depbar} "
+                 f"WARPGROUP.DEPBAR: not on wgmma, or serialized")
+    print("sass (cuobjdump -sass of flash_attention): " + ", ".join(
+        f"{label} {h} HGMMA / {d} WARPGROUP.DEPBAR"
+        for label, (h, d) in found.items()) + f" [{card}]", flush=True)
 
 
 def main() -> None:
@@ -2105,6 +2180,7 @@ def main() -> None:
 
     seconds = build_all()
     print(f"build: all sources in {seconds:.1f}s on [{card}]", flush=True)
+    check_sass(card)
 
     errors = check_kernels(torch, device, card)
 
@@ -2128,7 +2204,8 @@ def main() -> None:
     phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver = phase_train(torch, card, folder)
-        profile_train(torch, solver, card, watch=("flash_fwd_kernel",))
+        profile_train(torch, solver, card,
+                      watch=("flash_fwd_kernel", "flash_bwd"))
         del solver
     flash_times, main_errors = time_flash(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
@@ -2141,7 +2218,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as folder:
         ring_counts, solver = phase_ring_train(torch, card, folder)
         profile_train(torch, solver, card, steps=3,
-                      label="profile ring train", watch=("ring_fwd_kernel",))
+                      label="profile ring train",
+                      watch=("ring_fwd_kernel", "flash_bwd"))
         del solver
     ring_times, ring_main_error, pair_times, pair_errors = time_ring(
         torch, device, card)

@@ -1,10 +1,10 @@
 // Tile code shared by the flash-attention kernels (flash_attention.cu) and
-// the ring-attention kernel (ring_attention.cu), in two parts.
+// the ring-attention kernel (ring_attention.cu), in three parts.
 //
-// 1. 64x64 f32 tiles in shared memory with m16n8k16 block products
-//    (mma.sync for bf16, ordered FMAs for f32): the backward kernels'
-//    code in both dtypes, and the f32 forward's 64-key step
-//    (`forward_begin`, `forward_tile`, `forward_end`).
+// 1. 64x64 f32 tiles in shared memory with block products as ordered
+//    FMAs in the m16n8k16 fragment layout: the f32 backward kernels' code
+//    and the f32 forward's 64-key step (`forward_begin`, `forward_tile`,
+//    `forward_end`).
 // 2. The bf16 forward on Hopper (`hopper_forward`, namespace `hopper`),
 //    which both bf16 forwards run. A persistent grid, one block an SM,
 //    walks the work tiles (192 query rows of one (b, h); heads fastest,
@@ -25,6 +25,35 @@
 //    and V read as an MN-major operand (no transpose copy). The loop is
 //    software-pipelined: Q K^T of tile j and P V of tile j-1 are on the
 //    tensor cores while the warpgroup runs the softmax of tile j.
+// 3. The bf16 backward's pair step (`backward_pair`, `start_dkv`,
+//    `start_dq`), which the three bf16 backward kernels of
+//    flash_attention.cu run (their skeleton, the persistent grid, the TMA
+//    ring and the fused kernel's ordered dQ chain, with why that chain
+//    cannot hang, are described there). For one (64 keys, 64 queries)
+//    pair, FA3's orientation: S^T = K Q^T and dP^T = V dO^T as wgmma with
+//    the keys as M, so that P^T and dS^T come out in the accumulator
+//    layout, which is the A-fragment layout of dV += P^T dO and dK +=
+//    dS^T Q (dO and Q MN-major, as V is in the forward); dK and dV
+//    accumulate in place inside the wgmma. dQ = dS K is a block product
+//    from zero with dS^T staged once in swizzled shared memory and read
+//    as an MN-major A operand. lse and D are per column, the mask only on
+//    a diagonal or ragged pair. P is rounded to bf16 before P^T dO, dS =
+//    P (dP - D) scale (from the f32 P) before dS^T Q and dS K. Because
+//    every bf16 backward kernel runs this one step, fused and split stay
+//    bit-equal; the step's sums inside a row are wgmma's, not the plain
+//    version's, so the kernels are held to it at the FLASH_TOL bars.
+//    What bounds it: at the bound, operations (10 D flops a visible
+//    pair of the fused kernel); in fact the warpgroup's f32 instruction
+//    rate on P and dS (the exact expf ~8 instructions an element; a dead
+//    query's guard is a per-column +inf, not a select per element, which
+//    alone took a third off every backward kernel) and, in the fused
+//    kernel, the ordered dQ chain's round trips to L2, with the other
+//    consumer warpgroup's products overlapping them. Budget: 384 threads
+//    under __launch_bounds__(384, 1), 168 registers at launch, 0 spilled;
+//    setmaxnreg gives the producer warpgroup 24 a thread and the two
+//    consumers 240; shared memory ~180 KB (two rounds of two resident
+//    64-row blocks, three stages of two streamed ones and of the fused
+//    chain's handed sums, two dS tiles), so one block an SM.
 //
 // Both forwards run the same step in each dtype, so they round where
 // each other rounds: a one-rank ring is bit-equal to the flash forward
@@ -36,8 +65,8 @@
 // accumulator takes as acc * alpha + pv with non-contracted f32
 // arithmetic (accumulating P V in place, inside the wgmma, moved more
 // outputs off the reference and was slower). Only the order of the sums
-// inside a row differs (wgmma's against mma.sync's), as it differs from
-// the plain version's.
+// inside a row differs (wgmma's against the f32 step's FMAs), as it
+// differs from the plain version's.
 //
 // What bounds the bf16 step on this card: at the bound, operations (4 D
 // flops per visible (query, key) pair at the tensor cores' bf16 rate;
@@ -67,8 +96,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -84,62 +111,34 @@ constexpr int kTile = kBlock * kLd;    // floats per tile
 static_assert(kBlock == kDim && kThreads == 256,
               "the warp tiling assumes 64x64 tiles over 8 warps");
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// x rounded to T's precision, returned as f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 // first element of row (b, t, h) of a contiguous [B, T, H, kDim] tensor
 __device__ __forceinline__ size_t row_at(int b, int t, int h, int T, int H) {
   return ((static_cast<size_t>(b) * T + t) * H + h) * kDim;
 }
 
-// rows row0..row0+63 of head (b, h) into a padded f32 tile; rows past T
-// are zero. 16-byte loads (the wrapper aligns the tensors), all of a
-// thread's issued before any is stored, so their latencies overlap.
-template <typename T>
-__device__ void load_rows(float* dst, const T* __restrict__ src, int b,
+// rows row0..row0+63 of head (b, h) of an f32 tensor into a padded tile;
+// rows past T are zero. 16-byte loads (the wrapper aligns the tensors),
+// all of a thread's issued before any is stored, so their latencies
+// overlap.
+__device__ void load_rows(float* dst, const float* __restrict__ src, int b,
                           int h, int row0, int rows, int H) {
-  constexpr int kVec = 16 / sizeof(T);                // elements per load
-  constexpr int kRowChunks = kDim / kVec;
+  constexpr int kRowChunks = kDim / 4;                  // float4s a row
   constexpr int kPer = kBlock * kRowChunks / kThreads;  // loads a thread
-  uint4 raw[kPer];
+  float4 raw[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int chunk = threadIdx.x + i * kThreads;
     const int t = row0 + chunk / kRowChunks;
-    raw[i] = t < rows
-                 ? *reinterpret_cast<const uint4*>(
-                       src + row_at(b, t, h, rows, H) +
-                       (chunk % kRowChunks) * kVec)
-                 : make_uint4(0u, 0u, 0u, 0u);
+    raw[i] = t < rows ? *reinterpret_cast<const float4*>(
+                            src + row_at(b, t, h, rows, H) +
+                            (chunk % kRowChunks) * 4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int chunk = threadIdx.x + i * kThreads;
-    float* out =
-        dst + (chunk / kRowChunks) * kLd + (chunk % kRowChunks) * kVec;
-    const T* values = reinterpret_cast<const T*>(&raw[i]);
-#pragma unroll
-    for (int v = 0; v < kVec; v += 4)
-      *reinterpret_cast<float4*>(out + v) =
-          make_float4(to_float(values[v]), to_float(values[v + 1]),
-                      to_float(values[v + 2]), to_float(values[v + 3]));
+    *reinterpret_cast<float4*>(dst + (chunk / kRowChunks) * kLd +
+                               (chunk % kRowChunks) * 4) = raw[i];
   }
 }
 
@@ -156,97 +155,53 @@ __device__ __forceinline__ int tile_col(int j, int e) {
   return 32 * (threadIdx.x >> 7) + 8 * j + 2 * (lane & 3) + (e & 1);
 }
 
-// two bf16-exact f32 values as one bf16x2 register, `lo` in the low half
+// two f32 values rounded to bf16 (to nearest even) as one bf16x2
+// register, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x[0] and x[stride]: one 8-byte load when they are adjacent
-template <int kStride>
-__device__ __forceinline__ float2 pair_at(const float* x) {
-  if constexpr (kStride == 1) return *reinterpret_cast<const float2*>(x);
-  return make_float2(x[0], x[kStride]);
-}
-
 // f = A B from zero, contracting over 64: A(m, k) = a[m*AM + k*AK],
-// B(k, n) = b[k*BK + n*BN], both f32 tiles in shared memory. T = float:
-// fmaf in ascending k. T = bf16: the operands are bf16-exact, and the
-// product runs as four mma.sync k-steps. Either way the result does not
-// depend on which kernel runs it.
-template <typename T, int AM, int AK, int BK, int BN>
+// B(k, n) = b[k*BK + n*BN], both f32 tiles in shared memory, as fmaf in
+// ascending k, so the result does not depend on which kernel runs it.
+template <int AM, int AK, int BK, int BN>
 __device__ __forceinline__ void product(const float* a, const float* b,
                                         float f[4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g, r1 = r0 + 8;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), r1 = r0 + 8;
   const int n0 = 32 * (threadIdx.x >> 7);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 4
-    for (int k = 0; k < kBlock; ++k) {
-      const float a0 = a[r0 * AM + k * AK], a1 = a[r1 * AM + k * AK];
+  for (int k = 0; k < kBlock; ++k) {
+    const float a0 = a[r0 * AM + k * AK], a1 = a[r1 * AM + k * AK];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + 8 * j + 2 * t;
-        const float b0 = b[k * BK + c * BN], b1 = b[k * BK + (c + 1) * BN];
-        f[j][0] = fmaf(a0, b0, f[j][0]);
-        f[j][1] = fmaf(a0, b1, f[j][1]);
-        f[j][2] = fmaf(a1, b0, f[j][2]);
-        f[j][3] = fmaf(a1, b1, f[j][3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < kBlock; k0 += 16) {
-      const int k = k0 + 2 * t;
-      uint32_t af[4];
-      float2 x = pair_at<AK>(a + r0 * AM + k * AK);
-      af[0] = pack_bf16(x.x, x.y);
-      x = pair_at<AK>(a + r1 * AM + k * AK);
-      af[1] = pack_bf16(x.x, x.y);
-      x = pair_at<AK>(a + r0 * AM + (k + 8) * AK);
-      af[2] = pack_bf16(x.x, x.y);
-      x = pair_at<AK>(a + r1 * AM + (k + 8) * AK);
-      af[3] = pack_bf16(x.x, x.y);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + 8 * j + g;
-        const float2 y0 = pair_at<BK>(b + k * BK + n * BN);
-        const float2 y1 = pair_at<BK>(b + (k + 8) * BK + n * BN);
-        mma_bf16(f[j], af, pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
-      }
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      const float b0 = b[k * BK + c * BN], b1 = b[k * BK + (c + 1) * BN];
+      f[j][0] = fmaf(a0, b0, f[j][0]);
+      f[j][1] = fmaf(a0, b1, f[j][1]);
+      f[j][2] = fmaf(a1, b0, f[j][2]);
+      f[j][3] = fmaf(a1, b1, f[j][3]);
     }
   }
 }
 
 // A B^T, A B and A^T B of padded [64][kLd] tiles
-template <typename T>
 __device__ __forceinline__ void product_abt(const float* a, const float* b,
                                             float f[4][4]) {
-  product<T, kLd, 1, 1, kLd>(a, b, f);
+  product<kLd, 1, 1, kLd>(a, b, f);
 }
-template <typename T>
 __device__ __forceinline__ void product_ab(const float* a, const float* b,
                                            float f[4][4]) {
-  product<T, kLd, 1, kLd, 1>(a, b, f);
+  product<kLd, 1, kLd, 1>(a, b, f);
 }
-template <typename T>
 __device__ __forceinline__ void product_atb(const float* a, const float* b,
                                             float f[4][4]) {
-  product<T, 1, kLd, kLd, 1>(a, b, f);
+  product<1, kLd, kLd, 1>(a, b, f);
 }
 
 // The forward's shared memory: Q, K, V and S/P tiles, then the running
@@ -272,11 +227,10 @@ __device__ __forceinline__ ForwardSmem forward_smem(float* smem) {
 // Q rows q0.. of head (b, h) into shared memory (rows past Tq zero), the
 // running statistics and the accumulator to their empty state. The f32
 // forward's step; the bf16 forwards run `hopper_forward` below.
-template <typename T>
 __device__ __forceinline__ void forward_begin(const ForwardSmem& s,
-                                              const T* __restrict__ q, int b,
-                                              int h, int q0, int Tq, int H,
-                                              float acc[4][4]) {
+                                              const float* __restrict__ q,
+                                              int b, int h, int q0, int Tq,
+                                              int H, float acc[4][4]) {
   load_rows(s.q, q, b, h, q0, Tq, H);
   for (int r = threadIdx.x; r < kBlock; r += kThreads) {
     s.m[r] = kNegInf;
@@ -291,13 +245,13 @@ __device__ __forceinline__ void forward_begin(const ForwardSmem& s,
 // One 64-key step of the online softmax: K and V rows k0.. of head (b, h)
 // of a [B, Tk, H, kDim] pair (rows past Tk zero), S = Q K^T times scale,
 // NEG_INF where !shown(r, c) (tile row r, tile column c), the running max
-// and the guarded exp, P rounded to T, acc = acc * alpha + P V.
-template <typename T, typename Shown>
+// and the guarded exp, acc = acc * alpha + P V.
+template <typename Shown>
 __device__ __forceinline__ void forward_tile(const ForwardSmem& s,
-                                             const T* __restrict__ k,
-                                             const T* __restrict__ v, int b,
-                                             int h, int k0, int Tk, int H,
-                                             float scale, Shown shown,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             int b, int h, int k0, int Tk,
+                                             int H, float scale, Shown shown,
                                              float acc[4][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncthreads();  // the previous tile's P.V is done with k, v and p
@@ -306,7 +260,7 @@ __device__ __forceinline__ void forward_tile(const ForwardSmem& s,
   __syncthreads();
 
   float sc[4][4];
-  product_abt<T>(s.q, s.k, sc);
+  product_abt(s.q, s.k, sc);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -338,13 +292,13 @@ __device__ __forceinline__ void forward_tile(const ForwardSmem& s,
       s.m[r] = m_new;
       s.a[r] = alpha;
     }
-    row[lane] = round_to<T>(p0);
-    row[lane + 32] = round_to<T>(p1);
+    row[lane] = p0;
+    row[lane + 32] = p1;
   }
   __syncthreads();
 
   float pv[4][4];
-  product_ab<T>(s.p, s.v, pv);
+  product_ab(s.p, s.v, pv);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -353,12 +307,11 @@ __device__ __forceinline__ void forward_tile(const ForwardSmem& s,
                             pv[j][e]);
 }
 
-// out = acc / max(l, 1e-30) in T for rows q0.. of head (b, h) of a
+// out = acc / max(l, 1e-30) for rows q0.. of head (b, h) of an f32
 // [B, Tq, H, kDim] tensor, and lse = m + log(max(l, 1e-30)) into the f32
 // [B*H, Tq] rows; rows past Tq are not written.
-template <typename T>
 __device__ __forceinline__ void forward_end(const ForwardSmem& s,
-                                            T* __restrict__ out,
+                                            float* __restrict__ out,
                                             float* __restrict__ lse, int b,
                                             int h, int q0, int Tq, int H,
                                             float acc[4][4]) {
@@ -370,7 +323,7 @@ __device__ __forceinline__ void forward_end(const ForwardSmem& s,
       const int r = tile_row(e), t = q0 + r;
       if (t < Tq)
         out[row_at(b, t, h, Tq, H) + tile_col(j, e)] =
-            from_float<T>(__fdiv_rn(acc[j][e], fmaxf(s.l[r], 1e-30f)));
+            __fdiv_rn(acc[j][e], fmaxf(s.l[r], 1e-30f));
     }
   const int bh = b * H + h;
   for (int r = threadIdx.x; r < kBlock; r += kThreads) {
@@ -514,7 +467,9 @@ __device__ __forceinline__ void hold(float (&r)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (+)= A B, m64n64k16, A and B in shared memory, both K-major
+// d (+)= A B, m64n64k16, A and B in shared memory; K-major by default,
+// MN-major (the transpose flags) where kTransA / kTransB is 1
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -522,7 +477,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -530,7 +485,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d (+)= A B, m64n64k16, A in registers (bf16 fragments), B in shared
@@ -857,6 +812,171 @@ __device__ __forceinline__ void hopper_forward(
             __fadd_rn(m[r], logf(denom));
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// The bf16 backward's pair step, shared by the three bf16 backward
+// kernels of flash_attention.cu (`flash_bwd_hopper_kernel`).
+// ---------------------------------------------------------------------
+
+// Key k_pos is hidden from query q_pos where k_pos >= Tk or, under
+// causal, q_pos + offset < k_pos.
+struct BwdMask {
+  int Tk, offset, causal;
+};
+
+// the 128 threads of consumer warpgroup `wg` (named barrier 1 + wg; 0 is
+// __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Until *count >= target, read with acquire semantics at the device
+// scope. One PTX block, like `mbar_wait`; a count that never arrives is
+// a bug of the kernel and traps after ~10 s of clock.
+__device__ __forceinline__ void wait_count(const unsigned* count,
+                                           unsigned target) {
+  asm volatile(
+      "{\n.reg .pred p, late;\n.reg .u32 v;\n.reg .s64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "LAB_POLL:\n"
+      "ld.acquire.gpu.global.u32 v, [%0];\n"
+      "setp.ge.u32 p, v, %1;\n"
+      "@p bra LAB_READY;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.s64 t1, t1, t0;\n"
+      "setp.gt.s64 late, t1, 20000000000;\n"
+      "@late trap;\n"
+      "bra LAB_POLL;\n"
+      "LAB_READY:\n}\n" ::"l"(count),
+      "r"(target)
+      : "memory");
+}
+
+// *count = value with release semantics at the device scope, by the one
+// thread whose `leader` is non-zero (a predicate, not a branch)
+__device__ __forceinline__ void publish_count(unsigned* count,
+                                              unsigned value, int leader) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p st.release.gpu.global.u32 [%0], %1;\n}\n" ::"l"(count),
+      "r"(value), "r"(leader)
+      : "memory");
+}
+
+// One (64-key, 64-query) pair of the backward, with the keys as wgmma's
+// M: S^T = K Q^T and dP^T = V dO^T as four wgmma each (all four operands
+// K-major TMA tiles), then in the accumulator layout (element i at key
+// k0 + r0 + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + c0 + (i & 1)):
+// P^T = the guarded exp(S^T scale - lse), NEG_INF where EDGE hides the
+// key, and dS^T = P^T (dP^T - D) scale, both in f32 with non-contracted
+// arithmetic, as `_flash_dkv_kernel` computes P and dS. lse and D are per
+// query, i.e. per column, read from `stats` (lse at [0..63], D at
+// [64..127]; past Tq the producer wrote NEG_INF and 0, so those columns
+// get P = 0). Returns P^T and dS^T rounded to bf16 as A fragments of the
+// products that contract over the queries (dV += P^T dO, dK += dS^T Q:
+// the accumulator layout is the m64k16 A layout register for register).
+// With STAGE, dS^T also goes to `ds_tile` (swizzled like a TMA tile, keys
+// as rows) for dQ = dS K, which reads it as an MN-major A operand; the
+// warpgroup is synchronized before returning. `meanwhile()` runs while
+// S^T and dP^T are on the tensor cores.
+template <bool EDGE, bool STAGE, typename Meanwhile>
+__device__ __forceinline__ void backward_pair(
+    uint64_t k_desc, uint64_t v_desc, uint64_t q_desc, uint64_t do_desc,
+    const float* stats, bf16* ds_tile, int wg, int k0, int q0,
+    const BwdMask& mask, float scale, uint32_t (&p)[16], uint32_t (&ds)[16],
+    Meanwhile meanwhile) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+  float s[32], dp[32];
+  wgmma_fence();
+  start_qk(s, k_desc, q_desc);
+  wgmma_commit();
+  start_qk(dp, v_desc, do_desc);
+  wgmma_commit();
+  meanwhile();
+  // this thread's 16 queries: column 8 j + c0 + e is entry 2 j + e. A
+  // query whose lse is <= NEG_INF/2 subtracts +inf instead, so that its
+  // P is exactly 0, as the guard's select would make it.
+  float lse[16], delta[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+    const float2 d =
+        *reinterpret_cast<const float2*>(stats + kBlock + 8 * j + c0);
+    lse[2 * j] = l.x > kNegInf * 0.5f ? l.x : __int_as_float(0x7f800000);
+    lse[2 * j + 1] = l.y > kNegInf * 0.5f ? l.y : __int_as_float(0x7f800000);
+    delta[2 * j] = d.x;
+    delta[2 * j + 1] = d.y;
+  }
+  wgmma_wait<1>();
+  hold(s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    bool shown = true;
+    if (EDGE) {
+      const int key = k0 + r0 + 8 * ((i >> 1) & 1);
+      const int query = q0 + 8 * (i >> 2) + c0 + (i & 1);
+      shown = key < mask.Tk && (!mask.causal || query + mask.offset >= key);
+    }
+    const float score = shown ? __fmul_rn(s[i], scale) : kNegInf;
+    s[i] = expf(__fsub_rn(score, lse[2 * (i >> 2) + (i & 1)]));
+  }
+  wgmma_wait<0>();
+  hold(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    dp[i] = __fmul_rn(
+        __fmul_rn(s[i], __fsub_rn(dp[i], delta[2 * (i >> 2) + (i & 1)])),
+        scale);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+    ds[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+  }
+  if (STAGE) {
+    // register j holds row r0 + 8 (j & 1), columns 8 (j >> 1) + c0, +1:
+    // 16-byte chunk j >> 1 of a 128-byte row, XOR-swizzled by row % 8
+    unsigned char* base = reinterpret_cast<unsigned char*>(ds_tile);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int row = r0 + 8 * (j & 1);
+      *reinterpret_cast<uint32_t*>(
+          base + row * 128 + ((((j >> 1) ^ row) & 7) << 4) + 2 * c0) = ds[j];
+    }
+    fence_async_smem();
+    warpgroup_sync(wg);
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q, in place: four wgmma each, P^T and dS^T
+// from registers, dO and Q MN-major; started, not waited
+__device__ __forceinline__ void start_dkv(float (&dv)[32], float (&dk)[32],
+                                          const uint32_t (&p)[16],
+                                          const uint32_t (&ds)[16],
+                                          uint64_t do_desc,
+                                          uint64_t q_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(dv, p + 4 * kk, do_desc + kk * kMNMajorStep, 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(dk, ds + 4 * kk, q_desc + kk * kMNMajorStep, 1);
+}
+
+// The dQ block product dS K of one pair, from zero: dS^T staged by
+// `backward_pair` and K, both MN-major; started, not waited
+__device__ __forceinline__ void start_dq(float (&dq)[32], uint64_t ds_desc,
+                                         uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<1, 1>(dq, ds_desc + kk * kMNMajorStep,
+                   k_desc + kk * kMNMajorStep, kk);
 }
 
 // ---- host: tensor maps ------------------------------------------------

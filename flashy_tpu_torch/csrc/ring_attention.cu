@@ -137,7 +137,7 @@ ring_fwd_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
     const int last = diag ? qi : last_tile;   // the triangle ends at qi
     for (int ki = 0; ki <= last; ++ki) {
       const int k0 = ki * kBlock;
-      forward_tile<float>(
+      forward_tile(
           s, k, v, b, h, k0, g.T, g.H, g.scale,
           [&](int r, int c) {
             return k0 + c < g.T && (!diag || q0 + r >= k0 + c);

@@ -14,10 +14,12 @@ tiles (`flash_forward_blockwise`, `flash_backward_dq_blockwise`,
 `flash_backward_dkv_blockwise`, `flash_backward_fused_blockwise`). The
 wrapper takes them only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernels or raises. The backward's D =
-rowsum(dO * O) and the fused path's left fold of the f32 dQ partials
-in k order are plain PyTorch around the kernels, as the JAX package
-leaves them to XLA; the fold makes the fused dQ bit-equal to the split
-kernel's, which `fused_backward=False` keeps as the oracle.
+rowsum(dO * O) is plain PyTorch around the kernels, as the JAX package
+leaves it to XLA. The fused backward's dQ is the left fold, in k order,
+of per-k-block f32 block products: the bf16 kernel folds them itself,
+the f32 kernel writes them out as partials and `fold_dq_partials` folds
+them here. Either way the fused dQ is bit-equal to the split kernel's,
+which `fused_backward=False` keeps as the oracle.
 """
 import ctypes
 import math
@@ -54,7 +56,7 @@ _FUNCTIONS = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dO, lse, D
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
-        ctypes.c_void_p,                                     # dq partials
+        ctypes.c_void_p, ctypes.c_void_p,                    # scratch, counts
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, Tq
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Tk, D, causal
         ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
@@ -374,20 +376,32 @@ def _launch_forward(q, k, v, causal):
 
 
 def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
+    """One backward kernel: (dq, dk, dv, partials), each None where the
+    kernel does not write it. The fused kernel writes dq in bf16, through
+    an f32 accumulator [B*H, nq*64, 64] and zeroed counters [B*H*nq]
+    that it is handed here, and the f32 dQ partials [nk, B, Tq, H, D] in
+    f32 instead."""
     _check_kernel_inputs(q, k, v)
     _check_backward_inputs(q, grad_out, lse, delta)
     q, k, v = map(_kernel_operand, (q, k, v))
     grad_out = _kernel_operand(grad_out.to(q.dtype))
     lse, delta = lse.contiguous(), delta.contiguous()
-    dq = dk = dv = partials = None
-    if kind == _BWD_DQ:
-        dq = torch.empty_like(q)
-    else:
+    dq = dk = dv = partials = scratch = counts = None
+    if kind != _BWD_DQ:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if kind == _BWD_FUSED:
+    if kind == _BWD_FUSED and q.dtype == torch.float32:
         nk = -(-k.shape[1] // FLASH_BLOCK)
-        partials = torch.empty((nk,) + tuple(q.shape), dtype=torch.float32,
-                               device=q.device)
+        partials = scratch = torch.empty((nk,) + tuple(q.shape),
+                                         dtype=torch.float32, device=q.device)
+    elif kind != _BWD_DKV:
+        dq = torch.empty_like(q)
+        if kind == _BWD_FUSED:
+            batch, t_q, heads, dim = q.shape
+            nq = -(-t_q // FLASH_BLOCK)
+            scratch = torch.empty((batch * heads, nq * FLASH_BLOCK, dim),
+                                  dtype=torch.float32, device=q.device)
+            counts = torch.zeros(batch * heads * nq, dtype=torch.int32,
+                                 device=q.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -396,7 +410,7 @@ def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
         _call("flashy_flash_backward", kind, _FLASH_DTYPES[q.dtype],
               q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-              ptr(partials), *_geometry(q, k, causal))
+              ptr(scratch), ptr(counts), *_geometry(q, k, causal))
     name = {_BWD_DQ: "flash_bwd_dq", _BWD_DKV: "flash_bwd_dkv",
             _BWD_FUSED: "flash_bwd_fused"}[kind]
     launch_counts[name] += 1
@@ -436,13 +450,19 @@ def flash_backward_split(q, k, v, grad_out, lse, delta, causal=False):
 
 
 def flash_backward_fused(q, k, v, grad_out, lse, delta, causal=False):
-    """(dk, dv, dq partials) through the one-pass backward."""
+    """(dq, dk, dv) through the one-pass backward, as JAX's
+    `_flash_backward_fused` returns them: the bf16 kernel folds dQ
+    itself; the f32 kernel's dQ partials, and on the CPU the plain
+    version's, are folded here in k order."""
     if _on_cpu(q):
-        return flash_backward_fused_blockwise(q, k, v, grad_out, lse, delta,
-                                              causal)
-    _, dk, dv, partials = _launch_backward(_BWD_FUSED, q, k, v, grad_out,
-                                           lse, delta, causal)
-    return dk, dv, partials
+        dk, dv, partials = flash_backward_fused_blockwise(
+            q, k, v, grad_out, lse, delta, causal)
+        return fold_dq_partials(partials, q.dtype), dk, dv
+    dq, dk, dv, partials = _launch_backward(_BWD_FUSED, q, k, v, grad_out,
+                                            lse, delta, causal)
+    if partials is not None:
+        dq = fold_dq_partials(partials, q.dtype)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -461,13 +481,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         grad_out = grad_out.to(q.dtype)
         delta = flash_delta(grad_out, out)
-        if ctx.fused:
-            dk, dv, partials = flash_backward_fused(q, k, v, grad_out, lse,
-                                                    delta, ctx.causal)
-            dq = fold_dq_partials(partials, q.dtype)
-        else:
-            dq, dk, dv = flash_backward_split(q, k, v, grad_out, lse, delta,
-                                              ctx.causal)
+        backward = flash_backward_fused if ctx.fused else flash_backward_split
+        dq, dk, dv = backward(q, k, v, grad_out, lse, delta, ctx.causal)
         return dq, dk, dv, None, None
 
 

@@ -3,8 +3,9 @@
 # that takes them on the CPU) held against the JAX package's Pallas
 # kernels in interpret mode on identical inputs. f32 tolerance 1e-5:
 # reduction order only. The port's fused backward must be bit-equal to
-# its split pair, as the JAX package pins for its own kernels. In bf16
-# the blockwise forward is held to the Pallas kernel's rounding points.
+# its split pair in both dtypes, as the JAX package pins for its own
+# kernels. In bf16 the blockwise forward and backward are held to the
+# Pallas kernels' rounding points.
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +75,7 @@ def _port_grads(q, k, v, do, causal, block):
         flash_backward_dkv_blockwise, flash_backward_dq_blockwise,
         flash_backward_fused_blockwise, flash_delta, flash_forward_blockwise,
         fold_dq_partials)
-    q, k, v, do = map(torch.from_numpy, (q, k, v, do))
+    q, k, v, do = map(torch.as_tensor, (q, k, v, do))
     out, lse = flash_forward_blockwise(q, k, v, causal, block_k=block)
     delta = flash_delta(do, out)
     split = (flash_backward_dq_blockwise(q, k, v, do, lse, delta, causal,
@@ -130,6 +131,74 @@ def test_bf16_forward_rounds_where_the_pallas_kernel_does():
     dense = dot_product_attention(tq, tk, tv, causal=True)
     _, dense_share = _placement_misses(dense.float().numpy(), want)
     assert dense_share > 0.01, dense_share
+
+
+@pytest.mark.parametrize("jax_fused", [True, False])
+def test_bf16_backward_rounds_where_the_pallas_kernels_do(jax_fused):
+    # The backward kernels round P to bf16 before P^T.dO and dS before
+    # dS^T.Q and dS.K; the blockwise split and fused versions must round
+    # at the same points as JAX's Pallas backward (either form): each
+    # gradient within one bf16 ulp of |want| plus 2^-9 (a P or dS whose
+    # f32 value sits on a bf16 rounding boundary may round the other way,
+    # the two frameworks' exp differing by an f32 ulp: one ulp of P times
+    # |dO| at these unit-scale inputs), at most 1% not bit-equal. Dense
+    # autograd in f32, which rounds only the gradients, misses that
+    # share.
+    from flashy_tpu.ops.attention import flash_attention as jax_flash
+    from flashy_tpu_torch.ops.attention import dot_product_attention
+    q, k, v, do = _inputs((2, 128, 2, 32), (2, 128, 2, 32), seed=3)
+    split, fused = _port_grads(*(torch.from_numpy(x).bfloat16()
+                                 for x in (q, k, v, do)), True, 32)
+    for a, b in zip(fused, split):
+        assert torch.equal(a, b)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=True, block_q=32, block_k=32,
+        fused_backward=jax_fused), jq, jk, jv)
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jdo)]
+    leaves = [torch.from_numpy(x).bfloat16().float().requires_grad_()
+              for x in (q, k, v)]
+    dot_product_attention(*leaves, causal=True).backward(
+        torch.from_numpy(do).bfloat16().float())
+    for got, dense, w in zip(split, leaves, want):
+        excess = (np.abs(got.float().numpy() - w) - 2.0 ** -7 * np.abs(w))
+        share = float((got.float().numpy() != w).mean())
+        assert excess.max() <= 2.0 ** -9 and share <= 0.01, (excess.max(),
+                                                               share)
+        _, dense_share = _placement_misses(
+            dense.grad.bfloat16().float().numpy(), w)
+        assert dense_share > 0.01, dense_share
+
+
+@pytest.mark.parametrize("t_q,t_k,causal,block", CASES)
+def test_bf16_blockwise_fused_equals_split(t_q, t_k, causal, block):
+    # The kernels' contract in bf16 too: the fused backward's dQ (its
+    # partials folded in k order) and its dK, dV bit-equal to the split
+    # pair's.
+    q, k, v, do = (torch.from_numpy(x).bfloat16() for x in _inputs(
+        (1, t_q, 2, 16), (1, t_k, 2, 16), seed=t_q * t_k))
+    split, fused = _port_grads(q, k, v, do, causal, block)
+    for a, b in zip(fused, split):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_fused_returns_the_folded_gradient(dtype):
+    # `flash_backward_fused` returns (dq, dk, dv), as JAX's
+    # `_flash_backward_fused` does: dq is `fold_dq_partials` of the plain
+    # version's partials, bit for bit, and dk, dv are its own.
+    from flashy_tpu_torch.ops.attention import (
+        flash_backward_fused, flash_backward_fused_blockwise, flash_delta,
+        flash_forward, fold_dq_partials)
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(
+        (2, 96, 2, 64), (2, 160, 2, 64), seed=19))
+    out, lse = flash_forward(q, k, v, True)
+    args = (q, k, v, do, lse, flash_delta(do, out), True)
+    dq, dk, dv = flash_backward_fused(*args)
+    want_dk, want_dv, partials = flash_backward_fused_blockwise(*args)
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert torch.equal(dq, fold_dq_partials(partials, dtype))
+    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
 
 
 def test_wrapper_on_cpu_runs_the_plain_versions_at_the_kernel_tile():
