@@ -10,9 +10,10 @@ failure with a non-zero exit:
 
   1. build   compile the five kernel sources from flashy_tpu_torch/csrc
              with nvcc, one process per source, started together; then
-             `cuobjdump -sass` of the flash library: every bf16 flash
-             kernel issues HGMMA (wgmma) and ptxas did not serialize it
-             (fewer WARPGROUP.DEPBAR than HGMMA);
+             `cuobjdump -sass` of the flash and grouped libraries: every
+             bf16 flash kernel and every grouped wgmma kernel issues
+             HGMMA (wgmma) and ptxas did not serialize it (fewer
+             WARPGROUP.DEPBAR than HGMMA);
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
              sentinel-padded, all-sentinel and parked slots), and in
@@ -39,9 +40,12 @@ failure with a non-zero exit:
              100, 4133}, K and N in {64, 1024, 4096}, empty first, last
              and middle groups, a one-row group, all rows in one group,
              sum(group_sizes) < M; bf16 x bf16 -> f32, f32 x f32 -> f32
-             and both mixed forms -> bf16: f32 within 1e-5 of max
-             |plain|, bf16 within one ulp, rows past the groups and
-             empty tgmm groups exactly zero;
+             and both mixed forms (the f32 operand as three bf16 planes)
+             -> bf16 and -> f32, the mixed forms also against the split
+             route's plain version: f32 within 1e-5 of max |plain|, bf16
+             within one ulp, rows past the groups and empty tgmm groups
+             exactly zero; the split kernel's planes bit-equal to
+             `split_bf16` and summing back to the f32 operand;
   4c. ring kernel  the ring-attention kernel, one launch per rank, against
              its plain version (TF32 off): n in {1, 2, 4, 8} ranks of t
              in {64, 100 (ragged), 512} rows, B 2, H 16, D 64, causal and
@@ -104,11 +108,15 @@ failure with a non-zero exit:
              `main` with moe_dispatch=dropless in a fresh XP: 6 steps
              and 2 valid steps, the step loss finite and falling, the
              aux loss finite, gmm launched 12 x 2 x (train + valid
-             steps) and gmm_t, tgmm 12 x 2 x train steps; tokens/s, step
-             ms, peak memory; a profiled window of 3 steps; then each
+             steps) and gmm_t, tgmm and the split kernel 12 x 2 x train
+             steps; tokens/s, step ms, peak memory; a profiled window of
+             3 steps (the grouped kernels' device ms a step); then each
              grouped kernel's two launches of a layer at the training
-             shapes, held against the plain version and timed beside
-             the bound, the plain version and torch._grouped_mm;
+             shapes, held against the plain version and timed three
+             times (median and spread, device time, the split pass
+             inside the f32-operand launches) beside the bound, the
+             plain version and torch._grouped_mm, with the wrapper's
+             host us a call; the split kernel alone on dY;
  13. ring step  the 235M model in f32 (TF32 off) at batch 2, seq 256 on a
              4-rank ring: loss and every gradient with attention=
              'ring_fused' against 'ring' (1e-5 of max |value|: the same
@@ -1287,6 +1295,10 @@ GMM_SOURCE = "flashy_tpu_torch/csrc/grouped_matmul.cu"
 MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 GMM_REPLACES = {"gmm": f"{MEGABLOX}:314", "gmm_t": f"{MEGABLOX}:314",
                 "tgmm": f"{MEGABLOX}:573"}
+# and the split kernel, which writes the f32 operand of megablox's f32
+# products (`gmm` with transpose_rhs and `tgmm` on dY) as three bf16
+# planes for them: in the kernels line, held bit-equal to `split_bf16`
+GMM_KERNELS = {**GMM_REPLACES, "split_bf16": f"{MEGABLOX}:314"}
 GMM_RTOL = 1e-5          # f32 outputs, relative to max |plain|
 BF16_ULP = 2 ** -7       # one bf16 ulp, relative (>= the ulp of |value|)
 # (E, M, K, N, group sizes): one row; empty first and last groups, a
@@ -1298,6 +1310,9 @@ GMM_CASES = ((1, 1, 64, 64, (1,)),
              (8, 4133, 4096, 1024, (0, 0, 0, 4133, 0, 0, 0, 0)),
              (4, 4133, 1024, 1024, (1000, 0, 2000, 1000)),
              (1, 100, 4096, 64, (100,)))
+# the grouped kernels' names in a profile: every grouped kernel, then the
+# split kernel alone
+GMM_WATCH = ("grouped_", "split_bf16_kernel")
 MOE_ARGS = ["model.moe_experts=8", "model.moe_top_k=2",
             "model.moe_dispatch=dropless"]
 MOE_STEP_TOL = 1e-4      # dropless vs einsum: loss and each grad's norm
@@ -1311,10 +1326,13 @@ MOE_TIE_GAP = 1e-6
 
 def gmm_dtypes(torch):
     """(lhs, rhs, out) dtype combinations: both bf16 (the tensor cores),
-    both f32, and each mixed form with a bf16 output (the f32 route of
-    the backward)."""
+    both f32 (the FMA kernel), and each mixed form (the tensor cores on
+    the f32 operand's three bf16 planes) with a bf16 output, as the
+    backward takes it, and with an f32 output, which holds the split
+    route to the f32 bar."""
     bf, f32 = torch.bfloat16, torch.float32
-    return ((bf, bf, f32), (f32, f32, f32), (f32, bf, bf), (bf, f32, bf))
+    return ((bf, bf, f32), (f32, f32, f32), (f32, bf, bf), (bf, f32, bf),
+            (f32, bf, f32), (bf, f32, f32))
 
 
 def gmm_check(torch, got, want, label):
@@ -1338,12 +1356,29 @@ def gmm_check(torch, got, want, label):
     return err
 
 
+def check_split(torch, G, x, label):
+    """The split kernel's planes of the f32 CUDA tensor x bit-equal to the
+    plain `split_bf16`'s (every step is exact or one rounding to nearest
+    even), and the planes summing back to x in f64 where |x| >= 2^-110."""
+    got = G._split_planes(x)
+    want = torch.stack(G.split_bf16(x))
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        fail(f"split kernel {label}: planes not bit-equal to split_bf16")
+    back = got.double().sum(0)
+    normal = x.double().abs() >= 2.0 ** -110
+    if not torch.equal(back[normal], x.double()[normal]):
+        fail(f"split kernel {label}: hi + mid + lo != x")
+
+
 def check_gmm_kernels(torch, device, card):
     """gmm, gmm_t and tgmm against their plain versions on GMM_CASES in
-    every dtype combination (TF32 off); rows of gmm past the groups and
-    empty tgmm groups exactly zero. Returns {kernel: max abs err}."""
+    every dtype combination (TF32 off), the mixed forms also against the
+    plain version of the split route; rows of gmm past the groups and
+    empty tgmm groups exactly zero; the split kernel bit-equal to
+    `split_bf16`. Returns {kernel: max abs err}."""
     from flashy_tpu_torch.ops import grouped_matmul as G
     worst = {name: 0.0 for name in GMM_REPLACES}
+    split_worst = 0.0
     for seed, (E, M, K, N, sizes) in enumerate(GMM_CASES):
         g = torch.Generator(device=device).manual_seed(seed)
 
@@ -1353,6 +1388,8 @@ def check_gmm_kernels(torch, device, card):
         gs = torch.tensor(sizes, dtype=torch.int32, device=device)
         total = sum(sizes)
         base = (draw(M, K), draw(E, K, N), draw(E, N, K), draw(M, N))
+        for i, t in enumerate(base):
+            check_split(torch, G, t, f"case {seed} operand {i}")
         for a_t, b_t, o_t in gmm_dtypes(torch):
             lhs, rhs, rhs_t, dy = (base[0].to(a_t), base[1].to(b_t),
                                    base[2].to(b_t), base[3].to(b_t))
@@ -1366,6 +1403,16 @@ def check_gmm_kernels(torch, device, card):
                 "tgmm": (G.tgmm(lhs, dy, gs, o_t),
                          G._tgmm_reference(lhs, dy, gs, o_t))}
             torch.cuda.synchronize()
+            if a_t != b_t:
+                split = {
+                    "gmm": G._gmm_split_reference(lhs, rhs, gs, o_t),
+                    "gmm_t": G._gmm_split_reference(lhs, rhs_t, gs, o_t,
+                                                    True),
+                    "tgmm": G._tgmm_split_reference(lhs, dy, gs, o_t)}
+                for name, want in split.items():
+                    split_worst = max(split_worst, gmm_check(
+                        torch, runs[name][0], want,
+                        f"{name} {tag} vs the split plain version"))
             for name, (got, want) in runs.items():
                 worst[name] = max(worst[name], gmm_check(
                     torch, got, want, f"{name} {tag}"))
@@ -1377,13 +1424,15 @@ def check_gmm_kernels(torch, device, card):
                 fail(f"tgmm {tag}: empty groups {empty} not exactly zero")
     print(f"gmm kernels: {len(GMM_CASES)} cases x "
           f"{len(gmm_dtypes(torch))} dtype combinations (bf16 x bf16 -> "
-          f"f32, f32 x f32 -> f32, f32 x bf16 -> bf16, bf16 x f32 -> bf16),"
-          f" empty first/last/middle groups, a one-row group, all rows in "
-          f"one group, sum < M: max abs err vs plain " + ", ".join(
+          f"f32, f32 x f32 -> f32, f32 x bf16 and bf16 x f32 -> bf16 and "
+          f"-> f32), empty first/last/middle groups, a one-row group, all "
+          f"rows in one group, sum < M: max abs err vs plain " + ", ".join(
               f"{k}={v:.3e}" for k, v in worst.items())
-          + f" (bars: f32 {GMM_RTOL} of max |plain|, bf16 one ulp); rows "
-          f"past the groups and empty tgmm groups exactly zero [{card}]",
-          flush=True)
+          + f"; the mixed forms vs the split route's plain version "
+          f"{split_worst:.3e} (bars: f32 {GMM_RTOL} of max |plain|, bf16 "
+          f"one ulp); rows past the groups and empty tgmm groups exactly "
+          f"zero; the split kernel's planes bit-equal to split_bf16 on "
+          f"every case's operands [{card}]", flush=True)
     return worst
 
 
@@ -1461,7 +1510,8 @@ def phase_moe_step(torch, device, card):
         kern_params = sum(p.numel() for p in model.parameters())
         del model
     layers = 12
-    want = {"gmm": 2 * layers, "gmm_t": 2 * layers, "tgmm": 2 * layers}
+    want = {"gmm": 2 * layers, "gmm_t": 2 * layers, "tgmm": 2 * layers,
+            "split_bf16": 0}
     if counts["dropless"] != want or any(counts["plain"].values()) \
             or any(counts["einsum"].values()):
         fail(f"moe step: launches {counts}, expected {want} in the "
@@ -1518,9 +1568,12 @@ def phase_moe_train(torch, card, folder):
     cfg = solver.cfg
     train_steps, valid_steps = cfg.steps_per_epoch, cfg.valid_steps
     layers = cfg.model.num_layers
+    # the split kernel: once in each of a layer's two backward launches
+    # on the f32 dY (gmm_t dY.W_down^T and tgmm H^T.dY)
     want = {"gmm": 2 * layers * (train_steps + valid_steps),
             "gmm_t": 2 * layers * train_steps,
-            "tgmm": 2 * layers * train_steps}
+            "tgmm": 2 * layers * train_steps,
+            "split_bf16": 2 * layers * train_steps}
     want_flash = {"flash_fwd": layers * (train_steps + valid_steps),
                   "flash_bwd_fused": layers * train_steps}
     if counts != want or flash != want_flash:
@@ -1547,39 +1600,61 @@ def phase_moe_train(torch, card, folder):
     return counts, solver
 
 
-def gmm_bound(M, K, N, E, a_elem, b_elem, o_elem, bf16, tgmm):
-    """(bound ms, 'bytes' | 'operations') of one grouped product over M
-    routed rows: 2 M K N operations at the bf16 tensor-core peak (two
-    bf16 operands) or the f32 peak, against each input read once and the
-    output written once over 3.35 TB/s."""
+def gmm_bound(M, K, N, E, a_elem, b_elem, o_elem, tgmm):
+    """(bound ms, 'bytes' | 'operations' | 'operations (split bf16)') of
+    one grouped product over M routed rows, against each input read once
+    and the output written once over 3.35 TB/s: 2 M K N operations at
+    the bf16 tensor-core peak for two bf16 operands; with one f32
+    operand the kernels compute the same function as three bf16
+    products (its hi, mid and lo planes), so 3 x 2 M K N at the bf16
+    peak (as f32 FMAs at the 67 TFLOP/s f32 peak the figure would be 5x
+    higher and no bound on what the kernel does); two f32 operands at
+    the f32 peak."""
     rhs = M * N * b_elem if tgmm else E * K * N * b_elem
     out = E * K * N * o_elem if tgmm else M * N * o_elem
     nbytes = M * K * a_elem + rhs + out + 4 * E
-    op_ms = 2 * M * K * N / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
+    f32_operands = (a_elem, b_elem).count(4)
+    if f32_operands == 2:
+        op_ms, by = 2 * M * K * N / F32_FLOPS * 1e3, "operations"
+    else:
+        products = 3 if f32_operands else 1
+        op_ms = products * 2 * M * K * N / BF16_FLOPS * 1e3
+        by = "operations (split bf16)" if f32_operands else "operations"
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
+    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else by
 
 
 def library_ms(torch, fn):
-    """CUDA-event ms of one PyTorch call, or (None, why) where this
-    card's torch has no call that takes these operands."""
+    """CUDA-event ms of one PyTorch call (device time), or (None, why)
+    where this card's torch has no call that takes these operands."""
     try:
         fn()
         torch.cuda.synchronize()
     except (AttributeError, RuntimeError, TypeError, ValueError) as err:
         return None, str(err).splitlines()[0][:80]
-    return time_ms(torch, fn, iters=20), ""
+    return time_ms(torch, fn, iters=20, device_only=True), ""
 
 
-def time_gmm(torch, device, card):
-    """Each grouped kernel at the training shapes (32768 routed rows = 16
-    x 1024 tokens x top-2, dim 1024, hidden 4096, 8 experts, group sizes
-    of a seeded multinomial draw), both of each kernel's launches in a
-    layer, first held against the plain version there (as
-    `check_gmm_kernels` does), then timed (CUDA events after warm-up)
-    beside the bound, the plain version and torch._grouped_mm where it
-    takes the operands. Returns ({kernel: per-launch means},
-    {kernel: max abs err})."""
+def host_us(torch, fn, calls=20):
+    """Host microseconds of a wrapper call as enqueued: `calls` calls
+    without a synchronize inside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def gmm_training_launches(torch, device):
+    """The grouped kernels' six launches of a layer at the training shapes
+    (32768 routed rows = 16 x 1024 tokens x top-2, dim 1024, hidden 4096,
+    8 experts, group sizes of a seeded multinomial draw): (sizes, M, E,
+    D, F, the launches as (kernel, label, kernel call, plain call,
+    library call or None, (M, K, N), operand element sizes), dY, a dense
+    product of the same size as a reference point)."""
     import numpy as np
     from flashy_tpu_torch.ops import grouped_matmul as G
     bf, f32 = torch.bfloat16, torch.float32
@@ -1601,8 +1676,6 @@ def time_gmm(torch, device, card):
     def lib(fn):
         return None if grouped is None else fn
 
-    # (kernel, launch, kernel call, plain call, library call, M K N,
-    # operand elements, tgmm?)
     launches = (
         ("gmm", "up X.W_up bf16xbf16->f32",
          lambda: G.gmm(x, w_up, gs, f32),
@@ -1629,6 +1702,23 @@ def time_gmm(torch, device, card):
          lambda: G.tgmm(x, dh, gs, bf),
          lambda: G._tgmm_reference(x, dh, gs, bf),
          lib(lambda: grouped(x.t(), dh, offs=offs)), (M, D, F), (2, 2, 2)))
+    return (sizes, M, E, D, F, launches, dy,
+            lambda: torch.matmul(x, w_up[0]))
+
+
+def time_gmm(torch, device, card):
+    """Each grouped kernel at the training shapes (`gmm_training_launches`),
+    both of each kernel's launches in a layer, first held against the
+    plain version there (as `check_gmm_kernels` does), then timed three
+    times (`time_runs`: CUDA events, device time, median and spread)
+    beside the bound, the plain version and torch._grouped_mm where it
+    takes the operands, with the wrapper's host us a call; then the split
+    kernel alone on dY. Returns ({kernel: per-launch means},
+    {kernel: max abs err})."""
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    sizes, M, E, D, F, launches, dy, dense_fn = gmm_training_launches(
+        torch, device)
+    grouped = getattr(torch, "_grouped_mm", None)
     rows, errors = [], {name: 0.0 for name in GMM_REPLACES}
     for name, label, kernel, plain, library, (m, k, n), elems in launches:
         got, want = kernel(), plain()
@@ -1636,39 +1726,55 @@ def time_gmm(torch, device, card):
         errors[name] = max(errors[name],
                            gmm_check(torch, got, want, f"{name} {label}"))
         del got, want
-        bound, bound_by = gmm_bound(m, k, n, E, *elems,
-                                    bf16=elems[:2] == (2, 2),
-                                    tgmm=name == "tgmm")
+        bound, bound_by = gmm_bound(m, k, n, E, *elems, tgmm=name == "tgmm")
         lib_ms, why = (library_ms(torch, library) if library
                        else (None, "no library call takes an f32 operand"
                              if grouped else "torch._grouped_mm absent"))
-        rows.append((name, label, time_ms(torch, kernel, iters=10),
+        rows.append((name, label, time_runs(torch, kernel, iters=20),
                      time_ms(torch, plain, iters=3), bound, bound_by,
-                     lib_ms, why))
-    dense = time_ms(torch, lambda: torch.matmul(x, w_up[0]), iters=20)
+                     lib_ms, why, host_us(torch, kernel)))
+    # the split kernel alone on dY (inside both f32-operand launches above)
+    check_split(torch, G, dy, "dY at the training shapes")
+    errors["split_bf16"] = 0.0   # bit-equal, or check_split failed
+    n_dy = dy.numel()
+    split_bound = n_dy * (4 + 3 * 2) / HBM_BYTES_PER_S * 1e3
+    split = {**time_runs(torch, lambda: G._split_planes(dy), iters=20),
+             "plain_ms": time_ms(torch, lambda: G.split_bf16(dy), iters=5),
+             "bound_ms": split_bound, "bound_by": "bytes",
+             "library_ms": None}
+    dense = time_ms(torch, dense_fn, iters=20, device_only=True)
     print(f"gmm times ({M} routed rows, D {D}, F {F}, {E} experts, "
-          f"sizes {sizes.tolist()}): " + "; ".join(
-              f"{name} {label} ms={ms:.4f} bound_ms={bound:.4f} "
+          f"sizes {sizes.tolist()}; device time, three runs): " + "; ".join(
+              f"{name} {label} {spread_text(t_)} bound_ms={bound:.4f} "
               f"({bound_by}) plain_ms={plain_ms:.4f} library_ms="
               + (f"{lib_ms:.4f}" if lib_ms is not None else f"none ({why})")
-              for name, label, ms, plain_ms, bound, bound_by, lib_ms, why
+              + f" host_us={us:.1f}"
+              for name, label, t_, plain_ms, bound, bound_by, lib_ms, why, us
               in rows)
-          + f"; reference point, not the same function: dense "
+          + f"; split kernel on dY [{M}, {D}] {spread_text(split)} "
+          f"bound_ms={split_bound:.4f} (bytes) plain_ms="
+          f"{split['plain_ms']:.4f} (inside both f32-operand launches' "
+          f"ms); reference point, not the same function: dense "
           f"torch.matmul [{M}, {D}] x [{D}, {F}] bf16 ms={dense:.4f}; max "
           f"abs err vs plain " + ", ".join(
-              f"{k}={v:.3e}" for k, v in errors.items()) + f" [{card}]",
-          flush=True)
+              f"{k}={v:.3e}" for k, v in errors.items()) + "; host_us: a "
+          f"wrapper call as enqueued (the tensor maps, the split launch); "
+          f"library: torch._grouped_mm, whose output takes the operands' "
+          f"dtype (bf16 where the kernel writes f32: half the output "
+          f"bytes) [{card}]", flush=True)
     times = {}
     for name in GMM_REPLACES:
         mine = [r for r in rows if r[0] == name]
         libs = [r[6] for r in mine]
         times[name] = {
-            "ms": sum(r[2] for r in mine) / len(mine),
+            "ms": sum(r[2]["ms"] for r in mine) / len(mine),
+            "spread": max(r[2]["spread"] for r in mine),
             "plain_ms": sum(r[3] for r in mine) / len(mine),
             "bound_ms": sum(r[4] for r in mine) / len(mine),
             "bound_by": max(mine, key=lambda r: r[4])[5],
             "library_ms": (None if None in libs
                            else sum(libs) / len(libs))}
+    times["split_bf16"] = split
     return times, errors
 
 
@@ -2115,52 +2221,59 @@ def build_all():
     return time.perf_counter() - t0
 
 
-# the flash kernels whose SASS `check_sass` reads, by the mangled name's
-# template argument of `flash_bwd_hopper_kernel<MODE>`
-SASS_KERNELS = {"flash_fwd": "flash_fwd_kernel",
-                "flash_bwd_dq": "flash_bwd_hopper_kernelILi0E",
-                "flash_bwd_dkv": "flash_bwd_hopper_kernelILi1E",
-                "flash_bwd_fused": "flash_bwd_hopper_kernelILi2E"}
+# the wgmma kernels whose SASS `check_sass` reads, by library and by the
+# mangled name's template argument (`flash_bwd_hopper_kernel<MODE>`,
+# `grouped_wgmma_kernel<L>`: 0 gmm, 1 gmm_t, 2 tgmm)
+SASS_KERNELS = {
+    "flash_attention": {"flash_fwd": "flash_fwd_kernel",
+                        "flash_bwd_dq": "flash_bwd_hopper_kernelILi0E",
+                        "flash_bwd_dkv": "flash_bwd_hopper_kernelILi1E",
+                        "flash_bwd_fused": "flash_bwd_hopper_kernelILi2E"},
+    "grouped_matmul": {"gmm": "grouped_wgmma_kernelILi0E",
+                       "gmm_t": "grouped_wgmma_kernelILi1E",
+                       "tgmm": "grouped_wgmma_kernelILi2E"}}
 
 
 def check_sass(card):
-    """The bf16 flash kernels on the tensor cores' wgmma, not serialized:
-    per kernel the HGMMA and WARPGROUP.DEPBAR instructions in `cuobjdump
-    -sass` of the built library. ptxas serializes every wgmma behind a
-    branch it cannot prove warp-uniform (info C7520): a DEPBAR then
-    follows each HGMMA. Fails if a kernel has no HGMMA or as many
-    DEPBARs as HGMMAs; says so and goes on where cuobjdump is missing."""
+    """The bf16 flash kernels and the grouped kernels on the tensor
+    cores' wgmma, not serialized: per kernel the HGMMA and
+    WARPGROUP.DEPBAR instructions in `cuobjdump -sass` of the built
+    libraries. ptxas serializes every wgmma behind a branch it cannot
+    prove warp-uniform (info C7520): a DEPBAR then follows each HGMMA.
+    Fails if a kernel has no HGMMA or as many DEPBARs as HGMMAs; says so
+    and goes on where cuobjdump is missing."""
     import shutil
     from flashy_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("sass: cuobjdump not found, not checked", flush=True)
         return
-    sass = subprocess.run(
-        [tool, "-sass", str(_build.library_path("flash_attention"))],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            counts[name] = [0, 0]
-        elif name is not None and "HGMMA" in line:
-            counts[name][0] += 1
-        elif name is not None and "WARPGROUP.DEPBAR" in line:
-            counts[name][1] += 1
-    found = {}
-    for label, key in SASS_KERNELS.items():
-        hits = [c for n, c in counts.items() if key in n]
-        if len(hits) != 1:
-            fail(f"sass: {len(hits)} functions named like {key}")
-        hgmma, depbar = found[label] = hits[0]
-        if hgmma == 0 or depbar >= hgmma:
-            fail(f"sass: {label} has {hgmma} HGMMA and {depbar} "
-                 f"WARPGROUP.DEPBAR: not on wgmma, or serialized")
-    print("sass (cuobjdump -sass of flash_attention): " + ", ".join(
-        f"{label} {h} HGMMA / {d} WARPGROUP.DEPBAR"
-        for label, (h, d) in found.items()) + f" [{card}]", flush=True)
+    for library, kernels in SASS_KERNELS.items():
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.library_path(library))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            check=True).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                counts[name] = [0, 0]
+            elif name is not None and "HGMMA" in line:
+                counts[name][0] += 1
+            elif name is not None and "WARPGROUP.DEPBAR" in line:
+                counts[name][1] += 1
+        found = {}
+        for label, key in kernels.items():
+            hits = [c for n, c in counts.items() if key in n]
+            if len(hits) != 1:
+                fail(f"sass: {len(hits)} functions named like {key}")
+            hgmma, depbar = found[label] = hits[0]
+            if hgmma == 0 or depbar >= hgmma:
+                fail(f"sass: {label} has {hgmma} HGMMA and {depbar} "
+                     f"WARPGROUP.DEPBAR: not on wgmma, or serialized")
+        print(f"sass (cuobjdump -sass of {library}): " + ", ".join(
+            f"{label} {h} HGMMA / {d} WARPGROUP.DEPBAR"
+            for label, (h, d) in found.items()) + f" [{card}]", flush=True)
 
 
 def main() -> None:
@@ -2211,7 +2324,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as folder:
         gmm_launches, solver = phase_moe_train(torch, card, folder)
         profile_train(torch, solver, card, steps=3,
-                      label="profile moe train")
+                      label="profile moe train", watch=GMM_WATCH)
         del solver
     gmm_times, gmm_main_errors = time_gmm(torch, device, card)
     phase_ring_step(torch, device, card)
@@ -2235,7 +2348,7 @@ def main() -> None:
           f"paged_decode_int8={launches8}, " + ", ".join(
               f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
           + f", ssd_scan={ssd_launches}, " + ", ".join(
-              f"{name}={gmm_launches[name]}" for name in GMM_REPLACES)
+              f"{name}={gmm_launches[name]}" for name in GMM_KERNELS)
           + f", ring_attention={ring_counts['ring_fwd']}", flush=True)
     source = "flashy_tpu_torch/csrc/paged_decode.cu"
     kernels = [
@@ -2270,7 +2383,7 @@ def main() -> None:
                         "library_ms")}})
     # the main path's launches at its shapes and dtypes (the small cases'
     # errors, in every dtype form, are on the `gmm kernels` line)
-    for name, replaces in GMM_REPLACES.items():
+    for name, replaces in GMM_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
                         "replaces": replaces,
                         "launches": gmm_launches[name],

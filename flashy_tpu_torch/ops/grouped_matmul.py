@@ -23,9 +23,16 @@ f32, with f32 accumulation and no TF32. The result is cast to
 The plain versions `_gmm_reference` and `_tgmm_reference` (a loop over
 groups of `torch.matmul` on f32-widened slices) are what CPU tensors
 take. A CUDA tensor launches the kernel or raises; the kernels need K
-and N to be multiples of 8. The CUDA path never reads the group sizes
-to the host: the grid is sized from the static bound `ceil(M / 128) + E`
-row-tile visits and each block finds its visit on the device.
+and N to be multiples of 8. Two bf16 operands, or one bf16 and one f32
+(the second projection's backward), run on the tensor cores: the f32
+operand is first split by a kernel of its own into three bf16 planes
+(`split_bf16`: hi + mid + lo == x exactly for normal values of 2^-110
+<= |x| < 3.39e38), and the product runs over the three planes, each
+an exact bf16 product summed in f32. `_gmm_split_reference` and
+`_tgmm_split_reference` are that route's plain versions (per group,
+the three products summed lo, mid, hi). Two f32 operands run scalar
+f32 FMAs. The CUDA path never reads the group sizes to the host: each
+block of the kernels finds its tiles on the device.
 """
 import ctypes
 import typing as tp
@@ -36,9 +43,11 @@ from . import _build
 
 # Launches of the kernels: a plain integer per kernel, bumped where the
 # kernel is launched and nowhere else.
-launch_counts: tp.Dict[str, int] = {"gmm": 0, "gmm_t": 0, "tgmm": 0}
+launch_counts: tp.Dict[str, int] = {"gmm": 0, "gmm_t": 0, "tgmm": 0,
+                                    "split_bf16": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PLANES = 2     # the C entry points' dtype code of an operand in planes
 _SIGNATURE = (ctypes.c_int, (
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # lhs, rhs, out dtypes
     ctypes.c_void_p, ctypes.c_void_p,                   # lhs, rhs
@@ -48,6 +57,8 @@ _SIGNATURE = (ctypes.c_int, (
 _SYMBOLS = {"gmm": "flashy_gmm", "gmm_t": "flashy_gmm_t",
             "tgmm": "flashy_tgmm"}
 _FUNCTIONS = {symbol: _SIGNATURE for symbol in _SYMBOLS.values()}
+_FUNCTIONS["flashy_split_bf16"] = (ctypes.c_int, (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p))
 
 
 def reset_launch_counts() -> None:
@@ -95,6 +106,59 @@ def _tgmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
     return out.to(out_dtype)
 
 
+def split_bf16(x: torch.Tensor
+               ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hi, mid, lo), bf16 tensors of x's shape with hi + mid + lo == x
+    exactly: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    each rounded to nearest even, each subtraction exact in f32. Exact
+    for normal values with 2^-110 <= |x| (below it lo's bits fall under
+    bf16's smallest subnormal) and |x| under bf16's overflow threshold
+    (2 - 2^-8) 2^127 ~ 3.39e38 (past it hi is inf); zeros split into
+    zeros."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _split_sum(product, lhs: torch.Tensor, rhs: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """`product(a, b)` (an f32 grouped product) over the split route's
+    operands, one f32 and one bf16: the f32 operand's planes lo, mid and
+    hi each against the bf16 operand, summed in that order in f32."""
+    _check({lhs.dtype, rhs.dtype} == {torch.float32, torch.bfloat16},
+           f"the split route takes one f32 and one bf16 operand, got "
+           f"{lhs.dtype} and {rhs.dtype}")
+    if lhs.dtype == torch.float32:
+        parts = [product(plane, rhs) for plane in split_bf16(lhs)[::-1]]
+    else:
+        parts = [product(lhs, plane) for plane in split_bf16(rhs)[::-1]]
+    return (parts[0] + parts[1] + parts[2]).to(out_dtype)
+
+
+def _gmm_split_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                         group_sizes: torch.Tensor, out_dtype: torch.dtype,
+                         transpose_rhs: bool = False) -> torch.Tensor:
+    """The plain version of the kernels' split route of `gmm`: one operand
+    f32, the other bf16; per group, the f32 operand's three bf16 planes
+    each times the bf16 operand (f32-widened, so each product is exact),
+    summed lo, mid, hi in f32."""
+    return _split_sum(lambda a, b: _gmm_reference(
+        a, b, group_sizes, torch.float32, transpose_rhs), lhs, rhs,
+        out_dtype)
+
+
+def _tgmm_split_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                          group_sizes: torch.Tensor,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version of the kernels' split route of `tgmm`, as
+    `_gmm_split_reference`."""
+    return _split_sum(lambda a, b: _tgmm_reference(
+        a, b, group_sizes, torch.float32), lhs, rhs, out_dtype)
+
+
 def _check(cond: bool, message: str) -> None:
     if not cond:
         raise ValueError(f"grouped matmul: {message}")
@@ -135,24 +199,52 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _split_planes(t: torch.Tensor) -> torch.Tensor:
+    """[3, *t.shape] bf16 planes (hi, mid, lo) of the f32 CUDA tensor t, by
+    the split kernel: `split_bf16` of t, stacked."""
+    _check(t.dtype == torch.float32 and not _on_cpu(t),
+           f"the split kernel takes an f32 CUDA tensor, got {t.dtype} on "
+           f"{t.device}")
+    _check(t.numel() % 4 == 0, f"the split kernel takes a multiple of 4 "
+                               f"values, got {t.numel()}")
+    t = _kernel_operand(t)
+    planes = torch.empty((3,) + tuple(t.shape), dtype=torch.bfloat16,
+                         device=t.device)
+    lib = _build.load("grouped_matmul", _FUNCTIONS)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.flashy_split_bf16(t.data_ptr(), planes.data_ptr(),
+                                    t.numel(), stream)
+    if err != 0:
+        raise _build.launch_error("grouped matmul split kernel", err)
+    launch_counts["split_bf16"] += 1
+    return planes
+
+
 def _launch(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
             group_sizes: torch.Tensor, out: torch.Tensor, k: int,
             n: int) -> torch.Tensor:
     _check(k % 8 == 0 and n % 8 == 0,
            f"the kernels need K and N to be multiples of 8, got K={k}, "
            f"N={n}")
-    lhs, rhs = _kernel_operand(lhs), _kernel_operand(rhs)
+    codes = [_DTYPES[lhs.dtype], _DTYPES[rhs.dtype]]
+    operands = [lhs, rhs]
+    if lhs.dtype != rhs.dtype:
+        # the f32 operand as three bf16 planes for the tensor cores
+        f32 = 0 if lhs.dtype == torch.float32 else 1
+        operands[f32] = _split_planes(operands[f32])
+        codes[f32] = _PLANES
+    lhs_, rhs_ = (_kernel_operand(t) for t in operands)
     group_sizes = group_sizes.contiguous()
     lib = _build.load("grouped_matmul", _FUNCTIONS)
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
         err = getattr(lib, _SYMBOLS[name])(
-            _DTYPES[lhs.dtype], _DTYPES[rhs.dtype], _DTYPES[out.dtype],
-            lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-            out.data_ptr(), lhs.shape[0], k, n, group_sizes.shape[0], stream)
+            codes[0], codes[1], _DTYPES[out.dtype], lhs_.data_ptr(),
+            rhs_.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+            lhs.shape[0], k, n, group_sizes.shape[0], stream)
     if err != 0:
-        raise RuntimeError(f"grouped matmul kernel {name} launch failed: "
-                           f"cudaError {err}")
+        raise _build.launch_error(f"grouped matmul kernel {name}", err)
     launch_counts[name] += 1
     return out
 
@@ -199,5 +291,7 @@ def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
         return _tgmm_reference(lhs, rhs, group_sizes, out_dtype)
     out = torch.empty((group_sizes.shape[0], lhs.shape[1], rhs.shape[1]),
                       dtype=out_dtype, device=lhs.device)
+    if lhs.shape[0] == 0:
+        return out.zero_()
     return _launch("tgmm", lhs, rhs, group_sizes, out, lhs.shape[1],
                    rhs.shape[1])

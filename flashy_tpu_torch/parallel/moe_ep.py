@@ -73,8 +73,11 @@ class _GroupedMLP(torch.autograd.Function):
         xs, w_up, w_down, h, group_sizes = ctx.saved_tensors
         g = _gelu(h)                       # recomputed: the same bits
         # The second projection's output gradient dY = dout * gate is a
-        # true f32 tensor: gmm_t(dY, W_down) and tgmm(H, dY) take the
-        # kernels' f32 route, as megablox computes them in f32.
+        # true f32 tensor, and megablox computes gmm_t(dY, W_down) and
+        # tgmm(H, dY) in f32. Against a bf16 W_down or H (a bf16 run) the
+        # kernels take their split route: dY as three bf16 planes (hi +
+        # mid + lo == dY exactly), each an exact product on the tensor
+        # cores, summed in f32; in an f32 run, f32 FMAs.
         dy = dy.float().contiguous()
         dg = gmm(dy, w_down, group_sizes, g.dtype, transpose_rhs=True)
         dw_down = tgmm(g, dy, group_sizes, w_down.dtype)
