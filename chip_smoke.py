@@ -13,13 +13,20 @@ failure with a non-zero exit:
              `cuobjdump -sass` of the flash and grouped libraries: every
              bf16 flash kernel and every grouped wgmma kernel issues
              HGMMA (wgmma) and ptxas did not serialize it (fewer
-             WARPGROUP.DEPBAR than HGMMA);
+             WARPGROUP.DEPBAR than HGMMA); the paged library's T >= 2
+             bf16 kernels issue HMMA (mma.sync), and no paged kernel
+             spills;
   2. kernel  the paged kernel against its plain PyTorch version on random
-             pools (bf16, f32, int8; T in {1, 4, 16, 64}; ragged,
-             sentinel-padded, all-sentinel and parked slots), and in
-             bf16 against the entry-by-entry reference that rounds
-             where the TPU kernel does: one bf16 ulp apart at most,
-             and bit-equal almost everywhere;
+             pools (bf16, f32, int8 with f32 and bf16 q; T in {1, 4, 16,
+             64}; block 16 over 512 keys and blocks 4, 16 and 64 over
+             2048, which wrap its ring eight times; ragged,
+             sentinel-padded, all-sentinel and parked slots): f32 within
+             1e-5 of the plain version evaluated in f64, bf16 within
+             2e-2 of it and against the entry-by-entry reference that
+             rounds where the TPU kernel does: one bf16 ulp apart at
+             most, and bit-equal almost everywhere; two launches on the
+             same inputs bit-equal; a block size or head_dim it does not
+             take raises;
   3. flash   the four flash-attention kernels at head_dim 64 (in bf16
              the Hopper wgmma/TMA forward step and backward pair step)
              against their plain versions (f32 and bf16; causal and not;
@@ -67,13 +74,16 @@ failure with a non-zero exit:
              launched num_layers x prefill slices times;
   7. serve   the serving layout in bf16 at the decode leg's shapes
              (8 slots, 16 requests, prompt 128, 128 new): tokens/s,
-             decode-step ms, and the kernel's time at T=1 (decode) and
-             T=16 (a prefill chunk) beside its bandwidth bound, its
-             plain version and one library call; then a profiled
+             decode-step ms, the kernel launched on every read (split by
+             T=1 and T=16), and its device time at T=1 (decode) and T=16
+             (a prefill chunk) three times (median and spread) beside its
+             bandwidth bound, its plain version and SDPA on the gathered
+             view, with the wrapper's host us a call; then a profiled
              serving window: the device's idle share and the kernels
              that take its time;
   8. int8    a short bf16 run with int8 K/V pools through the int8
-             kernel: pool conserved, kernel launched, kernel timed;
+             kernel: pool conserved, kernel launched on every read,
+             kernel timed as in phase 7;
   9. ssd serve  the pure-SSD model in bf16 at the same shapes: tokens/s,
              decode-step ms, a profiled window, and the SSD kernel's
              time at a prefill slice [1, 64] and at [8, 1024] beside its
@@ -199,6 +209,11 @@ def ssd_model_config(torch, dtype, max_seq_len):
 # ----------------------------------------------------------------------
 # phase 2: kernel against plain version
 # ----------------------------------------------------------------------
+PAGED_SOURCE = "flashy_tpu_torch/csrc/paged_decode.cu"
+PAGED_REPLACES = {"dense": "flashy_tpu/ops/paged_decode.py:207",
+                  "quant": "flashy_tpu/ops/paged_decode.py:200"}
+
+
 def random_case(torch, device, *, q_dtype, kv, T, B=8, H=16, Dh=64, bs=16,
                 E=32, seed=0):
     """Random pool + tables + consecutive positions at the serving widths.
@@ -242,9 +257,18 @@ def random_case(torch, device, *, q_dtype, kv, T, B=8, H=16, Dh=64, bs=16,
     return q, entry, table.to(device), positions, live.to(device)
 
 
+# (block size, table entries) of the kernel checks: the engine's block
+# 16 at the `exact` phase's width and blocks of 4, 16 and 64 over 2048
+# keys, which wrap the kernel's 4-stage ring of 64 keys eight times
+PAGED_CASES = ((16, 32), (4, 512), (16, 128), (64, 32))
+
+
 def check_kernels(torch, device, card=""):
     """Kernel vs plain on the card (and, in bf16, vs the entry-by-entry
-    reference); returns {variant: max_abs_err against plain}."""
+    reference) over PAGED_CASES x T in {1, 4, 16, 64} x the four
+    variants; two launches on the same inputs bit-equal; an unsupported
+    block size or head_dim raises. Returns {variant: max_abs_err against
+    plain}."""
     from flashy_tpu_torch.ops.paged_attention import paged_attention
     from flashy_tpu_torch.ops.paged_decode import (entrywise_paged_attention,
                                                    fused_paged_attention)
@@ -254,35 +278,64 @@ def check_kernels(torch, device, card=""):
         name = str(q_dtype).split(".")[1]
         label = name if kv == "model" else f"int8/{name}"
         worst = share = 0.0
-        for T in (1, 4, 16, 64):
-            q, entry, table, positions, live = random_case(
-                torch, device, q_dtype=q_dtype, kv=kv, T=T, seed=T)
-            args = (q, entry, table, positions)
-            kw = {"head_dim": q.shape[-1], "dtype": q_dtype}
-            got = fused_paged_attention(*args, **kw)[live].float()
-            want = paged_attention(*args, **kw)[live].float()
-            err = (got - want).abs().max().item()
-            if not math.isfinite(err) or err > TOL[label]:
-                fail(f"kernel {label} T={T}: max abs err {err} > "
-                     f"{TOL[label]}")
-            worst = max(worst, err)
-            if q_dtype == torch.bfloat16:
-                ref = entrywise_paged_attention(*args, **kw)[live].float()
-                excess = ((got - ref).abs() - PLACEMENT_RTOL * ref.abs()
-                          ).max().item()
-                share_t = (got != ref).float().mean().item()
-                if excess > PLACEMENT_ATOL or share_t > PLACEMENT_SHARE:
-                    fail(f"kernel {label} T={T}: against the entry-by-entry "
-                         f"reference {excess:.3e} over one ulp (limit "
-                         f"{PLACEMENT_ATOL}), {share_t:.4f} of outputs "
-                         f"differ (limit {PLACEMENT_SHARE})")
-                share = max(share, share_t)
+        for bs, entries in PAGED_CASES:
+            for T in (1, 4, 16, 64):
+                q, entry, table, positions, live = random_case(
+                    torch, device, q_dtype=q_dtype, kv=kv, T=T, bs=bs,
+                    E=entries, seed=T + bs)
+                args = (q, entry, table, positions)
+                kw = {"head_dim": q.shape[-1], "dtype": q_dtype}
+                where = f"kernel {label} bs={bs} E={entries} T={T}"
+                full = fused_paged_attention(*args, **kw)
+                again = fused_paged_attention(*args, **kw)
+                if not torch.equal(full, again):
+                    fail(f"{where}: two launches on the same inputs differ")
+                got = full[live].float()
+                if q_dtype == torch.float32:
+                    # the plain version in f64: its f32 sums drift by up
+                    # to ~4e-5 on the card over 2048 repeated keys
+                    want = paged_attention(q.double(), *args[1:],
+                                           head_dim=q.shape[-1],
+                                           dtype=torch.float64)[live]
+                    err = (got.double() - want).abs().max().item()
+                else:
+                    want = paged_attention(*args, **kw)[live].float()
+                    err = (got - want).abs().max().item()
+                if not math.isfinite(err) or err > TOL[label]:
+                    fail(f"{where}: max abs err {err} > {TOL[label]}")
+                worst = max(worst, err)
+                if q_dtype == torch.bfloat16:
+                    ref = entrywise_paged_attention(*args, **kw)[live].float()
+                    excess = ((got - ref).abs() - PLACEMENT_RTOL * ref.abs()
+                              ).max().item()
+                    share_t = (got != ref).float().mean().item()
+                    if excess > PLACEMENT_ATOL or share_t > PLACEMENT_SHARE:
+                        fail(f"{where}: against the entry-by-entry reference "
+                             f"{excess:.3e} over one ulp (limit "
+                             f"{PLACEMENT_ATOL}), {share_t:.4f} of outputs "
+                             f"differ (limit {PLACEMENT_SHARE})")
+                    share = max(share, share_t)
         errors[label] = worst
         placement = (f"; vs entry-by-entry reference: {share:.4f} of outputs "
                      f"differ (limit {PLACEMENT_SHARE}), each within one ulp"
                      if q_dtype == torch.bfloat16 else "")
-        print(f"kernel {label}: T in (1, 4, 16, 64) max_abs_err={worst:.3e} "
-              f"(tolerance {TOL[label]}){placement} [{card}]", flush=True)
+        plain = "plain in f64" if q_dtype == torch.float32 else "plain"
+        print(f"kernel {label}: (bs, E) in {PAGED_CASES} x T in (1, 4, 16, "
+              f"64) max_abs_err={worst:.3e} vs {plain} (tolerance "
+              f"{TOL[label]})"
+              f"{placement}; two launches bit-equal [{card}]", flush=True)
+    for bs, dim in ((12, 64), (16, 32)):
+        q, entry, table, positions, _ = random_case(
+            torch, device, q_dtype=torch.bfloat16, kv="model", T=1, bs=bs,
+            E=4, Dh=dim)
+        try:
+            fused_paged_attention(q, entry, table, positions, head_dim=dim,
+                                  dtype=torch.bfloat16)
+        except ValueError as err:
+            print(f"kernel: bs={bs} head_dim={dim} raises ({err})",
+                  flush=True)
+        else:
+            fail(f"kernel: bs={bs} head_dim={dim} did not raise")
     return errors
 
 
@@ -453,7 +506,11 @@ def spread_text(t):
 def time_kernel(torch, engine, context, queries=1):
     """Time one layer's paged read at the serving shapes: every slot's
     `queries` rows ending at `context` tokens, over the engine's own
-    pool (layer 0). T=1 is a decode step, T=chunk a prefill chunk."""
+    pool (layer 0). T=1 is a decode step, T=chunk a prefill chunk (the
+    engine's own chunks are one slot's: the same per-slot work). Device
+    time: the kernel three times (`time_runs`), its plain version and
+    SDPA on the gathered view behind the same device sleep; the
+    wrapper's host us a call apart."""
     import torch.nn.functional as F
     from flashy_tpu_torch.ops.paged_attention import (gather_kv,
                                                       paged_attention)
@@ -475,14 +532,16 @@ def time_kernel(torch, engine, context, queries=1):
         queries, device=engine.device)).expand(slots, queries)
     args = (q, entry, table, positions)
     kw = {"head_dim": cfg.head_dim, "dtype": cfg.dtype}
-    ms = time_ms(torch, lambda: fused_paged_attention(*args, **kw))
-    plain_ms = time_ms(torch, lambda: paged_attention(*args, **kw))
+    kernel = lambda: fused_paged_attention(*args, **kw)  # noqa: E731
+    runs = time_runs(torch, kernel, iters=50)
+    plain_ms = time_ms(torch, lambda: paged_attention(*args, **kw),
+                       iters=10, device_only=True)
     k_view, v_view = gather_kv(entry, table, cfg.dtype)
     key_pos = torch.arange(k_view.shape[1], device=engine.device)
     mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k_view, v_view))
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask))
+        qh, kh, vh, attn_mask=mask), device_only=True)
     per_layer = decode_read_bytes_per_token(cfg, context, engine.kv_dtype) \
         // cfg.num_layers
     nbytes = (slots * per_layer + 2 * q.numel() * q.element_size()
@@ -493,10 +552,10 @@ def time_kernel(torch, engine, context, queries=1):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / (BF16_FLOPS if cfg.dtype == torch.bfloat16
                        else F32_FLOPS) * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {**runs, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(byte_ms, flop_ms),
             "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
-            "bytes": nbytes}
+            "bytes": nbytes, "host_us": host_us(torch, kernel)}
 
 
 def device_rows(torch, prof):
@@ -565,8 +624,13 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
     scheduler, requests, counts, seconds = serve(torch, engine, prompts,
                                                  max_new)
     name = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
-    if counts[name] < 1:
-        fail(f"{label}: kernel {name} was not launched")
+    steps = dict(engine.step_counts)
+    split = {"T=1": cfg.num_layers * steps["decode"],
+             f"prefill T<={engine.chunk}":
+                 cfg.num_layers * steps["prefill_chunk"]}
+    if counts[name] < 1 or counts[name] != sum(split.values()):
+        fail(f"{label}: kernel {name} launched {counts[name]} times, the "
+             f"engine made {sum(split.values())} attention reads")
     for request in requests:
         out = request.output
         if out.shape != (prompt_len + max_new,) or out.min() < 0 \
@@ -575,22 +639,24 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
     summary = scheduler.metrics.summary()
     timing = time_kernel(torch, engine, prompt_len + max_new // 2)
     chunk = time_kernel(torch, engine, prompt_len, queries=engine.chunk)
-    print(f"{label}: kernel T={engine.chunk} (last prefill chunk) ms="
-          f"{chunk['ms']:.4f} bound_ms={chunk['bound_ms']:.4f} "
-          f"({chunk['bound_by']}) plain_ms={chunk['plain_ms']:.4f} "
-          f"library_ms={chunk['library_ms']:.4f} [{card}]", flush=True)
+    for what, t_ in ((f"T=1 context {prompt_len + max_new // 2}", timing),
+                     (f"T={engine.chunk} context {prompt_len} (last "
+                      f"prefill chunk)", chunk)):
+        print(f"{label}: kernel {what}: device {spread_text(t_)} "
+              f"bound_ms={t_['bound_ms']:.4f} ({t_['bound_by']}, "
+              f"{t_['bytes']} B) plain_ms={t_['plain_ms']:.4f} "
+              f"library_ms(sdpa on gathered view)={t_['library_ms']:.4f} "
+              f"host_us={t_['host_us']:.1f} [{card}]", flush=True)
     if kv_dtype == "model":
         profile_serve(torch, engine, cfg.vocab_size, 8, prompt_len, 32,
                       card)
     print(f"{label}: {requests_n} requests x {max_new} new, "
           f"tokens/s={summary['tokens_per_sec']:.1f}, decode step "
-          f"p50={summary['itl_ms_p50']:.3f} ms, {seconds:.2f}s; kernel "
-          f"T=1 ms={timing['ms']:.4f} bound_ms={timing['bound_ms']:.4f} "
-          f"({timing['bound_by']}, {timing['bytes']} B) plain_ms="
-          f"{timing['plain_ms']:.4f} library_ms(sdpa on gathered view)="
-          f"{timing['library_ms']:.4f}; launches={counts[name]} [{card}]",
+          f"p50={summary['itl_ms_p50']:.3f} ms, {seconds:.2f}s; "
+          f"launches={counts[name]} == reads (" + ", ".join(
+              f"{k} {v}" for k, v in split.items()) + f") [{card}]",
           flush=True)
-    return counts[name], timing
+    return counts[name], split, timing, chunk
 
 
 # ----------------------------------------------------------------------
@@ -2234,14 +2300,37 @@ SASS_KERNELS = {
                        "tgmm": "grouped_wgmma_kernelILi2E"}}
 
 
+def sass_counts(tool, library, words):
+    """{function: [count of each of `words`]} in `cuobjdump -sass` of a
+    built library."""
+    from flashy_tpu_torch.ops import _build
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path(library))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = [0] * len(words)
+        elif name is not None:
+            for i, word in enumerate(words):
+                if word in line:
+                    counts[name][i] += 1
+    return counts
+
+
 def check_sass(card):
     """The bf16 flash kernels and the grouped kernels on the tensor
     cores' wgmma, not serialized: per kernel the HGMMA and
     WARPGROUP.DEPBAR instructions in `cuobjdump -sass` of the built
     libraries. ptxas serializes every wgmma behind a branch it cannot
     prove warp-uniform (info C7520): a DEPBAR then follows each HGMMA.
-    Fails if a kernel has no HGMMA or as many DEPBARs as HGMMAs; says so
-    and goes on where cuobjdump is missing."""
+    Fails if a kernel has no HGMMA or as many DEPBARs as HGMMAs. Then
+    the paged library: its T >= 2 bf16 kernels (MODE 2, mangled `Li2E`)
+    issue HMMA (mma.sync), and ptxas spilled nothing in any of its
+    kernels. Says so and goes on where cuobjdump is missing."""
+    import re
     import shutil
     from flashy_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2249,19 +2338,7 @@ def check_sass(card):
         print("sass: cuobjdump not found, not checked", flush=True)
         return
     for library, kernels in SASS_KERNELS.items():
-        sass = subprocess.run(
-            [tool, "-sass", str(_build.library_path(library))],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            check=True).stdout
-        counts, name = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                name = line.split("Function :", 1)[1].strip()
-                counts[name] = [0, 0]
-            elif name is not None and "HGMMA" in line:
-                counts[name][0] += 1
-            elif name is not None and "WARPGROUP.DEPBAR" in line:
-                counts[name][1] += 1
+        counts = sass_counts(tool, library, ("HGMMA", "WARPGROUP.DEPBAR"))
         found = {}
         for label, key in kernels.items():
             hits = [c for n, c in counts.items() if key in n]
@@ -2274,6 +2351,27 @@ def check_sass(card):
         print(f"sass (cuobjdump -sass of {library}): " + ", ".join(
             f"{label} {h} HGMMA / {d} WARPGROUP.DEPBAR"
             for label, (h, d) in found.items()) + f" [{card}]", flush=True)
+    counts = sass_counts(tool, "paged_decode", ("HMMA",))
+    paged = {n: c[0] for n, c in counts.items() if "paged_decode_kernel" in n}
+    mma = [h for n, h in paged.items() if "Li2E" in n]
+    if len(mma) != 2 or min(mma) == 0:
+        fail(f"sass: paged_decode's T >= 2 bf16 kernels issue {mma} HMMA "
+             f"(two kernels, each > 0 expected)")
+    info = _build.build_info.get("paged_decode")
+    if info is None:
+        usage = "registers and spills not read (library was built before)"
+    else:
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", info[1])]
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", info[1])
+        if not regs or any(int(a) or int(b) for a, b in spills):
+            fail(f"sass: paged_decode spills ({spills}) or no register "
+                 f"report")
+        usage = (f"{min(regs)}-{max(regs)} registers in {len(regs)} "
+                 f"kernels, 0 bytes spilled")
+    print(f"sass (cuobjdump -sass of paged_decode): {len(paged)} kernels, "
+          f"the two T >= 2 bf16 ones {mma[0]} and {mma[1]} HMMA, the others "
+          f"{sum(paged.values()) - sum(mma)}; {usage} [{card}]", flush=True)
 
 
 def main() -> None:
@@ -2306,12 +2404,12 @@ def main() -> None:
     phase_exact(torch, device, card)
     phase_ssd_exact(torch, device, card)
 
-    launches, timing = phase_serve(torch, device, card, kv_dtype="model",
-                                   requests_n=16, prompt_len=128,
-                                   max_new=128, label="serve bf16")
-    launches8, timing8 = phase_serve(torch, device, card, kv_dtype="int8",
-                                     requests_n=8, prompt_len=64,
-                                     max_new=32, label="int8 bf16")
+    paged = {"paged_decode": phase_serve(
+        torch, device, card, kv_dtype="model", requests_n=16,
+        prompt_len=128, max_new=128, label="serve bf16"),
+        "paged_decode_int8": phase_serve(
+            torch, device, card, kv_dtype="int8", requests_n=8,
+            prompt_len=64, max_new=32, label="int8 bf16")}
     ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
     phase_step(torch, device, card)
     phase_moe_step(torch, device, card)
@@ -2344,27 +2442,27 @@ def main() -> None:
                       **{name: ring_counts[name] for name in split}}
     flash_times.update({name: pair_times[name] for name in split})
     main_errors.update({name: pair_errors[name] for name in split})
-    print(f"kernels: paged_decode={launches}, "
-          f"paged_decode_int8={launches8}, " + ", ".join(
+    print(f"kernels: paged_decode={paged['paged_decode'][0]}, "
+          f"paged_decode_int8={paged['paged_decode_int8'][0]}, " + ", ".join(
               f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
           + f", ssd_scan={ssd_launches}, " + ", ".join(
               f"{name}={gmm_launches[name]}" for name in GMM_KERNELS)
           + f", ring_attention={ring_counts['ring_fwd']}", flush=True)
-    source = "flashy_tpu_torch/csrc/paged_decode.cu"
-    kernels = [
-        {"name": "paged_decode", "route": "cuda", "source": source,
-         "replaces": "flashy_tpu/ops/paged_decode.py:207",
-         "launches": launches, "max_abs_err": errors["bfloat16"],
-         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-         "library_ms": timing["library_ms"]},
-        {"name": "paged_decode_int8", "route": "cuda", "source": source,
-         "replaces": "flashy_tpu/ops/paged_decode.py:200",
-         "launches": launches8, "max_abs_err": errors["int8/bfloat16"],
-         "ms": timing8["ms"], "plain_ms": timing8["plain_ms"],
-         "bound_ms": timing8["bound_ms"], "bound_by": timing8["bound_by"],
-         "library_ms": timing8["library_ms"]},
-    ]
+    # the paged rows: T=1 (decode) at the top level, T=chunk (a prefill
+    # chunk) under "chunk"; launches split the same way
+    kernels = []
+    for name, replaces, label in (
+            ("paged_decode", PAGED_REPLACES["dense"], "bfloat16"),
+            ("paged_decode_int8", PAGED_REPLACES["quant"], "int8/bfloat16")):
+        launched, split, t1, tc = paged[name]
+        keys = ("ms", "ms_runs", "spread", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "host_us")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": PAGED_SOURCE, "replaces": replaces,
+                        "launches": launched, "launches_by_T": split,
+                        "max_abs_err": errors[label],
+                        **{key: t1[key] for key in keys},
+                        "chunk": {key: tc[key] for key in keys}})
     # bf16, the main path's dtype: the worst of the small cases and of the
     # main path's shapes
     for name, replaces in FLASH_REPLACES.items():

@@ -123,7 +123,8 @@ def paged_attention(q: torch.Tensor, entry: Entry, table: torch.Tensor,
         head_dim: scales the scores.
         dtype: compute dtype of the gathered K/V and of probs @ V.
 
-    Returns [B, T, H, Dh] in `dtype`, f32 scores. int8 pools fold the
+    Returns [B, T, H, Dh] in `dtype`, f32 scores (f64 when `dtype` is
+    float64: the exact reference of the kernel checks). int8 pools fold the
     K scales into the scores before the softmax and the V scales into
     the probs after it, each exactly once — the placement the kernel
     keeps too.
@@ -143,8 +144,9 @@ def paged_attention(q: torch.Tensor, entry: Entry, table: torch.Tensor,
 
     k_view, k_scale = view("k")
     v_view, v_scale = view("v")
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k_view.float()) * score_scale(head_dim)
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(wide),
+                          k_view.to(wide)) * score_scale(head_dim)
     if k_scale is not None:
         scores = scores * k_scale
     key_pos = torch.arange(k_view.shape[1], device=q.device)

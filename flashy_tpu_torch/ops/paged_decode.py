@@ -24,6 +24,8 @@ from .attention import NEG_INF, _guarded_probs, score_scale
 from .paged_attention import block_bytes, paged_attention
 
 MAX_QUERIES = 64  # T bound of the kernel (kMaxQueries in the source)
+HEAD_DIM = 64     # the head_dim it takes (kDh)
+MAX_BLOCK = 64    # block sizes it takes: powers of two up to this
 
 # Launches of the kernel, by variant: a plain integer per name, bumped
 # where the kernel is launched and nowhere else.
@@ -33,9 +35,12 @@ launch_counts: tp.Dict[str, int] = {"paged_decode": 0,
 _FUNCTIONS = {
     "flashy_paged_decode": (ctypes.c_int, (
         ctypes.c_int,                                    # variant
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+        ctypes.c_void_p,                                 # q
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # q strides
+        ctypes.c_void_p, ctypes.c_void_p,                # k, v
         ctypes.c_void_p, ctypes.c_void_p,                # k/v scales
-        ctypes.c_void_p, ctypes.c_void_p,                # table, base
+        ctypes.c_void_p,                                 # table
+        ctypes.c_void_p, ctypes.c_longlong,              # positions, row stride
         ctypes.c_void_p,                                 # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # B, T, H
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # Dh, E, bs
@@ -44,6 +49,10 @@ _FUNCTIONS = {
 }
 _VARIANTS = {(torch.float32, False): 0, (torch.bfloat16, False): 1,
              (torch.float32, True): 2, (torch.bfloat16, True): 3}
+# argument signatures (`_signature`) the checks have passed: the engine
+# calls with the same shapes, strides, dtypes and devices every layer of
+# every step, so each is checked once
+_checked: tp.Set[tuple] = set()
 
 
 def reset_launch_counts() -> None:
@@ -62,13 +71,25 @@ def _check(cond: bool, message: str) -> None:
         raise ValueError(f"paged decode kernel: {message}")
 
 
-def _launch(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
-            table: torch.Tensor, positions: torch.Tensor,
-            head_dim: int) -> torch.Tensor:
+def _signature(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
+               table: torch.Tensor, positions: torch.Tensor,
+               head_dim: int) -> tuple:
+    """What `_check_call` reads of its arguments."""
+    return (head_dim, q.dtype, q.device, q.shape) + tuple(
+        (name, t.shape, t.stride(), t.dtype, t.device) for name, t in
+        (*entry.items(), ("table", table), ("positions", positions)))
+
+
+def _check_call(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
+                table: torch.Tensor, positions: torch.Tensor,
+                head_dim: int) -> None:
+    """Everything the kernel needs of its arguments; raises otherwise."""
     batch, queries, heads, dim = q.shape
     quant = "k_scale" in entry
     k, v = entry["k"], entry["v"]
     _check(dim == head_dim, f"q head_dim {dim} != {head_dim}")
+    _check(dim == HEAD_DIM, f"head_dim {dim} unsupported: the kernel "
+                            f"takes {HEAD_DIM}")
     _check(1 <= queries <= MAX_QUERIES,
            f"T={queries} outside [1, {MAX_QUERIES}]")
     _check((q.dtype, quant) in _VARIANTS,
@@ -77,10 +98,14 @@ def _launch(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
            and v.shape == k.shape,
            f"pool k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
            f"q {tuple(q.shape)}")
+    bs = k.shape[1]
+    _check(1 <= bs <= MAX_BLOCK and bs & (bs - 1) == 0,
+           f"block size {bs} unsupported: the kernel takes powers of two "
+           f"up to {MAX_BLOCK}")
     _check(k.dtype == v.dtype == (torch.int8 if quant else q.dtype),
            f"pool dtype {k.dtype} does not match q {q.dtype} "
            f"(int8 pools carry scales)")
-    tensors = [q, k, v, table]
+    tensors = [k, v, table]
     if quant:
         for name in ("k_scale", "v_scale"):
             s = entry[name]
@@ -94,23 +119,42 @@ def _launch(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
         _check(t.device == q.device, f"tensors span {t.device} and "
                                      f"{q.device}")
     for t in tensors:
-        _check(t.is_contiguous(), "tensors must be contiguous")
-    base = positions[:, 0].to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+        _check(t.is_contiguous(), "pools and table must be contiguous")
+
+
+def _launch(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
+            table: torch.Tensor, positions: torch.Tensor,
+            head_dim: int) -> torch.Tensor:
+    signature = _signature(q, entry, table, positions, head_dim)
+    if signature not in _checked:
+        _check_call(q, entry, table, positions, head_dim)
+        _checked.add(signature)
+    batch, queries, heads, dim = q.shape
+    quant = "k_scale" in entry
+    k, v = entry["k"], entry["v"]
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if positions.dtype != torch.int64:
+        positions = positions.long()
+    out = torch.empty((batch, queries, heads, dim), dtype=q.dtype,
+                      device=q.device)
     lib = _build.load("paged_decode", _FUNCTIONS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flashy_paged_decode(
-            _VARIANTS[(q.dtype, quant)], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(),
+            _VARIANTS[(q.dtype, quant)], q.data_ptr(), q.stride(0),
+            q.stride(1), q.stride(2), k.data_ptr(), v.data_ptr(),
             entry["k_scale"].data_ptr() if quant else None,
             entry["v_scale"].data_ptr() if quant else None,
-            table.data_ptr(), base.data_ptr(), out.data_ptr(),
-            batch, queries, heads, dim, table.shape[1], k.shape[1],
-            score_scale(head_dim), stream)
+            table.data_ptr(), positions.data_ptr(), positions.stride(0),
+            out.data_ptr(), batch, queries, heads, dim, table.shape[1],
+            k.shape[1], score_scale(head_dim), stream)
     if err != 0:
-        raise RuntimeError(f"paged decode kernel launch failed: "
-                           f"cudaError {err}")
+        hint = (f" (invalid value: the table row of {table.shape[1]} "
+                f"entries does not fit in shared memory beside the ring)"
+                if err == 1 else "")
+        raise RuntimeError(f"paged decode kernel launch failed: cudaError "
+                           f"{err}{hint}")
     launch_counts["paged_decode_int8" if quant else "paged_decode"] += 1
     return out
 
@@ -120,12 +164,14 @@ def fused_paged_attention(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
                           head_dim: int, dtype: torch.dtype) -> torch.Tensor:
     """`paged_attention`'s contract, one kernel launch.
 
-    q [B, T, H, Dh] (rotary applied), one layer's pool `entry`, int32
-    tables [B, E], positions [B, T] that must be CONSECUTIVE per row
-    (`positions[:, t] == positions[:, 0] + t`): the kernel derives the
-    causal mask from `positions[:, 0]` alone. Every engine read path
-    satisfies that; arbitrary per-row patterns need `paged_attention`.
-    Returns [B, T, H, Dh] in `dtype`.
+    q [B, T, H, Dh] (rotary applied; any strides), one layer's pool
+    `entry`, int32 tables [B, E], int64 positions [B, T] that must be
+    CONSECUTIVE per row (`positions[:, t] == positions[:, 0] + t`): the
+    kernel derives the causal mask from `positions[:, 0]`, read in
+    place. Every engine read path satisfies that; arbitrary per-row
+    patterns need `paged_attention`. Returns [B, T, H, Dh] in `dtype`.
+    On CUDA the kernel takes head_dim 64 and block sizes that are powers
+    of two up to 64, and raises on anything else.
     """
     if q.device.type == "cpu":
         return paged_attention(q, entry, table, positions,
@@ -133,8 +179,7 @@ def fused_paged_attention(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     if q.device.type != "cuda":
         raise ValueError(f"the paged decode kernel runs on CUDA tensors, "
                          f"got {q.device}")
-    return _launch(q.to(dtype).contiguous(), entry, table, positions,
-                   head_dim)
+    return _launch(q.to(dtype), entry, table, positions, head_dim)
 
 
 def entrywise_paged_attention(q: torch.Tensor,
@@ -151,7 +196,10 @@ def entrywise_paged_attention(q: torch.Tensor,
     accumulator rescaled, up to each slot's last live entry. Its bf16
     results therefore round where the kernel's do; the gather version
     normalizes over the whole row first and rounds elsewhere. Products
-    are taken elementwise in f32 (no TF32 matmul). For checks only.
+    are taken elementwise in f32 (no TF32 matmul). In f32 the chain
+    (accumulator and normalizer) is carried in f64, as the kernel carries
+    it (`csrc/paged_decode.cu`): the TPU body's f32 chain drifts by
+    ~1e-5 over hundreds of entries. For checks only.
     """
     q = q.to(dtype)
     batch, queries, heads, dim = q.shape
@@ -163,9 +211,11 @@ def entrywise_paged_attention(q: torch.Tensor,
         table.shape[1] - 1)
     q_pos = base[:, None] + torch.arange(queries, device=device)
     qf = q.float().permute(0, 2, 1, 3)[:, :, :, None, :]  # [B,H,T,1,Dh]
+    chain = torch.float64 if dtype == torch.float32 else torch.float32
     m = torch.full((batch, heads, queries, 1), NEG_INF, device=device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((batch, heads, queries, dim), device=device)
+    l = torch.zeros_like(m, dtype=chain)
+    acc = torch.zeros((batch, heads, queries, dim), dtype=chain,
+                      device=device)
     for e in range(int(last.max()) + 1):
         blk = table[:, e].long()
         k = entry["k"][blk].to(dtype).float().permute(0, 2, 1, 3)
@@ -179,7 +229,7 @@ def entrywise_paged_attention(q: torch.Tensor,
         m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         probs = _guarded_probs(scores, m_new)
-        l_new = l * alpha + probs.sum(-1, keepdim=True)
+        l_new = l * alpha.to(chain) + probs.sum(-1, keepdim=True).to(chain)
         v = entry["v"][blk].permute(0, 2, 1, 3)                # [B,H,bs,Dh]
         if quant:
             probs = probs * entry["v_scale"][blk].permute(0, 2, 1)[:, :,
@@ -191,7 +241,7 @@ def entrywise_paged_attention(q: torch.Tensor,
         on = (e <= last)[:, None, None, None]
         m = torch.where(on, m_new, m)
         l = torch.where(on, l_new, l)
-        acc = torch.where(on, acc * alpha + pv, acc)
+        acc = torch.where(on, acc * alpha.to(chain) + pv.to(chain), acc)
     out = (acc / l.clamp_min(1e-30)).to(dtype)
     return out.permute(0, 2, 1, 3).contiguous()
 

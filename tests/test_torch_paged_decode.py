@@ -235,3 +235,129 @@ def test_paged_write_and_slot_readback_match_jax(kv_dtype):
         k, v = slot_kv(entry, row, 10)
         np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=1e-6)
         np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-6)
+
+
+def _growing_case(kv_dtype, bs, queries, seed=11):
+    """bf16 pools whose scores grow from entry to entry: every key of
+    logical entry e carries 3e/4 times the head's q direction, so the
+    running max steps at every entry and every per-entry rescale and
+    rounding point of the online softmax is taken. Four slots of 8
+    heads at head_dim 64 (32 rows at T=1: an f32-order flip of one P
+    element moves up to a whole row of 64 outputs, so one flipped row
+    stays under the 1% bar); slots 1 and 3 end inside an entry."""
+    from flashy_tpu.models.quantize import quantize_kv
+    rng = np.random.default_rng(seed)
+    batch, heads, dim, entries = 4, 8, 64, 8
+    base = np.array([entries * bs - queries, 5 * bs + 3 - queries,
+                     7 * bs - 1 - queries, 3 * bs + bs // 2 - queries])
+    base = np.maximum(base, 0)
+    n = 1 + batch * entries
+    u = rng.normal(size=(heads, dim)) / 2
+    table = np.zeros((batch, entries), np.int32)
+    blocks = rng.permutation(n - 1) + 1
+    k = rng.normal(size=(n, bs, heads, dim)) / 2
+    v = rng.normal(size=(n, bs, heads, dim))
+    for b in range(batch):
+        live = (base[b] + queries - 1) // bs + 1
+        table[b, :live] = blocks[b * entries:b * entries + live]
+        for e in range(live):
+            k[table[b, e]] += (3 * e / 4) * u[None]
+    k, v = k.astype(np.float32), v.astype(np.float32)
+    q = (u[None, None] + 0.3 * rng.normal(
+        size=(batch, queries, heads, dim))).astype(np.float32) / 2
+    if kv_dtype == "model":
+        jentry = {"k": jnp.asarray(k, jnp.bfloat16),
+                  "v": jnp.asarray(v, jnp.bfloat16)}
+        entry = {n_: torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16) for n_, a in jentry.items()}
+    else:
+        (kq, ks), (vq, vs) = quantize_kv(jnp.asarray(k)), quantize_kv(
+            jnp.asarray(v))
+        jentry = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        entry = {n_: torch.from_numpy(np.array(a)) for n_, a in
+                 jentry.items()}
+    positions = (base[:, None] + np.arange(queries)).astype(np.int32)
+    return q, jentry, entry, table, positions
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("queries", [1, 16])
+def test_entrywise_reference_at_serving_blocks_with_growing_max(
+        kv_dtype, bs, queries):
+    # bf16, the serving block sizes and T of a decode step and of a
+    # prefill chunk: the entry-by-entry reference (what the CUDA kernel
+    # is held to on the card) against the Pallas kernel in interpret
+    # mode, at the same bars as above (one bf16 ulp, <= 1% of outputs
+    # not bit-equal), on pools whose running max grows entry by entry
+    from flashy_tpu.ops.paged_decode import fused_paged_attention as jax_fused
+    from flashy_tpu_torch.ops.paged_decode import entrywise_paged_attention
+    q, jentry, entry, table, positions = _growing_case(kv_dtype, bs, queries)
+    dim = q.shape[-1]
+    # the premise: per entry, the largest score of slot 0's last query row
+    # grows (each entry steps the running max)
+    kf = np.asarray(jentry["k"].astype(jnp.float32))
+    if kv_dtype == "int8":
+        kf = kf * np.asarray(jentry["k_scale"])[..., None]
+    live = (positions[0, -1]) // bs + 1
+    maxima = [(kf[table[0, e]] * q[0, -1][None]).sum(-1).max()
+              for e in range(live)]
+    assert np.all(np.diff(maxima) > 0)
+    want = np.asarray(jax_fused(
+        jnp.asarray(q, jnp.bfloat16), jentry, jnp.asarray(table),
+        jnp.asarray(positions), head_dim=dim, dtype=jnp.bfloat16,
+        interpret=True).astype(jnp.float32))
+    got = entrywise_paged_attention(
+        torch.from_numpy(q), entry, torch.from_numpy(table),
+        torch.from_numpy(positions), head_dim=dim,
+        dtype=torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -10)
+    assert _mismatch_share(got, want) <= 0.01
+
+
+def test_entrywise_f32_chain_in_f64_stays_on_the_gather_path():
+    # The kernel (and its entry-by-entry reference) carries the f32
+    # rescale chain in f64. Over 256 entries of 4 keys the TPU body's f32
+    # chain drifts from the gather path; the f64 chain stays within the
+    # kernel's 1e-5 bar of it. Held against both JAX paths: the gather
+    # path at 1e-5, the Pallas kernel (interpret mode) at 1e-4, the f32
+    # chain's drift over that many entries (observed ~1e-5).
+    from flashy_tpu.ops.paged_attention import paged_attention as jax_gather
+    from flashy_tpu.ops.paged_decode import fused_paged_attention as jax_fused
+    from flashy_tpu_torch.ops.paged_decode import entrywise_paged_attention
+    rng = np.random.default_rng(7)
+    batch, heads, dim, bs, entries, queries = 2, 2, 64, 4, 256, 4
+    n = 1 + batch * entries
+    k, v = (rng.normal(size=(n, bs, heads, dim)).astype(np.float32)
+            for _ in range(2))
+    table = (1 + rng.permutation(n - 1)).reshape(batch, entries).astype(
+        np.int32)
+    base = np.array([entries * bs - queries, 700])
+    positions = (base[:, None] + np.arange(queries)).astype(np.int32)
+    q = rng.normal(size=(batch, queries, heads, dim)).astype(np.float32)
+    jargs = (jnp.asarray(q), {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+             jnp.asarray(table), jnp.asarray(positions))
+    gather = np.asarray(jax_gather(*jargs, head_dim=dim, dtype=jnp.float32))
+    kernel = np.asarray(jax_fused(*jargs, head_dim=dim, dtype=jnp.float32,
+                                  interpret=True))
+    got = entrywise_paged_attention(
+        torch.from_numpy(q), {"k": torch.from_numpy(k),
+                              "v": torch.from_numpy(v)},
+        torch.from_numpy(table), torch.from_numpy(positions),
+        head_dim=dim, dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, gather, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, kernel, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("bs,dim", [(12, 64), (128, 64), (16, 32)])
+def test_kernel_checks_refuse_shapes_it_does_not_take(bs, dim):
+    # the checks the wrapper runs before a CUDA launch: block sizes that
+    # are not powers of two up to 64, and head_dim other than 64, raise
+    from flashy_tpu_torch.ops.paged_decode import _check_call
+    q = torch.zeros((1, 1, 2, dim), dtype=torch.bfloat16)
+    entry = {name: torch.zeros((3, bs, 2, dim), dtype=torch.bfloat16)
+             for name in ("k", "v")}
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    positions = torch.zeros((1, 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="unsupported"):
+        _check_call(q, entry, table, positions, dim)

@@ -1,15 +1,19 @@
 """A/B of two checkouts of the repo on one CUDA card, in turns.
 
-    python3 tools/chip_ab.py OTHER [THIS] [--phases train,ring,moe,serve]
+    python3 tools/chip_ab.py OTHER [THIS] [--phases train,ring,moe,serve,paged]
 
 Runs each checkout's own `chip_smoke.py` phases in a process of its own,
 in the order OTHER, THIS, THIS, OTHER, and prints the phases' lines
 under a header per run. The phases (by default `train,ring`): `train`
 and `ring` (`train` and `ring train`, each followed by its profiled
 window), `moe` (`moe train` and its profiled window, with the grouped
-kernels' device ms a step) and `serve` (`serve bf16`, the paged serving
-leg and its profile). THIS defaults to the checkout this script lives
-in. Run it on the machine with the card, from anywhere; make OTHER with
+kernels' device ms a step), `serve` (`serve bf16`, the paged serving
+leg and its profile) and `paged` (the tree's paged-attention wrapper
+on seeded bf16 and int8 pools at the serving shapes, 8 slots x 16
+heads x 64, block 16: T=1 at context 192 and T=16 at context 128,
+device time three times and the wrapper's host us a call). THIS
+defaults to the checkout this script lives in. Run it on the machine
+with the card, from anywhere; make OTHER with
 `git archive <commit> | tar -x -C <dir>` (a directory that .gitignore
 lists, such as build/). Compare the two trees only inside one run: the
 same card, in turns.
@@ -49,13 +53,41 @@ with tempfile.TemporaryDirectory() as folder:
                     watch=("grouped_", "split_bf16_kernel"))
     del solver
 ''',
+    # only the wrapper's public signature, which every tree shares
+    "paged": '''
+from flashy_tpu_torch.models.quantize import quantize_kv
+from flashy_tpu_torch.ops.paged_decode import fused_paged_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+B, H, D, bs, E = 8, 16, 64, 16, 16
+for kv in ("model", "int8"):
+    k, v = (torch.randn((1 + B * E, bs, H, D), generator=g, device="cuda")
+            for _ in range(2))
+    if kv == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        entry = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        entry = {"k": k.bfloat16(), "v": v.bfloat16()}
+    for T, ctx in ((1, 192), (16, 128)):
+        live = -(-ctx // bs)
+        table = torch.zeros((B, E), dtype=torch.int32, device="cuda")
+        table[:, :live] = 1 + torch.arange(B * live, device="cuda").view(
+            B, live)
+        q = torch.randn((B, T, H, D), generator=g, device="cuda").bfloat16()
+        positions = (ctx - T + torch.arange(T, device="cuda")).expand(B, T)
+        fn = lambda: fused_paged_attention(q, entry, table, positions,
+                                           head_dim=D, dtype=torch.bfloat16)
+        t = C.time_runs(torch, fn, iters=50)
+        print(f"paged {kv} T={T} context {ctx}: device "
+              f"{C.spread_text(t)} host_us={C.host_us(torch, fn):.1f} "
+              f"[{card}]", flush=True)
+''',
     "serve": '''
 C.phase_serve(torch, torch.device("cuda"), card, kv_dtype="model",
               requests_n=16, prompt_len=128, max_new=128, label="serve bf16")
 ''',
 }
 KEEP = ("train:", "profile", "ring train:", "moe train:", "serve bf16",
-        "FAIL")
+        "paged ", "FAIL")
 
 
 def main() -> None:
