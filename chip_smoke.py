@@ -14,8 +14,8 @@ failure with a non-zero exit:
              bf16 flash kernel and every grouped wgmma kernel issues
              HGMMA (wgmma) and ptxas did not serialize it (fewer
              WARPGROUP.DEPBAR than HGMMA); the paged library's T >= 2
-             bf16 kernels issue HMMA (mma.sync), and no paged kernel
-             spills;
+             bf16 kernels and the SSD library's bf16 kernel issue HMMA
+             (mma.sync), and no paged or SSD kernel spills;
   2. kernel  the paged kernel against its plain PyTorch version on random
              pools (bf16, f32, int8 with f32 and bf16 q; T in {1, 4, 16,
              64}; block 16 over 512 keys and blocks 4, 16 and 64 over
@@ -39,9 +39,12 @@ failure with a non-zero exit:
   4. ssd kernel  the SSD chunked-scan kernel against its plain version
              at the serving widths (H 16, Dh 64, N 16; chunks 16, 64,
              256 and tails; T of 1, 7, 100 and 1024; a random carried
-             state and a padded row): f32 within 1e-5 of max |plain|,
-             bf16 y within one bf16 ulp; a SSD_LOG_RESET segment equal
-             to the segment alone; chaining and right-padding bit-equal;
+             state and a padded row; each case on projection slices
+             and on contiguous inputs; also N 8 / Dh 32, N 128, Dh 128
+             and an odd Dh): f32 within 1e-5 of max |plain|, bf16 y within one
+             bf16 ulp; in both dtypes a SSD_LOG_RESET segment equal to
+             the segment alone (f32 1e-5, bf16 one ulp), chaining and
+             right-padding bit-equal, two launches bit-equal;
   4b. gmm kernels  the grouped-GEMM kernels (gmm, gmm_t, tgmm) against
              their plain versions (TF32 off): E in {1, 4, 8}, M in {1,
              100, 4133}, K and N in {64, 1024, 4096}, empty first, last
@@ -85,9 +88,15 @@ failure with a non-zero exit:
              kernel: pool conserved, kernel launched on every read,
              kernel timed as in phase 7;
   9. ssd serve  the pure-SSD model in bf16 at the same shapes: tokens/s,
-             decode-step ms, a profiled window, and the SSD kernel's
-             time at a prefill slice [1, 64] and at [8, 1024] beside its
-             bound and its plain version (no library call computes it);
+             decode-step ms, a profiled window, and the main path's
+             `ssd_chunked_scan` call (bf16 projection slices, a padding
+             mask) at a prefill slice [1, 64] and at [8, 1024]: held
+             to the plain version on those inputs (bf16 y within one
+             ulp, state 1e-5), the kernels it launches (the profiler:
+             the scan alone), its
+             device time three times (median and spread) beside its
+             bound and its plain version (no library call computes it),
+             and its host us a call;
  10. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
              and gradients with attention='flash' through the fused
              backward and through the split pair (bit-equal), and
@@ -596,7 +605,8 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
     top = "; ".join(f"{key[:40]} {ms:.1f} ms x{n}" for ms, n, key in rows[:6])
     ours = "; ".join(f"{name} {ms:.2f} ms x{n} ({ms / busy_ms:.3f} of "
                      f"busy)" for ms, n, key in rows
-                     for name in ("paged_decode_kernel", "ssd_scan_kernel")
+                     for name in ("paged_decode_kernel", "ssd_bf16_kernel",
+                                  "ssd_fma_kernel")
                      if name in key)
     print(f"profile: {n_requests} requests x prompt {prompt_len} x "
           f"{max_new} new, plain wall {wall_ms:.1f} ms, device busy "
@@ -1082,19 +1092,33 @@ SSD_STATE_RTOL = 1e-5          # f32 y and state, relative to max |plain|
 # of 1, 7, 100 and 1024 (chunk is clipped to T, as the scan clips it)
 SSD_CASES = ((2, 1, 64), (2, 7, 16), (2, 100, 16), (2, 100, 64),
              (1, 300, 256), (2, 1024, 64), (1, 1024, 256))
+# (N, Dh) besides the serving 16, 64: the bf16 tile kernel's zero padding
+# (8, 32), and the bf16 FMA kernel's widths (Mamba-2's d_state 128, Dh
+# 128, odd Dh)
+SSD_WIDTHS = ((8, 32), (128, 64), (16, 128), (16, 33))
+# (B, T) the main path's call is timed at: a prefill slice, and a batched
+# prompt of 1024 tokens
+SSD_SHAPES = ((1, SSD_CHUNK), (8, 1024))
 
 
-def ssd_inputs(torch, device, dtype, B, T, H=16, Dh=64, N=16, seed=0):
+def ssd_inputs(torch, device, dtype, B, T, H=16, Dh=64, N=16, seed=0,
+               proj=False):
     """Random scan inputs at the serving widths: c, b, v [B, T, H, *] in
-    `dtype`, f32 log-decays, a random f32 carried state, and a token mask
-    whose last row pads its final T // 8 tokens."""
+    `dtype` (with `proj`, slices of one fused projection [B, T, H,
+    2N+Dh+1], as the model hands them in), f32 log-decays, a random f32
+    carried state, and a token mask whose last row pads its final T // 8
+    tokens."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def draw(*shape):
         return torch.randn(shape, generator=g, device=device)
 
-    c, b = draw(B, T, H, N).to(dtype), draw(B, T, H, N).to(dtype)
-    v = draw(B, T, H, Dh).to(dtype)
+    if proj:
+        p = draw(B, T, H, 2 * N + Dh + 1).to(dtype)
+        c, b, v = p[..., :N], p[..., N:2 * N], p[..., 2 * N:2 * N + Dh]
+    else:
+        c, b = draw(B, T, H, N).to(dtype), draw(B, T, H, N).to(dtype)
+        v = draw(B, T, H, Dh).to(dtype)
     log_a = -torch.nn.functional.softplus(draw(B, T, H))
     state = draw(B, H, Dh, N)
     mask = torch.ones((B, T), dtype=torch.bool, device=device)
@@ -1102,115 +1126,155 @@ def ssd_inputs(torch, device, dtype, B, T, H=16, Dh=64, N=16, seed=0):
     return c, b, v, log_a, state, mask
 
 
+def ulp_excess(torch, got, want):
+    """How far |got - want| exceeds one bf16 ulp of |want| (the
+    PLACEMENT_RTOL bar with its PLACEMENT_ATOL floor); <= 0 holds."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - PLACEMENT_RTOL * want.abs()).max().item()
+
+
+def ssd_against_plain(torch, got, want, mask, label):
+    """Holds a kernel call's (y, state) to the plain version's on the
+    same inputs: f32 y within SSD_STATE_RTOL of max |plain| (TF32 off),
+    bf16 y within one bf16 ulp of plain (PLACEMENT_RTOL, with the
+    PLACEMENT_ATOL floor near zero), the state within SSD_STATE_RTOL;
+    only real tokens count. Fails otherwise; returns (y max abs err, its
+    share of max |y|, state rel err)."""
+    (y, s), (y_ref, s_ref) = got, want
+    y, y_ref = y.float(), y_ref.float()
+    real = mask[:, :, None, None].expand_as(y)
+    err = (y - y_ref).abs()[real].max().item()
+    scale = max(y_ref.abs()[real].max().item(), 1e-30)
+    s_rel = rel_err(s, s_ref)
+    if got[0].dtype == torch.float32:
+        bad = err / scale > SSD_STATE_RTOL
+    else:
+        bad = ulp_excess(torch, y[real], y_ref[real]) > PLACEMENT_ATOL
+    if not math.isfinite(err) or bad or not math.isfinite(s_rel) \
+            or s_rel > SSD_STATE_RTOL:
+        fail(f"{label}: y max abs err {err:.3e} (max |y| {scale:.3e}), "
+             f"state rel err {s_rel:.3e}")
+    return err, err / scale, s_rel
+
+
 def check_ssd_kernel(torch, device, card):
-    """The SSD scan kernel against its plain version on the card: f32 y
-    and state within SSD_STATE_RTOL of max |plain| (TF32 off); bf16 y
-    within one bf16 ulp of the plain version's (PLACEMENT_RTOL, with the
-    PLACEMENT_ATOL floor near zero), the state within SSD_STATE_RTOL.
-    Then, in f32: a SSD_LOG_RESET position whose segment's outputs match
-    the segment run alone; chaining (split at a chunk multiple) and
-    right-padding (masked tail against the unpadded prefix) bit-equal.
-    Returns {dtype: max abs err of y against plain}."""
-    from flashy_tpu_torch.ops.ssd_scan import SSD_LOG_RESET, ssd_chunked_scan
+    """The SSD scan kernel against its plain version on the card
+    (`ssd_against_plain`), in f32 and bf16: every case of SSD_CASES at
+    the serving widths and every width of SSD_WIDTHS, each on projection
+    slices and on separate contiguous tensors. Then, in f32 and in bf16,
+    `check_ssd_bits`. Returns {dtype: max abs err of y against plain}."""
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    cases = ([(B, T, chunk, 16, 64) for B, T, chunk in SSD_CASES]
+             + [(2, 130, SSD_CHUNK, N, Dh) for N, Dh in SSD_WIDTHS])
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst_y = worst_rel = worst_state = 0.0
-        for seed, (B, T, chunk) in enumerate(SSD_CASES):
-            c, b, v, log_a, state, mask = ssd_inputs(torch, device, dtype,
-                                                     B, T, seed=seed)
-            kw = {"state": state, "chunk": chunk, "token_mask": mask}
-            y, s = ssd_chunked_scan(c, b, v, log_a, kernel="fused", **kw)
-            y_ref, s_ref = ssd_chunked_scan(c, b, v, log_a, kernel="gather",
-                                            **kw)
-            y, y_ref = y.float(), y_ref.float()
-            real = mask[:, :, None, None].expand_as(y)
-            err = (y - y_ref).abs()[real].max().item()
-            scale = max(y_ref.abs()[real].max().item(), 1e-30)
-            s_rel = rel_err(s, s_ref)
-            label = f"ssd {name} B={B} T={T} chunk={chunk}"
-            if dtype == torch.float32:
-                bad = err / scale > SSD_STATE_RTOL
-            else:
-                bad = ((y - y_ref).abs() - PLACEMENT_RTOL * y_ref.abs()
-                       )[real].max().item() > PLACEMENT_ATOL
-            if not math.isfinite(err) or bad or not math.isfinite(s_rel) \
-                    or s_rel > SSD_STATE_RTOL:
-                fail(f"{label}: y max abs err {err:.3e} (max |y| "
-                     f"{scale:.3e}), state rel err {s_rel:.3e}")
-            worst_y, worst_rel = max(worst_y, err), max(worst_rel,
-                                                        err / scale)
-            worst_state = max(worst_state, s_rel)
+        for seed, (B, T, chunk, N, Dh) in enumerate(cases):
+            for proj in (True, False):
+                c, b, v, log_a, state, mask = ssd_inputs(
+                    torch, device, dtype, B, T, N=N, Dh=Dh, seed=seed,
+                    proj=proj)
+                kw = {"state": state, "chunk": chunk, "token_mask": mask}
+                err, rel, s_rel = ssd_against_plain(
+                    torch, ssd_chunked_scan(c, b, v, log_a, kernel="fused",
+                                            **kw),
+                    ssd_chunked_scan(c, b, v, log_a, kernel="gather", **kw),
+                    mask, f"ssd {name} B={B} T={T} chunk={chunk} N={N} "
+                          f"Dh={Dh} {'projection' if proj else 'separate'}")
+                worst_y, worst_rel = max(worst_y, err), max(worst_rel, rel)
+                worst_state = max(worst_state, s_rel)
         errors[name] = worst_y
         bar = (f"relative {SSD_STATE_RTOL}" if dtype == torch.float32
                else "one bf16 ulp")
         print(f"ssd kernel {name}: {len(SSD_CASES)} cases (B, T, chunk) "
-              f"{SSD_CASES}, carried state, padded row: y max abs err "
+              f"{SSD_CASES} at N 16, Dh 64 and (N, Dh) {SSD_WIDTHS} at "
+              f"(2, 130, {SSD_CHUNK}), each on projection slices and on "
+              f"separate tensors, carried state, padded row: y max abs err "
               f"{worst_y:.3e} ({worst_rel:.3e} of max |y|; bar {bar}), "
               f"state max rel err {worst_state:.3e} (bar {SSD_STATE_RTOL}) "
               f"[{card}]", flush=True)
+        check_ssd_bits(torch, device, card, dtype)
+    return errors
 
-    # reset, chaining and padding, in f32 at the path's chunk
-    c, b, v, log_a, state, _ = ssd_inputs(torch, device, torch.float32, 2,
-                                          1024, seed=11)
+
+def check_ssd_bits(torch, device, card, dtype):
+    """At the path's chunk on projection slices of [2, 1024]: a
+    SSD_LOG_RESET position whose segment's outputs match the segment run
+    alone (f32 within SSD_STATE_RTOL of max |y|; bf16 within one ulp, as
+    the segment's chunks round elsewhere); splits at 4 and at 3 chunks
+    bit-equal to one call; right-padded slices (100 of 128 tokens, 40 of
+    64) bit-equal to the unpadded tail, outputs and state; two launches
+    bit-equal."""
+    from flashy_tpu_torch.ops.ssd_scan import SSD_LOG_RESET, ssd_chunked_scan
+    name = str(dtype).split(".")[1]
+
+    def scan(c, b, v, log_a, **kw):
+        return ssd_chunked_scan(c, b, v, log_a, chunk=SSD_CHUNK,
+                                kernel="fused", **kw)
+
+    c, b, v, log_a, state, _ = ssd_inputs(torch, device, dtype, 2, 1024,
+                                          seed=11, proj=True)
     cut = 37
     reset = log_a.clone()
     reset[:, cut] = SSD_LOG_RESET
-    y, _ = ssd_chunked_scan(c, b, v, reset, state=state, chunk=SSD_CHUNK,
-                            kernel="fused")
-    y_alone, _ = ssd_chunked_scan(c[:, cut:], b[:, cut:], v[:, cut:],
-                                  reset[:, cut:], chunk=SSD_CHUNK,
-                                  kernel="fused")
-    reset_err = rel_err(y[:, cut:], y_alone)
-    if not torch.isfinite(y).all() or reset_err > SSD_STATE_RTOL:
-        fail(f"ssd reset: the segment after SSD_LOG_RESET differs from the "
-             f"segment alone by {reset_err:.3e} relative")
-    y_all, s_all = ssd_chunked_scan(c, b, v, log_a, state=state,
-                                    chunk=SSD_CHUNK, kernel="fused")
-    split = 4 * SSD_CHUNK
-    y_a, s_a = ssd_chunked_scan(c[:, :split], b[:, :split], v[:, :split],
-                                log_a[:, :split], state=state,
-                                chunk=SSD_CHUNK, kernel="fused")
-    y_b, s_b = ssd_chunked_scan(c[:, split:], b[:, split:], v[:, split:],
-                                log_a[:, split:], state=s_a,
-                                chunk=SSD_CHUNK, kernel="fused")
-    if not (torch.equal(torch.cat([y_a, y_b], 1), y_all)
-            and torch.equal(s_b, s_all)):
-        fail("ssd chaining: the kernel split at a chunk multiple is not "
-             "bit-equal to one call")
-    used = 100
-    mask = torch.zeros((2, 2 * SSD_CHUNK), dtype=torch.bool, device=device)
-    mask[:, :used] = True
-    pad = slice(0, 2 * SSD_CHUNK)
-    y_pad, s_pad = ssd_chunked_scan(c[:, pad], b[:, pad], v[:, pad],
-                                    log_a[:, pad], state=state,
-                                    chunk=SSD_CHUNK, token_mask=mask,
-                                    kernel="fused")
-    y_cut, s_cut = ssd_chunked_scan(c[:, :used], b[:, :used], v[:, :used],
-                                    log_a[:, :used], state=state,
-                                    chunk=SSD_CHUNK, kernel="fused")
-    if not (torch.equal(y_pad[:, :used], y_cut) and torch.equal(s_pad,
-                                                                s_cut)):
-        fail("ssd padding: a right-padded chunk is not bit-equal to the "
-             "unpadded tail")
-    print(f"ssd kernel f32: segment after SSD_LOG_RESET vs alone rel err "
-          f"{reset_err:.3e}; split at {split} of 1024 bit-equal to one call; "
-          f"{2 * SSD_CHUNK - used} padded tokens bit-equal to the unpadded "
-          f"tail [{card}]", flush=True)
-    return errors
+    y, _ = scan(c, b, v, reset, state=state)
+    y_alone, _ = scan(c[:, cut:], b[:, cut:], v[:, cut:], reset[:, cut:])
+    if dtype == torch.float32:
+        reset_err = rel_err(y[:, cut:], y_alone)
+        reset_bad = reset_err > SSD_STATE_RTOL
+        reset_text = f"rel err {reset_err:.3e}"
+    else:
+        reset_err = ulp_excess(torch, y[:, cut:], y_alone)
+        reset_bad = reset_err > PLACEMENT_ATOL
+        reset_text = (f"within one ulp (excess {reset_err:.3e} <= "
+                      f"{PLACEMENT_ATOL})")
+    if not torch.isfinite(y.float()).all() or reset_bad:
+        fail(f"ssd {name} reset: the segment after SSD_LOG_RESET differs "
+             f"from the segment alone: {reset_text}")
+    y_all, s_all = scan(c, b, v, log_a, state=state)
+    splits = (4 * SSD_CHUNK, 3 * SSD_CHUNK)
+    for split in splits:
+        y_a, s_a = scan(c[:, :split], b[:, :split], v[:, :split],
+                        log_a[:, :split], state=state)
+        y_b, s_b = scan(c[:, split:], b[:, split:], v[:, split:],
+                        log_a[:, split:], state=s_a)
+        if not (torch.equal(torch.cat([y_a, y_b], 1), y_all)
+                and torch.equal(s_b, s_all)):
+            fail(f"ssd {name} chaining: the kernel split at {split} is not "
+                 f"bit-equal to one call")
+    pads = ((100, 2 * SSD_CHUNK), (40, SSD_CHUNK))
+    for used, width in pads:
+        mask = torch.zeros((2, width), dtype=torch.bool, device=device)
+        mask[:, :used] = True
+        y_pad, s_pad = scan(c[:, :width], b[:, :width], v[:, :width],
+                            log_a[:, :width], state=state, token_mask=mask)
+        y_cut, s_cut = scan(c[:, :used], b[:, :used], v[:, :used],
+                            log_a[:, :used], state=state)
+        if not (torch.equal(y_pad[:, :used], y_cut)
+                and torch.equal(s_pad, s_cut)):
+            fail(f"ssd {name} padding: {used} of {width} tokens, padded, "
+                 f"are not bit-equal to the unpadded tail")
+    y_again, s_again = scan(c, b, v, log_a, state=state)
+    if not (torch.equal(y_again, y_all) and torch.equal(s_again, s_all)):
+        fail(f"ssd {name}: two launches on the same inputs differ")
+    print(f"ssd kernel {name}: segment after SSD_LOG_RESET vs alone "
+          f"{reset_text}; splits at {splits} of 1024 bit-equal to one call; "
+          f"padded (used, width) {pads} bit-equal to the unpadded tail; two "
+          f"launches bit-equal [{card}]", flush=True)
 
 
 def ssd_bound(B, H, T, N, Dh, chunk, elem):
     """(bound ms, 'bytes' | 'operations', the peak named) of one scan:
-    bytes (c, b, v, la and the state in, y and the state out, each once)
-    over 3.35 TB/s against operations over the peak for their type: the
-    four products (the causal halves of c.b^T and of scores.v, c.S^T,
-    v^T.(b exp(suffix))) at the input dtype's peak, the C^2 decay sums
-    at the f32 peak."""
+    bytes (c, b, v, la, the mask and the state in, y and the state out,
+    each once) over 3.35 TB/s against operations over the peak for their
+    type: the four products (the causal halves of c.b^T and of
+    scores.v, c.S^T, v^T.(b exp(suffix))) at the input dtype's peak, the
+    C^2 decay sums at the f32 peak."""
     pairs = sum(min(chunk, T - lo) * (min(chunk, T - lo) + 1) // 2
                 for lo in range(0, T, chunk))
     rows = B * H
-    nbytes = (rows * T * ((2 * N + 2 * Dh) * elem + 4)
+    nbytes = (rows * T * ((2 * N + 2 * Dh) * elem + 4) + B * T
               + 2 * rows * Dh * N * 4)
     products = rows * (2 * pairs * (N + Dh) + 4 * T * N * Dh)
     peak = BF16_FLOPS if elem == 2 else F32_FLOPS
@@ -1222,41 +1286,67 @@ def ssd_bound(B, H, T, N, Dh, chunk, elem):
             "bytes" if byte_ms >= op_ms else "operations", peak_name)
 
 
-def time_ssd(torch, device, B, T, chunk, dtype=None):
-    """The kernel's ms per launch on heads-first inputs of [B, T] tokens
-    at the serving widths, beside its bound and its plain version."""
-    from flashy_tpu_torch.ops.ssd_scan import (_chunked_reference,
-                                               fused_ssd_chunks)
-    dtype = dtype or torch.bfloat16
-    c, b, v, log_a, state, _ = ssd_inputs(torch, device, dtype, B, T,
-                                          seed=5)
-    args = tuple(t.transpose(1, 2).contiguous()
-                 for t in (c, b, v, log_a)) + (state, chunk)
+def ssd_call_kernels(torch, call):
+    """(calls, [(name, launches)] of the CUDA kernels and copies the
+    profiler saw, scan launches the wrapper counted) for a run of `call`.
+    The profiler can drop kernel records of a short session, so a session
+    that shows none is run again, longer; its counts are reported, and
+    the wrapper's count says how many times the scan was launched."""
+    from flashy_tpu_torch.ops import ssd_scan
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    for calls in (50, 200):
+        before = ssd_scan.launch_counts["ssd_scan"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        rows = [(key, n) for _, n, key in device_rows(torch, prof)]
+        if rows:
+            break
+    return calls, rows, ssd_scan.launch_counts["ssd_scan"] - before
+
+
+def time_ssd(torch, device, B, T, chunk):
+    """The main path's call at [B, T] tokens on the engine's inputs: c, b,
+    v slices of a bf16 projection [B, T, 16, 97], f32 log-decays, a
+    carried state and a mask padding T // 8 tokens of the last row. The
+    call is first held to the plain version on those inputs
+    (`ssd_against_plain`), then timed: device time three times
+    (`time_runs`), the wrapper's host us a call
+    apart, the plain version's device time, the bound, and what the calls
+    launch (`ssd_call_kernels`: the scan once a call, nothing else)."""
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a, state, mask = ssd_inputs(torch, device, torch.bfloat16,
+                                             B, T, seed=5, proj=True)
+    kw = {"state": state, "chunk": chunk, "token_mask": mask}
+
+    def call():
+        return ssd_chunked_scan(c, b, v, log_a, kernel="fused", **kw)
+
+    err, _, s_rel = ssd_against_plain(
+        torch, call(), ssd_chunked_scan(c, b, v, log_a, kernel="gather", **kw),
+        mask, f"ssd bf16 [{B}, {T}] main-path call")
+    calls, launched, counted = ssd_call_kernels(torch, call)
+    if counted != calls or not launched \
+            or any("ssd_" not in name for name, _ in launched):
+        fail(f"ssd [{B}, {T}]: {calls} main-path calls: the wrapper launched "
+             f"the scan {counted} times, the profiler saw {launched}; one "
+             f"scan launch a call and no other device work expected")
     H, N, Dh = c.shape[2], c.shape[3], v.shape[3]
     bound, bound_by, peak = ssd_bound(B, H, T, N, Dh, chunk,
                                       c.element_size())
-    return {"ms": time_ms(torch, lambda: fused_ssd_chunks(*args)),
-            "device_ms": device_ms(torch, lambda: fused_ssd_chunks(*args),
-                                   "ssd_scan_kernel"),
-            "plain_ms": time_ms(torch, lambda: _chunked_reference(*args),
-                                iters=5),
-            "bound_ms": bound, "bound_by": bound_by, "peak": peak,
-            "library_ms": None}
-
-
-def device_ms(torch, fn, name, iters=20):
-    """Device time per launch of the kernels named `name` over `iters`
-    calls of `fn`, from torch.profiler (no host time in it)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(ms, n) for ms, n, key in device_rows(torch, prof) if name in key]
-    launches = sum(n for _, n in rows)
-    return sum(ms for ms, _ in rows) / launches if launches else math.nan
+    runs = time_runs(torch, call, iters=50 if B * T <= 256 else 20)
+    plain_ms = time_ms(torch, lambda: ssd_chunked_scan(
+        c, b, v, log_a, kernel="gather", **kw), iters=5, device_only=True)
+    return {**runs, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "peak": peak, "library_ms": None,
+            "host_us": host_us(torch, call), "max_abs_err": err,
+            "state_rel_err": s_rel,
+            "kernels": f"{calls} calls, {counted} scan launches; the "
+                       f"profiler saw {launched}"}
 
 
 def ssd_workload(rng, vocab):
@@ -1307,7 +1397,8 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
                     max_new=128):
     """The pure-SSD model in bf16 at the decode leg's shapes: tokens/s,
     decode-step ms, a profiled window, and the kernel at a prefill slice
-    [1, 64] and at [8, 1024]. Returns (launches, the [1, 64] timing)."""
+    [1, 64] and at [8, 1024] (`time_ssd`). Returns (launches, {(B, T):
+    timing})."""
     import numpy as np
     from flashy_tpu_torch.models.transformer import TransformerLM
     from flashy_tpu_torch.serve.engine import DecodeEngine
@@ -1338,16 +1429,18 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
           f"{launched} [{card}]", flush=True)
     profile_serve(torch, engine, cfg.vocab_size, 8, prompt_len, 32, card)
     timings = {}
-    for B, T in ((1, SSD_CHUNK), (8, 1024)):
-        t = time_ssd(torch, device, B, T, SSD_CHUNK)
-        timings[(B, T)] = t
-        print(f"ssd kernel bf16 [{B}, {T}] chunk {SSD_CHUNK}: ms="
-              f"{t['ms']:.4f} (device only {t['device_ms']:.4f}) bound_ms="
-              f"{t['bound_ms']:.6f} ({t['bound_by']}; "
-              f"{t['peak']}) plain_ms={t['plain_ms']:.4f} library: none (no "
-              f"single PyTorch call computes the chunked scan) [{card}]",
-              flush=True)
-    return launched, timings[(1, SSD_CHUNK)]
+    for B, T in SSD_SHAPES:
+        t = timings[(B, T)] = time_ssd(torch, device, B, T, SSD_CHUNK)
+        print(f"ssd kernel bf16 [{B}, {T}] chunk {SSD_CHUNK}, the main "
+              f"path's call (projection slices, mask; {t['kernels']}): "
+              f"against plain y max abs err {t['max_abs_err']:.3e} (bar one "
+              f"bf16 ulp), state rel err {t['state_rel_err']:.3e} (bar "
+              f"{SSD_STATE_RTOL}); device {spread_text(t)} host_us="
+              f"{t['host_us']:.1f} bound_ms={t['bound_ms']:.6f} "
+              f"({t['bound_by']}; {t['peak']}) plain_ms="
+              f"{t['plain_ms']:.4f} library: none (no single PyTorch call "
+              f"computes the chunked scan) [{card}]", flush=True)
+    return launched, timings
 
 
 # ----------------------------------------------------------------------
@@ -2329,10 +2422,9 @@ def check_sass(card):
     Fails if a kernel has no HGMMA or as many DEPBARs as HGMMAs. Then
     the paged library: its T >= 2 bf16 kernels (MODE 2, mangled `Li2E`)
     issue HMMA (mma.sync), and ptxas spilled nothing in any of its
-    kernels. Says so and goes on where cuobjdump is missing."""
-    import re
+    kernels; the same for the SSD library's bf16 kernel. Says so and goes
+    on where cuobjdump is missing."""
     import shutil
-    from flashy_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("sass: cuobjdump not found, not checked", flush=True)
@@ -2357,21 +2449,36 @@ def check_sass(card):
     if len(mma) != 2 or min(mma) == 0:
         fail(f"sass: paged_decode's T >= 2 bf16 kernels issue {mma} HMMA "
              f"(two kernels, each > 0 expected)")
-    info = _build.build_info.get("paged_decode")
-    if info is None:
-        usage = "registers and spills not read (library was built before)"
-    else:
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", info[1])]
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", info[1])
-        if not regs or any(int(a) or int(b) for a, b in spills):
-            fail(f"sass: paged_decode spills ({spills}) or no register "
-                 f"report")
-        usage = (f"{min(regs)}-{max(regs)} registers in {len(regs)} "
-                 f"kernels, 0 bytes spilled")
     print(f"sass (cuobjdump -sass of paged_decode): {len(paged)} kernels, "
           f"the two T >= 2 bf16 ones {mma[0]} and {mma[1]} HMMA, the others "
-          f"{sum(paged.values()) - sum(mma)}; {usage} [{card}]", flush=True)
+          f"{sum(paged.values()) - sum(mma)}; {ptxas_usage('paged_decode')} "
+          f"[{card}]", flush=True)
+    counts = sass_counts(tool, "ssd_scan", ("HMMA",))
+    ssd = {n: c[0] for n, c in counts.items() if "ssd_" in n}
+    bf16 = [h for n, h in ssd.items() if "ssd_bf16_kernel" in n]
+    if len(bf16) != 1 or bf16[0] == 0:
+        fail(f"sass: ssd_scan's bf16 kernel issues {bf16} HMMA (one kernel, "
+             f"> 0 expected)")
+    print(f"sass (cuobjdump -sass of ssd_scan): the bf16 kernel {bf16[0]} "
+          f"HMMA, the FMA kernels {sum(ssd.values()) - bf16[0]}; "
+          f"{ptxas_usage('ssd_scan')} [{card}]", flush=True)
+
+
+def ptxas_usage(library):
+    """'<registers> registers in <n> kernels, 0 bytes spilled' from this
+    process's build of `library`; fails if ptxas spilled."""
+    import re
+    from flashy_tpu_torch.ops import _build
+    info = _build.build_info.get(library)
+    if info is None:
+        return "registers and spills not read (library was built before)"
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", info[1])]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", info[1])
+    if not regs or any(int(a) or int(b) for a, b in spills):
+        fail(f"sass: {library} spills ({spills}) or no register report")
+    return (f"{min(regs)}-{max(regs)} registers in {len(regs)} kernels, 0 "
+            f"bytes spilled")
 
 
 def main() -> None:
@@ -2472,13 +2579,19 @@ def main() -> None:
                         "max_abs_err": max(flash_errors["bfloat16"][name],
                                            main_errors[name]),
                         **flash_times[name]})
+    # the [1, 64] prefill slice at the top level, [8, 1024] under "long"
+    keys = ("ms", "ms_runs", "spread", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "host_us")
+    slice_, long_ = (ssd_timing[shape] for shape in SSD_SHAPES)
     kernels.append({"name": "ssd_scan", "route": "cuda",
                     "source": SSD_SOURCE, "replaces": SSD_REPLACES,
                     "launches": ssd_launches,
-                    "max_abs_err": ssd_errors["bfloat16"],
-                    **{key: ssd_timing[key] for key in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}})
+                    "max_abs_err": max(ssd_errors["bfloat16"],
+                                       slice_["max_abs_err"],
+                                       long_["max_abs_err"]),
+                    **{key: slice_[key] for key in keys},
+                    "long": {"shape": list(SSD_SHAPES[1]),
+                             **{key: long_[key] for key in keys}}})
     # the main path's launches at its shapes and dtypes (the small cases'
     # errors, in every dtype form, are on the `gmm kernels` line)
     for name, replaces in GMM_KERNELS.items():

@@ -22,7 +22,10 @@ The chunked form has the reference's seam, kernel='auto'|'gather'|
 (the port of the TPU kernel `_fused_ssd_body`), 'gather' its plain
 version `_chunked_reference` on any device, 'auto' the kernel for CUDA
 tensors and the plain version on the CPU. An explicit 'fused' on the
-CPU raises. The kernel is forward-only, as the TPU kernel is: a 'fused'
+CPU raises. On CUDA a call is one launch: the kernel reads c, b, v and
+the log-decays where they lie (the model's projection slices, by their
+strides), applies the token mask itself and writes y in [B, T, H, Dh]
+(`kernel_args`). The kernel is forward-only, as the TPU kernel is: a 'fused'
 call on tensors that require grad raises (SSD training is
 `TODO_SSD_TRAINING`). The port has no tuning cache, so `chunk=None`
 takes `default_chunk(T)`, the reference's choice on a cache miss.
@@ -51,17 +54,33 @@ TODO_SSD_TRAINING = ("ROADMAP.md queue A item 2, T9 (SSD training: autograd "
 # launched and nowhere else.
 launch_counts: tp.Dict[str, int] = {"ssd_scan": 0}
 
+
+class _SsdArgs(ctypes.Structure):
+    """csrc/ssd_scan.cu `SsdArgs`: pointers, element strides (batch,
+    token, head), sizes, and whether b and v follow c in one row."""
+    _fields_ = [("c", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("la", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p), ("state_in", ctypes.c_void_p),
+                ("y", ctypes.c_void_p), ("state_out", ctypes.c_void_p),
+                ("c_stride", ctypes.c_longlong * 3),
+                ("b_stride", ctypes.c_longlong * 3),
+                ("v_stride", ctypes.c_longlong * 3),
+                ("la_stride", ctypes.c_longlong * 3),
+                ("mask_stride", ctypes.c_longlong * 2),
+                ("B", ctypes.c_int), ("T", ctypes.c_int), ("H", ctypes.c_int),
+                ("N", ctypes.c_int), ("Dh", ctypes.c_int), ("C", ctypes.c_int),
+                ("cbv", ctypes.c_int)]
+
+
 _FUNCTIONS = {
     "flashy_ssd_scan": (ctypes.c_int, (
-        ctypes.c_int,                                    # variant
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # c, b, v
-        ctypes.c_void_p, ctypes.c_void_p,                # la, state in
-        ctypes.c_void_p, ctypes.c_void_p,                # y, state out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # B, H, T
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # N, Dh, chunk
-        ctypes.c_void_p)),                               # stream
+        ctypes.c_int, ctypes.POINTER(_SsdArgs),  # variant, arguments
+        ctypes.c_void_p)),                        # stream
 }
 _VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
+
+# signatures whose arguments passed `_check_call`
+_checked: tp.Set[tuple] = set()
 
 
 def reset_launch_counts() -> None:
@@ -161,8 +180,16 @@ def _check(cond: bool, message: str) -> None:
         raise ValueError(f"ssd scan kernel: {message}")
 
 
-def _launch(c, b, v, la, state, chunk: int):
-    batch, heads, seq, dstate = c.shape
+def _signature(*tensors: tp.Optional[torch.Tensor]) -> tuple:
+    """What `_check_call` reads of its tensor arguments."""
+    return tuple(None if t is None else (t.shape, t.stride(), t.dtype,
+                                         t.device) for t in tensors)
+
+
+def _check_call(c, b, v, la, state, mask, chunk: int) -> None:
+    """Everything the kernel needs of its arguments; raises otherwise."""
+    _check(c.dim() == 4 and v.dim() == 4, "c, b and v must be [B, T, H, *]")
+    batch, seq, heads, dstate = c.shape
     dim = v.shape[-1]
     _check(c.dtype in _VARIANTS, f"dtype {c.dtype} unsupported (float32 "
                                  f"or bfloat16)")
@@ -171,44 +198,85 @@ def _launch(c, b, v, la, state, chunk: int):
            f"c {tuple(c.shape)}, b {tuple(b.shape)} and v {tuple(v.shape)} "
            f"disagree")
     _check(la.shape == c.shape[:3] and la.dtype == torch.float32,
-           "la must be float32 [B, H, T]")
-    _check(state.shape == (batch, heads, dim, dstate)
-           and state.dtype == torch.float32,
-           f"state must be float32 {(batch, heads, dim, dstate)}")
+           "la must be float32 [B, T, H]")
+    if state is not None:
+        _check(state.shape == (batch, heads, dim, dstate)
+               and state.dtype == torch.float32 and state.is_contiguous(),
+               f"state must be contiguous float32 "
+               f"{(batch, heads, dim, dstate)}")
+    if mask is not None:
+        _check(mask.shape == (batch, seq) and mask.dtype == torch.bool,
+               "token_mask must be bool [B, T]")
+    for name, t in (("c", c), ("b", b), ("v", v)):
+        _check(t.shape[-1] == 1 or t.stride(-1) == 1,
+               f"{name}'s last dimension must be contiguous (stride "
+               f"{t.stride(-1)})")
     _check(1 <= chunk <= MAX_CHUNK, f"chunk {chunk} outside [1, {MAX_CHUNK}]")
-    for t in (b, v, la, state):
-        _check(t.device == c.device, f"tensors span {t.device} and "
-                                     f"{c.device}")
-    for t in (c, b, v, la, state):
-        _check(t.is_contiguous(), "tensors must be contiguous")
-    y = torch.empty_like(v)
-    final = torch.empty_like(state)
+    _check(batch <= 65535 and heads <= 65535 and seq < 2 ** 31,
+           f"sizes {tuple(c.shape)} exceed the kernel's grid")
+    for t in (b, v, la, state, mask):
+        _check(t is None or t.device == c.device,
+               f"tensors span {t.device if t is not None else None} and "
+               f"{c.device}")
+
+
+def kernel_args(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+                la: torch.Tensor, state: tp.Optional[torch.Tensor],
+                mask: tp.Optional[torch.Tensor], chunk: int,
+                y: torch.Tensor, final: torch.Tensor) -> _SsdArgs:
+    """The kernel's argument block for `ssd_chunked_scan`'s [B, T, H, *]
+    inputs, each read where it lies: c, b, v (last dimension contiguous)
+    and f32 la by their element strides, the bool mask [B, T] by its
+    strides (None: every token real), the contiguous f32 state (None: a
+    zero state); y [B, T, H, Dh] and final [B, H, Dh, N] are the outputs.
+    `cbv` says that b and v follow c in one row, as the model's projection
+    lays them out, so the kernel copies each token's three slices at once.
+    No tensor is copied; a layout the kernel does not take raises
+    ValueError. The checks run once per signature."""
+    signature = (chunk,) + _signature(c, b, v, la, state, mask)
+    if signature not in _checked:
+        _check_call(c, b, v, la, state, mask, chunk)
+        _checked.add(signature)
+    batch, seq, heads, dstate = c.shape
+    step = dstate * c.element_size()
+    # the model's projection: c, b, v adjacent in each [2N + Dh + 1] row
+    cbv = (b.data_ptr() == c.data_ptr() + step
+           and v.data_ptr() == c.data_ptr() + 2 * step
+           and b.stride()[:3] == c.stride()[:3] == v.stride()[:3])
+    return _SsdArgs(
+        c=c.data_ptr(), b=b.data_ptr(), v=v.data_ptr(), la=la.data_ptr(),
+        mask=None if mask is None else mask.data_ptr(),
+        state_in=None if state is None else state.data_ptr(),
+        y=y.data_ptr(), state_out=final.data_ptr(),
+        c_stride=(ctypes.c_longlong * 3)(*c.stride()[:3]),
+        b_stride=(ctypes.c_longlong * 3)(*b.stride()[:3]),
+        v_stride=(ctypes.c_longlong * 3)(*v.stride()[:3]),
+        la_stride=(ctypes.c_longlong * 3)(*la.stride()),
+        mask_stride=(ctypes.c_longlong * 2)(
+            *(mask.stride() if mask is not None else (0, 0))),
+        B=batch, T=seq, H=heads, N=dstate, Dh=v.shape[-1], C=chunk,
+        cbv=int(cbv))
+
+
+def _launch(c, b, v, la, state, mask, chunk: int):
+    """One kernel launch on [B, T, H, *] inputs: (y [B, T, H, Dh] in v's
+    dtype, final state [B, H, Dh, N] f32)."""
+    batch, seq, heads, dstate = c.shape
+    dim = v.shape[-1]
+    y = torch.empty((batch, seq, heads, dim), dtype=v.dtype,
+                    device=c.device)
+    final = torch.empty((batch, heads, dim, dstate), dtype=torch.float32,
+                        device=c.device)
+    args = kernel_args(c, b, v, la, state, mask, chunk, y, final)
     lib = _build.load("ssd_scan", _FUNCTIONS)
     with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream(c.device).cuda_stream
         err = lib.flashy_ssd_scan(
-            _VARIANTS[c.dtype], c.data_ptr(), b.data_ptr(), v.data_ptr(),
-            la.data_ptr(), state.data_ptr(), y.data_ptr(), final.data_ptr(),
-            batch, heads, seq, dstate, dim, chunk, stream)
+            _VARIANTS[c.dtype], ctypes.byref(args),
+            torch.cuda.current_stream(c.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd scan kernel launch failed: cudaError {err}")
     launch_counts["ssd_scan"] += 1
     return y, final
-
-
-def fused_ssd_chunks(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
-                     la: torch.Tensor, state: torch.Tensor, chunk: int
-                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """`_chunked_reference`'s contract (heads-first, the tail chunk
-    included), one kernel launch. Tensors on the CPU take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if c.device.type == "cpu":
-        return _chunked_reference(c, b, v, la, state, chunk)
-    if c.device.type != "cuda":
-        raise ValueError(f"the ssd scan kernel runs on CUDA tensors, got "
-                         f"{c.device}")
-    return _launch(c.contiguous(), b.contiguous(), v.contiguous(),
-                   la.contiguous(), state.contiguous(), chunk)
 
 
 def ssd_chunked_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
@@ -260,19 +328,22 @@ def ssd_chunked_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
                 f"kernel='gather' (or 'auto')")
     batch, seq, heads, dstate = c.shape
     dim = v.shape[-1]
-    b, log_decay = _masked_inputs(b, log_decay, token_mask)
     if chunk is None:
         chunk = default_chunk(seq)
     elif chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     chunk = min(int(chunk), seq)
+    if kernel == "fused":
+        return _launch(c, b, v, log_decay.float(),
+                       None if state is None else state.float().contiguous(),
+                       token_mask, chunk)
+    b, log_decay = _masked_inputs(b, log_decay, token_mask)
     if state is None:
         state = torch.zeros((batch, heads, dim, dstate),
                             dtype=torch.float32, device=c.device)
-    args = (_to_heads_first(c), _to_heads_first(b), _to_heads_first(v),
-            _to_heads_first(log_decay.float()), state.float(), chunk)
-    scan = fused_ssd_chunks if kernel == "fused" else _chunked_reference
-    y, final = scan(*args)
+    y, final = _chunked_reference(
+        _to_heads_first(c), _to_heads_first(b), _to_heads_first(v),
+        _to_heads_first(log_decay.float()), state.float(), chunk)
     return _to_heads_first(y).to(v.dtype), final
 
 

@@ -74,6 +74,132 @@ def test_chunked_scan_matches_jax_gather_and_fused(chunk):
                                    rtol=1e-5)
 
 
+def _wide_case(seq, seed):
+    """The slice's full widths: N 16, Dh 64 (chunk 64 at the call), B 2,
+    H 2, a carried state, a reset sentinel in row 0 and the last 9
+    tokens of row 1 padded."""
+    from flashy_tpu.ops.ssd_scan import SSD_LOG_RESET
+    c, b, v, log_a = _inputs(seq=seq, head_dim=64, dstate=16, seed=seed)
+    log_a[0, seq // 2 + 3] = SSD_LOG_RESET
+    state = np.random.default_rng(seed + 1).standard_normal(
+        (2, 2, 64, 16)).astype(np.float32)
+    mask = np.ones((2, seq), bool)
+    mask[1, -9:] = False
+    return c, b, v, log_a, state, mask
+
+
+@pytest.mark.parametrize("seq", [64, 150])
+def test_chunked_reference_matches_jax_at_serving_widths(seq):
+    # the kernel's plain version (what chip_smoke holds the Hopper kernel
+    # to) at the widths the kernel runs: ragged T (150 = 64 + 64 + 22)
+    from flashy_tpu.ops.ssd_scan import ssd_chunked_scan as jax_scan
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a, state, mask = _wide_case(seq, seed=seq)
+    y, s = ssd_chunked_scan(*_torch(c, b, v, log_a), state=_torch(state)[0],
+                            chunk=64, token_mask=_torch(mask)[0],
+                            kernel="gather")
+    real = mask[:, :, None, None]
+    for kw in ({"kernel": "gather"}, {"kernel": "fused", "interpret": True}):
+        scan = jax.jit(functools.partial(jax_scan, chunk=64, **kw))
+        y_j, s_j = scan(*_jax(c, b, v, log_a), state=jnp.asarray(state),
+                        token_mask=jnp.asarray(mask))
+        np.testing.assert_allclose(np.where(real, y.numpy(), 0),
+                                   np.where(real, np.asarray(y_j), 0),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _model_projection(seq=9, dtype=torch.bfloat16):
+    """c, b, v and log_a as the SSD layer makes them: views of one fused
+    projection [B, T, H, 2N+Dh+1] (N 16, Dh 64, H 4)."""
+    from flashy_tpu_torch.models.ssd import ssd_projections
+    from flashy_tpu_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig(**{**TINY, "num_heads": 4, "dim": 256},
+                            mixer="ssd", ssd_state_dim=16, dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    normed = torch.randn((2, seq, cfg.dim), generator=g).to(dtype)
+    cbv = torch.randn((cfg.dim, 4, 2 * 16 + 64 + 1), generator=g).to(dtype)
+    return ssd_projections(cfg, normed, cbv, torch.zeros(4))
+
+
+def test_kernel_args_read_the_projection_in_place():
+    # the main path's call: the projection's slices, the f32 log-decays,
+    # the mask and the state reach the kernel by pointer and strides
+    from flashy_tpu_torch.ops import ssd_scan
+    c, b, v, log_a = _model_projection()
+    assert c.data_ptr() != b.data_ptr() and not c.is_contiguous()
+    mask = torch.ones((2, 9), dtype=torch.bool)
+    mask[1, 6:] = False
+    state = torch.zeros((2, 4, 64, 16))
+    y = torch.empty((2, 9, 4, 64), dtype=torch.bfloat16)
+    final = torch.empty((2, 4, 64, 16))
+    args = ssd_scan.kernel_args(c, b, v, log_a, state, mask, 8, y, final)
+    for name, t in (("c", c), ("b", b), ("v", v), ("la", log_a),
+                    ("mask", mask), ("state_in", state), ("y", y),
+                    ("state_out", final)):
+        assert getattr(args, name) == t.data_ptr(), name
+    row = 2 * 16 + 64 + 1
+    assert tuple(args.c_stride) == tuple(args.b_stride) == tuple(
+        args.v_stride) == (9 * 4 * row, 4 * row, row)
+    assert tuple(args.la_stride) == log_a.stride()
+    assert tuple(args.mask_stride) == mask.stride()
+    assert (args.B, args.T, args.H, args.N, args.Dh, args.C, args.cbv) == (
+        2, 9, 4, 16, 64, 8, 1)
+    bare = ssd_scan.kernel_args(c, b, v, log_a, None, None, 8, y, final)
+    assert bare.mask is None and bare.state_in is None
+    # separate tensors: one copy a slice
+    apart = ssd_scan.kernel_args(*(x.contiguous() for x in (c, b, v)), log_a,
+                                 None, None, 8, y, final)
+    assert apart.cbv == 0
+
+
+@pytest.mark.parametrize("case", ["strided_rows", "mixed_dtype",
+                                  "mask_shape", "la_dtype", "mask_dtype",
+                                  "state_layout", "chunk"])
+def test_kernel_args_refuse_layouts_the_kernel_does_not_take(case):
+    from flashy_tpu_torch.ops import ssd_scan
+    c, b, v, log_a = _model_projection()
+    state, mask, chunk = torch.zeros((2, 4, 64, 16)), None, 8
+    if case == "strided_rows":      # elements of a slice not adjacent
+        c = c.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "mixed_dtype":     # b not in c's dtype
+        b = b.float()
+    elif case == "mask_shape":      # one token too many
+        mask = torch.ones((2, 10), dtype=torch.bool)
+    elif case == "la_dtype":
+        log_a = log_a.bfloat16()
+    elif case == "mask_dtype":
+        mask = torch.ones((2, 9), dtype=torch.int32)
+    elif case == "state_layout":
+        state = torch.zeros((2, 4, 16, 64)).transpose(2, 3)
+    else:
+        chunk = ssd_scan.MAX_CHUNK + 1
+    y = torch.empty(v.shape, dtype=v.dtype)
+    final = torch.empty((2, 4, v.shape[-1], c.shape[-1]))
+    with pytest.raises(ValueError, match="ssd scan kernel"):
+        ssd_scan.kernel_args(c, b, v, log_a, state, mask, chunk, y, final)
+
+
+@pytest.mark.parametrize("dstate,head_dim", [(8, 32), (128, 64), (16, 128),
+                                              (16, 33)])
+def test_kernel_args_take_every_width(dstate, head_dim):
+    # bf16 at widths other than the serving ones: the tile kernel's
+    # zero-padded N and Dh (8, 32), or the FMA kernel (N 128 as Mamba-2's
+    # d_state, Dh 128, odd Dh), each read in place
+    from flashy_tpu_torch.ops import ssd_scan
+    row = 2 * dstate + head_dim + 1
+    proj = torch.zeros((2, 9, 4, row), dtype=torch.bfloat16)
+    c, b = proj[..., :dstate], proj[..., dstate:2 * dstate]
+    v = proj[..., 2 * dstate:2 * dstate + head_dim]
+    log_a = torch.zeros((2, 9, 4))
+    y = torch.empty((2, 9, 4, head_dim), dtype=torch.bfloat16)
+    final = torch.empty((2, 4, head_dim, dstate))
+    args = ssd_scan.kernel_args(c, b, v, log_a, None, None, 8, y, final)
+    assert (args.N, args.Dh, args.cbv) == (dstate, head_dim, 1)
+    assert tuple(args.v_stride) == (9 * 4 * row, 4 * row, row)
+
+
 def test_recurrent_scan_matches_jax():
     from flashy_tpu.ops.ssd_scan import ssd_recurrent_scan as jax_rec
     from flashy_tpu_torch.ops.ssd_scan import ssd_recurrent_scan
@@ -176,14 +302,14 @@ def test_fused_kernel_seam_on_the_cpu():
     with pytest.raises(NotImplementedError, match="T9"):
         ssd_scan.ssd_chunked_scan(c.requires_grad_(), b, v, log_a, chunk=8,
                                   kernel="fused")
-    # the wrapper takes the plain version for CPU tensors, no launch
+    # 'auto' takes the plain version for CPU tensors, no launch
     ssd_scan.reset_launch_counts()
-    heads = [x.detach().transpose(1, 2).contiguous()
-             for x in (c, b, v, log_a)]
-    state = torch.zeros((2, 2, 8, 4))
-    got = ssd_scan.fused_ssd_chunks(*heads, state, 8)
-    want = ssd_scan._chunked_reference(*heads, state, 8)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    c = c.detach()
+    got = ssd_scan.ssd_chunked_scan(c, b, v, log_a, chunk=8)
+    heads = [x.transpose(1, 2) for x in (c, b, v, log_a)]
+    want = ssd_scan._chunked_reference(*heads, torch.zeros((2, 2, 8, 4)), 8)
+    assert torch.equal(got[0], want[0].transpose(1, 2))
+    assert torch.equal(got[1], want[1])
     assert ssd_scan.launch_counts["ssd_scan"] == 0
 
 

@@ -1,17 +1,30 @@
 """A/B of two checkouts of the repo on one CUDA card, in turns.
 
-    python3 tools/chip_ab.py OTHER [THIS] [--phases train,ring,moe,serve,paged]
+    python3 tools/chip_ab.py OTHER [THIS] [--phases PHASE,...]
+
+PHASE is one of train, ring, moe, serve, paged, ssd, ssd_serve.
 
 Runs each checkout's own `chip_smoke.py` phases in a process of its own,
 in the order OTHER, THIS, THIS, OTHER, and prints the phases' lines
-under a header per run. The phases (by default `train,ring`): `train`
-and `ring` (`train` and `ring train`, each followed by its profiled
-window), `moe` (`moe train` and its profiled window, with the grouped
-kernels' device ms a step), `serve` (`serve bf16`, the paged serving
-leg and its profile) and `paged` (the tree's paged-attention wrapper
-on seeded bf16 and int8 pools at the serving shapes, 8 slots x 16
-heads x 64, block 16: T=1 at context 192 and T=16 at context 128,
-device time three times and the wrapper's host us a call). THIS
+under a header per run. The phases (by default `train,ring`):
+
+- `train`, `ring`: `train` and `ring train`, each followed by its
+  profiled window;
+- `moe`: `moe train` and its profiled window, with the grouped kernels'
+  device ms a step;
+- `serve`: `serve bf16`, the paged serving leg and its profile;
+- `paged`: the tree's paged-attention wrapper on seeded bf16 and int8
+  pools at the serving shapes (8 slots x 16 heads x 64, block 16: T=1
+  at context 192 and T=16 at context 128), device time three times and
+  the wrapper's host us a call;
+- `ssd`: the tree's `ssd_chunked_scan` on the serving path's inputs
+  (bf16 projection slices [B, T, 16, 2 x 16 + 64 + 1] with a padding
+  mask and a carried state, chunk 64) at [1, 64] and [8, 1024]: the
+  whole call's device time three times and its host us;
+- `ssd_serve`: `ssd serve bf16`, its profiled window with the SSD
+  kernel's device time, and the tree's own SSD timing lines.
+
+THIS
 defaults to the checkout this script lives in. Run it on the machine
 with the card, from anywhere; make OTHER with
 `git archive <commit> | tar -x -C <dir>` (a directory that .gitignore
@@ -81,13 +94,37 @@ for kv in ("model", "int8"):
               f"{C.spread_text(t)} host_us={C.host_us(torch, fn):.1f} "
               f"[{card}]", flush=True)
 ''',
+    # only the public signatures, which every tree shares
+    "ssd": '''
+from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+g = torch.Generator(device="cuda").manual_seed(0)
+H, N, D = 16, 16, 64
+for B, T in ((1, 64), (8, 1024)):
+    p = torch.randn((B, T, H, 2 * N + D + 1), generator=g,
+                    device="cuda").bfloat16()
+    c, b, v = p[..., :N], p[..., N:2 * N], p[..., 2 * N:2 * N + D]
+    log_a = -torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=g, device="cuda"))
+    state = torch.randn((B, H, D, N), generator=g, device="cuda")
+    mask = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    mask[-1, T - T // 8:] = False
+    call = lambda: ssd_chunked_scan(c, b, v, log_a, state=state, chunk=64,
+                                    token_mask=mask, kernel="fused")
+    iters = 50 if B * T <= 256 else 20
+    t_call = C.time_runs(torch, call, iters=iters)
+    print(f"ssd [{B}, {T}]: call device {C.spread_text(t_call)} "
+          f"host_us={C.host_us(torch, call):.1f} [{card}]", flush=True)
+''',
+    "ssd_serve": '''
+C.phase_ssd_serve(torch, torch.device("cuda"), card)
+''',
     "serve": '''
 C.phase_serve(torch, torch.device("cuda"), card, kv_dtype="model",
               requests_n=16, prompt_len=128, max_new=128, label="serve bf16")
 ''',
 }
 KEEP = ("train:", "profile", "ring train:", "moe train:", "serve bf16",
-        "paged ", "FAIL")
+        "paged ", "ssd ", "FAIL")
 
 
 def main() -> None:
