@@ -8,10 +8,12 @@ toolkit (`nvcc`) and PyTorch built for CUDA; it imports nothing of JAX
 or of the JAX package. Phases, one line each, stopping at the first
 failure with a non-zero exit:
 
-  1. build   compile the five kernel sources from flashy_tpu_torch/csrc
-             with nvcc, one process per source, started together; then
-             `cuobjdump -sass` of the flash and grouped libraries: every
-             bf16 flash kernel and every grouped wgmma kernel issues
+  1. build   compile the seven kernel sources from flashy_tpu_torch/csrc
+             with nvcc, one process per source, started together, and
+             print ptxas's registers and spills per kernel; then
+             `cuobjdump -sass` of the flash, ring and grouped libraries:
+             every bf16 flash and ring kernel at head_dim 64 and 128 and
+             every grouped wgmma kernel issues
              HGMMA (wgmma) and ptxas did not serialize it (fewer
              WARPGROUP.DEPBAR than HGMMA); the paged library's T >= 2
              bf16 kernels and the SSD library's bf16 kernel issue HMMA
@@ -27,9 +29,10 @@ failure with a non-zero exit:
              most, and bit-equal almost everywhere; two launches on the
              same inputs bit-equal; a block size or head_dim it does not
              take raises;
-  3. flash   the four flash-attention kernels at head_dim 64 (in bf16
-             the Hopper wgmma/TMA forward step and backward pair step)
-             against their plain versions (f32 and bf16; causal and not;
+  3. flash   the four flash-attention kernels at head_dim 64 (bf16: the
+             Hopper wgmma/TMA forward step and backward pair step; f32:
+             the general route, `flash_general.cu`) against their plain
+             versions (f32 and bf16; causal and not;
              t_k equal to, above and below t_q, the last with empty rows;
              ragged T): forward against the dense path and, in bf16,
              within one ulp of the blockwise reference at the kernel's
@@ -56,10 +59,11 @@ failure with a non-zero exit:
              within one ulp, rows past the groups and empty tgmm groups
              exactly zero; the split kernel's planes bit-equal to
              `split_bf16` and summing back to the f32 operand;
-  4c. ring kernel  the ring-attention kernel, one launch per rank, against
-             its plain version (TF32 off): n in {1, 2, 4, 8} ranks of t
-             in {64, 100 (ragged), 512} rows, B 2, H 16, D 64, causal and
-             not, f32 and bf16: f32 out and lse within 1e-5 of max
+  4c. ring kernel  the ring-attention kernel (bf16; f32 on the general
+             route), one launch per rank, against its plain version (TF32
+             off): n in {1, 2, 4, 8} ranks of t in {64, 100 (ragged),
+             512} rows, B 2, H 16, D 64, causal and not, f32 and bf16:
+             f32 out and lse within 1e-5 of max
              |plain|, bf16 out within one ulp with at most 1% not
              bit-equal, lse within 1e-5 relative; the global output
              against the scan ring and dense attention at the flash bars;
@@ -98,9 +102,9 @@ failure with a non-zero exit:
              bound and its plain version (no library call computes it),
              and its host us a call;
  10. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
-             and gradients with attention='flash' through the fused
-             backward and through the split pair (bit-equal), and
-             against attention='dense';
+             and gradients with attention='flash' (the general route)
+             through the fused backward and through the split pair
+             (bit-equal), and against attention='dense';
  10b. moe step  the same layout with every MLP 8 top-2 experts (889M
              parameters) in f32 at batch 2, seq 256 (a batch whose
              routing has no top-3 gap under 1e-6): loss and every
@@ -122,7 +126,8 @@ failure with a non-zero exit:
              (its ordered dQ chain) and a fused call's device memory,
              then timed three times (median and spread; the fused time
              is the whole gradient) beside its bound, its plain version
-             and PyTorch's scaled_dot_product_attention;
+             and PyTorch's scaled_dot_product_attention; the same for the
+             general route at `step`'s shapes (f32, head_dim 64);
  12. moe train  the MoE layout in bf16 at batch 16, seq 1024 through
              `main` with moe_dispatch=dropless in a fresh XP: 6 steps
              and 2 valid steps, the step loss finite and falling, the
@@ -157,6 +162,59 @@ failure with a non-zero exit:
              scaled_dot_product_attention call over the 2048 tokens,
              with the host cost of a launch's tensor maps.
 
+The routes for the other widths (the shape picks the kernel; each route
+has its own launch counter and its own row in the kernels line) are
+checked in the phases above and driven at full width after them:
+
+  2.  (kernel) also the paged read's general route (`paged_general.cu`:
+             any head_dim, and any block size whose scores fit in shared
+             memory for one query row) at head_dim 128 with blocks 16, 12, 128 and 256,
+             head_dim 32, head_dim 64 with block 12 and head_dim 256 with
+             blocks 16 and 256 (the last three f32 at T 64 in groups of
+             rows; blocks past 64 keys through shared memory in passes of
+             64); (block, head_dim) (12, 64), (128, 64), (16, 32),
+             (16, 128) route there, (16, 64) to `paged_decode.cu`;
+  3.  (flash) also D in {128, 32, 65, 80, 96, 256}: bf16 at 128 on the
+             Hopper kernels built at 128, everything else on the general
+             route (`flash_general.cu`); head_dim 300 raises;
+  4.  (ssd kernel) also N 128 at chunk 256 over T 1024 and N 256 with a
+             ragged tail, on the FMA kernel;
+  4b. (gmm kernels) also K and N in {12, 100, 1030}, on the padded route;
+  4c. (ring kernel) also the same D: bf16 at 128 on the ring kernel
+             built at 128, the others on the general route; one rank
+             bit-equal to the flash forward of its route;
+ 15. exact d128  the 235M layout at 8 heads of 128 in f32 served at block
+             16 (max_seq_len 512), 128 (512, prefill chunk 16) and 12
+             (504), token-exact against `generate`, every read on the
+             general route;
+ 16. serve d128 bf16, int8 d128 bf16  phase 7's and 8's windows at 8 heads
+             of 128: tokens/s, decode p50, the general route's launches
+             by T and its device time beside bound, plain and SDPA;
+ 17. ssd n128  the pure-SSD layout at ssd_state_dim 128, chunk 256, f32:
+             one 1024-token prompt in one prefill slice (12 launches of
+             the FMA kernel) and 16 new tokens token-exact against
+             `generate`; that call timed;
+ 18. step d128, ring step d128  phases 10 and 13 at 8 heads of 128 (f32:
+             the general flash and ring routes), at their bars;
+ 19. train d128  the d128 layout in bf16 at batch 16, seq 1024 through
+             `main` (8 steps, 2 valid, no resume): the loss falls, the
+             forward and the fused backward on the Hopper kernels built
+             at 128; tokens/s, step p50, peak memory;
+ 19b. ring train d128  phase 14 at 8 heads of 128 (4 steps, 1 valid):
+             the ring kernel and the split pair built at 128; then phase
+             11's kernel timing at `train d128`'s shapes, phase 14's ring
+             and pair timing at `ring train d128`'s, the general route's
+             at `step d128`'s (f32) and at D 80 (bf16), and the ring's
+             general route at `ring step d128`'s shapes;
+ 20. step w260  the MoE layout at dim 260 (5 heads of 52, 8 top-2
+             dropless experts, 2 layers) in f32: the grouped kernels'
+             padded route (K = 260) and the general flash route (D 52;
+             the odd D 65, which no rotary model takes, is phase 3's)
+             against the plain grouped matmuls, `einsum` at capacity 8.0
+             and dense, fused == split bitwise; then the padded route's
+             six launches of a layer timed beside bound and plain (no
+             library call takes those widths).
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
 before them.
@@ -172,6 +230,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 NEAR_TIE = 1e-5
+D128_HEADS = 8                 # the d128 layout: 8 heads of 128
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8/float32": 1e-5,
        "int8/bfloat16": 2e-2}
 # bf16 kernel vs the entry-by-entry reference: within one bf16 ulp of
@@ -189,6 +248,11 @@ def fail(message: str) -> None:
     sys.exit(1)
 
 
+def nonzero(counts):
+    """The launch counts that are not zero."""
+    return {key: value for key, value in counts.items() if value}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -197,12 +261,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def model_config(torch, dtype, max_seq_len, attention="dense", **kw):
+def model_config(torch, dtype, max_seq_len, attention="dense",
+                 num_heads=16, **kw):
     """The decode leg's 235M layout: vocab 32768, dim 1024, 12 layers,
-    16 heads (head_dim 64), mlp_ratio 4."""
+    16 heads (head_dim 64), mlp_ratio 4; `num_heads=D128_HEADS` is the
+    d128 layout (8 heads of 128, the same parameters)."""
     from flashy_tpu_torch.models.transformer import TransformerConfig
     return TransformerConfig(vocab_size=32768, dim=1024, num_layers=12,
-                             num_heads=16, mlp_ratio=4,
+                             num_heads=num_heads, mlp_ratio=4,
                              max_seq_len=max_seq_len, dtype=dtype,
                              attention=attention, **kw)
 
@@ -266,37 +332,51 @@ def random_case(torch, device, *, q_dtype, kv, T, B=8, H=16, Dh=64, bs=16,
     return q, entry, table.to(device), positions, live.to(device)
 
 
-# (block size, table entries) of the kernel checks: the engine's block
-# 16 at the `exact` phase's width and blocks of 4, 16 and 64 over 2048
-# keys, which wrap the kernel's 4-stage ring of 64 keys eight times
-PAGED_CASES = ((16, 32), (4, 512), (16, 128), (64, 32))
+# (head_dim, block size, table entries) of the kernel checks. At head_dim
+# 64 (paged_decode.cu): the engine's block 16 at the `exact` phase's width
+# and blocks of 4, 16 and 64 over 2048 keys, which wrap the kernel's
+# 4-stage ring of 64 keys eight times. On the general route
+# (paged_general.cu): the d128 phases' head_dim 128 at the engine's block
+# 16, at 12 and at 128 (blocks paged_decode.cu does not take), head_dim
+# 32, head_dim 64 at block 12, and three shapes whose 64 query rows do
+# not fit in one block's shared memory with f32 q (the kernel splits them
+# into groups of rows): head_dim 256 at block 16 and block 256 at head_dim
+# 128 and 256 (an entry's K and V in four passes of 64 keys).
+PAGED_CASES = ((64, 16, 32), (64, 4, 512), (64, 16, 128), (64, 64, 32),
+               (128, 16, 32), (128, 12, 43), (128, 128, 4), (32, 16, 32),
+               (64, 12, 43), (256, 16, 16), (128, 256, 2), (256, 256, 2))
 
 
 def check_kernels(torch, device, card=""):
-    """Kernel vs plain on the card (and, in bf16, vs the entry-by-entry
-    reference) over PAGED_CASES x T in {1, 4, 16, 64} x the four
-    variants; two launches on the same inputs bit-equal; an unsupported
-    block size or head_dim raises. Returns {variant: max_abs_err against
-    plain}."""
+    """Both routes of the paged read against the plain version on the
+    card (and, in bf16, against the entry-by-entry reference) over
+    PAGED_CASES x T in {1, 4, 16, 64} x the four variants; two launches on
+    the same inputs bit-equal; every launch counted on the route its shape
+    picks. Returns {launch counter name: max_abs_err against plain}."""
+    from flashy_tpu_torch.ops import paged_decode
     from flashy_tpu_torch.ops.paged_attention import paged_attention
-    from flashy_tpu_torch.ops.paged_decode import (entrywise_paged_attention,
-                                                   fused_paged_attention)
-    errors = {}
+    errors, shares = {}, {}
     for q_dtype, kv in ((torch.float32, "model"), (torch.bfloat16, "model"),
                         (torch.float32, "int8"), (torch.bfloat16, "int8")):
         name = str(q_dtype).split(".")[1]
         label = name if kv == "model" else f"int8/{name}"
-        worst = share = 0.0
-        for bs, entries in PAGED_CASES:
+        for dim, bs, entries in PAGED_CASES:
+            route = paged_decode.kernel_route(dim, bs)
+            counter = ("paged_decode" if kv == "model" else
+                       "paged_decode_int8") + (
+                           "" if route == "paged_decode" else "_general")
             for T in (1, 4, 16, 64):
                 q, entry, table, positions, live = random_case(
                     torch, device, q_dtype=q_dtype, kv=kv, T=T, bs=bs,
-                    E=entries, seed=T + bs)
+                    E=entries, Dh=dim, seed=T + bs + dim - 64)
                 args = (q, entry, table, positions)
-                kw = {"head_dim": q.shape[-1], "dtype": q_dtype}
-                where = f"kernel {label} bs={bs} E={entries} T={T}"
-                full = fused_paged_attention(*args, **kw)
-                again = fused_paged_attention(*args, **kw)
+                kw = {"head_dim": dim, "dtype": q_dtype}
+                where = f"kernel {label} Dh={dim} bs={bs} E={entries} T={T}"
+                before = paged_decode.launch_counts[counter]
+                full = paged_decode.fused_paged_attention(*args, **kw)
+                again = paged_decode.fused_paged_attention(*args, **kw)
+                if paged_decode.launch_counts[counter] != before + 2:
+                    fail(f"{where}: not launched on {counter}")
                 if not torch.equal(full, again):
                     fail(f"{where}: two launches on the same inputs differ")
                 got = full[live].float()
@@ -304,7 +384,7 @@ def check_kernels(torch, device, card=""):
                     # the plain version in f64: its f32 sums drift by up
                     # to ~4e-5 on the card over 2048 repeated keys
                     want = paged_attention(q.double(), *args[1:],
-                                           head_dim=q.shape[-1],
+                                           head_dim=dim,
                                            dtype=torch.float64)[live]
                     err = (got.double() - want).abs().max().item()
                 else:
@@ -312,9 +392,10 @@ def check_kernels(torch, device, card=""):
                     err = (got - want).abs().max().item()
                 if not math.isfinite(err) or err > TOL[label]:
                     fail(f"{where}: max abs err {err} > {TOL[label]}")
-                worst = max(worst, err)
+                errors[counter] = max(errors.get(counter, 0.0), err)
                 if q_dtype == torch.bfloat16:
-                    ref = entrywise_paged_attention(*args, **kw)[live].float()
+                    ref = paged_decode.entrywise_paged_attention(
+                        *args, **kw)[live].float()
                     excess = ((got - ref).abs() - PLACEMENT_RTOL * ref.abs()
                               ).max().item()
                     share_t = (got != ref).float().mean().item()
@@ -323,28 +404,28 @@ def check_kernels(torch, device, card=""):
                              f"{excess:.3e} over one ulp (limit "
                              f"{PLACEMENT_ATOL}), {share_t:.4f} of outputs "
                              f"differ (limit {PLACEMENT_SHARE})")
-                    share = max(share, share_t)
-        errors[label] = worst
-        placement = (f"; vs entry-by-entry reference: {share:.4f} of outputs "
-                     f"differ (limit {PLACEMENT_SHARE}), each within one ulp"
-                     if q_dtype == torch.bfloat16 else "")
+                    shares[counter] = max(shares.get(counter, 0.0), share_t)
         plain = "plain in f64" if q_dtype == torch.float32 else "plain"
-        print(f"kernel {label}: (bs, E) in {PAGED_CASES} x T in (1, 4, 16, "
-              f"64) max_abs_err={worst:.3e} vs {plain} (tolerance "
-              f"{TOL[label]})"
-              f"{placement}; two launches bit-equal [{card}]", flush=True)
-    for bs, dim in ((12, 64), (16, 32)):
-        q, entry, table, positions, _ = random_case(
-            torch, device, q_dtype=torch.bfloat16, kv="model", T=1, bs=bs,
-            E=4, Dh=dim)
-        try:
-            fused_paged_attention(q, entry, table, positions, head_dim=dim,
-                                  dtype=torch.bfloat16)
-        except ValueError as err:
-            print(f"kernel: bs={bs} head_dim={dim} raises ({err})",
-                  flush=True)
-        else:
-            fail(f"kernel: bs={bs} head_dim={dim} did not raise")
+        for route in ("paged_decode", "general"):
+            counter = ("paged_decode" if kv == "model" else
+                       "paged_decode_int8") + (
+                           "" if route == "paged_decode" else "_general")
+            cases = [c for c in PAGED_CASES
+                     if paged_decode.kernel_route(c[0], c[1]) == route]
+            placement = (f"; vs entry-by-entry reference: "
+                         f"{shares[counter]:.4f} of outputs differ (limit "
+                         f"{PLACEMENT_SHARE}), each within one ulp"
+                         if q_dtype == torch.bfloat16 else "")
+            print(f"kernel {label} ({counter}): (Dh, bs, E) in {cases} x T "
+                  f"in (1, 4, 16, 64) max_abs_err={errors[counter]:.3e} vs "
+                  f"{plain} (tolerance {TOL[label]}){placement}; two "
+                  f"launches bit-equal [{card}]", flush=True)
+    # the shape picks the kernel: (block size, head_dim) -> route
+    for (bs, dim), route in (((12, 64), "general"), ((128, 64), "general"),
+                             ((16, 32), "general"), ((16, 128), "general"),
+                             ((16, 64), "paged_decode")):
+        if paged_decode.kernel_route(dim, bs) != route:
+            fail(f"kernel: bs={bs} head_dim={dim} does not route to {route}")
     return errors
 
 
@@ -437,13 +518,21 @@ def check_streams(torch, model, prompts, requests, max_new, device, label):
     return ties
 
 
-def phase_exact(torch, device, card=""):
+def phase_exact(torch, device, card="", heads=16, block_size=16,
+                max_seq_len=512, chunk=None, label="exact"):
+    """The layout with `heads` heads in f32 served through the paged
+    engine at `block_size`: every stream token-exact against `generate`,
+    every read launched on the shape's route. The workload's prefix hits
+    and copy-on-write forks are required at block 16, which it was made
+    for. Returns the launches."""
     import numpy as np
     from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import paged_decode
     from flashy_tpu_torch.serve.engine import DecodeEngine
-    cfg = model_config(torch, torch.float32, 512)
+    cfg = model_config(torch, torch.float32, 512, num_heads=heads)
     model = TransformerLM(cfg, device=device, seed=0)
-    engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=512,
+    engine = DecodeEngine(model, slots=8, block_size=block_size,
+                          max_seq_len=max_seq_len, chunk=chunk,
                           cache_layout="paged", device=device)
     if device.type == "cuda" and engine.kernel != "fused":
         fail(f"engine resolved kernel={engine.kernel!r} on CUDA")
@@ -454,17 +543,23 @@ def phase_exact(torch, device, card=""):
                                                  max_new)
     reads = cfg.num_layers * (engine.step_counts["decode"]
                               + engine.step_counts["prefill_chunk"])
-    launched = counts["paged_decode"]
-    if engine.kernel == "fused" and launched != reads:
-        fail(f"exact: kernel launched {launched} times, engine made "
-             f"{reads} attention reads")
+    route = paged_decode.kernel_route(cfg.head_dim, block_size)
+    name = "paged_decode" if route == "paged_decode" \
+        else "paged_decode_general"
+    launched = counts[name]
+    if engine.kernel == "fused" and nonzero(counts) != {name: reads}:
+        fail(f"{label}: launches {nonzero(counts)}, engine made {reads} "
+             f"attention reads on {name}")
     ties = check_streams(torch, model, prompts, requests, max_new, device,
-                         "exact")
+                         label)
     stats = engine.pool_stats()
-    if stats["cow_forks"] < 1 or stats["prefix_hit_rate"] <= 0:
-        fail(f"exact: workload made no prefix hit / COW fork: {stats}")
-    print(f"exact: {len(requests)} requests token-exact vs generate "
-          f"(near ties {ties}), launches={launched} == reads={reads}, "
+    if block_size == 16 and (stats["cow_forks"] < 1
+                             or stats["prefix_hit_rate"] <= 0):
+        fail(f"{label}: workload made no prefix hit / COW fork: {stats}")
+    print(f"{label}: {cfg.num_heads} heads of {cfg.head_dim}, block "
+          f"{block_size}, max_seq_len {engine.max_seq_len}, chunk "
+          f"{engine.chunk}: {len(requests)} requests token-exact vs generate "
+          f"(near ties {ties}), launches {name}={launched} == reads={reads}, "
           f"decode steps={engine.step_counts['decode']}, prefill "
           f"chunks={engine.step_counts['prefill_chunk']}, prefix hit rate="
           f"{stats['prefix_hit_rate']:.3f}, cow forks={stats['cow_forks']}, "
@@ -617,11 +712,12 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
 
 
 def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
-                max_new, label):
+                max_new, label, heads=16):
     import numpy as np
     from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import paged_decode
     from flashy_tpu_torch.serve.engine import DecodeEngine
-    cfg = model_config(torch, torch.bfloat16, 256)
+    cfg = model_config(torch, torch.bfloat16, 256, num_heads=heads)
     model = TransformerLM(cfg, device=device, seed=1)
     engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
                           kv_dtype=kv_dtype, device=device)
@@ -634,13 +730,15 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
     scheduler, requests, counts, seconds = serve(torch, engine, prompts,
                                                  max_new)
     name = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+    if paged_decode.kernel_route(cfg.head_dim, 16) == "general":
+        name += "_general"
     steps = dict(engine.step_counts)
     split = {"T=1": cfg.num_layers * steps["decode"],
              f"prefill T<={engine.chunk}":
                  cfg.num_layers * steps["prefill_chunk"]}
-    if counts[name] < 1 or counts[name] != sum(split.values()):
-        fail(f"{label}: kernel {name} launched {counts[name]} times, the "
-             f"engine made {sum(split.values())} attention reads")
+    if counts[name] < 1 or nonzero(counts) != {name: sum(split.values())}:
+        fail(f"{label}: launches {nonzero(counts)}, the engine made "
+             f"{sum(split.values())} attention reads on {name}")
     for request in requests:
         out = request.output
         if out.shape != (prompt_len + max_new,) or out.min() < 0 \
@@ -657,7 +755,7 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
               f"{t_['bytes']} B) plain_ms={t_['plain_ms']:.4f} "
               f"library_ms(sdpa on gathered view)={t_['library_ms']:.4f} "
               f"host_us={t_['host_us']:.1f} [{card}]", flush=True)
-    if kv_dtype == "model":
+    if kv_dtype == "model" and heads == 16:
         profile_serve(torch, engine, cfg.vocab_size, 8, prompt_len, 32,
                       card)
     print(f"{label}: {requests_n} requests x {max_new} new, "
@@ -771,54 +869,91 @@ def compare_flash(torch, q, k, v, do, causal, label):
     return errors, share, out, dq
 
 
+FLASH_GENERAL_SOURCE = "flashy_tpu_torch/csrc/flash_general.cu"
+PAGED_GENERAL_SOURCE = "flashy_tpu_torch/csrc/paged_general.cu"
+# head dims of the flash checks: 64 (the Hopper kernels), 128 (the d128
+# path: the bf16 forward on the Hopper kernel built at 128, the rest on
+# the general route), an odd 65, and 32, 80, 96, 256 (general); at 64 and
+# 128 every FLASH_CASES case, at the others three (square causal, empty
+# rows, ragged and not causal)
+FLASH_DIMS = (64, 128, 32, 65, 80, 96, 256)
+
+
 def check_flash_kernels(torch, device, card):
     """The four flash kernels against their plain versions on small
-    cases; returns {dtype: {kernel: max abs error against plain}}."""
+    cases at every head dim of FLASH_DIMS (`compare_flash`: fused ==
+    split bitwise), the forward against the dense path, rows with no
+    visible key zero, every launch counted on the route its head dim and
+    dtype pick; head_dim 300 raises. Returns {dtype: {launch counter
+    name: max abs error against plain}}."""
     from flashy_tpu_torch.ops import attention as A
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = FLASH_TOL[name]
-        worst = {key: 0.0 for key in FLASH_REPLACES}
+        worst = {}
         dense_err = share = 0.0
-        for seed, (B, H, t_q, t_k, causal) in enumerate(FLASH_CASES):
-            label = f"flash {name} B={B} H={H} t_q={t_q} t_k={t_k} " \
-                    f"causal={causal}"
-            q, k, v, do = flash_inputs(torch, device, dtype, B, H, t_q, t_k,
-                                       seed=seed)
-            case, share_c, out, dq = compare_flash(torch, q, k, v, do, causal,
-                                                   label)
-            worst = {key: max(worst[key], case[key]) for key in worst}
-            share = max(share, share_c)
-            # the dense path rounds the normalized P over the whole row
-            dense = A.dot_product_attention(q, k, v, causal=causal).float()
-            err = (out.float() - dense).abs().max().item()
-            if not math.isfinite(err) or err > tol:
-                fail(f"{label}: forward vs dense max abs err {err} > {tol}")
-            dense_err = max(dense_err, err)
-            if causal and t_k < t_q:
-                empty = t_q - t_k
-                if out[:, :empty].abs().max().item() != 0 or \
-                        dq[:, :empty].abs().max().item() != 0:
-                    fail(f"{label}: rows with no visible key are not zero")
+        for D in FLASH_DIMS:
+            cases = FLASH_CASES if D in (64, 128) else (
+                FLASH_CASES[0], FLASH_CASES[3], FLASH_CASES[5])
+            for seed, (B, H, t_q, t_k, causal) in enumerate(cases):
+                label = (f"flash {name} D={D} B={B} H={H} t_q={t_q} "
+                         f"t_k={t_k} causal={causal}")
+                q, k, v, do = flash_inputs(torch, device, dtype, B, H, t_q,
+                                           t_k, D=D, seed=seed + D - 64)
+                before = dict(A.launch_counts)
+                case, share_c, out, dq = compare_flash(torch, q, k, v, do,
+                                                       causal, label)
+                moved = {key for key in A.launch_counts
+                         if A.launch_counts[key] != before[key]}
+                want = {A.counter_name(key, D, dtype)
+                        for key in FLASH_REPLACES}
+                if moved != want:
+                    fail(f"{label}: launched on {sorted(moved)}, expected "
+                         f"{sorted(want)}")
+                for key, value in case.items():
+                    route = A.counter_name(key, D, dtype)
+                    worst[route] = max(worst.get(route, 0.0), value)
+                share = max(share, share_c)
+                # the dense path rounds the normalized P over the whole row
+                dense = A.dot_product_attention(q, k, v, causal=causal).float()
+                err = (out.float() - dense).abs().max().item()
+                if not math.isfinite(err) or err > tol:
+                    fail(f"{label}: forward vs dense max abs err {err} > "
+                         f"{tol}")
+                dense_err = max(dense_err, err)
+                if causal and t_k < t_q:
+                    empty = t_q - t_k
+                    if out[:, :empty].abs().max().item() != 0 or \
+                            dq[:, :empty].abs().max().item() != 0:
+                        fail(f"{label}: rows with no visible key are not "
+                             f"zero")
         errors[name] = worst
         placement = (f"; vs blockwise reference: {share:.4f} of outputs "
                      f"differ (limit {PLACEMENT_SHARE}), each within one ulp"
                      if dtype == torch.bfloat16 else "")
-        print(f"flash {name}: {len(FLASH_CASES)} cases, tolerance {tol}: "
-              f"forward vs dense max_abs_err={dense_err:.3e}{placement}; "
-              f"max abs err vs plain: " + ", ".join(
+        print(f"flash {name}: D in {FLASH_DIMS}, {len(FLASH_CASES)} cases at "
+              f"64 and 128, 3 at the others, tolerance {tol}: forward vs "
+              f"dense max_abs_err={dense_err:.3e}{placement}; max abs err vs "
+              f"plain: " + ", ".join(
                   f"{key}={value:.3e}" for key, value in worst.items())
               + f"; fused == split bitwise [{card}]", flush=True)
+    try:
+        A.flash_route(300)
+    except ValueError as err:
+        print(f"flash: head_dim 300 raises ({err})", flush=True)
+    else:
+        fail("flash: head_dim 300 did not raise")
     return errors
 
 
 # ----------------------------------------------------------------------
 # phase 7: one f32 training step, flash (fused, split) against dense
 # ----------------------------------------------------------------------
-def phase_step(torch, device, card):
-    """Loss and grads of the full-width model at batch 2, seq 256 in f32
-    through the fused backward, the split pair and the dense path."""
+def phase_step(torch, device, card, heads=16, label="step"):
+    """Loss and grads of the full-width model (`heads` heads) at batch 2,
+    seq 256 in f32 through the fused backward, the split pair and the
+    dense path; the launches on the head dim's route."""
     import functools
     from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
     from flashy_tpu_torch.models import transformer
@@ -828,12 +963,12 @@ def phase_step(torch, device, card):
                               ).long().to(device)
     results, counts = {}, {}
     flash = transformer.flash_attention
-    for label, kind in (("fused", "flash"), ("split", "flash"),
-                        ("dense", "dense")):
+    for run, kind in (("fused", "flash"), ("split", "flash"),
+                      ("dense", "dense")):
         model = transformer.TransformerLM(
-            model_config(torch, torch.float32, 256, kind), device=device,
-            seed=3)
-        if label == "split":
+            model_config(torch, torch.float32, 256, kind, num_heads=heads),
+            device=device, seed=3)
+        if run == "split":
             transformer.flash_attention = functools.partial(
                 flash, fused_backward=False)
         attention.reset_launch_counts()
@@ -847,35 +982,40 @@ def phase_step(torch, device, card):
         finally:
             transformer.flash_attention = flash
             torch.use_deterministic_algorithms(False)
-        counts[label] = dict(attention.launch_counts)
-        results[label] = (loss.item(), {name: p.grad for name, p in
-                                        model.named_parameters()})
+        counts[run] = dict(attention.launch_counts)
+        results[run] = (loss.item(), {name: p.grad for name, p in
+                                      model.named_parameters()})
         del model
-    layers = 12
-    want = {"fused": {"flash_fwd": layers, "flash_bwd_fused": layers},
-            "split": {"flash_fwd": layers, "flash_bwd_dq": layers,
-                      "flash_bwd_dkv": layers}}
-    for label, expected in want.items():
-        got = {key: value for key, value in counts[label].items() if value}
+    layers, name = 12, functools.partial(attention.counter_name,
+                                         head_dim=1024 // heads,
+                                         dtype=torch.float32)
+    want = {"fused": {name("flash_fwd"): layers,
+                      name("flash_bwd_fused"): layers},
+            "split": {name("flash_fwd"): layers, name("flash_bwd_dq"): layers,
+                      name("flash_bwd_dkv"): layers}}
+    for run, expected in want.items():
+        got = nonzero(counts[run])
         if got != expected:
-            fail(f"step {label}: launches {got}, expected {expected}")
+            fail(f"{label} {run}: launches {got}, expected {expected}")
     fused, split, dense = (results[k] for k in ("fused", "split", "dense"))
     unequal = [name for name, grad in fused[1].items()
                if not torch.equal(grad, split[1][name])]
     if fused[0] != split[0] or unequal:
-        fail(f"step: fused and split differ (loss {fused[0]} vs "
+        fail(f"{label}: fused and split differ (loss {fused[0]} vs "
              f"{split[0]}; grads {unequal[:4]})")
     worst = max(rel_err(grad, dense[1][name])
                 for name, grad in fused[1].items())
     loss_err = abs(fused[0] - dense[0]) / abs(dense[0])
     if not math.isfinite(worst) or worst > STEP_REL_TOL or loss_err > 1e-5:
-        fail(f"step: flash vs dense grads rel err {worst} (limit "
+        fail(f"{label}: flash vs dense grads rel err {worst} (limit "
              f"{STEP_REL_TOL}), loss rel err {loss_err}")
-    print(f"step: 235M f32 b2 t256 loss {fused[0]:.6f}, fused == split "
+    print(f"{label}: 235M ({heads} heads of {1024 // heads}) f32 b2 t256 "
+          f"loss {fused[0]:.6f}, fused == split "
           f"bitwise (loss and all {len(fused[1])} grads), "
           f"flash vs dense: loss rel err {loss_err:.2e}, grads max rel err "
           f"{worst:.2e} (limit {STEP_REL_TOL}); launches fused "
           f"{want['fused']}, split {want['split']} [{card}]", flush=True)
+    return counts["fused"]
 
 
 # ----------------------------------------------------------------------
@@ -973,8 +1113,8 @@ def profile_train(torch, solver, card, steps=4, label="profile train",
 
 def flash_bounds(B, H, T, D, elem, causal=True):
     """{kernel: (bound ms, 'bytes' | 'operations')} at t_q = t_k = T,
-    causal or not: operations over the bf16 peak for the visible q.k
-    pairs, bytes
+    causal or not: operations over the bf16 peak (f32 inputs: the f32
+    peak) for the visible q.k pairs, bytes
     (each input read once, each output written once) over 3.35 TB/s.
     The fused kernel is the whole backward as a function (q, k, v, dO,
     lse, D in; dQ, dK, dV out): in bf16 it folds dQ itself (the f32
@@ -987,34 +1127,40 @@ def flash_bounds(B, H, T, D, elem, causal=True):
             "flash_bwd_dkv": (8, 6 * row + 2 * stat),
             "flash_bwd_fused": (10, 7 * row + 2 * stat)}
     out = {}
+    peak = BF16_FLOPS if elem == 2 else F32_FLOPS
     for name, (flops_per_pair, nbytes) in spec.items():
-        flop_ms = flops_per_pair * D * pairs / BF16_FLOPS * 1e3
+        flop_ms = flops_per_pair * D * pairs / peak * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = (max(flop_ms, byte_ms),
                      "bytes" if byte_ms >= flop_ms else "operations")
     return out
 
 
-def time_flash(torch, device, card):
-    """Each flash kernel at the training shapes (B 16, H 16, T 1024, D
-    64, causal, bf16), first held against its plain version there (as
+def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
+    """Each flash kernel at [B, T, H, D] (causal; by default bf16 at the
+    training shapes, B 16, H 16, T 1024, D 64) on the route its head dim
+    and dtype pick, first held against its plain version there (as
     `compare_flash` does), the fused kernel's two launches bit-equal (a
-    race in its ordered dQ chain would show) and its device memory
-    beyond its outputs measured; then each timed beside its bound, its
-    plain version and PyTorch's scaled_dot_product_attention (forward;
-    its autograd backward for the backward kernels); the fused time is
-    the whole gradient, dQ included. Returns ({kernel: times}, {kernel:
-    max abs error against plain at these shapes})."""
+    race in its ordered dQ chain would show) and its device memory beyond
+    its outputs measured; then each timed three times beside its bound,
+    its plain version and PyTorch's scaled_dot_product_attention
+    (forward; its autograd backward for the backward kernels); the fused
+    time is the whole gradient, dQ included. Returns ({launch counter
+    name: times}, {launch counter name: max abs error against plain})."""
     import torch.nn.functional as F
     from flashy_tpu_torch.ops import attention as A
-    B, H, T, D = 16, 16, 1024, 64
-    q, k, v, do = flash_inputs(torch, device, torch.bfloat16, B, H, T, T,
-                               seed=7)
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).split(".")[1]
+    where = f"B={B} H={H} T={T} D={D}"
+    q, k, v, do = flash_inputs(torch, device, dtype, B, H, T, T, D=D,
+                               seed=7 if D == 64 else 8)
     errors, share, out, _ = compare_flash(
-        torch, q, k, v, do, True, "flash bfloat16 at the training shapes")
-    print(f"flash bfloat16 B={B} H={H} T={T} causal: max abs err vs plain "
-          + ", ".join(f"{key}={value:.3e}" for key, value in errors.items())
-          + f" (tolerance {FLASH_TOL['bfloat16']}, backward relative); vs "
+        torch, q, k, v, do, True, f"flash {name} {where}")
+    routes = {key: A.counter_name(key, D, dtype) for key in FLASH_REPLACES}
+    print(f"flash {name} {where} causal: max abs err vs plain "
+          + ", ".join(f"{routes[key]}={value:.3e}"
+                      for key, value in errors.items())
+          + f" (tolerance {FLASH_TOL[name]}, backward relative); vs "
           f"blockwise reference {share:.4f} of outputs differ (limit "
           f"{PLACEMENT_SHARE}), each within one ulp; fused == split "
           f"bitwise [{card}]", flush=True)
@@ -1031,13 +1177,12 @@ def time_flash(torch, device, card):
     extra = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
     same = [torch.equal(a, b) for a, b in zip(first, second)]
     if not all(same):
-        fail(f"flash bfloat16 fused: two launches differ (dq, dk, dv bit-"
-             f"equal: {same})")
-    partials_mib = -(-T // 64) * q.numel() * 4 / 2 ** 20
-    print(f"flash bfloat16 fused B={B} H={H} T={T}: two launches bit-equal "
-          f"on dq, dk and dv; device memory of a call {extra:.1f} MiB, "
-          f"its three outputs {3 * q.numel() * q.element_size() / 2 ** 20:.1f}"
-          f" (f32 dQ partials would take {partials_mib:.1f}) [{card}]",
+        fail(f"flash {name} fused {where}: two launches differ (dq, dk, dv "
+             f"bit-equal: {same})")
+    print(f"flash {name} fused {where} ({routes['flash_bwd_fused']}): two "
+          f"launches bit-equal on dq, dk and dv; device memory of a call "
+          f"{extra:.1f} MiB, its three outputs "
+          f"{3 * q.numel() * q.element_size() / 2 ** 20:.1f} [{card}]",
           flush=True)
     del first, second
 
@@ -1065,21 +1210,28 @@ def time_flash(torch, device, card):
         "flash_bwd_fused": (
             lambda: A.flash_backward_fused(*args), plain_fused, sdpa_bwd)}
     bounds = flash_bounds(B, H, T, D, q.element_size())
+    # the Hopper kernels take ~0.1-0.5 ms a call, the general route up to
+    # ~10: fewer iterations there
+    iters = 20 if D == 64 else 5
     times = {}
-    for name, (kernel, plain, library) in kernels.items():
-        bound, bound_by = bounds[name]
-        times[name] = {**time_runs(torch, kernel, iters=20),
-                       "plain_ms": time_ms(torch, plain, iters=5),
-                       "bound_ms": bound, "bound_by": bound_by,
-                       "library_ms": library}
-    print("flash times (B16 H16 T1024 D64 causal bf16): " + "; ".join(
-        f"{name} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
+    for key, (kernel, plain, library) in kernels.items():
+        bound, bound_by = bounds[key]
+        times[routes[key]] = {
+            **time_runs(torch, kernel, iters=iters),
+            "plain_ms": time_ms(torch, plain, iters=5 if D == 64 else 3),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+            "host_us": host_us(torch, kernel, calls=5)}
+    print(f"flash times ({where} causal {name}): " + "; ".join(
+        f"{key} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
-        f"library_ms={t['library_ms']:.4f}" for name, t in times.items())
-        + " (flash_bwd_fused: the whole gradient, dQ folded in the kernel; "
-        "library: F.scaled_dot_product_attention forward, its autograd "
-        f"backward for the backward kernels) [{card}]", flush=True)
-    return times, errors
+        f"library_ms={t['library_ms']:.4f} host_us={t['host_us']:.1f}"
+        for key, t in times.items())
+        + " (flash_bwd_fused: the whole gradient, dQ folded in the kernel on "
+        "the Hopper route and from the kernel's f32 partials on the general "
+        "route; library: F.scaled_dot_product_attention forward, its "
+        f"autograd backward for the backward kernels) [{card}]", flush=True)
+    return times, {routes[key]: value for key, value in errors.items()}
+
 
 # ----------------------------------------------------------------------
 # ssd phases: the SSD scan kernel, pure-SSD serving
@@ -1099,6 +1251,10 @@ SSD_WIDTHS = ((8, 32), (128, 64), (16, 128), (16, 33))
 # (B, T) the main path's call is timed at: a prefill slice, and a batched
 # prompt of 1024 tokens
 SSD_SHAPES = ((1, SSD_CHUNK), (8, 1024))
+# (B, T, chunk, N, Dh) of the FMA kernel at chunk 256 past its old
+# shared-memory cap: Mamba-2's N 128 over a 1024-token prompt (the chunk
+# `default_chunk` picks), and N 256 with a ragged tail
+SSD_WIDE_CASES = ((1, 1024, 256, 128, 64), (1, 1000, 256, 256, 64))
 
 
 def ssd_inputs(torch, device, dtype, B, T, H=16, Dh=64, N=16, seed=0,
@@ -1164,8 +1320,10 @@ def check_ssd_kernel(torch, device, card):
     slices and on separate contiguous tensors. Then, in f32 and in bf16,
     `check_ssd_bits`. Returns {dtype: max abs err of y against plain}."""
     from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    from flashy_tpu_torch.ops import ssd_scan
     cases = ([(B, T, chunk, 16, 64) for B, T, chunk in SSD_CASES]
-             + [(2, 130, SSD_CHUNK, N, Dh) for N, Dh in SSD_WIDTHS])
+             + [(2, 130, SSD_CHUNK, N, Dh) for N, Dh in SSD_WIDTHS]
+             + list(SSD_WIDE_CASES))
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
@@ -1176,9 +1334,13 @@ def check_ssd_kernel(torch, device, card):
                     torch, device, dtype, B, T, N=N, Dh=Dh, seed=seed,
                     proj=proj)
                 kw = {"state": state, "chunk": chunk, "token_mask": mask}
+                route = ssd_scan.kernel_route(dtype, N, Dh)
+                before = ssd_scan.launch_counts[route]
+                fused = ssd_chunked_scan(c, b, v, log_a, kernel="fused", **kw)
+                if ssd_scan.launch_counts[route] != before + 1:
+                    fail(f"ssd {name} N={N} Dh={Dh}: not launched on {route}")
                 err, rel, s_rel = ssd_against_plain(
-                    torch, ssd_chunked_scan(c, b, v, log_a, kernel="fused",
-                                            **kw),
+                    torch, fused,
                     ssd_chunked_scan(c, b, v, log_a, kernel="gather", **kw),
                     mask, f"ssd {name} B={B} T={T} chunk={chunk} N={N} "
                           f"Dh={Dh} {'projection' if proj else 'separate'}")
@@ -1188,8 +1350,9 @@ def check_ssd_kernel(torch, device, card):
         bar = (f"relative {SSD_STATE_RTOL}" if dtype == torch.float32
                else "one bf16 ulp")
         print(f"ssd kernel {name}: {len(SSD_CASES)} cases (B, T, chunk) "
-              f"{SSD_CASES} at N 16, Dh 64 and (N, Dh) {SSD_WIDTHS} at "
-              f"(2, 130, {SSD_CHUNK}), each on projection slices and on "
+              f"{SSD_CASES} at N 16, Dh 64, (N, Dh) {SSD_WIDTHS} at "
+              f"(2, 130, {SSD_CHUNK}) and (B, T, chunk, N, Dh) "
+              f"{SSD_WIDE_CASES}, each on projection slices and on "
               f"separate tensors, carried state, padded row: y max abs err "
               f"{worst_y:.3e} ({worst_rel:.3e} of max |y|; bar {bar}), "
               f"state max rel err {worst_state:.3e} (bar {SSD_STATE_RTOL}) "
@@ -1376,8 +1539,9 @@ def phase_ssd_exact(torch, device, card):
     scheduler, requests, counts, seconds = serve(torch, engine, prompts,
                                                  max_new)
     slices = engine.step_counts["prefill_chunk"]
-    launched = counts["ssd_scan"]
-    if launched != cfg.num_layers * slices:
+    # f32: the FMA kernel's route
+    launched = counts["ssd_scan_fma"]
+    if launched != cfg.num_layers * slices or counts["ssd_scan"]:
         fail(f"ssd exact: kernel launched {launched} times for {slices} "
              f"multi-token prefill slices x {cfg.num_layers} layers")
     if min(len(p) for p in prompts) + max_new <= engine.max_seq_len:
@@ -1469,6 +1633,13 @@ GMM_CASES = ((1, 1, 64, 64, (1,)),
              (8, 4133, 4096, 1024, (0, 0, 0, 4133, 0, 0, 0, 0)),
              (4, 4133, 1024, 1024, (1000, 0, 2000, 1000)),
              (1, 100, 4096, 64, (100,)))
+# (E, M, K, N, group sizes) with K or N that 8 does not divide: the
+# wrappers' padded route (zero columns in, the output sliced back)
+GMM_PADDED_CASES = ((4, 333, 12, 100, (100, 0, 133, 90)),
+                    (8, 1000, 1030, 12, (0, 200, 1, 300, 0, 99, 400, 0)),
+                    (2, 500, 100, 1030, (250, 250)),
+                    (4, 257, 12, 1030, (0, 0, 257, 0)),
+                    (3, 300, 1030, 100, (100, 100, 100)))
 # the grouped kernels' names in a profile: every grouped kernel, then the
 # split kernel alone
 GMM_WATCH = ("grouped_", "split_bf16_kernel")
@@ -1538,7 +1709,8 @@ def check_gmm_kernels(torch, device, card):
     from flashy_tpu_torch.ops import grouped_matmul as G
     worst = {name: 0.0 for name in GMM_REPLACES}
     split_worst = 0.0
-    for seed, (E, M, K, N, sizes) in enumerate(GMM_CASES):
+    for seed, (E, M, K, N, sizes) in enumerate(GMM_CASES + GMM_PADDED_CASES):
+        padded = K % G.ALIGN != 0 or N % G.ALIGN != 0
         g = torch.Generator(device=device).manual_seed(seed)
 
         def draw(*shape):
@@ -1548,7 +1720,9 @@ def check_gmm_kernels(torch, device, card):
         total = sum(sizes)
         base = (draw(M, K), draw(E, K, N), draw(E, N, K), draw(M, N))
         for i, t in enumerate(base):
-            check_split(torch, G, t, f"case {seed} operand {i}")
+            if t.numel() % 4 == 0:
+                check_split(torch, G, t, f"case {seed} operand {i}")
+        before = dict(G.launch_counts)
         for a_t, b_t, o_t in gmm_dtypes(torch):
             lhs, rhs, rhs_t, dy = (base[0].to(a_t), base[1].to(b_t),
                                    base[2].to(b_t), base[3].to(b_t))
@@ -1581,7 +1755,15 @@ def check_gmm_kernels(torch, device, card):
             empty = [i for i, n in enumerate(sizes) if n == 0]
             if empty and runs["tgmm"][0][empty].abs().max().item() != 0:
                 fail(f"tgmm {tag}: empty groups {empty} not exactly zero")
-    print(f"gmm kernels: {len(GMM_CASES)} cases x "
+        for name in GMM_REPLACES:
+            route = f"{name}_padded" if padded else name
+            other = name if padded else f"{name}_padded"
+            if G.launch_counts[route] == before[route] or \
+                    G.launch_counts[other] != before[other]:
+                fail(f"{name} E={E} M={M} K={K} N={N}: not launched on the "
+                     f"{route} route alone")
+    print(f"gmm kernels: {len(GMM_CASES)} cases and {len(GMM_PADDED_CASES)} "
+          f"with K or N in (12, 100, 1030) (the padded route) x "
           f"{len(gmm_dtypes(torch))} dtype combinations (bf16 x bf16 -> "
           f"f32, f32 x f32 -> f32, f32 x bf16 and bf16 x f32 -> bf16 and "
           f"-> f32), empty first/last/middle groups, a one-row group, all "
@@ -1671,7 +1853,8 @@ def phase_moe_step(torch, device, card):
     layers = 12
     want = {"gmm": 2 * layers, "gmm_t": 2 * layers, "tgmm": 2 * layers,
             "split_bf16": 0}
-    if counts["dropless"] != want or any(counts["plain"].values()) \
+    if nonzero(counts["dropless"]) != nonzero(want) \
+            or any(counts["plain"].values()) \
             or any(counts["einsum"].values()):
         fail(f"moe step: launches {counts}, expected {want} in the "
              f"dropless run only")
@@ -1735,7 +1918,7 @@ def phase_moe_train(torch, card, folder):
             "split_bf16": 2 * layers * train_steps}
     want_flash = {"flash_fwd": layers * (train_steps + valid_steps),
                   "flash_bwd_fused": layers * train_steps}
-    if counts != want or flash != want_flash:
+    if nonzero(counts) != want or flash != want_flash:
         fail(f"moe train: launches {counts} and {flash}, expected {want} "
              f"and {want_flash}")
     losses = solver.step_losses
@@ -1989,62 +2172,83 @@ def compare_ring(torch, qs, ks, vs, causal, label):
     return err, share, torch.cat(outs, dim=1)
 
 
+# (n ranks, t rows, causal) of the ring checks at the head dims other than
+# 64 (every head dim of FLASH_DIMS; at 64 RING_CASES)
+RING_WIDE_CASES = ((1, 64, True), (4, 100, True), (4, 128, False))
+
+
 def check_ring_kernel(torch, device, card):
-    """The ring kernel against its plain version on RING_CASES (n ranks of
-    t rows, B 2, H 16, D 64, causal and not) in f32 and bf16, and its
-    global output against the scan ring and dense attention over the
-    gathered sequence at the flash bars; one rank is bit-equal to the
-    flash forward (the same tile code). Returns {dtype: max abs err}."""
+    """The ring forward against its plain version, one launch per rank:
+    at head_dim 64 on RING_CASES (n ranks of t rows, B 2, H 16, causal
+    and not), at the other head dims of FLASH_DIMS on RING_WIDE_CASES;
+    f32 and bf16, each on the route its dtype and head dim pick (the ring
+    kernel in bf16 at 64 and 128, else the flash forward's general route
+    over the visible steps' blocks); the global output against the scan
+    ring and dense attention over the gathered sequence at the flash bars;
+    one rank bit-equal to the flash forward of its route (the same tile
+    code). Returns {dtype: {launch counter name: max abs err}}."""
     from flashy_tpu_torch.ops import attention as A
-    from flashy_tpu_torch.parallel import make_mesh, ring_self_attention
-    from flashy_tpu_torch.parallel.ring_fused import ring_forward
+    from flashy_tpu_torch.parallel import (make_mesh, ring_fused,
+                                           ring_self_attention)
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = FLASH_TOL[name]
-        worst = share = scan_err = dense_err = 0.0
-        for seed, (n, t, causal) in enumerate(RING_CASES):
-            label = f"ring {name} n={n} t={t} causal={causal}"
-            (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, dtype, n, t,
-                                                  seed=seed)
-            err, share_c, out = compare_ring(torch, qs, ks, vs, causal, label)
-            worst, share = max(worst, err), max(share, share_c)
-            scan = ring_self_attention(q, k, v, mesh=make_mesh({"seq": n}),
-                                       causal=causal, impl="scan")
-            dense = A.dot_product_attention(q, k, v, causal=causal)
-            e_scan = (out.float() - scan.float()).abs().max().item()
-            e_dense = (out.float() - dense.float()).abs().max().item()
-            if not e_scan <= tol or not e_dense <= tol:
-                fail(f"{label}: vs scan ring {e_scan}, vs dense {e_dense} "
-                     f"(limit {tol})")
-            scan_err, dense_err = max(scan_err, e_scan), max(dense_err,
-                                                             e_dense)
-            if n == 1:
-                got = ring_forward(qs[0], ks, vs, 0, causal)
-                want = A.flash_forward(q, k, v, causal)
-                if not (torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1])):
-                    fail(f"{label}: one rank not bit-equal to the flash "
-                         f"forward")
-            del q, k, v, qs, ks, vs, out, scan, dense
+        worst, share, scan_err, dense_err = {}, 0.0, 0.0, 0.0
+        for D in FLASH_DIMS:
+            route = A.counter_name("ring_fwd", D, dtype)
+            cases = RING_CASES if D == 64 else RING_WIDE_CASES
+            for seed, (n, t, causal) in enumerate(cases):
+                label = f"ring {name} D={D} n={n} t={t} causal={causal}"
+                (q, k, v), (qs, ks, vs) = ring_inputs(
+                    torch, device, dtype, n, t, D=D, seed=seed + D - 64)
+                before = ring_fused.launch_counts[route]
+                err, share_c, out = compare_ring(torch, qs, ks, vs, causal,
+                                                 label)
+                if ring_fused.launch_counts[route] != before + n:
+                    fail(f"{label}: not launched on {route}")
+                worst[route] = max(worst.get(route, 0.0), err)
+                share = max(share, share_c)
+                scan = ring_self_attention(q, k, v, mesh=make_mesh(
+                    {"seq": n}), causal=causal, impl="scan")
+                dense = A.dot_product_attention(q, k, v, causal=causal)
+                e_scan = (out.float() - scan.float()).abs().max().item()
+                e_dense = (out.float() - dense.float()).abs().max().item()
+                if not e_scan <= tol or not e_dense <= tol:
+                    fail(f"{label}: vs scan ring {e_scan}, vs dense "
+                         f"{e_dense} (limit {tol})")
+                scan_err = max(scan_err, e_scan)
+                dense_err = max(dense_err, e_dense)
+                if n == 1:
+                    # the ring runs the flash forward's step on either route
+                    got = ring_fused.ring_forward(qs[0], ks, vs, 0, causal)
+                    want = A.flash_forward(q, k, v, causal)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        fail(f"{label}: one rank not bit-equal to the flash "
+                             f"forward")
+                del q, k, v, qs, ks, vs, out, scan, dense
         errors[name] = worst
         placement = (f", {share:.4f} of outputs not bit-equal (limit "
                      f"{PLACEMENT_SHARE}), each within one ulp"
                      if dtype == torch.bfloat16 else
                      f" (limit {RING_RTOL} of max |plain|)")
-        print(f"ring kernel {name}: {len(RING_CASES)} cases (n 1/2/4/8, t "
-              f"64/100/512, causal and not), vs plain max abs err "
-              f"{worst:.3e}{placement}; vs scan ring {scan_err:.3e}, vs "
-              f"dense {dense_err:.3e} (limit {tol}); one rank == flash "
-              f"forward bitwise [{card}]", flush=True)
+        print(f"ring kernel {name}: D 64 x {len(RING_CASES)} cases (n "
+              f"1/2/4/8, t 64/100/512, causal and not), the other D of "
+              f"{FLASH_DIMS} x {RING_WIDE_CASES}; vs plain max abs err "
+              + ", ".join(f"{key}={value:.3e}" for key, value in worst.items())
+              + f"{placement}; vs scan ring {scan_err:.3e}, vs dense "
+              f"{dense_err:.3e} (limit {tol}); one rank == flash forward "
+              f"bitwise [{card}]", flush=True)
     return errors
 
 
-def phase_ring_step(torch, device, card):
-    """Loss and grads of the full-width model in f32 at batch 2, seq 256
-    on a 4-rank ring: 'ring_fused' against 'ring' (the same backward:
-    within RING_RTOL) and both against 'flash' (STEP_REL_TOL per leaf),
-    each run's launches counted."""
+def phase_ring_step(torch, device, card, heads=16, label="ring step"):
+    """Loss and grads of the full-width model (`heads` heads) in f32 at
+    batch 2, seq 256 on a 4-rank ring: 'ring_fused' against 'ring' (the
+    same backward: within RING_RTOL) and both against 'flash'
+    (STEP_REL_TOL per leaf), each run's launches counted on the head
+    dim's route. Returns the ring_fused run's launch counts."""
     from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
     from flashy_tpu_torch.models.transformer import TransformerLM
     from flashy_tpu_torch.ops import attention
@@ -2055,7 +2259,8 @@ def phase_ring_step(torch, device, card):
     results, counts = {}, {}
     mesh = make_mesh({"seq": 4}, devices=[device] * 4)
     for kind in ("ring_fused", "ring", "flash"):
-        model = TransformerLM(model_config(torch, torch.float32, 256, kind),
+        model = TransformerLM(model_config(torch, torch.float32, 256, kind,
+                                           num_heads=heads),
                               device=device, seed=3, mesh=mesh)
         attention.reset_launch_counts()
         ring_fused.reset_launch_counts()
@@ -2073,15 +2278,18 @@ def phase_ring_step(torch, device, card):
                                        model.named_parameters()})
         del model
     layers, pairs = 12, 10                   # visible (rank, step) pairs
-    want = {"ring_fused": {"ring_fwd": layers * 4,
-                           "flash_bwd_dq": layers * pairs,
-                           "flash_bwd_dkv": layers * pairs},
-            "ring": {"flash_fwd": layers * pairs,
-                     "flash_bwd_dq": layers * pairs,
-                     "flash_bwd_dkv": layers * pairs},
-            "flash": {"flash_fwd": layers, "flash_bwd_fused": layers}}
+    name = lambda kernel: attention.counter_name(  # noqa: E731
+        kernel, 1024 // heads, torch.float32)
+    want = {"ring_fused": {name("ring_fwd"): layers * 4,
+                           name("flash_bwd_dq"): layers * pairs,
+                           name("flash_bwd_dkv"): layers * pairs},
+            "ring": {name("flash_fwd"): layers * pairs,
+                     name("flash_bwd_dq"): layers * pairs,
+                     name("flash_bwd_dkv"): layers * pairs},
+            "flash": {name("flash_fwd"): layers,
+                      name("flash_bwd_fused"): layers}}
     if counts != want:
-        fail(f"ring step: launches {counts}, expected {want}")
+        fail(f"{label}: launches {counts}, expected {want}")
     fused, scan, flash = (results[k] for k in ("ring_fused", "ring",
                                                 "flash"))
 
@@ -2095,30 +2303,36 @@ def phase_ring_step(torch, device, card):
                                            worst(fused, flash))
     if not fused_scan <= RING_RTOL or not max(scan_flash, fused_flash) \
             <= STEP_REL_TOL:
-        fail(f"ring step: ring_fused vs ring {fused_scan:.2e} (limit "
+        fail(f"{label}: ring_fused vs ring {fused_scan:.2e} (limit "
              f"{RING_RTOL}); ring vs flash {scan_flash:.2e}, ring_fused vs "
              f"flash {fused_flash:.2e} (limit {STEP_REL_TOL})")
-    print(f"ring step: 235M f32 b2 t256 on 4 ring ranks, loss "
+    print(f"{label}: 235M ({heads} heads of {1024 // heads}) f32 b2 t256 "
+          f"on 4 ring ranks, loss "
           f"{fused[0]:.6f}; loss and all {len(fused[1])} grads, max rel "
           f"err: ring_fused vs ring {fused_scan:.2e} (limit {RING_RTOL}), "
           f"ring vs flash {scan_flash:.2e}, ring_fused vs flash "
           f"{fused_flash:.2e} (limit {STEP_REL_TOL}); launches {counts} "
           f"[{card}]", flush=True)
+    return counts["ring_fused"]
 
 
-def phase_ring_train(torch, card, folder):
-    """The 235M layout in bf16 with attention='ring_fused' on a 4-rank
-    ring (batch 8, seq 2048: 16384 tokens a step, as `train`) through
-    `main` in a fresh XP: 1 epoch of 6 steps and 2 valid steps. Returns
-    (launch counts, the solver)."""
+def phase_ring_train(torch, card, folder, heads=16, steps=6, valid=2,
+                     label="ring train"):
+    """The 235M layout (`heads` heads) in bf16 with attention=
+    'ring_fused' on a 4-rank ring (batch 8, seq 2048: 16384 tokens a
+    step, as `train`) through `main` in a fresh XP: 1 epoch of `steps`
+    steps and `valid` valid steps; the launches on the head dim's routes.
+    Returns (launch counts, the solver)."""
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
     from flashy_tpu_torch.ops import attention
     from flashy_tpu_torch.parallel import ring_fused
     from flashy_tpu_torch.utils import percentile
     args = [a for a in TRAIN_ARGS if not a.startswith(
-        ("steps_per_epoch", "valid_steps", "seq_len", "batch_size"))]
-    args += RING_ARGS + ["steps_per_epoch=6", "valid_steps=2", "epochs=1",
-                         f"dora.dir={folder}"]
+        ("steps_per_epoch", "valid_steps", "seq_len", "batch_size",
+         "model.num_heads"))]
+    args += RING_ARGS + [f"model.num_heads={heads}",
+                         f"steps_per_epoch={steps}", f"valid_steps={valid}",
+                         "epochs=1", f"dora.dir={folder}"]
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     attention.reset_launch_counts()
@@ -2129,20 +2343,22 @@ def phase_ring_train(torch, card, folder):
     cfg = solver.cfg
     train_steps, valid_steps = cfg.steps_per_epoch, cfg.valid_steps
     layers, ranks, pairs = cfg.model.num_layers, cfg.mesh.seq, 10
-    want = {"ring_fwd": layers * ranks * (train_steps + valid_steps),
-            "flash_bwd_dq": layers * pairs * train_steps,
-            "flash_bwd_dkv": layers * pairs * train_steps,
-            "flash_fwd": 0, "flash_bwd_fused": 0}
-    if counts != want:
-        fail(f"ring train: launches {counts}, expected {want}")
+    name = lambda kernel: attention.counter_name(  # noqa: E731
+        kernel, 1024 // heads, torch.bfloat16)
+    want = {name("ring_fwd"): layers * ranks * (train_steps + valid_steps),
+            name("flash_bwd_dq"): layers * pairs * train_steps,
+            name("flash_bwd_dkv"): layers * pairs * train_steps}
+    if nonzero(counts) != want:
+        fail(f"{label}: launches {counts}, expected {want}")
     losses = solver.step_losses
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        fail(f"ring train: step losses {losses} not finite and falling")
+        fail(f"{label}: step losses {losses} not finite and falling")
     seconds = solver.step_seconds[2:]
     tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
     p50 = percentile(seconds, 50) * 1e3
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-    print(f"ring train: 235M bf16 b{cfg.batch_size} t{cfg.seq_len} on "
+    print(f"{label}: 235M ({heads} heads of {1024 // heads}) bf16 "
+          f"b{cfg.batch_size} t{cfg.seq_len} on "
           f"{ranks} ring ranks (attention=ring_fused), {train_steps} steps "
           f"+ {valid_steps} valid, step losses {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
@@ -2157,19 +2373,21 @@ def ring_bound(B, H, t, D, ranks, elem):
     `ranks` (each rank's visible blocks: r full and its own triangle):
     4 D operations per visible (query, key) pair at the bf16 peak against
     q, out and the visible K and V blocks in `elem` bytes and the f32
-    lse, each once. For every rank of the ring together the K and V
-    inputs are the whole sequence's."""
+    lse, each once (f32 inputs: operations at the f32 peak). For every
+    rank of the ring together the K and V inputs are the whole
+    sequence's."""
     pairs = sum(r * t * t + t * (t + 1) // 2 for r in ranks)
     block = B * t * H * D * elem
     k_v = 2 * (max(ranks) + 1) * block   # owners 0..max(ranks) are visible
     nbytes = 2 * len(ranks) * block + k_v + len(ranks) * B * H * t * 4
-    op_ms = 4 * D * B * H * pairs / BF16_FLOPS * 1e3
+    op_ms = 4 * D * B * H * pairs / (BF16_FLOPS if elem == 2
+                                     else F32_FLOPS) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
 
 
-def time_ring(torch, device, card):
-    """The ring kernel at the training shapes (4 ranks of [8, 512, 16, 64],
+def time_ring(torch, device, card, H=16, D=64):
+    """The ring kernel at the training shapes (4 ranks of [8, 512, H, D],
     bf16, causal), held against its plain version as in `ring kernel`,
     then timed with CUDA events per rank's launch and for the four
     together, beside the bound, the plain version and one
@@ -2181,7 +2399,7 @@ def time_ring(torch, device, card):
     from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
                                                       ring_forward_plain,
                                                       tensor_map_us)
-    B, H, t, D, n = 8, 16, 512, 64, 4
+    B, t, n = 8, 512, 4
     (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, torch.bfloat16, n,
                                           t, B=B, H=H, D=D, seed=11)
     err, share, _ = compare_ring(torch, qs, ks, vs, True,
@@ -2359,35 +2577,413 @@ def time_ring_backward(torch, qs, ks, vs, card):
     return times, errors
 
 
+# ----------------------------------------------------------------------
+# the full-width paths of the other widths: d128 (8 heads of 128), the
+# SSD scan at Mamba-2's N 128, the MoE layout at dim 260
+# ----------------------------------------------------------------------
+def phase_train_d128(torch, card, folder):
+    """The d128 layout (8 heads of 128) in bf16 at batch 16, seq 1024,
+    attention='flash', through `main` in a fresh XP: 1 epoch of 8 steps
+    and 2 valid steps, no resume leg; the step loss finite and falling;
+    the forward and the fused backward on the Hopper kernels built at
+    head_dim 128. Returns the launch counts."""
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    args = [a for a in TRAIN_ARGS if not a.startswith("model.num_heads")]
+    args += [f"model.num_heads={D128_HEADS}", "epochs=1",
+             f"dora.dir={folder}"]
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    solver = lm_main(args)
+    torch.cuda.synchronize()
+    counts = dict(attention.launch_counts)
+    cfg = solver.cfg
+    train_steps, valid_steps = cfg.steps_per_epoch, cfg.valid_steps
+    layers = cfg.model.num_layers
+    want = {"flash_fwd_128": layers * (train_steps + valid_steps),
+            "flash_bwd_fused_128": layers * train_steps}
+    if nonzero(counts) != want:
+        fail(f"train d128: launches {nonzero(counts)}, expected {want}")
+    losses = solver.step_losses
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train d128: step losses {losses} not finite and falling")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train d128: 235M ({D128_HEADS} heads of {1024 // D128_HEADS}) "
+          f"bf16 b{cfg.batch_size} t{cfg.seq_len}, {train_steps} steps + "
+          f"{valid_steps} valid, step losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
+          f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; launches "
+          f"{nonzero(counts)} [{card}]", flush=True)
+    del solver
+    return counts
+
+
+def time_ring_general(torch, device, card, H=D128_HEADS, D=128, B=2, t=64,
+                      n=4):
+    """The ring forward's general route at the `ring step d128` shapes (n
+    ranks of [B, t, H, D], causal, f32): held against its plain version,
+    the four ranks' launches timed three times beside the bound, the
+    plain version and one scaled_dot_product_attention over the n t
+    tokens. Returns (times, max abs err)."""
+    import torch.nn.functional as F
+    from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
+                                                      ring_forward_plain)
+    (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, torch.float32, n,
+                                          t, B=B, H=H, D=D, seed=9)
+    err, _, _ = compare_ring(torch, qs, ks, vs, True, "ring general timed")
+
+    def kernel():
+        for rank in range(n):
+            ring_forward(qs[rank], ks, vs, rank, True)
+
+    def plain():
+        for rank in range(n):
+            ring_forward_plain(qs[rank], ks, vs, rank, True)
+
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    bound, bound_by = ring_bound(B, H, t, D, range(n), 4)
+    times = {**time_runs(torch, kernel, iters=20),
+             "plain_ms": time_ms(torch, plain, iters=5),
+             "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": time_ms(
+                 torch, lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, is_causal=True), device_only=True),
+             "host_us": host_us(torch, kernel, calls=5)}
+    print(f"ring general times ({n} ranks of [{B}, {t}, {H}, {D}] causal "
+          f"f32, the four launches): {spread_text(times)} bound_ms="
+          f"{bound:.4f} ({bound_by}) plain_ms={times['plain_ms']:.4f} "
+          f"library_ms={times['library_ms']:.4f} (one SDPA over {n * t} "
+          f"tokens, f32) host_us={times['host_us']:.1f}; vs plain max abs "
+          f"err {err:.3e} [{card}]", flush=True)
+    return times, err
+
+
+SSD_N128 = (1, 1024, 256, 128, 64)   # (B, T, chunk, N, Dh) of `ssd n128`
+
+
+def phase_ssd_n128(torch, device, card):
+    """The pure-SSD layout at Mamba-2's state width (ssd_state_dim 128,
+    chunk 256) in f32: one 1024-token prompt prefilled in one slice
+    through `cache_layout='ssd'` (the FMA kernel at N 128, chunk 256, T
+    1024: 12 launches) and 16 tokens decoded, token-exact against
+    `generate`; then that call timed beside its bound and plain version.
+    Returns (launches, times, max abs err)."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import ssd_scan
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    B, T, chunk, N, Dh = SSD_N128
+    cfg = model_config(torch, torch.float32, 2048, mixer="ssd",
+                       ssd_state_dim=N, ssd_chunk=chunk)
+    model = TransformerLM(cfg, device=device, seed=6)
+    engine = DecodeEngine(model, slots=1, max_seq_len=T, chunk=T,
+                          cache_layout="ssd", device=device)
+    engine.warmup()
+    prompts = [np.random.default_rng(7).integers(1, cfg.vocab_size, T)]
+    max_new = 16
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    want = {"ssd_scan_fma": cfg.num_layers
+            * engine.step_counts["prefill_chunk"]}
+    if nonzero(counts) != want or engine.step_counts["prefill_chunk"] != 1:
+        fail(f"ssd n128: launches {nonzero(counts)}, expected {want} (one "
+             f"prefill slice)")
+    ties = check_streams(torch, model, prompts, requests, max_new, device,
+                         "ssd n128")
+    launched = want["ssd_scan_fma"]
+    del model, engine, scheduler
+    times, err = time_ssd_route(torch, device, torch.float32, B, T, chunk,
+                                N, Dh)
+    print(f"ssd n128: pure-SSD 235M layout, ssd_state_dim {N}, chunk "
+          f"{chunk}, f32: a {T}-token prompt in one prefill slice + "
+          f"{max_new} new token-exact vs generate (near ties {ties}), "
+          f"launches {want}, {seconds:.2f}s; the main path's call [{B}, {T}] "
+          f"{spread_text(times)} bound_ms={times['bound_ms']:.6f} "
+          f"({times['bound_by']}) plain_ms={times['plain_ms']:.4f} "
+          f"host_us={times['host_us']:.1f}, vs plain y max abs err "
+          f"{err:.3e} [{card}]", flush=True)
+    return launched, times, err
+
+
+def time_ssd_route(torch, device, dtype, B, T, chunk, N, Dh, H=16):
+    """One `ssd_chunked_scan` call (projection slices, padding mask) at
+    these widths, held to the plain version and timed three times beside
+    its bound and plain version. Returns (times, y max abs err)."""
+    from flashy_tpu_torch.ops.ssd_scan import ssd_chunked_scan
+    c, b, v, log_a, state, mask = ssd_inputs(torch, device, dtype, B, T,
+                                             N=N, Dh=Dh, seed=11, proj=True)
+    kw = {"state": state, "chunk": chunk, "token_mask": mask}
+    kernel = lambda: ssd_chunked_scan(c, b, v, log_a, kernel="fused",  # noqa
+                                      **kw)
+    plain = lambda: ssd_chunked_scan(c, b, v, log_a, kernel="gather",  # noqa
+                                     **kw)
+    err, _, _ = ssd_against_plain(torch, kernel(), plain(), mask,
+                                  f"ssd {dtype} [{B}, {T}] N={N} chunk={chunk}")
+    bound, bound_by, _ = ssd_bound(B, H, T, N, Dh, chunk,
+                                   torch.finfo(dtype).bits // 8)
+    return {**time_runs(torch, kernel, iters=10),
+            "plain_ms": time_ms(torch, plain, iters=3),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "host_us": host_us(torch, kernel, calls=5)}, err
+
+
+# 5 heads of 52: the rotary embedding of both packages' TransformerLM
+# takes even head dims only (each raises at an odd one, e.g. 4 heads of
+# 65), so the odd D 65 is held at the kernel level (`check_flash_kernels`)
+W260 = {"dim": 260, "num_layers": 2, "num_heads": 5}
+
+
+def w260_config(torch, dispatch, attention="flash"):
+    """The MoE layout at dim 260 (K = 260, which 8 does not divide; MLP
+    width 1040), 2 layers, 5 heads of 52, 8 top-2 experts, f32."""
+    from flashy_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(vocab_size=32768, mlp_ratio=4, max_seq_len=256,
+                             dtype=torch.float32, attention=attention,
+                             moe_experts=8, moe_top_k=2,
+                             moe_capacity_factor=8.0, moe_dispatch=dispatch,
+                             **W260)
+
+
+def phase_step_w260(torch, device, card):
+    """The w260 layout in f32 (TF32 off) at batch 2, seq 256: loss and
+    every gradient through the grouped kernels' padded route (K = 260)
+    and the flash general route (head_dim 52) against the plain grouped
+    matmuls (MOE_PLAIN_TOL), against 'einsum' at capacity 8.0 where
+    nothing drops (MOE_STEP_TOL on the loss and each gradient's norm),
+    against the dense path (STEP_REL_TOL), and fused == split bitwise.
+    Returns the kernels run's launch counts."""
+    import functools
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models import transformer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.parallel import moe_ep
+    stream = synthetic_token_stream(32768)
+    model = transformer.TransformerLM(w260_config(torch, "dropless"),
+                                      device=device, seed=3)
+    for step in range(32):
+        tokens = torch.from_numpy(stream(2, 256, step)).long().to(device)
+        margin = router_margin(torch, model, tokens)
+        if margin > MOE_TIE_GAP:
+            break
+    else:
+        fail(f"step w260: every candidate batch routes a token at a near "
+             f"tie (last margin {margin:.2e})")
+    del model
+    flash = transformer.flash_attention
+    reference = (moe_ep.gmm, moe_ep.tgmm)
+    results, counts = {}, {}
+    runs = (("kernels", "dropless", "flash"), ("split", "dropless", "flash"),
+            ("plain", "dropless", "flash"), ("einsum", "einsum", "flash"),
+            ("dense", "dropless", "dense"))
+    for label, dispatch, kind in runs:
+        model = transformer.TransformerLM(w260_config(torch, dispatch, kind),
+                                          device=device, seed=3)
+        if label == "split":
+            transformer.flash_attention = functools.partial(
+                flash, fused_backward=False)
+        if label == "plain":
+            moe_ep.gmm, moe_ep.tgmm = G._gmm_reference, G._tgmm_reference
+        G.reset_launch_counts()
+        attention.reset_launch_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = lm_next_token_loss(model, tokens, aux_weight=0.01)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            transformer.flash_attention = flash
+            moe_ep.gmm, moe_ep.tgmm = reference
+            torch.use_deterministic_algorithms(False)
+        counts[label] = nonzero({**G.launch_counts,
+                                 **attention.launch_counts})
+        results[label] = (loss.item(), {name: p.grad for name, p in
+                                        model.named_parameters()})
+        del model
+    layers = W260["num_layers"]
+    want = {"gmm_padded": 2 * layers, "gmm_t_padded": 2 * layers,
+            "tgmm_padded": 2 * layers, "flash_fwd_general": layers,
+            "flash_bwd_fused_general": layers}
+    if counts["kernels"] != want:
+        fail(f"step w260: launches {counts['kernels']}, expected {want}")
+    kern, split, plain, einsum, dense = (results[k] for k in (
+        "kernels", "split", "plain", "einsum", "dense"))
+    unequal = [name for name, grad in kern[1].items()
+               if not torch.equal(grad, split[1][name])]
+    if kern[0] != split[0] or unequal:
+        fail(f"step w260: fused and split differ (grads {unequal[:4]})")
+
+    def worst(a, b):
+        return max(abs(a[0] - b[0]) / abs(b[0]),
+                   max(rel_err(grad, b[1][name])
+                       for name, grad in a[1].items()))
+
+    plain_err, dense_err = worst(kern, plain), worst(kern, dense)
+    ein_err = max([abs(kern[0] - einsum[0]) / abs(einsum[0])] + [
+        abs(grad.norm().item() - einsum[1][name].norm().item())
+        / max(einsum[1][name].norm().item(), 1e-30)
+        for name, grad in kern[1].items()])
+    if not plain_err <= MOE_PLAIN_TOL or not ein_err <= MOE_STEP_TOL \
+            or not dense_err <= STEP_REL_TOL:
+        fail(f"step w260: vs plain grouped matmuls {plain_err:.2e} (limit "
+             f"{MOE_PLAIN_TOL}), vs einsum {ein_err:.2e} (limit "
+             f"{MOE_STEP_TOL}), flash vs dense {dense_err:.2e} (limit "
+             f"{STEP_REL_TOL})")
+    print(f"step w260: MoE dim 260 (5 heads of 52, 8 top-2 experts, "
+          f"{W260['num_layers']} layers) f32 b2 t256, batch {step} (min "
+          f"routing gap {margin:.2e}), loss {kern[0]:.6f}; kernels vs "
+          f"plain grouped matmuls {plain_err:.2e} (limit {MOE_PLAIN_TOL}), "
+          f"vs einsum (capacity 8.0) {ein_err:.2e} (limit {MOE_STEP_TOL}), "
+          f"flash vs dense {dense_err:.2e} (limit {STEP_REL_TOL}), fused == "
+          f"split bitwise (loss and all {len(kern[1])} grads); launches "
+          f"{want} [{card}]", flush=True)
+    return counts["kernels"]
+
+
+def time_gmm_padded(torch, device, card):
+    """The padded route's six launches of a `step w260` layer (f32 x f32:
+    1024 routed rows, K 260, F 1040, 8 experts, the step's routing sizes
+    drawn evenly): each held against its plain version and timed three
+    times beside its bound and plain version; `torch._grouped_mm` takes
+    no K or N that 8 does not divide, so no library time. Returns
+    ({kernel: times}, {kernel: max abs err})."""
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    M, D, F, E = 1024, W260["dim"], 4 * W260["dim"], 8
+    g = torch.Generator(device=device).manual_seed(12)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    gs = torch.full((E,), M // E, dtype=torch.int32, device=device)
+    x, w_up, w_down = draw(M, D), draw(E, D, F), draw(E, F, D)
+    h, dy = draw(M, F), draw(M, D)
+    f32 = torch.float32
+    launches = {
+        "gmm_padded": [
+            (lambda: G.gmm(x, w_up, gs, f32),
+             lambda: G._gmm_reference(x, w_up, gs, f32), (M, D, F, False)),
+            (lambda: G.gmm(h, w_down, gs, f32),
+             lambda: G._gmm_reference(h, w_down, gs, f32), (M, F, D, False))],
+        "gmm_t_padded": [
+            (lambda: G.gmm(dy, w_down, gs, f32, transpose_rhs=True),
+             lambda: G._gmm_reference(dy, w_down, gs, f32, True),
+             (M, D, F, False)),
+            (lambda: G.gmm(h, w_up, gs, f32, transpose_rhs=True),
+             lambda: G._gmm_reference(h, w_up, gs, f32, True),
+             (M, F, D, False))],
+        "tgmm_padded": [
+            (lambda: G.tgmm(h, dy, gs, f32),
+             lambda: G._tgmm_reference(h, dy, gs, f32), (M, F, D, True)),
+            (lambda: G.tgmm(x, h, gs, f32),
+             lambda: G._tgmm_reference(x, h, gs, f32), (M, D, F, True))]}
+    times, errors = {}, {}
+    for name, calls in launches.items():
+        runs, errs = [], []
+        for kernel, plain, (m, k, n, is_tgmm) in calls:
+            errs.append(gmm_check(torch, kernel(), plain(), f"{name} w260"))
+            bound, bound_by = gmm_bound(m, k, n, E, 4, 4, 4, is_tgmm)
+            runs.append({**time_runs(torch, kernel, iters=20),
+                         "plain_ms": time_ms(torch, plain, iters=5),
+                         "bound_ms": bound, "bound_by": bound_by,
+                         "library_ms": None,
+                         "host_us": host_us(torch, kernel, calls=10)})
+        errors[name] = max(errs)
+        times[name] = {**runs[0], "second": runs[1]}
+    print("gmm padded times (step w260 layer: M 1024, K 260, F 1040, E 8, "
+          "f32; library: none, torch._grouped_mm takes no K or N that 8 "
+          "does not divide): " + "; ".join(
+              f"{name} {spread_text(t)} / {spread_text(t['second'])} "
+              f"bound_ms={t['bound_ms']:.4f}/{t['second']['bound_ms']:.4f} "
+              f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f}/"
+              f"{t['second']['plain_ms']:.4f} host_us={t['host_us']:.1f}; "
+              f"vs plain {errors[name]:.3e}"
+              for name, t in times.items()) + f" [{card}]", flush=True)
+    return times, errors
+
+
 def build_all():
     """nvcc for every kernel source at once; prints each build's
     register and spill lines."""
     from flashy_tpu_torch.ops import _build
-    names = ("paged_decode", "flash_attention", "ssd_scan", "grouped_matmul",
-             "ring_attention")
+    names = ("paged_decode", "paged_general", "flash_attention",
+             "flash_general", "ssd_scan", "grouped_matmul", "ring_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(_build.build, name) for name in names]:
             future.result()
     for name in names:
         info = _build.build_info.get(name)
+        for kernel, regs, stores, loads in ptxas_kernels(
+                info[1] if info else ""):
+            print(f"  {name}: {kernel}: {regs} registers, {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads")
         for line in (info[1] if info else "").splitlines():
-            if any(word in line for word in ("registers", "spill", "error",
-                                              "wgmma")):
+            if "error" in line or "C7510" in line or "C7520" in line:
                 print(f"  {name}: {line.strip()}")
         built = f"built in {info[0]:.1f}s" if info else "cached"
         print(f"build: {name} {built}", flush=True)
     return time.perf_counter() - t0
 
 
+def ptxas_kernels(text):
+    """[(kernel name with its integer template arguments, registers,
+    spill store bytes, spill load bytes)] from `ptxas -v` output."""
+    import re
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            # the length-prefixed name ending in _kernel, then its template
+            # arguments (I ... E, each an L<type><value>E)
+            mangled, name = entry.group(1), entry.group(1)
+            for at in range(len(mangled)):
+                lengths = re.match(r"\d+", mangled[at:])
+                if lengths is None or (at and mangled[at - 1].isdigit()):
+                    continue
+                digits = lengths.group()
+                # a run of digits can end an identifier ("_N_1") before the
+                # length: try each split of the run
+                for cut in range(len(digits)):
+                    start = at + len(digits)
+                    end = start + int(digits[cut:])
+                    if mangled[start:end].endswith("_kernel"):
+                        args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
+                        name = mangled[start:end] + (
+                            "<" + ", ".join(re.findall(r"L[a-z](\d+)E",
+                                                       args.group(1))) + ">"
+                            if args else "")
+                        break
+                if name != mangled:
+                    break
+        spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line)
+        if spilled:
+            spill = (int(spilled.group(1)), int(spilled.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name is not None:
+            rows.append((name, int(used.group(1))) + spill)
+            name, spill = None, (0, 0)
+    return rows
+
+
 # the wgmma kernels whose SASS `check_sass` reads, by library and by the
 # mangled name's template argument (`flash_bwd_hopper_kernel<MODE>`,
 # `grouped_wgmma_kernel<L>`: 0 gmm, 1 gmm_t, 2 tgmm)
 SASS_KERNELS = {
-    "flash_attention": {"flash_fwd": "flash_fwd_kernel",
-                        "flash_bwd_dq": "flash_bwd_hopper_kernelILi0E",
-                        "flash_bwd_dkv": "flash_bwd_hopper_kernelILi1E",
-                        "flash_bwd_fused": "flash_bwd_hopper_kernelILi2E"},
+    "flash_attention": {
+        **{f"flash_fwd{suffix}": f"flash_fwd_kernelILi{dim}E"
+           for dim, suffix in ((64, ""), (128, "_128"))},
+        **{f"flash_bwd_{kind}{suffix}":
+           f"flash_bwd_hopper_kernelILi{dim}ELi{mode}E"
+           for dim, suffix in ((64, ""), (128, "_128"))
+           for mode, kind in enumerate(("dq", "dkv", "fused"))}},
+    "ring_attention": {"ring_fwd": "ring_fwd_kernelILi64E",
+                       "ring_fwd_128": "ring_fwd_kernelILi128E"},
     "grouped_matmul": {"gmm": "grouped_wgmma_kernelILi0E",
                        "gmm_t": "grouped_wgmma_kernelILi1E",
                        "tgmm": "grouped_wgmma_kernelILi2E"}}
@@ -2506,7 +3102,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     flash_errors = check_flash_kernels(torch, device, card)
     ssd_errors = check_ssd_kernel(torch, device, card)
-    check_gmm_kernels(torch, device, card)
+    gmm_errors = check_gmm_kernels(torch, device, card)
     ring_errors = check_ring_kernel(torch, device, card)
     phase_exact(torch, device, card)
     phase_ssd_exact(torch, device, card)
@@ -2526,6 +3122,9 @@ def main() -> None:
                       watch=("flash_fwd_kernel", "flash_bwd"))
         del solver
     flash_times, main_errors = time_flash(torch, device, card)
+    # f32 at head_dim 64 takes the general route: its times at `step`'s
+    # shapes
+    time_flash(torch, device, card, B=2, T=256, dtype=torch.float32)
     with tempfile.TemporaryDirectory() as folder:
         gmm_launches, solver = phase_moe_train(torch, card, folder)
         profile_train(torch, solver, card, steps=3,
@@ -2541,47 +3140,113 @@ def main() -> None:
         del solver
     ring_times, ring_main_error, pair_times, pair_errors = time_ring(
         torch, device, card)
+
+    # the other widths' full-width paths: d128, ssd n128, w260
+    for bs, max_seq_len, chunk in ((16, 512, None), (128, 512, 16),
+                                   (12, 504, None)):
+        phase_exact(torch, device, card, heads=D128_HEADS, block_size=bs,
+                    max_seq_len=max_seq_len, chunk=chunk,
+                    label=f"exact d128 block {bs}")
+    paged_general = {"paged_decode_general": phase_serve(
+        torch, device, card, kv_dtype="model", requests_n=16,
+        prompt_len=128, max_new=128, label="serve d128 bf16",
+        heads=D128_HEADS),
+        "paged_decode_int8_general": phase_serve(
+            torch, device, card, kv_dtype="int8", requests_n=8,
+            prompt_len=64, max_new=32, label="int8 d128 bf16",
+            heads=D128_HEADS)}
+    ssd_fma_launches, ssd_fma_times, ssd_fma_error = phase_ssd_n128(
+        torch, device, card)
+    step_d128_counts = phase_step(torch, device, card, heads=D128_HEADS,
+                                  label="step d128")
+    ring_general_counts = phase_ring_step(torch, device, card,
+                                          heads=D128_HEADS,
+                                          label="ring step d128")
+    with tempfile.TemporaryDirectory() as folder:
+        d128_counts = phase_train_d128(torch, card, folder)
+    with tempfile.TemporaryDirectory() as folder:
+        ring_d128_counts, solver = phase_ring_train(
+            torch, card, folder, heads=D128_HEADS, steps=4, valid=1,
+            label="ring train d128")
+        del solver
+    # the Hopper kernels at 128 at the train d128 and ring train d128
+    # shapes; the general route at the step d128 shapes (f32), and in bf16
+    # at D 80 beside SDPA there
+    d128_times, d128_errors = time_flash(torch, device, card, H=D128_HEADS,
+                                         D=128)
+    ring_128_times, ring_128_error, pair_128_times, pair_128_errors = \
+        time_ring(torch, device, card, H=D128_HEADS, D=128)
+    general_times, general_main_errors = time_flash(
+        torch, device, card, H=D128_HEADS, D=128, B=2, T=256,
+        dtype=torch.float32)
+    time_flash(torch, device, card, H=D128_HEADS, D=80)
+    ring_general_times, ring_general_main_error = time_ring_general(
+        torch, device, card)
+    w260_counts = phase_step_w260(torch, device, card)
+    padded_times, padded_errors = time_gmm_padded(torch, device, card)
+
     # the split pair runs every ring backward: its main path is `ring
-    # train`, so its rows take the launches, times and errors of the
-    # ring's pairs (the split run of `step` and `ring step` check it too)
+    # train` (`ring train d128` at 128), so its rows take the launches,
+    # times and errors of the ring's pairs (the split run of `step` and
+    # `ring step` check it too)
     split = ("flash_bwd_dq", "flash_bwd_dkv")
     flash_launches = {**train_counts,
                       **{name: ring_counts[name] for name in split}}
     flash_times.update({name: pair_times[name] for name in split})
     main_errors.update({name: pair_errors[name] for name in split})
-    print(f"kernels: paged_decode={paged['paged_decode'][0]}, "
-          f"paged_decode_int8={paged['paged_decode_int8'][0]}, " + ", ".join(
-              f"{name}={flash_launches[name]}" for name in FLASH_REPLACES)
-          + f", ssd_scan={ssd_launches}, " + ", ".join(
-              f"{name}={gmm_launches[name]}" for name in GMM_KERNELS)
-          + f", ring_attention={ring_counts['ring_fwd']}", flush=True)
+    # at 128: the forward and fused backward from `train d128`, the split
+    # pair from `ring train d128`; the general route: the forward and fused
+    # backward from `step d128`'s fused run, the split pair from `ring step
+    # d128` (f32 takes it at every head dim)
+    for name in ("flash_fwd_128", "flash_bwd_fused_128"):
+        flash_launches[name] = d128_counts[name]
+        flash_times[name], main_errors[name] = d128_times[name], \
+            d128_errors[name]
+    for name in split:
+        flash_launches[f"{name}_128"] = ring_d128_counts[f"{name}_128"]
+        flash_times[f"{name}_128"] = pair_128_times[name]
+        main_errors[f"{name}_128"] = pair_128_errors[name]
+    for name in ("flash_fwd_general", "flash_bwd_fused_general"):
+        flash_launches[name] = step_d128_counts[name]
+    for name in split:
+        flash_launches[f"{name}_general"] = ring_general_counts[
+            f"{name}_general"]
+    flash_times.update(general_times)
+    main_errors.update(general_main_errors)
+    paged.update(paged_general)
+    keys = ("ms", "ms_runs", "spread", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "host_us")
     # the paged rows: T=1 (decode) at the top level, T=chunk (a prefill
     # chunk) under "chunk"; launches split the same way
     kernels = []
-    for name, replaces, label in (
-            ("paged_decode", PAGED_REPLACES["dense"], "bfloat16"),
-            ("paged_decode_int8", PAGED_REPLACES["quant"], "int8/bfloat16")):
-        launched, split, t1, tc = paged[name]
-        keys = ("ms", "ms_runs", "spread", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "host_us")
+    for name in ("paged_decode", "paged_decode_int8", "paged_decode_general",
+                 "paged_decode_int8_general"):
+        launched, by_t, t1, tc = paged[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": PAGED_SOURCE, "replaces": replaces,
-                        "launches": launched, "launches_by_T": split,
-                        "max_abs_err": errors[label],
+                        "source": PAGED_GENERAL_SOURCE
+                        if name.endswith("_general") else PAGED_SOURCE,
+                        "replaces": PAGED_REPLACES[
+                            "quant" if "int8" in name else "dense"],
+                        "launches": launched, "launches_by_T": by_t,
+                        "max_abs_err": errors[name],
                         **{key: t1[key] for key in keys},
                         "chunk": {key: tc[key] for key in keys}})
-    # bf16, the main path's dtype: the worst of the small cases and of the
-    # main path's shapes
-    for name, replaces in FLASH_REPLACES.items():
-        kernels.append({"name": name, "route": "cuda",
-                        "source": FLASH_SOURCE, "replaces": replaces,
-                        "launches": flash_launches[name],
-                        "max_abs_err": max(flash_errors["bfloat16"][name],
-                                           main_errors[name]),
-                        **flash_times[name]})
+    # the worst of the small cases (bf16 and f32) and of the main path's
+    # shapes
+    for route in (f"{name}{suffix}" for suffix in ("", "_128", "_general")
+                  for name in FLASH_REPLACES):
+        kernel = route.replace("_general", "").replace("_128", "")
+        kernels.append({"name": route, "route": "cuda",
+                        "source": FLASH_GENERAL_SOURCE
+                        if route.endswith("_general") else FLASH_SOURCE,
+                        "replaces": FLASH_REPLACES[kernel],
+                        "launches": flash_launches[route],
+                        "max_abs_err": max(
+                            [main_errors[route]]
+                            + [flash_errors[dt].get(route, 0.0)
+                               for dt in flash_errors]),
+                        **flash_times[route]})
     # the [1, 64] prefill slice at the top level, [8, 1024] under "long"
-    keys = ("ms", "ms_runs", "spread", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "host_us")
     slice_, long_ = (ssd_timing[shape] for shape in SSD_SHAPES)
     kernels.append({"name": "ssd_scan", "route": "cuda",
                     "source": SSD_SOURCE, "replaces": SSD_REPLACES,
@@ -2592,22 +3257,48 @@ def main() -> None:
                     **{key: slice_[key] for key in keys},
                     "long": {"shape": list(SSD_SHAPES[1]),
                              **{key: long_[key] for key in keys}}})
+    kernels.append({"name": "ssd_scan_fma", "route": "cuda",
+                    "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+                    "launches": ssd_fma_launches,
+                    "max_abs_err": max(ssd_errors["float32"], ssd_fma_error),
+                    "shape": list(SSD_N128), **ssd_fma_times})
     # the main path's launches at its shapes and dtypes (the small cases'
-    # errors, in every dtype form, are on the `gmm kernels` line)
+    # errors, in every dtype form, are on the `gmm kernels` line); the
+    # padded route's at the `step w260` layer
     for name, replaces in GMM_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
                         "replaces": replaces,
                         "launches": gmm_launches[name],
                         "max_abs_err": gmm_main_errors[name],
                         **gmm_times[name]})
-    # ms, plain_ms, bound_ms and library_ms: the four ranks' launches of
-    # one layer at the training shapes together (per rank on its line)
-    kernels.append({"name": "ring_attention", "route": "cuda",
-                    "source": RING_SOURCE, "replaces": RING_REPLACES,
-                    "launches": ring_counts["ring_fwd"],
-                    "max_abs_err": max(ring_errors["bfloat16"],
-                                       ring_main_error),
-                    **ring_times})
+    for name in ("gmm_padded", "gmm_t_padded", "tgmm_padded"):
+        kernels.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
+                        "replaces": GMM_REPLACES[name[:-len("_padded")]],
+                        "launches": w260_counts[name],
+                        "max_abs_err": max(gmm_errors[name[:-len("_padded")]],
+                                           padded_errors[name]),
+                        **padded_times[name]})
+    # ring_attention: ms, plain_ms, bound_ms and library_ms of the four
+    # ranks' launches of one layer at the training shapes together (per
+    # rank on its line), ring_attention_128 at `ring train d128`'s;
+    # ring_attention_general: at `ring step d128`'s
+    for name, route, source, launches, main_error, times in (
+            ("ring_attention", "ring_fwd", RING_SOURCE,
+             ring_counts["ring_fwd"], ring_main_error, ring_times),
+            ("ring_attention_128", "ring_fwd_128", RING_SOURCE,
+             ring_d128_counts["ring_fwd_128"], ring_128_error,
+             ring_128_times),
+            ("ring_attention_general", "ring_fwd_general",
+             FLASH_GENERAL_SOURCE, ring_general_counts["ring_fwd_general"],
+             ring_general_main_error, ring_general_times)):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": RING_REPLACES, "launches": launches,
+                        "max_abs_err": max([main_error] + [
+                            ring_errors[dt].get(route, 0.0)
+                            for dt in ring_errors]),
+                        **times})
+    print("kernels by route: " + ", ".join(
+        f"{k['name']}={k['launches']}" for k in kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

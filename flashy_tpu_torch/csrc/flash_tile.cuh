@@ -1,31 +1,28 @@
-// Tile code shared by the flash-attention kernels (flash_attention.cu) and
-// the ring-attention kernel (ring_attention.cu), in three parts.
+// Tile code shared by the bf16 flash-attention kernels (flash_attention.cu)
+// and the bf16 ring-attention kernel (ring_attention.cu), on Hopper
+// (namespace `hopper`). The f32 kernels, and the bf16 ones at other head
+// dims, are flash_general.cu's.
 //
-// 1. 64x64 f32 tiles in shared memory with block products as ordered
-//    FMAs in the m16n8k16 fragment layout: the f32 backward kernels' code
-//    and the f32 forward's 64-key step (`forward_begin`, `forward_tile`,
-//    `forward_end`).
-// 2. The bf16 forward on Hopper (`hopper_forward`, namespace `hopper`),
-//    which both bf16 forwards run. A persistent grid, one block an SM,
-//    walks the work tiles (192 query rows of one (b, h); heads fastest,
-//    the q-tiles last first). A block is three consumer warpgroups of
-//    64 rows and one producer warpgroup. The producer's one thread loads a
-//    tile's Q once and K/V 64 keys at a time with TMA
-//    (`cp.async.bulk.tensor`, tensor maps over the [B, T, H, 64] layout,
-//    64x64 boxes, 128-byte swizzle, rows past T zero-filled) into a ring
-//    of kStages bf16 K/V tiles guarded by mbarrier full/empty pairs, and
-//    goes on to the next tile's Q and K/V while the consumers finish the
-//    current one. Each consumer warpgroup runs S = Q K^T as four
-//    wgmma.m64n64k16 with both operands in shared memory, the online
-//    softmax in the accumulator layout (a thread holds 2 rows x 16 keys;
-//    a row's max and sum take two quad shuffles; m and l stay in
-//    registers; no shared memory and no block barrier per step; the mask
-//    only on a diagonal or ragged tile), then P V as four wgmma with P
-//    packed from the S accumulators into bf16 A fragments in registers
-//    and V read as an MN-major operand (no transpose copy). The loop is
-//    software-pipelined: Q K^T of tile j and P V of tile j-1 are on the
-//    tensor cores while the warpgroup runs the softmax of tile j.
-// 3. The bf16 backward's pair step (`backward_pair`, `start_dkv`,
+// 1. The bf16 forward (`hopper_forward`), which both bf16 forwards run. A
+//    persistent grid, one block an SM, walks the work tiles (a tile's query
+//    rows of one (b, h); heads fastest, the q-tiles last first). A block is
+//    consumer warpgroups of 64 rows and one producer warpgroup. The
+//    producer's one thread loads a tile's Q once and K/V 64 keys at a time
+//    with TMA (`cp.async.bulk.tensor`, tensor maps over the [B, T, H, D]
+//    layout, 64x64 boxes, 128-byte swizzle, rows past T zero-filled) into a
+//    ring of kStages bf16 K/V tiles guarded by mbarrier full/empty pairs,
+//    and goes on to the next tile's Q and K/V while the consumers finish
+//    the current one. Each consumer warpgroup runs S = Q K^T as wgmma
+//    m64n64k16 with both operands in shared memory, the online softmax in
+//    the accumulator layout (a thread holds 2 rows x 16 keys; a row's max
+//    and sum take two quad shuffles; m and l stay in registers; no shared
+//    memory and no block barrier per step; the mask only on a diagonal or
+//    ragged tile), then P V as wgmma with P packed from the S accumulators
+//    into bf16 A fragments in registers and V read as an MN-major operand
+//    (no transpose copy). The loop is software-pipelined: Q K^T of tile j
+//    and P V of tile j-1 are on the tensor cores while the warpgroup runs
+//    the softmax of tile j.
+// 2. The bf16 backward's pair step (`backward_pair`, `start_dkv`,
 //    `start_dq`), which the three bf16 backward kernels of
 //    flash_attention.cu run (their skeleton, the persistent grid, the TMA
 //    ring and the fused kernel's ordered dQ chain, with why that chain
@@ -48,47 +45,55 @@
 //    query's guard is a per-column +inf, not a select per element, which
 //    alone took a third off every backward kernel) and, in the fused
 //    kernel, the ordered dQ chain's round trips to L2, with the other
-//    consumer warpgroup's products overlapping them. Budget: 384 threads
-//    under __launch_bounds__(384, 1), 168 registers at launch, 0 spilled;
-//    setmaxnreg gives the producer warpgroup 24 a thread and the two
-//    consumers 240; shared memory ~180 KB (two rounds of two resident
-//    64-row blocks, three stages of two streamed ones and of the fused
-//    chain's handed sums, two dS tiles), so one block an SM.
+//    consumer warpgroup's products overlapping them.
 //
-// Both forwards run the same step in each dtype, so they round where
-// each other rounds: a one-rank ring is bit-equal to the flash forward
-// over the same keys, in f32 and in bf16. The bf16 step computes the f32
-// step's function: the online softmax steps once per 64 keys, scores
+// Both steps are built at head_dim 64 and 128 (DIM). A row of DIM columns
+// is DIM / 64 swizzle atoms: one 64x64 TMA box each, stored one after the
+// other, so that the products contracting over the head dim step from box
+// to box (`start_qk`) and those whose output spans it run one m64n64
+// wgmma a box, each into its own accumulator (`start_pv`, `start_dkv`,
+// `start_dq`).
+//
+// The bf16 forward computes the function of the f32 forward
+// (flash_general.cu): the online softmax steps once per 64 keys, scores
 // are q.k * scale with __fmul_rn, the running max moves past NEG_INF/2
 // only (the guarded exp, expf of an __fsub_rn), P is rounded to bf16
 // once before P.V, and P.V is a block product from zero that the
 // accumulator takes as acc * alpha + pv with non-contracted f32
 // arithmetic (accumulating P V in place, inside the wgmma, moved more
 // outputs off the reference and was slower). Only the order of the sums
-// inside a row differs (wgmma's against the f32 step's FMAs), as it
-// differs from the plain version's.
+// inside a row differs (wgmma's against FMAs in ascending order), as it
+// differs from the plain version's. The flash and ring forwards run the
+// same step, so a one-rank ring is bit-equal to the flash forward over
+// the same keys.
 //
-// What bounds the bf16 step on this card: at the bound, operations (4 D
+// What bounds the forward on this card: at the bound, operations (4 D
 // flops per visible (query, key) pair at the tensor cores' bf16 rate;
 // the training shapes' forward is ~4x above the ~295 flops a byte where
 // the H100 leaves the memory bound). In fact the rate at which the
-// schedulers dispatch the softmax: ~15 f32 instructions an element (expf alone ~8: the accurate
-// expf that torch.exp matches, not an exp2 shortcut), ~560 a warp and a
-// 64-key tile, with
-// three consumer warps sharing each scheduler; the tensor cores idle
-// most of the time. Budget (ptxas -v, sm_90a): 512 threads a block under
+// schedulers dispatch the softmax: ~15 f32 instructions an element (expf
+// alone ~8: the accurate expf that torch.exp matches, not an exp2
+// shortcut), ~560 a warp and a 64-key tile, with three consumer warps
+// sharing each scheduler; the tensor cores idle most of the time. Budget
+// at 64 (ptxas -v, sm_90a): 512 threads a block under
 // __launch_bounds__(512, 1), 128 registers at launch, 0 bytes spilled;
 // setmaxnreg gives the producer warpgroup 32 registers a thread and the
-// three consumers 160, the whole register file; shared memory 24 KB of
-// Q and kStages x 16 KB of K/V (4 stages: 88 KB and the barriers), so
-// one block per SM. A 192-row tile leaves a third of its last q-tile
-// idle at T = 1024 and 512, and still beats 128 rows there. No branch
-// around a wgmma may look divergent to ptxas, or it serializes every
-// wgmma (C7520): the warpgroup index is broadcast with __shfl_sync and
-// the mbarrier spin loop is one PTX block. Still left: overlap of one
-// warpgroup's softmax with another's products that pays (a ping-pong on
-// mbarrier turns was slower), TMA stores of the output, and one grid
-// for all ranks of a ring.
+// three consumers 160, the whole register file; shared memory 24 KB of Q
+// and kStages x 16 KB of K/V (4 stages: 88 KB and the barriers), so one
+// block per SM. A 192-row tile leaves a third of its last q-tile idle at
+// T = 1024 and 512, and still beats 128 rows there. At 128: two consumer
+// warpgroups (128-row tiles; the accumulator and the pending P V take 64
+// registers each), ~162 KB of shared memory, 384 threads, 168 registers
+// at launch, setmaxnreg 24 for the producer and 240 for the consumers.
+// setmaxnreg only moves registers within what the launch gave the block
+// (`launch_regs`): asking for more, 32 + 2 x 240 a thread of each
+// warpgroup against 3 x 168, never returns. No branch around a wgmma may
+// look divergent to ptxas, or it serializes every wgmma (C7520): the
+// warpgroup index is broadcast with __shfl_sync and the mbarrier spin
+// loop is one PTX block. Still left: overlap of one warpgroup's softmax
+// with another's products that pays (a ping-pong on mbarrier turns was
+// slower), TMA stores of the output, and one grid for all ranks of a
+// ring.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums; no -lcuda (see
                    // `tensor_map_encoder`)
@@ -99,60 +104,12 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBlock = 64;             // q and k tile (FLASH_BLOCK)
-constexpr int kDim = 64;               // head_dim compiled (FLASH_HEAD_DIMS)
-constexpr int kThreads = 256;          // 8 warps, 16 x 32 outputs each
-constexpr int kWarps = kThreads / 32;
-// padded row of a [64][64] f32 tile: a multiple of 4 floats for 16-byte
-// stores, and 8 (mod 32) so that a warp's fragment reads along a row,
-// 8 bytes a lane, hit 16 distinct bank pairs per half-warp
-constexpr int kLd = kBlock + 8;
-constexpr int kTile = kBlock * kLd;    // floats per tile
-static_assert(kBlock == kDim && kThreads == 256,
-              "the warp tiling assumes 64x64 tiles over 8 warps");
+constexpr int kBlock = 64;  // q and k tile (FLASH_BLOCK), and a box's columns
 
-// first element of row (b, t, h) of a contiguous [B, T, H, kDim] tensor
+// first element of row (b, t, h) of a contiguous [B, T, H, DIM] tensor
+template <int DIM>
 __device__ __forceinline__ size_t row_at(int b, int t, int h, int T, int H) {
-  return ((static_cast<size_t>(b) * T + t) * H + h) * kDim;
-}
-
-// rows row0..row0+63 of head (b, h) of an f32 tensor into a padded tile;
-// rows past T are zero. 16-byte loads (the wrapper aligns the tensors),
-// all of a thread's issued before any is stored, so their latencies
-// overlap.
-__device__ void load_rows(float* dst, const float* __restrict__ src, int b,
-                          int h, int row0, int rows, int H) {
-  constexpr int kRowChunks = kDim / 4;                  // float4s a row
-  constexpr int kPer = kBlock * kRowChunks / kThreads;  // loads a thread
-  float4 raw[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int chunk = threadIdx.x + i * kThreads;
-    const int t = row0 + chunk / kRowChunks;
-    raw[i] = t < rows ? *reinterpret_cast<const float4*>(
-                            src + row_at(b, t, h, rows, H) +
-                            (chunk % kRowChunks) * 4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int chunk = threadIdx.x + i * kThreads;
-    *reinterpret_cast<float4*>(dst + (chunk / kRowChunks) * kLd +
-                               (chunk % kRowChunks) * 4) = raw[i];
-  }
-}
-
-// A 64x64 block product in the m16n8k16 fragment layout: warp w owns
-// rows 16*(w % 4) .. +15 and columns 32*(w / 4) .. +31, as four 16x8
-// tiles; element e of tile j of a thread sits at (tile_row(e),
-// tile_col(j, e)).
-__device__ __forceinline__ int tile_row(int e) {
-  const int lane = threadIdx.x & 31;
-  return 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int tile_col(int j, int e) {
-  const int lane = threadIdx.x & 31;
-  return 32 * (threadIdx.x >> 7) + 8 * j + 2 * (lane & 3) + (e & 1);
+  return ((static_cast<size_t>(b) * T + t) * H + h) * DIM;
 }
 
 // two f32 values rounded to bf16 (to nearest even) as one bf16x2
@@ -162,176 +119,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// f = A B from zero, contracting over 64: A(m, k) = a[m*AM + k*AK],
-// B(k, n) = b[k*BK + n*BN], both f32 tiles in shared memory, as fmaf in
-// ascending k, so the result does not depend on which kernel runs it.
-template <int AM, int AK, int BK, int BN>
-__device__ __forceinline__ void product(const float* a, const float* b,
-                                        float f[4][4]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), r1 = r0 + 8;
-  const int n0 = 32 * (threadIdx.x >> 7);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < kBlock; ++k) {
-    const float a0 = a[r0 * AM + k * AK], a1 = a[r1 * AM + k * AK];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-      const float b0 = b[k * BK + c * BN], b1 = b[k * BK + (c + 1) * BN];
-      f[j][0] = fmaf(a0, b0, f[j][0]);
-      f[j][1] = fmaf(a0, b1, f[j][1]);
-      f[j][2] = fmaf(a1, b0, f[j][2]);
-      f[j][3] = fmaf(a1, b1, f[j][3]);
-    }
-  }
-}
-
-// A B^T, A B and A^T B of padded [64][kLd] tiles
-__device__ __forceinline__ void product_abt(const float* a, const float* b,
-                                            float f[4][4]) {
-  product<kLd, 1, 1, kLd>(a, b, f);
-}
-__device__ __forceinline__ void product_ab(const float* a, const float* b,
-                                           float f[4][4]) {
-  product<kLd, 1, kLd, 1>(a, b, f);
-}
-__device__ __forceinline__ void product_atb(const float* a, const float* b,
-                                            float f[4][4]) {
-  product<1, kLd, kLd, 1>(a, b, f);
-}
-
-// The forward's shared memory: Q, K, V and S/P tiles, then the running
-// max, the running normalizer and the current tile's rescale factor, one
-// float per row each.
-struct ForwardSmem {
-  float *q, *k, *v, *p, *m, *l, *a;
-};
-constexpr size_t kFwdSmem = (4 * kTile + 3 * kBlock) * sizeof(float);
-
-__device__ __forceinline__ ForwardSmem forward_smem(float* smem) {
-  ForwardSmem s;
-  s.q = smem;
-  s.k = s.q + kTile;
-  s.v = s.k + kTile;
-  s.p = s.v + kTile;   // scores, then probabilities
-  s.m = s.p + kTile;
-  s.l = s.m + kBlock;
-  s.a = s.l + kBlock;
-  return s;
-}
-
-// Q rows q0.. of head (b, h) into shared memory (rows past Tq zero), the
-// running statistics and the accumulator to their empty state. The f32
-// forward's step; the bf16 forwards run `hopper_forward` below.
-__device__ __forceinline__ void forward_begin(const ForwardSmem& s,
-                                              const float* __restrict__ q,
-                                              int b, int h, int q0, int Tq,
-                                              int H, float acc[4][4]) {
-  load_rows(s.q, q, b, h, q0, Tq, H);
-  for (int r = threadIdx.x; r < kBlock; r += kThreads) {
-    s.m[r] = kNegInf;
-    s.l[r] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// One 64-key step of the online softmax: K and V rows k0.. of head (b, h)
-// of a [B, Tk, H, kDim] pair (rows past Tk zero), S = Q K^T times scale,
-// NEG_INF where !shown(r, c) (tile row r, tile column c), the running max
-// and the guarded exp, acc = acc * alpha + P V.
-template <typename Shown>
-__device__ __forceinline__ void forward_tile(const ForwardSmem& s,
-                                             const float* __restrict__ k,
-                                             const float* __restrict__ v,
-                                             int b, int h, int k0, int Tk,
-                                             int H, float scale, Shown shown,
-                                             float acc[4][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // the previous tile's P.V is done with k, v and p
-  load_rows(s.k, k, b, h, k0, Tk, H);
-  load_rows(s.v, v, b, h, k0, Tk, H);
-  __syncthreads();
-
-  float sc[4][4];
-  product_abt(s.q, s.k, sc);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = tile_row(e), c = tile_col(j, e);
-      s.p[r * kLd + c] = shown(r, c) ? __fmul_rn(sc[j][e], scale) : kNegInf;
-    }
-  __syncthreads();
-
-  // online softmax, one warp per row, two keys per lane
-  for (int r = warp; r < kBlock; r += kWarps) {
-    float* row = s.p + r * kLd;
-    const float x0 = row[lane], x1 = row[lane + 32];
-    float mx = fmaxf(x0, x1);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_prev = s.m[r];
-    const float m_new = fmaxf(m_prev, mx);
-    const bool live = m_new > kNegInf * 0.5f;
-    const float p0 = live ? expf(__fsub_rn(x0, m_new)) : 0.f;
-    const float p1 = live ? expf(__fsub_rn(x1, m_new)) : 0.f;
-    float sum = __fadd_rn(p0, p1);
-    for (int o = 16; o > 0; o >>= 1)
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    const float alpha = expf(__fsub_rn(m_prev, m_new));
-    __syncwarp();
-    if (lane == 0) {
-      s.l[r] = __fadd_rn(__fmul_rn(s.l[r], alpha), sum);
-      s.m[r] = m_new;
-      s.a[r] = alpha;
-    }
-    row[lane] = p0;
-    row[lane + 32] = p1;
-  }
-  __syncthreads();
-
-  float pv[4][4];
-  product_ab(s.p, s.v, pv);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], s.a[tile_row(e)]),
-                            pv[j][e]);
-}
-
-// out = acc / max(l, 1e-30) for rows q0.. of head (b, h) of an f32
-// [B, Tq, H, kDim] tensor, and lse = m + log(max(l, 1e-30)) into the f32
-// [B*H, Tq] rows; rows past Tq are not written.
-__device__ __forceinline__ void forward_end(const ForwardSmem& s,
-                                            float* __restrict__ out,
-                                            float* __restrict__ lse, int b,
-                                            int h, int q0, int Tq, int H,
-                                            float acc[4][4]) {
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = tile_row(e), t = q0 + r;
-      if (t < Tq)
-        out[row_at(b, t, h, Tq, H) + tile_col(j, e)] =
-            __fdiv_rn(acc[j][e], fmaxf(s.l[r], 1e-30f));
-    }
-  const int bh = b * H + h;
-  for (int r = threadIdx.x; r < kBlock; r += kThreads) {
-    const int t = q0 + r;
-    if (t < Tq)
-      lse[static_cast<size_t>(bh) * Tq + t] =
-          __fadd_rn(s.m[r], logf(fmaxf(s.l[r], 1e-30f)));
-  }
+// registers a thread of a kThreads-thread block gets at launch when one
+// block holds the SM's 65536 (allocated in units of 8); setmaxnreg moves
+// them between warpgroups and cannot add to them
+__host__ __device__ constexpr int launch_regs(int threads) {
+  return 65536 / threads / 8 * 8;
 }
 
 // ---------------------------------------------------------------------
@@ -342,34 +134,53 @@ namespace hopper {
 using bf16 = __nv_bfloat16;
 
 // Compile-time choices, measured on the H100 at the training shapes (root
-// PERF.md, Findings): three consumer warpgroups (192-row tiles) beat two by
-// ~5% and one (64 rows, two blocks an SM) by more; four K/V stages beat
-// three by ~2% and two by ~20%.
+// PERF.md, Findings): at head_dim 64 three consumer warpgroups (192-row
+// tiles) beat two by ~5% and one (64 rows, two blocks an SM) by more;
+// four K/V stages beat three by ~2% and two by ~20%. At head_dim 128 a
+// row is two 64-column swizzle atoms (two TMA boxes, two m64n64 halves of
+// P V), and the accumulator and the pending P V take 64 registers each,
+// so two consumer warpgroups (128-row tiles).
 constexpr int kRows = 64;                   // query rows of a warpgroup
-constexpr int kConsumers = 3;               // consumer warpgroups a block
-constexpr int kQTile = kRows * kConsumers;  // query rows a block
 constexpr int kStages = 4;                  // K/V tiles in flight
-constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
-constexpr int kProducerRegs = 32, kConsumerRegs = 160;
-constexpr uint32_t kTileBytes = kBlock * kDim * sizeof(bf16);  // 8 KB
-static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <=
-                  65536,
-              "the warpgroups' registers must fit one SM");
+constexpr uint32_t kBoxBytes = kBlock * 64 * sizeof(bf16);  // a box, 8 KB
 
-// Every tile 1024-byte aligned: the 128-byte swizzle repeats every 8 rows
-// of 128 bytes, and TMA and the wgmma descriptors agree on it only from
-// such a base.
-struct alignas(1024) Smem {
-  bf16 q[kConsumers][kBlock * kDim];
-  bf16 k[kStages][kBlock * kDim];
-  bf16 v[kStages][kBlock * kDim];
-  uint64_t q_full, q_empty;
-  uint64_t k_full[kStages], v_full[kStages], empty[kStages];
+template <int DIM>
+struct Fwd {
+  static_assert(DIM == 64 || DIM == 128,
+                "the Hopper forward is built at head_dim 64 and 128");
+  static constexpr int kHalves = DIM / 64;      // swizzle atoms of a row
+  static constexpr int kConsumers = DIM == 64 ? 3 : 2;
+  static constexpr int kQTile = kRows * kConsumers;  // query rows a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + producer
+  // registers a thread after setmaxnreg, moved from the producer to the
+  // consumers: at 64 the 128 a thread of the launch (512 threads), at 128
+  // the 168 (384 threads)
+  static constexpr int kProducerRegs = DIM == 64 ? 32 : 24;
+  static constexpr int kConsumerRegs = DIM == 64 ? 160 : 240;
+  static constexpr uint32_t kTileBytes = kBlock * DIM * sizeof(bf16);
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <=
+                    launch_regs(kThreads) * kThreads,
+                "setmaxnreg can only move the registers of the launch");
+  // Every tile 1024-byte aligned: the 128-byte swizzle repeats every 8
+  // rows of 128 bytes, and TMA and the wgmma descriptors agree on it only
+  // from such a base. A tile of DIM columns is kHalves 64-column boxes.
+  struct alignas(1024) Smem {
+    bf16 q[kConsumers][kBlock * DIM];
+    bf16 k[kStages][kBlock * DIM];
+    bf16 v[kStages][kBlock * DIM];
+    uint64_t q_full, q_empty;
+    uint64_t k_full[kStages], v_full[kStages], empty[kStages];
+  };
+  static constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment
+  // query tiles of a block each over T rows
+  __host__ __device__ static int q_tiles(int T) {
+    return (T + kQTile - 1) / kQTile;
+  }
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
 // Returned by the C entry points for a tensor map that
-// cuTensorMapEncodeTiled refused: kTensorMapError + its CUresult (cudaError_t values stay below it).
+// cuTensorMapEncodeTiled refused: kTensorMapError + its CUresult
+// (cudaError_t values stay below it).
 constexpr int kTensorMapError = 1000000;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -423,16 +234,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// one 64x64 box, rows t.. of head (b, h), into `dst`; completes on `bar`
+// one 64x64 box, rows t.. and columns d0.. of head (b, h), into `dst`;
+// completes on `bar`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int h, int t,
-                                         int b) {
+                                         uint64_t* bar, int h, int t, int b,
+                                         int d0 = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(t), "r"(b),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(t), "r"(b),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// a DIM-column tile (DIM / 64 boxes, one after another), rows t.. of head
+// (b, h)
+template <int DIM>
+__device__ __forceinline__ void tma_load_tile(bf16* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int h, int t,
+                                              int b) {
+#pragma unroll
+  for (int half = 0; half < DIM / 64; ++half)
+    tma_load(dst + half * kBlock * 64, map, bar, h, t, b, half * 64);
 }
 
 // wgmma descriptor of a 64x64 bf16 tile as TMA wrote it: 128-byte rows,
@@ -447,8 +271,10 @@ __device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
          (kGroup << 32) | (uint64_t{1} << 62);
 }
 // descriptor offsets (16-byte units) of the k-th 16-deep slice: 32 bytes
-// along a K-major row, 16 rows of 128 bytes down the MN-major V
+// along a K-major row, 16 rows of 128 bytes down the MN-major V; and of
+// the next 64-column box of a wider tile
 constexpr uint64_t kKMajorStep = 32 >> 4, kMNMajorStep = 2048 >> 4;
+constexpr uint64_t kBoxStep = kBoxBytes >> 4;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -509,7 +335,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "r"(accumulate));
 }
 
-// One key segment of the online softmax: a [B, Tk, H, kDim] K/V pair
+// One key segment of the online softmax: a [B, Tk, H, DIM] K/V pair
 // (tensor maps `k`, `v`) visited 64 keys at a time from key 0. Key
 // k_pos is hidden from query q_pos where k_pos >= Tk or, under causal,
 // q_pos + offset < k_pos. The flash forward has one segment; the ring
@@ -528,31 +354,43 @@ struct Segment {
   }
 };
 
-// S = Q K^T of one 64-key tile: four k16 slices, started, not waited
+// S = Q K^T of one 64-key tile: DIM / 16 k16 slices (four a 64-column
+// box), started, not waited
+template <int DIM>
 __device__ __forceinline__ void start_qk(float (&sc)[32], uint64_t q_desc,
                                          uint64_t k_desc) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss(sc, q_desc + kk * kKMajorStep, k_desc + kk * kKMajorStep, kk);
+  for (int kk = 0; kk < DIM / 16; ++kk) {
+    const uint64_t at = (kk >> 2) * kBoxStep + (kk & 3) * kKMajorStep;
+    wgmma_ss(sc, q_desc + at, k_desc + at, kk);
+  }
 }
 
-// P V from zero: P in bf16 A fragments, four k16 slices of V, started,
-// not waited
-__device__ __forceinline__ void start_pv(float (&pv)[32],
+// P V from zero: P in bf16 A fragments, four k16 slices of V, for each
+// 64-column box of V into its own accumulator; started, not waited
+template <int HALVES>
+__device__ __forceinline__ void start_pv(float (&pv)[HALVES][32],
                                          const uint32_t (&p)[16],
                                          uint64_t v_desc) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(pv, p + 4 * kk, v_desc + kk * kMNMajorStep, kk);
+  for (int half = 0; half < HALVES; ++half)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(pv[half], p + 4 * kk,
+               v_desc + half * kBoxStep + kk * kMNMajorStep, kk);
 }
 
 // acc = acc * alpha + pv, per row, non-contracted
-__device__ __forceinline__ void accumulate(float (&acc)[32],
-                                           const float (&pv)[32],
+template <int HALVES>
+__device__ __forceinline__ void accumulate(float (&acc)[HALVES][32],
+                                           const float (&pv)[HALVES][32],
                                            const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
-    acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), pv[i]);
+  for (int half = 0; half < HALVES; ++half)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[half][i] = __fadd_rn(__fmul_rn(acc[half][i], alpha[(i >> 1) & 1]),
+                               pv[half][i]);
 }
 
 // One 64-key step of the online softmax on S in the accumulator layout
@@ -608,11 +446,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
   }
 }
 
-// query tiles of a block each over T rows
-__host__ __device__ __forceinline__ int q_tiles(int T) {
-  return (T + kQTile - 1) / kQTile;
-}
-
 // One work tile of the persistent grid: query rows q0..q0+kQTile-1 of
 // head (b, h).
 struct Tile {
@@ -625,30 +458,36 @@ struct Tile {
 // its K/V from device memory once instead of once a q-tile, but puts the
 // heavy tiles of the last heads last; on the H100 it was no faster, see
 // root PERF.md.)
+template <int DIM>
 __device__ __forceinline__ Tile tile_at(int i, int heads, int H, int T) {
-  const int bh = i % heads, qi = q_tiles(T) - 1 - i / heads;
-  return Tile{bh / H, bh % H, qi * kQTile};
+  const int bh = i % heads, qi = Fwd<DIM>::q_tiles(T) - 1 - i / heads;
+  return Tile{bh / H, bh % H, qi * Fwd<DIM>::kQTile};
 }
 
-// The bf16 forward of a [B, Tq, H, kDim] tensor (tensor map `q_map`, heads
+// The bf16 forward of a [B, Tq, H, DIM] tensor (tensor map `q_map`, heads
 // = B*H) over the segments(0..n_seg-1) in order: for every query row one
-// online softmax across all of them, out [B, Tq, H, kDim] in bf16 and lse
+// online softmax across all of them, out [B, Tq, H, DIM] in bf16 and lse
 // [B*H, Tq] f32. A persistent grid: block j takes tiles j, j + gridDim.x,
 // ... (`tile_at`), and its producer loads the next tile's Q and K/V while
 // the consumers finish the current one. `raw` is the block's dynamic
-// shared memory, kSmemBytes of it; the block has kThreads threads.
-template <typename Segments>
+// shared memory, Fwd<DIM>::kSmemBytes of it; the block has
+// Fwd<DIM>::kThreads threads.
+template <int DIM, typename Segments>
 __device__ __forceinline__ void hopper_forward(
     unsigned char* raw, const CUtensorMap* q_map, int n_seg,
     Segments segment, bf16* __restrict__ out, float* __restrict__ lse,
     int heads, int H, int Tq, float scale) {
+  using F = Fwd<DIM>;
+  constexpr int kConsumers = F::kConsumers, kQTile = F::kQTile;
+  constexpr int kHalves = F::kHalves;
+  using Smem = typename F::Smem;
   Smem& s = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
   // the warpgroup, broadcast from lane 0 so that the compiler knows every
   // branch on it is warp-uniform (wgmma in a branch it cannot prove
   // uniform is serialized)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int n_tiles = heads * q_tiles(Tq);
+  const int n_tiles = heads * F::q_tiles(Tq);
   if (threadIdx.x == 0) {
     mbar_init(&s.q_full, 1);
     mbar_init(&s.q_empty, 128 * kConsumers);
@@ -665,31 +504,31 @@ __device__ __forceinline__ void hopper_forward(
     // producer: one thread starts every load; `it` counts K/V tiles and
     // `round` this block's work tiles, over the whole launch
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kProducerRegs));
+        F::kProducerRegs));
     if (threadIdx.x != 128 * kConsumers) return;
     int it = 0, round = 0;
     for (int i = blockIdx.x; i < n_tiles; i += gridDim.x, ++round) {
-      const Tile tile = tile_at(i, heads, H, Tq);
+      const Tile tile = tile_at<DIM>(i, heads, H, Tq);
       const int q_hi = min(tile.q0 + kQTile, Tq) - 1;  // the tile's last row
       // Q once every S of the previous tile is done
       mbar_wait(&s.q_empty, (round & 1) ^ 1);
-      const int halves = (q_hi - tile.q0) / kRows + 1;  // boxes holding a row
-      mbar_expect_tx(&s.q_full, halves * kTileBytes);
+      const int halves = (q_hi - tile.q0) / kRows + 1;  // tiles holding a row
+      mbar_expect_tx(&s.q_full, halves * F::kTileBytes);
       for (int j = 0; j < halves; ++j)
-        tma_load(s.q[j], q_map, &s.q_full, tile.h, tile.q0 + j * kRows,
-                 tile.b);
+        tma_load_tile<DIM>(s.q[j], q_map, &s.q_full, tile.h,
+                           tile.q0 + j * kRows, tile.b);
       for (int sg = 0; sg < n_seg; ++sg) {
         const Segment seg = segment(sg);
         const int last = seg.last_tile(q_hi);
         for (int ki = 0; ki <= last; ++ki, ++it) {
           const int st = it % kStages;
           mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
-          mbar_expect_tx(&s.k_full[st], kTileBytes);
-          tma_load(s.k[st], seg.k, &s.k_full[st], tile.h, ki * kBlock,
-                   tile.b);
-          mbar_expect_tx(&s.v_full[st], kTileBytes);
-          tma_load(s.v[st], seg.v, &s.v_full[st], tile.h, ki * kBlock,
-                   tile.b);
+          mbar_expect_tx(&s.k_full[st], F::kTileBytes);
+          tma_load_tile<DIM>(s.k[st], seg.k, &s.k_full[st], tile.h,
+                             ki * kBlock, tile.b);
+          mbar_expect_tx(&s.v_full[st], F::kTileBytes);
+          tma_load_tile<DIM>(s.v[st], seg.v, &s.v_full[st], tile.h,
+                             ki * kBlock, tile.b);
         }
       }
     }
@@ -698,7 +537,7 @@ __device__ __forceinline__ void hopper_forward(
 
   // consumer warpgroup wg: query rows q0 + 64 wg .. + 63 of each tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      kConsumerRegs));
+      F::kConsumerRegs));
   const int t = threadIdx.x & 127, lane = t & 31;
   // this thread's rows r0 and r0 + 8, and its columns c0, c0 + 1 of each
   // 8-column block of a 64x64 accumulator: element i sits at row
@@ -709,30 +548,38 @@ __device__ __forceinline__ void hopper_forward(
   // tile j starts Q K_j^T and the P V of the tile before it (`pend`), runs
   // the softmax of tile j while both are on the tensor cores, then folds
   // the earlier P V into acc and releases that tile's stage. P of tile j
-  // waits in `p` for the next iteration (or the drain).
-  float acc[32], sc[32], pv[32], m[2], l[2], pend_alpha[2];
+  // waits in `p` for the next iteration (or the drain). Each 64-column box
+  // of the output has its own accumulator (acc[half], pv[half]).
+  float acc[kHalves][32], sc[32], pv[kHalves][32], m[2], l[2],
+      pend_alpha[2];
   uint32_t p[16];
   int pend = -1;  // stage of the tile whose P V is still to do; -1 none
+  const auto hold_pv = [&] {
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) hold(pv[half]);
+  };
   const auto drain = [&] {
     if (pend < 0) return;
     wgmma_fence();
     start_pv(pv, p, tile_desc(s.v[pend]));
     wgmma_commit();
     wgmma_wait<0>();
-    hold(pv);
+    hold_pv();
     accumulate(acc, pv, pend_alpha);
     mbar_arrive(&s.empty[pend]);
     pend = -1;
   };
   int it = 0, round = 0;
   for (int i = blockIdx.x; i < n_tiles; i += gridDim.x, ++round) {
-    const Tile tile = tile_at(i, heads, H, Tq);
+    const Tile tile = tile_at<DIM>(i, heads, H, Tq);
     const int q_hi = min(tile.q0 + kQTile, Tq) - 1;
     const int q0w = tile.q0 + wg * kRows;
     const int row_hi = min(q0w + kRows, Tq) - 1;  // < q0w: no row here
     const int r0 = q0w + 16 * (t >> 5) + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    for (int half = 0; half < kHalves; ++half)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[half][j] = 0.f;
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.f;
     if (row_hi >= q0w) mbar_wait(&s.q_full, round & 1);
@@ -755,7 +602,7 @@ __device__ __forceinline__ void hopper_forward(
         }
         mbar_wait(&s.k_full[st], parity);
         wgmma_fence();
-        start_qk(sc, q_desc, tile_desc(s.k[st]));
+        start_qk<DIM>(sc, q_desc, tile_desc(s.k[st]));
         wgmma_commit();
         if (pend >= 0) {
           start_pv(pv, p, tile_desc(s.v[pend]));
@@ -774,7 +621,7 @@ __device__ __forceinline__ void hopper_forward(
           softmax_tile<false>(sc, m, l, alpha, seg, r0, k0, c0, scale);
         if (pend >= 0) {
           wgmma_wait<0>();
-          hold(pv);
+          hold_pv();
           accumulate(acc, pv, pend_alpha);
           mbar_arrive(&s.empty[pend]);
         }
@@ -801,12 +648,16 @@ __device__ __forceinline__ void hopper_forward(
       const int row = r0 + 8 * r;
       if (row >= Tq) continue;
       const float denom = fmaxf(l[r], 1e-30f);
-      bf16* dst = out + row_at(tile.b, row, tile.h, Tq, H) + c0;
+      bf16* dst = out + ((static_cast<size_t>(tile.b) * Tq + row) * H +
+                         tile.h) * DIM + c0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * r], denom),
-                                  __fdiv_rn(acc[4 * j + 2 * r + 1], denom));
+      for (int half = 0; half < kHalves; ++half)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * half + 8 * j) =
+              __floats2bfloat162_rn(
+                  __fdiv_rn(acc[half][4 * j + 2 * r], denom),
+                  __fdiv_rn(acc[half][4 * j + 2 * r + 1], denom));
       if ((lane & 3) == 0)
         lse[static_cast<size_t>(bh) * Tq + row] =
             __fadd_rn(m[r], logf(denom));
@@ -869,23 +720,23 @@ __device__ __forceinline__ void publish_count(unsigned* count,
       : "memory");
 }
 
-// One (64-key, 64-query) pair of the backward, with the keys as wgmma's
-// M: S^T = K Q^T and dP^T = V dO^T as four wgmma each (all four operands
-// K-major TMA tiles), then in the accumulator layout (element i at key
-// k0 + r0 + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + c0 + (i & 1)):
-// P^T = the guarded exp(S^T scale - lse), NEG_INF where EDGE hides the
-// key, and dS^T = P^T (dP^T - D) scale, both in f32 with non-contracted
-// arithmetic, as `_flash_dkv_kernel` computes P and dS. lse and D are per
-// query, i.e. per column, read from `stats` (lse at [0..63], D at
-// [64..127]; past Tq the producer wrote NEG_INF and 0, so those columns
-// get P = 0). Returns P^T and dS^T rounded to bf16 as A fragments of the
-// products that contract over the queries (dV += P^T dO, dK += dS^T Q:
-// the accumulator layout is the m64k16 A layout register for register).
-// With STAGE, dS^T also goes to `ds_tile` (swizzled like a TMA tile, keys
-// as rows) for dQ = dS K, which reads it as an MN-major A operand; the
-// warpgroup is synchronized before returning. `meanwhile()` runs while
-// S^T and dP^T are on the tensor cores.
-template <bool EDGE, bool STAGE, typename Meanwhile>
+// One (64-key, 64-query) pair of the backward at head_dim DIM, with the
+// keys as wgmma's M: S^T = K Q^T and dP^T = V dO^T as DIM / 16 wgmma each
+// (all four operands K-major TMA tiles), then in the accumulator layout
+// (element i at key k0 + r0 + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) +
+// c0 + (i & 1)): P^T = the guarded exp(S^T scale - lse), NEG_INF where
+// EDGE hides the key, and dS^T = P^T (dP^T - D) scale, both in f32 with
+// non-contracted arithmetic, as `_flash_dkv_kernel` computes P and dS. lse
+// and D are per query, i.e. per column, read from `stats` (lse at
+// [0..63], D at [64..127]; past Tq the producer wrote NEG_INF and 0, so
+// those columns get P = 0). Returns P^T and dS^T rounded to bf16 as A
+// fragments of the products that contract over the queries (dV += P^T dO,
+// dK += dS^T Q: the accumulator layout is the m64k16 A layout register for
+// register). With STAGE, dS^T also goes to `ds_tile` (swizzled like a TMA
+// tile, keys as rows) for dQ = dS K, which reads it as an MN-major A
+// operand; the warpgroup is synchronized before returning. `meanwhile()`
+// runs while S^T and dP^T are on the tensor cores.
+template <int DIM, bool EDGE, bool STAGE, typename Meanwhile>
 __device__ __forceinline__ void backward_pair(
     uint64_t k_desc, uint64_t v_desc, uint64_t q_desc, uint64_t do_desc,
     const float* stats, bf16* ds_tile, int wg, int k0, int q0,
@@ -895,25 +746,33 @@ __device__ __forceinline__ void backward_pair(
   const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
   float s[32], dp[32];
   wgmma_fence();
-  start_qk(s, k_desc, q_desc);
+  start_qk<DIM>(s, k_desc, q_desc);
   wgmma_commit();
-  start_qk(dp, v_desc, do_desc);
+  start_qk<DIM>(dp, v_desc, do_desc);
   wgmma_commit();
   meanwhile();
   // this thread's 16 queries: column 8 j + c0 + e is entry 2 j + e. A
   // query whose lse is <= NEG_INF/2 subtracts +inf instead, so that its
-  // P is exactly 0, as the guard's select would make it.
+  // P is exactly 0, as the guard's select would make it. D is read while
+  // the products run at 64, after them at 128, where the dK and dV
+  // accumulators hold twice the registers.
   float lse[16], delta[16];
+  const auto read_delta = [&] {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d =
+          *reinterpret_cast<const float2*>(stats + kBlock + 8 * j + c0);
+      delta[2 * j] = d.x;
+      delta[2 * j + 1] = d.y;
+    }
+  };
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
-    const float2 d =
-        *reinterpret_cast<const float2*>(stats + kBlock + 8 * j + c0);
     lse[2 * j] = l.x > kNegInf * 0.5f ? l.x : __int_as_float(0x7f800000);
     lse[2 * j + 1] = l.y > kNegInf * 0.5f ? l.y : __int_as_float(0x7f800000);
-    delta[2 * j] = d.x;
-    delta[2 * j + 1] = d.y;
   }
+  if constexpr (DIM == 64) read_delta();
   wgmma_wait<1>();
   hold(s);
 #pragma unroll
@@ -929,6 +788,7 @@ __device__ __forceinline__ void backward_pair(
   }
   wgmma_wait<0>();
   hold(dp);
+  if constexpr (DIM != 64) read_delta();
 #pragma unroll
   for (int i = 0; i < 32; ++i)
     dp[i] = __fmul_rn(
@@ -954,23 +814,33 @@ __device__ __forceinline__ void backward_pair(
   }
 }
 
-// dV += P^T dO and dK += dS^T Q, in place: four wgmma each, P^T and dS^T
-// from registers, dO and Q MN-major; started, not waited
-__device__ __forceinline__ void start_dkv(float (&dv)[32], float (&dk)[32],
+// dV += P^T dO and dK += dS^T Q, in place: four wgmma for each 64-column
+// box of dO and Q, P^T and dS^T from registers, dO and Q MN-major; started,
+// not waited
+template <int HALVES>
+__device__ __forceinline__ void start_dkv(float (&dv)[HALVES][32],
+                                          float (&dk)[HALVES][32],
                                           const uint32_t (&p)[16],
                                           const uint32_t (&ds)[16],
                                           uint64_t do_desc,
                                           uint64_t q_desc) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(dv, p + 4 * kk, do_desc + kk * kMNMajorStep, 1);
+  for (int half = 0; half < HALVES; ++half)
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(dk, ds + 4 * kk, q_desc + kk * kMNMajorStep, 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dv[half], p + 4 * kk,
+               do_desc + half * kBoxStep + kk * kMNMajorStep, 1);
+#pragma unroll
+  for (int half = 0; half < HALVES; ++half)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dk[half], ds + 4 * kk,
+               q_desc + half * kBoxStep + kk * kMNMajorStep, 1);
 }
 
-// The dQ block product dS K of one pair, from zero: dS^T staged by
-// `backward_pair` and K, both MN-major; started, not waited
+// The dQ block product dS K of one pair over one 64-column box of K
+// (`k_desc` that box), from zero: dS^T staged by `backward_pair` and K,
+// both MN-major; started, not waited
 __device__ __forceinline__ void start_dq(float (&dq)[32], uint64_t ds_desc,
                                          uint64_t k_desc) {
 #pragma unroll
@@ -1015,22 +885,23 @@ inline int persistent_blocks(int tiles) {
   return tiles < sms ? tiles : sms;
 }
 
-// The tensor map of a contiguous [B, T, H, kDim] bf16 tensor at `base`
-// (16-byte aligned) in 64x64 boxes, 64 rows of T at one (b, h), with the
-// 128-byte swizzle; rows past T read as zeros. Returns 0, or
-// kTensorMapError + the CUresult of cuTensorMapEncodeTiled.
+// The tensor map of a contiguous [B, T, H, DIM] bf16 tensor at `base`
+// (16-byte aligned) in 64x64 boxes, 64 rows of T at one (b, h) and 64
+// columns from a multiple of 64, with the 128-byte swizzle; rows past T
+// read as zeros. Returns 0, or kTensorMapError + the CUresult of
+// cuTensorMapEncodeTiled.
+template <int DIM>
 inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
                        int H) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t row = kDim * sizeof(bf16);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kDim),
+  const cuuint64_t row = DIM * sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DIM),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {row, row * H, row * H * T};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kDim), 1,
-                             static_cast<cuuint32_t>(kBlock), 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(kBlock), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),

@@ -87,10 +87,15 @@
 // oracle) stays on f32 FMAs, never TF32, and bf16 at the widths the tile
 // kernel does not take (N > 16, as Mamba-2's 128; Dh > 64 or odd) runs
 // there too, so every width has a kernel: one block per
-// (b, h, group of 16 state rows) walks the chunks in order, every sum an
-// ascending f32 chain, with the same strided loads, mask and output
-// layout. Its shared memory bounds N x chunk (N 128 takes chunks up to
-// 128).
+// (b, h, group of up to 16 state rows) walks the chunks in order, every
+// sum an ascending f32 chain, with the same strided loads, mask and
+// output layout. c and b pass through shared memory 64 state columns at
+// a time (the dot products' partial sums wait there between column
+// tiles), so its ~190 KB hold any chunk up to 256 at N up to 256 and
+// beyond (Mamba-2's N 128 at chunk 256, the chunk `default_chunk` picks
+// for a 1024-token prompt, needed 358 KB before the columns were tiled).
+// The wrapper picks the kernel from the widths (`ops/ssd_scan.py`
+// `kernel_route`), one launch counter each.
 //
 // Tried and dropped (PERF.md, the SSD scan's design rounds): 4-byte and
 // 16-byte `cp.async` staging (the issuing warps stall on the copies), unpacking
@@ -139,6 +144,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kF32Threads = 256;
 constexpr int kRowTile = 64;         // query rows of scores held at once
 constexpr int kGroup = 16;           // state rows (of Dh) per block
+constexpr int kNTile = 64;           // state columns (of N) staged at once
 constexpr size_t kMaxSmem = 232448;  // bytes a block may use on sm_90
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -150,28 +156,48 @@ __device__ __forceinline__ void store_y(__nv_bfloat16* y, float x) {
   *y = __float2bfloat16_rn(x);  // round to nearest even, as astype does
 }
 
-// DT: the dtype of c, b, v and y. Grid: (Dh / G, H, B). Each block walks
-// the chunks of its (b, h) in order for its G state rows, recomputing
-// the scores (the f32 path is the oracle and the exact-serving path, not
-// the hot one).
+// f32 floats of shared memory `ssd_fma_kernel` takes at chunk C, N
+__host__ __device__ __forceinline__ size_t fma_smem_floats(int C, int N) {
+  const int nt = N < kNTile ? N : kNTile;
+  const int R = C < kRowTile ? C : kRowTile;
+  return static_cast<size_t>(C + R) * (nt + 1) +
+         static_cast<size_t>(C) * kGroup +
+         static_cast<size_t>(kGroup) * (N + 1) +
+         static_cast<size_t>(R) * kGroup + 3 * static_cast<size_t>(C) +
+         static_cast<size_t>(R) * (C + 1);
+}
+
+// DT: the dtype of c, b, v and y. Grid: (ceil(Dh / kGroup), H, B). Each
+// block walks the chunks of its (b, h) in order for its (up to) kGroup
+// state rows, recomputing the scores (the f32 path is the oracle and the
+// exact-serving path, not the hot one). c and b pass through shared
+// memory kNTile state columns at a time, so any N fits at any chunk up
+// to kMaxChunk: the dot products c.b and c.S are FMA chains in ascending
+// n whose partial sums wait in shared memory (f32, exact) between
+// column tiles, so the tiling changes no operation's order.
 template <typename DT>
 __global__ void __launch_bounds__(kF32Threads)
-ssd_fma_kernel(const SsdArgs a, int G) {
-  const int d0 = blockIdx.x * G;
+ssd_fma_kernel(const SsdArgs a) {
+  const int d0 = blockIdx.x * kGroup;
+  const int G = min(kGroup, a.Dh - d0);  // this block's state rows
   const int h = blockIdx.y, bb = blockIdx.z;
   const int H = a.H, T = a.T, N = a.N, Dh = a.Dh, C = a.C;
   const size_t bh = static_cast<size_t>(bb) * H + h;
   const int tid = threadIdx.x;
-  const int ldn = N + 1;   // padded rows: no bank conflicts across tokens
+  const int NT = min(N, kNTile);
+  const int ldn = NT + 1;  // padded rows: no bank conflicts across tokens
+  const int lds = N + 1;
   const int ldp = C + 1;
   const int R = min(kRowTile, C);
 
   extern __shared__ float smem[];
-  float* c_s = smem;                // [C][ldn]
-  float* b_s = c_s + C * ldn;       // [C][ldn]; later b * exp(suffix)
-  float* v_s = b_s + C * ldn;       // [C][G] this block's state rows
-  float* st_s = v_s + C * G;        // [G][ldn] the carried state rows
-  float* la_s = st_s + G * ldn;     // [C]
+  float* b_s = smem;                // [C][ldn] a column tile of b; later
+                                    // b * exp(suffix)
+  float* c_s = b_s + C * ldn;       // [R][ldn] the row tile's c, same cols
+  float* v_s = c_s + R * ldn;       // [C][kGroup] this block's state rows
+  float* st_s = v_s + C * kGroup;   // [kGroup][lds] the carried state rows
+  float* in_s = st_s + kGroup * lds;  // [R][kGroup] partial c.S
+  float* la_s = in_s + R * kGroup;  // [C]
   float* ein_s = la_s + C;          // [C] exp(incl)
   float* esu_s = ein_s + C;         // [C] exp(suffix)
   float* p_s = esu_s + C;           // [R][ldp] scores x decay
@@ -188,25 +214,38 @@ ssd_fma_kernel(const SsdArgs a, int G) {
       a.mask ? a.mask + bb * a.mask_stride[0] : nullptr;
   DT* yg = static_cast<DT*>(a.y) + d0;
 
+  // columns n0..n0+nw-1 of b for tokens base..base+rows-1 (masked tokens
+  // zero), and of c for tokens base+r0..
+  const auto load_b = [&](int base, int rows, int n0, int nw) {
+    for (int i = tid; i < rows * nw; i += kF32Threads) {
+      const int t = i / nw, n = i - t * nw;
+      const long long tok = base + t;
+      const bool keep = !mg || mg[tok * a.mask_stride[1]];
+      b_s[t * ldn + n] =
+          keep ? to_float(bg[tok * a.b_stride[1] + n0 + n]) : 0.f;
+    }
+  };
+  const auto load_c = [&](int base, int rows, int n0, int nw) {
+    for (int i = tid; i < rows * nw; i += kF32Threads) {
+      const int t = i / nw, n = i - t * nw;
+      c_s[t * ldn + n] =
+          to_float(cg[(base + t) * static_cast<long long>(a.c_stride[1]) +
+                      n0 + n]);
+    }
+  };
+
   for (int i = tid; i < G * N; i += kF32Threads) {
     const int d = i / N, n = i - d * N;
-    st_s[d * ldn + n] =
+    st_s[d * lds + n] =
         a.state_in ? a.state_in[(bh * Dh + d0 + d) * N + n] : 0.f;
   }
 
   for (int base = 0; base < T; base += C) {
     const int L = min(C, T - base);
     __syncthreads();  // the previous chunk is done with the tiles
-    for (int i = tid; i < L * N; i += kF32Threads) {
-      const int t = i / N, n = i - t * N;
-      const long long tok = base + t;
-      const bool keep = !mg || mg[tok * a.mask_stride[1]];
-      c_s[t * ldn + n] = to_float(cg[tok * a.c_stride[1] + n]);
-      b_s[t * ldn + n] = keep ? to_float(bg[tok * a.b_stride[1] + n]) : 0.f;
-    }
     for (int i = tid; i < L * G; i += kF32Threads) {
       const int t = i / G, d = i - t * G;
-      v_s[t * G + d] = to_float(vg[(base + t) * a.v_stride[1] + d]);
+      v_s[t * kGroup + d] = to_float(vg[(base + t) * a.v_stride[1] + d]);
     }
     for (int t = tid; t < L; t += kF32Threads) {
       const long long tok = base + t;
@@ -227,13 +266,39 @@ ssd_fma_kernel(const SsdArgs a, int G) {
       for (int r = 0; r < L; ++r) total += la_s[r];
       etot = expf(total);
     }
-    __syncthreads();
 
     for (int r0 = 0; r0 < L; r0 += R) {
       const int rows = min(R, L - r0);
-      // scores x decay of query rows r0.. against key columns s <= t:
-      // one thread per (column, slice of the tile's rows)
-      const int cols = r0 + rows;
+      const int cols = r0 + rows;  // key columns s <= t of the tile's rows
+      for (int i = tid; i < rows * cols; i += kF32Threads)
+        p_s[(i / cols) * ldp + i % cols] = 0.f;
+      for (int i = tid; i < rows * kGroup; i += kF32Threads) in_s[i] = 0.f;
+      // c.b of the rows against their columns and c.S, a column tile at a
+      // time
+      for (int n0 = 0; n0 < N; n0 += NT) {
+        const int nw = min(NT, N - n0);
+        __syncthreads();  // the previous tile's readers are done
+        load_b(base, cols, n0, nw);
+        load_c(base + r0, rows, n0, nw);
+        __syncthreads();
+        for (int i = tid; i < rows * cols; i += kF32Threads) {
+          const int t = i / cols, s = i - t * cols;
+          if (s > r0 + t) continue;
+          float dot = p_s[t * ldp + s];
+          for (int n = 0; n < nw; ++n)
+            dot = fmaf(c_s[t * ldn + n], b_s[s * ldn + n], dot);
+          p_s[t * ldp + s] = dot;
+        }
+        for (int i = tid; i < rows * G; i += kF32Threads) {
+          const int t = i / G, d = i - t * G;
+          float inter = in_s[t * kGroup + d];
+          for (int n = 0; n < nw; ++n)
+            inter = fmaf(c_s[t * ldn + n], st_s[d * lds + n0 + n], inter);
+          in_s[t * kGroup + d] = inter;
+        }
+      }
+      __syncthreads();
+      // scores x decay: one thread per (column, slice of the tile's rows)
       const int slices = max(1, kF32Threads / cols);
       const int per = (rows + slices - 1) / slices;
       for (int i = tid; i < cols * slices; i += kF32Threads) {
@@ -245,60 +310,56 @@ ssd_fma_kernel(const SsdArgs a, int G) {
         for (int r = s + 1; r <= lo; ++r) seg += la_s[r];
         for (int t = lo; t < hi; ++t) {
           if (t > lo) seg += la_s[t];
-          float dot = 0.f;
-          for (int n = 0; n < N; ++n)
-            dot = fmaf(c_s[t * ldn + n], b_s[s * ldn + n], dot);
-          p_s[(t - r0) * ldp + s] = dot * expf(seg);
+          float* p = p_s + (t - r0) * ldp + s;
+          *p = *p * expf(seg);
         }
       }
       __syncthreads();
       for (int i = tid; i < rows * G; i += kF32Threads) {
         const int t = r0 + i / G, d = i % G;
         const float* p_row = p_s + (t - r0) * ldp;
-        float intra = 0.f, inter = 0.f;
+        float intra = 0.f;
         for (int s = 0; s <= t; ++s)
-          intra = fmaf(p_row[s], v_s[s * G + d], intra);
-        for (int n = 0; n < N; ++n)
-          inter = fmaf(c_s[t * ldn + n], st_s[d * ldn + n], inter);
+          intra = fmaf(p_row[s], v_s[s * kGroup + d], intra);
+        const float inter = in_s[(t - r0) * kGroup + d];
         store_y(&yg[((static_cast<size_t>(bb) * T + base + t) * H + h) * Dh +
                     d],
                 intra + ein_s[t] * inter);
       }
-      __syncthreads();
+      __syncthreads();  // before the next row tile clears p_s and in_s
     }
 
     // S = exp(total) S + v^T (b exp(suffix)), after every row of the
-    // chunk has read the incoming S
-    for (int i = tid; i < L * N; i += kF32Threads) {
-      const int s = i / N, n = i - s * N;
-      b_s[s * ldn + n] *= esu_s[s];
-    }
-    __syncthreads();
-    for (int i = tid; i < G * N; i += kF32Threads) {
-      const int d = i / N, n = i - d * N;
-      float acc = 0.f;
-      for (int s = 0; s < L; ++s)
-        acc = fmaf(v_s[s * G + d], b_s[s * ldn + n], acc);
-      st_s[d * ldn + n] = etot * st_s[d * ldn + n] + acc;
+    // chunk has read the incoming S, a column tile at a time
+    for (int n0 = 0; n0 < N; n0 += NT) {
+      const int nw = min(NT, N - n0);
+      __syncthreads();
+      load_b(base, L, n0, nw);
+      __syncthreads();
+      for (int i = tid; i < L * nw; i += kF32Threads) {
+        const int s = i / nw, n = i - s * nw;
+        b_s[s * ldn + n] *= esu_s[s];
+      }
+      __syncthreads();
+      for (int i = tid; i < G * nw; i += kF32Threads) {
+        const int d = i / nw, n = i - d * nw;
+        float acc = 0.f;
+        for (int s = 0; s < L; ++s)
+          acc = fmaf(v_s[s * kGroup + d], b_s[s * ldn + n], acc);
+        st_s[d * lds + n0 + n] = etot * st_s[d * lds + n0 + n] + acc;
+      }
     }
   }
   __syncthreads();
   for (int i = tid; i < G * N; i += kF32Threads) {
     const int d = i / N, n = i - d * N;
-    a.state_out[(bh * Dh + d0 + d) * N + n] = st_s[d * ldn + n];
+    a.state_out[(bh * Dh + d0 + d) * N + n] = st_s[d * lds + n];
   }
 }
 
 template <typename DT>
 cudaError_t launch_fma(const SsdArgs& a, cudaStream_t stream) {
-  const int C = a.C, N = a.N;
-  const int G = a.Dh % kGroup == 0 ? kGroup : a.Dh;
-  const int R = C < kRowTile ? C : kRowTile;
-  const size_t floats = 2 * static_cast<size_t>(C) * (N + 1) +
-                        static_cast<size_t>(C) * G +
-                        static_cast<size_t>(G) * (N + 1) + 3 * C +
-                        static_cast<size_t>(R) * (C + 1);
-  const size_t smem = floats * sizeof(float);
+  const size_t smem = fma_smem_floats(a.C, a.N) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -306,8 +367,8 @@ cudaError_t launch_fma(const SsdArgs& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(a.Dh / G, a.H, a.B);
-  ssd_fma_kernel<DT><<<grid, kF32Threads, smem, stream>>>(a, G);
+  dim3 grid((a.Dh + kGroup - 1) / kGroup, a.H, a.B);
+  ssd_fma_kernel<DT><<<grid, kF32Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -944,7 +1005,7 @@ bool bf16_tiles_take(const SsdArgs& a) {
 }
 
 cudaError_t launch_bf16(const SsdArgs& a, cudaStream_t stream) {
-  if (!bf16_tiles_take(a)) return launch_fma<__nv_bfloat16>(a, stream);
+  if (!bf16_tiles_take(a)) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(sizeof(TileSmem));
   cudaError_t err = cudaFuncSetAttribute(
       ssd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -955,9 +1016,10 @@ cudaError_t launch_bf16(const SsdArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// variant: 0 f32 c/b/v/y, 1 bf16 (the tensor-core kernel where its
-// widths allow, else the bf16 FMA kernel). Returns a cudaError_t (0 =
-// launched).
+// variant: 0 f32 c/b/v/y on the FMA kernel, 1 bf16 on the tensor-core
+// tile kernel (N <= 16, even Dh <= 64; other widths are refused), 2 bf16
+// on the FMA kernel. The wrapper picks the variant from the widths.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flashy_ssd_scan(int variant, const SsdArgs* args,
                                void* stream) {
   SsdArgs a = *args;
@@ -971,6 +1033,8 @@ extern "C" int flashy_ssd_scan(int variant, const SsdArgs* args,
       return static_cast<int>(launch_fma<float>(a, s));
     case 1:
       return static_cast<int>(launch_bf16(a, s));
+    case 2:
+      return static_cast<int>(launch_fma<__nv_bfloat16>(a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,10 +4,14 @@
   `_guarded_probs` convention (a query with no visible key attends to
   nothing: zero output, zero gradients).
 * `flash_attention`: the FlashAttention-2 decomposition through the
-  hand-written Hopper kernels of `csrc/flash_attention.cu` (forward,
-  split dQ, split dK/dV, fused one-pass backward), wrapped in a
-  `torch.autograd.Function` whose forward saves (q, k, v, out, lse) and
-  whose backward recomputes P blockwise from the logsumexp.
+  hand-written Hopper kernels (forward, split dQ, split dK/dV, fused
+  one-pass backward), wrapped in a `torch.autograd.Function` whose
+  forward saves (q, k, v, out, lse) and whose backward recomputes P
+  blockwise from the logsumexp. The dtype and head dim pick the route
+  (`flash_route`): bf16 at head_dim 64 and 128 runs
+  `csrc/flash_attention.cu` (the wgmma/TMA steps of `csrc/flash_tile.cuh`);
+  f32 at every head_dim up to 256, and bf16 at the others, runs the
+  general route `csrc/flash_general.cu`; above 256 raises.
 
 Beside the kernels live their plain versions, which step at the same
 tiles (`flash_forward_blockwise`, `flash_backward_dq_blockwise`,
@@ -16,9 +20,9 @@ wrapper takes them only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernels or raises. The backward's D =
 rowsum(dO * O) is plain PyTorch around the kernels, as the JAX package
 leaves it to XLA. The fused backward's dQ is the left fold, in k order,
-of per-k-block f32 block products: the bf16 kernel folds them itself,
-the f32 kernel writes them out as partials and `fold_dq_partials` folds
-them here. Either way the fused dQ is bit-equal to the split kernel's,
+of per-k-block f32 block products: the Hopper kernel folds them itself,
+the general route's kernel writes them out as partials and
+`fold_dq_partials` folds them here. Either way the fused dQ is bit-equal to the split kernel's,
 which `fused_backward=False` keeps as the oracle.
 """
 import ctypes
@@ -33,26 +37,36 @@ from . import _build
 NEG_INF = -1e30
 
 FLASH_BLOCK = 64             # q and k tile of the kernels (kBlock)
-FLASH_HEAD_DIMS = (64,)      # head_dim values the kernels are built for
+# head dims of the Hopper route, by kernel (a name of `_KERNEL_NAMES`, or
+# 'ring_fwd'), in bf16; f32 takes the general route at every head dim
+FLASH_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
+                   "flash_bwd_dkv": (64, 128), "flash_bwd_fused": (64, 128),
+                   "ring_fwd": (64, 128)}
+GENERAL_MAX_DIM = 256        # the general route takes head dims 1..this
+TODO_WIDE_HEADS = ("ROADMAP.md queue C, C1b (flash attention at head_dim "
+                   "above 256)")
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
+_KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_fused")
 
-# Launches of the flash kernels: a plain integer per kernel, bumped where
-# the kernel is launched and nowhere else.
-launch_counts: tp.Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                    "flash_bwd_dkv": 0,
-                                    "flash_bwd_fused": 0}
+# Launches of the flash kernels: a plain integer per kernel and route
+# ("<kernel>" the Hopper route at head_dim 64, "<kernel>_128" at 128,
+# "<kernel>_general" the general route), bumped where the kernel is
+# launched and nowhere else.
+launch_counts: tp.Dict[str, int] = {
+    f"{name}{suffix}": 0 for suffix in ("", "_128", "_general")
+    for name in _KERNEL_NAMES}
 
 _FUNCTIONS = {
     "flashy_flash_forward": (ctypes.c_int, (
-        ctypes.c_int,                                        # dtype
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, Tq
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Tk, D, causal
         ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
     "flashy_flash_backward": (ctypes.c_int, (
-        ctypes.c_int, ctypes.c_int,                          # kind, dtype
+        ctypes.c_int,                                        # kind
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dO, lse, D
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
@@ -63,9 +77,59 @@ _FUNCTIONS = {
 }
 
 
+_POINTERS = ctypes.POINTER(ctypes.c_void_p)
+_GENERAL_FUNCTIONS = {
+    "flashy_flash_general_forward": (ctypes.c_int, (
+        ctypes.c_int, ctypes.c_void_p,                       # dtype, q
+        _POINTERS, _POINTERS, ctypes.c_int, ctypes.c_int,    # k, v, n, causal0
+        ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, Tq
+        ctypes.c_int, ctypes.c_int,                          # Tk, D
+        ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
+    "flashy_flash_general_backward": (ctypes.c_int, (
+        ctypes.c_int, ctypes.c_int,                          # kind, dtype
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dO, lse, D
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
+        ctypes.c_void_p,                                     # dQ partials
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, Tq
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Tk, D, causal
+        ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
+    "flashy_flash_general_block": (ctypes.c_int, (ctypes.c_int,)),
+}
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def flash_route(head_dim: int, kernel: str = "flash_fwd",
+                dtype: torch.dtype = torch.bfloat16) -> str:
+    """The route of flash kernel `kernel` (a name of `_KERNEL_NAMES`, or
+    'ring_fwd') at this head dim and dtype on CUDA: 'hopper' (bf16 at
+    FLASH_HEAD_DIMS[kernel]: `csrc/flash_attention.cu`,
+    `csrc/ring_attention.cu`) or 'general' (1..GENERAL_MAX_DIM:
+    `csrc/flash_general.cu`). A wider head raises ValueError."""
+    if dtype == torch.bfloat16 and head_dim in FLASH_HEAD_DIMS[kernel]:
+        return "hopper"
+    if 1 <= head_dim <= GENERAL_MAX_DIM:
+        return "general"
+    raise ValueError(f"flash attention kernel: head_dim {head_dim} is not "
+                     f"built (the Hopper route takes bf16 at "
+                     f"{FLASH_HEAD_DIMS[kernel]}, the general route "
+                     f"1..{GENERAL_MAX_DIM}): {TODO_WIDE_HEADS}")
+
+
+def counter_name(kernel: str, head_dim: int,
+                 dtype: torch.dtype = torch.bfloat16) -> str:
+    """The launch counter of `kernel` (a name of `_KERNEL_NAMES`, or
+    'ring_fwd') on its route at this head dim and dtype: `kernel` on the
+    Hopper route at 64, `kernel_<head_dim>` there at the other widths,
+    `kernel_general` on the general route."""
+    if flash_route(head_dim, kernel, dtype) == "general":
+        return f"{kernel}_general"
+    return kernel if head_dim == 64 else f"{kernel}_{head_dim}"
 
 
 def score_scale(head_dim: int) -> float:
@@ -312,8 +376,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     check(q.dtype == k.dtype == v.dtype and q.dtype in _FLASH_DTYPES,
           f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: float32 or bfloat16, "
           f"all the same")
-    check(q.shape[3] in FLASH_HEAD_DIMS,
-          f"head_dim {q.shape[3]} not built (built: {FLASH_HEAD_DIMS})")
+    flash_route(q.shape[3])
     check(q.device.type == "cuda", f"runs on CUDA tensors, got {q.device}")
     check(k.device == q.device and v.device == q.device,
           "tensors span devices")
@@ -339,18 +402,22 @@ def _check_backward_inputs(q: torch.Tensor, grad_out: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _call(symbol: str, *args) -> None:
-    lib = _build.load("flash_attention", _FUNCTIONS)
-    err = getattr(lib, symbol)(*args)
+_LIBRARIES = {"flash_attention": _FUNCTIONS,
+              "flash_general": _GENERAL_FUNCTIONS}
+
+
+def _call(library: str, symbol: str, *args) -> None:
+    err = getattr(_build.load(library, _LIBRARIES[library]), symbol)(*args)
     if err != 0:
         raise _build.launch_error(
             f"flash attention kernel launch failed ({symbol})", err)
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, at a 16-byte aligned address: the f32 and backward
-    kernels read rows with 16-byte loads, and the bf16 forwards read
-    through TMA tensor maps, whose base must be 16-byte aligned. A view at an odd offset is copied."""
+    """Contiguous, at a 16-byte aligned address: the Hopper kernels read
+    through TMA tensor maps, whose base must be 16-byte aligned, and write
+    rows with 4- and 16-byte stores. A view at an odd offset is
+    copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -361,38 +428,78 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool):
             flash_scale(dim), torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def general_block(head_dim: int) -> int:
+    """Rows of the general route's backward blocks at this head dim (64
+    up to a padded width of 128, 32 above it): its fused kernel writes
+    one dQ partial per this many keys."""
+    lib = _build.load("flash_general", _GENERAL_FUNCTIONS)
+    return lib.flashy_flash_general_block(head_dim)
+
+
+def launch_general_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
+                           vs: tp.Sequence[torch.Tensor], causal0: bool
+                           ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The general route's forward over the key segments (ks[i], vs[i])
+    in order, segment 0 causal where `causal0`: (out, lse). The flash
+    forward passes one segment, the ring forward one per visible ring
+    step. Operands are contiguous already."""
+    n = len(ks)
+    k_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in ks))
+    v_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in vs))
+    batch, t_q, heads, dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((batch, heads, t_q), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        _call("flash_general", "flashy_flash_general_forward",
+              _FLASH_DTYPES[q.dtype],
+              q.data_ptr(), k_table, v_table, n, int(causal0),
+              out.data_ptr(), lse.data_ptr(), batch, heads, t_q,
+              ks[0].shape[1], dim, flash_scale(dim),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    return out, lse
+
+
 def _launch_forward(q, k, v, causal):
     _check_kernel_inputs(q, k, v)
     q, k, v = map(_kernel_operand, (q, k, v))
+    name = counter_name("flash_fwd", q.shape[3], q.dtype)
+    if name == "flash_fwd_general":
+        out, lse = launch_general_forward(q, [k], [v], causal)
+        launch_counts[name] += 1
+        return out, lse
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _call("flashy_flash_forward", _FLASH_DTYPES[q.dtype], q.data_ptr(),
+        _call("flash_attention", "flashy_flash_forward", q.data_ptr(),
               k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
               *_geometry(q, k, causal))
-    launch_counts["flash_fwd"] += 1
+    launch_counts[name] += 1
     return out, lse
 
 
 def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
     """One backward kernel: (dq, dk, dv, partials), each None where the
-    kernel does not write it. The fused kernel writes dq in bf16, through
-    an f32 accumulator [B*H, nq*64, 64] and zeroed counters [B*H*nq]
-    that it is handed here, and the f32 dQ partials [nk, B, Tq, H, D] in
-    f32 instead."""
+    kernel does not write it. The fused kernel of the Hopper route writes
+    dq, through an f32 accumulator [B*H, nq*64, D] and zeroed counters
+    [B*H*nq] that it is handed here; the general route's fused kernel
+    writes the f32 dQ partials [nk, B, Tq, H, D] instead, nk per
+    `general_block` keys."""
     _check_kernel_inputs(q, k, v)
     _check_backward_inputs(q, grad_out, lse, delta)
     q, k, v = map(_kernel_operand, (q, k, v))
     grad_out = _kernel_operand(grad_out.to(q.dtype))
     lse, delta = lse.contiguous(), delta.contiguous()
+    name = counter_name(_KERNEL_NAMES[kind + 1], q.shape[3], q.dtype)
+    general = name.endswith("_general")
     dq = dk = dv = partials = scratch = counts = None
     if kind != _BWD_DQ:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if kind == _BWD_FUSED and q.dtype == torch.float32:
-        nk = -(-k.shape[1] // FLASH_BLOCK)
-        partials = scratch = torch.empty((nk,) + tuple(q.shape),
-                                         dtype=torch.float32, device=q.device)
+    if kind == _BWD_FUSED and general:
+        nk = -(-k.shape[1] // general_block(q.shape[3]))
+        partials = torch.empty((nk,) + tuple(q.shape), dtype=torch.float32,
+                               device=q.device)
     elif kind != _BWD_DKV:
         dq = torch.empty_like(q)
         if kind == _BWD_FUSED:
@@ -406,13 +513,17 @@ def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv))
     with torch.cuda.device(q.device):
-        _call("flashy_flash_backward", kind, _FLASH_DTYPES[q.dtype],
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-              ptr(scratch), ptr(counts), *_geometry(q, k, causal))
-    name = {_BWD_DQ: "flash_bwd_dq", _BWD_DKV: "flash_bwd_dkv",
-            _BWD_FUSED: "flash_bwd_fused"}[kind]
+        if general:
+            _call("flash_general", "flashy_flash_general_backward", kind,
+                  _FLASH_DTYPES[q.dtype], *operands, ptr(partials),
+                  *_geometry(q, k, causal))
+        else:
+            _call("flash_attention", "flashy_flash_backward", kind,
+                  *operands, ptr(scratch), ptr(counts),
+                  *_geometry(q, k, causal))
     launch_counts[name] += 1
     return dq, dk, dv, partials
 
@@ -451,8 +562,8 @@ def flash_backward_split(q, k, v, grad_out, lse, delta, causal=False):
 
 def flash_backward_fused(q, k, v, grad_out, lse, delta, causal=False):
     """(dq, dk, dv) through the one-pass backward, as JAX's
-    `_flash_backward_fused` returns them: the bf16 kernel folds dQ
-    itself; the f32 kernel's dQ partials, and on the CPU the plain
+    `_flash_backward_fused` returns them: the Hopper kernel folds dQ
+    itself; the general route's dQ partials, and on the CPU the plain
     version's, are folded here in k order."""
     if _on_cpu(q):
         dk, dv, partials = flash_backward_fused_blockwise(
@@ -497,9 +608,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     defaults to the fused one-pass kernel (`fused_backward=None` ->
     True); `fused_backward=False` takes the split pair, the bit-identical
     oracle. Any T works: the kernels mask the ragged edge. On CUDA the
-    kernels take float32 or bfloat16 and the head dims in
-    `FLASH_HEAD_DIMS`, and raise on anything else; on the CPU the plain
-    versions run at the kernels' tile.
+    kernels take float32 or bfloat16 and any head dim up to 256 (the
+    route by `flash_route`), and raise on anything else; on the CPU the
+    plain versions run at the kernels' tile.
     """
     if fused_backward is None:
         fused_backward = True

@@ -22,16 +22,21 @@ f32, with f32 accumulation and no TF32. The result is cast to
 
 The plain versions `_gmm_reference` and `_tgmm_reference` (a loop over
 groups of `torch.matmul` on f32-widened slices) are what CPU tensors
-take. A CUDA tensor launches the kernel or raises; the kernels need K
-and N to be multiples of 8. Two bf16 operands, or one bf16 and one f32
-(the second projection's backward), run on the tensor cores: the f32
+take. A CUDA tensor launches the kernel or raises. The kernels take K
+and N that are multiples of 8 (TMA's 16-byte rows); for any other K or N
+the wrapper pads the operands with zero columns up to the next multiple
+(`pad_operands`) and slices the output back: zeros in give exact zeros
+out, so the function does not change, and a width that 8 divides
+launches as it is, with no copy. Two bf16 operands, or one bf16 and one
+f32 (the second projection's backward), run on the tensor cores: the f32
 operand is first split by a kernel of its own into three bf16 planes
-(`split_bf16`: hi + mid + lo == x exactly for normal values of 2^-110
-<= |x| < 3.39e38), and the product runs over the three planes, each
-an exact bf16 product summed in f32. `_gmm_split_reference` and
-`_tgmm_split_reference` are that route's plain versions (per group,
-the three products summed lo, mid, hi). Two f32 operands run scalar
-f32 FMAs. The CUDA path never reads the group sizes to the host: each
+(`split_bf16`: hi + mid + lo == x exactly for normal values of 2^-110 <=
+|x| < 3.39e38), and the product runs over the three planes, each an
+exact bf16 product summed in f32. `_gmm_split_reference` and
+`_tgmm_split_reference` are that route's plain versions (per group, the
+three products summed lo, mid, hi). Two f32 operands run scalar f32
+FMAs.
+The CUDA path never reads the group sizes to the host: each
 block of the kernels finds its tiles on the device.
 """
 import ctypes
@@ -41,10 +46,13 @@ import torch
 
 from . import _build
 
-# Launches of the kernels: a plain integer per kernel, bumped where the
-# kernel is launched and nowhere else.
+# Launches of the kernels: a plain integer per kernel and route, bumped
+# where the kernel is launched and nowhere else. "<name>_padded" counts the
+# launches whose K or N the wrapper padded to a multiple of 8.
 launch_counts: tp.Dict[str, int] = {"gmm": 0, "gmm_t": 0, "tgmm": 0,
-                                    "split_bf16": 0}
+                                    "gmm_padded": 0, "gmm_t_padded": 0,
+                                    "tgmm_padded": 0, "split_bf16": 0}
+ALIGN = 8   # K and N the kernels take: multiples of this (16-byte TMA rows)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PLANES = 2     # the C entry points' dtype code of an operand in planes
@@ -221,12 +229,41 @@ def _split_planes(t: torch.Tensor) -> torch.Tensor:
     return planes
 
 
+def _padded(k: int) -> int:
+    return -(-k // ALIGN) * ALIGN
+
+
+def pad_operands(name: str, lhs: torch.Tensor, rhs: torch.Tensor, k: int,
+                 n: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """lhs and rhs of kernel `name` with K and N padded by zero columns
+    up to multiples of ALIGN: lhs [M, K] -> [M, K']; rhs [E, K, N]
+    (gmm), [E, N, K] (gmm_t) or [M, N] (tgmm) likewise. The products of
+    the pad columns are exact zeros, which the caller slices away."""
+    kp, np_ = _padded(k) - k, _padded(n) - n
+    lhs = torch.nn.functional.pad(lhs, (0, kp))
+    if name == "gmm":
+        rhs = torch.nn.functional.pad(rhs, (0, np_, 0, kp))
+    elif name == "gmm_t":
+        rhs = torch.nn.functional.pad(rhs, (0, kp, 0, np_))
+    else:
+        rhs = torch.nn.functional.pad(rhs, (0, np_))
+    return lhs, rhs
+
+
 def _launch(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
             group_sizes: torch.Tensor, out: torch.Tensor, k: int,
             n: int) -> torch.Tensor:
-    _check(k % 8 == 0 and n % 8 == 0,
-           f"the kernels need K and N to be multiples of 8, got K={k}, "
-           f"N={n}")
+    """Kernel `name` into `out`. K or N that ALIGN does not divide takes
+    the padded route: zero columns in, the padded output sliced back."""
+    route = name
+    if k % ALIGN or n % ALIGN:
+        route = f"{name}_padded"
+        lhs, rhs = pad_operands(name, lhs, rhs, k, n)
+        full = out
+        k, n = _padded(k), _padded(n)
+        out = torch.empty(out.shape[:-2] + (
+            k if name == "tgmm" else out.shape[-2], n), dtype=out.dtype,
+            device=out.device)
     codes = [_DTYPES[lhs.dtype], _DTYPES[rhs.dtype]]
     operands = [lhs, rhs]
     if lhs.dtype != rhs.dtype:
@@ -244,8 +281,11 @@ def _launch(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
             rhs_.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
             lhs.shape[0], k, n, group_sizes.shape[0], stream)
     if err != 0:
-        raise _build.launch_error(f"grouped matmul kernel {name}", err)
-    launch_counts[name] += 1
+        raise _build.launch_error(f"grouped matmul kernel {route}", err)
+    launch_counts[route] += 1
+    if route != name:
+        full.copy_(out[..., :full.shape[-2], :full.shape[-1]])
+        out = full
     return out
 
 

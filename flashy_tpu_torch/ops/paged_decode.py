@@ -1,11 +1,17 @@
 """Paged-attention read through the hand-written Hopper kernel (port of
 flashy_tpu/ops/paged_decode.py).
 
-One kernel serves every multi-token read the engine makes, because they
-share one contract: T query rows at CONSECUTIVE positions
-`base..base+T-1` per slot (decode T = 1, speculative verify T = k+1,
-chunked prefill T = chunk). The kernel is `csrc/paged_decode.cu`; its
-plain version is `ops.paged_attention.paged_attention`.
+Every multi-token read the engine makes shares one contract: T query
+rows at CONSECUTIVE positions `base..base+T-1` per slot (decode T = 1,
+speculative verify T = k+1, chunked prefill T = chunk). Two hand-written
+kernels serve it, picked by the shape (`kernel_route`):
+`csrc/paged_decode.cu` takes head_dim 64 with block sizes that are
+powers of two up to 64 (the 235M layout), `csrc/paged_general.cu` every
+other head_dim and block size whose scores fit in a block's shared
+memory for one query row (`general_smem_bytes`: up to ~13,000 keys at
+head_dim 256; it splits the T rows into groups where they do not fit
+together). Their plain version is
+`ops.paged_attention.paged_attention`.
 `entrywise_paged_attention` spells the kernel's body in plain PyTorch,
 with its rounding points, so that bf16 results can be held to it
 closely where the plain version rounds P at other points.
@@ -23,20 +29,39 @@ from . import _build
 from .attention import NEG_INF, _guarded_probs, score_scale
 from .paged_attention import block_bytes, paged_attention
 
-MAX_QUERIES = 64  # T bound of the kernel (kMaxQueries in the source)
-HEAD_DIM = 64     # the head_dim it takes (kDh)
-MAX_BLOCK = 64    # block sizes it takes: powers of two up to this
+MAX_QUERIES = 64  # T bound of both kernels (kMaxQueries in the sources)
+HEAD_DIM = 64     # the head_dim paged_decode.cu takes (kDh)
+MAX_BLOCK = 64    # its block sizes: powers of two up to this
+SMEM_BYTES = 232448  # shared memory of a block on sm_90 (kMaxSmem)
+TODO_WIDE_BLOCKS = ("ROADMAP.md queue C, C2b (the paged read's general "
+                    "route at a block whose scores exceed shared memory)")
 
-# Launches of the kernel, by variant: a plain integer per name, bumped
-# where the kernel is launched and nowhere else.
+# Launches of the kernels, by route and pool variant: a plain integer per
+# name, bumped where the kernel is launched and nowhere else.
 launch_counts: tp.Dict[str, int] = {"paged_decode": 0,
-                                    "paged_decode_int8": 0}
+                                    "paged_decode_int8": 0,
+                                    "paged_decode_general": 0,
+                                    "paged_decode_int8_general": 0}
 
 _FUNCTIONS = {
     "flashy_paged_decode": (ctypes.c_int, (
         ctypes.c_int,                                    # variant
         ctypes.c_void_p,                                 # q
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # q strides
+        ctypes.c_void_p, ctypes.c_void_p,                # k, v
+        ctypes.c_void_p, ctypes.c_void_p,                # k/v scales
+        ctypes.c_void_p,                                 # table
+        ctypes.c_void_p, ctypes.c_longlong,              # positions, row stride
+        ctypes.c_void_p,                                 # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # B, T, H
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # Dh, E, bs
+        ctypes.c_float,                                  # score scale
+        ctypes.c_void_p)),                               # stream
+}
+_GENERAL_FUNCTIONS = {
+    "flashy_paged_general": (ctypes.c_int, (
+        ctypes.c_int,                                    # variant
+        ctypes.c_void_p,                                 # q (contiguous)
         ctypes.c_void_p, ctypes.c_void_p,                # k, v
         ctypes.c_void_p, ctypes.c_void_p,                # k/v scales
         ctypes.c_void_p,                                 # table
@@ -71,6 +96,33 @@ def _check(cond: bool, message: str) -> None:
         raise ValueError(f"paged decode kernel: {message}")
 
 
+def kernel_route(head_dim: int, block_size: int) -> str:
+    """The kernel a read of these widths launches: 'paged_decode'
+    (`csrc/paged_decode.cu`: head_dim 64, block sizes that are powers of
+    two up to 64) or 'general' (`csrc/paged_general.cu`: any other)."""
+    if (head_dim == HEAD_DIM and 1 <= block_size <= MAX_BLOCK
+            and block_size & (block_size - 1) == 0):
+        return "paged_decode"
+    return "general"
+
+
+def general_smem_bytes(queries: int, head_dim: int, block_size: int,
+                       q_dtype: torch.dtype) -> int:
+    """Shared memory of a general-route block of `queries` query rows
+    (`smem_bytes` in csrc/paged_general.cu): the f64 chain (f32 with bf16
+    q) and, in f32, q, K or V of up to 64 keys, the scores of a tile of
+    max(block_size, 64) keys, the per-row statistics and, where an entry
+    holds more than 64 keys, the P.V sums carried between its passes."""
+    entries = 1 if block_size >= 64 else 64 // block_size
+    tile, ld = entries * block_size, head_dim + 1
+    kv_rows = min(tile, 64)
+    chain = 8 if q_dtype == torch.float32 else 4
+    return (chain * queries * (head_dim + 1)
+            + 4 * (queries * ld + kv_rows * ld + queries * tile + queries
+                   + queries * entries + 2 * tile
+                   + (queries * head_dim if tile > kv_rows else 0)))
+
+
 def _signature(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
                table: torch.Tensor, positions: torch.Tensor,
                head_dim: int) -> tuple:
@@ -88,8 +140,6 @@ def _check_call(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     quant = "k_scale" in entry
     k, v = entry["k"], entry["v"]
     _check(dim == head_dim, f"q head_dim {dim} != {head_dim}")
-    _check(dim == HEAD_DIM, f"head_dim {dim} unsupported: the kernel "
-                            f"takes {HEAD_DIM}")
     _check(1 <= queries <= MAX_QUERIES,
            f"T={queries} outside [1, {MAX_QUERIES}]")
     _check((q.dtype, quant) in _VARIANTS,
@@ -98,10 +148,7 @@ def _check_call(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
            and v.shape == k.shape,
            f"pool k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
            f"q {tuple(q.shape)}")
-    bs = k.shape[1]
-    _check(1 <= bs <= MAX_BLOCK and bs & (bs - 1) == 0,
-           f"block size {bs} unsupported: the kernel takes powers of two "
-           f"up to {MAX_BLOCK}")
+    _check(k.shape[1] >= 1, "empty blocks")
     _check(k.dtype == v.dtype == (torch.int8 if quant else q.dtype),
            f"pool dtype {k.dtype} does not match q {q.dtype} "
            f"(int8 pools carry scales)")
@@ -115,6 +162,12 @@ def _check_call(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     _check(table.dim() == 2 and table.shape[0] == batch
            and table.dtype == torch.int32, "table must be int32 [B, E]")
     _check(positions.shape == (batch, queries), "positions must be [B, T]")
+    if kernel_route(dim, k.shape[1]) == "general":
+        need = general_smem_bytes(1, dim, k.shape[1], q.dtype)
+        _check(need <= SMEM_BYTES,
+               f"block_size {k.shape[1]} at head_dim {dim} needs {need} "
+               f"bytes of shared memory for one query row's scores, over "
+               f"the {SMEM_BYTES} of a block: {TODO_WIDE_BLOCKS}")
     for t in tensors + [positions]:
         _check(t.device == q.device, f"tensors span {t.device} and "
                                      f"{q.device}")
@@ -132,30 +185,42 @@ def _launch(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     batch, queries, heads, dim = q.shape
     quant = "k_scale" in entry
     k, v = entry["k"], entry["v"]
-    if q.stride(3) != 1:
+    route = kernel_route(dim, k.shape[1])
+    if route == "general" or q.stride(3) != 1:
         q = q.contiguous()
     if positions.dtype != torch.int64:
         positions = positions.long()
     out = torch.empty((batch, queries, heads, dim), dtype=q.dtype,
                       device=q.device)
-    lib = _build.load("paged_decode", _FUNCTIONS)
+    scales = (entry["k_scale"].data_ptr() if quant else None,
+              entry["v_scale"].data_ptr() if quant else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flashy_paged_decode(
-            _VARIANTS[(q.dtype, quant)], q.data_ptr(), q.stride(0),
-            q.stride(1), q.stride(2), k.data_ptr(), v.data_ptr(),
-            entry["k_scale"].data_ptr() if quant else None,
-            entry["v_scale"].data_ptr() if quant else None,
-            table.data_ptr(), positions.data_ptr(), positions.stride(0),
-            out.data_ptr(), batch, queries, heads, dim, table.shape[1],
-            k.shape[1], score_scale(head_dim), stream)
+        if route == "paged_decode":
+            lib = _build.load("paged_decode", _FUNCTIONS)
+            err = lib.flashy_paged_decode(
+                _VARIANTS[(q.dtype, quant)], q.data_ptr(), q.stride(0),
+                q.stride(1), q.stride(2), k.data_ptr(), v.data_ptr(),
+                *scales, table.data_ptr(), positions.data_ptr(),
+                positions.stride(0), out.data_ptr(), batch, queries, heads,
+                dim, table.shape[1], k.shape[1], score_scale(head_dim),
+                stream)
+        else:
+            lib = _build.load("paged_general", _GENERAL_FUNCTIONS)
+            err = lib.flashy_paged_general(
+                _VARIANTS[(q.dtype, quant)], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), *scales, table.data_ptr(),
+                positions.data_ptr(), positions.stride(0), out.data_ptr(),
+                batch, queries, heads, dim, table.shape[1], k.shape[1],
+                score_scale(head_dim), stream)
     if err != 0:
-        hint = (f" (invalid value: the table row of {table.shape[1]} "
-                f"entries does not fit in shared memory beside the ring)"
+        hint = (f" (invalid value: the shapes do not fit in shared memory)"
                 if err == 1 else "")
-        raise RuntimeError(f"paged decode kernel launch failed: cudaError "
-                           f"{err}{hint}")
-    launch_counts["paged_decode_int8" if quant else "paged_decode"] += 1
+        raise RuntimeError(f"paged decode kernel launch failed ({route}): "
+                           f"cudaError {err}{hint}")
+    name = "paged_decode_int8" if quant else "paged_decode"
+    launch_counts[name if route == "paged_decode" else f"{name}_general"] \
+        += 1
     return out
 
 
@@ -170,8 +235,9 @@ def fused_paged_attention(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     kernel derives the causal mask from `positions[:, 0]`, read in
     place. Every engine read path satisfies that; arbitrary per-row
     patterns need `paged_attention`. Returns [B, T, H, Dh] in `dtype`.
-    On CUDA the kernel takes head_dim 64 and block sizes that are powers
-    of two up to 64, and raises on anything else.
+    On CUDA the shape picks the kernel (`kernel_route`); T above 64,
+    pools that do not match q, unsupported dtypes and a general-route
+    block whose scores do not fit in shared memory raise.
     """
     if q.device.type == "cpu":
         return paged_attention(q, entry, table, positions,

@@ -50,9 +50,11 @@ MAX_CHUNK = 256
 TODO_SSD_TRAINING = ("ROADMAP.md queue A item 2, T9 (SSD training: autograd "
                      "through the plain chunked form)")
 
-# Launches of the kernel: a plain integer, bumped where the kernel is
-# launched and nowhere else.
-launch_counts: tp.Dict[str, int] = {"ssd_scan": 0}
+# Launches of the kernels, by route: a plain integer each, bumped where
+# the kernel is launched and nowhere else. "ssd_scan" is the bf16 tile
+# kernel on the tensor cores, "ssd_scan_fma" the FMA kernel (f32, and
+# bf16 at the widths the tile kernel does not take).
+launch_counts: tp.Dict[str, int] = {"ssd_scan": 0, "ssd_scan_fma": 0}
 
 
 class _SsdArgs(ctypes.Structure):
@@ -77,7 +79,12 @@ _FUNCTIONS = {
         ctypes.c_int, ctypes.POINTER(_SsdArgs),  # variant, arguments
         ctypes.c_void_p)),                        # stream
 }
-_VARIANTS = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/ssd_scan.cu `flashy_ssd_scan` variants, by route
+_VARIANTS = {("ssd_scan_fma", torch.float32): 0,
+             ("ssd_scan", torch.bfloat16): 1,
+             ("ssd_scan_fma", torch.bfloat16): 2}
+TILE_MAX_STATE = 16   # the tile kernel's widths: N <= 16, even Dh <= 64
+TILE_MAX_HEAD_DIM = 64
 
 # signatures whose arguments passed `_check_call`
 _checked: tp.Set[tuple] = set()
@@ -180,6 +187,16 @@ def _check(cond: bool, message: str) -> None:
         raise ValueError(f"ssd scan kernel: {message}")
 
 
+def kernel_route(dtype: torch.dtype, dstate: int, head_dim: int) -> str:
+    """The kernel a call of these widths launches: 'ssd_scan' (the bf16
+    tile kernel on the tensor cores, N <= 16 and even Dh <= 64) or
+    'ssd_scan_fma' (f32, and bf16 at every other width)."""
+    if (dtype == torch.bfloat16 and dstate <= TILE_MAX_STATE
+            and head_dim <= TILE_MAX_HEAD_DIM and head_dim % 2 == 0):
+        return "ssd_scan"
+    return "ssd_scan_fma"
+
+
 def _signature(*tensors: tp.Optional[torch.Tensor]) -> tuple:
     """What `_check_call` reads of its tensor arguments."""
     return tuple(None if t is None else (t.shape, t.stride(), t.dtype,
@@ -191,8 +208,8 @@ def _check_call(c, b, v, la, state, mask, chunk: int) -> None:
     _check(c.dim() == 4 and v.dim() == 4, "c, b and v must be [B, T, H, *]")
     batch, seq, heads, dstate = c.shape
     dim = v.shape[-1]
-    _check(c.dtype in _VARIANTS, f"dtype {c.dtype} unsupported (float32 "
-                                 f"or bfloat16)")
+    _check(c.dtype in (torch.float32, torch.bfloat16),
+           f"dtype {c.dtype} unsupported (float32 or bfloat16)")
     _check(b.dtype == v.dtype == c.dtype, "c, b and v must share a dtype")
     _check(b.shape == c.shape and v.shape[:3] == c.shape[:3],
            f"c {tuple(c.shape)}, b {tuple(b.shape)} and v {tuple(v.shape)} "
@@ -268,14 +285,16 @@ def _launch(c, b, v, la, state, mask, chunk: int):
     final = torch.empty((batch, heads, dim, dstate), dtype=torch.float32,
                         device=c.device)
     args = kernel_args(c, b, v, la, state, mask, chunk, y, final)
+    route = kernel_route(c.dtype, dstate, dim)
     lib = _build.load("ssd_scan", _FUNCTIONS)
     with torch.cuda.device(c.device):
         err = lib.flashy_ssd_scan(
-            _VARIANTS[c.dtype], ctypes.byref(args),
+            _VARIANTS[(route, c.dtype)], ctypes.byref(args),
             torch.cuda.current_stream(c.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd scan kernel launch failed: cudaError {err}")
-    launch_counts["ssd_scan"] += 1
+        raise RuntimeError(f"ssd scan kernel launch failed ({route}): "
+                           f"cudaError {err}")
+    launch_counts[route] += 1
     return y, final
 
 

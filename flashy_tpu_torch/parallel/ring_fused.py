@@ -1,15 +1,17 @@
 """Single-kernel ring attention: the port of flashy_tpu/parallel/ring_fused.py.
 
 The whole ring-attention forward of one rank is one launch of the
-hand-written Hopper kernel `csrc/ring_attention.cu` (which replaces the
-Pallas TPU kernel `_fused_kernel`): for rank r it runs the flash online
-softmax across the ring steps s = 0, 1, ... over the K/V blocks of owners
-(r - s) mod n, skipping the steps s > r under `causal` and masking step 0
-in-block. The kernel pulls every visiting block through a table of the
-ranks' K and V tensor maps (TMA, bf16; the flash forward's Hopper step)
-or base pointers (f32); the TPU kernel's RDMA slots, its communication
-sweep and semaphores have no counterpart (see the kernel's source
-note). The backward is the scan ring's (`ring._ring_backward_pass`), as
+hand-written Hopper kernel `csrc/ring_attention.cu` in bf16 at head_dim
+64 and 128, or of the flash forward's general route
+`csrc/flash_general.cu` in f32 and at the other head dims up to 256
+(both replace the Pallas TPU kernel `_fused_kernel`): for rank r it runs
+the flash online softmax across the ring steps s = 0, 1, ... over the
+K/V blocks of owners (r - s) mod n, skipping the steps s > r under
+`causal` and masking step 0 in-block. The kernel pulls every visiting
+block through a table of the ranks' K and V tensor maps (TMA; the flash
+forward's Hopper step) or, on the general route, of the visible steps'
+base pointers; the TPU kernel's RDMA slots, its communication sweep and
+semaphores have no counterpart (see the kernel's source note). The backward is the scan ring's (`ring._ring_backward_pass`), as
 the JAX custom VJP `_fused_bwd` has it.
 
 `ring_forward_plain` is the kernel's plain version: the same loop in
@@ -24,18 +26,24 @@ import typing as tp
 import torch
 
 from ..ops import _build
-from ..ops.attention import (_FLASH_DTYPES, FLASH_HEAD_DIMS, _kernel_operand,
-                             _on_cpu, flash_scale, online_softmax_blockwise)
+from ..ops.attention import (_FLASH_DTYPES, _kernel_operand, _on_cpu,
+                             counter_name, flash_route, flash_scale,
+                             launch_general_forward,
+                             online_softmax_blockwise)
 from .ring import owner, run_ring, visible_steps
 
-# Launches of the ring kernel, one per rank and forward: a plain integer
-# bumped where the kernel is launched and nowhere else.
-launch_counts: tp.Dict[str, int] = {"ring_fwd": 0}
+# Launches of the ring kernel, one per rank and forward, by route
+# (`attention.counter_name`: "ring_fwd" and "ring_fwd_128" bf16 at head_dim
+# 64 and 128 on `csrc/ring_attention.cu`, "ring_fwd_general" the general
+# forward of `csrc/flash_general.cu`): a plain integer bumped where the
+# kernel is launched and nowhere else.
+launch_counts: tp.Dict[str, int] = {"ring_fwd": 0, "ring_fwd_128": 0,
+                                    "ring_fwd_general": 0}
 
 _POINTERS = ctypes.POINTER(ctypes.c_void_p)
 _FUNCTIONS = {
     "flashy_ring_forward": (ctypes.c_int, (
-        ctypes.c_int, ctypes.c_void_p,                       # dtype, q
+        ctypes.c_void_p,                                     # q
         _POINTERS, _POINTERS, ctypes.c_int, ctypes.c_int,    # k, v, n, rank
         ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, T
@@ -77,8 +85,7 @@ def _check_kernel_inputs(q, ks, vs, rank):
     check(all(x.dtype == q.dtype for x in (*ks, *vs))
           and q.dtype in _FLASH_DTYPES,
           f"dtypes must all be float32 or all bfloat16, q is {q.dtype}")
-    check(q.shape[3] in FLASH_HEAD_DIMS,
-          f"head_dim {q.shape[3]} not built (built: {FLASH_HEAD_DIMS})")
+    flash_route(q.shape[3], "ring_fwd", q.dtype)
     check(q.device.type == "cuda", f"runs on CUDA tensors, got {q.device}")
     check(all(x.device == q.device for x in (*ks, *vs)),
           "the ranks' blocks span devices")
@@ -91,6 +98,14 @@ def _launch(q, ks, vs, rank, causal):
     # alive until the launch is enqueued, and the stream orders its reuse
     ks, vs = [_kernel_operand(x) for x in ks], [_kernel_operand(x) for x in vs]
     n = len(ks)
+    name = counter_name("ring_fwd", q.shape[3], q.dtype)
+    if name == "ring_fwd_general":
+        # the flash forward's general route over the visible steps' blocks
+        steps = [owner(rank, s, n) for s in visible_steps(rank, n, causal)]
+        out, lse = launch_general_forward(q, [ks[i] for i in steps],
+                                          [vs[i] for i in steps], causal)
+        launch_counts[name] += 1
+        return out, lse
     k_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in ks))
     v_table = (ctypes.c_void_p * n)(*(x.data_ptr() for x in vs))
     batch, t, heads, dim = q.shape
@@ -100,13 +115,13 @@ def _launch(q, ks, vs, rank, causal):
     lib = _build.load("ring_attention", _FUNCTIONS)
     with torch.cuda.device(q.device):
         err = lib.flashy_ring_forward(
-            _FLASH_DTYPES[q.dtype], q.data_ptr(), k_table, v_table, n, rank,
+            q.data_ptr(), k_table, v_table, n, rank,
             out.data_ptr(), lse.data_ptr(), batch, heads, t, dim,
             int(causal), flash_scale(dim),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise _build.launch_error("ring attention kernel launch failed", err)
-    launch_counts["ring_fwd"] += 1
+    launch_counts[name] += 1
     return out, lse
 
 
@@ -115,8 +130,10 @@ def ring_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
                  causal: bool = False
                  ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Rank `rank`'s ring forward (out, lse [B, H, T]): the kernel on
-    CUDA (float32 or bfloat16, head dims in FLASH_HEAD_DIMS; anything
-    else raises), its plain version on the CPU."""
+    CUDA (bfloat16 at head_dim 64 and 128 on the ring kernel; float32, and
+    bfloat16 at other head dims up to 256, on the flash forward's general
+    route over the visible steps' blocks; wider raises), its plain version
+    on the CPU."""
     if _on_cpu(q):
         return ring_forward_plain(q, ks, vs, rank, causal)
     return _launch(q, ks, vs, rank, causal)

@@ -221,8 +221,26 @@ def test_wrapper_on_cpu_runs_the_plain_versions_at_the_kernel_tile():
 def test_kernel_path_refuses_what_the_kernels_do_not_take():
     from flashy_tpu_torch.ops import attention
     meta = dict(device="meta")
+    # head_dim 32 is no longer refused: it takes the general route, as
+    # every head_dim up to 256 does in f32 and all but 64 and 128 do in
+    # bf16; above 256 still raises
+    assert attention.flash_route(32) == "general"
+    # bf16 at 64 and 128 runs the Hopper kernels, each counted by width
+    for kernel in (*attention._KERNEL_NAMES, "ring_fwd"):
+        for dim in (64, 128):
+            assert attention.flash_route(dim, kernel) == "hopper"
+            assert attention.flash_route(
+                dim, kernel, torch.float32) == "general"
+        assert attention.counter_name(kernel, 64) == kernel
+        assert attention.counter_name(kernel, 128) == f"{kernel}_128"
+        assert attention.counter_name(kernel, 64, torch.float32) == \
+            f"{kernel}_general"
+        assert attention.counter_name(kernel, 96) == f"{kernel}_general"
     q = torch.empty((1, 8, 2, 32), **meta)
-    with pytest.raises(ValueError, match="head_dim 32"):
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        attention._check_kernel_inputs(q, q, q)
+    q = torch.empty((1, 8, 2, 300), **meta)
+    with pytest.raises(ValueError, match="head_dim 300"):
         attention._check_kernel_inputs(q, q, q)
     q = torch.empty((1, 8, 2, 64), dtype=torch.float16, **meta)
     with pytest.raises(ValueError, match="dtypes"):
@@ -240,3 +258,39 @@ def test_kernel_path_refuses_what_the_kernels_do_not_take():
         attention._check_backward_inputs(q, q, stat[:, :, :4], stat)
     with pytest.raises(ValueError, match="D must be float32"):
         attention._check_backward_inputs(q, q, stat, stat.bfloat16())
+
+
+@pytest.mark.parametrize("dim", [32, 65, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_matches_jax_flash_at_general_head_dims(dim, causal):
+    # Head dims of the general route (flash_general.cu) in f32: 32, an odd
+    # 65 and the d128 layout's 128. The Pallas kernels take every one of them
+    # in interpret mode, so the port's plain versions, at the kernels' own
+    # 64-key tile, are held to JAX's `flash_attention` there (forward,
+    # logsumexp and both backwards), f32 1e-5; fused bit-equal to split.
+    from flashy_tpu.ops.attention import _flash_forward
+    from flashy_tpu.ops.attention import flash_attention as jax_flash
+    from flashy_tpu_torch.ops.attention import (FLASH_BLOCK, flash_route,
+                                                flash_forward_blockwise)
+    assert flash_route(dim, "flash_bwd_fused", torch.float32) == "general"
+    t = 128
+    q, k, v, do = _inputs((1, t, 2, dim), (1, t, 2, dim), seed=dim)
+    out, lse = flash_forward_blockwise(*map(torch.from_numpy, (q, k, v)),
+                                       causal)
+    jargs = tuple(map(jnp.asarray, (q, k, v)))
+    want = jax_flash(*jargs, causal=causal, block_q=FLASH_BLOCK,
+                     block_k=FLASH_BLOCK)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    _, jax_lse = _flash_forward(*jargs, causal=causal, block_q=FLASH_BLOCK,
+                                block_k=FLASH_BLOCK, interpret=True)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(jax_lse)[:, :, 0].reshape(lse.shape), **TOL)
+    split, fused = _port_grads(q, k, v, do, causal, FLASH_BLOCK)
+    for a, b in zip(fused, split):
+        assert torch.equal(a, b)
+    for jax_fused in (True, False):
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+            q, k, v, causal=causal, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
+            fused_backward=jax_fused), *jargs)
+        for got, want in zip(split, vjp(jnp.asarray(do))):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

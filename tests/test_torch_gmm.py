@@ -225,3 +225,49 @@ def test_bf16_grouped_mlp_grads_with_the_split_route_match_megablox_vjp(
         _within_one_ulp(d_lhs, want_lhs, f"{label} input gradient")
         # the f32 weight's gradient is the bf16 kernel result widened
         _within_one_ulp(d_rhs, want_rhs, f"{label} weight gradient")
+
+
+@pytest.mark.parametrize("k,n", [(260, 12), (12, 100)])
+def test_padded_operands_match_megablox_at_widths_8_does_not_divide(k, n):
+    """K and N that 8 does not divide (the w260 layout's dim 260, and 12
+    and 100): the wrappers pad both operands with zero columns up to a
+    multiple of 8 (`pad_operands`) and slice the kernel's output back.
+    The plain products on the padded operands, sliced, against megablox
+    `gmm`, `gmm` with transpose_rhs and `tgmm` in interpret mode on the
+    unpadded ones, f32, 1e-5 of max |value| (sums in another order): the
+    pad columns add exact zeros, and the pad rows of tgmm come out zero."""
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    megablox = _megablox()
+    sizes = (9, 0, 30, 25)
+    m, groups = sum(sizes), len(sizes)
+    rng = np.random.default_rng(k + n)
+    lhs = rng.standard_normal((m, k)).astype(np.float32)
+    rhs = rng.standard_normal((groups, k, n)).astype(np.float32)
+    rhs_t = rng.standard_normal((groups, n, k)).astype(np.float32)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    jgs, tgs = jnp.asarray(gs), torch.from_numpy(gs)
+    tiling = (8, k // 4 if k % 4 == 0 else k, n)
+    t = torch.from_numpy
+    f32 = torch.float32
+    for name, args, ref, want in (
+            ("gmm", (lhs, rhs), lambda a, b: G._gmm_reference(a, b, tgs, f32),
+             megablox.gmm(jnp.asarray(lhs), jnp.asarray(rhs), jgs,
+                          jnp.float32, tiling, interpret=True)),
+            ("gmm_t", (lhs, rhs_t),
+             lambda a, b: G._gmm_reference(a, b, tgs, f32, True),
+             megablox.gmm(jnp.asarray(lhs), jnp.asarray(rhs_t), jgs,
+                          jnp.float32, tiling, transpose_rhs=True,
+                          interpret=True)),
+            ("tgmm", (lhs, dy), lambda a, b: G._tgmm_reference(a, b, tgs, f32),
+             megablox.tgmm(jnp.asarray(lhs).T, jnp.asarray(dy), jgs,
+                           jnp.float32, tiling, interpret=True))):
+        a, b = G.pad_operands(name, *map(t, args), k, n)
+        assert a.shape[-1] % G.ALIGN == 0 and b.shape[-1] % G.ALIGN == 0
+        padded = ref(a, b)
+        got = padded[..., :k, :n] if name == "tgmm" else padded[:, :n]
+        _rel_close(got.numpy(), np.asarray(want), TOL, name)
+        if name == "tgmm":
+            assert not padded[:, k:].any() and not padded[..., n:].any()
+        else:
+            assert not padded[:, n:].any()

@@ -5,6 +5,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -133,3 +134,44 @@ def test_generate_sampling_uses_the_generator():
 
     assert torch.equal(draw(0), draw(0))
     assert not torch.equal(draw(0), draw(1))
+
+
+def test_head_dim_128_logits_and_grads_match_jax():
+    # The d128 layout's head width (2 heads of 128 at dim 256; the card's
+    # path is 8 heads of 128 at dim 1024) with attention='flash': the port
+    # through the flash kernels' plain versions (on CUDA f32 takes the
+    # general route, bf16 the Hopper kernels built at 128), the JAX package
+    # through its Pallas kernels in interpret mode, on converted weights.
+    # Logits 1e-4 absolute; the loss 1e-5
+    # relative; every gradient within 1e-4 of its leaf's max |value|
+    # (f32 reduction order through two layers and the head).
+    from flashy_tpu_torch.models.convert import params_from_jax
+    from flashy_tpu_torch.ops.attention import flash_route
+    jax_model, params, model = tiny_pair(seed=5, attention="flash", dim=256,
+                                         num_heads=2)
+    assert model.config.head_dim == 128
+    assert flash_route(128, "flash_bwd_fused", torch.float32) == "general"
+    tokens = np.random.default_rng(6).integers(
+        0, TINY["vocab_size"], (2, 32)).astype(np.int32)
+    want = np.asarray(jax_model.apply(params, jnp.asarray(tokens)))
+    logits = model(torch.from_numpy(tokens))
+    np.testing.assert_allclose(logits.detach().numpy(), want, atol=1e-4,
+                               rtol=0)
+
+    def jax_loss(p):
+        out = jax_model.apply(p, jnp.asarray(tokens))
+        return optax.softmax_cross_entropy_with_integer_labels(
+            out[:, :-1], jnp.asarray(tokens[:, 1:])).mean()
+
+    want_loss, jax_grads = jax.value_and_grad(jax_loss)(params)
+    loss = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]),
+        torch.from_numpy(tokens[:, 1:]).long().reshape(-1))
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want_grads = params_from_jax(jax.tree.map(np.asarray, jax_grads),
+                                 model.config)
+    for name, p in model.named_parameters():
+        scale = float(want_grads[name].abs().max())
+        err = float((p.grad - want_grads[name]).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), (name, err, scale)

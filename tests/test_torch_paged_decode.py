@@ -349,15 +349,117 @@ def test_entrywise_f32_chain_in_f64_stays_on_the_gather_path():
     np.testing.assert_allclose(got, kernel, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("bs,dim", [(12, 64), (128, 64), (16, 32)])
-def test_kernel_checks_refuse_shapes_it_does_not_take(bs, dim):
-    # the checks the wrapper runs before a CUDA launch: block sizes that
-    # are not powers of two up to 64, and head_dim other than 64, raise
-    from flashy_tpu_torch.ops.paged_decode import _check_call
+@pytest.mark.parametrize("bs,dim,route", [(12, 64, "general"),
+                                          (128, 64, "general"),
+                                          (16, 32, "general"),
+                                          (16, 64, "paged_decode")])
+def test_kernel_checks_refuse_shapes_it_does_not_take(bs, dim, route):
+    # The shape picks the kernel: head_dim 64 at a power-of-two block up
+    # to 64 runs paged_decode.cu, every other head_dim and block size the
+    # general route (paged_general.cu). The checks the wrapper runs before
+    # a CUDA launch pass both routes' shapes and still refuse what no
+    # route takes: T above 64, pools that do not match q, wrong dtypes.
+    from flashy_tpu_torch.ops.paged_decode import _check_call, kernel_route
+    assert kernel_route(dim, bs) == route
     q = torch.zeros((1, 1, 2, dim), dtype=torch.bfloat16)
     entry = {name: torch.zeros((3, bs, 2, dim), dtype=torch.bfloat16)
              for name in ("k", "v")}
     table = torch.zeros((1, 2), dtype=torch.int32)
     positions = torch.zeros((1, 1), dtype=torch.int64)
+    _check_call(q, entry, table, positions, dim)
+    with pytest.raises(ValueError, match="outside"):
+        _check_call(q.expand(1, 65, 2, dim), entry, table,
+                    torch.zeros((1, 65), dtype=torch.int64), dim)
+    with pytest.raises(ValueError, match="do not match"):
+        _check_call(q, {name: t[..., :dim - 1] for name, t in entry.items()},
+                    table, positions, dim)
+    with pytest.raises(ValueError, match="does not match q"):
+        _check_call(q, {name: t.float() for name, t in entry.items()},
+                    table, positions, dim)
     with pytest.raises(ValueError, match="unsupported"):
+        _check_call(q.half(), entry, table, positions, dim)
+
+
+@pytest.mark.parametrize("dim,bs,fits", [(128, 256, True),
+                                         (256, 16, True),
+                                         (256, 256, True),
+                                         (256, 16384, False)])
+def test_general_route_bounds_its_key_tile_by_shared_memory(dim, bs, fits):
+    # The general route (paged_general.cu) splits the T query rows into
+    # groups where 64 rows do not fit in a block's shared memory together
+    # (f32 q at head_dim 128 with block 256, or head_dim 256 with block 16,
+    # take ~0.23-0.28 MB at T 64), and passes K and V through it 64 keys at
+    # a time, so only one row's scores over an entry bound it: block 16384
+    # at head_dim 256 does not fit and the wrapper refuses it, naming
+    # ROADMAP queue C, C2b. (The shapes' checks need no data: meta tensors.)
+    from flashy_tpu_torch.ops.paged_decode import (SMEM_BYTES, _check_call,
+                                                   general_smem_bytes,
+                                                   kernel_route)
+    assert kernel_route(dim, bs) == "general"
+    assert general_smem_bytes(64, dim, bs, torch.float32) > SMEM_BYTES
+    assert (general_smem_bytes(1, dim, bs, torch.float32)
+            <= SMEM_BYTES) == fits
+    meta = dict(device="meta")
+    q = torch.zeros((1, 64, 2, dim), **meta)
+    entry = {name: torch.zeros((3, bs, 2, dim), **meta)
+             for name in ("k", "v")}
+    table = torch.zeros((1, 2), dtype=torch.int32, **meta)
+    positions = torch.arange(64, **meta)[None]
+    if fits:
         _check_call(q, entry, table, positions, dim)
+    else:
+        with pytest.raises(ValueError, match="C2b"):
+            _check_call(q, entry, table, positions, dim)
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+@pytest.mark.parametrize("dim,bs", [(128, 16), (128, 12), (64, 12)])
+def test_plain_and_entrywise_match_jax_at_general_widths(kv_dtype, dim, bs):
+    # The widths the general route (paged_general.cu) takes: head_dim 128
+    # (the d128 layout) and block size 12, which paged_decode.cu does
+    # not. The plain version and the entry-by-entry reference (the two
+    # the card holds that route to) against the JAX gather path and the
+    # Pallas kernel in interpret mode, f32, 1e-5 (reduction order only).
+    from flashy_tpu.models.quantize import quantize_kv
+    from flashy_tpu.ops.paged_attention import paged_attention as jax_gather
+    from flashy_tpu.ops.paged_decode import fused_paged_attention as jax_fused
+    from flashy_tpu_torch.ops.paged_attention import paged_attention
+    from flashy_tpu_torch.ops.paged_decode import (entrywise_paged_attention,
+                                                   kernel_route)
+    assert kernel_route(dim, bs) == "general"
+    rng = np.random.default_rng(dim + bs)
+    heads = 2
+    table = np.array([[3, 7, 2, 0], [5, 0, 0, 0], [0, 0, 0, 0]], np.int32)
+    base = np.array([2 * bs + 3, 2, bs - 1])
+    shape = (8, bs, heads, dim)
+    k = rng.normal(size=shape).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    if kv_dtype == "model":
+        pools = {"k": k, "v": v}
+    else:
+        kq, ks = quantize_kv(jnp.asarray(k))
+        vq, vs = quantize_kv(jnp.asarray(v))
+        pools = {name: np.array(a) for name, a in (
+            ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))}
+    for queries in (1, 5):
+        q = rng.normal(size=(len(table), queries, heads, dim)).astype(
+            np.float32)
+        positions = (base[:, None] + np.arange(queries)[None]).astype(
+            np.int32)
+        jargs = (jnp.asarray(q), {n: jnp.asarray(a) for n, a in
+                                  pools.items()},
+                 jnp.asarray(table), jnp.asarray(positions))
+        targs = (torch.from_numpy(q), {n: torch.from_numpy(a) for n, a in
+                                       pools.items()},
+                 torch.from_numpy(table), torch.from_numpy(positions))
+        kw = dict(head_dim=dim)
+        want_gather = np.asarray(jax_gather(*jargs, dtype=jnp.float32, **kw))
+        want_kernel = np.asarray(jax_fused(*jargs, dtype=jnp.float32,
+                                           interpret=True, **kw))
+        for got in (paged_attention(*targs, dtype=torch.float32, **kw),
+                    entrywise_paged_attention(*targs, dtype=torch.float32,
+                                              **kw)):
+            np.testing.assert_allclose(got.numpy(), want_gather, rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(got.numpy(), want_kernel, rtol=1e-5,
+                                       atol=1e-5)

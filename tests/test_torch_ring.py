@@ -347,3 +347,18 @@ def test_lm_solver_trains_with_ring_attention_on_the_cpu(tmp_path):
                                rtol=1e-5)
     np.testing.assert_allclose(ring.step_losses, dense.step_losses,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_plain_matches_the_jax_fused_kernel_at_head_dim_128(causal):
+    # head_dim 128 (the d128 layout), which the ring takes in f32 on the
+    # flash forward's general route (in bf16 on the ring kernel built at
+    # 128): the ring's plain version (what the card holds both routes to)
+    # against the JAX fused ring kernel in interpret mode, two ranks of 128
+    # rows, f32 1e-5
+    from flashy_tpu_torch.ops.attention import flash_route
+    assert flash_route(128, "ring_fwd", torch.float32) == "general"
+    arrays = _inputs((1, 256, 2, 128), seed=128 + causal)
+    want = _jax_ring(arrays, 2, causal, "fused")
+    got, _ = _port_ring(arrays, 2, causal, "fused")
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

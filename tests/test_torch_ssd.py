@@ -497,3 +497,40 @@ def test_scheduler_records_the_ssd_layout():
     assert request.done and len(request.output) == 31
     summary = scheduler.metrics.summary()
     assert summary["completed"] == 1 and "pool_occupancy_p50" not in summary
+
+
+def test_chunked_reference_matches_jax_at_mamba2_state_width():
+    # Mamba-2's N 128 at chunk 256 (what `default_chunk` picks for a
+    # prompt that 256 divides), T 512: the widths at which the FMA kernel
+    # now launches (its c and b pass through shared memory 64 state
+    # columns at a time). Its plain version against the JAX gather path
+    # and the Pallas kernel in interpret mode, f32 1e-5, with a carried
+    # state, a reset sentinel and a padded row.
+    from flashy_tpu.ops.ssd_scan import SSD_LOG_RESET
+    from flashy_tpu.ops.ssd_scan import ssd_chunked_scan as jax_scan
+    from flashy_tpu_torch.ops.ssd_scan import (default_chunk, kernel_route,
+                                               ssd_chunked_scan)
+    seq, dstate, head_dim = 512, 128, 16
+    assert default_chunk(seq) == 256
+    for dtype in (torch.float32, torch.bfloat16):
+        assert kernel_route(dtype, dstate, head_dim) == "ssd_scan_fma"
+    c, b, v, log_a = _inputs(seq=seq, head_dim=head_dim, dstate=dstate,
+                             seed=128)
+    log_a[0, 300] = SSD_LOG_RESET
+    state = np.random.default_rng(129).standard_normal(
+        (2, 2, head_dim, dstate)).astype(np.float32)
+    mask = np.ones((2, seq), bool)
+    mask[1, -40:] = False
+    y, s = ssd_chunked_scan(*_torch(c, b, v, log_a), state=_torch(state)[0],
+                            chunk=256, token_mask=_torch(mask)[0],
+                            kernel="gather")
+    real = mask[:, :, None, None]
+    for kw in ({"kernel": "gather"}, {"kernel": "fused", "interpret": True}):
+        scan = jax.jit(functools.partial(jax_scan, chunk=256, **kw))
+        y_j, s_j = scan(*_jax(c, b, v, log_a), state=jnp.asarray(state),
+                        token_mask=jnp.asarray(mask))
+        np.testing.assert_allclose(np.where(real, y.numpy(), 0),
+                                   np.where(real, np.asarray(y_j), 0),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
+                                   rtol=1e-5)

@@ -2,7 +2,7 @@
 
     python3 tools/chip_ab.py OTHER [THIS] [--phases PHASE,...]
 
-PHASE is one of train, ring, moe, serve, paged, ssd, ssd_serve.
+PHASE is one of train, ring, moe, serve, paged, ssd, ssd_serve, f32flash.
 
 Runs each checkout's own `chip_smoke.py` phases in a process of its own,
 in the order OTHER, THIS, THIS, OTHER, and prints the phases' lines
@@ -22,7 +22,10 @@ under a header per run. The phases (by default `train,ring`):
   mask and a carried state, chunk 64) at [1, 64] and [8, 1024]: the
   whole call's device time three times and its host us;
 - `ssd_serve`: `ssd serve bf16`, its profiled window with the SSD
-  kernel's device time, and the tree's own SSD timing lines.
+  kernel's device time, and the tree's own SSD timing lines;
+- `f32flash`: the four flash kernels in f32 at `step`'s shapes (B 2,
+  H 16, T 256, D 64, causal) on whatever route the tree runs f32 on,
+  held against their plain versions and timed (`time_flash`).
 
 THIS
 defaults to the checkout this script lives in. Run it on the machine
@@ -118,13 +121,17 @@ for B, T in ((1, 64), (8, 1024)):
     "ssd_serve": '''
 C.phase_ssd_serve(torch, torch.device("cuda"), card)
 ''',
+    "f32flash": '''
+C.time_flash(torch, torch.device("cuda"), card, B=2, T=256,
+             dtype=torch.float32)
+''',
     "serve": '''
 C.phase_serve(torch, torch.device("cuda"), card, kv_dtype="model",
               requests_n=16, prompt_len=128, max_new=128, label="serve bf16")
 ''',
 }
 KEEP = ("train:", "profile", "ring train:", "moe train:", "serve bf16",
-        "paged ", "ssd ", "FAIL")
+        "paged ", "ssd ", "flash ", "FAIL")
 
 
 def main() -> None:
