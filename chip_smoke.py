@@ -70,10 +70,14 @@ failure with a non-zero exit:
              one rank bit-equal to the flash forward;
   5. exact   the 235M TransformerLM in f32 (TF32 off) served through the
              paged engine and the continuous-batching scheduler, every
+             step a replay of a CUDA graph `warmup()` captured, every
              stream token-exact against the port's dense-cache
              `generate` (a near tie, top-2 margin < 1e-5, is reported,
-             not failed), the pool conserved, and the kernel launched
-             exactly num_layers x (decode steps + prefill chunks) times;
+             not failed), the pool conserved, the kernel launched
+             exactly num_layers x (decode steps + prefill chunks) times
+             (each replay adds its graph's launches), and the compile
+             cache's misses unchanged and recompiles 0 through the run
+             (so in every serving phase);
   6. ssd exact  the same layout with every mixer an SSD layer, in f32,
              through `cache_layout='ssd'` with a 256 ceiling: 8 streams
              of mixed prompt lengths past the ceiling, token-exact
@@ -87,12 +91,19 @@ failure with a non-zero exit:
              bandwidth bound, its plain version and SDPA on the gathered
              view, with the wrapper's host us a call; then a profiled
              serving window: the device's idle share and the kernels
-             that take its time;
+             that take its time; then the same traffic through a twin
+             engine with cuda_graphs=False: streams bit-identical,
+             launches equal, its tokens/s and decode-step p50, and the
+             host us of one decode step with graphs and eager; then two
+             replays of the captured decode step at temperature 1.0 on
+             the same inputs draw differently (the engine's generator is
+             registered with the graph);
   8. int8    a short bf16 run with int8 K/V pools through the int8
              kernel: pool conserved, kernel launched on every read,
-             kernel timed as in phase 7;
+             kernel timed as in phase 7, graphs against eager as there;
   9. ssd serve  the pure-SSD model in bf16 at the same shapes: tokens/s,
-             decode-step ms, a profiled window, and the main path's
+             decode-step ms, a profiled window, graphs against eager as
+             in phase 7, and the main path's
              `ssd_chunked_scan` call (bf16 projection slices, a padding
              mask) at a prefill slice [1, 64] and at [8, 1024]: held
              to the plain version on those inputs (bf16 y within one
@@ -120,10 +131,15 @@ failure with a non-zero exit:
              times and the fused backward 12 x train steps; a second
              call with 3 epochs restores and continues; tokens/s and
              step ms; then a profiled training window (idle share, top
-             device kernels, the forward kernel's device ms a step);
-             then each flash kernel at these shapes, held against its
-             plain version as in phase 3, two fused launches bit-equal
-             (its ordered dQ chain) and a fused call's device memory,
+             device kernels, the forward kernel's device ms a step, the
+             tied head's products' device ms a step); then the head's
+             three products at these shapes (bf16 operands, f32 output:
+             `ops.losses.head_matmul`) held to the f32 product (1e-3 of
+             max |value|) and timed beside their bound and the f32
+             products they replace; then each flash kernel at these
+             shapes, held against its plain version as in phase 3, two
+             fused launches bit-equal (its ordered dQ chain) and a fused
+             call's device memory,
              then timed three times (median and spread; the fused time
              is the whole gradient) beside its bound, its plain version
              and PyTorch's scaled_dot_product_attention; the same for the
@@ -167,16 +183,17 @@ has its own launch counter and its own row in the kernels line) are
 checked in the phases above and driven at full width after them:
 
   2.  (kernel) also the paged read's general route (`paged_general.cu`:
-             any head_dim, and any block size whose scores fit in shared
-             memory for one query row) at head_dim 128 with blocks 16, 12, 128 and 256,
-             head_dim 32, head_dim 64 with block 12 and head_dim 256 with
-             blocks 16 and 256 (the last three f32 at T 64 in groups of
-             rows; blocks past 64 keys through shared memory in passes of
-             64); (block, head_dim) (12, 64), (128, 64), (16, 32),
-             (16, 128) route there, (16, 64) to `paged_decode.cu`;
-  3.  (flash) also D in {128, 32, 65, 80, 96, 256}: bf16 at 128 on the
-             Hopper kernels built at 128, everything else on the general
-             route (`flash_general.cu`); head_dim 300 raises;
+             any head_dim and any block size) at head_dim 128 with blocks
+             16, 12, 128, 200 and 256, head_dim 32, head_dim 64 with
+             block 12 and head_dim 256 with blocks 16, 256 and one entry
+             of 1024 keys (f32 at T 64 in groups of rows; an entry past 64
+             keys in two passes of 64-key chunks); (block, head_dim) (12,
+             64), (128, 64), (16, 32), (16, 128) route there, (16, 64) to
+             `paged_decode.cu`;
+  3.  (flash) also D in {128, 32, 65, 80, 96, 256, 320, 576}: bf16 at 128
+             on the Hopper kernels built at 128, everything else on the
+             general route (`flash_general.cu`, the head dim in slabs of
+             up to 128 columns); its plan fits every D of 1..4096;
   4.  (ssd kernel) also N 128 at chunk 256 over T 1024 and N 256 with a
              ragged tail, on the FMA kernel;
   4b. (gmm kernels) also K and N in {12, 100, 1030}, on the padded route;
@@ -204,8 +221,12 @@ checked in the phases above and driven at full width after them:
              the ring kernel and the split pair built at 128; then phase
              11's kernel timing at `train d128`'s shapes, phase 14's ring
              and pair timing at `ring train d128`'s, the general route's
-             at `step d128`'s (f32) and at D 80 (bf16), and the ring's
-             general route at `ring step d128`'s shapes;
+             at `step d128`'s (f32), at D 80 (bf16) and at D 576 (bf16, B
+             2, H 8, T 512: five head-dim slabs), the ring's general route
+             at `ring step d128`'s shapes and at D 576 (bf16, 4 ranks of
+             128 rows); then the paged general route at one table entry of
+             16384 keys (8 slots, 8 heads of 256, bf16, T=1) against its
+             plain version, timed beside its bound and SDPA;
  20. step w260  the MoE layout at dim 260 (5 heads of 52, 8 top-2
              dropless experts, 2 layers) in f32: the grouped kernels'
              padded route (K = 260) and the general flash route (D 52;
@@ -341,10 +362,16 @@ def random_case(torch, device, *, q_dtype, kv, T, B=8, H=16, Dh=64, bs=16,
 # 32, head_dim 64 at block 12, and three shapes whose 64 query rows do
 # not fit in one block's shared memory with f32 q (the kernel splits them
 # into groups of rows): head_dim 256 at block 16 and block 256 at head_dim
-# 128 and 256 (an entry's K and V in four passes of 64 keys).
+# 128 and 256 (an entry's max over four 64-key chunks, then its scores
+# again, exp, sums and P.V chunk by chunk); block 200 (a short last
+# chunk), and one table entry of 1024 keys at head_dim 256 (16 chunks).
 PAGED_CASES = ((64, 16, 32), (64, 4, 512), (64, 16, 128), (64, 64, 32),
                (128, 16, 32), (128, 12, 43), (128, 128, 4), (32, 16, 32),
-               (64, 12, 43), (256, 16, 16), (128, 256, 2), (256, 256, 2))
+               (64, 12, 43), (256, 16, 16), (128, 256, 2), (256, 256, 2),
+               (128, 200, 3), (256, 1024, 1))
+# the one-block read `time_paged_block` times: (slots, heads, head_dim,
+# keys), one table entry of 16384 keys at head_dim 256
+PAGED_BLOCK = (8, 8, 256, 16384)
 
 
 def check_kernels(torch, device, card=""):
@@ -472,13 +499,17 @@ def top2_margin(torch, model, stream):
 
 def serve(torch, engine, prompts, max_new):
     """Serve `prompts` through the scheduler with every launch count set
-    to 0 just before; returns (scheduler, requests, the launch counts of
-    this run, seconds)."""
+    to 0 just before; the engine's compile cache must make no new entry
+    and no capture in the run (every step a replay of a graph `warmup()`
+    captured, or, with cuda_graphs=False, an eager run of a warmed key).
+    Returns (scheduler, requests, the launch counts of this run,
+    seconds)."""
     from flashy_tpu_torch.ops import paged_decode, ssd_scan
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
     scheduler = ContinuousBatchingScheduler(engine)
     requests = [scheduler.submit(p, max_new) for p in prompts]
     engine.step_counts = {"decode": 0, "prefill_chunk": 0}
+    before = engine.compile_cache.stats()
     paged_decode.reset_launch_counts()
     ssd_scan.reset_launch_counts()
     t0 = time.perf_counter()
@@ -487,9 +518,89 @@ def serve(torch, engine, prompts, max_new):
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {**paged_decode.launch_counts, **ssd_scan.launch_counts}
+    after = engine.compile_cache.stats()
+    if after["misses"] != before["misses"] or after["recompiles"] != 0:
+        fail(f"serve: the compile cache built or captured during traffic: "
+             f"{before} -> {after}")
     if engine.pool is not None:
         engine.pool.check()
     return scheduler, requests, counts, seconds
+
+
+def decode_host_us(torch, engine, calls=20):
+    """Host microseconds of one decode step as enqueued (the graph's
+    replay, or the eager step's ~170 launches), over parked slots (their
+    writes land in the sentinel block), without the step's read of the
+    tokens to the host."""
+    step = engine.compile_cache.executables()[f"decode/{engine.slots}"]
+    return host_us(torch, lambda: step(*engine._decode_args()), calls=calls)
+
+
+def eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
+               counts, label, card):
+    """The same traffic through a twin engine with cuda_graphs=False (the
+    steps eager) on the same model: every stream bit-identical to the
+    graphs' and the launch counts equal; prints both runs' tokens/s,
+    decode-step p50 and host us a decode step. Returns the eager run's
+    metrics summary."""
+    import numpy as np
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    eager = DecodeEngine(model, cuda_graphs=False, **engine_kw)
+    eager.warmup()
+    e_scheduler, e_requests, e_counts, _ = serve(torch, eager, prompts,
+                                                 max_new)
+    for got, want in zip(requests, e_requests):
+        if not np.array_equal(got.output, want.output):
+            fail(f"{label}: request {got.uid}'s stream differs between "
+                 f"graphs and eager")
+    if nonzero(counts) != nonzero(e_counts):
+        fail(f"{label}: launches with graphs {nonzero(counts)}, eager "
+             f"{nonzero(e_counts)}")
+    graphs = engine.compile_cache
+    if not all(getattr(fn, "captured", False)
+               for fn in graphs.executables().values()):
+        fail(f"{label}: a step of the graph engine was not captured")
+    host = {what: decode_host_us(torch, eng)
+            for what, eng in (("graphs", engine), ("eager", eager))}
+    e_summary = e_scheduler.metrics.summary()
+    print(f"{label}: graphs vs eager: {len(requests)} streams bit-identical, "
+          f"launches equal {nonzero(counts)}; eager tokens/s="
+          f"{e_summary['tokens_per_sec']:.1f}, decode step p50="
+          f"{e_summary['itl_ms_p50']:.3f} ms; host us a decode step: graphs "
+          f"{host['graphs']:.1f}, eager {host['eager']:.1f}; compile cache "
+          f"{graphs.stats()} ({', '.join(graphs.executables())}), eager "
+          f"{eager.compile_cache.stats()} [{card}]", flush=True)
+    del eager
+    return e_summary
+
+
+def check_sampling(torch, device, card):
+    """Two replays of the captured decode step at temperature 1.0 on the
+    same inputs draw differently: the engine's generator is registered
+    with the graph, so each replay advances it."""
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    model = TransformerLM(model_config(torch, torch.bfloat16, 256),
+                          device=device, seed=1)
+    generator = torch.Generator(device=device).manual_seed(0)
+    engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
+                          temperature=1.0, generator=generator,
+                          device=device)
+    engine.warmup()
+    draws = []
+    for _ in range(2):
+        for slot in range(engine.slots):
+            engine._set_slot(slot, 5, 3, True)   # writes land in sentinel
+        draws.append(engine.decode())
+    engine._reset_slot_state()
+    stats = engine.compile_cache.stats()
+    if (draws[0] == draws[1]).all() or stats["recompiles"]:
+        fail(f"sampling: two replays at temperature 1.0 drew {draws} "
+             f"(cache {stats})")
+    print(f"sampling: two replays of the captured decode step at "
+          f"temperature 1.0 on the same inputs drew {draws[0].tolist()} "
+          f"and {draws[1].tolist()}; compile cache {stats} [{card}]",
+          flush=True)
 
 
 def check_streams(torch, model, prompts, requests, max_new, device, label):
@@ -563,7 +674,8 @@ def phase_exact(torch, device, card="", heads=16, block_size=16,
           f"decode steps={engine.step_counts['decode']}, prefill "
           f"chunks={engine.step_counts['prefill_chunk']}, prefix hit rate="
           f"{stats['prefix_hit_rate']:.3f}, cow forks={stats['cow_forks']}, "
-          f"{seconds:.2f}s [{card}]", flush=True)
+          f"CUDA graphs {engine.compile_cache.stats()}, {seconds:.2f}s "
+          f"[{card}]", flush=True)
     return launched
 
 
@@ -662,6 +774,86 @@ def time_kernel(torch, engine, context, queries=1):
             "bytes": nbytes, "host_us": host_us(torch, kernel)}
 
 
+def time_paged_block(torch, device, card):
+    """The paged read's general route at one table entry of many keys
+    (PAGED_BLOCK: 8 slots, 8 heads of 256, one block of 16384 keys, bf16,
+    T=1 at the last key, so every key is visible): held against the plain
+    version (2e-2) and against the entry-by-entry reference within one
+    ulp, two launches bit-equal, then timed three times beside its bound
+    (bytes), its plain version and SDPA on the gathered view. The share
+    of outputs not bit-equal to the reference is printed, not held to
+    PLACEMENT_SHARE: over one entry of 16384 keys the kernel's sequential
+    f32 chains (each lane's sum, each output's P.V) and the reference's
+    torch sums round differently in ~1.5% of the bf16 outputs (measured,
+    NVIDIA H100 80GB HBM3, 700.00 W), where a misplaced rounding point
+    moves ~15%; check_kernels holds the rounding placement at one entry
+    of 1024 keys. Returns (times, max abs err vs plain)."""
+    import torch.nn.functional as F
+    from flashy_tpu_torch.ops import paged_decode
+    from flashy_tpu_torch.ops.paged_attention import (gather_kv,
+                                                      paged_attention)
+    slots, heads, dim, keys = PAGED_BLOCK
+    dtype = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(11)
+    shape = (1 + slots, keys, heads, dim)
+    entry = {name: torch.randn(shape, generator=g, device=device).to(dtype)
+             for name in ("k", "v")}
+    table = torch.arange(1, 1 + slots, dtype=torch.int32,
+                         device=device)[:, None]
+    positions = torch.full((slots, 1), keys - 1, dtype=torch.long,
+                           device=device)
+    q = torch.randn((slots, 1, heads, dim), generator=g, device=device
+                    ).to(dtype)
+    args = (q, entry, table, positions)
+    kw = {"head_dim": dim, "dtype": dtype}
+    where = (f"paged one block: {slots} slots, {heads} heads of {dim}, "
+             f"{keys} keys")
+    if paged_decode.kernel_route(dim, keys) != "general":
+        fail(f"{where}: not on the general route")
+    before = paged_decode.launch_counts["paged_decode_general"]
+    got = paged_decode.fused_paged_attention(*args, **kw)
+    again = paged_decode.fused_paged_attention(*args, **kw)
+    if paged_decode.launch_counts["paged_decode_general"] != before + 2:
+        fail(f"{where}: not launched on paged_decode_general")
+    if not torch.equal(got, again):
+        fail(f"{where}: two launches on the same inputs differ")
+    ref = paged_decode.entrywise_paged_attention(*args, **kw).float()
+    excess = ((got.float() - ref).abs() - PLACEMENT_RTOL * ref.abs()
+              ).max().item()
+    share = (got.float() != ref).float().mean().item()
+    if excess > PLACEMENT_ATOL:
+        fail(f"{where}: against the entry-by-entry reference {excess:.3e} "
+             f"over one ulp ({share:.4f} of outputs differ)")
+    plain = lambda: paged_attention(*args, **kw)  # noqa: E731
+    err = (got.float() - plain().float()).abs().max().item()
+    if not math.isfinite(err) or err > TOL["bfloat16"]:
+        fail(f"{where}: max abs err vs plain {err} > {TOL['bfloat16']}")
+    kernel = lambda: paged_decode.fused_paged_attention(*args, **kw)  # noqa
+    k_view, v_view = gather_kv(entry, table, dtype)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k_view, v_view))
+    nbytes = (2 * slots * keys * heads * dim * 2 + 2 * q.numel() * 2
+              + table.numel() * 4 + positions.numel() * 8)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = 4 * slots * heads * keys * dim / BF16_FLOPS * 1e3
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+    times = {**time_runs(torch, kernel, iters=5),
+             "plain_ms": time_ms(torch, plain, iters=3, device_only=True),
+             "library_ms": time_ms(torch, sdpa, iters=10, device_only=True),
+             "bound_ms": max(byte_ms, flop_ms),
+             "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+             "host_us": host_us(torch, kernel, calls=5)}
+    print(f"{where} (T=1 at the last key, bf16): vs entry-by-entry "
+          f"reference {share:.4f} of outputs differ (f32 sum order over "
+          f"one entry), each within one ulp; vs plain max abs err "
+          f"{err:.3e} (tolerance {TOL['bfloat16']}); two launches "
+          f"bit-equal; device {spread_text(times)} bound_ms="
+          f"{times['bound_ms']:.4f} ({times['bound_by']}, {nbytes} B) "
+          f"plain_ms={times['plain_ms']:.4f} library_ms(sdpa on gathered "
+          f"view)={times['library_ms']:.4f} host_us={times['host_us']:.1f} "
+          f"[{card}]", flush=True)
+    return times, err
+
+
 def device_rows(torch, prof):
     """(device ms, launches, name) per CUDA kernel of a profile, largest
     first."""
@@ -712,15 +904,21 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
 
 
 def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
-                max_new, label, heads=16):
+                max_new, label, heads=16, compare_eager=False):
+    """bf16 serving through the paged engine's captured decode and prefill
+    steps: launches on every read, kernel times at T=1 and T=chunk, a
+    profiled window (heads 16, model pools); with `compare_eager` the same
+    traffic through an eager twin (`eager_twin`). Returns (launches, their
+    split by T, the T=1 timing, the T=chunk timing)."""
     import numpy as np
     from flashy_tpu_torch.models.transformer import TransformerLM
     from flashy_tpu_torch.ops import paged_decode
     from flashy_tpu_torch.serve.engine import DecodeEngine
     cfg = model_config(torch, torch.bfloat16, 256, num_heads=heads)
     model = TransformerLM(cfg, device=device, seed=1)
-    engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
-                          kv_dtype=kv_dtype, device=device)
+    engine_kw = dict(slots=8, block_size=16, max_seq_len=256,
+                     kv_dtype=kv_dtype, device=device)
+    engine = DecodeEngine(model, **engine_kw)
     if engine.kernel != "fused":
         fail(f"{label}: engine resolved kernel={engine.kernel!r} on CUDA")
     engine.warmup()
@@ -762,8 +960,11 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
           f"tokens/s={summary['tokens_per_sec']:.1f}, decode step "
           f"p50={summary['itl_ms_p50']:.3f} ms, {seconds:.2f}s; "
           f"launches={counts[name]} == reads (" + ", ".join(
-              f"{k} {v}" for k, v in split.items()) + f") [{card}]",
-          flush=True)
+              f"{k} {v}" for k, v in split.items()) + f"); CUDA graphs "
+          f"{engine.compile_cache.stats()} [{card}]", flush=True)
+    if compare_eager:
+        eager_twin(torch, model, engine, engine_kw, prompts, max_new,
+                   requests, counts, label, card)
     return counts[name], split, timing, chunk
 
 
@@ -873,10 +1074,13 @@ FLASH_GENERAL_SOURCE = "flashy_tpu_torch/csrc/flash_general.cu"
 PAGED_GENERAL_SOURCE = "flashy_tpu_torch/csrc/paged_general.cu"
 # head dims of the flash checks: 64 (the Hopper kernels), 128 (the d128
 # path: the bf16 forward on the Hopper kernel built at 128, the rest on
-# the general route), an odd 65, and 32, 80, 96, 256 (general); at 64 and
-# 128 every FLASH_CASES case, at the others three (square causal, empty
-# rows, ragged and not causal)
-FLASH_DIMS = (64, 128, 32, 65, 80, 96, 256)
+# the general route), an odd 65, and 32, 80, 96 (general, one head-dim
+# slab), 256, 320 and 576 (general, two, three and five slabs of 128;
+# 576 is sarvam-105b's head); at 64 and 128 every FLASH_CASES case, at
+# the others three (square causal, empty rows, ragged and not causal)
+FLASH_DIMS = (64, 128, 32, 65, 80, 96, 256, 320, 576)
+# the general route's widest timed head dim: (B, H, T, D) of `time_flash`
+FLASH_WIDE = (2, 8, 512, 576)
 
 
 def check_flash_kernels(torch, device, card):
@@ -884,8 +1088,9 @@ def check_flash_kernels(torch, device, card):
     cases at every head dim of FLASH_DIMS (`compare_flash`: fused ==
     split bitwise), the forward against the dense path, rows with no
     visible key zero, every launch counted on the route its head dim and
-    dtype pick; head_dim 300 raises. Returns {dtype: {launch counter
-    name: max abs error against plain}}."""
+    dtype pick; the general route's plan keeps shared memory bounded at
+    every head dim. Returns {dtype: {launch counter name: max abs error
+    against plain}}."""
     from flashy_tpu_torch.ops import attention as A
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -938,12 +1143,14 @@ def check_flash_kernels(torch, device, card):
               f"plain: " + ", ".join(
                   f"{key}={value:.3e}" for key, value in worst.items())
               + f"; fused == split bitwise [{card}]", flush=True)
-    try:
-        A.flash_route(300)
-    except ValueError as err:
-        print(f"flash: head_dim 300 raises ({err})", flush=True)
-    else:
-        fail("flash: head_dim 300 did not raise")
+    worst_plan = max((A.general_plan(D) for D in range(1, 4097)),
+                     key=lambda plan: plan["backward_smem"])
+    if worst_plan["backward_smem"] > A.SMEM_BYTES:
+        fail(f"flash: the general route's plan {worst_plan} exceeds "
+             f"{A.SMEM_BYTES} bytes")
+    print(f"flash: general route at D 576: {A.general_plan(576)}; at every "
+          f"D of 1..4096 at most {worst_plan['backward_smem']} bytes of "
+          f"shared memory a block (limit {A.SMEM_BYTES})", flush=True)
     return errors
 
 
@@ -1073,12 +1280,26 @@ def phase_train(torch, card, folder):
     return counts, resumed
 
 
+def head_gemm_ms(torch, prof, vocab):
+    """Device ms and calls of the tied head's products in a profile taken
+    with record_shapes: the aten::mm calls with the vocabulary as one of
+    their operands' dimensions (the logits, dX and dEmbed)."""
+    ms, calls = 0.0, 0
+    for event in prof.key_averages(group_by_input_shape=True):
+        if event.key == "aten::mm" and any(
+                vocab in shape for shape in event.input_shapes if shape):
+            ms += getattr(event, "device_time_total",
+                          getattr(event, "cuda_time_total", 0.0)) / 1e3
+            calls += event.count
+    return ms, calls
+
+
 def profile_train(torch, solver, card, steps=4, label="profile train",
                   watch=()):
     """Where the training time goes: `steps` train steps plainly for the
     wall time, the next `steps` under torch.profiler for the device time
     by kernel; each kernel named in `watch` gets its device ms a step
-    and launches."""
+    and launches, and the tied head's products (`head_gemm_ms`) theirs."""
     from torch.profiler import ProfilerActivity, profile
     from flashy_tpu_torch.examples.lm.solver import train_step
 
@@ -1095,10 +1316,12 @@ def profile_train(torch, solver, card, steps=4, label="profile train",
         return time.perf_counter() - t0
 
     wall_ms = run(1000) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         run(2000)
     rows = device_rows(torch, prof)
+    head_ms, head_calls = head_gemm_ms(torch, prof,
+                                       solver.cfg.model.vocab_size)
     busy_ms = sum(ms for ms, _, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.1f} ms x{n}" for ms, n, key in rows[:8])
     named = "".join(
@@ -1107,8 +1330,53 @@ def profile_train(torch, solver, card, steps=4, label="profile train",
         f"launches)" for name in watch)
     print(f"{label}: {steps} steps, plain wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms (idle share "
-          f"{1 - busy_ms / wall_ms:.3f}); top: {top}{named} [{card}]",
-          flush=True)
+          f"{1 - busy_ms / wall_ms:.3f}); top: {top}{named}; the tied head's "
+          f"products (aten::mm over the vocabulary): {head_ms / steps:.2f} ms "
+          f"a step ({head_calls} calls) [{card}]", flush=True)
+
+
+def time_head(torch, device, card, tokens=16384, dim=1024, vocab=32768):
+    """The tied head's three products at the training shapes (`train`:
+    16384 tokens, dim 1024, vocab 32768), bf16 operands: the logits, dX
+    and dEmbed through `ops.losses.head_matmul` (the tensor cores, f32
+    output), each held to the f32 product of the same operands (within
+    1e-3 of its max |value|: the products are exact, the order of the f32
+    sums and the tensor cores' accumulation differ) and timed three times
+    beside its bound (operations at the bf16 peak) and the f32 product it
+    replaces (the port's head before). Prints one line."""
+    from flashy_tpu_torch.ops.losses import head_matmul
+    g = torch.Generator(device=device).manual_seed(12)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16)
+
+    x, embed, dl = draw(tokens, dim), draw(vocab, dim), draw(tokens, vocab)
+    products = {"logits": (x, embed.t()), "dX": (dl, embed),
+                "dEmbed": (x.t(), dl)}
+    parts, total, f32_total = [], 0.0, 0.0
+    for name, (a, b) in products.items():
+        got = head_matmul(a, b)
+        want = a.float() @ b.float()
+        if got.dtype != torch.float32:
+            fail(f"head {name}: {got.dtype} output")
+        err = rel_err(got, want)
+        if not err <= 1e-3:
+            fail(f"head {name}: relative err {err} vs the f32 product")
+        del got, want
+        t = time_runs(torch, lambda: head_matmul(a, b), iters=5)
+        f32_ms = time_ms(torch, lambda: a.float() @ b.float(), iters=3,
+                         device_only=True)
+        m, k = a.shape
+        bound = 2 * m * k * b.shape[1] / BF16_FLOPS * 1e3
+        total += t["ms"]
+        f32_total += f32_ms
+        parts.append(f"{name} [{m}x{k}]x[{k}x{b.shape[1]}] {spread_text(t)} "
+                     f"bound_ms={bound:.4f} (operations) f32_ms={f32_ms:.4f} "
+                     f"rel err {err:.2e}")
+    print(f"head: bf16 operands, f32 output (head_matmul): " + "; ".join(parts)
+          + f"; the three {total:.3f} ms a step, as f32 products "
+          f"{f32_total:.3f} [{card}]", flush=True)
 
 
 def flash_bounds(B, H, T, D, elem, causal=True):
@@ -1211,16 +1479,16 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
             lambda: A.flash_backward_fused(*args), plain_fused, sdpa_bwd)}
     bounds = flash_bounds(B, H, T, D, q.element_size())
     # the Hopper kernels take ~0.1-0.5 ms a call, the general route up to
-    # ~10: fewer iterations there
-    iters = 20 if D == 64 else 5
+    # ~10 and more above one head-dim slab: fewer iterations there
+    iters = 20 if D == 64 else (5 if D <= 128 else 2)
     times = {}
     for key, (kernel, plain, library) in kernels.items():
         bound, bound_by = bounds[key]
         times[routes[key]] = {
             **time_runs(torch, kernel, iters=iters),
-            "plain_ms": time_ms(torch, plain, iters=5 if D == 64 else 3),
+            "plain_ms": time_ms(torch, plain, iters=5 if D == 64 else 2),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
-            "host_us": host_us(torch, kernel, calls=5)}
+            "host_us": host_us(torch, kernel, calls=5 if D <= 128 else 2)}
     print(f"flash times ({where} causal {name}): " + "; ".join(
         f"{key} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
@@ -1553,8 +1821,9 @@ def phase_ssd_exact(torch, device, card):
           f"{engine.max_seq_len}) token-exact vs generate (near ties "
           f"{ties}), launches={launched} == {cfg.num_layers} x {slices} "
           f"prefill slices, decode steps={engine.step_counts['decode']}, "
-          f"state bytes/slot={engine.state_bytes_per_slot()}, "
-          f"{seconds:.2f}s [{card}]", flush=True)
+          f"state bytes/slot={engine.state_bytes_per_slot()}, CUDA graphs "
+          f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+          flush=True)
 
 
 def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
@@ -1568,8 +1837,9 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
     from flashy_tpu_torch.serve.engine import DecodeEngine
     cfg = ssd_model_config(torch, torch.bfloat16, 256)
     model = TransformerLM(cfg, device=device, seed=5)
-    engine = DecodeEngine(model, slots=8, max_seq_len=256, chunk=SSD_CHUNK,
-                          cache_layout="ssd", device=device)
+    engine_kw = dict(slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                     cache_layout="ssd", device=device)
+    engine = DecodeEngine(model, **engine_kw)
     engine.warmup()
     rng = np.random.default_rng(6)
     prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
@@ -1590,8 +1860,11 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
           f"{max_new} new, tokens/s={summary['tokens_per_sec']:.1f}, decode "
           f"step p50={summary['itl_ms_p50']:.3f} ms, ttft p50="
           f"{summary['ttft_ms_p50']:.1f} ms, {seconds:.2f}s, launches="
-          f"{launched} [{card}]", flush=True)
+          f"{launched}; CUDA graphs {engine.compile_cache.stats()} [{card}]",
+          flush=True)
     profile_serve(torch, engine, cfg.vocab_size, 8, prompt_len, 32, card)
+    eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
+               counts, "ssd serve bf16", card)
     timings = {}
     for B, T in SSD_SHAPES:
         t = timings[(B, T)] = time_ssd(torch, device, B, T, SSD_CHUNK)
@@ -2623,18 +2896,21 @@ def phase_train_d128(torch, card, folder):
 
 
 def time_ring_general(torch, device, card, H=D128_HEADS, D=128, B=2, t=64,
-                      n=4):
-    """The ring forward's general route at the `ring step d128` shapes (n
-    ranks of [B, t, H, D], causal, f32): held against its plain version,
-    the four ranks' launches timed three times beside the bound, the
-    plain version and one scaled_dot_product_attention over the n t
-    tokens. Returns (times, max abs err)."""
+                      n=4, dtype=None):
+    """The ring forward's general route, by default at the `ring step
+    d128` shapes (n ranks of [B, t, H, D], causal, f32): held against its
+    plain version, the four ranks' launches timed three times beside the
+    bound, the plain version and one scaled_dot_product_attention over
+    the n t tokens. Returns (times, max abs err)."""
     import torch.nn.functional as F
     from flashy_tpu_torch.parallel.ring_fused import (ring_forward,
                                                       ring_forward_plain)
-    (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, torch.float32, n,
-                                          t, B=B, H=H, D=D, seed=9)
-    err, _, _ = compare_ring(torch, qs, ks, vs, True, "ring general timed")
+    dtype = dtype or torch.float32
+    name = str(dtype).split(".")[1]
+    (q, k, v), (qs, ks, vs) = ring_inputs(torch, device, dtype, n, t, B=B,
+                                          H=H, D=D, seed=9)
+    err, _, _ = compare_ring(torch, qs, ks, vs, True,
+                             f"ring general timed D={D} {name}")
 
     def kernel():
         for rank in range(n):
@@ -2645,19 +2921,19 @@ def time_ring_general(torch, device, card, H=D128_HEADS, D=128, B=2, t=64,
             ring_forward_plain(qs[rank], ks, vs, rank, True)
 
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    bound, bound_by = ring_bound(B, H, t, D, range(n), 4)
-    times = {**time_runs(torch, kernel, iters=20),
-             "plain_ms": time_ms(torch, plain, iters=5),
+    bound, bound_by = ring_bound(B, H, t, D, range(n), q.element_size())
+    times = {**time_runs(torch, kernel, iters=20 if D <= 128 else 3),
+             "plain_ms": time_ms(torch, plain, iters=5 if D <= 128 else 2),
              "bound_ms": bound, "bound_by": bound_by,
              "library_ms": time_ms(
                  torch, lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, is_causal=True), device_only=True),
              "host_us": host_us(torch, kernel, calls=5)}
     print(f"ring general times ({n} ranks of [{B}, {t}, {H}, {D}] causal "
-          f"f32, the four launches): {spread_text(times)} bound_ms="
+          f"{name}, the four launches): {spread_text(times)} bound_ms="
           f"{bound:.4f} ({bound_by}) plain_ms={times['plain_ms']:.4f} "
           f"library_ms={times['library_ms']:.4f} (one SDPA over {n * t} "
-          f"tokens, f32) host_us={times['host_us']:.1f}; vs plain max abs "
+          f"tokens, {name}) host_us={times['host_us']:.1f}; vs plain max abs "
           f"err {err:.3e} [{card}]", flush=True)
     return times, err
 
@@ -3109,10 +3385,13 @@ def main() -> None:
 
     paged = {"paged_decode": phase_serve(
         torch, device, card, kv_dtype="model", requests_n=16,
-        prompt_len=128, max_new=128, label="serve bf16"),
+        prompt_len=128, max_new=128, label="serve bf16",
+        compare_eager=True),
         "paged_decode_int8": phase_serve(
             torch, device, card, kv_dtype="int8", requests_n=8,
-            prompt_len=64, max_new=32, label="int8 bf16")}
+            prompt_len=64, max_new=32, label="int8 bf16",
+            compare_eager=True)}
+    check_sampling(torch, device, card)
     ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
     phase_step(torch, device, card)
     phase_moe_step(torch, device, card)
@@ -3121,6 +3400,7 @@ def main() -> None:
         profile_train(torch, solver, card,
                       watch=("flash_fwd_kernel", "flash_bwd"))
         del solver
+    time_head(torch, device, card)
     flash_times, main_errors = time_flash(torch, device, card)
     # f32 at head_dim 64 takes the general route: its times at `step`'s
     # shapes
@@ -3155,6 +3435,7 @@ def main() -> None:
             torch, device, card, kv_dtype="int8", requests_n=8,
             prompt_len=64, max_new=32, label="int8 d128 bf16",
             heads=D128_HEADS)}
+    block_times, block_error = time_paged_block(torch, device, card)
     ssd_fma_launches, ssd_fma_times, ssd_fma_error = phase_ssd_n128(
         torch, device, card)
     step_d128_counts = phase_step(torch, device, card, heads=D128_HEADS,
@@ -3182,6 +3463,13 @@ def main() -> None:
     time_flash(torch, device, card, H=D128_HEADS, D=80)
     ring_general_times, ring_general_main_error = time_ring_general(
         torch, device, card)
+    # the general route above one head-dim slab: bf16 at D 576
+    wide_b, wide_h, wide_t, wide_d = FLASH_WIDE
+    wide_times, wide_errors = time_flash(torch, device, card, B=wide_b,
+                                         H=wide_h, T=wide_t, D=wide_d)
+    ring_wide_times, ring_wide_error = time_ring_general(
+        torch, device, card, H=wide_h, D=wide_d, B=wide_b, t=128,
+        dtype=torch.bfloat16)
     w260_counts = phase_step_w260(torch, device, card)
     padded_times, padded_errors = time_gmm_padded(torch, device, card)
 
@@ -3231,6 +3519,10 @@ def main() -> None:
                         "max_abs_err": errors[name],
                         **{key: t1[key] for key in keys},
                         "chunk": {key: tc[key] for key in keys}})
+    # the general route at one table entry of 16384 keys (head_dim 256)
+    kernels[2]["one_block"] = {"shape": list(PAGED_BLOCK),
+                               "max_abs_err": block_error,
+                               **{key: block_times[key] for key in keys}}
     # the worst of the small cases (bf16 and f32) and of the main path's
     # shapes
     for route in (f"{name}{suffix}" for suffix in ("", "_128", "_general")
@@ -3246,6 +3538,11 @@ def main() -> None:
                             + [flash_errors[dt].get(route, 0.0)
                                for dt in flash_errors]),
                         **flash_times[route]})
+        if route.endswith("_general"):
+            # above one head-dim slab: bf16 at FLASH_WIDE
+            kernels[-1]["d576"] = {"shape": list(FLASH_WIDE),
+                                   "max_abs_err": wide_errors[route],
+                                   **wide_times[route]}
     # the [1, 64] prefill slice at the top level, [8, 1024] under "long"
     slice_, long_ = (ssd_timing[shape] for shape in SSD_SHAPES)
     kernels.append({"name": "ssd_scan", "route": "cuda",
@@ -3297,6 +3594,9 @@ def main() -> None:
                             ring_errors[dt].get(route, 0.0)
                             for dt in ring_errors]),
                         **times})
+    kernels[-1]["d576"] = {"shape": [wide_b, 128, wide_h, wide_d],
+                           "max_abs_err": ring_wide_error,
+                           **ring_wide_times}
     print("kernels by route: " + ", ".join(
         f"{k['name']}={k['launches']}" for k in kernels), flush=True)
     print(card, flush=True)

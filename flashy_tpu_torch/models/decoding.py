@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import score_scale
+from ..ops.losses import head_matmul
 from ..ops.ssd_scan import ssd_chunked_scan, ssd_recurrent_scan
 from ..parallel.moe_ep import _gelu
 from ..utils import check_same_device, resolve_device
@@ -35,11 +36,10 @@ from .transformer import (TransformerConfig, TransformerLM, _rotary,
 def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
     """The model's weights as a JAX-shaped dict, cast once for decoding.
 
-    Matmul kernels are cast to `config.dtype`; the embedding is rounded
-    to `config.dtype` values but kept f32, so the row lookup
-    (`embed[tokens].to(dtype)`) and the f32-accumulated tied head see
-    exactly the operands the JAX package's cast-at-use gives them. Norm
-    scales stay f32 (rmsnorm multiplies in f32).
+    Matmul kernels and the embedding are cast to `config.dtype`, so the
+    row lookup and the tied head (`ops.losses.head_matmul`, f32
+    accumulation) see exactly the operands the JAX package's cast-at-use
+    gives them. Norm scales stay f32 (rmsnorm multiplies in f32).
     """
     cfg = model.config
     check_supported(cfg)
@@ -50,7 +50,7 @@ def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
 
     with torch.no_grad():
         p: tp.Dict[str, tp.Any] = {
-            "embed": model.embed.detach().to(dtype).float(),
+            "embed": model.embed.detach().to(dtype),
             "norm_f": {"scale": model.norm_f.scale.detach()}}
         for i in range(cfg.num_layers):
             block = getattr(model, f"block_{i}")
@@ -269,13 +269,12 @@ def _embed_tokens(p: tp.Dict, tokens: torch.Tensor,
 
 def _head_logits(p: tp.Dict, x: torch.Tensor,
                  cfg: TransformerConfig) -> torch.Tensor:
-    """Final norm + tied head: [B, S, D] -> f32 logits [B, S, V].
-
-    `p["embed"]` holds compute-dtype values in f32 (`decode_params`),
-    so the f32 product is the compute-dtype head with f32 accumulation.
-    """
+    """Final norm + tied head: [B, S, D] -> f32 logits [B, S, V], through
+    the forward's head product (`ops.losses.head_matmul`: operands in the
+    compute dtype, f32 accumulation), so that a decode step's logits equal
+    the uncached forward's on the same hidden states."""
     x = _rmsnorm(x, p["norm_f"]["scale"], cfg.dtype)
-    return x.float() @ p["embed"].t()
+    return head_matmul(x, p["embed"].t())
 
 
 def _apply_step(params: tp.Dict, cfg: TransformerConfig,

@@ -45,6 +45,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention, flash_attention
+from ..ops.losses import tied_head
 from ..parallel.mesh import Mesh
 from ..parallel.moe_ep import TODO_EXPERT_PARALLEL
 from ..parallel.ring import ring_self_attention
@@ -339,7 +340,7 @@ class TransformerLM(nn.Module):
         x = self.norm_f(x)
         if return_hidden:
             return x, self.embed
-        logits = x.float() @ self.embed.to(cfg.dtype).float().t()
+        logits = tied_head(x, self.embed)
         if return_aux:
             return logits, moe_aux_loss(self)
         return logits

@@ -10,8 +10,9 @@
   blockwise from the logsumexp. The dtype and head dim pick the route
   (`flash_route`): bf16 at head_dim 64 and 128 runs
   `csrc/flash_attention.cu` (the wgmma/TMA steps of `csrc/flash_tile.cuh`);
-  f32 at every head_dim up to 256, and bf16 at the others, runs the
-  general route `csrc/flash_general.cu`; above 256 raises.
+  f32 at every head_dim, and bf16 at the others, runs the general route
+  `csrc/flash_general.cu`, which tiles the head dim in slabs of up to 128
+  columns (`general_plan`).
 
 Beside the kernels live their plain versions, which step at the same
 tiles (`flash_forward_blockwise`, `flash_backward_dq_blockwise`,
@@ -42,9 +43,8 @@ FLASH_BLOCK = 64             # q and k tile of the kernels (kBlock)
 FLASH_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
                    "flash_bwd_dkv": (64, 128), "flash_bwd_fused": (64, 128),
                    "ring_fwd": (64, 128)}
-GENERAL_MAX_DIM = 256        # the general route takes head dims 1..this
-TODO_WIDE_HEADS = ("ROADMAP.md queue C, C1b (flash attention at head_dim "
-                   "above 256)")
+GENERAL_SLAB = 128           # the general route's widest head-dim slab
+SMEM_BYTES = 232448          # shared memory of a block on sm_90 (kMaxSmem)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
 _KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -95,7 +95,6 @@ _GENERAL_FUNCTIONS = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, Tq
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Tk, D, causal
         ctypes.c_float, ctypes.c_void_p)),                   # scale, stream
-    "flashy_flash_general_block": (ctypes.c_int, (ctypes.c_int,)),
 }
 
 
@@ -109,16 +108,30 @@ def flash_route(head_dim: int, kernel: str = "flash_fwd",
     """The route of flash kernel `kernel` (a name of `_KERNEL_NAMES`, or
     'ring_fwd') at this head dim and dtype on CUDA: 'hopper' (bf16 at
     FLASH_HEAD_DIMS[kernel]: `csrc/flash_attention.cu`,
-    `csrc/ring_attention.cu`) or 'general' (1..GENERAL_MAX_DIM:
-    `csrc/flash_general.cu`). A wider head raises ValueError."""
+    `csrc/ring_attention.cu`) or 'general' (every other head dim:
+    `csrc/flash_general.cu`). A head dim below 1 raises ValueError."""
     if dtype == torch.bfloat16 and head_dim in FLASH_HEAD_DIMS[kernel]:
         return "hopper"
-    if 1 <= head_dim <= GENERAL_MAX_DIM:
+    if head_dim >= 1:
         return "general"
-    raise ValueError(f"flash attention kernel: head_dim {head_dim} is not "
-                     f"built (the Hopper route takes bf16 at "
-                     f"{FLASH_HEAD_DIMS[kernel]}, the general route "
-                     f"1..{GENERAL_MAX_DIM}): {TODO_WIDE_HEADS}")
+    raise ValueError(f"flash attention kernel: head_dim {head_dim} < 1")
+
+
+def general_plan(head_dim: int) -> tp.Dict[str, int]:
+    """How `csrc/flash_general.cu` tiles this head dim: slabs of `width`
+    columns (the smallest multiple of 32 that holds the head dim, up to
+    GENERAL_SLAB), `slabs` of them, tiles of `rows` query or key rows,
+    and the shared memory of a forward and of a backward block in bytes
+    (`fwd_floats`, `bwd_floats` there). Only `slabs` grows with the head
+    dim: S and dP run over the slabs in turn, and each output slab is a
+    block of its own."""
+    width = min(32 * -(-head_dim // 32), GENERAL_SLAB)
+    rows, ld = FLASH_BLOCK, width + 1
+    return {"width": width, "slabs": -(-head_dim // width), "rows": rows,
+            "forward_smem": 4 * (3 * rows * ld + rows * (rows + 1)
+                                 + 3 * rows),
+            "backward_smem": 4 * (4 * rows * ld + 2 * rows * (rows + 1)
+                                  + 2 * rows)}
 
 
 def counter_name(kernel: str, head_dim: int,
@@ -428,14 +441,6 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool):
             flash_scale(dim), torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def general_block(head_dim: int) -> int:
-    """Rows of the general route's backward blocks at this head dim (64
-    up to a padded width of 128, 32 above it): its fused kernel writes
-    one dQ partial per this many keys."""
-    lib = _build.load("flash_general", _GENERAL_FUNCTIONS)
-    return lib.flashy_flash_general_block(head_dim)
-
-
 def launch_general_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
                            vs: tp.Sequence[torch.Tensor], causal0: bool
                            ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
@@ -484,8 +489,8 @@ def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
     kernel does not write it. The fused kernel of the Hopper route writes
     dq, through an f32 accumulator [B*H, nq*64, D] and zeroed counters
     [B*H*nq] that it is handed here; the general route's fused kernel
-    writes the f32 dQ partials [nk, B, Tq, H, D] instead, nk per
-    `general_block` keys."""
+    writes the f32 dQ partials [nk, B, Tq, H, D] instead, one per 64
+    keys."""
     _check_kernel_inputs(q, k, v)
     _check_backward_inputs(q, grad_out, lse, delta)
     q, k, v = map(_kernel_operand, (q, k, v))
@@ -497,7 +502,7 @@ def _launch_backward(kind, q, k, v, grad_out, lse, delta, causal):
     if kind != _BWD_DQ:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     if kind == _BWD_FUSED and general:
-        nk = -(-k.shape[1] // general_block(q.shape[3]))
+        nk = -(-k.shape[1] // FLASH_BLOCK)
         partials = torch.empty((nk,) + tuple(q.shape), dtype=torch.float32,
                                device=q.device)
     elif kind != _BWD_DKV:
@@ -608,9 +613,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     defaults to the fused one-pass kernel (`fused_backward=None` ->
     True); `fused_backward=False` takes the split pair, the bit-identical
     oracle. Any T works: the kernels mask the ragged edge. On CUDA the
-    kernels take float32 or bfloat16 and any head dim up to 256 (the
-    route by `flash_route`), and raise on anything else; on the CPU the
-    plain versions run at the kernels' tile.
+    kernels take float32 or bfloat16 at any head dim (the route by
+    `flash_route`), and raise on anything else; on the CPU the plain
+    versions run at the kernels' tile.
     """
     if fused_backward is None:
         fused_backward = True

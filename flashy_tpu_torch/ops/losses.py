@@ -7,6 +7,11 @@ from the saved per-token logsumexp, the custom VJP of the JAX package
 (`softmax - onehot`). The `lax.scan` over chunks becomes a Python loop;
 a T that the chunk does not divide ends with a shorter chunk, where the
 JAX package pads. Plain PyTorch: there is no Pallas kernel here.
+
+`head_matmul` is every product of the tied head, here, in the model's
+dense head (`tied_head`) and in the decode steps: operands in the
+compute dtype, f32 accumulation and output, as the JAX package's
+`preferred_element_type=jnp.float32` einsums run them.
 """
 import typing as tp
 
@@ -14,10 +19,60 @@ import torch
 import torch.nn.functional as F
 
 
+def head_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ b [K, N] -> f32 [..., N], both operands in the model's
+    compute dtype: the tied head's products. bf16 operands on CUDA run on
+    the tensor cores with f32 output (`torch.mm`'s `out_dtype`; the
+    products of bf16 values are exact in f32, so only the order of the
+    sums differs from an f32 product). On the CPU, and for f32 operands
+    everywhere, it is the f32 product of the operands widened exactly (f32
+    x f32 on CUDA runs in full f32 unless the caller turns TF32 on). A
+    bf16-output product cast to f32 would round the logits; this never
+    does."""
+    if a.dtype != b.dtype:
+        raise ValueError(f"head_matmul: operand dtypes differ ({a.dtype}, "
+                         f"{b.dtype}); cast both to the compute dtype")
+    flat = a.reshape(-1, a.shape[-1])
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        out = torch.mm(flat, b, out_dtype=torch.float32)
+    else:
+        out = flat.float() @ b.float()
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _TiedHead(torch.autograd.Function):
+    """The dense tied head: f32 logits of x against the embedding cast to
+    x's dtype. The backward rounds dlogits to x's dtype and runs dX and
+    dEmbed through `head_matmul`, as the JAX package's chunked VJP does;
+    dEmbed comes back in the embedding's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, embed):
+        head = embed.to(x.dtype)
+        ctx.save_for_backward(x, head)
+        ctx.embed_dtype = embed.dtype
+        return head_matmul(x, head.t())
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, head = ctx.saved_tensors
+        dl = grad.to(x.dtype)
+        dx = head_matmul(dl, head).to(x.dtype)
+        flat_x = x.reshape(-1, x.shape[-1])
+        dhead = head_matmul(flat_x.t(), dl.reshape(-1, dl.shape[-1])).t()
+        return dx, dhead.to(ctx.embed_dtype)
+
+
+def tied_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """f32 logits [..., V] of final hidden states x [..., D] (compute
+    dtype) against the tied embedding [V, D] (any dtype; cast to x's)."""
+    return _TiedHead.apply(x, embed)
+
+
 def _chunk_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """f32 logits of one chunk: operands in x's dtype, f32 accumulation
     (the dense head's scheme)."""
-    return x.float() @ head.to(x.dtype).float().t()
+    return head_matmul(x, head.to(x.dtype).t())
 
 
 class _ChunkedCrossEntropy(torch.autograd.Function):
@@ -40,7 +95,7 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
     def backward(ctx, grad):
         hidden, head, labels, lse = ctx.saved_tensors
         chunk = ctx.chunk_size
-        head_c = head.to(hidden.dtype).float()
+        head_c = head.to(hidden.dtype)
         dhead = torch.zeros(head.shape, dtype=torch.float32,
                             device=head.device)
         dxs = []
@@ -53,9 +108,11 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
             onehot = F.one_hot(labels[:, c0:c0 + chunk].long(),
                                head.shape[0]).to(probs.dtype)
             dlogits = (probs - onehot) * grad[:, c0:c0 + chunk, None].float()
-            dl = dlogits.to(hidden.dtype).float()
-            dxs.append(dl @ head_c)
-            dhead = dhead + torch.einsum("bcv,bcd->vd", dl, x.float())
+            # operands in the compute dtype, f32 accumulation
+            dl = dlogits.to(hidden.dtype)
+            dxs.append(head_matmul(dl, head_c))
+            dhead = dhead + head_matmul(
+                dl.reshape(-1, dl.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
         dx = torch.cat(dxs, dim=1).to(hidden.dtype)
         return dx, dhead.to(head.dtype), None, None
 

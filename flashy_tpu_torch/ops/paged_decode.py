@@ -7,10 +7,9 @@ speculative verify T = k+1, chunked prefill T = chunk). Two hand-written
 kernels serve it, picked by the shape (`kernel_route`):
 `csrc/paged_decode.cu` takes head_dim 64 with block sizes that are
 powers of two up to 64 (the 235M layout), `csrc/paged_general.cu` every
-other head_dim and block size whose scores fit in a block's shared
-memory for one query row (`general_smem_bytes`: up to ~13,000 keys at
-head_dim 256; it splits the T rows into groups where they do not fit
-together). Their plain version is
+other head_dim and block size (its shared memory, `general_smem_bytes`,
+does not depend on the block size; it splits the T rows into groups
+where they do not fit together). Their plain version is
 `ops.paged_attention.paged_attention`.
 `entrywise_paged_attention` spells the kernel's body in plain PyTorch,
 with its rounding points, so that bf16 results can be held to it
@@ -33,8 +32,6 @@ MAX_QUERIES = 64  # T bound of both kernels (kMaxQueries in the sources)
 HEAD_DIM = 64     # the head_dim paged_decode.cu takes (kDh)
 MAX_BLOCK = 64    # its block sizes: powers of two up to this
 SMEM_BYTES = 232448  # shared memory of a block on sm_90 (kMaxSmem)
-TODO_WIDE_BLOCKS = ("ROADMAP.md queue C, C2b (the paged read's general "
-                    "route at a block whose scores exceed shared memory)")
 
 # Launches of the kernels, by route and pool variant: a plain integer per
 # name, bumped where the kernel is launched and nowhere else.
@@ -106,21 +103,20 @@ def kernel_route(head_dim: int, block_size: int) -> str:
     return "general"
 
 
-def general_smem_bytes(queries: int, head_dim: int, block_size: int,
+def general_smem_bytes(queries: int, head_dim: int,
                        q_dtype: torch.dtype) -> int:
     """Shared memory of a general-route block of `queries` query rows
-    (`smem_bytes` in csrc/paged_general.cu): the f64 chain (f32 with bf16
-    q) and, in f32, q, K or V of up to 64 keys, the scores of a tile of
-    max(block_size, 64) keys, the per-row statistics and, where an entry
-    holds more than 64 keys, the P.V sums carried between its passes."""
-    entries = 1 if block_size >= 64 else 64 // block_size
-    tile, ld = entries * block_size, head_dim + 1
-    kv_rows = min(tile, 64)
+    (`smem_bytes` in csrc/paged_general.cu), whatever the block size: the
+    f64 chain (f32 with bf16 q) and, in f32, q, K or V of 64 keys, the
+    scores of 64 keys a row, the per-row statistics, the scales of 64
+    keys, and for an entry past 64 keys (which goes in two passes of
+    64-key chunks) the P.V sums, the lanes' partial sums and the entry's
+    max."""
+    ld, rows = head_dim + 1, queries
     chain = 8 if q_dtype == torch.float32 else 4
-    return (chain * queries * (head_dim + 1)
-            + 4 * (queries * ld + kv_rows * ld + queries * tile + queries
-                   + queries * entries + 2 * tile
-                   + (queries * head_dim if tile > kv_rows else 0)))
+    return (chain * rows * (head_dim + 1)
+            + 4 * (rows * ld + 64 * ld + rows * 64 + rows + rows * 64
+                   + 2 * 64 + rows * head_dim + rows * 32 + rows))
 
 
 def _signature(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
@@ -163,11 +159,10 @@ def _check_call(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
            and table.dtype == torch.int32, "table must be int32 [B, E]")
     _check(positions.shape == (batch, queries), "positions must be [B, T]")
     if kernel_route(dim, k.shape[1]) == "general":
-        need = general_smem_bytes(1, dim, k.shape[1], q.dtype)
+        need = general_smem_bytes(1, dim, q.dtype)
         _check(need <= SMEM_BYTES,
-               f"block_size {k.shape[1]} at head_dim {dim} needs {need} "
-               f"bytes of shared memory for one query row's scores, over "
-               f"the {SMEM_BYTES} of a block: {TODO_WIDE_BLOCKS}")
+               f"head_dim {dim} needs {need} bytes of shared memory for "
+               f"one query row, over the {SMEM_BYTES} of a block")
     for t in tensors + [positions]:
         _check(t.device == q.device, f"tensors span {t.device} and "
                                      f"{q.device}")
@@ -236,8 +231,8 @@ def fused_paged_attention(q: torch.Tensor, entry: tp.Dict[str, torch.Tensor],
     place. Every engine read path satisfies that; arbitrary per-row
     patterns need `paged_attention`. Returns [B, T, H, Dh] in `dtype`.
     On CUDA the shape picks the kernel (`kernel_route`); T above 64,
-    pools that do not match q, unsupported dtypes and a general-route
-    block whose scores do not fit in shared memory raise.
+    pools that do not match q, unsupported dtypes and a head_dim whose
+    one query row does not fit in shared memory raise.
     """
     if q.device.type == "cpu":
         return paged_attention(q, entry, table, positions,

@@ -3,8 +3,8 @@
 The whole ring-attention forward of one rank is one launch of the
 hand-written Hopper kernel `csrc/ring_attention.cu` in bf16 at head_dim
 64 and 128, or of the flash forward's general route
-`csrc/flash_general.cu` in f32 and at the other head dims up to 256
-(both replace the Pallas TPU kernel `_fused_kernel`): for rank r it runs
+`csrc/flash_general.cu` in f32 and at every other head dim (both
+replace the Pallas TPU kernel `_fused_kernel`): for rank r it runs
 the flash online softmax across the ring steps s = 0, 1, ... over the
 K/V blocks of owners (r - s) mod n, skipping the steps s > r under
 `causal` and masking step 0 in-block. The kernel pulls every visiting
@@ -131,9 +131,8 @@ def ring_forward(q: torch.Tensor, ks: tp.Sequence[torch.Tensor],
                  ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Rank `rank`'s ring forward (out, lse [B, H, T]): the kernel on
     CUDA (bfloat16 at head_dim 64 and 128 on the ring kernel; float32, and
-    bfloat16 at other head dims up to 256, on the flash forward's general
-    route over the visible steps' blocks; wider raises), its plain version
-    on the CPU."""
+    bfloat16 at every other head dim, on the flash forward's general route
+    over the visible steps' blocks), its plain version on the CPU."""
     if _on_cpu(q):
         return ring_forward_plain(q, ks, vs, rank, causal)
     return _launch(q, ks, vs, rank, causal)

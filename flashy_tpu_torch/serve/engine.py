@@ -13,9 +13,20 @@ ssd layout each slot holds one [H, Dh, N] f32 state per layer: prefill
 slices run the chunked scan (on CUDA the Hopper SSD kernel), decode the
 recurrence, and sessions may stream past `max_seq_len`.
 
-PyTorch runs eagerly, so the JAX package's compiled-step cache has no
-counterpart yet (CUDA graphs: ROADMAP.md queue A item 3, L3); the
-pool is updated in place.
+The JAX package's compiled-step cache becomes captured CUDA graphs
+(`serve.compile_cache.CompileCache`): `warmup()` captures one graph for
+each key live traffic can touch, the decode step ("decode", S), the two
+prefill slices ("prefill_chunk", chunk and tail_bucket) and, on the
+paged layout, the copy-on-write block copy ("copy_block",), and every
+later step replays one. A graph reads and writes fixed tensors, so the
+engine's per-slot state, block tables and prefill inputs are static
+buffers filled in place (`copy_`, `fill_`), and the pool is allocated
+once and updated in place. A prefill slice's slot, start and length
+reach its graph as device values in those buffers (its table row, its
+positions, its token mask, its slot index), not as Python ints, so one
+graph serves every slot: the SSD slice gathers the slot's states with
+`index_select` and scatters them back with `index_copy_`. On the CPU
+the same steps run eagerly.
 """
 import logging
 import typing as tp
@@ -30,7 +41,7 @@ from ..ops.paged_attention import block_bytes, init_pool
 from ..ops.paged_decode import default_kernel
 from ..ops.ssd_scan import ssd_state_bytes
 from ..utils import check_same_device, resolve_device
-from .compile_cache import bucket_length
+from .compile_cache import CompileCache, bucket_length
 from .paged import BlockPool, CacheBox, copy_block_fn, paged_apply_step
 
 logger = logging.getLogger(__name__)
@@ -146,6 +157,12 @@ class DecodeEngine:
             ('auto' reads 'gather'); its scan kernel follows
             `config.ssd_kernel`.
         prefix_cache: enable cross-request prefix sharing (paged).
+        compile_cache: the CompileCache to keep the steps in; by default
+            a private one on the engine's device.
+        cuda_graphs: on CUDA, capture the steps as CUDA graphs (the
+            default). False runs them eagerly: only for measurements
+            that hold replay against eager. It is not a fallback: a
+            capture or a replay that fails raises.
         device: `cuda` by default; the CPU only when asked for.
     """
 
@@ -164,6 +181,8 @@ class DecodeEngine:
                  kv_dtype: str = "model",
                  kernel: str = "auto",
                  prefix_cache: bool = True,
+                 compile_cache: tp.Optional[CompileCache] = None,
+                 cuda_graphs: bool = True,
                  device: tp.Any = None):
         self.device = resolve_device(device)
         check_same_device("model", model.embed, self.device)
@@ -243,6 +262,12 @@ class DecodeEngine:
                              "an explicit torch.Generator (greedy needs "
                              "none)")
         self._generator = generator
+        if compile_cache is None:
+            compile_cache = CompileCache(device=self.device,
+                                         cuda_graphs=cuda_graphs)
+        if generator is not None:
+            compile_cache.register_generator(generator)
+        self.compile_cache = compile_cache
         self.pad_token = int(pad_token)
         self.min_bucket = int(min_bucket)
         self.chunk = int(chunk if chunk is not None else self.block_size)
@@ -272,31 +297,61 @@ class DecodeEngine:
             self._cache_box = CacheBox(init_pool(
                 cfg, self.num_blocks, self.block_size, kv_dtype,
                 device=self.device))
-            self._copy = copy_block_fn()
             self._block_bytes = block_bytes(cfg, self.block_size, kv_dtype)
             self._table_host = np.zeros((slots, self._pool.max_blocks),
                                         np.int32)
             self._table_dev = torch.from_numpy(self._table_host).to(
                 self.device)
             self._table_dirty = False
+            # the copy-on-write fork's source and destination blocks
+            self._copy_blocks = torch.zeros((2, 1), dtype=torch.long,
+                                            device=self.device)
         # steps made, by kind (each runs num_layers paged reads or, on
         # the ssd layout, num_layers SSD layers)
         self.step_counts = {"decode": 0, "prefill_chunk": 0}
+        # the steps' static buffers: per-slot state, and the inputs of
+        # each prefill slice size
+        s, dev = self.slots, self.device
+        self._tokens = torch.empty((s,), dtype=torch.long, device=dev)
+        self._positions = torch.empty((s,), dtype=torch.long, device=dev)
+        self._active = torch.empty((s,), dtype=torch.bool, device=dev)
+        self._prefill_inputs = {size: self._prefill_buffers(size)
+                                for size in {self.chunk, self.tail_bucket}}
         self._reset_slot_state()
+
+    def _prefill_buffers(self, size: int) -> tp.Dict[str, torch.Tensor]:
+        """The static inputs of a prefill slice of `size` tokens: tokens
+        and positions [1, size]; on the paged layout the slot's table row
+        [1, max_blocks]; on the ssd layout the token mask [1, size], the
+        slot index [1] and whether the slot starts fresh [1, 1, 1, 1]."""
+        dev = self.device
+        bufs = {"tokens": torch.zeros((1, size), dtype=torch.long,
+                                      device=dev),
+                "positions": torch.zeros((1, size), dtype=torch.long,
+                                         device=dev)}
+        if self._pool is not None:
+            bufs["row"] = torch.zeros((1, self._pool.max_blocks),
+                                      dtype=torch.int32, device=dev)
+        else:
+            bufs["mask"] = torch.zeros((1, size), dtype=torch.bool,
+                                       device=dev)
+            bufs["slot"] = torch.zeros((1,), dtype=torch.long, device=dev)
+            bufs["fresh"] = torch.zeros((1, 1, 1, 1), dtype=torch.bool,
+                                        device=dev)
+        return bufs
 
     def _reset_slot_state(self) -> None:
         """Every slot inactive, parked at `max_seq_len` (its writes land
-        in the sentinel block), on device and in the host mirror."""
-        s, dev = self.slots, self.device
-        self._tokens = torch.full((s,), self.pad_token, dtype=torch.long,
-                                  device=dev)
-        self._positions = torch.full((s,), self.max_seq_len,
-                                     dtype=torch.long, device=dev)
-        self._active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        in the sentinel block), on device (in place: the steps' graphs
+        read these tensors) and in the host mirror."""
+        self._tokens.fill_(self.pad_token)
+        self._positions.fill_(self.max_seq_len)
+        self._active.fill_(False)
         # host mirror: every position move is host-driven, so reading
         # lengths never needs a device->host copy
-        self._positions_host = np.full((s,), self.max_seq_len, np.int64)
-        self._active_host = np.zeros((s,), bool)
+        self._positions_host = np.full((self.slots,), self.max_seq_len,
+                                       np.int64)
+        self._active_host = np.zeros((self.slots,), bool)
 
     @property
     def _cache(self):
@@ -312,11 +367,11 @@ class DecodeEngine:
         return self._cache_box
 
     def _table(self) -> torch.Tensor:
-        """Device copy of the block tables, refreshed only after the host
-        tables changed (admission / retirement, never mid-decode)."""
+        """Device copy of the block tables, refreshed in place only after
+        the host tables changed (admission / retirement, never
+        mid-decode)."""
         if self._table_dirty:
-            self._table_dev = torch.from_numpy(self._table_host).to(
-                self.device)
+            self._table_dev.copy_(torch.from_numpy(self._table_host))
             self._table_dirty = False
         return self._table_dev
 
@@ -335,37 +390,110 @@ class DecodeEngine:
         return bucket_length(prompt_len, minimum=self.min_bucket,
                              maximum=self.max_seq_len)
 
-    @torch.no_grad()
-    def _decode_step(self) -> torch.Tensor:
-        if self._pool is None:
-            # `active` freezes the state of every slot that is not live:
-            # free, or mid-prefill with its state half built
-            logits, _ = _apply_step(
-                self._params, self._cfg, self._tokens[:, None],
-                self._positions[:, None], self._cache, self._positions,
-                state_mask=self._active)
-        else:
-            logits, _ = paged_apply_step(
-                self._params, self._cfg, self._tokens[:, None],
-                self._positions[:, None], self._cache, self._table(),
-                kernel=self.kernel)
-        nxt = sample_tokens(logits[:, -1], self.temperature,
-                            self._generator)
-        return torch.where(self._active, nxt,
-                           torch.full_like(nxt, self.pad_token))
+    # ------------------------------------------------------------------
+    # the steps (eager callables; the compile cache captures them)
+    # ------------------------------------------------------------------
+    def _build_decode(self) -> tp.Callable:
+        """The [S, 1] decode step over the static per-slot state: samples
+        every slot's next token (pad_token where inactive) into `tokens`
+        and advances the live slots' `positions`, in place; returns
+        `tokens`."""
+        params, cfg, kernel = self._params, self._cfg, self.kernel
 
+        def decode(tokens, positions, active, table=None):
+            if table is None:
+                # `active` freezes the state of every slot that is not
+                # live: free, or mid-prefill with its state half built
+                logits, _ = _apply_step(
+                    params, cfg, tokens[:, None], positions[:, None],
+                    self._cache, positions, state_mask=active)
+            else:
+                logits, _ = paged_apply_step(
+                    params, cfg, tokens[:, None], positions[:, None],
+                    self._cache, table, kernel=kernel)
+            nxt = sample_tokens(logits[:, -1], self.temperature,
+                                self._generator)
+            tokens.copy_(torch.where(active, nxt,
+                                     torch.full_like(nxt, self.pad_token)))
+            positions.add_(active.long())
+            return tokens
+
+        return decode
+
+    def _build_prefill(self) -> tp.Callable:
+        """One prefill slice from its static inputs (`_prefill_buffers`);
+        returns the slice's f32 logits [1, size, V]. On the ssd layout
+        the slot's states are gathered (zeroed where it starts fresh),
+        advanced, and scattered back."""
+        params, cfg, kernel = self._params, self._cfg, self.kernel
+        if self._pool is not None:
+            def prefill(tokens, positions, row):
+                logits, _ = paged_apply_step(params, cfg, tokens, positions,
+                                             self._cache, row,
+                                             kernel=kernel)
+                return logits
+
+            return prefill
+
+        def prefill_ssd(tokens, positions, mask, slot, fresh):
+            mini = {}
+            for name, entry in self._cache.items():
+                rows = entry["ssd"].index_select(0, slot)
+                mini[name] = {"ssd": torch.where(
+                    fresh, torch.zeros_like(rows), rows)}
+            logits, _ = _apply_step(params, cfg, tokens, positions, mini, 0,
+                                    token_mask=mask)
+            for name, entry in self._cache.items():
+                entry["ssd"].index_copy_(0, slot, mini[name]["ssd"])
+            return logits
+
+        return prefill_ssd
+
+    def _build_copy(self) -> tp.Callable:
+        """The copy-on-write fork: block blocks[0]'s rows onto block
+        blocks[1], in place, across every layer and leaf."""
+        copy = copy_block_fn()
+        return lambda blocks: copy(self._cache, blocks[0], blocks[1])
+
+    def _decode_args(self) -> tp.Tuple[torch.Tensor, ...]:
+        args = (self._tokens, self._positions, self._active)
+        return args if self._pool is None else args + (self._table(),)
+
+    @torch.no_grad()
     def warmup(self) -> None:
-        """Build the paged-decode kernel (on CUDA) and run one decode over
-        all-sentinel tables: every slot is parked, so the step's writes
-        land in the sentinel block (on the ssd layout, every state is
-        frozen). Call before admitting requests."""
+        """Warm every step live traffic can touch, on scratch inputs over
+        parked slots (their writes land in the sentinel block; on the ssd
+        layout slot 0's state, which a fresh prefill zeroes): the decode
+        step, the prefill slices of `chunk` and `tail_bucket` tokens and,
+        paged, the copy-on-write block copy (sentinel onto sentinel). On
+        CUDA each is built, run once and captured as a CUDA graph; then
+        the compile cache is sealed, so any later capture counts as a
+        recompile. Call before admitting requests."""
         if self.allocator.live_count:
             raise ValueError("warmup() runs before any slot is live")
-        self._decode_step()
+        cache = self.compile_cache
+        for size in sorted(self._prefill_inputs):
+            bufs = self._prefill_inputs[size]
+            bufs["tokens"].fill_(self.pad_token)
+            bufs["positions"].copy_(torch.arange(size)[None])
+            if self._pool is None:
+                bufs["mask"].fill_(False)
+                bufs["mask"][0, 0] = True
+                bufs["fresh"].fill_(True)
+            cache.warm(("prefill_chunk", size), self._build_prefill,
+                       *bufs.values())
+        cache.warm(("decode", self.slots), self._build_decode,
+                   *self._decode_args())
+        if self._pool is not None:
+            self._copy_blocks.zero_()
+            cache.warm(("copy_block",), self._build_copy, self._copy_blocks)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        cache.seal()
         self._reset_slot_state()
-        logger.info("serve warm-up done (kernel=%s)", self.kernel)
+        logger.info("serve warm-up done (kernel=%s): %d steps (%s)",
+                    self.kernel, len(cache),
+                    ", ".join(cache.executables()))
 
     def acquire_slot(self) -> tp.Optional[int]:
         """Claim a free slot (None when all are live) to admit into."""
@@ -401,7 +529,10 @@ class DecodeEngine:
         self._table_host[slot] = row
         self._table_dirty = True
         if cow is not None:
-            self._copy(self._cache, *cow)
+            self._copy_blocks.copy_(torch.tensor(cow)[:, None])
+            with torch.no_grad():
+                self.compile_cache.get(("copy_block",), self._build_copy)(
+                    self._copy_blocks)
         return start
 
     def pool_stats(self) -> tp.Optional[tp.Dict[str, float]]:
@@ -454,15 +585,18 @@ class DecodeEngine:
         final = start + used >= length
         padded = np.full((1, size), self.pad_token, np.int64)
         padded[0, :used] = prompt[start:start + used]
-        tokens = torch.from_numpy(padded).to(self.device)
-        positions = (start + torch.arange(size, device=self.device))[None]
+        bufs = self._prefill_inputs[size]
+        bufs["tokens"].copy_(torch.from_numpy(padded))
+        bufs["positions"].copy_(torch.arange(start, start + size)[None])
         if self._pool is None:
-            logits = self._ssd_prefill(slot, tokens, positions, start, used)
+            bufs["mask"].copy_(torch.arange(size)[None] < used)
+            bufs["slot"].fill_(slot)
+            bufs["fresh"].fill_(start == 0)
         else:
-            row = self._table()[slot:slot + 1]
-            logits, _ = paged_apply_step(self._params, self._cfg, tokens,
-                                         positions, self._cache, row,
-                                         kernel=self.kernel)
+            bufs["row"].copy_(torch.from_numpy(
+                self._table_host[slot:slot + 1]))
+        logits = self.compile_cache.get(("prefill_chunk", size),
+                                        self._build_prefill)(*bufs.values())
         self.step_counts["prefill_chunk"] += 1
         if not final:
             return start + used, None
@@ -474,30 +608,15 @@ class DecodeEngine:
         self._set_slot(slot, first, length, True)
         return start + used, first
 
-    def _ssd_prefill(self, slot: int, tokens: torch.Tensor,
-                     positions: torch.Tensor, start: int,
-                     used: int) -> torch.Tensor:
-        """One prefill slice against the slot's rows of the resident
-        states, updated in place through views; returns the logits."""
-        mini = {name: {"ssd": entry["ssd"][slot:slot + 1]}
-                for name, entry in self._cache.items()}
-        if start == 0:
-            for entry in mini.values():
-                entry["ssd"].zero_()
-        mask = (torch.arange(tokens.shape[1], device=self.device)
-                < used)[None]
-        logits, _ = _apply_step(self._params, self._cfg, tokens, positions,
-                                mini, start, token_mask=mask)
-        return logits
-
+    @torch.no_grad()
     def decode(self) -> np.ndarray:
         """One [S, 1] decode step over every slot; returns the [S] next
         tokens (pad_token on inactive slots)."""
-        tokens = self._decode_step()
+        step = self.compile_cache.get(("decode", self.slots),
+                                      self._build_decode)
+        tokens = step(*self._decode_args())
         self.step_counts["decode"] += 1
         out = tokens.cpu().numpy()
-        self._tokens = tokens
-        self._positions = self._positions + self._active.long()
         self._positions_host += self._active_host
         return out
 

@@ -538,12 +538,14 @@ def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
 def copy_block_fn() -> tp.Callable:
     """Build the COW device copy: `(cache, src, dst) -> cache` with
     block `src`'s rows duplicated onto block `dst` in place, across
-    every layer and leaf (int8 payloads and their scales)."""
+    every layer and leaf (int8 payloads and their scales). `src` and
+    `dst` are [1] int64 tensors on the pool's device, so that one
+    captured step serves every pair of blocks."""
 
-    def copy(cache, src: int, dst: int):
+    def copy(cache, src: torch.Tensor, dst: torch.Tensor):
         for entry in cache.values():
             for leaf in entry.values():
-                leaf[dst] = leaf[src]
+                leaf.index_copy_(0, dst, leaf.index_select(0, src))
         return cache
 
     return copy

@@ -222,9 +222,13 @@ def test_kernel_path_refuses_what_the_kernels_do_not_take():
     from flashy_tpu_torch.ops import attention
     meta = dict(device="meta")
     # head_dim 32 is no longer refused: it takes the general route, as
-    # every head_dim up to 256 does in f32 and all but 64 and 128 do in
-    # bf16; above 256 still raises
+    # every head_dim does in f32 and all but 64 and 128 do in bf16, above
+    # 256 too (the head dim in slabs of 128); below 1 raises
     assert attention.flash_route(32) == "general"
+    assert attention.flash_route(300) == attention.flash_route(576) == \
+        "general"
+    with pytest.raises(ValueError, match="head_dim 0"):
+        attention.flash_route(0)
     # bf16 at 64 and 128 runs the Hopper kernels, each counted by width
     for kernel in (*attention._KERNEL_NAMES, "ring_fwd"):
         for dim in (64, 128):
@@ -240,7 +244,7 @@ def test_kernel_path_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="runs on CUDA"):
         attention._check_kernel_inputs(q, q, q)
     q = torch.empty((1, 8, 2, 300), **meta)
-    with pytest.raises(ValueError, match="head_dim 300"):
+    with pytest.raises(ValueError, match="runs on CUDA"):
         attention._check_kernel_inputs(q, q, q)
     q = torch.empty((1, 8, 2, 64), dtype=torch.float16, **meta)
     with pytest.raises(ValueError, match="dtypes"):
