@@ -236,6 +236,44 @@ checked in the phases above and driven at full width after them:
              six launches of a layer timed beside bound and plain (no
              library call takes those widths).
 
+The LM trainer's switches and SSD training, after them:
+
+ 21. remat step  the 235M model in f32 (TF32 off) at batch 2, seq 256,
+             attention='flash', dropout 0.1 with one seed: loss and every
+             gradient without remat and with remat_policy 'full', 'dots'
+             and 'dots_no_batch', held together at the JAX remat test's
+             bars (loss rtol 1e-6; grads rtol 1e-5, atol 1e-6), the
+             largest difference of each printed; the flash forward
+             launched 12 times without remat and 24 with it (the
+             recompute launches it again), the fused backward 12; then
+             one bf16 AdamW step at `train`'s shapes under each policy
+             and its peak memory;
+ 22. train ema  `train`'s run with ema_decay 0.999, model.remat=true and
+             remat_policy=dots through `main` in a fresh XP: the loss
+             falls, valid runs on the f32 EMA shadow, which is not the
+             live params; a resume restores the shadow bit-equal; a
+             resume with ema_decay=0 drops it with the reference's
+             warning; the flash forward launched 12 x (2 x train + valid
+             steps), the fused backward 12 x train steps; tokens/s, step
+             p50, peak memory, and the EMA update's device ms beside its
+             bound;
+ 23. ssd step  the pure-SSD layout in f32 (TF32 off) at batch 2, seq 256
+             (chunk 256, `default_chunk`): loss and every gradient through
+             the training Function (the scan kernel's forward, the plain
+             chunked form's autograd in the backward) against plain
+             autograd of the chunked form on the card, within 1e-5 of
+             max |plain| per leaf; the scan kernel launched 12 times, the
+             backward's recompute 12 times;
+ 24. ssd train  bf16 AdamW steps on the pure-SSD 235M layout at batch
+             16, seq 1024 through `value_and_grad` and `train_step`: 6
+             steps, the loss falling, the scan kernel launched and the
+             backward recomputed 12 x steps times; tokens/s and step p50
+             over steps 3..6, peak memory (a batch that does not fit is
+             halved, and the line says so); then one layer's scan
+             backward at these shapes (the plain chunked form recomputed
+             and differentiated) timed beside its bound and the kernel's
+             forward.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
 before them.
@@ -3353,6 +3391,447 @@ def ptxas_usage(library):
             f"bytes spilled")
 
 
+# ----------------------------------------------------------------------
+# phases 21-24: the LM trainer's switches (remat policies, dropout, EMA)
+# and SSD training
+# ----------------------------------------------------------------------
+REMAT_POLICIES = (None, "full", "dots", "dots_no_batch")
+DROPOUT_SEED = 1234
+# tests/test_models.py's remat bars: loss rtol 1e-6, grads rtol 1e-5 /
+# atol 1e-6 (elementwise |a - b| <= atol + rtol |b|)
+REMAT_LOSS_RTOL, REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-5, 1e-6
+SSD_TRAIN_RTOL = 1e-5          # kernel-forward vs plain grads, of max |plain|
+EMA_DECAY = 0.999
+
+
+def remat_label(policy):
+    return "none" if policy is None else policy
+
+
+def remat_config(torch, dtype, policy, **kw):
+    """The 235M layout with attention='flash', dropout 0.1 and `policy`
+    (None: no remat)."""
+    return model_config(torch, dtype, 1024, "flash", dropout=0.1,
+                        remat=policy is not None,
+                        remat_policy=policy or "full", **kw)
+
+
+def allclose_excess(torch, got, want, rtol, atol):
+    """The largest |got - want| - (atol + rtol |want|): <= 0 passes."""
+    return ((got.double() - want.double()).abs()
+            - (atol + rtol * want.double().abs())).max().item()
+
+
+def phase_remat_step(torch, device, card):
+    """Loss and every gradient of the full-width model in f32 (TF32 off)
+    at batch 2, seq 256, attention='flash', dropout 0.1 with one seed:
+    no remat, 'full', 'dots' and 'dots_no_batch', held together at the
+    JAX remat test's bars; flash forward launches layers without remat
+    and 2 x layers with it (the recompute launches it again), the fused
+    backward layers. Then one bf16 AdamW step at `train`'s shapes under
+    each policy: peak memory. Returns the flash launches by policy."""
+    import functools
+    from flashy_tpu_torch.examples.lm.solver import (build_optimizer,
+                                                     synthetic_token_stream,
+                                                     train_step)
+    from flashy_tpu_torch.models import transformer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    stream = synthetic_token_stream(32768)
+    tokens = torch.from_numpy(stream(2, 256, 0)).long().to(device)
+    loss_fn = functools.partial(lm_next_token_loss, train=True,
+                                dropout_seed=DROPOUT_SEED)
+    layers = 12
+    name = functools.partial(attention.counter_name, head_dim=64,
+                             dtype=torch.float32)
+    results, counts, state = {}, {}, None
+    for policy in REMAT_POLICIES:
+        model = transformer.TransformerLM(
+            remat_config(torch, torch.float32, policy), device=device,
+            seed=3)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        attention.reset_launch_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = loss_fn(model, tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts[policy] = nonzero(attention.launch_counts)
+        want = {name("flash_fwd"): layers * (1 if policy is None else 2),
+                name("flash_bwd_fused"): layers}
+        if counts[policy] != want:
+            fail(f"remat step {remat_label(policy)}: launches "
+                 f"{counts[policy]}, expected {want}")
+        results[policy] = (loss.item(), {n: p.grad for n, p in
+                                         model.named_parameters()})
+        del model, loss
+    base_loss, base_grads = results[None]
+    notes = []
+    for policy in REMAT_POLICIES[1:]:
+        loss, grads = results[policy]
+        loss_diff = abs(loss - base_loss)
+        worst = max(allclose_excess(torch, grads[n], g, REMAT_RTOL,
+                                    REMAT_ATOL) for n, g in base_grads.items())
+        largest = max((grads[n].double() - g.double()).abs().max().item()
+                      for n, g in base_grads.items())
+        bitwise = loss == base_loss and all(
+            torch.equal(grads[n], g) for n, g in base_grads.items())
+        if loss_diff > REMAT_LOSS_RTOL * abs(base_loss) or worst > 0 \
+                or not math.isfinite(largest):
+            fail(f"remat step {policy}: loss {loss} vs {base_loss}, grads "
+                 f"past rtol {REMAT_RTOL} / atol {REMAT_ATOL} by {worst}")
+        notes.append(f"{policy}: loss diff {loss_diff:.3e}, largest grad "
+                     f"diff {largest:.3e}"
+                     f"{' (bitwise)' if bitwise else ''}")
+    del results, base_grads
+    # peak memory of one bf16 step at train's shapes under each policy
+    release_memory(torch)
+    batch = torch.from_numpy(stream(16, 1024, 1)).long().to(device)
+    cfg = {"epochs": 2, "steps_per_epoch": 8, "warmup_steps": 100,
+           "lr": 3e-4, "weight_decay": 0.1}
+    peaks = {}
+    for policy in REMAT_POLICIES:
+        model = transformer.TransformerLM(
+            remat_config(torch, torch.bfloat16, policy), device=device,
+            seed=3)
+        optimizer, schedule = build_optimizer(model, cfg)
+        for step in range(2):   # the first allocates AdamW's moments
+            if step == 1:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            metrics = train_step(model, optimizer, schedule, step, batch,
+                                 loss_fn)
+            float(metrics["loss"])
+        peaks[policy] = (torch.cuda.max_memory_allocated() / 2 ** 30,
+                         (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        del model, optimizer, metrics
+        torch.cuda.empty_cache()
+    order = sorted(REMAT_POLICIES, key=lambda p: -peaks[p][0])
+    if peaks[None][0] <= peaks["full"][0]:
+        fail(f"remat step: peak memory without remat {peaks[None][0]:.2f} "
+             f"GiB not above full remat's {peaks['full'][0]:.2f}")
+    print(f"remat step: 235M f32 b2 t256 flash dropout 0.1 (seed "
+          f"{DROPOUT_SEED}), every policy against no remat at rtol "
+          f"{REMAT_RTOL} / atol {REMAT_ATOL} (loss rtol {REMAT_LOSS_RTOL}): "
+          + "; ".join(notes) + f"; flash launches "
+          + ", ".join(f"{remat_label(p)} {counts[p]}" for p in REMAT_POLICIES)
+          + "; one bf16 step b16 t1024, peak memory (above the step's "
+          "start) " + ", ".join(f"{remat_label(p)} {peaks[p][0]:.2f} GiB "
+                                f"({peaks[p][1]:.2f})"
+                                for p in REMAT_POLICIES)
+          + " (order " + " > ".join(remat_label(p) for p in order)
+          + f") [{card}]", flush=True)
+    return counts
+
+
+def release_memory(torch):
+    """Collect what earlier phases dropped and hand the allocator's cached
+    blocks back, so that a phase's step times and peak memory do not
+    depend on the phases before it."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class LogRecords:
+    """A logging handler that keeps the records it is given."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+
+    def text(self) -> str:
+        return "\n".join(r.getMessage() for r in self.records)
+
+
+def phase_train_ema(torch, card, folder):
+    """`train`'s run with ema_decay 0.999 and model.remat=true,
+    remat_policy=dots through `main` in a fresh XP: the loss falls, valid
+    runs on the EMA shadow and the shadow is not the live params; a
+    resume restores the shadow bit-equal; a resume with ema_decay=0
+    drops it with the reference's warning. Launches: flash forward
+    layers x (2 x train + valid steps), fused backward layers x train
+    steps. tokens/s, step p50, peak memory, and the EMA update's device
+    ms a step beside its bound. Returns the launch counts."""
+    import logging
+    from flashy_tpu_torch.ema import ema_update
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    # ema_decay out of the signature, so that the run without EMA resumes
+    # the same XP
+    args = TRAIN_ARGS + [f"dora.dir={folder}", "model.remat=true",
+                         "model.remat_policy=dots", "epochs=2",
+                         "dora.exclude=[steps_per_epoch,epochs,"
+                         "generate_every,valid_steps,device,ema_decay]"]
+    release_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    solver = lm_main(args + [f"ema_decay={EMA_DECAY}"])
+    torch.cuda.synchronize()
+    counts = nonzero(attention.launch_counts)
+    cfg = solver.cfg
+    train_steps = cfg.epochs * cfg.steps_per_epoch
+    valid_steps = cfg.epochs * cfg.valid_steps
+    layers = cfg.model.num_layers
+    want = {"flash_fwd": layers * (2 * train_steps + valid_steps),
+            "flash_bwd_fused": layers * train_steps}
+    if counts != want:
+        fail(f"train ema: launches {counts}, expected {want}")
+    losses = [entry["train"]["loss"] for entry in solver.history]
+    if not all(math.isfinite(x) for x in losses) or losses[1] >= losses[0]:
+        fail(f"train ema: epoch losses {losses} not finite and falling")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shadow = solver.state["ema"]
+    params = dict(solver.model.named_parameters())
+    same = [n for n in shadow if torch.equal(shadow[n], params[n].detach())]
+    if same or any(t.dtype != torch.float32 for t in shadow.values()):
+        fail(f"train ema: the shadow equals the live params at {same[:4]} "
+             f"or is not f32")
+    with torch.no_grad():
+        batches = [solver.batch_at(i, eval_set=True)
+                   for i in range(cfg.valid_steps)]
+        on_shadow = sum(float(solver.loss(t, params=shadow))
+                        for t in batches) / len(batches)
+        on_live = sum(float(solver.loss(t)) for t in batches) / len(batches)
+    logged = solver.history[-1]["valid"]["loss"]
+    if abs(on_shadow - logged) > 1e-5 * abs(logged) or on_shadow == on_live:
+        fail(f"train ema: valid logged {logged}, on the shadow {on_shadow}, "
+             f"on the live params {on_live}: valid did not run on the shadow")
+    # the update alone, on a copy of the shadow: device ms beside the
+    # bound (the shadow and the params read, the shadow written)
+    copy = {n: t.clone() for n, t in shadow.items()}
+    live = list(params.values())
+    ema = time_runs(torch, lambda: ema_update(copy, live, EMA_DECAY,
+                                              step=1000), iters=10)
+    numel = sum(t.numel() for t in shadow.values())
+    ema_bytes = numel * (4 + 4 + params[next(iter(params))].element_size())
+    ema_bound = ema_bytes / HBM_BYTES_PER_S * 1e3
+    saved = {n: t.clone() for n, t in shadow.items()}
+    del solver, copy, live, params, shadow
+    resumed = lm_main(args + [f"ema_decay={EMA_DECAY}"])
+    if not resumed.restored or resumed.state["step"] != train_steps \
+            or list(resumed.state["ema"]) != list(saved) or any(
+                not torch.equal(resumed.state["ema"][n], t)
+                for n, t in saved.items()):
+        fail("train ema: the resume did not restore the shadow bit-equal")
+    del resumed, saved
+    records = LogRecords()
+    solver_log = logging.getLogger("flashy_tpu_torch.solver")
+    solver_log.addHandler(records.handler)
+    try:
+        dropped = lm_main(args + ["ema_decay=0"])
+    finally:
+        solver_log.removeHandler(records.handler)
+    warning = "ema_decay=0 but the checkpoint carries an EMA shadow"
+    if not dropped.restored or "ema" in dropped.state \
+            or warning not in records.text():
+        fail(f"train ema: the resume with ema_decay=0 kept the shadow or "
+             f"did not warn ({records.text()!r})")
+    del dropped
+    print(f"train ema: 235M bf16 b16 t1024 ema_decay {EMA_DECAY}, remat "
+          f"dots, {train_steps} steps + {valid_steps} valid, epoch losses "
+          f"{losses[0]:.4f} -> {losses[1]:.4f}, tokens/s={tok_s:.1f}, step "
+          f"p50={p50:.2f} ms (steps 3..{train_steps}), peak memory "
+          f"{peak:.1f} GiB; valid on the shadow {on_shadow:.4f} (live params "
+          f"{on_live:.4f}); resume: shadow bit-equal; ema_decay=0: dropped "
+          f"with the warning; launches {counts}; EMA update {numel / 1e6:.1f}M"
+          f" f32 {spread_text(ema)}, bound {ema_bound:.4f} ms "
+          f"({ema_bytes / 1e9:.2f} GB at 3.35 TB/s) [{card}]", flush=True)
+    return counts
+
+
+def ssd_train_config(torch, dtype):
+    """The pure-SSD 235M layout (state dim 16) as training takes it: the
+    chunk `default_chunk(T)` picks (256 at T 256 and 1024)."""
+    return model_config(torch, dtype, 1024, mixer="ssd", ssd_state_dim=16,
+                        ssd_chunk=0)
+
+
+def phase_ssd_step(torch, device, card):
+    """Loss and every gradient of the pure-SSD layout in f32 (TF32 off) at
+    batch 2, seq 256: through the training Function (the scan kernel's
+    forward, the plain chunked form's autograd in the backward) and
+    through plain autograd of the chunked form on the card, within 1e-5
+    of max |plain| per leaf; the scan kernel launches layers times and
+    the backward recomputes layers times. Returns the kernel's counts."""
+    import dataclasses
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import ssd_scan
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    tokens = torch.from_numpy(synthetic_token_stream(32768)(2, 256, 0)
+                              ).long().to(device)
+    cfg = ssd_train_config(torch, torch.float32)
+    results, counts, state = {}, {}, None
+    for kernel in ("auto", "gather"):
+        model = TransformerLM(dataclasses.replace(cfg, ssd_kernel=kernel),
+                              device=device, seed=3)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        ssd_scan.reset_launch_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = lm_next_token_loss(model, tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts[kernel] = {**nonzero(ssd_scan.launch_counts),
+                          **nonzero(ssd_scan.backward_counts)}
+        results[kernel] = (loss.item(), {n: p.grad for n, p in
+                                         model.named_parameters()})
+        del model, loss
+    layers = cfg.num_layers
+    want = {"auto": {"ssd_scan_fma": layers, "ssd_scan_backward": layers},
+            "gather": {}}
+    if counts != want:
+        fail(f"ssd step: launches {counts}, expected {want}")
+    (loss, grads), (plain_loss, plain_grads) = results["auto"], \
+        results["gather"]
+    worst = max(rel_err(grads[n], g) for n, g in plain_grads.items())
+    loss_err = abs(loss - plain_loss) / abs(plain_loss)
+    if not math.isfinite(worst) or worst > SSD_TRAIN_RTOL \
+            or loss_err > SSD_TRAIN_RTOL:
+        fail(f"ssd step: kernel vs plain grads rel err {worst}, loss rel err "
+             f"{loss_err} (limit {SSD_TRAIN_RTOL})")
+    print(f"ssd step: pure-SSD 235M f32 b2 t256 chunk "
+          f"{ssd_scan.default_chunk(256)}, loss {loss:.6f}; the training "
+          f"Function (kernel forward) vs plain autograd of the chunked form: "
+          f"loss rel err {loss_err:.2e}, grads max rel err {worst:.2e} "
+          f"(limit {SSD_TRAIN_RTOL}); launches {counts['auto']} [{card}]",
+          flush=True)
+    return counts["auto"]
+
+
+def ssd_backward_bound(B, H, T, N, Dh, chunk, elem):
+    """(bound ms, 'bytes' | 'operations') of one layer's scan backward:
+    c, b, v, la and dy read once, dc, db, dv and dla written once, over
+    3.35 TB/s, against twice the forward's operations (each product's
+    gradient with respect to both its operands) at `ssd_bound`'s
+    peaks."""
+    pairs = sum(min(chunk, T - lo) * (min(chunk, T - lo) + 1) // 2
+                for lo in range(0, T, chunk))
+    rows = B * H
+    nbytes = rows * T * (2 * (2 * N + Dh) * elem + Dh * elem + 8)
+    products = rows * (2 * pairs * (N + Dh) + 4 * T * N * Dh)
+    peak = BF16_FLOPS if elem == 2 else F32_FLOPS
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * (products / peak + rows * pairs / F32_FLOPS) * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def time_ssd_backward(torch, device, card, B=16, T=1024, H=16, N=16,
+                      Dh=64):
+    """One layer's scan backward at `ssd train`'s shapes (bf16 c, b, v
+    slices of a projection, f32 log-decays, the training chunk): the
+    training Function's backward (the plain chunked form recomputed and
+    differentiated, plain PyTorch: no backward kernel exists to port)
+    timed as device time three times beside its bound, and the kernel's
+    forward on the same inputs."""
+    from flashy_tpu_torch.ops import ssd_scan
+    chunk = ssd_scan.default_chunk(T)
+    gen = torch.Generator(device=device).manual_seed(11)
+    proj = torch.randn(B, T, H, 2 * N + Dh + 1, generator=gen,
+                       device=device).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(B, T, H, Dh, generator=gen, device=device).to(
+        torch.bfloat16)
+    c, b, v = proj[..., :N], proj[..., N:2 * N], proj[..., 2 * N:-1]
+    la = -torch.nn.functional.softplus(proj[..., -1].float())
+    y, _ = ssd_scan.ssd_chunked_scan(c, b, v, la, chunk=chunk)
+    backward = time_runs(torch, lambda: torch.autograd.grad(
+        y, proj, dy, retain_graph=True), iters=3)
+    with torch.no_grad():
+        forward = time_runs(torch, lambda: ssd_scan.ssd_chunked_scan(
+            c, b, v, la, chunk=chunk), iters=20)
+    bound, bound_by = ssd_backward_bound(B, H, T, N, Dh, chunk, 2)
+    print(f"ssd backward: one layer [{B}, {T}] bf16 chunk {chunk}, the "
+          f"plain chunked form recomputed and differentiated "
+          f"{spread_text(backward)}, bound {bound:.4f} ms ({bound_by}); "
+          f"the kernel's forward on the same inputs {spread_text(forward)} "
+          f"[{card}]", flush=True)
+    return {"shape": [B, T, H, N, Dh], "ms": backward["ms"],
+            "ms_runs": backward["ms_runs"], "bound_ms": bound,
+            "bound_by": bound_by, "forward_ms": forward["ms"]}
+
+
+def phase_ssd_train(torch, device, card, batch=16, steps=6):
+    """bf16 AdamW steps on the pure-SSD 235M layout at batch 16, seq 1024
+    through the port's `value_and_grad` and `train_step` (the JAX LM
+    solver takes no `mixer`: a user's own loop): the loss falls, the
+    scan kernel launches once per layer per step, the backward
+    recomputes as often; tokens/s and step p50 over steps 3..6, peak
+    memory. A batch that does not fit is halved, and the line says so.
+    Returns the launch counts."""
+    from flashy_tpu_torch.examples.lm.solver import (build_optimizer,
+                                                     synthetic_token_stream,
+                                                     train_step)
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import ssd_scan
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.utils import percentile
+    stream = synthetic_token_stream(32768)
+    cfg = {"epochs": 1, "steps_per_epoch": steps, "warmup_steps": 2,
+           "lr": 3e-4, "weight_decay": 0.1}
+    note = ""
+    release_memory(torch)
+    while True:
+        model = TransformerLM(ssd_train_config(torch, torch.bfloat16),
+                              device=device, seed=0)
+        optimizer, schedule = build_optimizer(model, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        ssd_scan.reset_launch_counts()
+        losses, seconds = [], []
+        try:
+            for step in range(steps):
+                tokens = torch.from_numpy(stream(batch, 1024, step)).long() \
+                    .to(device)
+                t0 = time.perf_counter()
+                metrics = train_step(model, optimizer, schedule, step,
+                                     tokens, lm_next_token_loss)
+                losses.append(float(metrics["loss"]))
+                seconds.append(time.perf_counter() - t0)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            del model, optimizer
+            torch.cuda.empty_cache()
+            note += f" batch {batch} did not fit, halved;"
+            batch //= 2
+    counts = {**nonzero(ssd_scan.launch_counts),
+              **nonzero(ssd_scan.backward_counts)}
+    layers = model.config.num_layers
+    want = {"ssd_scan": layers * steps, "ssd_scan_backward": layers * steps}
+    if counts != want:
+        fail(f"ssd train: launches {counts}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"ssd train: step losses {losses} not finite and falling")
+    timed = seconds[2:]
+    tok_s = batch * 1024 * len(timed) / sum(timed)
+    p50 = percentile(timed, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(p.numel() for p in model.parameters())
+    del model, optimizer
+    print(f"ssd train: pure-SSD {params / 1e6:.0f}M bf16 b{batch} t1024 "
+          f"chunk {ssd_scan.default_chunk(1024)},{note} {steps} steps, step "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, tokens/s="
+          f"{tok_s:.1f}, step p50={p50:.2f} ms (steps 3..{steps}), peak "
+          f"memory {peak:.1f} GiB; launches {counts} [{card}]", flush=True)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -3473,6 +3952,14 @@ def main() -> None:
     w260_counts = phase_step_w260(torch, device, card)
     padded_times, padded_errors = time_gmm_padded(torch, device, card)
 
+    # the LM trainer's switches and SSD training
+    phase_remat_step(torch, device, card)
+    with tempfile.TemporaryDirectory() as folder:
+        phase_train_ema(torch, card, folder)
+    ssd_step_counts = phase_ssd_step(torch, device, card)
+    ssd_train_counts = phase_ssd_train(torch, device, card)
+    ssd_backward = time_ssd_backward(torch, device, card)
+
     # the split pair runs every ring backward: its main path is `ring
     # train` (`ring train d128` at 128), so its rows take the launches,
     # times and errors of the ring's pairs (the split run of `step` and
@@ -3553,12 +4040,17 @@ def main() -> None:
                                        long_["max_abs_err"]),
                     **{key: slice_[key] for key in keys},
                     "long": {"shape": list(SSD_SHAPES[1]),
-                             **{key: long_[key] for key in keys}}})
+                             **{key: long_[key] for key in keys}},
+                    "train_launches": ssd_train_counts["ssd_scan"],
+                    "train_backward_recomputes": ssd_train_counts[
+                        "ssd_scan_backward"],
+                    "train_backward": ssd_backward})
     kernels.append({"name": "ssd_scan_fma", "route": "cuda",
                     "source": SSD_SOURCE, "replaces": SSD_REPLACES,
                     "launches": ssd_fma_launches,
                     "max_abs_err": max(ssd_errors["float32"], ssd_fma_error),
-                    "shape": list(SSD_N128), **ssd_fma_times})
+                    "shape": list(SSD_N128), **ssd_fma_times,
+                    "train_launches": ssd_step_counts["ssd_scan_fma"]})
     # the main path's launches at its shapes and dtypes (the small cases'
     # errors, in every dtype form, are on the `gmm kernels` line); the
     # padded route's at the `step w260` layer

@@ -11,6 +11,10 @@ These slices of the JAX package run here, on an NVIDIA H100:
   sequence-parallel attention (`attention='ring_fused'`, `mesh.seq > 1`)
   runs the ring kernel of `csrc/ring_attention.cu` (`parallel.ring_fused`)
   over ranks that share one card;
+  The LM trainer's switches: selective remat (`remat_policy`), dropout,
+  a parameter EMA (`ema`), SSD training (the scan kernel's forward, the
+  plain chunked form's backward); TensorBoard and wandb backends
+  (`loggers`); `python -m flashy_tpu_torch.info` lists the XPs;
 * serving: the TransformerLM behind a paged KV cache and a continuous-
   batching scheduler, every paged-attention read through the kernel of
   `csrc/paged_decode.cu` (`ops.paged_decode`).

@@ -18,6 +18,17 @@ loss; `model.moe_dispatch=dropless` runs the expert projections through
 the Hopper grouped-GEMM kernels, forward and backward. It runs on the
 card; `device=cpu` runs it on the host, and nothing else does.
 
+`model.remat=true` recomputes each block in the backward, saving what
+`model.remat_policy` (full | dots | dots_no_batch) says. `ema_decay > 0`
+(a key the config does not list, read with a default of 0, as the JAX
+solver reads it) keeps an f32 EMA shadow of every parameter in
+`self.state["ema"]`, folded in after every update with the warm-up
+decay of `ema.ema_update` and checkpointed with the rest; `valid`
+evaluates the shadow, `generate` the live parameters. `value_and_grad`
+and `train_step` take a `dropout_seed` for models with `dropout > 0`
+(each microbatch folds its index in); the solver itself trains without
+dropout, as the JAX solver does.
+
 The optimizer is the JAX package's optax chain, written out so a test
 can drive it on any model: `clip_by_global_norm(1.0)` (no epsilon, the
 norm taken before clipping is the logged `grad_norm`), then AdamW (eps
@@ -34,17 +45,17 @@ import torch
 from torch import nn
 
 from ... import distrib
+from ...ema import ema_update
 from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
-from ...models.transformer import TransformerConfig, TransformerLM
+from ...models.transformer import (TransformerConfig, TransformerLM,
+                                   fold_seed)
 from ...ops.losses import lm_next_token_loss
 from ...parallel.mesh import Mesh, make_mesh
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
-
-TODO_EMA = "ROADMAP.md queue A item 2, T3 (parameter EMA)"
 
 
 def synthetic_token_stream(vocab_size: int, seed: int = 0):
@@ -106,22 +117,31 @@ def build_optimizer(model: nn.Module, cfg: tp.Mapping
 
 
 def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
-                   tokens: torch.Tensor, accumulate: int = 1
-                   ) -> torch.Tensor:
+                   tokens: torch.Tensor, accumulate: int = 1,
+                   dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
     """The loss, with the gradients left in each parameter's `.grad`.
 
     With `accumulate` > 1 the batch is split into that many microbatches
     run in sequence (peak activation memory divided by `accumulate`):
     the f32 gradients and losses are summed, then scaled by
-    1/accumulate, as `with_grad_accumulation` does.
+    1/accumulate, as `with_grad_accumulation` does. With `dropout_seed`
+    the loss is called as `loss_fn(model, micro, dropout_seed=s)`, `s`
+    the seed with the microbatch index folded in (`fold_seed`), so each
+    microbatch draws its own masks, as `with_grad_accumulation
+    (fold_rng=True)` folds the index into a PRNG key.
     """
     model.zero_grad(set_to_none=True)
     if tokens.shape[0] % accumulate:
         raise ValueError(f"batch {tokens.shape[0]} does not split into "
                          f"{accumulate} microbatches")
     total = None
-    for micro in tokens.split(tokens.shape[0] // accumulate):
-        loss = loss_fn(model, micro)
+    for index, micro in enumerate(
+            tokens.split(tokens.shape[0] // accumulate)):
+        if dropout_seed is None:
+            loss = loss_fn(model, micro)
+        else:
+            loss = loss_fn(model, micro,
+                           dropout_seed=fold_seed(dropout_seed, index))
         loss.backward()
         loss = loss.detach().float()
         total = loss if total is None else total + loss
@@ -137,13 +157,15 @@ def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                schedule: tp.Callable[[int], float], step: int,
                tokens: torch.Tensor, loss_fn: tp.Callable,
-               accumulate: int = 1, max_norm: float = 1.0
+               accumulate: int = 1, max_norm: float = 1.0,
+               dropout_seed: tp.Optional[int] = None
                ) -> tp.Dict[str, torch.Tensor]:
     """One update at step count `step` (before the increment): loss and
-    grads, the global norm, optax's clip (`g / norm * max_norm` once the
-    norm reaches `max_norm`, no epsilon), AdamW at `schedule(step)`.
-    Returns the loss and the unclipped `grad_norm` as device scalars."""
-    loss = value_and_grad(model, loss_fn, tokens, accumulate)
+    grads (`value_and_grad`, with `dropout_seed`), the global norm,
+    optax's clip (`g / norm * max_norm` once the norm reaches
+    `max_norm`, no epsilon), AdamW at `schedule(step)`. Returns the loss
+    and the unclipped `grad_norm` as device scalars."""
+    loss = value_and_grad(model, loss_fn, tokens, accumulate, dropout_seed)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
     for grad in grads:
@@ -177,9 +199,6 @@ class LMSolver(BaseSolver):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = check_mesh(cfg.mesh, cfg.model.attention)
-        if float(cfg.get("ema_decay", 0.0)) > 0.0:
-            raise NotImplementedError(f"ema_decay > 0 is not ported yet: "
-                                      f"{TODO_EMA}")
         model_cfg = TransformerConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
@@ -201,8 +220,12 @@ class LMSolver(BaseSolver):
         self.model = TransformerLM(model_cfg, device=self.device, seed=0,
                                    mesh=self.mesh)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
-        # the update count: the schedule reads it, so it is checkpointed
-        self.state = {"step": 0}
+        # the update count: the schedule reads it, so it is checkpointed;
+        # with ema_decay > 0 also the EMA shadow, name -> f32 tensor
+        self.state: tp.Dict[str, tp.Any] = {"step": 0}
+        self.ema_decay = float(cfg.get("ema_decay", 0.0))
+        if self.ema_decay > 0.0:
+            self.reset_ema()
         self.register_stateful("model", "optimizer", "state")
         self._stream = synthetic_token_stream(cfg.model.vocab_size)
         self.restored = False
@@ -210,10 +233,24 @@ class LMSolver(BaseSolver):
         self.step_seconds: tp.List[float] = []
         self.step_losses: tp.List[float] = []
 
-    def loss(self, tokens: torch.Tensor) -> torch.Tensor:
+    def reset_ema(self) -> None:
+        """(Re)start the EMA shadow as an f32 copy of the live params."""
+        self.state["ema"] = {name: p.detach().float().clone() for name, p
+                             in self.model.named_parameters()}
+
+    def loss(self, tokens: torch.Tensor,
+             params: tp.Optional[tp.Mapping[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
         """Mean next-token CE, plus `moe_aux_weight` times the MoE layers'
-        load-balancing loss for an MoE model."""
-        return lm_next_token_loss(self.model, tokens,
+        load-balancing loss for an MoE model; with `params` (name ->
+        tensor, e.g. the EMA shadow) the model runs on those instead of
+        its own (`torch.func.functional_call`)."""
+        model: tp.Callable = self.model
+        if params is not None:
+            def model(*args, **kwargs):
+                return torch.func.functional_call(self.model, params, args,
+                                                  kwargs)
+        return lm_next_token_loss(model, tokens,
                                   aux_weight=self.aux_weight if self.moe
                                   else None,
                                   mode=self.cfg.get("loss", "dense"),
@@ -251,6 +288,12 @@ class LMSolver(BaseSolver):
                 self.state["step"], self.batch_at(global_step),
                 lambda model, tokens: self.loss(tokens),
                 accumulate=int(cfg.get("accumulate", 1)))
+            if "ema" in self.state:
+                # after the update, at the step count before it
+                params = dict(self.model.named_parameters())
+                ema_update(self.state["ema"],
+                           [params[name] for name in self.state["ema"]],
+                           self.ema_decay, step=self.state["step"])
             self.state["step"] += 1
             # reading the metrics to the host waits for the whole step
             metrics = average(step_metrics)
@@ -264,14 +307,17 @@ class LMSolver(BaseSolver):
         return metrics
 
     def valid(self):
-        """Held-out loss: the same loss function, no update."""
+        """Held-out loss: the same loss function, no update; on the EMA
+        shadow when there is one (the eval weights), as the JAX solver
+        evaluates it."""
         average = averager()
         steps = range(self.cfg.get("valid_steps", 4))
         progress = self.log_progress("valid", steps, updates=2)
         metrics: tp.Dict[str, float] = {}
         with torch.no_grad():
             for index in progress:
-                loss = self.loss(self.batch_at(index, eval_set=True))
+                loss = self.loss(self.batch_at(index, eval_set=True),
+                                 params=self.state.get("ema"))
                 metrics = average({"loss": loss})
                 progress.update(**metrics)
         metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
@@ -292,14 +338,27 @@ class LMSolver(BaseSolver):
                 out.shape[0] * 32 / (time.time() - begin)}
 
     def _reconcile_ema(self) -> None:
-        """Align the restored state with this run's EMA config. The port
-        has no EMA (ema_decay > 0 raises at construction), so a restored
-        shadow is dropped loudly."""
-        if "ema" in self.state:
+        """Align the restored state with this run's `ema_decay`, loudly:
+        a checkpoint without a shadow resumed with EMA on gets a fresh
+        shadow from the restored params; a shadow resumed with EMA off
+        is dropped. A restored shadow goes back onto the params' devices
+        (the checkpoint loads onto the CPU), bit for bit."""
+        if self.ema_decay > 0.0 and "ema" not in self.state:
+            self.logger.warning(
+                "checkpoint has no EMA shadow but ema_decay=%s: "
+                "re-initializing the shadow from the restored params",
+                self.ema_decay)
+            self.reset_ema()
+        elif self.ema_decay <= 0.0 and "ema" in self.state:
             self.logger.warning(
                 "ema_decay=0 but the checkpoint carries an EMA shadow: "
                 "dropping it (eval will use the live params)")
             del self.state["ema"]
+        elif "ema" in self.state:
+            params = dict(self.model.named_parameters())
+            self.state["ema"] = {
+                name: shadow.to(params[name].device, torch.float32)
+                for name, shadow in self.state["ema"].items()}
 
     def run(self):
         self.restored = self.restore()

@@ -1,11 +1,13 @@
-"""Logging: process-wide setup, progress bars as log lines, and per-epoch
-result fan-out (the port of flashy_tpu/logging.py).
+"""Logging: process-wide setup, progress bars as log lines, the serving
+metrics' display rules, and per-epoch result fan-out to the experiment
+logger backends (the port of flashy_tpu/logging.py).
 
-TensorBoard and wandb backends are not ported: `ResultLogger` owns the
-local filesystem backend only, and `init_tensorboard` / `init_wandb`
-raise.
+`ResultLogger` always owns the local filesystem backend; TensorBoard
+(`init_tensorboard`) and wandb (`init_wandb`) attach on demand, each
+importing its package then and raising ImportError where it is missing.
 """
 import logging
+from argparse import Namespace
 import sys
 import time
 import typing as tp
@@ -14,9 +16,6 @@ from pathlib import Path
 
 from .formatter import Formatter
 from .utils import AnyPath
-
-TODO_BACKENDS = ("ROADMAP.md queue A item 2, T4 (TensorBoard and wandb "
-                 "loggers)")
 
 _LEVEL_COLORS = {"DEBUG": "36", "INFO": "32", "WARNING": "33",
                  "ERROR": "31", "CRITICAL": "1;31"}
@@ -30,6 +29,27 @@ def colorize(text: str, color: str) -> str:
 def bold(text: str) -> str:
     """Render text in bold in the terminal."""
     return colorize(text, "1")
+
+
+def serve_formatter() -> Formatter:
+    """The display rules of the serving metrics: latencies (`*_ms*` keys)
+    with an ms suffix, occupancy and acceptance as percentages, request
+    and token tallies as integers; the JAX package's patterns and
+    renderings."""
+    def as_ms(value: float) -> str:
+        return f"{value:.1f}ms"
+
+    def as_percent(value: float) -> str:
+        return f"{value * 100:.0f}%"
+
+    return Formatter(formats={
+        "*_ms_p*": as_ms, "*_ms": as_ms,
+        "occupancy*": as_percent, "acceptance_rate": as_percent,
+        "queue_depth*": ".1f", "accepted_per_step*": ".1f",
+        "requests": "d", "completed": "d", "rejected": "d", "expired": "d",
+        "tokens": "d", "finish_*": "d",
+        "spec_drafted": "d", "spec_emitted": "d",
+    })
 
 
 class _AnsiFormatter(logging.Formatter):
@@ -166,9 +186,10 @@ class LogProgressBar:
 
 
 class ResultLogger:
-    """Fans experiment results out to the logger backends (the local
-    filesystem one, writing into the XP folder) and prints the bold
-    one-line stage summary."""
+    """Fans experiment results out to every logger backend (always the
+    local filesystem one, writing into the XP folder; TensorBoard and
+    wandb once initialized) and prints the bold one-line stage
+    summary."""
 
     def __init__(self, logger: logging.Logger, level: int = logging.INFO,
                  delimiter: str = "|"):
@@ -177,19 +198,29 @@ class ResultLogger:
         self._level = level
         self._delimiter = delimiter
         self._experiment_loggers: tp.Dict[str, tp.Any] = {
-            "local": LocalFSLogger.from_xp()}
+            "local": LocalFSLogger.from_xp(with_media_logging=True)}
 
     def init_tensorboard(self, **kwargs: tp.Any) -> None:
-        raise NotImplementedError(
-            f"the TensorBoard backend is not ported yet: {TODO_BACKENDS}")
+        """Attach a TensorBoard backend writing under the XP folder;
+        raises ImportError when no TensorBoard package is installed."""
+        from .loggers.tensorboard import TensorboardLogger
+        self._experiment_loggers["tensorboard"] = \
+            TensorboardLogger.from_xp(**kwargs)
 
     def init_wandb(self, **kwargs: tp.Any) -> None:
-        raise NotImplementedError(
-            f"the wandb backend is not ported yet: {TODO_BACKENDS}")
+        """Attach a wandb backend whose run id is the XP signature;
+        raises ImportError when `wandb` is not installed."""
+        from .loggers.wandb import WandbLogger
+        self._experiment_loggers["wandb"] = WandbLogger.from_xp(**kwargs)
 
     def _fanout(self, method: str, *args: tp.Any, **kwargs: tp.Any) -> None:
         for backend in self._experiment_loggers.values():
             getattr(backend, method)(*args, **kwargs)
+
+    def log_hyperparams(self, params: tp.Union[tp.Dict[str, tp.Any],
+                                               Namespace],
+                        metrics: tp.Optional[dict] = None) -> None:
+        self._fanout("log_hyperparams", params, metrics)
 
     def get_log_progress_bar(self, stage: str, iterable: Iterable,
                              updates: int = 5,
@@ -217,6 +248,16 @@ class ResultLogger:
         self._logger.log(self._level,
                          bold(f" {self._delimiter} ".join(parts)))
         self._fanout("log_metrics", stage, metrics, step)
+
+    def log_audio(self, stage: str, key: str, audio: tp.Any,
+                  sample_rate: int, step: tp.Optional[int] = None,
+                  **kwargs: tp.Any) -> None:
+        self._fanout("log_audio", stage, key, audio, sample_rate, step,
+                     **kwargs)
+
+    def log_image(self, stage: str, key: str, image: tp.Any,
+                  step: tp.Optional[int] = None, **kwargs: tp.Any) -> None:
+        self._fanout("log_image", stage, key, image, step, **kwargs)
 
     def log_text(self, stage: str, key: str, text: str,
                  step: tp.Optional[int] = None, **kwargs: tp.Any) -> None:

@@ -12,9 +12,12 @@ logit:
 so a layer's whole sequence-mixing memory is one [H, Dh, N] f32 state
 per sequence. The uncached forward runs the chunked form
 (`ops.ssd_scan.ssd_chunked_scan`, the Hopper kernel on CUDA); decoding
-advances the recurrence (`models.decoding`). Leaves keep the flax
-layouts: `cbv.kernel` [D, H, 2N+Dh+1], `dt_bias` [H] and `out.kernel`
-[H, Dh, D].
+advances the recurrence (`models.decoding`). In training the scan's
+backward differentiates the plain chunked form (`ops.ssd_scan.
+SsdScanFunction`), and with dropout > 0 the block drops the mixer's
+output as it drops attention's (`models.transformer.Block`). Leaves keep
+the flax layouts: `cbv.kernel` [D, H, 2N+Dh+1], `dt_bias` [H] and
+`out.kernel` [H, Dh, D].
 """
 import typing as tp
 

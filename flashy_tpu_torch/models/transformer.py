@@ -35,6 +35,20 @@ of width `dim * mlp_ratio`); its `moe_dispatch='dropless'` runs the
 expert projections as grouped matmuls, on CUDA through the Hopper
 grouped-GEMM kernels, and `forward(..., return_aux=True)` also returns
 the summed load-balancing loss.
+
+Training switches, as in the JAX package:
+- `dropout > 0` applies dropout after each mixer's output projection
+  and after the MLP's down projection, only with `forward(...,
+  train=True, dropout_seed=s)`. Each site draws its mask from a
+  `torch.Generator` of its own on the activation's device, seeded with
+  `fold_seed(s, layer, site)`, so a recompute draws the same mask.
+- `remat=True` recomputes each block in the backward
+  (`torch.utils.checkpoint`); `remat_policy` says what it saves: 'full'
+  nothing, 'dots' the outputs of every matrix product, 'dots_no_batch'
+  those of the products with no batch dimension (`remat_saves`). The
+  flash and SSD kernels launch through `torch.autograd.Function`s that
+  no policy sees, so under every policy their forwards launch again in
+  the backward's recompute, as the Pallas kernels do under JAX's.
 """
 import dataclasses
 import math
@@ -43,6 +57,8 @@ import typing as tp
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.losses import tied_head
@@ -53,8 +69,6 @@ from ..utils import resolve_device
 from .moe import MoEMLP, moe_aux_loss
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_REMAT_POLICY = "ROADMAP.md queue A item 2, T1 (remat 'dots' policies)"
-TODO_DROPOUT = "ROADMAP.md queue A item 2, T2 (dropout)"
 TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (scan-stacked "
                         "layouts; MoE in the serving engine)")
 
@@ -71,8 +85,11 @@ class TransformerConfig:
     attention: str = "flash"     # 'flash' | 'dense' | 'ring' | 'ring_fused'
     causal: bool = True
     remat: bool = False          # recompute each block in the backward
-    remat_policy: str = "full"   # what remat saves: 'full' = nothing
-    dropout: float = 0.0         # > 0 is not ported (check_supported)
+    remat_policy: str = "full"   # what remat saves: 'full' nothing,
+                                 # 'dots' every matrix product's output,
+                                 # 'dots_no_batch' those with no batch dim
+    dropout: float = 0.0         # after the mixer and MLP outputs when
+                                 # forward(train=True, dropout_seed=...)
     moe_experts: int = 0         # > 0 replaces the MLP with a routed MoE
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -113,17 +130,98 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.scan_layers:
         raise NotImplementedError(
             f"scan_layers=True is not ported yet: {TODO_DECODE_VARIANTS}")
-    if cfg.dropout > 0.0:
-        raise NotImplementedError(
-            f"dropout > 0 is not ported yet: {TODO_DROPOUT}")
-    if cfg.remat_policy in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet: "
-            f"{TODO_REMAT_POLICY}")
-    if cfg.remat_policy != "full":
-        raise ValueError(f"remat_policy must be one of ['dots', "
-                         f"'dots_no_batch', 'full'], got "
-                         f"{cfg.remat_policy!r}")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {list(REMAT_POLICIES)}"
+                         f", got {cfg.remat_policy!r}")
+
+
+REMAT_POLICIES = ("dots", "dots_no_batch", "full")
+# the matrix products as the dispatcher sees them: torch.einsum lowers a
+# product to bmm (a projection with no batch dimension to a batch of 1),
+# `@` on a [B, T, D] activation and a matrix to mm
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_PRODUCTS = (torch.ops.aten.bmm.default,
+                     torch.ops.aten.baddbmm.default)
+
+
+def remat_saves(policy: str, op: tp.Any, *args: tp.Any) -> bool:
+    """Whether the selective recompute of `remat_policy=policy` saves the
+    output of the aten op `op` called on `args` (everything else is
+    recomputed in the backward).
+
+    'dots' saves every matrix product, as `jax.checkpoint_policies.
+    dots_saveable` does; 'dots_no_batch' those with no batch dimension,
+    as `dots_with_no_batch_dims_saveable` does: mm and addmm, and bmm or
+    baddbmm over a batch of 1, which is how torch.einsum runs the
+    projections that flax runs as a `dot_general` with no batch
+    dimension ([B, T, D] x [D, ...] -> one [1, B*T, D] x [1, D, ...]
+    bmm). A product with a true batch of 1 (dense attention at one
+    sequence of one head) counts as no-batch too; that changes what is
+    kept, not a value. 'full' saves nothing.
+    """
+    if policy == "full":
+        return False
+    if op in _NO_BATCH_PRODUCTS:
+        return True
+    if op in _BATCHED_PRODUCTS:
+        lhs = args[0] if op == torch.ops.aten.bmm.default else args[1]
+        return policy == "dots" or lhs.shape[0] == 1
+    return False
+
+
+def remat_context_fn(policy: str) -> tp.Callable:
+    """The `context_fn` of `torch.utils.checkpoint.checkpoint` that
+    implements `policy` (`remat_saves`) as a selective checkpoint."""
+
+    def policy_fn(ctx: tp.Any, op: tp.Any, *args: tp.Any,
+                  **kwargs: tp.Any) -> CheckpointPolicy:
+        return (CheckpointPolicy.MUST_SAVE if remat_saves(policy, op, *args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
+
+_SEED_MASK = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _SEED_MASK
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _SEED_MASK
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _SEED_MASK
+    return x ^ (x >> 31)
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A seed derived from `seed` and the integers `data` (a layer index,
+    a dropout site, a microbatch index), the port's counterpart of
+    `jax.random.fold_in`: SplitMix64's finalizer over the seed, then
+    over the running value XOR each datum in turn; 63 bits, as
+    `torch.Generator.manual_seed` takes them."""
+    value = _splitmix64(int(seed) & _SEED_MASK)
+    for datum in data:
+        value = _splitmix64(value ^ (int(datum) & _SEED_MASK))
+    return value & ((1 << 63) - 1)
+
+
+# dropout sites of a block: after the mixer, after the MLP
+DROPOUT_MIXER, DROPOUT_MLP = 0, 1
+
+
+def dropout(x: torch.Tensor, rate: float, seed: tp.Optional[int]
+            ) -> torch.Tensor:
+    """flax's `nn.Dropout(rate)` in training: keep each value with
+    probability 1 - rate, scaled by 1 / (1 - rate), else 0. The mask is
+    drawn from a fresh `torch.Generator` on x's device seeded with
+    `seed`, so the same seed draws the same mask, in a recompute too.
+    `seed=None` (not training) returns x."""
+    if seed is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    generator = torch.Generator(device=x.device).manual_seed(seed)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -238,12 +336,14 @@ class MLPBlock(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm block; its mixer submodule is `ssd` or `attn`, as in the
-    flax tree."""
+    flax tree. `index` is its layer, which seeds its dropout sites."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
                  device: torch.device, mixer: str = "attention",
-                 mesh: tp.Optional[Mesh] = None):
+                 mesh: tp.Optional[Mesh] = None, index: int = 0):
         super().__init__()
+        self.config = cfg
+        self.index = index
         self.mixer = mixer
         self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
         if mixer == "ssd":
@@ -262,12 +362,24 @@ class Block(nn.Module):
             self.mlp = MLPBlock(cfg, generator, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                segment_ids: tp.Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                segment_ids: tp.Optional[torch.Tensor] = None,
+                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+        """With `dropout_seed` (training with dropout > 0) dropout follows
+        the mixer's output projection and the MLP's down projection (not
+        an MoE layer's, as in the JAX package), each site seeded with
+        `fold_seed(dropout_seed, index, site)`."""
+        rate = self.config.dropout
+
+        def site(number: int) -> tp.Optional[int]:
+            return None if dropout_seed is None else fold_seed(
+                dropout_seed, self.index, number)
+
         mix = self.ssd if self.mixer == "ssd" else self.attn
-        x = x + mix(self.norm1(x), positions, segment_ids)
-        ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return x + ffn(self.norm2(x))
+        x = x + dropout(mix(self.norm1(x), positions, segment_ids), rate,
+                        site(DROPOUT_MIXER))
+        if hasattr(self, "moe"):
+            return x + self.moe(self.norm2(x))
+        return x + dropout(self.mlp(self.norm2(x)), rate, site(DROPOUT_MLP))
 
 
 class TransformerLM(nn.Module):
@@ -297,7 +409,7 @@ class TransformerLM(nn.Module):
                             generator, device)
         for i, mixer in enumerate(mixer_pattern(config)):
             setattr(self, f"block_{i}", Block(config, generator, device,
-                                              mixer, mesh))
+                                              mixer, mesh, index=i))
         self.norm_f = RMSNorm(config.dim, config.dtype, device)
 
     @property
@@ -308,15 +420,29 @@ class TransformerLM(nn.Module):
                 positions: tp.Optional[torch.Tensor] = None,
                 segment_ids: tp.Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
-                return_aux: bool = False) -> tp.Any:
+                return_aux: bool = False, train: bool = False,
+                dropout_seed: tp.Optional[int] = None) -> tp.Any:
         """Logits [B, T, vocab] f32, or with `return_hidden` the final
         hidden states and the tied embedding (for a chunked loss that
         never materializes the logits), or with `return_aux` the logits
         and the MoE layers' summed load-balancing loss of this forward
         (`models.moe.moe_aux_loss`). `segment_ids` ([B, T], 0 =
         padding) makes attention segment-aware for packed batches; pass
-        the packer's per-segment `positions` with them."""
+        the packer's per-segment `positions` with them.
+
+        `train=True` turns dropout on when `config.dropout > 0`, as the
+        JAX package's `train` does (`nn.Module.training` plays no part:
+        `generate` and the serving engine never drop); it then needs a
+        `dropout_seed` (an int), as flax needs a 'dropout' rng."""
         cfg = self.config
+        if train and cfg.dropout > 0.0:
+            if dropout_seed is None:
+                raise ValueError(
+                    f"train=True with dropout={cfg.dropout} needs a "
+                    f"dropout_seed (the JAX package needs rngs="
+                    f"{{'dropout': key}})")
+        else:
+            dropout_seed = None
         if return_hidden and return_aux:
             raise ValueError("return_hidden and return_aux exclude each "
                              "other (the chunked loss takes no MoE aux)")
@@ -330,13 +456,16 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
         x = self.embed[tokens].to(cfg.dtype)
+        remat = {} if cfg.remat_policy == "full" else {
+            "context_fn": remat_context_fn(cfg.remat_policy)}
         for i in range(cfg.num_layers):
             block = getattr(self, f"block_{i}")
             if cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
-                    block, x, positions, segment_ids, use_reentrant=False)
+                    block, x, positions, segment_ids, dropout_seed,
+                    use_reentrant=False, **remat)
             else:
-                x = block(x, positions, segment_ids)
+                x = block(x, positions, segment_ids, dropout_seed)
         x = self.norm_f(x)
         if return_hidden:
             return x, self.embed

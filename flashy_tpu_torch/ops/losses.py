@@ -131,27 +131,29 @@ def chunked_softmax_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 
 def lm_next_token_loss(model: tp.Callable, tokens: torch.Tensor, *,
                        mode: str = "dense", chunk_size: int = 256,
-                       aux_weight: tp.Optional[float] = None
-                       ) -> torch.Tensor:
+                       aux_weight: tp.Optional[float] = None,
+                       **model_kwargs: tp.Any) -> torch.Tensor:
     """Mean next-token CE of a TransformerLM, dense or chunked head.
 
     'dense' materializes the [B, T, V] f32 logits; 'chunked' runs
     `chunked_softmax_cross_entropy` over the final hidden states. Both
     are the same math. With `aux_weight` (an MoE model; dense only) the
     loss adds `aux_weight` times the MoE layers' load-balancing loss.
+    `model_kwargs` go to the model's forward (`train=True,
+    dropout_seed=s` for dropout).
     """
     if mode not in ("dense", "chunked"):
         raise ValueError(f"mode must be 'dense' or 'chunked', got {mode!r}")
     if mode == "dense":
         if aux_weight is None:
-            logits, aux = model(tokens), None
+            logits, aux = model(tokens, **model_kwargs), None
         else:
-            logits, aux = model(tokens, return_aux=True)
+            logits, aux = model(tokens, return_aux=True, **model_kwargs)
         ce = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                              tokens[:, 1:].reshape(-1).long())
         return ce if aux is None else ce + aux_weight * aux
     if aux_weight is not None:
         raise ValueError("the chunked loss takes no MoE aux loss")
-    hidden, head = model(tokens, return_hidden=True)
+    hidden, head = model(tokens, return_hidden=True, **model_kwargs)
     return chunked_softmax_cross_entropy(hidden[:, :-1], head, tokens[:, 1:],
                                          chunk_size).mean()

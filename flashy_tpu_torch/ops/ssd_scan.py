@@ -25,10 +25,14 @@ tensors and the plain version on the CPU. An explicit 'fused' on the
 CPU raises. On CUDA a call is one launch: the kernel reads c, b, v and
 the log-decays where they lie (the model's projection slices, by their
 strides), applies the token mask itself and writes y in [B, T, H, Dh]
-(`kernel_args`). The kernel is forward-only, as the TPU kernel is: a 'fused'
-call on tensors that require grad raises (SSD training is
-`TODO_SSD_TRAINING`). The port has no tuning cache, so `chunk=None`
-takes `default_chunk(T)`, the reference's choice on a cache miss.
+(`kernel_args`). The kernel is forward-only, as the TPU kernel is.
+Training goes through `SsdScanFunction`: its forward is the kernel, its
+backward recomputes the plain chunked form from the saved inputs and
+differentiates it, which is what the JAX package's `jax.grad` does (XLA's
+autodiff of `_chunked_reference`; no backward kernel exists to port).
+'fused' and, on CUDA, 'auto' take it whenever an input requires grad.
+The port has no tuning cache, so `chunk=None` takes `default_chunk(T)`,
+the reference's choice on a cache miss.
 """
 import ctypes
 import typing as tp
@@ -47,14 +51,14 @@ SSD_LOG_RESET = -1e30
 CHUNK_CANDIDATES: tp.Tuple[int, ...] = (16, 32, 64, 128, 256)
 MAX_CHUNK = 256
 
-TODO_SSD_TRAINING = ("ROADMAP.md queue A item 2, T9 (SSD training: autograd "
-                     "through the plain chunked form)")
-
 # Launches of the kernels, by route: a plain integer each, bumped where
 # the kernel is launched and nowhere else. "ssd_scan" is the bf16 tile
 # kernel on the tensor cores, "ssd_scan_fma" the FMA kernel (f32, and
 # bf16 at the widths the tile kernel does not take).
 launch_counts: tp.Dict[str, int] = {"ssd_scan": 0, "ssd_scan_fma": 0}
+# Recomputes of the plain chunked form in `SsdScanFunction`'s backward
+# (plain PyTorch, not a kernel launch): one a backward.
+backward_counts: tp.Dict[str, int] = {"ssd_scan_backward": 0}
 
 
 class _SsdArgs(ctypes.Structure):
@@ -91,8 +95,9 @@ _checked: tp.Set[tuple] = set()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, backward_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def default_ssd_kernel(device: torch.device) -> str:
@@ -298,6 +303,63 @@ def _launch(c, b, v, la, state, mask, chunk: int):
     return y, final
 
 
+def _plain_scan(c, b, v, la, state, mask, chunk: int):
+    """The plain chunked form on [B, T, H, *] inputs, the token mask
+    applied as `_masked_inputs` does: (y [B, T, H, Dh] in v's dtype, final
+    state f32). `state=None` is a zero state."""
+    b, la = _masked_inputs(b, la, mask)
+    if state is None:
+        state = torch.zeros((c.shape[0], c.shape[2], v.shape[-1],
+                             c.shape[-1]), dtype=torch.float32,
+                            device=c.device)
+    y, final = _chunked_reference(
+        _to_heads_first(c), _to_heads_first(b), _to_heads_first(v),
+        _to_heads_first(la.float()), state.float(), chunk)
+    return _to_heads_first(y).to(v.dtype), final
+
+
+class SsdScanFunction(torch.autograd.Function):
+    """The chunked scan for training: the forward is `forward_fn` (the
+    Hopper kernel, `_launch`), which returns y and the final state; only
+    the inputs are saved. The backward recomputes the plain chunked form
+    (`_plain_scan`) on detached copies under grad and returns
+    `torch.autograd.grad` of it for c, b, v, the log decays and the
+    carried-in state; either output's gradient may be None. Each
+    backward adds one to `backward_counts['ssd_scan_backward']`.
+
+    `SsdScanFunction.apply(c, b, v, la, state, mask, chunk, forward_fn)`:
+    la f32, state f32 or None, mask bool [B, T] or None.
+    """
+
+    @staticmethod
+    def forward(ctx, c, b, v, la, state, mask, chunk, forward_fn):
+        ctx.save_for_backward(c, b, v, la, state, mask)
+        ctx.chunk = chunk
+        return forward_fn(c, b, v, la, state, mask, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        *saved, mask = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [i for i, t in enumerate(inputs)
+                  if t is not None and t.requires_grad]
+        grads: tp.List[tp.Optional[torch.Tensor]] = [None] * len(inputs)
+        if wanted and (grad_y is not None or grad_final is not None):
+            with torch.enable_grad():
+                y, final = _plain_scan(*inputs, mask, ctx.chunk)
+            pairs = [(out, grad) for out, grad in ((y, grad_y),
+                                                   (final, grad_final))
+                     if grad is not None]
+            found = torch.autograd.grad(
+                [out for out, _ in pairs], [inputs[i] for i in wanted],
+                [grad for _, grad in pairs], allow_unused=True)
+            backward_counts["ssd_scan_backward"] += 1
+            for i, grad in zip(wanted, found):
+                grads[i] = grad
+        return (*grads, None, None, None)
+
+
 def ssd_chunked_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
                      log_decay: torch.Tensor, *,
                      state: tp.Optional[torch.Tensor] = None,
@@ -323,7 +385,10 @@ def ssd_chunked_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
         token_mask: optional [B, T] bool, True on real tokens; padded
             tokens neither decay nor feed the state.
         kernel: 'fused' (the Hopper kernel, CUDA only), 'gather' (its
-            plain version) or 'auto' (`default_ssd_kernel`).
+            plain version) or 'auto' (`default_ssd_kernel`). Where an
+            input requires grad (and grad is on), 'fused' runs the kernel
+            through `SsdScanFunction`, whose backward differentiates the
+            plain version.
 
     Returns (y [B, T, H, Dh] in v's dtype, final state [B, H, Dh,
     Dstate] f32).
@@ -333,37 +398,26 @@ def ssd_chunked_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
                          f"got {kernel!r}")
     if kernel == "auto":
         kernel = default_ssd_kernel(c.device)
-    if kernel == "fused":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (c, b, v, log_decay, state)):
-            raise NotImplementedError(
-                f"the ssd scan kernel is forward-only, as the TPU kernel "
-                f"is: {TODO_SSD_TRAINING}")
-        if c.device.type != "cuda":
-            raise ValueError(
-                f"kernel='fused' cannot run here: the ssd scan kernel is "
-                f"CUDA-only and the tensors lie on {c.device}; use "
-                f"kernel='gather' (or 'auto')")
-    batch, seq, heads, dstate = c.shape
-    dim = v.shape[-1]
+    if kernel == "fused" and c.device.type != "cuda":
+        raise ValueError(
+            f"kernel='fused' cannot run here: the ssd scan kernel is "
+            f"CUDA-only and the tensors lie on {c.device}; use "
+            f"kernel='gather' (or 'auto')")
+    seq = c.shape[1]
     if chunk is None:
         chunk = default_chunk(seq)
     elif chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     chunk = min(int(chunk), seq)
-    if kernel == "fused":
-        return _launch(c, b, v, log_decay.float(),
-                       None if state is None else state.float().contiguous(),
-                       token_mask, chunk)
-    b, log_decay = _masked_inputs(b, log_decay, token_mask)
-    if state is None:
-        state = torch.zeros((batch, heads, dim, dstate),
-                            dtype=torch.float32, device=c.device)
-    y, final = _chunked_reference(
-        _to_heads_first(c), _to_heads_first(b), _to_heads_first(v),
-        _to_heads_first(log_decay.float()), state.float(), chunk)
-    return _to_heads_first(y).to(v.dtype), final
+    if kernel == "gather":
+        return _plain_scan(c, b, v, log_decay, state, token_mask, chunk)
+    la = log_decay.float()
+    state = None if state is None else state.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (c, b, v, la, state)):
+        return SsdScanFunction.apply(c, b, v, la, state, token_mask, chunk,
+                                     _launch)
+    return _launch(c, b, v, la, state, token_mask, chunk)
 
 
 def ssd_recurrent_scan(c: torch.Tensor, b: torch.Tensor, v: torch.Tensor,

@@ -5,7 +5,10 @@ A solver owns the experiment (`self.xp`), a registry of stateful
 attributes (`register_stateful`) and a result logger. Time is organized
 in epochs of named stages; `commit()` appends the epoch's stage metrics
 to the history and writes the checkpoint, both atomically, so an
-interrupted run resumes exactly at the last committed epoch.
+interrupted run resumes exactly at the last committed epoch. Results
+(metrics, hyperparameters, text, audio, images) fan out to the XP
+folder and, once `init_tensorboard` / `init_wandb` attached them, to
+TensorBoard and wandb.
 
 Not ported yet, each raising `NotImplementedError` that names its
 ROADMAP entry: telemetry and profiling, the preemption guard, the hang
@@ -91,6 +94,10 @@ class BaseSolver:
             raise RuntimeError(
                 "No stage is active: call this from within run_stage().")
 
+    def log_hyperparams(self, params: dict,
+                        metrics: tp.Optional[dict] = None) -> None:
+        self.result_logger.log_hyperparams(params, metrics)
+
     def log_progress(self, stage_name: str, iterable: tp.Iterable,
                      total: tp.Optional[int] = None, updates: int = 5,
                      **kwargs: tp.Any) -> LogProgressBar:
@@ -114,6 +121,16 @@ class BaseSolver:
             formatter = self.formatter
         self.result_logger.log_metrics(stage_name, metrics, step=self.epoch,
                                        step_name="epoch", formatter=formatter)
+
+    def log_audio(self, stage_name: str, key: str, audio: tp.Any,
+                  sample_rate: int, **kwargs: tp.Any) -> None:
+        self.result_logger.log_audio(stage_name, key, audio, sample_rate,
+                                     self.epoch, **kwargs)
+
+    def log_image(self, stage_name: str, key: str, image: tp.Any,
+                  **kwargs: tp.Any) -> None:
+        self.result_logger.log_image(stage_name, key, image, self.epoch,
+                                     **kwargs)
 
     def log_text(self, stage_name: str, key: str, text: str,
                  **kwargs: tp.Any) -> None:

@@ -1,6 +1,7 @@
 """Small host-side helpers shared across the port: metric averaging,
-atomic file writes, percentiles and device resolution (the port's own
-copy of what it needs from flashy_tpu/utils.py)."""
+atomic file writes, percentiles, frozen parameter trees and device
+resolution (the port's own copy of what it needs from
+flashy_tpu/utils.py)."""
 import os
 import typing as tp
 from collections import defaultdict
@@ -47,6 +48,29 @@ def write_and_rename(path: AnyPath, mode: str = "wb", suffix: str = ".tmp",
     with open(tmp_path, mode) as f:
         yield f
     os.rename(tmp_path, path)
+
+
+def freeze(tree: tp.Any) -> tp.Any:
+    """The tree (dicts, lists and tuples, any nesting) with every tensor
+    leaf detached: the values are shared, not copied, and no gradient
+    reaches them through the returned tree. Other leaves pass through
+    unchanged. The port of the JAX package's `freeze`
+    (`jax.lax.stop_gradient` over a pytree): apply an adversary with
+    `functional_call(model, freeze(params), x)` and its parameters get
+    no gradient from the enclosing backward."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return type(tree)({key: freeze(value) for key, value in tree.items()})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(freeze(value) for value in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(freeze(value) for value in tree)
+    return tree
+
+
+# the reference's name for the same thing
+readonly = freeze
 
 
 def percentile(samples: tp.Sequence[float], q: float) -> float:

@@ -207,6 +207,11 @@ def get_xp() -> XP:
     return _current_xp
 
 
+def is_xp_active() -> bool:
+    """Whether an XP is active (`get_xp()` would return one)."""
+    return _current_xp is not None
+
+
 def create_xp(cfg: tp.Mapping, root: tp.Optional[AnyPath] = None,
               argv: tp.Optional[tp.List[str]] = None) -> XP:
     """Build an XP from a resolved config. Its root is `root`, else
@@ -225,9 +230,25 @@ def create_xp(cfg: tp.Mapping, root: tp.Optional[AnyPath] = None,
     return xp
 
 
+def get_xp_from_sig(sig: str, root: tp.Optional[AnyPath] = None) -> XP:
+    """Re-attach to an existing XP by its signature (notebooks, eval
+    scripts): its config is the snapshot its first run saved. The root
+    is `root`, else `./outputs_torch`; a signature with no snapshot
+    there raises FileNotFoundError."""
+    folder_root = Path(root or DEFAULT_ROOT)
+    folder = folder_root / "xps" / sig
+    snapshot = folder / CONFIG_SNAPSHOT_NAME
+    if not snapshot.exists():
+        raise FileNotFoundError(f"No XP with sig {sig} under {folder_root}")
+    with open(snapshot) as f:
+        cfg = Config(json.load(f))
+    return XP(sig=sig, cfg=cfg, folder=folder)
+
+
 class _EntryPoint:
     """What the `main` decorator returns: the script entry point, which
-    also offers `get_xp(argv)` and a `.dir` override of the XP root."""
+    also offers `get_xp(argv)`, `get_xp_from_sig(sig)` and a `.dir`
+    override of the XP root."""
 
     def __init__(self, fn: tp.Callable, config_path: tp.Optional[str],
                  config_name: str):
@@ -268,6 +289,9 @@ class _EntryPoint:
         cfg, _ = self._resolve(list(argv or []))
         return create_xp(cfg, root=self.dir, argv=list(argv or []))
 
+    def get_xp_from_sig(self, sig: str) -> XP:
+        return get_xp_from_sig(sig, root=self.dir)
+
     def __call__(self, argv: tp.Optional[tp.Sequence[str]] = None):
         argv = list(sys.argv[1:] if argv is None else argv)
         if "--help" in argv or "-h" in argv:
@@ -300,6 +324,10 @@ def main(config_path: tp.Optional[str] = None, config_name: str = "config"
         return _EntryPoint(fn, config_path, config_name)
 
     return decorator
+
+
+# the reference's entry-point name
+hydra_main = main
 
 
 @contextmanager

@@ -56,8 +56,7 @@ def test_unported_paths_raise_not_implemented():
     from flashy_tpu_torch.serve.engine import DecodeEngine
     base = dict(TINY, dtype=torch.float32)
     for bad in (dict(moe_experts=2, moe_dispatch="dropless_ep"),
-                dict(scan_layers=True),
-                dict(dropout=0.1), dict(remat=True, remat_policy="dots")):
+                dict(scan_layers=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(**base, **bad), device="cpu")
     # a hybrid stack runs uncached; serving it needs the dense slabs (L1)

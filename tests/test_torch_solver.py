@@ -203,7 +203,8 @@ def test_failed_save_rolls_history_back(monkeypatch):
 @pytest.mark.parametrize("override,match", [
     ({"mesh": {"tensor": 2}}, "queue A item 8"),
     ({"mesh": {"data": 2}}, "queue A item 5"),
-    ({"ema_decay": 0.999}, "queue A item 2, T3"),
+    ({"model": {"moe_experts": 4, "moe_dispatch": "dropless_ep"}},
+     "queue A item 8"),
 ])
 def test_lm_solver_refuses_what_one_card_lacks(override, match):
     from flashy_tpu_torch.examples.lm.solver import LMSolver

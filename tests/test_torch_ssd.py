@@ -298,8 +298,8 @@ def test_fused_kernel_seam_on_the_cpu():
     assert ssd_scan.default_ssd_kernel(c.device) == "gather"
     with pytest.raises(ValueError, match="CUDA-only"):
         ssd_scan.ssd_chunked_scan(c, b, v, log_a, chunk=8, kernel="fused")
-    # forward-only, as the TPU kernel is: no silent plain path for grads
-    with pytest.raises(NotImplementedError, match="T9"):
+    # with grad too: 'fused' never quietly takes the plain path
+    with pytest.raises(ValueError, match="CUDA-only"):
         ssd_scan.ssd_chunked_scan(c.requires_grad_(), b, v, log_a, chunk=8,
                                   kernel="fused")
     # 'auto' takes the plain version for CPU tensors, no launch
@@ -534,3 +534,124 @@ def test_chunked_reference_matches_jax_at_mamba2_state_width():
                                    atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("overrides", [SSD, HYBRID], ids=["ssd", "hybrid"])
+def test_ssd_lm_loss_and_grads_match_jax(overrides):
+    # SSD training: the port's autograd of the chunked form against
+    # jax.value_and_grad through the JAX gather path, at rtol 1e-5 /
+    # atol 1e-6
+    import optax
+    from flashy_tpu_torch.models.convert import params_from_jax
+    jax_model, params, model = tiny_pair(seed=5, ssd_kernel="gather",
+                                         **overrides)
+    tokens = np.random.default_rng(9).integers(0, VOCAB, (2, 29)).astype(
+        np.int32)
+
+    def loss_fn(params):
+        logits = jax_model.apply(params, jnp.asarray(tokens))
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits[:, :-1], jnp.asarray(tokens[:, 1:])).mean()
+
+    want, jax_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    logits = model(torch.from_numpy(tokens))
+    loss = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, VOCAB),
+        torch.from_numpy(tokens[:, 1:]).long().reshape(-1))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    want_grads = params_from_jax(jax.tree.map(np.asarray, jax_grads),
+                                 model.config)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def _projection_case(seed, with_state, with_mask):
+    """c, b, v as slices of one [B, T, H, 2N+Dh+1] projection (the
+    model's layout) and f32 log-decays from its last column; a reset
+    sentinel, a carried state and padding where asked."""
+    from flashy_tpu_torch.models.ssd import ssd_log_decay
+    rng = np.random.default_rng(seed)
+    n, dh = 4, 8
+    proj = torch.from_numpy(rng.standard_normal(
+        (2, 29, 2, 2 * n + dh + 1)).astype(np.float32)).requires_grad_()
+    bias = torch.zeros(2)
+    state = torch.from_numpy(rng.standard_normal((2, 2, dh, n)).astype(
+        np.float32)).requires_grad_() if with_state else None
+    mask = None
+    if with_mask:
+        mask = torch.ones(2, 29, dtype=torch.bool)
+        mask[1, -5:] = False
+
+    def inputs():
+        la = ssd_log_decay(proj[..., -1], bias)
+        la = torch.where(torch.arange(29)[None, :, None] == 13,
+                         torch.full_like(la, -1e30), la)
+        return (proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n:-1], la,
+                state, mask)
+
+    return proj, state, inputs
+
+
+@pytest.mark.parametrize("outputs", ["both", "y", "state"])
+@pytest.mark.parametrize("with_state,with_mask", [(True, True),
+                                                  (False, False)],
+                         ids=["state_mask", "plain"])
+def test_scan_function_backward_bit_equal_to_autograd(outputs, with_state,
+                                                      with_mask):
+    # the T9 Function with the plain forward in the kernel's place: its
+    # recomputing backward gives autograd's own gradients, bit for bit
+    from flashy_tpu_torch.ops import ssd_scan
+    proj, state, inputs = _projection_case(3, with_state, with_mask)
+    rng = np.random.default_rng(4)
+    grad_y = torch.from_numpy(rng.standard_normal((2, 29, 2, 8)).astype(
+        np.float32))
+    grad_final = torch.from_numpy(rng.standard_normal((2, 2, 8, 4)).astype(
+        np.float32))
+
+    def grads(scan):
+        proj.grad = None
+        if state is not None:
+            state.grad = None
+        y, final = scan(*inputs(), 8)
+        total = 0
+        if outputs in ("both", "y"):
+            total = total + (y * grad_y).sum()
+        if outputs in ("both", "state"):
+            total = total + (final * grad_final).sum()
+        total.backward()
+        return [t.grad.clone() for t in (proj, state) if t is not None]
+
+    want = grads(ssd_scan._plain_scan)
+    ssd_scan.reset_launch_counts()
+    got = grads(lambda *args: ssd_scan.SsdScanFunction.apply(
+        *args, ssd_scan._plain_scan))
+    assert ssd_scan.backward_counts == {"ssd_scan_backward": 1}
+    assert ssd_scan.launch_counts == {"ssd_scan": 0, "ssd_scan_fma": 0}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_scan_function_forward_is_what_it_is_given():
+    # the forward is the callable (the kernel on the card); no input is
+    # copied for the backward and no gradient means no recompute
+    from flashy_tpu_torch.ops import ssd_scan
+    proj, state, inputs = _projection_case(5, True, True)
+    calls = []
+
+    def forward(*args):
+        calls.append(args)
+        return ssd_scan._plain_scan(*args)
+
+    ssd_scan.reset_launch_counts()
+    c, b, v, la, st, mask = inputs()
+    y, final = ssd_scan.SsdScanFunction.apply(c, b, v, la, st, mask, 8,
+                                              forward)
+    assert len(calls) == 1 and calls[0][0].data_ptr() == c.data_ptr()
+    want = ssd_scan._plain_scan(c, b, v, la, st, mask, 8)
+    assert torch.equal(y, want[0]) and torch.equal(final, want[1])
+    assert y.requires_grad and final.requires_grad
+    with torch.no_grad():
+        ssd_scan.SsdScanFunction.apply(c, b, v, la, st, mask, 8, forward)
+    assert ssd_scan.backward_counts["ssd_scan_backward"] == 0

@@ -92,12 +92,8 @@ def test_remat_gives_bit_equal_grads():
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"remat": True, "remat_policy": "dots"}, NotImplementedError,
-     "ROADMAP.md queue A item 2, T1"),
-    ({"remat": True, "remat_policy": "dots_no_batch"}, NotImplementedError,
-     "ROADMAP.md queue A item 2, T1"),
     ({"remat_policy": "bogus"}, ValueError, "remat_policy"),
-    ({"dropout": 0.1}, NotImplementedError, "ROADMAP.md queue A item 2, T2"),
+    ({"mixer": "ssd,mamba"}, ValueError, "mixer"),
     ({"moe_experts": 4, "moe_dispatch": "dropless_ep"}, NotImplementedError,
      "ROADMAP.md"),
     ({"scan_layers": True}, NotImplementedError, "ROADMAP.md"),
