@@ -19,9 +19,10 @@ failure with a non-zero exit:
              bf16 kernels and the SSD library's bf16 kernel issue HMMA
              (mma.sync), and no paged or SSD kernel spills;
   2. kernel  the paged kernel against its plain PyTorch version on random
-             pools (bf16, f32, int8 with f32 and bf16 q; T in {1, 4, 16,
-             64}; block 16 over 512 keys and blocks 4, 16 and 64 over
-             2048, which wrap its ring eight times; ragged,
+             pools (bf16, f32, int8 with f32 and bf16 q; T in {1, 4, 5
+             (the speculative verify step), 16, 64}; block 16 over 512
+             keys and blocks 4, 16 and 64 over 2048, which wrap its ring
+             eight times; ragged,
              sentinel-padded, all-sentinel and parked slots): f32 within
              1e-5 of the plain version evaluated in f64, bf16 within
              2e-2 of it and against the entry-by-entry reference that
@@ -101,6 +102,10 @@ failure with a non-zero exit:
   8. int8    a short bf16 run with int8 K/V pools through the int8
              kernel: pool conserved, kernel launched on every read,
              kernel timed as in phase 7, graphs against eager as there;
+  8b. capture gc  a warmed engine dropped without a collection, then a
+             second engine captures with a collection due at every
+             allocation: every step captured (the collector is off in a
+             capture, which freeing the dropped graphs would invalidate);
   9. ssd serve  the pure-SSD model in bf16 at the same shapes: tokens/s,
              decode-step ms, a profiled window, graphs against eager as
              in phase 7, and the main path's
@@ -112,6 +117,48 @@ failure with a non-zero exit:
              device time three times (median and spread) beside its
              bound and its plain version (no library call computes it),
              and its host us a call;
+ 9b. dense exact  the `exact` workload in f32 through the dense layout
+             (`cache_layout='dense'`, the engine's default), once with
+             the monolithic prefill (a graph a bucket) and once with
+             chunk 16: every stream token-exact against `generate` (the
+             same near-tie rule), no kernel launched (the dense read is
+             plain einsums), no capture after `warmup()`;
+ 9c. serve dense bf16  `serve bf16`'s traffic through the dense layout's
+             graphs, then eager: tokens/s, decode p50, the host us of a
+             decode step, the captures after warm-up (0), streams
+             bit-identical;
+ 9d. hybrid exact, hybrid serve bf16  the layout with the mixers
+             alternating SSD and attention (6 of each, state dim 16,
+             chunk 64) through `cache_layout='ssd'`: f32 token-exact
+             against `generate`, then `serve bf16`'s traffic as graphs
+             and eager; the scan kernel launched once per SSD layer per
+             prefill slice; the state bytes a slot, and the device ms
+             of a slice's slab copies (each attention slab of the slot
+             out and back) beside the slice;
+ 9e. spec exact  speculative decoding in f32 on the reference demo's
+             repetitive mix: the paged engine (the paged kernel) and the
+             dense engine with NGramDraft(k=4), with drafts that are all
+             rejected and all accepted, the paged engine with a
+             ModelDraft (2 layers, dim 256): token-exact against
+             `generate`, acceptance 0 and 1 where forced, the paged
+             kernel launched once per layer per verify step at T=5;
+             int8 pools (the int8 kernel at T=5) on the requests a
+             plain int8 engine serves token-exact, token-exact under
+             speculation;
+ 9f. spec serve bf16  the paged engine with NGramDraft(k=4) on 16
+             prompts of period 2-4 tiled to 128 tokens, 128 new, in
+             turns with the same engine without a draft: tokens/s, step
+             p50, tokens a step, acceptance rate (no floor: random
+             weights); an int8 pool with the draft (the int8 kernel at
+             T=5, its streams checked for vocab only); the kernel at
+             the verify shape (8 slots, T=5) timed
+             as in phase 7; the verify step at temperature 1.0 as a
+             captured graph (the same tokens from the same seed twice);
+             `generate` with top_k and top_p on the card;
+ 9g. serve demo  `python -m flashy_tpu_torch.serve`'s five ported legs on
+             the card, in this process after the phases above (a
+             capture after other engines were dropped), with `--kernel
+             fused` and the demo's default gates;
  10. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
              and gradients with attention='flash' (the general route)
              through the fused backward and through the split pair
@@ -410,12 +457,16 @@ PAGED_CASES = ((64, 16, 32), (64, 4, 512), (64, 16, 128), (64, 64, 32),
 # the one-block read `time_paged_block` times: (slots, heads, head_dim,
 # keys), one table entry of 16384 keys at head_dim 256
 PAGED_BLOCK = (8, 8, 256, 16384)
+SPEC_K = 4                     # drafts a verify step scores (T = 5)
+# query rows a slot: decode, the speculative verify step (SPEC_K + 1),
+# prefill slices
+PAGED_T = (1, 4, SPEC_K + 1, 16, 64)
 
 
 def check_kernels(torch, device, card=""):
     """Both routes of the paged read against the plain version on the
     card (and, in bf16, against the entry-by-entry reference) over
-    PAGED_CASES x T in {1, 4, 16, 64} x the four variants; two launches on
+    PAGED_CASES x PAGED_T x the four variants; two launches on
     the same inputs bit-equal; every launch counted on the route its shape
     picks. Returns {launch counter name: max_abs_err against plain}."""
     from flashy_tpu_torch.ops import paged_decode
@@ -430,7 +481,7 @@ def check_kernels(torch, device, card=""):
             counter = ("paged_decode" if kv == "model" else
                        "paged_decode_int8") + (
                            "" if route == "paged_decode" else "_general")
-            for T in (1, 4, 16, 64):
+            for T in PAGED_T:
                 q, entry, table, positions, live = random_case(
                     torch, device, q_dtype=q_dtype, kv=kv, T=T, bs=bs,
                     E=entries, Dh=dim, seed=T + bs + dim - 64)
@@ -482,7 +533,7 @@ def check_kernels(torch, device, card=""):
                          f"{PLACEMENT_SHARE}), each within one ulp"
                          if q_dtype == torch.bfloat16 else "")
             print(f"kernel {label} ({counter}): (Dh, bs, E) in {cases} x T "
-                  f"in (1, 4, 16, 64) max_abs_err={errors[counter]:.3e} vs "
+                  f"in {PAGED_T} max_abs_err={errors[counter]:.3e} vs "
                   f"{plain} (tolerance {TOL[label]}){placement}; two "
                   f"launches bit-equal [{card}]", flush=True)
     # the shape picks the kernel: (block size, head_dim) -> route
@@ -535,18 +586,20 @@ def top2_margin(torch, model, stream):
     return float(top[0] - top[1])
 
 
-def serve(torch, engine, prompts, max_new):
-    """Serve `prompts` through the scheduler with every launch count set
-    to 0 just before; the engine's compile cache must make no new entry
-    and no capture in the run (every step a replay of a graph `warmup()`
-    captured, or, with cuda_graphs=False, an eager run of a warmed key).
-    Returns (scheduler, requests, the launch counts of this run,
-    seconds)."""
+def serve(torch, engine, prompts, max_new, draft=None):
+    """Serve `prompts` (`max_new` new tokens each, or a list of them)
+    through the scheduler, with `draft` speculative, with every launch
+    count and step count set to 0 just before; the engine's compile cache
+    must make no new entry and no capture in the run (every step a replay
+    of a graph `warmup()` captured, or, with cuda_graphs=False, an eager
+    run of a warmed key). Returns (scheduler, requests, the launch counts
+    of this run, seconds)."""
     from flashy_tpu_torch.ops import paged_decode, ssd_scan
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
-    scheduler = ContinuousBatchingScheduler(engine)
-    requests = [scheduler.submit(p, max_new) for p in prompts]
-    engine.step_counts = {"decode": 0, "prefill_chunk": 0}
+    scheduler = ContinuousBatchingScheduler(engine, draft=draft)
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    requests = [scheduler.submit(p, n) for p, n in zip(prompts, news)]
+    engine.step_counts = dict.fromkeys(engine.step_counts, 0)
     before = engine.compile_cache.stats()
     paged_decode.reset_launch_counts()
     ssd_scan.reset_launch_counts()
@@ -575,7 +628,7 @@ def decode_host_us(torch, engine, calls=20):
 
 
 def eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
-               counts, label, card):
+               counts, label, card, prompt_lengths=()):
     """The same traffic through a twin engine with cuda_graphs=False (the
     steps eager) on the same model: every stream bit-identical to the
     graphs' and the launch counts equal; prints both runs' tokens/s,
@@ -584,7 +637,7 @@ def eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
     import numpy as np
     from flashy_tpu_torch.serve.engine import DecodeEngine
     eager = DecodeEngine(model, cuda_graphs=False, **engine_kw)
-    eager.warmup()
+    eager.warmup(prompt_lengths)
     e_scheduler, e_requests, e_counts, _ = serve(torch, eager, prompts,
                                                  max_new)
     for got, want in zip(requests, e_requests):
@@ -623,7 +676,7 @@ def check_sampling(torch, device, card):
     generator = torch.Generator(device=device).manual_seed(0)
     engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
                           temperature=1.0, generator=generator,
-                          device=device)
+                          cache_layout="paged", device=device)
     engine.warmup()
     draws = []
     for _ in range(2):
@@ -641,17 +694,76 @@ def check_sampling(torch, device, card):
           flush=True)
 
 
-def check_streams(torch, model, prompts, requests, max_new, device, label):
-    """Every request's output against the port's `generate`, token-exact
-    up to near ties (top-2 f32 margin < NEAR_TIE at the first divergence,
+def check_capture_gc(torch, device, card):
+    """A garbage collection due inside a capture does not run there: a
+    warmed engine is dropped while no collection runs (its graphs are
+    garbage, held by the cycle between each step and its cache), then a
+    second engine warms with a collection due at every allocation from
+    the moment its first capture begins. Were the collection to run, it
+    would free the dropped graphs inside the capture, and `cudaFree`
+    there invalidates it (cudaErrorStreamCaptureInvalidated)."""
+    import gc
+    from flashy_tpu_torch.serve.__main__ import _build_model
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    model = _build_model(64, 0, device)
+    kw = dict(slots=4, cache_layout="paged", block_size=8, spec_k=SPEC_K,
+              device=device)
+    thresholds = gc.get_threshold()
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(graph, *args, **kwargs):
+        begin(graph, *args, **kwargs)
+        torch.cuda.CUDAGraph.capture_begin = begin
+        gc.set_threshold(1, 1, 1)
+
+    gc.collect()
+    gc.set_threshold(1 << 30)    # no collection, nothing promoted
+    try:
+        dropped = DecodeEngine(model, cache_scope="dropped", **kw)
+        dropped.warmup()
+        graphs = len(dropped.compile_cache.executables())
+        del dropped
+        torch.cuda.CUDAGraph.capture_begin = capture_begin
+        engine = DecodeEngine(model, **kw)
+        engine.warmup()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        gc.set_threshold(*thresholds)
+    if not all(getattr(fn, "captured", False)
+               for fn in engine.compile_cache.executables().values()):
+        fail("capture gc: a step of the second engine was not captured")
+    print(f"capture gc: {graphs} graphs of a dropped engine left to the "
+          f"collector, a collection due at every allocation from the "
+          f"second engine's first capture on: its "
+          f"{len(engine.compile_cache.executables())} steps captured "
+          f"[{card}]", flush=True)
+
+
+def reference_streams(torch, model, prompts, max_new, device):
+    """The port's `generate` stream of each prompt (`max_new` new tokens
+    each, or a list of them)."""
+    from flashy_tpu_torch.models.decoding import generate
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    return [generate(model, p[None], max_new_tokens=n,
+                     device=device)[0].cpu().numpy()
+            for p, n in zip(prompts, news)]
+
+
+def check_streams(torch, model, prompts, requests, max_new, device, label,
+                  refs=None):
+    """Every request's output against the port's `generate` (or against
+    `refs`, longer streams of it, cut to the output), token-exact up to
+    near ties (top-2 f32 margin < NEAR_TIE at the first divergence,
     reported); returns the near ties."""
     import numpy as np
-    from flashy_tpu_torch.models.decoding import generate
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    if refs is None:
+        refs = reference_streams(torch, model, prompts, news, device)
     ties = []
-    for prompt, request in zip(prompts, requests):
-        ref = generate(model, prompt[None], max_new_tokens=max_new,
-                       device=device)[0].cpu().numpy()
+    for prompt, request, ref, n in zip(prompts, requests, refs, news):
         got = request.output
+        ref = ref[:len(prompt) + n]
         if got.shape != ref.shape:
             fail(f"{label}: request {request.uid} output shape {got.shape} "
                  f"!= {ref.shape}")
@@ -907,23 +1019,30 @@ def device_rows(torch, prof):
 
 
 def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
-                  card):
+                  card, prompts=None, make_draft=None, label="profile"):
     """Where the serving time goes: serve the same shape of work twice
     (fresh random prompts each time, so neither run hits the prefix
-    cache), once plainly for the wall time and once under torch.profiler
-    for the device time by kernel. Idle share = 1 - device busy / plain
-    wall (the profiler's own host overhead stays out of the wall)."""
+    cache; `prompts(rng)` makes them, by default uniform tokens), with a
+    fresh `make_draft()` each time when given, once plainly for the wall
+    time and once under torch.profiler for the device time by kernel.
+    Idle share = 1 - device busy / plain wall (the profiler's own host
+    overhead stays out of the wall)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(3)
+    if prompts is None:
+        def prompts(rng):
+            return [rng.integers(1, vocab, prompt_len)
+                    for _ in range(n_requests)]
 
-    def prompts():
-        return [rng.integers(1, vocab, prompt_len) for _ in range(n_requests)]
+    def run():
+        return serve(torch, engine, prompts(rng), max_new,
+                     draft=make_draft() if make_draft else None)
 
-    *_, wall_s = serve(torch, engine, prompts(), max_new)
+    *_, wall_s = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve(torch, engine, prompts(), max_new)
+        run()
     rows = device_rows(torch, prof)
     busy_ms = sum(ms for ms, _, _ in rows)
     wall_ms = wall_s * 1e3
@@ -933,11 +1052,12 @@ def profile_serve(torch, engine, vocab, n_requests, prompt_len, max_new,
                      for name in ("paged_decode_kernel", "ssd_bf16_kernel",
                                   "ssd_fma_kernel")
                      if name in key)
-    print(f"profile: {n_requests} requests x prompt {prompt_len} x "
+    print(f"{label}: {n_requests} requests x prompt {prompt_len} x "
           f"{max_new} new, plain wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
           f"decode steps {engine.step_counts['decode']}, prefill chunks "
-          f"{engine.step_counts['prefill_chunk']}; top: {top}; the path's "
+          f"{engine.step_counts['prefill_chunk']}, verify steps "
+          f"{engine.step_counts['verify']}; top: {top}; the path's "
           f"own kernels: {ours} [{card}]", flush=True)
 
 
@@ -955,7 +1075,7 @@ def phase_serve(torch, device, card, *, kv_dtype, requests_n, prompt_len,
     cfg = model_config(torch, torch.bfloat16, 256, num_heads=heads)
     model = TransformerLM(cfg, device=device, seed=1)
     engine_kw = dict(slots=8, block_size=16, max_seq_len=256,
-                     kv_dtype=kv_dtype, device=device)
+                     kv_dtype=kv_dtype, cache_layout="paged", device=device)
     engine = DecodeEngine(model, **engine_kw)
     if engine.kernel != "fused":
         fail(f"{label}: engine resolved kernel={engine.kernel!r} on CUDA")
@@ -1916,6 +2036,589 @@ def phase_ssd_serve(torch, device, card, *, requests_n=16, prompt_len=128,
               f"{t['plain_ms']:.4f} library: none (no single PyTorch call "
               f"computes the chunked scan) [{card}]", flush=True)
     return launched, timings
+
+
+# ----------------------------------------------------------------------
+# the dense layout, hybrid stacks and speculative decoding
+# ----------------------------------------------------------------------
+
+
+def hybrid_model_config(torch, dtype, max_seq_len):
+    """The 235M layout with the mixers alternating SSD and attention (6 of
+    each, state dim 16), the SSD chunk pinned to the engine's prefill
+    slice of 64 tokens."""
+    return model_config(torch, dtype, max_seq_len, mixer="ssd,attention",
+                        ssd_state_dim=16, ssd_chunk=SSD_CHUNK)
+
+
+def step_p50_ms(scheduler):
+    """Median engine step in ms: the scheduler gives each live slot's first
+    token of a step the step's latency and the rest of its span 0."""
+    from flashy_tpu_torch.utils import percentile
+    return percentile([g for g in scheduler.metrics.itl if g > 0], 50) * 1e3
+
+
+def check_outputs(requests, lengths, vocab, label):
+    """Every output has its expected length and only tokens of the vocab."""
+    for request, n in zip(requests, lengths):
+        out = request.output
+        if out.shape != (n,) or out.min() < 0 or out.max() >= vocab:
+            fail(f"{label}: request {request.uid} output malformed")
+
+
+def phase_dense_exact(torch, device, card):
+    """The `exact` workload in f32 through cache_layout='dense' (the
+    default), once with the monolithic prefill (a graph a bucket) and once
+    with chunk 16: every stream token-exact against `generate` (near ties
+    reported), no kernel launched (the dense read is plain einsums) and no
+    capture after `warmup()`."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = model_config(torch, torch.float32, 256)
+    model = TransformerLM(cfg, device=device, seed=0)
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    max_new = 32
+    refs = reference_streams(torch, model, prompts, max_new, device)
+    for chunk in (None, 16):
+        label = f"dense exact {'monolithic' if chunk is None else 'chunk 16'}"
+        engine = DecodeEngine(model, slots=8, max_seq_len=256, chunk=chunk,
+                              device=device)
+        if engine.cache_layout != "dense" or engine.pool is not None:
+            fail(f"{label}: the default layout is {engine.cache_layout}")
+        engine.warmup(prompt_lengths=[len(p) for p in prompts])
+        scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                     max_new)
+        if nonzero(counts):
+            fail(f"{label}: kernels launched on the dense layout: "
+                 f"{nonzero(counts)}")
+        ties = check_streams(torch, model, prompts, requests, max_new,
+                             device, label, refs=refs)
+        print(f"{label}: {len(requests)} requests token-exact vs generate "
+              f"(near ties {ties}), steps {nonzero(engine.step_counts)}, "
+              f"cache {engine.cache_bytes()} B, CUDA graphs "
+              f"{engine.compile_cache.stats()} "
+              f"({', '.join(engine.compile_cache.executables())}), "
+              f"{seconds:.2f}s [{card}]", flush=True)
+        del engine
+
+
+def phase_serve_dense(torch, device, card, requests_n=16, prompt_len=128,
+                      max_new=128):
+    """`serve bf16`'s traffic through the dense layout's captured steps
+    (monolithic prefill), then the same traffic eager (`eager_twin`):
+    tokens/s, decode p50, host us a decode step, streams bit-identical.
+    Returns the graphs run's summary."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "serve dense bf16"
+    cfg = model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    engine_kw = dict(slots=8, max_seq_len=256, device=device)
+    engine = DecodeEngine(model, **engine_kw)
+    engine.warmup(prompt_lengths=[prompt_len])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    if nonzero(counts):
+        fail(f"{label}: kernels launched on the dense layout: "
+             f"{nonzero(counts)}")
+    check_outputs(requests, [prompt_len + max_new] * requests_n,
+                  cfg.vocab_size, label)
+    summary = scheduler.metrics.summary()
+    print(f"{label}: {requests_n} requests x prompt {prompt_len} x {max_new} "
+          f"new, tokens/s={summary['tokens_per_sec']:.1f}, decode step "
+          f"p50={summary['itl_ms_p50']:.3f} ms, ttft p50="
+          f"{summary['ttft_ms_p50']:.1f} ms, {seconds:.2f}s, steps "
+          f"{nonzero(engine.step_counts)}, captures after warm-up "
+          f"{engine.compile_cache.recompiles()}, CUDA graphs "
+          f"{engine.compile_cache.stats()} [{card}]", flush=True)
+    eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
+               counts, label, card, prompt_lengths=[prompt_len])
+    return summary
+
+
+def phase_hybrid_exact(torch, device, card):
+    """The hybrid layout in f32 through cache_layout='ssd' (chunk 64):
+    the `exact` workload token-exact against `generate`, the SSD kernel
+    launched once per SSD layer per prefill slice."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM, \
+        mixer_pattern
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "hybrid exact"
+    cfg = hybrid_model_config(torch, torch.float32, 256)
+    ssd_layers = mixer_pattern(cfg).count("ssd")
+    model = TransformerLM(cfg, device=device, seed=4)
+    engine = DecodeEngine(model, slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                          cache_layout="ssd", device=device)
+    if engine.unbounded or ssd_layers != 6:
+        fail(f"{label}: unbounded={engine.unbounded}, {ssd_layers} SSD "
+             f"layers")
+    engine.warmup()
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    max_new = 32
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    slices = engine.step_counts["prefill_chunk"]
+    if nonzero(counts) != {"ssd_scan_fma": ssd_layers * slices}:
+        fail(f"{label}: launches {nonzero(counts)}, expected ssd_scan_fma "
+             f"= {ssd_layers} x {slices} prefill slices")
+    ties = check_streams(torch, model, prompts, requests, max_new, device,
+                         label)
+    print(f"{label}: {len(requests)} requests token-exact vs generate (near "
+          f"ties {ties}), launches ssd_scan_fma={ssd_layers * slices} == "
+          f"{ssd_layers} SSD layers x {slices} prefill slices, decode steps="
+          f"{engine.step_counts['decode']}, state bytes/slot="
+          f"{engine.state_bytes_per_slot()}, CUDA graphs "
+          f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+          flush=True)
+
+
+def time_slab_copies(torch, engine):
+    """Device ms of what a hybrid prefill slice does to the slot's
+    attention slabs besides the step: every K and V slab of the slot
+    gathered (`index_select`, the spare row included) and scattered back
+    (`index_copy_`); beside it the whole slice's graph replay. Slot 0,
+    after the traffic."""
+    from flashy_tpu_torch.models.decoding import with_spare_row
+    slot = torch.zeros((1,), dtype=torch.long, device=engine.device)
+    slabs = [with_spare_row(entry[leaf])
+             for entry in engine.cache_box.value.values()
+             for leaf in ("k", "v") if leaf in entry]
+
+    def copies():
+        for full in slabs:
+            full.index_copy_(0, slot, full.index_select(0, slot))
+
+    step = engine.compile_cache.executables()[f"prefill_chunk/{engine.chunk}"]
+    bufs = engine._prefill_inputs[engine.chunk]
+    bufs["slot"].zero_()
+    bufs["fresh"].fill_(True)
+    nbytes = 4 * sum(full[0].numel() * full.element_size() for full in slabs)
+    return {"copies": time_runs(torch, copies, iters=50),
+            "slice_ms": time_ms(torch, lambda: step(*bufs.values()),
+                                iters=20, device_only=True),
+            "slabs": len(slabs), "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_hybrid_serve(torch, device, card, requests_n=16, prompt_len=128,
+                       max_new=128):
+    """The hybrid layout in bf16 at `serve bf16`'s traffic as graphs, then
+    eager: tokens/s, decode p50, the tile SSD kernel launched once per SSD
+    layer per prefill slice, the state bytes a slot, and the device ms of
+    a slice's slab copies. Returns (launches, the copies' timing)."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM, \
+        mixer_pattern
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "hybrid serve bf16"
+    cfg = hybrid_model_config(torch, torch.bfloat16, 256)
+    ssd_layers = mixer_pattern(cfg).count("ssd")
+    model = TransformerLM(cfg, device=device, seed=5)
+    engine_kw = dict(slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                     cache_layout="ssd", device=device)
+    engine = DecodeEngine(model, **engine_kw)
+    engine.warmup()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    slices = engine.step_counts["prefill_chunk"]
+    launched = counts["ssd_scan"]
+    if launched < 1 or nonzero(counts) != {"ssd_scan": ssd_layers * slices}:
+        fail(f"{label}: launches {nonzero(counts)}, expected ssd_scan = "
+             f"{ssd_layers} x {slices} prefill slices")
+    check_outputs(requests, [prompt_len + max_new] * requests_n,
+                  cfg.vocab_size, label)
+    summary = scheduler.metrics.summary()
+    copies = time_slab_copies(torch, engine)
+    print(f"{label}: {requests_n} requests x prompt {prompt_len} x {max_new} "
+          f"new, tokens/s={summary['tokens_per_sec']:.1f}, decode step "
+          f"p50={summary['itl_ms_p50']:.3f} ms, ttft p50="
+          f"{summary['ttft_ms_p50']:.1f} ms, {seconds:.2f}s, launches "
+          f"ssd_scan={launched} == {ssd_layers} x {slices} prefill slices, "
+          f"state bytes/slot={engine.state_bytes_per_slot()}; a slice's "
+          f"slab copies ({copies['slabs']} slabs out and back, "
+          f"{copies['bytes']} B): device {spread_text(copies['copies'])} "
+          f"bound_ms={copies['bound_ms']:.4f}, the whole slice "
+          f"{copies['slice_ms']:.4f} ms; CUDA graphs "
+          f"{engine.compile_cache.stats()} [{card}]", flush=True)
+    eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
+               counts, label, card)
+    return launched, copies
+
+
+class ScriptedDraft:
+    """A draft provider proposing from `generate`'s own streams (`refs`,
+    by prompt): the next k tokens (`accept`: every draft is accepted) or
+    each of them plus one (`reject`: every draft is rejected)."""
+
+    def __init__(self, slots, k, prompts, refs, vocab, mode):
+        self.slots, self.k, self.vocab, self.mode = slots, k, vocab, mode
+        self.refs = {tuple(p): r for p, r in zip(prompts, refs)}
+        self.spans = {}           # slot -> [its stream, tokens so far]
+
+    def warmup(self, prompt_lengths=()):
+        pass
+
+    def begin(self, slot, prompt, first_token):
+        self.spans[slot] = [self.refs[tuple(prompt)], len(prompt) + 1]
+
+    def propose(self):
+        import numpy as np
+        out = np.zeros((self.slots, self.k), np.int64)
+        for slot, (ref, n) in self.spans.items():
+            nxt = ref[n:n + self.k]
+            out[slot] = nxt if self.mode == "accept" \
+                else (nxt + 1) % self.vocab
+        return out
+
+    def observe(self, slot, tokens, position):
+        self.spans[slot][1] += len(tokens)
+
+    def retire(self, slot):
+        self.spans.pop(slot, None)
+
+
+def verify_launches(engine, counts, name, label):
+    """The paged kernel launched once per layer per verify step (T = k+1)
+    and per prefill slice, and on no other route; returns the split."""
+    layers = engine._cfg.num_layers
+    steps = engine.step_counts
+    split = {f"T={engine.spec_k + 1} verify": layers * steps["verify"],
+             f"prefill T<={engine.chunk}": layers * steps["prefill_chunk"]}
+    if steps["decode"] or steps["verify"] < 1 \
+            or nonzero(counts) != {name: sum(split.values())}:
+        fail(f"{label}: launches {nonzero(counts)}, steps {steps}: expected "
+             f"{name} = {layers} x (verify + prefill slices)")
+    return split
+
+
+def phase_spec_exact(torch, device, card):
+    """Speculative decoding in f32 on the reference demo's repetitive mix
+    (16 requests): the paged engine (the Hopper kernel) and the dense
+    engine, each with NGramDraft(k=4), with drafts that are all rejected
+    and with drafts that are all accepted (`ScriptedDraft`), and the paged
+    engine with a ModelDraft (2 layers, dim 256, the same vocab): every
+    stream token-exact against `generate` (near ties reported), the paged
+    kernel launched once per layer per verify step at T=5, no capture
+    after warm-up; then int8 pools (`check_spec_int8`). Returns the paged
+    kernel's launches by T."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerLM)
+    from flashy_tpu_torch.serve.__main__ import _repetitive_mix
+    from flashy_tpu_torch.serve.draft import ModelDraft, NGramDraft
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = model_config(torch, torch.float32, 256)
+    model = TransformerLM(cfg, device=device, seed=0)
+    mix = _repetitive_mix(16, cfg.vocab_size, 7)
+    prompts = [p for p, _ in mix]
+    news = [n for _, n in mix]
+    # streams SPEC_K tokens longer than served: the accepting draft's
+    refs = reference_streams(torch, model, prompts,
+                             [n + SPEC_K for n in news], device)
+    draft_model = TransformerLM(TransformerConfig(
+        vocab_size=cfg.vocab_size, dim=256, num_layers=2, num_heads=4,
+        mlp_ratio=4, max_seq_len=256, dtype=torch.float32,
+        attention="dense"), device=device, seed=13)
+    by_t = {}
+    for layout in ("paged", "dense"):
+        kw = dict(cache_layout="paged", kernel="fused", block_size=16) \
+            if layout == "paged" else {}
+        engine = DecodeEngine(model, slots=8, max_seq_len=256,
+                              spec_k=SPEC_K, device=device, **kw)
+        engine.warmup(prompt_lengths=[len(p) for p in prompts])
+        drafts = {"ngram": lambda: NGramDraft(slots=8, k=SPEC_K, ngram=3),
+                  "reject": lambda: ScriptedDraft(8, SPEC_K, prompts, refs,
+                                                  cfg.vocab_size, "reject"),
+                  "accept": lambda: ScriptedDraft(8, SPEC_K, prompts, refs,
+                                                  cfg.vocab_size, "accept")}
+        if layout == "paged":
+            drafts["model"] = lambda: ModelDraft(draft_model, slots=8,
+                                                 k=SPEC_K, device=device)
+        for kind, make in drafts.items():
+            label = f"spec exact {layout} {kind}"
+            draft = make()
+            draft.warmup(prompt_lengths=[len(p) for p in prompts])
+            scheduler, requests, counts, seconds = serve(
+                torch, engine, prompts, news, draft=draft)
+            if layout == "paged":
+                split = verify_launches(engine, counts, "paged_decode",
+                                        label)
+                if kind == "ngram":
+                    by_t = split
+            elif nonzero(counts):
+                fail(f"{label}: kernels launched on the dense layout: "
+                     f"{nonzero(counts)}")
+            ties = check_streams(torch, model, prompts, requests, news,
+                                 device, label, refs=refs)
+            summary = scheduler.metrics.summary()
+            rate = summary["acceptance_rate"]
+            if kind == "reject" and rate != 0.0 \
+                    or kind == "accept" and not ties and rate != 1.0:
+                fail(f"{label}: acceptance rate {rate}")
+            print(f"{label}: {len(requests)} requests token-exact vs "
+                  f"generate (near ties {ties}), acceptance rate {rate:.3f} "
+                  f"({summary['spec_drafted']} drafted, "
+                  f"{summary['spec_emitted']} emitted), steps "
+                  f"{nonzero(engine.step_counts)}, launches "
+                  f"{nonzero(counts)}, CUDA graphs "
+                  f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+                  flush=True)
+            del draft
+        del engine
+    check_spec_int8(torch, model, prompts, news, refs, card)
+    return by_t
+
+
+def check_spec_int8(torch, model, prompts, news, refs, card):
+    """Row 6 at T=5 on the token streams (f32, int8 pools, `kernel=
+    'fused'`), screened as the demo's paged leg screens: a plain int8
+    engine serves every prompt, and the requests whose greedy stream
+    survives int8 K/V (token-exact against `generate`) are kept, a
+    quarter of them at least; the same engine settings with
+    NGramDraft(k=4) then serve the kept requests token-exact against
+    `generate`, the int8 kernel launched once per layer per verify step
+    at T=5, no capture after warm-up."""
+    import numpy as np
+    from flashy_tpu_torch.serve.draft import NGramDraft
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    device = model.embed.device
+    kw = dict(slots=8, max_seq_len=256, cache_layout="paged",
+              kernel="fused", block_size=16, kv_dtype="int8", device=device)
+    lengths = [len(p) for p in prompts]
+    wants = [ref[:len(p) + n] for p, ref, n in zip(prompts, refs, news)]
+    screen = DecodeEngine(model, **kw)
+    screen.warmup(prompt_lengths=lengths)
+    _, requests, _, _ = serve(torch, screen, prompts, news)
+    del screen
+    kept = [i for i, r in enumerate(requests)
+            if np.array_equal(r.output, wants[i])]
+    label = "spec exact paged int8 ngram"
+    if 4 * len(kept) < len(prompts):
+        fail(f"{label}: the plain int8 engine kept {len(kept)} of "
+             f"{len(prompts)} greedy streams, under a quarter")
+    engine = DecodeEngine(model, spec_k=SPEC_K, **kw)
+    engine.warmup(prompt_lengths=lengths)
+    scheduler, requests, counts, seconds = serve(
+        torch, engine, [prompts[i] for i in kept], [news[i] for i in kept],
+        draft=NGramDraft(slots=8, k=SPEC_K, ngram=3))
+    split = verify_launches(engine, counts, "paged_decode_int8", label)
+    for i, request in zip(kept, requests):
+        if not np.array_equal(request.output, wants[i]):
+            first = int(np.nonzero(request.output != wants[i])[0][0])
+            fail(f"{label}: request {i} (prompt {lengths[i]}), which the "
+                 f"plain int8 engine serves token-exact, diverges from "
+                 f"generate at position {first} under speculation")
+    summary = scheduler.metrics.summary()
+    print(f"{label}: {len(kept)} of {len(prompts)} requests kept by the "
+          f"plain int8 engine (token-exact vs generate), all token-exact "
+          f"under speculation, acceptance rate "
+          f"{summary['acceptance_rate']:.3f}, launches {split}, CUDA "
+          f"graphs {engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+          flush=True)
+
+
+def spec_prompts(rng, vocab, n, length):
+    """`n` prompts, each a random pattern of period 2-4 tiled out to
+    `length` tokens (the reference demo's `_repetitive_mix` at length)."""
+    import numpy as np
+    out = []
+    for _ in range(n):
+        pattern = rng.integers(1, vocab, int(rng.integers(2, 5)))
+        out.append(np.tile(pattern, length // len(pattern) + 1)[:length])
+    return out
+
+
+def check_spec_sampling(torch, model, card):
+    """The verify step at temperature 1.0 as a captured graph over the
+    engine's registered generator: twice, on two engines whose generators
+    start from the same seed, on the same inputs; the tokens lie in the
+    vocab and the two runs agree."""
+    import numpy as np
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    device = model.embed.device
+    runs = []
+    for _ in range(2):
+        generator = torch.Generator(device=device).manual_seed(5)
+        engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
+                              cache_layout="paged", spec_k=SPEC_K,
+                              temperature=1.0, generator=generator,
+                              device=device)
+        engine.warmup()
+        step = engine.compile_cache.executables()[f"verify/8/{SPEC_K}"]
+        if not getattr(step, "captured", False):
+            fail("spec sampling: the verify step is not a captured graph")
+        for slot in range(engine.slots):
+            engine._set_slot(slot, 5, 3, True)   # writes land in sentinel
+        runs.append(engine.decode_speculative(np.full((8, SPEC_K), 7)))
+        engine._reset_slot_state()
+        if engine.compile_cache.recompiles():
+            fail(f"spec sampling: captured after warm-up "
+                 f"{engine.compile_cache.stats()}")
+        del engine
+    (out_a, acc_a), (out_b, acc_b) = runs
+    vocab = model.config.vocab_size
+    if not (np.array_equal(out_a, out_b) and np.array_equal(acc_a, acc_b)) \
+            or out_a.min() < 0 or out_a.max() >= vocab:
+        fail(f"spec sampling: runs from one seed drew {out_a.tolist()} and "
+             f"{out_b.tolist()}")
+    print(f"spec sampling: the captured verify step at temperature 1.0 "
+          f"(k={SPEC_K}) drew the same tokens from the same seed twice, "
+          f"accepted {acc_a.tolist()}, emitted {out_a[:, 0].tolist()} "
+          f"[{card}]", flush=True)
+
+
+def check_generate_filters(torch, model, card):
+    """`generate(top_k=50, top_p=0.9)` at temperature 1.0 on the card:
+    twice from one seed, the same tokens, all in the vocab."""
+    import numpy as np
+    from flashy_tpu_torch.models.decoding import generate
+    device = model.embed.device
+    prompt = np.random.default_rng(10).integers(1, model.config.vocab_size,
+                                                (2, 16))
+    runs = [generate(model, prompt, max_new_tokens=16, temperature=1.0,
+                     top_k=50, top_p=0.9, device=device,
+                     generator=torch.Generator(device=device).manual_seed(9))
+            for _ in range(2)]
+    if not torch.equal(*runs) or int(runs[0].max()) >= model.config.vocab_size:
+        fail(f"generate top-k/top-p: runs from one seed differ: "
+             f"{runs[0].tolist()} {runs[1].tolist()}")
+    print(f"generate top_k=50 top_p=0.9: 2 x 16 new tokens, the same from "
+          f"one seed twice: {runs[0][0, 16:].tolist()} [{card}]", flush=True)
+
+
+def phase_spec_serve(torch, device, card, requests_n=16, prompt_len=128,
+                     max_new=128):
+    """Speculative serving in bf16: the paged engine with NGramDraft(k=4)
+    on 16 repetitive requests, in turns with the same engine settings and
+    no draft (spec, plain, spec, plain): tokens/s, step p50, tokens per
+    step, acceptance rate; an int8 pool with the same draft on 8 requests
+    (the int8 kernel at T=5; its bf16 streams are checked for shape and
+    vocab only, `check_spec_int8` holds the f32 ones to `generate`); the
+    verify kernel at the verify shape (8
+    slots, 5 queries) beside bound, plain and SDPA; the verify step
+    sampling as a captured graph; `generate`'s top-k/top-p. Returns
+    ({kernel: (launches by T, timing)}, summaries by turn)."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.draft import NGramDraft
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    engine_kw = dict(slots=8, block_size=16, max_seq_len=256,
+                     cache_layout="paged", device=device)
+    engines = {"spec": DecodeEngine(model, spec_k=SPEC_K, **engine_kw),
+               "plain": DecodeEngine(model, **engine_kw)}
+    for engine in engines.values():
+        engine.warmup()
+    prompts = spec_prompts(np.random.default_rng(8), cfg.vocab_size,
+                           requests_n, prompt_len)
+    summaries = {}
+    out = {}
+    for turn, kind in enumerate(("spec", "plain", "spec", "plain")):
+        engine = engines[kind]
+        draft = NGramDraft(slots=8, k=SPEC_K, ngram=3) \
+            if kind == "spec" else None
+        scheduler, requests, counts, seconds = serve(
+            torch, engine, prompts, max_new, draft=draft)
+        label = f"spec serve bf16 {kind} (turn {turn + 1})"
+        if kind == "spec":
+            split = verify_launches(engine, counts, "paged_decode", label)
+        elif nonzero(counts) != {"paged_decode": cfg.num_layers * (
+                engine.step_counts["decode"]
+                + engine.step_counts["prefill_chunk"])}:
+            fail(f"{label}: launches {nonzero(counts)}")
+        check_outputs(requests, [prompt_len + max_new] * requests_n,
+                      cfg.vocab_size, label)
+        summary = scheduler.metrics.summary()
+        steps = engine.step_counts["verify"] + engine.step_counts["decode"]
+        summary["tokens_per_step"] = (summary["tokens"] - requests_n) / steps
+        summary["step_ms_p50"] = step_p50_ms(scheduler)
+        summaries.setdefault(kind, []).append(summary)
+        print(f"{label}: {requests_n} requests x prompt {prompt_len} "
+              f"(period 2-4) x {max_new} new, tokens/s="
+              f"{summary['tokens_per_sec']:.1f}, step p50="
+              f"{summary['step_ms_p50']:.3f} ms, tokens/step="
+              f"{summary['tokens_per_step']:.2f} over {steps} steps, "
+              f"acceptance rate={summary.get('acceptance_rate', 0.0):.3f}, "
+              f"launches {nonzero(counts)}, {seconds:.2f}s [{card}]",
+              flush=True)
+    profile_serve(torch, engines["spec"], cfg.vocab_size, 8, prompt_len, 32,
+                  card, label="profile spec", make_draft=lambda: NGramDraft(
+                      slots=8, k=SPEC_K, ngram=3),
+                  prompts=lambda rng: spec_prompts(rng, cfg.vocab_size, 8,
+                                                   prompt_len))
+    out["paged_decode"] = (split, time_kernel(torch, engines["spec"],
+                                              prompt_len + max_new // 2,
+                                              queries=SPEC_K + 1))
+    del engines
+    int8 = DecodeEngine(model, spec_k=SPEC_K, kv_dtype="int8", **engine_kw)
+    int8.warmup()
+    label = "spec int8 bf16"
+    scheduler, requests, counts, seconds = serve(
+        torch, int8, prompts[:8], 32,
+        draft=NGramDraft(slots=8, k=SPEC_K, ngram=3))
+    split8 = verify_launches(int8, counts, "paged_decode_int8", label)
+    check_outputs(requests, [prompt_len + 32] * 8, cfg.vocab_size, label)
+    int8.pool.check()
+    summary = scheduler.metrics.summary()
+    print(f"{label}: 8 requests x prompt {prompt_len} x 32 new on int8 "
+          f"pools, acceptance rate={summary['acceptance_rate']:.3f}, launches "
+          f"{nonzero(counts)} {split8}, {seconds:.2f}s [{card}]", flush=True)
+    out["paged_decode_int8"] = (split8, time_kernel(
+        torch, int8, prompt_len + max_new // 2, queries=SPEC_K + 1))
+    del int8
+    for name, (split, t) in out.items():
+        print(f"spec serve bf16: kernel {name} at the verify shape (8 slots, "
+              f"T={SPEC_K + 1}, context {prompt_len + max_new // 2}): device "
+              f"{spread_text(t)} bound_ms={t['bound_ms']:.4f} "
+              f"({t['bound_by']}, {t['bytes']} B) plain_ms="
+              f"{t['plain_ms']:.4f} library_ms(sdpa on gathered view)="
+              f"{t['library_ms']:.4f} host_us={t['host_us']:.1f}; launches "
+              f"{split} [{card}]", flush=True)
+    check_spec_sampling(torch, model, card)
+    check_generate_filters(torch, model, card)
+    return out, summaries
+
+
+def phase_serve_demo(card):
+    """`python -m flashy_tpu_torch.serve`'s five ported legs on the card,
+    as a user runs it (`main` with `--kernel fused`: f32 tiny models, the
+    paged leg through the Hopper kernel) and with the demo's default
+    gates, in this process: its engines capture their graphs after the
+    phases above dropped theirs. Every gate passes."""
+    import logging
+    from flashy_tpu_torch.serve.__main__ import logger, main as serve_main
+    legs = "batching,speculative,chunked,paged,ssd"
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: records.append(record)
+    logger.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        rc = serve_main(["--legs", legs, "--kernel", "fused"])
+    finally:
+        logger.removeHandler(handler)
+    lines = [r.getMessage() for r in records]
+    if rc:
+        errors = [r.getMessage() for r in records
+                  if r.levelno >= logging.ERROR]
+        fail(f"serve demo: python -m flashy_tpu_torch.serve --legs {legs} "
+             f"--kernel fused returned {rc}: " + " | ".join(errors))
+    gates = [line for line in lines if "verified:" in line
+             or "acceptance" in line]
+    print(f"serve demo: python -m flashy_tpu_torch.serve --legs {legs} "
+          f"--kernel fused on cuda: exit 0 in "
+          f"{time.perf_counter() - t0:.1f}s; " + " | ".join(
+              line[:160] for line in gates) + f" [{card}]", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -3846,10 +4549,18 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda")
     card = card_line()
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(label):
+        """The seconds since the previous lap, under `label`."""
+        now = time.perf_counter()
+        laps[label] = round(now - last[0], 1)
+        last[0] = now
 
     seconds = build_all()
     print(f"build: all sources in {seconds:.1f}s on [{card}]", flush=True)
     check_sass(card)
+    lap("build, sass")
 
     errors = check_kernels(torch, device, card)
 
@@ -3859,8 +4570,10 @@ def main() -> None:
     ssd_errors = check_ssd_kernel(torch, device, card)
     gmm_errors = check_gmm_kernels(torch, device, card)
     ring_errors = check_ring_kernel(torch, device, card)
+    lap("kernel checks")
     phase_exact(torch, device, card)
     phase_ssd_exact(torch, device, card)
+    lap("exact, ssd exact")
 
     paged = {"paged_decode": phase_serve(
         torch, device, card, kv_dtype="model", requests_n=16,
@@ -3871,7 +4584,26 @@ def main() -> None:
             prompt_len=64, max_new=32, label="int8 bf16",
             compare_eager=True)}
     check_sampling(torch, device, card)
+    check_capture_gc(torch, device, card)
     ssd_launches, ssd_timing = phase_ssd_serve(torch, device, card)
+    lap("serve bf16, int8 bf16, sampling, ssd serve bf16")
+    # the dense layout, hybrid stacks and speculative decoding
+    release_memory(torch)
+    phase_dense_exact(torch, device, card)
+    lap("dense exact")
+    phase_serve_dense(torch, device, card)
+    lap("serve dense bf16")
+    phase_hybrid_exact(torch, device, card)
+    lap("hybrid exact")
+    hybrid_launches, slab_copies = phase_hybrid_serve(torch, device, card)
+    lap("hybrid serve bf16")
+    phase_spec_exact(torch, device, card)
+    lap("spec exact")
+    spec_kernels, _ = phase_spec_serve(torch, device, card)
+    lap("spec serve bf16")
+    phase_serve_demo(card)
+    lap("serve demo")
+    release_memory(torch)
     phase_step(torch, device, card)
     phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
@@ -3899,6 +4631,7 @@ def main() -> None:
         del solver
     ring_times, ring_main_error, pair_times, pair_errors = time_ring(
         torch, device, card)
+    lap("steps, training, kernel times")
 
     # the other widths' full-width paths: d128, ssd n128, w260
     for bs, max_seq_len, chunk in ((16, 512, None), (128, 512, 16),
@@ -3951,6 +4684,7 @@ def main() -> None:
         dtype=torch.bfloat16)
     w260_counts = phase_step_w260(torch, device, card)
     padded_times, padded_errors = time_gmm_padded(torch, device, card)
+    lap("the other widths")
 
     # the LM trainer's switches and SSD training
     phase_remat_step(torch, device, card)
@@ -3959,6 +4693,8 @@ def main() -> None:
     ssd_step_counts = phase_ssd_step(torch, device, card)
     ssd_train_counts = phase_ssd_train(torch, device, card)
     ssd_backward = time_ssd_backward(torch, device, card)
+    lap("the trainer's switches, ssd training")
+    print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
     # train` (`ring train d128` at 128), so its rows take the launches,
@@ -4006,6 +4742,13 @@ def main() -> None:
                         "max_abs_err": errors[name],
                         **{key: t1[key] for key in keys},
                         "chunk": {key: tc[key] for key in keys}})
+        if name in spec_kernels:
+            # the speculative verify step (T = SPEC_K + 1), `spec serve
+            # bf16`: its launches by T and the kernel at that shape
+            split, tv = spec_kernels[name]
+            kernels[-1]["verify"] = {
+                "launches": split[f"T={SPEC_K + 1} verify"],
+                "launches_by_T": split, **{key: tv[key] for key in keys}}
     # the general route at one table entry of 16384 keys (head_dim 256)
     kernels[2]["one_block"] = {"shape": list(PAGED_BLOCK),
                                "max_abs_err": block_error,
@@ -4041,6 +4784,12 @@ def main() -> None:
                     **{key: slice_[key] for key in keys},
                     "long": {"shape": list(SSD_SHAPES[1]),
                              **{key: long_[key] for key in keys}},
+                    "hybrid_launches": hybrid_launches,
+                    "hybrid_slab_copies": {
+                        "ms": slab_copies["copies"]["ms"],
+                        "bytes": slab_copies["bytes"],
+                        "bound_ms": slab_copies["bound_ms"],
+                        "slice_ms": slab_copies["slice_ms"]},
                     "train_launches": ssd_train_counts["ssd_scan"],
                     "train_backward_recomputes": ssd_train_counts[
                         "ssd_scan_backward"],

@@ -2,21 +2,24 @@
 flashy_tpu/models/decoding.py, per-layer models: attention, SSD and
 hybrid stacks, with dense or MoE MLPs).
 
-`generate` is the oracle the paged serving engine is held to, on the
-CPU and on the card: it reads its dense `[B, max_len, H, Dh]` cache with
-plain einsums, no kernel. PyTorch runs eagerly, so the JAX package's
-`lax.scan` token loop becomes a Python loop, and cache writes update
-the cache tensors in place instead of returning fresh arrays (one cache
-allocation per call instead of one per step). SSD layers keep one
-[B, H, Dh, N] f32 state instead of K/V slabs: a multi-token call runs
-the chunked scan (the Hopper SSD kernel on CUDA), a one-token call the
-recurrence. MoE blocks decode dropless (`_moe_forward`, plain PyTorch:
-the JAX package has no kernel there).
+`generate` is the oracle the serving engine is held to, on the CPU and
+on the card: it reads its dense `[B, max_len, H, Dh]` cache with plain
+einsums, no kernel, as the engine's dense layout does. Its sampling
+takes `top_k` and `top_p` (`nucleus_filter`); `speculative_acceptance`
+turns a verify step's logits into emitted tokens. PyTorch runs eagerly,
+so the JAX package's `lax.scan` token loop becomes a Python loop, and
+cache writes update the cache tensors in place instead of returning
+fresh arrays (one cache allocation per call instead of one per step).
+SSD layers keep one [B, H, Dh, N] f32 state instead of K/V slabs: a
+multi-token call runs the chunked scan (the Hopper SSD kernel on CUDA),
+a one-token call the recurrence. MoE blocks decode dropless
+(`_moe_forward`, plain PyTorch: the JAX package has no kernel there).
 
 The step functions read a nested parameter dict shaped like the JAX
 tree (`decode_params`), with the matmul kernels already cast to the
 compute dtype — bitwise the same as the JAX package's cast at use.
 """
+import numbers
 import typing as tp
 
 import numpy as np
@@ -80,39 +83,68 @@ def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device: tp.Any) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
     """Zeroed dense cache: one {'k', 'v'} [B, max_len, H, Dh] slab pair
-    per attention layer, in the compute dtype, and one {'ssd'} f32
-    state [B, H, Dh, N] per SSD layer (no max_len dimension)."""
+    per attention layer, in the compute dtype, and one {'ssd'} f32 state
+    [B, H, Dh, N] per SSD layer (no max_len dimension).
+
+    Each slab is a view of a [B, max_len + 1, H, Dh] tensor: the row past
+    its end is where a per-row write that falls past the cache lands
+    (`_cache_write`). Attention reads the view only, and the view is what
+    the engine's byte accounting counts.
+    """
     check_supported(cfg)
-    shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+    shape = (batch, max_len + 1, cfg.num_heads, cfg.head_dim)
     sshape = (batch, cfg.num_heads, cfg.head_dim, cfg.ssd_state_dim)
+
+    def slab():
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)[:, :max_len]
 
     def entry(mixer):
         if mixer == "ssd":
             return {"ssd": torch.zeros(sshape, dtype=torch.float32,
                                        device=device)}
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        return {"k": slab(), "v": slab()}
 
     return {f"block_{i}": entry(mixer)
             for i, mixer in enumerate(mixer_pattern(cfg))}
+
+
+def with_spare_row(slab: torch.Tensor) -> torch.Tensor:
+    """The [B, max_len + 1, H, Dh] tensor under an `init_cache` slab view
+    (the same storage, its spare row included)."""
+    batch, length, heads, dim = slab.shape
+    if slab.stride(0) != (length + 1) * slab.stride(1):
+        raise ValueError("a per-row cache write needs the slab's spare row: "
+                         "allocate the cache with init_cache")
+    return slab.as_strided((batch, length + 1, heads, dim), slab.stride(),
+                           slab.storage_offset())
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  cache_index: tp.Union[int, torch.Tensor]) -> torch.Tensor:
     """Write `new` [B, S, H, Dh] into `cache` at `cache_index`, in place.
 
-    An int writes the same offset for every row; a [B] tensor writes
-    each row at its own offset, and rows that fall past the cache (a
-    parked slot at max_len) are dropped, not clamped.
+    An int writes the same offset for every row. A [B] tensor writes each
+    row at its own offset, and rows that fall past the cache (a parked
+    slot at max_len; a verify step's rows past the end) are dropped, not
+    clamped: a clamp would overwrite the last real position.
+
+    The per-row form is one scatter with no data-dependent shape and no
+    host sync, so a CUDA graph can capture it. Its design: every dropped
+    row is sent to the slab's spare row past its end (`init_cache`), which
+    attention never reads. A real row's index is its own (row, position),
+    distinct from every other write's, and only dropped rows share an
+    index, the spare row, so the scatter's unspecified order among
+    duplicate indices never decides what a real row holds.
     """
     if not torch.is_tensor(cache_index):
         cache[:, cache_index:cache_index + new.shape[1]] = new
         return cache
     batch, seq = new.shape[:2]
+    max_len = cache.shape[1]
     rows = torch.arange(batch, device=cache.device)[:, None].expand(batch, seq)
     cols = cache_index[:, None] + torch.arange(seq, device=cache.device)
-    keep = cols < cache.shape[1]
-    cache[rows[keep], cols[keep]] = new[keep]
+    cols = torch.where(cols < max_len, cols, max_len)
+    with_spare_row(cache).index_put_((rows, cols), new)
     return cache
 
 
@@ -309,18 +341,153 @@ def _apply_step(params: tp.Dict, cfg: TransformerConfig,
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float,
-                  generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+                  generator: tp.Optional[torch.Generator],
+                  top_k: tp.Optional[int] = None,
+                  top_p: tp.Optional[float] = None) -> torch.Tensor:
     """[B, V] logits -> [B] next tokens: argmax at temperature 0, else a
-    categorical draw from softmax(logits / temperature) on `generator`."""
+    categorical draw on `generator` from the softmax of `filter_logits`
+    (logits / temperature, then the optional top-k and top-p filters)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    probs = torch.softmax(filter_logits(logits.float(), temperature, top_k,
+                                        top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def speculative_acceptance(draft_tokens: torch.Tensor, logits: torch.Tensor,
+                           *, temperature: float = 0.0,
+                           draft_probs: tp.Optional[torch.Tensor] = None,
+                           generator: tp.Optional[torch.Generator] = None,
+                           pad_token: int = 0
+                           ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Longest-prefix acceptance of drafted tokens against target logits.
+
+    The verify forward scores a slot's last emitted token and its k
+    drafts in one [B, k+1] call: `logits[:, i]` is the target's
+    distribution for draft i, `logits[:, k]` the bonus position.
+
+    * Greedy (`temperature == 0`): draft i is accepted iff it equals
+      `argmax(logits[:, i])` and every earlier draft was accepted. The
+      emitted tokens are exactly the target's greedy tokens, whatever
+      the draft proposed.
+    * Sampling: rejection sampling. Draft x_i, with proposal probability
+      q_i(x_i) (one-hot when `draft_probs` is None), is accepted with
+      probability min(1, p_i(x_i) / q_i(x_i)), `u` drawn by `torch.rand`
+      on `generator`; the first rejection draws from the residual
+      norm(max(0, p_i - q_i)), full acceptance from the bonus p_k, by
+      `torch.multinomial` on `generator`. The emitted tokens are a sample
+      of the target distribution.
+
+    Fixed shapes and no host sync (`accepted` is data), so a CUDA graph
+    can capture it.
+
+    Args:
+        draft_tokens: [B, k] int drafted tokens.
+        logits: [B, k+1, V] target logits from the verify forward.
+        temperature: the engine's sampling temperature (0 = greedy).
+        draft_probs: optional [B, k, V] proposal distribution.
+        generator: the `torch.Generator` to draw from; required when
+            temperature > 0.
+        pad_token: fills the out-token tail beyond the emitted span.
+
+    Returns (out_tokens [B, k+1], accepted [B]): the emitted tokens at
+    indices 0..accepted (index `accepted` is the bonus or resampled
+    token), `pad_token` beyond; `accepted` counts the kept drafts.
+    """
+    batch, k = draft_tokens.shape
+    draft_tokens = draft_tokens.long()
+    idx = torch.arange(k + 1, device=logits.device)[None]
+    pad = torch.full_like(draft_tokens[:, :1], pad_token)
+    if temperature <= 0.0:
+        target = torch.argmax(logits, dim=-1)                 # [B, k+1]
+        match = draft_tokens == target[:, :k]
+        accepted = torch.cumprod(match.long(), dim=-1).sum(-1)
+        out = torch.where(idx <= accepted[:, None], target, pad)
+        return out, accepted
+    if generator is None:
+        raise ValueError("speculative_acceptance(temperature>0) resamples "
+                         "rejected positions and needs an explicit "
+                         "torch.Generator")
+    probs = torch.softmax(logits[:, :k].float() / temperature, dim=-1)
+    p_x = torch.gather(probs, -1, draft_tokens[..., None])[..., 0]   # [B, k]
+    if draft_probs is None:
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        q_full = (draft_tokens[..., None] == vocab).to(probs.dtype)
+        q_x = torch.ones_like(p_x)
+    else:
+        q_full = draft_probs.to(probs.dtype)
+        q_x = torch.gather(q_full, -1, draft_tokens[..., None])[..., 0]
+    u = torch.rand(draft_tokens.shape, generator=generator,
+                   device=logits.device, dtype=probs.dtype)
+    # u < min(1, p/q)  <=>  u * q < p  (no division, q == 0 safe)
+    accepted = torch.cumprod((u * q_x < p_x).long(), dim=-1).sum(-1)
+    # the residual at the first rejected index (a rejection implies
+    # q(x) > p(x) there, so it has mass), or the bonus distribution
+    rows = torch.arange(batch, device=logits.device)
+    at = accepted.clamp(0, k - 1)
+    residual = (probs[rows, at] - q_full[rows, at]).clamp_min(0.0)
+    residual = residual / residual.sum(-1, keepdim=True).clamp_min(1e-20)
+    bonus = torch.softmax(logits[:, k].float() / temperature, dim=-1)
+    dist = torch.where((accepted < k)[:, None], residual, bonus)
+    final = torch.multinomial(dist, 1, generator=generator)
+    padded_draft = torch.cat([draft_tokens, pad], dim=1)
+    acc = accepted[:, None]
+    out = torch.where(idx < acc, padded_draft,
+                      torch.where(idx == acc, final, pad))
+    return out, accepted
+
+
+def _check_top_p(top_p: tp.Any) -> None:
+    # top_p <= 0 would leave every token ineligible
+    if (isinstance(top_p, (numbers.Real, np.number))
+            and not 0.0 < float(top_p) <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def nucleus_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Top-p (nucleus) logit filter, sort-once formulation.
+
+    A token stays eligible iff the cumulative probability of strictly
+    more likely tokens is < `top_p`, so the argmax always survives, and
+    every token tied with the cutoff logit stays eligible. Ineligible
+    logits are masked to -1e30; `logits` is [..., vocab]. `top_p` must be
+    in (0, 1].
+    """
+    _check_top_p(top_p)
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum_before = torch.cumsum(probs, dim=-1) - probs
+    eligible = cum_before < top_p
+    eligible[..., 0] = True
+    # the cutoff: the smallest sorted logit still eligible, per row
+    cutoff = torch.where(eligible, sorted_logits,
+                         torch.full_like(sorted_logits, float("inf"))
+                         ).amin(dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, torch.full_like(logits, -1e30),
+                       logits)
+
+
+def filter_logits(logits: torch.Tensor, temperature: float,
+                  top_k: tp.Optional[int] = None,
+                  top_p: tp.Optional[float] = None) -> torch.Tensor:
+    """`generate`'s sampling logits: scaled by 1 / temperature, then the
+    top-k filter (logits under the k-th largest masked to -1e30; ties
+    with it stay), then `nucleus_filter`."""
+    logits = logits / temperature
+    if top_k is not None:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
+                             logits)
+    if top_p is not None:
+        logits = nucleus_filter(logits, top_p)
+    return logits
 
 
 @torch.no_grad()
 def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
-             temperature: float = 0.0, eos_token: tp.Optional[int] = None,
+             temperature: float = 0.0, top_k: tp.Optional[int] = None,
+             top_p: tp.Optional[float] = None,
+             eos_token: tp.Optional[int] = None,
              generator: tp.Optional[torch.Generator] = None,
              device: tp.Any = None) -> torch.Tensor:
     """Autoregressive generation with a dense KV cache (and SSD states).
@@ -332,6 +499,9 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
         prompt: [B, P] int tokens (numpy or tensor).
         max_new_tokens: tokens to append.
         temperature: 0 -> greedy; > 0 -> sampling on `generator`.
+        top_k: sample among the k most likely tokens only.
+        top_p: nucleus sampling (`nucleus_filter`; the most likely token
+            always stays eligible); composes with top_k, applied first.
         eos_token: a row that emits it is done; later tokens of that row
             are pinned to `eos_token` (the loop still runs every step).
         generator: the `torch.Generator` sampling draws from (on
@@ -349,6 +519,8 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
     if temperature > 0.0 and generator is None:
         raise ValueError("generate(temperature>0) samples and needs an "
                          "explicit torch.Generator (greedy needs none)")
+    if top_p is not None:
+        _check_top_p(top_p)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt, device=device)
     batch, prompt_len = prompt.shape
@@ -366,7 +538,8 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
     done = torch.zeros(batch, dtype=torch.bool, device=device)
     out = [prompt]
     for t in range(max_new_tokens):
-        token = sample_tokens(last_logits, temperature, generator)
+        token = sample_tokens(last_logits, temperature, generator, top_k,
+                              top_p)
         if eos_token is not None:
             token = torch.where(done, torch.full_like(token, eos_token),
                                 token)

@@ -1,1 +1,21 @@
-"""serve of the PyTorch port (see the matching flashy_tpu.serve)."""
+"""Continuous-batching serving of the PyTorch port (see the matching
+flashy_tpu.serve): a slot engine over a dense, paged or SSD cache with
+captured CUDA-graph steps, speculative decoding with n-gram or model
+drafts, and the scheduler that feeds it.
+
+`python -m flashy_tpu_torch.serve` runs the serving demo's legs."""
+
+from ..utils import percentile  # noqa
+from .compile_cache import CompileCache, bucket_length  # noqa
+from .draft import DraftProvider, ModelDraft, NGramDraft  # noqa
+from .engine import DecodeEngine, SlotAllocator  # noqa
+from .metrics import ServeMetrics  # noqa
+from .paged import BlockPool, PoolExhausted, PrefixIndex  # noqa
+from .scheduler import ContinuousBatchingScheduler, QueueFull, Request  # noqa
+
+__all__ = [
+    "DecodeEngine", "SlotAllocator", "ContinuousBatchingScheduler",
+    "Request", "QueueFull", "CompileCache", "bucket_length", "ServeMetrics",
+    "DraftProvider", "NGramDraft", "ModelDraft",
+    "BlockPool", "PoolExhausted", "PrefixIndex", "percentile",
+]

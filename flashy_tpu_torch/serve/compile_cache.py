@@ -23,7 +23,14 @@ The kernel wrappers count their launches in Python, which a replay does
 not run: the cache records each graph's launch-count deltas at capture
 (taking them back out, since the capture launched nothing) and adds them
 on every replay, so the counts stay exact.
+
+Python's garbage collector is off while a graph is captured. A step and
+its cache hold each other, so a dropped engine's graphs are freed by a
+collection, and a collection that runs inside another engine's capture
+frees them there: releasing a graph's memory pool calls `cudaFree`,
+which invalidates the capture (`cudaErrorStreamCaptureInvalidated`).
 """
+import gc
 import typing as tp
 
 import torch
@@ -114,8 +121,14 @@ class CudaGraphStep:
             graph.register_generator_state(generator)
         counters = launch_counters()
         before = [dict(c) for c in counters]
-        with torch.cuda.graph(graph, stream=stream):
-            self.outputs = self.fn(*args)
+        collecting = gc.isenabled()
+        gc.disable()   # see the module docstring
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.outputs = self.fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         # the capture launched nothing: its counts come back on replay
         self.launches = []
         for counts, old in zip(counters, before):

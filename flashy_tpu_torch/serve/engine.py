@@ -1,32 +1,41 @@
-"""Slot-based decode engine over a paged KV pool or resident SSD states
-(port of flashy_tpu/serve/engine.py, `cache_layout='paged'` and, for
-pure-SSD stacks, `'ssd'`).
+"""Slot-based decode engine (port of flashy_tpu/serve/engine.py): S
+slots over a dense K/V slab (`cache_layout='dense'`, the default), a
+paged K/V pool (`'paged'`) or resident SSD states (`'ssd'`).
 
-S slots share one block pool; ONE decode step of shape [S, 1] advances
-every live slot together, an active mask (not a shape) expressing
-liveness. Prompts prefill in fixed `[1, chunk]` slices that the
-scheduler interleaves with decode steps, and attend earlier (possibly
-prefix-shared) blocks through the slot's table row. Every paged read
-goes through `serve.paged.paged_apply_step`, which on CUDA launches the
-Hopper paged-decode kernel (`kernel='fused'`, the default there). On the
-ssd layout each slot holds one [H, Dh, N] f32 state per layer: prefill
-slices run the chunked scan (on CUDA the Hopper SSD kernel), decode the
-recurrence, and sessions may stream past `max_seq_len`.
+ONE decode step of shape [S, 1] advances every live slot together, an
+active mask (not a shape) expressing liveness, and speculative decoding
+adds ONE [S, k+1] verify step that scores k drafted tokens a slot
+(`decode_speculative`; accepted counts are data, never shapes). On the
+dense layout each slot owns a [max_seq_len, H, Dh] K/V slab per layer,
+read with plain einsums (the JAX package's XLA path: no kernel runs
+there); prompts prefill either whole, through one step per power-of-two
+bucket (`prefill`), or in fixed `[1, chunk]` slices the scheduler
+interleaves with decode steps (`prefill_chunk`). On the paged layout
+every read goes through `serve.paged.paged_apply_step`, which on CUDA
+launches the Hopper paged-decode kernel (`kernel='fused'`, the default
+there), the verify step at T = k+1 included; prompts always prefill in
+slices, which attend earlier (possibly prefix-shared) blocks through the
+slot's table row. On the ssd layout each SSD layer holds one [H, Dh, N]
+f32 state a slot: prefill slices run the chunked scan (on CUDA the Hopper
+SSD kernel), decode the recurrence; a hybrid stack's attention layers
+keep dense slabs beside the states, and a pure-SSD stack may stream
+sessions past `max_seq_len`.
 
 The JAX package's compiled-step cache becomes captured CUDA graphs
 (`serve.compile_cache.CompileCache`): `warmup()` captures one graph for
-each key live traffic can touch, the decode step ("decode", S), the two
-prefill slices ("prefill_chunk", chunk and tail_bucket) and, on the
-paged layout, the copy-on-write block copy ("copy_block",), and every
-later step replays one. A graph reads and writes fixed tensors, so the
-engine's per-slot state, block tables and prefill inputs are static
-buffers filled in place (`copy_`, `fill_`), and the pool is allocated
-once and updated in place. A prefill slice's slot, start and length
-reach its graph as device values in those buffers (its table row, its
-positions, its token mask, its slot index), not as Python ints, so one
-graph serves every slot: the SSD slice gathers the slot's states with
-`index_select` and scatters them back with `index_copy_`. On the CPU
-the same steps run eagerly.
+each key live traffic can touch, the decode step ("decode", S), the
+prefill slices ("prefill_chunk", chunk and tail_bucket) or buckets
+("prefill", bucket), the verify step ("verify", S, k) and, on the paged
+layout, the copy-on-write block copy ("copy_block",), each key prefixed
+by the engine's `cache_scope` when it has one; every later step replays
+one. A graph reads and writes fixed tensors, so the engine's per-slot
+state, block tables, drafts and prefill inputs are static buffers filled
+in place (`copy_`, `fill_`), and the cache is allocated once and updated
+in place. A prefill's slot, start and length reach its graph as device
+values in those buffers, not as Python ints, so one graph serves every
+slot: a slice gathers the slot's rows of every cache leaf with
+`index_select` and scatters them back with `index_copy_`. On the CPU the
+same steps run eagerly.
 """
 import logging
 import typing as tp
@@ -35,9 +44,10 @@ import numpy as np
 import torch
 
 from ..models.decoding import (_apply_step, decode_params, init_cache,
-                               sample_tokens)
+                               sample_tokens, speculative_acceptance,
+                               with_spare_row)
 from ..models.transformer import check_supported, mixer_pattern
-from ..ops.paged_attention import block_bytes, init_pool
+from ..ops.paged_attention import block_bytes, init_pool, pool_bytes
 from ..ops.paged_decode import default_kernel
 from ..ops.ssd_scan import ssd_state_bytes
 from ..utils import check_same_device, resolve_device
@@ -46,11 +56,17 @@ from .paged import BlockPool, CacheBox, copy_block_fn, paged_apply_step
 
 logger = logging.getLogger(__name__)
 
-TODO_LAYOUTS = ("ROADMAP.md queue A item 3, L1 (the dense layout, and "
-                "hybrid ssd serving on its per-slot slabs)")
-TODO_SPECULATIVE = ("ROADMAP.md queue A item 3, L2 (speculative decode + "
-                    "serve/draft.py)")
 TODO_MOE_SERVING = "ROADMAP.md queue A item 3, L7 (MoE in the serving engine)"
+
+
+def _zero_ssd_leaves(cache: tp.Dict, fresh: torch.Tensor) -> tp.Dict:
+    """Zero the SSD state leaves of a cache dict, in place, where `fresh`
+    (a bool tensor that broadcasts against them) is set; attention K/V
+    leaves are left as they are. A masked fill, never a shape change."""
+    for entry in cache.values():
+        if "ssd" in entry:
+            entry["ssd"].masked_fill_(fresh, 0.0)
+    return cache
 
 
 def state_bytes_per_slot(cfg: tp.Any, max_seq_len: int, cache_layout: str,
@@ -82,7 +98,8 @@ def state_bytes_per_slot(cfg: tp.Any, max_seq_len: int, cache_layout: str,
 
 class SlotAllocator:
     """Free-list over the S cache slots: `acquire()` hands out the lowest
-    free slot (or None), `release()` returns one; double release raises."""
+    free slot (or None) or a named free one, `release()` returns one;
+    double release raises."""
 
     def __init__(self, capacity: int):
         if capacity < 1:
@@ -103,11 +120,21 @@ class SlotAllocator:
     def live(self) -> tp.FrozenSet[int]:
         return frozenset(self._live)
 
-    def acquire(self) -> tp.Optional[int]:
-        """Claim the lowest free slot (None when every slot is live)."""
-        if not self._free:
-            return None
-        slot = self._free.pop()
+    def acquire(self, slot: tp.Optional[int] = None) -> tp.Optional[int]:
+        """Claim the lowest free slot (None when every slot is live), or a
+        specific free slot: a draft model's engine holds exactly the slots
+        its target assigned (serve/draft.py); asking for a live or
+        out-of-range slot raises."""
+        if slot is None:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self._live.add(slot)
+            return slot
+        if slot not in self._free:
+            raise ValueError(f"slot {slot} is not free (live: "
+                             f"{sorted(self._live)})")
+        self._free.remove(slot)
         self._live.add(slot)
         return slot
 
@@ -121,8 +148,8 @@ class SlotAllocator:
 
 
 class DecodeEngine:
-    """S slots over a paged KV pool (or resident SSD states) + the
-    prefill-chunk and decode steps over them.
+    """S slots over a dense K/V slab, a paged K/V pool or resident SSD
+    states, and the prefill, decode and verify steps over them.
 
     Args:
         model: a port `TransformerLM`; its weights are cast once to the
@@ -134,29 +161,46 @@ class DecodeEngine:
             > 0 -> categorical sampling on `generator`.
         generator: the `torch.Generator` sampling draws from.
         pad_token: emitted for inactive slots; pads prompt slices.
-        min_bucket: default `tail_bucket` and the smallest prompt bucket.
-        chunk: prefill slice size; defaults to `block_size`, must divide
-            `max_seq_len`.
+        min_bucket: the smallest prompt bucket and the default
+            `tail_bucket`.
+        chunk: prefill slice size: prompts prefill in `[1, chunk]` slices
+            (`prefill_chunk`); must divide `max_seq_len`. None (the
+            default on the dense and ssd layouts) prefills each prompt
+            whole through its power-of-two bucket (`prefill`); the paged
+            layout always prefills in slices, `chunk` defaulting to
+            `block_size`.
         tail_bucket: the smaller slice used when the remaining prompt
             fits it; <= chunk.
-        spec_k: speculative decoding — not ported yet (raises; on the
-            ssd layout a ValueError: a cumulative state has no rollback).
-        cache_layout: 'paged' for attention stacks, 'ssd' (required) for
-            pure-SSD stacks: per slot one [H, Dh, N] f32 state per
-            layer, `self.unbounded`, sessions may stream past
-            `max_seq_len`, which then only sizes chunking. 'dense' and
-            hybrid stacks are not ported yet (raise).
-        block_size: tokens per pool block; must divide `max_seq_len`.
-        num_blocks: pool size including the sentinel; defaults to every
-            slot at `max_seq_len`.
+        spec_k: speculative decoding: `warmup()` also captures the
+            [S, k+1] verify step for this draft length, and the paged
+            pool reserves `spec_k` overshoot rows a request. The ssd
+            layout refuses it (ValueError: a cumulative state has no
+            rollback).
+        cache_layout: 'dense' (the default): per slot and attention
+            layer a [max_seq_len, H, Dh] K/V slab, read with plain
+            einsums. 'paged': a global block pool with per-slot block
+            tables, prefix sharing and copy-on-write forks. 'ssd'
+            (required when the stack has SSD layers): per slot one
+            [H, Dh, N] f32 state per SSD layer and, in a hybrid stack, a
+            dense slab per attention layer; a pure-SSD stack sets
+            `self.unbounded` and may stream past `max_seq_len`.
+        block_size: tokens per pool block (paged); must divide
+            `max_seq_len`.
+        num_blocks: pool size including the sentinel (paged); defaults to
+            every slot at `max_seq_len`.
         kv_dtype: 'model' (compute dtype) or 'int8' (per-row absmax
-            payloads + f32 scales).
+            payloads + f32 scales; paged only).
         kernel: the paged READ: 'fused' (the Hopper kernel; CUDA only),
             'gather' (its plain version) or 'auto' ('fused' on CUDA,
-            'gather' on the CPU). The ssd layout has no paged read
-            ('auto' reads 'gather'); its scan kernel follows
-            `config.ssd_kernel`.
+            'gather' on the CPU). The dense and ssd layouts have no
+            paged read: 'fused' raises there and 'auto' reads 'gather'
+            (the ssd scan kernel follows `config.ssd_kernel`).
         prefix_cache: enable cross-request prefix sharing (paged).
+        cache_scope: prefix of this engine's compile-cache keys, so that
+            two engines (a draft mirror and its target) can share one
+            CompileCache. A shared cache counts every entry made ready
+            after its `seal()` as a recompile: warm the engines that
+            share it before the last `warmup()` seals it.
         compile_cache: the CompileCache to keep the steps in; by default
             a private one on the engine's device.
         cuda_graphs: on CUDA, capture the steps as CUDA graphs (the
@@ -175,12 +219,13 @@ class DecodeEngine:
                  chunk: tp.Optional[int] = None,
                  tail_bucket: tp.Optional[int] = None,
                  spec_k: tp.Optional[int] = None,
-                 cache_layout: str = "paged",
+                 cache_layout: str = "dense",
                  block_size: int = 16,
                  num_blocks: tp.Optional[int] = None,
                  kv_dtype: str = "model",
                  kernel: str = "auto",
                  prefix_cache: bool = True,
+                 cache_scope: str = "",
                  compile_cache: tp.Optional[CompileCache] = None,
                  cuda_graphs: bool = True,
                  device: tp.Any = None):
@@ -212,33 +257,25 @@ class DecodeEngine:
                     "speculative decoding is not supported with SSD layers: "
                     "the recurrence state is cumulative, so rejected draft "
                     "tokens cannot be rolled back")
-            if "attention" in pattern:
-                raise NotImplementedError(
-                    f"a hybrid stack {pattern} on cache_layout='ssd' keeps "
-                    f"dense per-slot K/V slabs beside its states: "
-                    f"{TODO_LAYOUTS}")
-            if kv_dtype != "model":
-                raise ValueError("kv_dtype='int8' requires the paged cache "
-                                 "layout")
-            if kernel == "fused":
-                raise ValueError("kernel='fused' is the paged pool read; "
-                                 "the ssd layout has none (its scan kernel "
-                                 "follows config.ssd_kernel)")
-        if cache_layout == "dense":
-            raise NotImplementedError(
-                f"cache_layout='dense': {TODO_LAYOUTS}")
-        # a pure-SSD stack (the only one the ssd layout takes here) holds
-        # nothing per slot that grows with the context: sessions may
-        # stream past max_seq_len
-        self.unbounded = cache_layout == "ssd"
-        if spec_k is not None:
-            raise NotImplementedError(f"spec_k: {TODO_SPECULATIVE}")
+        # a pure-SSD stack holds nothing per slot that grows with the
+        # context: sessions may stream past max_seq_len; one attention
+        # layer's dense slab reinstates the ceiling
+        self.unbounded = cache_layout == "ssd" and "attention" not in pattern
         if kv_dtype not in ("model", "int8"):
             raise ValueError(f"kv_dtype must be 'model' or 'int8', "
                              f"got {kv_dtype!r}")
+        if kv_dtype == "int8" and cache_layout != "paged":
+            raise ValueError("kv_dtype='int8' requires the paged cache "
+                             "layout (scales live beside the block pool)")
         if kernel not in ("auto", "gather", "fused"):
             raise ValueError(f"kernel must be 'auto', 'gather' or "
                              f"'fused', got {kernel!r}")
+        if kernel == "fused" and cache_layout != "paged":
+            raise ValueError(
+                f"kernel='fused' is the paged pool read "
+                f"(ops/paged_decode.py); the {cache_layout} layout has no "
+                f"block tables to iterate (its attention is plain einsums; "
+                f"an SSD scan kernel follows config.ssd_kernel)")
         if kernel == "fused" and self.device.type != "cuda":
             # an explicit 'fused' must RUN the kernel; the plain path
             # standing in for it would let every kernel gate false-pass
@@ -268,24 +305,33 @@ class DecodeEngine:
         if generator is not None:
             compile_cache.register_generator(generator)
         self.compile_cache = compile_cache
+        self.cache_scope = str(cache_scope)
         self.pad_token = int(pad_token)
         self.min_bucket = int(min_bucket)
-        self.chunk = int(chunk if chunk is not None else self.block_size)
-        if self.chunk < 1 or self.max_seq_len % self.chunk:
-            raise ValueError(f"chunk must divide max_seq_len "
-                             f"({self.max_seq_len}), got {self.chunk}")
-        self.tail_bucket = int(tail_bucket if tail_bucket is not None
-                               else min(self.min_bucket, self.chunk))
-        if not 1 <= self.tail_bucket <= self.chunk:
-            raise ValueError(f"tail_bucket must be in [1, chunk], got "
-                             f"{self.tail_bucket} (chunk {self.chunk})")
+        if cache_layout == "paged" and chunk is None:
+            # paged engines always prefill in slices: a slice attends the
+            # slot's earlier (possibly prefix-shared) blocks through its
+            # table and can resume at any prefix-matched offset
+            chunk = self.block_size
+        self.chunk = int(chunk) if chunk is not None else None
+        if self.chunk is not None:
+            if self.chunk < 1 or self.max_seq_len % self.chunk:
+                raise ValueError(f"chunk must divide max_seq_len "
+                                 f"({self.max_seq_len}), got {self.chunk}")
+            self.tail_bucket = int(tail_bucket if tail_bucket is not None
+                                   else min(self.min_bucket, self.chunk))
+            if not 1 <= self.tail_bucket <= self.chunk:
+                raise ValueError(f"tail_bucket must be in [1, chunk], got "
+                                 f"{self.tail_bucket} (chunk {self.chunk})")
+        else:
+            self.tail_bucket = None
+        self.spec_k = int(spec_k) if spec_k is not None else None
+        if self.spec_k is not None and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         self.allocator = SlotAllocator(slots)
         self._params = decode_params(model)
         self._pool: tp.Optional[BlockPool] = None
-        if cache_layout == "ssd":
-            self._cache_box = CacheBox(init_cache(cfg, slots, 0,
-                                                  self.device))
-        else:
+        if cache_layout == "paged":
             if num_blocks is None:
                 num_blocks = 1 + slots * (self.max_seq_len
                                           // self.block_size)
@@ -293,6 +339,7 @@ class DecodeEngine:
             self._pool = BlockPool(num_blocks=self.num_blocks,
                                    block_size=self.block_size,
                                    max_seq_len=self.max_seq_len,
+                                   spec_overshoot=self.spec_k or 0,
                                    prefix_cache=prefix_cache)
             self._cache_box = CacheBox(init_pool(
                 cfg, self.num_blocks, self.block_size, kv_dtype,
@@ -306,24 +353,40 @@ class DecodeEngine:
             # the copy-on-write fork's source and destination blocks
             self._copy_blocks = torch.zeros((2, 1), dtype=torch.long,
                                             device=self.device)
-        # steps made, by kind (each runs num_layers paged reads or, on
-        # the ssd layout, num_layers SSD layers)
-        self.step_counts = {"decode": 0, "prefill_chunk": 0}
-        # the steps' static buffers: per-slot state, and the inputs of
-        # each prefill slice size
+        else:
+            # the dense slabs (hybrid stacks: beside the SSD states)
+            self.num_blocks = 0
+            self._cache_box = CacheBox(init_cache(cfg, slots,
+                                                  self.max_seq_len,
+                                                  self.device))
+        # steps made, by kind (each attention layer of each step makes
+        # one attention read; each SSD layer of a multi-token step one
+        # scan)
+        self.step_counts = {"decode": 0, "prefill_chunk": 0, "prefill": 0,
+                            "verify": 0}
+        # the steps' static buffers: per-slot state, the inputs of each
+        # prefill slice size and bucket, and each draft length's drafts
         s, dev = self.slots, self.device
         self._tokens = torch.empty((s,), dtype=torch.long, device=dev)
         self._positions = torch.empty((s,), dtype=torch.long, device=dev)
         self._active = torch.empty((s,), dtype=torch.bool, device=dev)
-        self._prefill_inputs = {size: self._prefill_buffers(size)
-                                for size in {self.chunk, self.tail_bucket}}
+        self._prefill_inputs = {} if self.chunk is None else {
+            size: self._prefill_buffers(size)
+            for size in {self.chunk, self.tail_bucket}}
+        self._bucket_inputs: tp.Dict[int, tp.Dict[str, torch.Tensor]] = {}
+        self._draft_inputs: tp.Dict[int, torch.Tensor] = {}
         self._reset_slot_state()
+
+    def _key(self, *parts: tp.Any) -> tp.Tuple[tp.Any, ...]:
+        """Compile-cache key of one of this engine's steps, prefixed with
+        `cache_scope` so that co-resident engines never collide."""
+        return ((self.cache_scope,) if self.cache_scope else ()) + parts
 
     def _prefill_buffers(self, size: int) -> tp.Dict[str, torch.Tensor]:
         """The static inputs of a prefill slice of `size` tokens: tokens
         and positions [1, size]; on the paged layout the slot's table row
-        [1, max_blocks]; on the ssd layout the token mask [1, size], the
-        slot index [1] and whether the slot starts fresh [1, 1, 1, 1]."""
+        [1, max_blocks]; on the others the token mask [1, size], the slot
+        index [1] and whether the slot starts fresh [1, 1, 1, 1]."""
         dev = self.device
         bufs = {"tokens": torch.zeros((1, size), dtype=torch.long,
                                       device=dev),
@@ -340,10 +403,31 @@ class DecodeEngine:
                                         device=dev)
         return bufs
 
+    def _bucket_buffers(self, bucket: int) -> tp.Dict[str, torch.Tensor]:
+        """The static inputs of the monolithic prefill of `bucket`: the
+        right-padded prompt [1, bucket], its length [1] and the slot [1]
+        (made at the bucket's first use, kept for its graph)."""
+        if bucket not in self._bucket_inputs:
+            dev = self.device
+            self._bucket_inputs[bucket] = {
+                "tokens": torch.zeros((1, bucket), dtype=torch.long,
+                                      device=dev),
+                "length": torch.ones((1,), dtype=torch.long, device=dev),
+                "slot": torch.zeros((1,), dtype=torch.long, device=dev)}
+        return self._bucket_inputs[bucket]
+
+    def _draft_buffer(self, k: int) -> torch.Tensor:
+        """The static [S, k] drafts the verify step of length k reads."""
+        if k not in self._draft_inputs:
+            self._draft_inputs[k] = torch.full(
+                (self.slots, k), self.pad_token, dtype=torch.long,
+                device=self.device)
+        return self._draft_inputs[k]
+
     def _reset_slot_state(self) -> None:
-        """Every slot inactive, parked at `max_seq_len` (its writes land
-        in the sentinel block), on device (in place: the steps' graphs
-        read these tensors) and in the host mirror."""
+        """Every slot inactive, parked at `max_seq_len` (its writes are
+        dropped, or land in the sentinel block), on device (in place: the
+        steps' graphs read these tensors) and in the host mirror."""
         self._tokens.fill_(self.pad_token)
         self._positions.fill_(self.max_seq_len)
         self._active.fill_(False)
@@ -359,7 +443,7 @@ class DecodeEngine:
 
     @property
     def pool(self) -> tp.Optional[BlockPool]:
-        """The block pool (None on the ssd layout)."""
+        """The block pool (None on the dense and ssd layouts)."""
         return self._pool
 
     @property
@@ -387,6 +471,7 @@ class DecodeEngine:
     # public surface
     # ------------------------------------------------------------------
     def bucket_for(self, prompt_len: int) -> int:
+        """The prefill bucket a prompt of this length lands in."""
         return bucket_length(prompt_len, minimum=self.min_bucket,
                              maximum=self.max_seq_len)
 
@@ -402,8 +487,9 @@ class DecodeEngine:
 
         def decode(tokens, positions, active, table=None):
             if table is None:
-                # `active` freezes the state of every slot that is not
-                # live: free, or mid-prefill with its state half built
+                # `active` freezes the SSD state of every slot that is
+                # not live (free, or mid-prefill with its state half
+                # built); a parked slot's K/V write is dropped
                 logits, _ = _apply_step(
                     params, cfg, tokens[:, None], positions[:, None],
                     self._cache, positions, state_mask=active)
@@ -420,11 +506,29 @@ class DecodeEngine:
 
         return decode
 
-    def _build_prefill(self) -> tp.Callable:
-        """One prefill slice from its static inputs (`_prefill_buffers`);
-        returns the slice's f32 logits [1, size, V]. On the ssd layout
-        the slot's states are gathered (zeroed where it starts fresh),
-        advanced, and scattered back."""
+    def _slot_rows(self, slot: torch.Tensor
+                   ) -> tp.Tuple[tp.Dict, tp.List[tp.Tuple]]:
+        """The slot's rows of every cache leaf, as a batch-1 cache (K/V
+        slabs keep their spare row, `models.decoding.init_cache`), and
+        the (cache tensor, rows) pairs to scatter them back."""
+        mini, pairs = {}, []
+        for name, entry in self._cache.items():
+            mini[name] = {}
+            for leaf, t in entry.items():
+                full = t if leaf == "ssd" else with_spare_row(t)
+                rows = full.index_select(0, slot)
+                mini[name][leaf] = rows if leaf == "ssd" \
+                    else rows[:, :t.shape[1]]
+                pairs.append((full, rows))
+        return mini, pairs
+
+    def _build_prefill_chunk(self, size: int) -> tp.Callable:
+        """One prefill slice of `size` tokens from its static inputs
+        (`_prefill_buffers`); returns the slice's f32 logits [1, size, V].
+        Off the paged layout the slot's rows of every leaf are gathered
+        (its SSD states zeroed where it starts fresh), advanced, and
+        scattered back: each attention slab of the slot is copied out
+        and back once a slice."""
         params, cfg, kernel = self._params, self._cfg, self.kernel
         if self._pool is not None:
             def prefill(tokens, positions, row):
@@ -435,19 +539,79 @@ class DecodeEngine:
 
             return prefill
 
-        def prefill_ssd(tokens, positions, mask, slot, fresh):
-            mini = {}
-            for name, entry in self._cache.items():
-                rows = entry["ssd"].index_select(0, slot)
-                mini[name] = {"ssd": torch.where(
-                    fresh, torch.zeros_like(rows), rows)}
-            logits, _ = _apply_step(params, cfg, tokens, positions, mini, 0,
-                                    token_mask=mask)
-            for name, entry in self._cache.items():
-                entry["ssd"].index_copy_(0, slot, mini[name]["ssd"])
+        def prefill_slot(tokens, positions, mask, slot, fresh):
+            mini, pairs = self._slot_rows(slot)
+            _zero_ssd_leaves(mini, fresh)
+            # pad rows past the prompt write at positions past every
+            # causal horizon; the token mask keeps them out of the state
+            logits, _ = _apply_step(params, cfg, tokens, positions, mini,
+                                    positions[:, 0], token_mask=mask)
+            for full, rows in pairs:
+                full.index_copy_(0, slot, rows)
             return logits
 
-        return prefill_ssd
+        return prefill_slot
+
+    def _build_prefill(self, bucket: int) -> tp.Callable:
+        """The monolithic prefill of one prompt bucket (dense and ssd
+        layouts): the prompt [1, bucket] runs against a fresh batch-1
+        cache, which is merged into the slot's rows; returns the f32
+        logits [1, bucket, V]. Pad positions past `length` are never
+        attended, and the token mask keeps them out of SSD states."""
+        params, cfg = self._params, self._cfg
+
+        def prefill(tokens, length, slot):
+            mini = init_cache(cfg, 1, bucket, self.device)
+            positions = torch.arange(bucket, device=tokens.device)[None]
+            mask = positions < length[:, None]
+            logits, mini = _apply_step(params, cfg, tokens, positions, mini,
+                                       0, token_mask=mask)
+            for name, entry in self._cache.items():
+                for leaf, t in entry.items():
+                    target = t if leaf == "ssd" else t[:, :bucket]
+                    target.index_copy_(0, slot, mini[name][leaf])
+            return logits
+
+        return prefill
+
+    def _build_verify(self, k: int) -> tp.Callable:
+        """The [S, k+1] verify step: scores each slot's last token and its
+        k drafts in one forward (k+1 K/V rows written at the slot's own
+        offset), accepts the longest matching prefix
+        (`speculative_acceptance`), and advances `tokens` and `positions`
+        past it, in place; returns (out [S, k+1], accepted [S]). Rows
+        past the accepted position hold stale draft K/V, past every
+        causal horizon until overwritten: rollback is free. Rows past
+        the cache are dropped (dense) or land in the sentinel block
+        (paged)."""
+        params, cfg, kernel = self._params, self._cfg, self.kernel
+        pad = self.pad_token
+
+        def verify(tokens, drafts, positions, active, table=None):
+            toks = torch.cat([tokens[:, None], drafts], dim=1)
+            pos = positions[:, None] + torch.arange(k + 1,
+                                                    device=tokens.device)
+            if table is None:
+                logits, _ = _apply_step(params, cfg, toks, pos, self._cache,
+                                        positions)
+            else:
+                logits, _ = paged_apply_step(params, cfg, toks, pos,
+                                             self._cache, table,
+                                             kernel=kernel, verify=True)
+            out, accepted = speculative_acceptance(
+                drafts, logits, temperature=self.temperature,
+                generator=self._generator, pad_token=pad)
+            out = torch.where(active[:, None], out, torch.full_like(out, pad))
+            accepted = torch.where(active, accepted,
+                                   torch.zeros_like(accepted))
+            last = torch.gather(out, 1, accepted[:, None])[:, 0]
+            tokens.copy_(torch.where(active, last,
+                                     torch.full_like(last, pad)))
+            positions.add_(torch.where(active, accepted + 1,
+                                       torch.zeros_like(accepted)))
+            return out, accepted
+
+        return verify
 
     def _build_copy(self) -> tp.Callable:
         """The copy-on-write fork: block blocks[0]'s rows onto block
@@ -459,16 +623,23 @@ class DecodeEngine:
         args = (self._tokens, self._positions, self._active)
         return args if self._pool is None else args + (self._table(),)
 
+    def _verify_args(self, k: int) -> tp.Tuple[torch.Tensor, ...]:
+        args = (self._tokens, self._draft_buffer(k), self._positions,
+                self._active)
+        return args if self._pool is None else args + (self._table(),)
+
     @torch.no_grad()
-    def warmup(self) -> None:
+    def warmup(self, prompt_lengths: tp.Iterable[int] = ()) -> None:
         """Warm every step live traffic can touch, on scratch inputs over
-        parked slots (their writes land in the sentinel block; on the ssd
-        layout slot 0's state, which a fresh prefill zeroes): the decode
-        step, the prefill slices of `chunk` and `tail_bucket` tokens and,
-        paged, the copy-on-write block copy (sentinel onto sentinel). On
-        CUDA each is built, run once and captured as a CUDA graph; then
-        the compile cache is sealed, so any later capture counts as a
-        recompile. Call before admitting requests."""
+        parked slots (their writes are dropped or land in the sentinel
+        block; a prefill's scratch rows land in slot 0, which a real
+        prefill overwrites): the prefill slices of `chunk` and
+        `tail_bucket` tokens, or the buckets of `min_bucket` and of
+        `prompt_lengths`; the decode step; with `spec_k` the verify step;
+        and, paged, the copy-on-write block copy (sentinel onto
+        sentinel). On CUDA each is built, run once and captured as a CUDA
+        graph; then the compile cache is sealed, so any later capture
+        counts as a recompile. Call before admitting requests."""
         if self.allocator.live_count:
             raise ValueError("warmup() runs before any slot is live")
         cache = self.compile_cache
@@ -479,14 +650,33 @@ class DecodeEngine:
             if self._pool is None:
                 bufs["mask"].fill_(False)
                 bufs["mask"][0, 0] = True
+                bufs["slot"].zero_()
                 bufs["fresh"].fill_(True)
-            cache.warm(("prefill_chunk", size), self._build_prefill,
+            cache.warm(self._key("prefill_chunk", size),
+                       lambda: self._build_prefill_chunk(size),
                        *bufs.values())
-        cache.warm(("decode", self.slots), self._build_decode,
+        if self.chunk is None:
+            buckets = {self.min_bucket}
+            buckets.update(self.bucket_for(n) for n in prompt_lengths)
+            for bucket in sorted(buckets):
+                bufs = self._bucket_buffers(bucket)
+                bufs["tokens"].fill_(self.pad_token)
+                bufs["length"].fill_(1)
+                bufs["slot"].zero_()
+                cache.warm(self._key("prefill", bucket),
+                           lambda: self._build_prefill(bucket),
+                           *bufs.values())
+        cache.warm(self._key("decode", self.slots), self._build_decode,
                    *self._decode_args())
+        if self.spec_k is not None:
+            self._draft_buffer(self.spec_k).fill_(self.pad_token)
+            cache.warm(self._key("verify", self.slots, self.spec_k),
+                       lambda: self._build_verify(self.spec_k),
+                       *self._verify_args(self.spec_k))
         if self._pool is not None:
             self._copy_blocks.zero_()
-            cache.warm(("copy_block",), self._build_copy, self._copy_blocks)
+            cache.warm(self._key("copy_block"), self._build_copy,
+                       self._copy_blocks)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         cache.seal()
@@ -495,14 +685,16 @@ class DecodeEngine:
                     self.kernel, len(cache),
                     ", ".join(cache.executables()))
 
-    def acquire_slot(self) -> tp.Optional[int]:
-        """Claim a free slot (None when all are live) to admit into."""
-        return self.allocator.acquire()
+    def acquire_slot(self, slot: tp.Optional[int] = None
+                     ) -> tp.Optional[int]:
+        """Claim a free slot (None when all are live) to admit into; a
+        specific `slot` for a mirrored draft engine."""
+        return self.allocator.acquire(slot)
 
     def can_admit(self, prompt: np.ndarray, max_new_tokens: int) -> bool:
         """Whether the pool can reserve this request's whole budget now
-        (net of its prefix-cache credit); always on the ssd layout, where
-        the slot is the reservation."""
+        (net of its prefix-cache credit); always on the dense and ssd
+        layouts, where the slot is the reservation."""
         if self._pool is None:
             return True
         return self._pool.can_admit(np.asarray(prompt, np.int32),
@@ -516,8 +708,8 @@ class DecodeEngine:
         device block copy for a copy-on-write fork), fills the slot's
         table row, and returns the prompt tokens served from the cache
         (always < len(prompt)). Raises PoolExhausted, with nothing
-        changed, when the pool lacks headroom. On the ssd layout there
-        is nothing to reserve: prefill starts at 0.
+        changed, when the pool lacks headroom. On the dense and ssd
+        layouts there is nothing to reserve: prefill starts at 0.
         """
         if slot not in self.allocator.live:
             raise ValueError(f"slot {slot} was not acquired")
@@ -531,13 +723,13 @@ class DecodeEngine:
         if cow is not None:
             self._copy_blocks.copy_(torch.tensor(cow)[:, None])
             with torch.no_grad():
-                self.compile_cache.get(("copy_block",), self._build_copy)(
-                    self._copy_blocks)
+                self.compile_cache.get(self._key("copy_block"),
+                                       self._build_copy)(self._copy_blocks)
         return start
 
     def pool_stats(self) -> tp.Optional[tp.Dict[str, float]]:
         """Block-pool counters plus `kv_bytes_per_token`, the pool bytes
-        reserved per live token (None on the ssd layout)."""
+        reserved per live token (None off the paged layout)."""
         if self._pool is None:
             return None
         stats = self._pool.stats()
@@ -553,6 +745,54 @@ class DecodeEngine:
                                     kv_dtype=self.kv_dtype,
                                     block_size=self.block_size)
 
+    def cache_bytes(self) -> int:
+        """Device bytes of this engine's cache: the whole pool on the
+        paged layout, else every slab and state (each slab's spare row
+        excluded: it is not cache)."""
+        if self._pool is not None:
+            return pool_bytes(self._cfg, self.num_blocks, self.block_size,
+                              self.kv_dtype)
+        return int(sum(t.numel() * t.element_size()
+                       for entry in self._cache.values()
+                       for t in entry.values()))
+
+    def _check_prompt(self, slot: int, prompt: tp.Any) -> np.ndarray:
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 1 or prompt.size < 1:
+            raise ValueError(f"prompt must be 1-D and non-empty, "
+                             f"got shape {prompt.shape}")
+        if slot not in self.allocator.live:
+            raise ValueError(f"slot {slot} was not acquired")
+        return prompt
+
+    @torch.no_grad()
+    def prefill(self, slot: int, prompt: np.ndarray) -> int:
+        """Run the whole `prompt` (1-D int tokens) into `slot` through its
+        bucket's step; returns the first generated token. The slot must
+        have been acquired. Dense and ssd layouts."""
+        if self._pool is not None:
+            raise ValueError(
+                "paged engines prefill in slices (chunk is always set): use "
+                "admit() + prefill_chunk(); the monolithic prefill merges a "
+                "dense batch-1 cache, which has no meaning for a block pool")
+        prompt = self._check_prompt(slot, prompt)
+        length = int(prompt.size)
+        bucket = self.bucket_for(length)
+        padded = np.full((1, bucket), self.pad_token, np.int64)
+        padded[0, :length] = prompt
+        bufs = self._bucket_buffers(bucket)
+        bufs["tokens"].copy_(torch.from_numpy(padded))
+        bufs["length"].fill_(length)
+        bufs["slot"].fill_(slot)
+        logits = self.compile_cache.get(
+            self._key("prefill", bucket),
+            lambda: self._build_prefill(bucket))(*bufs.values())
+        self.step_counts["prefill"] += 1
+        first = int(sample_tokens(logits[0, length - 1:length],
+                                  self.temperature, self._generator)[0])
+        self._set_slot(slot, first, length, True)
+        return first
+
     @torch.no_grad()
     def prefill_chunk(self, slot: int, prompt: np.ndarray,
                       start: int) -> tp.Tuple[int, tp.Optional[int]]:
@@ -561,16 +801,15 @@ class DecodeEngine:
 
         Returns `(next_start, first_token)`; `first_token` is None until
         the final slice, when the slot goes live. Pad rows past the
-        prompt write at positions past every causal horizon; on the ssd
-        layout a token mask keeps them out of the state, and the slice
-        at `start == 0` zeroes the slot's states first (a fresh request).
+        prompt write at positions past every causal horizon; a token mask
+        keeps them out of SSD states, and the slice at `start == 0`
+        zeroes the slot's states first (a fresh request).
         """
-        prompt = np.asarray(prompt)
-        if prompt.ndim != 1 or prompt.size < 1:
-            raise ValueError(f"prompt must be 1-D and non-empty, "
-                             f"got shape {prompt.shape}")
-        if slot not in self.allocator.live:
-            raise ValueError(f"slot {slot} was not acquired")
+        if self.chunk is None:
+            raise ValueError("engine was built without chunk=...; use "
+                             "prefill() for the monolithic bucketed "
+                             "prefill")
+        prompt = self._check_prompt(slot, prompt)
         length = int(prompt.size)
         if length > self.max_seq_len and not self.unbounded:
             raise ValueError(f"prompt length {length} exceeds "
@@ -595,8 +834,9 @@ class DecodeEngine:
         else:
             bufs["row"].copy_(torch.from_numpy(
                 self._table_host[slot:slot + 1]))
-        logits = self.compile_cache.get(("prefill_chunk", size),
-                                        self._build_prefill)(*bufs.values())
+        logits = self.compile_cache.get(
+            self._key("prefill_chunk", size),
+            lambda: self._build_prefill_chunk(size))(*bufs.values())
         self.step_counts["prefill_chunk"] += 1
         if not final:
             return start + used, None
@@ -612,21 +852,80 @@ class DecodeEngine:
     def decode(self) -> np.ndarray:
         """One [S, 1] decode step over every slot; returns the [S] next
         tokens (pad_token on inactive slots)."""
-        step = self.compile_cache.get(("decode", self.slots),
+        step = self.compile_cache.get(self._key("decode", self.slots),
                                       self._build_decode)
         tokens = step(*self._decode_args())
         self.step_counts["decode"] += 1
-        out = tokens.cpu().numpy()
+        # a copy: on the CPU `.cpu()` returns the step's own buffer
+        out = tokens.cpu().numpy().copy()
         self._positions_host += self._active_host
         return out
+
+    @torch.no_grad()
+    def decode_speculative(self, drafts: np.ndarray
+                           ) -> tp.Tuple[np.ndarray, np.ndarray]:
+        """One [S, k+1] verify step over every slot against `drafts` ([S,
+        k] proposed tokens; inactive rows ignored).
+
+        Returns `(out_tokens, accepted)`: out_tokens [S, k+1] holds each
+        live slot's emitted tokens at indices 0..accepted[s] (accepted
+        drafts + the bonus or resampled token, `pad_token` beyond and on
+        inactive rows); accepted [S] counts kept drafts. Greedy engines
+        emit exactly `generate()`'s tokens
+        (`models.decoding.speculative_acceptance`). The step advances each
+        live slot by accepted + 1; the stale draft rows past it are past
+        every causal horizon until overwritten.
+        """
+        if self.cache_layout == "ssd":
+            raise ValueError(
+                "speculative decoding is not supported on the SSD layout: "
+                "the recurrence state is cumulative, so rejected drafts "
+                "cannot be rolled back")
+        drafts = np.asarray(drafts, np.int64)
+        if drafts.ndim != 2 or drafts.shape[0] != self.slots \
+                or drafts.shape[1] < 1:
+            raise ValueError(f"drafts must be [S={self.slots}, k>=1], "
+                             f"got {drafts.shape}")
+        k = int(drafts.shape[1])
+        self._draft_buffer(k).copy_(torch.from_numpy(drafts))
+        step = self.compile_cache.get(self._key("verify", self.slots, k),
+                                      lambda: self._build_verify(k))
+        out, accepted = step(*self._verify_args(k))
+        self.step_counts["verify"] += 1
+        both = torch.cat([out, accepted[:, None]], dim=1).cpu().numpy()
+        out_np, accepted_np = both[:, :-1], both[:, -1]
+        self._positions_host += np.where(self._active_host,
+                                         accepted_np + 1, 0)
+        return out_np, accepted_np
+
+    def set_slot_state(self, slot: int, last_token: int,
+                       position: int) -> None:
+        """Overwrite a live slot's (last token, position) pair: the
+        rollback and resync of a mirrored draft engine that ran ahead
+        (rows past `position` need no cleanup: they are past every causal
+        horizon until overwritten)."""
+        if slot not in self.allocator.live:
+            raise ValueError(f"slot {slot} is not live")
+        if not (0 <= position <= self.max_seq_len
+                or (self.unbounded and position >= 0)):
+            raise ValueError(f"position {position} outside "
+                             f"[0, {self.max_seq_len}]")
+        self._tokens[slot] = int(last_token)
+        self._positions[slot] = int(position)
+        self._positions_host[slot] = int(position)
+
+    def slot_length(self, slot: int) -> int:
+        """Current sequence length of a slot (prompt + generated), from
+        the host mirror: no device->host copy."""
+        return int(self._positions_host[slot])
 
     def _park(self, slot: int) -> None:
         self._set_slot(slot, self.pad_token, self.max_seq_len, False)
 
     def retire(self, slot: int) -> None:
-        """Free `slot`: park it (pending writes land in the sentinel) and
-        drop its block refcounts; prompt blocks the prefix index caches
-        stay resident for later admissions."""
+        """Free `slot`: park it (pending writes are dropped or land in the
+        sentinel) and drop its block refcounts; prompt blocks the prefix
+        index caches stay resident for later admissions."""
         self._park(slot)
         if self._pool is not None and self._pool.holds(slot):
             self._pool.release(slot)

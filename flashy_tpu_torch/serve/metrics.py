@@ -2,9 +2,10 @@
 flashy_tpu/serve/metrics.py's `ServeMetrics`).
 
 Time to first token (queue wait + prefill), inter-token latency, queue
-depth, slot and pool occupancy, prefix hits, and tokens per second over
-the serving window. Samples are host-side appends; `summary()` reports
-percentiles with the port's own `percentile`. The `serve.json` status
+depth, slot and pool occupancy, prefix hits, speculative acceptance, and
+tokens per second over the serving window. Samples are host-side
+appends; `summary()` reports percentiles with the port's own
+`percentile`. The `serve.json` status
 file and the tracer fan-out wait for ROADMAP.md queue A item 3, L4/L5.
 """
 import time
@@ -49,6 +50,12 @@ class ServeMetrics:
         self.prefix_prompt_tokens = 0
         self.prefix_admissions = 0
         self.prefix_hits = 0
+        # speculative decoding: proposal and acceptance accounting
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.accepted_per_step: tp.List[int] = []
         # the serving window tokens/s is taken over: first submit to
         # last completion
         self.first_submit_at: tp.Optional[float] = None
@@ -106,6 +113,18 @@ class ServeMetrics:
             entry["tokens"] += int(tokens)
         self.last_done_at = time.perf_counter()
 
+    def on_spec_step(self, drafted: int, accepted: tp.Sequence[int],
+                     emitted: int) -> None:
+        """One speculative verify step: `drafted` tokens proposed per live
+        slot, `accepted` the kept-draft count of each live slot, `emitted`
+        the tokens delivered (accepted + bonus, less any EOS or budget
+        truncation)."""
+        self.spec_steps += 1
+        self.spec_drafted += drafted * len(accepted)
+        self.spec_accepted += int(sum(accepted))
+        self.spec_emitted += emitted
+        self.accepted_per_step.extend(int(a) for a in accepted)
+
     def on_prefix(self, matched_tokens: int, prompt_tokens: int) -> None:
         """One paged admission: `matched_tokens` of the prompt came from
         the prefix cache; a hit is any admission with matched > 0."""
@@ -160,6 +179,14 @@ class ServeMetrics:
                 self.prefix_matched_tokens / self.prefix_prompt_tokens
                 if self.prefix_prompt_tokens else 0.0)
             out["prefix_hit_requests"] = self.prefix_hits
+        if self.spec_steps:
+            out["spec_drafted"] = self.spec_drafted
+            out["spec_emitted"] = self.spec_emitted
+            out["acceptance_rate"] = (self.spec_accepted / self.spec_drafted
+                                      if self.spec_drafted else 0.0)
+            for p in self.percentiles:
+                out[f"accepted_per_step_p{p:g}"] = percentile(
+                    self.accepted_per_step, p)
         for reason, count in sorted(self.finish_reasons.items()):
             out[f"finish_{reason}"] = count
         return out

@@ -495,7 +495,8 @@ class BlockPool:
 # ----------------------------------------------------------------------
 def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
                      positions: torch.Tensor, cache: tp.Dict,
-                     table: torch.Tensor, kernel: str = "gather"):
+                     table: torch.Tensor, kernel: str = "gather",
+                     verify: bool = False):
     """Forward `tokens` [B, T] at `positions` [B, T] against the pool.
 
     The paged twin of `models.decoding._apply_step`: same embed, MLP,
@@ -503,18 +504,22 @@ def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
     `paged_write` and a paged read. `table` is [B, max_blocks] int32.
     `kernel` picks the READ: 'fused' is the Hopper kernel
     (`ops.paged_decode`, legal because every engine read queries
-    consecutive positions per row), 'gather' its plain version. The
-    pool is updated in place; returns (f32 logits [B, T, V], cache).
+    consecutive positions per row), 'gather' its plain version.
+    `verify` marks the speculative verify step, whose fused read is
+    `fused_speculative_verify` (the same kernel at T = k+1). The pool is
+    updated in place; returns (f32 logits [B, T, V], cache).
     """
     from ..models.decoding import (_embed_tokens, _gated_mlp, _head_logits,
                                    _rmsnorm, _rotary)
     from ..ops.paged_attention import paged_attention, paged_write
-    from ..ops.paged_decode import fused_paged_attention
+    from ..ops.paged_decode import (fused_paged_attention,
+                                    fused_speculative_verify)
 
     if kernel not in ("gather", "fused"):
         raise ValueError(f"kernel must be 'gather' or 'fused', "
                          f"got {kernel!r}")
-    attend = fused_paged_attention if kernel == "fused" else paged_attention
+    attend = paged_attention if kernel == "gather" \
+        else fused_speculative_verify if verify else fused_paged_attention
 
     x = _embed_tokens(params, tokens, cfg.dtype)
     for i in range(cfg.num_layers):

@@ -7,13 +7,15 @@ first, FIFO among equals, under a hard queue-depth cap (`QueueFull` is
 the backpressure signal). On the paged engine admission also waits for
 block-pool headroom; a blocked higher-priority request preempts a
 strictly-lower running one, which re-queues with its tokens kept and
-resumes token-exact. The ssd layout has no pool, and an unbounded
-(pure-SSD) engine no length ceiling at the door. Prompts prefill in
-fixed slices interleaved with decode steps.
+resumes token-exact. The dense and ssd layouts have no pool, and an
+unbounded (pure-SSD) engine no length ceiling at the door. Prompts
+prefill whole at admission (an engine without `chunk`) or in fixed
+slices interleaved with decode steps. With a draft provider
+(serve/draft.py) each step verifies k drafted tokens a slot in one
+[S, k+1] engine call and emits accepted + 1 tokens a live slot.
 
-Left out for later slices (ROADMAP.md queue A item 3): speculative
-drafts (L2), request tracing (L5), the chaos fault point (L6), and the
-fleet's re-routing hooks.
+Left out for later slices (ROADMAP.md queue A item 3): request tracing
+(L5), the chaos fault point (L6), and the fleet's re-routing hooks.
 """
 import collections
 import dataclasses
@@ -39,7 +41,9 @@ class QueueFull(RuntimeError):
 class Request:
     """One generation request and its lifecycle record.
 
-    States: queued -> prefilling -> running -> done. `output` is
+    States: queued -> (prefilling ->) running -> done; 'prefilling' only
+    on engines that prefill in slices. `generated` grows by one token a
+    step, or by up to k+1 under speculative decoding. `output` is
     prompt + generated (an emitted EOS included, as `generate` does).
     """
     uid: int
@@ -85,22 +89,26 @@ class Request:
 class ContinuousBatchingScheduler:
     """Request queue feeding a DecodeEngine's slots.
 
-    One `step()` = shed expired + admit (reserve blocks, advance at
-    most `prefill_chunks_per_step` prefill slices) + one engine decode
-    over all S slots + retire finished requests. The scheduler runs on
-    its engine's device.
+    One `step()` = shed expired + admit (reserve blocks; prefill whole,
+    or advance at most `prefill_chunks_per_step` prefill slices) + one
+    engine decode (or speculative verify) over all S slots + retire
+    finished requests. The scheduler runs on its engine's device.
 
     Args:
         engine: the DecodeEngine supplying slots and steps.
         max_queue: admission-queue depth; `submit()` past it raises
             QueueFull.
         metrics: a ServeMetrics; one is created when not given.
+        draft: a DraftProvider (serve/draft.py) enabling speculative
+            decoding; its `k` must match `engine.spec_k` when that is set
+            (the warm-up captured exactly that verify step).
         prefill_chunks_per_step: prefill slices advanced per step (the
             prefill/decode interleave ratio).
     """
 
     def __init__(self, engine: DecodeEngine, max_queue: int = 128,
                  metrics: tp.Optional[ServeMetrics] = None,
+                 draft: tp.Optional[tp.Any] = None,
                  prefill_chunks_per_step: int = 1):
         self.engine = engine
         self.max_queue = max_queue
@@ -111,6 +119,13 @@ class ContinuousBatchingScheduler:
                            ("state_bytes_per_slot",
                             engine.state_bytes_per_slot())):
             self.metrics.static_info.setdefault(key, value)
+        self.draft = draft
+        if draft is not None and engine.spec_k is not None \
+                and draft.k != engine.spec_k:
+            raise ValueError(
+                f"draft proposes k={draft.k} tokens but the engine warmed "
+                f"its verify step for spec_k={engine.spec_k}; a mismatch "
+                f"would capture after the warm-up")
         if prefill_chunks_per_step < 1:
             raise ValueError(f"prefill_chunks_per_step must be >= 1, "
                              f"got {prefill_chunks_per_step}")
@@ -120,6 +135,7 @@ class ContinuousBatchingScheduler:
         # slot -> [request, next chunk start, prompt being prefilled];
         # insertion order == FIFO
         self._prefilling: tp.Dict[int, tp.List[tp.Any]] = {}
+        self._draft_slots: tp.Set[int] = set()  # slots the draft tracks
         self._uid = itertools.count()
         self.admitted_order: tp.List[int] = []  # uids, admission sequence
         self.prefill_tokens_last_step = 0
@@ -146,9 +162,10 @@ class ContinuousBatchingScheduler:
         """Queue one request; returns its Request handle.
 
         Raises QueueFull at the depth cap and ValueError for a request
-        that could never fit (`prompt + max_new_tokens` beyond
-        `max_seq_len`; an unbounded pure-SSD engine has no such ceiling),
-        so it fails at the door. `ttl` (seconds) bounds
+        that could never fit (a prompt past the largest prefill bucket, or
+        `prompt + max_new_tokens` beyond `max_seq_len`; an unbounded
+        pure-SSD engine that prefills in slices has neither ceiling), so
+        it fails at the door. `ttl` (seconds) bounds
         the queue wait; `priority` picks the admission class (higher
         first, may preempt strictly-lower running requests).
         """
@@ -164,6 +181,13 @@ class ContinuousBatchingScheduler:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
+        if not self.engine.unbounded or self.engine.chunk is None:
+            # the bucketed prefill caps prompts at its largest bucket
+            largest = self.engine.bucket_for(self.engine.max_seq_len)
+            if prompt.size > largest:
+                raise ValueError(
+                    f"prompt length {prompt.size} exceeds the largest "
+                    f"prefill bucket ({largest}); it can never be prefilled")
         total = prompt.size + max_new_tokens
         if not self.engine.unbounded and total > self.engine.max_seq_len:
             raise ValueError(
@@ -209,7 +233,8 @@ class ContinuousBatchingScheduler:
 
     def _first_token(self, slot: int, request: Request, first: int) -> None:
         """Prefill completed: record TTFT (once per request, a resumed
-        request already has it) and retire or start decoding."""
+        request already has it), and retire, or start decoding and seed
+        the draft."""
         now = time.perf_counter()
         request.state = "running"
         request.generated.append(first)
@@ -222,6 +247,14 @@ class ContinuousBatchingScheduler:
             self._finish(request, "length")
         else:
             self._running[slot] = request
+            if self.draft is not None:
+                self.draft.begin(slot, request.prompt, first)
+                self._draft_slots.add(slot)
+
+    def _retire_draft(self, slot: int) -> None:
+        if slot in self._draft_slots:
+            self._draft_slots.discard(slot)
+            self.draft.retire(slot)
 
     def _pop_next(self) -> Request:
         """Remove and return the highest-priority, earliest-queued
@@ -253,6 +286,7 @@ class ContinuousBatchingScheduler:
         """Evict the running request in `slot` and re-queue it at the
         front with its generated tokens kept; returns it."""
         request = self._running.pop(slot)
+        self._retire_draft(slot)
         self.engine.preempt_slot(slot)
         request.state = "queued"
         request.slot = None
@@ -302,9 +336,13 @@ class ContinuousBatchingScheduler:
                 request.admitted_at - request.submitted_at)
             self.admitted_order.append(request.uid)
             admitted += 1
-            # prefill resumes where the prefix cache left off
-            request.state = "prefilling"
-            self._prefilling[slot] = [request, start, prompt]
+            if self.engine.chunk is None:
+                self._first_token(slot, request,
+                                  self.engine.prefill(slot, prompt))
+            else:
+                # prefill resumes where the prefix cache left off
+                request.state = "prefilling"
+                self._prefilling[slot] = [request, start, prompt]
         self.prefill_tokens_last_step = 0
         budget = self.prefill_chunks_per_step
         for slot in list(self._prefilling):
@@ -328,29 +366,36 @@ class ContinuousBatchingScheduler:
         request.finish_reason = reason
         request.finished_at = time.perf_counter()
         self.engine.retire(request.slot)
+        self._retire_draft(request.slot)
         self.metrics.on_done(request.finished_at - request.submitted_at,
                              reason, tenant=request.tenant,
                              tokens=len(request.generated))
 
-    def _feed(self, slot: int, request: Request, token: int,
-              gap: float) -> bool:
-        """Append one emitted token; returns whether the request finished
-        (EOS or length budget)."""
-        request.generated.append(token)
-        self.metrics.on_token(gap)
-        if request.eos_token is not None and token == request.eos_token:
-            del self._running[slot]
-            self._finish(request, "eos")
-            return True
-        if len(request.generated) >= request.max_new_tokens:
-            del self._running[slot]
-            self._finish(request, "length")
-            return True
-        return False
+    def _feed(self, slot: int, request: Request, tokens: tp.Sequence[int],
+              gap: float) -> tp.Tuple[int, bool]:
+        """Append emitted tokens, stopping at EOS or the length budget;
+        returns (#kept, finished). The first token of a span carries the
+        step's latency as its inter-token gap, the rest arrive in the same
+        burst (gap 0)."""
+        kept = 0
+        for token in tokens:
+            token = int(token)
+            request.generated.append(token)
+            kept += 1
+            self.metrics.on_token(gap if kept == 1 else 0.0)
+            if request.eos_token is not None and token == request.eos_token:
+                del self._running[slot]
+                self._finish(request, "eos")
+                return kept, True
+            if len(request.generated) >= request.max_new_tokens:
+                del self._running[slot]
+                self._finish(request, "length")
+                return kept, True
+        return kept, False
 
     def step(self) -> int:
-        """Shed expired + admit/advance prefill + one decode step +
-        retire; returns #tokens emitted by the decode."""
+        """Shed expired + admit/advance prefill + one decode (or
+        speculative verify) step + retire; returns #tokens emitted."""
         self._shed_expired()
         self._admit()
         self.metrics.on_gauges(queue_depth=len(self._queue),
@@ -363,12 +408,32 @@ class ContinuousBatchingScheduler:
         if not self._running:
             return 0
         step_start = time.perf_counter()
-        tokens = self.engine.decode()
+        if self.draft is None:
+            tokens = self.engine.decode()
+            gap = time.perf_counter() - step_start
+            emitted = 0
+            for slot, request in list(self._running.items()):
+                emitted += self._feed(slot, request, [tokens[slot]], gap)[0]
+            return emitted
+        # k drafted tokens a slot verified in one [S, k+1] call; each live
+        # slot emits accepted + 1 (EOS or the budget may cut the span:
+        # the slot is retired then, and the rest lands nowhere)
+        drafts = self.draft.propose()
+        out, accepted = self.engine.decode_speculative(drafts)
         gap = time.perf_counter() - step_start
-        running = list(self._running.items())
-        for slot, request in running:
-            self._feed(slot, request, int(tokens[slot]), gap)
-        return len(running)
+        emitted = 0
+        accepted_counts: tp.List[int] = []
+        for slot, request in list(self._running.items()):
+            span = out[slot, :int(accepted[slot]) + 1]
+            accepted_counts.append(int(accepted[slot]))
+            kept, finished = self._feed(slot, request, span, gap)
+            emitted += kept
+            if not finished:
+                self.draft.observe(slot, span[:kept],
+                                   self.engine.slot_length(slot))
+        self.metrics.on_spec_step(drafted=int(drafts.shape[1]),
+                                  accepted=accepted_counts, emitted=emitted)
+        return emitted
 
     def run(self, max_steps: int = 1_000_000) -> None:
         """Step until every queued/running request finished; raises after

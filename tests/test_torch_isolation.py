@@ -55,6 +55,8 @@ def test_package_imports_with_jax_unimportable():
         "flashy_tpu_torch.parallel.ring, flashy_tpu_torch.parallel.ring_fused\n"
         "import flashy_tpu_torch.info, flashy_tpu_torch.ema, "
         "flashy_tpu_torch.loggers.tensorboard, flashy_tpu_torch.loggers.wandb\n"
+        "import flashy_tpu_torch.serve, flashy_tpu_torch.serve.draft, "
+        "flashy_tpu_torch.serve.__main__\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")

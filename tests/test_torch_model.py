@@ -59,11 +59,13 @@ def test_unported_paths_raise_not_implemented():
                 dict(scan_layers=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(**base, **bad), device="cpu")
-    # a hybrid stack runs uncached; serving it needs the dense slabs (L1)
+    # a hybrid stack serves on the ssd layout: dense slabs beside the
+    # states, so it keeps the max_seq_len ceiling
     hybrid = TransformerLM(TransformerConfig(**base, mixer="ssd,attention"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
+    engine = DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
+    assert not engine.unbounded and engine.pool is None
+    assert set(engine.cache_box.value["block_1"]) == {"k", "v"}
 
 
 def test_apply_step_logits_match_jax():

@@ -191,7 +191,7 @@ def test_explicit_fused_kernel_on_cpu_raises():
     _, _, model = tiny_pair()
     with pytest.raises(ValueError, match="CUDA-only"):
         DecodeEngine(model, slots=2, block_size=4, kernel="fused",
-                     device="cpu")
+                     cache_layout="paged", device="cpu")
 
 
 def test_decode_read_bytes_per_token_matches_jax():

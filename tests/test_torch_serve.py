@@ -40,7 +40,7 @@ def _serve(model, prompts, **engine_kw):
     from flashy_tpu_torch.serve.engine import DecodeEngine
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
     engine = DecodeEngine(model, slots=2, max_seq_len=64, block_size=4,
-                          device="cpu", **engine_kw)
+                          cache_layout="paged", device="cpu", **engine_kw)
     engine.warmup()
     scheduler = ContinuousBatchingScheduler(engine)
     requests = [scheduler.submit(p, MAX_NEW) for p in prompts]
@@ -98,7 +98,7 @@ def test_priority_preemption_resumes_token_exact():
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
     _, _, model = tiny_pair(seed=8)
     engine = DecodeEngine(model, slots=1, max_seq_len=64, block_size=4,
-                          device="cpu")
+                          cache_layout="paged", device="cpu")
     scheduler = ContinuousBatchingScheduler(engine)
     rng = np.random.default_rng(2)
     low_prompt, high_prompt = rng.integers(1, 256, 6), rng.integers(1, 256, 5)
@@ -123,18 +123,25 @@ def test_engine_and_scheduler_guards():
     from flashy_tpu_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                                   QueueFull)
     _, _, model = tiny_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(model, slots=2, cache_layout="dense", device="cpu")
+    # the dense layout is the default, as in the JAX engine, and prefills
+    # whole unless given a chunk; the paged layout takes spec_k and
+    # reserves its overshoot in the pool
+    dense = DecodeEngine(model, slots=2, cache_layout="dense", device="cpu")
+    assert dense.pool is None and dense.chunk is None
+    assert DecodeEngine(model, slots=2, device="cpu").cache_layout == "dense"
+    with pytest.raises(ValueError, match="paged pool read"):
+        DecodeEngine(model, slots=2, kernel="fused", device="cpu")
     with pytest.raises(ValueError, match="SSD layer"):
         DecodeEngine(model, slots=2, cache_layout="ssd", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(model, slots=2, spec_k=2, device="cpu")
+    spec = DecodeEngine(model, slots=2, spec_k=2, cache_layout="paged",
+                        block_size=4, device="cpu")
+    assert spec.spec_k == 2 and spec.pool.spec_overshoot == 2
     with pytest.raises(ValueError, match="Generator"):
         DecodeEngine(model, slots=2, temperature=1.0, device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         DecodeEngine(model, slots=2, device="meta")
     engine = DecodeEngine(model, slots=2, max_seq_len=16, block_size=4,
-                          device="cpu")
+                          cache_layout="paged", device="cpu")
     scheduler = ContinuousBatchingScheduler(engine, max_queue=1)
     with pytest.raises(ValueError, match="max_seq_len"):
         scheduler.submit(np.arange(1, 12), 8)

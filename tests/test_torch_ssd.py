@@ -459,8 +459,11 @@ def test_engine_layout_validation():
     with pytest.raises(ValueError, match="speculative"):
         DecodeEngine(model, slots=2, cache_layout="ssd", spec_k=2,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="L1"):
-        DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
+    engine = DecodeEngine(hybrid, slots=2, cache_layout="ssd", device="cpu")
+    assert not engine.unbounded
+    with pytest.raises(ValueError, match="speculative"):
+        DecodeEngine(hybrid, slots=2, cache_layout="ssd", spec_k=2,
+                     device="cpu")
     with pytest.raises(ValueError, match="int8"):
         DecodeEngine(model, slots=2, cache_layout="ssd", kv_dtype="int8",
                      device="cpu")
