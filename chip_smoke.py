@@ -321,9 +321,51 @@ The LM trainer's switches and SSD training, after them:
              and differentiated) timed beside its bound and the kernel's
              forward.
 
+The model layouts of ROADMAP queue A item 3's L7 and L8, last:
+
+ 25. moe exact  the MoE layout (8 top-2 dropless experts, 889M) in f32
+             on 4 slots, 8 requests of 100-128 prompt tokens, 32 new:
+             the dense engine with its monolithic prefill (bucket 128:
+             `_moe_forward`'s expert-stream order), the paged engine at
+             chunk 16 (the token-gather order) and the paged engine with
+             NGramDraft(k=4), token-exact against `generate` (near ties
+             reported), the paged kernel on every read (T=5 in verify);
+ 26. moe serve bf16  the MoE layout through the paged engine's graphs
+             (8 slots, 16 requests, prompt 128, 128 new): tokens/s,
+             decode p50, captures after warm-up (0), memory after
+             warm-up and at the peak (each graph its own pool), the same
+             traffic eager (bit-identical); a profiled window of graph
+             replays; the 12 MoE layers' and the paged reads' device ms
+             a decode step (CUDA events) beside the bytes the gather
+             order moves;
+ 27. scan exact  the scan-stacked 235M layout in f32: weights at seed 0
+             and logits bit-equal to the per-layer model's; the `exact`
+             workload through the dense and the paged engine (a
+             copy-on-write fork through the stacked pool) token-exact
+             against `generate`; the stacked pure-SSD layout on 'ssd'
+             (four of `ssd exact`'s prompts), the scan kernel on every
+             prefill slice;
+ 28. scan step  f32 b2 t256: the stacked model's loss and every gradient
+             bit-equal to the per-layer model's (restacked), with flash
+             (rows 1 and 4, general route), 8 top-2 dropless experts
+             (rows 9a/9b) and remat dots; the launches equal;
+ 29. scan train  `train` with model.scan_layers=true through `main` (8
+             steps, 2 valid, then a resume): the loss falls, the flash
+             launches a step `train`'s; tokens/s, p50 beside `train`'s;
+ 30. int8w exact  int8 weights (`quantize_lm_params`) in f32: the first
+             step's logits within the JAX package's cosine bar (0.999)
+             of the f32 weights' on its own test cases, the 235M
+             distance printed; the `exact` workload at 235M through the
+             dense and paged engines (`params=`) token-exact against
+             `generate(params=)`;
+ 31. int8w serve bf16  int8 weights over int8 pools (row 6) through the
+             paged engine's graphs, in turns with bf16 weights over the
+             same pools: tokens/s, decode p50, the resident weight bytes.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
-before them.
+before them. Each kernel's record also holds its launches on the model
+layouts' paths (`layout_launches`, by phase).
 """
 import json
 import math
@@ -569,9 +611,10 @@ def exact_workload(rng, vocab):
     return prompts
 
 
-def top2_margin(torch, model, stream):
+def top2_margin(torch, model, stream, params=None):
     """f32 top-2 logit margin after `stream` (a prefill of the whole
-    stream through the dense-cache step `generate` uses)."""
+    stream through the dense-cache step `generate` uses, on `params` when
+    given)."""
     from flashy_tpu_torch.models.decoding import (_apply_step,
                                                   decode_params, init_cache)
     cfg = model.config
@@ -580,8 +623,8 @@ def top2_margin(torch, model, stream):
     cache = init_cache(cfg, 1, tokens.shape[1], device)
     positions = torch.arange(tokens.shape[1], device=device)[None]
     with torch.no_grad():
-        logits, _ = _apply_step(decode_params(model), cfg, tokens,
-                                positions, cache, 0)
+        logits, _ = _apply_step(decode_params(model, params=params), cfg,
+                                tokens, positions, cache, 0)
     top = torch.topk(logits[0, -1], 2).values
     return float(top[0] - top[1])
 
@@ -740,26 +783,26 @@ def check_capture_gc(torch, device, card):
           f"[{card}]", flush=True)
 
 
-def reference_streams(torch, model, prompts, max_new, device):
+def reference_streams(torch, model, prompts, max_new, device, params=None):
     """The port's `generate` stream of each prompt (`max_new` new tokens
-    each, or a list of them)."""
+    each, or a list of them), on `params` when given."""
     from flashy_tpu_torch.models.decoding import generate
     news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
-    return [generate(model, p[None], max_new_tokens=n,
+    return [generate(model, p[None], max_new_tokens=n, params=params,
                      device=device)[0].cpu().numpy()
             for p, n in zip(prompts, news)]
 
 
 def check_streams(torch, model, prompts, requests, max_new, device, label,
-                  refs=None):
+                  refs=None, params=None):
     """Every request's output against the port's `generate` (or against
     `refs`, longer streams of it, cut to the output), token-exact up to
     near ties (top-2 f32 margin < NEAR_TIE at the first divergence,
-    reported); returns the near ties."""
+    reported); `params` as `generate`'s. Returns the near ties."""
     import numpy as np
     news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
     if refs is None:
-        refs = reference_streams(torch, model, prompts, news, device)
+        refs = reference_streams(torch, model, prompts, news, device, params)
     ties = []
     for prompt, request, ref, n in zip(prompts, requests, refs, news):
         got = request.output
@@ -770,7 +813,7 @@ def check_streams(torch, model, prompts, requests, max_new, device, label,
         diff = np.nonzero(got != ref)[0]
         if diff.size:
             first = int(diff[0])
-            margin = top2_margin(torch, model, ref[:first])
+            margin = top2_margin(torch, model, ref[:first], params)
             if margin >= NEAR_TIE:
                 fail(f"{label}: request {request.uid} (prompt {len(prompt)}) "
                      f"diverges at position {first} with top-2 margin "
@@ -1394,7 +1437,8 @@ TRAIN_ARGS = ["model.vocab_size=32768", "model.dim=1024",
 
 def phase_train(torch, card, folder):
     """The 235M model through `main` in a fresh XP under `folder`;
-    returns (launch counts of the first call, the resumed solver)."""
+    returns (launch counts of the first call, the resumed solver, the
+    step p50 in ms)."""
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
     from flashy_tpu_torch.ops import attention
     from flashy_tpu_torch.utils import percentile
@@ -1435,7 +1479,7 @@ def phase_train(torch, card, folder):
           f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; "
           f"launches {got}; resumed: Restored: True, epoch 3 loss "
           f"{resumed.history[2]['train']['loss']:.4f} [{card}]", flush=True)
-    return counts, resumed
+    return counts, resumed, p50
 
 
 def head_gemm_ms(torch, prof, vocab):
@@ -4535,6 +4579,620 @@ def phase_ssd_train(torch, device, card, batch=16, steps=6):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phases 25-31: the model layouts of ROADMAP queue A item 3's L7 and L8
+# (MoE blocks, scan-stacked stacks, int8 weights) in the serving engine,
+# `generate` and the trainer
+# ----------------------------------------------------------------------
+MOE_LAYOUT = dict(moe_experts=8, moe_top_k=2, moe_dispatch="dropless")
+INT8W_COS = 0.999     # flashy_tpu's test_quantized_decode_tracks_full_precision
+
+
+def moe_model_config(torch, dtype, max_seq_len, **kw):
+    """The 235M layout with every MLP 8 top-2 dropless experts (889M
+    parameters), as `moe train` trains it."""
+    return model_config(torch, dtype, max_seq_len, **MOE_LAYOUT, **kw)
+
+
+def paged_reads(engine, counts, name, label):
+    """The paged kernel launched on `name` once per layer per decode step,
+    prefill slice and verify step, and nothing else; returns the count."""
+    steps = engine.step_counts
+    reads = engine._cfg.num_layers * (steps["decode"] + steps["prefill_chunk"]
+                                      + steps["verify"])
+    if reads < 1 or nonzero(counts) != {name: reads}:
+        fail(f"{label}: launches {nonzero(counts)}, the engine made {reads} "
+             f"attention reads on {name} (steps {nonzero(steps)})")
+    return reads
+
+
+def tree_bytes(tree):
+    """Device bytes of every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(child) for child in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def restacked(torch, state, layers):
+    """A per-layer state dict (or grads by name) with its block leaves
+    stacked into a scan-stacked model's `blocks.block.<leaf>` names."""
+    out = {k: v for k, v in state.items() if not k.startswith("block_")}
+    for name in state:
+        if name.startswith("block_0."):
+            leaf = name[len("block_0."):]
+            out[f"blocks.block.{leaf}"] = torch.stack(
+                [state[f"block_{i}.{leaf}"] for i in range(layers)])
+    return out
+
+
+def check_restacked(torch, per_layer, stacked, layers, label):
+    """Every stacked leaf bit-equal to the per-layer leaves stacked."""
+    want = restacked(torch, per_layer, layers)
+    if set(want) != set(stacked):
+        fail(f"{label}: names differ: {sorted(set(want) ^ set(stacked))[:4]}")
+    unequal = [k for k, v in stacked.items() if not torch.equal(v, want[k])]
+    if unequal:
+        fail(f"{label}: stacked != restacked per-layer at {unequal[:4]}")
+    return len(want)
+
+
+def phase_moe_exact(torch, device, card):
+    """The MoE 235M layout in f32 (TF32 off) on 4 slots, 8 requests of
+    100-128 prompt tokens, 32 new: the dense engine with its monolithic
+    prefill (bucket 128: `_moe_forward`'s expert-stream order), the paged
+    engine at chunk 16 (the gather order; row 5 at `kernel='fused'`) and
+    the paged engine with NGramDraft(k=4) (row 5 at T=5), every stream
+    token-exact against `generate` (near ties reported). Returns the
+    paged kernel's launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.draft import NGramDraft
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = moe_model_config(torch, torch.float32, 256)
+    model = TransformerLM(cfg, device=device, seed=0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n))
+               for n in rng.integers(100, 129, 8)]
+    max_new = 32
+    refs = reference_streams(torch, model, prompts, max_new, device)
+    paged = dict(cache_layout="paged", kernel="fused", block_size=16)
+    launched = 0
+    for name, kw, ngram in (("dense monolithic", {}, False),
+                            ("paged chunk 16", paged, False),
+                            ("paged ngram k=4", dict(paged, spec_k=SPEC_K),
+                             True)):
+        label = f"moe exact {name}"
+        engine = DecodeEngine(model, slots=4, max_seq_len=256, device=device,
+                              **kw)
+        engine.warmup(prompt_lengths=[len(p) for p in prompts])
+        draft = NGramDraft(slots=4, k=SPEC_K) if ngram else None
+        scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                     max_new, draft=draft)
+        if engine.pool is None:
+            if nonzero(counts):
+                fail(f"{label}: kernels launched on the dense layout: "
+                     f"{nonzero(counts)}")
+            reads = 0
+        else:
+            reads = paged_reads(engine, counts, "paged_decode", label)
+            launched += reads
+        ties = check_streams(torch, model, prompts, requests, max_new,
+                             device, label, refs=refs)
+        summary = scheduler.metrics.summary()
+        print(f"{label}: {len(requests)} requests (prompts "
+              f"{[len(p) for p in prompts]}) token-exact vs generate (near "
+              f"ties {ties}), steps {nonzero(engine.step_counts)}, paged "
+              f"launches {reads}, acceptance "
+              f"{summary.get('acceptance_rate', 0.0):.3f}, CUDA graphs "
+              f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+              flush=True)
+        del engine
+    return launched
+
+
+def graph_ms(torch, fn, iters=20):
+    """`time_runs` of `fn` captured as one CUDA graph (warmed on a side
+    stream first): device time of its kernels as a replayed step runs
+    them, without the host's launch cost."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = time_runs(torch, graph.replay, iters=iters)
+    del graph
+    return times
+
+
+def moe_decode_times(torch, engine, card, label, steps=16):
+    """Where a decode step of the MoE engine goes: `steps` replays of the
+    captured decode step over 8 live slots plainly for the wall time,
+    then `steps` more under torch.profiler (device busy, so the idle
+    share against the plain wall; the expert-slab gathers' and the paged
+    kernel's device ms a step, the top kernels); then CUDA
+    events (`graph_ms`) on the step's 12 MoE layers (`_moe_forward` on
+    each layer's weights at [S, 1, D], captured as one graph), beside the
+    bytes the token-gather order moves (each routed slab read, written as
+    a copy, read again) and the least the step must read (each expert a
+    token routes to, once). Returns the MoE layers' ms a decode step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from flashy_tpu_torch.models.decoding import _blocks, _moe_forward
+    cfg = engine._cfg
+    rng = np.random.default_rng(7)
+    for _ in range(engine.slots):
+        slot = engine.acquire_slot()
+        prompt = rng.integers(1, cfg.vocab_size, 128)
+        start, first = engine.admit(slot, prompt, 2 * steps + 1), None
+        while first is None:
+            start, first = engine.prefill_chunk(slot, prompt, start)
+    engine.decode()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.decode()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.decode()
+    for slot in sorted(engine.allocator.live):
+        engine.retire(slot)
+    rows = device_rows(torch, prof)
+    busy = sum(ms for ms, _, _ in rows)
+    gathers = sum(ms for ms, _, key in rows if "gather" in key)
+    paged = sum(ms for ms, _, key in rows if "paged_decode_kernel" in key)
+    top = "; ".join(f"{key[:36]} {ms / steps:.3f} x{n // steps}"
+                    for ms, n, key in rows[:5])
+    g = torch.Generator(device=engine.device).manual_seed(0)
+    x = torch.randn((engine.slots, 1, cfg.dim), generator=g,
+                    device=engine.device).to(cfg.dtype)
+    layers = [bp["moe"] for bp in _blocks(cfg, engine._params)]
+
+    def moe():
+        for mp in layers:
+            _moe_forward(cfg, mp, x)
+
+    moe_t = graph_ms(torch, moe)
+    slab = cfg.dim * cfg.dim * cfg.mlp_ratio * cfg.dtype.itemsize
+    routed = [torch.topk(x[:, 0].float() @ mp["router"]["kernel"].float(),
+                         cfg.moe_top_k).indices.unique().numel()
+              for mp in layers]
+    pairs = engine.slots * cfg.moe_top_k
+    gathered = 3 * 2 * slab * pairs * cfg.num_layers
+    least = 2 * slab * sum(routed)
+    print(f"{label}: {steps} decode-step replays (8 live slots, context "
+          f"130-{129 + 2 * steps}), the second {steps} profiled: device busy "
+          f"{busy / steps:.3f} ms a step of {wall_ms / steps:.3f} plain wall "
+          f"(idle share {1 - busy / wall_ms:.3f}); the expert-slab gathers "
+          f"{gathers / steps:.3f} ms a step, the paged kernel "
+          f"{paged / steps:.3f}; top a step: {top}; the 12 MoE layers "
+          f"captured as one graph at [{engine.slots}, 1, {cfg.dim}]: "
+          f"{spread_text(moe_t)}; the gather order moves "
+          f"{gathered / 2 ** 30:.2f} GiB a step ({pairs} token-expert "
+          f"pairs a layer, up and down slabs of {slab / 2 ** 20:.0f} MiB "
+          f"read, copied, read again: "
+          f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s) where "
+          f"reading each routed expert once ({sum(routed)} over 12 layers) "
+          f"needs {least / 2 ** 30:.2f} GiB "
+          f"({least / HBM_BYTES_PER_S * 1e3:.3f} ms) [{card}]", flush=True)
+    return moe_t["ms"]
+
+
+def phase_moe_serve(torch, device, card, requests_n=16, prompt_len=128,
+                    max_new=128):
+    """The MoE layout in bf16 through the paged engine's captured steps
+    (8 slots, 16 requests, prompt 128, 128 new): tokens/s, decode p50,
+    the engine's memory after warm-up and at its peak, then the same
+    traffic eager (`eager_twin`: bit-identical), then where a decode
+    step goes (`moe_decode_times`). Returns the paged launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "moe serve bf16"
+    release_memory(torch)
+    cfg = moe_model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    engine_kw = dict(slots=8, block_size=16, max_seq_len=256,
+                     cache_layout="paged", device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    engine = DecodeEngine(model, **engine_kw)
+    engine.warmup()
+    torch.cuda.synchronize()
+    gib = 2 ** 30
+    warm = {"allocated": (torch.cuda.memory_allocated() - base) / gib,
+            "reserved": (torch.cuda.memory_reserved() - base_reserved) / gib,
+            "peak": (torch.cuda.max_memory_allocated() - base) / gib}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    reads = paged_reads(engine, counts, "paged_decode", label)
+    check_outputs(requests, [prompt_len + max_new] * requests_n,
+                  cfg.vocab_size, label)
+    peak = (torch.cuda.max_memory_allocated() - base) / gib
+    summary = scheduler.metrics.summary()
+    graphs = engine.compile_cache.executables()
+    print(f"{label}: 889M MoE, {requests_n} requests x prompt {prompt_len} "
+          f"x {max_new} new, tokens/s={summary['tokens_per_sec']:.1f}, "
+          f"decode step p50={summary['itl_ms_p50']:.3f} ms, {seconds:.2f}s; "
+          f"launches {reads} == reads; captures after warm-up "
+          f"{engine.compile_cache.recompiles()}; memory over the model's "
+          f"f32 weights after warm-up: allocated {warm['allocated']:.2f} "
+          f"GiB (bf16 weights {tree_bytes(engine._params) / gib:.2f}, pool "
+          f"{engine.cache_bytes() / gib:.2f}), reserved "
+          f"{warm['reserved']:.2f} GiB, peak in warm-up {warm['peak']:.2f} "
+          f"GiB, peak through traffic {peak:.2f} GiB; {len(graphs)} graphs "
+          f"({', '.join(graphs)}), each captured in its own private memory "
+          f"pool (no pool shared) [{card}]", flush=True)
+    eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
+               counts, label, card)
+    moe_decode_times(torch, engine, card, label)
+    return reads
+
+
+def phase_scan_exact(torch, device, card):
+    """The scan-stacked 235M layout in f32 (TF32 off): its weights at seed
+    0 bit-equal to the per-layer model's restacked and its logits
+    (attention='flash') bit-equal to the per-layer model's; the `exact`
+    workload through the dense engine (monolithic prefill) and the paged
+    engine (block 16: prefix hits and a copy-on-write fork through the
+    stacked pool) token-exact against `generate`; then the stacked
+    pure-SSD layout on 'ssd' (`ssd exact`'s workload, row 7 on every
+    prefill slice). Returns (paged launches, SSD launches)."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "scan exact"
+    cfg = model_config(torch, torch.float32, 256, "flash", scan_layers=True)
+    model = TransformerLM(cfg, device=device, seed=0)
+    per_layer = TransformerLM(model_config(torch, torch.float32, 256,
+                                           "flash"), device=device, seed=0)
+    leaves = check_restacked(torch, per_layer.state_dict(),
+                             model.state_dict(), cfg.num_layers, label)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 256))).to(device)
+    with torch.no_grad():
+        want, got = per_layer(tokens), model(tokens)
+    if not torch.equal(want, got):
+        fail(f"{label}: stacked logits != per-layer logits (max diff "
+             f"{(want - got).abs().max().item():.3e})")
+    del per_layer, want, got
+    print(f"{label}: stacked weights at seed 0 == per-layer restacked "
+          f"({leaves} leaves), logits [2, 256] (flash) bit-equal [{card}]",
+          flush=True)
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    max_new = 32
+    refs = reference_streams(torch, model, prompts, max_new, device)
+    paged_launches = 0
+    for name, kw in (("dense", {}),
+                     ("paged", dict(cache_layout="paged", kernel="fused",
+                                    block_size=16))):
+        engine = DecodeEngine(model, slots=8, max_seq_len=256, device=device,
+                              **kw)
+        engine.warmup(prompt_lengths=[len(p) for p in prompts])
+        scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                     max_new)
+        stats = {}
+        if engine.pool is None:
+            if nonzero(counts):
+                fail(f"{label} {name}: kernels launched on the dense layout:"
+                     f" {nonzero(counts)}")
+        else:
+            paged_launches = paged_reads(engine, counts, "paged_decode",
+                                         f"{label} {name}")
+            stats = engine.pool_stats()
+            if stats["cow_forks"] < 1 or stats["prefix_hit_rate"] <= 0:
+                fail(f"{label} {name}: no prefix hit / COW fork: {stats}")
+        ties = check_streams(torch, model, prompts, requests, max_new,
+                             device, f"{label} {name}", refs=refs)
+        leaf_shapes = {k: tuple(v.shape)
+                       for k, v in engine.cache_box.value.items()}
+        print(f"{label} {name}: {len(requests)} requests token-exact vs "
+              f"generate (near ties {ties}), stacked cache {leaf_shapes}, "
+              f"steps {nonzero(engine.step_counts)}, paged launches "
+              f"{paged_launches if engine.pool is not None else 0}, cow "
+              f"forks {stats.get('cow_forks', 0)}, CUDA graphs "
+              f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+              flush=True)
+        del engine
+    del model
+    ssd = TransformerLM(model_config(torch, torch.float32, 256, mixer="ssd",
+                                     ssd_state_dim=16, ssd_chunk=SSD_CHUNK,
+                                     scan_layers=True),
+                        device=device, seed=4)
+    engine = DecodeEngine(ssd, slots=8, max_seq_len=256, chunk=SSD_CHUNK,
+                          cache_layout="ssd", device=device)
+    engine.warmup()
+    # four of `ssd exact`'s prompts: a short tail, a slice and a tail,
+    # two slices and a tail, three and a tail
+    prompts, max_new = ssd_workload(np.random.default_rng(4), 32768)
+    prompts = [p for p in prompts if len(p) in (5, 70, 131, 200)]
+    scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                 max_new)
+    slices = engine.step_counts["prefill_chunk"]
+    ssd_launches = counts["ssd_scan_fma"]
+    if nonzero(counts) != {"ssd_scan_fma": 12 * slices}:
+        fail(f"{label} ssd: launches {nonzero(counts)} for {slices} prefill "
+             f"slices x 12 layers")
+    ties = check_streams(torch, ssd, prompts, requests, max_new, device,
+                         f"{label} ssd")
+    print(f"{label} ssd: stacked pure-SSD, {len(requests)} requests past "
+          f"the 256 ceiling token-exact vs generate (near ties {ties}), "
+          f"state {tuple(engine.cache_box.value['ssd'].shape)}, launches "
+          f"ssd_scan_fma={ssd_launches} == 12 x {slices} slices, "
+          f"{seconds:.2f}s [{card}]", flush=True)
+    return paged_launches, ssd_launches
+
+
+def phase_scan_step(torch, device, card):
+    """The 235M layout in f32 (TF32 off) at batch 2, seq 256, per-layer
+    and scan-stacked at the same seed: the stacked weights, loss and every
+    gradient bit-equal to the per-layer model's restacked, with flash
+    attention (rows 1 and 4 on the general route), with 8 top-2 dropless
+    experts (rows 9a and 9b) and with remat_policy='dots'; the launches
+    equal. Returns the stacked runs' launches by case."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import attention, grouped_matmul
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    tokens = torch.from_numpy(synthetic_token_stream(32768)(2, 256, 0)
+                              ).long().to(device)
+    launches = {}
+    for name, kw in (("flash", {}), ("moe dropless", MOE_LAYOUT),
+                     ("remat dots", dict(remat=True, remat_policy="dots"))):
+        label = f"scan step {name}"
+        runs = {}
+        for scan in (False, True):
+            model = TransformerLM(model_config(
+                torch, torch.float32, 256, "flash", scan_layers=scan, **kw),
+                device=device, seed=3)
+            attention.reset_launch_counts()
+            grouped_matmul.reset_launch_counts()
+            # the embedding's scatter-add in a fixed order
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                loss = lm_next_token_loss(
+                    model, tokens,
+                    aux_weight=0.01 if "moe_experts" in kw else None)
+                loss.backward()
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            runs[scan] = (loss.item(), model.state_dict(),
+                          {n: p.grad for n, p in model.named_parameters()},
+                          nonzero({**attention.launch_counts,
+                                   **grouped_matmul.launch_counts}))
+            del model, loss
+        (loss_a, state_a, grads_a, counts_a), \
+            (loss_b, state_b, grads_b, counts_b) = runs[False], runs[True]
+        check_restacked(torch, state_a, state_b, 12, f"{label} weights")
+        leaves = check_restacked(torch, grads_a, grads_b, 12,
+                                 f"{label} grads")
+        if loss_a != loss_b or counts_a != counts_b or not counts_b:
+            fail(f"{label}: loss {loss_a} vs {loss_b}, launches {counts_a} "
+                 f"vs {counts_b}")
+        launches[name] = counts_b
+        print(f"{label}: loss {loss_b:.6f} and all {leaves} gradients of "
+              f"the stacked model bit-equal to the per-layer model's "
+              f"(restacked); launches {counts_b} in both [{card}]",
+              flush=True)
+        del runs, state_a, state_b, grads_a, grads_b
+        release_memory(torch)
+    return launches
+
+
+def phase_scan_train(torch, card, folder, train_p50):
+    """`train`'s run with model.scan_layers=true through `main` in a fresh
+    XP: 8 steps and 2 valid steps, the step loss finite and falling, the
+    flash launches a step `train`'s; a second call resumes it; tokens/s
+    and step p50 beside `train`'s p50 of the same call. Returns the
+    launches."""
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    label = "scan train"
+    release_memory(torch)
+    args = TRAIN_ARGS + ["model.scan_layers=true", f"dora.dir={folder}"]
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    solver = lm_main(args + ["epochs=1"])
+    torch.cuda.synchronize()
+    counts = nonzero(attention.launch_counts)
+    cfg = solver.cfg
+    layers, steps, valid = 12, cfg.steps_per_epoch, cfg.valid_steps
+    want = {"flash_fwd": layers * (steps + valid),
+            "flash_bwd_fused": layers * steps}
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected `train`'s {want}")
+    if "blocks.block.attn.qkv.kernel" not in solver.model.state_dict():
+        fail(f"{label}: the model is not stacked")
+    losses = solver.step_losses
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{label}: step losses {losses} not finite and falling")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del solver
+    resumed = lm_main(args + ["epochs=2"])
+    if not resumed.restored or resumed.state["step"] != 2 * steps \
+            or len(resumed.history) != 2:
+        fail(f"{label}: the second call did not resume (restored "
+             f"{resumed.restored}, step {resumed.state['step']})")
+    print(f"{label}: 235M stacked bf16 b16 t1024, {steps} steps + {valid} "
+          f"valid, step losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"tokens/s={tok_s:.1f}, step p50={p50:.2f} ms (steps 3..{steps}) "
+          f"vs train's {train_p50:.2f} ms (ratio {p50 / train_p50:.3f}), "
+          f"peak memory {peak:.1f} GiB; launches {counts} == train's a "
+          f"step; resumed: Restored: True, epoch 2 loss "
+          f"{resumed.history[1]['train']['loss']:.4f}, valid "
+          f"{resumed.history[1]['valid']['loss']:.4f} [{card}]", flush=True)
+    del resumed
+    return counts
+
+
+def int8_logits_cosine(torch, model, tokens, **quantize_kw):
+    """Cosine (f64) of the first step's logits on int8 weights
+    (`quantize_lm_params` of the model's f32 weights) to those on the f32
+    weights, and the largest difference, on `tokens` [B, T]."""
+    from flashy_tpu_torch.models.decoding import (_apply_step,
+                                                  decode_params, init_cache,
+                                                  lm_params)
+    from flashy_tpu_torch.models.quantize import quantize_lm_params
+    cfg = model.config
+    qp = quantize_lm_params(lm_params(model), **quantize_kw)
+    batch, length = tokens.shape
+    positions = torch.arange(length, device=tokens.device).expand(batch,
+                                                                 length)
+    logits = []
+    with torch.no_grad():
+        for params in (None, qp):
+            out, _ = _apply_step(decode_params(model, params=params), cfg,
+                                 tokens, positions,
+                                 init_cache(cfg, batch, length, tokens.device),
+                                 0)
+            logits.append(out.double().flatten())
+    a, b = logits
+    return (float(a @ b / (a.norm() * b.norm())), float((a - b).abs().max()),
+            float(a.abs().max()))
+
+
+def phase_int8w_exact(torch, device, card):
+    """int8 weights (`quantize_lm_params` of the f32 weights), f32 (TF32
+    off): the first step's logits hold the JAX package's bar (cosine to
+    the f32 weights' logits above INT8W_COS) on its own three cases
+    (flashy_tpu's tests/test_quantize.py `_model`: vocab 128, dim 64, 2
+    layers of 2 heads; per-layer, scan-stacked, 2 experts); at the 235M
+    layout the same distance is printed, with and without
+    keep_embed_dense; then the `exact` workload at 235M through the dense
+    and the paged engine (`params=`) token-exact against
+    `generate(params=)`. Returns the paged launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.decoding import lm_params
+    from flashy_tpu_torch.models.quantize import quantize_lm_params
+    from flashy_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerLM)
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "int8w exact"
+    small = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (2, 16))).to(device)
+    bars = {}
+    for name, kw in (("per-layer", {}), ("scan", dict(scan_layers=True)),
+                     ("moe 2", dict(moe_experts=2))):
+        cfg = TransformerConfig(vocab_size=128, dim=64, num_layers=2,
+                                num_heads=2, attention="dense",
+                                max_seq_len=64, dtype=torch.float32, **kw)
+        cos, _, _ = int8_logits_cosine(
+            torch, TransformerLM(cfg, device=device, seed=1), small)
+        bars[name] = round(cos, 6)
+        if not cos > INT8W_COS:
+            fail(f"{label}: the reference's case {name}: first-step logits "
+                 f"cosine {cos} <= {INT8W_COS}")
+    cfg = model_config(torch, torch.float32, 256)
+    model = TransformerLM(cfg, device=device, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (2, 128))).to(device)
+    full = int8_logits_cosine(torch, model, tokens)
+    dense_embed = int8_logits_cosine(torch, model, tokens,
+                                     keep_embed_dense=True)
+    qp = quantize_lm_params(lm_params(model))
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    max_new = 32
+    refs = reference_streams(torch, model, prompts, max_new, device, qp)
+    launched = 0
+    for name, kw in (("dense", {}),
+                     ("paged", dict(cache_layout="paged", kernel="fused",
+                                    block_size=16))):
+        engine = DecodeEngine(model, slots=8, max_seq_len=256, params=qp,
+                              device=device, **kw)
+        engine.warmup(prompt_lengths=[len(p) for p in prompts])
+        scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                     max_new)
+        if engine.pool is not None:
+            launched = paged_reads(engine, counts, "paged_decode",
+                                   f"{label} {name}")
+        elif nonzero(counts):
+            fail(f"{label} {name}: kernels launched on the dense layout: "
+                 f"{nonzero(counts)}")
+        ties = check_streams(torch, model, prompts, requests, max_new,
+                             device, f"{label} {name}", refs=refs, params=qp)
+        print(f"{label} {name}: {len(requests)} requests token-exact vs "
+              f"generate(params=int8) (near ties {ties}), steps "
+              f"{nonzero(engine.step_counts)}, paged launches "
+              f"{launched if engine.pool is not None else 0}, CUDA graphs "
+              f"{engine.compile_cache.stats()}, {seconds:.2f}s [{card}]",
+              flush=True)
+        del engine
+    print(f"{label}: first-step logits, int8 vs f32 weights: cosine on the "
+          f"reference's cases {bars} (bar {INT8W_COS}); 235M [2, 128]: "
+          f"cosine {full[0]:.6f}, max |diff| {full[1]:.4f} of max |logit| "
+          f"{full[2]:.4f}; with keep_embed_dense cosine "
+          f"{dense_embed[0]:.6f}, max |diff| {dense_embed[1]:.4f} [{card}]",
+          flush=True)
+    return launched
+
+
+def phase_int8w_serve(torch, device, card, requests_n=16, prompt_len=128,
+                      max_new=128):
+    """The 235M layout in bf16 with int8 weights and int8 K/V pools (row
+    6) through the paged engine's captured steps (8 slots, 16 requests,
+    prompt 128, 128 new), in turns with the same traffic on bf16 weights
+    over int8 pools: tokens/s, decode p50, the int8 kernel on every read,
+    and the resident weight bytes (int8 payloads + f32 scales + dense
+    leaves against the bf16 tree). Returns the int8-weight run's paged
+    launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.decoding import lm_params
+    from flashy_tpu_torch.models.quantize import quantize_lm_params
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    label = "int8w serve bf16"
+    release_memory(torch)
+    cfg = model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    qp = quantize_lm_params(lm_params(model))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    results, launched = {}, 0
+    for weights in ("int8", "bf16", "int8", "bf16"):
+        engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=256,
+                              kv_dtype="int8", cache_layout="paged",
+                              params=qp if weights == "int8" else None,
+                              device=device)
+        engine.warmup()
+        scheduler, requests, counts, seconds = serve(torch, engine, prompts,
+                                                     max_new)
+        reads = paged_reads(engine, counts, "paged_decode_int8",
+                            f"{label} {weights} weights")
+        if weights == "int8":
+            launched = reads
+        check_outputs(requests, [prompt_len + max_new] * requests_n,
+                      cfg.vocab_size, label)
+        summary = scheduler.metrics.summary()
+        results.setdefault(weights, []).append(
+            (summary["tokens_per_sec"], summary["itl_ms_p50"]))
+        bytes_ = tree_bytes(engine._params)
+        results[f"{weights} bytes"] = bytes_
+        del engine
+    runs = {w: "; ".join(f"tokens/s={t:.1f} p50={p:.3f} ms"
+                         for t, p in results[w]) for w in ("int8", "bf16")}
+    print(f"{label}: {requests_n} requests x prompt {prompt_len} x {max_new} "
+          f"new over int8 pools, in turns: int8 weights {runs['int8']}; "
+          f"bf16 weights {runs['bf16']}; launches paged_decode_int8="
+          f"{launched} == reads; resident weights: int8 tree "
+          f"{results['int8 bytes'] / 2 ** 30:.3f} GiB vs bf16 tree "
+          f"{results['bf16 bytes'] / 2 ** 30:.3f} GiB [{card}]", flush=True)
+    return launched
+
+
 def main() -> None:
     try:
         import torch
@@ -4607,7 +5265,7 @@ def main() -> None:
     phase_step(torch, device, card)
     phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
-        train_counts, solver = phase_train(torch, card, folder)
+        train_counts, solver, train_p50 = phase_train(torch, card, folder)
         profile_train(torch, solver, card,
                       watch=("flash_fwd_kernel", "flash_bwd"))
         del solver
@@ -4694,6 +5352,25 @@ def main() -> None:
     ssd_train_counts = phase_ssd_train(torch, device, card)
     ssd_backward = time_ssd_backward(torch, device, card)
     lap("the trainer's switches, ssd training")
+
+    # the model layouts of queue A item 3's L7 and L8: MoE blocks,
+    # scan-stacked stacks and int8 weights
+    release_memory(torch)
+    moe_exact = phase_moe_exact(torch, device, card)
+    lap("moe exact")
+    moe_serve = phase_moe_serve(torch, device, card)
+    lap("moe serve bf16")
+    scan_paged, scan_ssd = phase_scan_exact(torch, device, card)
+    lap("scan exact")
+    scan_step = phase_scan_step(torch, device, card)
+    lap("scan step")
+    with tempfile.TemporaryDirectory() as folder:
+        scan_train = phase_scan_train(torch, card, folder, train_p50)
+    lap("scan train")
+    int8w_exact = phase_int8w_exact(torch, device, card)
+    lap("int8w exact")
+    int8w_serve = phase_int8w_serve(torch, device, card)
+    lap("int8w serve bf16")
     print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
@@ -4838,6 +5515,23 @@ def main() -> None:
     kernels[-1]["d576"] = {"shape": [wide_b, 128, wide_h, wide_d],
                            "max_abs_err": ring_wide_error,
                            **ring_wide_times}
+    # the launches of each kernel on the model layouts' paths, by phase
+    layouts = {
+        "paged_decode": {"moe exact": moe_exact, "moe serve bf16": moe_serve,
+                         "scan exact": scan_paged,
+                         "int8w exact": int8w_exact},
+        "paged_decode_int8": {"int8w serve bf16": int8w_serve},
+        "ssd_scan_fma": {"scan exact ssd": scan_ssd},
+        "flash_fwd": {"scan train": scan_train["flash_fwd"]},
+        "flash_bwd_fused": {"scan train": scan_train["flash_bwd_fused"]}}
+    for name in ("flash_fwd_general", "flash_bwd_fused_general", "gmm",
+                 "gmm_t", "tgmm"):
+        layouts[name] = {f"scan step {case}": counts[name]
+                         for case, counts in scan_step.items()
+                         if name in counts}
+    for kernel in kernels:
+        if kernel["name"] in layouts:
+            kernel["layout_launches"] = layouts[kernel["name"]]
     print("kernels by route: " + ", ".join(
         f"{k['name']}={k['launches']}" for k in kernels), flush=True)
     print(card, flush=True)

@@ -5,15 +5,16 @@ The JAX tree arrives as numpy arrays (`jax.tree.map(np.asarray, ...)`);
 leaves keep their layouts and stay f32, so a converted model computes
 the same function. Per-layer trees convert, attention, SSD and hybrid
 stacks alike (each block's mixer from `mixer_pattern`), with a dense or
-an MoE MLP (`moe_experts > 0`); scan-stacked trees raise.
+an MoE MLP (`moe_experts > 0`); so do scan-stacked trees
+(`scan_layers=True`: `blocks/block/<leaf>`, each leaf with a leading
+[L]), into the stacked model's `blocks.block.<leaf>`.
 """
 import typing as tp
 
 import numpy as np
 import torch
 
-from .transformer import (TODO_DECODE_VARIANTS, TransformerConfig,
-                          mixer_pattern)
+from .transformer import TransformerConfig, mixer_pattern
 
 # Per-block leaves: (path in the flax tree, name in the state dict,
 # expected shape from the config), by the block's mixer.
@@ -78,23 +79,36 @@ def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
     """
     if "params" in tree:
         tree = tree["params"]   # a variables dict, maybe with MoE losses
-    if "blocks" in tree:
-        raise NotImplementedError(
-            f"scan-stacked parameter trees are not ported yet: "
-            f"{TODO_DECODE_VARIANTS}")
     state = {"embed": _leaf(tree, ("embed",), (cfg.vocab_size, cfg.dim), ""),
              "norm_f.scale": _leaf(tree, ("norm_f", "scale"), (cfg.dim,), "")}
-    for i, mixer in enumerate(mixer_pattern(cfg)):
-        name = f"block_{i}"
-        block = tree.get(name)
+    pattern = mixer_pattern(cfg)
+    if cfg.scan_layers:
+        # one stacked body: the (uniform) mixer of every layer, each leaf
+        # with a leading [L]
+        blocks = (("blocks", "block", "blocks.block", pattern[0],
+                   (cfg.num_layers,)),)
+    else:
+        blocks = tuple((f"block_{i}", None, f"block_{i}", mixer, ())
+                       for i, mixer in enumerate(pattern))
+    extra = set(tree) - {"embed", "norm_f"} - {b[0] for b in blocks}
+    if extra:
+        raise ValueError(f"JAX params hold {sorted(extra)}, which a "
+                         f"{'scan-stacked' if cfg.scan_layers else 'per-layer'}"
+                         f" model of this config does not")
+    for top, inner, name, mixer, lead in blocks:
+        block = tree.get(top)
+        if inner is not None and isinstance(block, tp.Mapping):
+            block = block.get(inner) if set(block) == {inner} else None
         if not isinstance(block, tp.Mapping):
-            raise KeyError(f"JAX params have no {name}")
+            raise KeyError(f"JAX params have no {name.replace('.', '/')}")
         leaves = (_BLOCK_LEAVES + _MLP_LEAVES[cfg.moe_experts > 0]
                   + _MIXER_LEAVES[mixer])
         extra = set(block) - {path[0] for path, _, _ in leaves}
         if extra:
             raise ValueError(f"{name} holds {sorted(extra)}, which a "
                              f"{mixer!r} block of this config does not")
+        where = name.replace(".", "/")
         for path, key, shape in leaves:
-            state[f"{name}.{key}"] = _leaf(block, path, shape(cfg), name)
+            state[f"{name}.{key}"] = _leaf(block, path, lead + shape(cfg),
+                                           where)
     return state

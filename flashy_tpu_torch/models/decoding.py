@@ -1,6 +1,7 @@
 """KV-cache decoding for the port's TransformerLM (port of
-flashy_tpu/models/decoding.py, per-layer models: attention, SSD and
-hybrid stacks, with dense or MoE MLPs).
+flashy_tpu/models/decoding.py): every layout the JAX package decodes,
+per-layer models (attention, SSD and hybrid stacks) and scan-stacked
+ones, with dense or MoE MLPs and dense or int8 weights.
 
 `generate` is the oracle the serving engine is held to, on the CPU and
 on the card: it reads its dense `[B, max_len, H, Dh]` cache with plain
@@ -14,10 +15,18 @@ SSD layers keep one [B, H, Dh, N] f32 state instead of K/V slabs: a
 multi-token call runs the chunked scan (the Hopper SSD kernel on CUDA),
 a one-token call the recurrence. MoE blocks decode dropless
 (`_moe_forward`, plain PyTorch: the JAX package has no kernel there).
+A scan-stacked model's cache is stacked too ([L, ...] leaves) and its
+layer loop runs the same layer functions on per-layer views of the
+stacked parameters and cache (`_blocks`, `cache_entries`): nothing
+moves between layers but the activations.
 
 The step functions read a nested parameter dict shaped like the JAX
-tree (`decode_params`), with the matmul kernels already cast to the
-compute dtype — bitwise the same as the JAX package's cast at use.
+tree (`decode_params`), with the dense matmul kernels already cast to
+the compute dtype — bitwise the same as the JAX package's cast at use.
+Int8 kernels (`models.quantize.quantize_lm_params`) stay resident as
+{"q": int8, "scale": f32} and are converted at use (`_kernel`), their
+scale applied to the product's output (`_postscale`), as the JAX
+package does.
 """
 import numbers
 import typing as tp
@@ -30,93 +39,166 @@ from ..ops.losses import head_matmul
 from ..ops.ssd_scan import ssd_chunked_scan, ssd_recurrent_scan
 from ..parallel.moe_ep import _gelu
 from ..utils import check_same_device, resolve_device
+from .quantize import is_quantized
 from .ssd import ssd_projections
 from .transformer import (TransformerConfig, TransformerLM, _rotary,
                           check_supported, mixer_pattern,
                           rmsnorm as _rmsnorm)
 
+Params = tp.Dict[str, tp.Any]
 
-def decode_params(model: TransformerLM) -> tp.Dict[str, tp.Any]:
-    """The model's weights as a JAX-shaped dict, cast once for decoding.
 
-    Matmul kernels and the embedding are cast to `config.dtype`, so the
-    row lookup and the tied head (`ops.losses.head_matmul`, f32
-    accumulation) see exactly the operands the JAX package's cast-at-use
-    gives them. Norm scales stay f32 (rmsnorm multiplies in f32).
+def lm_params(model: TransformerLM) -> Params:
+    """The model's f32 weights (detached, shared) in the JAX package's
+    tree shape: `embed`, `norm_f/scale` and `block_i/...`, or a stacked
+    model's `blocks/block/...` with a leading [L] on every leaf. The
+    input of `models.quantize.quantize_lm_params`."""
+    tree: Params = {}
+    for name, param in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = param.detach()
+    return tree
+
+
+# leaves that stay f32 in decoding: the norms (rmsnorm multiplies in
+# f32), the router (applied to f32 activations) and the SSD dt bias
+_DENSE_F32 = ("scale", "dt_bias")
+
+
+def decode_params(model: TransformerLM, *,
+                  params: tp.Optional[Params] = None) -> Params:
+    """The weights the decode steps read: `params` (a JAX-shaped tree,
+    per-layer or stacked, dense or quantized by `quantize_lm_params`;
+    the variables dict around it is accepted) or, by default, the
+    model's own (`lm_params`). `model` gives the config.
+
+    Dense matmul kernels and the embedding are cast to `config.dtype`
+    once, so the row lookup and the tied head (`ops.losses.head_matmul`,
+    f32 accumulation) see exactly the operands the JAX package's
+    cast-at-use gives them. Norm scales, routers and `dt_bias` stay f32.
+    Quantized leaves stay {"q": int8, "scale": f32}, resident as int8.
     """
     cfg = model.config
     check_supported(cfg)
-    dtype = cfg.dtype
+    if params is None:
+        params = lm_params(model)
+    elif isinstance(params, dict) and set(params) == {"params"}:
+        params = params["params"]
 
-    def kernel(module):
-        return {"kernel": module.kernel.detach().to(dtype)}
+    def walk(node, path):
+        if is_quantized(node):
+            return node
+        if isinstance(node, dict):
+            return {key: walk(child, path + (key,))
+                    for key, child in node.items()}
+        if path[-1] in _DENSE_F32 or "router" in path:
+            return node.detach()
+        return node.detach().to(cfg.dtype)
 
     with torch.no_grad():
-        p: tp.Dict[str, tp.Any] = {
-            "embed": model.embed.detach().to(dtype),
-            "norm_f": {"scale": model.norm_f.scale.detach()}}
-        for i in range(cfg.num_layers):
-            block = getattr(model, f"block_{i}")
-            p[f"block_{i}"] = {
-                "norm1": {"scale": block.norm1.scale.detach()},
-                "norm2": {"scale": block.norm2.scale.detach()}}
-            if hasattr(block, "moe"):
-                # the router multiplies in f32; expert slabs are cast
-                p[f"block_{i}"]["moe"] = {
-                    "router": {"kernel": block.moe.router.kernel.detach()},
-                    "w_up": block.moe.w_up.detach().to(dtype),
-                    "w_down": block.moe.w_down.detach().to(dtype)}
-            else:
-                p[f"block_{i}"]["mlp"] = {"up": kernel(block.mlp.up),
-                                          "down": kernel(block.mlp.down)}
-            if block.mixer == "ssd":
-                p[f"block_{i}"]["ssd"] = {
-                    "cbv": kernel(block.ssd.cbv),
-                    "dt_bias": block.ssd.dt_bias.detach(),
-                    "out": kernel(block.ssd.out)}
-            else:
-                p[f"block_{i}"]["attn"] = {"qkv": kernel(block.attn.qkv),
-                                           "out": kernel(block.attn.out)}
-    return p
+        return walk(params, ())
+
+
+def _blocks(cfg: TransformerConfig, params: Params) -> tp.List[Params]:
+    """Each layer's parameter dict: a per-layer tree's `block_i`, or
+    views of a stacked tree's `blocks/block` leaves at layer i."""
+    if not cfg.scan_layers:
+        return [params[f"block_{i}"] for i in range(cfg.num_layers)]
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {key: take(child, i) for key, child in node.items()}
+        return node[i]
+
+    return [take(params["blocks"]["block"], i)
+            for i in range(cfg.num_layers)]
+
+
+def cache_entries(cfg: TransformerConfig, cache: tp.Dict
+                  ) -> tp.List[tp.Dict[str, torch.Tensor]]:
+    """Each layer's cache entry ({'k', 'v'} or {'ssd'}): a per-layer
+    cache's `block_i`, or views of a stacked cache's leaves at layer i.
+    Writing into an entry writes into the cache."""
+    if not cfg.scan_layers:
+        return [cache[f"block_{i}"] for i in range(cfg.num_layers)]
+    return [{leaf: t[i] for leaf, t in cache.items()}
+            for i in range(cfg.num_layers)]
+
+
+def cache_leaves(cache: tp.Dict) -> tp.List[tp.Tuple[str, torch.Tensor]]:
+    """(leaf name, tensor) of every leaf of a cache, per-layer or stacked
+    ([L, ...] leaves), in a fixed order. Every leaf keeps its slot dim at
+    position -4."""
+    return [(leaf, t) for name, node in cache.items()
+            for leaf, t in (node.items() if isinstance(node, dict)
+                            else ((name, node),))]
+
+
+def _kernel(w: tp.Any, dtype: torch.dtype
+            ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+    """A kernel leaf's matmul operand and output scale: an int8 leaf's
+    payload converted to `dtype` at use and its per-output-channel
+    scale; a dense leaf as it is (cast once by `decode_params`) and
+    None."""
+    if is_quantized(w):
+        return w["q"].to(dtype), w["scale"]
+    return w, None
+
+
+def _postscale(out: torch.Tensor, scale: tp.Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """Apply a kernel's output scale (broadcast over leading dims)."""
+    if scale is None:
+        return out
+    return out * scale.to(out.dtype)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device: tp.Any) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
+               device: tp.Any) -> tp.Dict[str, tp.Any]:
     """Zeroed dense cache: one {'k', 'v'} [B, max_len, H, Dh] slab pair
     per attention layer, in the compute dtype, and one {'ssd'} f32 state
-    [B, H, Dh, N] per SSD layer (no max_len dimension).
+    [B, H, Dh, N] per SSD layer (no max_len dimension). A scan-stacked
+    model (uniform mixers) gets single stacked leaves instead: {'k', 'v'}
+    [L, B, max_len, H, Dh], or {'ssd'} [L, B, H, Dh, N]. Every leaf keeps
+    the slot dim at position -4.
 
-    Each slab is a view of a [B, max_len + 1, H, Dh] tensor: the row past
-    its end is where a per-row write that falls past the cache lands
+    Each slab is a view of a [..., B, max_len + 1, H, Dh] tensor: the row
+    past its end is where a per-row write that falls past the cache lands
     (`_cache_write`). Attention reads the view only, and the view is what
     the engine's byte accounting counts.
     """
     check_supported(cfg)
-    shape = (batch, max_len + 1, cfg.num_heads, cfg.head_dim)
-    sshape = (batch, cfg.num_heads, cfg.head_dim, cfg.ssd_state_dim)
-
-    def slab():
-        return torch.zeros(shape, dtype=cfg.dtype, device=device)[:, :max_len]
+    lead = (cfg.num_layers,) if cfg.scan_layers else ()
+    shape = lead + (batch, max_len + 1, cfg.num_heads, cfg.head_dim)
+    sshape = lead + (batch, cfg.num_heads, cfg.head_dim, cfg.ssd_state_dim)
 
     def entry(mixer):
         if mixer == "ssd":
             return {"ssd": torch.zeros(sshape, dtype=torch.float32,
                                        device=device)}
-        return {"k": slab(), "v": slab()}
+        return {leaf: torch.zeros(shape, dtype=cfg.dtype,
+                                  device=device)[..., :max_len, :, :]
+                for leaf in ("k", "v")}
 
-    return {f"block_{i}": entry(mixer)
-            for i, mixer in enumerate(mixer_pattern(cfg))}
+    pattern = mixer_pattern(cfg)
+    if cfg.scan_layers:
+        return entry(pattern[0])
+    return {f"block_{i}": entry(mixer) for i, mixer in enumerate(pattern)}
 
 
 def with_spare_row(slab: torch.Tensor) -> torch.Tensor:
-    """The [B, max_len + 1, H, Dh] tensor under an `init_cache` slab view
-    (the same storage, its spare row included)."""
-    batch, length, heads, dim = slab.shape
-    if slab.stride(0) != (length + 1) * slab.stride(1):
+    """The [..., B, max_len + 1, H, Dh] tensor under an `init_cache` slab
+    view [..., B, max_len, H, Dh] (the same storage, its spare row
+    included)."""
+    length = slab.shape[-3]
+    if slab.stride(-4) != (length + 1) * slab.stride(-3):
         raise ValueError("a per-row cache write needs the slab's spare row: "
                          "allocate the cache with init_cache")
-    return slab.as_strided((batch, length + 1, heads, dim), slab.stride(),
-                           slab.storage_offset())
+    shape = slab.shape[:-3] + (length + 1,) + slab.shape[-2:]
+    return slab.as_strided(shape, slab.stride(), slab.storage_offset())
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
@@ -158,7 +240,8 @@ def _cached_self_attention(cfg: TransformerConfig, bp: tp.Dict,
     `positions`, so rows at different lengths attend their own prefix.
     """
     normed = _rmsnorm(x, bp["norm1"]["scale"], cfg.dtype)
-    qkv = torch.einsum("btd,dchk->btchk", normed, bp["attn"]["qkv"]["kernel"])
+    qkv_w, qkv_s = _kernel(bp["attn"]["qkv"]["kernel"], cfg.dtype)
+    qkv = _postscale(torch.einsum("btd,dchk->btchk", normed, qkv_w), qkv_s)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = _rotary(q, positions)
     k = _rotary(k, positions)
@@ -174,22 +257,39 @@ def _cached_self_attention(cfg: TransformerConfig, bp: tp.Dict,
     scores = scores.masked_fill(~mask[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     attn = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v_cache)
-    attn_out = torch.einsum("bqhd,hdD->bqD", attn,
-                            bp["attn"]["out"]["kernel"])
-    return x + attn_out, k_cache, v_cache
+    return x + _attention_out(cfg, bp, attn), k_cache, v_cache
+
+
+def _attention_out(cfg: TransformerConfig, bp: tp.Dict,
+                   attn: torch.Tensor) -> torch.Tensor:
+    """The attention output projection [B, T, H, Dh] -> [B, T, D]."""
+    out_w, out_s = _kernel(bp["attn"]["out"]["kernel"], cfg.dtype)
+    return _postscale(torch.einsum("bqhd,hdD->bqD", attn, out_w), out_s)
 
 
 def _gated_mlp(bp_mlp: tp.Dict, normed: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
-    """SwiGLU MLP on pre-normed input."""
-    gate, value = (normed @ bp_mlp["up"]["kernel"]).chunk(2, dim=-1)
-    return (torch.nn.functional.silu(gate) * value) \
-        @ bp_mlp["down"]["kernel"]
+    """SwiGLU MLP on pre-normed input (int8 kernels supported)."""
+    up_w, up_s = _kernel(bp_mlp["up"]["kernel"], dtype)
+    gate, value = _postscale(normed @ up_w, up_s).chunk(2, dim=-1)
+    down_w, down_s = _kernel(bp_mlp["down"]["kernel"], dtype)
+    return _postscale((torch.nn.functional.silu(gate) * value) @ down_w,
+                      down_s)
 
 
 # Above this many tokens, per-token expert-weight gathers ([N, D, F]
 # buffers) dominate memory; switch to streaming over experts instead.
 _MOE_GATHER_MAX_TOKENS = 64
+
+
+def _take_expert(w: tp.Any, index: torch.Tensor, dtype: torch.dtype
+                 ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+    """Per-token expert slabs [N, in, out] in `dtype` and, for an int8
+    leaf, their output scales [N, out] (only the gathered slabs are
+    converted)."""
+    if is_quantized(w):
+        return w["q"][index].to(dtype), w["scale"][index][:, 0, :]
+    return w[index], None
 
 
 def _moe_forward(cfg: TransformerConfig, mp: tp.Dict,
@@ -198,10 +298,12 @@ def _moe_forward(cfg: TransformerConfig, mp: tp.Dict,
 
     MoEMLP's routing (f32 softmax router, raw-probability gates,
     sequential top-k argmax) without capacity buffers, in one of two
-    equivalent evaluation orders: up to `_MOE_GATHER_MAX_TOKENS` tokens
-    (decode steps) gather each token's expert slabs; more (a prefill)
-    stream over the experts, every token against one expert at a time,
-    weighted by its combine gate (zero for unrouted pairs).
+    equivalent evaluation orders picked by N = B * S, as in the JAX
+    package: up to `_MOE_GATHER_MAX_TOKENS` tokens (decode steps) gather
+    each token's expert slabs; more (a prefill) stream over the experts,
+    every token against one expert at a time, weighted by its combine
+    gate (zero for unrouted pairs). Int8 expert slabs apply their scales
+    to each product's output, before the nonlinearity.
     """
     batch, seq, dim = x.shape
     n_tokens = batch * seq
@@ -219,19 +321,29 @@ def _moe_forward(cfg: TransformerConfig, mp: tp.Dict,
         gate = torch.gather(remaining, -1, expert_index[:, None])[:, 0]
         onehot = (expert_index[:, None] == experts).to(probs.dtype)
         if n_tokens <= _MOE_GATHER_MAX_TOKENS:
-            up = mp["w_up"][expert_index]                        # [N, D, F]
-            down = mp["w_down"][expert_index]                    # [N, F, D]
-            h = _gelu(torch.einsum("nd,ndf->nf", x_c, up))
-            y = torch.einsum("nf,nfd->nd", h, down)
+            up, up_s = _take_expert(mp["w_up"], expert_index, cfg.dtype)
+            down, down_s = _take_expert(mp["w_down"], expert_index,
+                                        cfg.dtype)
+            h = _gelu(_postscale(torch.einsum("nd,ndf->nf", x_c, up), up_s))
+            y = _postscale(torch.einsum("nf,nfd->nd", h, down), down_s)
             out = out + gate[:, None] * y.float()
         combine = combine + gate[:, None] * onehot
         remaining = remaining * (1.0 - onehot)
     if n_tokens > _MOE_GATHER_MAX_TOKENS:
         for e in range(num_experts):
-            h = _gelu(x_c @ mp["w_up"][e])
-            y = h @ mp["w_down"][e]
+            up_w, up_s = _kernel(_expert(mp["w_up"], e), cfg.dtype)
+            down_w, down_s = _kernel(_expert(mp["w_down"], e), cfg.dtype)
+            h = _gelu(_postscale(x_c @ up_w, up_s))
+            y = _postscale(h @ down_w, down_s)
             out = out + combine[:, e:e + 1] * y.float()
     return out.reshape(batch, seq, dim).to(cfg.dtype)
+
+
+def _expert(w: tp.Any, e: int) -> tp.Any:
+    """Expert e's slab of an [E, ...] leaf (int8: payload and scale)."""
+    if is_quantized(w):
+        return {"q": w["q"][e], "scale": w["scale"][e]}
+    return w[e]
 
 
 def _mlp_forward(cfg: TransformerConfig, bp: tp.Dict,
@@ -256,8 +368,9 @@ def _ssd_mixer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
     freezes a row's state (the engine's inactive slots).
     """
     normed = _rmsnorm(x, bp["norm1"]["scale"], cfg.dtype)
-    c, b, v, log_a = ssd_projections(cfg, normed, bp["ssd"]["cbv"]["kernel"],
-                                     bp["ssd"]["dt_bias"])
+    cbv_w, cbv_s = _kernel(bp["ssd"]["cbv"]["kernel"], cfg.dtype)
+    c, b, v, log_a = ssd_projections(cfg, normed, cbv_w,
+                                     bp["ssd"]["dt_bias"], cbv_s)
     if x.shape[1] == 1:
         y, new_state = ssd_recurrent_scan(c, b, v, log_a, state)
     else:
@@ -267,7 +380,8 @@ def _ssd_mixer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
     if state_mask is not None:
         new_state = torch.where(state_mask[:, None, None, None], new_state,
                                 state)
-    out = torch.einsum("bthd,hdD->btD", y, bp["ssd"]["out"]["kernel"])
+    out_w, out_s = _kernel(bp["ssd"]["out"]["kernel"], cfg.dtype)
+    out = _postscale(torch.einsum("bthd,hdD->btD", y, out_w), out_s)
     return x + out, new_state
 
 
@@ -295,8 +409,13 @@ def _layer_forward(cfg: TransformerConfig, bp: tp.Dict, x: torch.Tensor,
 
 def _embed_tokens(p: tp.Dict, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """Token ids [B, S] -> embeddings [B, S, D] in `dtype`."""
-    return p["embed"][tokens.long()].to(dtype)
+    """Token ids [B, S] -> embeddings [B, S, D] in `dtype`; an int8 table
+    gathers int8 rows and dequantizes only those."""
+    tokens = tokens.long()
+    if is_quantized(p["embed"]):
+        return (p["embed"]["q"][tokens].to(dtype)
+                * p["embed"]["scale"][tokens].to(dtype))
+    return p["embed"][tokens].to(dtype)
 
 
 def _head_logits(p: tp.Dict, x: torch.Tensor,
@@ -304,9 +423,12 @@ def _head_logits(p: tp.Dict, x: torch.Tensor,
     """Final norm + tied head: [B, S, D] -> f32 logits [B, S, V], through
     the forward's head product (`ops.losses.head_matmul`: operands in the
     compute dtype, f32 accumulation), so that a decode step's logits equal
-    the uncached forward's on the same hidden states."""
+    the uncached forward's on the same hidden states. An int8 table's
+    per-vocab-row scale applies to the f32 logits."""
     x = _rmsnorm(x, p["norm_f"]["scale"], cfg.dtype)
-    return head_matmul(x, p["embed"].t())
+    table, scale = _kernel(p["embed"], cfg.dtype)
+    logits = head_matmul(x, table.t())
+    return logits if scale is None else logits * scale[:, 0]
 
 
 def _apply_step(params: tp.Dict, cfg: TransformerConfig,
@@ -320,23 +442,21 @@ def _apply_step(params: tp.Dict, cfg: TransformerConfig,
     SSD layers, recognized by their {'ssd'} cache entry, advance their
     state instead (`_ssd_mixer_forward`); the new state is copied into
     the entry's tensor, so a cache of views into a larger one (the
-    engine's slot rows) is updated where it lies. `token_mask` and
-    `state_mask` apply to SSD layers only: attention layers ignore
-    padded and parked rows through their positions.
+    engine's slot rows, a stacked cache's layer) is updated where it
+    lies. `token_mask` and `state_mask` apply to SSD layers only:
+    attention layers ignore padded and parked rows through their
+    positions. A scan-stacked model runs the same layers over per-layer
+    views of its stacked parameters and cache.
     """
     x = _embed_tokens(params, tokens, cfg.dtype)
-    for layer in range(cfg.num_layers):
-        name = f"block_{layer}"
-        entry = cache[name]
+    for bp, entry in zip(_blocks(cfg, params), cache_entries(cfg, cache)):
         if "ssd" in entry:
-            x, state = _ssd_layer_forward(cfg, params[name], x, entry["ssd"],
+            x, state = _ssd_layer_forward(cfg, bp, x, entry["ssd"],
                                           token_mask, state_mask)
             entry["ssd"].copy_(state)
-            continue
-        x, k_cache, v_cache = _layer_forward(
-            cfg, params[name], x, positions, entry["k"], entry["v"],
-            cache_index)
-        cache[name] = {"k": k_cache, "v": v_cache}
+        else:
+            x, _, _ = _layer_forward(cfg, bp, x, positions, entry["k"],
+                                     entry["v"], cache_index)
     return _head_logits(params, x, cfg), cache
 
 
@@ -489,13 +609,15 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
              top_p: tp.Optional[float] = None,
              eos_token: tp.Optional[int] = None,
              generator: tp.Optional[torch.Generator] = None,
+             params: tp.Optional[Params] = None,
              device: tp.Any = None) -> torch.Tensor:
     """Autoregressive generation with a dense KV cache (and SSD states).
     A pure-SSD stack may run past `config.max_seq_len`: none of its
     state grows with the context.
 
     Args:
-        model: a TransformerLM living on `device`.
+        model: a TransformerLM living on `device`; every layout decodes
+            (per-layer or scan-stacked, dense or MoE MLPs).
         prompt: [B, P] int tokens (numpy or tensor).
         max_new_tokens: tokens to append.
         temperature: 0 -> greedy; > 0 -> sampling on `generator`.
@@ -506,6 +628,9 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
             are pinned to `eos_token` (the loop still runs every step).
         generator: the `torch.Generator` sampling draws from (on
             `device`); required when temperature > 0.
+        params: the weights to decode with instead of the model's own:
+            a JAX-shaped tree on `device` (`lm_params`), e.g. int8 from
+            `models.quantize.quantize_lm_params` (`decode_params`).
         device: `cuda` by default; the CPU only when asked for.
 
     Returns [B, P + max_new_tokens] tokens on `device`.
@@ -529,7 +654,7 @@ def generate(model: TransformerLM, prompt: tp.Any, *, max_new_tokens: int,
         # a pure-SSD stack has no length-dependent state: nothing caps T
         raise ValueError(f"prompt + new tokens {total} > max_seq_len "
                          f"{cfg.max_seq_len}")
-    params = decode_params(model)
+    params = decode_params(model, params=params)
     cache = init_cache(cfg, batch, total, device)
     positions = torch.arange(prompt_len, device=device).expand(batch,
                                                                prompt_len)

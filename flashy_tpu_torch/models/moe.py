@@ -41,9 +41,11 @@ DISPATCHES = ("einsum", "sorted", "dropless", "dropless_ep")
 
 def moe_aux_loss(model: nn.Module) -> torch.Tensor:
     """Sum of the load-balancing losses the MoEMLPs of `model` recorded
-    in their last forward (a zero scalar when it has none)."""
+    in their last forward (a zero scalar when it has none); a stacked
+    model's layers report through their `StackedBlocks`, which sums its
+    loop's losses."""
     losses = [m.aux for m in model.modules()
-              if isinstance(m, MoEMLP) and m.aux is not None]
+              if getattr(m, "reports_aux", False) and m.aux is not None]
     if not losses:
         param = next(model.parameters(), None)
         return torch.zeros((), device=None if param is None
@@ -60,6 +62,7 @@ def _one_hot(index: torch.Tensor, classes: int) -> torch.Tensor:
 
 class MoEMLP(nn.Module):
     """Routed MoE MLP over [B, T, D] activations (see the module doc).
+    Its `aux` counts in `moe_aux_loss` while `reports_aux` holds.
 
     Args:
         dim: model width.
@@ -72,6 +75,8 @@ class MoEMLP(nn.Module):
         dispatch: 'einsum', 'sorted', 'dropless' or 'dropless_ep'.
         generator, device: the random init (lecun-normal weights).
     """
+
+    reports_aux = True
 
     def __init__(self, dim: int, hidden: int, num_experts: int,
                  top_k: int = 1, capacity_factor: float = 1.25,

@@ -55,11 +55,15 @@ def ssd_segment_log_decay(log_a: torch.Tensor,
 
 
 def ssd_projections(cfg: tp.Any, normed: torch.Tensor, cbv: torch.Tensor,
-                    dt_bias: torch.Tensor):
+                    dt_bias: torch.Tensor,
+                    scale: tp.Optional[torch.Tensor] = None):
     """The fused projection split into (c, b, v, f32 log_a); `cbv` is
-    the kernel already in the compute dtype."""
+    the kernel already in the compute dtype, and `scale` (an int8
+    kernel's, `models.decoding._kernel`) multiplies the product."""
     nstate = cfg.ssd_state_dim
     proj = torch.einsum("btd,dhp->bthp", normed, cbv)
+    if scale is not None:
+        proj = proj * scale.to(proj.dtype)
     c = proj[..., :nstate]                                  # [B, T, H, N]
     b = proj[..., nstate:2 * nstate]                        # [B, T, H, N]
     v = proj[..., 2 * nstate:2 * nstate + cfg.head_dim]     # [B, T, H, Dh]

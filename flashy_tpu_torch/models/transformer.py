@@ -18,6 +18,13 @@ cross over leaf for leaf (`models.convert.params_from_jax`):
     block_i.moe.w_down     [E, F, D]
     norm_f.scale           [D]
 
+With `scan_layers=True` (the JAX package's `nn.scan` layout) the blocks
+are one `blocks.block` module whose every parameter carries a leading
+[L] dim (`blocks.block.attn.qkv.kernel [L, D, 3, H, Dh]`, ...), the
+names and shapes of the JAX tree's `blocks/block/...`; the mixer
+pattern must be uniform. Its forward runs the same block body layer by
+layer on per-layer views of the stacked parameters (`StackedBlocks`).
+
 Activations run in `config.dtype`; kernels are cast to it at use, norms
 accumulate in f32 and the tied head accumulates in f32. With
 `attention='flash'` every attention call on a CUDA tensor runs the
@@ -68,10 +75,6 @@ from ..parallel.ring import ring_self_attention
 from ..utils import resolve_device
 from .moe import MoEMLP, moe_aux_loss
 
-# Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_DECODE_VARIANTS = ("ROADMAP.md queue A item 3, L7 (scan-stacked "
-                        "layouts; MoE in the serving engine)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -96,7 +99,8 @@ class TransformerConfig:
     moe_dispatch: str = "einsum"  # einsum | sorted | dropless (the Hopper
                                   # grouped-GEMM kernels); dropless_ep is
                                   # not ported (check_supported)
-    scan_layers: bool = False    # True is not ported (check_supported)
+    scan_layers: bool = False    # one stacked [L, ...] parameter a leaf
+                                 # (StackedBlocks); uniform mixers only
     mixer: str = "attention"     # 'attention', 'ssd' or a pattern such
                                  # as 'ssd,attention' (mixer_pattern)
     ssd_state_dim: int = 16      # Dstate of SSD layers ([H, Dh, Dstate])
@@ -126,10 +130,14 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             f"moe_dispatch='dropless_ep' is not ported yet: "
             f"{TODO_EXPERT_PARALLEL}")
-    mixer_pattern(cfg)  # raises on an unknown mixer name
-    if cfg.scan_layers:
-        raise NotImplementedError(
-            f"scan_layers=True is not ported yet: {TODO_DECODE_VARIANTS}")
+    pattern = mixer_pattern(cfg)  # raises on an unknown mixer name
+    if cfg.scan_layers and len(set(pattern)) > 1:
+        # one stacked body = one parameter shape: a hybrid stack's
+        # attention and SSD layers have different parameter trees
+        raise ValueError(
+            "scan_layers requires a uniform mixer pattern (one scanned "
+            f"body = one parameter shape); got {pattern}. Use "
+            "scan_layers=False for hybrid attention/SSD stacks.")
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {list(REMAT_POLICIES)}"
                          f", got {cfg.remat_policy!r}")
@@ -363,16 +371,20 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None,
-                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+                dropout_seed: tp.Optional[int] = None,
+                layer: tp.Optional[int] = None) -> torch.Tensor:
         """With `dropout_seed` (training with dropout > 0) dropout follows
         the mixer's output projection and the MLP's down projection (not
         an MoE layer's, as in the JAX package), each site seeded with
-        `fold_seed(dropout_seed, index, site)`."""
+        `fold_seed(dropout_seed, layer, site)`; `layer` defaults to the
+        block's `index` (a stacked model's one block passes its loop's
+        layer)."""
         rate = self.config.dropout
+        layer = self.index if layer is None else layer
 
         def site(number: int) -> tp.Optional[int]:
             return None if dropout_seed is None else fold_seed(
-                dropout_seed, self.index, number)
+                dropout_seed, layer, number)
 
         mix = self.ssd if self.mixer == "ssd" else self.attn
         x = x + dropout(mix(self.norm1(x), positions, segment_ids), rate,
@@ -380,6 +392,90 @@ class Block(nn.Module):
         if hasattr(self, "moe"):
             return x + self.moe(self.norm2(x))
         return x + dropout(self.mlp(self.norm2(x)), rate, site(DROPOUT_MLP))
+
+
+def _owner(module: nn.Module, name: str) -> tp.Tuple[nn.Module, str]:
+    """The submodule holding the dotted parameter `name`, and its leaf."""
+    path, _, leaf = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), leaf
+
+
+def _run_block(cfg: TransformerConfig, block: tp.Callable, *args: tp.Any
+               ) -> torch.Tensor:
+    """`block(*args)`, recomputed in the backward under `cfg.remat`
+    (`torch.utils.checkpoint`, `remat_policy` as its context)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block(*args)
+    remat = {} if cfg.remat_policy == "full" else {
+        "context_fn": remat_context_fn(cfg.remat_policy)}
+    return torch.utils.checkpoint.checkpoint(block, *args,
+                                             use_reentrant=False, **remat)
+
+
+class StackedBlocks(nn.Module):
+    """The scan-stacked layout's `blocks`: one `block`, a `Block` whose
+    every parameter carries a leading [L] dim (the JAX tree's
+    `blocks/block/...`), run layer by layer.
+
+    The init draws L blocks from the generator in the per-layer model's
+    order and stacks their weights, so both layouts start from the same
+    weights at the same seed. The forward takes the per-layer views with
+    one `torch.unbind` a leaf (its backward stacks the L gradients once)
+    and runs `block`'s own forward on them
+    (`torch.func.functional_call`): the block body, remat, dropout (the
+    loop's layer seeds the sites) and every mixer and MoE dispatch are
+    the per-layer model's. `block`'s modules hold only the stacked
+    parameters, so `parameters()`, the optimizer and the state dict see
+    each weight once. Its MoE layer overwrites its `aux` every layer, so
+    the loop sums the layers' losses here (`aux`), in the per-layer
+    model's order, and `moe_aux_loss` reads this sum instead.
+    """
+
+    reports_aux = True
+
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
+                 device: torch.device, mixer: str,
+                 mesh: tp.Optional[Mesh] = None):
+        super().__init__()
+        self.config = cfg
+        layers = [Block(cfg, generator, device, mixer, mesh, index=i)
+                  for i in range(cfg.num_layers)]
+        self.block = layers[0]
+        self.names = tuple(name for name, _ in self.block.named_parameters())
+        with torch.no_grad():
+            for name in self.names:
+                stacked = torch.stack([layer.get_parameter(name)
+                                       for layer in layers])
+                owner, leaf = _owner(self.block, name)
+                setattr(owner, leaf, nn.Parameter(stacked))
+        for module in self.block.modules():
+            if isinstance(module, MoEMLP):
+                module.reports_aux = False   # this module's `aux` sums them
+        self.aux: tp.Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: tp.Optional[torch.Tensor] = None,
+                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+        views = {name: torch.unbind(getattr(*_owner(self.block, name)), 0)
+                 for name in self.names}
+        moe = getattr(self.block, "moe", None)
+        aux = None
+        for i in range(self.config.num_layers):
+            weights = {name: view[i] for name, view in views.items()}
+
+            def layer(x, positions, segment_ids, dropout_seed,
+                      weights=weights, i=i):
+                return torch.func.functional_call(
+                    self.block, weights,
+                    (x, positions, segment_ids, dropout_seed),
+                    {"layer": i})
+
+            x = _run_block(self.config, layer, x, positions, segment_ids,
+                           dropout_seed)
+            if moe is not None:
+                aux = moe.aux if aux is None else aux + moe.aux
+        self.aux = aux
+        return x
 
 
 class TransformerLM(nn.Module):
@@ -407,9 +503,14 @@ class TransformerLM(nn.Module):
         generator = torch.Generator(device=device).manual_seed(seed)
         self.embed = _param((config.vocab_size, config.dim), 0.02,
                             generator, device)
-        for i, mixer in enumerate(mixer_pattern(config)):
-            setattr(self, f"block_{i}", Block(config, generator, device,
-                                              mixer, mesh, index=i))
+        pattern = mixer_pattern(config)
+        if config.scan_layers:
+            self.blocks = StackedBlocks(config, generator, device,
+                                        pattern[0], mesh)
+        else:
+            for i, mixer in enumerate(pattern):
+                setattr(self, f"block_{i}", Block(config, generator, device,
+                                                  mixer, mesh, index=i))
         self.norm_f = RMSNorm(config.dim, config.dtype, device)
 
     @property
@@ -456,16 +557,12 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
         x = self.embed[tokens].to(cfg.dtype)
-        remat = {} if cfg.remat_policy == "full" else {
-            "context_fn": remat_context_fn(cfg.remat_policy)}
-        for i in range(cfg.num_layers):
-            block = getattr(self, f"block_{i}")
-            if cfg.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(
-                    block, x, positions, segment_ids, dropout_seed,
-                    use_reentrant=False, **remat)
-            else:
-                x = block(x, positions, segment_ids, dropout_seed)
+        if cfg.scan_layers:
+            x = self.blocks(x, positions, segment_ids, dropout_seed)
+        else:
+            for i in range(cfg.num_layers):
+                x = _run_block(cfg, getattr(self, f"block_{i}"), x,
+                               positions, segment_ids, dropout_seed)
         x = self.norm_f(x)
         if return_hidden:
             return x, self.embed

@@ -48,11 +48,17 @@ def pool_spec(num_blocks: int, block_size: int, num_heads: int,
 
 def init_pool(cfg, num_blocks: int, block_size: int,
               kv_dtype: str = "model", *, device: tp.Any
-              ) -> tp.Dict[str, Entry]:
-    """Zeroed block pool for a TransformerLM config: one entry per
-    `block_i`. Block 0 is the sentinel."""
+              ) -> tp.Dict[str, tp.Any]:
+    """Zeroed block pool for a TransformerLM config, shaped like
+    `models.decoding.init_cache`: one entry per `block_i`, or for a
+    scan-stacked model single stacked leaves ([L, N, bs, H, Dh] payloads,
+    [L, N, bs, H] int8 scales). Block 0 is the sentinel."""
     spec = pool_spec(num_blocks, block_size, cfg.num_heads, cfg.head_dim,
                      cfg.dtype, kv_dtype)
+    if cfg.scan_layers:
+        return {name: torch.zeros((cfg.num_layers,) + shape, dtype=dt,
+                                  device=device)
+                for name, (shape, dt) in spec.items()}
     return {f"block_{i}": {name: torch.zeros(shape, dtype=dt, device=device)
                            for name, (shape, dt) in spec.items()}
             for i in range(cfg.num_layers)}

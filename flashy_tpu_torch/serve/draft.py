@@ -148,13 +148,17 @@ class ModelDraft(DraftProvider):
         cache_scope: the mirror's compile-cache key prefix.
         compile_cache: a CompileCache to share (see `DecodeEngine`).
         tracer: the reference's request tracing; not ported (raises).
+        params: the draft's weights instead of its model's own (e.g.
+            int8, `models.quantize.quantize_lm_params`; see
+            `DecodeEngine`).
         device: `cuda` by default; the CPU only when asked for.
     """
 
     def __init__(self, model, *, slots: int, k: int = 4,
                  max_seq_len: tp.Optional[int] = None, pad_token: int = 0,
                  cache_scope: str = "draft", compile_cache: tp.Any = None,
-                 tracer: tp.Any = None, device: tp.Any = None):
+                 tracer: tp.Any = None, params: tp.Any = None,
+                 device: tp.Any = None):
         from .engine import DecodeEngine
         if tracer is not None:
             raise NotImplementedError(f"ModelDraft(tracer=...): "
@@ -168,7 +172,7 @@ class ModelDraft(DraftProvider):
                                    cache_layout="dense",
                                    cache_scope=cache_scope,
                                    compile_cache=compile_cache,
-                                   device=device)
+                                   params=params, device=device)
 
     def warmup(self, prompt_lengths: tp.Iterable[int] = ()) -> None:
         self.engine.warmup(prompt_lengths)

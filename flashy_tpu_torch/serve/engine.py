@@ -1,6 +1,9 @@
 """Slot-based decode engine (port of flashy_tpu/serve/engine.py): S
 slots over a dense K/V slab (`cache_layout='dense'`, the default), a
-paged K/V pool (`'paged'`) or resident SSD states (`'ssd'`).
+paged K/V pool (`'paged'`) or resident SSD states (`'ssd'`). Every model
+layout serves: per-layer and scan-stacked stacks (a stacked model's cache
+and pool are stacked [L, ...] leaves), dense or MoE MLPs, and dense or
+int8 weights (`params=`, from `models.quantize.quantize_lm_params`).
 
 ONE decode step of shape [S, 1] advances every live slot together, an
 active mask (not a shape) expressing liveness, and speculative decoding
@@ -43,9 +46,9 @@ import typing as tp
 import numpy as np
 import torch
 
-from ..models.decoding import (_apply_step, decode_params, init_cache,
-                               sample_tokens, speculative_acceptance,
-                               with_spare_row)
+from ..models.decoding import (_apply_step, cache_leaves, decode_params,
+                               init_cache, sample_tokens,
+                               speculative_acceptance, with_spare_row)
 from ..models.transformer import check_supported, mixer_pattern
 from ..ops.paged_attention import block_bytes, init_pool, pool_bytes
 from ..ops.paged_decode import default_kernel
@@ -56,16 +59,15 @@ from .paged import BlockPool, CacheBox, copy_block_fn, paged_apply_step
 
 logger = logging.getLogger(__name__)
 
-TODO_MOE_SERVING = "ROADMAP.md queue A item 3, L7 (MoE in the serving engine)"
-
 
 def _zero_ssd_leaves(cache: tp.Dict, fresh: torch.Tensor) -> tp.Dict:
-    """Zero the SSD state leaves of a cache dict, in place, where `fresh`
-    (a bool tensor that broadcasts against them) is set; attention K/V
-    leaves are left as they are. A masked fill, never a shape change."""
-    for entry in cache.values():
-        if "ssd" in entry:
-            entry["ssd"].masked_fill_(fresh, 0.0)
+    """Zero the SSD state leaves of a cache dict (per-layer or stacked),
+    in place, where `fresh` (a bool tensor that broadcasts against them)
+    is set; attention K/V leaves are left as they are. A masked fill,
+    never a shape change."""
+    for leaf, t in cache_leaves(cache):
+        if leaf == "ssd":
+            t.masked_fill_(fresh, 0.0)
     return cache
 
 
@@ -152,8 +154,9 @@ class DecodeEngine:
     states, and the prefill, decode and verify steps over them.
 
     Args:
-        model: a port `TransformerLM`; its weights are cast once to the
-            compute dtype (`models.decoding.decode_params`).
+        model: a port `TransformerLM` (per-layer or scan-stacked, dense
+            or MoE MLPs); its weights are cast once to the compute dtype
+            (`models.decoding.decode_params`).
         slots: S, the number of concurrent requests.
         max_seq_len: per-slot cap; defaults to (and is capped by) the
             model's `config.max_seq_len`.
@@ -207,6 +210,11 @@ class DecodeEngine:
             default). False runs them eagerly: only for measurements
             that hold replay against eager. It is not a fallback: a
             capture or a replay that fails raises.
+        params: the weights to serve instead of the model's own: a
+            JAX-shaped tree on the engine's device
+            (`models.decoding.lm_params`), e.g. int8 kernels from
+            `models.quantize.quantize_lm_params`, which stay resident as
+            int8 and are converted at use.
         device: `cuda` by default; the CPU only when asked for.
     """
 
@@ -228,15 +236,12 @@ class DecodeEngine:
                  cache_scope: str = "",
                  compile_cache: tp.Optional[CompileCache] = None,
                  cuda_graphs: bool = True,
+                 params: tp.Optional[tp.Dict[str, tp.Any]] = None,
                  device: tp.Any = None):
         self.device = resolve_device(device)
         check_same_device("model", model.embed, self.device)
         self._cfg = cfg = model.config
         check_supported(cfg)
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                f"serving an MoE model through the engine is not ported "
-                f"yet (`generate` decodes it): {TODO_MOE_SERVING}")
         if cache_layout not in ("dense", "paged", "ssd"):
             raise ValueError(f"cache_layout must be 'dense', 'paged' or "
                              f"'ssd', got {cache_layout!r}")
@@ -329,7 +334,7 @@ class DecodeEngine:
         if self.spec_k is not None and self.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         self.allocator = SlotAllocator(slots)
-        self._params = decode_params(model)
+        self._params = decode_params(model, params=params)
         self._pool: tp.Optional[BlockPool] = None
         if cache_layout == "paged":
             if num_blocks is None:
@@ -508,19 +513,23 @@ class DecodeEngine:
 
     def _slot_rows(self, slot: torch.Tensor
                    ) -> tp.Tuple[tp.Dict, tp.List[tp.Tuple]]:
-        """The slot's rows of every cache leaf, as a batch-1 cache (K/V
-        slabs keep their spare row, `models.decoding.init_cache`), and
-        the (cache tensor, rows) pairs to scatter them back."""
-        mini, pairs = {}, []
-        for name, entry in self._cache.items():
-            mini[name] = {}
-            for leaf, t in entry.items():
-                full = t if leaf == "ssd" else with_spare_row(t)
-                rows = full.index_select(0, slot)
-                mini[name][leaf] = rows if leaf == "ssd" \
-                    else rows[:, :t.shape[1]]
-                pairs.append((full, rows))
-        return mini, pairs
+        """The slot's rows of every cache leaf (the slot dim is -4 on
+        every leaf, per-layer or stacked), as a batch-1 cache (K/V slabs
+        keep their spare row, `models.decoding.init_cache`), and the
+        (cache tensor, rows) pairs to scatter them back."""
+        pairs = []
+
+        def rows_of(node):
+            return {key: rows_of(t) if isinstance(t, dict)
+                    else rows_of_leaf(key, t) for key, t in node.items()}
+
+        def rows_of_leaf(leaf, t):
+            full = t if leaf == "ssd" else with_spare_row(t)
+            rows = full.index_select(full.ndim - 4, slot)
+            pairs.append((full, rows))
+            return rows if leaf == "ssd" else rows[..., :t.shape[-3], :, :]
+
+        return rows_of(self._cache), pairs
 
     def _build_prefill_chunk(self, size: int) -> tp.Callable:
         """One prefill slice of `size` tokens from its static inputs
@@ -547,7 +556,7 @@ class DecodeEngine:
             logits, _ = _apply_step(params, cfg, tokens, positions, mini,
                                     positions[:, 0], token_mask=mask)
             for full, rows in pairs:
-                full.index_copy_(0, slot, rows)
+                full.index_copy_(full.ndim - 4, slot, rows)
             return logits
 
         return prefill_slot
@@ -566,10 +575,10 @@ class DecodeEngine:
             mask = positions < length[:, None]
             logits, mini = _apply_step(params, cfg, tokens, positions, mini,
                                        0, token_mask=mask)
-            for name, entry in self._cache.items():
-                for leaf, t in entry.items():
-                    target = t if leaf == "ssd" else t[:, :bucket]
-                    target.index_copy_(0, slot, mini[name][leaf])
+            for (leaf, t), (_, rows) in zip(cache_leaves(self._cache),
+                                            cache_leaves(mini)):
+                target = t if leaf == "ssd" else t[..., :bucket, :, :]
+                target.index_copy_(t.ndim - 4, slot, rows)
             return logits
 
         return prefill
@@ -753,8 +762,7 @@ class DecodeEngine:
             return pool_bytes(self._cfg, self.num_blocks, self.block_size,
                               self.kv_dtype)
         return int(sum(t.numel() * t.element_size()
-                       for entry in self._cache.values()
-                       for t in entry.values()))
+                       for _, t in cache_leaves(self._cache)))
 
     def _check_prompt(self, slot: int, prompt: tp.Any) -> np.ndarray:
         prompt = np.asarray(prompt)

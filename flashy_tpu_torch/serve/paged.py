@@ -499,18 +499,22 @@ def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
                      verify: bool = False):
     """Forward `tokens` [B, T] at `positions` [B, T] against the pool.
 
-    The paged twin of `models.decoding._apply_step`: same embed, MLP,
-    norms and head, with the dense slab read/write swapped for
-    `paged_write` and a paged read. `table` is [B, max_blocks] int32.
-    `kernel` picks the READ: 'fused' is the Hopper kernel
-    (`ops.paged_decode`, legal because every engine read queries
-    consecutive positions per row), 'gather' its plain version.
+    The paged twin of `models.decoding._apply_step`: the same embed,
+    projections (int8 kernels included), MLP or routed experts, norms
+    and head, with the dense slab read/write swapped for `paged_write`
+    and a paged read; a scan-stacked model runs the same layer over
+    per-layer views of its stacked parameters and pool. `table` is
+    [B, max_blocks] int32. `kernel` picks the READ: 'fused' is the
+    Hopper kernel (`ops.paged_decode`, legal because every engine read
+    queries consecutive positions per row), 'gather' its plain version.
     `verify` marks the speculative verify step, whose fused read is
     `fused_speculative_verify` (the same kernel at T = k+1). The pool is
     updated in place; returns (f32 logits [B, T, V], cache).
     """
-    from ..models.decoding import (_embed_tokens, _gated_mlp, _head_logits,
-                                   _rmsnorm, _rotary)
+    from ..models.decoding import (_attention_out, _blocks, _embed_tokens,
+                                   _head_logits, _kernel, _mlp_forward,
+                                   _postscale, _rmsnorm, _rotary,
+                                   cache_entries)
     from ..ops.paged_attention import paged_attention, paged_write
     from ..ops.paged_decode import (fused_paged_attention,
                                     fused_speculative_verify)
@@ -522,35 +526,38 @@ def paged_apply_step(params: tp.Dict, cfg, tokens: torch.Tensor,
         else fused_speculative_verify if verify else fused_paged_attention
 
     x = _embed_tokens(params, tokens, cfg.dtype)
-    for i in range(cfg.num_layers):
-        bp, entry = params[f"block_{i}"], cache[f"block_{i}"]
+    for bp, entry in zip(_blocks(cfg, params), cache_entries(cfg, cache)):
         normed = _rmsnorm(x, bp["norm1"]["scale"], cfg.dtype)
-        qkv = torch.einsum("btd,dchk->btchk", normed,
-                           bp["attn"]["qkv"]["kernel"])
+        qkv_w, qkv_s = _kernel(bp["attn"]["qkv"]["kernel"], cfg.dtype)
+        qkv = _postscale(torch.einsum("btd,dchk->btchk", normed, qkv_w),
+                         qkv_s)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         q = _rotary(q, positions)
         k = _rotary(k, positions)
         paged_write(entry, k, v, table, positions)
         attn = attend(q, entry, table, positions,
                       head_dim=cfg.head_dim, dtype=cfg.dtype)
-        x = x + torch.einsum("bqhd,hdD->bqD", attn,
-                             bp["attn"]["out"]["kernel"])
+        x = x + _attention_out(cfg, bp, attn)
         normed = _rmsnorm(x, bp["norm2"]["scale"], cfg.dtype)
-        x = x + _gated_mlp(bp["mlp"], normed, cfg.dtype)
+        x = x + _mlp_forward(cfg, bp, normed)
     return _head_logits(params, x, cfg), cache
 
 
 def copy_block_fn() -> tp.Callable:
     """Build the COW device copy: `(cache, src, dst) -> cache` with
     block `src`'s rows duplicated onto block `dst` in place, across
-    every layer and leaf (int8 payloads and their scales). `src` and
-    `dst` are [1] int64 tensors on the pool's device, so that one
-    captured step serves every pair of blocks."""
+    every layer and leaf (int8 payloads and their scales). The block
+    axis comes from each leaf's rank, as in the JAX package's
+    `copy_block_fn`: k/v leaves are [..., N, bs, H, Dh], scales
+    [..., N, bs, H], so a scan-stacked pool's [L, ...] leaves copy on
+    axis 1. `src` and `dst` are [1] int64 tensors on the pool's device,
+    so that one captured step serves every pair of blocks."""
+    from ..models.decoding import cache_leaves
 
     def copy(cache, src: torch.Tensor, dst: torch.Tensor):
-        for entry in cache.values():
-            for leaf in entry.values():
-                leaf.index_copy_(0, dst, leaf.index_select(0, src))
+        for name, leaf in cache_leaves(cache):
+            axis = leaf.ndim - (4 if name in ("k", "v") else 3)
+            leaf.index_copy_(axis, dst, leaf.index_select(axis, src))
         return cache
 
     return copy

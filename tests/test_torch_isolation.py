@@ -57,6 +57,9 @@ def test_package_imports_with_jax_unimportable():
         "flashy_tpu_torch.loggers.tensorboard, flashy_tpu_torch.loggers.wandb\n"
         "import flashy_tpu_torch.serve, flashy_tpu_torch.serve.draft, "
         "flashy_tpu_torch.serve.__main__\n"
+        "import flashy_tpu_torch.models.quantize, "
+        "flashy_tpu_torch.models.decoding, flashy_tpu_torch.serve.engine, "
+        "flashy_tpu_torch.serve.paged, flashy_tpu_torch.ops.paged_attention\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")

@@ -30,9 +30,10 @@ def test_converter_round_trip_and_guards():
     # the inner tree converts the same as the variables dict
     inner = params_from_jax(tree["params"], model.config)
     assert all(torch.equal(inner[k], state[k]) for k in state)
-    with pytest.raises(NotImplementedError, match="scan-stacked"):
-        params_from_jax({"blocks": {}, "embed": tree["params"]["embed"]},
-                        model.config)
+    # a stacked tree for a per-layer config raises (stacked trees
+    # convert for a scan_layers config: tests/test_torch_scan.py)
+    with pytest.raises(ValueError, match="blocks"):
+        params_from_jax({**tree["params"], "blocks": {}}, model.config)
     wrong = jax.tree.map(lambda a: a, tree)
     wrong["params"]["norm_f"]["scale"] = np.ones(7, np.float32)
     with pytest.raises(ValueError, match="shape"):
@@ -55,10 +56,16 @@ def test_unported_paths_raise_not_implemented():
                                                      TransformerLM)
     from flashy_tpu_torch.serve.engine import DecodeEngine
     base = dict(TINY, dtype=torch.float32)
-    for bad in (dict(moe_experts=2, moe_dispatch="dropless_ep"),
-                dict(scan_layers=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(TransformerConfig(**base, **bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerLM(TransformerConfig(**base, moe_experts=2,
+                                        moe_dispatch="dropless_ep"),
+                      device="cpu")
+    # scan_layers=True is ported: the stacked model builds and serves
+    stacked = TransformerLM(TransformerConfig(**base, scan_layers=True),
+                            device="cpu")
+    assert stacked.blocks.block.attn.qkv.kernel.shape[0] == TINY["num_layers"]
+    engine = DecodeEngine(stacked, slots=2, device="cpu")
+    assert set(engine.cache_box.value) == {"k", "v"}
     # a hybrid stack serves on the ssd layout: dense slabs beside the
     # states, so it keeps the max_seq_len ceiling
     hybrid = TransformerLM(TransformerConfig(**base, mixer="ssd,attention"),

@@ -325,9 +325,20 @@ def _raises_ep_exchange():
 
 
 def _raises_scan_layers():
+    # ported: a stacked MoE model trains (its stacked layers' aux losses
+    # summed) and a stacked hybrid stack raises the reference's ValueError
+    from flashy_tpu_torch.models.moe import moe_aux_loss
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
                                                      TransformerLM)
+    model = TransformerLM(TransformerConfig(**TINY, **MOE, scan_layers=True,
+                                            dtype=torch.float32),
+                          device="cpu")
+    logits, aux = model(torch.zeros((1, 8), dtype=torch.long),
+                        return_aux=True)
+    assert torch.isfinite(logits).all() and float(aux) > 0
+    assert torch.equal(moe_aux_loss(model), aux)
     TransformerLM(TransformerConfig(**TINY, **MOE, scan_layers=True,
+                                    mixer="ssd,attention",
                                     dtype=torch.float32), device="cpu")
 
 
@@ -340,8 +351,19 @@ def _tiny_moe_model():
 
 
 def _raises_engine():
+    # ported: the engine serves an MoE model; an MoE model with no SSD
+    # layer on the ssd layout raises as any such model does
     from flashy_tpu_torch.serve.engine import DecodeEngine
-    DecodeEngine(_tiny_moe_model(), slots=2, block_size=4, device="cpu")
+    engine = DecodeEngine(_tiny_moe_model(), slots=2, block_size=4,
+                          cache_layout="paged", device="cpu")
+    slot = engine.acquire_slot()
+    prompt = np.arange(1, 7)
+    start, first = engine.admit(slot, prompt, 4), None
+    while first is None:
+        start, first = engine.prefill_chunk(slot, prompt, start)
+    assert engine.decode().shape == (2,)
+    DecodeEngine(_tiny_moe_model(), slots=2, cache_layout="ssd",
+                 device="cpu")
 
 
 def _raises_bad_leaf():
@@ -368,8 +390,8 @@ def _raises_bad_leaf():
     (_raises_chunked_aux, ValueError, "chunked loss takes no MoE aux"),
     (_raises_dropless_ep, NotImplementedError, "queue A item 8"),
     (_raises_ep_exchange, NotImplementedError, "queue A item 8"),
-    (_raises_scan_layers, NotImplementedError, "L7"),
-    (_raises_engine, NotImplementedError, "L7"),
+    (_raises_scan_layers, ValueError, "uniform mixer pattern"),
+    (_raises_engine, ValueError, "needs at least one SSD layer"),
     (_raises_bad_leaf, ValueError, "moe/w_up"),
 ], ids=["chunked_loss", "chunked_aux", "dropless_ep", "ep_exchange",
         "scan_layers", "engine", "bad_leaf"])

@@ -96,7 +96,9 @@ def test_remat_gives_bit_equal_grads():
     ({"mixer": "ssd,mamba"}, ValueError, "mixer"),
     ({"moe_experts": 4, "moe_dispatch": "dropless_ep"}, NotImplementedError,
      "ROADMAP.md"),
-    ({"scan_layers": True}, NotImplementedError, "ROADMAP.md"),
+    # a stacked model needs one mixer (the reference's ValueError)
+    ({"scan_layers": True, "mixer": "ssd,attention"}, ValueError,
+     "uniform mixer pattern"),
 ])
 def test_layouts_the_port_lacks_raise(overrides, error, match):
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
