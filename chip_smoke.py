@@ -155,10 +155,11 @@ failure with a non-zero exit:
              as in phase 7; the verify step at temperature 1.0 as a
              captured graph (the same tokens from the same seed twice);
              `generate` with top_k and top_p on the card;
- 9g. serve demo  `python -m flashy_tpu_torch.serve`'s five ported legs on
-             the card, in this process after the phases above (a
-             capture after other engines were dropped), with `--kernel
-             fused` and the demo's default gates;
+ 9g. serve demo  `python -m flashy_tpu_torch.serve`'s six legs on the
+             card (the `slo` leg: untraced, then traced at sampling 1.0
+             with an SLOEngine), in this process after the phases above
+             (a capture after other engines were dropped), with
+             `--kernel fused` and the demo's default gates;
  10. step    the 235M model in f32 (TF32 off) at batch 2, seq 256: loss
              and gradients with attention='flash' (the general route)
              through the fused backward and through the split pair
@@ -361,6 +362,46 @@ The model layouts of ROADMAP queue A item 3's L7 and L8, last:
  31. int8w serve bf16  int8 weights over int8 pools (row 6) through the
              paged engine's graphs, in turns with bf16 weights over the
              same pools: tokens/s, decode p50, the resident weight bytes.
+
+ROADMAP queue A item 3's L4-L6 and item 9's observability half, after
+them (first `roofline graphs`: a one-matmul step through a CompileCache
+with a roofline, its FLOPs counted before the capture and its replays
+timed):
+
+ 32. serve traced  `serve bf16`'s traffic (8 slots, 16 requests, prompt
+             128, 128 new) through two paged engines' captured graphs on
+             one model, in turns, twice: one untraced, one with a Tracer,
+             a RequestTracer at sampling 1.0, an SLOEngine and
+             ServeMetrics(tracer=, slo=): streams identical, no capture
+             after warm-up on either, every request's queued, prefill and
+             decode phases in requests.jsonl and its async span in
+             trace.json, serve.json's slo block present and quiet;
+             tokens/s and decode p50 of both, their ratio, the host us a
+             step tracing adds, row 5's launches; then one more traced
+             run with each hook timed, by admission, decode and
+             retirement steps;
+ 33. serve chaos  the `exact` workload in f32 through the paged engine
+             under a strict FaultInjector: the third admission's
+             reservation fails (`serve.pool`: shed, retried at the queue
+             head), 12 decode steps stall 0.1 s (`serve.step`) against an
+             ITL budget of 0.05 s, the second serve.json write fails
+             between its temporary write and its rename (`fleet.status`):
+             token-exact against `generate` (near ties reported), the
+             budget alerting, the first serve.json whole and the next
+             write healing it, `uninstall()` quiet; the injector's counts
+             and what fired;
+ 34. train telemetry  `train`'s model and shapes for 6 steps and 1 valid
+             step with `enable_telemetry(roofline=True)` and
+             `enable_profiling(stages=["train"])` in a fresh XP: a step
+             record a step tiled by data wait, host and device,
+             trace.json, heartbeats/, 0 recompiles, the roofline's MFU
+             over the aten FLOPs and the steps' wall against the H100
+             peak, in (0, 1], the profiler's trace, the split's device
+             backlog at most the card's busy time in that trace and the
+             busy time at most the steps' wall, `python -m
+             flashy_tpu_torch.info` (heartbeats) and
+             `--slo` exit 0; then the step p50 without and with
+             telemetry, in turns. The demo's `slo` leg runs in phase 9g.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -629,17 +670,20 @@ def top2_margin(torch, model, stream, params=None):
     return float(top[0] - top[1])
 
 
-def serve(torch, engine, prompts, max_new, draft=None):
+def serve(torch, engine, prompts, max_new, draft=None, tracing=None,
+          metrics=None):
     """Serve `prompts` (`max_new` new tokens each, or a list of them)
-    through the scheduler, with `draft` speculative, with every launch
-    count and step count set to 0 just before; the engine's compile cache
-    must make no new entry and no capture in the run (every step a replay
-    of a graph `warmup()` captured, or, with cuda_graphs=False, an eager
-    run of a warmed key). Returns (scheduler, requests, the launch counts
-    of this run, seconds)."""
+    through the scheduler, with `draft` speculative, `tracing` (a
+    RequestTracer) and `metrics` (a ServeMetrics) when given, with every
+    launch count and step count set to 0 just before; the engine's
+    compile cache must make no new entry and no capture in the run (every
+    step a replay of a graph `warmup()` captured, or, with
+    cuda_graphs=False, an eager run of a warmed key). Returns (scheduler,
+    requests, the launch counts of this run, seconds)."""
     from flashy_tpu_torch.ops import paged_decode, ssd_scan
     from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
-    scheduler = ContinuousBatchingScheduler(engine, draft=draft)
+    scheduler = ContinuousBatchingScheduler(engine, draft=draft,
+                                            tracing=tracing, metrics=metrics)
     news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
     requests = [scheduler.submit(p, n) for p, n in zip(prompts, news)]
     engine.step_counts = dict.fromkeys(engine.step_counts, 0)
@@ -2634,14 +2678,15 @@ def phase_spec_serve(torch, device, card, requests_n=16, prompt_len=128,
 
 
 def phase_serve_demo(card):
-    """`python -m flashy_tpu_torch.serve`'s five ported legs on the card,
-    as a user runs it (`main` with `--kernel fused`: f32 tiny models, the
-    paged leg through the Hopper kernel) and with the demo's default
-    gates, in this process: its engines capture their graphs after the
-    phases above dropped theirs. Every gate passes."""
+    """`python -m flashy_tpu_torch.serve`'s six legs on the card, as a
+    user runs it (`main` with `--kernel fused`: f32 tiny models, the
+    paged leg through the Hopper kernel, the slo leg untraced then traced
+    at sampling 1.0) and with the demo's default gates, in this process:
+    its engines capture their graphs after the phases above dropped
+    theirs. Every gate passes."""
     import logging
     from flashy_tpu_torch.serve.__main__ import logger, main as serve_main
-    legs = "batching,speculative,chunked,paged,ssd"
+    legs = "batching,speculative,chunked,paged,ssd,slo"
     records = []
     handler = logging.Handler(logging.INFO)
     handler.emit = lambda record: records.append(record)
@@ -2658,7 +2703,7 @@ def phase_serve_demo(card):
         fail(f"serve demo: python -m flashy_tpu_torch.serve --legs {legs} "
              f"--kernel fused returned {rc}: " + " | ".join(errors))
     gates = [line for line in lines if "verified:" in line
-             or "acceptance" in line]
+             or "acceptance" in line or "itl p50" in line]
     print(f"serve demo: python -m flashy_tpu_torch.serve --legs {legs} "
           f"--kernel fused on cuda: exit 0 in "
           f"{time.perf_counter() - t0:.1f}s; " + " | ".join(
@@ -5193,6 +5238,561 @@ def phase_int8w_serve(torch, device, card, requests_n=16, prompt_len=128,
     return launched
 
 
+# ----------------------------------------------------------------------
+# observability and chaos: request tracing, the SLO engine, the chaos
+# fault points, the serve status file, training telemetry
+# ----------------------------------------------------------------------
+def read_jsonl(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def phase_serve_traced(torch, device, card, requests_n=16, prompt_len=128,
+                       max_new=128, turns=2):
+    """`serve bf16`'s traffic through two paged engines' captured graphs
+    on one model, in turns: one untraced, one with a Tracer, a
+    RequestTracer at sampling 1.0, an SLOEngine and ServeMetrics(tracer=,
+    slo=). The streams must be identical, neither engine may build or
+    capture in traffic, every request's queued, prefill and decode phases
+    must be in requests.jsonl and its async spans in trace.json, and
+    serve.json's slo block must not alert. The traced engine has one
+    Tracer for the phase, exported after each turn. Then one more traced
+    run with every hook timed (`time_hooks`). Returns the traced runs' row
+    5 launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.observability import SLOEngine, Tracer
+    from flashy_tpu_torch.serve import RequestTracer, ServeMetrics
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    from flashy_tpu_torch.utils import percentile
+    cfg = model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    kw = dict(slots=8, block_size=16, max_seq_len=256, cache_layout="paged",
+              device=device)
+    plain = DecodeEngine(model, cache_scope="plain", **kw)
+    tracer = Tracer()
+    traced = DecodeEngine(model, cache_scope="traced", tracer=tracer, **kw)
+    for engine in (plain, traced):
+        engine.warmup()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+               for _ in range(requests_n)]
+    runs = {"untraced": [], "traced": []}
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn in range(turns):
+            for what in ("untraced", "traced"):
+                if what == "untraced":
+                    scheduler, requests, counts, seconds = serve(
+                        torch, plain, prompts, max_new)
+                    steps = sum(plain.step_counts.values())
+                else:
+                    folder = Path(tmp) / f"turn{turn}"
+                    tracing = RequestTracer(
+                        tracer=tracer, sample_rate=1.0,
+                        journal_path=folder / "requests.jsonl")
+                    metrics = ServeMetrics(tracer=tracer,
+                                           slo=SLOEngine(tracer=tracer))
+                    scheduler, requests, counts, seconds = serve(
+                        torch, traced, prompts, max_new, tracing=tracing,
+                        metrics=metrics)
+                    steps = sum(traced.step_counts.values())
+                    metrics.write_status(folder)
+                    tracing.close()
+                    tracer.export_chrome_trace(folder / "trace.json")
+                    launches.append(counts["paged_decode"])
+                    # the phase's tracer holds every turn so far
+                    check_traced_run(folder, requests, f"serve traced turn "
+                                     f"{turn}", spans_each=turn + 1)
+                if counts["paged_decode"] < 1:
+                    fail(f"serve traced: the {what} run launched no paged "
+                         f"kernel: {nonzero(counts)}")
+                runs[what].append((requests, scheduler.metrics.summary(),
+                                   seconds, steps))
+        hooks, timed_requests = time_hooks(
+            torch, traced, prompts, max_new, RequestTracer(
+                tracer=tracer, sample_rate=1.0,
+                journal_path=Path(tmp) / "timed" / "requests.jsonl"),
+            ServeMetrics(tracer=tracer, slo=SLOEngine(tracer=tracer)))
+    for (got, *_), (want, *_) in zip(
+            runs["traced"] + [(timed_requests,)],
+            runs["untraced"] + runs["untraced"][-1:]):
+        for a, b in zip(got, want):
+            if not np.array_equal(a.output, b.output):
+                fail(f"serve traced: request {a.uid}'s stream differs "
+                     f"between the traced and the untraced engine")
+    for engine in (plain, traced):
+        stats = engine.compile_cache.stats()
+        if stats["recompiles"] or stats["misses"] != len(
+                engine.compile_cache):
+            fail(f"serve traced: compile cache {stats}")
+    if len(set(launches)) != 1:
+        fail(f"serve traced: row 5 launches differ between turns "
+             f"{launches}")
+
+    def medians(what):
+        summaries = [summary for _, summary, _, _ in runs[what]]
+        return (percentile([s["tokens_per_sec"] for s in summaries], 50),
+                percentile([s["itl_ms_p50"] for s in summaries], 50))
+
+    (tok_u, p50_u), (tok_t, p50_t) = medians("untraced"), medians("traced")
+    # the host time tracing adds to a step: the runs' wall seconds apart,
+    # over the steps of a run, turn by turn
+    extra_us = percentile([
+        (t[2] - u[2]) / t[3] * 1e6
+        for t, u in zip(runs["traced"], runs["untraced"])], 50)
+    print(f"serve traced: 235M bf16 paged, {requests_n} requests x "
+          f"{max_new} new, {turns} turns: streams identical, no capture "
+          f"after warm-up; untraced tokens/s={tok_u:.1f} decode p50="
+          f"{p50_u:.3f} ms; traced (sampling 1.0, SLO engine) tokens/s="
+          f"{tok_t:.1f} decode p50={p50_t:.3f} ms; ratio traced/untraced "
+          f"p50 {p50_t / p50_u:.4f}, tokens/s {tok_t / tok_u:.4f}; host us "
+          f"a step added by tracing {extra_us:.1f} (median over turns of "
+          f"(traced s - untraced s) / steps); row 5 launches per run "
+          f"{launches[0]}; the spans time each step to completion (they "
+          f"hold the read of its tokens) [{card}]", flush=True)
+    print(f"serve traced hooks: host us a step in each hook of one more "
+          f"traced run (top-level calls; metrics.* include their SLO and "
+          f"counter calls; each timed call adds ~0.3 us of timing): "
+          f"{json.dumps(hooks)}", flush=True)
+    return launches[0]
+
+
+def check_roofline_graphs(torch, device, card, m=256, n=512, k=128):
+    """A CompileCache with an enabled RooflineProfiler on the card: a
+    one-matmul step's FLOPs counted on the eager run before its capture
+    (2 M N K), the graph captured, each replay timed to completion and
+    equal to the product."""
+    from flashy_tpu_torch.observability import RooflineProfiler
+    from flashy_tpu_torch.serve.compile_cache import CompileCache
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(m, k, device=device, generator=gen)
+    b = torch.randn(k, n, device=device, generator=gen)
+    roofline = RooflineProfiler(peak_flops=989e12)
+    cache = CompileCache(roofline=roofline, device=device)
+    cache.warm(("mm",), lambda: torch.mm, a, b)
+    step = cache.get(("mm",), lambda: None)
+    outs = [step(a, b).clone() for _ in range(3)]
+    profile = roofline.profiles.get("mm")
+    captured = getattr(step, "captured", False)
+    if captured != (device.type == "cuda") or profile is None \
+            or profile.flops != 2 * m * n * k or profile.calls != 3 \
+            or not all(w > 0 for w in profile.wall) \
+            or cache.stats()["recompiles"]:
+        fail(f"roofline graphs: captured {captured}, profile "
+             f"{vars(profile) if profile else None}, {cache.stats()}")
+    want = a @ b
+    if not all(torch.allclose(o, want, rtol=1e-5, atol=1e-4) for o in outs):
+        fail("roofline graphs: a timed replay differs from the product")
+    print(f"roofline graphs: a [{m}, {k}] x [{k}, {n}] f32 step through a "
+          f"CompileCache with a roofline: FLOPs {profile.flops:.0f} == "
+          f"2MNK counted before the capture, 3 replays timed, p50 "
+          f"{roofline.summarize('mm')['wall_ms_p50']:.4f} ms [{card}]",
+          flush=True)
+
+
+def time_hooks(torch, engine, prompts, max_new, tracing, metrics):
+    """One traced run of `prompts` with each of `tracing`'s and
+    `metrics`' `on_*` hooks, the SLO engine's `observe` and the engine
+    tracer's calls (a span's enter and exit, not its body) timed on the
+    host, top-level calls only. Each scheduler step is classed as an
+    admission step (an admission or a prefill chunk in it), a retirement
+    step (a request finished) or a decode step. Returns ({class: {"steps":
+    n, "all hooks": us a step, hook: us a step, ...}}, the requests)."""
+    from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    step_hooks = {}
+    depth = [0]
+
+    def charge(name, seconds):
+        step_hooks[name] = step_hooks.get(name, 0.0) + seconds
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            depth[0] += 1
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0 or name == "slo.observe":
+                    charge(name, time.perf_counter() - start)
+        return wrapped
+
+    class TimedSpan:
+        def __init__(self, cm):
+            self.cm = cm
+
+        def __enter__(self):
+            return self.timed(self.cm.__enter__)
+
+        def __exit__(self, *exc):
+            return self.timed(self.cm.__exit__, *exc)
+
+        @staticmethod
+        def timed(fn, *args):
+            depth[0] += 1
+            start = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
+                charge("engine span", time.perf_counter() - start)
+
+    for obj, prefix in ((tracing, "tracing"), (metrics, "metrics")):
+        for name in dir(obj):
+            if name.startswith("on_") and callable(getattr(obj, name)):
+                setattr(obj, name, timed(f"{prefix}.{name}",
+                                         getattr(obj, name)))
+    metrics.slo.observe = timed("slo.observe", metrics.slo.observe)
+    tracer = engine.tracer
+    span = tracer.span
+    tracer.span = lambda *a, **k: TimedSpan(span(*a, **k))
+    for name in ("instant", "counter", "complete", "record"):
+        setattr(tracer, name, timed(f"tracer.{name}", getattr(tracer, name)))
+    classes = {}
+    scheduler = ContinuousBatchingScheduler(engine, tracing=tracing,
+                                            metrics=metrics)
+    step = scheduler.step
+
+    def classed_step():
+        step_hooks.clear()
+        out = step()
+        if "tracing.on_admit" in step_hooks \
+                or "tracing.on_prefill_chunk" in step_hooks:
+            kind = "admission"
+        elif "tracing.on_finish" in step_hooks:
+            kind = "retirement"
+        else:
+            kind = "decode"
+        entry = classes.setdefault(kind, {"steps": 0})
+        entry["steps"] += 1
+        for name, seconds in step_hooks.items():
+            entry[name] = entry.get(name, 0.0) + seconds
+        return out
+
+    scheduler.step = classed_step
+    requests = [scheduler.submit(p, max_new) for p in prompts]
+    try:
+        scheduler.run()
+    finally:
+        for name in ("span", "instant", "counter", "complete", "record"):
+            delattr(tracer, name)
+        tracing.close()
+    out = {}
+    for kind, entry in classes.items():
+        n = entry.pop("steps")
+        own = {k: v for k, v in entry.items() if k != "slo.observe"}
+        row = {"steps": n, "all hooks": round(sum(own.values()) / n * 1e6,
+                                              2)}
+        for name, seconds in sorted(entry.items(), key=lambda kv: -kv[1]):
+            row[name] = round(seconds / n * 1e6, 2)
+        out[kind] = row
+    return out, requests
+
+
+def check_traced_run(folder, requests, label, spans_each=1):
+    """requests.jsonl names every request's queued, prefill and decode
+    phases, trace.json loads and opens and closes each request's async
+    span `spans_each` times (a tracer kept over that many runs of the
+    same uids), serve.json carries an slo block that does not alert."""
+    from flashy_tpu_torch.observability import format_slo_report
+    finished = {r["uid"]: r for r in read_jsonl(folder / "requests.jsonl")
+                if r["event"] == "finished"}
+    for request in requests:
+        record = finished.get(request.uid)
+        if record is None or not {"queue_wait_s", "prefill_s",
+                                  "decode_s"} <= set(record):
+            fail(f"{label}: request {request.uid} has no phases in "
+                 f"requests.jsonl: {record}")
+        if record["tokens"] != len(request.generated):
+            fail(f"{label}: request {request.uid} journal tokens "
+                 f"{record['tokens']} != {len(request.generated)}")
+    events = json.loads((folder / "trace.json").read_text())["traceEvents"]
+    spans = {}
+    for event in events:
+        if event.get("ph") in ("b", "e"):
+            key = (event["name"], event["id"], event["ph"])
+            spans[key] = spans.get(key, 0) + 1
+    for request in requests:
+        for ph in ("b", "e"):
+            if spans.get(("serve/request", f"0x{request.uid:x}",
+                          ph)) != spans_each:
+                fail(f"{label}: request {request.uid}'s async span is not "
+                     f"opened and closed {spans_each} time(s) in "
+                     f"trace.json")
+    status = json.loads((folder / "serve.json").read_text())
+    report = status.get("slo")
+    if not report or not report.get("budgets") or report["alerting"]:
+        fail(f"{label}: serve.json slo block missing or alerting:\n"
+             + (format_slo_report(report) if report else "none"))
+
+
+def phase_serve_chaos(torch, device, card):
+    """The `exact` workload in f32 through the paged engine under a strict
+    FaultInjector: the third admission's block reservation fails
+    (`serve.pool`: shed, retried), 12 decode steps stall 0.1 s each
+    (`serve.step`) against an ITL budget of 0.05 s, and the second
+    serve.json write fails between its temporary write and its rename
+    (`fleet.status`). Every stream token-exact against `generate` (near
+    ties reported), the ITL budget alerting, the first serve.json whole
+    after the failed write and healed by the next, `uninstall()` quiet.
+    Returns the run's row 5 launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.observability import SLOBudget, SLOEngine
+    from flashy_tpu_torch.resilience import InjectedFault, chaos
+    from flashy_tpu_torch.serve import POOL_FAULT_SITE, ServeMetrics
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    cfg = model_config(torch, torch.float32, 512)
+    model = TransformerLM(cfg, device=device, seed=0)
+    engine = DecodeEngine(model, slots=8, block_size=16, max_seq_len=512,
+                          cache_layout="paged", device=device)
+    engine.warmup()
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    max_new = 32
+    delay, budget = 0.1, 0.05
+    slo = SLOEngine(budgets=(SLOBudget("itl", threshold=budget),),
+                    min_samples=8)
+    metrics = ServeMetrics(slo=slo)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        metrics.write_status(folder)
+        first = (folder / "serve.json").read_text()
+        injector = chaos.install(strict=True)
+        try:
+            injector.fail_at(POOL_FAULT_SITE, 3)
+            injector.delay_at("serve.step", 5, seconds=delay, times=12)
+            injector.fail_at("fleet.status", 1)
+            scheduler, requests, counts, seconds = serve(
+                torch, engine, prompts, max_new, metrics=metrics)
+            try:
+                metrics.write_status(folder)
+                fail("serve chaos: the injected serve.json failure did not "
+                     "raise")
+            except InjectedFault:
+                pass
+            torn = (folder / "serve.json").read_text()
+            metrics.write_status(folder)
+        except BaseException:
+            chaos.uninstall(verify=False)
+            raise
+        chaos.uninstall()          # strict: raises if a rule never fired
+        healed = json.loads((folder / "serve.json").read_text())
+    if torn != first:
+        fail("serve chaos: the failed write changed serve.json")
+    if healed.get("requests") != len(prompts) or "slo" not in healed:
+        fail(f"serve chaos: the next write did not heal serve.json: "
+             f"{healed.get('requests')} requests")
+    hits = {(f["site"], f["kind"]) for f in injector.fired}
+    if injector.hits(POOL_FAULT_SITE, "fail") != 1 \
+            or injector.hits("serve.step", "delay") != 12 \
+            or injector.hits("fleet.status", "fail") != 1:
+        fail(f"serve chaos: faults fired {injector.fired}")
+    if scheduler.admitted_order != [r.uid for r in requests]:
+        fail(f"serve chaos: the shed admission did not retry at the queue "
+             f"head: {scheduler.admitted_order}")
+    ties = check_streams(torch, model, prompts, requests, max_new, device,
+                         "serve chaos")
+    report = slo.evaluate()
+    if slo.alerts() != ["itl"]:
+        fail(f"serve chaos: the ITL budget of {budget} s did not alert "
+             f"under {delay} s stalls: {report}")
+    reads = cfg.num_layers * (engine.step_counts["decode"]
+                              + engine.step_counts["prefill_chunk"])
+    if nonzero(counts) != {"paged_decode": reads}:
+        fail(f"serve chaos: launches {nonzero(counts)}, {reads} reads")
+    engine.pool.check()
+    itl = report["budgets"]["itl"]
+    print(f"serve chaos: 235M f32 paged, {len(requests)} requests x "
+          f"{max_new} new under a strict FaultInjector: token-exact vs "
+          f"generate (near ties {ties}); fired {sorted(hits)}; counts "
+          f"{injector.counts}; admission 3 shed and retried at the head; "
+          f"ITL budget p95 <= {budget * 1e3:.0f} ms alerting (p95 "
+          f"{itl['value'] * 1e3:.1f} ms, burn fast {itl['burn_fast']:.2f} "
+          f"slow {itl['burn_slow']:.2f}, {itl['samples']} samples) under "
+          f"12 stalls of {delay * 1e3:.0f} ms; serve.json whole after the "
+          f"failed write, healed by the next; uninstall() quiet; row 5 "
+          f"launches {counts['paged_decode']}, {seconds:.2f}s [{card}]",
+          flush=True)
+    return counts["paged_decode"]
+
+
+TELEMETRY_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=6", "valid_steps=1",
+                                    "epochs=1"]
+
+
+def telemetry_run(torch, device, folder, telemetry, profile=False):
+    """The LM solver's train and valid stages at `train`'s shapes (6
+    steps, 1 valid; no commit, so no checkpoint is written) in a fresh XP
+    under `folder`, with telemetry (roofline on) and, with `profile`,
+    torch.profiler on the train stage. Returns (solver, the train stage's
+    metrics, the flash launches, the step p50 ms over steps 3..6)."""
+    from flashy_tpu_torch import observability
+    from flashy_tpu_torch.examples.lm.solver import LMSolver
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    xp = lm_main.get_xp(TELEMETRY_ARGS + [f"dora.dir={folder}"])
+    attention.reset_launch_counts()
+    with xp.enter():
+        solver = LMSolver(xp.cfg, device=device)
+        if telemetry:
+            solver.enable_telemetry(roofline=True)
+        if profile:
+            solver.enable_profiling(stages=["train"])
+        try:
+            train = solver.run_stage("train", solver.train)
+            solver.run_stage("valid", solver.valid)
+        finally:
+            observability.disable_telemetry()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (solver, train, nonzero(attention.launch_counts),
+            percentile(solver.step_seconds[2:], 50) * 1e3)
+
+
+def device_busy_seconds(events):
+    """Seconds in which the card ran a kernel, a copy or a memset in a
+    torch.profiler Chrome trace: the union of those events' intervals."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e.get("ph") == "X")
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy * 1e-6
+
+
+def phase_train_telemetry(torch, device, card, root, turns=2):
+    """`train`'s model and shapes (bf16 b16 t1024, flash) for 6 steps and
+    1 valid step with `enable_telemetry(roofline=True)` and
+    `enable_profiling(stages=["train"])` in a fresh XP: one step record a
+    step whose data wait, host and device tile it, trace.json and
+    heartbeats/, 0 recompiles, the roofline's MFU in the stage metrics
+    against the H100 peak in (0, 1], the profiler's trace, the split's
+    device backlog at most the card's busy time there (the busy time at
+    most the steps' wall), and `python -m
+    flashy_tpu_torch.info <root>` (the heartbeat view) and `--slo` exit
+    0. Then the same run without and with telemetry (no profiler), in
+    turns: the step p50s. Returns the first run's flash launches."""
+    from flashy_tpu_torch.observability import device_peaks
+    from flashy_tpu_torch.utils import percentile
+    root = Path(root)
+    solver, train, launches, _ = telemetry_run(
+        torch, device, root / "first", True, profile=True)
+    folder = solver.folder
+    cfg = solver.cfg
+    layers = cfg.model.num_layers
+    want = {"flash_fwd": layers * (cfg.steps_per_epoch + cfg.valid_steps),
+            "flash_bwd_fused": layers * cfg.steps_per_epoch}
+    if launches != want:
+        fail(f"train telemetry: launches {launches}, expected {want}")
+    records = read_jsonl(folder / "telemetry.jsonl")
+    steps = [r for r in records if r["type"] == "step"]
+    by_stage = {stage: [r["step"] for r in steps if r["stage"] == stage]
+                for stage in ("train", "valid")}
+    if by_stage != {"train": list(range(cfg.steps_per_epoch)),
+                    "valid": list(range(cfg.valid_steps))}:
+        fail(f"train telemetry: step records {by_stage}")
+    worst = max(abs(r["data_wait"] + r["host"] + r["device"] - r["total"])
+                for r in steps)
+    if worst > 1e-9:
+        fail(f"train telemetry: a step's split does not tile it ({worst})")
+    if not (folder / "trace.json").is_file() \
+            or not (folder / "heartbeats" / "rank0.json").is_file():
+        fail("train telemetry: trace.json or heartbeats/ missing")
+    trace = json.loads((folder / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"] for e in trace if e.get("ph") == "X"}
+    if not {"stage/train", "step/host", "step/device"} <= spans:
+        fail(f"train telemetry: trace.json spans {sorted(spans)}")
+    recompiles = [r for r in records if r["type"] == "recompile"]
+    if recompiles or "recompiles" in train:
+        fail(f"train telemetry: recompiles {recompiles}")
+    peak, _ = device_peaks()
+    roofline = next(r for r in records if r["type"] == "roofline")
+    if peak != 989e12 or roofline["peak_flops"] != peak \
+            or "roofline_mfu" not in train:
+        fail(f"train telemetry: no roofline summary against the H100 peak "
+             f"({peak}, {roofline['peak_flops']}, {sorted(train)})")
+    profiles = sorted((folder / "profiles").glob("*.json"))
+    if [p.name for p in profiles] != ["train-epoch1.json"]:
+        fail(f"train telemetry: profiler traces {profiles}")
+    profile = json.loads(profiles[0].read_text())["traceEvents"]
+    kernels = sum(1 for e in profile if e.get("cat") == "kernel")
+    # the split against the card's busy time in the profile: the port
+    # launches op by op, so the card works through the host phase and
+    # `device` is the backlog at each step's end (observability.
+    # steptimer); that backlog is at most the card's busy time, which is
+    # at most the steps' wall clock. The MFU is over that wall clock.
+    busy = device_busy_seconds(profile)
+    train_steps = [r for r in steps if r["stage"] == "train"]
+    wall = sum(r["total"] for r in train_steps)
+    backlog = sum(r["device"] for r in train_steps)
+    if not backlog <= busy + 1e-3 or not busy <= wall * 1.01:
+        fail(f"train telemetry: the split disagrees with the profile: "
+             f"backlog {backlog:.4f} s, busy {busy:.4f} s, wall {wall:.4f} s")
+    if not 0.0 < train["roofline_mfu"] <= 1.0:
+        fail(f"train telemetry: roofline MFU {train['roofline_mfu']} "
+             f"outside (0, 1]")
+    busy_mfu = (roofline["executables"]["lm/train_step"]["flops_per_call"]
+                * len(train_steps) / max(busy, 1e-9) / peak)
+    # the host's waits for the card in the profile: one per step in
+    # observe(), one per step in the batch's upload (a pageable copy)
+    syncs = [e["dur"] for e in profile if e.get("ph") == "X"
+             and e.get("name", "").endswith("Synchronize")]
+    for argv in ([str(root / "first")], [str(root / "first"), "--slo"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "flashy_tpu_torch.info", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0 or (len(argv) == 1
+                                   and "heartbeats: 1/1 ranks"
+                                   not in out.stdout):
+            fail(f"train telemetry: python -m flashy_tpu_torch.info "
+                 f"{' '.join(argv[1:])} exit {out.returncode}: "
+                 f"{out.stdout[-400:]} {out.stderr[-400:]}")
+    step_cost = roofline["executables"]["lm/train_step"]
+    del solver
+    release_memory(torch)
+    p50 = {"plain": [], "telemetry": []}
+    splits = []
+    for turn in range(turns):
+        for what in ("plain", "telemetry"):
+            run, stage, _, ms = telemetry_run(
+                torch, device, root / f"{what}{turn}", what == "telemetry")
+            p50[what].append(ms)
+            if what == "telemetry":
+                splits.append([round(stage[f"{key}_frac"], 4) for key in
+                               ("data_wait", "host", "device")])
+            del run
+            release_memory(torch)
+    plain = percentile(p50["plain"], 50)
+    traced = percentile(p50["telemetry"], 50)
+    print(f"train telemetry: 235M bf16 b16 t1024 flash, "
+          f"{cfg.steps_per_epoch} steps + {cfg.valid_steps} valid with "
+          f"telemetry, roofline and torch.profiler: one step record a step "
+          f"(data_wait + host + device == total), trace.json, heartbeats/, "
+          f"0 recompiles, info and info --slo exit 0; train stage "
+          f"step_p50={train['step_p50'] * 1e3:.2f} ms, "
+          f"data_wait/host/device frac {train['data_wait_frac']:.4f}/"
+          f"{train['host_frac']:.4f}/{train['device_frac']:.4f} (device: "
+          f"the backlog at each step's end), the card busy "
+          f"{busy / wall:.4f} of the steps in the profile, "
+          f"{len(syncs)} synchronize calls there taking "
+          f"{sum(syncs) / 1e3:.2f} ms, the split of the unprofiled "
+          f"telemetry turns {splits}; roofline: "
+          f"aten FLOPs a step {step_cost['flops_per_call']:.4e} (the flash "
+          f"kernels uncounted), {train['roofline_tflops_per_sec']:.1f} "
+          f"TFLOP/s over the steps' wall, MFU {train['roofline_mfu']:.4f} "
+          f"({busy_mfu:.4f} over the card's busy time) against "
+          f"{peak:.3e}; profiler trace {profiles[0].name} with "
+          f"{kernels} kernel events; launches {launches}; step p50 in "
+          f"turns (steps 3..6): plain {p50['plain']} ms, telemetry "
+          f"{p50['telemetry']} ms, ratio of the medians "
+          f"{traced / plain:.4f} [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -5371,6 +5971,21 @@ def main() -> None:
     lap("int8w exact")
     int8w_serve = phase_int8w_serve(torch, device, card)
     lap("int8w serve bf16")
+
+    # queue A item 3's L4-L6 and item 9's observability half: request
+    # tracing, the SLO engine, the chaos fault points, the serve status
+    # file, training telemetry
+    release_memory(torch)
+    check_roofline_graphs(torch, device, card)
+    traced_launches = phase_serve_traced(torch, device, card)
+    lap("serve traced")
+    chaos_launches = phase_serve_chaos(torch, device, card)
+    lap("serve chaos")
+    release_memory(torch)
+    with tempfile.TemporaryDirectory() as folder:
+        telemetry_launches = phase_train_telemetry(torch, device, card,
+                                                   folder)
+    lap("train telemetry")
     print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
@@ -5519,11 +6134,16 @@ def main() -> None:
     layouts = {
         "paged_decode": {"moe exact": moe_exact, "moe serve bf16": moe_serve,
                          "scan exact": scan_paged,
-                         "int8w exact": int8w_exact},
+                         "int8w exact": int8w_exact,
+                         "serve traced": traced_launches,
+                         "serve chaos": chaos_launches},
         "paged_decode_int8": {"int8w serve bf16": int8w_serve},
         "ssd_scan_fma": {"scan exact ssd": scan_ssd},
-        "flash_fwd": {"scan train": scan_train["flash_fwd"]},
-        "flash_bwd_fused": {"scan train": scan_train["flash_bwd_fused"]}}
+        "flash_fwd": {"scan train": scan_train["flash_fwd"],
+                      "train telemetry": telemetry_launches["flash_fwd"]},
+        "flash_bwd_fused": {"scan train": scan_train["flash_bwd_fused"],
+                            "train telemetry": telemetry_launches[
+                                "flash_bwd_fused"]}}
     for name in ("flash_fwd_general", "flash_bwd_fused_general", "gmm",
                  "gmm_t", "tgmm"):
         layouts[name] = {f"scan step {case}": counts[name]

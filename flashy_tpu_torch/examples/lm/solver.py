@@ -273,21 +273,29 @@ class LMSolver(BaseSolver):
             torch.cuda.synchronize(self.device)
 
     def train(self):
+        from ...observability import RooflineProfiler, get_telemetry
         cfg = self.cfg
         average = averager()
         progress = self.log_progress("train", range(cfg.steps_per_epoch),
                                      updates=5)
+        telemetry = get_telemetry()
+        # the roofline prices the step by the aten FLOPs of its first run;
+        # a disabled one just calls the step
+        roofline = telemetry.roofline if telemetry is not None \
+            else RooflineProfiler(enabled=False)
         metrics: tp.Dict[str, float] = {}
         begin = time.time()
         tokens_seen = 0
         for index in progress:
             global_step = (self.epoch - 1) * cfg.steps_per_epoch + index
             t0 = time.perf_counter()
-            step_metrics = train_step(
-                self.model, self.optimizer, self.schedule,
-                self.state["step"], self.batch_at(global_step),
-                lambda model, tokens: self.loss(tokens),
-                accumulate=int(cfg.get("accumulate", 1)))
+            args = (self.model, self.optimizer, self.schedule,
+                    self.state["step"], self.batch_at(global_step),
+                    lambda model, tokens: self.loss(tokens))
+            kwargs = {"accumulate": int(cfg.get("accumulate", 1))}
+            step_metrics = roofline.register_fn("lm/train_step", train_step,
+                                                args, kwargs)
+            roofline.note_call("lm/train_step")
             if "ema" in self.state:
                 # after the update, at the step count before it
                 params = dict(self.model.named_parameters())
@@ -295,7 +303,10 @@ class LMSolver(BaseSolver):
                            [params[name] for name in self.state["ema"]],
                            self.ema_decay, step=self.state["step"])
             self.state["step"] += 1
-            # reading the metrics to the host waits for the whole step
+            # the wait for the card, charged to the step's device time
+            # when telemetry times the steps (reading the metrics to the
+            # host below would wait anyway)
+            progress.observe(step_metrics["loss"])
             metrics = average(step_metrics)
             self.step_seconds.append(time.perf_counter() - t0)
             self.step_losses.append(float(step_metrics["loss"]))
@@ -318,6 +329,7 @@ class LMSolver(BaseSolver):
             for index in progress:
                 loss = self.loss(self.batch_at(index, eval_set=True),
                                  params=self.state.get("ema"))
+                progress.observe(loss)
                 metrics = average({"loss": loss})
                 progress.update(**metrics)
         metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))

@@ -6,25 +6,27 @@ metrics (the port of flashy_tpu/info.py).
     python -m flashy_tpu_torch.info ./outputs_torch --verify-checkpoint
     python -m flashy_tpu_torch.info --devices
 
+    python -m flashy_tpu_torch.info ./outputs_torch --slo
+
 `--verify-checkpoint` loads each XP's single-file `checkpoint.th` with
 `checkpoint.load_state` and reports it; `--devices` reads
-`torch.cuda.mem_get_info` for every CUDA device. The fault-site report
-(`--faults`), the SLO table (`--slo`), heartbeat telemetry and the
-fleet view come with the modules they read, which the port does not
-have yet: they raise NotImplementedError naming their ROADMAP entries.
+`torch.cuda.mem_get_info` for every CUDA device; `--slo` renders each
+XP's `serve.json` `slo` block as the budget and burn-rate table. An XP
+with a `heartbeats/` folder gets the straggler report on its line. The
+fault-site report (`--faults`) and the fleet view come with the modules
+they read, which the port does not have yet: they raise
+NotImplementedError naming their ROADMAP entries.
 """
 import argparse
 import json
 import typing as tp
 from pathlib import Path
 
-TODO_RESILIENCE = "ROADMAP.md queue A item 9 (resilience/)"
-TODO_OBSERVABILITY = "ROADMAP.md queue A item 9 (observability/)"
+TODO_RESILIENCE = ("ROADMAP.md queue A item 9, resilience half (the "
+                   "chaos campaign and its fault-site registry)")
 TODO_FLEET = "ROADMAP.md queue A item 10 (serve/fleet/)"
 
 CHECKPOINT_META_NAME = "checkpoint_meta.json"
-HEARTBEAT_DIR_NAME = "heartbeats"
-SERVE_STATUS_NAME = "serve.json"
 FLEET_STATUS_NAME = "fleet.json"
 
 
@@ -36,17 +38,15 @@ def _read_json(path: Path) -> tp.Any:
 def collect(root: Path) -> tp.Iterator[tp.Dict[str, tp.Any]]:
     """Yield {sig, cfg, argv, history, telemetry, serve, fleet,
     checkpoint} per XP under `root`."""
-    from .xp import CONFIG_SNAPSHOT_NAME, RUN_INFO_NAME, Link
+    from .observability import straggler_report
+    from .xp import (CONFIG_SNAPSHOT_NAME, HEARTBEAT_DIR_NAME,
+                     RUN_INFO_NAME, SERVE_STATUS_NAME, Link)
     xps_dir = Path(root) / "xps"
     if not xps_dir.is_dir():
         return
     for folder in sorted(xps_dir.iterdir()):
         if not folder.is_dir():
             continue
-        if (folder / HEARTBEAT_DIR_NAME).is_dir():
-            raise NotImplementedError(
-                f"{folder / HEARTBEAT_DIR_NAME}: heartbeat telemetry is not "
-                f"ported yet: {TODO_OBSERVABILITY}")
         entry: tp.Dict[str, tp.Any] = {
             "sig": folder.name, "cfg": {}, "argv": [], "history": [],
             "telemetry": {}, "serve": {}, "fleet": {}, "checkpoint": {}}
@@ -59,6 +59,9 @@ def collect(root: Path) -> tp.Iterator[tp.Dict[str, tp.Any]]:
         if (folder / RUN_INFO_NAME).exists():
             entry["argv"] = _read_json(folder / RUN_INFO_NAME).get("argv", [])
         entry["history"] = Link(folder).load()
+        if (folder / HEARTBEAT_DIR_NAME).is_dir():
+            entry["telemetry"] = straggler_report(folder
+                                                  / HEARTBEAT_DIR_NAME)
         yield entry
 
 
@@ -81,6 +84,10 @@ def format_entry(entry: tp.Mapping[str, tp.Any],
                 parts.append(f"{stage}: {shown}")
         if parts:
             line += "  " + " | ".join(parts)
+    if entry.get("telemetry", {}).get("ranks"):
+        from .observability import format_straggler_report
+        line += "\n  heartbeats: " + format_straggler_report(
+            entry["telemetry"])
     if entry.get("serve"):
         line += "\n  serve: " + format_serve_status(entry["serve"])
     if entry.get("fleet"):
@@ -285,7 +292,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     parser.add_argument("-d", "--devices", action="store_true",
                         help="also print each CUDA device's memory in use")
     parser.add_argument("--slo", action="store_true",
-                        help="render each XP's SLO table (not ported yet)")
+                        help="render each XP's SLO budget and burn table "
+                             "from the `slo` block of its serve.json")
     parser.add_argument("--verify-checkpoint", action="store_true",
                         help="load every XP's checkpoint.th; exit 1 when one "
                              "does not load (or when no experiments exist "
@@ -299,9 +307,6 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
 
     if args.faults:
         return fault_site_report(strict=args.strict)
-    if args.slo:
-        raise NotImplementedError(
-            f"--slo is not ported yet: {TODO_OBSERVABILITY}")
     if args.verify_checkpoint:
         return verify_checkpoints(Path(args.root))
     if args.devices:
@@ -311,6 +316,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     for entry in collect(Path(args.root)):
         found = True
         print(format_entry(entry, verbose=args.verbose))
+        if args.slo:
+            slo = (entry.get("serve") or {}).get("slo")
+            if slo:
+                from .observability import format_slo_report
+                table = format_slo_report(slo)
+                print("  slo:\n    " + table.replace("\n", "\n    "))
+            else:
+                print("  slo: no report in serve.json")
     if not found:
         print(f"no experiments under {args.root}/xps")
         return 1

@@ -113,6 +113,12 @@ class LogProgressBar:
     line with the latest metrics (set via `update(**metrics)`) and a
     speed readout (it/sec, sec/it or ms/it). Logging is delayed one
     iteration so `update()`'s metrics are populated.
+
+    `step_timer`, an `observability.StepTimer`, is driven from the
+    iteration boundary: the time spent waiting on `next()` is the step's
+    data wait, the rest of the loop body host time, minus the wait in
+    `observe()`, which is device time. `BaseSolver.log_progress` attaches
+    one when telemetry is enabled.
     """
 
     def __init__(self, logger: logging.Logger, iterable: Iterable,
@@ -120,7 +126,8 @@ class LogProgressBar:
                  time_per_it: bool = False, total: tp.Optional[int] = None,
                  name: str = "LogProgressBar", level: int = logging.INFO,
                  delimiter: str = "|", items_delimiter: str = " ",
-                 formatter: tp.Optional[Formatter] = None):
+                 formatter: tp.Optional[Formatter] = None,
+                 step_timer: tp.Optional[tp.Any] = None):
         self._iterable = iterable
         if total is None:
             if not isinstance(iterable, Sized):
@@ -136,6 +143,7 @@ class LogProgressBar:
         self._delimiter = delimiter
         self._items_delimiter = items_delimiter
         self._formatter = formatter or Formatter()
+        self._step_timer = step_timer
         self._metrics: tp.Dict[str, str] = {}
         self._will_log = False
 
@@ -144,6 +152,14 @@ class LogProgressBar:
         will be emitted at the end of this iteration."""
         self._metrics = self._formatter(metrics)
         return self._will_log
+
+    def observe(self, *outputs: tp.Any) -> None:
+        """Wait for the card to finish the step's outputs through the
+        attached StepTimer (`torch.cuda.synchronize` on their devices),
+        the wait charged to the step's device time. No-op without a timer
+        or on CPU tensors, which have nothing to wait for."""
+        if self._step_timer is not None:
+            self._step_timer.observe(*outputs)
 
     def __iter__(self):
         self._iterator = iter(self._iterable)
@@ -157,7 +173,18 @@ class LogProgressBar:
         if self._will_log:
             self._emit()
             self._will_log = False
-        value = next(self._iterator)
+        if self._step_timer is not None:
+            # the step boundary: close the previous step, then time the
+            # wait on next()
+            self._step_timer.begin_data()
+            try:
+                value = next(self._iterator)
+            except StopIteration:
+                self._step_timer.finish()
+                raise
+            self._step_timer.end_data()
+        else:
+            value = next(self._iterator)
         self._index += 1
         if self._updates > 0:
             cadence = max(self._min_interval, self._total // self._updates)

@@ -1,7 +1,8 @@
 """Continuous-batching serving of the PyTorch port (see the matching
 flashy_tpu.serve): a slot engine over a dense, paged or SSD cache with
 captured CUDA-graph steps, speculative decoding with n-gram or model
-drafts, and the scheduler that feeds it.
+drafts, and the scheduler that feeds it, with request tracing, the
+`serve.json` status file and the chaos fault points.
 
 `python -m flashy_tpu_torch.serve` runs the serving demo's legs."""
 
@@ -10,12 +11,15 @@ from .compile_cache import CompileCache, bucket_length  # noqa
 from .draft import DraftProvider, ModelDraft, NGramDraft  # noqa
 from .engine import DecodeEngine, SlotAllocator  # noqa
 from .metrics import ServeMetrics  # noqa
-from .paged import BlockPool, PoolExhausted, PrefixIndex  # noqa
+from .paged import (BlockPool, POOL_FAULT_SITE, PoolExhausted,  # noqa
+                    PrefixIndex)
 from .scheduler import ContinuousBatchingScheduler, QueueFull, Request  # noqa
+from .tracing import RequestTracer  # noqa
 
 __all__ = [
     "DecodeEngine", "SlotAllocator", "ContinuousBatchingScheduler",
     "Request", "QueueFull", "CompileCache", "bucket_length", "ServeMetrics",
     "DraftProvider", "NGramDraft", "ModelDraft",
-    "BlockPool", "PoolExhausted", "PrefixIndex", "percentile",
+    "BlockPool", "PoolExhausted", "PrefixIndex", "POOL_FAULT_SITE",
+    "RequestTracer", "percentile",
 ]

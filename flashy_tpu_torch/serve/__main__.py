@@ -21,11 +21,16 @@ randomly initialized TransformerLM in f32:
   * ssd          a pure-SSD stack on `cache_layout='ssd'`: the chunked
                  and recurrent scans agree, sessions stream token-exact
                  past the engine's ceiling, and the state bytes a slot
-                 stay constant across max_seq_len while paged-int8 grows.
+                 stay constant across max_seq_len while paged-int8 grows;
+  * slo          the batching workload untraced, then traced at sampling
+                 1.0 with an SLOEngine: no alert on the healthy run and
+                 the `slo` block in serve.json, every request attributable
+                 from requests.jsonl and the trace's async spans, nothing
+                 built after the warm-ups, traced ITL p50 within 2x the
+                 untraced + 2 ms.
 
 Every leg runs on `--device` (cuda by default; `--device cpu` only when
-asked for) and exits 1 on a failed gate. The reference's `slo` leg
-needs the observability stack, which is not ported: it raises.
+asked for) and exits 1 on a failed gate.
 """
 import argparse
 import logging
@@ -35,9 +40,6 @@ import typing as tp
 logger = logging.getLogger("flashy_tpu_torch.serve.demo")
 
 LEGS = ("batching", "speculative", "chunked", "paged", "ssd", "slo")
-PORTED_LEGS = LEGS[:-1]
-TODO_SLO = ("ROADMAP.md queue A item 9 (observability) and item 3, L5 "
-            "(request tracing)")
 
 
 def _config(vocab: int, **kw):
@@ -608,9 +610,154 @@ def run_ssd_demo(requests: int = 6, slots: int = 4, chunk: int = 8,
     return 1 if failures else 0
 
 
-def run_slo_demo(**kw) -> int:
-    raise NotImplementedError(f"the slo leg serves through the request "
-                              f"tracer and the SLO engine: {TODO_SLO}")
+def run_slo_demo(requests: int = 24, slots: int = 8, stagger: int = 3,
+                 overhead_factor: float = 2.0, seed: int = 0,
+                 device: tp.Any = None,
+                 log: tp.Optional[logging.Logger] = None) -> int:
+    """SLO and request-tracing gate: the batching workload served twice,
+    untraced (the baseline), then traced at sampling 1.0 with an
+    SLOEngine attached; 1 unless the healthy run raises no burn-rate
+    alert and its `serve.json` carries the `slo` block, every finished
+    request is attributable from `requests.jsonl` (named phases) and
+    from the Chrome trace's async spans, neither run builds or captures
+    after its warm-up, and traced ITL p50 stays within `overhead_factor`
+    x the untraced one + 2 ms (observability that slows the service down
+    is a regression)."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from ..observability import SLOEngine, Tracer, format_slo_report
+    from ..xp import REQUESTS_NAME, SERVE_STATUS_NAME, TRACE_NAME
+    from .engine import DecodeEngine
+    from .metrics import ServeMetrics
+    from .scheduler import ContinuousBatchingScheduler
+    from .tracing import (RequestTracer, SPAN_DECODE, SPAN_PREFILL,
+                          SPAN_QUEUED, SPAN_REQUEST)
+
+    log = log or logger
+    vocab = 64
+    model = _build_model(vocab, seed, device)
+    workload = _request_mix(requests, vocab, seed + 1)
+
+    def serve_pass(tracer, tracing, slo):
+        engine = DecodeEngine(model, slots=slots, tracer=tracer,
+                              cache_scope="traced" if tracer else "plain",
+                              device=device)
+        engine.warmup(prompt_lengths=[len(p) for p, _ in workload])
+        warm_misses = engine.compile_cache.stats()["misses"]
+        metrics = ServeMetrics(tracer=tracer, slo=slo)
+        scheduler = ContinuousBatchingScheduler(engine, metrics=metrics,
+                                                tracing=tracing)
+        handles = []
+        pending = list(workload)
+        while pending or not scheduler.idle:
+            room = scheduler.max_queue - scheduler.queue_depth
+            for _ in range(min(stagger, len(pending), room)):
+                prompt, max_new = pending.pop(0)
+                handles.append(scheduler.submit(prompt, max_new))
+            scheduler.step()
+        stats = engine.compile_cache.stats()
+        return (handles, scheduler,
+                stats["recompiles"], stats["misses"] - warm_misses)
+
+    failures = 0
+    log.info("slo leg: baseline pass (tracing off)...")
+    base_handles, base_sched, base_rec, base_builds = serve_pass(
+        None, None, None)
+    base_itl = base_sched.metrics.summary()["itl_ms_p50"]
+
+    log.info("slo leg: traced pass (sampling=1.0, SLO engine attached)...")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        tracer = Tracer(trace_path=folder / TRACE_NAME)
+        tracing = RequestTracer(tracer=tracer,
+                                journal_path=folder / REQUESTS_NAME,
+                                sample_rate=1.0)
+        slo = SLOEngine(tracer=tracer)
+        handles, sched, recompiles, builds = serve_pass(tracer, tracing, slo)
+        traced_itl = sched.metrics.summary()["itl_ms_p50"]
+        sched.metrics.write_status(folder)
+        tracing.close()
+        tracer.close()
+
+        if not all(h.done for h in base_handles + handles):
+            log.error("requests never finished")
+            failures += 1
+        if base_rec or base_builds or recompiles or builds:
+            log.error("steady state was not compile-free (baseline %d/%d, "
+                      "traced %d/%d recompiles/builds): tracing must not "
+                      "perturb the steps", base_rec, base_builds,
+                      recompiles, builds)
+            failures += 1
+
+        # the SLO gate: the report is there, silent on the healthy run
+        with open(folder / SERVE_STATUS_NAME) as f:
+            status = json.load(f)
+        report = status.get("slo")
+        if not report or not report.get("budgets"):
+            log.error("serve.json carries no slo report block")
+            failures += 1
+        elif report["alerting"]:
+            log.error("burn-rate alert fired on a healthy run:\n%s",
+                      format_slo_report(report))
+            failures += 1
+        else:
+            log.info("slo report (healthy, no alert):\n%s",
+                     format_slo_report(report))
+
+        # the attribution gate: every finished uid has a journal line
+        # with its named phases, and async spans in the trace
+        finished: tp.Dict[int, tp.Dict[str, tp.Any]] = {}
+        with open(folder / REQUESTS_NAME) as f:
+            for line in f:
+                event = json.loads(line)
+                if event.get("event") == "finished":
+                    finished[event["uid"]] = event
+        for handle in handles:
+            event = finished.get(handle.uid)
+            if event is None:
+                log.error("request %d finished but has no requests.jsonl "
+                          "summary", handle.uid)
+                failures += 1
+            elif not {"queue_wait_s", "latency_s"} <= set(event):
+                log.error("request %d summary lacks phase attribution: %s",
+                          handle.uid, event)
+                failures += 1
+        spans: tp.Dict[tp.Tuple[str, str, str], int] = {}
+        with open(folder / TRACE_NAME) as f:
+            for event in json.load(f)["traceEvents"]:
+                if event.get("ph") in ("b", "e"):
+                    key = (event["name"], event["id"], event["ph"])
+                    spans[key] = spans.get(key, 0) + 1
+        for handle in handles:
+            uid = f"0x{handle.uid:x}"
+            for name in (SPAN_REQUEST, SPAN_QUEUED, SPAN_PREFILL,
+                         SPAN_DECODE):
+                opened = spans.get((name, uid, "b"), 0)
+                closed = spans.get((name, uid, "e"), 0)
+                if name == SPAN_REQUEST and (opened != 1 or closed != 1):
+                    log.error("request %d: %s opened %d / closed %d times",
+                              handle.uid, name, opened, closed)
+                    failures += 1
+                elif opened != closed:
+                    log.error("request %d: unbalanced %s spans (%d open, "
+                              "%d close)", handle.uid, name, opened, closed)
+                    failures += 1
+
+    # the overhead gate: full-rate tracing must stay cheap
+    bound = base_itl * overhead_factor + 2.0
+    log.info("slo leg: itl p50 %.3fms untraced vs %.3fms traced at "
+             "sampling=1.0 (bound %.3fms)", base_itl, traced_itl, bound)
+    if traced_itl > bound:
+        log.error("tracing overhead blew the bound: %.3fms > %.3fms",
+                  traced_itl, bound)
+        failures += 1
+    if not failures:
+        log.info("verified: SLO report healthy, every request phase-"
+                 "attributable from requests.jsonl + Perfetto, tracing "
+                 "overhead bounded")
+    return 1 if failures else 0
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
@@ -629,8 +776,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                         help="skip the per-request generate() comparison")
     parser.add_argument("--legs", default="all",
                         help=f"comma list of legs to run: {','.join(LEGS)} "
-                             f"(or 'all': every leg but slo, which is not "
-                             f"ported)")
+                             f"(or 'all')")
     parser.add_argument("--spec-k", type=int, default=4,
                         help="tokens drafted per speculative step")
     parser.add_argument("--chunk", type=int, default=8,
@@ -654,8 +800,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                              "when asked for)")
     args = parser.parse_args(argv)
 
-    legs = PORTED_LEGS if args.legs == "all" \
-        else tuple(args.legs.split(","))
+    legs = LEGS if args.legs == "all" else tuple(args.legs.split(","))
     unknown = set(legs) - set(LEGS)
     if unknown:
         parser.error(f"unknown legs: {sorted(unknown)} (choose from {LEGS})")
@@ -663,8 +808,6 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             and not args.device.startswith("cuda"):
         parser.error("--kernel fused is the Hopper kernel and needs the "
                      "card: use --kernel gather with --device cpu")
-    if "slo" in legs:
-        run_slo_demo()
     from ..utils import resolve_device
     device = resolve_device(args.device)
 
@@ -691,6 +834,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                              kernel=args.kernel, device=device)
     if "ssd" in legs:
         rc |= run_ssd_demo(chunk=args.chunk, seed=args.seed, device=device)
+    if "slo" in legs:
+        rc |= run_slo_demo(requests=max(8, args.requests // 2),
+                           slots=args.slots, stagger=args.stagger,
+                           seed=args.seed, device=device)
     return rc
 
 

@@ -24,6 +24,17 @@ not run: the cache records each graph's launch-count deltas at capture
 (taking them back out, since the capture launched nothing) and adds them
 on every replay, so the counts stay exact.
 
+Every entry made ready (a build on the CPU, a capture on CUDA) is
+reported to a `RecompileWatchdog` through `note_compile(name)`, a private
+one unless telemetry or the caller gives one; after `seal()` the
+warm-up budget is 0, so `recompiles()` and the watchdog's `summary()`
+count the same thing. With a Tracer each miss is an instant plus a
+`compile_cache` journal record, and `warm` runs inside a span; with an
+enabled RooflineProfiler each step built after the attach has its aten
+FLOPs counted on its first, eager run (on CUDA the run that precedes the
+capture) and every later call timed to completion. Every hook is
+host-side Python outside the capture.
+
 Python's garbage collector is off while a graph is captured. A step and
 its cache hold each other, so a dropped engine's graphs are freed by a
 collection, and a collection that runs inside another engine's capture
@@ -31,17 +42,19 @@ frees them there: releasing a graph's memory pool calls `cudaFree`,
 which invalidates the capture (`cudaErrorStreamCaptureInvalidated`).
 """
 import gc
+import logging
+import time
 import typing as tp
 
 import torch
 
+from ..observability import RecompileWatchdog
+from ..observability.watchdog import describe_abstract
 from ..utils import resolve_device
 
-Key = tp.Tuple[tp.Any, ...]
+logger = logging.getLogger(__name__)
 
-TODO_OBSERVABILITY = ("ROADMAP.md queue A item 9 (observability: the "
-                      "recompile watchdog, the tracer and the roofline "
-                      "profiler)")
+Key = tp.Tuple[tp.Any, ...]
 
 
 def bucket_length(n: int, *, minimum: int = 4,
@@ -79,10 +92,13 @@ def _signature(args: tp.Sequence[tp.Any]) -> tp.Tuple:
 class CudaGraphStep:
     """One step as a CUDA graph over the static tensors of its first call
     (`CompileCache` on CUDA). The first call runs `fn` eagerly on a side
-    stream and captures it there; later calls replay."""
+    stream (through `eager`, which calls `fn`, when given) and captures
+    `fn` there; later calls replay."""
 
-    def __init__(self, fn: tp.Callable, cache: "CompileCache", name: str):
+    def __init__(self, fn: tp.Callable, cache: "CompileCache", name: str,
+                 eager: tp.Optional[tp.Callable] = None):
         self.fn, self.cache, self.name = fn, cache, name
+        self.eager = eager or fn
         self.graph: tp.Optional[torch.cuda.CUDAGraph] = None
         self.outputs: tp.Any = None
         self.signature: tp.Optional[tp.Tuple] = None
@@ -113,7 +129,7 @@ class CudaGraphStep:
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            result = self.fn(*args)  # builds, first-call checks, set-up
+            result = self.eager(*args)  # builds, first-call checks, set-up
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
         graph = torch.cuda.CUDAGraph()
@@ -139,8 +155,44 @@ class CudaGraphStep:
             self.launches.append(delta)
         self.signature = _signature(args)
         self.graph = graph
-        self.cache._ready()
+        self.cache._ready(self.name, args)
         return result
+
+
+class _Profiled:
+    """A cache entry under an enabled RooflineProfiler. Its first call
+    registers the step (the aten FLOPs counted on the eager run: on CUDA
+    the run before the capture, never the capture or a replay); every
+    later call is timed to completion (one synchronize of the cache's
+    device) and observed. Attributes of the entry (`captured`, `graph`,
+    ...) read through."""
+
+    def __init__(self, fn: tp.Callable, cache: "CompileCache", name: str):
+        self.cache, self.name = cache, name
+        profiler = cache.roofline
+
+        def register(*args: tp.Any) -> tp.Any:
+            return profiler.register_fn(name, fn, args)
+
+        if cache.graphs:
+            self.entry = CudaGraphStep(fn, cache, name, eager=register)
+            self._first: tp.Optional[tp.Callable] = self.entry
+        else:
+            self.entry, self._first = fn, register
+
+    def __getattr__(self, attr: str) -> tp.Any:
+        return getattr(self.entry, attr)
+
+    def __call__(self, *args: tp.Any) -> tp.Any:
+        if self._first is not None:
+            first, self._first = self._first, None
+            return first(*args)
+        start = time.perf_counter()
+        out = self.entry(*args)
+        if self.cache.device.type == "cuda":
+            torch.cuda.synchronize(self.cache.device)
+        self.cache.roofline.observe(self.name, time.perf_counter() - start)
+        return out
 
 
 class CompileCache:
@@ -156,8 +208,15 @@ class CompileCache:
     (`register_generator`) so that each replay advances them.
 
     Args:
-        watchdog, tracer, roofline: the reference's observability hooks;
-            not ported (passing one raises NotImplementedError).
+        watchdog: the RecompileWatchdog every build and capture is
+            reported to; a private one when not given, so the accounting
+            always works.
+        tracer: an `observability.Tracer`: each miss lands as an instant
+            and a `compile_cache` journal record, each `warm` in a span.
+        roofline: an enabled `observability.RooflineProfiler` (or
+            `attach_roofline()`): every step built after the attach is
+            registered and timed per call. Attach before
+            `DecodeEngine.warmup()`.
         device: where the steps run; `cuda` by default, the CPU only when
             asked for.
         cuda_graphs: capture CUDA graphs on a CUDA device (the default);
@@ -165,21 +224,18 @@ class CompileCache:
             replay against eager.
     """
 
-    def __init__(self, watchdog: tp.Any = None, tracer: tp.Any = None,
-                 roofline: tp.Any = None, *, device: tp.Any = None,
-                 cuda_graphs: bool = True):
-        for name, value in (("watchdog", watchdog), ("tracer", tracer),
-                            ("roofline", roofline)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"CompileCache({name}=...): {TODO_OBSERVABILITY}")
+    def __init__(self, watchdog: tp.Optional[RecompileWatchdog] = None,
+                 tracer: tp.Any = None, roofline: tp.Any = None, *,
+                 device: tp.Any = None, cuda_graphs: bool = True):
+        self.watchdog = watchdog or RecompileWatchdog(warmup=1)
+        self.tracer = tracer
+        self.roofline = roofline
         self.device = resolve_device(device)
         self.graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self.generators: tp.List[torch.Generator] = []
         self.hits = 0
         self.misses = 0
         self.sealed = False
-        self._late = 0
         self._fns: tp.Dict[Key, tp.Callable] = {}
 
     def __contains__(self, key: Key) -> bool:
@@ -198,15 +254,17 @@ class CompileCache:
         Register before the first capture."""
         if generator.device.type == "cuda" and not any(
                 generator is g for g in self.generators):
-            if any(isinstance(fn, CudaGraphStep) and fn.captured
+            if any(getattr(fn, "captured", False)
                    for fn in self._fns.values()):
                 raise ValueError("register generators before the first "
                                  "capture")
             self.generators.append(generator)
 
-    def _ready(self) -> None:
-        if self.sealed:
-            self._late += 1
+    def _ready(self, name: str, args: tp.Sequence[tp.Any] = ()) -> None:
+        """An entry was made ready: report it to the watchdog, with no
+        warm-up budget once the cache is sealed."""
+        self.watchdog.note_compile(name, describe_abstract(args, {}),
+                                   warmup=0 if self.sealed else None)
 
     def get(self, key: Key, build: tp.Callable[[], tp.Callable]
             ) -> tp.Callable:
@@ -216,20 +274,41 @@ class CompileCache:
             self.hits += 1
             return fn
         self.misses += 1
+        name = self._name(key)
         raw = build()
-        if self.graphs:
-            fn = CudaGraphStep(raw, self, self._name(key))
+        if self.roofline is not None and self.roofline.enabled:
+            fn = _Profiled(raw, self, name)
+        elif self.graphs:
+            fn = CudaGraphStep(raw, self, name)
         else:
             fn = raw
-            self._ready()
+        if not self.graphs:
+            self._ready(name)
         self._fns[key] = fn
+        logger.debug("compile cache miss: built %s", name)
+        if self.tracer is not None:
+            self.tracer.instant(f"compile_cache/miss/{name}",
+                                category="serve")
+            self.tracer.record({"type": "compile_cache", "event": "miss",
+                                "key": name})
         return fn
 
     def warm(self, key: Key, build: tp.Callable[[], tp.Callable],
              *args: tp.Any) -> tp.Any:
         """Register `key` and run it once on `args` (on CUDA: the eager
         run and the capture)."""
-        return self.get(key, build)(*args)
+        fn = self.get(key, build)
+        if self.tracer is not None:
+            with self.tracer.span(f"compile_cache/warm/{self._name(key)}",
+                                  category="serve"):
+                return fn(*args)
+        return fn(*args)
+
+    def attach_roofline(self, roofline: tp.Any) -> None:
+        """Attach a RooflineProfiler: steps built from now on are
+        registered and timed (existing entries are not rewrapped:
+        attach before the engine's `warmup()`)."""
+        self.roofline = roofline
 
     def seal(self) -> None:
         """End the warm-up: entries made ready from now on count as
@@ -241,10 +320,13 @@ class CompileCache:
         return {self._name(key): fn for key, fn in self._fns.items()}
 
     def recompiles(self) -> int:
-        """Entries made ready after `seal()`: captures on CUDA, builds
-        elsewhere. The serving acceptance signal: 0 for the whole run once
-        `warmup()` has warmed every key."""
-        return self._late
+        """Rebuilds the watchdog counted under this cache's names: every
+        entry made ready after `seal()` (a capture on CUDA, a build
+        elsewhere), and a name made ready twice before it (two unscoped
+        engines on one watchdog). The serving acceptance signal: 0 for
+        the whole run once `warmup()` has warmed every key."""
+        return sum(self.watchdog.counts.get(self._name(key), {})
+                   .get("recompiles", 0) for key in self._fns)
 
     def stats(self) -> tp.Dict[str, int]:
         """{hits, misses, entries, recompiles} snapshot."""

@@ -14,8 +14,6 @@ import typing as tp
 
 import numpy as np
 
-TODO_TRACING = "ROADMAP.md queue A item 3, L5 (request tracing)"
-
 
 class DraftProvider(abc.ABC):
     """The contract between the scheduler and a draft source.
@@ -147,7 +145,8 @@ class ModelDraft(DraftProvider):
         max_seq_len, pad_token: as the target engine's.
         cache_scope: the mirror's compile-cache key prefix.
         compile_cache: a CompileCache to share (see `DecodeEngine`).
-        tracer: the reference's request tracing; not ported (raises).
+        tracer: an `observability.Tracer` for the mirror engine's spans
+            (see `DecodeEngine`).
         params: the draft's weights instead of its model's own (e.g.
             int8, `models.quantize.quantize_lm_params`; see
             `DecodeEngine`).
@@ -160,9 +159,6 @@ class ModelDraft(DraftProvider):
                  tracer: tp.Any = None, params: tp.Any = None,
                  device: tp.Any = None):
         from .engine import DecodeEngine
-        if tracer is not None:
-            raise NotImplementedError(f"ModelDraft(tracer=...): "
-                                      f"{TODO_TRACING}")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         self.k = int(k)
@@ -172,7 +168,8 @@ class ModelDraft(DraftProvider):
                                    cache_layout="dense",
                                    cache_scope=cache_scope,
                                    compile_cache=compile_cache,
-                                   params=params, device=device)
+                                   tracer=tracer, params=params,
+                                   device=device)
 
     def warmup(self, prompt_lengths: tp.Iterable[int] = ()) -> None:
         self.engine.warmup(prompt_lengths)

@@ -39,7 +39,19 @@ values in those buffers, not as Python ints, so one graph serves every
 slot: a slice gathers the slot's rows of every cache leaf with
 `index_select` and scatters them back with `index_copy_`. On the CPU the
 same steps run eagerly.
+
+With a tracer (`tracer=`, or the process-wide telemetry's) the engine
+drops an instant at each admission and a span around each prefill,
+prefill slice, decode and verify step (`serve/admit`, `serve/prefill`,
+`serve/prefill_chunk`, `serve/decode`, `serve/verify`): host-side Python
+around a replay, never inside a capture. The decode and verify spans,
+and the final prefill slice's and the bucketed prefill's, include the
+read of the step's tokens to the host, which waits for the card: they
+time the step to completion. A prefill slice that is not the last reads
+nothing back, so its span times the host's dispatch only. No span adds
+a synchronize.
 """
+import contextlib
 import logging
 import typing as tp
 
@@ -58,6 +70,13 @@ from .compile_cache import CompileCache, bucket_length
 from .paged import BlockPool, CacheBox, copy_block_fn, paged_apply_step
 
 logger = logging.getLogger(__name__)
+
+# span names of the engine's steps (category "serve")
+SPAN_PREFILL = "serve/prefill"
+SPAN_PREFILL_CHUNK = "serve/prefill_chunk"
+SPAN_DECODE = "serve/decode"
+SPAN_VERIFY = "serve/verify"
+SPAN_ADMIT = "serve/admit"
 
 
 def _zero_ssd_leaves(cache: tp.Dict, fresh: torch.Tensor) -> tp.Dict:
@@ -205,7 +224,11 @@ class DecodeEngine:
             after its `seal()` as a recompile: warm the engines that
             share it before the last `warmup()` seals it.
         compile_cache: the CompileCache to keep the steps in; by default
-            a private one on the engine's device.
+            a private one on the engine's device, reporting to the active
+            telemetry's watchdog, tracer and (when enabled) roofline
+            (`observability.get_telemetry()`), or to a private watchdog.
+        tracer: an `observability.Tracer` receiving the engine's spans;
+            by default the active telemetry's, if any.
         cuda_graphs: on CUDA, capture the steps as CUDA graphs (the
             default). False runs them eagerly: only for measurements
             that hold replay against eager. It is not a fallback: a
@@ -235,6 +258,7 @@ class DecodeEngine:
                  prefix_cache: bool = True,
                  cache_scope: str = "",
                  compile_cache: tp.Optional[CompileCache] = None,
+                 tracer: tp.Any = None,
                  cuda_graphs: bool = True,
                  params: tp.Optional[tp.Dict[str, tp.Any]] = None,
                  device: tp.Any = None):
@@ -304,9 +328,20 @@ class DecodeEngine:
                              "an explicit torch.Generator (greedy needs "
                              "none)")
         self._generator = generator
-        if compile_cache is None:
-            compile_cache = CompileCache(device=self.device,
-                                         cuda_graphs=cuda_graphs)
+        if tracer is None or compile_cache is None:
+            from ..observability import get_telemetry
+            telemetry = get_telemetry()
+            if tracer is None and telemetry is not None:
+                tracer = telemetry.tracer
+            if compile_cache is None:
+                compile_cache = CompileCache(
+                    watchdog=telemetry.watchdog if telemetry else None,
+                    tracer=tracer,
+                    roofline=(telemetry.roofline
+                              if telemetry is not None
+                              and telemetry.roofline.enabled else None),
+                    device=self.device, cuda_graphs=cuda_graphs)
+        self.tracer = tracer
         if generator is not None:
             compile_cache.register_generator(generator)
         self.compile_cache = compile_cache
@@ -734,7 +769,17 @@ class DecodeEngine:
             with torch.no_grad():
                 self.compile_cache.get(self._key("copy_block"),
                                        self._build_copy)(self._copy_blocks)
+        if self.tracer is not None:
+            self.tracer.instant(SPAN_ADMIT, category="serve", slot=slot,
+                                matched=start, prompt=int(prompt.size),
+                                cow=cow is not None)
         return start
+
+    def _span(self, name: str, **args: tp.Any) -> tp.ContextManager:
+        """A tracer span around a step (host-side), or nothing."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, category="serve", **args)
 
     def pool_stats(self) -> tp.Optional[tp.Dict[str, float]]:
         """Block-pool counters plus `kv_bytes_per_token`, the pool bytes
@@ -792,12 +837,14 @@ class DecodeEngine:
         bufs["tokens"].copy_(torch.from_numpy(padded))
         bufs["length"].fill_(length)
         bufs["slot"].fill_(slot)
-        logits = self.compile_cache.get(
-            self._key("prefill", bucket),
-            lambda: self._build_prefill(bucket))(*bufs.values())
+        step = self.compile_cache.get(self._key("prefill", bucket),
+                                      lambda: self._build_prefill(bucket))
+        with self._span(SPAN_PREFILL, slot=slot, bucket=bucket,
+                        length=length):
+            logits = step(*bufs.values())
+            first = int(sample_tokens(logits[0, length - 1:length],
+                                      self.temperature, self._generator)[0])
         self.step_counts["prefill"] += 1
-        first = int(sample_tokens(logits[0, length - 1:length],
-                                  self.temperature, self._generator)[0])
         self._set_slot(slot, first, length, True)
         return first
 
@@ -842,14 +889,19 @@ class DecodeEngine:
         else:
             bufs["row"].copy_(torch.from_numpy(
                 self._table_host[slot:slot + 1]))
-        logits = self.compile_cache.get(
+        step = self.compile_cache.get(
             self._key("prefill_chunk", size),
-            lambda: self._build_prefill_chunk(size))(*bufs.values())
+            lambda: self._build_prefill_chunk(size))
+        with self._span(SPAN_PREFILL_CHUNK, slot=slot, size=size,
+                        offset=start, length=length):
+            logits = step(*bufs.values())
+            if final:
+                first = int(sample_tokens(logits[0, used - 1:used],
+                                          self.temperature,
+                                          self._generator)[0])
         self.step_counts["prefill_chunk"] += 1
         if not final:
             return start + used, None
-        first = int(sample_tokens(logits[0, used - 1:used], self.temperature,
-                                  self._generator)[0])
         if self._pool is not None:
             # prompt fully written: index its full blocks for sharing
             self._pool.on_live(slot)
@@ -862,10 +914,11 @@ class DecodeEngine:
         tokens (pad_token on inactive slots)."""
         step = self.compile_cache.get(self._key("decode", self.slots),
                                       self._build_decode)
-        tokens = step(*self._decode_args())
+        with self._span(SPAN_DECODE, live=self.allocator.live_count):
+            tokens = step(*self._decode_args())
+            # a copy: on the CPU `.cpu()` returns the step's own buffer
+            out = tokens.cpu().numpy().copy()
         self.step_counts["decode"] += 1
-        # a copy: on the CPU `.cpu()` returns the step's own buffer
-        out = tokens.cpu().numpy().copy()
         self._positions_host += self._active_host
         return out
 
@@ -898,9 +951,10 @@ class DecodeEngine:
         self._draft_buffer(k).copy_(torch.from_numpy(drafts))
         step = self.compile_cache.get(self._key("verify", self.slots, k),
                                       lambda: self._build_verify(k))
-        out, accepted = step(*self._verify_args(k))
+        with self._span(SPAN_VERIFY, k=k, live=self.allocator.live_count):
+            out, accepted = step(*self._verify_args(k))
+            both = torch.cat([out, accepted[:, None]], dim=1).cpu().numpy()
         self.step_counts["verify"] += 1
-        both = torch.cat([out, accepted[:, None]], dim=1).cpu().numpy()
         out_np, accepted_np = both[:, :-1], both[:, -1]
         self._positions_host += np.where(self._active_host,
                                          accepted_np + 1, 0)

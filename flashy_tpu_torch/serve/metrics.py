@@ -1,32 +1,58 @@
-"""Serving metrics, in memory (port of the sample-keeping half of
-flashy_tpu/serve/metrics.py's `ServeMetrics`).
+"""Serving metrics (port of flashy_tpu/serve/metrics.py).
 
 Time to first token (queue wait + prefill), inter-token latency, queue
 depth, slot and pool occupancy, prefix hits, speculative acceptance, and
 tokens per second over the serving window. Samples are host-side
 appends; `summary()` reports percentiles with the port's own
-`percentile`. The `serve.json` status
-file and the tracer fan-out wait for ROADMAP.md queue A item 3, L4/L5.
+`percentile`. The samples fan out live to a Tracer's counter tracks and
+to an SLOEngine's budgets, and on demand to a ResultLogger (`log_to`),
+the telemetry journal (`record`) and the XP folder's `serve.json`
+(`write_status`, which `python -m flashy_tpu_torch.info` reads).
 """
+import json
 import time
 import typing as tp
+from pathlib import Path
 
-from ..utils import percentile
+from ..utils import AnyPath, percentile, write_and_rename
+from ..xp import SERVE_STATUS_NAME
+
+# Perfetto counter tracks of the serving path.
+COUNTER_QUEUE = "serve/queue_depth"
+COUNTER_OCCUPANCY = "serve/slot_occupancy"
+COUNTER_ACCEPTANCE = "serve/acceptance"
+COUNTER_POOL = "serve/pool_occupancy"
+COUNTER_PREFIX = "serve/prefix_hit"
+COUNTER_KV_BYTES = "serve/kv_bytes_per_token"
 
 
 class ServeMetrics:
-    """Accumulates serving samples and summarizes them.
+    """Accumulates serving samples; summarizes and fans them out.
 
     Times are seconds (`time.perf_counter` deltas); `summary()` reports
-    latencies in milliseconds.
+    latencies in milliseconds. Every hook is a list append plus, with a
+    tracer, a counter sample: host-side Python, no device call.
+
+    Args:
+        tracer: an `observability.Tracer` for counter tracks and
+            journal records.
+        percentiles: the percentiles `summary()` reports for every
+            sampled distribution.
+        slo: an `observability.SLOEngine`; every TTFT, ITL, queue-wait
+            and acceptance sample is also fed to its `ttft`, `itl`,
+            `queue_wait` and `acceptance` budgets.
     """
 
-    def __init__(self, percentiles: tp.Sequence[float] = (50, 95, 99)):
+    def __init__(self, tracer: tp.Optional[tp.Any] = None,
+                 percentiles: tp.Sequence[float] = (50, 95, 99),
+                 slo: tp.Optional[tp.Any] = None):
         if not percentiles or not all(0 < p < 100 for p in percentiles):
             raise ValueError(
                 f"percentiles must be a non-empty sequence in (0, 100), "
                 f"got {percentiles!r}")
+        self.tracer = tracer
         self.percentiles = tuple(percentiles)
+        self.slo = slo
         # non-numeric facts about the serving setup (cache layout, KV
         # dtype, kernel), filled by the scheduler from its engine
         self.static_info: tp.Dict[str, tp.Any] = {}
@@ -92,14 +118,20 @@ class ServeMetrics:
     def on_first_token(self, ttft_seconds: float) -> None:
         self.ttft.append(ttft_seconds)
         self.tokens += 1
+        if self.slo is not None:
+            self.slo.observe("ttft", ttft_seconds)
 
     def on_token(self, gap_seconds: float) -> None:
         self.itl.append(gap_seconds)
         self.tokens += 1
+        if self.slo is not None:
+            self.slo.observe("itl", gap_seconds)
 
     def on_queue_wait(self, wait_seconds: float) -> None:
         """Queue wait of one admitted request (submit -> slot)."""
         self.queue_wait.append(wait_seconds)
+        if self.slo is not None:
+            self.slo.observe("queue_wait", wait_seconds)
 
     def on_done(self, latency_seconds: float, reason: str,
                 tenant: tp.Optional[str] = None,
@@ -119,11 +151,19 @@ class ServeMetrics:
         slot, `accepted` the kept-draft count of each live slot, `emitted`
         the tokens delivered (accepted + bonus, less any EOS or budget
         truncation)."""
+        live = len(accepted)
         self.spec_steps += 1
-        self.spec_drafted += drafted * len(accepted)
+        self.spec_drafted += drafted * live
         self.spec_accepted += int(sum(accepted))
         self.spec_emitted += emitted
         self.accepted_per_step.extend(int(a) for a in accepted)
+        if self.slo is not None and drafted and live:
+            self.slo.observe("acceptance",
+                             sum(int(a) for a in accepted) / (drafted * live))
+        if self.tracer is not None and self.spec_drafted:
+            self.tracer.counter(
+                COUNTER_ACCEPTANCE,
+                rate=self.spec_accepted / self.spec_drafted)
 
     def on_prefix(self, matched_tokens: int, prompt_tokens: int) -> None:
         """One paged admission: `matched_tokens` of the prompt came from
@@ -133,17 +173,33 @@ class ServeMetrics:
         self.prefix_prompt_tokens += prompt_tokens
         if matched_tokens > 0:
             self.prefix_hits += 1
+        if self.tracer is not None and self.prefix_prompt_tokens:
+            self.tracer.counter(
+                COUNTER_PREFIX,
+                hit_rate=self.prefix_matched_tokens
+                / self.prefix_prompt_tokens)
 
-    def on_pool(self, occupancy: float, bytes_per_token: float) -> None:
-        """Sample the block pool (once per step)."""
+    def on_pool(self, occupancy: float, in_use: int, capacity: int,
+                cached: int, bytes_per_token: float) -> None:
+        """Sample the block pool (once per step, paged layout only)."""
         self.pool_occupancy.append(occupancy)
         if bytes_per_token > 0:
             self.kv_bytes_per_token.append(bytes_per_token)
+        if self.tracer is not None:
+            self.tracer.counter(COUNTER_POOL, in_use=in_use,
+                                cached=cached, occupancy=occupancy)
+            if bytes_per_token > 0:
+                self.tracer.counter(COUNTER_KV_BYTES, bytes=bytes_per_token)
 
     def on_gauges(self, queue_depth: int, live: int, capacity: int) -> None:
         """Sample the queue depth + slot occupancy (once per step)."""
+        occupancy = live / capacity if capacity else 0.0
         self.queue_depth.append(queue_depth)
-        self.occupancy.append(live / capacity if capacity else 0.0)
+        self.occupancy.append(occupancy)
+        if self.tracer is not None:
+            self.tracer.counter(COUNTER_QUEUE, depth=queue_depth)
+            self.tracer.counter(COUNTER_OCCUPANCY, live=live,
+                                occupancy=occupancy)
 
     def summary(self) -> tp.Dict[str, float]:
         """Flat numeric snapshot (ms latencies, configured percentiles)."""
@@ -190,3 +246,46 @@ class ServeMetrics:
         for reason, count in sorted(self.finish_reasons.items()):
             out[f"finish_{reason}"] = count
         return out
+
+    def log_to(self, result_logger: tp.Any, step: tp.Optional[int] = None,
+               extra: tp.Optional[tp.Dict[str, float]] = None) -> None:
+        """Fan the summary out through a ResultLogger ('serve' stage)."""
+        from ..logging import serve_formatter
+        metrics = self.summary()
+        if extra:
+            metrics.update(extra)
+        result_logger.log_metrics("serve", metrics, step=step,
+                                  formatter=serve_formatter())
+
+    def record(self) -> None:
+        """Append the summary to telemetry.jsonl through the tracer."""
+        if self.tracer is not None:
+            self.tracer.record({"type": "serve_summary", **self.summary()})
+
+    def write_status(self, folder: AnyPath,
+                     extra: tp.Optional[tp.Dict[str, tp.Any]] = None
+                     ) -> Path:
+        """Snapshot the summary to `<folder>/serve.json` (atomically) for
+        `python -m flashy_tpu_torch.info`; returns the path. The setup
+        facts (`static_info`) come first; per-tenant rollups land as the
+        `tenants` block and, with an SLOEngine attached, its evaluation
+        as the `slo` block (what `info --slo` renders)."""
+        from ..resilience import fault_point
+        target = Path(folder) / SERVE_STATUS_NAME
+        payload: tp.Dict[str, tp.Any] = dict(self.static_info)
+        payload.update(self.summary())
+        if self.tenants:
+            payload["tenants"] = {t: dict(counts) for t, counts
+                                  in sorted(self.tenants.items())}
+        if self.slo is not None:
+            payload["slo"] = self.slo.evaluate()
+        if extra:
+            payload.update(extra)
+        target.parent.mkdir(parents=True, exist_ok=True)
+        with write_and_rename(target, "w") as f:
+            json.dump(payload, f, indent=2, default=float)
+            # the kill window between the temporary write and the rename:
+            # a fault here leaves the old serve.json (or none), never a
+            # torn one, and the next write heals it
+            fault_point("fleet.status", file=SERVE_STATUS_NAME)
+        return target

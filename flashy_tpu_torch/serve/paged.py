@@ -25,6 +25,8 @@ import torch
 logger = logging.getLogger(__name__)
 
 SENTINEL = 0  # physical block 0: never allocated, absorbs parked writes
+# the chaos fault point every admission's reservation passes
+POOL_FAULT_SITE = "serve.pool"
 
 
 class PoolExhausted(RuntimeError):
@@ -353,10 +355,18 @@ class BlockPool:
         int32 table row (sentinel-padded), the position prefill resumes
         at (== matched tokens), and the `(src, dst)` pool blocks the
         engine must device-copy for a COW fork (None when no partial
-        match). Atomic: on PoolExhausted nothing changed.
+        match). Atomic: on PoolExhausted nothing changed. Passes the
+        `serve.pool` fault point first: an injected fault there is an
+        allocation failure (PoolExhausted), which the scheduler sheds.
         """
+        from ..resilience import InjectedFault, fault_point
         if slot in self._slots:
             raise ValueError(f"slot {slot} already holds a reservation")
+        try:
+            fault_point(POOL_FAULT_SITE, slot=slot, need=plan.fresh_needed)
+        except InjectedFault as exc:
+            raise PoolExhausted(f"injected allocation failure: {exc}") \
+                from exc
         if plan.fresh_needed > self._headroom_for(plan):
             raise PoolExhausted(
                 f"admission needs {plan.fresh_needed} blocks, pool has "

@@ -14,8 +14,11 @@ slices interleaved with decode steps. With a draft provider
 (serve/draft.py) each step verifies k drafted tokens a slot in one
 [S, k+1] engine call and emits accepted + 1 tokens a live slot.
 
-Left out for later slices (ROADMAP.md queue A item 3): request tracing
-(L5), the chaos fault point (L6), and the fleet's re-routing hooks.
+Every lifecycle transition is mirrored to an optional
+`serve.tracing.RequestTracer` (`tracing=`), and the decode step passes
+the `serve.step` fault point inside the window its inter-token latency
+measures, so an injected stall lands in the samples the SLO engine
+reads. The fleet's re-routing hooks come with ROADMAP.md queue A item 10.
 """
 import collections
 import dataclasses
@@ -26,6 +29,7 @@ import typing as tp
 
 import numpy as np
 
+from ..resilience import chaos
 from .engine import DecodeEngine
 from .metrics import ServeMetrics
 from .paged import PoolExhausted
@@ -98,21 +102,27 @@ class ContinuousBatchingScheduler:
         engine: the DecodeEngine supplying slots and steps.
         max_queue: admission-queue depth; `submit()` past it raises
             QueueFull.
-        metrics: a ServeMetrics; one is created when not given.
+        metrics: a ServeMetrics; one is created (sharing the engine's
+            tracer) when not given.
         draft: a DraftProvider (serve/draft.py) enabling speculative
             decoding; its `k` must match `engine.spec_k` when that is set
             (the warm-up captured exactly that verify step).
         prefill_chunks_per_step: prefill slices advanced per step (the
             prefill/decode interleave ratio).
+        tracing: a `serve.tracing.RequestTracer`; every request lifecycle
+            transition is mirrored to it (async Perfetto spans and
+            requests.jsonl), subject to its sampling.
     """
 
     def __init__(self, engine: DecodeEngine, max_queue: int = 128,
                  metrics: tp.Optional[ServeMetrics] = None,
                  draft: tp.Optional[tp.Any] = None,
-                 prefill_chunks_per_step: int = 1):
+                 prefill_chunks_per_step: int = 1,
+                 tracing: tp.Optional[tp.Any] = None):
         self.engine = engine
         self.max_queue = max_queue
-        self.metrics = metrics or ServeMetrics()
+        self.metrics = metrics or ServeMetrics(tracer=engine.tracer)
+        self.tracing = tracing
         for key, value in (("cache_layout", engine.cache_layout),
                            ("kv_dtype", engine.kv_dtype),
                            ("kernel", engine.kernel),
@@ -197,6 +207,8 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"ttl must be positive (seconds), got {ttl}")
         if len(self._queue) >= self.max_queue:
             self.metrics.on_reject(tenant=tenant)
+            if self.tracing is not None:
+                self.tracing.on_reject(len(self._queue))
             raise QueueFull(
                 f"admission queue is at capacity ({self.max_queue}); "
                 f"retry after in-flight requests drain")
@@ -208,6 +220,8 @@ class ContinuousBatchingScheduler:
                           deadline=now + ttl if ttl is not None else None)
         self._queue.append(request)
         self.metrics.on_submit(tenant=tenant)
+        if self.tracing is not None:
+            self.tracing.on_submit(request)
         return request
 
     def _expire(self, request: Request, now: float) -> None:
@@ -215,6 +229,8 @@ class ContinuousBatchingScheduler:
         request.finish_reason = "expired"
         request.finished_at = now
         self.metrics.on_expired(tenant=request.tenant)
+        if self.tracing is not None:
+            self.tracing.on_finish(request, "expired")
 
     def _shed_expired(self) -> int:
         """Drop queued requests whose TTL deadline passed; returns #shed."""
@@ -241,6 +257,10 @@ class ContinuousBatchingScheduler:
         if request.first_token_at is None:
             request.first_token_at = now
             self.metrics.on_first_token(now - request.submitted_at)
+        if self.tracing is not None:
+            # on a resume too: preemption reopened the queued span, and
+            # this transition closes its prefill phase
+            self.tracing.on_first_token(request)
         if request.eos_token is not None and first == request.eos_token:
             self._finish(request, "eos")
         elif len(request.generated) >= request.max_new_tokens:
@@ -293,6 +313,8 @@ class ContinuousBatchingScheduler:
         request.preemptions += 1
         self._queue.appendleft(request)
         self.metrics.on_preempt(tenant=request.tenant)
+        if self.tracing is not None:
+            self.tracing.on_preempt(request)
         logger.debug("request %d preempted with %d tokens generated",
                      request.uid, len(request.generated))
         return request
@@ -322,7 +344,9 @@ class ContinuousBatchingScheduler:
             try:
                 start = self.engine.admit(slot, prompt, budget)
             except PoolExhausted as exc:
-                # headroom lost since the check: keep it queued
+                # headroom lost since the check, or an injected failure
+                # (the `serve.pool` fault point): keep it queued at the
+                # head; backpressure sheds, the run never crashes
                 logger.warning("admission of request %d shed: %s",
                                request.uid, exc)
                 self.engine.allocator.release(slot)
@@ -334,6 +358,8 @@ class ContinuousBatchingScheduler:
             request.admitted_at = time.perf_counter()
             self.metrics.on_queue_wait(
                 request.admitted_at - request.submitted_at)
+            if self.tracing is not None:
+                self.tracing.on_admit(request, slot, start)
             self.admitted_order.append(request.uid)
             admitted += 1
             if self.engine.chunk is None:
@@ -351,6 +377,8 @@ class ContinuousBatchingScheduler:
             request, start, prompt = self._prefilling[slot]
             new_start, first = self.engine.prefill_chunk(slot, prompt, start)
             budget -= 1
+            if self.tracing is not None:
+                self.tracing.on_prefill_chunk(request, start, new_start)
             self.prefill_tokens_last_step += new_start - start
             if first is None:
                 self._prefilling[slot][1] = new_start
@@ -370,6 +398,8 @@ class ContinuousBatchingScheduler:
         self.metrics.on_done(request.finished_at - request.submitted_at,
                              reason, tenant=request.tenant,
                              tokens=len(request.generated))
+        if self.tracing is not None:
+            self.tracing.on_finish(request, reason)
 
     def _feed(self, slot: int, request: Request, tokens: tp.Sequence[int],
               gap: float) -> tp.Tuple[int, bool]:
@@ -395,7 +425,20 @@ class ContinuousBatchingScheduler:
 
     def step(self) -> int:
         """Shed expired + admit/advance prefill + one decode (or
-        speculative verify) step + retire; returns #tokens emitted."""
+        speculative verify) step + retire; returns #tokens emitted.
+
+        A crash anywhere in the step closes every in-flight request span
+        first (`tracing.finalize('crashed')`: the trace stays loadable
+        and the journal records how far each request got), then
+        propagates."""
+        try:
+            return self._step()
+        except Exception:
+            if self.tracing is not None:
+                self.tracing.finalize("crashed")
+            raise
+
+    def _step(self) -> int:
         self._shed_expired()
         self._admit()
         self.metrics.on_gauges(queue_depth=len(self._queue),
@@ -404,16 +447,28 @@ class ContinuousBatchingScheduler:
         pool = self.engine.pool_stats()
         if pool is not None:
             self.metrics.on_pool(occupancy=pool["occupancy"],
+                                 in_use=int(pool["in_use"]),
+                                 capacity=int(pool["capacity"]),
+                                 cached=int(pool["cached"]),
                                  bytes_per_token=pool["kv_bytes_per_token"])
         if not self._running:
             return 0
         step_start = time.perf_counter()
+        # inside the ITL-measured window on purpose: an injected delay
+        # lands in the per-token gap the SLO engine samples, and an
+        # injected raise unwinds through step()'s finalize
+        chaos.fault_point("serve.step", queue_depth=len(self._queue),
+                          live=len(self._running))
         if self.draft is None:
             tokens = self.engine.decode()
             gap = time.perf_counter() - step_start
             emitted = 0
             for slot, request in list(self._running.items()):
-                emitted += self._feed(slot, request, [tokens[slot]], gap)[0]
+                kept, finished = self._feed(slot, request, [tokens[slot]],
+                                            gap)
+                emitted += kept
+                if not finished and self.tracing is not None:
+                    self.tracing.on_step_tokens(request, kept)
             return emitted
         # k drafted tokens a slot verified in one [S, k+1] call; each live
         # slot emits accepted + 1 (EOS or the budget may cut the span:
@@ -429,6 +484,9 @@ class ContinuousBatchingScheduler:
             kept, finished = self._feed(slot, request, span, gap)
             emitted += kept
             if not finished:
+                if self.tracing is not None:
+                    self.tracing.on_step_tokens(
+                        request, kept, accepted=int(accepted[slot]))
                 self.draft.observe(slot, span[:kept],
                                    self.engine.slot_length(slot))
         self.metrics.on_spec_step(drafted=int(drafts.shape[1]),

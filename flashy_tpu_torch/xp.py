@@ -34,6 +34,16 @@ _META_SECTIONS = ("xp", "dora")
 HISTORY_NAME = "history.json"
 CONFIG_SNAPSHOT_NAME = "config.json"
 RUN_INFO_NAME = "run.json"
+# Telemetry artifacts (written by flashy_tpu_torch.observability when
+# enabled; rank 0 owns the unsuffixed names, rank r writes
+# `telemetry.{r}.jsonl` and `trace.{r}.json`).
+TELEMETRY_NAME = "telemetry.jsonl"
+TRACE_NAME = "trace.json"
+HEARTBEAT_DIR_NAME = "heartbeats"
+# Serving status snapshot (ServeMetrics.write_status; info shows it).
+SERVE_STATUS_NAME = "serve.json"
+# Per-request lifecycle journal (serve.tracing.RequestTracer).
+REQUESTS_NAME = "requests.jsonl"
 
 
 class Config(dict):

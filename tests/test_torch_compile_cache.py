@@ -58,10 +58,24 @@ def test_compile_cache_warm_executes_once():
 
 
 def test_compile_cache_refuses_what_is_not_ported():
+    # the observability hooks are ported: each is taken and used (their
+    # behaviour is held in tests/test_torch_observability.py); what stays
+    # refused is a cache on no explicit device without CUDA
+    from flashy_tpu_torch.observability import (RecompileWatchdog,
+                                                RooflineProfiler, Tracer)
     from flashy_tpu_torch.serve.compile_cache import CompileCache
-    for name in ("watchdog", "tracer", "roofline"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            CompileCache(**{name: object()}, device="cpu")
+    watchdog, tracer = RecompileWatchdog(), Tracer()
+    roofline = RooflineProfiler(peak_flops=1e12)
+    cache = CompileCache(watchdog=watchdog, tracer=tracer,
+                         roofline=roofline, device="cpu")
+    assert (cache.watchdog, cache.tracer, cache.roofline) == (
+        watchdog, tracer, roofline)
+    cache.warm(("step",), lambda: (lambda x: x @ x), torch.ones(4, 4))
+    assert watchdog.counts["step"]["compiles"] == 1
+    assert roofline.profiles["step"].flops == 2 * 4 * 4 * 4
+    cache.get(("step",), None)(torch.ones(4, 4))   # a later call is timed
+    assert roofline.profiles["step"].calls == 1
+    assert any(e["name"] == "compile_cache/miss/step" for e in tracer.events)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             CompileCache()

@@ -81,8 +81,14 @@ def test_model_draft_mirror_steps_and_resync():
     draft.retire(1)
     assert engine.live_count == 0
     assert engine.compile_cache.stats()["recompiles"] == 0
-    with pytest.raises(NotImplementedError, match="L5"):
-        ModelDraft(model, slots=2, tracer=object(), device="cpu")
+    # the tracer reaches the mirror engine, whose steps it spans
+    from flashy_tpu_torch.observability import Tracer
+    tracer = Tracer()
+    traced = ModelDraft(model, slots=2, tracer=tracer, device="cpu")
+    assert traced.engine.tracer is tracer
+    traced.engine.decode()
+    assert [e["name"] for e in tracer.events if e["ph"] == "X"] == [
+        "serve/decode"]
 
 
 def _repetitive(n, seed):

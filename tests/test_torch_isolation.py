@@ -60,6 +60,12 @@ def test_package_imports_with_jax_unimportable():
         "import flashy_tpu_torch.models.quantize, "
         "flashy_tpu_torch.models.decoding, flashy_tpu_torch.serve.engine, "
         "flashy_tpu_torch.serve.paged, flashy_tpu_torch.ops.paged_attention\n"
+        "import flashy_tpu_torch.observability, "
+        "flashy_tpu_torch.observability.roofline, "
+        "flashy_tpu_torch.observability.telemetry\n"
+        "import flashy_tpu_torch.resilience, "
+        "flashy_tpu_torch.resilience.chaos, "
+        "flashy_tpu_torch.serve.tracing, flashy_tpu_torch.serve.metrics\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")
