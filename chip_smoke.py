@@ -402,6 +402,43 @@ timed):
              flashy_tpu_torch.info` (heartbeats) and
              `--slo` exit 0; then the step p50 without and with
              telemetry, in turns. The demo's `slo` leg runs in phase 9g.
+ 35. train preempt  `train`'s model at full width and depth (2 train
+             steps and 1 valid a epoch, 3 epochs) through `LMSolver.run`
+             with `enable_preemption_guard()` installed: two clean runs
+             (their histories without wall-clock keys and every parameter
+             and AdamW moment compared bit for bit: the spread of the
+             card); a run whose `batch_at` sends the process a real
+             SIGTERM at train step 2 of epoch 3, which ends in
+             SystemExit(75) at the boundary before `valid` with 2
+             committed epochs and `preempted.json`; its resume in the same
+             XP, held to the clean run (bit-identical, or within the clean
+             runs' spread, printed beside it); single-file commit, sha256
+             and restore seconds, checkpoint bytes;
+ 36. train slots  the same with `checkpoint_mode='sharded'`: preempted
+             after 2 commits, so both slots hold a checkpoint;
+             `corrupt_active_slot`, then a resume that falls back to the
+             sibling with the WARN and is held to the clean run as in 35;
+             `info.verify_checkpoint` restorable; slot commit, sha256,
+             fallback restore seconds;
+ 37. train async  `checkpoint_async=True` over 3 epochs: the host-blocking
+             seconds of each `commit()` (its wait for the previous save
+             and its snapshot) and the background write's seconds beside
+             the synchronous slot commits of 36; the final state equal to
+             the clean run's bit for bit, and the epoch-2 slot (written
+             while epoch 3 updated the parameters in place) equal to the
+             epoch-2 checkpoint of 35; then a 2-epoch run whose first
+             background write fails (`ckpt.write`, every retry): the next
+             commit raises and rolls back the epoch it covered, in memory
+             and in history.json;
+ 38. hang abort  a subprocess trains 2 steps of `train`'s model with
+             telemetry (heartbeats every 0.25 s), starts
+             `enable_hang_watchdog(warn_after=2, abort_after=4,
+             interval=0.5)`, runs 1 valid step, then blocks its main
+             thread on the card (`torch.cuda._sleep` of ~20 s, then
+             `torch.cuda.synchronize()`): it must exit with 70 within 8 s
+             of blocking, the watchdog's WARN with a straggler report on
+             its stderr;
+ 39. drill  `python -m flashy_tpu_torch.resilience` exits 0.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -5793,6 +5830,498 @@ def phase_train_telemetry(torch, device, card, root, turns=2):
     return launches
 
 
+# ----------------------------------------------------------------------
+# item 9's resilience half: preemption, slots, async saves, hangs
+# ----------------------------------------------------------------------
+RESILIENCE_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=2", "valid_steps=1",
+                                     "epochs=3"]
+WALL_CLOCK_KEYS = ("duration", "tokens_per_sec")
+LAYERS = int(next(a for a in TRAIN_ARGS
+                  if a.startswith("model.num_layers=")).split("=")[1])
+HANG_WARN, HANG_ABORT, HANG_INTERVAL = 2.0, 4.0, 0.5
+HANG_BOUND = 8.0          # seconds from blocking to the exit, at most
+HANG_CYCLES = 40_000_000_000   # ~20 s of spin at the H100's ~2 GHz
+
+
+def stripped(history):
+    """A history without its wall-clock keys."""
+    return [{stage: {k: v for k, v in metrics.items()
+                     if k not in WALL_CLOCK_KEYS}
+             for stage, metrics in epoch.items()} for epoch in history]
+
+
+def history_spread(got, want):
+    """The largest difference between two stripped histories' metrics
+    (inf when their epochs, stages or keys differ)."""
+    if [{s: sorted(m) for s, m in e.items()} for e in got] != \
+            [{s: sorted(m) for s, m in e.items()} for e in want]:
+        return math.inf
+    return max([abs(g[s][k] - w[s][k]) for g, w in zip(got, want)
+                for s in w for k in w[s]], default=0.0)
+
+
+def solver_state(torch, state):
+    """The parameters and AdamW moments of a solver state dict (live or
+    loaded), keyed `model.<name>` and `adamw.<index>.<moment>`."""
+    out = {f"model.{k}": v.detach() for k, v in state["model"].items()}
+    for index, moments in state["optimizer"]["state"].items():
+        for key, value in moments.items():
+            if torch.is_tensor(value):
+                out[f"adamw.{index}.{key}"] = value.detach()
+    return out
+
+
+def host_state(torch, solver):
+    return {k: v.cpu().clone() for k, v in solver_state(
+        torch, {"model": solver.model.state_dict(),
+                "optimizer": solver.optimizer.state_dict()}).items()}
+
+
+def state_spread(torch, got, want):
+    """(leaves not bit-equal, the largest absolute difference)."""
+    if set(got) != set(want):
+        fail(f"state leaves differ: {sorted(set(got) ^ set(want))[:4]}")
+    differ, worst = 0, 0.0
+    for key, value in want.items():
+        other = got[key].to(value.device)
+        if not torch.equal(other, value):
+            differ += 1
+            worst = max(worst, float((other.double() - value.double())
+                                     .abs().max()))
+    return differ, worst
+
+
+def timed_method(solver, name, log):
+    """Record the seconds of each call of `solver.<name>` in `log`."""
+    method = getattr(solver, name)
+
+    def wrapper(*args, **kwargs):
+        begin = time.perf_counter()
+        try:
+            return method(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - begin)
+
+    setattr(solver, name, wrapper)
+
+
+def resilience_run(torch, folder, mode="single", use_async=False,
+                   sigterm_at=None, save=True, setup=None):
+    """`train`'s model through `LMSolver.run` in the XP of
+    RESILIENCE_ARGS under `folder`, with `enable_preemption_guard()`
+    installed; `sigterm_at` (a global train step) makes `batch_at` send
+    this process a real SIGTERM there. Returns (solver, exit code or None,
+    commit seconds, restore seconds, train steps, valid steps)."""
+    import os
+    import signal
+    from flashy_tpu_torch import resilience
+    from flashy_tpu_torch.examples.lm.solver import LMSolver
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    xp = lm_main.get_xp(RESILIENCE_ARGS + [f"dora.dir={folder}"])
+    commits, restores, valid = [], [], [0]
+    code = None
+    with xp.enter():
+        solver = LMSolver(xp.cfg, device=torch.device("cuda"))
+        solver.checkpoint_mode = mode
+        solver.checkpoint_async = use_async
+        if not save:
+            base = solver.commit
+            solver.commit = lambda: base(save_checkpoint=False)
+        timed_method(solver, "commit", commits)
+        timed_method(solver, "restore", restores)
+        batch_at = solver.batch_at
+
+        def counted(step, eval_set=False):
+            valid[0] += bool(eval_set)
+            if not eval_set and step == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return batch_at(step, eval_set=eval_set)
+
+        solver.batch_at = counted
+        if setup is not None:
+            setup(solver)
+        solver.enable_preemption_guard()
+        try:
+            solver.run()
+        except SystemExit as exit_:
+            code = exit_.code
+        finally:
+            resilience.disable_preemption_guard()
+    torch.cuda.synchronize()
+    return (solver, code, commits, restores, len(solver.step_seconds),
+            valid[0])
+
+
+def flash_want(layers, runs):
+    """Row 1 and row 4 launches of runs of (train steps, valid steps)."""
+    return {"flash_fwd": layers * sum(t + v for t, v in runs),
+            "flash_bwd_fused": layers * sum(t for t, _ in runs)}
+
+
+def resume_verdict(torch, label, got, want, clean_spread):
+    """Hold a resumed run (history, state) to the clean run: bit-equal
+    when the two clean runs were, else within their spread."""
+    history = history_spread(stripped(got[0]), stripped(want[0]))
+    differ, worst = state_spread(torch, got[1], want[1])
+    bound_history, bound_state = clean_spread
+    if history > bound_history or worst > bound_state:
+        fail(f"{label}: the resumed run differs from the clean run: "
+             f"history by {history}, {differ} state leaves by up to "
+             f"{worst} (clean runs' spread: history {bound_history}, "
+             f"state {bound_state})")
+    return (f"history off by {history}, {differ} of {len(want[1])} "
+            f"leaves not bit-equal (max {worst}; the clean runs' spread: "
+            f"{bound_history}, {bound_state})")
+
+
+def phase_train_preempt(torch, card, root):
+    """Phase 35. Returns (the clean run's (history, host state), the
+    clean runs' spread, row 1 and 4 launches)."""
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.resilience import file_digest
+    root = Path(root)
+    attention.reset_launch_counts()
+    runs, clean = [], []
+    for name in ("clean_a", "clean_b"):
+        solver, code, _, _, steps, valid = resilience_run(
+            torch, root / name, save=False)
+        if code is not None or len(solver.history) != 3:
+            fail(f"train preempt: clean run exit {code}, "
+                 f"{len(solver.history)} epochs")
+        runs.append((steps, valid))
+        clean.append((solver.history, host_state(torch, solver)))
+        del solver
+        release_memory(torch)
+    spread = (history_spread(stripped(clean[1][0]), stripped(clean[0][0])),
+              state_spread(torch, clean[1][1], clean[0][1])[1])
+    clean_differ = state_spread(torch, clean[1][1], clean[0][1])[0]
+    folder = root / "preempt"
+    solver, code, commits, _, steps, valid = resilience_run(
+        torch, folder, sigterm_at=2 * 2 + 1)
+    runs.append((steps, valid))
+    marker_path = solver.folder / "preempted.json"
+    marker = json.loads(marker_path.read_text()) \
+        if marker_path.exists() else {}
+    if code != 75 or len(solver.history) != 2 \
+            or marker.get("committed_epochs") != 2 \
+            or marker.get("signal") != "SIGTERM" \
+            or marker.get("where") != "boundary before stage 'valid' " \
+                                      "(epoch 3)":
+        fail(f"train preempt: exit {code}, {len(solver.history)} epochs, "
+             f"preempted.json {marker}")
+    path = solver.checkpoint_path
+    nbytes = path.stat().st_size
+    begin = time.perf_counter()
+    file_digest(path)
+    sha_s = time.perf_counter() - begin
+    del solver
+    release_memory(torch)
+    resumed, code, resume_commits, restores, steps, valid = resilience_run(
+        torch, folder)
+    runs.append((steps, valid))
+    if code is not None or not resumed.restored \
+            or len(resumed.history) != 3 or steps != 2:
+        fail(f"train preempt: the resume exit {code}, restored "
+             f"{resumed.restored}, {len(resumed.history)} epochs, "
+             f"{steps} steps")
+    verdict = resume_verdict(torch, "train preempt",
+                             (resumed.history, host_state(torch, resumed)),
+                             clean[0], spread)
+    launches = nonzero(attention.launch_counts)
+    want = flash_want(LAYERS, runs)
+    if launches != want:
+        fail(f"train preempt: launches {launches}, expected {want}")
+    del resumed
+    release_memory(torch)
+    print(f"train preempt: 235M bf16 b16 t1024, 3 epochs of 2 steps + 1 "
+          f"valid; two clean runs: {clean_differ} of {len(clean[0][1])} "
+          f"parameter and moment leaves not bit-equal, history spread "
+          f"{spread[0]}, state spread {spread[1]}; a real SIGTERM at "
+          f"train step 2 of epoch 3 -> SystemExit(75) at {marker['where']}"
+          f", 2 committed epochs, preempted.json; resumed: {verdict}; "
+          f"checkpoint.th {nbytes} bytes, single-file commits "
+          f"{[round(x, 3) for x in commits + resume_commits]} s, sha256 "
+          f"{sha_s:.3f} s ({nbytes / sha_s / 1e9:.2f} GB/s, warm), "
+          f"restore {restores[0]:.3f} s; launches {launches} "
+          f"[{card}]", flush=True)
+    return clean[0], spread, launches
+
+
+def phase_train_slots(torch, card, root, clean, spread):
+    """Phase 36: `checkpoint_mode='sharded'`. Returns (row 1 and 4
+    launches, the slot commits' seconds)."""
+    import logging
+    from flashy_tpu_torch import info
+    from flashy_tpu_torch.checkpoint import ARRAYS_NAME, read_slot_pointer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.resilience import chaos, file_digest
+    attention.reset_launch_counts()
+    folder = Path(root) / "slots"
+    runs = []
+    solver, code, commits, _, steps, valid = resilience_run(
+        torch, folder, mode="sharded", sigterm_at=5)
+    runs.append((steps, valid))
+    directory = solver.sharded_checkpoint_path
+    if code != 75 or len(solver.history) != 2 \
+            or solver.checkpoint_path.exists() \
+            or not all((directory / s / "state.pkl").exists()
+                       for s in ("slot0", "slot1")):
+        fail(f"train slots: exit {code}, {len(solver.history)} epochs, "
+             f"slots {sorted(p.name for p in directory.iterdir())}")
+    active = read_slot_pointer(directory)
+    nbytes = sum(p.stat().st_size for p in (directory / active).iterdir())
+    begin = time.perf_counter()
+    file_digest(directory / active / ARRAYS_NAME)
+    sha_s = time.perf_counter() - begin
+    del solver
+    release_memory(torch)
+    corrupted = chaos.corrupt_active_slot(directory)
+    records = LogRecords()
+    logger = logging.getLogger("flashy_tpu_torch.checkpoint")
+    logger.addHandler(records.handler)
+    try:
+        resumed, code, resume_commits, restores, steps, valid = \
+            resilience_run(torch, folder, mode="sharded")
+    finally:
+        logger.removeHandler(records.handler)
+    runs.append((steps, valid))
+    text = records.text()
+    if code is not None or not resumed.restored \
+            or len(resumed.history) != 3 or steps != 4 \
+            or "RESTORED FROM FALLBACK SLOT" not in text \
+            or f"the active slot {corrupted!r} was corrupt" not in text:
+        fail(f"train slots: the resume exit {code}, restored "
+             f"{resumed.restored}, {len(resumed.history)} epochs, {steps} "
+             f"steps, log {text[-300:]!r}")
+    verdict = resume_verdict(torch, "train slots",
+                             (resumed.history, host_state(torch, resumed)),
+                             clean, spread)
+    report = info.verify_checkpoint(resumed.folder)
+    if not report["restorable"] or report["single"] is not None \
+            or any(report["slots"].values()):
+        fail(f"train slots: verify_checkpoint {report}")
+    launches = nonzero(attention.launch_counts)
+    want = flash_want(LAYERS, runs)
+    if launches != want:
+        fail(f"train slots: launches {launches}, expected {want}")
+    del resumed
+    release_memory(torch)
+    print(f"train slots: checkpoint_mode='sharded', preempted after 2 "
+          f"commits, active slot {corrupted} corrupted; the resume fell "
+          f"back to the sibling with the WARN, re-ran epochs 2-3: "
+          f"{verdict}; verify_checkpoint {report['slots']} active "
+          f"{report['active']} restorable; slot {nbytes} bytes, slot "
+          f"commits {[round(x, 3) for x in commits + resume_commits]} s, "
+          f"sha256 of arrays.pt {sha_s:.3f} s, restore with the fallback "
+          f"{restores[0]:.3f} s; launches {launches} [{card}]", flush=True)
+    return launches, commits + resume_commits
+
+
+def phase_train_async(torch, card, root, clean, spread, slot_commits):
+    """Phase 37: `checkpoint_async=True`. Returns row 1 and 4 launches."""
+    import atexit
+    from flashy_tpu_torch.checkpoint import _load_slot, read_slot_pointer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.resilience import chaos
+    attention.reset_launch_counts()
+    runs = []
+    finalizes, waits, background, epoch2 = [], [], [], {}
+
+    def setup(solver):
+        commit = solver.commit
+
+        def commit_and_keep(*args, **kwargs):
+            before = len(finalizes)
+            out = commit(*args, **kwargs)
+            waits.append(sum(finalizes[before:]))
+            saver = solver._async_checkpointer
+            background.append(saver.last_background_seconds)
+            if len(solver.history) == 2:
+                # the live state at the epoch-2 commit, cloned on the
+                # card behind the snapshot's copies (no host wait)
+                epoch2.update({k: v.clone() for k, v in solver_state(
+                    torch, {"model": solver.model.state_dict(),
+                            "optimizer": solver.optimizer.state_dict()})
+                    .items()})
+            return out
+
+        solver.commit = commit_and_keep
+        timed_method(solver, "_finalize_async_attributed", finalizes)
+
+    solver, code, commits, _, steps, valid = resilience_run(
+        torch, Path(root) / "async", mode="sharded", use_async=True,
+        setup=setup)
+    runs.append((steps, valid))
+    begin = time.perf_counter()
+    solver.finalize_checkpoints()
+    final_s = time.perf_counter() - begin
+    background.append(solver._async_checkpointer.last_background_seconds)
+    atexit.unregister(solver.finalize_checkpoints)
+    if code is not None or len(solver.history) != 3:
+        fail(f"train async: exit {code}, {len(solver.history)} epochs")
+    verdict = resume_verdict(torch, "train async",
+                             (solver.history, host_state(torch, solver)),
+                             clean, spread)
+    directory = solver.sharded_checkpoint_path
+    sibling = {"slot0": "slot1", "slot1": "slot0"}[
+        read_slot_pointer(directory)]
+    written = solver_state(torch, _load_slot(directory, sibling))
+    differ, worst = state_spread(torch, written, epoch2)
+    if differ:
+        fail(f"train async: the epoch-2 slot differs from the state at "
+             f"its commit in {differ} leaves (max {worst}): the snapshot "
+             f"was not taken before the next in-place update")
+    solver._async_checkpointer.close()
+    del solver, written
+    epoch2.clear()
+    release_memory(torch)
+    # the first background write fails on every retry: the next commit
+    # raises and rolls back the epoch it covered
+    injector = chaos.install(strict=True)
+    injector.fail_at("ckpt.write", call=1, times=4)
+    from flashy_tpu_torch.examples.lm.solver import LMSolver
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    xp = lm_main.get_xp(RESILIENCE_ARGS + [f"dora.dir={Path(root) / 'fault'}"])
+    with xp.enter():
+        faulty = LMSolver(xp.cfg, device=torch.device("cuda"))
+        faulty.checkpoint_mode = "sharded"
+        faulty.checkpoint_async = True
+        faulty.run_stage("train", faulty.train)
+        faulty.run_stage("valid", faulty.valid)
+        faulty.commit()
+        faulty.run_stage("train", faulty.train)
+        faulty.run_stage("valid", faulty.valid)
+        raised = None
+        try:
+            faulty.commit()
+        except OSError as error:
+            raised = error
+        on_disk = json.loads((faulty.folder / "history.json").read_text())
+        atexit.unregister(faulty.finalize_checkpoints)
+    chaos.uninstall()
+    runs.append((len(faulty.step_seconds), 2))
+    if raised is None or faulty.history != [] or on_disk != [] \
+            or not faulty._pending_metrics \
+            or injector.hits("ckpt.write") != 4:
+        fail(f"train async: the failed background write: raised "
+             f"{raised!r}, history {len(faulty.history)} epochs, "
+             f"history.json {on_disk}, ckpt.write hits "
+             f"{injector.hits('ckpt.write')}")
+    launches = nonzero(attention.launch_counts)
+    want = flash_want(LAYERS, runs)
+    if launches != want:
+        fail(f"train async: launches {launches}, expected {want}")
+    del faulty
+    release_memory(torch)
+    snapshots = [c - w for c, w in zip(commits, waits)]
+    print(f"train async: checkpoint_async=True, 3 epochs: final state "
+          f"against the clean run: {verdict}; the epoch-2 slot (written "
+          f"while epoch 3 updated in place) bit-equal to the state at its "
+          f"commit; commit() host-blocking {[round(x, 3) for x in commits]}"
+          f" s, of which waiting for the previous save "
+          f"{[round(x, 3) for x in waits]} s and snapshot + start "
+          f"{[round(x, 3) for x in snapshots]} s, the last save's finalize "
+          f"{final_s:.3f} s; background writes "
+          f"{[round(x, 3) for x in background if x is not None]} s; "
+          f"synchronous slot commits (train slots) "
+          f"{[round(x, 3) for x in slot_commits]} s; a failed background "
+          f"write (ckpt.write x4) raised {type(raised).__name__} at the "
+          f"next commit and rolled epoch 1 back (history [] in memory and "
+          f"in history.json); launches {launches} [{card}]", flush=True)
+    return launches
+
+
+HANG_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=2", "valid_steps=1",
+                               "epochs=1"]
+
+
+def hang_child(folder):
+    """The hang abort phase's subprocess: train 2 steps of `train`'s model
+    with telemetry, start the hang watchdog, run 1 valid step, print the
+    launches and the time, then block the main thread on the card."""
+    import torch
+    from flashy_tpu_torch.examples.lm.solver import LMSolver
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.logging import setup_logging
+    from flashy_tpu_torch.ops import attention
+    setup_logging(with_file_log=False)
+    xp = lm_main.get_xp(HANG_ARGS + [f"dora.dir={folder}"])
+    with xp.enter():
+        solver = LMSolver(xp.cfg, device=torch.device("cuda"))
+        solver.enable_telemetry(heartbeat_interval=0.25,
+                                with_device_stats=False)
+        solver.run_stage("train", solver.train)
+        solver.enable_hang_watchdog(warn_after=HANG_WARN,
+                                    abort_after=HANG_ABORT,
+                                    interval=HANG_INTERVAL)
+        solver.run_stage("valid", solver.valid)
+        torch.cuda.synchronize()
+        print(json.dumps({"launches": nonzero(attention.launch_counts),
+                          "blocking": time.time()}), flush=True)
+        torch.cuda._sleep(HANG_CYCLES)
+        torch.cuda.synchronize()
+    print(json.dumps({"returned": time.time()}), flush=True)
+
+
+def phase_hang_abort(torch, card, root):
+    """Phase 38. Returns the child's row 1 and 4 launches."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.hang_child(sys.argv[2])")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                             str(root)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("hang abort: the child did not end within 300 s")
+    ended = time.time()
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    blocking = next((line for line in lines if "blocking" in line), None)
+    if proc.returncode != 70 or blocking is None \
+            or any("returned" in line for line in lines):
+        fail(f"hang abort: exit {proc.returncode}, stdout {out[-400:]!r}, "
+             f"stderr {err[-1200:]!r}")
+    latency = ended - blocking["blocking"]
+    warn = f"hang watchdog: rank(s) [0] heartbeat stalled past " \
+           f"{HANG_WARN:.0f}s — 1/1 ranks"
+    abort = f"hang watchdog: aborting (exit 70): rank(s) [0] stalled past " \
+            f"{HANG_ABORT:.0f}s"
+    if not HANG_ABORT - 0.5 <= latency <= HANG_BOUND or warn not in err \
+            or abort not in err:
+        fail(f"hang abort: exit 70 after {latency:.2f} s (bound "
+             f"{HANG_BOUND} s), stderr {err[-1200:]!r}")
+    launches = blocking["launches"]
+    want = flash_want(LAYERS, [(2, 1)])
+    if launches != want:
+        fail(f"hang abort: the child's launches {launches}, expected {want}")
+    line = next(x for x in err.splitlines() if warn in x)
+    print(f"hang abort: the child trained 2 steps + 1 valid with "
+          f"telemetry, blocked its main thread in torch.cuda.synchronize() "
+          f"behind a ~20 s device sleep, and the watchdog thread (warn "
+          f"{HANG_WARN} s, abort {HANG_ABORT} s, poll {HANG_INTERVAL} s) "
+          f"exited it with 70 after {latency:.3f} s (bound {HANG_BOUND} "
+          f"s); WARN on stderr: {line.split('hang watchdog:', 1)[1][:160]!r}"
+          f"; launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def phase_drill(card):
+    """Phase 39: the chaos drill in a process of its own."""
+    begin = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "flashy_tpu_torch.resilience"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    seconds = time.perf_counter() - begin
+    if out.returncode != 0 or "chaos drill passed" not in out.stderr:
+        fail(f"drill: exit {out.returncode}: {out.stderr[-800:]}")
+    passes = out.stderr.count("PASS:")
+    print(f"drill: python -m flashy_tpu_torch.resilience exit 0, {passes} "
+          f"checks passed in {seconds:.1f} s [{card}]", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -5986,6 +6515,28 @@ def main() -> None:
         telemetry_launches = phase_train_telemetry(torch, device, card,
                                                    folder)
     lap("train telemetry")
+
+    # item 9's resilience half: the preemption guard, A/B slots,
+    # asynchronous saves, the hang watchdog and the chaos drill
+    release_memory(torch)
+    with tempfile.TemporaryDirectory() as folder:
+        clean, spread, preempt_launches = phase_train_preempt(torch, card,
+                                                              folder)
+    lap("train preempt")
+    with tempfile.TemporaryDirectory() as folder:
+        slots_launches, slot_commits = phase_train_slots(
+            torch, card, folder, clean, spread)
+    lap("train slots")
+    with tempfile.TemporaryDirectory() as folder:
+        async_launches = phase_train_async(torch, card, folder, clean,
+                                           spread, slot_commits)
+    lap("train async")
+    del clean
+    with tempfile.TemporaryDirectory() as folder:
+        hang_launches = phase_hang_abort(torch, card, folder)
+    lap("hang abort")
+    phase_drill(card)
+    lap("drill")
     print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
@@ -6144,6 +6695,12 @@ def main() -> None:
         "flash_bwd_fused": {"scan train": scan_train["flash_bwd_fused"],
                             "train telemetry": telemetry_launches[
                                 "flash_bwd_fused"]}}
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        for phase, counts in (("train preempt", preempt_launches),
+                              ("train slots", slots_launches),
+                              ("train async", async_launches),
+                              ("hang abort", hang_launches)):
+            layouts[name][phase] = counts[name]
     for name in ("flash_fwd_general", "flash_bwd_fused_general", "gmm",
                  "gmm_t", "tgmm"):
         layouts[name] = {f"scan step {case}": counts[name]

@@ -17,7 +17,10 @@ These slices of the JAX package run here, on an NVIDIA H100:
   (`loggers`); `python -m flashy_tpu_torch.info` lists the XPs;
 * serving: the TransformerLM behind a paged KV cache and a continuous-
   batching scheduler, every paged-attention read through the kernel of
-  `csrc/paged_decode.cu` (`ops.paged_decode`).
+  `csrc/paged_decode.cu` (`ops.paged_decode`);
+* fault tolerance (`resilience`): the preemption guard, retried IO,
+  checkpoint manifests with A/B slots and asynchronous saves, the hang
+  watchdog and the chaos drill (`python -m flashy_tpu_torch.resilience`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; the
 package imports torch, numpy and yaml, never JAX or the JAX package.
@@ -28,6 +31,7 @@ __version__ = "0.2.0"
 from . import distrib  # noqa: F401
 from .formatter import Formatter  # noqa: F401
 from .logging import LogProgressBar, ResultLogger, bold, setup_logging  # noqa: F401
+from .resilience import enable_preemption_guard  # noqa: F401
 from .solver import BaseSolver  # noqa: F401
 from .utils import averager  # noqa: F401
 from .xp import get_xp, main  # noqa: F401

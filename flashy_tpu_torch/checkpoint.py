@@ -1,52 +1,487 @@
-"""Single-file checkpoints and the torch state-dict interop (the port of
-the single-file half of flashy_tpu/checkpoint.py).
+"""Checkpoint IO: single files, A/B slots on one process, asynchronous
+slot saves, and the torch state-dict interop (the port of
+flashy_tpu/checkpoint.py).
 
-`save_state` writes a solver's state dict with `torch.save` through
-`write_and_rename`, so a process killed mid-write never leaves a
-truncated checkpoint; `load_state` reads it back onto the CPU with
-`torch.load(weights_only=True)`, which unpickles only tensors and plain
-containers. Module and optimizer state dicts load into their live
-objects, which puts the tensors back on their devices. The sharded
-(Orbax) half has no counterpart yet.
+* `save_state` / `load_state`: one `torch.save` file written through
+  `write_and_rename` (a process killed mid-write never leaves a
+  truncated checkpoint) with an integrity sidecar; loading verifies the
+  sidecar, then reads onto the CPU with `torch.load(weights_only=True)`,
+  which unpickles only tensors and plain containers.
+* `save_state_sharded` / `load_state_sharded`: two alternating slots
+  under a directory and a `CURRENT` pointer renamed over only once the
+  new slot is complete: the tensors in `arrays.pt`, the rest of the
+  state (a skeleton with an `ArraySlot` marker where each tensor was) in
+  `state.pkl`, a sha256 manifest of both, then the pointer flip. A crash
+  mid-save leaves the previous slot active; a corrupt active slot falls
+  back to its sibling.
+* `AsyncShardedCheckpointer`: the same slots, the tensor write in a
+  background thread. The snapshot copies every CUDA tensor to pinned
+  host memory on the current stream before `save` returns, so the next
+  in-place `optimizer.step()` runs after the copy in stream order; the
+  commit (skeleton, manifest, pointer) waits for `finalize_pending`.
+
+Module and optimizer state dicts load into their live objects, which
+puts the tensors back on their devices. Several ranks, declared state
+shardings and resharding at restore raise (`TODO_SHARDED`).
 
 `to_torch_state_dict` / `from_torch_state_dict` flatten a nested tree to
 '.'-joined keys and back, and `import_flashy_checkpoint` reads a
 checkpoint of the original flashy (a `torch.save` file) for the port's
 `BaseSolver.load_state_dict`.
 """
+import logging
+import threading
+import time
 import typing as tp
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import distrib
+from .resilience import chaos
+from .resilience.integrity import (MANIFEST_NAME, CheckpointCorrupted,
+                                   CheckpointError, file_digest, sidecar_path,
+                                   verify_file, verify_slot, write_manifest,
+                                   write_sidecar)
+from .resilience.retry import call_with_retry
 from .utils import AnyPath, write_and_rename
 
-TODO_SHARDED = ("ROADMAP.md queue A item 8 (sharded and asynchronous "
-                "checkpoints)")
+logger = logging.getLogger(__name__)
+
+TODO_SHARDED = ("ROADMAP.md queue A item 8 (checkpoints across several "
+                "ranks, declared state shardings and resharding at restore)")
+
+POINTER = "CURRENT"
+SLOTS = ("slot0", "slot1")
+SKELETON_NAME = "state.pkl"
+ARRAYS_NAME = "arrays.pt"
+
+
+class NumpyArray:
+    """A numpy array (or numpy scalar) of the state, held as a tensor copy
+    so that `weights_only` loading accepts it; loading gives the numpy
+    value back."""
+
+    def __init__(self, tensor: torch.Tensor, scalar: bool = False):
+        self.tensor = tensor
+        self.scalar = scalar
+
+    def numpy(self) -> tp.Any:
+        value = self.tensor.numpy()
+        return value[()] if self.scalar else value
 
 
 def _plain(value: tp.Any) -> tp.Any:
     """Mappings (the attribute-access `xp.Config` among them) as plain
-    dicts, so the file holds only what `weights_only` loading accepts."""
+    dicts and numpy values as `NumpyArray` copies, so the file holds
+    only what `weights_only` loading accepts."""
     if isinstance(value, dict):
         return {key: _plain(item) for key, item in value.items()}
     if isinstance(value, (list, tuple)):
         return type(value)(_plain(item) for item in value)
+    if isinstance(value, (np.ndarray, np.generic)) \
+            and not isinstance(value, (np.str_, np.bytes_, np.object_)):
+        return NumpyArray(torch.from_numpy(np.array(value)),
+                          scalar=isinstance(value, np.generic))
     return value
 
 
+def _unplain(value: tp.Any) -> tp.Any:
+    """The inverse of `_plain`'s numpy step, after loading."""
+    if isinstance(value, NumpyArray):
+        return value.numpy()
+    if isinstance(value, dict):
+        return {key: _unplain(item) for key, item in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_unplain(item) for item in value)
+    return value
+
+
+def _one_process(what: str) -> None:
+    if distrib.is_distributed():
+        raise NotImplementedError(
+            f"{what} across {distrib.world_size()} ranks is not ported "
+            f"yet: {TODO_SHARDED}")
+
+
+def _write_state_file(path: AnyPath, payload: tp.Any,
+                      sidecar: bool = True) -> None:
+    """Atomic `torch.save`, retried on transient IO failure (the
+    `ckpt.write` fault site). The retried unit is idempotent. `sidecar`
+    writes the integrity sidecar of a single-file checkpoint (slots get
+    a manifest instead, written by `_commit_slot`)."""
+
+    def write() -> None:
+        chaos.fault_point("ckpt.write", path=str(path))
+        with write_and_rename(path, "wb") as f:
+            torch.save(payload, f)
+        if sidecar:
+            write_sidecar(path)
+
+    call_with_retry(write, name="ckpt.write", retry_on=(OSError,))
+
+
+def _read_state_file(path: AnyPath, what: str) -> tp.Any:
+    """`torch.load(weights_only=True)` onto the CPU, retrying transient
+    IO (the `ckpt.load` fault site); a file that does not unpickle
+    raises CheckpointError naming `what` and the path."""
+
+    def read() -> tp.Any:
+        chaos.fault_point("ckpt.load", path=str(path))
+        try:
+            return torch.load(path, map_location="cpu", weights_only=True)
+        except OSError:
+            raise
+        except Exception as exc:
+            raise CheckpointError(
+                f"failed to unpickle {what} at {path}: "
+                f"{type(exc).__name__}: {exc}") from exc
+
+    return call_with_retry(read, name="ckpt.load", retry_on=(OSError,))
+
+
 def save_state(state: tp.Any, path: AnyPath) -> None:
-    """Write a state dict to one file, atomically."""
-    with write_and_rename(path, "wb") as f:
-        torch.save(_plain(state), f)
+    """Write a state dict to one file, atomically, with its sidecar."""
+    _one_process("a single-file save")
+    _write_state_file(path, _plain(state))
 
 
 def load_state(path: AnyPath) -> tp.Any:
-    """Load a state dict written by `save_state`, tensors on the CPU."""
+    """Load a state dict written by `save_state`, tensors on the CPU.
+
+    A file with a sidecar is verified before unpickling (a mismatch
+    raises `CheckpointCorrupted`); a file that does not unpickle raises
+    `CheckpointError` naming the path; a missing file stays a
+    `FileNotFoundError` (absence is not corruption)."""
     if not Path(path).exists():
         raise FileNotFoundError(f"No checkpoint at {path}")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    problems = verify_file(path)
+    if problems:
+        raise CheckpointCorrupted(
+            f"single-file checkpoint {path} failed integrity verification: "
+            + "; ".join(problems))
+    return _unplain(_read_state_file(path, "single-file checkpoint"))
+
+
+class ArraySlot:
+    """Marker left in a slot's skeleton where a tensor was taken out into
+    the slot's `arrays.pt` (keyed by its path in the state)."""
+
+    def __init__(self, key: str):
+        self.key = key
+
+    def __repr__(self) -> str:
+        return f"ArraySlot({self.key!r})"
+
+    def __eq__(self, other: tp.Any) -> bool:
+        return isinstance(other, ArraySlot) and other.key == self.key
+
+    def __hash__(self) -> int:
+        return hash(("ArraySlot", self.key))
+
+
+# files load with weights_only=True: the two markers are allow-listed
+torch.serialization.add_safe_globals([ArraySlot, NumpyArray])
+
+
+def _extract_tensors(state: tp.Any
+                     ) -> tp.Tuple[tp.Any, tp.Dict[str, torch.Tensor]]:
+    """Split `state` into (skeleton, tensors): every tensor leaf moves
+    into the flat `tensors` dict, keyed by its path (`['model']['w']`,
+    `['optimizer']['state'][0]['exp_avg']`), and leaves an `ArraySlot`
+    behind; every other value stays in the skeleton."""
+    tensors: tp.Dict[str, torch.Tensor] = {}
+
+    def visit(node: tp.Any, key: str) -> tp.Any:
+        if isinstance(node, torch.Tensor):
+            tensors[key] = node
+            return ArraySlot(key)
+        if isinstance(node, dict):
+            return {k: visit(v, f"{key}[{k!r}]") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(visit(v, f"{key}[{i}]")
+                              for i, v in enumerate(node))
+        return node
+
+    return visit(state, ""), tensors
+
+
+def _fill(skeleton: tp.Any, tensors: tp.Mapping[str, torch.Tensor]
+          ) -> tp.Any:
+    """The inverse of `_extract_tensors`."""
+    if isinstance(skeleton, ArraySlot):
+        return tensors[skeleton.key]
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, tensors) for k, v in skeleton.items()}
+    if isinstance(skeleton, (list, tuple)):
+        return type(skeleton)(_fill(v, tensors) for v in skeleton)
+    return skeleton
+
+
+def tensor_bytes(state: tp.Any) -> int:
+    """Total bytes of the tensor leaves of `state` (commit's 'auto' mode
+    compares it with `sharded_checkpoint_min_bytes`)."""
+    _, tensors = _extract_tensors(state)
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def read_slot_pointer(directory: AnyPath) -> tp.Optional[str]:
+    """The active slot named by `CURRENT`, or None."""
+    pointer = Path(directory) / POINTER
+    if not pointer.exists():
+        return None
+    name = pointer.read_text().strip()
+    return name if name in SLOTS else None
+
+
+def sharded_checkpoint_exists(directory: AnyPath) -> bool:
+    """True when `directory` holds a committed slot save that at least
+    one slot could restore: the pointer must exist, but an active slot
+    whose payload went missing does not hide a restorable sibling."""
+    directory = Path(directory)
+    if read_slot_pointer(directory) is None:
+        return False
+    return any((directory / s / SKELETON_NAME).exists() for s in SLOTS)
+
+
+def _prepare_slot(directory: Path, names: tp.Sequence[str]
+                  = (SKELETON_NAME, MANIFEST_NAME, ARRAYS_NAME)) -> str:
+    """Pick the inactive slot and clear `names` in it: an aborted earlier
+    write must leave neither a complete look (the skeleton) nor a stale
+    manifest; the old tensors go first too, to free their disk."""
+    active = read_slot_pointer(directory)
+    target = SLOTS[1] if active == SLOTS[0] else SLOTS[0]
+    slot_dir = directory / target
+    slot_dir.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        stale = slot_dir / name
+        if stale.exists():
+            stale.unlink()
+    return target
+
+
+def _commit_slot(directory: Path, target: str, skeleton: tp.Any,
+                 on_commit: tp.Optional[tp.Callable[[], None]] = None,
+                 known: tp.Optional[tp.Mapping[str, tp.Tuple[str, int]]]
+                 = None) -> None:
+    """Make slot `target` the active checkpoint: write the skeleton (the
+    commit marker), then the manifest (`ckpt.manifest`), then flip the
+    CURRENT pointer atomically (`ckpt.pointer`), each retried on
+    transient IO. `known` passes digests the writer already took.
+    `on_commit` runs after the flip: cleanup that must not precede
+    durability."""
+    _write_state_file(directory / target / SKELETON_NAME, skeleton,
+                      sidecar=False)
+
+    def write_slot_manifest() -> None:
+        chaos.fault_point("ckpt.manifest", slot=target)
+        write_manifest(directory / target, known=known)
+
+    call_with_retry(write_slot_manifest, name="ckpt.manifest",
+                    retry_on=(OSError,))
+
+    def flip_pointer() -> None:
+        chaos.fault_point("ckpt.pointer", slot=target)
+        with write_and_rename(directory / POINTER, "w") as f:
+            f.write(target)
+
+    call_with_retry(flip_pointer, name="ckpt.pointer", retry_on=(OSError,))
+    if on_commit is not None:
+        on_commit()
+
+
+def save_state_sharded(state: tp.Any, directory: AnyPath) -> None:
+    """Write `state` into the inactive slot of `directory` and make it
+    active (one process; the tensors in `arrays.pt`, the rest in the
+    skeleton). Costs twice the disk of one checkpoint, the A/B trade."""
+    _one_process("a slot save")
+    directory = Path(directory).absolute()
+    skeleton, tensors = _extract_tensors(_plain(state))
+    target = _prepare_slot(directory)
+    if tensors:
+        _write_state_file(directory / target / ARRAYS_NAME, tensors,
+                          sidecar=False)
+    _commit_slot(directory, target, skeleton)
+
+
+class AsyncShardedCheckpointer:
+    """Asynchronous `save_state_sharded`.
+
+    `save()` snapshots the tensors to host memory and returns while a
+    background thread writes `arrays.pt` (and takes its digest); the
+    commit (skeleton, manifest, pointer flip) is deferred to
+    `finalize_pending()`, called at the start of the next `save()` and
+    by `wait()` / `close()`, so a crash mid-write leaves the previous
+    slot active. A write failure surfaces there.
+
+    The snapshot copies each CUDA tensor into a pinned host buffer with
+    `non_blocking=True` on the current stream and records an event the
+    writer waits on: the copy precedes any later in-place update of the
+    live tensor in stream order. CPU tensors are cloned. The pinned
+    buffers are kept and reused by the next save of the same shapes.
+    """
+
+    def __init__(self) -> None:
+        self._pending: tp.Optional[tp.Tuple[tp.Any, ...]] = None
+        self._pinned: tp.Dict[str, torch.Tensor] = {}
+        # seconds the last finished background write took (event wait,
+        # write and digest), for the records
+        self.last_background_seconds: tp.Optional[float] = None
+
+    def _snapshot(self, tensors: tp.Mapping[str, torch.Tensor]
+                  ) -> tp.Tuple[tp.Dict[str, torch.Tensor], tp.Any]:
+        host: tp.Dict[str, torch.Tensor] = {}
+        on_cuda = False
+        for key, tensor in tensors.items():
+            tensor = tensor.detach()
+            if tensor.device.type != "cuda":
+                host[key] = tensor.clone()
+                continue
+            buffer = self._pinned.get(key)
+            if buffer is None or buffer.shape != tensor.shape \
+                    or buffer.dtype != tensor.dtype:
+                buffer = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                     pin_memory=True)
+                self._pinned[key] = buffer
+            buffer.copy_(tensor, non_blocking=True)
+            host[key] = buffer
+            on_cuda = True
+        event = None
+        if on_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    @staticmethod
+    def _write(path: Path, host: tp.Dict[str, torch.Tensor], event: tp.Any,
+               box: tp.Dict[str, tp.Any]) -> None:
+        begin = time.perf_counter()
+        try:
+            # the slot's old tensors: freeing a large file takes a
+            # while, which the caller of save() does not wait for
+            if path.exists():
+                path.unlink()
+            if event is not None:
+                event.synchronize()
+            _write_state_file(path, host, sidecar=False)
+            box["digest"] = file_digest(path)
+        except BaseException as exc:  # re-raised by finalize_pending
+            box["error"] = exc
+        box["seconds"] = time.perf_counter() - begin
+
+    def save(self, state: tp.Any, directory: AnyPath,
+             on_commit: tp.Optional[tp.Callable[[], None]] = None) -> None:
+        """Start an asynchronous save. `on_commit` runs once the
+        checkpoint is durable and active: put the cleanup of superseded
+        checkpoints there, never before."""
+        self.finalize_pending()
+        _one_process("an asynchronous slot save")
+        directory = Path(directory).absolute()
+        skeleton, tensors = _extract_tensors(_plain(state))
+        host, event = self._snapshot(tensors)
+        target = _prepare_slot(directory, (SKELETON_NAME, MANIFEST_NAME))
+        box: tp.Dict[str, tp.Any] = {}
+        thread = None
+        if host:
+            thread = threading.Thread(
+                target=self._write, name="flashy-ckpt-writer", daemon=True,
+                args=(directory / target / ARRAYS_NAME, host, event, box))
+            thread.start()
+        self._pending = (directory, target, skeleton, on_commit, thread, box)
+
+    def finalize_pending(self) -> None:
+        """Block until the in-flight save is durable, then commit it."""
+        if self._pending is None:
+            return
+        directory, target, skeleton, on_commit, thread, box = self._pending
+        self._pending = None
+        known = None
+        if thread is not None:
+            thread.join()
+            self.last_background_seconds = box["seconds"]
+            if "error" in box:
+                raise box["error"]
+            known = {ARRAYS_NAME: box["digest"]}
+        _commit_slot(directory, target, skeleton, on_commit, known=known)
+
+    # `wait` reads naturally at call sites that just need durability.
+    wait = finalize_pending
+
+    def close(self) -> None:
+        self.finalize_pending()
+        self._pinned.clear()
+
+
+def _load_slot(directory: Path, slot: str) -> tp.Any:
+    """Verify one slot against its manifest and load it (skeleton, then
+    its tensors). Raises CheckpointError naming the slot on a mismatch,
+    a missing commit marker or a file that does not unpickle: the
+    signal `load_state_sharded` falls back on."""
+    slot_dir = directory / slot
+    if not (slot_dir / SKELETON_NAME).exists():
+        raise CheckpointError(f"slot {slot!r} of {directory} has no "
+                              f"committed {SKELETON_NAME}")
+    problems = verify_slot(slot_dir)
+    if problems:
+        raise CheckpointError(
+            f"slot {slot!r} of {directory} failed integrity verification: "
+            + "; ".join(problems))
+    skeleton = _read_state_file(slot_dir / SKELETON_NAME,
+                                f"slot {slot!r} skeleton")
+    tensors: tp.Dict[str, torch.Tensor] = {}
+    if (slot_dir / ARRAYS_NAME).exists():
+        tensors = _read_state_file(slot_dir / ARRAYS_NAME,
+                                   f"slot {slot!r} tensors")
+    try:
+        return _unplain(_fill(skeleton, tensors))
+    except KeyError as exc:
+        raise CheckpointError(f"slot {slot!r} of {directory}: the skeleton "
+                              f"names tensor {exc} that arrays.pt lacks"
+                              ) from exc
+
+
+def load_state_sharded(directory: AnyPath) -> tp.Any:
+    """Restore a `save_state_sharded` checkpoint, tensors on the CPU.
+
+    Each slot is verified against its manifest before unpickling. When
+    the active slot is corrupt or unreadable, restore falls back to the
+    sibling with a loud WARN (the run resumes from the previous
+    committed epoch, its history rolled back with it) and repoints
+    CURRENT at it, so the next save overwrites the bad slot and not the
+    only good copy. Only when both slots are bad does it raise
+    `CheckpointCorrupted`.
+    """
+    _one_process("a slot restore")
+    directory = Path(directory).absolute()
+    active = read_slot_pointer(directory)
+    if active is None:
+        raise FileNotFoundError(
+            f"No committed sharded checkpoint in {directory}")
+    sibling = SLOTS[1] if active == SLOTS[0] else SLOTS[0]
+    errors: tp.List[str] = []
+    for candidate in (active, sibling):
+        try:
+            state = _load_slot(directory, candidate)
+        except CheckpointError as exc:
+            errors.append(str(exc))
+            logger.warning(
+                "checkpoint slot %r of %s is unreadable or corrupt: %s%s",
+                candidate, directory, exc,
+                " — falling back to the sibling A/B slot"
+                if candidate == active else "")
+            continue
+        if candidate != active:
+            logger.warning(
+                "RESTORED FROM FALLBACK SLOT %r of %s: the active slot %r "
+                "was corrupt; the run resumes from the previously committed "
+                "epoch.", candidate, directory, active)
+            with write_and_rename(directory / POINTER, "w") as f:
+                f.write(candidate)
+        return state
+    raise CheckpointCorrupted(
+        f"no restorable checkpoint slot in {directory} "
+        "(both A/B slots failed): " + " | ".join(errors))
 
 
 def to_torch_state_dict(tree: tp.Any, prefix: str = ""

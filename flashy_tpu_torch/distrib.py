@@ -80,3 +80,13 @@ def average_metrics(metrics: tp.Dict[str, float],
             f"average_metrics across {world_size()} processes is not "
             f"ported yet: {TODO_MULTIPROCESS}")
     return metrics
+
+
+def all_reduce_max(value: int) -> int:
+    """The largest `value` over the processes (every rank must call it
+    at the same point): the value itself at world size 1."""
+    if is_distributed():
+        raise NotImplementedError(
+            f"all_reduce_max across {world_size()} processes is not "
+            f"ported yet: {TODO_MULTIPROCESS}")
+    return value

@@ -29,6 +29,12 @@ and `train_step` take a `dropout_seed` for models with `dropout > 0`
 (each microbatch folds its index in); the solver itself trains without
 dropout, as the JAX solver does.
 
+The train loop calls `check_preemption()` after every step, so a
+preemption guard in 'abandon_stage' mode
+(`solver.enable_preemption_guard(mode="abandon_stage")`) stops the stage
+there; in the default 'finish_stage' mode the stage finishes and the run
+stops at the next boundary with exit code 75.
+
 The optimizer is the JAX package's optax chain, written out so a test
 can drive it on any model: `clip_by_global_norm(1.0)` (no epsilon, the
 norm taken before clipping is the logged `grad_norm`), then AdamW (eps
@@ -303,6 +309,9 @@ class LMSolver(BaseSolver):
                            [params[name] for name in self.state["ema"]],
                            self.ema_decay, step=self.state["step"])
             self.state["step"] += 1
+            # with a preemption guard in 'abandon_stage' mode a stop
+            # raises here; otherwise a no-op
+            self.check_preemption()
             # the wait for the card, charged to the step's device time
             # when telemetry times the steps (reading the metrics to the
             # host below would wait anyway)

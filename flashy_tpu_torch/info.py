@@ -8,22 +8,24 @@ metrics (the port of flashy_tpu/info.py).
 
     python -m flashy_tpu_torch.info ./outputs_torch --slo
 
-`--verify-checkpoint` loads each XP's single-file `checkpoint.th` with
-`checkpoint.load_state` and reports it; `--devices` reads
-`torch.cuda.mem_get_info` for every CUDA device; `--slo` renders each
-XP's `serve.json` `slo` block as the budget and burn-rate table. An XP
-with a `heartbeats/` folder gets the straggler report on its line. The
-fault-site report (`--faults`) and the fleet view come with the modules
-they read, which the port does not have yet: they raise
-NotImplementedError naming their ROADMAP entries.
+`--verify-checkpoint` checks each XP's checkpoints (the single file
+against its sidecar, both A/B slots against their manifests, the active
+slot starred; every verified file must also load with
+`weights_only=True`) and exits 1 when an XP has no restorable one left;
+`--devices` reads `torch.cuda.mem_get_info` for every CUDA device;
+`--slo` renders each XP's `serve.json` `slo` block as the budget and
+burn-rate table. An XP with a `heartbeats/` folder gets the straggler
+report on its line. The fault-site report (`--faults`) and the fleet
+view come with the modules they read, which the port does not have yet:
+they raise NotImplementedError naming their ROADMAP entries.
 """
 import argparse
 import json
 import typing as tp
 from pathlib import Path
 
-TODO_RESILIENCE = ("ROADMAP.md queue A item 9, resilience half (the "
-                   "chaos campaign and its fault-site registry)")
+TODO_RESILIENCE = ("ROADMAP.md queue A: item 9's chaos campaign, after "
+                   "datapipe/, and item 12's fault-site registry")
 TODO_FLEET = "ROADMAP.md queue A item 10 (serve/fleet/)"
 
 CHECKPOINT_META_NAME = "checkpoint_meta.json"
@@ -220,28 +222,19 @@ def format_verify_report(sig: str, report: tp.Mapping[str, tp.Any],
 
 def verify_checkpoint(folder: Path, checkpoint_name: str = "checkpoint.th"
                       ) -> tp.Dict[str, tp.Any]:
-    """The report `format_verify_report` reads for one XP folder: the
-    single-file checkpoint loaded with `checkpoint.load_state` (problems
-    [] when it loads, None when there is none). The port writes no
-    sharded slots yet, so `slots` is empty."""
-    from .checkpoint import load_state
-    report: tp.Dict[str, tp.Any] = {"single": None, "slots": {},
-                                    "active": None, "restorable": False}
-    path = Path(folder) / checkpoint_name
-    if path.exists():
-        try:
-            load_state(path)
-            report["single"] = []
-            report["restorable"] = True
-        except Exception as error:  # any unreadable file is a finding
-            report["single"] = [f"{path}: {type(error).__name__}: {error}"]
-    return report
+    """The report `format_verify_report` reads for one XP folder
+    (`resilience.verify_checkpoint`): the single file, each A/B slot and
+    the active one."""
+    from .resilience import verify_checkpoint as verify
+    return verify(folder, checkpoint_name=checkpoint_name)
 
 
 def verify_checkpoints(root: Path) -> int:
-    """Check every XP's checkpoint under `root`; the exit code is 1 when
-    an XP has a checkpoint that does not load, or when `root` holds no
-    experiments; 0 otherwise (XPs without checkpoints are fine)."""
+    """Integrity-check every XP's checkpoints under `root`; the exit code
+    is 1 when an XP has checkpoints but no verified restore source left,
+    or when `root` holds no experiments; 0 otherwise (XPs without
+    checkpoints are fine). The topology line comes from
+    `checkpoint_meta.json`."""
     xps_dir = Path(root) / "xps"
     if not xps_dir.is_dir():
         print(f"no experiments under {root}/xps")
@@ -251,15 +244,23 @@ def verify_checkpoints(root: Path) -> int:
         if not folder.is_dir():
             continue
         report = verify_checkpoint(folder)
-        print(format_verify_report(folder.name, report))
-        if report["single"] is not None and not report["restorable"]:
+        meta = folder / CHECKPOINT_META_NAME
+        topology = None
+        if meta.exists():
+            try:
+                topology = _read_json(meta).get("topology")
+            except (OSError, json.JSONDecodeError):
+                topology = None
+        print(format_verify_report(folder.name, report, topology=topology))
+        has_any = report["single"] is not None or report["slots"]
+        if has_any and not report["restorable"]:
             bad += 1
     return 1 if bad else 0
 
 
 def fault_site_report(strict: bool = False) -> int:
     """The fault-injection sites and their campaign coverage: comes with
-    the resilience package."""
+    the chaos campaign and the fault-site registry."""
     raise NotImplementedError(
         f"the fault-site report is not ported yet: {TODO_RESILIENCE}")
 
@@ -295,9 +296,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                         help="render each XP's SLO budget and burn table "
                              "from the `slo` block of its serve.json")
     parser.add_argument("--verify-checkpoint", action="store_true",
-                        help="load every XP's checkpoint.th; exit 1 when one "
-                             "does not load (or when no experiments exist "
-                             "under the root)")
+                        help="integrity-check every XP's checkpoints (file "
+                             "sidecar, A/B slot manifests); exit 1 when an "
+                             "XP has none restorable (or when no "
+                             "experiments exist under the root)")
     parser.add_argument("--faults", action="store_true",
                         help="list the fault-injection sites (not ported "
                              "yet)")

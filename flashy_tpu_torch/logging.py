@@ -241,8 +241,23 @@ class ResultLogger:
         self._experiment_loggers["wandb"] = WandbLogger.from_xp(**kwargs)
 
     def _fanout(self, method: str, *args: tp.Any, **kwargs: tp.Any) -> None:
-        for backend in self._experiment_loggers.values():
-            getattr(backend, method)(*args, **kwargs)
+        """Call `method` on every backend (the `logger.<name>` fault
+        site): a failure is retried once after a short backoff, and a
+        backend that stays broken degrades to a WARNING: a wandb outage
+        or a TensorBoard disk hiccup must never kill the run it
+        observes."""
+        from .resilience import chaos
+        from .resilience.retry import call_with_retry
+        for name, backend in self._experiment_loggers.items():
+            bound = getattr(backend, method)
+
+            def call(bound=bound, name=name) -> None:
+                chaos.fault_point(f"logger.{name}", method=method)
+                bound(*args, **kwargs)
+
+            call_with_retry(call, name=f"logger.{name}.{method}",
+                            attempts=2, base_delay=0.05, max_delay=0.5,
+                            retry_on=(Exception,), on_exhausted="warn")
 
     def log_hyperparams(self, params: tp.Union[tp.Dict[str, tp.Any],
                                                Namespace],

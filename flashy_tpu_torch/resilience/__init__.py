@@ -1,20 +1,57 @@
 """Fault tolerance of the PyTorch port (the port of
-flashy_tpu.resilience): so far the deterministic fault injector the
-serving path's chaos drills run under (`chaos`). The preemption guard,
-checkpoint integrity, retry, the hang watchdog and the chaos campaign
-come with ROADMAP.md queue A item 9's resilience half.
+flashy_tpu.resilience): the pieces that make "a preempted run resumes
+exactly at the last committed epoch" hold when the failure is not
+polite.
+
+  * PreemptionGuard  SIGTERM/SIGINT -> a cooperative stop at a stage or
+                     commit boundary; the requeue exit code 75
+  * integrity        sha256 manifests per slot and a sidecar per file;
+                     restore verifies before unpickling and falls back
+                     to the sibling A/B slot
+  * retry            exponential backoff with jitter for transient IO
+                     (checkpoint writes, history.json; metric backends
+                     degrade to warnings)
+  * FaultInjector    deterministic site-keyed fault injection: every
+                     recovery path above is tested through it
+  * HangWatchdog     WARNs, then optionally aborts (exit code 70) with a
+                     straggler report, when a rank's heartbeat stalls
+
+`python -m flashy_tpu_torch.resilience` is the chaos drill: it trains
+under an injected mid-stage SIGTERM, a transient IO fault and a
+corrupted active checkpoint slot, and checks the resumed run's history
+and state against an uninterrupted run. The chaos campaign (ROADMAP.md
+queue A) is not ported.
 
 Importing this package touches no CUDA device.
 """
 
+from .preemption import (  # noqa
+    EXIT_PREEMPTED, PreemptionGuard, PreemptionInterrupt,
+    enable_preemption_guard, disable_preemption_guard, get_preemption_guard,
+)
+from .integrity import (  # noqa
+    MANIFEST_NAME, CheckpointCorrupted, CheckpointError, file_digest,
+    verify_checkpoint, verify_file, verify_slot, write_manifest,
+    write_sidecar,
+)
+from .retry import backoff_delay, call_with_retry, retry  # noqa
 from .chaos import (  # noqa
     FaultInjector, InjectedFault, UnfiredFaultRules, corrupt_active_slot,
     corrupt_file, fault_point, get_injector, install, stall_heartbeat,
     uninstall,
 )
+from .hang import EXIT_HUNG, HangWatchdog  # noqa
 
 __all__ = [
+    "EXIT_PREEMPTED", "EXIT_HUNG", "PreemptionGuard", "PreemptionInterrupt",
+    "enable_preemption_guard", "disable_preemption_guard",
+    "get_preemption_guard",
+    "MANIFEST_NAME", "CheckpointError", "CheckpointCorrupted", "file_digest",
+    "write_manifest", "write_sidecar", "verify_slot", "verify_file",
+    "verify_checkpoint",
+    "retry", "call_with_retry", "backoff_delay",
     "FaultInjector", "InjectedFault", "UnfiredFaultRules", "install",
     "uninstall", "get_injector",
     "fault_point", "corrupt_file", "corrupt_active_slot", "stall_heartbeat",
+    "HangWatchdog",
 ]

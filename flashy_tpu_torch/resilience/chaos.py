@@ -6,10 +6,15 @@ framework's sites call `fault_point("site")` (one None-check when no
 injector is installed); a test or a chaos drill installs an injector
 with site-keyed rules (fail the Nth occurrence with an OSError, stall
 it, run an action) and afterwards reads `injector.fired` to prove the
-fault happened. The port's sites: ``serve.step`` (the scheduler's decode
-step, inside its inter-token-latency window), ``serve.pool`` (a paged
-admission's block reservation) and ``fleet.status`` (inside the
-`serve.json` atomic write, between the temporary write and the rename).
+fault happened. The port's sites: ``ckpt.write`` / ``ckpt.load`` (every
+checkpoint file written or read), ``ckpt.manifest`` / ``ckpt.pointer``
+(a slot's manifest and its CURRENT flip), ``history.write``
+(`history.json`), ``logger.<backend>`` (each metric backend of the
+fan-out), the chaos drill's ``drill.step``, ``serve.step`` (the
+scheduler's decode step, inside its inter-token-latency window),
+``serve.pool`` (a paged admission's block reservation) and
+``fleet.status`` (inside the `serve.json` atomic write, between the
+temporary write and the rename).
 """
 from pathlib import Path
 import dataclasses
@@ -21,11 +26,6 @@ import typing as tp
 from ..utils import AnyPath
 
 logger = logging.getLogger(__name__)
-
-TODO_PREEMPTION = ("ROADMAP.md queue A item 9, resilience half (the "
-                   "preemption guard)")
-TODO_SLOTS = ("ROADMAP.md queue A item 8 (sharded and A/B slot "
-              "checkpoints)")
 
 # Injected-latency faults sleep through this hook so tests can stub the
 # stall without stubbing the global clock.
@@ -108,11 +108,20 @@ class FaultInjector:
         self._rules.append(_Rule(site, call, times, action, "fail"))
 
     def preempt_at(self, site: str, call: int) -> None:
-        """Deliver a simulated SIGTERM through the preemption guard at
-        the `call`-th occurrence of `site`: the guard is not ported yet."""
-        raise NotImplementedError(
-            f"preempt_at({site!r}, {call}) fires through the preemption "
-            f"guard, which is not ported yet: {TODO_PREEMPTION}")
+        """Deliver a simulated SIGTERM (through the active
+        PreemptionGuard) at the `call`-th occurrence of `site`: the
+        cloud preemption notice, minus the cloud."""
+
+        def action() -> None:
+            from .preemption import get_preemption_guard
+            guard = get_preemption_guard()
+            if guard is None:
+                raise RuntimeError(
+                    f"preempt_at({site!r}) fired but no PreemptionGuard is "
+                    "enabled; call enable_preemption_guard() first.")
+            guard.simulate_signal()
+
+        self._rules.append(_Rule(site, call, 1, action, "preempt"))
 
     def act_at(self, site: str, call: int, action: tp.Callable[[], None],
                times: int = 1) -> None:
@@ -228,12 +237,8 @@ def fault_point(site: str, **context: tp.Any) -> None:
     """Framework-side hook: a named site where faults can be injected.
 
     Costs one None-check when no injector is installed, so it is safe
-    to leave in production paths. Sites in the port today:
-    ``serve.step`` (the scheduler's decode step, inside the window its
-    inter-token latency measures), ``serve.pool`` (the block pool's
-    reservation of a paged admission) and ``fleet.status`` (inside the
-    serve.json atomic write, between the temporary write and the
-    rename).
+    to leave in production paths; the sites are listed in the module
+    docstring.
     """
     if _injector is not None:
         _injector.tick(site, **context)
@@ -257,11 +262,17 @@ def corrupt_file(path: AnyPath, offset: int = 0, nbytes: int = 8) -> None:
 
 def corrupt_active_slot(directory: AnyPath,
                         filename: str = "state.pkl") -> str:
-    """Corrupt the active slot of an A/B slot checkpoint directory: the
-    port saves single-file checkpoints only, so there is no slot."""
-    raise NotImplementedError(
-        f"corrupt_active_slot({str(directory)!r}) needs slot checkpoints, "
-        f"which are not ported yet: {TODO_SLOTS}")
+    """Corrupt the active slot of an A/B slot checkpoint directory (the
+    one the CURRENT pointer names); returns the slot name. The sibling
+    is left intact: the state the A/B fallback exists for."""
+    from ..checkpoint import read_slot_pointer
+    directory = Path(directory)
+    slot = read_slot_pointer(directory)
+    if slot is None:
+        raise FileNotFoundError(f"no committed slot pointer in {directory}")
+    corrupt_file(directory / slot / filename, offset=1)
+    logger.info("chaos: corrupted %s of active slot %s", filename, slot)
+    return slot
 
 
 def stall_heartbeat(folder: AnyPath, rank: int, age: float) -> Path:

@@ -163,8 +163,19 @@ class Link:
 
     def update_history(self, history: tp.List[tp.Dict[str, tp.Any]]) -> None:
         self.history = list(history)
-        with write_and_rename(self.history_path, "w") as f:
-            json.dump(self.history, f, indent=2, default=float)
+
+        # Retried (the `history.write` fault site): one transient IO
+        # hiccup must not kill a run, and the atomic write-and-rename is
+        # idempotent; a persistent failure still raises, as losing the
+        # history would break resume.
+        def write() -> None:
+            from .resilience import chaos
+            chaos.fault_point("history.write", path=str(self.history_path))
+            with write_and_rename(self.history_path, "w") as f:
+                json.dump(self.history, f, indent=2, default=float)
+
+        from .resilience.retry import call_with_retry
+        call_with_retry(write, name="history.write", retry_on=(OSError,))
 
 
 @dataclass

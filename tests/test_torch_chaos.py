@@ -87,10 +87,16 @@ def test_strict_uninstall_raises_on_a_dead_rule():
         chaos.uninstall()
     with pytest.raises(ValueError, match=">= 0"):
         lax.delay_at("serve.step", 1, seconds=-1.0)
-    # the two helpers that wait on later ROADMAP items
-    with pytest.raises(NotImplementedError, match="item 9, resilience half"):
-        lax.preempt_at("serve.step", 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the two helpers the resilience half brought (driven in
+    # tests/test_torch_resilience.py): a preemption that fires with no
+    # guard enabled raises as the JAX package's does, and a directory
+    # without a slot pointer has no active slot to corrupt
+    chaos.install(lax)
+    lax.preempt_at("serve.step", 1)
+    with pytest.raises(RuntimeError, match="no PreemptionGuard"):
+        chaos.fault_point("serve.step")
+    chaos.uninstall(verify=False)
+    with pytest.raises(FileNotFoundError, match="no committed slot"):
         chaos.corrupt_active_slot("somewhere")
 
 

@@ -66,6 +66,11 @@ def test_package_imports_with_jax_unimportable():
         "import flashy_tpu_torch.resilience, "
         "flashy_tpu_torch.resilience.chaos, "
         "flashy_tpu_torch.serve.tracing, flashy_tpu_torch.serve.metrics\n"
+        "import flashy_tpu_torch.resilience.retry, "
+        "flashy_tpu_torch.resilience.integrity, "
+        "flashy_tpu_torch.resilience.preemption, "
+        "flashy_tpu_torch.resilience.hang, "
+        "flashy_tpu_torch.resilience.__main__\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")

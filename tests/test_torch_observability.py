@@ -345,16 +345,30 @@ def test_solver_under_telemetry_and_profiling_on_cpu(capsys):
 
 
 def test_solver_refuses_the_resilience_half():
+    # The resilience half is ported now (tests/test_torch_resilience.py
+    # drives it): the solver's two switches return a working guard and a
+    # running watchdog; what it still refuses is declared state sharding
+    # (ROADMAP queue A item 8).
+    from flashy_tpu_torch import resilience
     from flashy_tpu_torch.examples.lm.solver import LMSolver
     from flashy_tpu_torch.xp import temporary_xp
     cfg = _solver_config()
     with temporary_xp(cfg):
         solver = LMSolver(cfg, device="cpu")
-        for method in (solver.enable_preemption_guard,
-                       solver.enable_hang_watchdog):
-            with pytest.raises(NotImplementedError,
-                               match="item 9, resilience half"):
-                method()
+        watchdog = None
+        try:
+            guard = solver.enable_preemption_guard(install=False)
+            assert guard is resilience.get_preemption_guard()
+            assert not solver.check_preemption()
+            watchdog = solver.enable_hang_watchdog(warn_after=60.0,
+                                                   interval=0.05)
+            assert watchdog.check()["action"] is None
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+            resilience.disable_preemption_guard()
+        with pytest.raises(NotImplementedError, match="item 8"):
+            solver.set_state_sharding("model", None)
 
 
 def test_info_heartbeats_and_slo_views_match_jax(tmp_path, capsys,
