@@ -440,6 +440,41 @@ timed):
              its stderr;
  39. drill  `python -m flashy_tpu_torch.resilience` exits 0.
 
+ROADMAP queue A entry 1 (the streaming datapipe) and item 9's chaos
+campaign, last:
+
+ 40. datapipe drill  `python -m flashy_tpu_torch.datapipe` at its
+             defaults on the card (the tiny LM, dense attention, f32,
+             3 epochs x 6 steps of packed [4, 64] batches, killed in
+             epoch 2): exit 0, so the kill + resume token stream and
+             the final parameters equal the uninterrupted run's, the
+             kill exits 75 at the boundary, the prefetch counters saw
+             tokens and `data_wait_frac` is in the history;
+ 41. packed train  the pure-SSD 235M layout in bf16 (`ssd train`'s)
+             through a BaseSolver with the model, AdamW, the step count
+             and the pipe registered: a corpus of 8 jsonl and 8 .npy
+             shards made from `--seed` (documents of 16-3072 tokens),
+             two streams -> MixtureStream (0.7, 0.3) ->
+             SequencePacker(16, 1024) -> prefetch(size=2), the
+             segment-masked loss of the drill; two clean runs of 2 epochs
+             x 3 steps (telemetry on: `data_wait_frac`), a run preempted
+             through the `datapipe.batch` fault point at epoch 2 step 2
+             ('abandon_stage': exit 75, the prefetch thread closed), its
+             resume: the consumed token stream identical to the clean
+             run's and the state bit-identical, or within the clean runs'
+             spread; row 7 launched once a layer a step and recomputed as
+             often; then row 7 on the first packed batch's layer-0 inputs
+             (document resets as SSD_LOG_RESET, padding masked) against
+             the plain chunked form at phase 9's bars, timed; packing
+             efficiency, tokens/s over packed positions and over
+             non-padding tokens, step p50 beside `ssd train`'s, peak
+             memory, the prefetch's tokens/s, commit and restore seconds;
+ 42. campaign  `python -m flashy_tpu_torch.resilience --campaign
+             --scenarios datapipe --seed 0` on the card exits 0: the
+             calibration run and every schedule of the datapipe scenario
+             (a kill and a stall at `datapipe.batch`) keep the consumed
+             token stream and the losses.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
 before them. Each kernel's record also holds its launches on the model
@@ -4602,7 +4637,7 @@ def phase_ssd_train(torch, device, card, batch=16, steps=6):
     scan kernel launches once per layer per step, the backward
     recomputes as often; tokens/s and step p50 over steps 3..6, peak
     memory. A batch that does not fit is halved, and the line says so.
-    Returns the launch counts."""
+    Returns (the launch counts, the step p50 in ms)."""
     from flashy_tpu_torch.examples.lm.solver import (build_optimizer,
                                                      synthetic_token_stream,
                                                      train_step)
@@ -4658,7 +4693,7 @@ def phase_ssd_train(torch, device, card, batch=16, steps=6):
           f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, tokens/s="
           f"{tok_s:.1f}, step p50={p50:.2f} ms (steps 3..{steps}), peak "
           f"memory {peak:.1f} GiB; launches {counts} [{card}]", flush=True)
-    return counts
+    return counts, p50
 
 
 # ----------------------------------------------------------------------
@@ -6322,7 +6357,449 @@ def phase_drill(card):
           f"checks passed in {seconds:.1f} s [{card}]", flush=True)
 
 
+# ----------------------------------------------------------------------
+# phases 40-42: queue A entry 1, the streaming datapipe (the drill and
+# packed SSD training at full width), and item 9's chaos campaign
+# ----------------------------------------------------------------------
+PACKED_BATCH, PACKED_LEN = 16, 1024
+PACKED_EPOCHS, PACKED_STEPS = 2, 3
+PACKED_KILL_STEP = 2        # the epoch-2 step whose batch takes the SIGTERM
+PACKED_DOC_LENGTHS = (16, 3072)   # log-uniform document lengths
+PACKED_SHARDS = 8           # jsonl shards and .npy shards, each
+PACKED_VOCAB = 32768
+PACKED_ROUNDS = 4           # packed, unpacked, unpacked, packed: in turns
+
+
+def make_packed_corpus(root, seed):
+    """The packed-train corpus from `seed` with numpy: PACKED_SHARDS jsonl
+    shards of 12 token documents and PACKED_SHARDS .npy shards of 8
+    (right-padded with -1), token ids below PACKED_VOCAB, lengths
+    log-uniform over PACKED_DOC_LENGTHS: documents past 1024 tokens
+    split across rows, and most rows hold several documents."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = (math.log(x) for x in PACKED_DOC_LENGTHS)
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+
+    def length():
+        return int(math.exp(rng.uniform(lo, hi)))
+
+    corpus = {"jsonl": [], "npy": []}
+    for shard in range(PACKED_SHARDS):
+        path = root / f"web.{shard:02d}.jsonl"
+        with open(path, "w") as f:
+            for _ in range(12):
+                tokens = rng.integers(0, PACKED_VOCAB, length())
+                f.write(json.dumps({"tokens": tokens.tolist()}) + "\n")
+        corpus["jsonl"].append(path)
+        docs = np.full((8, PACKED_DOC_LENGTHS[1]), -1, dtype=np.int32)
+        for row in docs:
+            n = length()
+            row[:n] = rng.integers(0, PACKED_VOCAB, n)
+        path = root / f"code.{shard:02d}.npy"
+        np.save(path, docs)
+        corpus["npy"].append(path)
+    return corpus
+
+
+def packed_solver_class(torch):
+    """The datapipe drill's DatapipeSolver (its loop, fault point,
+    consumed log and commit / restore) training the pure-SSD 235M layout
+    (bf16) on packed [16, 1024] batches with the drill's segment-masked
+    loss (`packed_next_token_loss`), AdamW through `train_step`. The
+    model, the optimizer, the step count and the outermost pipe (two
+    streams -> MixtureStream (0.7, 0.3) -> SequencePacker(16, 1024) ->
+    prefetch(size=2)) are stateful. Every step is timed twice: the step
+    alone (`step_seconds`: the update to the loss on the host, as `ssd
+    train` times it) and its whole turn of the loop (`step_wall`: from
+    the end of the previous step, or the stage's start, so the data wait,
+    the fault point and the upload count); in 'abandon_stage' mode each
+    step ends in `check_preemption()`."""
+    from flashy_tpu_torch.datapipe.__main__ import (_solver_class,
+                                                    packed_next_token_loss)
+    from flashy_tpu_torch.examples.lm.solver import build_optimizer, \
+        train_step
+    from flashy_tpu_torch.models.transformer import TransformerLM
+
+    class PackedSolver(_solver_class()):
+        def __init__(self, corpus, device, save=True):
+            super().__init__(corpus, PACKED_EPOCHS, PACKED_STEPS,
+                             PACKED_BATCH, PACKED_LEN, device=device)
+            self.save = save
+            self.optimizer, self.schedule = build_optimizer(self.model, {
+                "epochs": PACKED_EPOCHS, "steps_per_epoch": PACKED_STEPS,
+                "warmup_steps": 2, "lr": 3e-4, "weight_decay": 0.1})
+            self.step = 0
+            self.step_seconds, self.step_wall = [], []
+            self.register_stateful("optimizer", "step")
+
+        def build_model(self, seq_len):
+            return TransformerLM(ssd_train_config(torch, torch.bfloat16),
+                                 device=self.device, seed=0)
+
+        def train_stage(self):
+            self.turn_start = time.perf_counter()
+            return super().train_stage()
+
+        def train_step(self, batch):
+            begin = time.perf_counter()
+            metrics = train_step(
+                self.model, self.optimizer, self.schedule, self.step,
+                batch["tokens"], lambda model, tokens: packed_next_token_loss(
+                    model, tokens, batch["segment_ids"],
+                    batch["positions"]))
+            loss = metrics["loss"]
+            float(loss)       # the step ends with its loss on the host
+            end = time.perf_counter()
+            self.step_seconds.append(end - begin)
+            self.step_wall.append(end - self.turn_start)
+            self.turn_start = end
+            self.step += 1
+            self.check_preemption()
+            return loss
+
+        def commit(self, save_checkpoint=True):
+            super().commit(save_checkpoint=save_checkpoint and self.save)
+
+    return PackedSolver
+
+
+def packed_run(torch, device, corpus, folder, kill_at=None, save=True):
+    """One PackedSolver run in the XP of `folder` with telemetry on and a
+    preemption guard ('abandon_stage', no signal handlers); `kill_at`
+    arms a strict FaultInjector's preemption at that `datapipe.batch`
+    occurrence. Returns (solver, exit code or None, commit seconds,
+    restore seconds)."""
+    from flashy_tpu_torch import resilience
+    from flashy_tpu_torch.observability import disable_telemetry
+    from flashy_tpu_torch.resilience import chaos
+    from flashy_tpu_torch.xp import Config, create_xp
+    PackedSolver = packed_solver_class(torch)
+    commits, restores, code = [], [], None
+    injector = None
+    if kill_at is not None:
+        injector = chaos.install(strict=True)
+        injector.preempt_at("datapipe.batch", call=kill_at)
+    try:
+        with create_xp(Config({"packed": "train"}), root=folder).enter():
+            solver = PackedSolver(corpus, device, save=save)
+            timed_method(solver, "commit", commits)
+            timed_method(solver, "restore", restores)
+            solver.enable_telemetry()
+            solver.enable_preemption_guard(mode="abandon_stage",
+                                           install=False)
+            try:
+                solver.run()
+            except SystemExit as exit_:
+                code = exit_.code
+        if injector is not None:
+            chaos.uninstall()      # strict: the armed kill fired
+    finally:
+        chaos.uninstall(verify=False)
+        resilience.disable_preemption_guard()
+        disable_telemetry()
+    torch.cuda.synchronize()
+    return solver, code, commits, restores
+
+
+def packed_scan_check(torch, device, batch):
+    """Row 7 on the first packed batch's real inputs to the first layer's
+    scan (the seed-0 model before any update): c, b, v and the log
+    decays from the layer's projection, SSD_LOG_RESET at every document
+    start, padding as token_mask False. The kernel held to the plain
+    chunked form (`_chunked_reference`) at `ssd_against_plain`'s bars and
+    timed beside its bound. Returns the record for the kernels line."""
+    from flashy_tpu_torch.datapipe.__main__ import upload
+    from flashy_tpu_torch.models.ssd import (ssd_projections,
+                                             ssd_segment_log_decay)
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops.ssd_scan import (SSD_LOG_RESET, default_chunk,
+                                               ssd_chunked_scan)
+    cfg = ssd_train_config(torch, torch.bfloat16)
+    model = TransformerLM(cfg, device=device, seed=0)
+    captured = {}
+    mixer = model.block_0.ssd
+
+    def capture(module, args):
+        captured["x"] = args[0].detach()      # the normed block input
+
+    hook = mixer.register_forward_pre_hook(capture)
+    dev = upload(batch, device)
+    with torch.no_grad():
+        model(dev["tokens"], positions=dev["positions"],
+              segment_ids=dev["segment_ids"])
+        hook.remove()
+        c, b, v, log_a = ssd_projections(
+            cfg, captured["x"].to(cfg.dtype), mixer.cbv.kernel.to(cfg.dtype),
+            mixer.dt_bias)
+        log_a, mask = ssd_segment_log_decay(log_a, dev["segment_ids"])
+        chunk = default_chunk(PACKED_LEN)
+        kw = {"chunk": chunk, "token_mask": mask}
+
+        def call():
+            return ssd_chunked_scan(c, b, v, log_a, kernel="fused", **kw)
+
+        err, share, s_rel = ssd_against_plain(
+            torch, call(),
+            ssd_chunked_scan(c, b, v, log_a, kernel="gather", **kw), mask,
+            "packed train: row 7 on the first packed batch")
+        runs = time_runs(torch, call, iters=20)
+    resets = int((log_a[..., 0] == SSD_LOG_RESET).sum())
+    padded = int((~mask).sum())
+    B, T, H, N = c.shape
+    bound, bound_by, _ = ssd_bound(B, H, T, N, v.shape[-1], chunk,
+                                   c.element_size())
+    del model
+    return {"shape": [B, T], "resets": resets, "padded": padded,
+            "max_abs_err": err, "err_share": share, "state_rel_err": s_rel,
+            **runs, "bound_ms": bound, "bound_by": bound_by}
+
+
+def packed_turns(torch, solver, batches, rounds=PACKED_ROUNDS):
+    """The packed step against `ssd train`'s unpacked one, in turns on
+    one model and optimizer (`solver`'s, after its run): each step timed
+    as both phases time theirs, from `train_step` to the loss on the
+    host, packed on `batches` (segment-masked loss), unpacked on
+    `synthetic_token_stream` [16, 1024] batches (`lm_next_token_loss`).
+    One untimed step of each, then `rounds` of packed, unpacked,
+    unpacked, packed. Returns {"packed": [s, ...], "unpacked": [...]}.
+    The schedule is past its end, so the learning rate is 0: the same
+    work, the model unchanged."""
+    from flashy_tpu_torch.datapipe.__main__ import (packed_next_token_loss,
+                                                    upload)
+    from flashy_tpu_torch.examples.lm.solver import (synthetic_token_stream,
+                                                     train_step)
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    stream = synthetic_token_stream(32768)
+    times = {"packed": [], "unpacked": []}
+
+    def step(kind, i):
+        if kind == "packed":
+            batch = upload(batches[i % len(batches)], solver.device)
+            tokens = batch["tokens"]
+
+            def loss_fn(model, tokens):
+                return packed_next_token_loss(model, tokens,
+                                              batch["segment_ids"],
+                                              batch["positions"])
+        else:
+            tokens = torch.from_numpy(stream(PACKED_BATCH, PACKED_LEN, i)) \
+                .long().to(solver.device)
+            loss_fn = lm_next_token_loss
+        begin = time.perf_counter()
+        metrics = train_step(solver.model, solver.optimizer,
+                             solver.schedule, solver.step, tokens, loss_fn)
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - begin
+        solver.step += 1
+        if not math.isfinite(loss):
+            fail(f"packed train: a {kind} step in turns gave loss {loss}")
+        return seconds
+
+    step("packed", 0)
+    step("unpacked", 0)
+    order = ["packed", "unpacked", "unpacked", "packed"] * rounds
+    for i, kind in enumerate(order, 1):
+        times[kind].append(step(kind, i))
+    return times
+
+
+def phase_packed_train(torch, device, card, root, seed, ssd_p50):
+    """Phase 41. Returns row 7's record on this path (launches, the
+    backward's recomputes, the packed check)."""
+    import numpy as np
+    from flashy_tpu_torch.datapipe.__main__ import same_batch
+    from flashy_tpu_torch.ops import ssd_scan
+    from flashy_tpu_torch.utils import percentile
+    root = Path(root)
+    corpus = make_packed_corpus(root / "corpus", seed)
+    release_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.reset_launch_counts()
+    clean, steps_run = [], 0
+    for name in ("clean_a", "clean_b"):
+        solver, code, _, _ = packed_run(torch, device, corpus, root / name,
+                                        save=False)
+        if code is not None or len(solver.history) != PACKED_EPOCHS:
+            fail(f"packed train: clean run exit {code}, "
+                 f"{len(solver.history)} epochs")
+        steps_run += len(solver.step_seconds)
+        clean.append(solver)
+        if name == "clean_a":
+            state_a = host_state(torch, solver)
+            solver.model = solver.optimizer = None
+            release_memory(torch)
+    b = clean[1]
+    state_b = host_state(torch, b)
+    differ, state_worst = state_spread(torch, state_b, state_a)
+    losses = [[e["train"]["loss"] for e in s.history] for s in clean]
+    loss_spread = max(abs(x - y) for x, y in zip(*losses))
+    same_stream = all(same_batch(x, y)
+                      for x, y in zip(*(s.consumed for s in clean)))
+    if not same_stream:
+        fail("packed train: the two clean runs consumed different batches")
+    timed, wall = b.step_seconds[2:], b.step_wall[2:]
+    tokens = PACKED_BATCH * PACKED_LEN
+    real = [int((x["segment_ids"] > 0).sum()) for x in b.consumed]
+    efficiency = sum(real) / (tokens * len(b.consumed))
+    tok_s = tokens * len(wall) / sum(wall)
+    real_tok_s = sum(real[2:]) / sum(wall)
+    p50 = percentile(timed, 50) * 1e3
+    wall_p50 = percentile(wall, 50) * 1e3
+    wait = [e["train"].get("data_wait_frac") for e in b.history]
+    prefetch_stats = b.pipe.stats()
+    rows_docs = [int(np.unique(row[row > 0]).size)
+                 for x in b.consumed for row in x["segment_ids"]]
+    if not all(math.isfinite(x) for x in losses[0]) or None in wait:
+        fail(f"packed train: losses {losses[0]}, data_wait_frac {wait}")
+    first_batch = clean[0].consumed[0]
+    base_consumed = clean[0].consumed
+    clean_history = [{"train": {"loss": x}} for x in losses[0]]
+    del clean, solver, b
+    release_memory(torch)
+    folder = root / "preempt"
+    kill_at = PACKED_STEPS + PACKED_KILL_STEP
+    killed, code, commits, _ = packed_run(torch, device, corpus, folder,
+                                          kill_at=kill_at)
+    steps_run += len(killed.step_seconds)
+    if code != 75 or len(killed.history) != 1 \
+            or len(killed.consumed) != kill_at \
+            or killed.pipe._thread is not None:
+        fail(f"packed train: the killed run exit {code}, "
+             f"{len(killed.history)} epochs, {len(killed.consumed)} "
+             f"batches, prefetch thread {killed.pipe._thread}")
+    killed_consumed = killed.consumed
+    del killed
+    release_memory(torch)
+    resumed, code, resume_commits, restores = packed_run(torch, device,
+                                                         corpus, folder)
+    steps_run += len(resumed.step_seconds)
+    if code is not None or len(resumed.history) != PACKED_EPOCHS \
+            or len(resumed.consumed) != PACKED_STEPS:
+        fail(f"packed train: the resume exit {code}, "
+             f"{len(resumed.history)} epochs, {len(resumed.consumed)} "
+             f"batches")
+    replayed = killed_consumed[:PACKED_STEPS] + resumed.consumed
+    streams_equal = len(replayed) == len(base_consumed) and all(
+        same_batch(x, y) for x, y in zip(replayed, base_consumed)) and all(
+        same_batch(x, y) for x, y in zip(killed_consumed, base_consumed))
+    if not streams_equal:
+        fail("packed train: kill + resume consumed a different token "
+             "stream than the clean run")
+    got_losses = [e["train"]["loss"] for e in resumed.history]
+    history_off = history_spread(
+        [{"train": {"loss": x}} for x in got_losses], clean_history)
+    resumed_state = host_state(torch, resumed)
+    r_differ, r_worst = state_spread(torch, resumed_state, state_a)
+    if history_off > loss_spread or r_worst > state_worst:
+        fail(f"packed train: the resumed run differs from the clean run: "
+             f"losses by {history_off}, {r_differ} state leaves by up to "
+             f"{r_worst} (the clean runs' spread: {loss_spread}, "
+             f"{state_worst})")
+    counts = {**nonzero(ssd_scan.launch_counts),
+              **nonzero(ssd_scan.backward_counts)}
+    layers = resumed.model.config.num_layers
+    params = sum(p.numel() for p in resumed.model.parameters())
+    want = {"ssd_scan": layers * steps_run,
+            "ssd_scan_backward": layers * steps_run}
+    if counts != want:
+        fail(f"packed train: launches {counts}, expected {want} "
+             f"({layers} layers x {steps_run} steps)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    turns = packed_turns(torch, resumed, resumed.consumed)
+    turn_p50 = {kind: percentile(x, 50) * 1e3 for kind, x in turns.items()}
+    del resumed
+    release_memory(torch)
+    check = packed_scan_check(torch, device, first_batch)
+    print(f"packed train: pure-SSD {params / 1e6:.0f}M bf16 [{PACKED_BATCH}, "
+          f"{PACKED_LEN}] packed from {2 * PACKED_SHARDS} shards (seed "
+          f"{seed}; docs {PACKED_DOC_LENGTHS[0]}-{PACKED_DOC_LENGTHS[1]} "
+          f"tokens, mixture {(0.7, 0.3)}), {PACKED_EPOCHS} epochs x "
+          f"{PACKED_STEPS} steps; packing efficiency {efficiency:.4f}, "
+          f"documents a row median {percentile(rows_docs, 50):.0f} (max "
+          f"{max(rows_docs)}); step p50 {p50:.2f} ms (the step alone; "
+          f"`ssd train` p50 {ssd_p50:.2f} ms earlier in this call); in "
+          f"turns on one model (packed, unpacked, unpacked, packed x "
+          f"{PACKED_ROUNDS}): "
+          f"packed p50 {turn_p50['packed']:.2f} ms, unpacked p50 "
+          f"{turn_p50['unpacked']:.2f} ms, ratio "
+          f"{turn_p50['packed'] / turn_p50['unpacked']:.4f} (packed "
+          f"{[round(x * 1e3, 2) for x in turns['packed']]}, unpacked "
+          f"{[round(x * 1e3, 2) for x in turns['unpacked']]} ms); over the "
+          f"loop's wall clock (data wait, fault point, upload and step; "
+          f"p50 {wall_p50:.2f} ms) tokens/s {tok_s:.1f} (packed "
+          f"positions) / {real_tok_s:.1f} (non-padding), peak memory "
+          f"{peak:.1f} GiB, data_wait_frac {wait}, prefetch "
+          f"{prefetch_stats['tokens_per_s']:.1f} tokens/s yielded "
+          f"(queue depth {prefetch_stats['queue_depth']:.0f}); two clean "
+          f"runs: {differ} of {len(state_a)} leaves not bit-equal, losses "
+          f"spread {loss_spread}, state spread {state_worst}; preempted "
+          f"at epoch-2 step {PACKED_KILL_STEP} -> SystemExit(75), 1 "
+          f"committed epoch, prefetch thread closed; resumed: the token "
+          f"stream identical, losses off by {history_off}, {r_differ} "
+          f"leaves not bit-equal (max {r_worst}); commit "
+          f"{[round(x, 3) for x in commits + resume_commits]} s, restore "
+          f"{[round(x, 3) for x in restores]} s; row 7 on the first "
+          f"packed batch's layer-0 inputs ({check['resets']} resets, "
+          f"{check['padded']} padded of {PACKED_BATCH * PACKED_LEN}): max "
+          f"abs err {check['max_abs_err']:.3e} (one bf16 ulp bar), "
+          f"{spread_text(check)}, bound {check['bound_ms']:.4f} ms "
+          f"({check['bound_by']}); launches {counts} [{card}]", flush=True)
+    return {"launches": counts["ssd_scan"],
+            "backward_recomputes": counts["ssd_scan_backward"],
+            "check": check}
+
+
+def phase_module(card, label, args, marker, timeout):
+    """A `python -m` entry point in a process of its own on the card:
+    exit 0 and `marker` in its log, or the phase fails. Returns (seconds,
+    stderr)."""
+    begin = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - begin
+    if out.returncode != 0 or marker not in out.stderr \
+            or "on cuda" not in out.stderr:
+        fail(f"{label}: exit {out.returncode}: {out.stderr[-1500:]}")
+    return seconds, out.stderr
+
+
+def phase_datapipe_drill(card):
+    """Phase 40: `python -m flashy_tpu_torch.datapipe` at its defaults on
+    the card."""
+    seconds, log = phase_module(
+        card, "datapipe drill", ["flashy_tpu_torch.datapipe"],
+        "datapipe drill passed", timeout=300)
+    print(f"datapipe drill: python -m flashy_tpu_torch.datapipe exit 0 on "
+          f"cuda (3 epochs x 6 steps of [4, 64], killed in epoch 2), "
+          f"{log.count('PASS:')} checks passed in {seconds:.1f} s [{card}]",
+          flush=True)
+
+
+def phase_campaign(card):
+    """Phase 42: the chaos campaign's datapipe scenario on the card."""
+    import re
+    seconds, log = phase_module(
+        card, "campaign", ["flashy_tpu_torch.resilience", "--campaign",
+                           "--scenarios", "datapipe", "--seed", "0"],
+        "campaign passed", timeout=300)
+    found = re.search(r"campaign passed: (\d+) fault schedules", log)
+    schedules = [line.split("— ", 1)[-1] for line in log.splitlines()
+                 if "campaign: run " in line]
+    print(f"campaign: python -m flashy_tpu_torch.resilience --campaign "
+          f"--scenarios datapipe --seed 0 exit 0 on cuda, "
+          f"{found.group(1) if found else '?'} fault schedules ({schedules})"
+          f" and a calibration run in {seconds:.1f} s [{card}]", flush=True)
+
+
 def main() -> None:
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch port on one H100.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the packed-train corpus (phase 41)")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -6478,7 +6955,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as folder:
         phase_train_ema(torch, card, folder)
     ssd_step_counts = phase_ssd_step(torch, device, card)
-    ssd_train_counts = phase_ssd_train(torch, device, card)
+    ssd_train_counts, ssd_train_p50 = phase_ssd_train(torch, device, card)
     ssd_backward = time_ssd_backward(torch, device, card)
     lap("the trainer's switches, ssd training")
 
@@ -6537,6 +7014,19 @@ def main() -> None:
     lap("hang abort")
     phase_drill(card)
     lap("drill")
+
+    # queue A entry 1: the streaming datapipe (its drill, packed SSD
+    # training at full width: row 7 on packed batches) and item 9's
+    # chaos campaign
+    release_memory(torch)
+    phase_datapipe_drill(card)
+    lap("datapipe drill")
+    with tempfile.TemporaryDirectory() as folder:
+        packed = phase_packed_train(torch, device, card, folder, args.seed,
+                                    ssd_train_p50)
+    lap("packed train")
+    phase_campaign(card)
+    lap("campaign")
     print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
@@ -6636,7 +7126,15 @@ def main() -> None:
                     "train_launches": ssd_train_counts["ssd_scan"],
                     "train_backward_recomputes": ssd_train_counts[
                         "ssd_scan_backward"],
-                    "train_backward": ssd_backward})
+                    "train_backward": ssd_backward,
+                    "packed_train": {
+                        "launches": packed["launches"],
+                        "backward_recomputes": packed[
+                            "backward_recomputes"],
+                        **{key: packed["check"][key] for key in (
+                            "shape", "resets", "padded", "max_abs_err",
+                            "state_rel_err", "ms", "ms_runs", "spread",
+                            "bound_ms", "bound_by")}}})
     kernels.append({"name": "ssd_scan_fma", "route": "cuda",
                     "source": SSD_SOURCE, "replaces": SSD_REPLACES,
                     "launches": ssd_fma_launches,
@@ -6689,6 +7187,7 @@ def main() -> None:
                          "serve traced": traced_launches,
                          "serve chaos": chaos_launches},
         "paged_decode_int8": {"int8w serve bf16": int8w_serve},
+        "ssd_scan": {"packed train": packed["launches"]},
         "ssd_scan_fma": {"scan exact ssd": scan_ssd},
         "flash_fwd": {"scan train": scan_train["flash_fwd"],
                       "train telemetry": telemetry_launches["flash_fwd"]},

@@ -20,7 +20,13 @@ These slices of the JAX package run here, on an NVIDIA H100:
   `csrc/paged_decode.cu` (`ops.paged_decode`);
 * fault tolerance (`resilience`): the preemption guard, retried IO,
   checkpoint manifests with A/B slots and asynchronous saves, the hang
-  watchdog and the chaos drill (`python -m flashy_tpu_torch.resilience`).
+  watchdog, the chaos drill (`python -m flashy_tpu_torch.resilience`)
+  and the chaos campaign (`--campaign`);
+* streaming input (`datapipe`): sharded streams, weighted mixtures,
+  packing into static [B, L] batches with segment ids, a prefetch
+  thread, cursors committed with the state (`python -m
+  flashy_tpu_torch.datapipe` is the kill/resume drill); `launch` and
+  `sweep` plan multi-host commands and grid sweeps.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; the
 package imports torch, numpy and yaml, never JAX or the JAX package.

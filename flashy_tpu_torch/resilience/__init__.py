@@ -19,8 +19,12 @@ polite.
 `python -m flashy_tpu_torch.resilience` is the chaos drill: it trains
 under an injected mid-stage SIGTERM, a transient IO fault and a
 corrupted active checkpoint slot, and checks the resumed run's history
-and state against an uninterrupted run. The chaos campaign (ROADMAP.md
-queue A) is not ported.
+and state against an uninterrupted run. With `--campaign` it runs the
+chaos campaign (`resilience.campaign`: every registry site under every
+fault kind its scenario declares, failures shrunk to a JSON reproducer)
+over the ported `train` and `datapipe` scenarios; the serve, fleet,
+pipeline, tensor and elastic scenarios wait for ROADMAP.md queue A
+items 5, 8 and 10.
 
 Importing this package touches no CUDA device.
 """
@@ -41,6 +45,10 @@ from .chaos import (  # noqa
     uninstall,
 )
 from .hang import EXIT_HUNG, HangWatchdog  # noqa
+from .campaign import (  # noqa  (imports `chaos` above: keep this last)
+    CampaignFailure, FaultSpec, Schedule, builtin_scenarios, ddmin,
+    replay_artifact, run_campaign, static_coverage,
+)
 
 __all__ = [
     "EXIT_PREEMPTED", "EXIT_HUNG", "PreemptionGuard", "PreemptionInterrupt",
@@ -54,4 +62,6 @@ __all__ = [
     "uninstall", "get_injector",
     "fault_point", "corrupt_file", "corrupt_active_slot", "stall_heartbeat",
     "HangWatchdog",
+    "CampaignFailure", "FaultSpec", "Schedule", "builtin_scenarios",
+    "ddmin", "static_coverage", "run_campaign", "replay_artifact",
 ]

@@ -11,9 +11,11 @@ it resumes and demands the history (without `duration`) and the
 final state be identical to the uninterrupted run's. Exit 1 unless
 resume is exact and every injected fault fired and was recovered.
 
-The drill touches no device. The elastic drill (`--elastic`) and the
-chaos campaign (`--campaign`, `--replay`) raise NotImplementedError
-naming their ROADMAP entries.
+The drill touches no device. `--campaign` runs the registry-driven
+chaos campaign (`resilience.campaign`) over a subset of its ported
+scenarios (`--scenarios train,datapipe`); `--replay` re-executes a
+minimized reproducer. The full sweep and the elastic drill
+(`--elastic`) raise NotImplementedError naming their ROADMAP entries.
 """
 import argparse
 import logging
@@ -31,8 +33,6 @@ DRILL_STEPS = 4  # fault-injectable steps per train stage
 
 TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (several processes and "
                 "state sharding), then item 9's elastic drill")
-TODO_CAMPAIGN = ("ROADMAP.md queue A: item 9's chaos campaign, after "
-                 "datapipe/")
 
 
 def _drill_solver_class():
@@ -196,7 +196,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m flashy_tpu_torch.resilience",
         description="Chaos drill: inject preemption, IO and corruption "
-                    "faults and prove resume-exactness.")
+                    "faults and prove resume-exactness. With --campaign, "
+                    "the registry-driven chaos campaign instead.")
     parser.add_argument("-e", "--epochs", type=int, default=5)
     parser.add_argument("--preempt-epoch", type=int, default=3,
                         help="epoch whose train stage takes the simulated "
@@ -205,25 +206,59 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                         help="the elastic world-size drill (not ported "
                              "yet)")
     parser.add_argument("--campaign", action="store_true",
-                        help="the registry-driven chaos campaign (not "
-                             "ported yet)")
+                        help="run the registry-driven chaos campaign: "
+                             "every fault site x kind swept under seeded "
+                             "schedules, failures ddmin-shrunk to a JSON "
+                             "reproducer")
     parser.add_argument("--replay", metavar="ARTIFACT", default=None,
-                        help="with --campaign: replay a reproducer (not "
-                             "ported yet)")
+                        help="with --campaign: replay a minimized "
+                             "reproducer artifact instead of sweeping "
+                             "(exit 1 = reproduced)")
+    parser.add_argument("--budget", type=int, default=None,
+                        help="with --campaign: cap on fault schedules; "
+                             "below base coverage drops schedules LOUDLY "
+                             "(and fails the coverage gate), above it adds "
+                             "seeded multi-fault schedules")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="with --campaign: schedule-generation seed")
+    parser.add_argument("--scenarios", default=None,
+                        help="with --campaign: comma-separated scenario "
+                             "subset (narrows the coverage gate); the "
+                             "full sweep is not ported yet")
+    parser.add_argument("--seeded-defect", default=None,
+                        help="with --campaign: activate a registered "
+                             "defect to prove the engine catches and "
+                             "shrinks it (exit 1 + artifact expected)")
+    parser.add_argument("--artifact", default=None,
+                        help="with --campaign: where to write the "
+                             "minimized reproducer on failure")
+    parser.add_argument("--device", default=None,
+                        help="with --campaign: where the datapipe "
+                             "scenario runs (default: cuda; 'cpu' for the "
+                             "host)")
     parser.add_argument("--dir", default=None,
                         help="work directory (default: a fresh temp dir)")
     parser.add_argument("--keep", action="store_true",
                         help="keep the XP folders for inspection")
     args = parser.parse_args(argv)
 
-    if args.campaign or args.replay:
-        raise NotImplementedError(
-            f"the chaos campaign is not ported yet: {TODO_CAMPAIGN}")
     if args.elastic:
         raise NotImplementedError(
             f"the elastic drill is not ported yet: {TODO_ELASTIC}")
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="[%(levelname)s] %(message)s")
+    if args.campaign or args.replay:
+        from .campaign import replay_artifact, run_campaign
+        if args.replay:
+            return replay_artifact(args.replay, root=args.dir,
+                                   keep=args.keep, device=args.device)
+        scenarios = (args.scenarios.split(",")
+                     if args.scenarios else None)
+        return run_campaign(seed=args.seed, budget=args.budget,
+                            scenarios=scenarios,
+                            defect=args.seeded_defect, root=args.dir,
+                            keep=args.keep, artifact=args.artifact,
+                            device=args.device)
     return run_drill(epochs=args.epochs, root=args.dir,
                      preempt_epoch=args.preempt_epoch, keep=args.keep)
 

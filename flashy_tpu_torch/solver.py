@@ -206,7 +206,13 @@ class BaseSolver:
         """Track attributes (dotted paths allowed) in the checkpoint:
         `nn.Module`s, optimizers and anything with state_dict /
         load_state_dict, lists, dicts or plain values. `write_only=True`
-        records the value but never restores it (`xp.cfg`, `xp.sig`)."""
+        records the value but never restores it (`xp.cfg`, `xp.sig`).
+
+        Registering the outermost stage of a `flashy_tpu_torch.datapipe`
+        pipeline (the stages implement the same protocol) makes
+        `commit()` persist the exact input cursor, so a preempted run
+        resumes token-exact mid-epoch; the preemption exit also closes
+        it (`_registered_datapipes`)."""
         for name in args:
             owner = self
             *path, leaf = name.split(".")
@@ -214,6 +220,21 @@ class BaseSolver:
                 owner = getattr(owner, part)
             self.stateful.register(name, AttributeWrapper(owner, leaf),
                                    write_only)
+
+    def _registered_datapipes(self) -> tp.List[tp.Tuple[str, tp.Any]]:
+        """Registered stateful attributes that are datapipe iterators
+        (the CheckpointableIterator protocol: a cursor and close()).
+        Their cursors ride the normal commit / restore path; this lookup
+        lets the preemption exit also close them, so background prefetch
+        threads stop before the emergency finalize of the checkpoint."""
+        from .datapipe import CheckpointableIterator
+        pipes = []
+        for name, source in self.stateful.sources.items():
+            if isinstance(source, AttributeWrapper):
+                value = getattr(source.owner, source.name, None)
+                if isinstance(value, CheckpointableIterator):
+                    pipes.append((name, value))
+        return pipes
 
     def set_state_sharding(self, name: str, shardings: tp.Any) -> None:
         raise NotImplementedError(
@@ -484,6 +505,14 @@ class BaseSolver:
         guard = self._preemption_guard
         assert guard is not None
         committed = len(self.history)
+        for name, pipe in self._registered_datapipes():
+            # freeze the input pipeline first: its cursor was captured at
+            # the last commit, and prefetch workers streaming on would
+            # only contend with the checkpoint finalize
+            try:
+                pipe.close()
+            except Exception:
+                self.logger.exception("could not close datapipe %r", name)
         self.logger.warning(
             "preemption (%s): stopping at %s; last committed epoch is %d; "
             "exiting with code %d — requeue and rerun to resume.",
