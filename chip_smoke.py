@@ -475,6 +475,46 @@ campaign, last:
              (a kill and a stall at `datapipe.batch`) keep the consumed
              token stream and the losses.
 
+ROADMAP queue A item 5, data parallelism across processes, last. The
+card's machine has one H100 and NCCL refuses two ranks on one device, so
+two ranks share cuda:0 over gloo, which stages CUDA tensors through the
+host: its times are that staging's, not NCCL's. The ranks are processes
+of this script (`--dp-rank`, `--dp-train`), each in a session of its own
+under a deadline, rendezvousing through a `file://` path:
+
+ 43. dp collectives  `distrib.all_reduce` with every op on CUDA and host
+             values, weighted `average_metrics`, `average_tensors` by
+             'reduce' and 'allgather' on a tree above REDUCE_MIN_BYTES
+             (f32 and bf16 CUDA leaves, a numpy leaf) bit-equal to the
+             mean one process takes, `broadcast_model`,
+             `broadcast_tensors`, `broadcast_object`, `barrier`, and a
+             mismatched tree raising RuntimeError on both ranks;
+ 44. dp step  the 235M layout in f32 (TF32 off) at `step`'s shape, global
+             batch 4 x t256, two ranks of 2 under `parallel.wrap` (DDP):
+             the gradients after the first backward and the parameters
+             after each of two clipped AdamW steps within 1e-5 of max
+             |value| of one process on the whole batch, the ranks'
+             parameters bit-identical after every step, rows 1·g and 4·g
+             launched 12 x 2 times on each rank;
+ 45. dp train  the default bf16 flash LM at full width and 4 layers
+             (cut in depth only) through `main --workers=2` (global b16
+             t1024, b8 a rank, one warmup step): run A 2 epochs x
+             2 steps + 1 valid step with a commit each; run B 1 epoch
+             (run beside phase 44, untimed), then resumed to 2 (both
+             ranks restore rank 0's file): final
+             states bit-identical across ranks and runs, histories equal
+             without wall-clock keys, rank 0 writing them; epoch 1's
+             train loss (AdamW's first update has lr 0, so both steps
+             see the initial weights) within 1e-4 relative of one
+             process on the same global batches; rows 1 and 4 launched 4 x steps on
+             each rank; step p50, global tokens/s and the gradient
+             all-reduce's share of a step (gloo through the host);
+ 46. prefetch to device  `data.prefetch_to_device` over [16, 1024] int32
+             batches on cuda:0: delivered batches bit-equal to the host's,
+             an early stop rewinding a datapipe stage to the last batch
+             delivered, the data wait a batch with and without the
+             prefetch behind ~5 ms of device work, in turns.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
 before them. Each kernel's record also holds its launches on the model
@@ -490,6 +530,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.time()       # this process's start, for the dp phases' split
 NEAR_TIE = 1e-5
 D128_HEADS = 8                 # the d128 layout: 8 heads of 128
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8/float32": 1e-5,
@@ -6793,13 +6834,724 @@ def phase_campaign(card):
           f" and a calibration run in {seconds:.1f} s [{card}]", flush=True)
 
 
+# ----------------------------------------------------------------------
+# queue A item 5: data parallelism across processes, two ranks on the card
+# ----------------------------------------------------------------------
+DP_RANKS = 2
+GLOO_LABEL = ("gloo through the host, two ranks sharing one card; not an "
+              "NCCL figure")
+# `dp train` at full width and 4 of the 12 layers: its three runs write
+# three checkpoints and start six ranks, and the four dp phases keep to
+# ~2 minutes. One warmup step: the schedule is sized by epochs x steps,
+# and with one warmup step a 1-epoch run's schedule is the 2-epoch run's
+# first epoch, so the stopped-and-resumed run repeats the whole run.
+DP_LAYERS = 4
+DP_TRAIN_ARGS = [arg for arg in TRAIN_ARGS
+                 if not arg.startswith(("model.num_layers=",
+                                        "steps_per_epoch=", "valid_steps="))
+                 ] + [f"model.num_layers={DP_LAYERS}", "steps_per_epoch=2",
+                      "valid_steps=1", "warmup_steps=1"]
+DP_STEP_SHAPE = (4, 256)       # dp step: global batch 4 x t256, 2 a rank
+DP_STEP_OPTIM = {"epochs": 1, "steps_per_epoch": 2, "warmup_steps": 1,
+                 "lr": 3e-4, "weight_decay": 0.1}
+DP_RESULT = "FLASHY_SMOKE_DP_RESULT"   # env: where a rank writes its result
+
+
+def dp_env(folder, tag, rank=None):
+    """The environment of a dp process: a `file://` rendezvous in
+    `folder` named by `tag` (no port) and, for a rank spawned here, its
+    launcher variables (two local ranks on one card: `distrib` picks
+    gloo)."""
+    import os
+    env = dict(os.environ)
+    env["FLASHY_TPU_COORDINATOR"] = f"file://{folder}/rendezvous-{tag}"
+    env[DP_RESULT] = dp_result_prefix(folder, tag)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    if rank is not None:
+        env.update({"FLASHY_TPU_NUM_PROCESSES": str(DP_RANKS),
+                    "FLASHY_TPU_PROCESS_ID": str(rank),
+                    "LOCAL_RANK": str(rank),
+                    "LOCAL_WORLD_SIZE": str(DP_RANKS)})
+    return env
+
+
+def dp_result_prefix(folder, tag):
+    """Where the ranks of a dp run tagged `tag` write their results: one
+    file a rank, not stdout, which the workers of `--workers` share (under
+    unbuffered stdio a line and its newline are two writes, and another
+    rank's output lands between them)."""
+    return f"{folder}/result-{tag}"
+
+
+def write_dp_result(result):
+    """Write a rank's result where `dp_env` said (`DP_RESULT`)."""
+    import os
+    path = Path(f"{os.environ[DP_RESULT]}-{result['rank']}.json")
+    path.with_suffix(".tmp").write_text(json.dumps(result))
+    path.with_suffix(".tmp").replace(path)
+
+
+def start_sessions(commands, folder, timeout, label):
+    """Start (argv, env) commands, each in a session of its own, with one
+    deadline `timeout` seconds from now; `finish_sessions` waits."""
+    import subprocess as sp
+    procs = []
+    for index, (argv, env) in enumerate(commands):
+        out = open(Path(folder) / f"{label}-{index}.out", "w+")
+        err = open(Path(folder) / f"{label}-{index}.err", "w+")
+        procs.append((sp.Popen(argv, env=env, cwd=folder, stdout=out,
+                               stderr=err, start_new_session=True), out, err))
+    return {"procs": procs, "deadline": time.perf_counter() + timeout,
+            "timeout": timeout, "label": label}
+
+
+def finish_sessions(started):
+    """Wait for `start_sessions`' commands; past the deadline every
+    process group is killed and the phase fails (a hang fails the phase,
+    not the run). Returns each command's (stdout, stderr); a non-zero
+    exit fails the phase."""
+    import os
+    import signal
+    procs, label = started["procs"], started["label"]
+    timed_out = False
+    for proc, _, _ in procs:
+        try:
+            proc.wait(timeout=max(started["deadline"] - time.perf_counter(),
+                                  0.1))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            break
+    for proc, _, _ in procs:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    logs = []
+    for proc, out, err in procs:
+        out.seek(0)
+        err.seek(0)
+        logs.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    if timed_out:
+        fail(f"{label}: killed after {started['timeout']} s: "
+             f"{[e[-800:] for _, e in logs]}")
+    for (proc, _, _), (_, err) in zip(procs, logs):
+        if proc.returncode != 0:
+            fail(f"{label}: exit {proc.returncode}: {err[-2000:]}")
+    return logs
+
+
+def clear_dp_results(folder, tag):
+    """Remove the results an earlier run tagged `tag` left in `folder`."""
+    for path in Path(folder).glob(f"result-{tag}-*.json"):
+        path.unlink()
+
+
+def dp_results(folder, tag):
+    """The results the ranks of the dp run tagged `tag` wrote, by rank."""
+    prefix = dp_result_prefix(folder, tag)
+    return [json.loads(Path(f"{prefix}-{rank}.json").read_text())
+            for rank in range(DP_RANKS)
+            if Path(f"{prefix}-{rank}.json").exists()]
+
+
+def spawn_dp_ranks(mode, folder, timeout):
+    """`python3 chip_smoke.py --dp-rank <mode>` as two ranks; returns
+    their results and the wall seconds."""
+    begin = time.perf_counter()
+    clear_dp_results(folder, mode)
+    logs = finish_sessions(start_sessions(
+        [([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", mode],
+          dp_env(folder, mode, rank)) for rank in range(DP_RANKS)],
+        folder, timeout, f"dp {mode}"))
+    results = dp_results(folder, mode)
+    if len(results) != DP_RANKS:
+        fail(f"dp {mode}: {len(results)} of {DP_RANKS} ranks reported: "
+             f"{[err[-800:] for _, err in logs]}")
+    return results, time.perf_counter() - begin
+
+
+def state_digest(torch, tensors):
+    """sha256 of the tensors' bytes in order: equal digests are
+    bit-identical states."""
+    import hashlib
+    digest = hashlib.sha256()
+    for tensor in tensors:
+        digest.update(tensor.detach().reshape(-1).contiguous()
+                      .view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def solver_tensors(torch, model, optimizer):
+    """A model's parameters and buffers, then its optimizer's state
+    tensors, in a fixed order."""
+    tensors = [value for _, value in sorted(model.state_dict().items())]
+    for state in optimizer.state_dict()["state"].values():
+        tensors += [state[key] for key in sorted(state)
+                    if isinstance(state[key], torch.Tensor)]
+    return tensors
+
+
+def dp_collectives_rank(torch, device):
+    """Phase 43, one rank: the collectives on CUDA and host values."""
+    import numpy as np
+    from flashy_tpu_torch import distrib
+    rank, world = distrib.rank(), distrib.world_size()
+    out = {"backend": torch.distributed.get_backend()}
+    x = torch.arange(4, dtype=torch.float32, device=device) + 10 * rank
+    out["all_reduce"] = {op: distrib.all_reduce(x, op).tolist()
+                         for op in ("sum", "mean", "max", "min")}
+    out["all_reduce_device"] = str(distrib.all_reduce(x).device)
+    out["all_reduce_host"] = {op: distrib.all_reduce(
+        np.array([1.5, rank], np.float64), op).tolist()
+        for op in ("sum", "mean", "max", "min")}
+    out["metrics"] = distrib.average_metrics(
+        {"loss": 1.0 + rank, "acc": 0.5}, count=1 + 3 * rank)
+    # a tree above REDUCE_MIN_BYTES, held to the mean one process takes
+    trees = []
+    for r in range(world):
+        gen = torch.Generator(device=device).manual_seed(r)
+        trees.append({"w": torch.randn(512, 1024, generator=gen,
+                                       device=device),
+                      "h": torch.randn(64, generator=gen, device=device
+                                       ).to(torch.bfloat16),
+                      "b": np.random.default_rng(10 + r).normal(size=5),
+                      "step": torch.tensor(rank, device=device)})
+    want = {key: sum(t[key] for t in trees) / world for key in ("w", "b")}
+    want["h"] = (sum(t["h"] for t in trees) / world)
+    timings = {}
+    for method in ("reduce", "allgather"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = distrib.average_tensors(trees[rank], method=method)
+        torch.cuda.synchronize()
+        timings[method] = (time.perf_counter() - t0) * 1e3
+        out[f"average_{method}"] = {
+            "w": bool(torch.equal(got["w"], want["w"])),
+            "w_max_err": float((got["w"] - want["w"]).abs().max()),
+            "h": bool(torch.equal(got["h"], want["h"])),
+            "b": bool(np.array_equal(got["b"], want["b"])),
+            "step": int(got["step"]) == rank,
+            "device": str(got["w"].device)}
+    out["average_ms"] = timings
+    model = torch.nn.Linear(3, 2).to(device)
+    torch.nn.init.constant_(model.weight, float(rank + 1))
+    distrib.broadcast_model(model)
+    out["broadcast_model"] = model.weight.flatten().tolist()
+    tree = distrib.broadcast_tensors(
+        {"v": torch.full((3,), float(rank), device=device)}, src=1)
+    out["broadcast_tensors"] = tree["v"].tolist()
+    out["broadcast_object"] = distrib.broadcast_object(
+        {"from": rank} if rank == 1 else None, src=1)
+    t0 = time.perf_counter()
+    distrib.barrier()
+    out["barrier_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    try:
+        distrib.average_tensors({"w": torch.ones(2 + rank, device=device)})
+        out["mismatch"] = "no error"
+    except RuntimeError as exc:
+        out["mismatch"] = str(exc)
+    out["mismatch_ms"] = (time.perf_counter() - t0) * 1e3
+    distrib.barrier()
+    return out
+
+
+def dp_step_batches(torch, device):
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    stream = synthetic_token_stream(32768)
+    batch, seq = DP_STEP_SHAPE
+    return [torch.from_numpy(stream(batch, seq, step)).long().to(device)
+            for step in range(2)]
+
+
+def dp_step_run(torch, device, model, batches, rows, accumulate=1,
+                digest=True):
+    """Two clipped AdamW steps of `model` (a DDP module or the plain one)
+    on `rows` of each global batch in `accumulate` microbatches; returns
+    the grads after the first backward (as the step clipped them), the
+    parameters after each step, their digests (with `digest`) and the
+    losses."""
+    from flashy_tpu_torch.examples.lm.solver import (build_optimizer,
+                                                     train_step)
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    module = getattr(model, "module", model)
+    optimizer, schedule = build_optimizer(module, DP_STEP_OPTIM)
+    grads, params, digests, losses = None, [], [], []
+    for step, batch in enumerate(batches):
+        metrics = train_step(model, optimizer, schedule, step, batch[rows],
+                             lambda m, t: lm_next_token_loss(m, t),
+                             accumulate=accumulate)
+        losses.append(float(metrics["loss"]))
+        if grads is None:
+            grads = {name: p.grad.detach().clone()
+                     for name, p in module.named_parameters()}
+        params.append({name: p.detach().clone()
+                       for name, p in module.named_parameters()})
+        if digest:
+            digests.append(state_digest(torch, list(params[-1].values())))
+    return grads, params, digests, losses
+
+
+def dp_step_rank(torch, device):
+    """Phase 44, one rank: the 235M layout in f32 under DDP, each rank on
+    its rows of the global batch; rank 0 then holds its grads and
+    parameters to one process: bit for bit where that process runs the
+    ranks' rows as two microbatches (the same sums in another place),
+    and at the bar on the whole batch in one piece."""
+    from flashy_tpu_torch import distrib
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.parallel import wrap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the embedding's scatter-add in a fixed order, so that a run repeats
+    # bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rank, world = distrib.rank(), distrib.world_size()
+    batches = dp_step_batches(torch, device)
+    per = DP_STEP_SHAPE[0] // world
+    config = model_config(torch, torch.float32, 256, "flash")
+    begin = time.perf_counter()
+    model = wrap(TransformerLM(config, device=device, seed=3))
+    attention.reset_launch_counts()
+    grads, params, digests, losses = dp_step_run(
+        torch, device, model, batches, slice(rank * per, (rank + 1) * per))
+    torch.cuda.synchronize()
+    out = {"ddp_s": time.perf_counter() - begin,
+           "launches": nonzero(attention.launch_counts), "digests": digests,
+           "losses": losses, "ddp": type(model).__name__,
+           "calls": model.compile_stats()}
+    del model
+    if rank == 0:
+        def worst(got, want):
+            return max(float((got[k] - want[k]).abs().max()
+                             / want[k].abs().max().clamp_min(1e-30))
+                       for k in want)
+
+        t0 = time.perf_counter()
+        micro = dp_step_run(torch, device, TransformerLM(
+            config, device=device, seed=3), batches, slice(None),
+            accumulate=world, digest=False)
+        out["microbatched"] = {
+            "grads_equal": all(torch.equal(grads[k], v)
+                               for k, v in micro[0].items()),
+            "params_equal": [all(torch.equal(p[k], v) for k, v in q.items())
+                             for p, q in zip(params, micro[1])]}
+        t1 = time.perf_counter()
+        whole = dp_step_run(torch, device, TransformerLM(
+            config, device=device, seed=3), batches, slice(None),
+            digest=False)
+        out["one_process"] = {
+            "grads": worst(grads, whole[0]),
+            "params": [worst(p, q) for p, q in zip(params, whole[1])],
+            "losses": whole[3]}
+        out["seconds"] = {"microbatched": t1 - t0,
+                          "whole": time.perf_counter() - t1}
+    return out
+
+
+def dp_rank_main(torch, mode):
+    """A rank of `--dp-rank <mode>`: join the group, run the mode, write
+    the result (`write_dp_result`)."""
+    from flashy_tpu_torch import distrib
+    distrib.init()
+    device = torch.device("cuda")
+    result = {"collectives": dp_collectives_rank,
+              "step": dp_step_rank}[mode](torch, device)
+    result["rank"] = distrib.rank()
+    write_dp_result(result)
+
+
+def dp_train_main(torch, argv):
+    """`--dp-train`: as the launcher, `main(argv)` with `--workers=2`
+    spawns two workers running this script; as a worker, train through
+    `main(argv)` and write the rank's launches, steps, state digest and
+    clock marks (`write_dp_result`)."""
+    import os
+    from flashy_tpu_torch import distrib
+    from flashy_tpu_torch.examples.lm.solver import main as lm_main
+    from flashy_tpu_torch.ops import attention
+    if "FLASHY_TPU_PROCESS_ID" not in os.environ:
+        lm_main(argv)
+        return
+    attention.reset_launch_counts()
+    begin, main_at = time.perf_counter(), time.time()
+    solver = lm_main(argv)
+    torch.cuda.synchronize()
+    result = {"rank": distrib.rank(), "main_s": time.perf_counter() - begin,
+              "clock": {"started": STARTED, "main": main_at,
+                        "main_end": time.time()},
+              "backend":
+              torch.distributed.get_backend(),
+              "launches": nonzero(attention.launch_counts),
+              "restored": solver.restored, "epochs": len(solver.history),
+              "step_seconds": solver.step_seconds,
+              "step_losses": solver.step_losses,
+              "ddp": type(solver.train_model).__name__,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if "--dp-digest" in argv:
+        result["digest"] = state_digest(torch, solver_tensors(
+            torch, solver.model, solver.optimizer))
+    if "--dp-time-all-reduce" in argv:
+        # the gradient all-reduce's volume (every parameter's f32 grad)
+        # alone, timed on every rank together
+        numel = sum(p.numel() for p in solver.model.parameters())
+        flat = torch.ones(numel, device="cuda")
+        times = []
+        for _ in range(2):
+            distrib.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.all_reduce(flat)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        result["all_reduce_ms"] = times
+        result["all_reduce_bytes"] = numel * 4
+    result["clock"]["written"] = time.time()
+    write_dp_result(result)
+
+
+def phase_dp_collectives(torch, card, folder):
+    """Phase 43: the collectives of two ranks on cuda:0 over gloo."""
+    results, seconds = spawn_dp_ranks("collectives", folder, timeout=120)
+    want_all = {"sum": [10.0, 12.0, 14.0, 16.0], "mean": [5.0, 6.0, 7.0, 8.0],
+                "max": [10.0, 11.0, 12.0, 13.0], "min": [0.0, 1.0, 2.0, 3.0]}
+    want_host = {"sum": [3.0, 1.0], "mean": [1.5, 0.5], "max": [1.5, 1.0],
+                 "min": [1.5, 0.0]}
+    for out in results:
+        problems = []
+        if out["backend"] != "gloo":
+            problems.append(f"backend {out['backend']}")
+        if out["all_reduce"] != want_all \
+                or out["all_reduce_device"] != "cuda:0":
+            problems.append(f"all_reduce {out['all_reduce']} on "
+                            f"{out['all_reduce_device']}")
+        if out["all_reduce_host"] != want_host:
+            problems.append(f"host all_reduce {out['all_reduce_host']}")
+        if abs(out["metrics"]["loss"] - 1.8) > 1e-12 \
+                or out["metrics"]["acc"] != 0.5:
+            problems.append(f"average_metrics {out['metrics']}")
+        for method in ("reduce", "allgather"):
+            check = out[f"average_{method}"]
+            if not (check["w"] and check["h"] and check["b"]
+                    and check["step"] and check["device"] == "cuda:0"):
+                problems.append(f"average_tensors {method}: {check}")
+        if out["broadcast_model"] != [1.0] * 6 \
+                or out["broadcast_tensors"] != [1.0] * 3 \
+                or out["broadcast_object"] != {"from": 1}:
+            problems.append("broadcasts")
+        if "Mismatch in synced tree" not in out["mismatch"]:
+            problems.append(f"mismatched tree: {out['mismatch']}")
+        if problems:
+            fail(f"dp collectives rank {out['rank']}: {problems}")
+    timing = {method: [round(out["average_ms"][method], 2)
+                       for out in results] for method in ("reduce",
+                                                          "allgather")}
+    print(f"dp collectives: 2 ranks on cuda:0 over gloo: all_reduce "
+          f"sum/mean/max/min on CUDA and host values, weighted "
+          f"average_metrics, average_tensors by reduce and allgather on a "
+          f"2 MiB f32 + bf16 + numpy tree bit-equal to the one-process mean "
+          f"(ms by rank {timing}, {GLOO_LABEL}), broadcast_model / "
+          f"broadcast_tensors / broadcast_object / barrier, a mismatched "
+          f"tree RuntimeError on both ranks in "
+          f"{[round(out['mismatch_ms'], 1) for out in results]} ms; "
+          f"{seconds:.1f} s with the spawns [{card}]", flush=True)
+
+
+def phase_dp_step(torch, card, folder):
+    """Phase 44: the 235M layout in f32 on two ranks against one process;
+    returns a rank's launches."""
+    results, seconds = spawn_dp_ranks("step", folder, timeout=240)
+    layers, steps = 12, 2
+    want = {"flash_fwd_general": layers * steps,
+            "flash_bwd_fused_general": layers * steps}
+    for out in results:
+        if out["launches"] != want or out["ddp"] != \
+                "DistributedDataParallel" or out["calls"]["calls"] != steps:
+            fail(f"dp step rank {out['rank']}: launches {out['launches']} "
+                 f"(expected {want}), {out['ddp']}, {out['calls']}")
+    if results[0]["digests"] != results[1]["digests"]:
+        fail(f"dp step: the ranks' parameters differ after a step "
+             f"({results[0]['digests']} vs {results[1]['digests']})")
+    micro, one = results[0]["microbatched"], results[0]["one_process"]
+    if not (micro["grads_equal"] and all(micro["params_equal"])):
+        fail(f"dp step: not bit-equal to one process running the ranks' "
+             f"rows as two microbatches (grads equal: "
+             f"{micro['grads_equal']}; parameters equal after each step: "
+             f"{micro['params_equal']})")
+    if not math.isfinite(one["grads"]) or one["grads"] > 1e-5:
+        fail(f"dp step: grads {one['grads']:.2e} of max |value| from one "
+             f"process on the whole batch (limit 1e-5)")
+    losses = [sum(out["losses"][i] for out in results) / DP_RANKS
+              for i in range(steps)]
+    print(f"dp step: 235M f32 (TF32 off, deterministic) global b4 t256 on 2 "
+          f"ranks of b2 (DDP over gloo on one card), 2 clipped AdamW steps: "
+          f"ranks' parameters bit-identical after every step and bit-equal "
+          f"to one process running the ranks' rows as 2 microbatches "
+          f"(gradients and parameters); against one process on the whole "
+          f"batch in one piece: grads after the first backward within "
+          f"{one['grads']:.2e} of max |value| (limit 1e-5), parameters "
+          f"after each step within "
+          f"{[float(f'{x:.2e}') for x in one['params']]}"
+          f" (AdamW's first update, lr 3e-4 at step 2, normalizes the "
+          f"gradients' summation-order noise); losses by step (rank mean) "
+          f"{[round(x, 6) for x in losses]} against one process's "
+          f"{[round(x, 6) for x in one['losses']]}; launches a rank {want}; "
+          f"{seconds:.1f} s with the spawns (the DDP run "
+          f"{results[0]['ddp_s']:.1f} s, rank 0's references "
+          f"{ {k: round(v, 1) for k, v in results[0]['seconds'].items()} } s)"
+          f" [{card}]", flush=True)
+    return results[0]["launches"]
+
+
+def start_dp_train_run(folder, epochs, label, *flags):
+    """Start `python3 chip_smoke.py --dp-train ... --workers=2` in
+    `folder`; `finish_dp_train_run` waits for it."""
+    Path(folder).mkdir(exist_ok=True)
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-train",
+            *DP_TRAIN_ARGS, f"dora.dir={folder}", f"epochs={epochs}",
+            *flags, "--workers=2"]
+    tag = label.replace(" ", "-")
+    clear_dp_results(folder, tag)
+    started = start_sessions([(argv, dp_env(folder, tag))], folder, 300,
+                             label)
+    started.update(begin=time.perf_counter(), folder=folder, tag=tag,
+                   launched=time.time())
+    return started
+
+
+def finish_dp_train_run(started):
+    """The ranks' results of a started `dp train` run, and its wall
+    seconds."""
+    logs = finish_sessions(started)
+    ended = time.time()
+    results = dp_results(started["folder"], started["tag"])
+    if len(results) != DP_RANKS:
+        fail(f"{started['label']}: {len(results)} of {DP_RANKS} ranks "
+             f"reported: {logs[0][1][-1500:]}")
+    for out in results:
+        # where a run's wall goes: the launch to the worker's start, its
+        # start to main, main, main's end to its result, and to the
+        # launcher's exit
+        clock = out["clock"]
+        marks = [started["launched"], clock["started"], clock["main"],
+                 clock["main_end"], clock["written"], ended]
+        out["split_s"] = [round(b - a, 2) for a, b in zip(marks, marks[1:])]
+    return results, time.perf_counter() - started["begin"]
+
+
+def dp_reference_loss(torch, device):
+    """One process's train loss of the `dp train` run's first epoch: the
+    seed-0 model on the two global batches (AdamW's first update has lr
+    0, so both steps see these weights)."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerLM)
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    # the LM solver's model: its config's keys, its seed
+    model = TransformerLM(TransformerConfig(
+        vocab_size=32768, dim=1024, num_layers=DP_LAYERS, num_heads=16,
+        mlp_ratio=4, attention="flash"), device=device, seed=0)
+    stream = synthetic_token_stream(32768)
+    with torch.no_grad():
+        losses = [float(lm_next_token_loss(model, torch.from_numpy(
+            stream(16, 1024, step)).long().to(device))) for step in range(2)]
+    del model
+    return sum(losses) / len(losses)
+
+
+def phase_dp_train(torch, device, card, folder, b1):
+    """Phase 45: `main` with --workers=2 at full width on the card; `b1`
+    is run B's first epoch, started in `folder`/b while `dp step` ran
+    (`start_dp_train_run`). Returns a rank's launches."""
+    from flashy_tpu_torch.utils import percentile
+    a_dir, b_dir = Path(folder) / "a", Path(folder) / "b"
+    run_b1, b1_seconds = finish_dp_train_run(b1)
+    run_a, a_seconds = finish_dp_train_run(start_dp_train_run(
+        a_dir, 2, "dp train A", "--dp-digest", "--dp-time-all-reduce"))
+    run_b2, b2_seconds = finish_dp_train_run(start_dp_train_run(
+        b_dir, 2, "dp train B2", "--dp-digest"))
+    print(f"dp train runs: wall A {a_seconds:.1f}, B1 {b1_seconds:.1f}, B2 "
+          f"{b2_seconds:.1f} s; rank 0's seconds in main "
+          f"{[round(r[0]['main_s'], 1) for r in (run_a, run_b1, run_b2)]}, "
+          f"its steps {[round(x * 1e3, 1) for x in run_a[0]['step_seconds']]}"
+          f" ms (A), the all-reduce alone "
+          f"{[round(x, 1) for x in run_a[0]['all_reduce_ms']]} ms; rank 0's "
+          f"wall split (launch to worker start, to main, main, to result, "
+          f"to the launcher's exit) A {run_a[0]['split_s']}, B1 "
+          f"{run_b1[0]['split_s']}, B2 {run_b2[0]['split_s']} s [{card}]",
+          flush=True)
+    want_a = flash_want(DP_LAYERS, [(2, 1)] * 2)
+    want_b2 = flash_want(DP_LAYERS, [(2, 1)])
+    for runs, want, restored in ((run_a, want_a, False),
+                                 (run_b2, want_b2, True)):
+        for out in runs:
+            if out["launches"] != want or out["backend"] != "gloo" \
+                    or out["restored"] != restored or out["epochs"] != 2 \
+                    or out["ddp"] != "DistributedDataParallel":
+                fail(f"dp train rank {out['rank']}: launches "
+                     f"{out['launches']} (expected {want}), backend "
+                     f"{out['backend']}, restored {out['restored']}, "
+                     f"{out['epochs']} epochs, {out['ddp']}")
+    digests = {out["digest"] for out in run_a + run_b2}
+    if len(digests) != 1:
+        fail(f"dp train: ranks or runs differ: A "
+             f"{[o['digest'][:12] for o in run_a]}, B "
+             f"{[o['digest'][:12] for o in run_b2]}")
+    (a_xp,) = (a_dir / "xps").iterdir()
+    (b_xp,) = (b_dir / "xps").iterdir()
+    history_a = json.loads((a_xp / "history.json").read_text())
+    history_b = json.loads((b_xp / "history.json").read_text())
+    clocks = ("duration", "tokens_per_sec")
+
+    def stripped_history(history):
+        return [{stage: {k: v for k, v in metrics.items()
+                         if k not in clocks}
+                 for stage, metrics in epoch.items()} for epoch in history]
+
+    if len(history_a) != 2 or stripped_history(history_a) != \
+            stripped_history(history_b):
+        fail(f"dp train: histories differ: {history_a} vs {history_b}")
+    files = sorted(p.name for p in a_xp.iterdir())
+    if "checkpoint.th" not in files or any(".tmp" in f for f in files):
+        fail(f"dp train: rank 0's files {files}")
+    reference = dp_reference_loss(torch, device)
+    error = abs(history_a[0]["train"]["loss"] - reference) / reference
+    if not error <= 1e-4:
+        fail(f"dp train: epoch 1's train loss {history_a[0]['train']} "
+             f"against one process {reference} (limit 1e-4 relative)")
+    seconds = run_a[0]["step_seconds"][1:]
+    p50 = percentile(seconds, 50) * 1e3
+    tokens = 16 * 1024
+    tok_s = tokens * len(seconds) / sum(seconds)
+    reduce_ms = percentile(run_a[0]["all_reduce_ms"], 50)
+    print(f"dp train: the 235M layout's width at {DP_LAYERS} layers, bf16, "
+          f"global b16 t1024 through main --workers=2 "
+          f"(2 ranks of b8 on cuda:0, gloo): run A 2 epochs x 2 steps + 1 "
+          f"valid with a commit each, run B 1 epoch then resumed to 2 (both "
+          f"ranks Restored: True from rank 0's file): final states "
+          f"bit-identical across ranks and runs (sha256 of parameters and "
+          f"AdamW moments), histories equal without wall-clock keys, "
+          f"history.json and checkpoint.th by rank 0; epoch 1's train loss "
+          f"{history_a[0]['train']['loss']:.7f} against one process "
+          f"{reference:.7f} (rel {error:.1e}, limit 1e-4); "
+          f"launches a rank {want_a} (A), {want_b2} (B resumed); step p50 "
+          f"{p50:.2f} ms (steps 2..4, rank 0), global tokens/s "
+          f"{tok_s:.1f}, the gradient all-reduce alone "
+          f"({run_a[0]['all_reduce_bytes'] / 2 ** 20:.0f} MiB f32) "
+          f"{reduce_ms:.1f} ms = {reduce_ms / p50:.3f} of a step "
+          f"({GLOO_LABEL});"
+          f" peak {max(o['peak_gib'] for o in run_a):.1f} GiB a rank; runs "
+          f"A {a_seconds:.1f}, B1 {b1_seconds:.1f} (beside dp step), B2 "
+          f"{b2_seconds:.1f} s [{card}]", flush=True)
+    return run_a[0]["launches"]
+
+
+class DocsSource:
+    """A checkpointable document source: document i is 8 tokens of i."""
+
+    def __init__(self):
+        self.i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import numpy as np
+        doc = np.full(8, self.i, dtype=np.int32)
+        self.i += 1
+        return doc
+
+    def state_dict(self):
+        return {"i": self.i}
+
+    def load_state_dict(self, state):
+        self.i = state["i"]
+
+    def close(self):
+        pass
+
+
+def phase_prefetch_to_device(torch, device, card, rounds=2, batches=24):
+    """Phase 46: `data.prefetch_to_device` on the card."""
+    import numpy as np
+    from flashy_tpu_torch.data import prefetch_to_device
+    from flashy_tpu_torch.datapipe import SequencePacker, prefetch
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.utils import percentile
+    stream = synthetic_token_stream(32768)
+    host = [stream(16, 1024, step) for step in range(batches)]
+    got = list(prefetch_to_device(iter(host), size=2, device=device))
+    if len(got) != batches or any(
+            g.device != torch.device("cuda", 0) or g.dtype != torch.int32
+            or not np.array_equal(g.cpu().numpy(), h)
+            for g, h in zip(got, host)):
+        fail("prefetch to device: delivered batches differ from the host's")
+    pipe = prefetch(SequencePacker(DocsSource(), batch_size=8, max_len=8),
+                    size=2)
+    it = prefetch_to_device(pipe, size=2, device=device)
+    seen = [int(next(it)["tokens"][0, 0]) for _ in range(2)]
+    it.close()
+    seen += [int(next(pipe)["tokens"][0, 0]) for _ in range(3)]
+    pipe.close()
+    if seen != [0, 8, 16, 24, 32]:
+        fail(f"prefetch to device: the early stop did not rewind the "
+             f"datapipe stage past the buffered batches: {seen}")
+    # the data wait a batch: a step of ~5 ms of device work behind each
+    # batch; a blocking upload waits for the card's queue, the prefetch
+    # does not
+    cycles = 10_000_000     # ~5 ms of spin at the H100's ~2 GHz
+
+    def loop(prefetching):
+        source = iter(host)
+        it = prefetch_to_device(source, size=2, device=device) \
+            if prefetching else (torch.from_numpy(h).to(device)
+                                 for h in source)
+        waits = []
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            waits.append(time.perf_counter() - t0)
+            torch.cuda._sleep(cycles)
+            batch.sum()
+        torch.cuda.synchronize()
+        return waits[2:]
+
+    turns = {"with": [], "without": []}
+    for _ in range(rounds):
+        for kind in ("with", "without", "without", "with"):
+            turns[kind] += loop(kind == "with")
+    wait = {kind: percentile(values, 50) * 1e3
+            for kind, values in turns.items()}
+    print(f"prefetch to device: {batches} [16, 1024] int32 batches "
+          f"bit-equal to the host's on cuda:0; an early stop after 2 of a "
+          f"size-2 buffer rewound the datapipe stage to the last delivered "
+          f"batch (docs {seen}); data wait a batch behind ~5 ms of device "
+          f"work, p50 in turns (with, without, without, with) x {rounds}: "
+          f"{wait['with']:.3f} ms with the prefetch, {wait['without']:.3f} "
+          f"ms with a blocking upload [{card}]", flush=True)
+
+
 def main() -> None:
     import argparse
-    parser = argparse.ArgumentParser(
-        description="Chip smoke test of the PyTorch port on one H100.")
-    parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the packed-train corpus (phase 41)")
-    args = parser.parse_args()
+    # the processes the dp phases start run this script with these flags
+    worker = sys.argv[1] if sys.argv[1:2] in (["--dp-rank"],
+                                              ["--dp-train"]) else None
+    if worker is None:
+        parser = argparse.ArgumentParser(
+            description="Chip smoke test of the PyTorch port on one H100.")
+        parser.add_argument("--seed", type=int, default=0,
+                            help="seed of the packed-train corpus (phase 41)")
+        args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -6811,6 +7563,12 @@ def main() -> None:
         fail(f"{ROOT} holds no flashy_tpu_torch package: run from the root "
              f"of a checkout")
     sys.path.insert(0, str(ROOT))
+    if worker == "--dp-rank":
+        dp_rank_main(torch, sys.argv[2])
+        return
+    if worker == "--dp-train":
+        dp_train_main(torch, sys.argv[1:])
+        return
     device = torch.device("cuda")
     card = card_line()
     laps, last = {}, [time.perf_counter()]
@@ -7027,6 +7785,25 @@ def main() -> None:
     lap("packed train")
     phase_campaign(card)
     lap("campaign")
+
+    # queue A item 5: data parallelism across processes, two ranks sharing
+    # the card over gloo (NCCL refuses two ranks on one device)
+    release_memory(torch)
+    with tempfile.TemporaryDirectory() as folder:
+        phase_dp_collectives(torch, card, folder)
+    lap("dp collectives")
+    with tempfile.TemporaryDirectory() as train_folder:
+        # `dp train`'s run B1 (its first epoch, untimed) beside `dp step`
+        b1 = start_dp_train_run(Path(train_folder) / "b", 1, "dp train B1")
+        with tempfile.TemporaryDirectory() as folder:
+            dp_step_launches = phase_dp_step(torch, card, folder)
+        lap("dp step (and dp train's run B1)")
+        dp_train_launches = phase_dp_train(torch, device, card, train_folder,
+                                           b1)
+    lap("dp train")
+    release_memory(torch)
+    phase_prefetch_to_device(torch, device, card)
+    lap("prefetch to device")
     print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
@@ -7205,6 +7982,12 @@ def main() -> None:
         layouts[name] = {f"scan step {case}": counts[name]
                          for case, counts in scan_step.items()
                          if name in counts}
+    # the data-parallel paths: a rank's launches (each of the two ranks
+    # launches as many)
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        layouts[name]["dp train (a rank)"] = dp_train_launches[name]
+    for name in ("flash_fwd_general", "flash_bwd_fused_general"):
+        layouts[name]["dp step (a rank)"] = dp_step_launches[name]
     for kernel in kernels:
         if kernel["name"] in layouts:
             kernel["layout_launches"] = layouts[kernel["name"]]

@@ -21,8 +21,12 @@ flashy_tpu/checkpoint.py).
   commit (skeleton, manifest, pointer) waits for `finalize_pending`.
 
 Module and optimizer state dicts load into their live objects, which
-puts the tensors back on their devices. Several ranks, declared state
-shardings and resharding at restore raise (`TODO_SHARDED`).
+puts the tensors back on their devices. Under replicated data
+parallelism every rank holds the same state: rank 0 writes the single
+file (`run_on_rank_zero`, every rank meeting it there) and every rank
+loads it. Slots and
+asynchronous saves on several ranks, declared state shardings and
+resharding at restore raise (`TODO_SHARDED`).
 
 `to_torch_state_dict` / `from_torch_state_dict` flatten a nested tree to
 '.'-joined keys and back, and `import_flashy_checkpoint` reads a
@@ -49,8 +53,9 @@ from .utils import AnyPath, write_and_rename
 
 logger = logging.getLogger(__name__)
 
-TODO_SHARDED = ("ROADMAP.md queue A item 8 (checkpoints across several "
-                "ranks, declared state shardings and resharding at restore)")
+TODO_SHARDED = ("ROADMAP.md queue A item 8 (slot and asynchronous "
+                "checkpoints across several ranks, declared state "
+                "shardings and resharding at restore)")
 
 POINTER = "CURRENT"
 SLOTS = ("slot0", "slot1")
@@ -99,6 +104,9 @@ def _unplain(value: tp.Any) -> tp.Any:
 
 
 def _one_process(what: str) -> None:
+    """Refuse what runs on one process only: slot saves and restores and
+    asynchronous saves (a single file of a replicated state runs on any
+    world size)."""
     if distrib.is_distributed():
         raise NotImplementedError(
             f"{what} across {distrib.world_size()} ranks is not ported "
@@ -142,9 +150,29 @@ def _read_state_file(path: AnyPath, what: str) -> tp.Any:
 
 
 def save_state(state: tp.Any, path: AnyPath) -> None:
-    """Write a state dict to one file, atomically, with its sidecar."""
-    _one_process("a single-file save")
+    """Write a state dict to one file, atomically, with its sidecar (from
+    the process that calls it; on several ranks, rank 0 through
+    `run_on_rank_zero`)."""
     _write_state_file(path, _plain(state))
+
+
+def run_on_rank_zero(fn: tp.Callable[[], tp.Any], what: str) -> None:
+    """`fn()` on rank 0, with every process calling together: every rank
+    then learns whether it succeeded (a broadcast that is also the
+    barrier), so a failure raises on every rank instead of leaving the
+    others waiting in the next collective."""
+    error: tp.Optional[BaseException] = None
+    if distrib.is_rank_zero():
+        try:
+            fn()
+        except BaseException as exc:  # re-raised below, on every rank
+            error = exc
+    failed = distrib.broadcast_object(
+        None if error is None else f"{type(error).__name__}: {error}")
+    if error is not None:
+        raise error
+    if failed is not None:
+        raise CheckpointError(f"rank 0 failed {what}: {failed}")
 
 
 def load_state(path: AnyPath) -> tp.Any:

@@ -170,7 +170,8 @@ class PrefetchIterator(PipelineStage):
 
 def prefetch(source: tp.Any, size: int = 2) -> PrefetchIterator:
     """Wrap `source` in a background-thread `PrefetchIterator` keeping
-    `size` batches in flight. The batches stay numpy on the host; the
-    training step uploads them (the device double buffer,
-    `data.prefetch_to_device`, waits for ROADMAP.md queue A item 5)."""
+    `size` batches in flight. The batches stay numpy on the host;
+    `data.prefetch_to_device` over this iterator keeps their uploads in
+    flight to the card (and rewinds it past undelivered batches on an
+    early stop)."""
     return PrefetchIterator(source, size=size)

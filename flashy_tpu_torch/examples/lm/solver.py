@@ -29,6 +29,14 @@ and `train_step` take a `dropout_seed` for models with `dropout > 0`
 (each microbatch folds its index in); the solver itself trains without
 dropout, as the JAX solver does.
 
+`--workers=N` runs N data-parallel processes (`xp.main`), one rank
+each (`distrib.init`: gloo on the CPU and where ranks share a card, NCCL
+with a card a rank): `batch_size` stays the global batch, each rank
+trains on its contiguous `batch_size / N` rows of it through
+`parallel.wrap` (DistributedDataParallel), the logged train and valid
+metrics are averaged over the ranks (`distrib.average_metrics`), and rank
+0 writes the checkpoint and the history while every rank restores it.
+
 The train loop calls `check_preemption()` after every step, so a
 preemption guard in 'abandon_stage' mode
 (`solver.enable_preemption_guard(mode="abandon_stage")`) stops the stage
@@ -55,9 +63,11 @@ from ...ema import ema_update
 from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
-from ...models.transformer import (TransformerConfig, TransformerLM,
-                                   fold_seed)
+from ...models.transformer import (RowShard, TransformerConfig,
+                                   TransformerLM)
 from ...ops.losses import lm_next_token_loss
+from ...parallel.data_parallel import (shard_batch, with_grad_accumulation,
+                                       wrap)
 from ...parallel.mesh import Mesh, make_mesh
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
@@ -129,35 +139,32 @@ def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
 
     With `accumulate` > 1 the batch is split into that many microbatches
     run in sequence (peak activation memory divided by `accumulate`):
-    the f32 gradients and losses are summed, then scaled by
-    1/accumulate, as `with_grad_accumulation` does. With `dropout_seed`
-    the loss is called as `loss_fn(model, micro, dropout_seed=s)`, `s`
-    the seed with the microbatch index folded in (`fold_seed`), so each
-    microbatch draws its own masks, as `with_grad_accumulation
-    (fold_rng=True)` folds the index into a PRNG key.
+    `parallel.with_grad_accumulation` sums the f32 gradients and losses,
+    then scales them by 1/accumulate, and folds the microbatch index into
+    `dropout_seed` (the loss is called as `loss_fn(model, micro,
+    dropout_seed=s)`), so each microbatch draws its own masks. `model`
+    may be `parallel.wrap`'s DistributedDataParallel: the gradients are
+    then averaged over the ranks once a step, and a `dropout_seed`
+    becomes the rank's `RowShard`, so ranks holding contiguous rows of
+    the global batch draw the masks one process would draw over it.
     """
     model.zero_grad(set_to_none=True)
+    kwargs = {}
+    if dropout_seed is not None:
+        kwargs["dropout_seed"] = dropout_seed if not distrib.is_distributed() \
+            else RowShard(int(dropout_seed), distrib.rank(),
+                          distrib.world_size())
+
+    def loss_and_grad(model, micro, **kwargs):
+        loss = loss_fn(model, micro, **kwargs)
+        loss.backward()
+        return loss.detach().float()
+
     if tokens.shape[0] % accumulate:
         raise ValueError(f"batch {tokens.shape[0]} does not split into "
                          f"{accumulate} microbatches")
-    total = None
-    for index, micro in enumerate(
-            tokens.split(tokens.shape[0] // accumulate)):
-        if dropout_seed is None:
-            loss = loss_fn(model, micro)
-        else:
-            loss = loss_fn(model, micro,
-                           dropout_seed=fold_seed(dropout_seed, index))
-        loss.backward()
-        loss = loss.detach().float()
-        total = loss if total is None else total + loss
-    if accumulate > 1:
-        scale = 1.0 / accumulate
-        for param in model.parameters():
-            if param.grad is not None:
-                param.grad.mul_(scale)
-        total = total * scale
-    return total
+    return with_grad_accumulation(loss_and_grad, accumulate)(
+        model, tokens, **kwargs)
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -184,11 +191,12 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def check_mesh(mesh: tp.Mapping, attention: str) -> Mesh:
-    """The run's mesh, its ranks on the model's card: `data: -1`
-    resolves to 1, `seq` above 1 is a ring and needs `attention` 'ring'
-    or 'ring_fused' (with any other attention a `seq` axis would do
-    nothing on one card), and any other axis above 1 raises
-    NotImplementedError naming its ROADMAP item (`make_mesh`)."""
+    """The run's mesh: `data: -1` resolves to the world size (a rank a
+    process; 1 in one process), `seq` above 1 is a ring whose ranks share
+    the process's card and needs `attention` 'ring' or 'ring_fused'
+    (with any other attention a `seq` axis would do nothing on one
+    card), and any other axis above 1 raises NotImplementedError naming
+    its ROADMAP item (`make_mesh`)."""
     built = make_mesh({axis: int(size) for axis, size in mesh.items()})
     if built.shape["seq"] > 1 and attention not in ("ring", "ring_fused"):
         raise ValueError(f"mesh.seq={built.shape['seq']} cuts the sequence "
@@ -198,7 +206,8 @@ def check_mesh(mesh: tp.Mapping, attention: str) -> Mesh:
 
 
 class LMSolver(BaseSolver):
-    """The LM solver on one device (`cuda` unless `device` says so)."""
+    """The LM solver, one device a process (`cuda` unless `device` says
+    so)."""
 
     def __init__(self, cfg, device: tp.Any = None):
         super().__init__()
@@ -225,6 +234,14 @@ class LMSolver(BaseSolver):
                 "use loss=dense.")
         self.model = TransformerLM(model_cfg, device=self.device, seed=0,
                                    mesh=self.mesh)
+        world = distrib.world_size()
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size={cfg.batch_size} (the global "
+                             f"batch) does not split over {world} ranks")
+        # what the training step runs: DistributedDataParallel above one
+        # rank, the model itself at one (`self.model` stays the module
+        # whose state is checkpointed, evaluated and sampled)
+        self.train_model = wrap(self.model)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         # the update count: the schedule reads it, so it is checkpointed;
         # with ema_decay > 0 also the EMA shadow, name -> f32 tensor
@@ -245,13 +262,14 @@ class LMSolver(BaseSolver):
                              in self.model.named_parameters()}
 
     def loss(self, tokens: torch.Tensor,
-             params: tp.Optional[tp.Mapping[str, torch.Tensor]] = None
-             ) -> torch.Tensor:
+             params: tp.Optional[tp.Mapping[str, torch.Tensor]] = None,
+             model: tp.Optional[tp.Callable] = None) -> torch.Tensor:
         """Mean next-token CE, plus `moe_aux_weight` times the MoE layers'
-        load-balancing loss for an MoE model; with `params` (name ->
-        tensor, e.g. the EMA shadow) the model runs on those instead of
-        its own (`torch.func.functional_call`)."""
-        model: tp.Callable = self.model
+        load-balancing loss for an MoE model, through `model` (default
+        `self.model`; the training step passes `self.train_model`); with
+        `params` (name -> tensor, e.g. the EMA shadow) the model runs on
+        those instead of its own (`torch.func.functional_call`)."""
+        model = self.model if model is None else model
         if params is not None:
             def model(*args, **kwargs):
                 return torch.func.functional_call(self.model, params, args,
@@ -268,11 +286,16 @@ class LMSolver(BaseSolver):
                           "tokens_per_sec": ".0f"})
 
     def batch_at(self, step: int, eval_set: bool = False) -> torch.Tensor:
+        """This rank's rows of the global [batch_size, seq_len] batch of
+        `step`: the contiguous `batch_size / world` rows at `rank` (all of
+        them in one process), on the device."""
         # held-out data: an independently seeded subset of the same
         # distribution (see synthetic_token_stream)
         host = self._stream(self.cfg.batch_size, self.cfg.seq_len, step,
                             subset=1 if eval_set else 0)
-        return torch.from_numpy(host).long().to(self.device)
+        rows = self.cfg.batch_size // distrib.world_size()
+        local = host[distrib.rank() * rows:(distrib.rank() + 1) * rows]
+        return shard_batch(local, self.mesh, device=self.device).long()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -295,9 +318,9 @@ class LMSolver(BaseSolver):
         for index in progress:
             global_step = (self.epoch - 1) * cfg.steps_per_epoch + index
             t0 = time.perf_counter()
-            args = (self.model, self.optimizer, self.schedule,
+            args = (self.train_model, self.optimizer, self.schedule,
                     self.state["step"], self.batch_at(global_step),
-                    lambda model, tokens: self.loss(tokens))
+                    lambda model, tokens: self.loss(tokens, model=model))
             kwargs = {"accumulate": int(cfg.get("accumulate", 1))}
             step_metrics = roofline.register_fn("lm/train_step", train_step,
                                                 args, kwargs)
@@ -322,8 +345,10 @@ class LMSolver(BaseSolver):
             tokens_seen += cfg.batch_size * cfg.seq_len
             progress.update(**metrics)
         self._sync()
-        metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
         metrics["tokens_per_sec"] = tokens_seen / (time.time() - begin)
+        # the global batch's: every rank ran as many steps
+        metrics = distrib.average_metrics(metrics)
+        metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
         return metrics
 
     def valid(self):
@@ -341,6 +366,7 @@ class LMSolver(BaseSolver):
                 progress.observe(loss)
                 metrics = average({"loss": loss})
                 progress.update(**metrics)
+        metrics = distrib.average_metrics(metrics)
         metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
         return metrics
 
@@ -401,7 +427,8 @@ class LMSolver(BaseSolver):
 def main(cfg):
     """Train the TransformerLM; returns the solver."""
     setup_logging()
-    distrib.init()
+    # gloo for ranks on the CPU; else NCCL where each rank has a card
+    distrib.init(backend="gloo" if cfg.get("device") == "cpu" else None)
     solver = LMSolver(cfg, device=cfg.get("device"))
     solver.run()
     return solver

@@ -11,9 +11,9 @@ Brings up every host of a multi-host run with one command:
     same command lines).
 
 The planning functions are pure (host, env, argv) planners, testable
-without ssh or a pod. A run of several processes still needs
-`distrib.init` on torch.distributed (ROADMAP.md queue A item 5): until
-then the port's `distrib.init` raises for a world size above 1.
+without ssh or a pod. Each started process joins the run's process group
+in `distrib.init` (torch.distributed: NCCL with a card a process, gloo
+otherwise), one data-parallel rank a host.
 """
 import argparse
 import dataclasses

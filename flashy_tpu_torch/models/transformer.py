@@ -49,6 +49,10 @@ Training switches, as in the JAX package:
   train=True, dropout_seed=s)`. Each site draws its mask from a
   `torch.Generator` of its own on the activation's device, seeded with
   `fold_seed(s, layer, site)`, so a recompute draws the same mask.
+  A data-parallel rank passes a `RowShard(s, rank, world)`: each site
+  then draws its mask over the global batch (`world` x B rows) and
+  keeps the rank's rows, so ranks holding contiguous rows of a global
+  batch drop exactly what one process on the whole batch drops.
 - `remat=True` recomputes each block in the backward
   (`torch.utils.checkpoint`); `remat_policy` says what it saves: 'full'
   nothing, 'dots' the outputs of every matrix product, 'dots_no_batch'
@@ -211,24 +215,50 @@ def fold_seed(seed: int, *data: int) -> int:
     return value & ((1 << 63) - 1)
 
 
+class RowShard(tp.NamedTuple):
+    """A dropout seed for one data-parallel rank: masks are drawn with
+    `seed` over `shards` x B rows (B the local batch) and the rank keeps
+    rows [shard * B, (shard + 1) * B)."""
+    seed: int
+    shard: int
+    shards: int
+
+
+DropoutSeed = tp.Union[int, RowShard]
+
+
+def fold_dropout_seed(seed: DropoutSeed, *data: int) -> DropoutSeed:
+    """`fold_seed` of a dropout seed, a `RowShard` keeping its rows."""
+    if isinstance(seed, RowShard):
+        return seed._replace(seed=fold_seed(seed.seed, *data))
+    return fold_seed(seed, *data)
+
+
 # dropout sites of a block: after the mixer, after the MLP
 DROPOUT_MIXER, DROPOUT_MLP = 0, 1
 
 
-def dropout(x: torch.Tensor, rate: float, seed: tp.Optional[int]
+def dropout(x: torch.Tensor, rate: float, seed: tp.Optional[DropoutSeed]
             ) -> torch.Tensor:
     """flax's `nn.Dropout(rate)` in training: keep each value with
     probability 1 - rate, scaled by 1 / (1 - rate), else 0. The mask is
     drawn from a fresh `torch.Generator` on x's device seeded with
-    `seed`, so the same seed draws the same mask, in a recompute too.
+    `seed`, so the same seed draws the same mask, in a recompute too; a
+    `RowShard` draws it over all shards' rows and keeps its own.
     `seed=None` (not training) returns x."""
     if seed is None or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
+    shape, rows = x.shape, slice(None)
+    if isinstance(seed, RowShard):
+        shape = (seed.shards * x.shape[0],) + tuple(x.shape[1:])
+        rows = slice(seed.shard * x.shape[0], (seed.shard + 1) * x.shape[0])
+        seed = seed.seed
     generator = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = torch.rand(shape, generator=generator, device=x.device)[rows] \
+        < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -371,7 +401,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None,
-                dropout_seed: tp.Optional[int] = None,
+                dropout_seed: tp.Optional[DropoutSeed] = None,
                 layer: tp.Optional[int] = None) -> torch.Tensor:
         """With `dropout_seed` (training with dropout > 0) dropout follows
         the mixer's output projection and the MLP's down projection (not
@@ -382,8 +412,8 @@ class Block(nn.Module):
         rate = self.config.dropout
         layer = self.index if layer is None else layer
 
-        def site(number: int) -> tp.Optional[int]:
-            return None if dropout_seed is None else fold_seed(
+        def site(number: int) -> tp.Optional[DropoutSeed]:
+            return None if dropout_seed is None else fold_dropout_seed(
                 dropout_seed, layer, number)
 
         mix = self.ssd if self.mixer == "ssd" else self.attn
@@ -455,7 +485,7 @@ class StackedBlocks(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None,
-                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+                dropout_seed: tp.Optional[DropoutSeed] = None) -> torch.Tensor:
         views = {name: torch.unbind(getattr(*_owner(self.block, name)), 0)
                  for name in self.names}
         moe = getattr(self.block, "moe", None)
@@ -522,7 +552,7 @@ class TransformerLM(nn.Module):
                 segment_ids: tp.Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
                 return_aux: bool = False, train: bool = False,
-                dropout_seed: tp.Optional[int] = None) -> tp.Any:
+                dropout_seed: tp.Optional[DropoutSeed] = None) -> tp.Any:
         """Logits [B, T, vocab] f32, or with `return_hidden` the final
         hidden states and the tied embedding (for a chunked loss that
         never materializes the logits), or with `return_aux` the logits
@@ -534,7 +564,8 @@ class TransformerLM(nn.Module):
         `train=True` turns dropout on when `config.dropout > 0`, as the
         JAX package's `train` does (`nn.Module.training` plays no part:
         `generate` and the serving engine never drop); it then needs a
-        `dropout_seed` (an int), as flax needs a 'dropout' rng."""
+        `dropout_seed` (an int, or a data-parallel rank's `RowShard`), as
+        flax needs a 'dropout' rng."""
         cfg = self.config
         if train and cfg.dropout > 0.0:
             if dropout_seed is None:

@@ -24,7 +24,7 @@ chaos campaign (`resilience.campaign`: every registry site under every
 fault kind its scenario declares, failures shrunk to a JSON reproducer)
 over the ported `train` and `datapipe` scenarios; the serve, fleet,
 pipeline, tensor and elastic scenarios wait for ROADMAP.md queue A
-items 5, 8 and 10.
+items 8 and 10.
 
 Importing this package touches no CUDA device.
 """

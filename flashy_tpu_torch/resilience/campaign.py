@@ -19,7 +19,8 @@ and `datapipe` (the datapipe drill's solver, on `cuda` unless
 statically, so coverage and `static_coverage()` see the whole registry,
 and raise NotImplementedError naming their ROADMAP.md queue A items
 when run: `serve` and `fleet` (item 10, the fleet), `pipeline` and
-`tensor` (item 8), `elastic` (items 5 and 8). A campaign over every scenario
+`tensor` (item 8), `elastic` (items 5 and 8: it waits for item 8's state
+sharding). A campaign over every scenario
 (`scenarios=None`) therefore raises; an explicit subset of ported
 scenarios runs with the narrowed coverage gate.
 """
@@ -347,8 +348,9 @@ class DatapipeScenario(Scenario):
 TODO_FLEET = "ROADMAP.md queue A item 10 (the fleet: serve/fleet/)"
 TODO_PARALLEL = ("ROADMAP.md queue A item 8 (parallelism beyond data "
                  "parallel: the pipeline schedules and tensor parallelism)")
-TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (several processes and "
-                "state sharding: the elastic drill)")
+TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
+                "item 5's processes and collectives are ported, item 8's "
+                "state sharding is not)")
 
 
 class _WaitingScenario(Scenario):

@@ -34,6 +34,7 @@ import typing as tp
 from pathlib import Path
 
 from . import checkpoint as _checkpoint
+from . import distrib
 from .distrib import is_rank_zero
 from .formatter import Formatter
 from .info import CHECKPOINT_META_NAME
@@ -274,10 +275,14 @@ class BaseSolver:
         self.history.append(pending)
         self._pending_metrics = {}
         try:
-            if save_checkpoint and is_rank_zero():
+            if save_checkpoint:
                 # the snapshot follows the append, so the checkpointed
-                # history includes the epoch being committed
-                self._save_checkpoint(self.state_dict())
+                # history includes the epoch being committed; rank 0
+                # writes the replicated state, every rank meets it there
+                # (slot and async saves on several ranks raise: item 8)
+                _checkpoint.run_on_rank_zero(
+                    lambda: self._save_checkpoint(self.state_dict()),
+                    "to save the checkpoint")
         except BaseException:
             self.history.pop()
             self._pending_metrics = pending
@@ -336,10 +341,11 @@ class BaseSolver:
         (one device, replicated), which `python -m flashy_tpu_torch.info`
         shows. Best-effort: a failure here never fails the commit the
         checkpoint already survived."""
+        world = distrib.world_size()
         meta = {"mode": mode, "time": time.time(),
                 "state_sharding": REPLICATED,
-                "topology": {"version": 1, "device_count": 1,
-                             "world_size": 1, "mesh": None,
+                "topology": {"version": 1, "device_count": world,
+                             "world_size": world, "mesh": None,
                              "state_sharding": REPLICATED["summary"]}}
         try:
             with write_and_rename(self.folder / CHECKPOINT_META_NAME,
@@ -399,8 +405,21 @@ class BaseSolver:
 
     def restore(self) -> bool:
         """Load the checkpoint if one exists (slots before a single
-        file). Returns True on success."""
+        file). Returns True on success. On several ranks every rank must
+        see the checkpoint rank 0 sees (a folder on a filesystem they
+        share): a rank that restored nothing while rank 0 resumed epoch N
+        would wait in the next collective for ever, so a mismatch raises;
+        then every rank loads the file."""
         kind = self._detect_checkpoint()
+        if distrib.is_distributed():
+            kind_on_zero = distrib.broadcast_object(kind)
+            if kind_on_zero != kind:
+                raise RuntimeError(
+                    f"Checkpoint mismatch across hosts: process 0 sees "
+                    f"checkpoint kind {kind_on_zero}, process "
+                    f"{distrib.rank()} sees {kind} (0=none, 1=single, "
+                    f"2=sharded). Checkpoints must live on a filesystem "
+                    f"shared by all hosts.")
         if kind == 0:
             return False
         if kind == 2:

@@ -11,8 +11,11 @@ so a port run and a JAX run of one config never share a folder.
 """
 import hashlib
 import json
+import os
+import subprocess
 import sys
 import tempfile
+import time
 import typing as tp
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -23,8 +26,6 @@ import yaml
 
 from .utils import AnyPath, write_and_rename
 
-TODO_WORKERS = ("ROADMAP.md queue A item 5 (multi-process launch on "
-                "torch.distributed)")
 DEFAULT_ROOT = "./outputs_torch"
 
 # Config sections that configure XP management itself; excluded from the
@@ -295,11 +296,14 @@ class _EntryPoint:
         return cfg, flags
 
     def _usage(self) -> str:
-        lines = [f"usage: {sys.argv[0]} [--clear] [key=value ...]", "",
+        lines = [f"usage: {sys.argv[0]} [--clear] [--workers=N] "
+                 f"[key=value ...]", "",
                  "  key=value      override a config key (YAML-typed; "
                  "nested via dots)",
                  "  --clear        delete this config's XP folder and "
-                 "start fresh"]
+                 "start fresh",
+                 "  --workers=N    run N processes on this host, one "
+                 "data-parallel rank each (alias --ddp_workers=N)"]
         if self.config_path is not None:
             lines.append(f"  config: {self.config_path / (self.config_name + '.yaml')}")
         if self.fn.__doc__:
@@ -319,25 +323,94 @@ class _EntryPoint:
             print(self._usage())
             return None
         cfg, flags = self._resolve(argv)
-        for flag in flags:
-            if flag.startswith(("--workers=", "--ddp_workers=")):
-                raise NotImplementedError(
-                    f"{flag}: multi-process launch is not ported yet: "
-                    f"{TODO_WORKERS}")
         xp = create_xp(cfg, root=self.dir, argv=argv)
-        if "--clear" in flags:
+        spawned_worker = "FLASHY_TPU_PROCESS_ID" in os.environ
+        if "--clear" in flags and not spawned_worker:
+            # only the launcher clears: a worker clearing would delete the
+            # folder under its siblings' feet
             import shutil
             shutil.rmtree(xp.folder, ignore_errors=True)
             xp = create_xp(cfg, root=self.dir, argv=argv)
+        workers = 0
+        for flag in flags:
+            if flag.startswith(("--workers=", "--ddp_workers=")):
+                workers = int(flag.split("=", 1)[1])
+        if workers > 1 and not spawned_worker:
+            return _spawn_workers(workers, argv)
         with xp.enter():
             return self.fn(xp.cfg)
+
+
+def _spawn_workers(num_workers: int, argv: tp.List[str]) -> None:
+    """Run `num_workers` data-parallel processes on this host (the `dora
+    run -d` role) and wait for them.
+
+    Re-executes this process's command (`python -m <module>` for a `-m`
+    launch, else the script) with `argv` minus `--workers`/`--clear`,
+    each worker with the FLASHY_TPU_COORDINATOR / NUM_PROCESSES /
+    PROCESS_ID environment (and LOCAL_RANK / LOCAL_WORLD_SIZE) that
+    `distrib.init()` joins. The rendezvous is a free TCP port on
+    localhost, or the launcher's own FLASHY_TPU_COORDINATOR when that is
+    set (a `host:port` or a `file://` path). The workers inherit this
+    process's stdio. When a worker fails, the others are terminated (they
+    would wait in a collective for ever) and CalledProcessError names the
+    first failed worker.
+    """
+    coordinator = os.environ.get("FLASHY_TPU_COORDINATOR") \
+        or f"localhost:{_free_port()}"
+    child_argv = [a for a in argv
+                  if not (a.startswith(("--workers=", "--ddp_workers="))
+                          or a == "--clear")]
+    main_spec = getattr(sys.modules.get("__main__"), "__spec__", None)
+    if main_spec is not None and main_spec.name:
+        command = [sys.executable, "-m", main_spec.name] + child_argv
+    else:
+        command = [sys.executable, sys.argv[0]] + child_argv
+    procs = []
+    for process_id in range(num_workers):
+        env = dict(os.environ)
+        env.update({"FLASHY_TPU_COORDINATOR": coordinator,
+                    "FLASHY_TPU_NUM_PROCESSES": str(num_workers),
+                    "FLASHY_TPU_PROCESS_ID": str(process_id),
+                    "LOCAL_RANK": str(process_id),
+                    "LOCAL_WORLD_SIZE": str(num_workers)})
+        procs.append(subprocess.Popen(command, env=env))
+    failed: tp.Optional[tp.Tuple[int, int]] = None
+    try:
+        while any(p.poll() is None for p in procs):
+            for process_id, p in enumerate(procs):
+                if failed is None and p.poll() not in (None, 0):
+                    failed = (process_id, p.returncode)
+            if failed is not None:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            p.wait()
+    if failed is None:
+        failed = next(((i, p.returncode) for i, p in enumerate(procs)
+                       if p.returncode != 0), None)
+    if failed is not None:
+        raise subprocess.CalledProcessError(failed[1], f"worker {failed[0]}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
 
 
 def main(config_path: tp.Optional[str] = None, config_name: str = "config"
          ) -> tp.Callable[[tp.Callable], _EntryPoint]:
     """Entry-point decorator: the config is `<config_path>/<config_name>
     .yaml` beside the decorated function's module, overridden by
-    `key=value` arguments; `--clear` starts the XP afresh. The decorated
+    `key=value` arguments; `--clear` starts the XP afresh, `--workers=N`
+    (alias `--ddp_workers=N`) runs N data-parallel processes on this host
+    (`_spawn_workers`; the call then returns None). The decorated
     function gets the resolved config and runs inside its XP; what it
     returns, the call returns."""
 

@@ -157,7 +157,10 @@ def test_lm_solver_resumes_bit_exactly(tmp_path, monkeypatch, root_logging):
         assert torch.equal(resumed.model.state_dict()[name], value), name
 
 
-def test_clear_starts_afresh_and_workers_raise(tmp_path, root_logging):
+def test_clear_starts_afresh_and_workers_raise(tmp_path, root_logging,
+                                              monkeypatch):
+    import subprocess
+    import sys
     from flashy_tpu_torch.examples.lm.solver import main
     args = TINY_ARGS + ["epochs=1", "valid_steps=0",
                         f"dora.dir={tmp_path}"]
@@ -165,8 +168,42 @@ def test_clear_starts_afresh_and_workers_raise(tmp_path, root_logging):
     assert (first.folder / "checkpoint.th").exists()
     cleared = main(args + ["--clear"])
     assert not cleared.restored and len(cleared.history) == 1
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        main(args + ["--workers=2"])
+    # --workers re-executes this process's script once a worker, with the
+    # launcher environment, minus --workers and --clear; a failed worker
+    # raises in the launcher, naming it (the real multi-process runs are
+    # tests/test_torch_distrib_multiproc.py's)
+    script = tmp_path / "worker.py"
+    # worker 1 fails once worker 0 has written its record (the launcher
+    # stops the others when one fails)
+    script.write_text(
+        "import json, os, sys, time\n"
+        "env = {k: v for k, v in os.environ.items() if k.startswith("
+        "('FLASHY_TPU_', 'LOCAL_'))}\n"
+        "rank = env['FLASHY_TPU_PROCESS_ID']\n"
+        "with open(sys.argv[0] + '.tmp' + rank, 'w') as f:\n"
+        "    json.dump({'env': env, 'argv': sys.argv[1:]}, f)\n"
+        "os.rename(sys.argv[0] + '.tmp' + rank, sys.argv[0] + '.' + rank)\n"
+        "deadline = time.time() + 30\n"
+        "while rank == '1' and not os.path.exists(sys.argv[0] + '.0') "
+        "and time.time() < deadline:\n"
+        "    time.sleep(0.01)\n"
+        "sys.exit(3 if rank == '1' else 0)\n")
+    monkeypatch.setattr(sys.modules["__main__"], "__spec__", None)
+    monkeypatch.setattr(sys, "argv", [str(script)])
+    monkeypatch.delenv("FLASHY_TPU_COORDINATOR", raising=False)
+    with pytest.raises(subprocess.CalledProcessError, match="worker 1"):
+        main(args + ["--workers=2", "--clear"])
+    seen = [json.loads((tmp_path / f"worker.py.{rank}").read_text())
+            for rank in range(2)]
+    for rank, record in enumerate(seen):
+        assert record["argv"] == args
+        env = record["env"]
+        assert env["FLASHY_TPU_PROCESS_ID"] == env["LOCAL_RANK"] == str(rank)
+        assert env["FLASHY_TPU_NUM_PROCESSES"] == "2"
+        assert env["LOCAL_WORLD_SIZE"] == "2"
+        assert env["FLASHY_TPU_COORDINATOR"].startswith("localhost:")
+    assert seen[0]["env"]["FLASHY_TPU_COORDINATOR"] == \
+        seen[1]["env"]["FLASHY_TPU_COORDINATOR"]
 
 
 def test_failed_save_rolls_history_back(monkeypatch):
@@ -221,6 +258,9 @@ def test_lm_solver_refuses_what_one_card_lacks(override, match):
 
 
 def test_multi_process_distrib_raises(monkeypatch):
+    # a multi-process launch whose entry point never called init(): the
+    # collectives refuse (the multi-process runs themselves are
+    # tests/test_torch_distrib_multiproc.py's)
     from flashy_tpu_torch import distrib
     assert distrib.world_size() == 1 and distrib.is_rank_zero()
     assert distrib.average_metrics({"loss": 2.0}) == {"loss": 2.0}
@@ -228,7 +268,6 @@ def test_multi_process_distrib_raises(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "1")
     assert distrib.rank() == 1 and not distrib.is_rank_zero()
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        distrib.init()
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    assert distrib._init_method() == "tcp://localhost:29500"
+    with pytest.raises(RuntimeError, match="distrib.init"):
         distrib.average_metrics({"loss": 2.0})
