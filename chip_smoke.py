@@ -402,7 +402,8 @@ timed):
              flashy_tpu_torch.info` (heartbeats) and
              `--slo` exit 0; then the step p50 without and with
              telemetry, in turns. The demo's `slo` leg runs in phase 9g.
- 35. train preempt  `train`'s model at full width and depth (2 train
+ 35. train preempt  `train`'s model at full width and 4 of its 12
+             layers (what 35-38 check does not depend on depth; 2 train
              steps and 1 valid a epoch, 3 epochs) through `LMSolver.run`
              with `enable_preemption_guard()` installed: two clean runs
              (their histories without wall-clock keys and every parameter
@@ -430,7 +431,7 @@ timed):
              background write fails (`ckpt.write`, every retry): the next
              commit raises and rolls back the epoch it covered, in memory
              and in history.json;
- 38. hang abort  a subprocess trains 2 steps of `train`'s model with
+ 38. hang abort  a subprocess trains 2 steps of 35's model with
              telemetry (heartbeats every 0.25 s), starts
              `enable_hang_watchdog(warn_after=2, abort_after=4,
              interval=0.5)`, runs 1 valid step, then blocks its main
@@ -514,6 +515,61 @@ under a deadline, rendezvousing through a `file://` path:
              an early stop rewinding a datapipe stage to the last batch
              delivered, the data wait a batch with and without the
              prefetch behind ~5 ms of device work, in turns.
+
+ROADMAP queue A items 6 and 11, last: the vision models, the GAN loss,
+seq2seq and their examples. They put rows 1 and 4 on shapes no earlier
+path runs: non-causal, and T 64 as one tile, where the JAX package takes
+dense attention:
+
+ 47. models step  f32, TF32 off: ResNet-18 (b8) and ResNet-50 (b4) at
+             32x32 in train mode, their norms' scales drawn near 1,
+             against the port's CPU run on the same weights computing in
+             f64: logits, every gradient and the updated statistics of the
+             card computing in f64 within 1e-5 of max |value|, and in f32
+             within 1e-4 (ResNet-50's f32 gradients, ill-conditioned at
+             batch 4, printed); vit_tiny (b8, 64 patches) with attention='flash'
+             against 'dense' on the card: logits and gradients within
+             1e-4, rows 1·g and 4·g launched 6 times each; the same in
+             bf16: logits within 2e-2 of max |logit|, rows 1 and 4 6 each;
+ 48. cifar train  the cifar example's `main` (ResNet-18, bf16, batch 256)
+             on the synthetic set at 24 train and 4 valid batches: stopped
+             after its second commit, then resumed to epoch 3 (epochs 1-2
+             of the history unchanged); images/s, step p50 from step 3,
+             the data wait's share of each epoch, peak memory, valid acc,
+             finite losses (no accuracy bar: synthetic data, few steps);
+             then vit_tiny for 12 steps: images/s;
+ 49. adversarial  MLP generator and discriminator (width 256) through
+             `AdversarialLoss`, 20 steps: `train_adv` moves D and leaves
+             the generator, its grads and `fake.grad` untouched; the
+             generator loss's backward leaves every D `.grad` None; after
+             a `save_state` / `load_state` round trip the next D step is
+             bit-identical to its twin's; the D step's p50;
+ 50. basic   the basic example stopped after its epoch-2 checkpoint and
+             resumed to epoch 4: the four history entries and the weights
+             bit-equal to an uninterrupted run in a fresh XP;
+ 51. mlm step  f32, TF32 off: the MLM width (dim 512, 8 heads of 64,
+             vocab 32768) at 2 layers, b2 t512, the masked loss and every
+             gradient with flash against dense within 1e-4; the last
+             token moves position 0's logits; rows 1·g and 4·g 2 each;
+ 52. mlm train  the MLM config (8 layers, bf16, b16 t512) through `main`,
+             8 steps and 2 valid: rows 1 and 4 launched 8 and 8 a training
+             step; tokens/s, step p50, peak memory; then each flash kernel
+             non-causal at [16, 512, 8, 64], held against its plain
+             version and timed as in phase 11, beside its bound, its plain
+             version and SDPA;
+ 53. translate step  f32, TF32 off: the translate width (dim 512, 8 heads,
+             vocab 16384) at 2+2 layers, b4 src 64: loss and every
+             gradient with flash against dense self-attention within 1e-4,
+             rows 1·g and 4·g 4 each (2 encoder non-causal, 2 decoder
+             causal); `cached_translate` token-exact against
+             `greedy_translate` on 4 sequences of 64 tokens (a near tie,
+             top-2 margin < 1e-5, reported);
+ 54. translate train  the translate config (6+6 layers, bf16, b32 src
+             64) through `main`, 8 steps, 2 valid, translate_every 1: rows
+             1 and 4 launched 12 and 12 a training step (6 encoder calls
+             non-causal, 6 decoder calls causal, counted), tokens/s, step
+             p50, tok_acc and seq_acc (no bar); then each flash kernel at
+             [32, 64, 8, 64], causal and not, as in phase 52.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -1763,8 +1819,9 @@ def flash_bounds(B, H, T, D, elem, causal=True):
     return out
 
 
-def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
-    """Each flash kernel at [B, T, H, D] (causal; by default bf16 at the
+def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None,
+               causal=True):
+    """Each flash kernel at [B, T, H, D] (`causal`; by default bf16 at the
     training shapes, B 16, H 16, T 1024, D 64) on the route its head dim
     and dtype pick, first held against its plain version there (as
     `compare_flash` does), the fused kernel's two launches bit-equal (a
@@ -1781,10 +1838,11 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
     where = f"B={B} H={H} T={T} D={D}"
     q, k, v, do = flash_inputs(torch, device, dtype, B, H, T, T, D=D,
                                seed=7 if D == 64 else 8)
+    mask = "causal" if causal else "non-causal"
     errors, share, out, _ = compare_flash(
-        torch, q, k, v, do, True, f"flash {name} {where}")
+        torch, q, k, v, do, causal, f"flash {name} {where} {mask}")
     routes = {key: A.counter_name(key, D, dtype) for key in FLASH_REPLACES}
-    print(f"flash {name} {where} causal: max abs err vs plain "
+    print(f"flash {name} {where} {mask}: max abs err vs plain "
           + ", ".join(f"{routes[key]}={value:.3e}"
                       for key, value in errors.items())
           + f" (tolerance {FLASH_TOL[name]}, backward relative); vs "
@@ -1792,9 +1850,9 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
           f"{PLACEMENT_SHARE}), each within one ulp; fused == split "
           f"bitwise [{card}]", flush=True)
     del out
-    out, lse = A.flash_forward(q, k, v, True)
+    out, lse = A.flash_forward(q, k, v, causal)
     delta = A.flash_delta(do, out)
-    args = (q, k, v, do, lse, delta, True)
+    args = (q, k, v, do, lse, delta, causal)
     first = A.flash_backward_fused(*args)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1819,14 +1877,14 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
 
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous().requires_grad_()
                        for t in (q, k, v, do))
-    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
     sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True))
+        qh, kh, vh, is_causal=causal))
     sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qh, kh, vh), doh, retain_graph=True))
     kernels = {
-        "flash_fwd": (lambda: A.flash_forward(q, k, v, True),
-                      lambda: A.flash_forward_blockwise(q, k, v, True),
+        "flash_fwd": (lambda: A.flash_forward(q, k, v, causal),
+                      lambda: A.flash_forward_blockwise(q, k, v, causal),
                       sdpa_fwd),
         "flash_bwd_dq": (
             lambda: A._launch_backward(A._BWD_DQ, *args),
@@ -1836,7 +1894,7 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
             lambda: A.flash_backward_dkv_blockwise(*args), sdpa_bwd),
         "flash_bwd_fused": (
             lambda: A.flash_backward_fused(*args), plain_fused, sdpa_bwd)}
-    bounds = flash_bounds(B, H, T, D, q.element_size())
+    bounds = flash_bounds(B, H, T, D, q.element_size(), causal)
     # the Hopper kernels take ~0.1-0.5 ms a call, the general route up to
     # ~10 and more above one head-dim slab: fewer iterations there
     iters = 20 if D == 64 else (5 if D <= 128 else 2)
@@ -1848,7 +1906,7 @@ def time_flash(torch, device, card, H=16, D=64, B=16, T=1024, dtype=None):
             "plain_ms": time_ms(torch, plain, iters=5 if D == 64 else 2),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
             "host_us": host_us(torch, kernel, calls=5 if D <= 128 else 2)}
-    print(f"flash times ({where} causal {name}): " + "; ".join(
+    print(f"flash times ({where} {mask} {name}): " + "; ".join(
         f"{key} {spread_text(t)} bound_ms={t['bound_ms']:.4f} "
         f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
         f"library_ms={t['library_ms']:.4f} host_us={t['host_us']:.1f}"
@@ -5909,11 +5967,19 @@ def phase_train_telemetry(torch, device, card, root, turns=2):
 # ----------------------------------------------------------------------
 # item 9's resilience half: preemption, slots, async saves, hangs
 # ----------------------------------------------------------------------
-RESILIENCE_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=2", "valid_steps=1",
-                                     "epochs=3"]
+# `train`'s width at 4 of its 12 layers: what the fault-tolerance phases
+# check (bit-identical resumes, slots, asynchronous commits, the abort's
+# latency) does not depend on depth, and at 12 layers the four phases took
+# 142.8-152.9 s of the script's limit (root PERF.md section 5)
+LAYERS = 4
+FT_ARGS = [arg for arg in TRAIN_ARGS
+           if not arg.startswith(("model.num_layers=", "steps_per_epoch=",
+                                  "valid_steps="))
+           ] + [f"model.num_layers={LAYERS}", "steps_per_epoch=2",
+                "valid_steps=1"]
+FT_SECONDS_AT_12_LAYERS = "142.8-152.9"
+RESILIENCE_ARGS = FT_ARGS + ["epochs=3"]
 WALL_CLOCK_KEYS = ("duration", "tokens_per_sec")
-LAYERS = int(next(a for a in TRAIN_ARGS
-                  if a.startswith("model.num_layers=")).split("=")[1])
 HANG_WARN, HANG_ABORT, HANG_INTERVAL = 2.0, 4.0, 0.5
 HANG_BOUND = 8.0          # seconds from blocking to the exit, at most
 HANG_CYCLES = 40_000_000_000   # ~20 s of spin at the H100's ~2 GHz
@@ -6109,7 +6175,8 @@ def phase_train_preempt(torch, card, root):
         fail(f"train preempt: launches {launches}, expected {want}")
     del resumed
     release_memory(torch)
-    print(f"train preempt: 235M bf16 b16 t1024, 3 epochs of 2 steps + 1 "
+    print(f"train preempt: the 235M width at {LAYERS} layers, bf16 b16 "
+          f"t1024, 3 epochs of 2 steps + 1 "
           f"valid; two clean runs: {clean_differ} of {len(clean[0][1])} "
           f"parameter and moment leaves not bit-equal, history spread "
           f"{spread[0]}, state spread {spread[1]}; a real SIGTERM at "
@@ -6307,8 +6374,7 @@ def phase_train_async(torch, card, root, clean, spread, slot_commits):
     return launches
 
 
-HANG_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=2", "valid_steps=1",
-                               "epochs=1"]
+HANG_ARGS = FT_ARGS + ["epochs=1"]
 
 
 def hang_child(folder):
@@ -7541,6 +7607,628 @@ def phase_prefetch_to_device(torch, device, card, rounds=2, batches=24):
           f"ms with a blocking upload [{card}]", flush=True)
 
 
+# ----------------------------------------------------------------------
+# queue A items 6 and 11: the vision models, the GAN loss, seq2seq and
+# the basic, cifar, mlm and translate examples
+# ----------------------------------------------------------------------
+MODELS_TOL = 1e-4          # f32: the card against the CPU, flash vs dense
+MODELS_F64_TOL = 1e-5      # f64 on the card against the CPU (f32 head)
+VIT_BF16_TOL = 2e-2        # bf16 ViT logits, flash vs dense, of max |logit|
+CIFAR_BATCH = 256
+CIFAR_ARGS = ["model=resnet18", f"batch_size={CIFAR_BATCH}", "max_batches=24"]
+# the synthetic set's train and valid images: 24 and 4 batches
+CIFAR_SIZES = (24 * CIFAR_BATCH, 4 * CIFAR_BATCH)
+MLM_STEP = dict(vocab_size=32768, dim=512, num_layers=2, num_heads=8,
+                mlp_ratio=4, max_seq_len=512, causal=False)
+MLM_STEP_SHAPE = (2, 512)
+TRANSLATE_STEP = dict(vocab_size=16384, dim=512, enc_layers=2, dec_layers=2,
+                      num_heads=8, mlp_ratio=4, max_seq_len=128)
+TRANSLATE_STEP_SHAPE = (4, 64)
+TRAIN_RUN = ["epochs=1", "steps_per_epoch=8", "valid_steps=2"]
+
+
+class StopRun(Exception):
+    """Raised by a patched `commit` to stop a run after an epoch."""
+
+
+def stop_after(solver_class, epochs):
+    """Patch `solver_class.commit` to raise StopRun once `epochs` epochs
+    are committed; returns the original to put back."""
+    commit = solver_class.commit
+
+    def commit_then_stop(self, save_checkpoint=True):
+        commit(self, save_checkpoint=save_checkpoint)
+        if len(self.history) == epochs:
+            raise StopRun()
+
+    solver_class.commit = commit_then_stop
+    return commit
+
+
+def worst_rel(torch, got, want):
+    """(largest rel_err over the tensors of two dicts, its key)."""
+    return max((rel_err(got[key].float().cpu(), value.float().cpu()), key)
+               for key, value in want.items())
+
+
+def resnet_step(torch, model, images, labels):
+    """Train-mode logits, the loss's gradients and the updated statistics
+    of one forward and backward of `model`, by name."""
+    model.zero_grad(set_to_none=True)
+    logits = model(images, train=True)
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    return {"logits": logits.detach(),
+            **{f"grad {n}": p.grad for n, p in model.named_parameters()},
+            **{f"stat {n}": b.detach().clone()
+               for n, b in model.named_buffers()}}
+
+
+def vit_step(torch, model, images, labels):
+    """Logits and the loss's gradients of `model`, with its launches."""
+    from flashy_tpu_torch.ops import attention
+    attention.reset_launch_counts()
+    model.zero_grad(set_to_none=True)
+    logits = model(images)
+    torch.nn.functional.cross_entropy(logits.float(), labels).backward()
+    torch.cuda.synchronize()
+    return ({"logits": logits.detach(),
+             **{f"grad {n}": p.grad for n, p in model.named_parameters()}},
+            nonzero(attention.launch_counts))
+
+
+def phase_models_step(torch, device, card):
+    """Phase 47. Returns the ViT runs' flash launches by dtype."""
+    import copy
+    from flashy_tpu_torch.models import resnet18, resnet50, vit_tiny
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = []
+    for label, factory, batch in (("ResNet-18", resnet18, 8),
+                                  ("ResNet-50", resnet50, 4)):
+        cpu = factory(num_classes=10, dtype=torch.float64, device="cpu",
+                      seed=0)
+        g = torch.Generator().manual_seed(batch)
+        with torch.no_grad():
+            # every norm away from the init's zero scales, so that every
+            # gradient is exercised
+            for name, param in cpu.named_parameters():
+                if name.endswith(".scale"):
+                    param.copy_(1.0 + 0.1 * torch.randn(param.shape,
+                                                        generator=g))
+        images = torch.randn(batch, 32, 32, 3, generator=g)
+        labels = torch.randint(0, 10, (batch,), generator=g)
+        got = {}
+        for dtype in (torch.float64, torch.float32):
+            on_card = copy.deepcopy(cpu).to(device)
+            for module in on_card.modules():
+                if getattr(module, "dtype", None) == torch.float64:
+                    module.dtype = dtype
+            got[dtype] = resnet_step(torch, on_card, images.to(device,
+                                                                dtype),
+                                     labels.to(device))
+            torch.cuda.synchronize()
+            del on_card
+        want = resnet_step(torch, cpu, images.double(), labels)
+        worst64 = worst_rel(torch, got[torch.float64], want)
+        # in f32 the forward holds at the bar; the gradients of ResNet-50
+        # at batch 4 (its last stage normalizes 64 values a channel) are
+        # ill-conditioned: f32 on the card and on the CPU each land
+        # ~0.14 of max |value| from f64 there, so they are printed
+        held = {key: value for key, value in want.items()
+                if label == "ResNet-18" or not key.startswith("grad")}
+        worst32 = worst_rel(torch, got[torch.float32], held)
+        grads32 = worst_rel(torch, got[torch.float32], {
+            k: v for k, v in want.items() if k.startswith("grad")})
+        if not math.isfinite(worst64[0]) or worst64[0] > MODELS_F64_TOL:
+            fail(f"models step: {label} f64 on the card against the CPU: "
+                 f"{worst64[1]} rel err {worst64[0]} > {MODELS_F64_TOL}")
+        if not math.isfinite(worst32[0]) or worst32[0] > MODELS_TOL:
+            fail(f"models step: {label} f32 on the card against the CPU in "
+                 f"f64: {worst32[1]} rel err {worst32[0]} > {MODELS_TOL}")
+        parts.append(
+            f"{label} b{batch} 32x32 train mode, logits, "
+            f"{sum(k.startswith('grad') for k in want)} grads and "
+            f"{sum(k.startswith('stat') for k in want)} statistics against "
+            f"the CPU run in f64: the card in f64 within {worst64[0]:.2e} "
+            f"({worst64[1]}; limit {MODELS_F64_TOL}), in f32 within "
+            f"{worst32[0]:.2e} ({worst32[1]}; limit {MODELS_TOL}"
+            + (f" on the logits and statistics; grads {grads32[0]:.2e}, "
+               f"{grads32[1]}, not held)" if label == "ResNet-50" else ")"))
+        del cpu
+    g = torch.Generator().manual_seed(0)
+    images = torch.rand(8, 32, 32, 3, generator=g).to(device)
+    labels = torch.randint(0, 10, (8,), generator=g).to(device)
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        runs = {kind: vit_step(torch, vit_tiny(
+            num_classes=10, attention=kind, dtype=dtype, device=device,
+            seed=0), images, labels) for kind in ("flash", "dense")}
+        (flash, counts), (dense, dense_counts) = runs["flash"], runs["dense"]
+        route = "_general" if dtype == torch.float32 else ""
+        want = {f"flash_fwd{route}": 6, f"flash_bwd_fused{route}": 6}
+        if counts != want or dense_counts:
+            fail(f"models step: vit_tiny {name} launches flash {counts}, "
+                 f"dense {dense_counts}, expected {want} and none")
+        if dtype == torch.float32:
+            worst, key = worst_rel(torch, flash, dense)
+            bar = MODELS_TOL
+        else:
+            worst, key = rel_err(flash["logits"], dense["logits"]), "logits"
+            bar = VIT_BF16_TOL
+        if not math.isfinite(worst) or worst > bar:
+            fail(f"models step: vit_tiny {name} flash against dense: {key} "
+                 f"rel err {worst} > {bar}")
+        parts.append(f"vit_tiny {name} b8 (64 patches, one tile) flash "
+                     f"against dense: {'logits and grads' if bar == MODELS_TOL else 'logits'}"
+                     f" within {worst:.2e} of max |value| (worst {key}; "
+                     f"limit {bar}), launches {counts}")
+        launches[name] = counts
+    print("models step: " + "; ".join(parts) + f" [{card}]", flush=True)
+    return launches
+
+
+def phase_cifar_train(torch, card, root):
+    """Phase 48: the cifar example through `main`: ResNet-18 stopped after
+    its second commit and resumed to epoch 3, then vit_tiny."""
+    from flashy_tpu_torch.examples.cifar import solver as cifar_solver
+    from flashy_tpu_torch.examples.cifar import train as cifar_train
+    from flashy_tpu_torch.examples.cifar.data import _synthetic
+    from flashy_tpu_torch.utils import percentile
+    data = _synthetic(*CIFAR_SIZES) + (False,)
+    load = cifar_train.load_cifar10
+    train_step = cifar_solver.Solver.train_step
+    spans = []
+
+    def timed(self, batch):
+        begin = time.perf_counter()
+        out = train_step(self, batch)
+        # the metric read right after waits for the step anyway
+        torch.cuda.synchronize()
+        spans.append((begin, time.perf_counter()))
+        return out
+
+    root = Path(root)
+    args = CIFAR_ARGS + ["epochs=3", f"dora.dir={root / 'resnet18'}"]
+    cifar_train.load_cifar10 = lambda root=None: data
+    cifar_solver.Solver.train_step = timed
+    commit = stop_after(cifar_solver.Solver, 2)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            cifar_train.main(args)
+            fail("cifar train: the first call was not stopped after epoch 2")
+        except StopRun:
+            pass
+        cifar_solver.Solver.commit = commit
+        history = json.loads((cifar_train.main.get_xp(args).folder
+                              / "history.json").read_text())
+        resumed = cifar_train.main(args)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vit = cifar_train.main(["model=vit_tiny", f"batch_size={CIFAR_BATCH}",
+                                "max_batches=12", "epochs=1",
+                                f"dora.dir={root / 'vit'}"])
+    finally:
+        cifar_solver.Solver.commit = commit
+        cifar_solver.Solver.train_step = train_step
+        cifar_train.load_cifar10 = load
+    steps = CIFAR_SIZES[0] // CIFAR_BATCH
+    if len(resumed.history) != 3 or resumed.history[:2] != history \
+            or resumed.state["step"] != 3 * steps:
+        fail(f"cifar train: the second call did not resume at epoch 3 with "
+             f"epochs 1-2 unchanged ({len(resumed.history)} epochs, step "
+             f"{resumed.state['step']})")
+    losses = [e[s]["loss"] for e in resumed.history for s in e]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"cifar train: losses {losses} not finite")
+    epochs = []
+    for index, entry in enumerate(resumed.history):
+        span = spans[index * steps:(index + 1) * steps]
+        busy = sum(end - begin for begin, end in span)
+        duration = entry["train"]["duration"]
+        epochs.append(
+            f"epoch {index + 1} {entry['train']['images_per_sec']:.1f} "
+            f"images/s, step p50 "
+            f"{percentile([e - b for b, e in span[2:]], 50) * 1e3:.2f} ms "
+            f"(steps 3..{steps}), data wait "
+            f"{max(duration - busy, 0.0) / duration:.3f} of the epoch, "
+            f"valid acc {entry['valid']['acc']:.4f}")
+    print(f"cifar train: ResNet-18 bf16 b{CIFAR_BATCH} on synthetic CIFAR-10 "
+          f"({CIFAR_SIZES[0]} train, {CIFAR_SIZES[1]} valid images), "
+          f"{steps} steps an epoch, stopped after its second commit and "
+          f"resumed at epoch 3 with epochs 1-2 unchanged; "
+          + "; ".join(epochs) + f"; peak memory {peak:.1f} GiB; vit_tiny "
+          f"(dense attention) 12 steps {vit.history[0]['train']['images_per_sec']:.1f}"
+          f" images/s, loss {vit.history[0]['train']['loss']:.4f} [{card}]",
+          flush=True)
+
+
+def phase_adversarial(torch, device, card, root, steps=20):
+    """Phase 49: AdversarialLoss with MLP generator and discriminator."""
+    from flashy_tpu_torch.adversarial import AdversarialLoss
+    from flashy_tpu_torch.checkpoint import load_state, save_state
+    from flashy_tpu_torch.models import MLP
+    from flashy_tpu_torch.utils import percentile
+    width, noise_dim, data_dim, batch = 256, 64, 32, 256
+    gen = MLP([width, width, data_dim], in_features=noise_dim, device=device,
+              seed=1)
+    g_opt = torch.optim.Adam(gen.parameters(), lr=1e-4, betas=(0.5, 0.999))
+
+    def adversary(seed):
+        disc = MLP([width, width, 1], in_features=data_dim, device=device,
+                   seed=seed)
+        return AdversarialLoss(disc, torch.optim.Adam(
+            disc.parameters(), lr=1e-4, betas=(0.5, 0.999))), disc
+
+    adv, disc = adversary(2)
+    g = torch.Generator(device=device).manual_seed(0)
+    center = torch.linspace(-1.0, 1.0, data_dim, device=device)
+
+    def draw():
+        noise = torch.randn(batch, noise_dim, generator=g, device=device)
+        return noise, center + 0.1 * torch.randn(batch, data_dim, generator=g,
+                                                 device=device)
+
+    d_ms, d_losses, g_losses = [], [], []
+    for step in range(steps):
+        noise, real = draw()
+        fake = gen(noise)
+        fake.retain_grad()
+        g_opt.zero_grad(set_to_none=True)
+        g_before = [p.detach().clone() for p in gen.parameters()]
+        d_before = [p.detach().clone() for p in disc.parameters()]
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        d_losses.append(adv.train_adv(fake, real))
+        torch.cuda.synchronize()
+        d_ms.append((time.perf_counter() - begin) * 1e3)
+        if fake.grad is not None \
+                or any(p.grad is not None for p in gen.parameters()) \
+                or not all(torch.equal(a, b) for a, b in
+                           zip(g_before, gen.parameters())) \
+                or all(torch.equal(a, b) for a, b in
+                       zip(d_before, disc.parameters())):
+            fail(f"adversarial: step {step}: train_adv reached the generator "
+                 f"or left the discriminator unchanged")
+        adv.optimizer.zero_grad(set_to_none=True)
+        g_loss = adv(fake)
+        g_loss.backward()
+        if any(p.grad is not None for p in disc.parameters()) \
+                or fake.grad is None:
+            fail(f"adversarial: step {step}: the generator loss's backward "
+                 f"reached the discriminator or missed the generator")
+        g_opt.step()
+        g_losses.append(g_loss.detach())
+    values = [float(x) for x in d_losses + g_losses]
+    if not all(math.isfinite(x) for x in values):
+        fail(f"adversarial: losses not finite: {values}")
+    path = Path(root) / "adv.th"
+    save_state(adv.state_dict(), path)
+    twin, twin_disc = adversary(3)
+    twin.load_state_dict(load_state(path))
+    noise, real = draw()
+    fake = gen(noise).detach()
+    got, again = adv.train_adv(fake, real), twin.train_adv(fake, real)
+    same = torch.equal(got, again) and all(
+        torch.equal(a, b) for a, b in zip(disc.parameters(),
+                                          twin_disc.parameters()))
+    if not same:
+        fail(f"adversarial: the step after a state round trip differs from "
+             f"its twin's ({float(got)} vs {float(again)})")
+    print(f"adversarial: MLP generator {noise_dim}->{width}->{width}->"
+          f"{data_dim} and discriminator {data_dim}->{width}->{width}->1, "
+          f"b{batch}, {steps} steps: train_adv left the generator, its "
+          f"grads and fake.grad untouched and moved D; the generator "
+          f"loss's backward left every D .grad None; D loss "
+          f"{values[0]:.4f} -> {values[steps - 1]:.4f}, G loss "
+          f"{values[steps]:.4f} -> {values[-1]:.4f}; after a save_state / "
+          f"load_state round trip the next D step bit-identical to its "
+          f"twin's; D step p50 {percentile(d_ms[2:], 50):.3f} ms (steps "
+          f"3..{steps}, host clock around a synchronized step) [{card}]",
+          flush=True)
+
+
+def phase_basic(torch, card, root):
+    """Phase 50: the basic example to epoch 2, resumed to epoch 4, against
+    an uninterrupted 4-epoch run."""
+    from flashy_tpu_torch.examples.basic import train as basic
+    root = Path(root)
+    args = ["epochs=4"]
+    whole = basic.main(args + [f"dora.dir={root / 'a'}"])
+    commit = stop_after(basic.Solver, 2)
+    try:
+        try:
+            basic.main(args + [f"dora.dir={root / 'b'}"])
+            fail("basic: the first call was not stopped after epoch 2")
+        except StopRun:
+            pass
+    finally:
+        basic.Solver.commit = commit
+    resumed = basic.main(args + [f"dora.dir={root / 'b'}"])
+
+    def history(solver):
+        return stripped(json.loads((solver.folder / "history.json")
+                                   .read_text()))
+
+    if len(history(whole)) != 4 or history(resumed) != history(whole):
+        fail(f"basic: the resumed run's history {history(resumed)} is not "
+             f"the uninterrupted run's {history(whole)}")
+    unequal = [name for name, value in whole.model.state_dict().items()
+               if not torch.equal(resumed.model.state_dict()[name], value)]
+    if unequal:
+        fail(f"basic: resumed weights differ: {unequal}")
+    losses = [entry["train"]["loss"] for entry in whole.history]
+    print(f"basic: MLP([1]) with Adam, stopped after its epoch-2 checkpoint "
+          f"and resumed to epoch 4: the four history entries and the "
+          f"weights bit-equal to an uninterrupted run in a fresh XP; train "
+          f"loss {losses[0]:.6f} -> {losses[-1]:.6f} [{card}]", flush=True)
+
+
+def mlm_step_batch(torch, device):
+    """The MLM step's masked batch ([B, 3, T] on the card) and its count."""
+    import numpy as np
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.examples.mlm.solver import mask_tokens
+    vocab = MLM_STEP["vocab_size"]
+    batch = mask_tokens(synthetic_token_stream(vocab)(*MLM_STEP_SHAPE, 0), 0,
+                        False, 0.15, 0, vocab)
+    packed = np.stack([batch["inputs"], batch["labels"],
+                       batch["selected"].astype(np.int32)], axis=1)
+    return (torch.from_numpy(packed).long().to(device),
+            max(float(batch["selected"].sum()), 1.0))
+
+
+def grads_of(torch, model, loss_fn):
+    """(loss, {name: grad}, launches) of one backward of loss_fn(model)."""
+    from flashy_tpu_torch.ops import attention
+    attention.reset_launch_counts()
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+            nonzero(attention.launch_counts))
+
+
+def flash_against_dense(torch, label, runs, want):
+    """Hold the flash run of `runs` ({kind: grads_of(...)}) to the dense
+    one (loss and every gradient within MODELS_TOL) and its launches to
+    `want`; returns (loss rel err, worst grad rel err, its name)."""
+    (loss, grads, counts), (dense_loss, dense_grads, dense_counts) = (
+        runs["flash"], runs["dense"])
+    if counts != want or dense_counts:
+        fail(f"{label}: launches flash {counts}, dense {dense_counts}, "
+             f"expected {want} and none")
+    loss_err = rel_err(loss, dense_loss)
+    worst, key = max((rel_err(g, dense_grads[n]), n)
+                     for n, g in grads.items())
+    if not (math.isfinite(worst) and math.isfinite(loss_err)) \
+            or max(worst, loss_err) > MODELS_TOL:
+        fail(f"{label}: flash against dense: loss rel err {loss_err}, grads "
+             f"{worst} ({key}), limit {MODELS_TOL}")
+    return loss_err, worst, key
+
+
+def phase_mlm_step(torch, device, card):
+    """Phase 51. Returns the flash run's launches."""
+    from flashy_tpu_torch.examples.mlm.solver import masked_loss
+    from flashy_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerLM)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed, count = mlm_step_batch(torch, device)
+    runs, models = {}, {}
+    for kind in ("flash", "dense"):
+        models[kind] = TransformerLM(TransformerConfig(
+            **MLM_STEP, dtype=torch.float32, attention=kind), device=device,
+            seed=0)
+        runs[kind] = grads_of(torch, models[kind],
+                              lambda m: masked_loss(m, packed, count))
+    want = {"flash_fwd_general": MLM_STEP["num_layers"],
+            "flash_bwd_fused_general": MLM_STEP["num_layers"]}
+    loss_err, worst, key = flash_against_dense(torch, "mlm step", runs, want)
+    inputs = packed[:, 0]
+    changed = inputs.clone()
+    changed[:, -1] = (changed[:, -1] + 1) % MLM_STEP["vocab_size"]
+    with torch.no_grad():
+        moved = float((models["flash"](inputs)[:, 0]
+                       - models["flash"](changed)[:, 0]).abs().max())
+    if not moved > 1e-4:
+        fail(f"mlm step: the last token did not reach position 0 ({moved})")
+    cfg = models["flash"].config
+    print(f"mlm step: TransformerLM(causal=False) at the MLM width (dim "
+          f"{cfg.dim}, {cfg.num_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}), {cfg.num_layers} layers, f32 "
+          f"b{packed.shape[0]} t{packed.shape[2]}, masked "
+          f"loss {float(runs['flash'][0]):.6f}: flash against dense loss "
+          f"rel err {loss_err:.2e}, grads max rel err {worst:.2e} ({key}; "
+          f"limit {MODELS_TOL}); changing the last token moves position "
+          f"0's logits by {moved:.4f}; launches {want} a step [{card}]",
+          flush=True)
+    return want
+
+
+def phase_mlm_train(torch, device, card, root):
+    """Phase 52: the MLM config through `main`, then rows 1 and 4
+    non-causal at its shapes. Returns (launches, times, errors)."""
+    from flashy_tpu_torch.examples.mlm.solver import main as mlm_main
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    solver = mlm_main(TRAIN_RUN + [f"dora.dir={root}"])
+    torch.cuda.synchronize()
+    launches = nonzero(attention.launch_counts)
+    cfg = solver.cfg
+    layers = cfg.model.num_layers
+    want = {"flash_fwd": layers * (cfg.steps_per_epoch + cfg.valid_steps),
+            "flash_bwd_fused": layers * cfg.steps_per_epoch}
+    if launches != want:
+        fail(f"mlm train: launches {launches}, expected {want}")
+    entry = solver.history[0]
+    if not all(math.isfinite(entry[s]["loss"]) for s in entry):
+        fail(f"mlm train: losses not finite: {entry}")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mlm train: TransformerLM(causal=False) {layers} layers, dim "
+          f"{cfg.model.dim}, bf16 b{cfg.batch_size} t{cfg.seq_len}, "
+          f"{cfg.steps_per_epoch} steps + {cfg.valid_steps} valid: train "
+          f"loss {entry['train']['loss']:.4f}, valid "
+          f"{entry['valid']['loss']:.4f}; tokens/s={tok_s:.1f}, step "
+          f"p50={p50:.2f} ms (steps 3..{cfg.steps_per_epoch}), peak memory "
+          f"{peak:.1f} GiB; launches {launches} ({layers} and {layers} a "
+          f"training step) [{card}]", flush=True)
+    del solver
+    release_memory(torch)
+    times, errors = time_flash(torch, device, card, H=8, D=64, B=16, T=512,
+                               causal=False)
+    return launches, times, errors
+
+
+def translate_step_batch(torch, device):
+    """The translate step's [B, 3, S] batch (src, tgt, BOS + tgt[:-1])."""
+    import numpy as np
+    from flashy_tpu_torch.examples.translate.solver import synthetic_pairs
+    src, tgt = synthetic_pairs(TRANSLATE_STEP["vocab_size"])(
+        *TRANSLATE_STEP_SHAPE, 0)
+    dec_in = np.concatenate([np.ones((src.shape[0], 1), np.int32),
+                             tgt[:, :-1]], axis=1)
+    return torch.from_numpy(np.stack([src, tgt, dec_in], axis=1)).long().to(
+        device)
+
+
+def phase_translate_step(torch, device, card):
+    """Phase 53. Returns {"step": the flash run's launches, "greedy": the
+    greedy oracle's}."""
+    from flashy_tpu_torch.examples.translate.solver import teacher_loss
+    from flashy_tpu_torch.models.seq2seq import (Seq2SeqConfig,
+                                                 Seq2SeqTransformer,
+                                                 cached_translate,
+                                                 greedy_translate)
+    from flashy_tpu_torch.ops import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed = translate_step_batch(torch, device)
+    runs, models = {}, {}
+    for kind in ("flash", "dense"):
+        models[kind] = Seq2SeqTransformer(Seq2SeqConfig(
+            **TRANSLATE_STEP, dtype=torch.float32, attention=kind),
+            device=device, seed=0)
+        runs[kind] = grads_of(torch, models[kind],
+                              lambda m: teacher_loss(m, packed))
+    layers = TRANSLATE_STEP["enc_layers"] + TRANSLATE_STEP["dec_layers"]
+    want = {"flash_fwd_general": layers, "flash_bwd_fused_general": layers}
+    loss_err, worst, key = flash_against_dense(torch, "translate step", runs,
+                                               want)
+    model = models["flash"]
+    src = packed[:, 0]
+    new = TRANSLATE_STEP_SHAPE[1]
+    attention.reset_launch_counts()
+    cached = cached_translate(model, src, max_new_tokens=new)
+    cached_launches = nonzero(attention.launch_counts)
+    attention.reset_launch_counts()
+    greedy = greedy_translate(model, src, max_new_tokens=new)
+    torch.cuda.synchronize()
+    greedy_launches = nonzero(attention.launch_counts)
+    enc, dec = TRANSLATE_STEP["enc_layers"], TRANSLATE_STEP["dec_layers"]
+    if cached_launches != {"flash_fwd_general": enc} \
+            or greedy_launches != {"flash_fwd_general": enc + new * dec}:
+        fail(f"translate step: launches cached {cached_launches}, greedy "
+             f"{greedy_launches}: expected the encoder's {enc} and, for "
+             f"greedy, {dec} a decoder pass of each of {new} steps")
+    ties = []
+    with torch.no_grad():
+        memory = model.encode(src)
+        for row in range(src.shape[0]):
+            diff = (cached[row] != greedy[row]).nonzero()
+            if len(diff):
+                t = int(diff[0])
+                prefix = torch.cat([torch.ones(1, dtype=torch.long,
+                                               device=device),
+                                    greedy[row, :t]])[None]
+                top = torch.topk(model.decode(prefix, memory[row:row + 1])
+                                 [0, -1], 2).values
+                margin = float(top[0] - top[1])
+                if margin >= NEAR_TIE:
+                    fail(f"translate step: cached_translate row {row} "
+                         f"diverges from greedy_translate at {t} with top-2 "
+                         f"margin {margin:.3e} >= {NEAR_TIE}")
+                ties.append((row, t, margin))
+    cfg = model.config
+    print(f"translate step: Seq2SeqTransformer at the translate width (dim "
+          f"{cfg.dim}, {cfg.num_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}), {enc}+{dec} layers, f32 b{src.shape[0]} src "
+          f"{src.shape[1]}, loss {float(runs['flash'][0]):.6f}: flash against dense "
+          f"self-attention loss rel err {loss_err:.2e}, grads max rel err "
+          f"{worst:.2e} ({key}; limit {MODELS_TOL}); launches {want} a step "
+          f"(encoder non-causal, decoder causal, one tile each); "
+          f"cached_translate token-exact against greedy_translate on "
+          f"{src.shape[0]} sequences of {new} tokens (near ties {ties}); launches cached "
+          f"{cached_launches}, greedy {greedy_launches} [{card}]", flush=True)
+    return {"step": want, "greedy": greedy_launches}
+
+
+def phase_translate_train(torch, device, card, root):
+    """Phase 54: the translate config through `main`, then rows 1 and 4 at
+    its shapes, causal and not. Returns (launches, {causal: (times,
+    errors)})."""
+    from flashy_tpu_torch.examples.translate.solver import main as tr_main
+    from flashy_tpu_torch.models import transformer
+    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.utils import percentile
+    flash = transformer.flash_attention
+    calls = {True: 0, False: 0}
+
+    def counted(q, k, v, causal=False, **kwargs):
+        calls[causal] += 1
+        return flash(q, k, v, causal, **kwargs)
+
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    transformer.flash_attention = counted
+    try:
+        solver = tr_main(TRAIN_RUN + ["translate_every=1",
+                                      f"dora.dir={root}"])
+    finally:
+        transformer.flash_attention = flash
+    torch.cuda.synchronize()
+    launches = nonzero(attention.launch_counts)
+    cfg = solver.cfg
+    enc, dec = cfg.model.enc_layers, cfg.model.dec_layers
+    passes = cfg.steps_per_epoch + cfg.valid_steps
+    # and one encoder pass of cached_translate, whose steps read plain
+    want = {"flash_fwd": (enc + dec) * passes + enc,
+            "flash_bwd_fused": (enc + dec) * cfg.steps_per_epoch}
+    want_calls = {False: enc * (passes + 1), True: dec * passes}
+    if launches != want or calls != want_calls:
+        fail(f"translate train: launches {launches}, expected {want}; "
+             f"calls by causal {calls}, expected {want_calls}")
+    entry = solver.history[0]
+    if not all(math.isfinite(entry[s]["loss"]) for s in entry):
+        fail(f"translate train: losses not finite: {entry}")
+    seconds = solver.step_seconds[2:]
+    tok_s = cfg.batch_size * cfg.src_len * len(seconds) / sum(seconds)
+    p50 = percentile(seconds, 50) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"translate train: Seq2SeqTransformer {enc}+{dec} layers, dim "
+          f"{cfg.model.dim}, bf16 b{cfg.batch_size} src {cfg.src_len}, "
+          f"{cfg.steps_per_epoch} steps + {cfg.valid_steps} valid: train "
+          f"loss {entry['train']['loss']:.4f}, valid "
+          f"{entry['valid']['loss']:.4f}, tok_acc "
+          f"{entry['valid']['tok_acc']:.4f}, seq_acc "
+          f"{entry['valid']['seq_acc']:.4f} (cached_translate); target "
+          f"tokens/s={tok_s:.1f}, step p50={p50:.2f} ms (steps "
+          f"3..{cfg.steps_per_epoch}), peak memory {peak:.1f} GiB; launches "
+          f"{launches} ({enc + dec} and {enc + dec} a training step); flash "
+          f"calls non-causal {calls[False]} (encoder), causal {calls[True]} "
+          f"(decoder) [{card}]", flush=True)
+    del solver
+    release_memory(torch)
+    timed = {causal: time_flash(torch, device, card, H=8, D=64, B=32, T=64,
+                                causal=causal) for causal in (True, False)}
+    return launches, timed
+
+
 def main() -> None:
     import argparse
     # the processes the dp phases start run this script with these flags
@@ -7804,7 +8492,40 @@ def main() -> None:
     release_memory(torch)
     phase_prefetch_to_device(torch, device, card)
     lap("prefetch to device")
-    print(f"phase seconds: {json.dumps(laps)} [{card}]", flush=True)
+    # queue A items 6 and 11: the vision models, the GAN loss, seq2seq
+    # and their examples, driving rows 1 and 4 non-causal and at one tile
+    release_memory(torch)
+    vit_launches = phase_models_step(torch, device, card)
+    lap("models step")
+    with tempfile.TemporaryDirectory() as folder:
+        phase_cifar_train(torch, card, folder)
+    lap("cifar train")
+    with tempfile.TemporaryDirectory() as folder:
+        phase_adversarial(torch, device, card, folder)
+    lap("adversarial")
+    with tempfile.TemporaryDirectory() as folder:
+        phase_basic(torch, card, folder)
+    lap("basic")
+    release_memory(torch)
+    mlm_step_launches = phase_mlm_step(torch, device, card)
+    lap("mlm step")
+    with tempfile.TemporaryDirectory() as folder:
+        mlm_launches, mlm_times, mlm_errors = phase_mlm_train(
+            torch, device, card, folder)
+    lap("mlm train")
+    release_memory(torch)
+    translate_step = phase_translate_step(torch, device, card)
+    lap("translate step")
+    with tempfile.TemporaryDirectory() as folder:
+        translate_launches, translate_times = phase_translate_train(
+            torch, device, card, folder)
+    lap("translate train")
+    ft = sum(laps[k] for k in ("train preempt", "train slots", "train async",
+                               "hang abort"))
+    print(f"phase seconds: {json.dumps(laps)}; train preempt, train slots, "
+          f"train async and hang abort at {LAYERS} of 12 layers: {ft:.1f} s "
+          f"together ({FT_SECONDS_AT_12_LAYERS} s at 12) [{card}]",
+          flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
     # train` (`ring train d128` at 128), so its rows take the launches,
@@ -7988,6 +8709,29 @@ def main() -> None:
         layouts[name]["dp train (a rank)"] = dp_train_launches[name]
     for name in ("flash_fwd_general", "flash_bwd_fused_general"):
         layouts[name]["dp step (a rank)"] = dp_step_launches[name]
+    # the vision models, the MLM and seq2seq paths (f32 steps on the
+    # general route, bf16 runs on the Hopper kernels)
+    for route, phase, counts in (
+            ("", "models step vit bf16", vit_launches["bfloat16"]),
+            ("_general", "models step vit f32", vit_launches["float32"]),
+            ("_general", "mlm step", mlm_step_launches),
+            ("", "mlm train", mlm_launches),
+            ("_general", "translate step", translate_step["step"]),
+            ("", "translate train", translate_launches)):
+        for name in ("flash_fwd", "flash_bwd_fused"):
+            layouts.setdefault(name + route, {})[phase] = counts[name + route]
+    layouts["flash_fwd_general"]["translate greedy"] = translate_step[
+        "greedy"]["flash_fwd_general"]
+    # rows 1 and 4 at the MLM's and the translate model's shapes
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        extra = {"mlm non-causal": ([16, 512, 8, 64], mlm_times, mlm_errors),
+                 "translate causal": ([32, 64, 8, 64],) + translate_times[True],
+                 "translate non-causal": ([32, 64, 8, 64],)
+                 + translate_times[False]}
+        record = next(k for k in kernels if k["name"] == name)
+        for label, (shape, times, errors) in extra.items():
+            record[label] = {"shape": shape, "max_abs_err": errors[name],
+                             **{key: times[name][key] for key in keys}}
     for kernel in kernels:
         if kernel["name"] in layouts:
             kernel["layout_launches"] = layouts[kernel["name"]]

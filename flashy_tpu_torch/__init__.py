@@ -26,7 +26,12 @@ These slices of the JAX package run here, on an NVIDIA H100:
   packing into static [B, L] batches with segment ids, a prefetch
   thread, cursors committed with the state (`python -m
   flashy_tpu_torch.datapipe` is the kill/resume drill); `launch` and
-  `sweep` plan multi-host commands and grid sweeps.
+  `sweep` plan multi-host commands and grid sweeps;
+* the other model families and examples: `models.MLP`, `ResNet`, `ViT`
+  and `Seq2SeqTransformer` (cached translation), `adversarial`
+  (`AdversarialLoss`), and the basic, cifar, mlm and translate examples,
+  whose ViT, encoder and decoder attention run the flash kernels,
+  non-causal and causal.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; the
 package imports torch, numpy and yaml, never JAX or the JAX package.
@@ -34,7 +39,7 @@ package imports torch, numpy and yaml, never JAX or the JAX package.
 
 __version__ = "0.2.0"
 
-from . import distrib  # noqa: F401
+from . import adversarial, distrib  # noqa: F401
 from .formatter import Formatter  # noqa: F401
 from .logging import LogProgressBar, ResultLogger, bold, setup_logging  # noqa: F401
 from .resilience import enable_preemption_guard  # noqa: F401

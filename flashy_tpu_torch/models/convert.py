@@ -1,5 +1,7 @@
-"""Weights across the frameworks: the JAX package's parameter pytree ->
-this package's `TransformerLM` state dict.
+"""Weights across the frameworks: the JAX package's parameter pytrees ->
+this package's state dicts (`params_from_jax` for the TransformerLM;
+`mlp_from_jax`, `resnet_from_jax`, `vit_from_jax` and `seq2seq_from_jax`
+for the other families, whose modules carry flax's names one to one).
 
 The JAX tree arrives as numpy arrays (`jax.tree.map(np.asarray, ...)`);
 leaves keep their layouts and stay f32, so a converted model computes
@@ -112,3 +114,76 @@ def params_from_jax(tree: tp.Mapping, cfg: TransformerConfig
             state[f"{name}.{key}"] = _leaf(block, path, lead + shape(cfg),
                                            where)
     return state
+
+
+def _module_from_jax(collections: tp.Mapping[str, tp.Mapping],
+                     model: torch.nn.Module,
+                     buffers: str = "batch_stats"
+                     ) -> tp.Dict[str, torch.Tensor]:
+    """The state dict of `model` filled from flax collections, name for
+    name: the parameter `a.b.kernel` from `collections['params']['a']['b']
+    ['kernel']`, a buffer from `collections[buffers]` (flax's
+    `batch_stats`). Each leaf must exist and have the port's shape, and
+    the JAX tree may hold no leaf the model lacks."""
+    state = {}
+    wanted: tp.Dict[str, tp.Set[tp.Tuple[str, ...]]] = {}
+    named = [("params", name, p) for name, p in model.named_parameters()] \
+        + [(buffers, name, b) for name, b in model.named_buffers()]
+    for collection, name, value in named:
+        path = tuple(name.split("."))
+        if collection not in collections:
+            raise KeyError(f"JAX variables have no '{collection}' "
+                           f"collection (needed for {'/'.join(path)})")
+        state[name] = _leaf(collections[collection], path,
+                            tuple(value.shape), collection)
+        wanted.setdefault(collection, set()).add(path)
+    for collection, paths in wanted.items():
+        extra = sorted("/".join(p) for p in _paths(collections[collection])
+                       if p not in paths)
+        if extra:
+            raise ValueError(f"JAX {collection} hold {extra[:4]}, which "
+                             f"this {type(model).__name__} does not")
+    return state
+
+
+def _paths(tree: tp.Mapping, prefix: tp.Tuple[str, ...] = ()
+           ) -> tp.Iterator[tp.Tuple[str, ...]]:
+    for key, value in tree.items():
+        if isinstance(value, tp.Mapping):
+            yield from _paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def _variables(tree: tp.Mapping) -> tp.Mapping[str, tp.Mapping]:
+    """A flax variables dict as it is, or an inner params tree wrapped as
+    one (`{"params": tree}`)."""
+    return tree if "params" in tree else {"params": tree}
+
+
+def mlp_from_jax(tree: tp.Mapping, model: torch.nn.Module
+                 ) -> tp.Dict[str, torch.Tensor]:
+    """JAX `MLP` params (numpy leaves; the variables dict or the inner
+    tree) -> the state dict of the port's `models.MLP` `model`."""
+    return _module_from_jax(_variables(tree), model)
+
+
+def resnet_from_jax(variables: tp.Mapping, model: torch.nn.Module
+                    ) -> tp.Dict[str, torch.Tensor]:
+    """JAX `ResNet` variables (numpy leaves: `params` and `batch_stats`)
+    -> the state dict of the port's `models.ResNet` `model`, parameters
+    and BatchNorm statistics (`mean`, `var` buffers)."""
+    return _module_from_jax(variables, model)
+
+
+def vit_from_jax(tree: tp.Mapping, model: torch.nn.Module
+                 ) -> tp.Dict[str, torch.Tensor]:
+    """JAX `ViT` params -> the state dict of the port's `models.ViT`."""
+    return _module_from_jax(_variables(tree), model)
+
+
+def seq2seq_from_jax(tree: tp.Mapping, model: torch.nn.Module
+                     ) -> tp.Dict[str, torch.Tensor]:
+    """JAX `Seq2SeqTransformer` params -> the state dict of the port's
+    `models.Seq2SeqTransformer`."""
+    return _module_from_jax(_variables(tree), model)

@@ -234,6 +234,21 @@ def fold_dropout_seed(seed: DropoutSeed, *data: int) -> DropoutSeed:
     return fold_seed(seed, *data)
 
 
+def training_dropout_seed(rate: float, train: bool,
+                          dropout_seed: tp.Optional[DropoutSeed]
+                          ) -> tp.Optional[DropoutSeed]:
+    """The seed a forward drops with: `dropout_seed` when `train` and
+    `rate > 0` (None there raises, as flax needs a 'dropout' rng), else
+    None (no dropout)."""
+    if not (train and rate > 0.0):
+        return None
+    if dropout_seed is None:
+        raise ValueError(f"train=True with dropout={rate} needs a "
+                         f"dropout_seed (the JAX package needs rngs="
+                         f"{{'dropout': key}})")
+    return dropout_seed
+
+
 # dropout sites of a block: after the mixer, after the MLP
 DROPOUT_MIXER, DROPOUT_MLP = 0, 1
 
@@ -567,14 +582,8 @@ class TransformerLM(nn.Module):
         `dropout_seed` (an int, or a data-parallel rank's `RowShard`), as
         flax needs a 'dropout' rng."""
         cfg = self.config
-        if train and cfg.dropout > 0.0:
-            if dropout_seed is None:
-                raise ValueError(
-                    f"train=True with dropout={cfg.dropout} needs a "
-                    f"dropout_seed (the JAX package needs rngs="
-                    f"{{'dropout': key}})")
-        else:
-            dropout_seed = None
+        dropout_seed = training_dropout_seed(cfg.dropout, train,
+                                             dropout_seed)
         if return_hidden and return_aux:
             raise ValueError("return_hidden and return_aux exclude each "
                              "other (the chunked loss takes no MoE aux)")

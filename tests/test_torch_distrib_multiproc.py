@@ -357,3 +357,70 @@ def test_workers_run_commit_and_resume_as_the_uninterrupted_run(tmp_path):
     assert got["state"]["step"] == want["state"]["step"] == 4
     meta = json.loads((resumed / "checkpoint_meta.json").read_text())
     assert meta["topology"]["world_size"] == 2
+
+
+# The tiny ResNet (f32, stage_sizes (1, 1), 8 filters) under DDP, each of
+# two gloo ranks on its half of a batch of 8: every BatchNorm normalizes
+# with the global batch's statistics (the JAX step is one program over
+# the global batch), so the updated batch_stats and the gradients equal
+# one process on the whole batch.
+RESNET_WORKER = r'''
+import sys
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from flashy_tpu_torch import distrib
+from flashy_tpu_torch.models.resnet import BasicBlock, ResNet
+from flashy_tpu_torch.parallel.data_parallel import wrap
+
+folder = Path(sys.argv[1])
+distrib.init(backend="gloo")
+rank, world = distrib.rank(), distrib.world_size()
+images, labels = torch.load(folder / "batch.pt")
+rows = images.shape[0] // world
+model = ResNet((1, 1), BasicBlock, num_filters=8, dtype=torch.float32,
+               device="cpu")
+ddp = wrap(model, broadcast_buffers=False)
+local = slice(rank * rows, (rank + 1) * rows)
+loss = torch.nn.functional.cross_entropy(ddp(images[local], train=True),
+                                         labels[local])
+loss.backward()
+torch.save({"grads": {n: p.grad for n, p in model.named_parameters()},
+            "buffers": dict(model.named_buffers()),
+            "ddp": type(ddp).__name__}, folder / f"resnet{rank}.pt")
+'''
+
+
+def test_resnet_batchnorm_on_two_gloo_ranks_is_the_global_batchs(tmp_path):
+    from flashy_tpu_torch.models.resnet import BasicBlock, ResNet
+    generator = torch.Generator().manual_seed(0)
+    images = torch.randn(8, 16, 16, 3, generator=generator)
+    labels = torch.randint(0, 10, (8,), generator=generator)
+    torch.save((images, labels), tmp_path / "batch.pt")
+    script = tmp_path / "resnet_worker.py"
+    script.write_text(RESNET_WORKER)
+    env = _env(tmp_path / "rendezvous", tmp_path)
+    runs = _spawn([([sys.executable, str(script), str(tmp_path)],
+                    {"FLASHY_TPU_NUM_PROCESSES": "2",
+                     "FLASHY_TPU_PROCESS_ID": str(rank)})
+                   for rank in range(2)], tmp_path, env)
+    for code, log in runs:
+        assert code == 0, log[-3000:]
+    ranks = [torch.load(tmp_path / f"resnet{r}.pt") for r in range(2)]
+    model = ResNet((1, 1), BasicBlock, num_filters=8, dtype=torch.float32,
+                   device="cpu")
+    torch.nn.functional.cross_entropy(model(images, train=True),
+                                      labels).backward()
+    want = {"grads": {n: p.grad for n, p in model.named_parameters()},
+            "buffers": dict(model.named_buffers())}
+    for out in ranks:
+        assert out["ddp"] == "DistributedDataParallel"
+        for kind in ("grads", "buffers"):
+            assert set(out[kind]) == set(want[kind])
+            for name, value in want[kind].items():
+                scale = float(value.abs().max())
+                err = float((out[kind][name] - value).abs().max())
+                assert err <= 1e-5 * max(scale, 1e-30), (kind, name, err)
+    # the statistics moved: each rank saw the global batch, not its half
+    assert any(float(b.abs().max()) > 0 for n, b in
+               ranks[0]["buffers"].items() if n.endswith(".mean"))
