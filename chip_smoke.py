@@ -92,9 +92,12 @@ failure with a non-zero exit:
              bandwidth bound, its plain version and SDPA on the gathered
              view, with the wrapper's host us a call; then a profiled
              serving window: the device's idle share and the kernels
-             that take its time; then the same traffic through a twin
-             engine with cuda_graphs=False: streams bit-identical,
-             launches equal, its tokens/s and decode-step p50, and the
+             that take its time; then the first 8 prompts at 32 new
+             tokens (PR 21's cut) through a twin engine with
+             cuda_graphs=False and a fresh graph engine: streams
+             bit-identical and prefixes of the phase's, launches equal,
+             the eager
+             run's tokens/s and decode-step p50, and the
              host us of one decode step with graphs and eager; then two
              replays of the captured decode step at temperature 1.0 on
              the same inputs draw differently (the engine's generator is
@@ -471,10 +474,19 @@ campaign, last:
              non-padding tokens, step p50 beside `ssd train`'s, peak
              memory, the prefetch's tokens/s, commit and restore seconds;
  42. campaign  `python -m flashy_tpu_torch.resilience --campaign
-             --scenarios datapipe --seed 0` on the card exits 0: the
-             calibration run and every schedule of the datapipe scenario
-             (a kill and a stall at `datapipe.batch`) keep the consumed
-             token stream and the losses.
+             --scenarios datapipe,serve,fleet --seed 0` on the card exits
+             0: the calibration run and every schedule of the datapipe
+             scenario (a kill and a stall at `datapipe.batch`) keep the
+             consumed token stream and the losses; the serve and fleet
+             scenarios' (the fleet's sites under every fault kind they
+             declare, engine deaths, whole-fleet crashes recovered from the
+             WAL, a torn WAL tail) keep every stream token-exact, one
+             completion record a uid, the pools conserved and nothing
+             built or captured after each fleet build's warm-up; then the
+             fleet scenario under the seeded `wal_skip_dedup` defect exits
+             1 with a reproducer naming it (its dedup oracle caught it).
+             Phases 39, 40 and 42 (and the defect run) start together,
+             after phase 41, each in a process of its own (PR 21).
 
 ROADMAP queue A item 5, data parallelism across processes, last. The
 card's machine has one H100 and NCCL refuses two ranks on one device, so
@@ -497,8 +509,8 @@ under a deadline, rendezvousing through a `file://` path:
              |value| of one process on the whole batch, the ranks'
              parameters bit-identical after every step, rows 1·g and 4·g
              launched 12 x 2 times on each rank;
- 45. dp train  the default bf16 flash LM at full width and 4 layers
-             (cut in depth only) through `main --workers=2` (global b16
+ 45. dp train  the default bf16 flash LM at full width and 2 layers
+             (cut in depth only; 4 before PR 21) through `main --workers=2` (global b16
              t1024, b8 a rank, one warmup step): run A 2 epochs x
              2 steps + 1 valid step with a commit each; run B 1 epoch
              (run beside phase 44, untimed), then resumed to 2 (both
@@ -570,6 +582,36 @@ dense attention:
              non-causal, 6 decoder calls causal, counted), tokens/s, step
              p50, tok_acc and seq_acc (no bar); then each flash kernel at
              [32, 64, 8, 64], causal and not, as in phase 52.
+
+ROADMAP queue A item 10, the serving fleet, last:
+
+ 55. fleet demo  `python -m flashy_tpu_torch.serve.fleet --kernel fused`
+             (`main`, in this process) with its five legs and default
+             gates: handoff, sticky, preempt, drill and wal, the wal
+             leg's SIGKILLed worker a second process on the card, which
+             loads the kernel libraries this process built;
+ 56. fleet exact  the 235M layout in f32 (TF32 off) on the `exact`
+             workload, 16 new tokens, through a fleet of 2 members x 4
+             slots (one compile cache, sealed after both warmed) whose
+             engine0 is killed at its 5th step (`fleet.engine_step`,
+             strict), a DisaggregatedPair (2 prefill + 4 decode slots over
+             one pool and one CacheBox) and a WAL recovery in this
+             process: every stream token-exact against `generate` (near
+             ties reported), the pools conserved, row 5 launched once a
+             layer a step of every engine, nothing built or captured
+             after each build's own warm-up, one completion record a uid;
+ 57. fleet serve bf16  the 235M layout in bf16, 32 requests of 128
+             tokens (every second opening with a 64-token system prefix)
+             x 128 new, in turns: (a) a sticky fleet of 2 x 8 slots,
+             (a+wal) the same with a RequestWAL (the cost of durable
+             admission), (b) round-robin, (c) one engine of 16 slots, (d)
+             a DisaggregatedPair of 2 prefill + 8 decode slots: tokens/s,
+             step p50s (a member's and the fleet's), TTFT p50 and p95,
+             prefix hit rate, route reasons, the fleet step's host time
+             outside its members, row 5 launches == reads; (d)'s handoff
+             host us a request and its streams against (c)'s (a stream
+             that differs is reported with its first differing position
+             and the top-2 margin there).
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`; the card's name and power limit come
@@ -883,25 +925,48 @@ def decode_host_us(torch, engine, calls=20):
     return host_us(torch, lambda: step(*engine._decode_args()), calls=calls)
 
 
+# the eager twin's traffic: an eager step costs ~15 replays (`graphs vs
+# eager` lines), so the twin runs the phase's first EAGER_REQUESTS
+# prompts at EAGER_NEW new tokens each (the phase's own traffic cut in
+# depth), beside a fresh graph engine on the same cut traffic
+EAGER_REQUESTS, EAGER_NEW = 8, 32
+
+
 def eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
                counts, label, card, prompt_lengths=()):
-    """The same traffic through a twin engine with cuda_graphs=False (the
-    steps eager) on the same model: every stream bit-identical to the
-    graphs' and the launch counts equal; prints both runs' tokens/s,
-    decode-step p50 and host us a decode step. Returns the eager run's
-    metrics summary."""
+    """The phase's first EAGER_REQUESTS prompts, at EAGER_NEW new tokens
+    a request, through a twin engine with cuda_graphs=False (the steps
+    eager) and a fresh graph engine on the same model: every stream
+    bit-identical between the two and a prefix of the phase's own stream,
+    the launch counts equal; prints the eager run's tokens/s and
+    decode-step p50 and both engines' host us a decode step. Returns the
+    eager run's metrics summary."""
     import numpy as np
     from flashy_tpu_torch.serve.engine import DecodeEngine
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    prompts, requests = prompts[:EAGER_REQUESTS], requests[:EAGER_REQUESTS]
+    cut = [min(n, EAGER_NEW) for n in news[:EAGER_REQUESTS]]
+    g_requests, g_counts = requests, counts
+    if cut != news:
+        twin = DecodeEngine(model, **engine_kw)
+        twin.warmup(prompt_lengths)
+        _, g_requests, g_counts, _ = serve(torch, twin, prompts, cut)
+        for full, short, n in zip(requests, g_requests, cut):
+            if not np.array_equal(full.output[:len(full.prompt) + n],
+                                  short.output):
+                fail(f"{label}: request {full.uid}'s stream at {n} new "
+                     f"tokens is not a prefix of its stream at "
+                     f"{full.max_new_tokens}")
+        del twin
     eager = DecodeEngine(model, cuda_graphs=False, **engine_kw)
     eager.warmup(prompt_lengths)
-    e_scheduler, e_requests, e_counts, _ = serve(torch, eager, prompts,
-                                                 max_new)
-    for got, want in zip(requests, e_requests):
+    e_scheduler, e_requests, e_counts, _ = serve(torch, eager, prompts, cut)
+    for got, want in zip(g_requests, e_requests):
         if not np.array_equal(got.output, want.output):
             fail(f"{label}: request {got.uid}'s stream differs between "
                  f"graphs and eager")
-    if nonzero(counts) != nonzero(e_counts):
-        fail(f"{label}: launches with graphs {nonzero(counts)}, eager "
+    if nonzero(g_counts) != nonzero(e_counts):
+        fail(f"{label}: launches with graphs {nonzero(g_counts)}, eager "
              f"{nonzero(e_counts)}")
     graphs = engine.compile_cache
     if not all(getattr(fn, "captured", False)
@@ -910,9 +975,10 @@ def eager_twin(torch, model, engine, engine_kw, prompts, max_new, requests,
     host = {what: decode_host_us(torch, eng)
             for what, eng in (("graphs", engine), ("eager", eager))}
     e_summary = e_scheduler.metrics.summary()
-    print(f"{label}: graphs vs eager: {len(requests)} streams bit-identical, "
-          f"launches equal {nonzero(counts)}; eager tokens/s="
-          f"{e_summary['tokens_per_sec']:.1f}, decode step p50="
+    print(f"{label}: graphs vs eager on {len(cut)} requests at {max(cut)} "
+          f"new tokens: streams bit-identical (prefixes of the phase's "
+          f"{max(news)}), launches equal {nonzero(e_counts)}; eager "
+          f"tokens/s={e_summary['tokens_per_sec']:.1f}, decode step p50="
           f"{e_summary['itl_ms_p50']:.3f} ms; host us a decode step: graphs "
           f"{host['graphs']:.1f}, eager {host['eager']:.1f}; compile cache "
           f"{graphs.stats()} ({', '.join(graphs.executables())}), eager "
@@ -6450,20 +6516,6 @@ def phase_hang_abort(torch, card, root):
     return launches
 
 
-def phase_drill(card):
-    """Phase 39: the chaos drill in a process of its own."""
-    begin = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "flashy_tpu_torch.resilience"],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
-    seconds = time.perf_counter() - begin
-    if out.returncode != 0 or "chaos drill passed" not in out.stderr:
-        fail(f"drill: exit {out.returncode}: {out.stderr[-800:]}")
-    passes = out.stderr.count("PASS:")
-    print(f"drill: python -m flashy_tpu_torch.resilience exit 0, {passes} "
-          f"checks passed in {seconds:.1f} s [{card}]", flush=True)
-
-
 # ----------------------------------------------------------------------
 # phases 40-42: queue A entry 1, the streaming datapipe (the drill and
 # packed SSD training at full width), and item 9's chaos campaign
@@ -6858,46 +6910,112 @@ def phase_packed_train(torch, device, card, root, seed, ssd_p50):
             "check": check}
 
 
-def phase_module(card, label, args, marker, timeout):
-    """A `python -m` entry point in a process of its own on the card:
-    exit 0 and `marker` in its log, or the phase fails. Returns (seconds,
-    stderr)."""
-    begin = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=timeout)
-    seconds = time.perf_counter() - begin
-    if out.returncode != 0 or marker not in out.stderr \
-            or "on cuda" not in out.stderr:
-        fail(f"{label}: exit {out.returncode}: {out.stderr[-1500:]}")
-    return seconds, out.stderr
+def run_modules(commands):
+    """Start every `python -m` command of `commands` ({label: (args,
+    timeout)}) at once, each in a process of its own from the checkout's
+    root, its output in a file; wait for all, killing every one still
+    running at the first deadline. Returns {label: (exit code, seconds,
+    stderr)}."""
+    started, ended = {}, {}
+    for label, (args, timeout) in commands.items():
+        err = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                                stdout=subprocess.DEVNULL, stderr=err,
+                                text=True)
+        started[label] = (proc, err, time.perf_counter(), timeout)
+    late = None
+    while len(ended) < len(started) and late is None:
+        time.sleep(0.2)
+        now = time.perf_counter()
+        for label, (proc, _, begin, timeout) in started.items():
+            if label not in ended and proc.poll() is not None:
+                ended[label] = now - begin
+            elif label not in ended and now - begin > timeout:
+                late = label
+    results = {}
+    for label, (proc, err, begin, _) in started.items():
+        if label not in ended:
+            proc.kill()
+            proc.wait()
+        err.seek(0)
+        results[label] = (proc.returncode,
+                          ended.get(label, time.perf_counter() - begin),
+                          err.read())
+        err.close()
+    if late is not None:
+        fail(f"{late}: no exit within its deadline; every module process "
+             f"stopped")
+    return results
 
 
-def phase_datapipe_drill(card):
-    """Phase 40: `python -m flashy_tpu_torch.datapipe` at its defaults on
-    the card."""
-    seconds, log = phase_module(
-        card, "datapipe drill", ["flashy_tpu_torch.datapipe"],
-        "datapipe drill passed", timeout=300)
+def check_module(label, result, marker, code=0):
+    """Exit `code`, `marker` and "on cuda" in the log, or the phase
+    fails. Returns (seconds, stderr)."""
+    returncode, seconds, log = result
+    if returncode != code or marker not in log or "on cuda" not in log:
+        fail(f"{label}: exit {returncode}: {log[-1500:]}")
+    return seconds, log
+
+
+CAMPAIGN_SCENARIOS = "datapipe,serve,fleet"
+
+
+def phase_modules(card):
+    """Phases 39, 40 and 42 in processes of their own, started together
+    (none of them is timed beyond its seconds): the chaos drill, the
+    datapipe drill, the chaos campaign's datapipe, serve and fleet
+    scenarios, and the fleet scenario under the seeded `wal_skip_dedup`
+    defect, which its dedup oracle must catch (exit 1 and a reproducer
+    naming it)."""
+    import re
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = Path(tmp) / "repro.json"
+        results = run_modules({
+            "drill": (["flashy_tpu_torch.resilience"], 300),
+            "datapipe drill": (["flashy_tpu_torch.datapipe"], 300),
+            "campaign": (["flashy_tpu_torch.resilience", "--campaign",
+                          "--scenarios", CAMPAIGN_SCENARIOS, "--seed", "0"],
+                         600),
+            "defect": (["flashy_tpu_torch.resilience", "--campaign",
+                        "--scenarios", "fleet", "--seed", "0",
+                        "--seeded-defect", "wal_skip_dedup", "--artifact",
+                        str(artifact)], 300)})
+        payload = json.loads(artifact.read_text()) \
+            if artifact.exists() else {}
+    # the drill touches no device
+    returncode, seconds, log = results["drill"]
+    if returncode != 0 or "chaos drill passed" not in log:
+        fail(f"drill: exit {returncode}: {log[-800:]}")
+    print(f"drill: python -m flashy_tpu_torch.resilience exit 0, "
+          f"{log.count('PASS:')} checks passed in {seconds:.1f} s [{card}]",
+          flush=True)
+    seconds, log = check_module("datapipe drill", results["datapipe drill"],
+                                "datapipe drill passed")
     print(f"datapipe drill: python -m flashy_tpu_torch.datapipe exit 0 on "
           f"cuda (3 epochs x 6 steps of [4, 64], killed in epoch 2), "
           f"{log.count('PASS:')} checks passed in {seconds:.1f} s [{card}]",
           flush=True)
-
-
-def phase_campaign(card):
-    """Phase 42: the chaos campaign's datapipe scenario on the card."""
-    import re
-    seconds, log = phase_module(
-        card, "campaign", ["flashy_tpu_torch.resilience", "--campaign",
-                           "--scenarios", "datapipe", "--seed", "0"],
-        "campaign passed", timeout=300)
+    seconds, log = check_module("campaign", results["campaign"],
+                                "campaign passed")
     found = re.search(r"campaign passed: (\d+) fault schedules", log)
     schedules = [line.split("— ", 1)[-1] for line in log.splitlines()
                  if "campaign: run " in line]
+    defect_seconds, defect_log = check_module(
+        "campaign (wal_skip_dedup)", results["defect"], "dedup broken",
+        code=1)
+    caught = " ".join(payload.get("failure", []))
+    if payload.get("defect") != "wal_skip_dedup" \
+            or "dedup broken" not in caught:
+        fail(f"campaign: the seeded wal_skip_dedup defect's reproducer "
+             f"{payload}: {defect_log[-1500:]}")
     print(f"campaign: python -m flashy_tpu_torch.resilience --campaign "
-          f"--scenarios datapipe --seed 0 exit 0 on cuda, "
+          f"--scenarios {CAMPAIGN_SCENARIOS} --seed 0 exit 0 on cuda, "
           f"{found.group(1) if found else '?'} fault schedules ({schedules})"
-          f" and a calibration run in {seconds:.1f} s [{card}]", flush=True)
+          f" and a calibration run a scenario in {seconds:.1f} s; the "
+          f"seeded wal_skip_dedup defect caught by the fleet scenario "
+          f"(exit 1, reproducer faults {payload['faults']}: {caught[:160]}) "
+          f"in {defect_seconds:.1f} s; the drill, the datapipe drill and "
+          f"both campaigns started together [{card}]", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -6906,12 +7024,12 @@ def phase_campaign(card):
 DP_RANKS = 2
 GLOO_LABEL = ("gloo through the host, two ranks sharing one card; not an "
               "NCCL figure")
-# `dp train` at full width and 4 of the 12 layers: its three runs write
-# three checkpoints and start six ranks, and the four dp phases keep to
-# ~2 minutes. One warmup step: the schedule is sized by epochs x steps,
+# `dp train` at full width and 2 of the 12 layers (4 before the fleet's
+# phases joined): its three runs write three checkpoints and start six
+# ranks, and the four dp phases keep to ~2 minutes. One warmup step: the schedule is sized by epochs x steps,
 # and with one warmup step a 1-epoch run's schedule is the 2-epoch run's
 # first epoch, so the stopped-and-resumed run repeats the whole run.
-DP_LAYERS = 4
+DP_LAYERS = 2
 DP_TRAIN_ARGS = [arg for arg in TRAIN_ARGS
                  if not arg.startswith(("model.num_layers=",
                                         "steps_per_epoch=", "valid_steps="))
@@ -8229,6 +8347,461 @@ def phase_translate_train(torch, device, card, root):
     return launches, timed
 
 
+# ----------------------------------------------------------------------
+# queue A item 10: the serving fleet
+# ----------------------------------------------------------------------
+FLEET_NEW = 16              # fleet exact: new tokens a request
+# the site's 9th occurrence: engine0's 5th step (two members step in turn)
+FLEET_KILL_CALL = 9
+FLEET_WAL_STEPS = 30        # fleet exact: steps before the WAL crash
+# fleet serve bf16: requests, prompt tokens, the shared system prefix
+# (4 blocks; the first is the router's chain key), new tokens
+FLEET_SERVE = (32, 128, 64, 128)
+
+
+def fleet_counts_reset(engines):
+    """Every engine's step counts and the paged launch counts set to 0."""
+    from flashy_tpu_torch.ops import paged_decode
+    for engine in engines:
+        engine.step_counts = dict.fromkeys(engine.step_counts, 0)
+    paged_decode.reset_launch_counts()
+
+
+def fleet_reads(engines, label, name="paged_decode"):
+    """Row 5 launched once per layer per step of `engines` together, and
+    nothing else launched; returns the count."""
+    from flashy_tpu_torch.ops import paged_decode
+    reads = sum(e._cfg.num_layers * (e.step_counts["decode"]
+                                     + e.step_counts["prefill_chunk"]
+                                     + e.step_counts["verify"])
+                for e in engines)
+    counts = nonzero(paged_decode.launch_counts)
+    if reads < 1 or counts != {name: reads}:
+        fail(f"{label}: launches {counts}, the engines made {reads} "
+             f"attention reads on {name}")
+    return reads
+
+
+def fleet_warm(engines):
+    return [dict(e.compile_cache.stats()) for e in engines]
+
+
+def fleet_compile_free(engines, warm, label):
+    """Nothing built or captured after each build's own warm-up."""
+    for engine, before in zip(engines, warm):
+        after = engine.compile_cache.stats()
+        if after["misses"] != before["misses"] or after["recompiles"]:
+            fail(f"{label}: {engine.cache_scope} built or captured after "
+                 f"its warm-up: {before} -> {after}")
+
+
+def phase_fleet_demo(card):
+    """`python -m flashy_tpu_torch.serve.fleet`'s five legs on the card as
+    a user runs it (`main` with `--kernel fused`, the demo's default
+    gates, in this process; the wal leg's SIGKILLed worker a second
+    process on the card). Every gate passes. Returns this process's
+    launches of the paged kernels (the demo's tiny model, head_dim 8,
+    reads on the general route)."""
+    import logging
+    from flashy_tpu_torch.ops import paged_decode
+    from flashy_tpu_torch.serve.fleet.__main__ import logger, main
+    records = LogRecords()
+    logger.addHandler(records.handler)
+    paged_decode.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = main(["--kernel", "fused"])
+    finally:
+        logger.removeHandler(records.handler)
+    counts = nonzero(paged_decode.launch_counts)
+    if rc:
+        errors = [r.getMessage() for r in records.records
+                  if r.levelno >= logging.ERROR]
+        fail(f"fleet demo: python -m flashy_tpu_torch.serve.fleet --kernel "
+             f"fused returned {rc}: " + " | ".join(errors))
+    if not counts:
+        fail("fleet demo: the engines launched no paged kernel")
+    gates = [r.getMessage() for r in records.records
+             if r.getMessage().startswith(("verified", "determinism",
+                                           "raw log", "fleet.json",
+                                           "worker dead"))]
+    print(f"fleet demo: python -m flashy_tpu_torch.serve.fleet --kernel "
+          f"fused on cuda (handoff, sticky, preempt, drill, wal; the wal "
+          f"worker a second process on the card): exit 0 in "
+          f"{time.perf_counter() - t0:.1f}s, launches in this process "
+          f"{counts}; " + " | ".join(line[:140] for line in gates)
+          + f" [{card}]", flush=True)
+    return counts
+
+
+def phase_fleet_exact(torch, device, card):
+    """The 235M layout in f32 (TF32 off) on the `exact` workload, 16 new
+    tokens, through a fleet of 2 members x 4 slots whose engine0 is killed
+    at its 5th step (`fleet.engine_step`, strict), a DisaggregatedPair
+    (2 prefill + 4 decode slots over one pool) and a WAL recovery in this
+    process: every stream token-exact against `generate` (near ties
+    reported), the pools conserved, row 5 launched once a layer a step,
+    nothing built or captured after each build's warm-up. Returns the
+    launches."""
+    import types
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.resilience import chaos
+    from flashy_tpu_torch.serve.compile_cache import CompileCache
+    from flashy_tpu_torch.serve.fleet import (
+        ENGINE_FAULT_SITE, DisaggregatedPair, QuotaManager, RequestWAL,
+        ServingFleet, TenantQuota)
+    from flashy_tpu_torch.serve.fleet.wal import WAL_NAME
+    cfg = model_config(torch, torch.float32, 512)
+    model = TransformerLM(cfg, device=device, seed=0)
+    prompts = exact_workload(np.random.default_rng(0), cfg.vocab_size)
+    refs = reference_streams(torch, model, prompts, FLEET_NEW, device)
+    kw = dict(block_size=16, max_seq_len=512, kernel="fused", device=device)
+    t0 = time.perf_counter()
+
+    def build(**extra):
+        # the members of one build share a compile cache: the warm-up
+        # seals it after both warmed
+        fleet = ServingFleet.build(
+            model, engines=2, slots=4, compile_cache=CompileCache(
+                device=device),
+            quotas=QuotaManager(default=TenantQuota(len(prompts))),
+            **kw, **extra)
+        fleet.warmup()
+        engines = [m.engine for m in fleet.members.values()]
+        if fleet_warm(engines)[0]["recompiles"]:
+            fail("fleet exact: a member's warm-up counted as a recompile")
+        return fleet, engines
+
+    def streams(label, outputs):
+        served = [types.SimpleNamespace(uid=i, output=np.asarray(o))
+                  for i, o in enumerate(outputs)]
+        return check_streams(torch, model, prompts, served, FLEET_NEW,
+                             device, f"fleet exact {label}", refs=refs)
+
+    # the drill
+    fleet, engines = build()
+    warm = fleet_warm(engines)
+    fleet_counts_reset(engines)
+    handles = [fleet.submit(p, FLEET_NEW) for p in prompts]
+    injector = chaos.install(strict=True)
+    injector.fail_at(ENGINE_FAULT_SITE, call=FLEET_KILL_CALL)
+    try:
+        fleet.run()
+    finally:
+        chaos.uninstall()
+    torch.cuda.synchronize()
+    if fleet.deaths != ["engine0"] or fleet.reroutes < 1:
+        fail(f"fleet exact drill: deaths {fleet.deaths}, reroutes "
+             f"{fleet.reroutes}")
+    ties = {"drill": streams("drill", [h.output for h in handles])}
+    engines[1].pool.check()      # the dead engine is never touched again
+    launches = {"drill": fleet_reads(engines, "fleet exact drill")}
+    fleet_compile_free(engines, warm, "fleet exact drill")
+    drill = (fleet.reroutes, engines[0].step_counts["decode"],
+             engines[0].step_counts["prefill_chunk"])
+    del fleet, engines
+
+    # the handoff
+    pair = DisaggregatedPair(model, prefill_slots=2, decode_slots=4, **kw)
+    pair.warmup()
+    engines = [pair.prefill, pair.decode]
+    warm = fleet_warm(engines)
+    fleet_counts_reset(engines)
+    outputs = pair.serve(prompts, FLEET_NEW)
+    torch.cuda.synchronize()
+    ties["handoff"] = streams("handoff", [
+        np.concatenate([p, np.asarray(o)]) for p, o in zip(prompts,
+                                                           outputs)])
+    pair.pool.check()
+    if len(pair.handoffs) != len(prompts):
+        fail(f"fleet exact handoff: {len(pair.handoffs)} handoffs for "
+             f"{len(prompts)} requests")
+    launches["handoff"] = fleet_reads(engines, "fleet exact handoff")
+    fleet_compile_free(engines, warm, "fleet exact handoff")
+    del pair, engines
+
+    # the WAL: a fleet stops after FLEET_WAL_STEPS steps with nothing
+    # more written; a fresh build replays the log
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / WAL_NAME
+        first, engines = build(wal=RequestWAL(path))
+        fleet_counts_reset(engines)
+        for p in prompts:
+            first.submit(p, FLEET_NEW)
+        for _ in range(FLEET_WAL_STEPS):
+            first.step()
+        first.wal.close()
+        torch.cuda.synchronize()
+        before = fleet_reads(engines, "fleet exact wal (before the crash)")
+        del first, engines
+        fleet, engines = build(wal=RequestWAL(path))
+        warm = fleet_warm(engines)
+        fleet_counts_reset(engines)
+        rec = fleet.recover_from_wal()
+        fleet.run()
+        fleet.wal.close()
+        torch.cuda.synchronize()
+        outputs = []
+        for uid, prompt in enumerate(prompts):
+            if uid in rec["completed"]:
+                outputs.append(np.concatenate(
+                    [prompt, rec["completed"][uid].generated]))
+            elif uid in rec["recovered"] and rec["recovered"][uid].done:
+                outputs.append(rec["recovered"][uid].output)
+            else:
+                fail(f"fleet exact wal: acknowledged uid {uid} lost")
+        ties["wal"] = streams("wal", outputs)
+        completes = [json.loads(line)["uid"] for line in
+                     path.read_text().splitlines()
+                     if json.loads(line)["t"] == "complete"]
+        if sorted(completes) != list(range(len(prompts))):
+            fail(f"fleet exact wal: completion records {sorted(completes)}")
+        for engine in engines:
+            engine.pool.check()
+        launches["wal"] = before + fleet_reads(engines, "fleet exact wal")
+        fleet_compile_free(engines, warm, "fleet exact wal")
+        recovered = (len(rec["recovered"]), len(rec["completed"]))
+        del fleet, engines
+    total = sum(launches.values())
+    print(f"fleet exact: 235M f32, {len(prompts)} exact-workload requests x "
+          f"{FLEET_NEW} new, every stream token-exact vs generate through "
+          f"the drill (2 x 4 slots, engine0 killed at its 5th step after "
+          f"{drill[1]} decode and {drill[2]} prefill-slice calls, "
+          f"{drill[0]} requests re-routed), the handoff "
+          f"(2 prefill + 4 decode slots over one pool, {len(prompts)} "
+          f"handoffs) and the WAL recovery ({recovered[0]} re-admitted, "
+          f"{recovered[1]} served from the log after {FLEET_WAL_STEPS} "
+          f"steps, one completion record a uid); near ties {ties}; "
+          f"launches paged_decode=={total} == reads ({launches}); pools "
+          f"conserved; no build or capture after any warm-up; "
+          f"{time.perf_counter() - t0:.1f}s [{card}]", flush=True)
+    return total
+
+
+def fleet_prompts(rng, vocab):
+    """fleet serve bf16's traffic: every second prompt starts with the
+    shared system prefix."""
+    import numpy as np
+    n, length, shared, _ = FLEET_SERVE
+    system = rng.integers(1, vocab, shared)
+    return [np.concatenate([system, rng.integers(1, vocab, length - shared)])
+            if i % 2 == 0 else rng.integers(1, vocab, length)
+            for i in range(n)]
+
+
+def timed_turn(torch, schedulers, submit, step):
+    """Submit (inside the window) and step until every scheduler idles,
+    each scheduler's step timed and each outer step timed; returns (the
+    handles, the window's seconds, member step seconds, outer step
+    seconds, the members' seconds inside each outer step)."""
+    member, outer, inner = [], [], []
+    for scheduler in schedulers:
+        def timed(step=scheduler.step):
+            begin = time.perf_counter()
+            emitted = step()
+            member.append(time.perf_counter() - begin)
+            return emitted
+        scheduler.step = timed
+    t0 = time.perf_counter()
+    handles = submit()
+    while not all(s.idle for s in schedulers):
+        mark, begin = len(member), time.perf_counter()
+        step()
+        outer.append(time.perf_counter() - begin)
+        inner.append(sum(member[mark:]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for scheduler in schedulers:
+        del scheduler.step
+    return handles, seconds, member, outer, inner
+
+
+def turn_line(label, tokens, seconds, steps, ttft, hits, reasons,
+              outside, launches, card, extra=""):
+    """One turn's line: `steps` {what: step seconds}, `outside` the host
+    seconds of each fleet step outside its members' steps (or None)."""
+    from flashy_tpu_torch.utils import percentile
+    p50s = ", ".join(f"{what} {percentile(t, 50) * 1e3:.3f} ms over "
+                     f"{len(t)}" for what, t in steps.items())
+    host = "n/a" if outside is None else \
+        f"{percentile(outside, 50) * 1e6:.1f}"
+    print(f"fleet serve bf16 {label}: tokens/s={tokens / seconds:.1f} "
+          f"({tokens} tokens in {seconds:.3f}s); step p50: {p50s}; ttft "
+          f"p50={percentile(ttft, 50) * 1e3:.1f} ms p95="
+          f"{percentile(ttft, 95) * 1e3:.1f} ms; prefix hit rate={hits:.3f}; "
+          f"route reasons {reasons or 'n/a'}; host us a fleet step outside "
+          f"its members' steps p50={host}; launches paged_decode={launches}"
+          f" == reads{extra} [{card}]", flush=True)
+
+
+def phase_fleet_serve(torch, device, card):
+    """The 235M layout in bf16 through the Hopper kernel, in turns in one
+    process: FLEET_SERVE's traffic (32 requests submitted at once, 128-
+    token prompts, every second one opening with a 64-token system
+    prefix, 128 new tokens) through (a) a sticky fleet of 2 x 8 slots,
+    (a+wal) the same with a RequestWAL, (b) round-robin, (c) one engine of
+    16 slots, (d) a DisaggregatedPair of 2 prefill + 8 decode slots. Each
+    turn's tokens/s, step p50s, TTFT, prefix hit rate, route reasons,
+    the fleet step's host time outside its members, and row 5 launches
+    == reads; (d)'s handoff host us a request and its streams against
+    (c)'s. Returns the launches."""
+    import numpy as np
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.serve.engine import DecodeEngine
+    from flashy_tpu_torch.serve.fleet import (
+        DisaggregatedPair, QuotaManager, RequestWAL, ServingFleet,
+        TenantQuota)
+    from flashy_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+    n, length, _, max_new = FLEET_SERVE
+    cfg = model_config(torch, torch.bfloat16, 256)
+    model = TransformerLM(cfg, device=device, seed=1)
+    prompts = fleet_prompts(np.random.default_rng(3), cfg.vocab_size)
+    kw = dict(block_size=16, max_seq_len=256, kernel="fused", device=device)
+    t0 = time.perf_counter()
+    total, rates, sticky = 0, {}, None
+
+    def hit_rate(pools):
+        return (sum(p.prefix_matched_tokens for p in pools)
+                / max(1, sum(p.prefix_total_tokens for p in pools)))
+
+    def ttft(handles):
+        return [h.first_token_at - h.submitted_at for h in handles]
+
+    for label, policy, wal in (("(a) sticky 2x8", "sticky", False),
+                               ("(a+wal) sticky 2x8 with a RequestWAL",
+                                "sticky", True),
+                               ("(b) round_robin 2x8", "round_robin",
+                                False)):
+        with tempfile.TemporaryDirectory() as tmp:
+            fleet = ServingFleet.build(
+                model, engines=2, slots=8, policy=policy,
+                quotas=QuotaManager(default=TenantQuota(n)),
+                wal=RequestWAL(Path(tmp) / "requests.wal") if wal else None,
+                **kw)
+            fleet.warmup()
+            engines = [m.engine for m in fleet.members.values()]
+            warm = fleet_warm(engines)
+            fleet_counts_reset(engines)
+            handles, seconds, member, outer, inner = timed_turn(
+                torch, [m.scheduler for m in fleet.members.values()],
+                lambda: [fleet.submit(p, max_new) for p in prompts],
+                fleet.step)
+            fleet.run()   # the last reap
+            if wal:
+                fleet.wal.close()
+        check_outputs(handles, [length + max_new] * n, cfg.vocab_size,
+                      f"fleet serve bf16 {label}")
+        if policy == "sticky" and not wal:
+            sticky = handles
+        launches = fleet_reads(engines, f"fleet serve bf16 {label}")
+        fleet_compile_free(engines, warm, f"fleet serve bf16 {label}")
+        total += launches
+        tokens = n * max_new
+        rates[label] = tokens / seconds
+        extra = ""
+        if wal:
+            extra = (f"; durable admission costs "
+                     f"{1 - rates[label] / rates['(a) sticky 2x8']:.3f} of "
+                     f"(a)'s tokens/s")
+        turn_line(label, tokens, seconds, {"member": member, "fleet": outer},
+                  ttft(handles), hit_rate([e.pool for e in engines]),
+                  dict(fleet.route_reasons),
+                  [o - i for o, i in zip(outer, inner)], launches, card,
+                  extra)
+        del fleet, engines
+
+    # (c) one engine of 16 slots
+    engine = DecodeEngine(model, slots=16, cache_layout="paged", **kw)
+    engine.warmup()
+    warm = fleet_warm([engine])
+    fleet_counts_reset([engine])
+    scheduler = ContinuousBatchingScheduler(engine)
+    one, seconds, member, outer, inner = timed_turn(
+        torch, [scheduler], lambda: [scheduler.submit(p, max_new)
+                                     for p in prompts],
+        lambda: scheduler.step())
+    check_outputs(one, [length + max_new] * n, cfg.vocab_size,
+                  "fleet serve bf16 (c)")
+    launches = fleet_reads([engine], "fleet serve bf16 (c)")
+    fleet_compile_free([engine], warm, "fleet serve bf16 (c)")
+    engine.pool.check()
+    total += launches
+    rates["(c)"] = n * max_new / seconds
+    turn_line("(c) one engine of 16 slots", n * max_new, seconds,
+              {"engine": member}, ttft(one), hit_rate([engine.pool]), {},
+              None, launches, card,
+              f"; (a) at {rates['(a) sticky 2x8'] / rates['(c)']:.3f} of "
+              f"(c)'s tokens/s")
+    del engine, scheduler
+
+    # (d) the disaggregated pair
+    pair = DisaggregatedPair(model, prefill_slots=2, decode_slots=8, **kw)
+    pair.warmup()
+    engines = [pair.prefill, pair.decode]
+    warm = fleet_warm(engines)
+    fleet_counts_reset(engines)
+    firsts, decode_s = [], []
+    prefill_chunk, decode = pair.prefill.prefill_chunk, pair.decode.decode
+
+    def timed_chunk(*args):
+        start, first = prefill_chunk(*args)
+        if first is not None:
+            firsts.append(time.perf_counter())
+        return start, first
+
+    def timed_decode():
+        begin = time.perf_counter()
+        out = decode()
+        decode_s.append(time.perf_counter() - begin)
+        return out
+
+    pair.prefill.prefill_chunk, pair.decode.decode = timed_chunk, \
+        timed_decode
+    begin = time.perf_counter()
+    outputs = pair.serve(prompts, max_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - begin
+    del pair.prefill.prefill_chunk, pair.decode.decode
+    pair.pool.check()
+    launches = fleet_reads(engines, "fleet serve bf16 (d)")
+    fleet_compile_free(engines, warm, "fleet serve bf16 (d)")
+    total += launches
+    differ = []
+    for i, (prompt, out, handle) in enumerate(zip(prompts, outputs, one)):
+        got = np.asarray(out)
+        want = np.asarray(handle.generated)
+        if not np.array_equal(got, want):
+            first = int(np.nonzero(got != want)[0][0])
+            margin = top2_margin(torch, model, handle.output[:len(prompt)
+                                                             + first])
+            differ.append((i, first, f"{margin:.3e}"))
+    # (a)'s members decode at 8 slots as (d)'s decode engine does, (c) at
+    # 16: the same weights in GEMMs of another shape
+    same_as_a = sum(np.array_equal(np.asarray(out), h.generated)
+                    for out, h in zip(outputs, sticky))
+    handoff_us = 1e6 * sum(pair.handoff_seconds) / len(pair.handoff_seconds)
+    if len(firsts) != n or any(len(o) != max_new for o in outputs):
+        fail(f"fleet serve bf16 (d): {len(firsts)} first tokens, output "
+             f"lengths {sorted({len(o) for o in outputs})}")
+    turn_line("(d) disaggregated 2 prefill + 8 decode", n * max_new,
+              seconds, {"decode": decode_s}, [t - begin for t in firsts],
+              hit_rate([pair.pool]), {}, None, launches, card,
+              f"; handoff host us a request {handoff_us:.1f} over "
+              f"{len(pair.handoff_seconds)} handoffs; streams "
+              f"bit-identical to (c)'s (16 slots): {n - len(differ)} of "
+              f"{n}, differing (request, first position, top-2 margin "
+              f"there) {differ}; to (a)'s (8 slots a member): "
+              f"{same_as_a} of {n}")
+    del pair, engines
+    print(f"fleet serve bf16: {n} requests x prompt {length} (every second "
+          f"opening with a {FLEET_SERVE[2]}-token system prefix) x "
+          f"{max_new} new per turn, launches paged_decode={total} == reads "
+          f"over the five turns; {time.perf_counter() - t0:.1f}s [{card}]",
+          flush=True)
+    return total
+
+
 def main() -> None:
     import argparse
     # the processes the dp phases start run this script with these flags
@@ -8458,21 +9031,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as folder:
         hang_launches = phase_hang_abort(torch, card, folder)
     lap("hang abort")
-    phase_drill(card)
-    lap("drill")
 
     # queue A entry 1: the streaming datapipe (its drill, packed SSD
     # training at full width: row 7 on packed batches) and item 9's
     # chaos campaign
     release_memory(torch)
-    phase_datapipe_drill(card)
-    lap("datapipe drill")
     with tempfile.TemporaryDirectory() as folder:
         packed = phase_packed_train(torch, device, card, folder, args.seed,
                                     ssd_train_p50)
     lap("packed train")
-    phase_campaign(card)
-    lap("campaign")
+    phase_modules(card)
+    lap("drill, datapipe drill, campaign")
 
     # queue A item 5: data parallelism across processes, two ranks sharing
     # the card over gloo (NCCL refuses two ranks on one device)
@@ -8520,6 +9089,17 @@ def main() -> None:
         translate_launches, translate_times = phase_translate_train(
             torch, device, card, folder)
     lap("translate train")
+    # queue A item 10: the serving fleet, row 5 through its router,
+    # handoff, drill and WAL paths
+    release_memory(torch)
+    fleet_demo_launches = phase_fleet_demo(card)
+    lap("fleet demo")
+    release_memory(torch)
+    fleet_exact_launches = phase_fleet_exact(torch, device, card)
+    lap("fleet exact")
+    release_memory(torch)
+    fleet_serve_launches = phase_fleet_serve(torch, device, card)
+    lap("fleet serve bf16")
     ft = sum(laps[k] for k in ("train preempt", "train slots", "train async",
                                "hang abort"))
     print(f"phase seconds: {json.dumps(laps)}; train preempt, train slots, "
@@ -8683,7 +9263,9 @@ def main() -> None:
                          "scan exact": scan_paged,
                          "int8w exact": int8w_exact,
                          "serve traced": traced_launches,
-                         "serve chaos": chaos_launches},
+                         "serve chaos": chaos_launches,
+                         "fleet exact": fleet_exact_launches,
+                         "fleet serve bf16": fleet_serve_launches},
         "paged_decode_int8": {"int8w serve bf16": int8w_serve},
         "ssd_scan": {"packed train": packed["launches"]},
         "ssd_scan_fma": {"scan exact ssd": scan_ssd},
@@ -8732,6 +9314,9 @@ def main() -> None:
         for label, (shape, times, errors) in extra.items():
             record[label] = {"shape": shape, "max_abs_err": errors[name],
                              **{key: times[name][key] for key in keys}}
+    # the fleet demo's tiny model (head_dim 8) reads on the general route
+    for name, count in fleet_demo_launches.items():
+        layouts.setdefault(name, {})["fleet demo"] = count
     for kernel in kernels:
         if kernel["name"] in layouts:
             kernel["layout_launches"] = layouts[kernel["name"]]

@@ -6,10 +6,12 @@ the universe the chaos campaign (`resilience.campaign`) sweeps.
 A copy of flashy_tpu/analysis/registry.py, kept as data: the port has no
 AST scan of its own yet. ROADMAP.md queue A item 12 ports the scan
 (`python -m flashy_tpu_torch.analysis --write-registry`), which will
-regenerate this file from the port's own `fault_point` calls. Sites the
-port does not reach yet (the fleet's, the pipeline's, the tensor step's,
-the elastic drill's) are listed all the same: the campaign's scenarios
-for them raise, naming their ROADMAP items.
+regenerate this file from the port's own `fault_point` calls. The
+fleet's sites (`fleet.*`) are reached by `serve/fleet/` and swept by the
+campaign's `serve` and `fleet` scenarios. Sites the port does not reach
+yet (the pipeline's, the tensor step's, the elastic drill's) are listed
+all the same: the campaign's scenarios for them raise, naming their
+ROADMAP items.
 """
 
 FAULT_SITES = frozenset({

@@ -15,9 +15,11 @@ slot starred; every verified file must also load with
 `--devices` reads `torch.cuda.mem_get_info` for every CUDA device;
 `--slo` renders each XP's `serve.json` `slo` block as the budget and
 burn-rate table. An XP with a `heartbeats/` folder gets the straggler
-report on its line. The fault-site report (`--faults`) and the fleet
-view come with the modules they read, which the port does not have yet:
-they raise NotImplementedError naming their ROADMAP entries.
+report on its line, and an XP with a `fleet.json` (written by
+`serve.fleet.ServingFleet.write_status`) the fleet's topology view. The
+fault-site report (`--faults`) comes with the module it reads, which the
+port does not have yet: it raises NotImplementedError naming its ROADMAP
+entry.
 """
 import argparse
 import json
@@ -26,10 +28,8 @@ from pathlib import Path
 
 TODO_RESILIENCE = ("ROADMAP.md queue A: item 9's chaos campaign, after "
                    "datapipe/, and item 12's fault-site registry")
-TODO_FLEET = "ROADMAP.md queue A item 10 (serve/fleet/)"
 
 CHECKPOINT_META_NAME = "checkpoint_meta.json"
-FLEET_STATUS_NAME = "fleet.json"
 
 
 def _read_json(path: Path) -> tp.Any:
@@ -41,8 +41,9 @@ def collect(root: Path) -> tp.Iterator[tp.Dict[str, tp.Any]]:
     """Yield {sig, cfg, argv, history, telemetry, serve, fleet,
     checkpoint} per XP under `root`."""
     from .observability import straggler_report
-    from .xp import (CONFIG_SNAPSHOT_NAME, HEARTBEAT_DIR_NAME,
-                     RUN_INFO_NAME, SERVE_STATUS_NAME, Link)
+    from .xp import (CONFIG_SNAPSHOT_NAME, FLEET_STATUS_NAME,
+                     HEARTBEAT_DIR_NAME, RUN_INFO_NAME, SERVE_STATUS_NAME,
+                     Link)
     xps_dir = Path(root) / "xps"
     if not xps_dir.is_dir():
         return
@@ -147,9 +148,42 @@ def format_serve_status(status: tp.Mapping[str, tp.Any]) -> str:
 
 
 def format_fleet_status(status: tp.Mapping[str, tp.Any]) -> str:
-    """The fleet's topology view: comes with the serving fleet."""
-    raise NotImplementedError(
-        f"the fleet view (fleet.json) is not ported yet: {TODO_FLEET}")
+    """Topology view of a `fleet.json` snapshot (serve.fleet).
+
+    One line per engine (role, health, slot and pool occupancy, the
+    requests the router sent it, any burning SLO budgets) under a fleet
+    headline (policy, re-routes, deaths, tenant sheds). Unknown keys are
+    ignored, so the snapshot schema can grow.
+    """
+    head = [f"policy={status.get('policy', '?')}"]
+    if status.get("reroutes"):
+        head.append(f"reroutes={int(status['reroutes'])}")
+    if status.get("deaths"):
+        head.append("deaths[" + ",".join(status["deaths"]) + "]")
+    shed = sum(t.get("shed", 0)
+               for t in status.get("tenants", {}).values())
+    if shed:
+        head.append(f"shed={shed}")
+    lines = ["  ".join(head)]
+    for name, engine in status.get("engines", {}).items():
+        parts = [f"{name}[{engine.get('role', '?')}]",
+                 "up" if engine.get("healthy") else "DEAD"]
+        if "live" in engine and "slots" in engine:
+            parts.append(f"slots={int(engine['live'])}/"
+                         f"{int(engine['slots'])}")
+        if "pool_occupancy" in engine:
+            parts.append(f"pool={engine['pool_occupancy'] * 100:.0f}%")
+        if "routed" in engine:
+            parts.append(f"routed={int(engine['routed'])}")
+        if "prefix_hit_rate" in engine:
+            parts.append(
+                f"prefix_hit={engine['prefix_hit_rate'] * 100:.0f}%")
+        if engine.get("slo_alerting"):
+            parts.append("SLO-ALERT["
+                         + ",".join(engine["slo_alerting"]) + "]")
+        lines.append("    " + "  ".join(parts))
+    return "\n".join(lines) if len(lines) > 1 else (
+        lines[0] + "  (no engines)")
 
 
 def format_checkpoint_meta(meta: tp.Mapping[str, tp.Any]) -> str:

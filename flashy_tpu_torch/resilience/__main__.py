@@ -13,9 +13,10 @@ resume is exact and every injected fault fired and was recovered.
 
 The drill touches no device. `--campaign` runs the registry-driven
 chaos campaign (`resilience.campaign`) over a subset of its ported
-scenarios (`--scenarios train,datapipe`); `--replay` re-executes a
-minimized reproducer. The full sweep and the elastic drill
-(`--elastic`) raise NotImplementedError naming their ROADMAP entries.
+scenarios (`--scenarios train,datapipe,serve,fleet`); `--replay`
+re-executes a minimized reproducer. The full sweep and the elastic
+drill (`--elastic`) raise NotImplementedError naming their ROADMAP
+entries.
 """
 import argparse
 import logging
@@ -234,9 +235,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                         help="with --campaign: where to write the "
                              "minimized reproducer on failure")
     parser.add_argument("--device", default=None,
-                        help="with --campaign: where the datapipe "
-                             "scenario runs (default: cuda; 'cpu' for the "
-                             "host)")
+                        help="with --campaign: where the datapipe, serve "
+                             "and fleet scenarios run (default: cuda; "
+                             "'cpu' for the host)")
     parser.add_argument("--dir", default=None,
                         help="work directory (default: a fresh temp dir)")
     parser.add_argument("--keep", action="store_true",

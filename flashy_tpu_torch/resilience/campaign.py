@@ -13,16 +13,24 @@ delta debugging (ddmin) to a minimal JSON reproducer that `--replay`
 re-executes. The same seed calibrates the same occurrence counts, draws
 the same schedules and replays the same failure.
 
-Ported scenarios: `train` (the chaos drill's numpy solver; no device)
-and `datapipe` (the datapipe drill's solver, on `cuda` unless
-`device='cpu'` asks for the host). The others declare their sites
-statically, so coverage and `static_coverage()` see the whole registry,
-and raise NotImplementedError naming their ROADMAP.md queue A items
-when run: `serve` and `fleet` (item 10, the fleet), `pipeline` and
-`tensor` (item 8), `elastic` (items 5 and 8: it waits for item 8's state
-sharding). A campaign over every scenario
-(`scenarios=None`) therefore raises; an explicit subset of ported
-scenarios runs with the narrowed coverage gate.
+Ported scenarios: `train` (the chaos drill's numpy solver; no device),
+and, on `cuda` unless `device='cpu'` asks for the host, `datapipe` (the
+datapipe drill's solver), `serve` (a one-engine fleet) and `fleet` (the
+WAL-backed two-engine fleet and its restart drill). The others declare
+their sites statically, so coverage and `static_coverage()` see the
+whole registry, and raise NotImplementedError naming their ROADMAP.md
+queue A items when run: `pipeline` and `tensor` (item 8), `elastic`
+(items 5 and 8: it waits for item 8's state sharding). A campaign over
+every scenario (`scenarios=None`) therefore raises; an explicit subset
+of ported scenarios runs with the narrowed coverage gate.
+
+The serving scenarios differ from the reference in one respect: the
+reference shares one compile cache across every run and both fleet
+builds of a run, since an XLA executable is a pure function of its
+arguments. A port cache entry binds the engine that built it (a CUDA
+graph over its buffers), so each fleet build here gets a fresh cache,
+shared by its members, and the compile gate is per build: nothing built
+or captured after that build's own warm-up.
 """
 import contextlib
 import dataclasses
@@ -280,7 +288,22 @@ class TrainScenario(Scenario):
             raise CampaignFailure(failures)
 
 
-class DatapipeScenario(Scenario):
+class _OnDevice(Scenario):
+    """A scenario that runs on a device: `cuda` unless the caller asks
+    for the host ('cpu'), as the drills do; resolved by `prepare()`,
+    before anything runs, so a campaign without a card raises instead of
+    sweeping the host."""
+
+    def __init__(self, device: tp.Any = None):
+        self.requested = device
+        self.device = None
+
+    def prepare(self):
+        from ..utils import resolve_device
+        self.device = resolve_device(self.requested)
+
+
+class DatapipeScenario(_OnDevice):
     """The streaming-input training loop: packed mixture batches with
     the input cursor committed alongside params. Oracle: the
     concatenated consumed-token stream across any number of injected
@@ -289,20 +312,8 @@ class DatapipeScenario(Scenario):
     name = "datapipe"
     EPOCHS, STEPS, BATCH, SEQ = 2, 4, 4, 64
 
-    def __init__(self, device: tp.Any = None):
-        # on `cuda` unless the caller asks for the host ('cpu'), as the
-        # datapipe drill does; resolved by `prepare()`, before anything
-        # runs, so a campaign without a card raises instead of sweeping
-        # the host
-        self.requested = device
-        self.device = None
-
     def sites(self):
         return {"datapipe.batch": ("fatal", "delay")}
-
-    def prepare(self):
-        from ..utils import resolve_device
-        self.device = resolve_device(self.requested)
 
     def execute(self, run_dir, corrupt=(), calibrate=False):
         from ..datapipe import __main__ as dp
@@ -345,50 +356,117 @@ class DatapipeScenario(Scenario):
             raise CampaignFailure(failures)
 
 
-TODO_FLEET = "ROADMAP.md queue A item 10 (the fleet: serve/fleet/)"
-TODO_PARALLEL = ("ROADMAP.md queue A item 8 (parallelism beyond data "
-                 "parallel: the pipeline schedules and tensor parallelism)")
-TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
-                "item 5's processes and collectives are ported, item 8's "
-                "state sharding is not)")
+class _ServingScenario(_OnDevice):
+    """Shared set-up of the serving scenarios: the demo's tiny f32 model
+    on the scenario's device, seeded prompts and their `generate()`
+    references (built once: the weights are not bound to an engine), and
+    a fresh compile cache for each fleet build (an entry binds the
+    engine that built it)."""
+
+    REQUESTS, MAX_NEW, PROMPT_SEED = 5, 5, 11
+    PROBE = False
+
+    def __init__(self, device: tp.Any = None):
+        super().__init__(device)
+        self._built = None
+
+    def _ensure_built(self):
+        if self._built is None:
+            from ..models.decoding import generate
+            from ..serve.__main__ import _build_model
+            vocab = 64
+            model = _build_model(vocab, 0, self.device)
+            rng = np.random.default_rng(self.PROMPT_SEED)
+            prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+                       for n in rng.integers(4, 12, self.REQUESTS)]
+            extra = [rng.integers(0, vocab, 6).astype(np.int32)] \
+                if self.PROBE else []
+            wants = [np.asarray(generate(model, p[None],
+                                         max_new_tokens=self.MAX_NEW,
+                                         device=self.device)[0].cpu())
+                     for p in prompts + extra]
+            self._built = (model, prompts + extra, wants)
+        return self._built
+
+    def _build_fleet(self, model, engines, **kwargs):
+        from ..serve.compile_cache import CompileCache
+        from ..serve.fleet.fleet import ServingFleet
+        from ..serve.fleet.quota import QuotaManager, TenantQuota
+        kernel = "fused" if self.device.type == "cuda" else "gather"
+        return ServingFleet.build(
+            model, engines=engines, slots=3, block_size=16, kernel=kernel,
+            device=self.device,
+            quotas=QuotaManager(default=TenantQuota(max_inflight=16)),
+            compile_cache=CompileCache(device=self.device), **kwargs)
+
+    def _compile_free(self, failures, fleet, warm, what=""):
+        stats = next(iter(fleet.members.values())).engine \
+            .compile_cache.stats()
+        self._check(failures,
+                    stats["misses"] == warm["misses"]
+                    and stats["recompiles"] == 0,
+                    f"{what}not compile-free after its warm-up "
+                    f"({stats['misses'] - warm['misses']} builds, "
+                    f"{stats['recompiles']} recompiles)")
 
 
-class _WaitingScenario(Scenario):
-    """A scenario whose workload the port does not run yet: its sites are
-    declared (the coverage universe and `static_coverage()` see them),
-    and `execute()` raises NotImplementedError naming `todo`, the
-    ROADMAP entry that brings the workload."""
-
-    todo = ""
-
-    def execute(self, run_dir, corrupt=(), calibrate=False):
-        raise NotImplementedError(
-            f"the campaign's {self.name!r} scenario is not ported yet: "
-            f"{self.todo}")
-
-
-class ServeScenario(_WaitingScenario):
-    """A single continuous-batching engine behind the fleet door:
-    `serve.pool` faults absorbed as backpressure, every output
-    token-exact against `generate()`, pool conservation, zero post-warm-up
-    compiles. The reference builds it as a one-engine ServingFleet,
-    which waits for item 10."""
+class ServeScenario(_ServingScenario):
+    """A single continuous-batching engine behind the fleet door.
+    `serve.pool` faults must be absorbed as backpressure (requeue, never
+    a crash); oracles: every output token-exact against `generate()`,
+    pool conservation, nothing built or captured after the warm-up."""
 
     name = "serve"
-    todo = TODO_FLEET
 
     def sites(self):
         return {"serve.pool": ("transient", "delay"),
                 "serve.step": ("delay",)}
 
+    def execute(self, run_dir, corrupt=(), calibrate=False):
+        self.prepare()
+        if calibrate:
+            logger.info("campaign: scenario %r runs on %s", self.name,
+                        self.device)
+        model, prompts, wants = self._ensure_built()
+        fleet = self._build_fleet(model, 1)
+        fleet.warmup(prompt_lengths=[len(p) for p in prompts])
+        member = next(iter(fleet.members.values()))
+        warm = dict(member.engine.compile_cache.stats())
+        handles = [fleet.submit(p, self.MAX_NEW) for p in prompts]
+        fleet.run()
 
-class FleetScenario(_WaitingScenario):
-    """The WAL-backed serving fleet and its restart drill (engine deaths
-    re-routed, whole-fleet crashes recovered from `requests.wal`,
-    at-least-once with exact dedup)."""
+        failures: tp.List[str] = []
+        for i, (handle, want) in enumerate(zip(handles, wants)):
+            ok = handle.done and np.array_equal(
+                np.asarray(handle.output), want)
+            self._check(failures, ok,
+                        f"request {i} not served token-exactly "
+                        f"(done={handle.done})")
+        try:
+            member.engine.pool.check()
+        except AssertionError as exc:
+            self._check(failures, False, f"pool conservation violated: {exc}")
+        self._compile_free(failures, fleet, warm)
+        if failures:
+            raise CampaignFailure(failures)
+
+
+class FleetScenario(_ServingScenario):
+    """The WAL-backed serving fleet, and the home of the restart drill:
+    EVERY run, clean or crashed, ends with a planned teardown and a second
+    fleet recovering from the same `requests.wal`, so the replay path
+    runs as often as the serve path. Engine deaths (`fleet.engine_step`)
+    are absorbed by re-route; a whole-fleet crash (`serve.step` raise,
+    both engines dead, or an exhausted WAL append) flows into the
+    restart. Oracles: every accepted request's final stream token-exact
+    against `generate()`, at-least-once with EXACT dedup (the raw log
+    holds one completion record per uid), the post-recovery probe uid
+    above every logged uid, pool conservation, and nothing built or
+    captured after each fleet build's own warm-up."""
 
     name = "fleet"
-    todo = TODO_FLEET
+    REQUESTS, MAX_NEW, PROMPT_SEED = 6, 6, 13
+    PROBE = True
 
     def sites(self):
         return {
@@ -415,6 +493,171 @@ class FleetScenario(_WaitingScenario):
             injector.fail_at(spec.site, call=spec.call, times=spec.times)
         else:
             super().arm(injector, spec)
+
+    def execute(self, run_dir, corrupt=(), calibrate=False):
+        from ..serve.fleet.wal import WAL_NAME, RequestWAL
+        from ..xp import FLEET_STATUS_NAME
+
+        self.prepare()
+        if calibrate:
+            logger.info("campaign: scenario %r runs on %s", self.name,
+                        self.device)
+        model, everything, wants = self._ensure_built()
+        prompts, probe = everything[:-1], everything[-1]
+        run_dir = Path(run_dir)
+        wal_path = run_dir / WAL_NAME
+        lengths = sorted({n for p in everything
+                          for n in range(len(p),
+                                         len(p) + self.MAX_NEW + 1)})
+
+        def build_fleet():
+            return self._build_fleet(model, 2, wal=RequestWAL(wal_path))
+
+        failures: tp.List[str] = []
+        fleet = build_fleet()
+        fleet.warmup(prompt_lengths=lengths)
+        warm = dict(next(iter(fleet.members.values())).engine
+                    .compile_cache.stats())
+
+        accepted: tp.Dict[int, int] = {}  # uid -> prompt index
+        shed = 0
+        crashed = None
+        try:
+            for i, prompt in enumerate(prompts):
+                try:
+                    handle = fleet.submit(prompt, self.MAX_NEW)
+                    accepted[handle.uid] = i
+                except chaos.InjectedFault:
+                    shed += 1  # admission journaling failed: rolled back
+            fleet.run()
+        except chaos.InjectedFault as exc:
+            crashed = f"injected fleet crash: {exc}"
+        except RuntimeError as exc:
+            if "no healthy members" not in str(exc):
+                raise
+            crashed = f"all engines dead: {exc}"
+        fleet.wal.close()
+        if crashed:
+            logger.info("campaign: fleet crashed (%s); restarting from "
+                        "the WAL", crashed)
+        else:
+            for member in fleet.members.values():
+                if not member.healthy:
+                    continue
+                try:
+                    member.engine.pool.check()
+                except AssertionError as exc:
+                    self._check(failures, False,
+                                f"pool conservation (pre-restart): {exc}")
+            self._compile_free(failures, fleet, warm, "first build ")
+
+        # on-disk corruption: tear the WAL tail as a mid-write SIGKILL
+        # does (a partial record, no newline)
+        for spec in corrupt:
+            if spec.site == "fleet.wal_append" and wal_path.exists():
+                with open(wal_path, "a", encoding="utf-8") as f:
+                    f.write('{"t": "progress", "uid": 0, "n"')
+                logger.info("campaign: tore the WAL tail mid-record")
+
+        # ---- planned restart: the durable-WAL gate of EVERY run ------
+        fleet2 = build_fleet()
+        fleet2.warmup(prompt_lengths=lengths)
+        warm2 = dict(next(iter(fleet2.members.values())).engine
+                     .compile_cache.stats())
+        rec = call_with_retry(fleet2.recover_from_wal,
+                              name="fleet.wal_replay", retry_on=(OSError,),
+                              attempts=3, base_delay=0.01, deadline=10.0)
+        fleet2.run()  # re-serves everything logged but incomplete
+        logged = set(rec["recovered"]) | set(rec["completed"])
+        probe_handle = fleet2.submit(probe, self.MAX_NEW)
+        fleet2.run()
+        if logged:
+            self._check(failures, probe_handle.uid > max(logged),
+                        f"post-recovery uid {probe_handle.uid} collides "
+                        f"with the journaled range (max {max(logged)})")
+        call_with_retry(fleet2.write_status, str(run_dir),
+                        name="fleet.status", retry_on=(OSError,),
+                        attempts=3, base_delay=0.01, deadline=10.0)
+        with open(run_dir / FLEET_STATUS_NAME, encoding="utf-8") as f:
+            json.load(f)  # must parse: never torn, self-healing
+        fleet2.wal.close()
+
+        # ---- oracles -------------------------------------------------
+        self._check(failures, len(accepted) + shed == len(prompts),
+                    "accepted + shed does not account for every submit")
+        for uid, i in sorted(accepted.items()):
+            if uid in rec["completed"]:
+                got = np.concatenate([
+                    prompts[i],
+                    np.asarray(rec["completed"][uid].generated, np.int32)])
+            elif uid in rec["recovered"]:
+                request = rec["recovered"][uid]
+                self._check(failures, request.done,
+                            f"request {uid} still unfinished after "
+                            f"recovery")
+                got = np.asarray(request.output)
+            else:
+                self._check(failures, False,
+                            f"acked request {uid} vanished across the "
+                            f"restart (at-least-once broken)")
+                continue
+            self._check(failures, np.array_equal(got, wants[i]),
+                        f"request {uid} not re-served token-exactly "
+                        f"after the restart")
+        self._check(failures,
+                    np.array_equal(np.asarray(probe_handle.output),
+                                   wants[-1]),
+                    "post-recovery probe request not token-exact")
+
+        completes: tp.Dict[int, int] = {}
+        with open(wal_path, encoding="utf-8") as f:
+            for line in f:
+                try:
+                    record = json.loads(line)
+                except json.JSONDecodeError:
+                    break
+                if record.get("t") == "complete":
+                    uid = record["uid"]
+                    completes[uid] = completes.get(uid, 0) + 1
+        doubles = {u: c for u, c in completes.items() if c != 1}
+        self._check(failures, not doubles,
+                    f"dedup broken: uids with != 1 completion record in "
+                    f"the raw log: {doubles}")
+        missing = [u for u in list(accepted) + [probe_handle.uid]
+                   if u not in completes]
+        self._check(failures, not missing,
+                    f"acked uids with NO completion record: {missing}")
+
+        for member in fleet2.members.values():
+            try:
+                member.engine.pool.check()
+            except AssertionError as exc:
+                self._check(failures, False,
+                            f"pool conservation (post-restart): {exc}")
+        self._compile_free(failures, fleet2, warm2, "restart ")
+        if failures:
+            raise CampaignFailure(failures)
+
+
+TODO_PARALLEL = ("ROADMAP.md queue A item 8 (parallelism beyond data "
+                 "parallel: the pipeline schedules and tensor parallelism)")
+TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
+                "item 5's processes and collectives are ported, item 8's "
+                "state sharding is not)")
+
+
+class _WaitingScenario(Scenario):
+    """A scenario whose workload the port does not run yet: its sites are
+    declared (the coverage universe and `static_coverage()` see them),
+    and `execute()` raises NotImplementedError naming `todo`, the
+    ROADMAP entry that brings the workload."""
+
+    todo = ""
+
+    def execute(self, run_dir, corrupt=(), calibrate=False):
+        raise NotImplementedError(
+            f"the campaign's {self.name!r} scenario is not ported yet: "
+            f"{self.todo}")
 
 
 class PipelineScenario(_WaitingScenario):
@@ -456,10 +699,11 @@ class ElasticScenario(_WaitingScenario):
 
 def builtin_scenarios(device: tp.Any = None) -> tp.List[Scenario]:
     """All scenario adapters, cheapest first (construction is lazy and
-    touches no device). `device` is the datapipe scenario's (default:
-    `cuda`; `prepare()` raises when no card is present)."""
-    return [TrainScenario(), DatapipeScenario(device), ServeScenario(),
-            FleetScenario(), PipelineScenario(), TensorScenario(),
+    touches no device). `device` is the datapipe, serve and fleet
+    scenarios' (default: `cuda`; `prepare()` raises when no card is
+    present)."""
+    return [TrainScenario(), DatapipeScenario(device), ServeScenario(device),
+            FleetScenario(device), PipelineScenario(), TensorScenario(),
             ElasticScenario()]
 
 
@@ -488,15 +732,31 @@ def static_coverage() -> tp.Dict[str, tp.Dict[str, tp.Tuple[str, ...]]]:
 
 @contextlib.contextmanager
 def _defect_wal_skip_dedup():
-    """Seeded bug: the request WAL's replay 'forgets' completion records,
-    so recovery re-admits finished requests and the raw log grows a
-    second completion per uid (the failure the fleet scenario's dedup
-    oracle exists for). The WAL is the fleet's: applying it raises until
-    item 10 ports `serve/fleet/`."""
-    raise NotImplementedError(
-        f"the seeded defect 'wal_skip_dedup' patches the fleet's request "
-        f"WAL, which is not ported yet: {TODO_FLEET}")
-    yield  # pragma: no cover - a generator for contextmanager
+    """Seeded bug: replay 'forgets' completion records (and drops the
+    last token of every stream), so recovery re-admits finished requests
+    and the raw log grows a second completion per uid: the failure the
+    fleet scenario's dedup oracle exists for."""
+    from ..serve.fleet import wal as wal_mod
+    original = wal_mod.RequestWAL.replay
+
+    def broken(self):
+        entries = original(self)
+        for entry in entries.values():
+            entry.complete = False
+            entry.finish_reason = None
+            entry.complete_records = 0
+            if entry.generated:
+                entry.generated = entry.generated[:-1]
+        self._completed.clear()
+        for uid, entry in entries.items():
+            self._marks[uid] = len(entry.generated)
+        return entries
+
+    wal_mod.RequestWAL.replay = broken
+    try:
+        yield
+    finally:
+        wal_mod.RequestWAL.replay = original
 
 
 DEFECTS: tp.Dict[str, tp.Callable[[], tp.ContextManager]] = {
@@ -741,7 +1001,7 @@ def run_campaign(seed: int = 0, budget: tp.Optional[int] = None,
     Scenarios the port does not run yet raise NotImplementedError
     before anything runs, naming their ROADMAP entries; so does the full
     sweep (`scenarios=None`), which includes them. `device` is the
-    datapipe scenario's.
+    datapipe, serve and fleet scenarios'.
     """
     from ..analysis.registry import FAULT_SITES, FAULT_SITE_PREFIXES
 

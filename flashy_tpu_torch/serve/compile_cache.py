@@ -19,6 +19,15 @@ tensor arguments are not those tensors (the same storage, shape and
 dtype) raises, and nothing is ever captured again. A replay's outputs
 are the graph's static tensors, overwritten by the next replay.
 
+An entry therefore belongs to the object that built it: on CUDA a graph
+over that engine's buffers, on the CPU a closure over its cache and
+generator. Where an XLA executable is a pure function of its arguments
+and may serve any engine, an entry here may not: `get` and `warm` take
+the caller as `owner`, and an existing key built for another owner
+raises (on the CPU too, where a silent hit would read the first engine's
+pool). Engines that share a cache need scopes of their own, and a
+rebuilt engine needs a fresh cache or fresh scopes.
+
 The kernel wrappers count their launches in Python, which a replay does
 not run: the cache records each graph's launch-count deltas at capture
 (taking them back out, since the capture launched nothing) and adds them
@@ -45,6 +54,7 @@ import gc
 import logging
 import time
 import typing as tp
+import weakref
 
 import torch
 
@@ -237,6 +247,7 @@ class CompileCache:
         self.misses = 0
         self.sealed = False
         self._fns: tp.Dict[Key, tp.Callable] = {}
+        self._owners: tp.Dict[Key, tp.Any] = {}  # key -> weakref of owner
 
     def __contains__(self, key: Key) -> bool:
         return key in self._fns
@@ -266,11 +277,23 @@ class CompileCache:
         self.watchdog.note_compile(name, describe_abstract(args, {}),
                                    warmup=0 if self.sealed else None)
 
-    def get(self, key: Key, build: tp.Callable[[], tp.Callable]
-            ) -> tp.Callable:
-        """The entry under `key`; built from `build()` on first use."""
+    def get(self, key: Key, build: tp.Callable[[], tp.Callable],
+            owner: tp.Any = None) -> tp.Callable:
+        """The entry under `key`; built from `build()` on first use. With
+        an `owner` (the engine whose buffers the step reads) the entry is
+        bound to it: a later `get` of the key by another owner raises
+        ValueError instead of returning a step over someone else's
+        buffers."""
         fn = self._fns.get(key)
         if fn is not None:
+            if owner is not None:
+                ref = self._owners.get(key)
+                if ref is None or ref() is not owner:
+                    raise ValueError(
+                        f"compile cache entry {self._name(key)} was built "
+                        f"for another engine: an entry reads the buffers "
+                        f"of the engine that built it; give this engine a "
+                        f"cache_scope of its own or a fresh CompileCache")
             self.hits += 1
             return fn
         self.misses += 1
@@ -285,6 +308,8 @@ class CompileCache:
         if not self.graphs:
             self._ready(name)
         self._fns[key] = fn
+        if owner is not None:
+            self._owners[key] = weakref.ref(owner)
         logger.debug("compile cache miss: built %s", name)
         if self.tracer is not None:
             self.tracer.instant(f"compile_cache/miss/{name}",
@@ -294,10 +319,10 @@ class CompileCache:
         return fn
 
     def warm(self, key: Key, build: tp.Callable[[], tp.Callable],
-             *args: tp.Any) -> tp.Any:
+             *args: tp.Any, owner: tp.Any = None) -> tp.Any:
         """Register `key` and run it once on `args` (on CUDA: the eager
-        run and the capture)."""
-        fn = self.get(key, build)
+        run and the capture); `owner` as in `get`."""
+        fn = self.get(key, build, owner=owner)
         if self.tracer is not None:
             with self.tracer.span(f"compile_cache/warm/{self._name(key)}",
                                   category="serve"):

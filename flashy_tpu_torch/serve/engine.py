@@ -40,6 +40,13 @@ slot: a slice gathers the slot's rows of every cache leaf with
 `index_select` and scatters them back with `index_copy_`. On the CPU the
 same steps run eagerly.
 
+Paged engines may share one pool (`pool=`, `cache_box=`,
+`pool_slot_base=`): the disaggregated handoff of `serve.fleet` moves a
+request between them as a block list (`release_for_handoff`,
+`adopt_handoff`), every write to the engine's per-slot state in place,
+since its graphs read those tensors. A compile-cache entry belongs to
+the engine that built it (`serve.compile_cache`).
+
 With a tracer (`tracer=`, or the process-wide telemetry's) the engine
 drops an instant at each admission and a span around each prefill,
 prefill slice, decode and verify step (`serve/admit`, `serve/prefill`,
@@ -218,11 +225,26 @@ class DecodeEngine:
             paged read: 'fused' raises there and 'auto' reads 'gather'
             (the ssd scan kernel follows `config.ssd_kernel`).
         prefix_cache: enable cross-request prefix sharing (paged).
+        pool: a `BlockPool` to share with other paged engines (the
+            disaggregated handoff, `serve.fleet.DisaggregatedPair`): its
+            block size and `max_seq_len` must be this engine's, and its
+            verify overshoot cover `spec_k`. None builds a private pool.
+        cache_box: the `CacheBox` holding the shared pool's device
+            tensors (requires `pool`): an empty box is filled by this
+            engine, a filled one is read as it is, so every engine over
+            the pool reads and writes the same tensors (and its graphs
+            capture them).
+        pool_slot_base: this engine's offset in the shared pool's
+            reservation keys (`pool_key(slot) = slot + pool_slot_base`):
+            engines over one pool keep disjoint key ranges.
         cache_scope: prefix of this engine's compile-cache keys, so that
-            two engines (a draft mirror and its target) can share one
-            CompileCache. A shared cache counts every entry made ready
-            after its `seal()` as a recompile: warm the engines that
-            share it before the last `warmup()` seals it.
+            two engines (a draft mirror and its target, a fleet's
+            members) can share one CompileCache; an entry belongs to the
+            engine that built it, and another engine asking for its key
+            raises. A shared cache counts every entry made ready after
+            its `seal()` as a recompile: warm every engine that shares it
+            with `warmup(seal=False)` before one seals it (as
+            `ServingFleet.warmup` does).
         compile_cache: the CompileCache to keep the steps in; by default
             a private one on the engine's device, reporting to the active
             telemetry's watchdog, tracer and (when enabled) roofline
@@ -256,6 +278,9 @@ class DecodeEngine:
                  kv_dtype: str = "model",
                  kernel: str = "auto",
                  prefix_cache: bool = True,
+                 pool: tp.Optional[BlockPool] = None,
+                 cache_box: tp.Optional[CacheBox] = None,
+                 pool_slot_base: int = 0,
                  cache_scope: str = "",
                  compile_cache: tp.Optional[CompileCache] = None,
                  tracer: tp.Any = None,
@@ -370,20 +395,62 @@ class DecodeEngine:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         self.allocator = SlotAllocator(slots)
         self._params = decode_params(model, params=params)
+        if pool_slot_base < 0:
+            raise ValueError(f"pool_slot_base must be >= 0, "
+                             f"got {pool_slot_base}")
+        if cache_layout != "paged" and (pool is not None
+                                        or cache_box is not None
+                                        or pool_slot_base):
+            raise ValueError("pool / cache_box / pool_slot_base are "
+                             "paged-layout sharing hooks; the "
+                             f"{cache_layout} layout has no block pool to "
+                             "share")
+        self._pool_base = int(pool_slot_base)
         self._pool: tp.Optional[BlockPool] = None
         if cache_layout == "paged":
-            if num_blocks is None:
-                num_blocks = 1 + slots * (self.max_seq_len
-                                          // self.block_size)
-            self.num_blocks = int(num_blocks)
-            self._pool = BlockPool(num_blocks=self.num_blocks,
-                                   block_size=self.block_size,
-                                   max_seq_len=self.max_seq_len,
-                                   spec_overshoot=self.spec_k or 0,
-                                   prefix_cache=prefix_cache)
-            self._cache_box = CacheBox(init_pool(
-                cfg, self.num_blocks, self.block_size, kv_dtype,
-                device=self.device))
+            if pool is not None:
+                if pool.block_size != self.block_size:
+                    raise ValueError(
+                        f"shared pool has block_size {pool.block_size}, "
+                        f"engine wants {self.block_size}")
+                if pool.max_seq_len != self.max_seq_len:
+                    raise ValueError(
+                        f"shared pool has max_seq_len {pool.max_seq_len}, "
+                        f"engine wants {self.max_seq_len}: table widths "
+                        f"would disagree")
+                if self.spec_k and pool.spec_overshoot < self.spec_k:
+                    raise ValueError(
+                        f"shared pool reserves spec_overshoot="
+                        f"{pool.spec_overshoot} < this engine's spec_k="
+                        f"{self.spec_k}: verify writes would overrun "
+                        f"reservations")
+                if num_blocks is not None \
+                        and int(num_blocks) != pool.num_blocks:
+                    raise ValueError(
+                        f"num_blocks={num_blocks} contradicts the shared "
+                        f"pool's {pool.num_blocks}")
+                self._pool = pool
+                self.num_blocks = pool.num_blocks
+            else:
+                if cache_box is not None:
+                    raise ValueError("cache_box sharing requires a shared "
+                                     "pool (the box holds that pool's "
+                                     "device blocks)")
+                if num_blocks is None:
+                    num_blocks = 1 + slots * (self.max_seq_len
+                                              // self.block_size)
+                self.num_blocks = int(num_blocks)
+                self._pool = BlockPool(num_blocks=self.num_blocks,
+                                       block_size=self.block_size,
+                                       max_seq_len=self.max_seq_len,
+                                       spec_overshoot=self.spec_k or 0,
+                                       prefix_cache=prefix_cache)
+            self._cache_box = cache_box if cache_box is not None \
+                else CacheBox()
+            if self._cache_box.value is None:
+                self._cache_box.value = init_pool(
+                    cfg, self.num_blocks, self.block_size, kv_dtype,
+                    device=self.device)
             self._block_bytes = block_bytes(cfg, self.block_size, kv_dtype)
             self._table_host = np.zeros((slots, self._pool.max_blocks),
                                         np.int32)
@@ -488,7 +555,14 @@ class DecodeEngine:
 
     @property
     def cache_box(self) -> CacheBox:
+        """The CacheBox holding the device cache (share it, with `pool`,
+        with a second paged engine for the disaggregated handoff)."""
         return self._cache_box
+
+    def pool_key(self, slot: int) -> int:
+        """The BlockPool reservation key of an engine slot: `slot +
+        pool_slot_base`, disjoint across engines sharing one pool."""
+        return slot + self._pool_base
 
     def _table(self) -> torch.Tensor:
         """Device copy of the block tables, refreshed in place only after
@@ -673,7 +747,8 @@ class DecodeEngine:
         return args if self._pool is None else args + (self._table(),)
 
     @torch.no_grad()
-    def warmup(self, prompt_lengths: tp.Iterable[int] = ()) -> None:
+    def warmup(self, prompt_lengths: tp.Iterable[int] = (),
+               seal: bool = True) -> None:
         """Warm every step live traffic can touch, on scratch inputs over
         parked slots (their writes are dropped or land in the sentinel
         block; a prefill's scratch rows land in slot 0, which a real
@@ -683,7 +758,9 @@ class DecodeEngine:
         and, paged, the copy-on-write block copy (sentinel onto
         sentinel). On CUDA each is built, run once and captured as a CUDA
         graph; then the compile cache is sealed, so any later capture
-        counts as a recompile. Call before admitting requests."""
+        counts as a recompile. `seal=False` leaves it open for the other
+        engines that share it (the last one's warm-up, or the caller,
+        seals it). Call before admitting requests."""
         if self.allocator.live_count:
             raise ValueError("warmup() runs before any slot is live")
         cache = self.compile_cache
@@ -698,7 +775,7 @@ class DecodeEngine:
                 bufs["fresh"].fill_(True)
             cache.warm(self._key("prefill_chunk", size),
                        lambda: self._build_prefill_chunk(size),
-                       *bufs.values())
+                       *bufs.values(), owner=self)
         if self.chunk is None:
             buckets = {self.min_bucket}
             buckets.update(self.bucket_for(n) for n in prompt_lengths)
@@ -709,21 +786,22 @@ class DecodeEngine:
                 bufs["slot"].zero_()
                 cache.warm(self._key("prefill", bucket),
                            lambda: self._build_prefill(bucket),
-                           *bufs.values())
+                           *bufs.values(), owner=self)
         cache.warm(self._key("decode", self.slots), self._build_decode,
-                   *self._decode_args())
+                   *self._decode_args(), owner=self)
         if self.spec_k is not None:
             self._draft_buffer(self.spec_k).fill_(self.pad_token)
             cache.warm(self._key("verify", self.slots, self.spec_k),
                        lambda: self._build_verify(self.spec_k),
-                       *self._verify_args(self.spec_k))
+                       *self._verify_args(self.spec_k), owner=self)
         if self._pool is not None:
             self._copy_blocks.zero_()
             cache.warm(self._key("copy_block"), self._build_copy,
-                       self._copy_blocks)
+                       self._copy_blocks, owner=self)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        cache.seal()
+        if seal:
+            cache.seal()
         self._reset_slot_state()
         logger.info("serve warm-up done (kernel=%s): %d steps (%s)",
                     self.kernel, len(cache),
@@ -761,14 +839,15 @@ class DecodeEngine:
             return 0
         prompt = np.asarray(prompt, np.int32)
         plan = self._pool.plan(prompt, max_new_tokens)
-        row, start, cow = self._pool.commit(plan, slot)
+        row, start, cow = self._pool.commit(plan, self.pool_key(slot))
         self._table_host[slot] = row
         self._table_dirty = True
         if cow is not None:
             self._copy_blocks.copy_(torch.tensor(cow)[:, None])
             with torch.no_grad():
                 self.compile_cache.get(self._key("copy_block"),
-                                       self._build_copy)(self._copy_blocks)
+                                       self._build_copy,
+                                       owner=self)(self._copy_blocks)
         if self.tracer is not None:
             self.tracer.instant(SPAN_ADMIT, category="serve", slot=slot,
                                 matched=start, prompt=int(prompt.size),
@@ -838,7 +917,8 @@ class DecodeEngine:
         bufs["length"].fill_(length)
         bufs["slot"].fill_(slot)
         step = self.compile_cache.get(self._key("prefill", bucket),
-                                      lambda: self._build_prefill(bucket))
+                                      lambda: self._build_prefill(bucket),
+                                      owner=self)
         with self._span(SPAN_PREFILL, slot=slot, bucket=bucket,
                         length=length):
             logits = step(*bufs.values())
@@ -891,7 +971,7 @@ class DecodeEngine:
                 self._table_host[slot:slot + 1]))
         step = self.compile_cache.get(
             self._key("prefill_chunk", size),
-            lambda: self._build_prefill_chunk(size))
+            lambda: self._build_prefill_chunk(size), owner=self)
         with self._span(SPAN_PREFILL_CHUNK, slot=slot, size=size,
                         offset=start, length=length):
             logits = step(*bufs.values())
@@ -904,7 +984,7 @@ class DecodeEngine:
             return start + used, None
         if self._pool is not None:
             # prompt fully written: index its full blocks for sharing
-            self._pool.on_live(slot)
+            self._pool.on_live(self.pool_key(slot))
         self._set_slot(slot, first, length, True)
         return start + used, first
 
@@ -913,7 +993,7 @@ class DecodeEngine:
         """One [S, 1] decode step over every slot; returns the [S] next
         tokens (pad_token on inactive slots)."""
         step = self.compile_cache.get(self._key("decode", self.slots),
-                                      self._build_decode)
+                                      self._build_decode, owner=self)
         with self._span(SPAN_DECODE, live=self.allocator.live_count):
             tokens = step(*self._decode_args())
             # a copy: on the CPU `.cpu()` returns the step's own buffer
@@ -950,7 +1030,8 @@ class DecodeEngine:
         k = int(drafts.shape[1])
         self._draft_buffer(k).copy_(torch.from_numpy(drafts))
         step = self.compile_cache.get(self._key("verify", self.slots, k),
-                                      lambda: self._build_verify(k))
+                                      lambda: self._build_verify(k),
+                                      owner=self)
         with self._span(SPAN_VERIFY, k=k, live=self.allocator.live_count):
             out, accepted = step(*self._verify_args(k))
             both = torch.cat([out, accepted[:, None]], dim=1).cpu().numpy()
@@ -989,8 +1070,8 @@ class DecodeEngine:
         sentinel) and drop its block refcounts; prompt blocks the prefix
         index caches stay resident for later admissions."""
         self._park(slot)
-        if self._pool is not None and self._pool.holds(slot):
-            self._pool.release(slot)
+        if self._pool is not None and self._pool.holds(self.pool_key(slot)):
+            self._pool.release(self.pool_key(slot))
             self._table_host[slot] = 0
             self._table_dirty = True
         self.allocator.release(slot)
@@ -1002,11 +1083,75 @@ class DecodeEngine:
         if slot not in self.allocator.live:
             raise ValueError(f"slot {slot} is not live")
         self._park(slot)
-        if self._pool is not None and self._pool.holds(slot):
-            self._pool.evict_slot(slot)
+        if self._pool is not None and self._pool.holds(self.pool_key(slot)):
+            self._pool.evict_slot(self.pool_key(slot))
             self._table_host[slot] = 0
             self._table_dirty = True
         self.allocator.release(slot)
+
+    def release_for_handoff(self, slot: int) -> tp.Dict[str, tp.Any]:
+        """Export a live slot's decode state and detach the slot WITHOUT
+        freeing its pool blocks (the prefill half of disaggregation).
+
+        Returns `{"blocks", "position", "last_token"}`: the ordered pool
+        blocks behind the slot's table, the next write position (prompt +
+        generated length) and the last emitted token, which is all an
+        engine over the SAME pool and CacheBox needs to continue the
+        request token-exactly. The reservation stays keyed to
+        `pool_key(slot)` until the importer re-keys it
+        (`BlockPool.transfer_slot`); the slot is parked (in place: the
+        graphs read these tensors) and returned to the allocator. Paged
+        engines only.
+        """
+        if self._pool is None:
+            raise ValueError("handoff requires the paged layout: the "
+                             "transfer unit is a block id list")
+        if slot not in self.allocator.live or not self._active_host[slot]:
+            raise ValueError(f"slot {slot} is not live")
+        packet = {
+            "blocks": self._pool.slot_blocks(self.pool_key(slot)),
+            "position": int(self._positions_host[slot]),
+            "last_token": int(self._tokens[slot]),
+        }
+        self._park(slot)
+        self._table_host[slot] = 0
+        self._table_dirty = True
+        self.allocator.release(slot)
+        return packet
+
+    def adopt_handoff(self, slot: int, blocks: tp.Sequence[int],
+                      last_token: int, position: int) -> None:
+        """Install an exported reservation into an acquired slot (the
+        decode half of disaggregation): the slot's table row becomes the
+        handed-off block list (refreshed on device through the dirty
+        table) and the slot is armed at (`last_token`, `position`), in
+        place, so the next decode step continues where the exporting
+        engine stopped. The reservation must already be keyed to
+        `pool_key(slot)` (`BlockPool.transfer_slot`; the fleet's
+        `hand_off` does both halves in order). Token-exact: the blocks
+        hold K/V rows that are pure functions of (token, position,
+        weights), and this engine shares all three.
+        """
+        if self._pool is None:
+            raise ValueError("handoff requires the paged layout")
+        if slot not in self.allocator.live:
+            raise ValueError(f"slot {slot} was not acquired")
+        if not self._pool.holds(self.pool_key(slot)):
+            raise ValueError(
+                f"pool holds no reservation keyed to {self.pool_key(slot)}"
+                f": transfer_slot() must re-key the export first")
+        if not 0 < position <= self.max_seq_len:
+            raise ValueError(f"position {position} outside "
+                             f"(0, {self.max_seq_len}]")
+        blocks = list(blocks)
+        if len(blocks) > self._pool.max_blocks:
+            raise ValueError(f"{len(blocks)} blocks exceed the "
+                             f"{self._pool.max_blocks}-entry table")
+        row = np.zeros(self._pool.max_blocks, np.int32)  # sentinel-padded
+        row[:len(blocks)] = blocks
+        self._table_host[slot] = row
+        self._table_dirty = True
+        self._set_slot(slot, int(last_token), int(position), True)
 
     @property
     def live_count(self) -> int:

@@ -41,8 +41,9 @@ class PoolExhausted(RuntimeError):
 
 class CacheBox:
     """One level of indirection over the device pool dict, so an engine
-    (and, later, engines sharing one pool) reads the pool through
-    `value` instead of holding the tensors itself."""
+    reads the pool through `value` instead of holding the tensors itself:
+    engines sharing one pool (`DecodeEngine(pool=, cache_box=)`) share
+    the box, and the first fills it."""
 
     __slots__ = ("value",)
 
@@ -239,6 +240,7 @@ class BlockPool:
         self.prefix_matched_tokens = 0
         self.prefix_total_tokens = 0
         self.preemptions = 0
+        self.handoffs = 0
 
     # ------------------------------------------------------------------
     # accounting views
@@ -447,9 +449,31 @@ class BlockPool:
         self.preemptions += 1
         return self.release(slot)
 
+    def transfer_slot(self, src: int, dst: int) -> tp.List[int]:
+        """Re-key a reservation from slot key `src` to `dst` (the
+        disaggregated prefill->decode handoff).
+
+        Refcounts, the prefix index and the device blocks are untouched:
+        ownership of the SAME block list moves between slot keys, so the
+        transfer unit is a block id list, never a K/V slab. Returns the
+        ordered block list now keyed to `dst`. Raises KeyError when `src`
+        holds no reservation and ValueError when `dst` already holds one.
+        """
+        if src not in self._slots:
+            raise KeyError(f"slot {src} holds no reservation to transfer")
+        if dst in self._slots:
+            raise ValueError(f"slot {dst} already holds a reservation")
+        self._slots[dst] = self._slots.pop(src)
+        self.handoffs += 1
+        return list(self._slots[dst][1])
+
     def holds(self, slot: int) -> bool:
         """Whether `slot` currently holds a reservation."""
         return slot in self._slots
+
+    def slot_blocks(self, slot: int) -> tp.List[int]:
+        """The ordered pool blocks backing a live slot's table."""
+        return list(self._slots[slot][1])
 
     # ------------------------------------------------------------------
     # invariants + stats
@@ -497,6 +521,7 @@ class BlockPool:
             "allocated_total": self.allocated_total,
             "prefix_hit_rate": self.prefix_hit_rate,
             "preemptions": self.preemptions,
+            "handoffs": self.handoffs,
         }
 
 

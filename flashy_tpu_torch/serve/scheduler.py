@@ -18,7 +18,9 @@ Every lifecycle transition is mirrored to an optional
 `serve.tracing.RequestTracer` (`tracing=`), and the decode step passes
 the `serve.step` fault point inside the window its inter-token latency
 measures, so an injected stall lands in the samples the SLO engine
-reads. The fleet's re-routing hooks come with ROADMAP.md queue A item 10.
+reads. The fleet (`serve/fleet/`) shares one uid source across its
+member schedulers (`uid_source=`) and re-routes through `enqueue`,
+`cancel_queued`, `advance_uids` and `drain_for_reroute`.
 """
 import collections
 import dataclasses
@@ -112,13 +114,18 @@ class ContinuousBatchingScheduler:
         tracing: a `serve.tracing.RequestTracer`; every request lifecycle
             transition is mirrored to it (async Perfetto spans and
             requests.jsonl), subject to its sampling.
+        uid_source: an iterator yielding request uids; by default each
+            scheduler counts privately from 0. A fleet passes ONE shared
+            `itertools.count` to every member scheduler, so uids stay
+            unique across engines (routing and re-routing key on them).
     """
 
     def __init__(self, engine: DecodeEngine, max_queue: int = 128,
                  metrics: tp.Optional[ServeMetrics] = None,
                  draft: tp.Optional[tp.Any] = None,
                  prefill_chunks_per_step: int = 1,
-                 tracing: tp.Optional[tp.Any] = None):
+                 tracing: tp.Optional[tp.Any] = None,
+                 uid_source: tp.Optional[tp.Iterator[int]] = None):
         self.engine = engine
         self.max_queue = max_queue
         self.metrics = metrics or ServeMetrics(tracer=engine.tracer)
@@ -146,7 +153,8 @@ class ContinuousBatchingScheduler:
         # insertion order == FIFO
         self._prefilling: tp.Dict[int, tp.List[tp.Any]] = {}
         self._draft_slots: tp.Set[int] = set()  # slots the draft tracks
-        self._uid = itertools.count()
+        self._uid = uid_source if uid_source is not None \
+            else itertools.count()
         self.admitted_order: tp.List[int] = []  # uids, admission sequence
         self.prefill_tokens_last_step = 0
         self.max_prefill_tokens_per_step = 0
@@ -318,6 +326,60 @@ class ContinuousBatchingScheduler:
         logger.debug("request %d preempted with %d tokens generated",
                      request.uid, len(request.generated))
         return request
+
+    def enqueue(self, request: Request, front: bool = False) -> None:
+        """Re-inject an existing Request (no new uid, no submit metrics):
+        the re-route path after an engine death and WAL recovery. The
+        depth cap is NOT applied: these requests were admitted once and
+        must not be dropped by the door."""
+        request.state = "queued"
+        request.slot = None
+        if front:
+            self._queue.appendleft(request)
+        else:
+            self._queue.append(request)
+
+    def cancel_queued(self, uid: int) -> Request:
+        """Remove a still-queued request by uid and return it: the
+        admission rollback when the fleet door's WAL append exhausts its
+        retries (an unacknowledged request leaves the queue rather than
+        run unlogged). Raises ValueError once it left the queue."""
+        for i, request in enumerate(self._queue):
+            if request.uid == uid:
+                del self._queue[i]
+                return request
+        raise ValueError(f"request {uid} is not in the admission queue "
+                         f"(already admitted, finished, or never here)")
+
+    def advance_uids(self, beyond: int) -> None:
+        """Fast-forward the uid source past `beyond` (inclusive): WAL
+        recovery re-admits requests under their original uids, so a
+        freshly built fleet's next submit must not collide with one.
+        Draws and discards values (uniqueness, not density, is the
+        contract)."""
+        while next(self._uid) < beyond:
+            pass
+
+    def drain_for_reroute(self) -> tp.List[Request]:
+        """Pull every unfinished request out of this scheduler without
+        touching the engine (presumed dead: no retire or release against
+        it). Requests come back 'queued' with their generated tokens kept,
+        running and prefilling first by uid, then the queue in order;
+        re-admission elsewhere prefills `resume_prompt`, which re-derives
+        the lost K/V exactly."""
+        in_flight = sorted(
+            list(self._running.values())
+            + [entry[0] for entry in self._prefilling.values()],
+            key=lambda r: r.uid)
+        requests = in_flight + list(self._queue)
+        self._queue.clear()
+        self._running.clear()
+        self._prefilling.clear()
+        self._draft_slots.clear()
+        for request in requests:
+            request.state = "queued"
+            request.slot = None
+        return requests
 
     def _admit(self) -> int:
         """Assign queued requests to free slots and advance prefill;

@@ -45,6 +45,9 @@ HEARTBEAT_DIR_NAME = "heartbeats"
 SERVE_STATUS_NAME = "serve.json"
 # Per-request lifecycle journal (serve.tracing.RequestTracer).
 REQUESTS_NAME = "requests.jsonl"
+# Fleet topology snapshot (serve.fleet.ServingFleet.write_status): its
+# engines, their roles, health, occupancy and per-engine SLO burn.
+FLEET_STATUS_NAME = "fleet.json"
 
 
 class Config(dict):

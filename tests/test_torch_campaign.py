@@ -3,9 +3,10 @@
 # schedules (base and extra) equal for the same seed and counts, ddmin's
 # results, the static coverage and the registry copy equal; the
 # scenarios the port does not run yet raise naming their ROADMAP items;
-# the train and datapipe campaigns pass on the CPU (each a few seconds,
-# so neither is marked slow); a seeded defect is caught, shrunk to a
-# reproducer and replayed.
+# the train, datapipe, serve and fleet campaigns pass on the CPU (each a
+# few seconds, so none is marked slow); a seeded defect is caught, shrunk
+# to a reproducer and replayed, and the registered `wal_skip_dedup` is
+# caught by the fleet scenario's dedup oracle.
 import contextlib
 import json
 import random
@@ -116,8 +117,8 @@ def test_static_coverage_and_registry_equal_the_references():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("serve", "item 10"), ("fleet", "item 10"), ("pipeline", "item 8"),
-    ("tensor", "item 8"), ("elastic", "items 5 and 8")])
+    ("pipeline", "item 8"), ("tensor", "item 8"),
+    ("elastic", "items 5 and 8")])
 def test_waiting_scenarios_raise_naming_their_items(tmp_path, name, item):
     scenario = {s.name: s for s in campaign.builtin_scenarios()}[name]
     assert scenario.sites()
@@ -138,11 +139,18 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
                  lambda: main(["--campaign", "--dir", str(tmp_path)])):
         with pytest.raises(NotImplementedError) as exc:
             call()
-        for item in ("item 10", "item 8", "items 5 and 8"):
+        for item in ("item 8", "items 5 and 8"):
             assert item in str(exc.value)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        with campaign.apply_defect("wal_skip_dedup"):
-            pass
+        assert "item 10" not in str(exc.value)
+    # the seeded WAL defect patches the ported WAL, and the fleet
+    # scenario's dedup oracle catches it in the clean path
+    artifact = tmp_path / "repro.json"
+    assert run_campaign(seed=0, scenarios=["fleet"], defect="wal_skip_dedup",
+                        root=str(tmp_path / "defect"),
+                        artifact=str(artifact), device="cpu") == 1
+    payload = json.loads(artifact.read_text())
+    assert payload["defect"] == "wal_skip_dedup" and payload["faults"] == []
+    assert "dedup broken" in " ".join(payload["failure"])
     with pytest.raises(ValueError, match="unknown seeded defect"):
         with campaign.apply_defect("not_a_defect"):
             pass
@@ -150,10 +158,31 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
         run_campaign(scenarios=["train", "nope"], root=str(tmp_path))
 
 
-@pytest.mark.parametrize("scenario", ["train", "datapipe"])
+@pytest.mark.parametrize("scenario", ["train", "datapipe", "serve",
+                                      "fleet"])
 def test_campaign_passes_on_the_cpu(tmp_path, scenario):
     assert run_campaign(seed=0, scenarios=[scenario], root=str(tmp_path),
                         device="cpu") == 0
+
+
+@pytest.mark.parametrize("name,fault", [
+    ("serve", campaign.FaultSpec("serve.pool", "transient", call=2)),
+    ("fleet", campaign.FaultSpec("fleet.engine_step", "fatal", call=3,
+                                 times=2))])
+def test_serving_scenarios_recover_from_one_fault(tmp_path, name, fault):
+    # each scenario under one fault its sites() declare, as the campaign
+    # schedules it: a pool fault absorbed as backpressure; both fleet
+    # engines killed, the whole fleet recovered from its WAL
+    scenario = {s.name: s for s in campaign.builtin_scenarios("cpu")}[name]
+    assert fault.kind in scenario.sites()[fault.site]
+    assert fault.times == scenario.fault_times(fault.site, fault.kind)
+    failures, counts = campaign._run_schedule(
+        scenario, Schedule(name, 0, ()), tmp_path / "calibrate",
+        calibrate=True)
+    assert failures is None and counts[fault.site] >= fault.call
+    failures, counts = campaign._run_schedule(
+        scenario, Schedule(name, 0, (fault,)), tmp_path / "run")
+    assert failures is None
 
 
 def test_cli_runs_the_datapipe_campaign_by_default_device(tmp_path):

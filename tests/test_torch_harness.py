@@ -337,5 +337,35 @@ def test_info_parts_of_later_items_raise(tmp_path):
     assert info.main([str(tmp_path), "--slo"]) == 1
     with pytest.raises(NotImplementedError, match="item 9"):
         info.fault_site_report()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        info.format_fleet_status({"policy": "sticky"})
+
+
+def test_format_fleet_status_prints_the_references_line():
+    # a reference ServingFleet.status() snapshot (a death, a shed, an
+    # alerting engine) renders to the JAX `info` line, and so does an
+    # empty one
+    from flashy_tpu import info as ref_info
+    from flashy_tpu_torch import info
+    status = {
+        "engines": {
+            "engine0": {"role": "both", "healthy": False, "slots": 4,
+                        "live": 0, "occupancy": 0.0, "queue_depth": 0,
+                        "routed": 3, "pool_occupancy": 0.0,
+                        "prefix_hit_rate": 0.0, "slo_alerting": [],
+                        "slo_burn": {}},
+            "engine1": {"role": "decode", "healthy": True, "slots": 4,
+                        "live": 3, "occupancy": 0.75, "queue_depth": 1,
+                        "routed": 9, "pool_occupancy": 0.4375,
+                        "prefix_hit_rate": 0.3125,
+                        "slo_alerting": ["itl_p95"],
+                        "slo_burn": {"itl_p95": 3.5}}},
+        "policy": "sticky",
+        "tenants": {"batch": {"inflight": 2, "max_inflight": 2, "shed": 4},
+                    "default": {"inflight": 1, "max_inflight": 8,
+                                "shed": 0}},
+        "route_reasons": {"slo_redirect": 2, "sticky": 10},
+        "reroutes": 3, "deaths": ["engine0"]}
+    line = info.format_fleet_status(status)
+    assert line == ref_info.format_fleet_status(status)
+    assert "deaths[engine0]" in line and "SLO-ALERT[itl_p95]" in line
+    assert info.format_fleet_status({"policy": "round_robin"}) == \
+        ref_info.format_fleet_status({"policy": "round_robin"})
