@@ -405,8 +405,9 @@ timed):
              flashy_tpu_torch.info` (heartbeats) and
              `--slo` exit 0; then the step p50 without and with
              telemetry, in turns. The demo's `slo` leg runs in phase 9g.
- 35. train preempt  `train`'s model at full width and 4 of its 12
-             layers (what 35-38 check does not depend on depth; 2 train
+ 35. train preempt  `train`'s model at full width and 2 of its 12
+             layers (cut in depth only; what 35-38 check does not depend
+             on depth; 2 train
              steps and 1 valid a epoch, 3 epochs) through `LMSolver.run`
              with `enable_preemption_guard()` installed: two clean runs
              (their histories without wall-clock keys and every parameter
@@ -522,6 +523,28 @@ under a deadline, rendezvousing through a `file://` path:
              process on the same global batches; rows 1 and 4 launched 4 x steps on
              each rank; step p50, global tokens/s and the gradient
              all-reduce's share of a step (gloo through the host);
+ 45b. zero bench  queue A item 8a: `python -m
+             flashy_tpu_torch.parallel.zero --workers=2` at the 235M
+             layout's width and 2 layers, bf16 flash, global b16 t1024
+             (started beside phases 43-44): replicated (DDP), zero1 (`wrap(
+             state_sharding=zero_sharding(...))`) and fsdp (`wrap(fsdp=
+             True)`) in one start-up, four timed steps each: step p50,
+             each rank's optimizer bytes and peak memory, the collectives
+             a step; zero1's optimizer bytes a rank <= 0.55 of
+             replicated's, fsdp's peak a rank below replicated's, zero1's
+             all-gather bytes a step <= 1.5 x the params' bytes, zero1's
+             params within 1e-4 of replicated's (0 reported);
+ 45c. fsdp train  phase 45's run with `mesh.data=1 mesh.fsdp=2` and
+             `checkpoint_mode=sharded`: run A 2 epochs (beside phase 45's
+             run A), run B 1 epoch (beside phases 43-44) then resumed
+             from the slots in a second start-up (beside phase 45's run
+             B2): each rank's shards and the
+             full parameters bit-identical between A and the resumed B,
+             histories equal, A's history within 1e-4 relative of phase
+             45's run A (bit-equality reported), checkpoint_meta.json
+             `fsdp(fsdp=2)`, the slot holding every rank's file; rows 1
+             and 4 launched 4 x steps on each rank; step p50 and peak
+             memory a rank beside phase 45's;
  46. prefetch to device  `data.prefetch_to_device` over [16, 1024] int32
              batches on cuda:0: delivered batches bit-equal to the host's,
              an early stop rewinding a datapipe stage to the last batch
@@ -6033,11 +6056,11 @@ def phase_train_telemetry(torch, device, card, root, turns=2):
 # ----------------------------------------------------------------------
 # item 9's resilience half: preemption, slots, async saves, hangs
 # ----------------------------------------------------------------------
-# `train`'s width at 4 of its 12 layers: what the fault-tolerance phases
+# `train`'s width at 2 of its 12 layers: what the fault-tolerance phases
 # check (bit-identical resumes, slots, asynchronous commits, the abort's
 # latency) does not depend on depth, and at 12 layers the four phases took
-# 142.8-152.9 s of the script's limit (root PERF.md section 5)
-LAYERS = 4
+# 142.8-152.9 s of the script's limit, at 4 86.7-98.9 s (root PERF.md)
+LAYERS = 2
 FT_ARGS = [arg for arg in TRAIN_ARGS
            if not arg.startswith(("model.num_layers=", "steps_per_epoch=",
                                   "valid_steps="))
@@ -7364,6 +7387,9 @@ def dp_train_main(torch, argv):
     if "FLASHY_TPU_PROCESS_ID" not in os.environ:
         lm_main(argv)
         return
+    if "--dp-sharded" in argv:
+        from flashy_tpu_torch.examples.lm.solver import LMSolver
+        LMSolver.checkpoint_mode = "sharded"
     attention.reset_launch_counts()
     begin, main_at = time.perf_counter(), time.time()
     solver = lm_main(argv)
@@ -7379,9 +7405,17 @@ def dp_train_main(torch, argv):
               "step_losses": solver.step_losses,
               "ddp": type(solver.train_model).__name__,
               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    sharded = getattr(solver.model, "_sharded", None)
+    result["sharded"] = None if sharded is None else sharded.mode
     if "--dp-digest" in argv:
+        # a rank's own state: its shards under FSDP
         result["digest"] = state_digest(torch, solver_tensors(
             torch, solver.model, solver.optimizer))
+        if sharded is not None:
+            with solver.model.summon_full_params():
+                result["full_digest"] = state_digest(torch, [
+                    value for _, value in sorted(
+                        solver.model.state_dict().items())])
     if "--dp-time-all-reduce" in argv:
         # the gradient all-reduce's volume (every parameter's f32 grad)
         # alone, timed on every rank together
@@ -7550,17 +7584,22 @@ def dp_reference_loss(torch, device):
     return sum(losses) / len(losses)
 
 
-def phase_dp_train(torch, device, card, folder, b1):
+def phase_dp_train(torch, device, card, folder, b1, beside_a, beside_b2):
     """Phase 45: `main` with --workers=2 at full width on the card; `b1`
     is run B's first epoch, started in `folder`/b while `dp step` ran
-    (`start_dp_train_run`). Returns a rank's launches."""
+    (`start_dp_train_run`); `beside_a()` and `beside_b2()` start what
+    runs beside runs A and B2. Returns a rank's launches, run A's
+    history, step p50 and peaks, and what the two callbacks started."""
     from flashy_tpu_torch.utils import percentile
     a_dir, b_dir = Path(folder) / "a", Path(folder) / "b"
     run_b1, b1_seconds = finish_dp_train_run(b1)
-    run_a, a_seconds = finish_dp_train_run(start_dp_train_run(
-        a_dir, 2, "dp train A", "--dp-digest", "--dp-time-all-reduce"))
-    run_b2, b2_seconds = finish_dp_train_run(start_dp_train_run(
-        b_dir, 2, "dp train B2", "--dp-digest"))
+    started_a = start_dp_train_run(a_dir, 2, "dp train A", "--dp-digest",
+                                   "--dp-time-all-reduce")
+    beside = [beside_a()]
+    run_a, a_seconds = finish_dp_train_run(started_a)
+    started_b2 = start_dp_train_run(b_dir, 2, "dp train B2", "--dp-digest")
+    beside.append(beside_b2())
+    run_b2, b2_seconds = finish_dp_train_run(started_b2)
     print(f"dp train runs: wall A {a_seconds:.1f}, B1 {b1_seconds:.1f}, B2 "
           f"{b2_seconds:.1f} s; rank 0's seconds in main "
           f"{[round(r[0]['main_s'], 1) for r in (run_a, run_b1, run_b2)]}, "
@@ -7632,8 +7671,202 @@ def phase_dp_train(torch, device, card, folder, b1):
           f"{reduce_ms:.1f} ms = {reduce_ms / p50:.3f} of a step "
           f"({GLOO_LABEL});"
           f" peak {max(o['peak_gib'] for o in run_a):.1f} GiB a rank; runs "
-          f"A {a_seconds:.1f}, B1 {b1_seconds:.1f} (beside dp step), B2 "
-          f"{b2_seconds:.1f} s [{card}]", flush=True)
+          f"A {a_seconds:.1f} (beside fsdp train A), B1 {b1_seconds:.1f} "
+          f"(beside dp step), B2 {b2_seconds:.1f} s (beside fsdp train B2) "
+          f"[{card}]", flush=True)
+    summary = {"history": history_a, "p50": p50,
+               "peaks": [o["peak_gib"] for o in run_a]}
+    return run_a[0]["launches"], summary, beside
+
+
+# ----------------------------------------------------------------------
+# queue A item 8a: ZeRO-1 and FSDP over the process axes, two ranks on
+# the card (gloo through the host: every reduce-scatter and all-gather is
+# staged there, so these step times are that staging's, not NCCL's)
+# ----------------------------------------------------------------------
+ZERO_BENCH_ARGS = ["--workers=2", "--dim", "1024", "--layers",
+                   str(DP_LAYERS), "--heads", "16", "--vocab", "32768",
+                   "--seq", "1024", "--batch", "16", "--attention", "flash",
+                   "--dtype", "bfloat16", "--steps", "4"]
+FSDP_FLAGS = ("mesh.data=1", "mesh.fsdp=2", "--dp-sharded", "--dp-digest")
+
+
+def start_zero_bench(folder):
+    """Start `python -m flashy_tpu_torch.parallel.zero --workers=2` at
+    the 235M layout's width in `folder`; `phase_zero_bench` waits."""
+    Path(folder).mkdir(exist_ok=True)
+    path = Path(folder) / "zero.json"
+    argv = [sys.executable, "-m", "flashy_tpu_torch.parallel.zero",
+            *ZERO_BENCH_ARGS, "--json", str(path)]
+    started = start_sessions([(argv, dp_env(folder, "zero"))], folder, 300,
+                             "zero bench")
+    started.update(begin=time.perf_counter(), path=path)
+    return started
+
+
+def phase_zero_bench(card, started):
+    """Phase 45b: the three weight-update layouts over two ranks."""
+    finish_sessions(started)
+    seconds = time.perf_counter() - started["begin"]
+    record = json.loads(Path(started["path"]).read_text())
+    modes = ("replicated", "zero1", "fsdp")
+    opt, peak = record["opt_state_bytes_by_rank"], record["peak_bytes_by_rank"]
+    gathered = record["collectives"]["zero1"].get("all-gather", {})
+    problems = []
+    for rank in range(DP_RANKS):
+        if not opt["zero1"][rank] <= 0.55 * opt["replicated"][rank]:
+            problems.append(f"rank {rank}: zero1 optimizer bytes "
+                            f"{opt['zero1'][rank]:.0f} above 0.55 x "
+                            f"replicated's {opt['replicated'][rank]:.0f}")
+        if not peak["fsdp"][rank] < peak["replicated"][rank]:
+            problems.append(f"rank {rank}: fsdp peak {peak['fsdp'][rank]:.0f}"
+                            f" not below replicated's "
+                            f"{peak['replicated'][rank]:.0f}")
+    if not 0 < gathered.get("bytes", 0) <= 1.5 * record["params_bytes"]:
+        problems.append(f"zero1 all-gathers {gathered} a step against "
+                        f"{record['params_bytes']} params bytes (limit 1.5x)")
+    if not record["max_param_delta"] <= 1e-4:
+        problems.append(f"zero1 params {record['max_param_delta']:.2e} "
+                        f"from replicated's (limit 1e-4)")
+    if record["sharding"] != {"replicated": "replicated",
+                              "zero1": "zero1(data=2)",
+                              "fsdp": "fsdp(fsdp=2)"}:
+        problems.append(f"layouts {record['sharding']}")
+    if problems:
+        fail(f"zero bench: {problems}")
+    gib = 2 ** 30
+
+    def per_op(stats):
+        return {op: f"{e['count']}x {e['bytes'] / 2 ** 20:.1f} MiB"
+                for op, e in stats.items()}
+
+    print(f"zero bench: `python -m flashy_tpu_torch.parallel.zero "
+          f"--workers=2`, the 235M layout's width at {DP_LAYERS} layers, "
+          f"bf16 flash, global b16 t1024 (b8 a rank; beside dp "
+          f"collectives and dp step), 4 timed AdamW steps a layout in one "
+          f"start-up: step p50 ms "
+          f"{ {m: round(record['step_ms'][m], 2) for m in modes} }; "
+          f"optimizer MiB by rank "
+          f"{ {m: [round(b / 2 ** 20, 1) for b in opt[m]] for m in modes} }"
+          f" (zero1/replicated {record['opt_bytes_ratio_zero1']}, limit "
+          f"0.55); peak GiB by rank "
+          f"{ {m: [round(b / gib, 2) for b in peak[m]] for m in modes} } "
+          f"(fsdp below replicated); collectives a step "
+          f"{ {m: per_op(record['collectives'][m]) for m in modes} } "
+          f"(zero1's all-gather {gathered.get('bytes', 0) / 2 ** 20:.1f} MiB"
+          f" against {record['params_bytes'] / 2 ** 20:.1f} MiB of params, "
+          f"limit 1.5x); each collective alone at the params' f32 bytes "
+          f"{ {k: round(v, 1) for k, v in record['collective_ms'].items()} }"
+          f" ms; zero1 params against replicated "
+          f"{record['max_param_delta']:.2e} (limit 1e-4; "
+          f"{'bit-equal' if record['max_param_delta'] == 0 else 'not 0'}); "
+          f"layouts {record['sharding']}; {seconds:.1f} s with the spawn "
+          f"({GLOO_LABEL}) [{card}]", flush=True)
+    return record
+
+
+def start_fsdp_b1(folder):
+    """Run B's first epoch of `fsdp train` (`start_dp_train_run`)."""
+    return start_dp_train_run(Path(folder) / "fsdp-b", 1, "fsdp train B1",
+                              *FSDP_FLAGS)
+
+
+def start_fsdp_b2(folder, b1):
+    """Wait for run B's first epoch, then start its resumed second
+    epoch; returns the first epoch's wall seconds and the start."""
+    _, b1_seconds = finish_dp_train_run(b1)
+    return b1_seconds, start_dp_train_run(Path(folder) / "fsdp-b", 2,
+                                          "fsdp train B2", *FSDP_FLAGS)
+
+
+def start_fsdp_a(folder):
+    """Run A of `fsdp train` (`start_dp_train_run`)."""
+    return start_dp_train_run(Path(folder) / "fsdp-a", 2, "fsdp train A",
+                              *FSDP_FLAGS)
+
+
+def phase_fsdp_train(torch, card, folder, started, dp):
+    """Phase 45c: `main --workers=2` with `mesh.fsdp=2` and sharded
+    slots. `started` holds run A (started beside phase 45's run A) and
+    run B (its first epoch beside phases 43-44, its resumed second
+    beside phase 45's run B2: `start_fsdp_b2`); `dp` is phase 45's
+    summary. Returns a rank's launches."""
+    from flashy_tpu_torch.utils import percentile
+    a_dir, b_dir = Path(folder) / "fsdp-a", Path(folder) / "fsdp-b"
+    started_a, (b1_seconds, started_b2) = started
+    run_a, a_seconds = finish_dp_train_run(started_a)
+    run_b2, b2_seconds = finish_dp_train_run(started_b2)
+    want_a = flash_want(DP_LAYERS, [(2, 1)] * 2)
+    want_b2 = flash_want(DP_LAYERS, [(2, 1)])
+    for runs, want, restored in ((run_a, want_a, False),
+                                 (run_b2, want_b2, True)):
+        for out in runs:
+            if out["launches"] != want or out["backend"] != "gloo" \
+                    or out["restored"] != restored or out["epochs"] != 2 \
+                    or out["sharded"] != "fsdp":
+                fail(f"fsdp train rank {out['rank']}: launches "
+                     f"{out['launches']} (expected {want}), backend "
+                     f"{out['backend']}, restored {out['restored']}, "
+                     f"{out['epochs']} epochs, layout {out['sharded']}")
+    for a, b in zip(run_a, run_b2):
+        if a["digest"] != b["digest"] or a["full_digest"] != b["full_digest"]:
+            fail(f"fsdp train rank {a['rank']}: the resumed run differs from "
+                 f"the uninterrupted one (shards {a['digest'][:12]} vs "
+                 f"{b['digest'][:12]}, full {a['full_digest'][:12]} vs "
+                 f"{b['full_digest'][:12]})")
+    if len({out["full_digest"] for out in run_a}) != 1 \
+            or run_a[0]["digest"] == run_a[1]["digest"]:
+        fail("fsdp train: the ranks' full parameters differ, or their "
+             "shards are equal")
+    (a_xp,) = (a_dir / "xps").iterdir()
+    (b_xp,) = (b_dir / "xps").iterdir()
+    history_a = stripped(json.loads((a_xp / "history.json").read_text()))
+    history_b = stripped(json.loads((b_xp / "history.json").read_text()))
+    if len(history_a) != 2 or history_a != history_b:
+        fail(f"fsdp train: histories differ: {history_a} vs {history_b}")
+    want_dp = stripped(dp["history"])
+    if [{s: sorted(m) for s, m in e.items()} for e in history_a] != \
+            [{s: sorted(m) for s, m in e.items()} for e in want_dp]:
+        fail(f"fsdp train: history keys {history_a} vs dp train's {want_dp}")
+    relative = max(abs(g[s][k] - w[s][k]) / max(abs(w[s][k]), 1e-12)
+                   for g, w in zip(history_a, want_dp) for s in w
+                   for k in w[s])
+    if not relative <= 1e-4:
+        fail(f"fsdp train: history {history_a} against dp train A's "
+             f"{want_dp}: {relative:.2e} relative (limit 1e-4)")
+    meta = json.loads((a_xp / "checkpoint_meta.json").read_text())
+    slot = a_xp / "checkpoint.th.sharded"
+    pointer = (slot / "CURRENT").read_text().strip()
+    files = sorted(json.loads((slot / pointer / "manifest.json").read_text())
+                   ["files"])
+    if meta["mode"] != "sharded" \
+            or meta["state_sharding"]["summary"] != "fsdp(fsdp=2)" \
+            or files != ["arrays-0.pt", "arrays-1.pt", "arrays.pt",
+                         "state.pkl"] \
+            or (a_xp / "checkpoint.th").exists():
+        fail(f"fsdp train: checkpoint_meta {meta.get('mode')} "
+             f"{meta.get('state_sharding')}, slot files {files}")
+    seconds = run_a[0]["step_seconds"][1:]
+    p50 = percentile(seconds, 50) * 1e3
+    print(f"fsdp train: `main --workers=2 mesh.data=1 mesh.fsdp=2` with "
+          f"sharded slots, phase 45's run otherwise (235M width, "
+          f"{DP_LAYERS} layers, bf16, global b16 t1024, b8 a rank, "
+          f"transformer_shardings over fsdp): run A 2 epochs (beside dp "
+          f"train A), run B 1 epoch (beside dp collectives and dp step) then"
+          f" resumed from the slots (beside dp train B2): each rank's shards"
+          f" and the full parameters bit-identical "
+          f"between A and the resumed B, histories equal; A's history "
+          f"against dp train A's within {relative:.2e} relative (limit "
+          f"1e-4; {'bit-equal' if relative == 0 else 'not bit-equal'}); "
+          f"checkpoint_meta {meta['state_sharding']['summary']}, slot files"
+          f" {files}; launches a rank {want_a} (A), {want_b2} (B resumed); "
+          f"step p50 {p50:.2f} ms (steps 2..4, rank 0; each beside the "
+          f"other) "
+          f"against dp train A's {dp['p50']:.2f}; peak GiB a rank "
+          f"{[round(o['peak_gib'], 2) for o in run_a]} against dp train "
+          f"A's {[round(g, 2) for g in dp['peaks']]}; runs A "
+          f"{a_seconds:.1f}, B1 {b1_seconds:.1f}, B2 {b2_seconds:.1f} s "
+          f"({GLOO_LABEL}) [{card}]", flush=True)
     return run_a[0]["launches"]
 
 
@@ -9046,18 +9279,30 @@ def main() -> None:
     # queue A item 5: data parallelism across processes, two ranks sharing
     # the card over gloo (NCCL refuses two ranks on one device)
     release_memory(torch)
-    with tempfile.TemporaryDirectory() as folder:
-        phase_dp_collectives(torch, card, folder)
-    lap("dp collectives")
     with tempfile.TemporaryDirectory() as train_folder:
+        # queue A item 8a's runs go beside item 5's: the zero bench and
+        # `fsdp train`'s run B1 beside `dp collectives` and `dp step`,
+        # its run A beside `dp train`'s A, its resumed run B beside B2
+        zero = start_zero_bench(Path(train_folder) / "zero")
+        fsdp_b1 = start_fsdp_b1(train_folder)
+        with tempfile.TemporaryDirectory() as folder:
+            phase_dp_collectives(torch, card, folder)
+        lap("dp collectives (and zero bench, fsdp train B1)")
         # `dp train`'s run B1 (its first epoch, untimed) beside `dp step`
         b1 = start_dp_train_run(Path(train_folder) / "b", 1, "dp train B1")
         with tempfile.TemporaryDirectory() as folder:
             dp_step_launches = phase_dp_step(torch, card, folder)
-        lap("dp step (and dp train's run B1)")
-        dp_train_launches = phase_dp_train(torch, device, card, train_folder,
-                                           b1)
-    lap("dp train")
+        lap("dp step (and dp train B1, zero bench, fsdp train B1)")
+        phase_zero_bench(card, zero)
+        lap("zero bench")
+        dp_train_launches, dp_summary, fsdp_started = phase_dp_train(
+            torch, device, card, train_folder, b1,
+            lambda: start_fsdp_a(train_folder),
+            lambda: start_fsdp_b2(train_folder, fsdp_b1))
+        lap("dp train (and fsdp train A, B2)")
+        fsdp_train_launches = phase_fsdp_train(torch, card, train_folder,
+                                               fsdp_started, dp_summary)
+    lap("fsdp train")
     release_memory(torch)
     phase_prefetch_to_device(torch, device, card)
     lap("prefetch to device")
@@ -9289,6 +9534,7 @@ def main() -> None:
     # launches as many)
     for name in ("flash_fwd", "flash_bwd_fused"):
         layouts[name]["dp train (a rank)"] = dp_train_launches[name]
+        layouts[name]["fsdp train (a rank)"] = fsdp_train_launches[name]
     for name in ("flash_fwd_general", "flash_bwd_fused_general"):
         layouts[name]["dp step (a rank)"] = dp_step_launches[name]
     # the vision models, the MLM and seq2seq paths (f32 steps on the

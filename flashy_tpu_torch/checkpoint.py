@@ -24,15 +24,23 @@ Module and optimizer state dicts load into their live objects, which
 puts the tensors back on their devices. Under replicated data
 parallelism every rank holds the same state: rank 0 writes the single
 file (`run_on_rank_zero`, every rank meeting it there) and every rank
-loads it. Slots and
-asynchronous saves on several ranks, declared state shardings and
-resharding at restore raise (`TODO_SHARDED`).
+loads it. Across ranks with a sharded state (FSDP, ZeRO: a `layout`
+mapping the key of each rank-local tensor to its NamedSharding), slots
+and asynchronous saves run on every rank: each writes `arrays-<rank>.pt`
+with its shards, rank 0 also `arrays.pt` with the replicated tensors and
+the skeleton; once every rank's write succeeded rank 0 writes the
+manifest (every rank's file with its digest, plus the world and the
+layout) and flips the pointer. A restore reads `arrays.pt` and its own
+rank's file. `gather_state` and `shard_state` move a sharded state to
+and from a single file's full tensors. Restoring onto another world size
+or layout raises (`TODO_ELASTIC`).
 
 `to_torch_state_dict` / `from_torch_state_dict` flatten a nested tree to
 '.'-joined keys and back, and `import_flashy_checkpoint` reads a
 checkpoint of the original flashy (a `torch.save` file) for the port's
 `BaseSolver.load_state_dict`.
 """
+import json
 import logging
 import threading
 import time
@@ -53,14 +61,22 @@ from .utils import AnyPath, write_and_rename
 
 logger = logging.getLogger(__name__)
 
-TODO_SHARDED = ("ROADMAP.md queue A item 8 (slot and asynchronous "
-                "checkpoints across several ranks, declared state "
-                "shardings and resharding at restore)")
+TODO_ELASTIC = ("ROADMAP.md queue A item 8e (elastic restore: resharding "
+                "a checkpoint onto another world size or layout)")
 
 POINTER = "CURRENT"
 SLOTS = ("slot0", "slot1")
 SKELETON_NAME = "state.pkl"
 ARRAYS_NAME = "arrays.pt"
+
+# the key of a rank-local tensor of the state (`_extract_tensors`' keys)
+# -> its NamedSharding
+Layout = tp.Mapping[str, tp.Any]
+
+
+def rank_arrays_name(rank: int) -> str:
+    """The slot file holding rank `rank`'s shards."""
+    return f"arrays-{rank}.pt"
 
 
 class NumpyArray:
@@ -79,8 +95,12 @@ class NumpyArray:
 
 def _plain(value: tp.Any) -> tp.Any:
     """Mappings (the attribute-access `xp.Config` among them) as plain
-    dicts and numpy values as `NumpyArray` copies, so the file holds
-    only what `weights_only` loading accepts."""
+    dicts, numpy values as `NumpyArray` copies and tensors detached (a
+    new tensor object: no Python attribute, such as a shard's
+    `.sharding`, is pickled with it), so the file holds only what
+    `weights_only` loading accepts."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
     if isinstance(value, dict):
         return {key: _plain(item) for key, item in value.items()}
     if isinstance(value, (list, tuple)):
@@ -103,14 +123,31 @@ def _unplain(value: tp.Any) -> tp.Any:
     return value
 
 
-def _one_process(what: str) -> None:
-    """Refuse what runs on one process only: slot saves and restores and
-    asynchronous saves (a single file of a replicated state runs on any
-    world size)."""
-    if distrib.is_distributed():
-        raise NotImplementedError(
-            f"{what} across {distrib.world_size()} ranks is not ported "
-            f"yet: {TODO_SHARDED}")
+def _sharded_only(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
+    """The entries of `layout` that split their tensor."""
+    return {key: sharding for key, sharding in (layout or {}).items()
+            if sharding is not None and not sharding.is_replicated}
+
+
+def layout_record(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
+    """`layout` as JSON: each key's spec (a list, tuples as lists) and
+    mesh axis sizes."""
+    return {key: {"spec": [list(part) if isinstance(part, tuple) else part
+                           for part in sharding.spec],
+                  "mesh": {axis: int(size) for axis, size
+                           in sharding.mesh.shape.items()}}
+            for key, sharding in sorted(_sharded_only(layout).items())}
+
+
+def _agree(error: tp.Optional[BaseException], what: str) -> None:
+    """Every rank learns whether any rank failed `what` (one all-reduce):
+    the failed rank re-raises its error, the others raise
+    CheckpointError, so no rank commits what another did not write."""
+    failed = distrib.all_reduce_max(int(error is not None))
+    if error is not None:
+        raise error
+    if failed:
+        raise CheckpointError(f"another rank failed {what}")
 
 
 def _write_state_file(path: AnyPath, payload: tp.Any,
@@ -292,7 +329,8 @@ def _prepare_slot(directory: Path, names: tp.Sequence[str]
 def _commit_slot(directory: Path, target: str, skeleton: tp.Any,
                  on_commit: tp.Optional[tp.Callable[[], None]] = None,
                  known: tp.Optional[tp.Mapping[str, tp.Tuple[str, int]]]
-                 = None) -> None:
+                 = None, extra: tp.Optional[tp.Mapping[str, tp.Any]] = None
+                 ) -> None:
     """Make slot `target` the active checkpoint: write the skeleton (the
     commit marker), then the manifest (`ckpt.manifest`), then flip the
     CURRENT pointer atomically (`ckpt.pointer`), each retried on
@@ -304,7 +342,7 @@ def _commit_slot(directory: Path, target: str, skeleton: tp.Any,
 
     def write_slot_manifest() -> None:
         chaos.fault_point("ckpt.manifest", slot=target)
-        write_manifest(directory / target, known=known)
+        write_manifest(directory / target, known=known, extra=extra)
 
     call_with_retry(write_slot_manifest, name="ckpt.manifest",
                     retry_on=(OSError,))
@@ -319,18 +357,101 @@ def _commit_slot(directory: Path, target: str, skeleton: tp.Any,
         on_commit()
 
 
-def save_state_sharded(state: tp.Any, directory: AnyPath) -> None:
+def gather_state(state: tp.Any, layout: tp.Optional[Layout]) -> tp.Any:
+    """`state` with each rank-local tensor of `layout` all-gathered into
+    its full tensor (collective: every rank calls it with its shards, in
+    the same order); what a single file of a sharded state holds."""
+    layout = _sharded_only(layout)
+    if not layout:
+        return state
+    skeleton, tensors = _extract_tensors(state)
+    for key in sorted(layout):
+        if key not in tensors:
+            continue
+        sharding, local = layout[key], tensors[key]
+        dim = sharding.split_dim()
+        (axis,) = sharding.axis_names()
+        n = sharding.mesh.shape[axis]
+        flat = distrib.all_gather(local.detach().reshape(-1).contiguous(),
+                                  sharding.mesh.group(axis))
+        tensors[key] = torch.cat(list(flat.view(n, *local.shape).unbind(0)),
+                                 dim=dim)
+    return _fill(skeleton, tensors)
+
+
+def shard_state(state: tp.Any, layout: tp.Optional[Layout]) -> tp.Any:
+    """`state` (full tensors, as a single file holds them) with each
+    tensor of `layout` replaced by this rank's slice."""
+    layout = _sharded_only(layout)
+    if not layout:
+        return state
+    skeleton, tensors = _extract_tensors(state)
+    for key, sharding in layout.items():
+        if key in tensors:
+            tensors[key] = sharding.shard(tensors[key]).clone()
+    return _fill(skeleton, tensors)
+
+
+def _slot_files(tensors: tp.Mapping[str, torch.Tensor],
+                layout: tp.Mapping[str, tp.Any]
+                ) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
+    """What this rank writes into a slot: its shards (`arrays-<rank>.pt`)
+    and, on rank 0, the replicated tensors (`arrays.pt`)."""
+    files: tp.Dict[str, tp.Dict[str, torch.Tensor]] = {}
+    local = {key: t for key, t in tensors.items() if key in layout}
+    shared = {key: t for key, t in tensors.items() if key not in layout}
+    if local:
+        files[rank_arrays_name(distrib.rank())] = local
+    if shared and distrib.is_rank_zero():
+        files[ARRAYS_NAME] = shared
+    return files
+
+
+def _manifest_extra(layout: tp.Mapping[str, tp.Any]
+                    ) -> tp.Optional[tp.Dict[str, tp.Any]]:
+    """The world and the layout, for a save across ranks or of a sharded
+    state (a one-process replicated save keeps the JAX package's
+    manifest)."""
+    if distrib.world_size() == 1 and not layout:
+        return None
+    return {"world": distrib.world_size(), "layout": layout_record(layout)}
+
+
+def _prepare_rank_slot(directory: Path, names: tp.Sequence[str]) -> str:
+    """`_prepare_slot` on every rank: rank 0 clears `names`, each rank
+    its own shard file."""
+    own = (rank_arrays_name(distrib.rank()),)
+    return _prepare_slot(directory, (tuple(names) if distrib.is_rank_zero()
+                                     else ()) + own)
+
+
+def save_state_sharded(state: tp.Any, directory: AnyPath,
+                       layout: tp.Optional[Layout] = None,
+                       on_commit: tp.Optional[tp.Callable[[], None]] = None
+                       ) -> None:
     """Write `state` into the inactive slot of `directory` and make it
-    active (one process; the tensors in `arrays.pt`, the rest in the
-    skeleton). Costs twice the disk of one checkpoint, the A/B trade."""
-    _one_process("a slot save")
+    active (the tensors in `arrays.pt`, the rest in the skeleton). Costs
+    twice the disk of one checkpoint, the A/B trade. On several ranks
+    every rank calls it together: each writes its shards of `layout`'s
+    tensors (`arrays-<rank>.pt`), rank 0 the rest and, once every rank
+    succeeded, commits (`on_commit` runs there, after the flip)."""
     directory = Path(directory).absolute()
+    layout = _sharded_only(layout)
     skeleton, tensors = _extract_tensors(_plain(state))
-    target = _prepare_slot(directory)
-    if tensors:
-        _write_state_file(directory / target / ARRAYS_NAME, tensors,
-                          sidecar=False)
-    _commit_slot(directory, target, skeleton)
+    target = _prepare_rank_slot(directory, (SKELETON_NAME, MANIFEST_NAME,
+                                            ARRAYS_NAME))
+    error = None
+    try:
+        for name, payload in _slot_files(tensors, layout).items():
+            _write_state_file(directory / target / name, payload,
+                              sidecar=False)
+    except BaseException as exc:  # re-raised by _agree, on this rank
+        error = exc
+    _agree(error, "to write its slot files")
+    extra = _manifest_extra(layout)
+    run_on_rank_zero(lambda: _commit_slot(directory, target, skeleton,
+                                          on_commit, extra=extra),
+                     "to commit the slot")
 
 
 class AsyncShardedCheckpointer:
@@ -382,56 +503,70 @@ class AsyncShardedCheckpointer:
         return host, event
 
     @staticmethod
-    def _write(path: Path, host: tp.Dict[str, torch.Tensor], event: tp.Any,
-               box: tp.Dict[str, tp.Any]) -> None:
+    def _write(directory: Path, files: tp.Dict[str, tp.Dict[str, torch.Tensor]],
+               event: tp.Any, box: tp.Dict[str, tp.Any]) -> None:
         begin = time.perf_counter()
         try:
             # the slot's old tensors: freeing a large file takes a
             # while, which the caller of save() does not wait for
-            if path.exists():
-                path.unlink()
+            for name in files:
+                if (directory / name).exists():
+                    (directory / name).unlink()
             if event is not None:
                 event.synchronize()
-            _write_state_file(path, host, sidecar=False)
-            box["digest"] = file_digest(path)
+            box["digests"] = {}
+            for name, host in files.items():
+                _write_state_file(directory / name, host, sidecar=False)
+                box["digests"][name] = file_digest(directory / name)
         except BaseException as exc:  # re-raised by finalize_pending
             box["error"] = exc
         box["seconds"] = time.perf_counter() - begin
 
     def save(self, state: tp.Any, directory: AnyPath,
-             on_commit: tp.Optional[tp.Callable[[], None]] = None) -> None:
+             on_commit: tp.Optional[tp.Callable[[], None]] = None,
+             layout: tp.Optional[Layout] = None) -> None:
         """Start an asynchronous save. `on_commit` runs once the
-        checkpoint is durable and active: put the cleanup of superseded
-        checkpoints there, never before."""
+        checkpoint is durable and active (on rank 0): put the cleanup of
+        superseded checkpoints there, never before. On several ranks
+        every rank calls it together, each writing its shards of
+        `layout`'s tensors in its own background thread; the commit
+        waits for all of them."""
         self.finalize_pending()
-        _one_process("an asynchronous slot save")
         directory = Path(directory).absolute()
+        layout = _sharded_only(layout)
         skeleton, tensors = _extract_tensors(_plain(state))
         host, event = self._snapshot(tensors)
-        target = _prepare_slot(directory, (SKELETON_NAME, MANIFEST_NAME))
+        files = _slot_files(host, layout)
+        target = _prepare_rank_slot(directory, (SKELETON_NAME,
+                                                MANIFEST_NAME))
         box: tp.Dict[str, tp.Any] = {}
         thread = None
-        if host:
+        if files:
             thread = threading.Thread(
                 target=self._write, name="flashy-ckpt-writer", daemon=True,
-                args=(directory / target / ARRAYS_NAME, host, event, box))
+                args=(directory / target, files, event, box))
             thread.start()
-        self._pending = (directory, target, skeleton, on_commit, thread, box)
+        self._pending = (directory, target, skeleton, on_commit, thread, box,
+                         _manifest_extra(layout))
 
     def finalize_pending(self) -> None:
-        """Block until the in-flight save is durable, then commit it."""
+        """Block until the in-flight save is durable on every rank, then
+        commit it (collective on several ranks: every rank calls it at
+        the same point)."""
         if self._pending is None:
             return
-        directory, target, skeleton, on_commit, thread, box = self._pending
+        (directory, target, skeleton, on_commit, thread, box,
+         extra) = self._pending
         self._pending = None
         known = None
         if thread is not None:
             thread.join()
             self.last_background_seconds = box["seconds"]
-            if "error" in box:
-                raise box["error"]
-            known = {ARRAYS_NAME: box["digest"]}
-        _commit_slot(directory, target, skeleton, on_commit, known=known)
+            known = box.get("digests")
+        _agree(box.get("error"), "to write its asynchronous slot files")
+        run_on_rank_zero(lambda: _commit_slot(
+            directory, target, skeleton, on_commit, known=known, extra=extra),
+            "to commit the asynchronous slot")
 
     # `wait` reads naturally at call sites that just need durability.
     wait = finalize_pending
@@ -441,11 +576,20 @@ class AsyncShardedCheckpointer:
         self._pinned.clear()
 
 
+def slot_manifest(slot_dir: Path) -> tp.Dict[str, tp.Any]:
+    """A slot's manifest (`{}` when missing or unreadable)."""
+    try:
+        return json.loads((slot_dir / MANIFEST_NAME).read_text())
+    except (OSError, ValueError):
+        return {}
+
+
 def _load_slot(directory: Path, slot: str) -> tp.Any:
     """Verify one slot against its manifest and load it (skeleton, then
-    its tensors). Raises CheckpointError naming the slot on a mismatch,
-    a missing commit marker or a file that does not unpickle: the
-    signal `load_state_sharded` falls back on."""
+    its tensors: `arrays.pt` and, for a save across ranks, this rank's
+    `arrays-<rank>.pt`). Raises CheckpointError naming the slot on a
+    mismatch, a missing commit marker or a file that does not unpickle:
+    the signal `load_state_sharded` falls back on."""
     slot_dir = directory / slot
     if not (slot_dir / SKELETON_NAME).exists():
         raise CheckpointError(f"slot {slot!r} of {directory} has no "
@@ -461,6 +605,10 @@ def _load_slot(directory: Path, slot: str) -> tp.Any:
     if (slot_dir / ARRAYS_NAME).exists():
         tensors = _read_state_file(slot_dir / ARRAYS_NAME,
                                    f"slot {slot!r} tensors")
+    own = slot_dir / rank_arrays_name(distrib.rank())
+    if own.exists():
+        tensors.update(_read_state_file(own, f"slot {slot!r} rank "
+                                        f"{distrib.rank()}'s tensors"))
     try:
         return _unplain(_fill(skeleton, tensors))
     except KeyError as exc:
@@ -469,7 +617,30 @@ def _load_slot(directory: Path, slot: str) -> tp.Any:
                               ) from exc
 
 
-def load_state_sharded(directory: AnyPath) -> tp.Any:
+def _check_topology(slot_dir: Path, layout: tp.Optional[Layout]) -> None:
+    """Refuse a slot saved on another world size with a sharded layout,
+    or under another layout than `layout` (when given): resharding at
+    restore is item 8e's."""
+    manifest = slot_manifest(slot_dir)
+    saved = manifest.get("layout", {})
+    world = int(manifest.get("world", 1))
+    # an optimizer builds its state at its first step: the live layout
+    # may lack keys the saved one has, never the other way round
+    current = layout_record(layout)
+    if layout is not None and any(saved.get(key) != record
+                                  for key, record in current.items()):
+        raise NotImplementedError(
+            f"{slot_dir} was saved under another layout than this run's "
+            f"({len(saved)} against {len(current)} sharded tensors): "
+            f"{TODO_ELASTIC}")
+    if saved and world != distrib.world_size():
+        raise NotImplementedError(
+            f"{slot_dir} was saved across {world} ranks; this run has "
+            f"{distrib.world_size()}: {TODO_ELASTIC}")
+
+
+def load_state_sharded(directory: AnyPath,
+                       layout: tp.Optional[Layout] = None) -> tp.Any:
     """Restore a `save_state_sharded` checkpoint, tensors on the CPU.
 
     Each slot is verified against its manifest before unpickling. When
@@ -478,14 +649,18 @@ def load_state_sharded(directory: AnyPath) -> tp.Any:
     committed epoch, its history rolled back with it) and repoints
     CURRENT at it, so the next save overwrites the bad slot and not the
     only good copy. Only when both slots are bad does it raise
-    `CheckpointCorrupted`.
+    `CheckpointCorrupted`. Across ranks each rank reads its own shards
+    (every rank verifies every file, so all take the same slot); a slot
+    saved on another world size with a sharded layout, or under another
+    `layout` than the given one, raises NotImplementedError naming item
+    8e.
     """
-    _one_process("a slot restore")
     directory = Path(directory).absolute()
     active = read_slot_pointer(directory)
     if active is None:
         raise FileNotFoundError(
             f"No committed sharded checkpoint in {directory}")
+    _check_topology(directory / active, layout)
     sibling = SLOTS[1] if active == SLOTS[0] else SLOTS[0]
     errors: tp.List[str] = []
     for candidate in (active, sibling):
@@ -504,8 +679,9 @@ def load_state_sharded(directory: AnyPath) -> tp.Any:
                 "RESTORED FROM FALLBACK SLOT %r of %s: the active slot %r "
                 "was corrupt; the run resumes from the previously committed "
                 "epoch.", candidate, directory, active)
-            with write_and_rename(directory / POINTER, "w") as f:
-                f.write(candidate)
+            if distrib.is_rank_zero():
+                with write_and_rename(directory / POINTER, "w") as f:
+                    f.write(candidate)
         return state
     raise CheckpointCorrupted(
         f"no restorable checkpoint slot in {directory} "

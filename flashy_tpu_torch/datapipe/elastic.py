@@ -10,8 +10,9 @@ exactness: every file resumes at the exact document its consumed prefix
 ends at, so no token is consumed twice and none is skipped. When
 consumption was balanced (the lockstep training regime) the re-split
 continues the canonical global stream bit-identically. Pure host code;
-the multi-process elastic drill waits for ROADMAP.md queue A item 8
-(processes and collectives are ported: item 5).
+the multi-process elastic drill waits for ROADMAP.md queue A item 8e
+(processes, collectives and state across ranks are ported: items 5 and
+8a).
 """
 import typing as tp
 

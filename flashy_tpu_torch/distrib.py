@@ -20,13 +20,19 @@ The data-parallel training step itself is `wrap` (DistributedDataParallel,
 `flashy_tpu_torch.parallel.wrap`): its bucketed all-reduce overlaps the
 backward. The tree helpers here (`average_tensors`, `sync_gradients`,
 `sync_model`) are the manual path, one flat collective per dtype.
+`reduce_scatter` and `all_gather` move flat tensors over a group (a
+process axis of the mesh: `Mesh.group`), for the FSDP and ZeRO forms of
+`wrap` and `parallel.zero`. Every tensor collective goes through
+`_collective`, which `parallel.accounting.count_collectives` counts.
 """
 import atexit
+import contextlib
 import datetime
 import functools
 import logging
 import os
 import typing as tp
+import warnings
 
 import numpy as np
 import torch
@@ -180,6 +186,98 @@ def _collective_device(tensor: torch.Tensor, op: str) -> torch.device:
     return tensor.device
 
 
+# the active `parallel.accounting.count_collectives` records: each gets
+# every collective's (op, bytes) while it is open
+_recorders: tp.List[tp.List[tp.Tuple[str, int]]] = []
+
+
+def _collective(op: str, nbytes: int, call: tp.Callable[[], tp.Any]) -> tp.Any:
+    """Run one collective, `call()`, after noting it in every open
+    record: `op` under the JAX package's HLO names ('all-reduce',
+    'all-gather', 'reduce-scatter', 'collective-broadcast') and `nbytes`
+    the bytes of its output, as `accounting.collective_stats` counts an
+    instruction's output shape."""
+    for record in _recorders:
+        record.append((op, int(nbytes)))
+    return call()
+
+
+@contextlib.contextmanager
+def _recording() -> tp.Iterator[tp.List[tp.Tuple[str, int]]]:
+    """Open a record of the collectives run inside the block."""
+    record: tp.List[tp.Tuple[str, int]] = []
+    _recorders.append(record)
+    try:
+        yield record
+    finally:
+        _recorders.remove(record)
+
+
+def _nbytes(tensor: torch.Tensor) -> int:
+    return tensor.numel() * tensor.element_size()
+
+
+def _group_size(group: tp.Any) -> int:
+    return dist.get_world_size(group) if group is not None else world_size()
+
+
+def reduce_scatter(flat: torch.Tensor, group: tp.Any = None) -> torch.Tensor:
+    """Sum the 1-D `flat` over the processes of `group` (None: every
+    process) and return this process's 1/n of the sum, its contiguous
+    slice in group-rank order; `flat.numel()` must divide by n. The
+    identity for a group of one. `reduce_scatter_tensor` on every
+    backend (gloo has it for host tensors in the torch releases the port
+    runs on, 2.11 and 2.13); under gloo a CUDA tensor is staged through
+    the host and bf16 and f16 travel as f32."""
+    n = _group_size(group)
+    if n == 1:
+        return flat
+    _require_backend()
+    if flat.dim() != 1 or flat.numel() % n:
+        raise ValueError(f"reduce_scatter takes a flat tensor whose size "
+                         f"divides by {n}, got {tuple(flat.shape)}")
+    device, dtype = flat.device, flat.dtype
+    gloo = dist.get_backend() == "gloo"
+    work = (_wide(flat) if gloo else flat).to(
+        _collective_device(flat, "reduce_scatter"))
+    out = torch.empty(flat.numel() // n, dtype=work.dtype, device=work.device)
+
+    def call() -> None:
+        with warnings.catch_warnings():
+            # torch 2.13 names reduce_scatter_single its successor, which
+            # the card's 2.11 lacks
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, work, group=group)
+
+    _collective("reduce-scatter", _nbytes(out), call)
+    return out.to(device, dtype)
+
+
+def all_gather(flat: torch.Tensor, group: tp.Any = None) -> torch.Tensor:
+    """The 1-D `flat` of every process of `group` (None: every process),
+    concatenated in group-rank order. The identity for a group of one.
+    A CUDA tensor is staged through the host under gloo."""
+    n = _group_size(group)
+    if n == 1:
+        return flat
+    _require_backend()
+    if flat.dim() != 1:
+        raise ValueError(f"all_gather takes a flat tensor, got "
+                         f"{tuple(flat.shape)}")
+    work = flat.to(_collective_device(flat, "all_gather")).contiguous()
+    out = torch.empty(flat.numel() * n, dtype=work.dtype, device=work.device)
+
+    def call() -> None:
+        with warnings.catch_warnings():
+            # torch 2.13 names all_gather_single its successor, which the
+            # card's 2.11 lacks
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, work, group=group)
+
+    _collective("all-gather", _nbytes(out), call)
+    return out.to(flat.device)
+
+
 def rank_zero_only(fn: tp.Callable) -> tp.Callable:
     """Run `fn` on rank zero only; other ranks get None. Wrap host-side
     IO only, never a collective (the other ranks would wait for ever)."""
@@ -259,7 +357,8 @@ def _check_tree_sizes(tree: tp.Any) -> None:
         [len(leaves), sum(int(np.prod(np.shape(leaf))) for leaf in leaves)],
         dtype=torch.int64, device=_host_device())
     gathered = [torch.empty_like(signature) for _ in range(world_size())]
-    dist.all_gather(gathered, signature)
+    _collective("all-gather", _nbytes(signature) * world_size(),
+                lambda: dist.all_gather(gathered, signature))
     table = torch.stack(gathered).cpu()
     if not bool((table == signature.cpu()[None]).all()):
         raise RuntimeError(
@@ -272,22 +371,25 @@ _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
-def all_reduce(value: tp.Any, op: str = "sum") -> tp.Any:
-    """Reduce a tensor, numpy array or number over all processes and
-    return the result (a new value, as the JAX package returns one;
-    torch's in-place `all_reduce` is not exposed); the identity at world
-    size 1. `op`: 'sum', 'mean', 'max' or 'min'."""
+def all_reduce(value: tp.Any, op: str = "sum", group: tp.Any = None
+               ) -> tp.Any:
+    """Reduce a tensor, numpy array or number over the processes of
+    `group` (None: all of them) and return the result (a new value, as
+    the JAX package returns one; torch's in-place `all_reduce` is not
+    exposed); the identity for one process. `op`: 'sum', 'mean', 'max'
+    or 'min'."""
     if op not in _OPS:
         raise ValueError(f"Unsupported reduce op: {op}")
-    if not is_distributed():
+    if not is_distributed() or _group_size(group) == 1:
         return value
     _require_backend()
     tensor = _as_tensor(value)
     work = tensor.to(_collective_device(tensor, "all_reduce"), copy=True)
-    dist.all_reduce(work, op=_OPS[op])
+    _collective("all-reduce", _nbytes(work),
+                lambda: dist.all_reduce(work, op=_OPS[op], group=group))
     if op == "mean":
         work = (work if work.is_floating_point() else work.double()) \
-            / world_size()
+            / _group_size(group)
     if isinstance(value, torch.Tensor):
         return work.to(value.device)
     out = work.cpu().numpy()
@@ -339,7 +441,8 @@ def _reduce_mean(tensors: tp.List[torch.Tensor]) -> tp.List[torch.Tensor]:
     for (dtype, device), indices in _by_dtype(tensors).items():
         flat = torch.cat([tensors[i].reshape(-1) for i in indices])
         work = _wide(flat).to(_collective_device(flat, "all_reduce"))
-        dist.all_reduce(work, op=dist.ReduceOp.SUM)
+        _collective("all-reduce", _nbytes(work),
+                    lambda: dist.all_reduce(work, op=dist.ReduceOp.SUM))
         work = (work / world_size()).to(device, dtype)
         offset = 0
         for i in indices:
@@ -358,7 +461,8 @@ def _gather_mean(tensors: tp.List[torch.Tensor]) -> tp.List[torch.Tensor]:
         flat = torch.cat([tensors[i].reshape(-1) for i in indices])
         work = _wide(flat).to(_collective_device(flat, "all_gather"))
         gathered = [torch.empty_like(work) for _ in range(world_size())]
-        dist.all_gather(gathered, work)
+        _collective("all-gather", _nbytes(work) * world_size(),
+                    lambda: dist.all_gather(gathered, work))
         mean = torch.stack(gathered).mean(dim=0).to(device, dtype)
         offset = 0
         for i in indices:
@@ -441,7 +545,8 @@ def broadcast_tensors(tree: tp.Any, src: int = 0) -> tp.Any:
     for (_, device), indices in _by_dtype(floats).items():
         flat = torch.cat([floats[i].reshape(-1) for i in indices])
         work = flat.to(_collective_device(flat, "broadcast"))
-        dist.broadcast(work, src=src)
+        _collective("collective-broadcast", _nbytes(work),
+                    lambda: dist.broadcast(work, src=src))
         work = work.to(device)
         offset = 0
         for i in indices:

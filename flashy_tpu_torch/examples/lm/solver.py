@@ -36,6 +36,14 @@ trains on its contiguous `batch_size / N` rows of it through
 `parallel.wrap` (DistributedDataParallel), the logged train and valid
 metrics are averaged over the ranks (`distrib.average_metrics`), and rank
 0 writes the checkpoint and the history while every rank restores it.
+With `mesh.fsdp > 1` (`mesh.data x mesh.fsdp` = N) the model is wrapped
+in FSDP form under `transformer_shardings` (`wrap_model`): each rank
+holds its shards of the parameters and of the AdamW moments, gathers a
+block's parameters around its forward and backward, reduce-scatters the
+gradients, and the clip's global norm sums the shards' squares over the
+`fsdp` group; with `checkpoint_mode=sharded` every rank writes its
+shards into the slots, and a single file is gathered and written by
+rank 0.
 
 The train loop calls `check_preemption()` after every step, so a
 preemption guard in 'abandon_stage' mode
@@ -50,6 +58,7 @@ norm taken before clipping is the logged `grad_norm`), then AdamW (eps
 under `warmup_cosine_decay_schedule(0, lr, warmup, total)`, read at the
 step count before the update, so the first update has lr 0.
 """
+import contextlib
 import math
 import time
 import typing as tp
@@ -64,10 +73,10 @@ from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
 from ...models.transformer import (RowShard, TransformerConfig,
-                                   TransformerLM)
+                                   TransformerLM, transformer_shardings)
 from ...ops.losses import lm_next_token_loss
-from ...parallel.data_parallel import (shard_batch, with_grad_accumulation,
-                                       wrap)
+from ...parallel.data_parallel import (grad_norm, shard_batch,
+                                       with_grad_accumulation, wrap)
 from ...parallel.mesh import Mesh, make_mesh
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
@@ -180,7 +189,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     and the unclipped `grad_norm` as device scalars."""
     loss = value_and_grad(model, loss_fn, tokens, accumulate, dropout_seed)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    # the whole gradient's norm: a sharded parameter's squares summed
+    # over its axis, a replicated one's counted once
+    norm = grad_norm(model.parameters())
     for grad in grads:
         grad.copy_(torch.where(norm < max_norm, grad,
                                grad / norm * max_norm))
@@ -190,19 +201,47 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return {"loss": loss, "grad_norm": norm}
 
 
-def check_mesh(mesh: tp.Mapping, attention: str) -> Mesh:
-    """The run's mesh: `data: -1` resolves to the world size (a rank a
-    process; 1 in one process), `seq` above 1 is a ring whose ranks share
-    the process's card and needs `attention` 'ring' or 'ring_fused'
-    (with any other attention a `seq` axis would do nothing on one
-    card), and any other axis above 1 raises NotImplementedError naming
-    its ROADMAP item (`make_mesh`)."""
+def check_mesh(mesh: tp.Mapping, attention: str,
+               fsdp: tp.Optional[str] = None) -> Mesh:
+    """The run's mesh: `data: -1` resolves to the world size over `fsdp`
+    (the process axes: `data x fsdp` ranks, a rank a process; 1 in one
+    process), `seq` above 1 is a ring whose ranks share the process's
+    card and needs `attention` 'ring' or 'ring_fused' (with any other
+    attention a `seq` axis would do nothing on one card), and `tensor`,
+    `pipe` or `expert` above 1 raise NotImplementedError naming their
+    ROADMAP item (`make_mesh`). A solver whose model has no FSDP specs
+    passes the ROADMAP item that brings them as `fsdp`: `mesh.fsdp`
+    above 1 then raises NotImplementedError naming it."""
     built = make_mesh({axis: int(size) for axis, size in mesh.items()})
+    if fsdp is not None and built.shape["fsdp"] > 1:
+        raise NotImplementedError(f"mesh.fsdp={built.shape['fsdp']} needs "
+                                  f"this model's shardings: {fsdp}")
     if built.shape["seq"] > 1 and attention not in ("ring", "ring_fused"):
         raise ValueError(f"mesh.seq={built.shape['seq']} cuts the sequence "
                          f"over a ring, which needs model.attention=ring or "
                          f"ring_fused, got {attention!r}")
     return built
+
+
+def _shadow(value: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """An f32 EMA shadow of `value` on `param`'s device, carrying the
+    param's `.sharding` under FSDP (the shadow is the rank's shard, which
+    the checkpoint saves as such)."""
+    shadow = value.detach().to(param.device, torch.float32, copy=True)
+    if hasattr(param, "sharding"):
+        shadow.sharding = param.sharding
+    return shadow
+
+
+def wrap_model(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """`parallel.wrap` for the run's mesh: with `fsdp` above 1 the model
+    itself in FSDP form under `transformer_shardings`, else
+    DistributedDataParallel above one rank (the model at one)."""
+    if mesh.shape["fsdp"] > 1:
+        return wrap(model, mesh=mesh, fsdp=True,
+                    state_sharding=transformer_shardings(
+                        dict(model.named_parameters())))
+    return wrap(model)
 
 
 class LMSolver(BaseSolver):
@@ -239,9 +278,10 @@ class LMSolver(BaseSolver):
             raise ValueError(f"batch_size={cfg.batch_size} (the global "
                              f"batch) does not split over {world} ranks")
         # what the training step runs: DistributedDataParallel above one
-        # rank, the model itself at one (`self.model` stays the module
-        # whose state is checkpointed, evaluated and sampled)
-        self.train_model = wrap(self.model)
+        # rank, the model itself at one, or the model in FSDP form
+        # (`self.model` stays the module whose state is checkpointed,
+        # evaluated and sampled)
+        self.train_model = wrap_model(self.model, self.mesh)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         # the update count: the schedule reads it, so it is checkpointed;
         # with ema_decay > 0 also the EMA shadow, name -> f32 tensor
@@ -258,7 +298,7 @@ class LMSolver(BaseSolver):
 
     def reset_ema(self) -> None:
         """(Re)start the EMA shadow as an f32 copy of the live params."""
-        self.state["ema"] = {name: p.detach().float().clone() for name, p
+        self.state["ema"] = {name: _shadow(p, p) for name, p
                              in self.model.named_parameters()}
 
     def loss(self, tokens: torch.Tensor,
@@ -376,9 +416,12 @@ class LMSolver(BaseSolver):
         generator = torch.Generator(device=self.device).manual_seed(
             self.epoch)
         begin = time.time()
-        out = lm_generate(self.model, prompt, max_new_tokens=32,
-                          temperature=1.0, generator=generator,
-                          device=self.device).cpu().numpy()
+        summon = getattr(self.model, "summon_full_params",
+                         contextlib.nullcontext)
+        with summon():
+            out = lm_generate(self.model, prompt, max_new_tokens=32,
+                              temperature=1.0, generator=generator,
+                              device=self.device).cpu().numpy()
         self.log_text("generate", "sample",
                       " ".join(str(int(t)) for t in out[0]))
         return {"gen_tokens_per_sec":
@@ -404,7 +447,7 @@ class LMSolver(BaseSolver):
         elif "ema" in self.state:
             params = dict(self.model.named_parameters())
             self.state["ema"] = {
-                name: shadow.to(params[name].device, torch.float32)
+                name: _shadow(shadow, params[name])
                 for name, shadow in self.state["ema"].items()}
 
     def run(self):

@@ -21,9 +21,11 @@ mesh's `data` axis: each rank takes its contiguous rows of the global
 batch and divides its selected sum by the global batch's count (times
 the world size, which DistributedDataParallel's mean undoes), so the
 ranks' loss and gradients are the global batch's masked mean, as the
-JAX step's sum over count is. `mesh.fsdp` or `mesh.tensor` above 1
-raise NotImplementedError naming ROADMAP queue A item 8. It runs on the
-card; `device=cpu` runs it on the host.
+JAX step's sum over count is. `mesh.fsdp` above 1 wraps the model in
+FSDP form as the LM solver does (`wrap_model`: the ranks are `mesh.data
+x mesh.fsdp` processes, the reduce-scatter averaging as DDP's mean does);
+`mesh.tensor` above 1 raises NotImplementedError naming ROADMAP queue A
+item 8b. It runs on the card; `device=cpu` runs it on the host.
 """
 import time
 import typing as tp
@@ -36,12 +38,12 @@ from ... import distrib
 from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.transformer import TransformerConfig, TransformerLM
-from ...parallel.data_parallel import shard_batch, wrap
+from ...parallel.data_parallel import shard_batch
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
 from ..lm.solver import (build_optimizer, check_mesh,
-                         synthetic_token_stream, train_step)
+                         synthetic_token_stream, train_step, wrap_model)
 
 
 def mask_tokens(tokens: np.ndarray, step: int, eval_set: bool,
@@ -104,7 +106,7 @@ class MLMSolver(BaseSolver):
         if cfg.batch_size % world:
             raise ValueError(f"batch_size={cfg.batch_size} (the global "
                              f"batch) does not split over {world} ranks")
-        self.train_model = wrap(self.model)
+        self.train_model = wrap_model(self.model, self.mesh)
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         self.state: tp.Dict[str, tp.Any] = {"step": 0}
         self.register_stateful("model", "optimizer", "state")

@@ -18,7 +18,8 @@ optax transformations. A batch travels as one [rows, 3, S] tensor (src,
 tgt, decoder input). One rank a process over the mesh's `data` axis,
 each on its contiguous rows of the global batch; `mesh.fsdp` or
 `mesh.tensor` above 1 raise NotImplementedError naming ROADMAP queue A
-item 8. It runs on the card; `device=cpu` runs it on the host.
+item 8b (`seq2seq_shardings`). It runs on the card; `device=cpu` runs it
+on the host.
 """
 import time
 import typing as tp
@@ -33,6 +34,7 @@ from ...logging import setup_logging
 from ...models.seq2seq import (Seq2SeqConfig, Seq2SeqTransformer,
                                cached_translate)
 from ...parallel.data_parallel import shard_batch, wrap
+from ...parallel.mesh import TODO_AXES
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
@@ -72,7 +74,8 @@ class TranslateSolver(BaseSolver):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mesh = check_mesh(cfg.mesh, cfg.model.attention)
+        self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
+                               fsdp=TODO_AXES["tensor"])
         model_cfg = Seq2SeqConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             enc_layers=cfg.model.enc_layers, dec_layers=cfg.model.dec_layers,

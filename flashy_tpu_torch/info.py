@@ -26,8 +26,8 @@ import json
 import typing as tp
 from pathlib import Path
 
-TODO_RESILIENCE = ("ROADMAP.md queue A: item 9's chaos campaign, after "
-                   "datapipe/, and item 12's fault-site registry")
+TODO_RESILIENCE = ("ROADMAP.md queue A item 12 (the analyzers: the "
+                   "fault-site registry's own scan and its coverage report)")
 
 CHECKPOINT_META_NAME = "checkpoint_meta.json"
 

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention, score_scale
-from ..parallel.mesh import TODO_MESH
+from ..parallel.mesh import TODO_AXES
 from ..utils import resolve_device
 from .transformer import (DROPOUT_MIXER, DROPOUT_MLP, Attention, Block,
                           DropoutSeed, MLPBlock, RMSNorm, TransformerConfig,
@@ -203,7 +203,7 @@ class Seq2SeqTransformer(nn.Module):
 def seq2seq_shardings(params: tp.Any) -> tp.NoReturn:
     raise NotImplementedError(f"seq2seq_shardings (megatron / FSDP "
                               f"PartitionSpecs) is not ported yet: "
-                              f"{TODO_MESH}")
+                              f"{TODO_AXES['tensor']}")
 
 
 Params = tp.Dict[str, tp.Any]

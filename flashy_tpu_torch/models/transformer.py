@@ -610,3 +610,63 @@ class TransformerLM(nn.Module):
         if return_aux:
             return logits, moe_aux_loss(self)
         return logits
+
+
+def transformer_shardings(params: tp.Any) -> tp.Dict[str, tp.Any]:
+    """The spec of every parameter of a TransformerLM, by name: the port
+    of the JAX package's `transformer_shardings` over the port's names
+    (`dict(model.named_parameters())`, a state dict or `params_from_jax`'s
+    tree; the layouts are the JAX package's, so each spec splits the
+    reference's dims). Megatron-style tensor splits over 'tensor' with
+    FSDP sharding over 'fsdp':
+
+      embed [V, D]            -> (tensor, fsdp)
+      attn qkv [D, 3, H, Dh]  -> (fsdp, None, tensor, None)
+      attn out [H, Dh, D]     -> (tensor, None, fsdp)
+      ssd cbv [D, H, P]       -> (fsdp, tensor, None)
+      ssd out [H, Dh, D]      -> (tensor, None, fsdp)
+      ssd dt_bias [H]         -> (tensor,)
+      mlp up [D, 2F]          -> (fsdp, tensor)
+      mlp down [F, D]         -> (tensor, fsdp)
+      moe w_up [E, D, F]      -> (expert, fsdp, tensor)
+      moe w_down [E, F, D]    -> (expert, tensor, fsdp)
+      moe router [D, E]       -> replicated
+      norms [D]               -> replicated
+
+    A scan-stacked leaf (`blocks.block....`) leads with 'pipe'. At
+    `tensor=1` the tensor entries are replication; `wrap(model,
+    fsdp=True, state_sharding=transformer_shardings(...))` holds each
+    parameter as its 'fsdp' shard."""
+    from ..parallel.sharding import P
+
+    def spec_for(name: str) -> P:
+        joined = name.replace(".", "/")
+        if "embed" in joined:
+            return P("tensor", "fsdp")
+        if "moe/w_up" in joined:
+            base: tp.Tuple = ("expert", "fsdp", "tensor")
+        elif "moe/w_down" in joined:
+            base = ("expert", "tensor", "fsdp")
+        elif "router" in joined:
+            base = ()
+        elif "qkv" in joined:
+            base = ("fsdp", None, "tensor", None)
+        elif "attn/out" in joined:
+            base = ("tensor", None, "fsdp")
+        elif "ssd/cbv" in joined:
+            base = ("fsdp", "tensor", None)
+        elif "ssd/out" in joined:
+            base = ("tensor", None, "fsdp")
+        elif "ssd/dt_bias" in joined:
+            base = ("tensor",)
+        elif "mlp/up" in joined:
+            base = ("fsdp", "tensor")
+        elif "mlp/down" in joined:
+            base = ("tensor", "fsdp")
+        else:
+            base = ()
+        if "blocks/" in joined:
+            return P("pipe", *base)
+        return P(*base)
+
+    return {name: spec_for(name) for name in params}

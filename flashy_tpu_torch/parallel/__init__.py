@@ -1,12 +1,43 @@
 """parallel of the PyTorch port (see the matching flashy_tpu.parallel):
-device meshes (`mesh`), data parallelism across processes
-(`data_parallel`: `wrap` as DistributedDataParallel, `shard_batch`,
-`with_grad_accumulation`), sequence-parallel ring attention (`ring`, and
-the single-kernel forward of `ring_fused`) and the single-device half of
-the expert layer's grouped MLP (`moe_ep`)."""
+device meshes (`mesh`), the port's layout records (`sharding`: `P`,
+`NamedSharding`), data parallelism across processes and its sharded
+forms (`data_parallel`: `wrap` as DistributedDataParallel, FSDP or a
+declared ZeRO layout, `shard_batch`, `with_grad_accumulation`, the leaf
+rule), the ZeRO-1 weight update (`zero`), the count of a step's
+collectives (`accounting`), sequence-parallel ring attention (`ring`,
+and the single-kernel forward of `ring_fused`) and the single-device
+half of the expert layer's grouped MLP (`moe_ep`)."""
 from .mesh import (default_mesh, make_mesh, mesh_shape_from_devices,  # noqa: F401
                    set_default_mesh)
-from .data_parallel import (fsdp_sharding, replicate, shard_batch,  # noqa: F401
+from .sharding import NamedSharding, P  # noqa: F401
+from .data_parallel import (axis_leaf_sharding, batch_spec,  # noqa: F401
+                            fsdp_sharding, replicate, shard_batch,
                             shard_params, with_grad_accumulation, wrap)
 from .ring import ring_attention, ring_self_attention  # noqa: F401
 from .ring_fused import fused_ring_attention  # noqa: F401
+from .accounting import (collective_stats,  # noqa: F401
+                         compare_collective_stats, count_collectives,
+                         memory_stats, total_collective_bytes)
+
+# ZeRO exports resolve lazily (PEP 562), as in the JAX package:
+# `python -m flashy_tpu_torch.parallel.zero` is a CLI entry point, and an
+# eager import here would put the module in sys.modules before runpy
+# executes it (a double-execution RuntimeWarning on every run).
+_LAZY_EXPORTS = {
+    "zero_sharding": "zero", "zero_update": "zero",
+    "per_device_bytes": "zero", "describe_state_sharding": "zero",
+    "audit_expectations": "zero", "run_zero_bench": "zero",
+    "model_state": "zero",
+}
+
+
+def __getattr__(name):
+    module = _LAZY_EXPORTS.get(name)
+    if module is not None:
+        import importlib
+        return getattr(importlib.import_module(f".{module}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY_EXPORTS))

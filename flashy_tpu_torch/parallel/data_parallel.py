@@ -5,30 +5,43 @@ The JAX package's `wrap` jits a step with the batch sharded over the
 mesh's batch axes and lets XLA insert the gradient all-reduce. The
 port's `wrap` plays the same role in PyTorch's idiom: it returns
 `torch.nn.parallel.DistributedDataParallel` over the model when the
-world holds more than one rank (one rank a process, the mesh's `data`
-axis), whose bucketed all-reduce averages the gradients and overlaps
-the backward, and the model itself at one rank. Each process feeds its
-own rows of the global batch (`shard_batch`, `flashy_tpu_torch.data`).
+world holds more than one rank (one rank a process over the mesh's
+process axes, `data` x `fsdp`), whose bucketed all-reduce averages the
+gradients and overlaps the backward, and the model itself at one rank.
+Each process feeds its own rows of the global batch (`shard_batch`,
+`flashy_tpu_torch.data`).
+
+The JAX package declares FSDP and ZeRO as shardings and lets XLA insert
+the gathers and reduce-scatters. The port writes them out: `wrap(model,
+fsdp=True)` holds each parameter as the process's shard and gathers a
+block's parameters around its forward (and again for its backward),
+`wrap(model, state_sharding=...)` keeps compute replicated and shards
+the weight update; both reduce-scatter the gradients through
+`distrib.reduce_scatter` and record their layout as the port's
+`NamedSharding`s (`sharding.py`), whose specs come from the reference's
+leaf rule (`axis_leaf_sharding`, `fsdp_sharding`). It uses neither
+`torch.distributed.fsdp` nor DTensor: their collectives would reach gloo
+with CUDA tensors, which gloo reduces only in all_reduce, where
+`distrib` stages them through the host.
 
 `with_grad_accumulation` runs microbatches in sequence with f32 running
-sums; under DDP every microbatch but the last runs in `no_sync()`, so
-the all-reduce happens once a step. FSDP and declared state shardings
-(`fsdp=True`, `state_sharding`, `batch_spec`, `axis_leaf_sharding`,
-`fsdp_sharding`, `shard_params`) raise, naming ROADMAP.md queue A item 8.
+sums; under DDP and the sharded forms every microbatch but the last runs
+in `no_sync()`, so the reduction happens once a step.
 """
 import contextlib
+import math
 import typing as tp
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
 
 from .. import distrib
-from .mesh import Mesh
+from .mesh import Mesh, default_mesh
+from .sharding import NamedSharding, P, place
 
 BATCH_AXES = ("data", "fsdp")
-TODO_FSDP = ("ROADMAP.md queue A item 8 (FSDP / ZeRO parameter and "
-             "state sharding)")
 
 
 def _batch_device(mesh: tp.Optional[Mesh], device: tp.Any) -> torch.device:
@@ -61,9 +74,10 @@ def shard_batch(batch: tp.Any, mesh: tp.Optional[Mesh] = None,
     """Place this process's local batch (a tree of arrays, leading dim =
     batch) on its device. Across processes each contributes its own
     rows, as the JAX package's processes contribute their local shards:
-    the global batch is the ranks' rows in rank order. `batch_axes` is
-    kept for the JAX package's signature (only 'data' and 'fsdp' shard a
-    batch, and 'fsdp' above 1 is not ported)."""
+    the global batch is the ranks' rows in rank order, which is
+    `batch_spec(('data', 'fsdp'))`'s order (process `r` sits at
+    `(r // fsdp, r % fsdp)`). `batch_axes` is kept for the JAX package's
+    signature (only 'data' and 'fsdp' shard a batch)."""
     unknown = set(batch_axes) - set(BATCH_AXES)
     if unknown:
         raise ValueError(f"batch axes {sorted(unknown)} do not shard a "
@@ -79,23 +93,95 @@ def replicate(tree: tp.Any, mesh: tp.Optional[Mesh] = None,
     return distrib.broadcast_tensors(placed)
 
 
-def batch_spec(batch_axes: tp.Sequence[str] = BATCH_AXES) -> tp.NoReturn:
-    raise NotImplementedError(f"batch_spec (a PartitionSpec) has no "
-                              f"counterpart yet: {TODO_FSDP}")
+def batch_spec(batch_axes: tp.Sequence[str] = BATCH_AXES) -> P:
+    """The spec sharding the leading (batch) dim over the batch axes."""
+    return P(tuple(batch_axes))
 
 
-def axis_leaf_sharding(*args: tp.Any, **kwargs: tp.Any) -> tp.NoReturn:
-    raise NotImplementedError(f"axis_leaf_sharding is not ported yet: "
-                              f"{TODO_FSDP}")
+def axis_leaf_sharding(mesh: Mesh, axis: str, min_size: int,
+                       base: tp.Optional[tp.Callable[[tp.Any], P]] = None
+                       ) -> tp.Callable[[tp.Any], NamedSharding]:
+    """Leaf rule shared by `fsdp_sharding` (axis='fsdp') and
+    `zero.zero_sharding` (axis='data'): shard the largest dimension
+    divisible by the axis size; leaves below `min_size` elements stay
+    replicated (sharding tiny arrays costs more in collective latency
+    than it saves in memory).
+
+    `base` composes a second parallelism dimension through the same
+    seam: a callable returning the spec a leaf ALREADY carries (the
+    megatron column/row splits of `transformer_shardings`). The rule
+    then shards the largest divisible dim NOT claimed by the base spec
+    and merges the two; where every divisible dim is claimed it rides
+    along an already-sharded dim (the HSDP spelling ('fsdp', 'data'))
+    wherever the composed shard still divides."""
+    axis_size = mesh.shape[axis]
+
+    def leaf_sharding(x: tp.Any) -> NamedSharding:
+        shape = tuple(np.shape(x))
+        if base is None:
+            spec: tp.List[tp.Any] = [None] * len(shape)
+        else:
+            spec = list(base(x))
+            spec += [None] * (len(shape) - len(spec))
+        used = {name for part in spec if part is not None
+                for name in (part if isinstance(part, tuple) else (part,))}
+        if axis_size > 1 and math.prod(shape) >= min_size \
+                and axis not in used:
+            # prefer sharding the largest divisible dim
+            order = sorted(range(len(shape)), key=lambda i: -shape[i])
+            for dim in order:
+                if spec[dim] is None and shape[dim] % axis_size == 0:
+                    spec[dim] = axis
+                    break
+            else:
+                for dim in order:
+                    part = spec[dim]
+                    if part is None:
+                        continue
+                    parts = part if isinstance(part, tuple) else (part,)
+                    span = axis_size * math.prod(mesh.shape[p]
+                                                 for p in parts)
+                    if shape[dim] % span == 0:
+                        spec[dim] = (*parts, axis)
+                        break
+        if base is None and not any(part is not None for part in spec):
+            # the reference's spelling: a replicated leaf is P(), not an
+            # all-None spec of matching rank
+            return NamedSharding(mesh, P())
+        return NamedSharding(mesh, P(*spec))
+
+    return leaf_sharding
 
 
-def fsdp_sharding(*args: tp.Any, **kwargs: tp.Any) -> tp.NoReturn:
-    raise NotImplementedError(f"fsdp_sharding is not ported yet: "
-                              f"{TODO_FSDP}")
+def tree_map(fn: tp.Callable, tree: tp.Any, *rest: tp.Any) -> tp.Any:
+    """`fn` over the leaves of dicts, lists and tuples (a `state_dict`
+    among them), and over the matching leaves of `rest`."""
+    leaves, rebuild = distrib._flatten(tree)
+    others = [distrib._flatten(other)[0] for other in rest]
+    return rebuild([fn(leaf, *(other[i] for other in others))
+                    for i, leaf in enumerate(leaves)])
 
 
-def shard_params(*args: tp.Any, **kwargs: tp.Any) -> tp.NoReturn:
-    raise NotImplementedError(f"shard_params is not ported yet: {TODO_FSDP}")
+def fsdp_sharding(tree: tp.Any, mesh: tp.Optional[Mesh] = None,
+                  axis: str = "fsdp", min_size: int = 2 ** 16) -> tp.Any:
+    """Per-leaf NamedShardings that split each large parameter over `axis`.
+
+    The largest dimension divisible by the axis size is sharded; small
+    leaves stay replicated. `wrap(model, fsdp=True)` holds each
+    parameter as its rank's shard under these (or under a model's own
+    spec tree), gathers a block's parameters for its forward and
+    reduce-scatters their gradients. For the ZeRO-1 middle ground (shard
+    only the update) see `flashy_tpu_torch.parallel.zero`."""
+    mesh = mesh or default_mesh()
+    return tree_map(axis_leaf_sharding(mesh, axis, min_size), tree)
+
+
+def shard_params(params: tp.Any, mesh: tp.Optional[Mesh] = None,
+                 axis: str = "fsdp", min_size: int = 2 ** 16) -> tp.Any:
+    """This process's slices of a full parameter tree under
+    `fsdp_sharding` (`sharding.place`): each leaf a contiguous tensor
+    carrying its `sharding`."""
+    return place(params, fsdp_sharding(params, mesh, axis, min_size))
 
 
 def _accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -133,7 +219,9 @@ def with_grad_accumulation(value_and_grad_fn: tp.Callable,
     `no_sync()`, so the last backward all-reduces the summed gradients
     once; with low-precision gradients every microbatch runs in
     `no_sync()` and the f32 sums are averaged across ranks before they
-    are cast back. One microbatch returns `value_and_grad_fn` itself.
+    are cast back. The sharded forms of `wrap` keep their own f32 sums
+    under `no_sync()` and reduce them with the last microbatch's
+    gradients, once. One microbatch returns `value_and_grad_fn` itself.
     """
     if fold_rng not in (True, False, "typed"):
         raise ValueError(
@@ -147,9 +235,11 @@ def with_grad_accumulation(value_and_grad_fn: tp.Callable,
             raise ValueError(f"batch {batch.shape[0]} does not split into "
                              f"{num_microbatches} microbatches")
         params = [p for p in model.parameters() if p.requires_grad]
+        sharded = sharded_state(model) is not None
         low = [p for p in params
-               if _accum_dtype(p.dtype) != p.dtype and not p.dtype.is_complex]
-        ddp = isinstance(model, nn.parallel.DistributedDataParallel)
+               if _accum_dtype(p.dtype) != p.dtype and not p.dtype.is_complex
+               and not sharded]
+        ddp = sharded or isinstance(model, nn.parallel.DistributedDataParallel)
         sums: tp.Dict[int, torch.Tensor] = {}
         total = None
         micro = batch.split(batch.shape[0] // num_microbatches)
@@ -188,6 +278,517 @@ def with_grad_accumulation(value_and_grad_fn: tp.Callable,
     return wrapped
 
 
+# ----------------------------------------------------------------------
+# the sharded forms of `wrap`: FSDP (ZeRO-3) and a declared ZeRO layout
+# ----------------------------------------------------------------------
+class _Leaf:
+    """One parameter of a sharded layout: its owner module and attribute,
+    its qualified name, its NamedSharding, the one dim it splits (None:
+    replicated) over `axis`, and its full shape."""
+
+    def __init__(self, owner: nn.Module, name: str, key: str,
+                 sharding: NamedSharding, full_shape: tp.Sequence[int]):
+        self.owner, self.name, self.key = owner, name, key
+        self.sharding = sharding
+        self.dim = sharding.split_dim()
+        axes = sharding.axis_names()
+        if self.dim is not None and len(axes) != 1:
+            raise NotImplementedError(
+                f"{key}: {sharding.spec!r} splits one dim over {axes}; the "
+                f"port shards a leaf over one process axis (composed "
+                f"layouts come with ROADMAP.md queue A item 8b)")
+        self.axis = axes[0] if axes else None
+        self.full_shape = tuple(full_shape)
+        self.shard_shape = sharding.shard_shape(full_shape)
+
+
+class _Layout:
+    """The collectives of a sharded layout over its leaves: `gather`
+    (update tensors -> full tensors, one all-gather per (axis, dtype))
+    and `reduce` (full gradients -> the update tensors' gradients,
+    averaged over every process as DistributedDataParallel averages
+    them: divided by the process count, then summed; a sharded leaf's by
+    one reduce-scatter over its axis and an all-reduce over the other
+    process axis, a replicated leaf's by one all-reduce)."""
+
+    def __init__(self, mesh: Mesh, leaves: tp.Sequence[_Leaf]):
+        self.mesh = mesh
+        self.leaves = list(leaves)
+        groups: tp.Dict[tp.Any, tp.List[int]] = {}
+        for index, leaf in enumerate(self.leaves):
+            groups.setdefault((leaf.axis, leaf.owner._parameters[
+                leaf.name].dtype), []).append(index)
+        self.groups = groups
+
+    def _other(self, axis: str) -> tp.Optional[str]:
+        other = "data" if axis == "fsdp" else "fsdp"
+        return other if self.mesh.shape[other] > 1 else None
+
+    def gather(self, tensors: tp.Sequence[torch.Tensor]
+               ) -> tp.List[torch.Tensor]:
+        """Each sharded leaf's full tensor from this process's shard (a
+        new tensor); a replicated leaf's tensor as it is (detached)."""
+        out = [t.detach() for t in tensors]
+        for (axis, _), indices in self.groups.items():
+            if axis is None:
+                continue
+            n = self.mesh.shape[axis]
+            flat = torch.cat([tensors[i].detach().reshape(-1)
+                              for i in indices])
+            gathered = distrib.all_gather(flat, self.mesh.group(axis))
+            gathered = gathered.view(n, flat.numel())
+            offset = 0
+            for i in indices:
+                leaf, size = self.leaves[i], tensors[i].numel()
+                out[i] = torch.cat(
+                    [gathered[r, offset:offset + size].view(leaf.shard_shape)
+                     for r in range(n)], dim=leaf.dim)
+                offset += size
+        return out
+
+    def reduce(self, grads: tp.Sequence[tp.Optional[torch.Tensor]]
+               ) -> tp.List[torch.Tensor]:
+        """The update tensors' gradients from the full gradients (None:
+        zeros; every process must still join the collectives)."""
+        scale = float(self.mesh.processes)
+        full = [g if g is not None else torch.zeros(
+            leaf.full_shape, dtype=leaf.owner._parameters[leaf.name].dtype,
+            device=leaf.owner._parameters[leaf.name].device)
+            for g, leaf in zip(grads, self.leaves)]
+        out: tp.List[tp.Optional[torch.Tensor]] = [None] * len(full)
+        for (axis, _), indices in self.groups.items():
+            if axis is None:
+                flat = torch.cat([full[i].reshape(-1) for i in indices])
+                flat = distrib.all_reduce(flat.div_(scale), "sum")
+                sizes = [full[i].numel() for i in indices]
+                for i, part in zip(indices, flat.split(sizes)):
+                    out[i] = part.view(full[i].shape)
+                continue
+            n = self.mesh.shape[axis]
+            chunks = [full[i].chunk(n, self.leaves[i].dim) for i in indices]
+            flat = torch.cat([chunk[r].reshape(-1) for r in range(n)
+                              for chunk in chunks])
+            mine = distrib.reduce_scatter(flat.div_(scale),
+                                          self.mesh.group(axis))
+            other = self._other(axis)
+            if other is not None:
+                mine = distrib.all_reduce(mine, "sum",
+                                          self.mesh.group(other))
+            sizes = [math.prod(self.leaves[i].shard_shape) for i in indices]
+            for i, part in zip(indices, mine.split(sizes)):
+                out[i] = part.view(self.leaves[i].shard_shape)
+        return tp.cast(tp.List[torch.Tensor], out)
+
+
+class _SavedParam(tp.NamedTuple):
+    """What a unit's saved full parameter packs to: re-gathered for the
+    backward (`_Sharded.unpack`)."""
+    unit: "_Unit"
+    index: int
+    size: torch.Size
+    stride: tp.Tuple[int, ...]
+    offset: int
+
+
+class _Unit:
+    """A group of leaves gathered together: a child module of an FSDP
+    model (its parameters gathered on its forward pre-hook, released
+    after its forward), the model's own parameters (the root unit,
+    gathered across the whole forward: the tied head's embedding serves
+    both its uses), or every parameter of a ZeRO-1 model (`gathers`
+    False: the full copies are persistent; the optimizer's updates reach
+    them through `_ZeroModel.gather_params`)."""
+
+    def __init__(self, sharded: "_Sharded", leaves: tp.Sequence[_Leaf],
+                 gathers: bool, updates: tp.Optional[tp.Sequence[
+                     torch.Tensor]] = None):
+        self.sharded = sharded
+        self.leaves = list(leaves)
+        self.layout = _Layout(sharded.mesh, self.leaves)
+        self.gathers = gathers
+        self.updates = updates
+        self.accumulated: tp.Optional[tp.List[torch.Tensor]] = None
+        self.regathered: tp.Optional[tp.List[torch.Tensor]] = None
+        self.live: tp.List[int] = []
+
+    def inputs(self) -> tp.List[torch.Tensor]:
+        """The tensors the optimizer updates: an FSDP model's current
+        parameters (its shards, or what `functional_call` put there), a
+        ZeRO-1 model's update tensors."""
+        if self.updates is not None:
+            return list(self.updates)
+        return [leaf.owner._parameters[leaf.name] for leaf in self.leaves]
+
+    def full_values(self, inputs: tp.Sequence[torch.Tensor]
+                    ) -> tp.List[torch.Tensor]:
+        if self.gathers:
+            return self.layout.gather(inputs)
+        # ZeRO-1: the module's own (replicated) parameters
+        return [leaf.owner._parameters[leaf.name].detach()
+                for leaf in self.leaves]
+
+    def regather(self) -> tp.List[torch.Tensor]:
+        """The full parameters again, for the backward (once a backward:
+        released when the unit's gradients are reduced)."""
+        if self.regathered is None:
+            with torch.no_grad():
+                self.regathered = self.layout.gather(self.inputs())
+        return self.regathered
+
+    def enter(self) -> None:
+        """Put the full parameters where the module's forward reads them
+        (each owner's instance `__dict__`, which attribute lookup reads
+        before the registered shard)."""
+        if self.sharded.summoned:
+            return
+        self.regathered = None
+        inputs = self.inputs()
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            fulls = _ShardedUse.apply(self, *inputs)
+        else:
+            with torch.no_grad():
+                fulls = self.full_values(inputs)
+        for leaf, full in zip(self.leaves, fulls):
+            leaf.owner.__dict__[leaf.name] = full
+        if self.gathers:
+            for index, (leaf, full) in enumerate(zip(self.leaves, fulls)):
+                if leaf.dim is not None and full.numel():
+                    key = full.untyped_storage().data_ptr()
+                    self.sharded.live[key] = (self, index)
+                    self.live.append(key)
+
+    def exit(self) -> None:
+        """Release the full parameters (what autograd saved of them
+        packs to `_SavedParam` and is re-gathered in the backward)."""
+        if self.sharded.summoned:
+            return
+        for leaf in self.leaves:
+            leaf.owner.__dict__.pop(leaf.name, None)
+        for key in self.live:
+            self.sharded.live.pop(key, None)
+        self.live = []
+
+    def backward(self, grads: tp.Sequence[tp.Optional[torch.Tensor]]
+                 ) -> tp.List[tp.Optional[torch.Tensor]]:
+        """Reduce the full gradients into the update tensors' gradients;
+        under `no_sync()` add them to the unit's running sums instead."""
+        self.regathered = None
+        if self.accumulated is not None:
+            grads = [acc if g is None else acc + g.to(acc.dtype)
+                     for acc, g in zip(self.accumulated, grads)]
+        if not self.sharded.sync:
+            self.accumulated = [
+                (g if g is not None else torch.zeros(
+                    leaf.full_shape, device=leaf.owner._parameters[
+                        leaf.name].device)).to(_accum_dtype(
+                            leaf.owner._parameters[leaf.name].dtype))
+                for g, leaf in zip(grads, self.leaves)]
+            return [None] * len(grads)
+        self.accumulated = None
+        reduced = self.layout.reduce(
+            [None if g is None else g.to(leaf.owner._parameters[
+                leaf.name].dtype) for g, leaf in zip(grads, self.leaves)])
+        return list(reduced)
+
+
+class _ShardedUse(torch.autograd.Function):
+    """A unit's full parameters from its update tensors: the forward
+    gathers them (FSDP) or hands out the replicated copies (ZeRO-1);
+    the backward reduces their gradients into the update tensors."""
+
+    @staticmethod
+    def forward(ctx: tp.Any, unit: _Unit, *inputs: torch.Tensor
+                ) -> tp.Tuple[torch.Tensor, ...]:
+        ctx.unit = unit
+        return tuple(unit.full_values(inputs))
+
+    @staticmethod
+    def backward(ctx: tp.Any, *grads: torch.Tensor) -> tp.Any:
+        return (None,) + tuple(ctx.unit.backward(grads))
+
+
+class _Sharded:
+    """The sharded form's state on a model (`model._sharded`): its mesh,
+    units, the NamedSharding of every update tensor by parameter name
+    (`shardings`, what `describe_state_sharding` and the checkpoint
+    read), whether backward reduces (`no_sync` clears it), and the
+    storages of the full parameters gathered right now (`live`)."""
+
+    def __init__(self, mesh: Mesh, mode: str):
+        self.mesh = mesh
+        self.mode = mode
+        self.units: tp.List[_Unit] = []
+        self.shardings: tp.Dict[str, NamedSharding] = {}
+        self.sync = True
+        self.live: tp.Dict[int, tp.Tuple[_Unit, int]] = {}
+        self.summoned = False
+
+    def pack(self, tensor: torch.Tensor) -> tp.Any:
+        if self.live and isinstance(tensor, torch.Tensor) and tensor.numel():
+            hit = self.live.get(tensor.untyped_storage().data_ptr())
+            if hit is not None:
+                return _SavedParam(hit[0], hit[1], tensor.size(),
+                                   tensor.stride(), tensor.storage_offset())
+        return tensor
+
+    @staticmethod
+    def unpack(saved: tp.Any) -> tp.Any:
+        if isinstance(saved, _SavedParam):
+            full = saved.unit.regather()[saved.index]
+            return full.as_strided(saved.size, saved.stride, saved.offset)
+        return saved
+
+    @contextlib.contextmanager
+    def summon_full_params(self) -> tp.Iterator[None]:
+        """Inside the block an FSDP model's registered parameters are the
+        full ones (gathered once, no gradient), so code that reads
+        `named_parameters()`, such as the decoder, sees the whole model;
+        the shards are back after it. Collective: every process enters
+        it together."""
+        if self.mode != "fsdp" or self.summoned:
+            yield
+            return
+        held = []
+        with torch.no_grad():
+            for unit in self.units:
+                for leaf, full in zip(unit.leaves,
+                                      unit.layout.gather(unit.inputs())):
+                    shard = leaf.owner._parameters[leaf.name]
+                    held.append((leaf, shard))
+                    leaf.owner._parameters[leaf.name] = nn.Parameter(
+                        full, requires_grad=False)
+        self.summoned = True
+        try:
+            yield
+        finally:
+            self.summoned = False
+            for leaf, shard in held:
+                leaf.owner._parameters[leaf.name] = shard
+
+    @contextlib.contextmanager
+    def no_sync(self) -> tp.Iterator[None]:
+        """Backward adds the full gradients to running sums (one per
+        parameter, f32) instead of reducing them; the first backward
+        after the block reduces the sums with its own gradients."""
+        previous, self.sync = self.sync, False
+        try:
+            yield
+        finally:
+            self.sync = previous
+
+
+def _resolve_shardings(model: nn.Module, mesh: Mesh, spec: tp.Any,
+                       default: tp.Callable[[tp.Any], tp.Any]
+                       ) -> tp.Dict[str, NamedSharding]:
+    """Every parameter's NamedSharding: from `spec` (a mapping of
+    parameter names to specs or NamedShardings, as `transformer_shardings`
+    and `fsdp_sharding` give), else from `default` over the parameters."""
+    params = dict(model.named_parameters())
+    if spec is None:
+        spec = default(params)
+    out = {}
+    for name, param in params.items():
+        if name not in spec:
+            raise KeyError(f"the sharding spec has no entry for parameter "
+                           f"{name!r}")
+        entry = spec[name]
+        out[name] = entry if isinstance(entry, NamedSharding) \
+            else NamedSharding(mesh, entry)
+        out[name].shard_shape(param.shape)
+    return out
+
+
+def _leaves(model: nn.Module, shardings: tp.Mapping[str, NamedSharding],
+            names: tp.Sequence[str]) -> tp.List[_Leaf]:
+    """The leaves of `model`'s (full) parameters `names`."""
+    out = []
+    for name in names:
+        owner_path, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_path) if owner_path else model
+        out.append(_Leaf(owner, attr, name, shardings[name],
+                         owner._parameters[attr].shape))
+    return out
+
+
+def _fsdp(model: nn.Module, mesh: Mesh, spec: tp.Any) -> nn.Module:
+    """Turn `model` into its FSDP form in place (see `wrap`)."""
+    from .mesh import PROCESS_AXES
+    if mesh.shape["fsdp"] == 1 and mesh.shape["data"] == 1:
+        return model
+    shardings = _resolve_shardings(
+        model, mesh, spec, lambda params: fsdp_sharding(params, mesh))
+    for sharding in shardings.values():
+        stray = set(sharding.axis_names()) - set(PROCESS_AXES)
+        if stray:
+            raise NotImplementedError(
+                f"wrap(fsdp=True) shards over the process axes, not "
+                f"{sorted(stray)}")
+    distrib.broadcast_model(model)
+    sharded = _Sharded(mesh, "fsdp")
+    sharded.shardings = shardings
+    # the units' leaves, with their full shapes, before the shards replace
+    # the parameters
+    own = [name for name, _ in model.named_parameters(recurse=False)]
+    children = [(child, [f"{child_name}.{name}" for name, _ in
+                         child.named_parameters()])
+                for child_name, child in model.named_children()]
+    units = [(child, _leaves(model, shardings, names))
+             for child, names in children if names]
+    root_leaves = _leaves(model, shardings, own)
+    with torch.no_grad():
+        for name, param in list(model.named_parameters()):
+            owner_path, _, attr = name.rpartition(".")
+            owner = model.get_submodule(owner_path) if owner_path else model
+            local = nn.Parameter(shardings[name].shard(param.detach())
+                                 .clone(), requires_grad=param.requires_grad)
+            local.sharding = shardings[name]
+            owner._parameters[attr] = local
+    for child, leaves in units:
+        unit = _Unit(sharded, leaves, True)
+        sharded.units.append(unit)
+        child.register_forward_pre_hook(
+            lambda module, args, unit=unit: unit.enter())
+        child.register_forward_hook(
+            lambda module, args, output, unit=unit: unit.exit())
+    root = _Unit(sharded, root_leaves, True)
+    sharded.units.append(root)
+    forward = model.forward
+
+    def sharded_forward(*args: tp.Any, **kwargs: tp.Any) -> tp.Any:
+        root.enter()
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(sharded.pack,
+                                                          sharded.unpack):
+                return forward(*args, **kwargs)
+        finally:
+            root.exit()
+
+    model.forward = sharded_forward
+    model._sharded = sharded
+    model.no_sync = sharded.no_sync
+    model.summon_full_params = sharded.summon_full_params
+    return model
+
+
+class _ZeroModel(nn.Module):
+    """A model under a declared ZeRO layout (`wrap(model,
+    state_sharding=...)`): compute and `module`'s parameters stay
+    replicated; `parameters()` are the tensors the optimizer updates,
+    this process's shard of each parameter whose update state the layout
+    shards (a new `nn.Parameter` carrying its `.sharding`) and the
+    parameter itself where it stays replicated. The backward
+    reduce-scatters the gradients into the shards (one reduce-scatter
+    and one all-reduce a step); after any optimizer's step over the
+    shards the fresh parameters are all-gathered into `module` once."""
+
+    def __init__(self, module: nn.Module, mesh: Mesh,
+                 shardings: tp.Mapping[str, NamedSharding]):
+        super().__init__()
+        self.module = module
+        distrib.broadcast_model(module)
+        sharded = _Sharded(mesh, "zero1")
+        sharded.shardings = dict(shardings)
+        names = [name for name, _ in module.named_parameters()]
+        leaves = _leaves(module, shardings, names)
+        updates = []
+        with torch.no_grad():
+            for leaf in leaves:
+                param = leaf.owner._parameters[leaf.name]
+                if leaf.dim is None:
+                    updates.append(param)
+                    continue
+                local = nn.Parameter(leaf.sharding.shard(param.detach())
+                                     .clone(),
+                                     requires_grad=param.requires_grad)
+                local.sharding = leaf.sharding
+                updates.append(local)
+        self._names = names
+        self._updates = updates
+        self._unit = _Unit(sharded, leaves, False, updates)
+        sharded.units.append(self._unit)
+        self._sharded = sharded
+        self.no_sync = sharded.no_sync
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+        ids = {id(u) for u, leaf in zip(updates, leaves)
+               if leaf.dim is not None}
+        ref = weakref.ref(self)
+
+        def after_step(optimizer: torch.optim.Optimizer, args: tp.Any,
+                       kwargs: tp.Any) -> None:
+            model = ref()
+            if model is None:
+                handle.remove()
+                return
+            if any(id(p) in ids for group in optimizer.param_groups
+                   for p in group["params"]):
+                model.gather_params()
+
+        handle = register_optimizer_step_post_hook(after_step)
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True,
+                         remove_duplicate: bool = True
+                         ) -> tp.Iterator[tp.Tuple[str, nn.Parameter]]:
+        for name, update in zip(self._names, self._updates):
+            yield prefix + name, update
+
+    def parameters(self, recurse: bool = True
+                   ) -> tp.Iterator[nn.Parameter]:
+        for _, update in self.named_parameters():
+            yield update
+
+    def gather_params(self) -> None:
+        """All-gather the shards into the replicated parameters (one
+        all-gather a step)."""
+        unit = self._unit
+        fulls = unit.layout.gather(self._updates)
+        with torch.no_grad():
+            for leaf, full in zip(unit.leaves, fulls):
+                if leaf.dim is not None:
+                    leaf.owner._parameters[leaf.name].copy_(full)
+
+    def forward(self, *args: tp.Any, **kwargs: tp.Any) -> tp.Any:
+        self._unit.enter()
+        try:
+            return self.module(*args, **kwargs)
+        finally:
+            self._unit.exit()
+
+
+def sharded_state(model: tp.Any) -> tp.Optional[_Sharded]:
+    """The sharded form's record of `model` (FSDP or ZeRO), or None."""
+    return getattr(model, "_sharded", None)
+
+
+def grad_norm(params: tp.Iterable[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the gradients of `params`, a 0-d f32 tensor
+    on their device: each sharded update tensor's squares (a `.sharding`
+    splitting it over a process axis) summed over that axis's group, a
+    replicated one's counted once, as the norm over the full gradients
+    (the gradients of replicated leaves are equal on every process)."""
+    total, sharded = None, {}
+    for param in params:
+        if param.grad is None:
+            continue
+        square = param.grad.float().pow(2).sum()
+        sharding = getattr(param, "sharding", None)
+        axes = sharding.axis_names() if sharding is not None else ()
+        if axes:
+            key = (id(sharding.mesh), axes)
+            value = sharded.get(key)
+            sharded[key] = (sharding, square if value is None
+                            else value[1] + square)
+        else:
+            total = square if total is None else total + square
+    for sharding, square in sharded.values():
+        for axis in sharding.axis_names():
+            square = distrib.all_reduce(square, "sum",
+                                        sharding.mesh.group(axis))
+        total = square if total is None else total + square
+    if total is None:
+        return torch.zeros(())
+    return torch.sqrt(total)
+
+
 def wrap(model: tp.Optional[nn.Module] = None, *,
          mesh: tp.Optional[Mesh] = None,
          batch_axes: tp.Sequence[str] = BATCH_AXES,
@@ -195,29 +796,61 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
          **ddp_kwargs: tp.Any) -> tp.Any:
     """Make a model data-parallel over the processes: the DDP role.
 
-    Above one rank returns `DistributedDataParallel(model, **ddp_kwargs)`
-    on the default group (`distrib.init()` first; a CUDA model gets
-    `device_ids=[its card]`), which broadcasts rank 0's parameters and
-    buffers at construction and averages the gradients in the backward.
-    At one rank returns `model` itself. Usable as a decorator (`@wrap`)
-    or a call. The result's `compile_stats()` reports its forward calls;
-    compiles and recompiles stay 0 (the port runs eagerly and keeps no
-    compile cache, the deliberate difference of ROADMAP queue C's
-    watchdog entry). `mesh` and `batch_axes` are kept for the JAX
-    package's signature; `fsdp=True` and `state_sharding` raise.
+    Above one rank, by default, returns `DistributedDataParallel(model,
+    **ddp_kwargs)` on the default group (`distrib.init()` first; a CUDA
+    model gets `device_ids=[its card]`), which broadcasts rank 0's
+    parameters and buffers at construction and averages the gradients in
+    the backward (its comm hook counts every bucket's all-reduce for
+    `accounting.count_collectives`). At one rank returns `model` itself.
+
+    `fsdp=True` returns `model` itself in FSDP form (ZeRO-3) over the
+    mesh's process axes: each parameter is held as this process's shard
+    (an `nn.Parameter` carrying its `.sharding`) under `state_sharding`
+    (a mapping of parameter names to specs, e.g. the model's
+    `transformer_shardings`) or else `fsdp_sharding` of the parameters.
+    Each child module's parameters are all-gathered on its forward
+    pre-hook and released after its forward (the model's own, the tied
+    embedding among them, across the whole forward); what autograd saved
+    of them is re-gathered for the backward, and a recomputed (remat)
+    block gathers again. Each gradient is reduce-scattered into its shard
+    once a step, averaged as DDP averages it (divided by the process
+    count, then summed). Build the optimizer over `model.parameters()`:
+    its moments are then sharded too.
+
+    `state_sharding` without `fsdp` applies a declared ZeRO layout
+    (`zero.zero_sharding` of `{'params': ..., 'opt_state': ...}` keyed by
+    parameter names, or of a bare tree of them): compute and the
+    parameters stay replicated, the gradients are reduce-scattered, the
+    optimizer built over the result's `parameters()` (each sharded
+    parameter's shard) updates only this process's shard, and the fresh
+    parameters are all-gathered once after its step.
+
+    Both sharded forms have `no_sync()` (gradient accumulation reduces
+    once a step) and record their layout (`sharded_state(...)`). Usable
+    as a decorator (`@wrap`) or a call. The result's `compile_stats()`
+    reports its forward calls; compiles and recompiles stay 0 (the port
+    runs eagerly and keeps no compile cache, the deliberate difference
+    of ROADMAP queue C's watchdog entry). `batch_axes` is kept for the
+    JAX package's signature.
     """
     if model is None:
         return lambda module: wrap(module, mesh=mesh, batch_axes=batch_axes,
                                    fsdp=fsdp, state_sharding=state_sharding,
                                    **ddp_kwargs)
-    if fsdp or state_sharding is not None:
-        raise NotImplementedError(f"wrap(fsdp=True / state_sharding=) is "
-                                  f"not ported yet: {TODO_FSDP}")
     if not isinstance(model, nn.Module):
         raise TypeError(f"wrap takes an nn.Module (the port's steps run "
                         f"eagerly), got {type(model).__name__}")
     wrapped = model
-    if distrib.is_distributed():
+    if fsdp or state_sharding is not None:
+        mesh = mesh or default_mesh()
+        if distrib.is_distributed():
+            distrib._require_backend()
+        if fsdp:
+            wrapped = _fsdp(model, mesh, state_sharding)
+        else:
+            wrapped = _ZeroModel(model, mesh, _zero_shardings(
+                model, state_sharding))
+    elif distrib.is_distributed():
         distrib._require_backend()
         device = next(model.parameters()).device
         if device.type == "cuda":
@@ -225,6 +858,8 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
                                                  is not None else
                                                  torch.cuda.current_device()])
         wrapped = nn.parallel.DistributedDataParallel(model, **ddp_kwargs)
+        from .accounting import counting_allreduce_hook
+        wrapped.register_comm_hook(None, counting_allreduce_hook)
     calls = [0]
 
     def count(module: nn.Module, args: tp.Any) -> None:
@@ -238,3 +873,31 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
 
     wrapped.compile_stats = compile_stats
     return wrapped
+
+
+def _zero_shardings(model: nn.Module, spec: tp.Any
+                    ) -> tp.Dict[str, NamedSharding]:
+    """Every parameter's update NamedSharding from a declared ZeRO layout:
+    the entry of the update keys (those naming optimizer state, see
+    `zero.UPDATE_KEY_MARKERS`) or, for a bare tree, the tree itself,
+    looked up by parameter name (a nested entry under a name, such as
+    {'exp_avg': ..., 'exp_avg_sq': ...}, gives its first sharding)."""
+    from .zero import _is_update_key
+    entries = [value for key, value in spec.items()
+               if _is_update_key(str(key))] \
+        if isinstance(spec, tp.Mapping) and any(
+            _is_update_key(str(key)) for key in spec) else [spec]
+    out = {}
+    for name, _ in model.named_parameters():
+        for entry in entries:
+            if isinstance(entry, tp.Mapping) and name in entry:
+                found = entry[name]
+                if not isinstance(found, NamedSharding):
+                    found = next(leaf for leaf in distrib._flatten(found)[0]
+                                 if isinstance(leaf, NamedSharding))
+                out[name] = found
+                break
+        else:
+            raise KeyError(f"the ZeRO layout has no entry for parameter "
+                           f"{name!r}")
+    return out

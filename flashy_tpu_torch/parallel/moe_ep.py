@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..ops.grouped_matmul import gmm, tgmm
 
-TODO_EXPERT_PARALLEL = ("ROADMAP.md queue A item 8 (expert parallelism: "
+TODO_EXPERT_PARALLEL = ("ROADMAP.md queue A item 8d (expert parallelism: "
                         "moe_dispatch='dropless_ep')")
 
 

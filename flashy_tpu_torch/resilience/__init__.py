@@ -24,7 +24,7 @@ chaos campaign (`resilience.campaign`: every registry site under every
 fault kind its scenario declares, failures shrunk to a JSON reproducer)
 over the ported `train`, `datapipe`, `serve` and `fleet` scenarios;
 the pipeline, tensor and elastic scenarios wait for ROADMAP.md queue A
-item 8.
+items 8c, 8b and 8e.
 
 Importing this package touches no CUDA device.
 """

@@ -32,9 +32,9 @@ logger = logging.getLogger("flashy_tpu_torch.resilience.drill")
 
 DRILL_STEPS = 4  # fault-injectable steps per train stage
 
-TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (several processes, "
-                "ported, and state sharding, not yet), then item 9's "
-                "elastic drill")
+TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (several processes and "
+                "state across ranks, ported; item 8e's resharding "
+                "restore, not yet), then item 9's elastic drill")
 
 
 def _drill_solver_class():

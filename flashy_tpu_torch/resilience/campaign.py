@@ -19,8 +19,8 @@ datapipe drill's solver), `serve` (a one-engine fleet) and `fleet` (the
 WAL-backed two-engine fleet and its restart drill). The others declare
 their sites statically, so coverage and `static_coverage()` see the
 whole registry, and raise NotImplementedError naming their ROADMAP.md
-queue A items when run: `pipeline` and `tensor` (item 8), `elastic`
-(items 5 and 8: it waits for item 8's state sharding). A campaign over
+queue A items when run: `pipeline` (item 8c), `tensor` (item 8b),
+`elastic` (items 5 and 8: it waits for item 8e's resharding restore). A campaign over
 every scenario (`scenarios=None`) therefore raises; an explicit subset
 of ported scenarios runs with the narrowed coverage gate.
 
@@ -639,11 +639,12 @@ class FleetScenario(_ServingScenario):
             raise CampaignFailure(failures)
 
 
-TODO_PARALLEL = ("ROADMAP.md queue A item 8 (parallelism beyond data "
-                 "parallel: the pipeline schedules and tensor parallelism)")
+TODO_PIPELINE = ("ROADMAP.md queue A item 8c (pipeline parallelism: the "
+                 "1F1B schedules)")
+TODO_TENSOR = "ROADMAP.md queue A item 8b (tensor parallelism)"
 TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
-                "item 5's processes and collectives are ported, item 8's "
-                "state sharding is not)")
+                "item 5's processes and item 8a's state across ranks are "
+                "ported, item 8e's resharding restore is not)")
 
 
 class _WaitingScenario(Scenario):
@@ -665,7 +666,7 @@ class PipelineScenario(_WaitingScenario):
     host ticks: loss and grads bit-identical to the clean run."""
 
     name = "pipeline"
-    todo = TODO_PARALLEL
+    todo = TODO_PIPELINE
 
     def sites(self):
         return {"pipeline.tick": ("delay",),
@@ -677,7 +678,7 @@ class TensorScenario(_WaitingScenario):
     loss trajectory bit-identical to the clean run."""
 
     name = "tensor"
-    todo = TODO_PARALLEL
+    todo = TODO_TENSOR
 
     def sites(self):
         return {"tensor.step": ("delay",)}

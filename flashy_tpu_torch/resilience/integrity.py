@@ -71,13 +71,15 @@ def _payload_files(slot_dir: Path) -> tp.List[Path]:
 def write_manifest(slot_dir: AnyPath,
                    files: tp.Optional[tp.Iterable[AnyPath]] = None,
                    known: tp.Optional[tp.Mapping[str, tp.Tuple[str, int]]]
-                   = None) -> Path:
+                   = None, extra: tp.Optional[tp.Mapping[str, tp.Any]] = None
+                   ) -> Path:
     """Write `<slot_dir>/manifest.json`: {relpath: {sha256, size}} for
     every payload file (or the explicit `files`), atomically. Called by
     the commit path after all payload writes and before the pointer
     flip. `known` maps a relpath to a digest already taken of that file
     once it was written (an asynchronous save hashes its payload in the
-    background), so it is not read again here."""
+    background), so it is not read again here. `extra` adds top-level
+    keys (a save across ranks records its world and layout there)."""
     slot_dir = Path(slot_dir)
     targets = ([Path(f) for f in files] if files is not None
                else _payload_files(slot_dir))
@@ -88,8 +90,8 @@ def write_manifest(slot_dir: AnyPath,
         entries[rel] = {"sha256": sha, "size": size}
     manifest_path = slot_dir / MANIFEST_NAME
     with write_and_rename(manifest_path, "w") as f:
-        json.dump({"version": 1, "created": time.time(), "files": entries},
-                  f, indent=2)
+        json.dump({"version": 1, "created": time.time(), "files": entries,
+                   **(extra or {})}, f, indent=2)
     return manifest_path
 
 

@@ -23,9 +23,15 @@ picks one file ('single'), A/B slots ('sharded') or either by size
 stage or commit boundary with exit code 75; `enable_hang_watchdog`
 aborts a run whose heartbeat stalls with exit code 70.
 
-Not ported yet, each raising `NotImplementedError` that names its
-ROADMAP entry: several ranks (checkpoints across ranks among them),
-declared state shardings and resharding at restore.
+State across ranks: a model in FSDP form, an optimizer over its shards
+(or over a ZeRO model's), and attributes declared with
+`set_state_sharding` hold rank-local shards, whose NamedShardings make
+the state's layout. A sharded layout saves slots on every rank (each
+rank its shards, rank 0 the rest), a single file gathered collectively
+and written by rank 0, and `checkpoint_meta.json` records it
+(`describe_state_sharding`); a restore places each rank's shards.
+Resharding onto another world size or layout raises, naming ROADMAP.md
+queue A item 8e.
 """
 import json
 import logging
@@ -46,9 +52,6 @@ from .xp import get_xp
 
 logger = logging.getLogger(__name__)
 
-# what checkpoint_meta.json says of the state's layout on one device
-REPLICATED = {"mode": "replicated", "param_axes": [], "update_axes": [],
-              "axis_sizes": {}, "summary": "replicated"}
 
 
 class BaseSolver:
@@ -101,6 +104,8 @@ class BaseSolver:
         self._preemption_guard: tp.Optional[tp.Any] = None
         self._preemption_mode = "finish_stage"
         self._hang_watchdog: tp.Optional[tp.Any] = None
+        # registered name -> its declared NamedSharding tree
+        self._state_shardings: tp.Dict[str, tp.Any] = {}
 
     @property
     def checkpoint_path(self) -> Path:
@@ -238,9 +243,81 @@ class BaseSolver:
         return pipes
 
     def set_state_sharding(self, name: str, shardings: tp.Any) -> None:
-        raise NotImplementedError(
-            f"declared state shardings are not ported yet: "
-            f"{_checkpoint.TODO_SHARDED}")
+        """Declare the layout of the registered attribute `name`: a tree
+        of NamedShardings matching its state (e.g. `zero_sharding` of
+        its full-shaped value), or one NamedSharding for every leaf. The
+        attribute then holds, on each rank, the rank's shard of each
+        sharded leaf (`sharding.place` gives them): the checkpoint saves
+        and restores them as shards, `checkpoint_mode='auto'` picks the
+        slots, and `checkpoint_meta.json` records the layout."""
+        from .parallel.data_parallel import tree_map
+        from .parallel.sharding import NamedSharding
+        if name not in self.stateful.sources:
+            raise KeyError(f"set_state_sharding: {name!r} is not a "
+                           f"registered stateful attribute (registered: "
+                           f"{self.stateful.names()})")
+        if isinstance(shardings, NamedSharding):
+            single = shardings
+            shardings = tree_map(lambda _: single,
+                                 self.stateful.sources[name].state_dict())
+        self._state_shardings[name] = shardings
+
+    def state_layout(self, state: tp.Any = None) -> tp.Dict[str, tp.Any]:
+        """The state's layout, a tree over the registered names whose
+        leaves are NamedShardings: each declared attribute's tree
+        (`set_state_sharding`) laid over the live one (the shardings of a
+        sharded model's parameters and of an optimizer's state over
+        them, or of tensors carrying a `.sharding`); None where a leaf
+        has none. An optimizer's entries follow the tensors of `state`
+        (a state dict being restored) where given, else its live state:
+        each state tensor of a sharded parameter's rank follows the
+        parameter."""
+        import torch
+        from .parallel.data_parallel import sharded_state, tree_map
+        layout: tp.Dict[str, tp.Any] = {}
+        for name, source in self.stateful.sources.items():
+            if name in self._state_shardings:
+                layout[name] = self._state_shardings[name]
+                continue
+            if not isinstance(source, AttributeWrapper):
+                continue
+            value = getattr(source.owner, source.name, None)
+            if isinstance(value, torch.nn.Module):
+                sharded = sharded_state(value)
+                if sharded is not None:
+                    layout[name] = dict(sharded.shardings)
+            elif isinstance(value, torch.optim.Optimizer):
+                params = [p for group in value.param_groups
+                          for p in group["params"]]
+                entries = (state[name] if state is not None and name in state
+                           else value.state_dict())["state"]
+                opt: tp.Dict[int, tp.Any] = {}
+                for index, entry in entries.items():
+                    sharding = getattr(params[index], "sharding", None)
+                    if sharding is None:
+                        continue
+                    opt[index] = {key: sharding for key, item in entry.items()
+                                  if isinstance(item, torch.Tensor)
+                                  and item.dim() == params[index].dim()}
+                if opt:
+                    layout[name] = {"state": opt}
+            elif isinstance(value, (dict, list, tuple)):
+                tree = tree_map(lambda leaf: getattr(leaf, "sharding", None),
+                                value)
+                if any(leaf is not None
+                       for leaf in distrib._flatten(tree)[0]):
+                    layout[name] = tree
+        return layout
+
+    def _flat_layout(self, layout: tp.Optional[tp.Dict[str, tp.Any]] = None
+                     ) -> tp.Dict[str, tp.Any]:
+        """The layout by tensor key (`checkpoint`'s keys), the sharded
+        leaves only."""
+        from .parallel.zero import _paths, keystr
+        layout = self.state_layout() if layout is None else layout
+        return {keystr(path): sharding for path, sharding in _paths(layout)
+                if sharding is not None
+                and not getattr(sharding, "is_replicated", True)}
 
     def state_dict(self) -> tp.Any:
         return self.stateful.state_dict()
@@ -255,6 +332,10 @@ class BaseSolver:
                              f"'sharded' or 'auto'")
         if self.checkpoint_mode != "auto":
             return self.checkpoint_mode
+        if self._flat_layout():
+            # a declared or live layout that shards anything: each rank
+            # writes its shards, nothing is gathered to one process
+            return "sharded"
         return ("sharded" if _checkpoint.tensor_bytes(state)
                 >= self.sharded_checkpoint_min_bytes else "single")
 
@@ -277,12 +358,9 @@ class BaseSolver:
         try:
             if save_checkpoint:
                 # the snapshot follows the append, so the checkpointed
-                # history includes the epoch being committed; rank 0
-                # writes the replicated state, every rank meets it there
-                # (slot and async saves on several ranks raise: item 8)
-                _checkpoint.run_on_rank_zero(
-                    lambda: self._save_checkpoint(self.state_dict()),
-                    "to save the checkpoint")
+                # history includes the epoch being committed; every rank
+                # calls the save (rank 0 writes what is replicated)
+                self._save_checkpoint(self.state_dict())
         except BaseException:
             self.history.pop()
             self._pending_metrics = pending
@@ -293,35 +371,45 @@ class BaseSolver:
             f"commit boundary (epoch {len(self.history)} committed)")
 
     def _save_checkpoint(self, state: tp.Any) -> None:
-        """Write `state` in the resolved mode. The other form is dropped
-        only once the new save is durable and active: a crash between
-        the two always leaves something restorable."""
+        """Write `state` in the resolved mode, every rank calling. The
+        other form is dropped only once the new save is durable and
+        active: a crash between the two always leaves something
+        restorable. A single file of a sharded state is gathered first
+        (collectively) and written by rank 0; slots are written on every
+        rank, each its shards."""
         mode = self._resolve_checkpoint_mode(state)
+        layout = self._flat_layout()
         if mode == "single":
-            _checkpoint.save_state(state, self.checkpoint_path)
-            self._drop_slots()
-            self._write_checkpoint_meta(mode)
-        elif self.checkpoint_async:
-            if self._async_checkpointer is None:
-                self._async_checkpointer = \
-                    _checkpoint.AsyncShardedCheckpointer()
-                # a clean exit must not drop the last epoch's save
-                import atexit
-                atexit.register(self.finalize_checkpoints)
+            full = _checkpoint.gather_state(state, layout)
 
+            def write_single() -> None:
+                _checkpoint.save_state(full, self.checkpoint_path)
+                self._drop_slots()
+                self._write_checkpoint_meta(mode)
+
+            _checkpoint.run_on_rank_zero(write_single,
+                                         "to save the checkpoint")
+        else:
             def on_commit() -> None:
                 # the meta only once the save is durable and active
                 self._drop_single_file()
                 self._write_checkpoint_meta(mode)
 
-            self._async_checkpointer.save(state, self.sharded_checkpoint_path,
-                                          on_commit=on_commit)
-            self._async_pending_epochs = len(self.history)
-        else:
-            _checkpoint.save_state_sharded(state,
-                                           self.sharded_checkpoint_path)
-            self._drop_single_file()
-            self._write_checkpoint_meta(mode)
+            if self.checkpoint_async:
+                if self._async_checkpointer is None:
+                    self._async_checkpointer = \
+                        _checkpoint.AsyncShardedCheckpointer()
+                    # a clean exit must not drop the last epoch's save
+                    import atexit
+                    atexit.register(self.finalize_checkpoints)
+                self._async_checkpointer.save(
+                    state, self.sharded_checkpoint_path, on_commit=on_commit,
+                    layout=layout)
+                self._async_pending_epochs = len(self.history)
+            else:
+                _checkpoint.save_state_sharded(
+                    state, self.sharded_checkpoint_path, layout=layout,
+                    on_commit=on_commit)
         self.logger.debug("Checkpoint saved (%s mode) under %s", mode,
                           self.folder)
 
@@ -338,15 +426,24 @@ class BaseSolver:
 
     def _write_checkpoint_meta(self, mode: str) -> None:
         """`checkpoint_meta.json`: the save mode and the state's layout
-        (one device, replicated), which `python -m flashy_tpu_torch.info`
-        shows. Best-effort: a failure here never fails the commit the
-        checkpoint already survived."""
+        (`describe_state_sharding` of `state_layout()`), which `python -m
+        flashy_tpu_torch.info` shows. Best-effort: a failure here never
+        fails the commit the checkpoint already survived."""
+        from .parallel.zero import _paths, describe_state_sharding
         world = distrib.world_size()
+        layout = self.state_layout()
+        description = describe_state_sharding(layout)
+        # the reference's topology record of the mesh
+        mesh = next(({"axis_names": list(sharding.mesh.shape),
+                      "shape": [int(size) for size
+                                in sharding.mesh.shape.values()]}
+                     for _, sharding in _paths(layout)
+                     if sharding is not None), None)
         meta = {"mode": mode, "time": time.time(),
-                "state_sharding": REPLICATED,
+                "state_sharding": description,
                 "topology": {"version": 1, "device_count": world,
-                             "world_size": world, "mesh": None,
-                             "state_sharding": REPLICATED["summary"]}}
+                             "world_size": world, "mesh": mesh,
+                             "state_sharding": description["summary"]}}
         try:
             with write_and_rename(self.folder / CHECKPOINT_META_NAME,
                                   "w") as f:
@@ -424,9 +521,12 @@ class BaseSolver:
             return False
         if kind == 2:
             state = _checkpoint.load_state_sharded(
-                self.sharded_checkpoint_path)
+                self.sharded_checkpoint_path, layout=self._flat_layout())
         else:
-            state = _checkpoint.load_state(self.checkpoint_path)
+            # a single file holds full tensors: each rank takes its shards
+            full = _checkpoint.load_state(self.checkpoint_path)
+            state = _checkpoint.shard_state(
+                full, self._flat_layout(self.state_layout(full)))
         self.load_state_dict(state)
         self.logger.debug("Checkpoint restored (kind %d) from %s", kind,
                           self.folder)

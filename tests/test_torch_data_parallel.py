@@ -173,20 +173,26 @@ def test_wrap_at_one_rank_is_the_model_and_counts_calls():
                                        "recompiles": 0}
     decorated = wrap()(torch.nn.Linear(2, 2))
     assert decorated.compile_stats()["calls"] == 0
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        wrap(model, fsdp=True)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        wrap(model, state_sharding={})
+    # the sharded forms (queue A item 8a) at one rank: FSDP leaves the
+    # model whole, a ZeRO layout over data=1 shards no update
+    from flashy_tpu_torch.parallel import P, zero
+    mesh = parallel.make_mesh({"data": -1})
+    assert wrap(model, fsdp=True) is model
+    assert not hasattr(model, "_sharded")
+    zeroed = wrap(model, state_sharding=zero.zero_sharding(
+        zero.model_state(model), mesh, min_size=1))
+    assert [id(p) for p in zeroed.parameters()] == \
+        [id(p) for p in model.parameters()]
+    x = torch.ones(1, 3)
+    assert torch.equal(zeroed(x), model(x))
     with pytest.raises(TypeError, match="nn.Module"):
         wrap(lambda state, batch: state)
-    for name in ("fsdp_sharding", "shard_params"):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            getattr(parallel, name)({"w": torch.ones(2)})
+    w = torch.ones(2)
+    assert parallel.fsdp_sharding({"w": w})["w"].spec == P()
+    assert parallel.shard_params({"w": w})["w"] is w
     from flashy_tpu_torch.parallel import data_parallel
-    for call in (data_parallel.batch_spec,
-                 lambda: data_parallel.axis_leaf_sharding(None, "data", 1)):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            call()
+    assert data_parallel.batch_spec() == P(("data", "fsdp"))
+    assert data_parallel.axis_leaf_sharding(mesh, "data", 1)(w).spec == P()
 
 
 def test_shard_batch_and_replicate_place_the_local_batch(monkeypatch):

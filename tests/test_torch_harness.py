@@ -330,12 +330,12 @@ def test_info_empty_root_and_verify_checkpoint(tmp_path, capsys):
 
 def test_info_parts_of_later_items_raise(tmp_path):
     from flashy_tpu_torch import info
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="queue A item 12 "):
         info.main(["--faults"])
     # --slo is ported (tests/test_torch_tracing.py renders a report):
     # on a root without experiments it exits 1 as the listing does
     assert info.main([str(tmp_path), "--slo"]) == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="queue A item 12 "):
         info.fault_site_report()
 
 

@@ -347,8 +347,9 @@ def test_solver_under_telemetry_and_profiling_on_cpu(capsys):
 def test_solver_refuses_the_resilience_half():
     # The resilience half is ported now (tests/test_torch_resilience.py
     # drives it): the solver's two switches return a working guard and a
-    # running watchdog; what it still refuses is declared state sharding
-    # (ROADMAP queue A item 8).
+    # running watchdog; declared state sharding is ported too (ROADMAP
+    # queue A item 8a): an unregistered name is a KeyError, a single
+    # sharding covers every leaf of the attribute.
     from flashy_tpu_torch import resilience
     from flashy_tpu_torch.examples.lm.solver import LMSolver
     from flashy_tpu_torch.xp import temporary_xp
@@ -367,8 +368,13 @@ def test_solver_refuses_the_resilience_half():
             if watchdog is not None:
                 watchdog.stop()
             resilience.disable_preemption_guard()
-        with pytest.raises(NotImplementedError, match="item 8"):
-            solver.set_state_sharding("model", None)
+        from flashy_tpu_torch.parallel import NamedSharding, P
+        with pytest.raises(KeyError, match="not a registered"):
+            solver.set_state_sharding("weights", None)
+        solver.set_state_sharding("state", NamedSharding(solver.mesh, P()))
+        assert solver._state_shardings["state"] == {
+            "step": NamedSharding(solver.mesh, P())}
+        assert solver._flat_layout() == {}  # replicated: nothing sharded
 
 
 def test_info_heartbeats_and_slo_views_match_jax(tmp_path, capsys,

@@ -272,10 +272,13 @@ def test_make_mesh_refuses_what_one_device_cannot_run():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A items "
                                                   "5 and 8"):
         make_mesh({"seq": 2}, devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        make_mesh({"data": 2, "seq": 2})
-    for axis in ("fsdp", "tensor", "pipe", "expert"):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
+    # data and fsdp are the process axes (queue A items 5 and 8a): inside
+    # one process either above 1 asks for processes
+    for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}):
+        with pytest.raises(NotImplementedError, match="queue A item 5"):
+            make_mesh(shape)
+    for axis, item in (("tensor", "8b"), ("pipe", "8c"), ("expert", "8d")):
+        with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
             make_mesh({axis: 2})
     assert mesh_shape_from_devices(8, seq=4) == jax_shape(8, seq=4)
     set_default_mesh(None)
