@@ -195,11 +195,12 @@ failure with a non-zero exit:
              is the whole gradient) beside its bound, its plain version
              and PyTorch's scaled_dot_product_attention; the same for the
              general route at `step`'s shapes (f32, head_dim 64);
- 12. moe train  the MoE layout in bf16 at batch 16, seq 1024 through
+ 12. moe train  the MoE layout at 4 of its 12 layers (the time limit)
+             in bf16 at batch 16, seq 1024 through
              `main` with moe_dispatch=dropless in a fresh XP: 6 steps
              and 2 valid steps, the step loss finite and falling, the
-             aux loss finite, gmm launched 12 x 2 x (train + valid
-             steps) and gmm_t, tgmm and the split kernel 12 x 2 x train
+             aux loss finite, gmm launched 4 x 2 x (train + valid
+             steps) and gmm_t, tgmm and the split kernel 4 x 2 x train
              steps; tokens/s, step ms, peak memory; a profiled window of
              3 steps (the grouped kernels' device ms a step); then each
              grouped kernel's two launches of a layer at the training
@@ -264,7 +265,8 @@ checked in the phases above and driven at full width after them:
              `generate`; that call timed;
  18. step d128, ring step d128  phases 10 and 13 at 8 heads of 128 (f32:
              the general flash and ring routes), at their bars;
- 19. train d128  the d128 layout in bf16 at batch 16, seq 1024 through
+ 19. train d128  the d128 layout's width in bf16 at batch 16, seq 1024
+             and 2 of its 12 layers (cut in depth only: the time limit) through
              `main` (8 steps, 2 valid, no resume): the loss falls, the
              forward and the fused backward on the Hopper kernels built
              at 128; tokens/s, step p50, peak memory;
@@ -299,13 +301,15 @@ The LM trainer's switches and SSD training, after them:
              recompute launches it again), the fused backward 12; then
              one bf16 AdamW step at `train`'s shapes under each policy
              and its peak memory;
- 22. train ema  `train`'s run with ema_decay 0.999, model.remat=true and
+ 22. train ema  `train`'s run at 2 of its 12 layers (cut in depth only,
+             the time limit) with ema_decay 0.999, model.remat=true and
              remat_policy=dots through `main` in a fresh XP: the loss
              falls, valid runs on the f32 EMA shadow, which is not the
              live params; a resume restores the shadow bit-equal; a
              resume with ema_decay=0 drops it with the reference's
-             warning; the flash forward launched 12 x (2 x train + valid
-             steps), the fused backward 12 x train steps; tokens/s, step
+             warning; the flash forward launched layers x (2 x train +
+             valid steps), the fused backward layers x train steps;
+             tokens/s, step
              p50, peak memory, and the EMA update's device ms beside its
              bound;
  23. ssd step  the pure-SSD layout in f32 (TF32 off) at batch 2, seq 256
@@ -393,8 +397,8 @@ timed):
              budget alerting, the first serve.json whole and the next
              write healing it, `uninstall()` quiet; the injector's counts
              and what fired;
- 34. train telemetry  `train`'s model and shapes for 6 steps and 1 valid
-             step with `enable_telemetry(roofline=True)` and
+ 34. train telemetry  `train`'s model and shapes at 2 of its 12 layers
+             (the time limit) for 6 steps and 1 valid step with `enable_telemetry(roofline=True)` and
              `enable_profiling(stages=["train"])` in a fresh XP: a step
              record a step tiled by data wait, host and device,
              trace.json, heartbeats/, 0 recompiles, the roofline's MFU
@@ -435,7 +439,8 @@ timed):
              background write fails (`ckpt.write`, every retry): the next
              commit raises and rolls back the epoch it covered, in memory
              and in history.json;
- 38. hang abort  a subprocess trains 2 steps of 35's model with
+ 38. hang abort  (run beside 39, 40 and 42) a subprocess trains 2
+             steps of 35's model with
              telemetry (heartbeats every 0.25 s), starts
              `enable_hang_watchdog(warn_after=2, abort_after=4,
              interval=0.5)`, runs 1 valid step, then blocks its main
@@ -455,7 +460,8 @@ campaign, last:
              the final parameters equal the uninterrupted run's, the
              kill exits 75 at the boundary, the prefetch counters saw
              tokens and `data_wait_frac` is in the history;
- 41. packed train  the pure-SSD 235M layout in bf16 (`ssd train`'s)
+ 41. packed train  the pure-SSD 235M layout in bf16 (`ssd train`'s) at
+             4 of its 12 layers (the time limit)
              through a BaseSolver with the model, AdamW, the step count
              and the pipe registered: a corpus of 8 jsonl and 8 .npy
              shards made from `--seed` (documents of 16-3072 tokens),
@@ -503,13 +509,14 @@ under a deadline, rendezvousing through a `file://` path:
              mean one process takes, `broadcast_model`,
              `broadcast_tensors`, `broadcast_object`, `barrier`, and a
              mismatched tree raising RuntimeError on both ranks;
- 44. dp step  the 235M layout in f32 (TF32 off) at `step`'s shape, global
-             batch 4 x t256, two ranks of 2 under `parallel.wrap` (DDP):
-             the gradients after the first backward and the parameters
-             after each of two clipped AdamW steps within 1e-5 of max
-             |value| of one process on the whole batch, the ranks'
+ 44. dp step  the 235M layout's width in f32 (TF32 off) at `step`'s
+             shape and 2 layers (cut in depth only: the time limit),
+             global batch 4 x t256, two ranks of 2 under `parallel.wrap`
+             (DDP): the gradients after the first backward and the
+             parameters after each of two clipped AdamW steps within 1e-5
+             of max |value| of one process on the whole batch, the ranks'
              parameters bit-identical after every step, rows 1·g and 4·g
-             launched 12 x 2 times on each rank;
+             launched 2 x 2 times on each rank;
  45. dp train  the default bf16 flash LM at full width and 2 layers
              (cut in depth only; 4 before PR 21) through `main --workers=2` (global b16
              t1024, b8 a rank, one warmup step): run A 2 epochs x
@@ -545,6 +552,33 @@ under a deadline, rendezvousing through a `file://` path:
              `fsdp(fsdp=2)`, the slot holding every rank's file; rows 1
              and 4 launched 4 x steps on each rank; step p50 and peak
              memory a rank beside phase 45's;
+ 45d. tp bench  queue A item 8b: `python -m
+             flashy_tpu_torch.parallel.tensor --workers=2` at the
+             reference's defaults (f32, dense attention, dim 128, 2
+             layers, tensor widths 1 and 2; started beside phase 43):
+             each width's step ms, optimizer bytes a rank, sharding
+             summary, collectives a step and first-step gradients
+             against a replicated one-process oracle (<= 1e-4);
+             `flash_bwd_parity`: the fused f32 flash backward against the
+             split dQ / dK,dV kernels (`flash_general.cu`) exactly 0.0;
+             0 recompiles;
+ 45e. tp train  phase 45's run with `mesh.data=1 mesh.tensor=2`
+             (Megatron: each rank 8 of the 16 heads, half the MLP width
+             and of the vocabulary) and `checkpoint_mode=sharded`: run A
+             2 epochs (beside phase 45's run A), run B 1 epoch (beside
+             phase 44) then resumed from the slots in a second start-up
+             (beside phase 45's run B2): each rank's slices and the
+             gathered full parameters bit-identical between A and the
+             resumed B, the full parameters equal across the ranks, every
+             logged loss within 1e-3 of phase 45's run A (the order of
+             the sums differs), the gradient of step 0's batch at the
+             trained state, gathered, within 5e-2 of run A's, leaf by
+             leaf relative to its norm, checkpoint_meta.json
+             `tensor(tensor=2)`;
+             rows 1 and 4 launched 4 x steps on each rank, every flash
+             call at 8 heads; the collectives of one more step (two
+             forward all-reduces a block); step p50 and peak memory a
+             rank beside phase 45's;
  46. prefetch to device  `data.prefetch_to_device` over [16, 1024] int32
              batches on cuda:0: delivered batches bit-equal to the host's,
              an early stop rewinding a datapipe stage to the last batch
@@ -685,12 +719,13 @@ def card_line() -> str:
 
 
 def model_config(torch, dtype, max_seq_len, attention="dense",
-                 num_heads=16, **kw):
+                 num_heads=16, num_layers=12, **kw):
     """The decode leg's 235M layout: vocab 32768, dim 1024, 12 layers,
     16 heads (head_dim 64), mlp_ratio 4; `num_heads=D128_HEADS` is the
     d128 layout (8 heads of 128, the same parameters)."""
     from flashy_tpu_torch.models.transformer import TransformerConfig
-    return TransformerConfig(vocab_size=32768, dim=1024, num_layers=12,
+    return TransformerConfig(vocab_size=32768, dim=1024,
+                             num_layers=num_layers,
                              num_heads=num_heads, mlp_ratio=4,
                              max_seq_len=max_seq_len, dtype=dtype,
                              attention=attention, **kw)
@@ -3008,6 +3043,7 @@ GMM_PADDED_CASES = ((4, 333, 12, 100, (100, 0, 133, 90)),
 GMM_WATCH = ("grouped_", "split_bf16_kernel")
 MOE_ARGS = ["model.moe_experts=8", "model.moe_top_k=2",
             "model.moe_dispatch=dropless"]
+MOE_TRAIN_LAYERS = 4     # `moe train`'s depth, of 12 (the time limit)
 MOE_STEP_TOL = 1e-4      # dropless vs einsum: loss and each grad's norm
 MOE_PLAIN_TOL = 1e-5     # kernels vs plain grouped matmuls, per leaf
 # smallest top-3 probability gap a `moe step` batch may route at: the
@@ -3252,16 +3288,18 @@ def phase_moe_step(torch, device, card):
 
 
 def phase_moe_train(torch, card, folder):
-    """The 235M layout with every MLP 8 top-2 dropless experts, bf16, batch
-    16, seq 1024, through `main` in a fresh XP: 1 epoch of 6 steps and 2
-    valid steps. Returns (grouped-matmul launch counts, the solver)."""
+    """The 235M layout with every MLP 8 top-2 dropless experts at
+    MOE_TRAIN_LAYERS of its 12 layers, bf16, batch 16, seq 1024, through
+    `main` in a fresh XP: 1 epoch of 6 steps and 2 valid steps. Returns
+    (grouped-matmul launch counts, the solver)."""
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
     from flashy_tpu_torch.models.moe import moe_aux_loss
     from flashy_tpu_torch.ops import attention, grouped_matmul
     from flashy_tpu_torch.utils import percentile
     args = [a for a in TRAIN_ARGS if not a.startswith(("steps_per_epoch",
                                                        "valid_steps"))]
-    args += MOE_ARGS + ["steps_per_epoch=6", "valid_steps=2", "epochs=1",
+    args += MOE_ARGS + [f"model.num_layers={MOE_TRAIN_LAYERS}",
+                        "steps_per_epoch=6", "valid_steps=2", "epochs=1",
                         f"dora.dir={folder}"]
     torch.cuda.reset_peak_memory_stats()
     attention.reset_launch_counts()
@@ -3953,9 +3991,10 @@ def phase_train_d128(torch, card, folder):
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
     from flashy_tpu_torch.ops import attention
     from flashy_tpu_torch.utils import percentile
-    args = [a for a in TRAIN_ARGS if not a.startswith("model.num_heads")]
-    args += [f"model.num_heads={D128_HEADS}", "epochs=1",
-             f"dora.dir={folder}"]
+    args = [a for a in TRAIN_ARGS
+            if not a.startswith(("model.num_heads", "model.num_layers"))]
+    args += [f"model.num_heads={D128_HEADS}", f"model.num_layers={LAYERS}",
+             "epochs=1", f"dora.dir={folder}"]
     torch.cuda.reset_peak_memory_stats()
     attention.reset_launch_counts()
     solver = lm_main(args)
@@ -3975,8 +4014,9 @@ def phase_train_d128(torch, card, folder):
     tok_s = cfg.batch_size * cfg.seq_len * len(seconds) / sum(seconds)
     p50 = percentile(seconds, 50) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train d128: 235M ({D128_HEADS} heads of {1024 // D128_HEADS}) "
-          f"bf16 b{cfg.batch_size} t{cfg.seq_len}, {train_steps} steps + "
+    print(f"train d128: 235M width ({D128_HEADS} heads of "
+          f"{1024 // D128_HEADS}) at {layers} layers, bf16 b{cfg.batch_size} "
+          f"t{cfg.seq_len}, {train_steps} steps + "
           f"{valid_steps} valid, step losses {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, tokens/s={tok_s:.1f}, step p50={p50:.2f} ms "
           f"(steps 3..{train_steps}), peak memory {peak:.1f} GiB; launches "
@@ -4619,8 +4659,9 @@ def phase_train_ema(torch, card, folder):
     from flashy_tpu_torch.utils import percentile
     # ema_decay out of the signature, so that the run without EMA resumes
     # the same XP
-    args = TRAIN_ARGS + [f"dora.dir={folder}", "model.remat=true",
-                         "model.remat_policy=dots", "epochs=2",
+    args = [a for a in TRAIN_ARGS if not a.startswith("model.num_layers")]
+    args += [f"model.num_layers={LAYERS}", f"dora.dir={folder}",
+             "model.remat=true", "model.remat_policy=dots", "epochs=2",
                          "dora.exclude=[steps_per_epoch,epochs,"
                          "generate_every,valid_steps,device,ema_decay]"]
     release_memory(torch)
@@ -4691,7 +4732,8 @@ def phase_train_ema(torch, card, folder):
         fail(f"train ema: the resume with ema_decay=0 kept the shadow or "
              f"did not warn ({records.text()!r})")
     del dropped
-    print(f"train ema: 235M bf16 b16 t1024 ema_decay {EMA_DECAY}, remat "
+    print(f"train ema: 235M width at {layers} layers, bf16 b16 t1024 "
+          f"ema_decay {EMA_DECAY}, remat "
           f"dots, {train_steps} steps + {valid_steps} valid, epoch losses "
           f"{losses[0]:.4f} -> {losses[1]:.4f}, tokens/s={tok_s:.1f}, step "
           f"p50={p50:.2f} ms (steps 3..{train_steps}), peak memory "
@@ -4703,11 +4745,11 @@ def phase_train_ema(torch, card, folder):
     return counts
 
 
-def ssd_train_config(torch, dtype):
+def ssd_train_config(torch, dtype, num_layers=12):
     """The pure-SSD 235M layout (state dim 16) as training takes it: the
     chunk `default_chunk(T)` picks (256 at T 256 and 1024)."""
     return model_config(torch, dtype, 1024, mixer="ssd", ssd_state_dim=16,
-                        ssd_chunk=0)
+                        ssd_chunk=0, num_layers=num_layers)
 
 
 def phase_ssd_step(torch, device, card):
@@ -5876,8 +5918,13 @@ def phase_serve_chaos(torch, device, card):
     return counts["paged_decode"]
 
 
-TELEMETRY_ARGS = TRAIN_ARGS[:-2] + ["steps_per_epoch=6", "valid_steps=1",
-                                    "epochs=1"]
+# 2 of the layout's 12 layers (the script's time limit): the harness's
+# cost is a step's host share, and the launches follow the depth
+TELEMETRY_LAYERS = 2
+TELEMETRY_ARGS = [a for a in TRAIN_ARGS[:-2]
+                  if not a.startswith("model.num_layers=")] + [
+    f"model.num_layers={TELEMETRY_LAYERS}", "steps_per_epoch=6",
+    "valid_steps=1", "epochs=1"]
 
 
 def telemetry_run(torch, device, folder, telemetry, profile=False):
@@ -6028,7 +6075,8 @@ def phase_train_telemetry(torch, device, card, root, turns=2):
             release_memory(torch)
     plain = percentile(p50["plain"], 50)
     traced = percentile(p50["telemetry"], 50)
-    print(f"train telemetry: 235M bf16 b16 t1024 flash, "
+    print(f"train telemetry: the 235M layout's width at {layers} layers, "
+          f"bf16 b16 t1024 flash, "
           f"{cfg.steps_per_epoch} steps + {cfg.valid_steps} valid with "
           f"telemetry, roofline and torch.profiler: one step record a step "
           f"(data_wait + host + device == total), trace.json, heartbeats/, "
@@ -6494,26 +6542,44 @@ def hang_child(folder):
     print(json.dumps({"returned": time.time()}), flush=True)
 
 
-def phase_hang_abort(torch, card, root):
-    """Phase 38. Returns the child's row 1 and 4 launches."""
+def start_hang_abort(root):
+    """Start phase 38's child (`hang_child`) in `root`. A thread waits for
+    it and notes when it ended, so that the phase runs beside others;
+    `phase_hang_abort` reads what it returns."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
             "chip_smoke.hang_child(sys.argv[2])")
     proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
                              str(root)], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    try:
-        out, err = proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            return None
+        return proc.returncode, out, err, time.time()
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(wait)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_hang_abort(card, started):
+    """Phase 38, started by `start_hang_abort`. Returns the child's row 1
+    and 4 launches."""
+    waited = started.result()
+    if waited is None:
         fail("hang abort: the child did not end within 300 s")
-    ended = time.time()
+    returncode, out, err, ended = waited
     lines = [json.loads(line) for line in out.splitlines()
              if line.startswith("{")]
     blocking = next((line for line in lines if "blocking" in line), None)
-    if proc.returncode != 70 or blocking is None \
+    if returncode != 70 or blocking is None \
             or any("returned" in line for line in lines):
-        fail(f"hang abort: exit {proc.returncode}, stdout {out[-400:]!r}, "
+        fail(f"hang abort: exit {returncode}, stdout {out[-400:]!r}, "
              f"stderr {err[-1200:]!r}")
     latency = ended - blocking["blocking"]
     warn = f"hang watchdog: rank(s) [0] heartbeat stalled past " \
@@ -6550,6 +6616,7 @@ PACKED_DOC_LENGTHS = (16, 3072)   # log-uniform document lengths
 PACKED_SHARDS = 8           # jsonl shards and .npy shards, each
 PACKED_VOCAB = 32768
 PACKED_ROUNDS = 4           # packed, unpacked, unpacked, packed: in turns
+PACKED_LAYERS = 4           # of the layout's 12 (the script's time limit)
 
 
 def make_packed_corpus(root, seed):
@@ -6617,7 +6684,8 @@ def packed_solver_class(torch):
             self.register_stateful("optimizer", "step")
 
         def build_model(self, seq_len):
-            return TransformerLM(ssd_train_config(torch, torch.bfloat16),
+            return TransformerLM(ssd_train_config(torch, torch.bfloat16,
+                                                  PACKED_LAYERS),
                                  device=self.device, seed=0)
 
         def train_stage(self):
@@ -6894,14 +6962,16 @@ def phase_packed_train(torch, device, card, root, seed, ssd_p50):
     del resumed
     release_memory(torch)
     check = packed_scan_check(torch, device, first_batch)
-    print(f"packed train: pure-SSD {params / 1e6:.0f}M bf16 [{PACKED_BATCH}, "
+    print(f"packed train: pure-SSD {params / 1e6:.0f}M ({layers} layers) "
+          f"bf16 [{PACKED_BATCH}, "
           f"{PACKED_LEN}] packed from {2 * PACKED_SHARDS} shards (seed "
           f"{seed}; docs {PACKED_DOC_LENGTHS[0]}-{PACKED_DOC_LENGTHS[1]} "
           f"tokens, mixture {(0.7, 0.3)}), {PACKED_EPOCHS} epochs x "
           f"{PACKED_STEPS} steps; packing efficiency {efficiency:.4f}, "
           f"documents a row median {percentile(rows_docs, 50):.0f} (max "
           f"{max(rows_docs)}); step p50 {p50:.2f} ms (the step alone; "
-          f"`ssd train` p50 {ssd_p50:.2f} ms earlier in this call); in "
+          f"`ssd train` p50 {ssd_p50:.2f} ms at 12 layers earlier in this "
+          f"call); in "
           f"turns on one model (packed, unpacked, unpacked, packed x "
           f"{PACKED_ROUNDS}): "
           f"packed p50 {turn_p50['packed']:.2f} ms, unpacked p50 "
@@ -7194,6 +7264,28 @@ def state_digest(torch, tensors):
     return digest.hexdigest()
 
 
+def write_full_grads(torch, solver):
+    """`--dp-grads`: the gradient of the loss of step 0's global batch at
+    the solver's trained state (no update), each sliced parameter's
+    gathered to its full shape; rank 0 writes it (f32, on the host)
+    beside its result. Returns the file's path."""
+    import os
+    from flashy_tpu_torch import distrib
+    solver.optimizer.zero_grad(set_to_none=True)
+    solver.loss(solver.batch_at(0), model=solver.train_model).backward()
+    grads = {}
+    for name, param in solver.model.named_parameters():
+        sharding = getattr(param, "sharding", None)
+        grad = param.grad if sharding is None or sharding.is_replicated \
+            else sharding.gather(param.grad)
+        grads[name] = grad.float().cpu()
+    solver.optimizer.zero_grad(set_to_none=True)
+    path = f"{os.environ[DP_RESULT]}-grads.pt"
+    if distrib.rank() == 0:
+        torch.save(grads, path)
+    return path
+
+
 def solver_tensors(torch, model, optimizer):
     """A model's parameters and buffers, then its optimizer's state
     tensors, in a fixed order."""
@@ -7323,7 +7415,8 @@ def dp_step_rank(torch, device):
     rank, world = distrib.rank(), distrib.world_size()
     batches = dp_step_batches(torch, device)
     per = DP_STEP_SHAPE[0] // world
-    config = model_config(torch, torch.float32, 256, "flash")
+    config = model_config(torch, torch.float32, 256, "flash",
+                          num_layers=DP_LAYERS)
     begin = time.perf_counter()
     model = wrap(TransformerLM(config, device=device, seed=3))
     attention.reset_launch_counts()
@@ -7390,6 +7483,17 @@ def dp_train_main(torch, argv):
     if "--dp-sharded" in argv:
         from flashy_tpu_torch.examples.lm.solver import LMSolver
         LMSolver.checkpoint_mode = "sharded"
+    heads = set()
+    if "--dp-heads" in argv:
+        # the head count of every flash call: a tensor rank's own heads
+        from flashy_tpu_torch.models import transformer
+        flash = transformer.flash_attention
+
+        def counting_flash(q, *args, **kwargs):
+            heads.add(int(q.shape[2]))
+            return flash(q, *args, **kwargs)
+
+        transformer.flash_attention = counting_flash
     attention.reset_launch_counts()
     begin, main_at = time.perf_counter(), time.time()
     solver = lm_main(argv)
@@ -7416,6 +7520,8 @@ def dp_train_main(torch, argv):
                 result["full_digest"] = state_digest(torch, [
                     value for _, value in sorted(
                         solver.model.state_dict().items())])
+    if "--dp-grads" in argv:
+        result["grads"] = write_full_grads(torch, solver)
     if "--dp-time-all-reduce" in argv:
         # the gradient all-reduce's volume (every parameter's f32 grad)
         # alone, timed on every rank together
@@ -7431,6 +7537,23 @@ def dp_train_main(torch, argv):
             times.append((time.perf_counter() - t0) * 1e3)
         result["all_reduce_ms"] = times
         result["all_reduce_bytes"] = numel * 4
+    if "--dp-heads" in argv:
+        result["heads"] = sorted(heads)
+    if "--dp-collectives" in argv:
+        # one more step, counted (after the digests and launch counts)
+        from flashy_tpu_torch.examples.lm import solver as lm
+        from flashy_tpu_torch.parallel import (collective_stats,
+                                               count_collectives)
+        with count_collectives() as record:
+            lm.train_step(solver.train_model, solver.optimizer,
+                          solver.schedule, solver.state["step"],
+                          solver.batch_at(0),
+                          lambda m, t: solver.loss(t, model=m),
+                          mesh=solver.mesh)
+            torch.cuda.synchronize()
+        result["collectives"] = {op: entry for op, entry in
+                                 collective_stats(record).items()
+                                 if entry["count"]}
     result["clock"]["written"] = time.time()
     write_dp_result(result)
 
@@ -7486,7 +7609,7 @@ def phase_dp_step(torch, card, folder):
     """Phase 44: the 235M layout in f32 on two ranks against one process;
     returns a rank's launches."""
     results, seconds = spawn_dp_ranks("step", folder, timeout=240)
-    layers, steps = 12, 2
+    layers, steps = DP_LAYERS, 2
     want = {"flash_fwd_general": layers * steps,
             "flash_bwd_fused_general": layers * steps}
     for out in results:
@@ -7509,7 +7632,8 @@ def phase_dp_step(torch, card, folder):
     losses = [sum(out["losses"][i] for out in results) / DP_RANKS
               for i in range(steps)]
     print(f"dp step: 235M f32 (TF32 off, deterministic) global b4 t256 on 2 "
-          f"ranks of b2 (DDP over gloo on one card), 2 clipped AdamW steps: "
+          f"ranks of b2 (DDP over gloo on one card), {DP_LAYERS} layers, 2 "
+          f"clipped AdamW steps: "
           f"ranks' parameters bit-identical after every step and bit-equal "
           f"to one process running the ranks' rows as 2 microbatches "
           f"(gradients and parameters); against one process on the whole "
@@ -7594,7 +7718,7 @@ def phase_dp_train(torch, device, card, folder, b1, beside_a, beside_b2):
     a_dir, b_dir = Path(folder) / "a", Path(folder) / "b"
     run_b1, b1_seconds = finish_dp_train_run(b1)
     started_a = start_dp_train_run(a_dir, 2, "dp train A", "--dp-digest",
-                                   "--dp-time-all-reduce")
+                                   "--dp-time-all-reduce", "--dp-grads")
     beside = [beside_a()]
     run_a, a_seconds = finish_dp_train_run(started_a)
     started_b2 = start_dp_train_run(b_dir, 2, "dp train B2", "--dp-digest")
@@ -7675,8 +7799,9 @@ def phase_dp_train(torch, device, card, folder, b1, beside_a, beside_b2):
           f"(beside dp step), B2 {b2_seconds:.1f} s (beside fsdp train B2) "
           f"[{card}]", flush=True)
     summary = {"history": history_a, "p50": p50,
-               "peaks": [o["peak_gib"] for o in run_a]}
-    return run_a[0]["launches"], summary, beside
+               "peaks": [o["peak_gib"] for o in run_a],
+               "grads": run_a[0]["grads"]}
+    return (run_a[0]["launches"], summary) + tuple(beside)
 
 
 # ----------------------------------------------------------------------
@@ -7868,6 +7993,221 @@ def phase_fsdp_train(torch, card, folder, started, dp):
           f"{a_seconds:.1f}, B1 {b1_seconds:.1f}, B2 {b2_seconds:.1f} s "
           f"({GLOO_LABEL}) [{card}]", flush=True)
     return run_a[0]["launches"]
+
+
+# ----------------------------------------------------------------------
+# queue A item 8b: Megatron tensor parallelism over a `tensor` process
+# axis, two ranks on the card (gloo through the host: every activation
+# all-reduce is staged there, so these step times are that staging's,
+# not NVLink's or NCCL's)
+# ----------------------------------------------------------------------
+TP_FLAGS = ("mesh.data=1", "mesh.tensor=2", "--dp-sharded", "--dp-digest",
+            "--dp-heads")
+# the logged losses against `dp train` A's (the run moves them by about
+# 3e-2 in all), and each parameter's gradient at the trained state
+# against dp train A's, relative to its norm: the Megatron backward's
+# check at this width (a dropped or doubled all-reduce moves the leaves
+# upstream of it by a large part of their gradient)
+TP_LOSS_LIMIT = 1e-3
+TP_GRAD_LIMIT = 5e-2
+
+
+def start_tp_bench(folder):
+    """Start `python -m flashy_tpu_torch.parallel.tensor --workers=2` at
+    the reference's defaults in `folder`; `phase_tp_bench` waits."""
+    Path(folder).mkdir(exist_ok=True)
+    path = Path(folder) / "tensor.json"
+    argv = [sys.executable, "-m", "flashy_tpu_torch.parallel.tensor",
+            "--workers=2", "--json", str(path)]
+    started = start_sessions([(argv, dp_env(folder, "tensor"))], folder, 300,
+                             "tp bench")
+    started.update(begin=time.perf_counter(), path=path)
+    return started
+
+
+def phase_tp_bench(card, started):
+    """Phase 45d: the tensor-width sweep over two ranks; its gates are
+    the module's exit code (`finish_sessions` fails on a non-zero one),
+    read again here. Returns the record."""
+    finish_sessions(started)
+    seconds = time.perf_counter() - started["begin"]
+    record = json.loads(Path(started["path"]).read_text())
+    problems = []
+    if record["widths"] != [1, 2]:
+        problems.append(f"widths {record['widths']}")
+    if not record["grads_max_delta_overall"] <= 1e-4:
+        problems.append(f"grads {record['grads_max_delta_overall']:.2e} "
+                        f"from the oracle (limit 1e-4)")
+    if record["flash_bwd_parity"] != 0.0:
+        problems.append(f"flash backward parity "
+                        f"{record['flash_bwd_parity']:.2e} (must be 0.0)")
+    if record["recompiles"] != 0:
+        problems.append(f"{record['recompiles']} recompiles")
+    launched = record["flash_bwd_parity_launches"]
+    if not all(launched.get(name, 0) > 0 for name in (
+            "flash_bwd_fused_general", "flash_bwd_dq_general",
+            "flash_bwd_dkv_general")):
+        problems.append(f"the parity gate launched {launched}")
+    if record["sharding"] != {"1": "zero1(data=2)", "2": "tensor(tensor=2)"}:
+        problems.append(f"layouts {record['sharding']}")
+    if problems:
+        fail(f"tp bench: {problems}")
+
+    def per_op(stats):
+        return {op: f"{e['count']}x {e['bytes'] / 2 ** 20:.2f} MiB"
+                for op, e in stats.items()}
+
+    print(f"tp bench: `python -m flashy_tpu_torch.parallel.tensor "
+          f"--workers=2` (f32, dense attention, dim 128, 2 layers, global "
+          f"b{record['batch']} t{record['seq']}, widths 1 and 2 in one "
+          f"start-up, beside dp collectives): step ms "
+          f"{ {w: round(v, 2) for w, v in record['step_ms'].items()} }; "
+          f"optimizer bytes a rank {record['opt_state_bytes_per_chip']} "
+          f"(widest over replicated {record['opt_bytes_ratio']}); layouts "
+          f"{record['sharding']}; collectives a step "
+          f"{ {w: per_op(v) for w, v in record['collectives'].items()} }; "
+          f"grads against the replicated oracle "
+          f"{ {w: float(f'{v:.2e}') for w, v in record['grads_max_delta'].items()} }"
+          f" (limit 1e-4); flash_bwd_parity {record['flash_bwd_parity']} "
+          f"(f32 fused against split, launches {launched}); recompiles "
+          f"{record['recompiles']}; {seconds:.1f} s with the spawn "
+          f"({GLOO_LABEL}) [{card}]", flush=True)
+    return record
+
+
+def start_tp_b1(folder):
+    """Run B's first epoch of `tp train` (`start_dp_train_run`)."""
+    return start_dp_train_run(Path(folder) / "tp-b", 1, "tp train B1",
+                              *TP_FLAGS)
+
+
+def start_tp_b2(folder, b1):
+    """Wait for `tp train` run B's first epoch, then start its resumed
+    second; returns the first epoch's wall seconds and the start."""
+    _, b1_seconds = finish_dp_train_run(b1)
+    return b1_seconds, start_dp_train_run(Path(folder) / "tp-b", 2,
+                                          "tp train B2", *TP_FLAGS)
+
+
+def start_tp_a(folder):
+    """Run A of `tp train`, with one more step's collectives counted."""
+    return start_dp_train_run(Path(folder) / "tp-a", 2, "tp train A",
+                              *TP_FLAGS, "--dp-grads", "--dp-collectives")
+
+
+def phase_tp_train(torch, card, folder, started, dp):
+    """Phase 45e: `main --workers=2` with `mesh.tensor=2` and sharded
+    slots. `started` holds run A and run B (`start_tp_b2`); `dp` is
+    phase 45's summary. Returns a rank's launches and the step's
+    collectives."""
+    from flashy_tpu_torch.utils import percentile
+    a_dir, b_dir = Path(folder) / "tp-a", Path(folder) / "tp-b"
+    started_a, (b1_seconds, started_b2) = started
+    run_a, a_seconds = finish_dp_train_run(started_a)
+    run_b2, b2_seconds = finish_dp_train_run(started_b2)
+    want_a = flash_want(DP_LAYERS, [(2, 1)] * 2)
+    want_b2 = flash_want(DP_LAYERS, [(2, 1)])
+    for runs, want, restored in ((run_a, want_a, False),
+                                 (run_b2, want_b2, True)):
+        for out in runs:
+            if out["launches"] != want or out["backend"] != "gloo" \
+                    or out["restored"] != restored or out["epochs"] != 2 \
+                    or out["sharded"] != "tensor" or out["heads"] != [8]:
+                fail(f"tp train rank {out['rank']}: launches "
+                     f"{out['launches']} (expected {want}), backend "
+                     f"{out['backend']}, restored {out['restored']}, "
+                     f"{out['epochs']} epochs, layout {out['sharded']}, "
+                     f"heads a flash call {out['heads']} (expected [8])")
+    for a, b in zip(run_a, run_b2):
+        if a["digest"] != b["digest"] or a["full_digest"] != b["full_digest"]:
+            fail(f"tp train rank {a['rank']}: the resumed run differs from "
+                 f"the uninterrupted one (slices {a['digest'][:12]} vs "
+                 f"{b['digest'][:12]}, full {a['full_digest'][:12]} vs "
+                 f"{b['full_digest'][:12]})")
+    if len({out["full_digest"] for out in run_a}) != 1 \
+            or run_a[0]["digest"] == run_a[1]["digest"]:
+        fail("tp train: the ranks' gathered parameters differ, or their "
+             "slices are equal")
+    (a_xp,) = (a_dir / "xps").iterdir()
+    (b_xp,) = (b_dir / "xps").iterdir()
+    history_a = stripped(json.loads((a_xp / "history.json").read_text()))
+    history_b = stripped(json.loads((b_xp / "history.json").read_text()))
+    if len(history_a) != 2 or history_a != history_b:
+        fail(f"tp train: histories differ: {history_a} vs {history_b}")
+    want_dp = stripped(dp["history"])
+    if [sorted(e) for e in history_a] != [sorted(e) for e in want_dp]:
+        fail(f"tp train: history stages {history_a} vs dp train's {want_dp}")
+    gaps = [abs(g[s]["loss"] - w[s]["loss"])
+            for g, w in zip(history_a, want_dp) for s in w if "loss" in w[s]]
+    if not gaps or not max(gaps) <= TP_LOSS_LIMIT:
+        fail(f"tp train: losses {history_a} against dp train A's {want_dp}:"
+             f" {max(gaps) if gaps else None} apart (limit {TP_LOSS_LIMIT})")
+    want_grads = torch.load(dp["grads"])
+    got_grads = torch.load(run_a[0]["grads"])
+    if set(got_grads) != set(want_grads):
+        fail(f"tp train: gradients of {sorted(got_grads)} against dp train "
+             f"A's {sorted(want_grads)}")
+    grad_gaps = {name: float((got_grads[name] - want).norm() / want.norm())
+                 for name, want in want_grads.items()}
+    worst = max(grad_gaps, key=grad_gaps.get)
+    if not grad_gaps[worst] <= TP_GRAD_LIMIT:
+        fail(f"tp train: gradients against dp train A's, relative to their "
+             f"norms: {grad_gaps} (limit {TP_GRAD_LIMIT})")
+    meta = json.loads((a_xp / "checkpoint_meta.json").read_text())
+    slot = a_xp / "checkpoint.th.sharded"
+    pointer = (slot / "CURRENT").read_text().strip()
+    files = sorted(json.loads((slot / pointer / "manifest.json").read_text())
+                   ["files"])
+    if meta["mode"] != "sharded" \
+            or meta["state_sharding"]["summary"] != "tensor(tensor=2)" \
+            or files != ["arrays-0.pt", "arrays-1.pt", "arrays.pt",
+                         "state.pkl"] \
+            or (a_xp / "checkpoint.th").exists():
+        fail(f"tp train: checkpoint_meta {meta.get('mode')} "
+             f"{meta.get('state_sharding')}, slot files {files}")
+    stats = run_a[0]["collectives"]
+    reduces = stats.get("all-reduce", {}).get("count", 0)
+    # forward: the embedding's, two a block, the loss's two; backward: one
+    # a block's two column splits and the head's; the clip's norm
+    want_reduces = (1 + 2 * DP_LAYERS) + 2 + (2 * DP_LAYERS + 1) + 1
+    if reduces != want_reduces or set(stats) != {"all-reduce"}:
+        fail(f"tp train: one step's collectives {stats} (expected "
+             f"{want_reduces} all-reduces and nothing else)")
+    seconds = run_a[0]["step_seconds"][1:]
+    p50 = percentile(seconds, 50) * 1e3
+    tok_s = 16 * 1024 * len(seconds) / sum(seconds)
+
+    def per_op(stats):
+        return {op: f"{e['count']}x {e['bytes'] / 2 ** 20:.1f} MiB"
+                for op, e in stats.items()}
+
+    print(f"tp train: `main --workers=2 mesh.data=1 mesh.tensor=2` with "
+          f"sharded slots, phase 45's run otherwise (235M width, "
+          f"{DP_LAYERS} layers, bf16, global b16 t1024, each rank the "
+          f"whole batch on 8 of 16 heads, half the MLP width and of the "
+          f"vocabulary): run A 2 epochs (beside dp train A), run B 1 epoch "
+          f"(beside dp step) then resumed from the slots (beside dp train "
+          f"B2): each rank's slices and the gathered parameters "
+          f"bit-identical between A and the resumed B, equal across the "
+          f"ranks, histories equal; every logged loss within "
+          f"{max(gaps):.2e} of dp train A's (limit {TP_LOSS_LIMIT}); "
+          f"step 0's gradients at the trained state, gathered, within "
+          f"{grad_gaps[worst]:.2e} of dp train A's relative to their norms "
+          f"({worst}; median {percentile(list(grad_gaps.values()), 50):.2e};"
+          f" limit {TP_GRAD_LIMIT}); "
+          f"checkpoint_meta {meta['state_sharding']['summary']}, slot "
+          f"files {files}; launches a rank {want_a} (A), {want_b2} (B "
+          f"resumed), every flash call at {run_a[0]['heads']} heads; one "
+          f"more step's collectives "
+          f"{per_op(stats)} ({want_reduces} all-reduces expected); step "
+          f"p50 {p50:.2f} ms "
+          f"(steps 2..4, rank 0; beside the other runs), global tokens/s "
+          f"{tok_s:.1f}, against dp train A's {dp['p50']:.2f} ms; peak GiB "
+          f"a rank {[round(o['peak_gib'], 2) for o in run_a]} against dp "
+          f"train A's {[round(g, 2) for g in dp['peaks']]}; runs A "
+          f"{a_seconds:.1f}, B1 {b1_seconds:.1f}, B2 {b2_seconds:.1f} s "
+          f"({GLOO_LABEL}) [{card}]", flush=True)
+    return run_a[0]["launches"], stats
 
 
 class DocsSource:
@@ -9132,12 +9472,14 @@ def main() -> None:
     # f32 at head_dim 64 takes the general route: its times at `step`'s
     # shapes
     time_flash(torch, device, card, B=2, T=256, dtype=torch.float32)
+    lap("step, moe step, train, profile train, head and flash times")
     with tempfile.TemporaryDirectory() as folder:
         gmm_launches, solver = phase_moe_train(torch, card, folder)
         profile_train(torch, solver, card, steps=3,
                       label="profile moe train", watch=GMM_WATCH)
         del solver
     gmm_times, gmm_main_errors = time_gmm(torch, device, card)
+    lap("moe train, profile moe train, gmm times")
     phase_ring_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         ring_counts, solver = phase_ring_train(torch, card, folder)
@@ -9147,7 +9489,7 @@ def main() -> None:
         del solver
     ring_times, ring_main_error, pair_times, pair_errors = time_ring(
         torch, device, card)
-    lap("steps, training, kernel times")
+    lap("ring step, ring train, profile ring train, ring times")
 
     # the other widths' full-width paths: d128, ssd n128, w260
     for bs, max_seq_len, chunk in ((16, 512, None), (128, 512, 16),
@@ -9164,6 +9506,7 @@ def main() -> None:
             prompt_len=64, max_new=32, label="int8 d128 bf16",
             heads=D128_HEADS)}
     block_times, block_error = time_paged_block(torch, device, card)
+    lap("exact d128, serve d128, int8 d128, paged block times")
     ssd_fma_launches, ssd_fma_times, ssd_fma_error = phase_ssd_n128(
         torch, device, card)
     step_d128_counts = phase_step(torch, device, card, heads=D128_HEADS,
@@ -9178,6 +9521,7 @@ def main() -> None:
             torch, card, folder, heads=D128_HEADS, steps=4, valid=1,
             label="ring train d128")
         del solver
+    lap("ssd n128, step d128, ring step d128, train d128, ring train d128")
     # the Hopper kernels at 128 at the train d128 and ring train d128
     # shapes; the general route at the step d128 shapes (f32), and in bf16
     # at D 80 beside SDPA there
@@ -9200,16 +9544,17 @@ def main() -> None:
         dtype=torch.bfloat16)
     w260_counts = phase_step_w260(torch, device, card)
     padded_times, padded_errors = time_gmm_padded(torch, device, card)
-    lap("the other widths")
+    lap("the other widths' kernel times, step w260")
 
     # the LM trainer's switches and SSD training
     phase_remat_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         phase_train_ema(torch, card, folder)
+    lap("remat step, train ema")
     ssd_step_counts = phase_ssd_step(torch, device, card)
     ssd_train_counts, ssd_train_p50 = phase_ssd_train(torch, device, card)
     ssd_backward = time_ssd_backward(torch, device, card)
-    lap("the trainer's switches, ssd training")
+    lap("ssd step, ssd train")
 
     # the model layouts of queue A item 3's L7 and L8: MoE blocks,
     # scan-stacked stacks and int8 weights
@@ -9261,9 +9606,6 @@ def main() -> None:
                                            spread, slot_commits)
     lap("train async")
     del clean
-    with tempfile.TemporaryDirectory() as folder:
-        hang_launches = phase_hang_abort(torch, card, folder)
-    lap("hang abort")
 
     # queue A entry 1: the streaming datapipe (its drill, packed SSD
     # training at full width: row 7 on packed batches) and item 9's
@@ -9273,8 +9615,13 @@ def main() -> None:
         packed = phase_packed_train(torch, device, card, folder, args.seed,
                                     ssd_train_p50)
     lap("packed train")
-    phase_modules(card)
-    lap("drill, datapipe drill, campaign")
+    with tempfile.TemporaryDirectory() as folder:
+        # phase 38 beside phases 39, 40 and 42 (its latency is the
+        # child's own, read when it ends)
+        hang = start_hang_abort(folder)
+        phase_modules(card)
+        hang_launches = phase_hang_abort(card, hang)
+    lap("drill, datapipe drill, campaign, hang abort")
 
     # queue A item 5: data parallelism across processes, two ranks sharing
     # the card over gloo (NCCL refuses two ranks on one device)
@@ -9285,24 +9632,37 @@ def main() -> None:
         # its run A beside `dp train`'s A, its resumed run B beside B2
         zero = start_zero_bench(Path(train_folder) / "zero")
         fsdp_b1 = start_fsdp_b1(train_folder)
+        # queue A item 8b's: the tp bench beside `dp collectives`, `tp
+        # train`'s run B1 beside `dp step`, A and the resumed B beside
+        # `dp train`'s A and B2
+        tp_bench = start_tp_bench(Path(train_folder) / "tensor")
         with tempfile.TemporaryDirectory() as folder:
             phase_dp_collectives(torch, card, folder)
-        lap("dp collectives (and zero bench, fsdp train B1)")
+        lap("dp collectives (and zero bench, fsdp train B1, tp bench)")
         # `dp train`'s run B1 (its first epoch, untimed) beside `dp step`
         b1 = start_dp_train_run(Path(train_folder) / "b", 1, "dp train B1")
+        tp_b1 = start_tp_b1(train_folder)
         with tempfile.TemporaryDirectory() as folder:
             dp_step_launches = phase_dp_step(torch, card, folder)
-        lap("dp step (and dp train B1, zero bench, fsdp train B1)")
+        lap("dp step (and dp train B1, zero bench, fsdp train B1, tp train "
+            "B1)")
         phase_zero_bench(card, zero)
         lap("zero bench")
-        dp_train_launches, dp_summary, fsdp_started = phase_dp_train(
-            torch, device, card, train_folder, b1,
-            lambda: start_fsdp_a(train_folder),
-            lambda: start_fsdp_b2(train_folder, fsdp_b1))
-        lap("dp train (and fsdp train A, B2)")
+        tp_record = phase_tp_bench(card, tp_bench)
+        lap("tp bench")
+        dp_train_launches, dp_summary, (fsdp_a, tp_a), (fsdp_b2, tp_b2) = \
+            phase_dp_train(
+                torch, device, card, train_folder, b1,
+                lambda: (start_fsdp_a(train_folder), start_tp_a(train_folder)),
+                lambda: (start_fsdp_b2(train_folder, fsdp_b1),
+                         start_tp_b2(train_folder, tp_b1)))
+        lap("dp train (and fsdp train A, B2, tp train A, B2)")
         fsdp_train_launches = phase_fsdp_train(torch, card, train_folder,
-                                               fsdp_started, dp_summary)
-    lap("fsdp train")
+                                               (fsdp_a, fsdp_b2), dp_summary)
+        lap("fsdp train")
+        tp_train_launches, _ = phase_tp_train(torch, card, train_folder,
+                                              (tp_a, tp_b2), dp_summary)
+    lap("tp train")
     release_memory(torch)
     phase_prefetch_to_device(torch, device, card)
     lap("prefetch to device")
@@ -9345,12 +9705,12 @@ def main() -> None:
     release_memory(torch)
     fleet_serve_launches = phase_fleet_serve(torch, device, card)
     lap("fleet serve bf16")
-    ft = sum(laps[k] for k in ("train preempt", "train slots", "train async",
-                               "hang abort"))
-    print(f"phase seconds: {json.dumps(laps)}; train preempt, train slots, "
-          f"train async and hang abort at {LAYERS} of 12 layers: {ft:.1f} s "
-          f"together ({FT_SECONDS_AT_12_LAYERS} s at 12) [{card}]",
-          flush=True)
+    ft = sum(laps[k] for k in ("train preempt", "train slots",
+                               "train async"))
+    print(f"phase seconds: {json.dumps(laps)}; train preempt, train slots "
+          f"and train async at {LAYERS} of 12 layers: {ft:.1f} s together "
+          f"(hang abort runs beside the drills; the four took "
+          f"{FT_SECONDS_AT_12_LAYERS} s at 12) [{card}]", flush=True)
 
     # the split pair runs every ring backward: its main path is `ring
     # train` (`ring train d128` at 128), so its rows take the launches,
@@ -9535,6 +9895,10 @@ def main() -> None:
     for name in ("flash_fwd", "flash_bwd_fused"):
         layouts[name]["dp train (a rank)"] = dp_train_launches[name]
         layouts[name]["fsdp train (a rank)"] = fsdp_train_launches[name]
+        layouts[name]["tp train (a rank, 8 heads)"] = tp_train_launches[name]
+    # the tp bench's parity gate: rows 2-4 (and 1) on the f32 route
+    for name, count in tp_record["flash_bwd_parity_launches"].items():
+        layouts.setdefault(name, {})["tp bench flash_bwd_parity"] = count
     for name in ("flash_fwd_general", "flash_bwd_fused_general"):
         layouts[name]["dp step (a rank)"] = dp_step_launches[name]
     # the vision models, the MLM and seq2seq paths (f32 steps on the

@@ -130,12 +130,14 @@ def _sharded_only(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
 
 
 def layout_record(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
-    """`layout` as JSON: each key's spec (a list, tuples as lists) and
-    mesh axis sizes."""
+    """`layout` as JSON: each key's spec (a list, tuples as lists), mesh
+    axis sizes and, for a dim cut block by block, its `pairs`."""
     return {key: {"spec": [list(part) if isinstance(part, tuple) else part
                            for part in sharding.spec],
                   "mesh": {axis: int(size) for axis, size
-                           in sharding.mesh.shape.items()}}
+                           in sharding.mesh.shape.items()},
+                  **({"pairs": sharding.pairs} if sharding.pairs != 1
+                     else {})}
             for key, sharding in sorted(_sharded_only(layout).items())}
 
 
@@ -359,23 +361,16 @@ def _commit_slot(directory: Path, target: str, skeleton: tp.Any,
 
 def gather_state(state: tp.Any, layout: tp.Optional[Layout]) -> tp.Any:
     """`state` with each rank-local tensor of `layout` all-gathered into
-    its full tensor (collective: every rank calls it with its shards, in
-    the same order); what a single file of a sharded state holds."""
+    its full tensor over every axis of its sharding, 'tensor' included
+    (collective: every rank calls it with its shards, in the same order);
+    what a single file of a sharded state holds."""
     layout = _sharded_only(layout)
     if not layout:
         return state
     skeleton, tensors = _extract_tensors(state)
     for key in sorted(layout):
-        if key not in tensors:
-            continue
-        sharding, local = layout[key], tensors[key]
-        dim = sharding.split_dim()
-        (axis,) = sharding.axis_names()
-        n = sharding.mesh.shape[axis]
-        flat = distrib.all_gather(local.detach().reshape(-1).contiguous(),
-                                  sharding.mesh.group(axis))
-        tensors[key] = torch.cat(list(flat.view(n, *local.shape).unbind(0)),
-                                 dim=dim)
+        if key in tensors:
+            tensors[key] = layout[key].gather(tensors[key])
     return _fill(skeleton, tensors)
 
 
@@ -617,10 +612,14 @@ def _load_slot(directory: Path, slot: str) -> tp.Any:
                               ) from exc
 
 
-def _check_topology(slot_dir: Path, layout: tp.Optional[Layout]) -> None:
+def _check_topology(slot_dir: Path, layout: tp.Optional[Layout],
+                    mesh: tp.Any = None) -> None:
     """Refuse a slot saved on another world size with a sharded layout,
-    or under another layout than `layout` (when given): resharding at
-    restore is item 8e's."""
+    under another layout than `layout` (when given), or over another
+    mesh than `mesh` (when given: a sharded tensor's record names the
+    mesh it was cut over, so a restore onto another tensor or fsdp width
+    at the same world size is caught too): resharding at restore is item
+    8e's."""
     manifest = slot_manifest(slot_dir)
     saved = manifest.get("layout", {})
     world = int(manifest.get("world", 1))
@@ -637,10 +636,19 @@ def _check_topology(slot_dir: Path, layout: tp.Optional[Layout]) -> None:
         raise NotImplementedError(
             f"{slot_dir} was saved across {world} ranks; this run has "
             f"{distrib.world_size()}: {TODO_ELASTIC}")
+    if isinstance(getattr(mesh, "shape", None), tp.Mapping):
+        shape = {axis: int(size) for axis, size in mesh.shape.items()}
+        other = next((record["mesh"] for record in saved.values()
+                      if record["mesh"] != shape), None)
+        if other is not None:
+            raise NotImplementedError(
+                f"{slot_dir} was saved over the mesh {other}; this run's is "
+                f"{shape}: {TODO_ELASTIC}")
 
 
 def load_state_sharded(directory: AnyPath,
-                       layout: tp.Optional[Layout] = None) -> tp.Any:
+                       layout: tp.Optional[Layout] = None,
+                       mesh: tp.Any = None) -> tp.Any:
     """Restore a `save_state_sharded` checkpoint, tensors on the CPU.
 
     Each slot is verified against its manifest before unpickling. When
@@ -651,16 +659,16 @@ def load_state_sharded(directory: AnyPath,
     only good copy. Only when both slots are bad does it raise
     `CheckpointCorrupted`. Across ranks each rank reads its own shards
     (every rank verifies every file, so all take the same slot); a slot
-    saved on another world size with a sharded layout, or under another
-    `layout` than the given one, raises NotImplementedError naming item
-    8e.
+    saved on another world size with a sharded layout, under another
+    `layout` than the given one, or over another `mesh` than the given
+    one, raises NotImplementedError naming item 8e.
     """
     directory = Path(directory).absolute()
     active = read_slot_pointer(directory)
     if active is None:
         raise FileNotFoundError(
             f"No committed sharded checkpoint in {directory}")
-    _check_topology(directory / active, layout)
+    _check_topology(directory / active, layout, mesh)
     sibling = SLOTS[1] if active == SLOTS[0] else SLOTS[0]
     errors: tp.List[str] = []
     for candidate in (active, sibling):

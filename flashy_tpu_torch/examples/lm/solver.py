@@ -73,11 +73,12 @@ from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
 from ...models.transformer import (RowShard, TransformerConfig,
-                                   TransformerLM, transformer_shardings)
+                                   TransformerLM)
 from ...ops.losses import lm_next_token_loss
 from ...parallel.data_parallel import (grad_norm, shard_batch,
                                        with_grad_accumulation, wrap)
 from ...parallel.mesh import Mesh, make_mesh
+from ...parallel.tensor import validate_tensor_args
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
@@ -143,7 +144,8 @@ def build_optimizer(model: nn.Module, cfg: tp.Mapping
 
 def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
                    tokens: torch.Tensor, accumulate: int = 1,
-                   dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+                   dropout_seed: tp.Optional[int] = None,
+                   mesh: tp.Optional[Mesh] = None) -> torch.Tensor:
     """The loss, with the gradients left in each parameter's `.grad`.
 
     With `accumulate` > 1 the batch is split into that many microbatches
@@ -155,14 +157,20 @@ def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
     may be `parallel.wrap`'s DistributedDataParallel: the gradients are
     then averaged over the ranks once a step, and a `dropout_seed`
     becomes the rank's `RowShard`, so ranks holding contiguous rows of
-    the global batch draw the masks one process would draw over it.
+    the global batch draw the masks one process would draw over it. Over
+    a `mesh` with a 'tensor' axis the rows are the data-parallel
+    process's (`mesh.data_parallel_index()` of `data_parallel_size`), so
+    the ranks of a tensor group, which hold the same rows, draw the same
+    masks.
     """
     model.zero_grad(set_to_none=True)
     kwargs = {}
     if dropout_seed is not None:
-        kwargs["dropout_seed"] = dropout_seed if not distrib.is_distributed() \
-            else RowShard(int(dropout_seed), distrib.rank(),
-                          distrib.world_size())
+        shard, shards = (distrib.rank(), distrib.world_size()) \
+            if mesh is None else (mesh.data_parallel_index(),
+                                  mesh.data_parallel_size)
+        kwargs["dropout_seed"] = dropout_seed if shards == 1 \
+            else RowShard(int(dropout_seed), shard, shards)
 
     def loss_and_grad(model, micro, **kwargs):
         loss = loss_fn(model, micro, **kwargs)
@@ -180,17 +188,20 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                schedule: tp.Callable[[int], float], step: int,
                tokens: torch.Tensor, loss_fn: tp.Callable,
                accumulate: int = 1, max_norm: float = 1.0,
-               dropout_seed: tp.Optional[int] = None
+               dropout_seed: tp.Optional[int] = None,
+               mesh: tp.Optional[Mesh] = None
                ) -> tp.Dict[str, torch.Tensor]:
     """One update at step count `step` (before the increment): loss and
-    grads (`value_and_grad`, with `dropout_seed`), the global norm,
+    grads (`value_and_grad`, with `dropout_seed` and `mesh`), the global
+    norm,
     optax's clip (`g / norm * max_norm` once the norm reaches
     `max_norm`, no epsilon), AdamW at `schedule(step)`. Returns the loss
     and the unclipped `grad_norm` as device scalars."""
-    loss = value_and_grad(model, loss_fn, tokens, accumulate, dropout_seed)
+    loss = value_and_grad(model, loss_fn, tokens, accumulate, dropout_seed,
+                          mesh)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     # the whole gradient's norm: a sharded parameter's squares summed
-    # over its axis, a replicated one's counted once
+    # over its axes, a replicated one's counted once
     norm = grad_norm(model.parameters())
     for grad in grads:
         grad.copy_(torch.where(norm < max_norm, grad,
@@ -202,16 +213,19 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def check_mesh(mesh: tp.Mapping, attention: str,
-               fsdp: tp.Optional[str] = None) -> Mesh:
+               fsdp: tp.Optional[str] = None,
+               model: tp.Optional[tp.Mapping] = None) -> Mesh:
     """The run's mesh: `data: -1` resolves to the world size over `fsdp`
-    (the process axes: `data x fsdp` ranks, a rank a process; 1 in one
-    process), `seq` above 1 is a ring whose ranks share the process's
-    card and needs `attention` 'ring' or 'ring_fused' (with any other
-    attention a `seq` axis would do nothing on one card), and `tensor`,
-    `pipe` or `expert` above 1 raise NotImplementedError naming their
-    ROADMAP item (`make_mesh`). A solver whose model has no FSDP specs
-    passes the ROADMAP item that brings them as `fsdp`: `mesh.fsdp`
-    above 1 then raises NotImplementedError naming it."""
+    and `tensor` (the process axes: `data x fsdp x tensor` ranks, a rank
+    a process; 1 in one process), `seq` above 1 is a ring whose ranks
+    share the process's card and needs `attention` 'ring' or 'ring_fused'
+    (with any other attention a `seq` axis would do nothing on one card),
+    and `pipe` or `expert` above 1, or `seq` with `tensor`, raise
+    NotImplementedError naming their ROADMAP item (`make_mesh`). With
+    `model` (the config's model section) a `tensor` width is held to its
+    heads and MLP width (`validate_tensor_args`). A solver whose model
+    has no FSDP specs passes the ROADMAP item that brings them as `fsdp`:
+    `mesh.fsdp` above 1 then raises NotImplementedError naming it."""
     built = make_mesh({axis: int(size) for axis, size in mesh.items()})
     if fsdp is not None and built.shape["fsdp"] > 1:
         raise NotImplementedError(f"mesh.fsdp={built.shape['fsdp']} needs "
@@ -220,6 +234,11 @@ def check_mesh(mesh: tp.Mapping, attention: str,
         raise ValueError(f"mesh.seq={built.shape['seq']} cuts the sequence "
                          f"over a ring, which needs model.attention=ring or "
                          f"ring_fused, got {attention!r}")
+    if model is not None and built.shape["tensor"] > 1:
+        validate_tensor_args(int(model["num_heads"]),
+                             int(model["dim"]) * int(model["mlp_ratio"]),
+                             built.shape["tensor"],
+                             num_devices=distrib.world_size())
     return built
 
 
@@ -234,13 +253,15 @@ def _shadow(value: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 
 
 def wrap_model(model: nn.Module, mesh: Mesh) -> nn.Module:
-    """`parallel.wrap` for the run's mesh: with `fsdp` above 1 the model
-    itself in FSDP form under `transformer_shardings`, else
+    """`parallel.wrap` for the run's mesh under the model's own
+    `shardings()` (`transformer_shardings`): with `tensor` above 1 the
+    model cut over it first (Megatron; then DDP over the `data x fsdp`
+    ranks of each tensor rank), with `fsdp` above 1 the model itself in
+    FSDP form (over the tensor slices under both), else
     DistributedDataParallel above one rank (the model at one)."""
-    if mesh.shape["fsdp"] > 1:
-        return wrap(model, mesh=mesh, fsdp=True,
-                    state_sharding=transformer_shardings(
-                        dict(model.named_parameters())))
+    if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1:
+        return wrap(model, mesh=mesh, fsdp=mesh.shape["fsdp"] > 1,
+                    state_sharding=model.shardings())
     return wrap(model)
 
 
@@ -252,7 +273,8 @@ class LMSolver(BaseSolver):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mesh = check_mesh(cfg.mesh, cfg.model.attention)
+        self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
+                               model=cfg.model)
         model_cfg = TransformerConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
@@ -273,15 +295,20 @@ class LMSolver(BaseSolver):
                 "use loss=dense.")
         self.model = TransformerLM(model_cfg, device=self.device, seed=0,
                                    mesh=self.mesh)
-        world = distrib.world_size()
-        if cfg.batch_size % world:
+        rows = self.mesh.data_parallel_size
+        if cfg.batch_size % rows:
             raise ValueError(f"batch_size={cfg.batch_size} (the global "
-                             f"batch) does not split over {world} ranks")
+                             f"batch) does not split over {rows} "
+                             f"data-parallel ranks")
         # what the training step runs: DistributedDataParallel above one
-        # rank, the model itself at one, or the model in FSDP form
-        # (`self.model` stays the module whose state is checkpointed,
-        # evaluated and sampled)
+        # rank, the model itself at one, or the model in FSDP form, each
+        # over its tensor slices under mesh.tensor > 1 (`self.model`
+        # stays the module whose state is checkpointed, evaluated and
+        # sampled)
         self.train_model = wrap_model(self.model, self.mesh)
+        # the mesh a tensor-parallel model's rank logits are reduced over
+        self.vocab_mesh = self.mesh if self.mesh.shape["tensor"] > 1 \
+            else None
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         # the update count: the schedule reads it, so it is checkpointed;
         # with ema_decay > 0 also the EMA shadow, name -> f32 tensor
@@ -316,7 +343,7 @@ class LMSolver(BaseSolver):
                                                   kwargs)
         return lm_next_token_loss(model, tokens,
                                   aux_weight=self.aux_weight if self.moe
-                                  else None,
+                                  else None, vocab_mesh=self.vocab_mesh,
                                   mode=self.cfg.get("loss", "dense"),
                                   chunk_size=int(self.cfg.get("loss_chunk",
                                                               256)))
@@ -327,14 +354,16 @@ class LMSolver(BaseSolver):
 
     def batch_at(self, step: int, eval_set: bool = False) -> torch.Tensor:
         """This rank's rows of the global [batch_size, seq_len] batch of
-        `step`: the contiguous `batch_size / world` rows at `rank` (all of
-        them in one process), on the device."""
+        `step`: the contiguous `batch_size / (data x fsdp)` rows of its
+        data-parallel index (the ranks of a tensor group take the same
+        rows; all of them in one process), on the device."""
         # held-out data: an independently seeded subset of the same
         # distribution (see synthetic_token_stream)
         host = self._stream(self.cfg.batch_size, self.cfg.seq_len, step,
                             subset=1 if eval_set else 0)
-        rows = self.cfg.batch_size // distrib.world_size()
-        local = host[distrib.rank() * rows:(distrib.rank() + 1) * rows]
+        rows = self.cfg.batch_size // self.mesh.data_parallel_size
+        index = self.mesh.data_parallel_index()
+        local = host[index * rows:(index + 1) * rows]
         return shard_batch(local, self.mesh, device=self.device).long()
 
     def _sync(self) -> None:
@@ -361,7 +390,8 @@ class LMSolver(BaseSolver):
             args = (self.train_model, self.optimizer, self.schedule,
                     self.state["step"], self.batch_at(global_step),
                     lambda model, tokens: self.loss(tokens, model=model))
-            kwargs = {"accumulate": int(cfg.get("accumulate", 1))}
+            kwargs = {"accumulate": int(cfg.get("accumulate", 1)),
+                      "mesh": self.mesh}
             step_metrics = roofline.register_fn("lm/train_step", train_step,
                                                 args, kwargs)
             roofline.note_call("lm/train_step")

@@ -17,15 +17,17 @@ The optimizer, its schedule and the update are the LM solver's
 then AdamW under `warmup_cosine_decay_schedule`, as the JAX solver
 chains them. A batch travels as one [rows, 3, T] tensor (inputs, labels,
 selection) so the LM's step takes it whole. One rank a process over the
-mesh's `data` axis: each rank takes its contiguous rows of the global
-batch and divides its selected sum by the global batch's count (times
-the world size, which DistributedDataParallel's mean undoes), so the
-ranks' loss and gradients are the global batch's masked mean, as the
-JAX step's sum over count is. `mesh.fsdp` above 1 wraps the model in
-FSDP form as the LM solver does (`wrap_model`: the ranks are `mesh.data
-x mesh.fsdp` processes, the reduce-scatter averaging as DDP's mean does);
-`mesh.tensor` above 1 raises NotImplementedError naming ROADMAP queue A
-item 8b. It runs on the card; `device=cpu` runs it on the host.
+mesh's process axes: each data-parallel rank (`data x fsdp`) takes its
+contiguous rows of the global batch and divides its selected sum by the
+global batch's count (times the data-parallel size, which
+DistributedDataParallel's mean undoes), so the ranks' loss and gradients
+are the global batch's masked mean, as the JAX step's sum over count
+is. `mesh.fsdp` above 1 wraps the model in FSDP form as the LM solver
+does (`wrap_model`, the reduce-scatter averaging as DDP's mean does);
+`mesh.tensor` above 1 cuts it over Megatron tensor ranks, which take the
+same rows, and the masked loss is then over the rank's vocab-parallel
+logits (`vocab_parallel_cross_entropy`). It runs on the card;
+`device=cpu` runs it on the host.
 """
 import time
 import typing as tp
@@ -39,6 +41,7 @@ from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.transformer import TransformerConfig, TransformerLM
 from ...parallel.data_parallel import shard_batch
+from ...parallel.tensor import vocab_parallel_cross_entropy
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
@@ -76,13 +79,18 @@ def mask_tokens(tokens: np.ndarray, step: int, eval_set: bool,
 
 
 def masked_loss(model: tp.Callable, packed: torch.Tensor,
-                count: float) -> torch.Tensor:
+                count: float, vocab_mesh: tp.Any = None) -> torch.Tensor:
     """The cross entropy at the selected positions of `packed` ([B, 3, T]:
-    inputs, labels, selection), summed and divided by `count`."""
+    inputs, labels, selection), summed and divided by `count`; over a
+    `vocab_mesh` (a model cut over 'tensor') the logits are the rank's
+    vocabulary columns."""
     inputs, labels, selected = packed.unbind(1)
     logits = model(inputs)
-    per_token = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
-                                reduction="none").view_as(labels)
+    if vocab_mesh is not None:
+        per_token = vocab_parallel_cross_entropy(logits, labels, vocab_mesh)
+    else:
+        per_token = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
+                                    reduction="none").view_as(labels)
     return (per_token * selected.float()).sum() / count
 
 
@@ -94,7 +102,8 @@ class MLMSolver(BaseSolver):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mesh = check_mesh(cfg.mesh, cfg.model.attention)
+        self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
+                               model=cfg.model)
         model_cfg = TransformerConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
@@ -102,11 +111,14 @@ class MLMSolver(BaseSolver):
             remat=cfg.model.get("remat", False), causal=False)
         self.model = TransformerLM(model_cfg, device=self.device, seed=0,
                                    mesh=self.mesh)
-        world = distrib.world_size()
-        if cfg.batch_size % world:
+        rows = self.mesh.data_parallel_size
+        if cfg.batch_size % rows:
             raise ValueError(f"batch_size={cfg.batch_size} (the global "
-                             f"batch) does not split over {world} ranks")
+                             f"batch) does not split over {rows} "
+                             f"data-parallel ranks")
         self.train_model = wrap_model(self.model, self.mesh)
+        self.vocab_mesh = self.mesh if self.mesh.shape["tensor"] > 1 \
+            else None
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         self.state: tp.Dict[str, tp.Any] = {"step": 0}
         self.register_stateful("model", "optimizer", "state")
@@ -131,13 +143,14 @@ class MLMSolver(BaseSolver):
                ) -> tp.Tuple[torch.Tensor, float]:
         """This rank's rows of `batch` as one [rows, 3, T] tensor on the
         device, and the divisor of its selected sum: the global count
-        (at least 1) over the world size."""
-        world, rank = distrib.world_size(), distrib.rank()
-        rows = self.cfg.batch_size // world
+        (at least 1) over the data-parallel size."""
+        shards = self.mesh.data_parallel_size
+        index = self.mesh.data_parallel_index()
+        rows = self.cfg.batch_size // shards
         packed = np.stack([batch["inputs"], batch["labels"],
                            batch["selected"].astype(np.int32)], axis=1)
-        local = packed[rank * rows:(rank + 1) * rows]
-        count = max(float(batch["selected"].sum()), 1.0) / world
+        local = packed[index * rows:(index + 1) * rows]
+        count = max(float(batch["selected"].sum()), 1.0) / shards
         return shard_batch(local, self.mesh, device=self.device).long(), \
             count
 
@@ -158,7 +171,9 @@ class MLMSolver(BaseSolver):
             step_metrics = train_step(
                 self.train_model, self.optimizer, self.schedule,
                 self.state["step"], packed,
-                lambda model, batch: masked_loss(model, batch, count))
+                lambda model, batch: masked_loss(model, batch, count,
+                                                 self.vocab_mesh),
+                mesh=self.mesh)
             self.state["step"] += 1
             progress.observe(step_metrics["loss"])
             metrics = average(step_metrics)
@@ -179,7 +194,8 @@ class MLMSolver(BaseSolver):
             for index in progress:
                 packed, count = self._local(self.batch_at(index,
                                                           eval_set=True))
-                loss = masked_loss(self.model, packed, count)
+                loss = masked_loss(self.model, packed, count,
+                                   self.vocab_mesh)
                 progress.observe(loss)
                 metrics = average({"loss": loss})
                 progress.update(**metrics)

@@ -15,12 +15,16 @@ decoder causal, each one 64-row tile at `src_len` 64.
 The optimizer, its schedule and the update are the LM solver's
 (`build_optimizer`, `train_step`), as the JAX solver chains the same
 optax transformations. A batch travels as one [rows, 3, S] tensor (src,
-tgt, decoder input). One rank a process over the mesh's `data` axis,
-each on its contiguous rows of the global batch; `mesh.fsdp` or
-`mesh.tensor` above 1 raise NotImplementedError naming ROADMAP queue A
-item 8b (`seq2seq_shardings`). It runs on the card; `device=cpu` runs it
-on the host.
+tgt, decoder input). One rank a process over the mesh's process axes,
+each data-parallel rank (`data x fsdp`) on its contiguous rows of the
+global batch, the ranks of a tensor group on the same rows:
+`mesh.fsdp > 1` holds the parameters as FSDP shards and `mesh.tensor >
+1` cuts the model over Megatron tensor ranks, both under
+`seq2seq_shardings` (the LM solver's `wrap_model`); the loss is then
+vocab-parallel, and the cached decoder runs on the summoned full
+parameters. It runs on the card; `device=cpu` runs it on the host.
 """
+import contextlib
 import time
 import typing as tp
 
@@ -33,12 +37,12 @@ from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.seq2seq import (Seq2SeqConfig, Seq2SeqTransformer,
                                cached_translate)
-from ...parallel.data_parallel import shard_batch, wrap
-from ...parallel.mesh import TODO_AXES
+from ...parallel.data_parallel import shard_batch
+from ...parallel.tensor import vocab_parallel_cross_entropy
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
-from ..lm.solver import build_optimizer, check_mesh, train_step
+from ..lm.solver import build_optimizer, check_mesh, train_step, wrap_model
 
 
 def synthetic_pairs(vocab_size: int, task: str = "reverse", seed: int = 0):
@@ -58,11 +62,15 @@ def synthetic_pairs(vocab_size: int, task: str = "reverse", seed: int = 0):
     return batch
 
 
-def teacher_loss(model: tp.Callable, packed: torch.Tensor) -> torch.Tensor:
+def teacher_loss(model: tp.Callable, packed: torch.Tensor,
+                 vocab_mesh: tp.Any = None) -> torch.Tensor:
     """Mean cross entropy of `packed` ([B, 3, S]: src, tgt, decoder
-    input)."""
+    input); over a `vocab_mesh` (a model cut over 'tensor') the logits
+    are the rank's vocabulary columns (`vocab_parallel_cross_entropy`)."""
     src, tgt, dec_in = packed.unbind(1)
     logits = model(src, dec_in)
+    if vocab_mesh is not None:
+        return vocab_parallel_cross_entropy(logits, tgt, vocab_mesh).mean()
     return F.cross_entropy(logits.flatten(0, 1), tgt.flatten())
 
 
@@ -75,19 +83,23 @@ class TranslateSolver(BaseSolver):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
-                               fsdp=TODO_AXES["tensor"])
+                               model=cfg.model)
         model_cfg = Seq2SeqConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             enc_layers=cfg.model.enc_layers, dec_layers=cfg.model.dec_layers,
             num_heads=cfg.model.num_heads, mlp_ratio=cfg.model.mlp_ratio,
             attention=cfg.model.attention,
             max_seq_len=max(int(cfg.src_len) + 1, 128))
-        self.model = Seq2SeqTransformer(model_cfg, device=self.device, seed=0)
-        world = distrib.world_size()
-        if cfg.batch_size % world:
+        self.model = Seq2SeqTransformer(model_cfg, device=self.device, seed=0,
+                                        mesh=self.mesh)
+        rows = self.mesh.data_parallel_size
+        if cfg.batch_size % rows:
             raise ValueError(f"batch_size={cfg.batch_size} (the global "
-                             f"batch) does not split over {world} ranks")
-        self.train_model = wrap(self.model)
+                             f"batch) does not split over {rows} "
+                             f"data-parallel ranks")
+        self.train_model = wrap_model(self.model, self.mesh)
+        self.vocab_mesh = self.mesh if self.mesh.shape["tensor"] > 1 \
+            else None
         self.optimizer, self.schedule = build_optimizer(self.model, cfg)
         self.state: tp.Dict[str, tp.Any] = {"step": 0}
         self.register_stateful("model", "optimizer", "state")
@@ -116,8 +128,8 @@ class TranslateSolver(BaseSolver):
     def _local(self, batch: tp.Dict[str, np.ndarray]) -> torch.Tensor:
         """This rank's rows of `batch` as one [rows, 3, S] tensor on the
         device."""
-        rows = self.cfg.batch_size // distrib.world_size()
-        start = distrib.rank() * rows
+        rows = self.cfg.batch_size // self.mesh.data_parallel_size
+        start = self.mesh.data_parallel_index() * rows
         packed = np.stack([batch["src"], batch["tgt"], batch["dec_in"]],
                           axis=1)[start:start + rows]
         return shard_batch(packed, self.mesh, device=self.device).long()
@@ -138,7 +150,9 @@ class TranslateSolver(BaseSolver):
             step_metrics = train_step(
                 self.train_model, self.optimizer, self.schedule,
                 self.state["step"], self._local(self.batch_at(global_step)),
-                teacher_loss)
+                lambda model, packed: teacher_loss(model, packed,
+                                                   self.vocab_mesh),
+                mesh=self.mesh)
             self.state["step"] += 1
             progress.observe(step_metrics["loss"])
             metrics = average(step_metrics)
@@ -157,7 +171,7 @@ class TranslateSolver(BaseSolver):
         with torch.no_grad():
             for index in progress:
                 loss = teacher_loss(self.model, self._local(
-                    self.batch_at(index, eval_set=True)))
+                    self.batch_at(index, eval_set=True)), self.vocab_mesh)
                 progress.observe(loss)
                 metrics = average({"loss": loss})
                 progress.update(**metrics)
@@ -165,9 +179,12 @@ class TranslateSolver(BaseSolver):
         if every and self.epoch % every == 0:
             src, tgt, _ = self._local(self.batch_at(0, eval_set=True)
                                       ).unbind(1)
-            out = cached_translate(self.model, src,
-                                   max_new_tokens=self.cfg.src_len,
-                                   bos_id=self._bos)
+            summon = getattr(self.model, "summon_full_params",
+                             contextlib.nullcontext)
+            with summon():
+                out = cached_translate(self.model, src,
+                                       max_new_tokens=self.cfg.src_len,
+                                       bos_id=self._bos)
             hits = (out == tgt).float()
             metrics["tok_acc"] = float(hits.mean())
             metrics["seq_acc"] = float(hits.prod(dim=1).mean())

@@ -30,7 +30,9 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention, score_scale
-from ..parallel.mesh import TODO_AXES
+from ..parallel.mesh import Mesh
+from ..parallel.tensor import (copy_to_tensor, layer_mesh,
+                               reduce_from_tensor, vocab_parallel_embedding)
 from ..utils import resolve_device
 from .transformer import (DROPOUT_MIXER, DROPOUT_MLP, Attention, Block,
                           DropoutSeed, MLPBlock, RMSNorm, TransformerConfig,
@@ -66,26 +68,36 @@ class Seq2SeqConfig:
 
 
 class CrossAttention(nn.Module):
-    """Decoder queries attend over the encoder memory (no mask)."""
+    """Decoder queries attend over the encoder memory (no mask). Under
+    tensor parallelism the layer holds its rank's heads (`q` and `kv`
+    split by column, `out` by row): the decoder stream and the memory
+    enter through `copy_to_tensor`, the output leaves through one
+    all-reduce."""
 
     def __init__(self, cfg: Seq2SeqConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, mesh: tp.Optional[Mesh] = None):
         super().__init__()
         self.config = cfg
+        self.mesh = mesh
         h, dh = cfg.num_heads, cfg.head_dim
         self.q = _Kernel((cfg.dim, h, dh), cfg.dim, generator, device)
         self.kv = _Kernel((cfg.dim, 2, h, dh), cfg.dim, generator, device)
         self.out = _Kernel((h, dh, cfg.dim), h * dh, generator, device)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        dtype = self.config.dtype
-        q = torch.einsum("btd,dhk->bthk", x.to(dtype),
+        cfg = self.config
+        dtype = cfg.dtype
+        mesh = layer_mesh(self.mesh, self.q.kernel.shape[1], cfg.num_heads,
+                          "cross-attention heads")
+        q = torch.einsum("btd,dhk->bthk", copy_to_tensor(x.to(dtype), mesh),
                          self.q.kernel.to(dtype))
-        kv = torch.einsum("bsd,dchk->bschk", memory.to(dtype),
+        kv = torch.einsum("bsd,dchk->bschk",
+                          copy_to_tensor(memory.to(dtype), mesh),
                           self.kv.kernel.to(dtype))
         out = dot_product_attention(q, kv[:, :, 0], kv[:, :, 1],
                                     causal=False)
-        return torch.einsum("bthk,hkD->btD", out, self.out.kernel.to(dtype))
+        return reduce_from_tensor(torch.einsum(
+            "bthk,hkD->btD", out, self.out.kernel.to(dtype)), mesh)
 
 
 class DecoderBlock(nn.Module):
@@ -93,17 +105,18 @@ class DecoderBlock(nn.Module):
     is its layer in the whole model, which seeds its dropout sites."""
 
     def __init__(self, cfg: Seq2SeqConfig, generator: torch.Generator,
-                 device: torch.device, index: int = 0):
+                 device: torch.device, index: int = 0,
+                 mesh: tp.Optional[Mesh] = None):
         super().__init__()
         self.config = cfg
         self.index = index
         bcfg = cfg._block_config(causal=True)
         self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
-        self.attn = Attention(bcfg, generator, device)
+        self.attn = Attention(bcfg, generator, device, mesh)
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
-        self.xattn = CrossAttention(cfg, generator, device)
+        self.xattn = CrossAttention(cfg, generator, device, mesh)
         self.norm3 = RMSNorm(cfg.dim, cfg.dtype, device)
-        self.mlp = MLPBlock(bcfg, generator, device)
+        self.mlp = MLPBlock(bcfg, generator, device, mesh)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 positions: torch.Tensor,
@@ -135,29 +148,52 @@ class Seq2SeqTransformer(nn.Module):
         config: the model configuration.
         device: where the parameters live; `cuda` unless asked otherwise.
         seed: seeds the random init.
+        mesh: the mesh whose 'tensor' axis `parallel.wrap` cuts the model
+            over (`seq2seq_shardings`): the layers then run on their
+            slices, the embedding vocab-parallel and the head giving the
+            rank's [B, T, V/T] logits.
     """
 
     def __init__(self, config: Seq2SeqConfig, *, device: tp.Any = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh: tp.Optional[Mesh] = None):
         super().__init__()
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(seed)
         self.config = config
+        self.mesh = mesh
         self.embed = _param((config.vocab_size, config.dim), 0.02,
                             generator, device)
         enc_cfg = config._block_config(causal=False)
         for i in range(config.enc_layers):
             setattr(self, f"enc_blocks_{i}", Block(enc_cfg, generator,
-                                                   device, index=i))
+                                                   device, mesh=mesh,
+                                                   index=i))
         self.enc_norm = RMSNorm(config.dim, config.dtype, device)
         for i in range(config.dec_layers):
             setattr(self, f"dec_blocks_{i}", DecoderBlock(
-                config, generator, device, index=config.enc_layers + i))
+                config, generator, device, index=config.enc_layers + i,
+                mesh=mesh))
         self.dec_norm = RMSNorm(config.dim, config.dtype, device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _vocab_mesh(self) -> tp.Optional[Mesh]:
+        return layer_mesh(self.mesh, self.embed.shape[0],
+                          self.config.vocab_size, "vocabulary rows")
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        mesh = self._vocab_mesh()
+        if mesh is None:
+            return self.embed[tokens.long()].to(self.config.dtype)
+        return vocab_parallel_embedding(tokens, self.embed, mesh
+                                        ).to(self.config.dtype)
+
+    def shardings(self) -> tp.Dict[str, tp.Any]:
+        """`seq2seq_shardings` of the model's parameters: the layout
+        `parallel.wrap` cuts it by."""
+        return seq2seq_shardings(dict(self.named_parameters()))
 
     def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
         if tokens.shape[1] > self.config.max_seq_len:
@@ -173,7 +209,7 @@ class Seq2SeqTransformer(nn.Module):
         seed = training_dropout_seed(self.config.dropout, train,
                                      dropout_seed)
         positions = self._positions(src)
-        x = self.embed[src.long()].to(self.config.dtype)
+        x = self._embed(src)
         for i in range(self.config.enc_layers):
             x = getattr(self, f"enc_blocks_{i}")(x, positions, None, seed)
         return self.enc_norm(x)
@@ -185,11 +221,13 @@ class Seq2SeqTransformer(nn.Module):
         seed = training_dropout_seed(self.config.dropout, train,
                                      dropout_seed)
         positions = self._positions(tgt)
-        y = self.embed[tgt.long()].to(self.config.dtype)
+        y = self._embed(tgt)
         for i in range(self.config.dec_layers):
             y = getattr(self, f"dec_blocks_{i}")(y, memory, positions, seed)
         y = self.dec_norm(y)
-        # the tied head in f32, as the JAX package computes it
+        # the tied head in f32, as the JAX package computes it (the rank's
+        # vocabulary columns under tensor parallelism)
+        y = copy_to_tensor(y, self._vocab_mesh())
         return torch.einsum("btd,vd->btv", y.float(), self.embed.float())
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,
@@ -200,10 +238,30 @@ class Seq2SeqTransformer(nn.Module):
                            dropout_seed)
 
 
-def seq2seq_shardings(params: tp.Any) -> tp.NoReturn:
-    raise NotImplementedError(f"seq2seq_shardings (megatron / FSDP "
-                              f"PartitionSpecs) is not ported yet: "
-                              f"{TODO_AXES['tensor']}")
+def seq2seq_shardings(params: tp.Any) -> tp.Dict[str, tp.Any]:
+    """The spec of every parameter of a Seq2SeqTransformer, by name (the
+    port of the JAX package's `seq2seq_shardings`): the block rules of
+    `transformer_shardings` (the shared block names match; `mlp/up`
+    carries `pairs=2`), extended with the cross attention's projections:
+    q [D, H, Dh] and the fused kv [D, 2, H, Dh] split by column, out
+    [H, Dh, D] by row (`attn/out`'s rule). Each spec is cut to its
+    leaf's rank, as the reference cuts it."""
+    from ..parallel.sharding import P
+    from .transformer import transformer_spec
+
+    def spec_for(name: str, leaf: tp.Any) -> P:
+        joined = name.replace(".", "/")
+        if "xattn/q" in joined:
+            spec = P("fsdp", "tensor", None)
+        elif "xattn/kv" in joined:
+            spec = P("fsdp", None, "tensor", None)
+        else:
+            spec = transformer_spec(joined)
+        if "embed" in joined:
+            return spec
+        return P(*spec[:len(np.shape(leaf))], pairs=spec.pairs)
+
+    return {name: spec_for(name, leaf) for name, leaf in params.items()}
 
 
 Params = tp.Dict[str, tp.Any]

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.ssd_scan import SSD_LOG_RESET, ssd_chunked_scan
+from ..parallel.tensor import copy_to_tensor, layer_mesh, reduce_from_tensor
 from .transformer import _Kernel
 
 
@@ -71,13 +72,19 @@ def ssd_projections(cfg: tp.Any, normed: torch.Tensor, cbv: torch.Tensor,
 
 
 class SSDMixer(nn.Module):
+    """Under tensor parallelism the layer holds its rank's heads (`cbv`
+    [D, H/T, P] split by column, `dt_bias` [H/T], `out` [H/T, Dh, D] by
+    row): the scan runs on them and the output's partial sums leave
+    through one all-reduce over 'tensor', as attention's do."""
+
     def __init__(self, cfg: tp.Any, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, mesh: tp.Any = None):
         super().__init__()
         if cfg.ssd_state_dim <= 0:
             raise ValueError(
                 "config.ssd_state_dim must be > 0 for SSD mixer layers")
         self.config = cfg
+        self.mesh = mesh
         h, dh = cfg.num_heads, cfg.head_dim
         self.cbv = _Kernel((cfg.dim, h, 2 * cfg.ssd_state_dim + dh + 1),
                            cfg.dim, generator, device)
@@ -89,12 +96,14 @@ class SSDMixer(nn.Module):
                 segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         cfg = self.config
+        mesh = layer_mesh(self.mesh, self.cbv.kernel.shape[1], cfg.num_heads,
+                          "SSD heads")
         c, b, v, log_a = ssd_projections(
-            cfg, x.to(cfg.dtype), self.cbv.kernel.to(cfg.dtype),
-            self.dt_bias)
+            cfg, copy_to_tensor(x.to(cfg.dtype), mesh),
+            self.cbv.kernel.to(cfg.dtype), self.dt_bias)
         log_a, token_mask = ssd_segment_log_decay(log_a, segment_ids)
         y, _ = ssd_chunked_scan(c, b, v, log_a,
                                 chunk=cfg.ssd_chunk or None,
                                 token_mask=token_mask, kernel=cfg.ssd_kernel)
-        return torch.einsum("bthd,hdD->btD", y,
-                            self.out.kernel.to(cfg.dtype))
+        return reduce_from_tensor(torch.einsum(
+            "bthd,hdD->btD", y, self.out.kernel.to(cfg.dtype)), mesh)

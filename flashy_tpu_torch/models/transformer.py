@@ -43,6 +43,15 @@ expert projections as grouped matmuls, on CUDA through the Hopper
 grouped-GEMM kernels, and `forward(..., return_aux=True)` also returns
 the summed load-balancing loss.
 
+Megatron tensor parallelism (`parallel.tensor`): `parallel.wrap` over a
+mesh whose 'tensor' axis is above 1 cuts the model by
+`transformer_shardings`, and each layer then reads its widths from the
+slices it holds: the QKV, SSD `cbv` and MLP up-projections split by
+column (after `copy_to_tensor`), the attention-out, SSD-out and MLP
+down-projections by row (then `reduce_from_tensor`: one all-reduce
+after each mixer and each MLP), the embedding and tied head by
+vocabulary rows. MoE blocks under 'tensor' raise (expert parallelism).
+
 Training switches, as in the JAX package:
 - `dropout > 0` applies dropout after each mixer's output projection
   and after the MLP's down projection, only with `forward(...,
@@ -76,6 +85,9 @@ from ..ops.losses import tied_head
 from ..parallel.mesh import Mesh
 from ..parallel.moe_ep import TODO_EXPERT_PARALLEL
 from ..parallel.ring import ring_self_attention
+from ..parallel.tensor import (copy_to_tensor, layer_mesh,
+                               reduce_from_tensor, tensor_width,
+                               vocab_parallel_embedding)
 from ..utils import resolve_device
 from .moe import MoEMLP, moe_aux_loss
 
@@ -338,8 +350,15 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        """Under tensor parallelism the layer holds its rank's heads
+        (`qkv` [D, 3, H/T, Dh], `out` [H/T, Dh, D]): the input enters
+        through `copy_to_tensor`, attention runs on the rank's heads and
+        the output's partial sums leave through `reduce_from_tensor`."""
         cfg = self.config
-        qkv = torch.einsum("btd,dchk->btchk", x.to(cfg.dtype),
+        mesh = layer_mesh(self.mesh, self.qkv.kernel.shape[2], cfg.num_heads,
+                          "attention heads")
+        x = copy_to_tensor(x.to(cfg.dtype), mesh)
+        qkv = torch.einsum("btd,dchk->btchk", x,
                            self.qkv.kernel.to(cfg.dtype))
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         q = _rotary(q, positions)
@@ -368,23 +387,35 @@ class Attention(nn.Module):
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dot_product_attention(q, k, v, causal=cfg.causal)
-        return torch.einsum("bqhd,hdD->bqD", out,
-                            self.out.kernel.to(cfg.dtype))
+        return reduce_from_tensor(torch.einsum(
+            "bqhd,hdD->bqD", out, self.out.kernel.to(cfg.dtype)), mesh)
 
 
 class MLPBlock(nn.Module):
+    """The gated MLP. Under tensor parallelism the layer holds its rank's
+    slice of the hidden width: `up` [D, 2F/T] as its columns of `gate`
+    then the same columns of `value` (the `pairs` layout of
+    `transformer_shardings`), `down` [F/T, D] the matching rows."""
+
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, mesh: tp.Optional[Mesh] = None):
         super().__init__()
         self.config = cfg
+        self.mesh = mesh
         hidden = cfg.dim * cfg.mlp_ratio
         self.up = _Kernel((cfg.dim, 2 * hidden), cfg.dim, generator, device)
         self.down = _Kernel((hidden, cfg.dim), hidden, generator, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.config.dtype
-        gate, value = (x.to(dtype) @ self.up.kernel.to(dtype)).chunk(2, -1)
-        return (nn.functional.silu(gate) * value) @ self.down.kernel.to(dtype)
+        cfg = self.config
+        dtype = cfg.dtype
+        mesh = layer_mesh(self.mesh, self.down.kernel.shape[0],
+                          cfg.dim * cfg.mlp_ratio, "MLP hidden width")
+        x = copy_to_tensor(x.to(dtype), mesh)
+        gate, value = (x @ self.up.kernel.to(dtype)).chunk(2, -1)
+        return reduce_from_tensor(
+            (nn.functional.silu(gate) * value) @ self.down.kernel.to(dtype),
+            mesh)
 
 
 class Block(nn.Module):
@@ -401,7 +432,7 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(cfg.dim, cfg.dtype, device)
         if mixer == "ssd":
             from .ssd import SSDMixer
-            self.ssd = SSDMixer(cfg, generator, device)
+            self.ssd = SSDMixer(cfg, generator, device, mesh)
         else:
             self.attn = Attention(cfg, generator, device, mesh)
         self.norm2 = RMSNorm(cfg.dim, cfg.dtype, device)
@@ -412,7 +443,7 @@ class Block(nn.Module):
                               cfg.moe_dispatch, generator=generator,
                               device=device)
         else:
-            self.mlp = MLPBlock(cfg, generator, device)
+            self.mlp = MLPBlock(cfg, generator, device, mesh)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: tp.Optional[torch.Tensor] = None,
@@ -535,7 +566,12 @@ class TransformerLM(nn.Module):
             params_from_jax(...))` instead.
         mesh: the mesh whose `seq` axis ring attention runs over
             (`parallel.make_mesh`); None takes `parallel.default_mesh()`
-            at call time, as the JAX package does.
+            at call time, as the JAX package does. Its 'tensor' axis is
+            what `parallel.wrap` cuts the model over: the model is built
+            whole, the wrap slices it, and each layer then runs on the
+            slice it holds (`layer_mesh`): the embedding vocab-parallel,
+            the tied head giving the rank's [B, T, V/T] logits (reduce
+            them with `parallel.tensor.vocab_parallel_cross_entropy`).
     """
 
     def __init__(self, config: TransformerConfig, *,
@@ -543,8 +579,15 @@ class TransformerLM(nn.Module):
                  mesh: tp.Optional[Mesh] = None):
         super().__init__()
         check_supported(config)
+        if tensor_width(mesh) > 1 and config.moe_experts > 0:
+            raise NotImplementedError(
+                f"MoE blocks under tensor={tensor_width(mesh)} are not "
+                f"ported yet (the experts' w_up split (expert, fsdp, "
+                f"tensor) goes with expert parallelism): "
+                f"{TODO_EXPERT_PARALLEL}")
         device = resolve_device(device)
         self.config = config
+        self.mesh = mesh
         generator = torch.Generator(device=device).manual_seed(seed)
         self.embed = _param((config.vocab_size, config.dim), 0.02,
                             generator, device)
@@ -596,7 +639,13 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
-        x = self.embed[tokens].to(cfg.dtype)
+        mesh = layer_mesh(self.mesh, self.embed.shape[0], cfg.vocab_size,
+                          "vocabulary rows")
+        if mesh is None:
+            x = self.embed[tokens].to(cfg.dtype)
+        else:
+            x = vocab_parallel_embedding(tokens, self.embed, mesh
+                                         ).to(cfg.dtype)
         if cfg.scan_layers:
             x = self.blocks(x, positions, segment_ids, dropout_seed)
         else:
@@ -606,10 +655,51 @@ class TransformerLM(nn.Module):
         x = self.norm_f(x)
         if return_hidden:
             return x, self.embed
-        logits = tied_head(x, self.embed)
+        logits = tied_head(copy_to_tensor(x, mesh), self.embed)
         if return_aux:
             return logits, moe_aux_loss(self)
         return logits
+
+    def shardings(self) -> tp.Dict[str, tp.Any]:
+        """`transformer_shardings` of the model's parameters: the layout
+        `parallel.wrap` cuts it by."""
+        return transformer_shardings(dict(self.named_parameters()))
+
+
+def transformer_spec(path: str) -> tp.Any:
+    """The spec of the TransformerLM leaf at `path` ('/'-joined, as the
+    JAX package matches it on substrings): see `transformer_shardings`.
+    `mlp/up` carries `pairs=2` (its `gate | value` halves split apart)."""
+    from ..parallel.sharding import P
+
+    if "embed" in path:
+        return P("tensor", "fsdp")
+    pairs = 1
+    if "moe/w_up" in path:
+        base: tp.Tuple = ("expert", "fsdp", "tensor")
+    elif "moe/w_down" in path:
+        base = ("expert", "tensor", "fsdp")
+    elif "router" in path:
+        base = ()
+    elif "qkv" in path:
+        base = ("fsdp", None, "tensor", None)
+    elif "attn/out" in path:
+        base = ("tensor", None, "fsdp")
+    elif "ssd/cbv" in path:
+        base = ("fsdp", "tensor", None)
+    elif "ssd/out" in path:
+        base = ("tensor", None, "fsdp")
+    elif "ssd/dt_bias" in path:
+        base = ("tensor",)
+    elif "mlp/up" in path:
+        base, pairs = ("fsdp", "tensor"), 2
+    elif "mlp/down" in path:
+        base = ("tensor", "fsdp")
+    else:
+        base = ()
+    if "blocks/" in path:
+        return P("pipe", *base, pairs=pairs)
+    return P(*base, pairs=pairs)
 
 
 def transformer_shardings(params: tp.Any) -> tp.Dict[str, tp.Any]:
@@ -636,37 +726,9 @@ def transformer_shardings(params: tp.Any) -> tp.Dict[str, tp.Any]:
     A scan-stacked leaf (`blocks.block....`) leads with 'pipe'. At
     `tensor=1` the tensor entries are replication; `wrap(model,
     fsdp=True, state_sharding=transformer_shardings(...))` holds each
-    parameter as its 'fsdp' shard."""
-    from ..parallel.sharding import P
-
-    def spec_for(name: str) -> P:
-        joined = name.replace(".", "/")
-        if "embed" in joined:
-            return P("tensor", "fsdp")
-        if "moe/w_up" in joined:
-            base: tp.Tuple = ("expert", "fsdp", "tensor")
-        elif "moe/w_down" in joined:
-            base = ("expert", "tensor", "fsdp")
-        elif "router" in joined:
-            base = ()
-        elif "qkv" in joined:
-            base = ("fsdp", None, "tensor", None)
-        elif "attn/out" in joined:
-            base = ("tensor", None, "fsdp")
-        elif "ssd/cbv" in joined:
-            base = ("fsdp", "tensor", None)
-        elif "ssd/out" in joined:
-            base = ("tensor", None, "fsdp")
-        elif "ssd/dt_bias" in joined:
-            base = ("tensor",)
-        elif "mlp/up" in joined:
-            base = ("fsdp", "tensor")
-        elif "mlp/down" in joined:
-            base = ("tensor", "fsdp")
-        else:
-            base = ()
-        if "blocks/" in joined:
-            return P("pipe", *base)
-        return P(*base)
-
-    return {name: spec_for(name) for name in params}
+    parameter as its 'fsdp' shard. `mlp/up`'s spec carries `pairs=2`: a
+    tensor rank holds its columns of `gate` and of `value` (the spec's
+    tuple is the reference's; the reference's partitioner moves the
+    halves where the port's layout puts them)."""
+    return {name: transformer_spec(name.replace(".", "/"))
+            for name in params}

@@ -75,20 +75,44 @@ def _chunk_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return head_matmul(x, head.to(x.dtype).t())
 
 
+def _chunk_stats(logits: torch.Tensor, labels: torch.Tensor,
+                 mesh: tp.Any) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """(per-token loss, logsumexp) of one chunk's f32 logits [B, c, V]
+    (with a vocab-parallel `mesh`, the rank's [B, c, V/T] columns, the
+    statistics all-reduced over 'tensor')."""
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        correct = torch.gather(logits, -1, labels[..., None].long())
+        return lse - correct[..., 0], lse
+    from ..parallel.tensor import _vocab_stats
+    flat = logits.reshape(-1, logits.shape[-1])
+    top, log_sums, target = _vocab_stats(flat, labels.reshape(-1), mesh)
+    return ((log_sums - target).view(labels.shape),
+            (top + log_sums).view(labels.shape))
+
+
+def _chunk_onehot(labels: torch.Tensor, cols: int, mesh: tp.Any,
+                  dtype: torch.dtype) -> torch.Tensor:
+    if mesh is None:
+        return F.one_hot(labels.long(), cols).to(dtype)
+    from ..parallel.tensor import _onehot_local
+    return _onehot_local(labels, cols, mesh, dtype)
+
+
 class _ChunkedCrossEntropy(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, hidden, head, labels, chunk_size):
+    def forward(ctx, hidden, head, labels, chunk_size, mesh):
         losses, lses = [], []
         for c0 in range(0, hidden.shape[1], chunk_size):
             logits = _chunk_logits(hidden[:, c0:c0 + chunk_size], head)
-            lse = torch.logsumexp(logits, dim=-1)
-            correct = torch.gather(logits, -1,
-                                   labels[:, c0:c0 + chunk_size, None].long())
-            losses.append(lse - correct[..., 0])
+            loss, lse = _chunk_stats(logits, labels[:, c0:c0 + chunk_size],
+                                     mesh)
+            losses.append(loss)
             lses.append(lse)
         ctx.save_for_backward(hidden, head, labels, torch.cat(lses, dim=1))
         ctx.chunk_size = chunk_size
+        ctx.mesh = mesh
         return torch.cat(losses, dim=1)
 
     @staticmethod
@@ -105,8 +129,8 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
             # d(lse - correct)/dlogits = softmax - onehot(label); the saved
             # logsumexp removes the second full reduction
             probs = torch.exp(logits - lse[:, c0:c0 + chunk, None])
-            onehot = F.one_hot(labels[:, c0:c0 + chunk].long(),
-                               head.shape[0]).to(probs.dtype)
+            onehot = _chunk_onehot(labels[:, c0:c0 + chunk], head.shape[0],
+                                   ctx.mesh, probs.dtype)
             dlogits = (probs - onehot) * grad[:, c0:c0 + chunk, None].float()
             # operands in the compute dtype, f32 accumulation
             dl = dlogits.to(hidden.dtype)
@@ -114,24 +138,34 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
             dhead = dhead + head_matmul(
                 dl.reshape(-1, dl.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
         dx = torch.cat(dxs, dim=1).to(hidden.dtype)
-        return dx, dhead.to(head.dtype), None, None
+        return dx, dhead.to(head.dtype), None, None, None
 
 
 def chunked_softmax_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                                   labels: torch.Tensor,
-                                  chunk_size: int = 256) -> torch.Tensor:
+                                  chunk_size: int = 256,
+                                  mesh: tp.Any = None) -> torch.Tensor:
     """Per-token CE of a tied/linear LM head without full logits.
 
     hidden [B, T, D] (compute dtype), head [V, D] (grads come back in its
     dtype), labels [B, T] int. Returns [B, T] f32 per-token
-    `logsumexp(logits) - logits[label]`; reduce at the call site.
+    `logsumexp(logits) - logits[label]`; reduce at the call site. With a
+    vocab-parallel `mesh` (a 'tensor' axis above 1) `head` is the rank's
+    [V/T, D] rows: each chunk's statistics are all-reduced over 'tensor'
+    as `parallel.tensor.vocab_parallel_cross_entropy` reduces them, and
+    the hidden states' gradient is the rank's partial sum (pass `hidden`
+    through `copy_to_tensor`, which sums it).
     """
-    return _ChunkedCrossEntropy.apply(hidden, head, labels, chunk_size)
+    from ..parallel.tensor import tensor_width
+    if tensor_width(mesh) == 1:
+        mesh = None
+    return _ChunkedCrossEntropy.apply(hidden, head, labels, chunk_size, mesh)
 
 
 def lm_next_token_loss(model: tp.Callable, tokens: torch.Tensor, *,
                        mode: str = "dense", chunk_size: int = 256,
                        aux_weight: tp.Optional[float] = None,
+                       vocab_mesh: tp.Any = None,
                        **model_kwargs: tp.Any) -> torch.Tensor:
     """Mean next-token CE of a TransformerLM, dense or chunked head.
 
@@ -139,8 +173,11 @@ def lm_next_token_loss(model: tp.Callable, tokens: torch.Tensor, *,
     `chunked_softmax_cross_entropy` over the final hidden states. Both
     are the same math. With `aux_weight` (an MoE model; dense only) the
     loss adds `aux_weight` times the MoE layers' load-balancing loss.
-    `model_kwargs` go to the model's forward (`train=True,
-    dropout_seed=s` for dropout).
+    `vocab_mesh` is the mesh of a model cut over 'tensor' (its logits
+    the rank's V/T columns): the dense loss is then
+    `vocab_parallel_cross_entropy` and the chunked one runs on the
+    rank's embedding rows. `model_kwargs` go to the model's forward
+    (`train=True, dropout_seed=s` for dropout).
     """
     if mode not in ("dense", "chunked"):
         raise ValueError(f"mode must be 'dense' or 'chunked', got {mode!r}")
@@ -149,11 +186,20 @@ def lm_next_token_loss(model: tp.Callable, tokens: torch.Tensor, *,
             logits, aux = model(tokens, **model_kwargs), None
         else:
             logits, aux = model(tokens, return_aux=True, **model_kwargs)
-        ce = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
-                             tokens[:, 1:].reshape(-1).long())
+        if vocab_mesh is not None:
+            from ..parallel.tensor import vocab_parallel_cross_entropy
+            ce = vocab_parallel_cross_entropy(logits[:, :-1], tokens[:, 1:],
+                                              vocab_mesh).mean()
+        else:
+            ce = F.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]),
+                tokens[:, 1:].reshape(-1).long())
         return ce if aux is None else ce + aux_weight * aux
     if aux_weight is not None:
         raise ValueError("the chunked loss takes no MoE aux loss")
     hidden, head = model(tokens, return_hidden=True, **model_kwargs)
+    if vocab_mesh is not None:
+        from ..parallel.tensor import copy_to_tensor
+        hidden = copy_to_tensor(hidden, vocab_mesh)
     return chunked_softmax_cross_entropy(hidden[:, :-1], head, tokens[:, 1:],
-                                         chunk_size).mean()
+                                         chunk_size, vocab_mesh).mean()

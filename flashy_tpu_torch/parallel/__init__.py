@@ -4,9 +4,10 @@ device meshes (`mesh`), the port's layout records (`sharding`: `P`,
 forms (`data_parallel`: `wrap` as DistributedDataParallel, FSDP or a
 declared ZeRO layout, `shard_batch`, `with_grad_accumulation`, the leaf
 rule), the ZeRO-1 weight update (`zero`), the count of a step's
-collectives (`accounting`), sequence-parallel ring attention (`ring`,
-and the single-kernel forward of `ring_fused`) and the single-device
-half of the expert layer's grouped MLP (`moe_ep`)."""
+collectives (`accounting`), Megatron tensor parallelism over the
+'tensor' process axis (`tensor`), sequence-parallel ring attention
+(`ring`, and the single-kernel forward of `ring_fused`) and the
+single-device half of the expert layer's grouped MLP (`moe_ep`)."""
 from .mesh import (default_mesh, make_mesh, mesh_shape_from_devices,  # noqa: F401
                    set_default_mesh)
 from .sharding import NamedSharding, P  # noqa: F401
@@ -19,15 +20,18 @@ from .accounting import (collective_stats,  # noqa: F401
                          compare_collective_stats, count_collectives,
                          memory_stats, total_collective_bytes)
 
-# ZeRO exports resolve lazily (PEP 562), as in the JAX package:
-# `python -m flashy_tpu_torch.parallel.zero` is a CLI entry point, and an
-# eager import here would put the module in sys.modules before runpy
-# executes it (a double-execution RuntimeWarning on every run).
+# ZeRO and tensor-parallel exports resolve lazily (PEP 562), as in the
+# JAX package: `python -m flashy_tpu_torch.parallel.zero` and
+# `... .parallel.tensor` are CLI entry points, and an eager import here
+# would put the module in sys.modules before runpy executes it (a
+# double-execution RuntimeWarning on every run).
 _LAZY_EXPORTS = {
     "zero_sharding": "zero", "zero_update": "zero",
     "per_device_bytes": "zero", "describe_state_sharding": "zero",
     "audit_expectations": "zero", "run_zero_bench": "zero",
     "model_state": "zero",
+    "tensor_state_sharding": "tensor", "validate_tensor_args": "tensor",
+    "flash_bwd_parity": "tensor", "run_tp_bench": "tensor",
 }
 
 

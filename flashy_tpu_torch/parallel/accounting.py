@@ -65,8 +65,9 @@ def compare_collective_stats(record: Record, baseline: Record
 
 
 def counting_allreduce_hook(state, bucket):  # DDP checks the annotations
-    """DDP's default `allreduce_hook` (divide by the world size, then
-    sum), with the bucket's all-reduce noted where
+    """DDP's default `allreduce_hook` (divide by the size of the group
+    `state`, every process when None, then sum over it), with the
+    bucket's all-reduce noted where
     `count_collectives` sees it. `wrap` registers it on every
     DistributedDataParallel it builds."""
     from torch.distributed.algorithms.ddp_comm_hooks import default_hooks

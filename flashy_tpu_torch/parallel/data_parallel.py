@@ -24,6 +24,13 @@ leaf rule (`axis_leaf_sharding`, `fsdp_sharding`). It uses neither
 with CUDA tensors, which gloo reduces only in all_reduce, where
 `distrib` stages them through the host.
 
+Under Megatron tensor parallelism (`mesh.shape['tensor'] > 1`) `wrap`
+first cuts the model over the 'tensor' process axis
+(`parallel.tensor`), and the forms above act on the slices over the
+processes of each tensor rank: DDP over the `data x fsdp` group, FSDP
+over 'fsdp', ZeRO-1 over 'data' (a leaf split over two axes,
+`('tensor', 'data')`, nests: `sharding.py`).
+
 `with_grad_accumulation` runs microbatches in sequence with f32 running
 sums; under DDP and the sharded forms every microbatch but the last runs
 in `no_sync()`, so the reduction happens once a step.
@@ -38,8 +45,8 @@ import torch
 from torch import nn
 
 from .. import distrib
-from .mesh import Mesh, default_mesh
-from .sharding import NamedSharding, P, place
+from .mesh import DATA_PARALLEL_AXES, Mesh, default_mesh
+from .sharding import NamedSharding, P, join_pairs, place, split_pairs
 
 BATCH_AXES = ("data", "fsdp")
 
@@ -113,15 +120,19 @@ def axis_leaf_sharding(mesh: Mesh, axis: str, min_size: int,
     then shards the largest divisible dim NOT claimed by the base spec
     and merges the two; where every divisible dim is claimed it rides
     along an already-sharded dim (the HSDP spelling ('fsdp', 'data'))
-    wherever the composed shard still divides."""
+    wherever the composed shard still divides. The base spec's `pairs`
+    carries over to the result."""
     axis_size = mesh.shape[axis]
 
     def leaf_sharding(x: tp.Any) -> NamedSharding:
         shape = tuple(np.shape(x))
+        pairs = 1
         if base is None:
             spec: tp.List[tp.Any] = [None] * len(shape)
         else:
-            spec = list(base(x))
+            base_spec = base(x)
+            pairs = getattr(base_spec, "pairs", 1)
+            spec = list(base_spec)
             spec += [None] * (len(shape) - len(spec))
         used = {name for part in spec if part is not None
                 for name in (part if isinstance(part, tuple) else (part,))}
@@ -148,7 +159,7 @@ def axis_leaf_sharding(mesh: Mesh, axis: str, min_size: int,
             # the reference's spelling: a replicated leaf is P(), not an
             # all-None spec of matching rank
             return NamedSharding(mesh, P())
-        return NamedSharding(mesh, P(*spec))
+        return NamedSharding(mesh, P(*spec), pairs=pairs)
 
     return leaf_sharding
 
@@ -283,33 +294,53 @@ def with_grad_accumulation(value_and_grad_fn: tp.Callable,
 # ----------------------------------------------------------------------
 class _Leaf:
     """One parameter of a sharded layout: its owner module and attribute,
-    its qualified name, its NamedSharding, the one dim it splits (None:
-    replicated) over `axis`, and its full shape."""
+    its qualified name, its NamedSharding (the layout of the tensor the
+    process stores or updates), its full shape (the tensor the forward
+    computes with: the whole parameter, or under tensor parallelism its
+    'tensor' slice) and the one process axis (`data` or `fsdp`; None:
+    not split there) and dim the stored tensor is cut over from it."""
 
     def __init__(self, owner: nn.Module, name: str, key: str,
                  sharding: NamedSharding, full_shape: tp.Sequence[int]):
         self.owner, self.name, self.key = owner, name, key
         self.sharding = sharding
-        self.dim = sharding.split_dim()
-        axes = sharding.axis_names()
-        if self.dim is not None and len(axes) != 1:
+        axes = tuple(axis for axis in sharding.axis_names()
+                     if axis in DATA_PARALLEL_AXES)
+        if len(axes) > 1:
             raise NotImplementedError(
-                f"{key}: {sharding.spec!r} splits one dim over {axes}; the "
-                f"port shards a leaf over one process axis (composed "
-                f"layouts come with ROADMAP.md queue A item 8b)")
+                f"{key}: {sharding.spec!r} splits the parameter over the "
+                f"process axes {axes}; the port's sharded forms gather and "
+                f"reduce a parameter over one of data and fsdp")
         self.axis = axes[0] if axes else None
+        self.dim = None if self.axis is None else next(
+            dim for dim, part in enumerate(sharding.spec)
+            if self.axis in (part if isinstance(part, tuple) else (part,)))
+        self.pairs = 1 if self.dim is None else sharding._pairs_at(self.dim)
         self.full_shape = tuple(full_shape)
-        self.shard_shape = sharding.shard_shape(full_shape)
+        self.shard_shape = self.full_shape if self.axis is None else \
+            sharding.shard_shape(full_shape, (self.axis,), key)
+
+    def piece(self, full: torch.Tensor, index: int) -> torch.Tensor:
+        """Slice `index` over the leaf's process axis of `full`."""
+        return split_pairs(full, self.dim, self.sharding.mesh.shape[
+            self.axis], index, self.pairs)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This process's slice of `full` (the tensor it stores)."""
+        if self.axis is None:
+            return full
+        return self.piece(full, self.sharding.mesh.coord(self.axis))
 
 
 class _Layout:
     """The collectives of a sharded layout over its leaves: `gather`
-    (update tensors -> full tensors, one all-gather per (axis, dtype))
-    and `reduce` (full gradients -> the update tensors' gradients,
-    averaged over every process as DistributedDataParallel averages
-    them: divided by the process count, then summed; a sharded leaf's by
-    one reduce-scatter over its axis and an all-reduce over the other
-    process axis, a replicated leaf's by one all-reduce)."""
+    (stored tensors -> full tensors, one all-gather per (axis, dtype))
+    and `reduce` (full gradients -> the stored tensors' gradients,
+    averaged over the data-parallel processes as DistributedDataParallel
+    averages them: divided by `data x fsdp`, then summed; a sharded
+    leaf's by one reduce-scatter over its axis and an all-reduce over the
+    other data-parallel axis, a replicated leaf's by one all-reduce over
+    both; the ranks of a tensor group reduce apart, each its slices)."""
 
     def __init__(self, mesh: Mesh, leaves: tp.Sequence[_Leaf]):
         self.mesh = mesh
@@ -340,17 +371,17 @@ class _Layout:
             offset = 0
             for i in indices:
                 leaf, size = self.leaves[i], tensors[i].numel()
-                out[i] = torch.cat(
+                out[i] = join_pairs(
                     [gathered[r, offset:offset + size].view(leaf.shard_shape)
-                     for r in range(n)], dim=leaf.dim)
+                     for r in range(n)], leaf.dim, leaf.pairs)
                 offset += size
         return out
 
     def reduce(self, grads: tp.Sequence[tp.Optional[torch.Tensor]]
                ) -> tp.List[torch.Tensor]:
-        """The update tensors' gradients from the full gradients (None:
+        """The stored tensors' gradients from the full gradients (None:
         zeros; every process must still join the collectives)."""
-        scale = float(self.mesh.processes)
+        scale = float(self.mesh.data_parallel_size)
         full = [g if g is not None else torch.zeros(
             leaf.full_shape, dtype=leaf.owner._parameters[leaf.name].dtype,
             device=leaf.owner._parameters[leaf.name].device)
@@ -359,15 +390,15 @@ class _Layout:
         for (axis, _), indices in self.groups.items():
             if axis is None:
                 flat = torch.cat([full[i].reshape(-1) for i in indices])
-                flat = distrib.all_reduce(flat.div_(scale), "sum")
+                flat = distrib.all_reduce(flat.div_(scale), "sum",
+                                          self.mesh.group(DATA_PARALLEL_AXES))
                 sizes = [full[i].numel() for i in indices]
                 for i, part in zip(indices, flat.split(sizes)):
                     out[i] = part.view(full[i].shape)
                 continue
             n = self.mesh.shape[axis]
-            chunks = [full[i].chunk(n, self.leaves[i].dim) for i in indices]
-            flat = torch.cat([chunk[r].reshape(-1) for r in range(n)
-                              for chunk in chunks])
+            flat = torch.cat([self.leaves[i].piece(full[i], r).reshape(-1)
+                              for r in range(n) for i in indices])
             mine = distrib.reduce_scatter(flat.div_(scale),
                                           self.mesh.group(axis))
             other = self._other(axis)
@@ -509,14 +540,17 @@ class _ShardedUse(torch.autograd.Function):
 
 class _Sharded:
     """The sharded form's state on a model (`model._sharded`): its mesh,
-    units, the NamedSharding of every update tensor by parameter name
-    (`shardings`, what `describe_state_sharding` and the checkpoint
-    read), whether backward reduces (`no_sync` clears it), and the
-    storages of the full parameters gathered right now (`live`)."""
+    mode ('fsdp', 'zero1' or 'tensor': a tensor-parallel model's slices),
+    the model it records, units, the NamedSharding of every stored or
+    update tensor by parameter name (`shardings`, what
+    `describe_state_sharding` and the checkpoint read), whether backward
+    reduces (`no_sync` clears it), and the storages of the full
+    parameters gathered right now (`live`)."""
 
-    def __init__(self, mesh: Mesh, mode: str):
+    def __init__(self, mesh: Mesh, mode: str, model: nn.Module):
         self.mesh = mesh
         self.mode = mode
+        self.model = model
         self.units: tp.List[_Unit] = []
         self.shardings: tp.Dict[str, NamedSharding] = {}
         self.sync = True
@@ -540,30 +574,44 @@ class _Sharded:
 
     @contextlib.contextmanager
     def summon_full_params(self) -> tp.Iterator[None]:
-        """Inside the block an FSDP model's registered parameters are the
-        full ones (gathered once, no gradient), so code that reads
-        `named_parameters()`, such as the decoder, sees the whole model;
-        the shards are back after it. Collective: every process enters
-        it together."""
-        if self.mode != "fsdp" or self.summoned:
+        """Inside the block a sharded model's registered parameters are
+        the full ones (gathered once over every axis, 'tensor' included,
+        no gradient), so code that reads `named_parameters()`, such as
+        the decoder, sees the whole model and runs it without
+        collectives; the shards are back after it. Collective: every
+        process enters it together. A ZeRO-1 model's parameters are whole
+        already (a tensor-parallel one's inner module summons its
+        slices). An FSDP model gathers each unit as its forward does (one
+        all-gather per axis and dtype), then each 'tensor' slice on its
+        own."""
+        if self.mode == "zero1" or self.summoned:
             yield
             return
         held = []
         with torch.no_grad():
-            for unit in self.units:
-                for leaf, full in zip(unit.leaves,
-                                      unit.layout.gather(unit.inputs())):
-                    shard = leaf.owner._parameters[leaf.name]
-                    held.append((leaf, shard))
-                    leaf.owner._parameters[leaf.name] = nn.Parameter(
-                        full, requires_grad=False)
+            fulls = {leaf.key: full for unit in self.units
+                     for leaf, full in zip(unit.leaves, unit.layout.gather(
+                         unit.inputs()))}
+            for name, sharding in self.shardings.items():
+                if sharding.is_replicated:
+                    continue
+                owner_path, _, attr = name.rpartition(".")
+                owner = self.model.get_submodule(owner_path) \
+                    if owner_path else self.model
+                shard = owner._parameters[attr]
+                held.append((owner, attr, shard))
+                full = fulls.get(name, shard)
+                if "tensor" in sharding.axis_names():
+                    full = sharding.gather(full, ("tensor",))
+                owner._parameters[attr] = nn.Parameter(
+                    full.detach(), requires_grad=False)
         self.summoned = True
         try:
             yield
         finally:
             self.summoned = False
-            for leaf, shard in held:
-                leaf.owner._parameters[leaf.name] = shard
+            for owner, attr, shard in held:
+                owner._parameters[attr] = shard
 
     @contextlib.contextmanager
     def no_sync(self) -> tp.Iterator[None]:
@@ -578,11 +626,14 @@ class _Sharded:
 
 
 def _resolve_shardings(model: nn.Module, mesh: Mesh, spec: tp.Any,
-                       default: tp.Callable[[tp.Any], tp.Any]
+                       default: tp.Callable[[tp.Any], tp.Any],
+                       axes: tp.Optional[tp.Sequence[str]] = None
                        ) -> tp.Dict[str, NamedSharding]:
     """Every parameter's NamedSharding: from `spec` (a mapping of
     parameter names to specs or NamedShardings, as `transformer_shardings`
-    and `fsdp_sharding` give), else from `default` over the parameters."""
+    and `fsdp_sharding` give), else from `default` over the parameters.
+    A dim that its axes among `axes` (default: every axis) do not divide
+    raises ValueError naming the parameter and the dim's divisors."""
     params = dict(model.named_parameters())
     if spec is None:
         spec = default(params)
@@ -594,13 +645,14 @@ def _resolve_shardings(model: nn.Module, mesh: Mesh, spec: tp.Any,
         entry = spec[name]
         out[name] = entry if isinstance(entry, NamedSharding) \
             else NamedSharding(mesh, entry)
-        out[name].shard_shape(param.shape)
+        out[name].shard_shape(param.shape, axes, name=name)
     return out
 
 
 def _leaves(model: nn.Module, shardings: tp.Mapping[str, NamedSharding],
             names: tp.Sequence[str]) -> tp.List[_Leaf]:
-    """The leaves of `model`'s (full) parameters `names`."""
+    """The leaves of `model`'s parameters `names` (their full shapes:
+    under tensor parallelism the 'tensor' slices the model holds)."""
     out = []
     for name in names:
         owner_path, _, attr = name.rpartition(".")
@@ -610,21 +662,85 @@ def _leaves(model: nn.Module, shardings: tp.Mapping[str, NamedSharding],
     return out
 
 
+def _param_specs(model: nn.Module, spec: tp.Any) -> tp.Any:
+    """The parameters' specs in a declared layout: its 'params' entry
+    (a `tensor_state_sharding` tree), the layout itself (a mapping of
+    parameter names, as `transformer_shardings` gives), or None when it
+    declares only update state."""
+    if isinstance(spec, tp.Mapping) and "params" in spec:
+        return spec["params"]
+    if isinstance(spec, tp.Mapping) and not _has_update_keys(spec):
+        return spec
+    return None
+
+
+def _has_update_keys(spec: tp.Any) -> bool:
+    from .zero import _is_update_key
+    return isinstance(spec, tp.Mapping) and any(
+        _is_update_key(str(key)) for key in spec)
+
+
+def _split_tensor(model: nn.Module, mesh: Mesh, spec: tp.Any) -> None:
+    """Cut `model` over the mesh's 'tensor' axis in place: every rank
+    first takes rank 0's full parameters (the model is built identically
+    on every rank, then sliced), then each parameter that its spec (`spec`,
+    or the model's own `shardings()`) splits over 'tensor' becomes this
+    process's slice, an `nn.Parameter` carrying the slice's
+    NamedSharding. The model's layers read their widths from the slices
+    they hold and run the Megatron collectives over the mesh's 'tensor'
+    group (`parallel.tensor`). Records the slices as `model._sharded`
+    (mode 'tensor') with `summon_full_params` and `no_sync`."""
+    def default(params: tp.Any) -> tp.Any:
+        shardings = getattr(model, "shardings", None)
+        if shardings is None:
+            raise ValueError(
+                f"wrap over tensor={mesh.shape['tensor']} needs the "
+                f"parameters' specs: pass state_sharding (e.g. "
+                f"transformer_shardings or tensor_state_sharding) or wrap "
+                f"a model with a shardings() method")
+        return shardings()
+
+    shardings = _resolve_shardings(model, mesh, spec, default)
+    distrib.broadcast_model(model)
+    sharded = _Sharded(mesh, "tensor", model)
+    with torch.no_grad():
+        for name, param in list(model.named_parameters()):
+            local = shardings[name].over(("tensor",))
+            if local.is_replicated:
+                continue
+            owner_path, _, attr = name.rpartition(".")
+            owner = model.get_submodule(owner_path) if owner_path else model
+            sliced = nn.Parameter(local.shard(param.detach()).clone(),
+                                  requires_grad=param.requires_grad)
+            sliced.sharding = local
+            owner._parameters[attr] = sliced
+            sharded.shardings[name] = local
+    model._sharded = sharded
+    model.no_sync = sharded.no_sync
+    model.summon_full_params = sharded.summon_full_params
+
+
 def _fsdp(model: nn.Module, mesh: Mesh, spec: tp.Any) -> nn.Module:
-    """Turn `model` into its FSDP form in place (see `wrap`)."""
+    """Turn `model` into its FSDP form in place (see `wrap`); under
+    tensor parallelism `model` holds its 'tensor' slices already."""
     from .mesh import PROCESS_AXES
     if mesh.shape["fsdp"] == 1 and mesh.shape["data"] == 1:
         return model
+    # under tensor parallelism the parameters are the 'tensor' slices
+    # already (their full shapes were checked over every axis then): only
+    # the data-parallel axes cut them further
     shardings = _resolve_shardings(
-        model, mesh, spec, lambda params: fsdp_sharding(params, mesh))
+        model, mesh, spec, lambda params: fsdp_sharding(params, mesh),
+        DATA_PARALLEL_AXES if mesh.shape["tensor"] > 1 else None)
     for sharding in shardings.values():
         stray = set(sharding.axis_names()) - set(PROCESS_AXES)
         if stray:
             raise NotImplementedError(
                 f"wrap(fsdp=True) shards over the process axes, not "
                 f"{sorted(stray)}")
-    distrib.broadcast_model(model)
-    sharded = _Sharded(mesh, "fsdp")
+    if mesh.shape["tensor"] == 1:
+        distrib.broadcast_model(model)
+    sharded = _Sharded(mesh, "fsdp", model)
     sharded.shardings = shardings
     # the units' leaves, with their full shapes, before the shards replace
     # the parameters
@@ -636,13 +752,13 @@ def _fsdp(model: nn.Module, mesh: Mesh, spec: tp.Any) -> nn.Module:
              for child, names in children if names]
     root_leaves = _leaves(model, shardings, own)
     with torch.no_grad():
-        for name, param in list(model.named_parameters()):
-            owner_path, _, attr = name.rpartition(".")
-            owner = model.get_submodule(owner_path) if owner_path else model
-            local = nn.Parameter(shardings[name].shard(param.detach())
-                                 .clone(), requires_grad=param.requires_grad)
-            local.sharding = shardings[name]
-            owner._parameters[attr] = local
+        for leaf in root_leaves + [leaf for _, leaves in units
+                                   for leaf in leaves]:
+            param = leaf.owner._parameters[leaf.name]
+            local = nn.Parameter(leaf.local(param.detach()).clone(),
+                                 requires_grad=param.requires_grad)
+            local.sharding = leaf.sharding
+            leaf.owner._parameters[leaf.name] = local
     for child, leaves in units:
         unit = _Unit(sharded, leaves, True)
         sharded.units.append(unit)
@@ -670,23 +786,49 @@ def _fsdp(model: nn.Module, mesh: Mesh, spec: tp.Any) -> nn.Module:
     return model
 
 
+# the live ZeRO-1 models, gathered after any optimizer step over their
+# shards by one process-wide hook (registered once: a hook that removed
+# itself while the optimizer iterates the hooks would break that step)
+_zero_models: "weakref.WeakSet[_ZeroModel]" = weakref.WeakSet()
+_zero_hook: tp.List[tp.Any] = []
+
+
+def _register_zero_hook() -> None:
+    if _zero_hook:
+        return
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    def after_step(optimizer: torch.optim.Optimizer, args: tp.Any,
+                   kwargs: tp.Any) -> None:
+        ids = {id(p) for group in optimizer.param_groups
+               for p in group["params"]}
+        for model in list(_zero_models):
+            if model._sharded_ids & ids:
+                model.gather_params()
+
+    _zero_hook.append(register_optimizer_step_post_hook(after_step))
+
+
 class _ZeroModel(nn.Module):
     """A model under a declared ZeRO layout (`wrap(model,
     state_sharding=...)`): compute and `module`'s parameters stay
-    replicated; `parameters()` are the tensors the optimizer updates,
-    this process's shard of each parameter whose update state the layout
-    shards (a new `nn.Parameter` carrying its `.sharding`) and the
-    parameter itself where it stays replicated. The backward
-    reduce-scatters the gradients into the shards (one reduce-scatter
-    and one all-reduce a step); after any optimizer's step over the
-    shards the fresh parameters are all-gathered into `module` once."""
+    replicated over the data-parallel processes (under tensor
+    parallelism, each rank's 'tensor' slices); `parameters()` are the
+    tensors the optimizer updates, this process's shard of each parameter
+    whose update state the layout shards (a new `nn.Parameter` carrying
+    its `.sharding`) and the parameter itself where it stays replicated.
+    The backward reduce-scatters the gradients into the shards (one
+    reduce-scatter and one all-reduce a step); after any optimizer's step
+    over the shards the fresh parameters are all-gathered into `module`
+    once."""
 
     def __init__(self, module: nn.Module, mesh: Mesh,
                  shardings: tp.Mapping[str, NamedSharding]):
         super().__init__()
         self.module = module
-        distrib.broadcast_model(module)
-        sharded = _Sharded(mesh, "zero1")
+        if mesh.shape["tensor"] == 1:
+            distrib.broadcast_model(module)
+        sharded = _Sharded(mesh, "zero1", module)
         sharded.shardings = dict(shardings)
         names = [name for name, _ in module.named_parameters()]
         leaves = _leaves(module, shardings, names)
@@ -697,8 +839,7 @@ class _ZeroModel(nn.Module):
                 if leaf.dim is None:
                     updates.append(param)
                     continue
-                local = nn.Parameter(leaf.sharding.shard(param.detach())
-                                     .clone(),
+                local = nn.Parameter(leaf.local(param.detach()).clone(),
                                      requires_grad=param.requires_grad)
                 local.sharding = leaf.sharding
                 updates.append(local)
@@ -708,22 +849,10 @@ class _ZeroModel(nn.Module):
         sharded.units.append(self._unit)
         self._sharded = sharded
         self.no_sync = sharded.no_sync
-        from torch.optim.optimizer import register_optimizer_step_post_hook
-        ids = {id(u) for u, leaf in zip(updates, leaves)
-               if leaf.dim is not None}
-        ref = weakref.ref(self)
-
-        def after_step(optimizer: torch.optim.Optimizer, args: tp.Any,
-                       kwargs: tp.Any) -> None:
-            model = ref()
-            if model is None:
-                handle.remove()
-                return
-            if any(id(p) in ids for group in optimizer.param_groups
-                   for p in group["params"]):
-                model.gather_params()
-
-        handle = register_optimizer_step_post_hook(after_step)
+        self._sharded_ids = {id(u) for u, leaf in zip(updates, leaves)
+                             if leaf.dim is not None}
+        _zero_models.add(self)
+        _register_zero_hook()
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
                          remove_duplicate: bool = True
@@ -755,7 +884,8 @@ class _ZeroModel(nn.Module):
 
 
 def sharded_state(model: tp.Any) -> tp.Optional[_Sharded]:
-    """The sharded form's record of `model` (FSDP or ZeRO), or None."""
+    """The sharded form's record of `model` (FSDP, ZeRO or a tensor
+    parallel model's slices), or None."""
     return getattr(model, "_sharded", None)
 
 
@@ -787,6 +917,24 @@ def grad_norm(params: tp.Iterable[torch.Tensor]) -> torch.Tensor:
     if total is None:
         return torch.zeros(())
     return torch.sqrt(total)
+
+
+def _ddp(model: nn.Module, group: tp.Any, **ddp_kwargs: tp.Any
+         ) -> nn.Module:
+    """`DistributedDataParallel(model)` over `group` (None: every
+    process), its bucket all-reduces counted."""
+    distrib._require_backend()
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        ddp_kwargs.setdefault("device_ids", [device.index if device.index
+                                             is not None else
+                                             torch.cuda.current_device()])
+    wrapped = nn.parallel.DistributedDataParallel(
+        model, process_group=group, **ddp_kwargs)
+    from .accounting import counting_allreduce_hook
+    # the hook's state is the group it averages over (None: every process)
+    wrapped.register_comm_hook(group, counting_allreduce_hook)
+    return wrapped
 
 
 def wrap(model: tp.Optional[nn.Module] = None, *,
@@ -825,7 +973,22 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
     parameter's shard) updates only this process's shard, and the fresh
     parameters are all-gathered once after its step.
 
-    Both sharded forms have `no_sync()` (gradient accumulation reduces
+    A `mesh` whose 'tensor' axis is above 1 first cuts the model over
+    it (Megatron tensor parallelism; the model is built identically on
+    every rank, then sliced): each parameter that its spec splits over
+    'tensor' (the 'params' entry of a `tensor_state_sharding` layout, a
+    mapping such as `transformer_shardings`, or the model's own
+    `shardings()`) becomes this process's slice, and the model's layers
+    run on their slices with the Megatron all-reduces over the 'tensor'
+    group. The data-parallel form then acts on the slices over the
+    processes of a tensor rank (`data x fsdp`): `fsdp=True` shards them
+    over 'fsdp' (tensor+fsdp), a layout with update state shards their
+    update over 'data' (tensor+zero1), and otherwise DDP averages their
+    gradients over the `data x fsdp` group (the model itself when that
+    group is one process). `model.summon_full_params()` lends the whole
+    parameters, gathered over 'tensor' too.
+
+    The sharded forms have `no_sync()` (gradient accumulation reduces
     once a step) and record their layout (`sharded_state(...)`). Usable
     as a decorator (`@wrap`) or a call. The result's `compile_stats()`
     reports its forward calls; compiles and recompiles stay 0 (the port
@@ -841,25 +1004,24 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
         raise TypeError(f"wrap takes an nn.Module (the port's steps run "
                         f"eagerly), got {type(model).__name__}")
     wrapped = model
-    if fsdp or state_sharding is not None:
+    tensor = mesh is not None and mesh.shape["tensor"] > 1
+    if fsdp or state_sharding is not None or tensor:
         mesh = mesh or default_mesh()
         if distrib.is_distributed():
             distrib._require_backend()
+        if tensor:
+            _split_tensor(model, mesh, _param_specs(model, state_sharding))
         if fsdp:
-            wrapped = _fsdp(model, mesh, state_sharding)
-        else:
+            wrapped = _fsdp(model, mesh, _param_specs(model, state_sharding))
+        elif state_sharding is not None and (not tensor or _has_update_keys(
+                state_sharding)):
             wrapped = _ZeroModel(model, mesh, _zero_shardings(
                 model, state_sharding))
+        elif mesh.data_parallel_size > 1:
+            wrapped = _ddp(model, mesh.group(DATA_PARALLEL_AXES),
+                           **ddp_kwargs)
     elif distrib.is_distributed():
-        distrib._require_backend()
-        device = next(model.parameters()).device
-        if device.type == "cuda":
-            ddp_kwargs.setdefault("device_ids", [device.index if device.index
-                                                 is not None else
-                                                 torch.cuda.current_device()])
-        wrapped = nn.parallel.DistributedDataParallel(model, **ddp_kwargs)
-        from .accounting import counting_allreduce_hook
-        wrapped.register_comm_hook(None, counting_allreduce_hook)
+        wrapped = _ddp(model, None, **ddp_kwargs)
     calls = [0]
 
     def count(module: nn.Module, args: tp.Any) -> None:
@@ -885,8 +1047,7 @@ def _zero_shardings(model: nn.Module, spec: tp.Any
     from .zero import _is_update_key
     entries = [value for key, value in spec.items()
                if _is_update_key(str(key))] \
-        if isinstance(spec, tp.Mapping) and any(
-            _is_update_key(str(key)) for key in spec) else [spec]
+        if _has_update_keys(spec) else [spec]
     out = {}
     for name, _ in model.named_parameters():
         for entry in entries:

@@ -7,30 +7,35 @@ JAX package:
   'fsdp'   - batch + parameter sharding
   'expert' - expert parallelism (MoE)
   'pipe'   - pipeline stages
-  'tensor' - intra-layer model parallelism
+  'tensor' - intra-layer model parallelism (Megatron column/row splits)
   'seq'    - sequence parallelism (ring attention)
 
 The port's mesh is a small record: the six axis sizes and the devices of
-this process's ranks. `data` and `fsdp` are the process axes: `data x
-fsdp` processes make the world (`distrib.world_size()`), and process `r`
-sits at `(data, fsdp) = (r // fsdp, r % fsdp)`, the JAX package's
-(data, fsdp, ...) order, so a global batch splits over both axes as
-`batch_spec` says (each process takes its contiguous rows). `coord(axis)`
-is the process's index on an axis and `group(axis)` the
-`torch.distributed` group of the processes that differ only there (one
-group per axis, built on every process in the same order, cached).
-`devices` names the device of each of this process's ranks on the axes
-inside a process (`seq`: the ranks of a ring share the process's card),
-in AXES order; a device may repeat. `devices=None` records no device, and
-every rank then runs on the device of the tensors it is given.
-`make_mesh({"data": -1})` takes the world. What runs today: the process
-axes (`--workers`, `parallel.wrap`, its FSDP and ZeRO forms) composed
-with a `seq` ring inside each process (`parallel.ring`). A process axis
-that differs from the world inside one process, a mesh whose ranks name
-two devices, and `tensor`, `pipe` or `expert` above 1 raise
+this process's ranks. `data`, `fsdp` and `tensor` are the process axes:
+`data x fsdp x tensor` processes make the world (`distrib.world_size()`),
+and process `r` sits at `data = r // (fsdp * tensor)`, `fsdp = (r //
+tensor) % fsdp`, `tensor = r % tensor`: the JAX package's (data, fsdp,
+..., tensor) order, with `tensor` innermost, so a tensor group is a run
+of adjacent ranks (Megatron's placement) and a global batch splits over
+`data` and `fsdp` as `batch_spec` says (each data-parallel process takes
+its contiguous rows; the ranks of a tensor group take the same rows).
+`coord(axis)` is the process's index on an axis and `group(axis)` the
+`torch.distributed` group of the processes that differ only there (or
+only on the axes of a tuple; one group per axis, built on every process
+in the same order, cached). `devices` names the device of each of this
+process's ranks on the axes inside a process (`seq`: the ranks of a ring
+share the process's card), in AXES order; a device may repeat.
+`devices=None` records no device, and every rank then runs on the device
+of the tensors it is given. `make_mesh({"data": -1})` takes the world.
+What runs today: the process axes (`--workers`, `parallel.wrap`, its
+FSDP, ZeRO and tensor-parallel forms) composed with a `seq` ring inside
+each process (`parallel.ring`). Process axes that differ from the world
+inside one process, a mesh whose ranks name two devices, `seq` above 1
+together with `tensor` above 1, and `pipe` or `expert` above 1 raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 import dataclasses
+import itertools
 import math
 import typing as tp
 
@@ -41,28 +46,33 @@ from .. import distrib
 AXES = ("data", "fsdp", "expert", "pipe", "tensor", "seq")
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data and fsdp ranks "
-                      "are processes; launch them with --workers=N (or "
-                      "launch.py / torchrun)")
-TODO_AXES = {"tensor": "ROADMAP.md queue A item 8b (tensor parallelism)",
-             "pipe": "ROADMAP.md queue A item 8c (pipeline parallelism)",
+TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data, fsdp and tensor "
+                      "ranks are processes; launch them with --workers=N "
+                      "(or launch.py / torchrun)")
+TODO_AXES = {"pipe": "ROADMAP.md queue A item 8c (pipeline parallelism)",
              "expert": "ROADMAP.md queue A item 8d (expert parallelism)"}
+TODO_SEQ_TENSOR = ("ROADMAP.md queue A item 8d (the ring's ranks across "
+                   "processes: seq composed with tensor)")
 TODO_DEVICES = ("ROADMAP.md queue A items 5 and 8d (ranks on several "
                 "cards: a process a card over the process axes, item 5; "
                 "the ring's ranks on several processes or cards, item 8d)")
-PROCESS_AXES = ("data", "fsdp")
+PROCESS_AXES = ("data", "fsdp", "tensor")
+# the processes that hold different rows of a batch
+DATA_PARALLEL_AXES = ("data", "fsdp")
 
-# (sizes, axis) -> the torch.distributed group of that process axis
-_groups: tp.Dict[tp.Tuple[tp.Tuple[int, ...], str], tp.Any] = {}
+# (sizes, axes) -> the torch.distributed groups of those process axes
+_groups: tp.Dict[tp.Tuple[tp.Tuple[int, ...], tp.Tuple[str, ...]],
+                 tp.Any] = {}
 
 _default_mesh: tp.Optional["Mesh"] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (`shape`, every axis of AXES; `data` and `fsdp` count
-    processes) and this process's ranks' devices (one per rank of the
-    axes inside a process, in AXES order; None: the caller's device)."""
+    """Axis sizes (`shape`, every axis of AXES; `data`, `fsdp` and
+    `tensor` count processes) and this process's ranks' devices (one per
+    rank of the axes inside a process, in AXES order; None: the caller's
+    device)."""
     shape: tp.Mapping[str, int]
     devices: tp.Optional[tp.Tuple[torch.device, ...]] = None
 
@@ -77,43 +87,69 @@ class Mesh:
 
     @property
     def processes(self) -> int:
-        """How many processes the mesh spans (`data x fsdp`)."""
-        return self.shape["data"] * self.shape["fsdp"]
+        """How many processes the mesh spans (`data x fsdp x tensor`)."""
+        return math.prod(self.shape[axis] for axis in PROCESS_AXES)
+
+    @property
+    def data_parallel_size(self) -> int:
+        """How many processes hold different rows of a batch (`data x
+        fsdp`): the count gradients are averaged over."""
+        return math.prod(self.shape[axis] for axis in DATA_PARALLEL_AXES)
+
+    def data_parallel_index(self) -> int:
+        """This process's index among the `data x fsdp` row holders (the
+        ranks of a tensor group share it)."""
+        return self.coord("data") * self.shape["fsdp"] + self.coord("fsdp")
+
+    def _stride(self, axis: str) -> int:
+        return math.prod(self.shape[other] for other in
+                         PROCESS_AXES[PROCESS_AXES.index(axis) + 1:])
 
     def coord(self, axis: str) -> int:
-        """This process's index on `axis`: `(rank // fsdp, rank % fsdp)`
-        on the process axes, 0 on an axis of size 1."""
+        """This process's index on `axis` (`data = rank // (fsdp *
+        tensor)`, `fsdp = (rank // tensor) % fsdp`, `tensor = rank %
+        tensor`), 0 on an axis of size 1."""
         if self.shape[axis] == 1:
             return 0
         if axis not in PROCESS_AXES:
             raise NotImplementedError(
                 f"axis {axis}={self.shape[axis]} has no per-process index: "
                 f"its ranks live inside a process")
-        rank = distrib.rank()
-        return rank // self.shape["fsdp"] if axis == "data" \
-            else rank % self.shape["fsdp"]
+        return distrib.rank() // self._stride(axis) % self.shape[axis]
 
-    def group_ranks(self, axis: str) -> tp.Tuple[tp.Tuple[int, ...], ...]:
-        """Every group of the process axis `axis`: the process ranks that
-        differ only in their index on it."""
-        data, fsdp = self.shape["data"], self.shape["fsdp"]
-        if axis == "data":
-            return tuple(tuple(d * fsdp + f for d in range(data))
-                         for f in range(fsdp))
-        if axis == "fsdp":
-            return tuple(tuple(d * fsdp + f for f in range(fsdp))
-                         for d in range(data))
-        raise ValueError(f"{axis!r} is not a process axis {PROCESS_AXES}")
+    def group_ranks(self, axes: tp.Union[str, tp.Sequence[str]]
+                    ) -> tp.Tuple[tp.Tuple[int, ...], ...]:
+        """Every group of the process axis `axes` (or of a tuple of
+        them): the process ranks that differ only in their indices there,
+        each group in rank order (the first axis outermost), the groups
+        in the order of the other axes' indices."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        bad = [axis for axis in axes if axis not in PROCESS_AXES]
+        if bad:
+            raise ValueError(f"{bad[0]!r} is not a process axis "
+                             f"{PROCESS_AXES}")
+        others = [axis for axis in PROCESS_AXES if axis not in axes]
+        ordered = [axis for axis in PROCESS_AXES if axis in axes]
+        groups = []
+        for rest in itertools.product(*(range(self.shape[a])
+                                        for a in others)):
+            base = sum(i * self._stride(a) for a, i in zip(others, rest))
+            groups.append(tuple(
+                base + sum(i * self._stride(a) for a, i in zip(ordered, own))
+                for own in itertools.product(*(range(self.shape[a])
+                                               for a in ordered))))
+        return tuple(groups)
 
-    def group(self, axis: str) -> tp.Any:
-        """The `torch.distributed` group of this process's `axis` (None,
-        the default group, when the axis spans the world). Every process
-        builds every group of the axis, in the same order, on its first
+    def group(self, axes: tp.Union[str, tp.Sequence[str]]) -> tp.Any:
+        """The `torch.distributed` group of this process's `axes` (None,
+        the default group, when they span the world). Every process
+        builds every group of the axes, in the same order, on its first
         call (`new_group` is collective): call it on every process."""
-        groups = self.group_ranks(axis)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        groups = self.group_ranks(axes)
         if len(groups[0]) == distrib.world_size():
             return None
-        key = (tuple(self.shape[a] for a in AXES), axis)
+        key = (tuple(self.shape[a] for a in AXES), axes)
         if key not in _groups:
             import torch.distributed as dist
             _groups[key] = [dist.new_group(list(ranks)) for ranks in groups]
@@ -155,10 +191,11 @@ def make_mesh(shape: tp.Optional[tp.Mapping[str, int]] = None,
     `distrib.world_size()` processes of `devices` each (of one rank per
     rank of the axes inside a process when `devices` is None). Default:
     everything on 'data'. The JAX package's errors come first (unknown
-    axes, two -1s); then process axes whose product is not the world
-    size (NotImplementedError in one process: their ranks are
-    processes), a shape that does not cover the devices, and what the
-    port cannot run yet (NotImplementedError).
+    axes, two -1s); then `seq` with `tensor` (NotImplementedError, item
+    8d), process axes whose product is not the world size
+    (NotImplementedError in one process: their ranks are processes), a
+    shape that does not cover the devices, and what the port cannot run
+    yet (NotImplementedError).
     """
     shape = dict(shape or {"data": -1})
     sizes = {axis: int(shape.get(axis, 1)) for axis in AXES}
@@ -178,14 +215,18 @@ def make_mesh(shape: tp.Optional[tp.Mapping[str, int]] = None,
                                   if axis not in PROCESS_AXES and size != -1)
     if inferred:
         sizes[inferred[0]] = count // known
-    processes = sizes["data"] * sizes["fsdp"]
+    if sizes["seq"] > 1 and sizes["tensor"] > 1:
+        raise NotImplementedError(
+            f"mesh axes seq={sizes['seq']} and tensor={sizes['tensor']} "
+            f"together are not ported yet: {TODO_SEQ_TENSOR}")
+    processes = math.prod(sizes[axis] for axis in PROCESS_AXES)
+    named = " x ".join(f"{axis}={sizes[axis]}" for axis in PROCESS_AXES)
     if processes != world:
         if world == 1:
             raise NotImplementedError(
-                f"mesh axes data={sizes['data']} x fsdp={sizes['fsdp']} "
-                f"inside one process: {TODO_DATA_PARALLEL}")
-        raise ValueError(f"mesh axes data={sizes['data']} x "
-                         f"fsdp={sizes['fsdp']} must make the world size "
+                f"mesh axes {named} inside one process: "
+                f"{TODO_DATA_PARALLEL}")
+        raise ValueError(f"mesh axes {named} must make the world size "
                          f"{world}: their ranks are processes")
     if math.prod(sizes.values()) != count:
         raise ValueError(f"Mesh shape {sizes} does not cover {count} devices")

@@ -15,14 +15,16 @@ the same schedules and replays the same failure.
 
 Ported scenarios: `train` (the chaos drill's numpy solver; no device),
 and, on `cuda` unless `device='cpu'` asks for the host, `datapipe` (the
-datapipe drill's solver), `serve` (a one-engine fleet) and `fleet` (the
-WAL-backed two-engine fleet and its restart drill). The others declare
-their sites statically, so coverage and `static_coverage()` see the
-whole registry, and raise NotImplementedError naming their ROADMAP.md
-queue A items when run: `pipeline` (item 8c), `tensor` (item 8b),
-`elastic` (items 5 and 8: it waits for item 8e's resharding restore). A campaign over
-every scenario (`scenarios=None`) therefore raises; an explicit subset
-of ported scenarios runs with the narrowed coverage gate.
+datapipe drill's solver), `serve` (a one-engine fleet), `fleet` (the
+WAL-backed two-engine fleet and its restart drill) and `tensor` (the
+tensor-parallel bench over two processes, the fault plan armed in both
+ranks). The others declare their sites statically, so coverage and
+`static_coverage()` see the whole registry, and raise
+NotImplementedError naming their ROADMAP.md queue A items when run:
+`pipeline` (item 8c) and `elastic` (it waits for item 8e's resharding
+restore). A campaign over every scenario (`scenarios=None`) therefore
+raises; an explicit subset of ported scenarios runs with the narrowed
+coverage gate.
 
 The serving scenarios differ from the reference in one respect: the
 reference shares one compile cache across every run and both fleet
@@ -641,7 +643,6 @@ class FleetScenario(_ServingScenario):
 
 TODO_PIPELINE = ("ROADMAP.md queue A item 8c (pipeline parallelism: the "
                  "1F1B schedules)")
-TODO_TENSOR = "ROADMAP.md queue A item 8b (tensor parallelism)"
 TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
                 "item 5's processes and item 8a's state across ranks are "
                 "ported, item 8e's resharding restore is not)")
@@ -673,15 +674,87 @@ class PipelineScenario(_WaitingScenario):
                 "pipeline.packed_tick": ("delay",)}
 
 
-class TensorScenario(_WaitingScenario):
+class TensorScenario(_OnDevice):
     """Megatron tensor-parallel training under a stalled host tick: the
-    loss trajectory bit-identical to the clean run."""
+    reference's `run_tp_bench(steps=2, dim=32, num_layers=1,
+    num_heads=4, vocab_size=64, seq=16, widths=(2,))` over two processes
+    (`python -m flashy_tpu_torch.parallel.tensor --workers=2`), each rank
+    armed with the schedule's faults. Oracles: the loss trajectory
+    bit-identical to the clean run's, and 0 recompiles. The ranks' tally
+    of the `tensor.step` site and of the faults that fired comes back
+    into this process's injector, which counts and verifies it as it
+    counts a site ticked here."""
 
     name = "tensor"
-    todo = TODO_TENSOR
+    ARGS = ("--steps", "2", "--dim", "32", "--layers", "1", "--heads", "4",
+            "--vocab", "64", "--seq", "16", "--widths", "2")
+    TIMEOUT = 600
+
+    def __init__(self, device: tp.Any = None):
+        super().__init__(device)
+        self._plan: tp.List[FaultSpec] = []
 
     def sites(self):
         return {"tensor.step": ("delay",)}
+
+    def arm(self, injector, spec):
+        super().arm(injector, spec)
+        self._plan.append(spec)
+
+    def execute(self, run_dir, corrupt=(), calibrate=False):
+        import os
+        import subprocess
+        import sys
+
+        self.prepare()
+        plan, self._plan = self._plan, []
+        run_dir = Path(run_dir)
+        plan_path, out = run_dir / "fault_plan.json", run_dir / "tensor.json"
+        plan_path.write_text(json.dumps([spec.to_dict() for spec in plan]))
+        if out.exists():
+            out.unlink()
+        if calibrate:
+            logger.info("campaign: scenario %r runs on %s", self.name,
+                        self.device)
+        root = Path(__file__).resolve().parents[2]
+        env = {key: value for key, value in os.environ.items()
+               if not key.startswith("FLASHY_TPU_")}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        env.setdefault("OMP_NUM_THREADS", "1")
+        command = [sys.executable, "-m", "flashy_tpu_torch.parallel.tensor",
+                   "--workers=2", *self.ARGS, "--device", self.device.type,
+                   "--json", str(out), "--faults", str(plan_path)]
+        run = subprocess.run(command, env=env, cwd=run_dir,
+                             capture_output=True, text=True,
+                             timeout=self.TIMEOUT)
+        if run.returncode != 0 or not out.exists():
+            raise CampaignFailure([
+                f"{self.name}: the bench over two ranks exited "
+                f"{run.returncode}: {run.stderr[-2000:]}"])
+        result = json.loads(out.read_text())
+        injector = chaos.get_injector()
+        if injector is not None:
+            tally = result["faults"]
+            for site, count in tally["counts"].items():
+                injector.counts[site] = injector.counts.get(site, 0) + count
+            for rule, fired in zip(injector._rules, tally["fired"]):
+                rule.fired_count += fired
+                injector.fired.extend({"site": rule.site, "kind": rule.kind,
+                                       "rank": 0} for _ in range(fired))
+        trajectory = result["loss_trajectory"]["2"]
+        failures: tp.List[str] = []
+        if calibrate:
+            self._baseline = trajectory
+        else:
+            self._check(failures, trajectory == self._baseline,
+                        f"loss trajectory diverged from the clean run "
+                        f"({trajectory} vs {self._baseline})")
+        self._check(failures, result["recompiles"] == 0,
+                    f"{result['recompiles']} post-warm-up recompiles")
+        if failures:
+            raise CampaignFailure(failures)
 
 
 class ElasticScenario(_WaitingScenario):
@@ -700,11 +773,11 @@ class ElasticScenario(_WaitingScenario):
 
 def builtin_scenarios(device: tp.Any = None) -> tp.List[Scenario]:
     """All scenario adapters, cheapest first (construction is lazy and
-    touches no device). `device` is the datapipe, serve and fleet
-    scenarios' (default: `cuda`; `prepare()` raises when no card is
-    present)."""
+    touches no device). `device` is the datapipe, serve, fleet and
+    tensor scenarios' (default: `cuda`; `prepare()` raises when no card
+    is present)."""
     return [TrainScenario(), DatapipeScenario(device), ServeScenario(device),
-            FleetScenario(device), PipelineScenario(), TensorScenario(),
+            FleetScenario(device), PipelineScenario(), TensorScenario(device),
             ElasticScenario()]
 
 
@@ -1002,7 +1075,7 @@ def run_campaign(seed: int = 0, budget: tp.Optional[int] = None,
     Scenarios the port does not run yet raise NotImplementedError
     before anything runs, naming their ROADMAP entries; so does the full
     sweep (`scenarios=None`), which includes them. `device` is the
-    datapipe, serve and fleet scenarios'.
+    datapipe, serve, fleet and tensor scenarios'.
     """
     from ..analysis.registry import FAULT_SITES, FAULT_SITE_PREFIXES
 

@@ -520,8 +520,10 @@ class BaseSolver:
         if kind == 0:
             return False
         if kind == 2:
+            # a solver's `mesh`, where it has one, must be the saved one
             state = _checkpoint.load_state_sharded(
-                self.sharded_checkpoint_path, layout=self._flat_layout())
+                self.sharded_checkpoint_path, layout=self._flat_layout(),
+                mesh=getattr(self, "mesh", None))
         else:
             # a single file holds full tensors: each rank takes its shards
             full = _checkpoint.load_state(self.checkpoint_path)

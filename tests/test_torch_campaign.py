@@ -117,8 +117,7 @@ def test_static_coverage_and_registry_equal_the_references():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("pipeline", "item 8"), ("tensor", "item 8"),
-    ("elastic", "items 5 and 8")])
+    ("pipeline", "item 8c"), ("elastic", "item 8e")])
 def test_waiting_scenarios_raise_naming_their_items(tmp_path, name, item):
     scenario = {s.name: s for s in campaign.builtin_scenarios()}[name]
     assert scenario.sites()
@@ -139,9 +138,10 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
                  lambda: main(["--campaign", "--dir", str(tmp_path)])):
         with pytest.raises(NotImplementedError) as exc:
             call()
-        for item in ("item 8", "items 5 and 8"):
+        for item in ("item 8c", "item 8e"):
             assert item in str(exc.value)
         assert "item 10" not in str(exc.value)
+        assert "item 8b" not in str(exc.value)
     # the seeded WAL defect patches the ported WAL, and the fleet
     # scenario's dedup oracle catches it in the clean path
     artifact = tmp_path / "repro.json"
@@ -159,7 +159,7 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
 
 
 @pytest.mark.parametrize("scenario", ["train", "datapipe", "serve",
-                                      "fleet"])
+                                      "fleet", "tensor"])
 def test_campaign_passes_on_the_cpu(tmp_path, scenario):
     assert run_campaign(seed=0, scenarios=[scenario], root=str(tmp_path),
                         device="cpu") == 0

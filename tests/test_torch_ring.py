@@ -272,12 +272,12 @@ def test_make_mesh_refuses_what_one_device_cannot_run():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A items "
                                                   "5 and 8"):
         make_mesh({"seq": 2}, devices=["cpu", "meta"])
-    # data and fsdp are the process axes (queue A items 5 and 8a): inside
-    # one process either above 1 asks for processes
-    for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}):
+    # data, fsdp and tensor are the process axes (queue A items 5, 8a and
+    # 8b): inside one process any of them above 1 asks for processes
+    for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}, {"tensor": 2}):
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             make_mesh(shape)
-    for axis, item in (("tensor", "8b"), ("pipe", "8c"), ("expert", "8d")):
+    for axis, item in (("pipe", "8c"), ("expert", "8d")):
         with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
             make_mesh({axis: 2})
     assert mesh_shape_from_devices(8, seq=4) == jax_shape(8, seq=4)
@@ -319,7 +319,7 @@ def test_check_mesh_takes_the_seq_axis_for_ring_attention_only():
     for attention in ("flash", "dense"):
         with pytest.raises(ValueError, match="ring"):
             check_mesh({**base, "seq": 2}, attention)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 8d"):
         check_mesh({**base, "seq": 2, "tensor": 2}, "ring_fused")
 
 

@@ -109,8 +109,19 @@ def test_cache_and_shardings_surface():
     assert set(cache) == {"dec_blocks_0", "dec_blocks_1"}
     assert cache["dec_blocks_0"]["k"].shape == (2, 9, 2, 16)
     assert cache["dec_blocks_0"]["v"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 8"):
-        seq2seq_shardings({})
+    # the spec of every leaf equals the JAX package's on the same weights
+    from flashy_tpu.models.seq2seq import seq2seq_shardings as jax_specs
+    _, params = _jax_pair()
+    want = {"/".join(str(getattr(k, "key", k)) for k in path[1:]):
+            tuple(spec) for path, spec in jax.tree_util.tree_flatten_with_path(
+                jax_specs(params),
+                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+            )[0]}
     model = _port("dense")
+    got = {name.replace(".", "/"): tuple(spec) for name, spec in
+           seq2seq_shardings(dict(model.named_parameters())).items()}
+    assert got == want
+    assert got["dec_blocks_0/xattn/kv/kernel"] == ("fsdp", None, "tensor",
+                                                   None)
     with pytest.raises(ValueError, match="max_seq_len"):
         model.encode(torch.zeros(1, 40, dtype=torch.long))

@@ -238,7 +238,8 @@ def test_failed_save_rolls_history_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"mesh": {"tensor": 2}}, "queue A item 8b"),
+    # tensor ranks are processes too (item 8b)
+    ({"mesh": {"tensor": 2}}, "queue A item 5"),
     ({"mesh": {"data": 2}}, "queue A item 5"),
     # fsdp ranks are processes too (item 8a): one process cannot hold two
     ({"mesh": {"fsdp": 2}}, "queue A item 5"),
