@@ -579,6 +579,39 @@ under a deadline, rendezvousing through a `file://` path:
              call at 8 heads; the collectives of one more step (two
              forward all-reduces a block); step p50 and peak memory a
              rank beside phase 45's;
+ 45f. pipe bench  queue A item 8c: `python -m
+             flashy_tpu_torch.parallel.pipeline --workers=2` at the
+             reference's defaults (dim 48, 8 layers, 4 heads, vocab 128,
+             seq 24, batch 16, M 8, v 2, dense and MoE legs, pipe 2; one
+             timed step a leg after the warm one; started beside phases
+             46-54 and read after them; deterministic algorithms): 1F1B,
+             interleaved and packed gradients within 1e-2 of the GPipe
+             oracle, packed bit-identical to unpacked, the 1F1B stash
+             flat in M while GPipe's grows, the interleaved bubble below
+             GPipe's, the packed dead-compute fraction below unpacked's,
+             the `pipeline/bubble` track, 0 recompiles; each schedule's
+             step ms and packed's over unpacked's (printed, not gated:
+             an idle lane costs the port's ranks no compute);
+ 45g. pipe train  the LM trainer at the 235M layout (12 layers, bf16,
+             b16 t1024) with `mesh.data=1 mesh.pipe=2
+             pipeline_schedule=1f1b pipeline_interleave=2
+             pipeline_microbatches=4` and sharded slots, two ranks over
+             gloo, each holding 6 of the 12 layers (chunks {0, 2} and {1,
+             3} of 3 layers): run A 2 epochs (beside phase 45's run A),
+             run B 1 epoch (beside phase 44) then resumed (beside phase
+             45's run B2), and a one-process oracle of the same config
+             (`mesh.pipe=1 model.scan_layers=true`, the same seed;
+             beside phases 41-42; the checks run after phase 54): every
+             logged loss within 1e-3 of the
+             oracle's, the gradient of step 0's batch at the trained
+             state, gathered to full shapes, within 5e-2 of the oracle's
+             leaf by leaf relative to its norm, A and the resumed B
+             bit-identical (each rank's chunks and the gathered
+             parameters), the train stage's `bubble_frac` 0.111111, rows
+             1 and 4 launched 48 and 24 a training step on each rank (24
+             and 0 a valid step); one more step's hops and all-reduces,
+             one activation hop timed alone, step p50 and peak memory a
+             rank beside the oracle's;
  46. prefetch to device  `data.prefetch_to_device` over [16, 1024] int32
              batches on cuda:0: delivered batches bit-equal to the host's,
              an early stop rewinding a datapipe stage to the last batch
@@ -601,7 +634,7 @@ dense attention:
              1e-4, rows 1·g and 4·g launched 6 times each; the same in
              bf16: logits within 2e-2 of max |logit|, rows 1 and 4 6 each;
  48. cifar train  the cifar example's `main` (ResNet-18, bf16, batch 256)
-             on the synthetic set at 24 train and 4 valid batches: stopped
+             on the synthetic set at 12 train and 4 valid batches: stopped
              after its second commit, then resumed to epoch 3 (epochs 1-2
              of the history unchanged); images/s, step p50 from step 3,
              the data wait's share of each epoch, peak memory, valid acc,
@@ -7184,11 +7217,11 @@ def start_sessions(commands, folder, timeout, label):
             "timeout": timeout, "label": label}
 
 
-def finish_sessions(started):
+def finish_sessions(started, codes=(0,)):
     """Wait for `start_sessions`' commands; past the deadline every
     process group is killed and the phase fails (a hang fails the phase,
-    not the run). Returns each command's (stdout, stderr); a non-zero
-    exit fails the phase."""
+    not the run). Returns each command's (stdout, stderr); an exit code
+    outside `codes` fails the phase."""
     import os
     import signal
     procs, label = started["procs"], started["label"]
@@ -7218,7 +7251,7 @@ def finish_sessions(started):
         fail(f"{label}: killed after {started['timeout']} s: "
              f"{[e[-800:] for _, e in logs]}")
     for (proc, _, _), (_, err) in zip(procs, logs):
-        if proc.returncode != 0:
+        if proc.returncode not in codes:
             fail(f"{label}: exit {proc.returncode}: {err[-2000:]}")
     return logs
 
@@ -7272,7 +7305,11 @@ def write_full_grads(torch, solver):
     import os
     from flashy_tpu_torch import distrib
     solver.optimizer.zero_grad(set_to_none=True)
-    solver.loss(solver.batch_at(0), model=solver.train_model).backward()
+    if solver.pipe_stages > 1:
+        # the pipelined schedule's gradients (the rank's chunks)
+        solver.pipe_grads(solver.train_model, solver.batch_at(0))
+    else:
+        solver.loss(solver.batch_at(0), model=solver.train_model).backward()
     grads = {}
     for name, param in solver.model.named_parameters():
         sharding = getattr(param, "sharding", None)
@@ -7477,7 +7514,7 @@ def dp_train_main(torch, argv):
     from flashy_tpu_torch import distrib
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
     from flashy_tpu_torch.ops import attention
-    if "FLASHY_TPU_PROCESS_ID" not in os.environ:
+    if "FLASHY_TPU_PROCESS_ID" not in os.environ and "--dp-solo" not in argv:
         lm_main(argv)
         return
     if "--dp-sharded" in argv:
@@ -7501,8 +7538,8 @@ def dp_train_main(torch, argv):
     result = {"rank": distrib.rank(), "main_s": time.perf_counter() - begin,
               "clock": {"started": STARTED, "main": main_at,
                         "main_end": time.time()},
-              "backend":
-              torch.distributed.get_backend(),
+              "backend": torch.distributed.get_backend()
+              if torch.distributed.is_initialized() else None,
               "launches": nonzero(attention.launch_counts),
               "restored": solver.restored, "epochs": len(solver.history),
               "step_seconds": solver.step_seconds,
@@ -7539,6 +7576,32 @@ def dp_train_main(torch, argv):
         result["all_reduce_bytes"] = numel * 4
     if "--dp-heads" in argv:
         result["heads"] = sorted(heads)
+    if "--dp-blocks" in argv:
+        # the layers this rank holds: a block leaf's leading dim
+        result["block_rows"] = int(
+            solver.model.blocks.block.norm1.scale.shape[0])
+    if "--dp-time-hop" in argv:
+        # one activation hop of a microbatch ([4, 1024, 1024] bf16) alone,
+        # rank 0 to rank 1 and back, timed on both ranks together
+        mesh = solver.mesh
+        peer = mesh.pipe_peers()[0]
+        hop = torch.ones((4, 1024, 1024), dtype=torch.bfloat16,
+                         device="cuda")
+        times = []
+        for _ in range(3):
+            distrib.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if distrib.rank() == 0:
+                distrib.send(hop, peer, mesh.group("pipe"), 7)
+                distrib.recv(hop, peer, mesh.group("pipe"), 8)
+            else:
+                got = distrib.recv(hop, peer, mesh.group("pipe"), 7)
+                distrib.send(got, peer, mesh.group("pipe"), 8)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / 2)
+        result["hop_ms"] = times
+        result["hop_bytes"] = hop.numel() * hop.element_size()
     if "--dp-collectives" in argv:
         # one more step, counted (after the digests and launch counts)
         from flashy_tpu_torch.examples.lm import solver as lm
@@ -7549,7 +7612,9 @@ def dp_train_main(torch, argv):
                           solver.schedule, solver.state["step"],
                           solver.batch_at(0),
                           lambda m, t: solver.loss(t, model=m),
-                          mesh=solver.mesh)
+                          mesh=solver.mesh,
+                          grad_fn=solver.pipe_grads
+                          if solver.pipe_stages > 1 else None)
             torch.cuda.synchronize()
         result["collectives"] = {op: entry for op, entry in
                                  collective_stats(record).items()
@@ -7652,19 +7717,22 @@ def phase_dp_step(torch, card, folder):
     return results[0]["launches"]
 
 
-def start_dp_train_run(folder, epochs, label, *flags):
-    """Start `python3 chip_smoke.py --dp-train ... --workers=2` in
-    `folder`; `finish_dp_train_run` waits for it."""
+def start_dp_train_run(folder, epochs, label, *flags, args=None,
+                       ranks=DP_RANKS):
+    """Start `python3 chip_smoke.py --dp-train ... --workers=2` (of
+    `args`, default DP_TRAIN_ARGS) in `folder`, or with `ranks=1` one
+    process (`--dp-solo`); `finish_dp_train_run` waits for it."""
     Path(folder).mkdir(exist_ok=True)
     argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-train",
-            *DP_TRAIN_ARGS, f"dora.dir={folder}", f"epochs={epochs}",
-            *flags, "--workers=2"]
+            *(DP_TRAIN_ARGS if args is None else args), f"dora.dir={folder}",
+            f"epochs={epochs}", *flags,
+            "--workers=2" if ranks > 1 else "--dp-solo"]
     tag = label.replace(" ", "-")
     clear_dp_results(folder, tag)
     started = start_sessions([(argv, dp_env(folder, tag))], folder, 300,
                              label)
     started.update(begin=time.perf_counter(), folder=folder, tag=tag,
-                   launched=time.time())
+                   launched=time.time(), ranks=ranks)
     return started
 
 
@@ -7673,10 +7741,11 @@ def finish_dp_train_run(started):
     seconds."""
     logs = finish_sessions(started)
     ended = time.time()
-    results = dp_results(started["folder"], started["tag"])
-    if len(results) != DP_RANKS:
-        fail(f"{started['label']}: {len(results)} of {DP_RANKS} ranks "
-             f"reported: {logs[0][1][-1500:]}")
+    results = dp_results(started["folder"], started["tag"])[
+        :started["ranks"]]
+    if len(results) != started["ranks"]:
+        fail(f"{started['label']}: {len(results)} of {started['ranks']} "
+             f"ranks reported: {logs[0][1][-1500:]}")
     for out in results:
         # where a run's wall goes: the launch to the worker's start, its
         # start to main, main, main's end to its result, and to the
@@ -8210,6 +8279,231 @@ def phase_tp_train(torch, card, folder, started, dp):
     return run_a[0]["launches"], stats
 
 
+# ----------------------------------------------------------------------
+# queue A item 8c: pipeline parallelism over the 'pipe' process axis, two
+# ranks on the card (gloo through the host: every activation and
+# cotangent hop is staged there, so these step times are that staging's)
+# ----------------------------------------------------------------------
+PIPE_TRAIN_ARGS = [arg for arg in TRAIN_ARGS
+                   if not arg.startswith(("steps_per_epoch=",
+                                          "valid_steps="))
+                   ] + ["steps_per_epoch=2", "valid_steps=1",
+                        "warmup_steps=1"]
+PIPE_FLAGS = ("mesh.data=1", "mesh.pipe=2", "pipeline_schedule=1f1b",
+              "pipeline_interleave=2", "pipeline_microbatches=4",
+              "--dp-sharded", "--dp-digest", "--dp-blocks")
+PIPE_ORACLE_FLAGS = ("mesh.pipe=1", "model.scan_layers=true", "--dp-grads")
+# the logged losses against the one-process oracle's (bf16: the sums run
+# in another order), and each parameter's gradient at the trained state
+# against the oracle's, relative to its norm, as `tp train`'s gates
+PIPE_LOSS_LIMIT = 1e-3
+PIPE_GRAD_LIMIT = 5e-2
+PIPE_BUBBLE = 1 / 9             # schedule_stats(2, 4, 2): 18 ticks
+# timed steps a pipe bench leg (the reference's 3: cut for the script's
+# time; each leg also runs its warm step, which the gates read)
+PIPE_BENCH_STEPS = 1
+
+
+def start_pipe_bench(folder):
+    """Start `python -m flashy_tpu_torch.parallel.pipeline --workers=2`
+    at the reference's defaults in `folder`; `phase_pipe_bench` waits."""
+    Path(folder).mkdir(exist_ok=True)
+    path = Path(folder) / "pipeline.json"
+    argv = [sys.executable, "-W", "ignore::RuntimeWarning:runpy", "-m",
+            "flashy_tpu_torch.parallel.pipeline", "--workers=2",
+            "--steps", str(PIPE_BENCH_STEPS), "--json", str(path)]
+    started = start_sessions([(argv, dp_env(folder, "pipeline"))], folder,
+                             300, "pipe bench")
+    started.update(begin=time.perf_counter(), path=path)
+    return started
+
+
+def phase_pipe_bench(card, started):
+    """Phase 45f: the five schedules over two ranks. The module's own
+    exit code also gates packed's step_ms against unpacked's, which two
+    ranks sharing one card need not reproduce (an idle lane costs them no
+    compute): exit 1 is read here and every other gate applied."""
+    from flashy_tpu_torch.parallel.pipeline import bench_problems
+    finish_sessions(started, codes=(0, 1))
+    seconds = time.perf_counter() - started["begin"]
+    record = json.loads(Path(started["path"]).read_text())
+    problems = bench_problems(record, timing=False)
+    if record["pipe"] != 2 or not record.get("bubble_track_recorded"):
+        problems.append(f"pipe {record['pipe']}, bubble track "
+                        f"{record.get('bubble_track_recorded')}")
+    if problems:
+        fail(f"pipe bench: {problems}")
+    legs = {}
+    for tag in ("dense", "moe"):
+        legs[tag] = {name: {key: stats.get(key) for key in (
+            "step_ms", "grad_drift", "bubble_frac", "dead_compute_frac",
+            "step_ms_vs_unpacked", "tick_efficiency")
+            if stats.get(key) is not None}
+            for name, stats in record[tag]["schedules"].items()}
+    print(f"pipe bench: `python -m flashy_tpu_torch.parallel.pipeline "
+          f"--workers=2` (bf16, dense attention, dim 48, 8 layers, vocab "
+          f"128, b{record['batch']} seq{record['seq']}, M "
+          f"{record['num_micro']}, v {record['interleave']}, pipe 2, "
+          f"deterministic algorithms): by leg {json.dumps(legs)}; packed "
+          f"bit-identical to unpacked, 1F1B within 1e-2 of the GPipe "
+          f"oracle, stash {record['stash_bytes_at_m']} -> "
+          f"{record['stash_bytes_at_2m']} bytes at M -> 2M (GPipe "
+          f"{record['gpipe_stash_bytes_at_m']} -> "
+          f"{record['gpipe_stash_bytes_at_2m']}), recompiles "
+          f"{record['recompiles']}; {seconds:.1f} s with the spawn "
+          f"({GLOO_LABEL}) [{card}]", flush=True)
+    return record
+
+
+def start_pipe_b1(folder):
+    """Run B's first epoch of `pipe train` (`start_dp_train_run`)."""
+    return start_dp_train_run(Path(folder) / "pipe-b", 1, "pipe train B1",
+                              *PIPE_FLAGS, args=PIPE_TRAIN_ARGS)
+
+
+def start_pipe_b2(folder, b1):
+    """Wait for `pipe train` run B's first epoch, then start its resumed
+    second; returns the first epoch's wall seconds and the start."""
+    _, b1_seconds = finish_dp_train_run(b1)
+    return b1_seconds, start_dp_train_run(
+        Path(folder) / "pipe-b", 2, "pipe train B2", *PIPE_FLAGS,
+        args=PIPE_TRAIN_ARGS)
+
+
+def start_pipe_a(folder):
+    """Run A of `pipe train` (one more step's hops counted, a hop timed)."""
+    return start_dp_train_run(Path(folder) / "pipe-a", 2, "pipe train A",
+                              *PIPE_FLAGS, "--dp-grads", "--dp-collectives",
+                              "--dp-time-hop", args=PIPE_TRAIN_ARGS)
+
+
+def start_pipe_oracle(folder):
+    """`pipe train`'s one-process oracle (12 layers whole: ~22 GiB, so
+    it runs beside one-process phases, not beside the four two-rank runs
+    of the dp group)."""
+    return start_dp_train_run(Path(folder) / "pipe-oracle", 2,
+                              "pipe train oracle", *PIPE_ORACLE_FLAGS,
+                              args=PIPE_TRAIN_ARGS, ranks=1)
+
+
+def phase_pipe_train(torch, card, folder, started):
+    """Phase 45g: `main --workers=2` with `mesh.pipe=2` (1f1b, v 2, M 4)
+    at the 235M layout against its one-process oracle. `started` holds
+    the oracle (`start_pipe_oracle`), run A (`start_pipe_a`) and run B
+    (`start_pipe_b2`). Returns a rank's launches."""
+    from flashy_tpu_torch.utils import percentile
+    started_oracle, started_a, (b1_seconds, started_b2) = started
+    run_a, a_seconds = finish_dp_train_run(started_a)
+    (oracle,), oracle_seconds = finish_dp_train_run(started_oracle)
+    run_b2, b2_seconds = finish_dp_train_run(started_b2)
+    # a rank runs its 6 layers' forward twice a microbatch (the F tick
+    # and the B tick's recompute) and the fused backward once: 48 and 24
+    # a training step at M 4; a valid step's 1f1b forward 24
+    layers, micro = 6, 4
+    step_fwd, step_bwd, valid_fwd = 2 * layers * micro, layers * micro, \
+        layers * micro
+
+    def want(epochs):
+        return {"flash_fwd": epochs * (2 * step_fwd + valid_fwd),
+                "flash_bwd_fused": epochs * 2 * step_bwd}
+
+    for runs, expect, restored in ((run_a, want(2), False),
+                                   (run_b2, want(1), True)):
+        for out in runs:
+            if out["launches"] != expect or out["backend"] != "gloo" \
+                    or out["restored"] != restored or out["epochs"] != 2 \
+                    or out["sharded"] != "pipe" or out["block_rows"] != 6:
+                fail(f"pipe train rank {out['rank']}: launches "
+                     f"{out['launches']} (expected {expect}), backend "
+                     f"{out['backend']}, restored {out['restored']}, "
+                     f"{out['epochs']} epochs, layout {out['sharded']}, "
+                     f"{out['block_rows']} layers held (expected 6)")
+    if oracle["launches"] != flash_want(12, [(2, 1)] * 2):
+        fail(f"pipe train oracle: launches {oracle['launches']}")
+    for a, b in zip(run_a, run_b2):
+        if a["digest"] != b["digest"] or a["full_digest"] != b["full_digest"]:
+            fail(f"pipe train rank {a['rank']}: the resumed run differs "
+                 f"from the uninterrupted one (chunks {a['digest'][:12]} "
+                 f"vs {b['digest'][:12]}, full {a['full_digest'][:12]} vs "
+                 f"{b['full_digest'][:12]})")
+    if len({out["full_digest"] for out in run_a}) != 1 \
+            or run_a[0]["digest"] == run_a[1]["digest"]:
+        fail("pipe train: the ranks' gathered parameters differ, or their "
+             "chunks are equal")
+    histories = []
+    for sub in ("pipe-a", "pipe-b", "pipe-oracle"):
+        (xp,) = (Path(folder) / sub / "xps").iterdir()
+        histories.append(stripped(json.loads(
+            (xp / "history.json").read_text())))
+    history_a, history_b, history_oracle = histories
+    if len(history_a) != 2 or history_a != history_b:
+        fail(f"pipe train: histories differ: {history_a} vs {history_b}")
+    bubbles = [epoch["train"].get("bubble_frac") for epoch in history_a]
+    if any(b is None or abs(b - PIPE_BUBBLE) > 1e-6 for b in bubbles):
+        fail(f"pipe train: bubble_frac {bubbles} (expected {PIPE_BUBBLE})")
+    gaps = [abs(g[s]["loss"] - w[s]["loss"])
+            for g, w in zip(history_a, history_oracle) for s in w
+            if "loss" in w[s]]
+    if len(gaps) != 4 or not max(gaps) <= PIPE_LOSS_LIMIT:
+        fail(f"pipe train: losses {history_a} against the oracle's "
+             f"{history_oracle}: {max(gaps) if gaps else None} apart "
+             f"(limit {PIPE_LOSS_LIMIT})")
+    want_grads = torch.load(oracle["grads"])
+    got_grads = torch.load(run_a[0]["grads"])
+    if set(got_grads) != set(want_grads):
+        fail(f"pipe train: gradients of {sorted(got_grads)} against the "
+             f"oracle's {sorted(want_grads)}")
+    grad_gaps = {name: float((got_grads[name] - value).norm()
+                             / value.norm())
+                 for name, value in want_grads.items()}
+    worst = max(grad_gaps, key=grad_gaps.get)
+    if not grad_gaps[worst] <= PIPE_GRAD_LIMIT:
+        fail(f"pipe train: gradients against the oracle's, relative to "
+             f"their norms: {grad_gaps} (limit {PIPE_GRAD_LIMIT})")
+    stats = run_a[0]["collectives"]
+    hops = stats.get("collective-permute", {})
+    seconds = run_a[0]["step_seconds"][1:]
+    p50 = percentile(seconds, 50) * 1e3
+    oracle_p50 = percentile(oracle["step_seconds"][1:], 50) * 1e3
+    tok_s = 16 * 1024 * len(seconds) / sum(seconds)
+    hop_ms = percentile(run_a[0]["hop_ms"], 50)
+
+    def per_op(stats):
+        return {op: f"{e['count']}x {e['bytes'] / 2 ** 20:.1f} MiB"
+                for op, e in stats.items()}
+
+    print(f"pipe train: `main --workers=2 mesh.data=1 mesh.pipe=2 "
+          f"pipeline_schedule=1f1b pipeline_interleave=2 "
+          f"pipeline_microbatches=4` with sharded slots (235M layout, 12 "
+          f"layers, bf16, global b16 t1024; each rank 6 of the 12 layers): "
+          f"run A 2 epochs x 2 steps + 1 valid (beside dp train A), run B "
+          f"1 epoch then resumed (beside dp step, dp train B2), the oracle "
+          f"beside packed train and the drills: each "
+          f"rank's chunks and the gathered parameters bit-identical "
+          f"between A and the resumed B, histories equal; every logged "
+          f"loss within {max(gaps):.2e} of the one-process oracle's (limit "
+          f"{PIPE_LOSS_LIMIT}); step 0's gradients at the trained state, "
+          f"gathered, within {grad_gaps[worst]:.2e} of the oracle's "
+          f"relative to their norms ({worst}; median "
+          f"{percentile(list(grad_gaps.values()), 50):.2e}; limit "
+          f"{PIPE_GRAD_LIMIT}); bubble_frac {bubbles[0]}; launches a rank "
+          f"{run_a[0]['launches']} (A: {step_fwd} and {step_bwd} a "
+          f"training step, {valid_fwd} a valid step), {run_b2[0]['launches']}"
+          f" (B resumed); one more step's collectives {per_op(stats)} "
+          f"(hops {hops.get('count', 0)}, "
+          f"{hops.get('bytes', 0) / 2 ** 20:.1f} MiB a rank); one "
+          f"[4, 1024, 1024] bf16 hop alone {hop_ms:.2f} ms "
+          f"({run_a[0]['hop_bytes'] / 2 ** 20:.0f} MiB); step p50 "
+          f"{p50:.2f} ms (steps 2..4, rank 0; beside the other runs), "
+          f"global tokens/s {tok_s:.1f}, against the oracle's "
+          f"{oracle_p50:.2f} ms; peak GiB a rank "
+          f"{[round(o['peak_gib'], 2) for o in run_a]} against the "
+          f"oracle's {oracle['peak_gib']:.2f}; runs A {a_seconds:.1f}, B1 "
+          f"{b1_seconds:.1f}, B2 {b2_seconds:.1f}, oracle "
+          f"{oracle_seconds:.1f} s ({GLOO_LABEL}) [{card}]", flush=True)
+    return run_a[0]["launches"]
+
+
 class DocsSource:
     """A checkpointable document source: document i is 8 tokens of i."""
 
@@ -8306,9 +8600,10 @@ MODELS_TOL = 1e-4          # f32: the card against the CPU, flash vs dense
 MODELS_F64_TOL = 1e-5      # f64 on the card against the CPU (f32 head)
 VIT_BF16_TOL = 2e-2        # bf16 ViT logits, flash vs dense, of max |logit|
 CIFAR_BATCH = 256
-CIFAR_ARGS = ["model=resnet18", f"batch_size={CIFAR_BATCH}", "max_batches=24"]
-# the synthetic set's train and valid images: 24 and 4 batches
-CIFAR_SIZES = (24 * CIFAR_BATCH, 4 * CIFAR_BATCH)
+CIFAR_ARGS = ["model=resnet18", f"batch_size={CIFAR_BATCH}", "max_batches=12"]
+# the synthetic set's train and valid images: 12 and 4 batches (cut from
+# 24 for the time the pipeline phases add)
+CIFAR_SIZES = (12 * CIFAR_BATCH, 4 * CIFAR_BATCH)
 MLM_STEP = dict(vocab_size=32768, dim=512, num_layers=2, num_heads=8,
                 mlp_ratio=4, max_seq_len=512, causal=False)
 MLM_STEP_SHAPE = (2, 512)
@@ -9611,6 +9906,12 @@ def main() -> None:
     # training at full width: row 7 on packed batches) and item 9's
     # chaos campaign
     release_memory(torch)
+    # queue A item 8c: `pipe train`'s one-process oracle (the 12 layers
+    # whole, ~22 GiB) runs beside these phases, not beside the four
+    # two-rank runs of the dp group; its runs and the pipe bench come
+    # later, all checked after the other families' phases
+    pipe_folder = tempfile.TemporaryDirectory()
+    pipe_oracle = start_pipe_oracle(pipe_folder.name)
     with tempfile.TemporaryDirectory() as folder:
         packed = phase_packed_train(torch, device, card, folder, args.seed,
                                     ssd_train_p50)
@@ -9636,27 +9937,33 @@ def main() -> None:
         # train`'s run B1 beside `dp step`, A and the resumed B beside
         # `dp train`'s A and B2
         tp_bench = start_tp_bench(Path(train_folder) / "tensor")
+        # queue A item 8c's: `pipe train`'s run B1 beside `dp step`, A and
+        # the resumed B beside `dp train`'s A and B2
         with tempfile.TemporaryDirectory() as folder:
             phase_dp_collectives(torch, card, folder)
         lap("dp collectives (and zero bench, fsdp train B1, tp bench)")
         # `dp train`'s run B1 (its first epoch, untimed) beside `dp step`
         b1 = start_dp_train_run(Path(train_folder) / "b", 1, "dp train B1")
         tp_b1 = start_tp_b1(train_folder)
+        pipe_b1 = start_pipe_b1(pipe_folder.name)
         with tempfile.TemporaryDirectory() as folder:
             dp_step_launches = phase_dp_step(torch, card, folder)
         lap("dp step (and dp train B1, zero bench, fsdp train B1, tp train "
-            "B1)")
+            "B1, pipe train B1)")
         phase_zero_bench(card, zero)
         lap("zero bench")
         tp_record = phase_tp_bench(card, tp_bench)
         lap("tp bench")
-        dp_train_launches, dp_summary, (fsdp_a, tp_a), (fsdp_b2, tp_b2) = \
-            phase_dp_train(
+        dp_train_launches, dp_summary, (fsdp_a, tp_a, pipe_a), \
+            (fsdp_b2, tp_b2, pipe_b2) = phase_dp_train(
                 torch, device, card, train_folder, b1,
-                lambda: (start_fsdp_a(train_folder), start_tp_a(train_folder)),
+                lambda: (start_fsdp_a(train_folder), start_tp_a(train_folder),
+                         start_pipe_a(pipe_folder.name)),
                 lambda: (start_fsdp_b2(train_folder, fsdp_b1),
-                         start_tp_b2(train_folder, tp_b1)))
-        lap("dp train (and fsdp train A, B2, tp train A, B2)")
+                         start_tp_b2(train_folder, tp_b1),
+                         start_pipe_b2(pipe_folder.name, pipe_b1)))
+        lap("dp train (and fsdp train A, B2, tp train A, B2, pipe train A, "
+            "B2)")
         fsdp_train_launches = phase_fsdp_train(torch, card, train_folder,
                                                (fsdp_a, fsdp_b2), dp_summary)
         lap("fsdp train")
@@ -9664,6 +9971,8 @@ def main() -> None:
                                               (tp_a, tp_b2), dp_summary)
     lap("tp train")
     release_memory(torch)
+    # the pipe bench beside the other families' phases
+    pipe_bench = start_pipe_bench(Path(pipe_folder.name) / "pipeline")
     phase_prefetch_to_device(torch, device, card)
     lap("prefetch to device")
     # queue A items 6 and 11: the vision models, the GAN loss, seq2seq
@@ -9694,6 +10003,12 @@ def main() -> None:
         translate_launches, translate_times = phase_translate_train(
             torch, device, card, folder)
     lap("translate train")
+    phase_pipe_bench(card, pipe_bench)
+    pipe_train_launches = phase_pipe_train(
+        torch, card, pipe_folder.name, (pipe_oracle, pipe_a, pipe_b2))
+    pipe_folder.cleanup()
+    lap("pipe bench, pipe train (the bench beside the other families' "
+        "phases, the oracle beside packed train and the drills)")
     # queue A item 10: the serving fleet, row 5 through its router,
     # handoff, drill and WAL paths
     release_memory(torch)
@@ -9896,6 +10211,8 @@ def main() -> None:
         layouts[name]["dp train (a rank)"] = dp_train_launches[name]
         layouts[name]["fsdp train (a rank)"] = fsdp_train_launches[name]
         layouts[name]["tp train (a rank, 8 heads)"] = tp_train_launches[name]
+        layouts[name]["pipe train (a rank, 6 of 12 layers)"] = \
+            pipe_train_launches[name]
     # the tp bench's parity gate: rows 2-4 (and 1) on the f32 route
     for name, count in tp_record["flash_bwd_parity_launches"].items():
         layouts.setdefault(name, {})["tp bench flash_bwd_parity"] = count

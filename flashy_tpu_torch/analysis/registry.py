@@ -9,10 +9,11 @@ AST scan of its own yet. ROADMAP.md queue A item 12 ports the scan
 regenerate this file from the port's own `fault_point` calls. The
 fleet's sites (`fleet.*`) are reached by `serve/fleet/` and swept by the
 campaign's `serve` and `fleet` scenarios; `tensor.step` by
-`parallel/tensor.py`'s bench and the `tensor` scenario. Sites the port
-does not reach yet (the pipeline's, the elastic drill's) are listed all
-the same: the campaign's scenarios for them raise, naming their ROADMAP
-items (8c, 8e).
+`parallel/tensor.py`'s bench and the `tensor` scenario;
+`pipeline.tick` and `pipeline.packed_tick` by `parallel/pipeline.py`'s
+1F1B schedules and the `pipeline` scenario. Sites the port does not
+reach yet (the elastic drill's) are listed all the same: the campaign's
+scenario for them raises, naming its ROADMAP item (8e).
 """
 
 FAULT_SITES = frozenset({

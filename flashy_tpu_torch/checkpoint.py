@@ -131,13 +131,16 @@ def _sharded_only(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
 
 def layout_record(layout: tp.Optional[Layout]) -> tp.Dict[str, tp.Any]:
     """`layout` as JSON: each key's spec (a list, tuples as lists), mesh
-    axis sizes and, for a dim cut block by block, its `pairs`."""
+    axis sizes and, for a dim cut block by block, its `pairs` (over
+    'tensor') or `interleave` (over 'pipe')."""
     return {key: {"spec": [list(part) if isinstance(part, tuple) else part
                            for part in sharding.spec],
                   "mesh": {axis: int(size) for axis, size
                            in sharding.mesh.shape.items()},
                   **({"pairs": sharding.pairs} if sharding.pairs != 1
-                     else {})}
+                     else {}),
+                  **({"interleave": sharding.interleave}
+                     if getattr(sharding, "interleave", 1) != 1 else {})}
             for key, sharding in sorted(_sharded_only(layout).items())}
 
 

@@ -22,8 +22,15 @@ backward. The tree helpers here (`average_tensors`, `sync_gradients`,
 `sync_model`) are the manual path, one flat collective per dtype.
 `reduce_scatter` and `all_gather` move flat tensors over a group (a
 process axis of the mesh: `Mesh.group`), for the FSDP and ZeRO forms of
-`wrap` and `parallel.zero`. Every tensor collective goes through
-`_collective`, which `parallel.accounting.count_collectives` counts.
+`wrap` and `parallel.zero`. `send`, `recv`, `isend` and `irecv` move one
+tensor between two ranks (`parallel.pipeline`'s hops between pipe
+stages): gloo takes CUDA tensors for neither, so under gloo a CUDA tensor
+is staged through the host (a copy to the host, the send, the receive
+into a host buffer and a copy back), under NCCL it travels directly.
+Every tensor collective and hop goes through `_collective`, which
+`parallel.accounting.count_collectives` counts (a hop as the reference's
+'collective-permute'), and every wait keeps the process group's timeout,
+so a mismatched schedule fails with an error instead of hanging.
 """
 import atexit
 import contextlib
@@ -276,6 +283,94 @@ def all_gather(flat: torch.Tensor, group: tp.Any = None) -> torch.Tensor:
 
     _collective("all-gather", _nbytes(out), call)
     return out.to(flat.device)
+
+
+class Pending:
+    """A point-to-point op in flight (`isend`, `irecv`): `wait()`
+    finishes it under the process group's timeout and returns the
+    received tensor on the receiver's device (None for a send)."""
+
+    def __init__(self, work: tp.Any, buffer: tp.Optional[torch.Tensor],
+                 device: tp.Optional[torch.device], staged: tp.Any = None):
+        self.work = work
+        self.buffer = buffer
+        self.device = device
+        # a send's host copy, kept alive until the send completes
+        self.staged = staged
+
+    def wait(self) -> tp.Optional[torch.Tensor]:
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+            self.staged = None
+        if self.buffer is None:
+            return None
+        return self.buffer.to(self.device)
+
+
+def _p2p_device(tensor_device: torch.device) -> torch.device:
+    """Where a hop's bytes travel: the host under gloo, the card under
+    NCCL (a CPU tensor goes through the current card there)."""
+    if dist.get_backend() == "nccl":
+        return _host_device() if tensor_device.type != "cuda" \
+            else tensor_device
+    return torch.device("cpu")
+
+
+def isend(tensor: torch.Tensor, dst: int, group: tp.Any = None,
+          tag: int = 0) -> Pending:
+    """Start sending `tensor` to the global rank `dst` (a member of
+    `group`; None: the default group). Under gloo a CUDA tensor is
+    copied to the host first. `wait()` the result before the next use
+    of the same tag between the same ranks."""
+    _require_backend()
+    work = tensor.detach().to(_p2p_device(tensor.device)).contiguous()
+    handle = _collective("collective-permute", _nbytes(work),
+                         lambda: dist.isend(work, dst, group=group, tag=tag))
+    return Pending(handle, None, None, staged=work)
+
+
+def irecv(like: torch.Tensor, src: int, group: tp.Any = None,
+          tag: int = 0) -> Pending:
+    """Start receiving a tensor of `like`'s shape and dtype from the
+    global rank `src`; `wait()` returns it on `like`'s device (under gloo
+    received on the host, then copied there)."""
+    _require_backend()
+    buffer = torch.empty(like.shape, dtype=like.dtype,
+                         device=_p2p_device(like.device))
+    handle = _collective("collective-permute", _nbytes(buffer),
+                         lambda: dist.irecv(buffer, src, group=group,
+                                            tag=tag))
+    return Pending(handle, buffer, like.device)
+
+
+def send(tensor: torch.Tensor, dst: int, group: tp.Any = None,
+         tag: int = 0) -> None:
+    """Send `tensor` to the global rank `dst` and wait for it (`isend`)."""
+    isend(tensor, dst, group, tag).wait()
+
+
+def recv(like: torch.Tensor, src: int, group: tp.Any = None,
+         tag: int = 0) -> torch.Tensor:
+    """Receive a tensor of `like`'s shape and dtype from the global rank
+    `src`, on `like`'s device (`irecv`)."""
+    out = irecv(like, src, group, tag).wait()
+    assert out is not None
+    return out
+
+
+def broadcast(tensor: torch.Tensor, src: int, group: tp.Any = None
+              ) -> torch.Tensor:
+    """`tensor` of the global rank `src`, on every rank of `group` (a new
+    tensor on the caller's device; the identity for a group of one)."""
+    if _group_size(group) == 1:
+        return tensor
+    _require_backend()
+    work = tensor.detach().to(_collective_device(tensor, "broadcast"),
+                              copy=True).contiguous()
+    _collective("collective-broadcast", _nbytes(work),
+                lambda: dist.broadcast(work, src=src, group=group))
+    return work.to(tensor.device)
 
 
 def rank_zero_only(fn: tp.Callable) -> tp.Callable:

@@ -45,6 +45,21 @@ gradients, and the clip's global norm sums the shards' squares over the
 shards into the slots, and a single file is gathered and written by
 rank 0.
 
+With `mesh.pipe > 1` (`mesh.data x mesh.pipe` = N) the block stack is
+scan-stacked (forced, as in the JAX solver) and cut over the pipe ranks
+(`wrap_model`: each rank keeps its chunks of `pipeline_interleave`
+virtual stages), and every step runs `models.pipelined_value_and_grad`
+under `pipeline_schedule` (gpipe | 1f1b | packed_1f1b) over
+`pipeline_microbatches` microbatches (default: the pipe size): the hops
+are point-to-point sends between the ranks, the embedding's and
+`norm_f`'s gradients are summed over the pipe ranks, the data-parallel
+ranks of each stage average theirs (`average_over_data`), and the clip's
+norm sums the block leaves' squares over the pipe group. Eval runs
+`models.pipelined_apply` (packed_1f1b's forward is 1f1b's). The train
+stage logs `bubble_frac` and `peak_stash_bytes` (`_pipeline_stats`).
+`mesh.pipe` with `mesh.fsdp`, `mesh.tensor` or `mesh.seq` above 1, and
+`loss=chunked` with it, raise.
+
 The train loop calls `check_preemption()` after every step, so a
 preemption guard in 'abandon_stage' mode
 (`solver.enable_preemption_guard(mode="abandon_stage")`) stops the stage
@@ -72,12 +87,15 @@ from ...ema import ema_update
 from ...formatter import Formatter
 from ...logging import setup_logging
 from ...models.decoding import generate as lm_generate
+from ...models.pipelined import pipelined_apply, pipelined_value_and_grad
 from ...models.transformer import (RowShard, TransformerConfig,
                                    TransformerLM)
 from ...ops.losses import lm_next_token_loss
-from ...parallel.data_parallel import (grad_norm, shard_batch,
+from ...parallel.data_parallel import (TODO_PIPE_SHARDED, average_over_data,
+                                       grad_norm, shard_batch,
                                        with_grad_accumulation, wrap)
 from ...parallel.mesh import Mesh, make_mesh
+from ...parallel.schedules import KNOWN_SCHEDULES
 from ...parallel.tensor import validate_tensor_args
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
@@ -145,7 +163,8 @@ def build_optimizer(model: nn.Module, cfg: tp.Mapping
 def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
                    tokens: torch.Tensor, accumulate: int = 1,
                    dropout_seed: tp.Optional[int] = None,
-                   mesh: tp.Optional[Mesh] = None) -> torch.Tensor:
+                   mesh: tp.Optional[Mesh] = None,
+                   grad_fn: tp.Optional[tp.Callable] = None) -> torch.Tensor:
     """The loss, with the gradients left in each parameter's `.grad`.
 
     With `accumulate` > 1 the batch is split into that many microbatches
@@ -161,7 +180,9 @@ def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
     a `mesh` with a 'tensor' axis the rows are the data-parallel
     process's (`mesh.data_parallel_index()` of `data_parallel_size`), so
     the ranks of a tensor group, which hold the same rows, draw the same
-    masks.
+    masks. `grad_fn(model, micro, **kwargs) -> loss`, where given, adds
+    the microbatch's gradients into `.grad` itself (a pipelined model's
+    schedule) in place of `loss_fn`'s backward.
     """
     model.zero_grad(set_to_none=True)
     kwargs = {}
@@ -180,7 +201,7 @@ def value_and_grad(model: nn.Module, loss_fn: tp.Callable,
     if tokens.shape[0] % accumulate:
         raise ValueError(f"batch {tokens.shape[0]} does not split into "
                          f"{accumulate} microbatches")
-    return with_grad_accumulation(loss_and_grad, accumulate)(
+    return with_grad_accumulation(grad_fn or loss_and_grad, accumulate)(
         model, tokens, **kwargs)
 
 
@@ -189,16 +210,17 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                tokens: torch.Tensor, loss_fn: tp.Callable,
                accumulate: int = 1, max_norm: float = 1.0,
                dropout_seed: tp.Optional[int] = None,
-               mesh: tp.Optional[Mesh] = None
+               mesh: tp.Optional[Mesh] = None,
+               grad_fn: tp.Optional[tp.Callable] = None
                ) -> tp.Dict[str, torch.Tensor]:
     """One update at step count `step` (before the increment): loss and
-    grads (`value_and_grad`, with `dropout_seed` and `mesh`), the global
-    norm,
+    grads (`value_and_grad`, with `dropout_seed`, `mesh` and `grad_fn`),
+    the global norm,
     optax's clip (`g / norm * max_norm` once the norm reaches
     `max_norm`, no epsilon), AdamW at `schedule(step)`. Returns the loss
     and the unclipped `grad_norm` as device scalars."""
     loss = value_and_grad(model, loss_fn, tokens, accumulate, dropout_seed,
-                          mesh)
+                          mesh, grad_fn)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     # the whole gradient's norm: a sharded parameter's squares summed
     # over its axes, a replicated one's counted once
@@ -220,8 +242,10 @@ def check_mesh(mesh: tp.Mapping, attention: str,
     a process; 1 in one process), `seq` above 1 is a ring whose ranks
     share the process's card and needs `attention` 'ring' or 'ring_fused'
     (with any other attention a `seq` axis would do nothing on one card),
-    and `pipe` or `expert` above 1, or `seq` with `tensor`, raise
-    NotImplementedError naming their ROADMAP item (`make_mesh`). With
+    `pipe` above 1 is a pipeline over the pipe ranks (processes); `pipe`
+    with `fsdp`, `tensor` or `seq` above 1, `expert` above 1, or `seq`
+    with `tensor` raise NotImplementedError naming their ROADMAP item
+    (`make_mesh`, item 8f for pipe's). With
     `model` (the config's model section) a `tensor` width is held to its
     heads and MLP width (`validate_tensor_args`). A solver whose model
     has no FSDP specs passes the ROADMAP item that brings them as `fsdp`:
@@ -230,6 +254,14 @@ def check_mesh(mesh: tp.Mapping, attention: str,
     if fsdp is not None and built.shape["fsdp"] > 1:
         raise NotImplementedError(f"mesh.fsdp={built.shape['fsdp']} needs "
                                   f"this model's shardings: {fsdp}")
+    if built.shape["pipe"] > 1:
+        others = [f"{axis}={built.shape[axis]}"
+                  for axis in ("fsdp", "tensor", "seq")
+                  if built.shape[axis] > 1]
+        if others:
+            raise NotImplementedError(
+                f"mesh.pipe={built.shape['pipe']} with {', '.join(others)} "
+                f"is not ported yet: {TODO_PIPE_SHARDED}")
     if built.shape["seq"] > 1 and attention not in ("ring", "ring_fused"):
         raise ValueError(f"mesh.seq={built.shape['seq']} cuts the sequence "
                          f"over a ring, which needs model.attention=ring or "
@@ -252,16 +284,20 @@ def _shadow(value: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
     return shadow
 
 
-def wrap_model(model: nn.Module, mesh: Mesh) -> nn.Module:
+def wrap_model(model: nn.Module, mesh: Mesh, interleave: int = 1
+               ) -> nn.Module:
     """`parallel.wrap` for the run's mesh under the model's own
     `shardings()` (`transformer_shardings`): with `tensor` above 1 the
     model cut over it first (Megatron; then DDP over the `data x fsdp`
-    ranks of each tensor rank), with `fsdp` above 1 the model itself in
-    FSDP form (over the tensor slices under both), else
-    DistributedDataParallel above one rank (the model at one)."""
-    if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1:
+    ranks of each tensor rank), with `pipe` above 1 its block stack cut
+    over the pipe ranks (`interleave` virtual stages; the model itself,
+    its data-parallel average `average_over_data`), with `fsdp` above 1
+    the model itself in FSDP form (over the tensor slices under both),
+    else DistributedDataParallel above one rank (the model at one)."""
+    if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1 \
+            or mesh.shape["pipe"] > 1:
         return wrap(model, mesh=mesh, fsdp=mesh.shape["fsdp"] > 1,
-                    state_sharding=model.shardings())
+                    state_sharding=model.shardings(), interleave=interleave)
     return wrap(model)
 
 
@@ -275,20 +311,34 @@ class LMSolver(BaseSolver):
         self.device = resolve_device(device)
         self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
                                model=cfg.model)
+        # pipeline parallelism streams the scan-stacked block leaves over
+        # the pipe ranks (models/pipelined.py), so pipe > 1 forces the
+        # stacked layout
+        self.pipe_stages = self.mesh.shape["pipe"]
+        self.pipe_schedule = cfg.get("pipeline_schedule", "gpipe")
+        self.pipe_interleave = int(cfg.get("pipeline_interleave", 1))
+        self.pipe_micro = cfg.get("pipeline_microbatches", None)
+        if self.pipe_schedule not in KNOWN_SCHEDULES:
+            raise ValueError(f"pipeline_schedule must be one of "
+                             f"{KNOWN_SCHEDULES}, got "
+                             f"{self.pipe_schedule!r}")
+        scan_layers = bool(cfg.model.get("scan_layers", False)) \
+            or self.pipe_stages > 1
         model_cfg = TransformerConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
             mlp_ratio=cfg.model.mlp_ratio, attention=cfg.model.attention,
             remat=cfg.model.get("remat", False),
             remat_policy=cfg.model.get("remat_policy", "full"),
-            scan_layers=cfg.model.get("scan_layers", False),
+            scan_layers=scan_layers,
             moe_experts=cfg.model.get("moe_experts", 0),
             moe_top_k=cfg.model.get("moe_top_k", 1),
             moe_capacity_factor=cfg.model.get("moe_capacity_factor", 1.25),
             moe_dispatch=cfg.model.get("moe_dispatch", "einsum"))
         self.moe = model_cfg.moe_experts > 0
         self.aux_weight = float(cfg.model.get("moe_aux_weight", 0.01))
-        if cfg.get("loss", "dense") == "chunked" and self.moe:
+        if cfg.get("loss", "dense") == "chunked" \
+                and (self.moe or self.pipe_stages > 1):
             raise ValueError(
                 "loss=chunked is not supported with MoE or pipeline "
                 "parallelism (those paths need logits + aux losses); "
@@ -305,7 +355,16 @@ class LMSolver(BaseSolver):
         # over its tensor slices under mesh.tensor > 1 (`self.model`
         # stays the module whose state is checkpointed, evaluated and
         # sampled)
-        self.train_model = wrap_model(self.model, self.mesh)
+        self.train_model = wrap_model(self.model, self.mesh,
+                                      self.pipe_interleave)
+        self._pipe_grad_fn = None
+        if self.pipe_stages > 1:
+            self._pipe_grad_fn = pipelined_value_and_grad(
+                self.model, mesh=self.mesh,
+                num_microbatches=self.pipe_micro,
+                interleave=self.pipe_interleave,
+                schedule=self.pipe_schedule,
+                aux_weight=self.aux_weight if self.moe else 0.0)
         # the mesh a tensor-parallel model's rank logits are reduced over
         self.vocab_mesh = self.mesh if self.mesh.shape["tensor"] > 1 \
             else None
@@ -336,6 +395,8 @@ class LMSolver(BaseSolver):
         `self.model`; the training step passes `self.train_model`); with
         `params` (name -> tensor, e.g. the EMA shadow) the model runs on
         those instead of its own (`torch.func.functional_call`)."""
+        if self.pipe_stages > 1:
+            return self._pipelined_loss(tokens, params)
         model = self.model if model is None else model
         if params is not None:
             def model(*args, **kwargs):
@@ -348,9 +409,73 @@ class LMSolver(BaseSolver):
                                   chunk_size=int(self.cfg.get("loss_chunk",
                                                               256)))
 
+    def _pipelined_loss(self, tokens: torch.Tensor,
+                        params: tp.Optional[tp.Mapping[str, torch.Tensor]]
+                        ) -> torch.Tensor:
+        """The loss of a forward through the pipeline (eval: no graph
+        under 1f1b; packed has no forward-only schedule, and 1f1b's
+        forward is the same numbers)."""
+        schedule = "1f1b" if self.pipe_schedule == "packed_1f1b" \
+            else self.pipe_schedule
+        out = pipelined_apply(self.model, tokens, mesh=self.mesh,
+                              num_microbatches=self.pipe_micro,
+                              schedule=schedule,
+                              interleave=self.pipe_interleave, params=params)
+        logits, aux = out if self.moe else (out, None)
+        ce = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            tokens[:, 1:].reshape(-1).long())
+        return ce if aux is None else ce + self.aux_weight * aux
+
+    def pipe_grads(self, model: nn.Module, tokens: torch.Tensor,
+                   **kwargs: tp.Any) -> torch.Tensor:
+        """`train_step`'s `grad_fn` under `mesh.pipe > 1`: the pipelined
+        schedule's loss, its gradients added into each parameter's
+        `.grad` (the rank's chunks; `embed` and `norm_f` summed over the
+        pipe ranks), then averaged over the stage's data-parallel ranks
+        unless inside `no_sync()` (gradient accumulation's earlier
+        microbatches). Dropout stays off, as in the JAX solver."""
+        del kwargs
+        loss, grads = self._pipe_grad_fn(None, tokens)
+        params = list(self.model.parameters())
+        for name, param in self.model.named_parameters():
+            grad = grads[name]
+            param.grad = grad if param.grad is None else param.grad + grad
+        if self.model._sharded.sync:
+            average_over_data(params, self.mesh)
+        return loss.float()
+
+    def _pipeline_stats(self) -> tp.Optional[tp.Dict[str, tp.Any]]:
+        """Host-static schedule numbers of the pipeline: the bubble
+        fraction, idle ticks and the exact stash-ring bytes (1F1B) or
+        the GPipe residency bound (the stage metrics' and the
+        `pipeline/bubble` track's payload); None at pipe=1."""
+        if self.pipe_stages <= 1:
+            return None
+        from ...parallel.pipeline import default_overlap
+        from ...parallel.schedules import (gpipe_bubble_fraction,
+                                           gpipe_stash_bytes, schedule_stats)
+        num_micro = self.pipe_micro or self.pipe_stages
+        accumulate = self.cfg.get("accumulate", 1)
+        rows = self.cfg.batch_size // self.mesh.data_parallel_size
+        mb = max(rows // accumulate // num_micro, 1)
+        mb_shape = (mb, self.cfg.seq_len, self.cfg.model.dim)
+        if self.pipe_schedule in ("1f1b", "packed_1f1b"):
+            packed = self.pipe_schedule == "packed_1f1b"
+            return schedule_stats(
+                self.pipe_stages, num_micro, self.pipe_interleave,
+                packed=packed, overlap=default_overlap(
+                    packed, self.pipe_interleave, self.mesh, self.device),
+                microbatch_shape=mb_shape)
+        return {"schedule": "gpipe",
+                "bubble_frac": round(gpipe_bubble_fraction(
+                    self.pipe_stages, num_micro), 6),
+                "peak_stash_bytes": gpipe_stash_bytes(
+                    self.pipe_stages, num_micro, mb_shape)}
+
     def get_formatter(self, stage_name):
         return Formatter({"loss": ".4f", "ppl": ".1f", "grad_norm": ".2f",
-                          "tokens_per_sec": ".0f"})
+                          "tokens_per_sec": ".0f", "bubble_frac": ".3f"})
 
     def batch_at(self, step: int, eval_set: bool = False) -> torch.Tensor:
         """This rank's rows of the global [batch_size, seq_len] batch of
@@ -384,6 +509,7 @@ class LMSolver(BaseSolver):
         metrics: tp.Dict[str, float] = {}
         begin = time.time()
         tokens_seen = 0
+        pipe_stats = self._pipeline_stats()
         for index in progress:
             global_step = (self.epoch - 1) * cfg.steps_per_epoch + index
             t0 = time.perf_counter()
@@ -391,7 +517,9 @@ class LMSolver(BaseSolver):
                     self.state["step"], self.batch_at(global_step),
                     lambda model, tokens: self.loss(tokens, model=model))
             kwargs = {"accumulate": int(cfg.get("accumulate", 1)),
-                      "mesh": self.mesh}
+                      "mesh": self.mesh,
+                      "grad_fn": self.pipe_grads if self.pipe_stages > 1
+                      else None}
             step_metrics = roofline.register_fn("lm/train_step", train_step,
                                                 args, kwargs)
             roofline.note_call("lm/train_step")
@@ -413,12 +541,21 @@ class LMSolver(BaseSolver):
             self.step_seconds.append(time.perf_counter() - t0)
             self.step_losses.append(float(step_metrics["loss"]))
             tokens_seen += cfg.batch_size * cfg.seq_len
+            if telemetry is not None and pipe_stats is not None:
+                # a per-step sample of the schedule's idle-tick budget:
+                # the `pipeline/bubble` counter track
+                telemetry.counter("pipeline/bubble", bubble_frac=float(
+                    pipe_stats["bubble_frac"]), idle_ticks_per_device=float(
+                        pipe_stats.get("idle_ticks_per_device", 0.0)))
             progress.update(**metrics)
         self._sync()
         metrics["tokens_per_sec"] = tokens_seen / (time.time() - begin)
         # the global batch's: every rank ran as many steps
         metrics = distrib.average_metrics(metrics)
         metrics["ppl"] = float(np.exp(min(metrics["loss"], 20.0)))
+        if pipe_stats is not None:
+            metrics["bubble_frac"] = float(pipe_stats["bubble_frac"])
+            metrics["peak_stash_bytes"] = int(pipe_stats["peak_stash_bytes"])
         return metrics
 
     def valid(self):

@@ -5,7 +5,9 @@ forms (`data_parallel`: `wrap` as DistributedDataParallel, FSDP or a
 declared ZeRO layout, `shard_batch`, `with_grad_accumulation`, the leaf
 rule), the ZeRO-1 weight update (`zero`), the count of a step's
 collectives (`accounting`), Megatron tensor parallelism over the
-'tensor' process axis (`tensor`), sequence-parallel ring attention
+'tensor' process axis (`tensor`), pipeline parallelism over the 'pipe'
+process axis (`pipeline`: GPipe, 1F1B, interleaved and packed, over the
+host-side tables of `schedules`), sequence-parallel ring attention
 (`ring`, and the single-kernel forward of `ring_fused`) and the
 single-device half of the expert layer's grouped MLP (`moe_ep`)."""
 from .mesh import (default_mesh, make_mesh, mesh_shape_from_devices,  # noqa: F401
@@ -19,6 +21,15 @@ from .ring_fused import fused_ring_attention  # noqa: F401
 from .accounting import (collective_stats,  # noqa: F401
                          compare_collective_stats, count_collectives,
                          memory_stats, total_collective_bytes)
+from .schedules import (PipelineSchedule, bubble_fraction,  # noqa: F401
+                        build_1f1b_schedule, gpipe_bubble_fraction,
+                        packed_bubble_fraction, packed_ticks, schedule_stats,
+                        validate_pipeline_args)
+# eager, as in the JAX package: `from flashy_tpu_torch.parallel import
+# pipeline` must stay the GPipe entry point (once the submodule is
+# imported, a lazy attribute would lose to the module object); `python -m
+# flashy_tpu_torch.parallel.pipeline` pays runpy's double-import warning
+from .pipeline import default_overlap, pipeline, pipeline_1f1b  # noqa: F401
 
 # ZeRO and tensor-parallel exports resolve lazily (PEP 562), as in the
 # JAX package: `python -m flashy_tpu_torch.parallel.zero` and
@@ -32,6 +43,7 @@ _LAZY_EXPORTS = {
     "model_state": "zero",
     "tensor_state_sharding": "tensor", "validate_tensor_args": "tensor",
     "flash_bwd_parity": "tensor", "run_tp_bench": "tensor",
+    "run_pipeline_bench": "pipeline",
 }
 
 

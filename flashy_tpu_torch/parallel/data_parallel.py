@@ -31,6 +31,13 @@ processes of each tensor rank: DDP over the `data x fsdp` group, FSDP
 over 'fsdp', ZeRO-1 over 'data' (a leaf split over two axes,
 `('tensor', 'data')`, nests: `sharding.py`).
 
+Under pipeline parallelism (`mesh.shape['pipe'] > 1`) `wrap` cuts the
+scan-stacked block leaves over 'pipe' the same way (each stage keeps its
+chunks of `interleave` virtual stages) and returns the model itself: the
+pipelined model's schedule (`models.pipelined`) sets the gradients, and
+`average_over_data` averages them over the `data x fsdp` ranks of each
+stage. FSDP and ZeRO-1 with 'pipe' raise (`TODO_PIPE_SHARDED`).
+
 `with_grad_accumulation` runs microbatches in sequence with f32 running
 sums; under DDP and the sharded forms every microbatch but the last runs
 in `no_sync()`, so the reduction happens once a step.
@@ -575,7 +582,8 @@ class _Sharded:
     @contextlib.contextmanager
     def summon_full_params(self) -> tp.Iterator[None]:
         """Inside the block a sharded model's registered parameters are
-        the full ones (gathered once over every axis, 'tensor' included,
+        the full ones (gathered once over every axis, 'pipe' and
+        'tensor' included,
         no gradient), so code that reads `named_parameters()`, such as
         the decoder, sees the whole model and runs it without
         collectives; the shards are back after it. Collective: every
@@ -601,8 +609,10 @@ class _Sharded:
                 shard = owner._parameters[attr]
                 held.append((owner, attr, shard))
                 full = fulls.get(name, shard)
-                if "tensor" in sharding.axis_names():
-                    full = sharding.gather(full, ("tensor",))
+                model_axes = [axis for axis in MODEL_AXES
+                              if axis in sharding.axis_names()]
+                if model_axes:
+                    full = sharding.gather(full, model_axes)
                 owner._parameters[attr] = nn.Parameter(
                     full.detach(), requires_grad=False)
         self.summoned = True
@@ -680,34 +690,54 @@ def _has_update_keys(spec: tp.Any) -> bool:
         _is_update_key(str(key)) for key in spec)
 
 
-def _split_tensor(model: nn.Module, mesh: Mesh, spec: tp.Any) -> None:
-    """Cut `model` over the mesh's 'tensor' axis in place: every rank
-    first takes rank 0's full parameters (the model is built identically
-    on every rank, then sliced), then each parameter that its spec (`spec`,
-    or the model's own `shardings()`) splits over 'tensor' becomes this
-    process's slice, an `nn.Parameter` carrying the slice's
-    NamedSharding. The model's layers read their widths from the slices
-    they hold and run the Megatron collectives over the mesh's 'tensor'
-    group (`parallel.tensor`). Records the slices as `model._sharded`
-    (mode 'tensor') with `summon_full_params` and `no_sync`."""
+# the process axes a model is cut over (the model-parallel axes); the
+# data-parallel forms act on the slices
+MODEL_AXES = ("pipe", "tensor")
+TODO_PIPE_SHARDED = ("ROADMAP.md queue A item 8f (pipe composed with "
+                     "fsdp or ZeRO-1, and with tensor in the LM solver)")
+
+
+def _split_model(model: nn.Module, mesh: Mesh, spec: tp.Any,
+                 interleave: int = 1) -> None:
+    """Cut `model` over the mesh's model-parallel axes ('pipe', 'tensor'
+    above size 1) in place: every rank first takes rank 0's full
+    parameters (the model is built identically on every rank, then
+    sliced), then each parameter that its spec (`spec`, or the model's
+    own `shardings()`) splits over those axes becomes this process's
+    slice, an `nn.Parameter` carrying the slice's NamedSharding. Over
+    'tensor' the model's layers read their widths from the slices they
+    hold and run the Megatron collectives over the mesh's 'tensor' group
+    (`parallel.tensor`); over 'pipe' a scan-stacked leaf [L, ...] keeps
+    this stage's chunks of `interleave` virtual stages (chunks d, d +
+    pipe, ...: the NamedSharding's `interleave`), which the pipelined
+    model runs (`models.pipelined`). Records the slices as
+    `model._sharded` (mode 'tensor', 'pipe' or 'pipe+tensor') with
+    `summon_full_params` and `no_sync`."""
+    axes = tuple(axis for axis in MODEL_AXES if mesh.shape[axis] > 1)
+
     def default(params: tp.Any) -> tp.Any:
         shardings = getattr(model, "shardings", None)
         if shardings is None:
             raise ValueError(
-                f"wrap over tensor={mesh.shape['tensor']} needs the "
-                f"parameters' specs: pass state_sharding (e.g. "
+                f"wrap over {' x '.join(f'{a}={mesh.shape[a]}' for a in axes)}"
+                f" needs the parameters' specs: pass state_sharding (e.g. "
                 f"transformer_shardings or tensor_state_sharding) or wrap "
                 f"a model with a shardings() method")
         return shardings()
 
-    shardings = _resolve_shardings(model, mesh, spec, default)
+    shardings = _resolve_shardings(model, mesh, spec, default,
+                                   None if interleave == 1 else ("tensor",))
     distrib.broadcast_model(model)
-    sharded = _Sharded(mesh, "tensor", model)
+    sharded = _Sharded(mesh, "+".join(axes), model)
     with torch.no_grad():
         for name, param in list(model.named_parameters()):
-            local = shardings[name].over(("tensor",))
+            local = shardings[name].over(axes)
+            if interleave != 1:
+                local = NamedSharding(mesh, local.spec, pairs=local.pairs,
+                                      interleave=interleave)
             if local.is_replicated:
                 continue
+            local.shard_shape(param.shape, axes, name=name)
             owner_path, _, attr = name.rpartition(".")
             owner = model.get_submodule(owner_path) if owner_path else model
             sliced = nn.Parameter(local.shard(param.detach()).clone(),
@@ -718,6 +748,29 @@ def _split_tensor(model: nn.Module, mesh: Mesh, spec: tp.Any) -> None:
     model._sharded = sharded
     model.no_sync = sharded.no_sync
     model.summon_full_params = sharded.summon_full_params
+
+
+def average_over_data(params: tp.Iterable[torch.Tensor], mesh: Mesh) -> None:
+    """Average the `.grad` of `params` over the mesh's `data x fsdp`
+    processes in place (one flat all-reduce per dtype, divided by their
+    count, as DistributedDataParallel's buckets average): the
+    data-parallel step of a model cut over 'pipe', whose gradients its
+    schedule sets itself. The identity on one data-parallel process."""
+    if mesh.data_parallel_size == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    group = mesh.group(DATA_PARALLEL_AXES)
+    scale = float(mesh.data_parallel_size)
+    by_dtype: tp.Dict[torch.dtype, tp.List[torch.Tensor]] = {}
+    for grad in grads:
+        by_dtype.setdefault(grad.dtype, []).append(grad)
+    with torch.no_grad():
+        for same in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in same])
+            flat = distrib.all_reduce(flat.div_(scale), "sum", group)
+            for grad, part in zip(same, flat.split([g.numel()
+                                                    for g in same])):
+                grad.copy_(part.view_as(grad))
 
 
 def _fsdp(model: nn.Module, mesh: Mesh, spec: tp.Any) -> nn.Module:
@@ -941,7 +994,7 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
          mesh: tp.Optional[Mesh] = None,
          batch_axes: tp.Sequence[str] = BATCH_AXES,
          fsdp: bool = False, state_sharding: tp.Any = None,
-         **ddp_kwargs: tp.Any) -> tp.Any:
+         interleave: int = 1, **ddp_kwargs: tp.Any) -> tp.Any:
     """Make a model data-parallel over the processes: the DDP role.
 
     Above one rank, by default, returns `DistributedDataParallel(model,
@@ -999,19 +1052,30 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
     if model is None:
         return lambda module: wrap(module, mesh=mesh, batch_axes=batch_axes,
                                    fsdp=fsdp, state_sharding=state_sharding,
-                                   **ddp_kwargs)
+                                   interleave=interleave, **ddp_kwargs)
     if not isinstance(model, nn.Module):
         raise TypeError(f"wrap takes an nn.Module (the port's steps run "
                         f"eagerly), got {type(model).__name__}")
     wrapped = model
     tensor = mesh is not None and mesh.shape["tensor"] > 1
-    if fsdp or state_sharding is not None or tensor:
+    pipe = mesh is not None and mesh.shape["pipe"] > 1
+    if pipe and (fsdp or _has_update_keys(state_sharding)):
+        raise NotImplementedError(
+            f"wrap over pipe={mesh.shape['pipe']} with "
+            f"{'fsdp=True' if fsdp else 'a ZeRO-1 layout'} is not ported "
+            f"yet: {TODO_PIPE_SHARDED}")
+    if fsdp or state_sharding is not None or tensor or pipe:
         mesh = mesh or default_mesh()
         if distrib.is_distributed():
             distrib._require_backend()
-        if tensor:
-            _split_tensor(model, mesh, _param_specs(model, state_sharding))
-        if fsdp:
+        if tensor or pipe:
+            _split_model(model, mesh, _param_specs(model, state_sharding),
+                         interleave)
+        if pipe:
+            # the pipelined model's schedule sets the gradients itself:
+            # no DDP hook (`average_over_data`)
+            pass
+        elif fsdp:
             wrapped = _fsdp(model, mesh, _param_specs(model, state_sharding))
         elif state_sharding is not None and (not tensor or _has_update_keys(
                 state_sharding)):

@@ -11,28 +11,33 @@ JAX package:
   'seq'    - sequence parallelism (ring attention)
 
 The port's mesh is a small record: the six axis sizes and the devices of
-this process's ranks. `data`, `fsdp` and `tensor` are the process axes:
-`data x fsdp x tensor` processes make the world (`distrib.world_size()`),
-and process `r` sits at `data = r // (fsdp * tensor)`, `fsdp = (r //
-tensor) % fsdp`, `tensor = r % tensor`: the JAX package's (data, fsdp,
-..., tensor) order, with `tensor` innermost, so a tensor group is a run
-of adjacent ranks (Megatron's placement) and a global batch splits over
-`data` and `fsdp` as `batch_spec` says (each data-parallel process takes
-its contiguous rows; the ranks of a tensor group take the same rows).
-`coord(axis)` is the process's index on an axis and `group(axis)` the
-`torch.distributed` group of the processes that differ only there (or
-only on the axes of a tuple; one group per axis, built on every process
-in the same order, cached). `devices` names the device of each of this
-process's ranks on the axes inside a process (`seq`: the ranks of a ring
-share the process's card), in AXES order; a device may repeat.
-`devices=None` records no device, and every rank then runs on the device
-of the tensors it is given. `make_mesh({"data": -1})` takes the world.
-What runs today: the process axes (`--workers`, `parallel.wrap`, its
-FSDP, ZeRO and tensor-parallel forms) composed with a `seq` ring inside
-each process (`parallel.ring`). Process axes that differ from the world
-inside one process, a mesh whose ranks name two devices, `seq` above 1
-together with `tensor` above 1, and `pipe` or `expert` above 1 raise
-NotImplementedError naming the ROADMAP item that brings them.
+this process's ranks. `data`, `fsdp`, `pipe` and `tensor` are the process
+axes: `data x fsdp x pipe x tensor` processes make the world
+(`distrib.world_size()`), and process `r` sits at `data = r // (fsdp *
+pipe * tensor)`, `fsdp = r // (pipe * tensor) % fsdp`, `pipe = r //
+tensor % pipe`, `tensor = r % tensor`: the JAX package's AXES order, with
+`tensor` innermost, so a tensor group is a run of adjacent ranks
+(Megatron's placement), every layout at `pipe=1` is the one without the
+axis, and a global batch splits over `data` and `fsdp` as `batch_spec`
+says (each data-parallel process takes its contiguous rows; the ranks of
+a tensor or pipe group take the same rows). `coord(axis)` is the
+process's index on an axis, `group(axis)` the `torch.distributed` group
+of the processes that differ only there (or only on the axes of a tuple;
+one group per axis, built on every process in the same order, cached),
+and `pipe_peers()` the global ranks of a pipe stage's ring neighbours
+(`parallel.pipeline` sends activations to the next stage and cotangents
+to the previous one, the last stage wrapping to stage 0). `devices`
+names the device of each of this process's ranks on the axes inside a
+process (`seq`: the ranks of a ring share the process's card), in AXES
+order; a device may repeat. `devices=None` records no device, and every
+rank then runs on the device of the tensors it is given.
+`make_mesh({"data": -1})` takes the world. What runs today: the process
+axes (`--workers`, `parallel.wrap`, its FSDP, ZeRO, tensor-parallel and
+pipeline forms) composed with a `seq` ring inside each process
+(`parallel.ring`). Process axes that differ from the world inside one
+process, a mesh whose ranks name two devices, `seq` above 1 together
+with `tensor` above 1, and `expert` above 1 raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 import dataclasses
 import itertools
@@ -46,17 +51,17 @@ from .. import distrib
 AXES = ("data", "fsdp", "expert", "pipe", "tensor", "seq")
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data, fsdp and tensor "
-                      "ranks are processes; launch them with --workers=N "
+TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data, fsdp, pipe and "
+                      "tensor ranks are processes; launch them with "
+                      "--workers=N "
                       "(or launch.py / torchrun)")
-TODO_AXES = {"pipe": "ROADMAP.md queue A item 8c (pipeline parallelism)",
-             "expert": "ROADMAP.md queue A item 8d (expert parallelism)"}
+TODO_AXES = {"expert": "ROADMAP.md queue A item 8d (expert parallelism)"}
 TODO_SEQ_TENSOR = ("ROADMAP.md queue A item 8d (the ring's ranks across "
                    "processes: seq composed with tensor)")
 TODO_DEVICES = ("ROADMAP.md queue A items 5 and 8d (ranks on several "
                 "cards: a process a card over the process axes, item 5; "
                 "the ring's ranks on several processes or cards, item 8d)")
-PROCESS_AXES = ("data", "fsdp", "tensor")
+PROCESS_AXES = ("data", "fsdp", "pipe", "tensor")
 # the processes that hold different rows of a batch
 DATA_PARALLEL_AXES = ("data", "fsdp")
 
@@ -69,8 +74,8 @@ _default_mesh: tp.Optional["Mesh"] = None
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (`shape`, every axis of AXES; `data`, `fsdp` and
-    `tensor` count processes) and this process's ranks' devices (one per
+    """Axis sizes (`shape`, every axis of AXES; `data`, `fsdp`, `pipe`
+    and `tensor` count processes) and this process's ranks' devices (one per
     rank of the axes inside a process, in AXES order; None: the caller's
     device)."""
     shape: tp.Mapping[str, int]
@@ -87,7 +92,8 @@ class Mesh:
 
     @property
     def processes(self) -> int:
-        """How many processes the mesh spans (`data x fsdp x tensor`)."""
+        """How many processes the mesh spans (`data x fsdp x pipe x
+        tensor`)."""
         return math.prod(self.shape[axis] for axis in PROCESS_AXES)
 
     @property
@@ -98,7 +104,7 @@ class Mesh:
 
     def data_parallel_index(self) -> int:
         """This process's index among the `data x fsdp` row holders (the
-        ranks of a tensor group share it)."""
+        ranks of a tensor or pipe group share it)."""
         return self.coord("data") * self.shape["fsdp"] + self.coord("fsdp")
 
     def _stride(self, axis: str) -> int:
@@ -106,8 +112,8 @@ class Mesh:
                          PROCESS_AXES[PROCESS_AXES.index(axis) + 1:])
 
     def coord(self, axis: str) -> int:
-        """This process's index on `axis` (`data = rank // (fsdp *
-        tensor)`, `fsdp = (rank // tensor) % fsdp`, `tensor = rank %
+        """This process's index on `axis` (`data = rank // (fsdp * pipe *
+        tensor)`, ..., `pipe = (rank // tensor) % pipe`, `tensor = rank %
         tensor`), 0 on an axis of size 1."""
         if self.shape[axis] == 1:
             return 0
@@ -156,6 +162,16 @@ class Mesh:
         rank = distrib.rank()
         index = next(i for i, ranks in enumerate(groups) if rank in ranks)
         return _groups[key][index]
+
+    def pipe_peers(self) -> tp.Tuple[int, int]:
+        """The global ranks of this process's pipe-ring neighbours: (the
+        next stage, which its activations go to, the previous stage,
+        which its cotangents go to), wrapping around the ring (equal at
+        pipe=2)."""
+        ranks = next(group for group in self.group_ranks("pipe")
+                     if distrib.rank() in group)
+        stage, stages = self.coord("pipe"), self.shape["pipe"]
+        return ranks[(stage + 1) % stages], ranks[(stage - 1) % stages]
 
 
 def _device(device: tp.Any) -> torch.device:

@@ -95,29 +95,40 @@ class NamedSharding:
     Slices over a tuple of axes (`('tensor', 'data')`) nest: the tensor
     slice is split again over 'data', so a process's tensor-local tensor
     is the join of its 'data' slices. `shard` and `gather` take the axes
-    to cut or join over (default: every axis above size 1)."""
+    to cut or join over (default: every axis above size 1).
+
+    `interleave` (default 1) does the same for the dim split over 'pipe':
+    a scan-stacked leaf [L, ...] under `interleave` virtual stages is
+    `interleave` blocks of `pipe` chunks, and pipe rank d holds chunk d of
+    each block (chunks d, d + pipe, ...; `parallel.pipeline`)."""
 
     def __init__(self, mesh: Mesh, spec: tp.Sequence[Part] = (),
-                 pairs: tp.Optional[int] = None):
+                 pairs: tp.Optional[int] = None, interleave: int = 1):
         self.mesh = mesh
         self.spec = spec if isinstance(spec, P) else P(*spec)
         self.pairs = int(pairs if pairs is not None
                          else getattr(spec, "pairs", 1))
         self.pairs_dim = next((dim for dim, part in enumerate(self.spec)
                                if "tensor" in _names(part)), None)
+        self.interleave = int(interleave)
+        self.pipe_dim = next((dim for dim, part in enumerate(self.spec)
+                              if "pipe" in _names(part)), None)
 
     def __repr__(self) -> str:
         extra = f", pairs={self.pairs}" if self.pairs != 1 else ""
+        if self.interleave != 1:
+            extra += f", interleave={self.interleave}"
         return f"NamedSharding({dict(self.mesh.shape)}, {self.spec!r}{extra})"
 
     def __eq__(self, other: tp.Any) -> bool:
         return isinstance(other, NamedSharding) and other.spec == self.spec \
             and dict(other.mesh.shape) == dict(self.mesh.shape) \
-            and other.pairs == self.pairs
+            and other.pairs == self.pairs \
+            and other.interleave == self.interleave
 
     def __hash__(self) -> int:
         return hash((self.spec, tuple(sorted(self.mesh.shape.items())),
-                     self.pairs))
+                     self.pairs, self.interleave))
 
     @property
     def is_replicated(self) -> bool:
@@ -137,7 +148,9 @@ class NamedSharding:
                          for name in self._selected(part, axes))
 
     def _pairs_at(self, dim: int) -> int:
-        return self.pairs if dim == self.pairs_dim else 1
+        if dim == self.pairs_dim:
+            return self.pairs
+        return self.interleave if dim == self.pipe_dim else 1
 
     def shard_shape(self, shape: tp.Sequence[int],
                     axes: tp.Optional[tp.Sequence[str]] = None,
@@ -211,7 +224,8 @@ class NamedSharding:
             kept = tuple(name for name in _names(part) if name in axes)
             parts.append(None if not kept else
                          kept[0] if len(kept) == 1 else kept)
-        return NamedSharding(self.mesh, P(*parts), pairs=self.pairs)
+        return NamedSharding(self.mesh, P(*parts), pairs=self.pairs,
+                             interleave=self.interleave)
 
 
 def place(tree: tp.Any, shardings: tp.Any) -> tp.Any:

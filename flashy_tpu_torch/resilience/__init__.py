@@ -22,9 +22,9 @@ corrupted active checkpoint slot, and checks the resumed run's history
 and state against an uninterrupted run. With `--campaign` it runs the
 chaos campaign (`resilience.campaign`: every registry site under every
 fault kind its scenario declares, failures shrunk to a JSON reproducer)
-over the ported `train`, `datapipe`, `serve`, `fleet` and `tensor`
-scenarios; the pipeline and elastic scenarios wait for ROADMAP.md queue
-A items 8c and 8e.
+over the ported `train`, `datapipe`, `serve`, `fleet`, `pipeline` and
+`tensor` scenarios; the elastic scenario waits for ROADMAP.md queue A
+item 8e.
 
 Importing this package touches no CUDA device.
 """

@@ -16,13 +16,13 @@ the same schedules and replays the same failure.
 Ported scenarios: `train` (the chaos drill's numpy solver; no device),
 and, on `cuda` unless `device='cpu'` asks for the host, `datapipe` (the
 datapipe drill's solver), `serve` (a one-engine fleet), `fleet` (the
-WAL-backed two-engine fleet and its restart drill) and `tensor` (the
-tensor-parallel bench over two processes, the fault plan armed in both
-ranks). The others declare their sites statically, so coverage and
-`static_coverage()` see the whole registry, and raise
-NotImplementedError naming their ROADMAP.md queue A items when run:
-`pipeline` (item 8c) and `elastic` (it waits for item 8e's resharding
-restore). A campaign over every scenario (`scenarios=None`) therefore
+WAL-backed two-engine fleet and its restart drill), `pipeline` (the 1F1B
+schedules, unpacked and packed, over two processes) and `tensor` (the
+tensor-parallel bench over two processes); the two multi-process ones
+arm the fault plan in both ranks. `elastic` declares its sites
+statically, so coverage and `static_coverage()` see the whole registry,
+and raises NotImplementedError naming its ROADMAP.md queue A item when
+run (it waits for item 8e's resharding restore). A campaign over every scenario (`scenarios=None`) therefore
 raises; an explicit subset of ported scenarios runs with the narrowed
 coverage gate.
 
@@ -641,8 +641,6 @@ class FleetScenario(_ServingScenario):
             raise CampaignFailure(failures)
 
 
-TODO_PIPELINE = ("ROADMAP.md queue A item 8c (pipeline parallelism: the "
-                 "1F1B schedules)")
 TODO_ELASTIC = ("ROADMAP.md queue A items 5 and 8 (the elastic drill: "
                 "item 5's processes and item 8a's state across ranks are "
                 "ported, item 8e's resharding restore is not)")
@@ -662,44 +660,29 @@ class _WaitingScenario(Scenario):
             f"{self.todo}")
 
 
-class PipelineScenario(_WaitingScenario):
-    """The 1F1B pipeline schedules, unpacked and packed, under stalled
-    host ticks: loss and grads bit-identical to the clean run."""
+class _RanksScenario(_OnDevice):
+    """A scenario whose workload runs over two processes: `python -m
+    <MODULE> --workers=2 <ARGS>`, each rank armed with the schedule's
+    faults (`--faults PLAN`). The ranks' tally of the sites and of the
+    faults that fired comes back into this process's injector, which
+    counts and verifies it as it counts a site ticked here; `check`
+    holds the rank-0 record to the clean run's."""
 
-    name = "pipeline"
-    todo = TODO_PIPELINE
-
-    def sites(self):
-        return {"pipeline.tick": ("delay",),
-                "pipeline.packed_tick": ("delay",)}
-
-
-class TensorScenario(_OnDevice):
-    """Megatron tensor-parallel training under a stalled host tick: the
-    reference's `run_tp_bench(steps=2, dim=32, num_layers=1,
-    num_heads=4, vocab_size=64, seq=16, widths=(2,))` over two processes
-    (`python -m flashy_tpu_torch.parallel.tensor --workers=2`), each rank
-    armed with the schedule's faults. Oracles: the loss trajectory
-    bit-identical to the clean run's, and 0 recompiles. The ranks' tally
-    of the `tensor.step` site and of the faults that fired comes back
-    into this process's injector, which counts and verifies it as it
-    counts a site ticked here."""
-
-    name = "tensor"
-    ARGS = ("--steps", "2", "--dim", "32", "--layers", "1", "--heads", "4",
-            "--vocab", "64", "--seq", "16", "--widths", "2")
+    MODULE = ""
+    ARGS: tp.Tuple[str, ...] = ()
     TIMEOUT = 600
 
     def __init__(self, device: tp.Any = None):
         super().__init__(device)
         self._plan: tp.List[FaultSpec] = []
 
-    def sites(self):
-        return {"tensor.step": ("delay",)}
-
     def arm(self, injector, spec):
         super().arm(injector, spec)
         self._plan.append(spec)
+
+    def check(self, result: tp.Dict[str, tp.Any], failures: tp.List[str],
+              calibrate: bool) -> None:
+        raise NotImplementedError
 
     def execute(self, run_dir, corrupt=(), calibrate=False):
         import os
@@ -709,7 +692,8 @@ class TensorScenario(_OnDevice):
         self.prepare()
         plan, self._plan = self._plan, []
         run_dir = Path(run_dir)
-        plan_path, out = run_dir / "fault_plan.json", run_dir / "tensor.json"
+        plan_path = run_dir / "fault_plan.json"
+        out = run_dir / f"{self.name}.json"
         plan_path.write_text(json.dumps([spec.to_dict() for spec in plan]))
         if out.exists():
             out.unlink()
@@ -723,15 +707,15 @@ class TensorScenario(_OnDevice):
             [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
                 os.pathsep) if p])
         env.setdefault("OMP_NUM_THREADS", "1")
-        command = [sys.executable, "-m", "flashy_tpu_torch.parallel.tensor",
-                   "--workers=2", *self.ARGS, "--device", self.device.type,
+        command = [sys.executable, "-m", self.MODULE, "--workers=2",
+                   *self.ARGS, "--device", self.device.type,
                    "--json", str(out), "--faults", str(plan_path)]
         run = subprocess.run(command, env=env, cwd=run_dir,
                              capture_output=True, text=True,
                              timeout=self.TIMEOUT)
         if run.returncode != 0 or not out.exists():
             raise CampaignFailure([
-                f"{self.name}: the bench over two ranks exited "
+                f"{self.name}: the run over two ranks exited "
                 f"{run.returncode}: {run.stderr[-2000:]}"])
         result = json.loads(out.read_text())
         injector = chaos.get_injector()
@@ -743,8 +727,62 @@ class TensorScenario(_OnDevice):
                 rule.fired_count += fired
                 injector.fired.extend({"site": rule.site, "kind": rule.kind,
                                        "rank": 0} for _ in range(fired))
-        trajectory = result["loss_trajectory"]["2"]
         failures: tp.List[str] = []
+        self.check(result, failures, calibrate)
+        if failures:
+            raise CampaignFailure(failures)
+
+
+class PipelineScenario(_RanksScenario):
+    """The 1F1B pipeline schedules, unpacked and packed, under stalled
+    host ticks, over two processes (`python -m
+    flashy_tpu_torch.parallel.pipeline --workers=2 --campaign`: the
+    reference scenario's tanh stage, weights 0.1, x ones [4, 4], two
+    microbatches). Only `delay` applies: a raise at the tick sites
+    surfaces before any hop (the unit tests pin that); what the campaign
+    adds is that a stalled host tick changes nothing numerically.
+    Oracle: loss and grads bit-identical to the clean run."""
+
+    name = "pipeline"
+    MODULE = "flashy_tpu_torch.parallel.pipeline"
+    ARGS = ("--campaign",)
+
+    def sites(self):
+        return {"pipeline.tick": ("delay",),
+                "pipeline.packed_tick": ("delay",)}
+
+    def check(self, result, failures, calibrate):
+        runs = {key: result[key] for key in ("unpacked", "packed")}
+        if calibrate:
+            self._baseline = runs
+            return
+        for label, run in runs.items():
+            base = self._baseline[label]
+            self._check(failures, run["loss"] == base["loss"],
+                        f"{label} loss diverged from the clean run "
+                        f"({run['loss']} vs {base['loss']})")
+            self._check(failures, run["grads"] == base["grads"],
+                        f"{label} grads diverged from the clean run")
+
+
+class TensorScenario(_RanksScenario):
+    """Megatron tensor-parallel training under a stalled host tick: the
+    reference's `run_tp_bench(steps=2, dim=32, num_layers=1,
+    num_heads=4, vocab_size=64, seq=16, widths=(2,))` over two processes
+    (`python -m flashy_tpu_torch.parallel.tensor --workers=2`), each rank
+    armed with the schedule's faults. Oracles: the loss trajectory
+    bit-identical to the clean run's, and 0 recompiles."""
+
+    name = "tensor"
+    MODULE = "flashy_tpu_torch.parallel.tensor"
+    ARGS = ("--steps", "2", "--dim", "32", "--layers", "1", "--heads", "4",
+            "--vocab", "64", "--seq", "16", "--widths", "2")
+
+    def sites(self):
+        return {"tensor.step": ("delay",)}
+
+    def check(self, result, failures, calibrate):
+        trajectory = result["loss_trajectory"]["2"]
         if calibrate:
             self._baseline = trajectory
         else:
@@ -753,8 +791,6 @@ class TensorScenario(_OnDevice):
                         f"({trajectory} vs {self._baseline})")
         self._check(failures, result["recompiles"] == 0,
                     f"{result['recompiles']} post-warm-up recompiles")
-        if failures:
-            raise CampaignFailure(failures)
 
 
 class ElasticScenario(_WaitingScenario):
@@ -773,12 +809,12 @@ class ElasticScenario(_WaitingScenario):
 
 def builtin_scenarios(device: tp.Any = None) -> tp.List[Scenario]:
     """All scenario adapters, cheapest first (construction is lazy and
-    touches no device). `device` is the datapipe, serve, fleet and
-    tensor scenarios' (default: `cuda`; `prepare()` raises when no card
-    is present)."""
+    touches no device). `device` is the datapipe, serve, fleet, pipeline
+    and tensor scenarios' (default: `cuda`; `prepare()` raises when no
+    card is present)."""
     return [TrainScenario(), DatapipeScenario(device), ServeScenario(device),
-            FleetScenario(device), PipelineScenario(), TensorScenario(device),
-            ElasticScenario()]
+            FleetScenario(device), PipelineScenario(device),
+            TensorScenario(device), ElasticScenario()]
 
 
 def waiting_scenarios(scenarios: tp.Sequence[Scenario]

@@ -2,9 +2,9 @@
 # against the JAX package's: FaultSpec / Schedule JSON, the seeded
 # schedules (base and extra) equal for the same seed and counts, ddmin's
 # results, the static coverage and the registry copy equal; the
-# scenarios the port does not run yet raise naming their ROADMAP items;
-# the train, datapipe, serve and fleet campaigns pass on the CPU (each a
-# few seconds, so none is marked slow); a seeded defect is caught, shrunk
+# scenario the port does not run yet raises naming its ROADMAP item;
+# the train, datapipe, serve, fleet, tensor and pipeline campaigns pass
+# on the CPU (the last two spawn two gloo ranks); a seeded defect is caught, shrunk
 # to a reproducer and replayed, and the registered `wal_skip_dedup` is
 # caught by the fleet scenario's dedup oracle.
 import contextlib
@@ -116,8 +116,7 @@ def test_static_coverage_and_registry_equal_the_references():
         assert site in campaign.static_coverage(), site
 
 
-@pytest.mark.parametrize("name,item", [
-    ("pipeline", "item 8c"), ("elastic", "item 8e")])
+@pytest.mark.parametrize("name,item", [("elastic", "item 8e")])
 def test_waiting_scenarios_raise_naming_their_items(tmp_path, name, item):
     scenario = {s.name: s for s in campaign.builtin_scenarios()}[name]
     assert scenario.sites()
@@ -138,8 +137,8 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
                  lambda: main(["--campaign", "--dir", str(tmp_path)])):
         with pytest.raises(NotImplementedError) as exc:
             call()
-        for item in ("item 8c", "item 8e"):
-            assert item in str(exc.value)
+        assert "item 8e" in str(exc.value)
+        assert "item 8c" not in str(exc.value)
         assert "item 10" not in str(exc.value)
         assert "item 8b" not in str(exc.value)
     # the seeded WAL defect patches the ported WAL, and the fleet
@@ -159,7 +158,7 @@ def test_full_sweep_and_the_cli_raise_naming_items_5_8_10(tmp_path):
 
 
 @pytest.mark.parametrize("scenario", ["train", "datapipe", "serve",
-                                      "fleet", "tensor"])
+                                      "fleet", "tensor", "pipeline"])
 def test_campaign_passes_on_the_cpu(tmp_path, scenario):
     assert run_campaign(seed=0, scenarios=[scenario], root=str(tmp_path),
                         device="cpu") == 0

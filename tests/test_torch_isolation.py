@@ -77,6 +77,9 @@ def test_package_imports_with_jax_unimportable():
         "flashy_tpu_torch.analysis.registry\n"
         "import flashy_tpu_torch.data, flashy_tpu_torch.data.loader, "
         "flashy_tpu_torch.parallel.data_parallel, flashy_tpu_torch.distrib\n"
+        "import flashy_tpu_torch.parallel.schedules, "
+        "flashy_tpu_torch.parallel.pipeline, "
+        "flashy_tpu_torch.models.pipelined\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'flashy_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n")

@@ -272,12 +272,14 @@ def test_make_mesh_refuses_what_one_device_cannot_run():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A items "
                                                   "5 and 8"):
         make_mesh({"seq": 2}, devices=["cpu", "meta"])
-    # data, fsdp and tensor are the process axes (queue A items 5, 8a and
-    # 8b): inside one process any of them above 1 asks for processes
-    for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}, {"tensor": 2}):
+    # data, fsdp, pipe and tensor are the process axes (queue A items 5,
+    # 8a, 8c and 8b): inside one process any of them above 1 asks for
+    # processes
+    for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}, {"tensor": 2},
+                  {"pipe": 2}):
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             make_mesh(shape)
-    for axis, item in (("pipe", "8c"), ("expert", "8d")):
+    for axis, item in (("expert", "8d"),):
         with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
             make_mesh({axis: 2})
     assert mesh_shape_from_devices(8, seq=4) == jax_shape(8, seq=4)
