@@ -209,6 +209,12 @@ failure with a non-zero exit:
              inside the f32-operand launches) beside the bound, the
              plain version and torch._grouped_mm, with the wrapper's
              host us a call; the split kernel alone on dY;
+ 12b. ep step  queue A item 8d: `moe step`'s model and batch through
+             `dropless_ep` on two ranks over gloo (`+mesh.expert=2`, 4 of
+             every block's 8 experts a rank; started beside phases 43-44,
+             read after 44): each rank's `dropless` loss bit-equal to
+             `moe step`'s, the exchange's loss and every gradient,
+             gathered, within 1e-5 of it; rows 9a/9b 2 a layer each;
  13. ring step  the 235M model in f32 (TF32 off) at batch 2, seq 256 on a
              4-rank ring: loss and every gradient with attention=
              'ring_fused' against 'ring' (1e-5 of max |value|: the same
@@ -612,6 +618,31 @@ under a deadline, rendezvousing through a `file://` path:
              and 0 a valid step); one more step's hops and all-reduces,
              one activation hop timed alone, step p50 and peak memory a
              rank beside the oracle's;
+ 45h. ep train  queue A item 8d's expert half: the LM trainer at the MoE
+             layout (8 top-2 experts, 4 of 12 layers, bf16, b16 t1024)
+             with `mesh.data=1 +mesh.expert=2
+             model.moe_dispatch=dropless_ep model.moe_capacity_factor=2.0`
+             (nothing drops), sharded slots and deterministic algorithms,
+             two ranks over gloo, each holding 4 of every block's 8
+             experts: run A 2 epochs x 2 steps + 1 valid and run B 1
+             epoch (beside phases 46-48), then B resumed and a
+             one-process `dropless` oracle of the same config as soon
+             as B's first epoch ends (beside phases 48-54), checked
+             after phase 45g: every logged loss
+             within 1e-3 of the oracle's, the gradient of step 0's batch
+             at A's trained state, gathered, within 5e-2 of the
+             oracle's at that state leaf by leaf relative to its norm
+             (at the oracle's own trained state printed), A and the
+             resumed B bit-identical, the parameters held whole
+             bit-identical across the ranks, rows 9a/9b launched 2 gmm,
+             2 gmm_t and 2 tgmm a layer a training step on each rank (as
+             the oracle); one more step's exchanges (5 all-to-alls a
+             layer), step p50 and peak memory a rank beside the
+             oracle's (row 9a at the receiving slab's shape, [32768,
+             1024], 4 local experts, half the rows empty slots after the
+             groups, is held to its plain version, rows past the groups
+             exactly 0, and timed beside the real rows alone after
+             phase 12's kernel times);
  46. prefetch to device  `data.prefetch_to_device` over [16, 1024] int32
              batches on cuda:0: delivered batches bit-equal to the host's,
              an early stop rewinding a datapipe stage to the last batch
@@ -3247,9 +3278,7 @@ def phase_moe_step(torch, device, card):
     from flashy_tpu_torch.parallel import moe_ep
 
     def config(dispatch):
-        return model_config(torch, torch.float32, 256, "flash",
-                            moe_experts=8, moe_top_k=2,
-                            moe_capacity_factor=8.0, moe_dispatch=dispatch)
+        return moe_step_config(torch, dispatch)
 
     stream = synthetic_token_stream(32768)
     model = TransformerLM(config("dropless"), device=device, seed=3)
@@ -3318,6 +3347,7 @@ def phase_moe_step(torch, device, card):
           f"err {ein_loss:.2e}, {len(kern[1])} grad norms max rel err "
           f"{ein_worst:.2e} (limit {MOE_STEP_TOL}); launches {want} "
           f"[{card}]", flush=True)
+    return {"step": step, "loss": kern[0]}
 
 
 def phase_moe_train(torch, card, folder):
@@ -7270,20 +7300,33 @@ def dp_results(folder, tag):
             if Path(f"{prefix}-{rank}.json").exists()]
 
 
-def spawn_dp_ranks(mode, folder, timeout):
-    """`python3 chip_smoke.py --dp-rank <mode>` as two ranks; returns
-    their results and the wall seconds."""
-    begin = time.perf_counter()
+def start_dp_ranks(mode, folder, timeout):
+    """Start `python3 chip_smoke.py --dp-rank <mode>` as two ranks;
+    `finish_dp_ranks` waits for them."""
     clear_dp_results(folder, mode)
-    logs = finish_sessions(start_sessions(
+    started = start_sessions(
         [([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", mode],
           dp_env(folder, mode, rank)) for rank in range(DP_RANKS)],
-        folder, timeout, f"dp {mode}"))
-    results = dp_results(folder, mode)
+        folder, timeout, f"dp {mode}")
+    started.update(begin=time.perf_counter(), folder=folder, mode=mode)
+    return started
+
+
+def finish_dp_ranks(started):
+    """The results of `start_dp_ranks`' two ranks, and the wall seconds."""
+    logs = finish_sessions(started)
+    mode = started["mode"]
+    results = dp_results(started["folder"], mode)
     if len(results) != DP_RANKS:
         fail(f"dp {mode}: {len(results)} of {DP_RANKS} ranks reported: "
              f"{[err[-800:] for _, err in logs]}")
-    return results, time.perf_counter() - begin
+    return results, time.perf_counter() - started["begin"]
+
+
+def spawn_dp_ranks(mode, folder, timeout):
+    """`python3 chip_smoke.py --dp-rank <mode>` as two ranks; returns
+    their results and the wall seconds."""
+    return finish_dp_ranks(start_dp_ranks(mode, folder, timeout))
 
 
 def state_digest(torch, tensors):
@@ -7500,7 +7543,8 @@ def dp_rank_main(torch, mode):
     distrib.init()
     device = torch.device("cuda")
     result = {"collectives": dp_collectives_rank,
-              "step": dp_step_rank}[mode](torch, device)
+              "step": dp_step_rank, "ep_step": ep_step_rank}[mode](
+        torch, device)
     result["rank"] = distrib.rank()
     write_dp_result(result)
 
@@ -7513,7 +7557,7 @@ def dp_train_main(torch, argv):
     import os
     from flashy_tpu_torch import distrib
     from flashy_tpu_torch.examples.lm.solver import main as lm_main
-    from flashy_tpu_torch.ops import attention
+    from flashy_tpu_torch.ops import attention, grouped_matmul
     if "FLASHY_TPU_PROCESS_ID" not in os.environ and "--dp-solo" not in argv:
         lm_main(argv)
         return
@@ -7532,6 +7576,7 @@ def dp_train_main(torch, argv):
 
         transformer.flash_attention = counting_flash
     attention.reset_launch_counts()
+    grouped_matmul.reset_launch_counts()
     begin, main_at = time.perf_counter(), time.time()
     solver = lm_main(argv)
     torch.cuda.synchronize()
@@ -7541,6 +7586,7 @@ def dp_train_main(torch, argv):
               "backend": torch.distributed.get_backend()
               if torch.distributed.is_initialized() else None,
               "launches": nonzero(attention.launch_counts),
+              "gmm_launches": nonzero(grouped_matmul.launch_counts),
               "restored": solver.restored, "epochs": len(solver.history),
               "step_seconds": solver.step_seconds,
               "step_losses": solver.step_losses,
@@ -7552,6 +7598,10 @@ def dp_train_main(torch, argv):
         # a rank's own state: its shards under FSDP
         result["digest"] = state_digest(torch, solver_tensors(
             torch, solver.model, solver.optimizer))
+        # the parameters the rank holds whole
+        result["whole_digest"] = state_digest(torch, [
+            value for _, value in sorted(solver.model.named_parameters())
+            if getattr(value, "sharding", None) is None])
         if sharded is not None:
             with solver.model.summon_full_params():
                 result["full_digest"] = state_digest(torch, [
@@ -7559,6 +7609,15 @@ def dp_train_main(torch, argv):
                         solver.model.state_dict().items())])
     if "--dp-grads" in argv:
         result["grads"] = write_full_grads(torch, solver)
+    if "--dp-params" in argv:
+        # the trained state's full parameters (rank 0 writes them), where
+        # an oracle takes its gradient
+        with solver.model.summon_full_params():
+            params = {name: value.detach().cpu() for name, value
+                      in solver.model.state_dict().items()}
+        result["params"] = f"{os.environ[DP_RESULT]}-params.pt"
+        if distrib.rank() == 0:
+            torch.save(params, result["params"])
     if "--dp-time-all-reduce" in argv:
         # the gradient all-reduce's volume (every parameter's f32 grad)
         # alone, timed on every rank together
@@ -7602,6 +7661,23 @@ def dp_train_main(torch, argv):
             times.append((time.perf_counter() - t0) * 1e3 / 2)
         result["hop_ms"] = times
         result["hop_bytes"] = hop.numel() * hop.element_size()
+    if "--dp-time-exchange" in argv:
+        # one all-to-all of a receiving slab's size ([32768, 1024] bf16:
+        # 2 sources x 16384 slots) over the expert ranks alone, timed on
+        # both together
+        slab = torch.ones((32768, 1024), dtype=torch.bfloat16,
+                          device="cuda")
+        group = solver.mesh.group("expert")
+        times = []
+        for _ in range(3):
+            distrib.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distrib.all_to_all(slab, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        result["exchange_ms"] = times
+        result["exchange_bytes"] = slab.numel() * slab.element_size()
     if "--dp-collectives" in argv:
         # one more step, counted (after the digests and launch counts)
         from flashy_tpu_torch.examples.lm import solver as lm
@@ -8502,6 +8578,402 @@ def phase_pipe_train(torch, card, folder, started):
           f"{b1_seconds:.1f}, B2 {b2_seconds:.1f}, oracle "
           f"{oracle_seconds:.1f} s ({GLOO_LABEL}) [{card}]", flush=True)
     return run_a[0]["launches"]
+
+
+# ----------------------------------------------------------------------
+# queue A item 8d, the expert half: expert parallelism over the 'expert'
+# process axis, two ranks on the card (gloo through the host: every
+# exchange is staged there, so these step times are that staging's)
+# ----------------------------------------------------------------------
+EP_TRAIN_ARGS = [arg for arg in TRAIN_ARGS
+                 if not arg.startswith(("model.num_layers=",
+                                        "steps_per_epoch=", "valid_steps="))
+                 ] + MOE_ARGS[:2] + [f"model.num_layers={MOE_TRAIN_LAYERS}",
+                                     "steps_per_epoch=2", "valid_steps=1",
+                                     "warmup_steps=1"]
+# capacity factor 2.0 = e: a source's assignments to one shard never pass
+# its slots, so nothing drops and the run computes `dropless`'s function
+EP_FLAGS = ("mesh.data=1", "+mesh.expert=2", "model.moe_dispatch=dropless_ep",
+            "model.moe_capacity_factor=2.0", "--dp-sharded", "--dp-digest")
+EP_ORACLE = "model.moe_dispatch=dropless"
+# the logged losses against the one-process `dropless` oracle's, and each
+# parameter's gradient at run A's trained state, relative to its norm,
+# against two one-process functions at that same state: `dropless_ep` at
+# expert=1 (the same function: the same rounding of the expert outputs
+# to bf16 before the return exchange, no exchange; the expert weights'
+# gradients sum their rows in another order, and a dropped, doubled or
+# misrouted exchange moves whole experts' gradients), and `dropless`
+# (which keeps the expert outputs in f32 until the combine: that
+# rounding point's own gap, near-ties flipped by its last bit included)
+EP_LOSS_LIMIT = 1e-3
+EP_SAME_LIMIT = 5e-3
+EP_GRAD_LIMIT = 5e-2
+
+
+# `ep step`: `moe step`'s model and batch (f32, TF32 off, b2 t256, 12
+# layers, capacity factor 8.0, no routing gap under MOE_TIE_GAP) through
+# `dropless_ep` on two expert ranks, against `dropless` on each rank's
+# whole model: where no token routes near a tie, the exchange computes
+# `dropless`'s function, so loss and gradients agree at the kernels' f32
+# bar (MOE_PLAIN_TOL)
+
+
+def moe_step_config(torch, dispatch, layers=12):
+    """`moe step`'s model configuration under `dispatch`."""
+    return model_config(torch, torch.float32, 256, "flash", moe_experts=8,
+                        moe_top_k=2, moe_capacity_factor=8.0,
+                        moe_dispatch=dispatch, num_layers=layers)
+
+
+def ep_step_rank(torch, device):
+    """`ep step`, one rank: `moe step`'s batch search on the `dropless`
+    model, its loss and gradients, then the same weights as
+    `dropless_ep` over `+mesh.expert=2` (each rank 4 of every block's
+    8 experts); rank 0's errors against the first, each sliced
+    parameter's gradient gathered."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.parallel import make_mesh, wrap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stream = synthetic_token_stream(32768)
+    model = TransformerLM(moe_step_config(torch, "dropless"), device=device,
+                          seed=3)
+    for step in range(32):
+        tokens = torch.from_numpy(stream(2, 256, step)).long().to(device)
+        margin = router_margin(torch, model, tokens)
+        if margin > MOE_TIE_GAP:
+            break
+    loss = lm_next_token_loss(model, tokens, aux_weight=0.01)
+    loss.backward()
+    want_loss = loss.item()
+    want = {name: p.grad for name, p in model.named_parameters()}
+    del model, loss
+    mesh = make_mesh({"data": 1, "expert": 2})
+    model = TransformerLM(moe_step_config(torch, "dropless_ep"),
+                          device=device, seed=3, mesh=mesh)
+    wrap(model, mesh=mesh)
+    G.reset_launch_counts()
+    loss = lm_next_token_loss(model, tokens, aux_weight=0.01)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = nonzero(G.launch_counts)
+    errors = {}
+    for name, p in model.named_parameters():
+        sharding = getattr(p, "sharding", None)
+        grad = p.grad if sharding is None else sharding.gather(p.grad)
+        errors[name] = rel_err(grad, want[name])
+    return {"step": step, "margin": margin, "dropless_loss": want_loss,
+            "loss": loss.item(), "launches": counts, "errors": errors,
+            "held": list(model.block_0.moe.w_up.shape)}
+
+
+def phase_ep_step(card, started, moe_step):
+    """Phase 12b: `ep step`'s two ranks (`start_dp_ranks('ep_step')`)
+    against `dropless`, and their `dropless` run against `moe step`'s."""
+    results, seconds = finish_dp_ranks(started)
+    layers = 12
+    want = {"gmm": 2 * layers, "gmm_t": 2 * layers, "tgmm": 2 * layers}
+    for out in results:
+        worst = max(out["errors"], key=out["errors"].get)
+        loss_err = abs(out["loss"] - out["dropless_loss"]) \
+            / abs(out["dropless_loss"])
+        if out["step"] != moe_step["step"] \
+                or out["dropless_loss"] != moe_step["loss"]:
+            fail(f"ep step rank {out['rank']}: batch {out['step']} and "
+                 f"dropless loss {out['dropless_loss']!r}, not moe step's "
+                 f"{moe_step['step']} and {moe_step['loss']!r}")
+        if out["launches"] != want or out["held"] != [4, 1024, 4096] \
+                or not out["errors"][worst] <= MOE_PLAIN_TOL \
+                or not loss_err <= MOE_PLAIN_TOL:
+            fail(f"ep step rank {out['rank']}: launches {out['launches']} "
+                 f"(expected {want}), experts held {out['held']}, loss rel "
+                 f"err {loss_err:.2e}, grads max rel err "
+                 f"{out['errors'][worst]:.2e} ({worst}; limit "
+                 f"{MOE_PLAIN_TOL})")
+    out = results[0]
+    worst = max(out["errors"], key=out["errors"].get)
+    print(f"ep step: moe step's model (f32, TF32 off, b2 t256, 12 layers, "
+          f"capacity factor 8.0) and batch {out['step']} (min routing gap "
+          f"{out['margin']:.2e}) through dropless_ep on two ranks "
+          f"(`+mesh.expert=2`, 4 of every block's 8 experts a rank): loss "
+          f"{out['loss']:.6f} against dropless "
+          f"{out['dropless_loss']:.6f} (moe step's, bit-equal), grads max "
+          f"rel err {out['errors'][worst]:.2e} ({worst}; limit "
+          f"{MOE_PLAIN_TOL}); rows 9a/9b a rank {out['launches']}; "
+          f"{seconds:.1f} s with the spawns (beside the dp group's first "
+          f"runs; {GLOO_LABEL}) [{card}]", flush=True)
+
+
+def start_ep_oracle(folder):
+    """`ep train`'s one-process `dropless` oracle of the same config."""
+    return start_dp_train_run(Path(folder) / "ep-oracle", 2,
+                              "ep train oracle", EP_ORACLE,
+                              args=EP_TRAIN_ARGS, ranks=1)
+
+
+def start_ep_a(folder):
+    """Run A of `ep train` (its gradients and parameters at the trained
+    state written, one exchange timed alone, one more step's collectives
+    counted)."""
+    return start_dp_train_run(Path(folder) / "ep-a", 2, "ep train A",
+                              *EP_FLAGS, "--dp-grads", "--dp-params",
+                              "--dp-time-exchange", "--dp-collectives",
+                              args=EP_TRAIN_ARGS)
+
+
+def start_ep_b1(folder):
+    """Run B's first epoch of `ep train` (`start_dp_train_run`)."""
+    return start_dp_train_run(Path(folder) / "ep-b", 1, "ep train B1",
+                              *EP_FLAGS, args=EP_TRAIN_ARGS)
+
+
+def start_ep_b2(folder, b1):
+    """Wait for `ep train` run B's first epoch, then start its resumed
+    second; returns the first epoch's wall seconds and the start."""
+    _, b1_seconds = finish_dp_train_run(b1)
+    return b1_seconds, start_dp_train_run(
+        Path(folder) / "ep-b", 2, "ep train B2", *EP_FLAGS,
+        args=EP_TRAIN_ARGS)
+
+
+def ep_slab_check(torch, device, card):
+    """Row 9a at `ep train`'s receiving slab: 32768 rows = 2 sources x
+    16384 slots, 4 local experts, about half the rows real (a seeded
+    multinomial of 16384 over the 4 groups) and the empty slots after
+    every group. `gmm` up and down on the slab held to the plain version
+    there (rows past the groups exactly zero), then timed three times
+    beside the same products on the real rows alone: the empty slots'
+    cost. Returns {label: (slab ms, compact ms)} and the max abs err."""
+    import numpy as np
+    from flashy_tpu_torch.ops import grouped_matmul as G
+    bf, f32 = torch.bfloat16, torch.float32
+    E, D, F, M = 4, 1024, 4096, 32768
+    sizes = np.random.default_rng(1).multinomial(M // 2, [1 / E] * E)
+    real = int(sizes.sum())
+    gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((M, D), generator=g, device=device).to(bf)
+    h = torch.randn((M, F), generator=g, device=device).to(bf)
+    x[real:], h[real:] = 0, 0
+    w_up = (torch.randn((E, D, F), generator=g, device=device) * 0.02).to(bf)
+    w_down = (torch.randn((E, F, D), generator=g, device=device)
+              * 0.02).to(bf)
+    times, err = {}, 0.0
+    for label, lhs, rhs in (("up", x, w_up), ("down", h, w_down)):
+        got = G.gmm(lhs, rhs, gs, f32)
+        want = G._gmm_reference(lhs, rhs, gs, f32)
+        torch.cuda.synchronize()
+        err = max(err, gmm_check(torch, got, want, f"ep slab gmm {label}"))
+        if got[real:].abs().max().item() != 0.0:
+            fail(f"ep slab gmm {label}: rows past the groups not zero")
+        compact = lhs[:real].contiguous()
+        times[label] = (
+            time_runs(torch, lambda: G.gmm(lhs, rhs, gs, f32), iters=20),
+            time_runs(torch, lambda: G.gmm(compact, rhs, gs, f32), iters=20))
+        del got, want, compact
+    print(f"ep slab: row 9a at ep train's receiving slab ([{M}, {D}] bf16, "
+          f"4 local experts, {real} real rows {sizes.tolist()}, the empty "
+          f"slots after the groups): gmm up and down held to the plain "
+          f"version (max abs err {err:.3e}, rows past the groups exactly "
+          f"0); " + "; ".join(
+              f"{label} slab {spread_text(slab)} against the real rows "
+              f"alone {spread_text(compact)}"
+              for label, (slab, compact) in times.items())
+          + f" [{card}]", flush=True)
+    return times, err
+
+
+def phase_ep_train(torch, device, card, folder, started):
+    """Phase 45h: `main --workers=2` with `+mesh.expert=2` and
+    `moe_dispatch=dropless_ep` at the MoE layout, against a one-process
+    `dropless` oracle of the same config. `started` holds run A
+    (`start_ep_a`), run B (`start_ep_b2`) and the oracle
+    (`start_ep_oracle`). Returns a rank's grouped-matmul launches."""
+    from flashy_tpu_torch.examples.lm.solver import synthetic_token_stream
+    from flashy_tpu_torch.models.transformer import TransformerLM
+    from flashy_tpu_torch.ops.losses import lm_next_token_loss
+    from flashy_tpu_torch.parallel import make_mesh
+    from flashy_tpu_torch.utils import percentile
+    started_a, (b1_seconds, started_b2), started_oracle = started
+    run_a, a_seconds = finish_dp_train_run(started_a)
+    # the one-process functions at run A's trained state (while B2 may
+    # still run): `dropless_ep` at expert=1 and `dropless` on A's gathered
+    # parameters, step 0's batch
+    params = torch.load(run_a[0]["params"])
+    tokens = torch.from_numpy(synthetic_token_stream(32768)(
+        16, 1024, 0)).long().to(device)
+
+    def grads_at_a(dispatch, mesh=None):
+        release_memory(torch)
+        model = TransformerLM(model_config(
+            torch, torch.bfloat16, 1024, "flash", moe_experts=8,
+            moe_top_k=2, moe_dispatch=dispatch, moe_capacity_factor=2.0,
+            num_layers=MOE_TRAIN_LAYERS), device=device, seed=0, mesh=mesh)
+        with torch.no_grad():
+            model.load_state_dict(params)
+        lm_next_token_loss(model, tokens, aux_weight=0.01).backward()
+        return {name: p.grad.float().cpu()
+                for name, p in model.named_parameters()}
+
+    same_grads = grads_at_a("dropless_ep", make_mesh({"data": 1,
+                                                      "expert": 1}))
+    want_grads = grads_at_a("dropless")
+    del params, tokens
+    release_memory(torch)
+    run_b2, b2_seconds = finish_dp_train_run(started_b2)
+    (oracle,), _ = finish_dp_train_run(started_oracle)
+    oracle_gmm = oracle["gmm_launches"]
+    oracle_p50 = percentile(oracle["step_seconds"][1:], 50) * 1e3
+    (xp,) = (Path(folder) / "ep-oracle" / "xps").iterdir()
+    history_oracle = stripped(json.loads((xp / "history.json").read_text()))
+    layers = MOE_TRAIN_LAYERS
+
+    def want_gmm(train, valid):
+        return {"gmm": 2 * layers * (train + valid),
+                "gmm_t": 2 * layers * train, "tgmm": 2 * layers * train,
+                "split_bf16": 2 * layers * train}
+
+    if oracle_gmm != want_gmm(4, 2):
+        fail(f"ep train oracle: launches {oracle_gmm}")
+    for runs, epochs, restored in ((run_a, 2, False), (run_b2, 1, True)):
+        want = flash_want(layers, [(2, 1)] * epochs)
+        for out in runs:
+            if out["launches"] != want \
+                    or out["gmm_launches"] != want_gmm(2 * epochs, epochs) \
+                    or out["backend"] != "gloo" \
+                    or out["restored"] != restored or out["epochs"] != 2 \
+                    or out["sharded"] != "expert" \
+                    or out["ddp"] != "DistributedDataParallel":
+                fail(f"ep train rank {out['rank']}: launches "
+                     f"{out['launches']} and {out['gmm_launches']} "
+                     f"(expected {want} and {want_gmm(2 * epochs, epochs)}),"
+                     f" backend {out['backend']}, restored "
+                     f"{out['restored']}, {out['epochs']} epochs, layout "
+                     f"{out['sharded']}, {out['ddp']}")
+    for a, b in zip(run_a, run_b2):
+        if a["digest"] != b["digest"] or a["full_digest"] != b["full_digest"]:
+            fail(f"ep train rank {a['rank']}: the resumed run differs from "
+                 f"the uninterrupted one (own {a['digest'][:12]} vs "
+                 f"{b['digest'][:12]}, full {a['full_digest'][:12]} vs "
+                 f"{b['full_digest'][:12]})")
+    if len({out["whole_digest"] for out in run_a + run_b2}) != 1 \
+            or len({out["full_digest"] for out in run_a}) != 1 \
+            or run_a[0]["digest"] == run_a[1]["digest"]:
+        fail("ep train: the parameters the ranks hold whole differ across "
+             "the ranks, or their gathered parameters differ, or their "
+             "experts are equal")
+    histories = []
+    for sub in ("ep-a", "ep-b"):
+        (xp,) = (Path(folder) / sub / "xps").iterdir()
+        histories.append(stripped(json.loads(
+            (xp / "history.json").read_text())))
+    history_a, history_b = histories
+    if len(history_a) != 2 or history_a != history_b:
+        fail(f"ep train: histories differ: {history_a} vs {history_b}")
+    gaps = [abs(g[s]["loss"] - w[s]["loss"])
+            for g, w in zip(history_a, history_oracle) for s in w
+            if "loss" in w[s]]
+    if len(gaps) != 4 or not max(gaps) <= EP_LOSS_LIMIT:
+        fail(f"ep train: losses {history_a} against the oracle's "
+             f"{history_oracle}: {max(gaps) if gaps else None} apart "
+             f"(limit {EP_LOSS_LIMIT})")
+    got_grads = torch.load(run_a[0]["grads"])
+    if not set(got_grads) == set(want_grads) == set(same_grads):
+        fail(f"ep train: gradients of {sorted(got_grads)} against the "
+             f"one-process functions' {sorted(want_grads)}")
+
+    def relative_gaps(got, want):
+        """Each parameter's gradient gap relative to `want`'s norm, and
+        the worst parameter."""
+        out = {name: float((got[name] - value).norm() / value.norm())
+               for name, value in want.items()}
+        return out, max(out, key=out.get)
+
+    same_gaps, same_worst = relative_gaps(got_grads, same_grads)
+    grad_gaps, worst = relative_gaps(got_grads, want_grads)
+    point_gaps, point_worst = relative_gaps(same_grads, want_grads)
+    if not same_gaps[same_worst] <= EP_SAME_LIMIT \
+            or not grad_gaps[worst] <= EP_GRAD_LIMIT:
+        fail(f"ep train: gradients at A's state, relative to their norms, "
+             f"against one-process dropless_ep at expert=1: {same_gaps} "
+             f"(limit {EP_SAME_LIMIT}); against dropless: {grad_gaps} "
+             f"(limit {EP_GRAD_LIMIT})")
+    (a_xp,) = (Path(folder) / "ep-a" / "xps").iterdir()
+    meta = json.loads((a_xp / "checkpoint_meta.json").read_text())
+    slot = a_xp / "checkpoint.th.sharded"
+    pointer = (slot / "CURRENT").read_text().strip()
+    files = sorted(json.loads((slot / pointer / "manifest.json").read_text())
+                   ["files"])
+    if meta["mode"] != "sharded" \
+            or meta["state_sharding"]["summary"] != "fsdp(expert=2)" \
+            or files != ["arrays-0.pt", "arrays-1.pt", "arrays.pt",
+                         "state.pkl"]:
+        fail(f"ep train: checkpoint_meta {meta.get('mode')} "
+             f"{meta.get('state_sharding')}, slot files {files}")
+    stats = run_a[0]["collectives"]
+    # a block's exchanges: the tokens, their expert ids and the results
+    # forward, the results' and the tokens' mirrors backward
+    exchanges = stats.get("all-to-all", {})
+    if exchanges.get("count") != 5 * layers or "reduce-scatter" in stats \
+            or not stats.get("all-reduce", {}).get("count"):
+        fail(f"ep train: one step's collectives {stats} (expected "
+             f"{5 * layers} all-to-alls, the all-reduces of the leaves "
+             f"held whole, no reduce-scatter)")
+    exchange_ms = percentile(run_a[0]["exchange_ms"], 50)
+    seconds = run_a[0]["step_seconds"][1:]
+    p50 = percentile(seconds, 50) * 1e3
+    tok_s = 16 * 1024 * len(seconds) / sum(seconds)
+    gmm_a = run_a[0]["gmm_launches"]
+
+    def per_op(stats):
+        return {op: f"{e['count']}x {e['bytes'] / 2 ** 20:.1f} MiB"
+                for op, e in stats.items()}
+
+    print(f"ep train: `main --workers=2 mesh.data=1 +mesh.expert=2 "
+          f"model.moe_dispatch=dropless_ep model.moe_capacity_factor=2.0` "
+          f"with sharded slots (the MoE layout "
+          f"at {layers} of 12 layers, 8 top-2 experts, bf16, global b16 "
+          f"t1024; each rank 4 of every block's 8 experts and 8192 of the "
+          f"16384 tokens of each MoE layer): run A 2 epochs x 2 steps + 1 "
+          f"valid, run B 1 epoch then resumed from the slots (beside the "
+          f"other families' phases), the one-process dropless oracle beside "
+          f"them: each rank's state and the gathered parameters "
+          f"bit-identical between A and the resumed B, the parameters held "
+          f"whole (their gradients averaged over the expert ranks) "
+          f"bit-identical across the ranks and runs, histories "
+          f"equal; every logged loss within {max(gaps):.2e} of the "
+          f"oracle's (limit {EP_LOSS_LIMIT}); step 0's gradients at A's "
+          f"trained state, gathered, relative to their norms: within "
+          f"{same_gaps[same_worst]:.2e} of one-process dropless_ep at "
+          f"expert=1 at that state ({same_worst}; median "
+          f"{percentile(list(same_gaps.values()), 50):.2e}; limit "
+          f"{EP_SAME_LIMIT}), within {grad_gaps[worst]:.2e} of dropless's "
+          f"({worst}; median {percentile(list(grad_gaps.values()), 50):.2e}"
+          f"; limit {EP_GRAD_LIMIT}); dropless_ep at expert=1 against "
+          f"dropless, the bf16 rounding point alone: "
+          f"{point_gaps[point_worst]:.2e} ({point_worst}; median "
+          f"{percentile(list(point_gaps.values()), 50):.2e}); "
+          f"checkpoint_meta "
+          f"{meta['state_sharding']['summary']}, slot files {files}; rows "
+          f"9a/9b a rank {gmm_a} in A (2 gmm, 2 gmm_t, 2 tgmm a layer a "
+          f"training step: {2 * layers} each), the oracle {oracle_gmm}; "
+          f"flash {run_a[0]['launches']}; one more step's collectives a "
+          f"rank {per_op(stats)} ({5 * layers} all-to-alls: "
+          f"{exchanges.get('bytes', 0) / 2 ** 20:.1f} MiB); one [32768, "
+          f"1024] bf16 all-to-all alone {exchange_ms:.2f} ms "
+          f"({run_a[0]['exchange_bytes'] / 2 ** 20:.0f} MiB a rank); step "
+          f"p50 "
+          f"{p50:.2f} ms (steps 2..4, rank 0; beside the other phases), "
+          f"global tokens/s {tok_s:.1f}, against the oracle's "
+          f"{oracle_p50:.2f} ms; peak GiB a rank "
+          f"{[round(o['peak_gib'], 2) for o in run_a]} against the "
+          f"oracle's {oracle['peak_gib']:.2f}; runs A {a_seconds:.1f}, B1 "
+          f"{b1_seconds:.1f}, B2 {b2_seconds:.1f} s to their checks, the "
+          f"oracle's main {oracle['main_s']:.1f} s ({GLOO_LABEL}) [{card}]",
+          flush=True)
+    return gmm_a
 
 
 class DocsSource:
@@ -9756,7 +10228,7 @@ def main() -> None:
     lap("serve demo")
     release_memory(torch)
     phase_step(torch, device, card)
-    phase_moe_step(torch, device, card)
+    moe_step = phase_moe_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         train_counts, solver, train_p50 = phase_train(torch, card, folder)
         profile_train(torch, solver, card,
@@ -9774,7 +10246,8 @@ def main() -> None:
                       label="profile moe train", watch=GMM_WATCH)
         del solver
     gmm_times, gmm_main_errors = time_gmm(torch, device, card)
-    lap("moe train, profile moe train, gmm times")
+    ep_slab, ep_slab_err = ep_slab_check(torch, device, card)
+    lap("moe train, profile moe train, gmm times, ep slab")
     phase_ring_step(torch, device, card)
     with tempfile.TemporaryDirectory() as folder:
         ring_counts, solver = phase_ring_train(torch, card, folder)
@@ -9937,6 +10410,8 @@ def main() -> None:
         # train`'s run B1 beside `dp step`, A and the resumed B beside
         # `dp train`'s A and B2
         tp_bench = start_tp_bench(Path(train_folder) / "tensor")
+        # queue A item 8d's `ep step` beside them too
+        ep_step = start_dp_ranks("ep_step", train_folder, 300)
         # queue A item 8c's: `pipe train`'s run B1 beside `dp step`, A and
         # the resumed B beside `dp train`'s A and B2
         with tempfile.TemporaryDirectory() as folder:
@@ -9950,6 +10425,8 @@ def main() -> None:
             dp_step_launches = phase_dp_step(torch, card, folder)
         lap("dp step (and dp train B1, zero bench, fsdp train B1, tp train "
             "B1, pipe train B1)")
+        phase_ep_step(card, ep_step, moe_step)
+        lap("ep step")
         phase_zero_bench(card, zero)
         lap("zero bench")
         tp_record = phase_tp_bench(card, tp_bench)
@@ -9971,8 +10448,16 @@ def main() -> None:
                                               (tp_a, tp_b2), dp_summary)
     lap("tp train")
     release_memory(torch)
-    # the pipe bench beside the other families' phases
+    # the pipe bench beside the other families' phases; queue A item 8d:
+    # `ep train`'s runs A and B1 there too, its resumed run B2 and its
+    # oracle as soon as B1 ends (a thread waits for it), all checked
+    # after `pipe train`
     pipe_bench = start_pipe_bench(Path(pipe_folder.name) / "pipeline")
+    ep_folder = tempfile.TemporaryDirectory()
+    ep_a, ep_b1 = start_ep_a(ep_folder.name), start_ep_b1(ep_folder.name)
+    ep_pool = ThreadPoolExecutor(1)
+    ep_later = ep_pool.submit(lambda: (start_ep_b2(ep_folder.name, ep_b1),
+                                       start_ep_oracle(ep_folder.name)))
     phase_prefetch_to_device(torch, device, card)
     lap("prefetch to device")
     # queue A items 6 and 11: the vision models, the GAN loss, seq2seq
@@ -10009,6 +10494,13 @@ def main() -> None:
     pipe_folder.cleanup()
     lap("pipe bench, pipe train (the bench beside the other families' "
         "phases, the oracle beside packed train and the drills)")
+    ep_b2, ep_oracle = ep_later.result()
+    ep_pool.shutdown()
+    ep_gmm = phase_ep_train(torch, device, card, ep_folder.name,
+                            (ep_a, ep_b2, ep_oracle))
+    ep_folder.cleanup()
+    lap("ep train (its runs and oracle beside the other families' "
+        "phases)")
     # queue A item 10: the serving fleet, row 5 through its router,
     # handoff, drill and WAL paths
     release_memory(torch)
@@ -10148,6 +10640,13 @@ def main() -> None:
                         "launches": gmm_launches[name],
                         "max_abs_err": gmm_main_errors[name],
                         **gmm_times[name]})
+    # row 9a at `ep train`'s receiving slab, its empty slots after the
+    # groups, beside the same products on the real rows alone
+    next(k for k in kernels if k["name"] == "gmm")["ep_slab"] = {
+        "shape": [32768, 1024, 4], "max_abs_err": ep_slab_err,
+        **{f"{label}_ms": slab["ms"] for label, (slab, _) in ep_slab.items()},
+        **{f"{label}_real_rows_ms": compact["ms"]
+           for label, (_, compact) in ep_slab.items()}}
     for name in ("gmm_padded", "gmm_t_padded", "tgmm_padded"):
         kernels.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
                         "replaces": GMM_REPLACES[name[:-len("_padded")]],
@@ -10205,6 +10704,10 @@ def main() -> None:
         layouts[name] = {f"scan step {case}": counts[name]
                          for case, counts in scan_step.items()
                          if name in counts}
+    # the expert-parallel path: a rank's launches (each of the two ranks
+    # launches as many), rows 9a/9b through `ep_dropless_moe`
+    for name in ("gmm", "gmm_t", "tgmm", "split_bf16"):
+        layouts.setdefault(name, {})["ep train (a rank)"] = ep_gmm[name]
     # the data-parallel paths: a rank's launches (each of the two ranks
     # launches as many)
     for name in ("flash_fwd", "flash_bwd_fused"):

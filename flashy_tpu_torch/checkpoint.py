@@ -24,7 +24,8 @@ Module and optimizer state dicts load into their live objects, which
 puts the tensors back on their devices. Under replicated data
 parallelism every rank holds the same state: rank 0 writes the single
 file (`run_on_rank_zero`, every rank meeting it there) and every rank
-loads it. Across ranks with a sharded state (FSDP, ZeRO: a `layout`
+loads it. Across ranks with a sharded state (FSDP, ZeRO, the slices of
+the expert, tensor and pipe axes: a `layout`
 mapping the key of each rank-local tensor to its NamedSharding), slots
 and asynchronous saves run on every rank: each writes `arrays-<rank>.pt`
 with its shards, rank 0 also `arrays.pt` with the replicated tensors and

@@ -22,11 +22,14 @@ backward. The tree helpers here (`average_tensors`, `sync_gradients`,
 `sync_model`) are the manual path, one flat collective per dtype.
 `reduce_scatter` and `all_gather` move flat tensors over a group (a
 process axis of the mesh: `Mesh.group`), for the FSDP and ZeRO forms of
-`wrap` and `parallel.zero`. `send`, `recv`, `isend` and `irecv` move one
-tensor between two ranks (`parallel.pipeline`'s hops between pipe
-stages): gloo takes CUDA tensors for neither, so under gloo a CUDA tensor
-is staged through the host (a copy to the host, the send, the receive
-into a host buffer and a copy back), under NCCL it travels directly.
+`wrap` and `parallel.zero`; `all_to_all` exchanges equal row blocks over
+a group (the expert-parallel exchange of `parallel.moe_ep`), staged
+through the host under gloo with 2-byte floats as their bytes. `send`,
+`recv`, `isend` and `irecv` move one tensor between two ranks
+(`parallel.pipeline`'s hops between pipe stages): gloo takes CUDA
+tensors for neither, so under gloo a CUDA tensor is staged through the
+host (a copy to the host, the send, the receive into a host buffer and a
+copy back), under NCCL it travels directly.
 Every tensor collective and hop goes through `_collective`, which
 `parallel.accounting.count_collectives` counts (a hop as the reference's
 'collective-permute'), and every wait keeps the process group's timeout,
@@ -283,6 +286,35 @@ def all_gather(flat: torch.Tensor, group: tp.Any = None) -> torch.Tensor:
 
     _collective("all-gather", _nbytes(out), call)
     return out.to(flat.device)
+
+
+def all_to_all(tensor: torch.Tensor, group: tp.Any = None) -> torch.Tensor:
+    """Block j of `tensor`'s n equal row blocks (dim 0; n the size of
+    `group`, None: every process) goes to the group's j-th process; the
+    result holds the blocks received, in group-rank order (`tensor`'s
+    shape and dtype, on its device). The identity for a group of one.
+    `all_to_all_single` on every backend; the exchange moves bits and
+    never sums, so under gloo a CUDA tensor is staged through the host
+    and a bf16 or f16 tensor travels as its bytes (gloo refuses int16
+    and, in some releases, bf16), never widened."""
+    n = _group_size(group)
+    if n == 1:
+        return tensor
+    _require_backend()
+    if tensor.dim() < 1 or tensor.shape[0] % n:
+        raise ValueError(f"all_to_all takes a tensor whose dim 0 splits "
+                         f"into {n} blocks, got {tuple(tensor.shape)}")
+    work = tensor.to(_collective_device(tensor, "all_to_all")).contiguous()
+    as_bytes = dist.get_backend() == "gloo" and work.element_size() == 2 \
+        and work.is_floating_point()
+    if as_bytes:
+        work = work.view(torch.uint8)
+    out = torch.empty_like(work)
+    _collective("all-to-all", _nbytes(out),
+                lambda: dist.all_to_all_single(out, work, group=group))
+    if as_bytes:
+        out = out.view(tensor.dtype)
+    return out.to(tensor.device)
 
 
 class Pending:

@@ -60,6 +60,20 @@ stage logs `bubble_frac` and `peak_stash_bytes` (`_pipeline_stats`).
 `mesh.pipe` with `mesh.fsdp`, `mesh.tensor` or `mesh.seq` above 1, and
 `loss=chunked` with it, raise.
 
+With `+mesh.expert=E` above 1 (a key the config does not list, as the
+JAX solver's does not) and `model.moe_experts` divisible by it, the MoE
+blocks' experts are sharded over the expert ranks (`wrap_model`: each
+rank holds `moe_experts / E` of every block's experts): the expert ranks
+take the same rows, `model.moe_dispatch=dropless_ep` cuts each MoE
+layer's tokens over them and exchanges the assignments by all-to-all
+(`parallel.moe_ep`), the other dispatches compute each rank's experts'
+assignments and sum the block's output over the expert ranks; every
+other parameter's gradients are averaged over the expert ranks with the
+data-parallel ones (`parallel.wrap`), and the clip's norm sums the
+experts' squares over the expert group. `expert`
+composes with `data` and `tensor`; with `fsdp`, `pipe` or `seq` it
+raises.
+
 The train loop calls `check_preemption()` after every step, so a
 preemption guard in 'abandon_stage' mode
 (`solver.enable_preemption_guard(mode="abandon_stage")`) stops the stage
@@ -234,26 +248,40 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return {"loss": loss, "grad_norm": norm}
 
 
+# the solvers whose models have no MoE blocks refuse mesh.expert > 1
+TODO_EXPERT_SOLVERS = ("ROADMAP.md queue A item 8f (expert parallelism in "
+                       "the MLM and translate solvers)")
+
+
 def check_mesh(mesh: tp.Mapping, attention: str,
                fsdp: tp.Optional[str] = None,
-               model: tp.Optional[tp.Mapping] = None) -> Mesh:
-    """The run's mesh: `data: -1` resolves to the world size over `fsdp`
-    and `tensor` (the process axes: `data x fsdp x tensor` ranks, a rank
-    a process; 1 in one process), `seq` above 1 is a ring whose ranks
-    share the process's card and needs `attention` 'ring' or 'ring_fused'
-    (with any other attention a `seq` axis would do nothing on one card),
-    `pipe` above 1 is a pipeline over the pipe ranks (processes); `pipe`
-    with `fsdp`, `tensor` or `seq` above 1, `expert` above 1, or `seq`
-    with `tensor` raise NotImplementedError naming their ROADMAP item
-    (`make_mesh`, item 8f for pipe's). With
-    `model` (the config's model section) a `tensor` width is held to its
-    heads and MLP width (`validate_tensor_args`). A solver whose model
-    has no FSDP specs passes the ROADMAP item that brings them as `fsdp`:
-    `mesh.fsdp` above 1 then raises NotImplementedError naming it."""
+               model: tp.Optional[tp.Mapping] = None,
+               expert: tp.Optional[str] = None) -> Mesh:
+    """The run's mesh: `data: -1` resolves to the world size over `fsdp`,
+    `expert`, `pipe` and `tensor` (the process axes: a rank a process; 1
+    in one process), `seq` above 1 is a ring whose ranks share the
+    process's card and needs `attention` 'ring' or 'ring_fused' (with any
+    other attention a `seq` axis would do nothing on one card), `pipe`
+    above 1 is a pipeline over the pipe ranks (processes), `expert` above
+    1 shards the MoE blocks' experts over the expert ranks (processes)
+    and needs `model.moe_experts` above 0 and divisible by it
+    (ValueError); `pipe` with `fsdp`, `tensor` or `seq` above 1, `expert`
+    with `fsdp`, `pipe` or `seq` above 1, or `seq` with `tensor` raise
+    NotImplementedError naming their ROADMAP item (`make_mesh`, item 8f
+    for pipe's). With `model` (the config's model section) a `tensor`
+    width is held to its heads and MLP width (`validate_tensor_args`). A
+    solver whose model has no FSDP specs passes the ROADMAP item that
+    brings them as `fsdp`, and one whose model has no expert-parallel
+    layers the item that brings them as `expert`: `mesh.fsdp` or
+    `mesh.expert` above 1 then raises NotImplementedError naming it."""
     built = make_mesh({axis: int(size) for axis, size in mesh.items()})
     if fsdp is not None and built.shape["fsdp"] > 1:
         raise NotImplementedError(f"mesh.fsdp={built.shape['fsdp']} needs "
                                   f"this model's shardings: {fsdp}")
+    if expert is not None and built.shape["expert"] > 1:
+        raise NotImplementedError(f"mesh.expert={built.shape['expert']} "
+                                  f"needs this model's expert layers: "
+                                  f"{expert}")
     if built.shape["pipe"] > 1:
         others = [f"{axis}={built.shape[axis]}"
                   for axis in ("fsdp", "tensor", "seq")
@@ -271,6 +299,13 @@ def check_mesh(mesh: tp.Mapping, attention: str,
                              int(model["dim"]) * int(model["mlp_ratio"]),
                              built.shape["tensor"],
                              num_devices=distrib.world_size())
+    if model is not None and built.shape["expert"] > 1:
+        experts = int(model.get("moe_experts", 0))
+        if experts <= 0 or experts % built.shape["expert"]:
+            raise ValueError(
+                f"mesh.expert={built.shape['expert']} shards the MoE "
+                f"blocks' experts, which needs model.moe_experts > 0 and "
+                f"divisible by it, got {experts}")
     return built
 
 
@@ -287,15 +322,17 @@ def _shadow(value: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 def wrap_model(model: nn.Module, mesh: Mesh, interleave: int = 1
                ) -> nn.Module:
     """`parallel.wrap` for the run's mesh under the model's own
-    `shardings()` (`transformer_shardings`): with `tensor` above 1 the
-    model cut over it first (Megatron; then DDP over the `data x fsdp`
-    ranks of each tensor rank), with `pipe` above 1 its block stack cut
-    over the pipe ranks (`interleave` virtual stages; the model itself,
-    its data-parallel average `average_over_data`), with `fsdp` above 1
-    the model itself in FSDP form (over the tensor slices under both),
-    else DistributedDataParallel above one rank (the model at one)."""
-    if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1 \
-            or mesh.shape["pipe"] > 1:
+    `shardings()` (`transformer_shardings`): with `tensor` or `expert`
+    above 1 the model cut over them first (Megatron; the MoE experts;
+    then DDP over the `data x fsdp` ranks of each such rank, and the
+    leaves held whole over the expert ranks too), with `pipe`
+    above 1 its block stack cut over the pipe ranks (`interleave` virtual
+    stages; the model itself, its data-parallel average
+    `average_over_data`), with `fsdp` above 1 the model itself in FSDP
+    form (over the tensor slices under both), else
+    DistributedDataParallel above one rank (the model at one)."""
+    if any(mesh.shape[axis] > 1
+           for axis in ("fsdp", "expert", "tensor", "pipe")):
         return wrap(model, mesh=mesh, fsdp=mesh.shape["fsdp"] > 1,
                     state_sharding=model.shardings(), interleave=interleave)
     return wrap(model)

@@ -45,7 +45,7 @@ from ...parallel.tensor import vocab_parallel_cross_entropy
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
-from ..lm.solver import (build_optimizer, check_mesh,
+from ..lm.solver import (TODO_EXPERT_SOLVERS, build_optimizer, check_mesh,
                          synthetic_token_stream, train_step, wrap_model)
 
 
@@ -103,7 +103,7 @@ class MLMSolver(BaseSolver):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
-                               model=cfg.model)
+                               model=cfg.model, expert=TODO_EXPERT_SOLVERS)
         model_cfg = TransformerConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,

@@ -42,7 +42,8 @@ from ...parallel.tensor import vocab_parallel_cross_entropy
 from ...solver import BaseSolver
 from ...utils import averager, resolve_device
 from ...xp import main as xp_main
-from ..lm.solver import build_optimizer, check_mesh, train_step, wrap_model
+from ..lm.solver import (TODO_EXPERT_SOLVERS, build_optimizer, check_mesh,
+                         train_step, wrap_model)
 
 
 def synthetic_pairs(vocab_size: int, task: str = "reverse", seed: int = 0):
@@ -83,7 +84,7 @@ class TranslateSolver(BaseSolver):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = check_mesh(cfg.mesh, cfg.model.attention,
-                               model=cfg.model)
+                               model=cfg.model, expert=TODO_EXPERT_SOLVERS)
         model_cfg = Seq2SeqConfig(
             vocab_size=cfg.model.vocab_size, dim=cfg.model.dim,
             enc_layers=cfg.model.enc_layers, dec_layers=cfg.model.dec_layers,

@@ -40,8 +40,10 @@ chunked scan, on CUDA through the Hopper SSD kernel. With
 `moe_experts > 0` every block's MLP is a routed `MoEMLP` (gelu experts
 of width `dim * mlp_ratio`); its `moe_dispatch='dropless'` runs the
 expert projections as grouped matmuls, on CUDA through the Hopper
-grouped-GEMM kernels, and `forward(..., return_aux=True)` also returns
-the summed load-balancing loss.
+grouped-GEMM kernels, `'dropless_ep'` the same over the mesh's 'expert'
+ranks after a capacity-bounded all-to-all (`parallel.moe_ep`), and
+`forward(..., return_aux=True)` also returns the summed load-balancing
+loss.
 
 Megatron tensor parallelism (`parallel.tensor`): `parallel.wrap` over a
 mesh whose 'tensor' axis is above 1 cuts the model by
@@ -50,7 +52,9 @@ slices it holds: the QKV, SSD `cbv` and MLP up-projections split by
 column (after `copy_to_tensor`), the attention-out, SSD-out and MLP
 down-projections by row (then `reduce_from_tensor`: one all-reduce
 after each mixer and each MLP), the embedding and tied head by
-vocabulary rows. MoE blocks under 'tensor' raise (expert parallelism).
+vocabulary rows, an MoE block's experts by their hidden width. Expert
+parallelism: `parallel.wrap` over a mesh whose 'expert' axis is above 1
+gives each rank `E / e` of every MoE block's experts (`models.moe`).
 
 Training switches, as in the JAX package:
 - `dropout > 0` applies dropout after each mixer's output projection
@@ -83,10 +87,9 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.losses import tied_head
 from ..parallel.mesh import Mesh
-from ..parallel.moe_ep import TODO_EXPERT_PARALLEL
 from ..parallel.ring import ring_self_attention
 from ..parallel.tensor import (copy_to_tensor, layer_mesh,
-                               reduce_from_tensor, tensor_width,
+                               reduce_from_tensor,
                                vocab_parallel_embedding)
 from ..utils import resolve_device
 from .moe import MoEMLP, moe_aux_loss
@@ -113,8 +116,8 @@ class TransformerConfig:
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
     moe_dispatch: str = "einsum"  # einsum | sorted | dropless (the Hopper
-                                  # grouped-GEMM kernels); dropless_ep is
-                                  # not ported (check_supported)
+                                  # grouped-GEMM kernels) | dropless_ep
+                                  # (the same over the 'expert' ranks)
     scan_layers: bool = False    # one stacked [L, ...] parameter a leaf
                                  # (StackedBlocks); uniform mixers only
     mixer: str = "attention"     # 'attention', 'ssd' or a pattern such
@@ -141,11 +144,7 @@ def mixer_pattern(cfg: TransformerConfig) -> tp.Tuple[str, ...]:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for layouts the port cannot hold yet."""
-    if cfg.moe_experts > 0 and cfg.moe_dispatch == "dropless_ep":
-        raise NotImplementedError(
-            f"moe_dispatch='dropless_ep' is not ported yet: "
-            f"{TODO_EXPERT_PARALLEL}")
+    """Raise for layouts the model cannot hold."""
     pattern = mixer_pattern(cfg)  # raises on an unknown mixer name
     if cfg.scan_layers and len(set(pattern)) > 1:
         # one stacked body = one parameter shape: a hybrid stack's
@@ -441,7 +440,7 @@ class Block(nn.Module):
                               cfg.moe_experts, cfg.moe_top_k,
                               cfg.moe_capacity_factor, cfg.dtype,
                               cfg.moe_dispatch, generator=generator,
-                              device=device)
+                              device=device, mesh=mesh)
         else:
             self.mlp = MLPBlock(cfg, generator, device, mesh)
 
@@ -572,6 +571,9 @@ class TransformerLM(nn.Module):
             slice it holds (`layer_mesh`): the embedding vocab-parallel,
             the tied head giving the rank's [B, T, V/T] logits (reduce
             them with `parallel.tensor.vocab_parallel_cross_entropy`).
+            Its 'expert' axis cuts the MoE blocks' experts the same way
+            (`models.moe`); `moe_dispatch='dropless_ep'` needs the mesh
+            (ValueError without one, as in the JAX package).
     """
 
     def __init__(self, config: TransformerConfig, *,
@@ -579,12 +581,6 @@ class TransformerLM(nn.Module):
                  mesh: tp.Optional[Mesh] = None):
         super().__init__()
         check_supported(config)
-        if tensor_width(mesh) > 1 and config.moe_experts > 0:
-            raise NotImplementedError(
-                f"MoE blocks under tensor={tensor_width(mesh)} are not "
-                f"ported yet (the experts' w_up split (expert, fsdp, "
-                f"tensor) goes with expert parallelism): "
-                f"{TODO_EXPERT_PARALLEL}")
         device = resolve_device(device)
         self.config = config
         self.mesh = mesh

@@ -8,8 +8,9 @@ collectives (`accounting`), Megatron tensor parallelism over the
 'tensor' process axis (`tensor`), pipeline parallelism over the 'pipe'
 process axis (`pipeline`: GPipe, 1F1B, interleaved and packed, over the
 host-side tables of `schedules`), sequence-parallel ring attention
-(`ring`, and the single-kernel forward of `ring_fused`) and the
-single-device half of the expert layer's grouped MLP (`moe_ep`)."""
+(`ring`, and the single-kernel forward of `ring_fused`) and the expert
+layer's grouped MLP and its expert-parallel exchange over the 'expert'
+process axis (`moe_ep`)."""
 from .mesh import (default_mesh, make_mesh, mesh_shape_from_devices,  # noqa: F401
                    set_default_mesh)
 from .sharding import NamedSharding, P  # noqa: F401

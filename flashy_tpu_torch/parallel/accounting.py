@@ -10,8 +10,11 @@ those calls instead: `count_collectives()` records every collective run
 inside it, and `collective_stats(record)` gives the reference's dict
 under the reference's op names, bytes being each call's output bytes
 (the reference's sync convention: a reduce-scatter counts its shard, an
-all-gather its whole result). This is a count of the calls a step made
-and the bytes they returned, not a compiler's view of a program.
+all-gather its whole result, an all-to-all the blocks it received). The
+expert-parallel exchange (`moe_ep`) shows as 'all-to-all' over the
+'expert' group, three a MoE layer forward and two backward. This is a
+count of the calls a step made and the bytes they returned, not a
+compiler's view of a program.
 """
 import contextlib
 import typing as tp

@@ -31,6 +31,16 @@ processes of each tensor rank: DDP over the `data x fsdp` group, FSDP
 over 'fsdp', ZeRO-1 over 'data' (a leaf split over two axes,
 `('tensor', 'data')`, nests: `sharding.py`).
 
+Under expert parallelism (`mesh.shape['expert'] > 1`) `wrap` cuts the
+expert-sharded leaves (an MoE block's `w_up` and `w_down`, dim 0) over
+the 'expert' process axis the same way. Every other parameter stays
+whole, and its gradients are equal on the ranks of an expert group up to
+the order of a non-deterministic kernel's sums (`models.moe`): DDP
+averages them over the `data x fsdp x expert` ranks, so that they are
+one value there, and the experts' over the `data x fsdp` ranks of each
+expert rank (`_expert_ddp`). FSDP and ZeRO-1 with 'expert' raise
+(`mesh.TODO_EXPERT_COMPOSED`).
+
 Under pipeline parallelism (`mesh.shape['pipe'] > 1`) `wrap` cuts the
 scan-stacked block leaves over 'pipe' the same way (each stage keeps its
 chunks of `interleave` virtual stages) and returns the model itself: the
@@ -52,7 +62,8 @@ import torch
 from torch import nn
 
 from .. import distrib
-from .mesh import DATA_PARALLEL_AXES, Mesh, default_mesh
+from .mesh import (DATA_PARALLEL_AXES, TODO_EXPERT_COMPOSED, Mesh,
+                   default_mesh)
 from .sharding import NamedSharding, P, join_pairs, place, split_pairs
 
 BATCH_AXES = ("data", "fsdp")
@@ -692,15 +703,15 @@ def _has_update_keys(spec: tp.Any) -> bool:
 
 # the process axes a model is cut over (the model-parallel axes); the
 # data-parallel forms act on the slices
-MODEL_AXES = ("pipe", "tensor")
+MODEL_AXES = ("expert", "pipe", "tensor")
 TODO_PIPE_SHARDED = ("ROADMAP.md queue A item 8f (pipe composed with "
                      "fsdp or ZeRO-1, and with tensor in the LM solver)")
 
 
 def _split_model(model: nn.Module, mesh: Mesh, spec: tp.Any,
                  interleave: int = 1) -> None:
-    """Cut `model` over the mesh's model-parallel axes ('pipe', 'tensor'
-    above size 1) in place: every rank first takes rank 0's full
+    """Cut `model` over the mesh's model-parallel axes ('expert', 'pipe',
+    'tensor' above size 1) in place: every rank first takes rank 0's full
     parameters (the model is built identically on every rank, then
     sliced), then each parameter that its spec (`spec`, or the model's
     own `shardings()`) splits over those axes becomes this process's
@@ -710,8 +721,10 @@ def _split_model(model: nn.Module, mesh: Mesh, spec: tp.Any,
     (`parallel.tensor`); over 'pipe' a scan-stacked leaf [L, ...] keeps
     this stage's chunks of `interleave` virtual stages (chunks d, d +
     pipe, ...: the NamedSharding's `interleave`), which the pipelined
-    model runs (`models.pipelined`). Records the slices as
-    `model._sharded` (mode 'tensor', 'pipe' or 'pipe+tensor') with
+    model runs (`models.pipelined`); over 'expert' a leaf whose spec
+    leads with 'expert' (the MoE experts) keeps this rank's E / e
+    experts. Records the slices as `model._sharded` (mode 'expert',
+    'tensor', 'pipe', 'expert+tensor' or 'pipe+tensor') with
     `summon_full_params` and `no_sync`."""
     axes = tuple(axis for axis in MODEL_AXES if mesh.shape[axis] > 1)
 
@@ -990,6 +1003,38 @@ def _ddp(model: nn.Module, group: tp.Any, **ddp_kwargs: tp.Any
     return wrapped
 
 
+def _expert_ddp(model: nn.Module, mesh: Mesh, **ddp_kwargs: tp.Any
+                ) -> nn.Module:
+    """The data-parallel form of a model cut over 'expert': DDP over the
+    `data x fsdp x expert` processes for every leaf an expert rank holds
+    whole, so that their gradients, equal on the ranks of an expert group
+    up to the order of a non-deterministic kernel's sums, are averaged
+    into one value there; the experts
+    (leaves split over 'expert') are left out of it, and after the
+    backward that syncs (not inside `no_sync()`) each one's gradient is
+    averaged over the `data x fsdp` processes of its expert rank."""
+    experts = [(name, param) for name, param in model.named_parameters()
+               if name in model._sharded.shardings and "expert" in
+               model._sharded.shardings[name].axis_names()]
+    nn.parallel.DistributedDataParallel.\
+        _set_params_and_buffers_to_ignore_for_model(
+            model, [name for name, _ in experts])
+    wrapped = _ddp(model, mesh.group(DATA_PARALLEL_AXES + ("expert",)),
+                   **ddp_kwargs)
+    if mesh.data_parallel_size > 1:
+        group = mesh.group(DATA_PARALLEL_AXES)
+        scale = float(mesh.data_parallel_size)
+
+        def average(param: torch.Tensor) -> None:
+            if wrapped.require_backward_grad_sync:
+                param.grad.copy_(distrib.all_reduce(
+                    param.grad.div_(scale), "sum", group))
+
+        for _, param in experts:
+            param.register_post_accumulate_grad_hook(average)
+    return wrapped
+
+
 def wrap(model: tp.Optional[nn.Module] = None, *,
          mesh: tp.Optional[Mesh] = None,
          batch_axes: tp.Sequence[str] = BATCH_AXES,
@@ -1039,7 +1084,13 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
     update over 'data' (tensor+zero1), and otherwise DDP averages their
     gradients over the `data x fsdp` group (the model itself when that
     group is one process). `model.summon_full_params()` lends the whole
-    parameters, gathered over 'tensor' too.
+    parameters, gathered over 'tensor' too. A mesh whose 'expert' axis is
+    above 1 cuts the MoE experts over it the same way (expert
+    parallelism; with 'tensor' too, both cuts), and DDP then averages the
+    leaves held whole over the `data x fsdp x expert` ranks and the
+    experts over the `data x fsdp` ranks of each expert rank (DDP even at
+    one data-parallel rank); `fsdp=True` or a ZeRO-1 layout with it
+    raises NotImplementedError (ROADMAP item 8f).
 
     The sharded forms have `no_sync()` (gradient accumulation reduces
     once a step) and record their layout (`sharded_state(...)`). Usable
@@ -1059,16 +1110,19 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
     wrapped = model
     tensor = mesh is not None and mesh.shape["tensor"] > 1
     pipe = mesh is not None and mesh.shape["pipe"] > 1
-    if pipe and (fsdp or _has_update_keys(state_sharding)):
-        raise NotImplementedError(
-            f"wrap over pipe={mesh.shape['pipe']} with "
-            f"{'fsdp=True' if fsdp else 'a ZeRO-1 layout'} is not ported "
-            f"yet: {TODO_PIPE_SHARDED}")
-    if fsdp or state_sharding is not None or tensor or pipe:
+    expert = mesh is not None and mesh.shape["expert"] > 1
+    for axis, on, todo in (("pipe", pipe, TODO_PIPE_SHARDED),
+                           ("expert", expert, TODO_EXPERT_COMPOSED)):
+        if on and (fsdp or _has_update_keys(state_sharding)):
+            raise NotImplementedError(
+                f"wrap over {axis}={mesh.shape[axis]} with "
+                f"{'fsdp=True' if fsdp else 'a ZeRO-1 layout'} is not "
+                f"ported yet: {todo}")
+    if fsdp or state_sharding is not None or tensor or pipe or expert:
         mesh = mesh or default_mesh()
         if distrib.is_distributed():
             distrib._require_backend()
-        if tensor or pipe:
+        if tensor or pipe or expert:
             _split_model(model, mesh, _param_specs(model, state_sharding),
                          interleave)
         if pipe:
@@ -1077,10 +1131,13 @@ def wrap(model: tp.Optional[nn.Module] = None, *,
             pass
         elif fsdp:
             wrapped = _fsdp(model, mesh, _param_specs(model, state_sharding))
-        elif state_sharding is not None and (not tensor or _has_update_keys(
-                state_sharding)):
+        elif state_sharding is not None and (not (tensor or expert)
+                                             or _has_update_keys(
+                                                 state_sharding)):
             wrapped = _ZeroModel(model, mesh, _zero_shardings(
                 model, state_sharding))
+        elif expert:
+            wrapped = _expert_ddp(model, mesh, **ddp_kwargs)
         elif mesh.data_parallel_size > 1:
             wrapped = _ddp(model, mesh.group(DATA_PARALLEL_AXES),
                            **ddp_kwargs)

@@ -11,33 +11,36 @@ JAX package:
   'seq'    - sequence parallelism (ring attention)
 
 The port's mesh is a small record: the six axis sizes and the devices of
-this process's ranks. `data`, `fsdp`, `pipe` and `tensor` are the process
-axes: `data x fsdp x pipe x tensor` processes make the world
-(`distrib.world_size()`), and process `r` sits at `data = r // (fsdp *
-pipe * tensor)`, `fsdp = r // (pipe * tensor) % fsdp`, `pipe = r //
-tensor % pipe`, `tensor = r % tensor`: the JAX package's AXES order, with
-`tensor` innermost, so a tensor group is a run of adjacent ranks
-(Megatron's placement), every layout at `pipe=1` is the one without the
-axis, and a global batch splits over `data` and `fsdp` as `batch_spec`
-says (each data-parallel process takes its contiguous rows; the ranks of
-a tensor or pipe group take the same rows). `coord(axis)` is the
-process's index on an axis, `group(axis)` the `torch.distributed` group
-of the processes that differ only there (or only on the axes of a tuple;
-one group per axis, built on every process in the same order, cached),
-and `pipe_peers()` the global ranks of a pipe stage's ring neighbours
-(`parallel.pipeline` sends activations to the next stage and cotangents
-to the previous one, the last stage wrapping to stage 0). `devices`
-names the device of each of this process's ranks on the axes inside a
-process (`seq`: the ranks of a ring share the process's card), in AXES
-order; a device may repeat. `devices=None` records no device, and every
-rank then runs on the device of the tensors it is given.
-`make_mesh({"data": -1})` takes the world. What runs today: the process
-axes (`--workers`, `parallel.wrap`, its FSDP, ZeRO, tensor-parallel and
-pipeline forms) composed with a `seq` ring inside each process
-(`parallel.ring`). Process axes that differ from the world inside one
-process, a mesh whose ranks name two devices, `seq` above 1 together
-with `tensor` above 1, and `expert` above 1 raise NotImplementedError
-naming the ROADMAP item that brings them.
+this process's ranks. `data`, `fsdp`, `expert`, `pipe` and `tensor` are
+the process axes: `data x fsdp x expert x pipe x tensor` processes make
+the world (`distrib.world_size()`), and process `r` sits at `data = r //
+(fsdp * expert * pipe * tensor)`, `fsdp = r // (expert * pipe * tensor) %
+fsdp`, `expert = r // (pipe * tensor) % expert`, `pipe = r // tensor %
+pipe`, `tensor = r % tensor`: the JAX package's AXES order, with `tensor`
+innermost, so a tensor group is a run of adjacent ranks (Megatron's
+placement), every layout at `expert=1` and `pipe=1` is the one without
+the axis, and a global batch splits over `data` and `fsdp` as
+`batch_spec` says (each data-parallel process takes its contiguous rows;
+the ranks of an expert, tensor or pipe group take the same rows; an
+expert group's MoE layers then cut those rows among themselves,
+`parallel.moe_ep`). `coord(axis)` is the process's index on an axis,
+`group(axis)` the `torch.distributed` group of the processes that differ
+only there (or only on the axes of a tuple; one group per axis, built on
+every process in the same order, cached), and `pipe_peers()` the global
+ranks of a pipe stage's ring neighbours (`parallel.pipeline` sends
+activations to the next stage and cotangents to the previous one, the
+last stage wrapping to stage 0). `devices` names the device of each of
+this process's ranks on the axes inside a process (`seq`: the ranks of a
+ring share the process's card), in AXES order; a device may repeat.
+`devices=None` records no device, and every rank then runs on the device
+of the tensors it is given. `make_mesh({"data": -1})` takes the world.
+What runs today: the process axes (`--workers`, `parallel.wrap`, its
+FSDP, ZeRO, expert-parallel, tensor-parallel and pipeline forms) composed
+with a `seq` ring inside each process (`parallel.ring`). Process axes
+that differ from the world inside one process, a mesh whose ranks name
+two devices, `seq` above 1 together with `tensor` above 1, and `expert`
+above 1 together with `fsdp`, `pipe` or `seq` above 1 raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 import dataclasses
 import itertools
@@ -51,17 +54,18 @@ from .. import distrib
 AXES = ("data", "fsdp", "expert", "pipe", "tensor", "seq")
 
 # Where each part the port does not have yet is scheduled (ROADMAP.md).
-TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data, fsdp, pipe and "
-                      "tensor ranks are processes; launch them with "
-                      "--workers=N "
+TODO_DATA_PARALLEL = ("ROADMAP.md queue A item 5: data, fsdp, expert, "
+                      "pipe and tensor ranks are processes; launch them "
+                      "with --workers=N "
                       "(or launch.py / torchrun)")
-TODO_AXES = {"expert": "ROADMAP.md queue A item 8d (expert parallelism)"}
-TODO_SEQ_TENSOR = ("ROADMAP.md queue A item 8d (the ring's ranks across "
+TODO_SEQ_TENSOR = ("ROADMAP.md queue A item 8g (the ring's ranks across "
                    "processes: seq composed with tensor)")
-TODO_DEVICES = ("ROADMAP.md queue A items 5 and 8d (ranks on several "
+TODO_DEVICES = ("ROADMAP.md queue A items 5 and 8g (ranks on several "
                 "cards: a process a card over the process axes, item 5; "
-                "the ring's ranks on several processes or cards, item 8d)")
-PROCESS_AXES = ("data", "fsdp", "pipe", "tensor")
+                "the ring's ranks on several processes or cards, item 8g)")
+TODO_EXPERT_COMPOSED = ("ROADMAP.md queue A item 8f (expert composed with "
+                        "fsdp, ZeRO-1, pipe or seq)")
+PROCESS_AXES = ("data", "fsdp", "expert", "pipe", "tensor")
 # the processes that hold different rows of a batch
 DATA_PARALLEL_AXES = ("data", "fsdp")
 
@@ -74,10 +78,10 @@ _default_mesh: tp.Optional["Mesh"] = None
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (`shape`, every axis of AXES; `data`, `fsdp`, `pipe`
-    and `tensor` count processes) and this process's ranks' devices (one per
-    rank of the axes inside a process, in AXES order; None: the caller's
-    device)."""
+    """Axis sizes (`shape`, every axis of AXES; `data`, `fsdp`, `expert`,
+    `pipe` and `tensor` count processes) and this process's ranks'
+    devices (one per rank of the axes inside a process, in AXES order;
+    None: the caller's device)."""
     shape: tp.Mapping[str, int]
     devices: tp.Optional[tp.Tuple[torch.device, ...]] = None
 
@@ -92,8 +96,8 @@ class Mesh:
 
     @property
     def processes(self) -> int:
-        """How many processes the mesh spans (`data x fsdp x pipe x
-        tensor`)."""
+        """How many processes the mesh spans (`data x fsdp x expert x pipe
+        x tensor`)."""
         return math.prod(self.shape[axis] for axis in PROCESS_AXES)
 
     @property
@@ -104,7 +108,7 @@ class Mesh:
 
     def data_parallel_index(self) -> int:
         """This process's index among the `data x fsdp` row holders (the
-        ranks of a tensor or pipe group share it)."""
+        ranks of an expert, tensor or pipe group share it)."""
         return self.coord("data") * self.shape["fsdp"] + self.coord("fsdp")
 
     def _stride(self, axis: str) -> int:
@@ -112,9 +116,9 @@ class Mesh:
                          PROCESS_AXES[PROCESS_AXES.index(axis) + 1:])
 
     def coord(self, axis: str) -> int:
-        """This process's index on `axis` (`data = rank // (fsdp * pipe *
-        tensor)`, ..., `pipe = (rank // tensor) % pipe`, `tensor = rank %
-        tensor`), 0 on an axis of size 1."""
+        """This process's index on `axis` (`data = rank // (fsdp * expert
+        * pipe * tensor)`, ..., `pipe = (rank // tensor) % pipe`, `tensor
+        = rank % tensor`), 0 on an axis of size 1."""
         if self.shape[axis] == 1:
             return 0
         if axis not in PROCESS_AXES:
@@ -208,10 +212,11 @@ def make_mesh(shape: tp.Optional[tp.Mapping[str, int]] = None,
     rank of the axes inside a process when `devices` is None). Default:
     everything on 'data'. The JAX package's errors come first (unknown
     axes, two -1s); then `seq` with `tensor` (NotImplementedError, item
-    8d), process axes whose product is not the world size
+    8g) and `expert` with `fsdp`, `pipe` or `seq` (NotImplementedError,
+    item 8f), process axes whose product is not the world size
     (NotImplementedError in one process: their ranks are processes), a
-    shape that does not cover the devices, and what the port cannot run
-    yet (NotImplementedError).
+    shape that does not cover the devices, and ranks on several devices
+    (NotImplementedError).
     """
     shape = dict(shape or {"data": -1})
     sizes = {axis: int(shape.get(axis, 1)) for axis in AXES}
@@ -235,6 +240,12 @@ def make_mesh(shape: tp.Optional[tp.Mapping[str, int]] = None,
         raise NotImplementedError(
             f"mesh axes seq={sizes['seq']} and tensor={sizes['tensor']} "
             f"together are not ported yet: {TODO_SEQ_TENSOR}")
+    composed = [f"{axis}={sizes[axis]}" for axis in ("fsdp", "pipe", "seq")
+                if sizes[axis] > 1]
+    if sizes["expert"] > 1 and composed:
+        raise NotImplementedError(
+            f"mesh axis expert={sizes['expert']} with {', '.join(composed)} "
+            f"is not ported yet: {TODO_EXPERT_COMPOSED}")
     processes = math.prod(sizes[axis] for axis in PROCESS_AXES)
     named = " x ".join(f"{axis}={sizes[axis]}" for axis in PROCESS_AXES)
     if processes != world:
@@ -246,10 +257,6 @@ def make_mesh(shape: tp.Optional[tp.Mapping[str, int]] = None,
                          f"{world}: their ranks are processes")
     if math.prod(sizes.values()) != count:
         raise ValueError(f"Mesh shape {sizes} does not cover {count} devices")
-    for axis, todo in TODO_AXES.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={sizes[axis]} is not ported yet: {todo}")
     if devices is not None and len(set(devices)) > 1:
         raise NotImplementedError(
             f"the mesh's ranks span {len(set(devices))} devices "

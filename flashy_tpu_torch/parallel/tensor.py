@@ -16,7 +16,10 @@ vocab-parallel (each rank holds `V / T` rows: a lookup masks the others
 and all-reduces) and so is the tied head's loss
 (`vocab_parallel_cross_entropy` over the rank's `[..., V / T]` logits:
 the max, then the sum of exponentials and the target's logit,
-all-reduced; the full logits are never gathered). Every all-reduce runs
+all-reduced; the full logits are never gathered). An MoE block's experts
+split by their hidden width the same way (`models.moe`), and the pair
+also runs over the 'expert' axis (`axis='expert'`), where each expert
+rank computes its own experts' assignments. Every all-reduce runs
 in f32 through `distrib`'s counted collectives (gloo sums bf16 partial
 sums as f32; the reference sums them in bf16).
 
@@ -133,57 +136,68 @@ def tensor_width(mesh: tp.Optional[Mesh]) -> int:
     return 1 if mesh is None else int(mesh.shape["tensor"])
 
 
-def _all_reduce_tensor(x: torch.Tensor, mesh: Mesh,
-                       op: str = "sum") -> torch.Tensor:
-    """`x` reduced over the mesh's 'tensor' group, in f32 (bf16 and f16
-    partial sums travel widened), returned in x's dtype."""
+def _all_reduce_tensor(x: torch.Tensor, mesh: Mesh, op: str = "sum",
+                       axis: str = "tensor") -> torch.Tensor:
+    """`x` reduced over the mesh's `axis` group ('tensor' by default), in
+    f32 (bf16 and f16 partial sums travel widened), returned in x's
+    dtype."""
     wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
-    out = distrib.all_reduce(wide.contiguous(), op, mesh.group("tensor"))
+    out = distrib.all_reduce(wide.contiguous(), op, mesh.group(axis))
     return out.to(x.dtype)
 
 
 class _CopyToTensor(torch.autograd.Function):
-    """Identity forward; the gradient all-reduced over 'tensor'."""
+    """Identity forward; the gradient all-reduced over the axis."""
 
     @staticmethod
-    def forward(ctx: tp.Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-        ctx.mesh = mesh
+    def forward(ctx: tp.Any, x: torch.Tensor, mesh: Mesh,
+                axis: str) -> torch.Tensor:
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx: tp.Any, grad: torch.Tensor) -> tp.Any:
-        return _all_reduce_tensor(grad, ctx.mesh), None
+        return _all_reduce_tensor(grad, ctx.mesh, axis=ctx.axis), None, None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
-    """All-reduce over 'tensor' forward; the identity backward."""
+    """All-reduce over the axis forward; the identity backward."""
 
     @staticmethod
-    def forward(ctx: tp.Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-        return _all_reduce_tensor(x, mesh)
+    def forward(ctx: tp.Any, x: torch.Tensor, mesh: Mesh,
+                axis: str) -> torch.Tensor:
+        return _all_reduce_tensor(x, mesh, axis=axis)
 
     @staticmethod
     def backward(ctx: tp.Any, grad: torch.Tensor) -> tp.Any:
-        return grad, None
+        return grad, None, None
 
 
-def copy_to_tensor(x: torch.Tensor, mesh: tp.Optional[Mesh]) -> torch.Tensor:
+def _width(mesh: tp.Optional[Mesh], axis: str) -> int:
+    return 1 if mesh is None else int(mesh.shape[axis])
+
+
+def copy_to_tensor(x: torch.Tensor, mesh: tp.Optional[Mesh],
+                   axis: str = "tensor") -> torch.Tensor:
     """`x` entering a column-split product: the identity, whose backward
     sums the tensor ranks' partial gradients (one all-reduce). The
-    identity both ways at tensor width 1."""
-    if tensor_width(mesh) == 1:
+    identity both ways at tensor width 1. `axis='expert'` is the same
+    pair's entry over the expert ranks of an MoE layer whose ranks each
+    compute their own experts' assignments (`models.moe`)."""
+    if _width(mesh, axis) == 1:
         return x
-    return _CopyToTensor.apply(x, mesh)
+    return _CopyToTensor.apply(x, mesh, axis)
 
 
-def reduce_from_tensor(x: torch.Tensor,
-                       mesh: tp.Optional[Mesh]) -> torch.Tensor:
+def reduce_from_tensor(x: torch.Tensor, mesh: tp.Optional[Mesh],
+                       axis: str = "tensor") -> torch.Tensor:
     """A row-split product's partial sums `x` summed over the tensor
     ranks (one all-reduce); the backward passes the gradient through.
-    The identity both ways at tensor width 1."""
-    if tensor_width(mesh) == 1:
+    The identity both ways at tensor width 1 (`axis`: as
+    `copy_to_tensor`)."""
+    if _width(mesh, axis) == 1:
         return x
-    return _ReduceFromTensor.apply(x, mesh)
+    return _ReduceFromTensor.apply(x, mesh, axis)
 
 
 def layer_mesh(mesh: tp.Optional[Mesh], local: int, full: int,

@@ -55,11 +55,16 @@ def test_unported_paths_raise_not_implemented():
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
                                                      TransformerLM)
     from flashy_tpu_torch.serve.engine import DecodeEngine
+    from flashy_tpu_torch.parallel import make_mesh
     base = dict(TINY, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # expert parallelism is ported (its exchange needs the mesh, as in
+    # the JAX package); expert composed with fsdp is not
+    with pytest.raises(ValueError, match="needs the mesh"):
         TransformerLM(TransformerConfig(**base, moe_experts=2,
                                         moe_dispatch="dropless_ep"),
                       device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_mesh({"expert": 2, "fsdp": 2})
     # scan_layers=True is ported: the stacked model builds and serves
     stacked = TransformerLM(TransformerConfig(**base, scan_layers=True),
                             device="cpu")

@@ -313,15 +313,29 @@ def _raises_chunked_aux():
 
 
 def _raises_dropless_ep():
+    # ported: over a mesh the model builds; without one the exchange has
+    # no expert axis (the JAX package's ValueError)
     from flashy_tpu_torch.models.transformer import (TransformerConfig,
                                                      TransformerLM)
-    TransformerLM(TransformerConfig(**TINY, **MOE, moe_dispatch="dropless_ep",
-                                    dtype=torch.float32), device="cpu")
+    from flashy_tpu_torch.parallel import make_mesh
+    cfg = TransformerConfig(**TINY, **MOE, moe_dispatch="dropless_ep",
+                            dtype=torch.float32)
+    TransformerLM(cfg, device="cpu", mesh=make_mesh({"data": 1}))
+    TransformerLM(cfg, device="cpu")
 
 
 def _raises_ep_exchange():
+    # ported: the exchange takes a mesh whose expert axis divides the
+    # experts
+    from flashy_tpu_torch.parallel import make_mesh
     from flashy_tpu_torch.parallel.moe_ep import ep_dropless_moe
-    ep_dropless_moe()
+    x, probs = torch.zeros((4, 32)), torch.full((4, 3), 1 / 3)
+    ep_dropless_moe(x, probs, torch.zeros((3, 32, 8)), torch.zeros(
+        (3, 8, 32)), mesh=make_mesh({"data": 1}), num_experts=3, top_k=2,
+        dtype=torch.float32)
+    ep_dropless_moe(x, probs, torch.zeros((3, 32, 8)), torch.zeros(
+        (3, 8, 32)), mesh=make_mesh({"data": 1}), num_experts=4, top_k=2,
+        dtype=torch.float32)
 
 
 def _raises_scan_layers():
@@ -388,8 +402,8 @@ def _raises_bad_leaf():
 @pytest.mark.parametrize("action,error,match", [
     (_raises_chunked_loss, ValueError, "loss=chunked"),
     (_raises_chunked_aux, ValueError, "chunked loss takes no MoE aux"),
-    (_raises_dropless_ep, NotImplementedError, "queue A item 8"),
-    (_raises_ep_exchange, NotImplementedError, "queue A item 8"),
+    (_raises_dropless_ep, ValueError, "needs the mesh"),
+    (_raises_ep_exchange, ValueError, "w_up holds 3 experts"),
     (_raises_scan_layers, ValueError, "uniform mixer pattern"),
     (_raises_engine, ValueError, "needs at least one SSD layer"),
     (_raises_bad_leaf, ValueError, "moe/w_up"),

@@ -272,16 +272,17 @@ def test_make_mesh_refuses_what_one_device_cannot_run():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A items "
                                                   "5 and 8"):
         make_mesh({"seq": 2}, devices=["cpu", "meta"])
-    # data, fsdp, pipe and tensor are the process axes (queue A items 5,
-    # 8a, 8c and 8b): inside one process any of them above 1 asks for
-    # processes
+    # data, fsdp, expert, pipe and tensor are the process axes (queue A
+    # items 5, 8a, 8d, 8c and 8b): inside one process any of them above 1
+    # asks for processes
     for shape in ({"data": 2, "seq": 2}, {"fsdp": 2}, {"tensor": 2},
-                  {"pipe": 2}):
+                  {"pipe": 2}, {"expert": 2}):
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             make_mesh(shape)
-    for axis, item in (("expert", "8d"),):
+    # expert composed with fsdp, pipe or seq: item 8f
+    for axis, item in (("seq", "8f"), ("pipe", "8f"), ("fsdp", "8f")):
         with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-            make_mesh({axis: 2})
+            make_mesh({"expert": 2, axis: 2})
     assert mesh_shape_from_devices(8, seq=4) == jax_shape(8, seq=4)
     set_default_mesh(None)
     assert default_mesh().size == 1 and default_mesh().devices is None
@@ -321,7 +322,7 @@ def test_check_mesh_takes_the_seq_axis_for_ring_attention_only():
     for attention in ("flash", "dense"):
         with pytest.raises(ValueError, match="ring"):
             check_mesh({**base, "seq": 2}, attention)
-    with pytest.raises(NotImplementedError, match="queue A item 8d"):
+    with pytest.raises(NotImplementedError, match="queue A item 8g"):
         check_mesh({**base, "seq": 2, "tensor": 2}, "ring_fused")
 
 

@@ -243,8 +243,10 @@ def test_failed_save_rolls_history_back(monkeypatch):
     ({"mesh": {"data": 2}}, "queue A item 5"),
     # fsdp ranks are processes too (item 8a): one process cannot hold two
     ({"mesh": {"fsdp": 2}}, "queue A item 5"),
-    ({"model": {"moe_experts": 4, "moe_dispatch": "dropless_ep"}},
-     "queue A item 8d"),
+    # expert ranks are processes too (item 8d)
+    ({"mesh": {"expert": 2}, "model": {"moe_experts": 4,
+                                       "moe_dispatch": "dropless_ep"}},
+     "queue A item 5"),
 ])
 def test_lm_solver_refuses_what_one_card_lacks(override, match):
     from flashy_tpu_torch.examples.lm.solver import LMSolver

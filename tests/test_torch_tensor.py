@@ -232,7 +232,13 @@ def test_indivisible_vocabulary_raises_naming_the_leaf_and_divisors():
     with pytest.raises(ValueError, match=r"embed: dim 0 .*63.*"
                                          r"\[1, 3, 7, 9, 21, 63\]"):
         wrap(model, mesh=mesh)
-    # a tensor mesh refuses MoE blocks (expert parallelism, item 8d)
-    with pytest.raises(NotImplementedError, match="queue A item 8d"):
-        TransformerLM(TransformerConfig(**KWARGS, moe_experts=4),
-                      device="cpu", mesh=mesh)
+    # MoE blocks under tensor build (item 8d); an expert count the
+    # expert axis does not divide raises naming the leaf and divisors
+    TransformerLM(TransformerConfig(**KWARGS, moe_experts=4), device="cpu",
+                  mesh=mesh)
+    experts = _port_mesh(expert=2)
+    moe = TransformerLM(TransformerConfig(**KWARGS, moe_experts=3),
+                        device="cpu", mesh=experts)
+    with pytest.raises(ValueError, match=r"block_0\.moe\.w_up: dim 0 .*"
+                                         r"\[1, 3\]"):
+        wrap(moe, mesh=experts)

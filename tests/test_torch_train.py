@@ -94,8 +94,9 @@ def test_remat_gives_bit_equal_grads():
 @pytest.mark.parametrize("overrides,error,match", [
     ({"remat_policy": "bogus"}, ValueError, "remat_policy"),
     ({"mixer": "ssd,mamba"}, ValueError, "mixer"),
-    ({"moe_experts": 4, "moe_dispatch": "dropless_ep"}, NotImplementedError,
-     "ROADMAP.md"),
+    # the exchange needs a mesh (the reference's ValueError)
+    ({"moe_experts": 4, "moe_dispatch": "dropless_ep"}, ValueError,
+     "needs the mesh"),
     # a stacked model needs one mixer (the reference's ValueError)
     ({"scan_layers": True, "mixer": "ssd,attention"}, ValueError,
      "uniform mixer pattern"),
